@@ -1,0 +1,105 @@
+"""Build the port's CUDA sources with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
+into ``build/mapdit_tpu_torch/<name>-<hash>.so`` under the checkout root (the
+hash of the source keeps a stale library from being loaded). All sources
+build at once, one nvcc process each, started together. Nothing is built or
+imported when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+
+PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[2]
+CSRC = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "mapdit_tpu_torch"
+SOURCES = ("mp_gemm", "cosine_attention")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "mp_gemm": {
+        "mp_gemm": (
+            [_P, _I, _P, _P, _I, _I, _I, _I, _F, _I, _P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _P],
+            ctypes.c_int,
+        ),
+        "mp_gemm_error_string": ([_I], ctypes.c_char_p),
+    },
+    "cosine_attention": {
+        "cosine_attention": ([_P, _P, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+        "cosine_attention_smem_bytes": ([_I, _I], ctypes.c_size_t),
+        "cosine_attention_error_string": ([_I], ctypes.c_char_p),
+    },
+}
+
+_LOCK = threading.Lock()
+_LIBS: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
+
+
+def _target(name: str) -> pathlib.Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build_all() -> dict:
+    """Compile every source whose library is missing, all in parallel, and
+    return ``{name: seconds}`` for the ones compiled. Raises with nvcc's
+    output if a compile fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in SOURCES:
+        target = _target(name)
+        if target.exists():
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), tmp, target)
+    start = time.perf_counter()
+    seconds, failures = {}, []
+    for name, (proc, tmp, target) in procs.items():
+        out, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - start
+        if proc.returncode != 0:
+            failures.append(f"{name}: nvcc exit {proc.returncode}\n{out.decode(errors='replace')}")
+        else:
+            os.replace(tmp, target)
+    if failures:
+        raise RuntimeError("CUDA build failed:\n" + "\n".join(failures))
+    return seconds
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building all sources first
+    if needed, with argument and return types declared."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build_all()
+            lib = ctypes.CDLL(str(_target(name)))
+            for fn, (argtypes, restype) in _SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+            _LIBS[name] = lib
+        return lib

@@ -1,0 +1,166 @@
+"""Sampling runtime, port of ``mapdit_tpu/runtime.py`` for the DDPM chain.
+
+``build_sample_fn`` folds the weights once (every weight-normalized matrix
+pre-normalized, so the chain skips the in-graph normalization), resolves the
+block-kernel policy, stacks the block weights for the whole-stack kernel
+when it is chosen, and returns ``sample_fn(noise, y, generator)``. With CFG
+the chain evolves only the first half of the [z; z] batch and duplicates it
+into the [cond; uncond] model call (the half-CFG chain); the result keeps
+the reference's 2N shape. PyTorch runs the chain eagerly, one Python
+iteration per step; capturing it in a CUDA graph is ROADMAP A.4.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+
+from mapdit_tpu_torch.models.blocks import stack_auto_ok
+from mapdit_tpu_torch.models.config import DiTConfig
+from mapdit_tpu_torch.models.dit import DiT
+from mapdit_tpu_torch.ops.mp import normalize
+from mapdit_tpu_torch.utils.device import resolve_device
+
+
+def fold_weights_for_inference(state_dict: Dict[str, torch.Tensor], cfg: DiTConfig) -> Dict[str, torch.Tensor]:
+    """Normalize every weight-normalized matrix once (2-D ``*.weight``
+    entries, the class embedding table included)."""
+    out = {}
+    for key, value in state_dict.items():
+        names = key.split(".")
+        if names[-1] != "weight" or value.ndim != 2:
+            out[key] = value
+            continue
+        is_embedding = len(names) >= 2 and names[-2] == "embedding"
+        flag = cfg.use_mp_embedding if is_embedding else cfg.use_weight_normalization
+        out[key] = normalize(value) if flag else value
+    return out
+
+
+def build_block_stack(state_dict: Dict[str, torch.Tensor], cfg: DiTConfig) -> Dict[str, torch.Tensor]:
+    """Depth-stacked folded block weights (in ``cfg.dtype``) and f32 gains
+    (depth, 2) for ``fused_dit_stack``; built once, before the chain."""
+    if not cfg.fold_weights:
+        raise ValueError("mega_stack needs folded (pre-normalized) weights")
+
+    def stack(suffix):
+        return torch.stack([state_dict[f"blocks.{i}.{suffix}"] for i in range(cfg.depth)]).to(cfg.dtype).contiguous()
+
+    gains = torch.stack(
+        [torch.stack([state_dict[f"blocks.{i}.gain_msa"], state_dict[f"blocks.{i}.gain_mlp"]]) for i in range(cfg.depth)]
+    ).float()
+    return {
+        "gains": gains.contiguous(),
+        "w_mod": stack("modulation.1.weight"),
+        "w_qkv": stack("attn.qkv_proj.weight"),
+        "w_out": stack("attn.out_proj.weight"),
+        "w1": stack("mlp.net.0.weight"),
+        "w2": stack("mlp.net.2.weight"),
+    }
+
+
+def build_shared_sample_fn(
+    cfg: DiTConfig,
+    diffusion,
+    cfg_scale: Optional[float] = None,
+    fold: bool = True,
+    sampler: str = "ddpm",
+    clip_denoised: bool = False,
+    batch_hint: Optional[int] = None,
+    noise_fn: Optional[Callable] = None,
+    device=None,
+):
+    """``(prepare, sample_fn)``: ``prepare(state_dict)`` builds the folded
+    model (and the weight stack); ``sample_fn(prepared, noise, y,
+    generator)`` runs the chain, so one built function serves many weight
+    sets.
+
+    ``batch_hint`` (the pre-CFG sample count) lets ``block_kernel="auto"``
+    promote to the whole-stack kernel (``models/blocks.py:stack_auto_ok``).
+    ``noise_fn(t, shape)`` replaces the step noise (cross-framework parity
+    tests). Only ``sampler="ddpm"`` is ported; the others are ROADMAP A.7.
+    """
+    if sampler != "ddpm":
+        raise NotImplementedError(f"sampler={sampler!r} is ROADMAP A.7; the port runs 'ddpm'")
+    device = resolve_device(device)
+    from mapdit_tpu_torch.diffusion import gd
+
+    run_cfg = cfg.replace(fold_weights=True) if (fold and cfg.use_weight_normalization) else cfg
+    if run_cfg.block_kernel == "auto" and stack_auto_ok(run_cfg, batch_hint, device):
+        run_cfg = run_cfg.replace(block_kernel="mega_stack")
+    use_stack = run_cfg.block_kernel == "mega_stack"
+    if use_stack and not run_cfg.fold_weights:
+        raise ValueError("mega_stack needs fold=True (folded weights)")
+    use_fast = diffusion.mean_type == gd.EPSILON and diffusion.var_type == gd.LEARNED_RANGE
+
+    def prepare(state_dict: Dict[str, torch.Tensor]) -> Dict:
+        sd = {k: v.to(device) for k, v in state_dict.items()}
+        if run_cfg.fold_weights:
+            sd = fold_weights_for_inference(sd, run_cfg)
+        model = DiT(run_cfg).to(device).eval()
+        model.load_state_dict(sd)
+        return {"model": model, "block_stack": build_block_stack(sd, run_cfg) if use_stack else None}
+
+    @torch.no_grad()
+    def sample_fn(prepared: Dict, noise: torch.Tensor, y: torch.Tensor, generator=None) -> torch.Tensor:
+        model, stack = prepared["model"], prepared["block_stack"]
+        if cfg_scale is None:
+            def model_fn(x, t, y):
+                return model(x, t, y, block_stack=stack)
+
+            chain_noise, chain_y = noise, y
+        else:
+            n_half = noise.shape[0] // 2
+            chain_noise, chain_y = noise[:n_half], y[:n_half]
+            y_full = y  # [cond labels; null labels], length 2N
+
+            def model_fn(x_half, t, y):
+                out = model.forward_with_cfg(
+                    torch.cat([x_half, x_half]), torch.cat([t, t]), y_full, cfg_scale, block_stack=stack
+                )
+                return out[:n_half]
+
+        loop = diffusion.p_sample_loop_fast if use_fast else diffusion.p_sample_loop
+        x = loop(
+            model_fn, chain_noise, generator, clip_denoised=clip_denoised,
+            model_kwargs={"y": chain_y}, noise_fn=noise_fn,
+        )
+        if cfg_scale is not None:
+            x = torch.cat([x, x])
+        return x
+
+    sample_fn.run_cfg = run_cfg
+    return prepare, sample_fn
+
+
+def build_sample_fn(
+    cfg: DiTConfig,
+    state_dict: Dict[str, torch.Tensor],
+    diffusion,
+    cfg_scale: Optional[float] = None,
+    fold: bool = True,
+    sampler: str = "ddpm",
+    clip_denoised: bool = False,
+    batch_hint: Optional[int] = None,
+    noise_fn: Optional[Callable] = None,
+    mesh=None,
+    device=None,
+):
+    """``sample_fn(noise, y, generator)`` over the full chain, with the
+    weights prepared once. ``noise`` is (2N, C, H, W) and ``y`` is
+    [cond labels; null labels] under CFG. ``mesh`` (multi-device layouts) is
+    ROADMAP A.8."""
+    if mesh is not None:
+        raise NotImplementedError("mesh= (multi-device sampling) is ROADMAP A.8")
+    prepare, shared_fn = build_shared_sample_fn(
+        cfg, diffusion, cfg_scale=cfg_scale, fold=fold, sampler=sampler, clip_denoised=clip_denoised,
+        batch_hint=batch_hint, noise_fn=noise_fn, device=device,
+    )
+    prepared = prepare(state_dict)
+
+    def sample_fn(noise: torch.Tensor, y: torch.Tensor, generator=None) -> torch.Tensor:
+        return shared_fn(prepared, noise, y, generator)
+
+    sample_fn.run_cfg = shared_fn.run_cfg
+    return sample_fn

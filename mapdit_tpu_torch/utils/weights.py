@@ -1,0 +1,79 @@
+"""Carry weights across: the JAX package's variables -> the port's state dict.
+
+The port's modules use the reference's state-dict names, so a reference
+state dict (for example the goldens' ``sd.*`` arrays) loads as it is, and a
+JAX ``{'params', 'constants'}`` tree maps over by renaming alone: every
+weight is stored (out, in) in both. This module keeps its own copy of the
+name table of ``mapdit_tpu/utils/torch_import.py``.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+# (reference state-dict key, JAX variable path); {0} is the block index
+_NAMES = [
+    ("x_embedder.weight", "params/x_embedder/weight"),
+    ("t_embedder.mlp.net.0.weight", "params/t_embedder/mlp/fc1/weight"),
+    ("t_embedder.mlp.net.2.weight", "params/t_embedder/mlp/fc2/weight"),
+    ("t_embedder.embedding.scale", "constants/t_embedder/fourier/scale"),
+    ("t_embedder.embedding.shift", "constants/t_embedder/fourier/shift"),
+    ("y_embedder.embedding.weight", "params/y_embedder/embedding/weight"),
+    ("blocks.{0}.attn.qkv_proj.weight", "params/blocks_{0}/attn/qkv_proj/weight"),
+    ("blocks.{0}.attn.out_proj.weight", "params/blocks_{0}/attn/out_proj/weight"),
+    ("blocks.{0}.mlp.net.0.weight", "params/blocks_{0}/mlp/fc1/weight"),
+    ("blocks.{0}.mlp.net.2.weight", "params/blocks_{0}/mlp/fc2/weight"),
+    ("blocks.{0}.modulation.1.weight", "params/blocks_{0}/modulation/linear/weight"),
+    ("blocks.{0}.gain_msa", "params/blocks_{0}/gain_msa"),
+    ("blocks.{0}.gain_mlp", "params/blocks_{0}/gain_mlp"),
+    ("final_layer.linear.weight", "params/final_layer/linear/weight"),
+    ("final_layer.modulation.1.weight", "params/final_layer/modulation/linear/weight"),
+    ("final_layer.gain_mod", "params/final_layer/gain_mod"),
+    ("final_layer.mean_scale.linear.weight", "params/final_layer/mean_scale/linear/weight"),
+    ("final_layer.mean_scale.reference", "params/final_layer/mean_scale/reference"),
+    ("final_layer.sigma_scale.linear.weight", "params/final_layer/sigma_scale/linear/weight"),
+    ("final_layer.sigma_scale.reference", "params/final_layer/sigma_scale/reference"),
+]
+_PATTERNS = [
+    (re.compile("^" + re.escape(path).replace(re.escape("{0}"), r"(\d+)") + "$"), key)
+    for key, path in _NAMES
+]
+
+
+def _flatten(tree: Mapping, prefix: str, out: Dict[str, np.ndarray]) -> None:
+    for k, v in tree.items():
+        path = f"{prefix}/{k}"
+        if isinstance(v, Mapping):
+            _flatten(v, path, out)
+        else:
+            out[path] = np.asarray(v)
+
+
+def state_dict_from_jax(variables: Mapping, cfg=None) -> Dict[str, torch.Tensor]:
+    """The port's state dict (float32 tensors) for a JAX variables tree of
+    arrays. With ``cfg`` it also holds the ``pos_embed`` buffer, regenerated
+    from the config, so ``load_state_dict`` can be strict."""
+    flat: Dict[str, np.ndarray] = {}
+    for collection in ("params", "constants"):
+        _flatten(variables.get(collection, {}), collection, flat)
+    sd: Dict[str, torch.Tensor] = {}
+    unmatched = []
+    for path, value in flat.items():
+        for pattern, key in _PATTERNS:
+            m = pattern.match(path)
+            if m:
+                sd[key.format(*m.groups())] = torch.from_numpy(np.array(value, dtype=np.float32))
+                break
+        else:
+            unmatched.append(path)
+    if unmatched:
+        raise KeyError(f"JAX variables with no port name: {unmatched[:10]}")
+    if cfg is not None:
+        from mapdit_tpu_torch.models.dit import pos_embed_buffer
+
+        sd["pos_embed"] = pos_embed_buffer(cfg)
+    return sd

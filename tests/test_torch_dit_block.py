@@ -1,0 +1,101 @@
+"""The port's block kernels (ops/cuda/dit_block.py) against the JAX Pallas
+kernels, which run in interpret mode on the CPU. On CPU tensors the port's
+wrappers run their plain versions, so this holds the math the CUDA kernels
+compute; the kernels themselves are held against the same plain versions on
+the card by chip_smoke.py. Tolerance 2e-4 in float32, as the JAX package's
+own kernel parity (mapdit_tpu/ops/pallas/dit_block.py:57-59)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mapdit_tpu.ops.pallas import dit_block as jdb
+from mapdit_tpu_torch.ops.cuda import dit_block as tdb
+
+N, T, D, HEADS, H, DEPTH = 4, 16, 64, 2, 256, 2
+TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def _inputs(seed, depth=None):
+    rng = np.random.default_rng(seed)
+    lead = () if depth is None else (depth,)
+
+    def f(*s):
+        return rng.normal(size=s).astype(np.float32)
+
+    def w(*s):
+        m = f(*lead, *s)
+        return m * np.sqrt(s[-1]) / (np.linalg.norm(m, axis=-1, keepdims=True) + 1e-4)
+
+    gains = rng.uniform(0.1, 0.9, size=lead + (2,)).astype(np.float32)
+    return [f(N, T, D), f(N, D), gains, w(6 * D, D), w(3 * D, D), w(D, D), w(H, D), w(D, H)]
+
+
+def _port(fn, args, dtype=torch.float32):
+    out = fn(*[torch.from_numpy(a).to(dtype if a.ndim > 1 else torch.float32) for a in args], HEADS)
+    return out.float().numpy()
+
+
+def test_fused_dit_block_matches_jax():
+    args = _inputs(0)
+    want = np.asarray(jdb.fused_dit_block(*[jnp.asarray(a) for a in args], HEADS))
+    np.testing.assert_allclose(_port(tdb.fused_dit_block, args), want, **TOL)
+
+
+def test_fused_dit_stack_matches_jax():
+    args = _inputs(1, depth=DEPTH)
+    want = np.asarray(jdb.fused_dit_stack(*[jnp.asarray(a) for a in args], HEADS))
+    np.testing.assert_allclose(_port(tdb.fused_dit_stack, args), want, **TOL)
+
+
+def test_stack_equals_block_sequence():
+    args = _inputs(2, depth=DEPTH)
+    x, a, gains, *ws = [torch.from_numpy(v) for v in args]
+    step = x
+    for b in range(DEPTH):
+        step = tdb.fused_dit_block(step, a, gains[b], *[w[b] for w in ws], HEADS)
+    torch.testing.assert_close(tdb.fused_dit_stack(x, a, gains, *ws, HEADS), step, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n", [4, 3])
+def test_attention_core_matches_jax(n):
+    """The plain cosine-attention core against the Pallas body's
+    _attention_core called directly on arrays (n=4 takes its paired-sample
+    form, n=3 its per-head form)."""
+    qkv = np.random.default_rng(n).normal(size=(n * T, 3 * D)).astype(np.float32)
+    want = np.asarray(jdb._attention_core(jnp.asarray(qkv), n, T, D, HEADS, jnp.float32))
+    got = tdb.cosine_attention(torch.from_numpy(qkv), T, HEADS, torch.float32).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_fused_dit_block_bf16():
+    """bf16 operands and stream, as the sampling path runs them. The two
+    packages round the modulate output, attention, hidden and stream to
+    bf16 at the same places but sum in another order, so one element may
+    land a bf16 ulp (2^-8 relative) apart and carry that through the next
+    product: bound 5e-2 absolute on unit-scale activations, mean 2e-3."""
+    args = _inputs(3)
+    jargs = [jnp.asarray(a, jnp.bfloat16) if a.ndim > 1 else jnp.asarray(a) for a in args]
+    want = np.asarray(jdb.fused_dit_block(*jargs, HEADS).astype(jnp.float32))
+    got = _port(tdb.fused_dit_block, args, torch.bfloat16)
+    err = np.abs(got - want)
+    assert err.max() < 5e-2, err.max()
+    assert err.mean() < 2e-3, err.mean()
+
+
+def test_mp_gemm_modes_match_plain_algebra():
+    """The prologue and epilogues of mp_gemm, written out by hand."""
+    rng = np.random.default_rng(5)
+    m, k, n, tokens = 8, 16, 12, 4
+    a, w = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)), torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32))
+    mods = torch.from_numpy(rng.normal(size=(m // tokens, 3 * k)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32))
+    g = torch.tensor([0.3])
+    rows = torch.arange(m) // tokens
+    shift, scale, gate = mods[rows, :k], mods[rows, k : 2 * k], mods[rows, 2 * k : 2 * k + n]
+    h = (a * scale + (shift - a * scale) * 0.3) / np.sqrt(0.7**2 + 0.3**2)
+    got = tdb.mp_gemm(a, w, alpha=0.5, out_dtype=torch.float32, modulate=(mods, 0, k, g), silu=True, tokens=tokens)
+    torch.testing.assert_close(got, torch.nn.functional.silu(h @ w.t() * 0.5) / 0.596)
+    got = tdb.mp_gemm(a, w, alpha=0.5, out_dtype=torch.float32, residual=(x, mods, 2 * k), tokens=tokens)
+    torch.testing.assert_close(got, (x + (gate * (a @ w.t() * 0.5) - x) * 0.3) / np.sqrt(0.58))
