@@ -11,6 +11,13 @@
 //   * max-free softmax exp(l - sqrt(hd)): cosine logits are bounded by
 //     sqrt(hd), so no row max is needed and no exponent overflows;
 //   * o = (bf16(exp) . bf16(v)) * (1 / row sum), the division after P.V.
+// Residual mode (normalize_first = 1) replaces _attn_res_kernel's attention
+// (dit_block.py:_attn_res_fwd_impl, the training forward for
+// attn_bwd="residual", and the recompute of the fused backward): the
+// probabilities p = exp * (1 / row sum) are formed BEFORE P.V, written as
+// f32 (N, heads, T, T) when p_out is given, and rounded to bf16 for
+// o = bf16(p) . bf16(v). The two modes round at different places, as the
+// two Pallas kernels do.
 // Products of bf16 values are exact in f32, so the scalar f32 FMAs here give
 // the bf16-operand, f32-accumulate products of the Pallas kernel up to the
 // order of the sums.
@@ -39,7 +46,8 @@ __host__ inline size_t smem_bytes(int t, int hd) {
 
 __global__ void __launch_bounds__(THREADS)
     cosine_attention_kernel(const float* __restrict__ qkv, void* __restrict__ out, int out_bf16,
-                            int t, int heads, int hd) {
+                            float* __restrict__ p_out, int normalize_first, int t, int heads,
+                            int hd) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ld = row_stride(hd);
   __nv_bfloat16* q = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -97,13 +105,23 @@ __global__ void __launch_bounds__(THREADS)
   }
   __syncthreads();
 
+  if (normalize_first) {
+    float* p_head = p_out ? p_out + ((int64_t)sample * heads + head) * t * t : nullptr;
+    for (int i = tid; i < t * t; i += THREADS) {
+      const float p = ex[i] * inv_sum[i / t];
+      ex[i] = p;
+      if (p_head) p_head[i] = p;
+    }
+    __syncthreads();
+  }
+
   for (int i = tid; i < t * hd; i += THREADS) {
     const int r = i / hd, c = i % hd;
     const float* er = ex + r * t;
     float acc = 0.f;
     for (int j = 0; j < t; ++j)
       acc += __bfloat162float(__float2bfloat16(er[j])) * __bfloat162float(v[j * ld + c]);
-    const float o = acc * inv_sum[r];
+    const float o = normalize_first ? acc : acc * inv_sum[r];
     const int64_t idx = ((int64_t)sample * t + r) * d + head * hd + c;
     if (out_bf16) {
       static_cast<__nv_bfloat16*>(out)[idx] = __float2bfloat16(o);
@@ -117,15 +135,17 @@ __global__ void __launch_bounds__(THREADS)
 
 extern "C" size_t cosine_attention_smem_bytes(int t, int hd) { return smem_bytes(t, hd); }
 
-extern "C" int cosine_attention(const void* qkv, void* out, int out_bf16, int n, int t, int heads,
-                                int hd, void* stream) {
+extern "C" int cosine_attention(const void* qkv, void* out, int out_bf16, void* p_out,
+                                int normalize_first, int n, int t, int heads, int hd,
+                                void* stream) {
   const size_t smem = smem_bytes(t, hd);
   cudaError_t err = cudaFuncSetAttribute(
       cosine_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(heads, n);
   cosine_attention_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(qkv), out, out_bf16, t, heads, hd);
+      static_cast<const float*>(qkv), out, out_bf16, static_cast<float*>(p_out), normalize_first,
+      t, heads, hd);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,4 +1,5 @@
-// mp_gemm: C = epilogue(prologue(A) . W^T * alpha), bf16 operands, f32 sums.
+// mp_gemm: C = epilogue(prologue(A) . op(W) * alpha), bf16 operands, f32 sums,
+// op(W) = W^T for W stored (N, K) or W itself for W stored (K, N).
 //
 // Replaces the five matrix products inside the Pallas whole-block body
 // (mapdit_tpu/ops/pallas/dit_block.py:_block_body, reached from
@@ -12,7 +13,12 @@
 //   epilogue  SILU: silu(c) / 0.596 (MP-SiLU);
 //             RESIDUAL: (x + (gate*c - x)*0.3) / sqrt(0.58), the gated MP
 //             residual, with x read from the stream (f32 or bf16).
-// W is stored (out, in), as the port stores every weight.
+// W is stored (out, in), as the port stores every weight: the forward
+// products read it as (N, K) and take W^T; the attention half-block's
+// backward (mapdit_tpu/ops/pallas/dit_block.py:_attn_bwd_math, dattn =
+// dout . Wout and dh = dqkv . Wqkv) reads the same array as (K, N) and takes
+// W itself, so no transposed weight copy is ever made. Only the tile load
+// differs between the two layouts; the shared-memory tile is (n, k) in both.
 //
 // Bound on the H100: at the DiT-S/2 sampling shapes (M = 4096 rows, K = 384
 // or 1536) every product does 2*M*N*K flops on ~(M*K + N*K + M*N) elements,
@@ -73,6 +79,10 @@ __device__ __forceinline__ void store_f32(void* p, int dtype, int64_t i, float v
   }
 }
 
+// W_KN: W stored (K, N) and C = A . W; otherwise W stored (N, K) and
+// C = A . W^T. A template parameter, so the forward products compile to the
+// same code as without the second layout.
+template <bool W_KN>
 __global__ void __launch_bounds__(THREADS) mp_gemm_kernel(Params p) {
   __shared__ __align__(32) __nv_bfloat16 As[BM * LDA];
   __shared__ __align__(32) __nv_bfloat16 Ws[BN * LDA];
@@ -112,11 +122,21 @@ __global__ void __launch_bounds__(THREADS) mp_gemm_kernel(Params p) {
       }
       As[r * LDA + kk] = __float2bfloat16(v);
     }
-    for (int i = tid; i < BN * BK; i += THREADS) {
-      const int r = i / BK, kk = i % BK;
-      const int row = n0 + r, col = k0 + kk;
-      Ws[r * LDA + kk] = (row < p.n && col < p.k) ? p.w[(int64_t)row * p.k + col]
-                                                 : __float2bfloat16(0.f);
+    if constexpr (W_KN) {
+      // neighbouring threads read neighbouring n of one k row of W
+      for (int i = tid; i < BN * BK; i += THREADS) {
+        const int r = i % BN, kk = i / BN;
+        const int row = n0 + r, col = k0 + kk;
+        Ws[r * LDA + kk] = (row < p.n && col < p.k) ? p.w[(int64_t)col * p.n + row]
+                                                   : __float2bfloat16(0.f);
+      }
+    } else {
+      for (int i = tid; i < BN * BK; i += THREADS) {
+        const int r = i / BK, kk = i % BK;
+        const int row = n0 + r, col = k0 + kk;
+        Ws[r * LDA + kk] = (row < p.n && col < p.k) ? p.w[(int64_t)row * p.k + col]
+                                                   : __float2bfloat16(0.f);
+      }
     }
     __syncthreads();
 #pragma unroll
@@ -167,7 +187,7 @@ __global__ void __launch_bounds__(THREADS) mp_gemm_kernel(Params p) {
 extern "C" int mp_gemm(const void* a, int a_dtype, const void* w, void* c, int c_dtype, int m,
                        int n, int k, float alpha, int prologue, const void* mods, int mods_ld,
                        int shift_off, int scale_off, int gate_off, const void* gain, int tokens,
-                       int epilogue, const void* x, int x_dtype, void* stream) {
+                       int epilogue, const void* x, int x_dtype, int w_kn, void* stream) {
   Params p;
   p.a = a;
   p.a_dtype = a_dtype;
@@ -190,7 +210,12 @@ extern "C" int mp_gemm(const void* a, int a_dtype, const void* w, void* c, int c
   p.x = x;
   p.x_dtype = x_dtype;
   dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  mp_gemm_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w_kn) {
+    mp_gemm_kernel<true><<<grid, THREADS, 0, s>>>(p);
+  } else {
+    mp_gemm_kernel<false><<<grid, THREADS, 0, s>>>(p);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,8 +1,9 @@
-"""Gaussian diffusion: float32 coefficient tables on the device and the
-ancestral (DDPM) sampling chains.
+"""Gaussian diffusion: float32 coefficient tables on the device, the
+ancestral (DDPM) sampling chains and the training losses.
 
-Port of the tables and of ``p_sample``, ``p_sample_loop`` and
-``p_sample_loop_fast`` from ``mapdit_tpu/diffusion/gaussian.py``. The tables
+Port of the tables, of ``p_sample``, ``p_sample_loop`` and
+``p_sample_loop_fast``, and of ``q_sample``, the posterior, the VB terms and
+``training_losses`` from ``mapdit_tpu/diffusion/gaussian.py``. The tables
 are computed on the host in float64 and stored as float32 tensors. The step
 noise comes from an explicit ``torch.Generator``; ``noise_fn(t, shape)``
 replaces it, the hook that lets a test feed the same noise to the JAX
@@ -12,14 +13,16 @@ package and the port.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+import math
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from mapdit_tpu_torch.diffusion.dmath import discretized_gaussian_log_likelihood, mean_flat, normal_kl
 from mapdit_tpu_torch.utils.device import resolve_device
 
-START_X, EPSILON = "start_x", "epsilon"
+PREVIOUS_X, START_X, EPSILON = "previous_x", "start_x", "epsilon"
 LEARNED, FIXED_SMALL, FIXED_LARGE, LEARNED_RANGE = "learned", "fixed_small", "fixed_large", "learned_range"
 MSE, RESCALED_MSE, KL, RESCALED_KL = "mse", "rescaled_mse", "kl", "rescaled_kl"
 
@@ -126,12 +129,31 @@ class GaussianDiffusion:
         consumes."""
         return self.timestep_map[t].float()
 
-    def p_mean_variance(
-        self, model_fn: ModelFn, x, t, clip_denoised: bool = True, denoised_fn=None, model_kwargs=None
+    def q_sample(self, x_start, t, noise) -> torch.Tensor:
+        """sqrt(acp) x0 + sqrt(1 - acp) eps."""
+        nd = x_start.ndim
+        return (
+            self._extract(self.sqrt_alphas_cumprod, t, nd) * x_start
+            + self._extract(self.sqrt_one_minus_alphas_cumprod, t, nd) * noise
+        )
+
+    def q_posterior_mean_variance(self, x_start, x_t, t) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        nd = x_t.ndim
+        mean = (
+            self._extract(self.posterior_mean_coef1, t, nd) * x_start
+            + self._extract(self.posterior_mean_coef2, t, nd) * x_t
+        )
+        return (
+            mean,
+            self._extract(self.posterior_variance, t, nd),
+            self._extract(self.posterior_log_variance_clipped, t, nd),
+        )
+
+    def p_mean_variance_from_output(
+        self, model_output, x, t, clip_denoised: bool = True, denoised_fn=None
     ) -> Dict[str, torch.Tensor]:
-        """p(x_{t-1} | x_t) statistics from one model call."""
+        """p(x_{t-1} | x_t) statistics from a raw model output."""
         nd = x.ndim
-        model_output = model_fn(x, self.model_timesteps(t), **(model_kwargs or {}))
         if self.var_type in (LEARNED, LEARNED_RANGE):
             model_output, var_values = torch.chunk(model_output, 2, dim=1)
             if self.var_type == LEARNED_RANGE:
@@ -141,9 +163,12 @@ class GaussianDiffusion:
                 model_log_variance = frac * max_log + (1.0 - frac) * min_log
             else:
                 model_log_variance = var_values
+            model_variance = torch.exp(model_log_variance)
         elif self.var_type == FIXED_LARGE:
+            model_variance = self._extract(self.fixed_large_variance, t, nd)
             model_log_variance = self._extract(self.fixed_large_log_variance, t, nd)
         else:
+            model_variance = self._extract(self.posterior_variance, t, nd)
             model_log_variance = self._extract(self.posterior_log_variance_clipped, t, nd)
 
         def process_xstart(x0):
@@ -160,11 +185,75 @@ class GaussianDiffusion:
                 self._extract(self.sqrt_recip_alphas_cumprod, t, nd) * x
                 - self._extract(self.sqrt_recipm1_alphas_cumprod, t, nd) * model_output
             )
-        mean = (
-            self._extract(self.posterior_mean_coef1, t, nd) * pred_xstart
-            + self._extract(self.posterior_mean_coef2, t, nd) * x
-        )
-        return {"mean": mean, "log_variance": model_log_variance, "pred_xstart": pred_xstart}
+        model_mean, _, _ = self.q_posterior_mean_variance(pred_xstart, x, t)
+        return {
+            "mean": model_mean,
+            "variance": model_variance,
+            "log_variance": model_log_variance,
+            "pred_xstart": pred_xstart,
+        }
+
+    def _vb_terms_from_output(self, model_output, x_start, x_t, t, clip_denoised: bool):
+        """KL(q || p) in bits, the decoder NLL at t = 0."""
+        true_mean, _, true_logvar = self.q_posterior_mean_variance(x_start, x_t, t)
+        out = self.p_mean_variance_from_output(model_output, x_t, t, clip_denoised=clip_denoised)
+        kl = mean_flat(normal_kl(true_mean, true_logvar, out["mean"], out["log_variance"])) / math.log(2.0)
+        decoder_nll = mean_flat(
+            -discretized_gaussian_log_likelihood(x_start, means=out["mean"], log_scales=0.5 * out["log_variance"])
+        ) / math.log(2.0)
+        return torch.where(t == 0, decoder_nll, kl), out["pred_xstart"]
+
+    def vb_terms_bpd(
+        self, model_fn: ModelFn, x_start, x_t, t, clip_denoised: bool = True, model_kwargs=None
+    ) -> Dict[str, torch.Tensor]:
+        out = model_fn(x_t, self.model_timesteps(t), **(model_kwargs or {}))
+        output, pred_xstart = self._vb_terms_from_output(out, x_start, x_t, t, clip_denoised)
+        return {"output": output, "pred_xstart": pred_xstart}
+
+    def training_losses(
+        self, model_fn: ModelFn, x_start, t, model_kwargs=None, noise=None, generator=None
+    ) -> Dict[str, torch.Tensor]:
+        """Per-sample training loss. LEARNED_RANGE: loss = mse(eps) + vb,
+        the VB term seeing a detached eps half, so variance learning cannot
+        move the eps objective (the reference's frozen output)."""
+        if noise is None:
+            noise = torch.randn(x_start.shape, generator=generator, device=x_start.device, dtype=x_start.dtype)
+        x_t = self.q_sample(x_start, t, noise)
+        terms: Dict[str, torch.Tensor] = {}
+        if self.loss_type in (KL, RESCALED_KL):
+            terms["loss"] = self.vb_terms_bpd(
+                model_fn, x_start, x_t, t, clip_denoised=False, model_kwargs=model_kwargs
+            )["output"]
+            if self.loss_type == RESCALED_KL:
+                terms["loss"] = terms["loss"] * self.num_timesteps
+            return terms
+
+        model_output = model_fn(x_t, self.model_timesteps(t), **(model_kwargs or {}))
+        if self.var_type in (LEARNED, LEARNED_RANGE):
+            eps_out, var_values = torch.chunk(model_output, 2, dim=1)
+            frozen = torch.cat([eps_out.detach(), var_values], dim=1)
+            vb, _ = self._vb_terms_from_output(frozen, x_start, x_t, t, clip_denoised=False)
+            if self.loss_type == RESCALED_MSE:
+                vb = vb * (self.num_timesteps / 1000.0)
+            terms["vb"] = vb
+            model_output = eps_out
+
+        if self.mean_type == PREVIOUS_X:
+            target = self.q_posterior_mean_variance(x_start, x_t, t)[0]
+        elif self.mean_type == START_X:
+            target = x_start
+        else:
+            target = noise
+        terms["mse"] = mean_flat((target - model_output) ** 2)
+        terms["loss"] = terms["mse"] + terms["vb"] if "vb" in terms else terms["mse"]
+        return terms
+
+    def p_mean_variance(
+        self, model_fn: ModelFn, x, t, clip_denoised: bool = True, denoised_fn=None, model_kwargs=None
+    ) -> Dict[str, torch.Tensor]:
+        """p(x_{t-1} | x_t) statistics from one model call."""
+        model_output = model_fn(x, self.model_timesteps(t), **(model_kwargs or {}))
+        return self.p_mean_variance_from_output(model_output, x, t, clip_denoised, denoised_fn)
 
     def _step_noise(self, x, t, generator, noise_fn):
         if noise_fn is not None:

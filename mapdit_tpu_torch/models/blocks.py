@@ -35,6 +35,15 @@ def use_megakernel(cfg: DiTConfig, seq_len: int, device: torch.device) -> bool:
     return cfg.block_kernel == "auto" and kernel_policy(cfg, seq_len, device) == "mega"
 
 
+def use_attn_halfkernel(cfg: DiTConfig) -> bool:
+    """Whether a DiTBlock runs its attention half through
+    ``fused_attn_branch`` (modulation head and MLP stay plain): an explicit
+    ``mega_attn``. ``auto`` never resolves to it here: the port's policy has
+    no weight budget and takes the whole-block kernels where the JAX
+    package would take this one for B and XL sampling (ROADMAP A.4)."""
+    return cfg.block_kernel == "mega_attn"
+
+
 def stack_auto_ok(cfg: DiTConfig, batch_hint: Optional[int], device: torch.device) -> bool:
     """Whether the sampling runtime promotes ``auto`` to ``mega_stack``: a
     batch hint is given and the per-block policy would take the kernels."""
@@ -90,8 +99,24 @@ class DiTBlock(nn.Module):
                 cfg.num_heads,
             )
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.modulation(c)
-        h = modulate(x, shift_msa, scale_msa, self.gain_msa)
-        x = mp_sum(x, gate_msa[:, None, :] * self.attn(h), t=0.3)
+        if use_attn_halfkernel(cfg):
+            from mapdit_tpu_torch.ops.cuda.attn_branch import fused_attn_branch
+
+            dt = cfg.dtype
+            x = fused_attn_branch(
+                x.to(dt).contiguous(),
+                shift_msa.to(dt),
+                scale_msa.to(dt),
+                gate_msa.to(dt),
+                self.gain_msa,
+                self.attn.qkv_proj.effective_weight().to(dt).contiguous(),
+                self.attn.out_proj.effective_weight().to(dt).contiguous(),
+                cfg.num_heads,
+                bwd=cfg.attn_bwd,
+            )
+        else:
+            h = modulate(x, shift_msa, scale_msa, self.gain_msa)
+            x = mp_sum(x, gate_msa[:, None, :] * self.attn(h), t=0.3)
         h = modulate(x, shift_mlp, scale_mlp, self.gain_mlp)
         return mp_sum(x, gate_mlp[:, None, :] * self.mlp(h), t=0.3)
 
@@ -129,17 +154,28 @@ class TimestepEmbedder(nn.Module):
 
 class LabelEmbedder(nn.Module):
     """Class label -> conditioning vector; the null (unconditional) class is
-    row ``num_classes``. ``force_drop_ids == 1`` swaps a label for it."""
+    row ``num_classes``. ``force_drop_ids == 1`` swaps a label for it; in
+    training each label is dropped with ``class_dropout_prob``, drawn from
+    ``generator``."""
 
     def __init__(self, cfg: DiTConfig):
         super().__init__()
         self.cfg = cfg
         self.embedding = MPEmbedding(cfg.num_classes + int(cfg.class_dropout_prob > 0), cfg.hidden_size, cfg)
 
-    def forward(self, labels: torch.Tensor, force_drop_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Random label dropout belongs to training (ROADMAP A.6)."""
+    def forward(
+        self,
+        labels: torch.Tensor,
+        force_drop_ids: Optional[torch.Tensor] = None,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        cfg = self.cfg
         if force_drop_ids is not None:
-            labels = torch.where(force_drop_ids == 1, self.cfg.num_classes, labels)
+            labels = torch.where(force_drop_ids == 1, cfg.num_classes, labels)
+        elif train and cfg.class_dropout_prob > 0:
+            drop = torch.rand(labels.shape, generator=generator, device=labels.device) < cfg.class_dropout_prob
+            labels = torch.where(drop, cfg.num_classes, labels)
         return self.embedding(labels)
 
 

@@ -2,9 +2,9 @@
 
 Every field of the JAX ``DiTConfig`` is here. The port so far implements the
 default MaP family (all ``use_*`` flags on, ``modulation="adaln"``), the
-``auto``/``xla`` attention path and the ``auto``, ``mega``, ``mega_stack``
-and ``off`` block kernels; any other value raises ``NotImplementedError``
-naming the ROADMAP item that ports it.
+``auto``/``xla`` attention path, the ``auto``, ``mega``, ``mega_attn``,
+``mega_stack`` and ``off`` block kernels and every ``attn_bwd``; any other
+value raises ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -14,10 +14,9 @@ import dataclasses
 import torch
 
 MODULATION_KINDS = ("adaln", "rotation", "rotation_scale")
-BLOCK_KERNELS = ("auto", "mega", "mega_stack", "off")
+BLOCK_KERNELS = ("auto", "mega", "mega_attn", "mega_stack", "off")
 # block_kernel values of the JAX package the port has not reached yet
 _UNPORTED_BLOCK_KERNELS = {
-    "mega_attn": "ROADMAP B.4 (attention half-block kernel)",
     "pallas": "ROADMAP B.8 (MLP half-block kernel)",
     "mega_attn_tp": "ROADMAP B.10 (head-sharded attention kernel)",
     "mega_tp": "ROADMAP B.11 (full-block tensor-parallel kernels)",
@@ -53,8 +52,13 @@ class DiTConfig:
     # "mega": each block through fused_dit_block (ops/cuda/dit_block.py);
     # "mega_stack": the whole stack through fused_dit_stack inside the
     # sampling runtime (elsewhere it runs the plain path, as in the JAX
-    # package); "auto": the policy in models/blocks.py; "off": plain torch.
+    # package); "mega_attn": the attention half of each block through
+    # fused_attn_branch (ops/cuda/attn_branch.py), the MLP half plain;
+    # "auto": the policy in models/blocks.py; "off": plain torch.
     block_kernel: str = "off"
+    # VJP of fused_attn_branch under mega_attn: "pallas" (fused backward
+    # kernels), "residual" (residual-emitting forward, plain backward),
+    # "reference" (autograd through the plain reference)
     attn_bwd: str = "pallas"
     remat: bool = False
     scan_blocks: bool = False
@@ -84,7 +88,7 @@ class DiTConfig:
                 f"attention_impl={self.attention_impl!r} is ROADMAP B.9 (standalone attention kernel)"
             )
         if self.scan_blocks or self.remat:
-            raise NotImplementedError("scan_blocks and remat belong to training: ROADMAP A.6")
+            raise NotImplementedError("scan_blocks and remat are later items of training (ROADMAP A.6)")
 
     @property
     def dtype(self) -> torch.dtype:

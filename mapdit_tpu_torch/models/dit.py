@@ -1,5 +1,6 @@
-"""The DiT model, port of ``mapdit_tpu/models/dit.py`` (forward and
-``forward_with_cfg``, with the whole-stack kernel path)."""
+"""The DiT model, port of ``mapdit_tpu/models/dit.py`` (forward with train-time
+label dropout, ``forward_with_cfg``, the whole-stack kernel path and
+``project_weights``)."""
 
 from __future__ import annotations
 
@@ -59,9 +60,13 @@ class DiT(nn.Module):
         y: torch.Tensor,
         force_drop_ids: Optional[torch.Tensor] = None,
         block_stack: Optional[dict] = None,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """``block_stack`` (from ``runtime.build_block_stack``) runs all
-        blocks through the whole-stack kernel ``fused_dit_stack``."""
+        blocks through the whole-stack kernel ``fused_dit_stack``. ``train``
+        drops class labels with ``class_dropout_prob``, drawn from
+        ``generator``."""
         cfg = self.cfg
         dt = cfg.dtype
         x = patchify(x, cfg.patch_size).to(dt)
@@ -69,7 +74,7 @@ class DiT(nn.Module):
         x = self.x_embedder(x)
         x = mp_sum(x, self.pos_embed.to(dt), t=0.5)
 
-        c = mp_sum(self.t_embedder(t), self.y_embedder(y, force_drop_ids), t=0.5)
+        c = mp_sum(self.t_embedder(t), self.y_embedder(y, force_drop_ids, train, generator), t=0.5)
 
         if block_stack is not None:
             from mapdit_tpu_torch.ops.cuda.dit_block import fused_dit_stack
@@ -117,6 +122,25 @@ class DiT(nn.Module):
         half_eps = uncond_eps + cfg_scale * (cond_eps - uncond_eps)
         eps = torch.cat([half_eps, half_eps], dim=0)
         return torch.cat([eps, rest], dim=1)
+
+
+@torch.no_grad()
+def project_weights(model: DiT, cfg: DiTConfig) -> None:
+    """Row-normalize every weight-normalized matrix of ``model`` in place
+    (forced weight normalization): the stored weights are projected back
+    onto the norm-sqrt(in_dim) manifold after each optimizer update. The
+    class embedding table follows ``use_mp_embedding``, the other 2-D
+    ``weight`` matrices ``use_weight_normalization``; both need
+    ``use_forced_weight_normalization``. In place where the JAX package
+    returns a new tree."""
+    for name, param in model.named_parameters():
+        names = name.split(".")
+        if names[-1] != "weight" or param.ndim != 2:
+            continue
+        is_embedding = len(names) >= 2 and names[-2] == "embedding"
+        flag = cfg.use_mp_embedding if is_embedding else cfg.use_weight_normalization
+        if flag and cfg.use_forced_weight_normalization:
+            param.copy_(normalize(param))
 
 
 def init_model(cfg: DiTConfig, seed: int = 0, device=None) -> DiT:

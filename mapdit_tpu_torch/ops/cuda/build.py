@@ -21,7 +21,7 @@ import time
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "mapdit_tpu_torch"
-SOURCES = ("mp_gemm", "cosine_attention")
+SOURCES = ("mp_gemm", "cosine_attention", "attn_branch_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -31,15 +31,27 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "mp_gemm": {
         "mp_gemm": (
-            [_P, _I, _P, _P, _I, _I, _I, _I, _F, _I, _P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _P],
+            [_P, _I, _P, _P, _I, _I, _I, _I, _F, _I, _P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P],
             ctypes.c_int,
         ),
         "mp_gemm_error_string": ([_I], ctypes.c_char_p),
     },
     "cosine_attention": {
-        "cosine_attention": ([_P, _P, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+        "cosine_attention": ([_P, _P, _I, _P, _I, _I, _I, _I, _I, _P], ctypes.c_int),
         "cosine_attention_smem_bytes": ([_I, _I], ctypes.c_size_t),
         "cosine_attention_error_string": ([_I], ctypes.c_char_p),
+    },
+    "attn_branch_bwd": {
+        "gate_residual_bwd": ([_P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P], ctypes.c_int),
+        "attention_bwd": ([_P, _P, _P, _I, _I, _I, _I, _P], ctypes.c_int),
+        "attention_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
+        "modulate_fwd": ([_P, _I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P], ctypes.c_int),
+        "modulate_bwd_partials": ([_I, _I], ctypes.c_int),
+        "modulate_bwd": (
+            [_P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+            ctypes.c_int,
+        ),
+        "attn_branch_bwd_error_string": ([_I], ctypes.c_char_p),
     },
 }
 

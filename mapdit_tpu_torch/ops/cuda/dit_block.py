@@ -22,6 +22,12 @@ kernels and their notes on bounds and design.
 Each wrapper takes its kernel for a CUDA tensor (and raises on what the
 kernel does not take) and its plain PyTorch version for a CPU tensor; there
 is no other fallback. ``LAUNCHES`` counts kernel launches by call site.
+
+Gradients: ``fused_dit_block`` and ``fused_dit_stack`` are autograd
+functions whose backward recomputes through :func:`block_reference`, the
+plain reference math (the Pallas package's ``_make`` / ``_make_stack`` VJPs
+over ``_reference`` / ``_stack_reference``), so training through
+``block_kernel="mega"`` keeps its graph.
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from mapdit_tpu_torch.ops.mp import mp_silu, mp_sum, normalize
+
 RES_T = 0.3
 RES_DENOM = math.sqrt((1 - RES_T) ** 2 + RES_T**2)
 SILU_DIV = 0.596
@@ -40,10 +48,13 @@ NORM_EPS = 1e-4
 # largest dynamic shared memory a block may take on the H100 (232,448 bytes)
 MAX_SMEM_BYTES = 227 * 1024
 
-GEMM_SITES = ("modulation", "qkv", "out", "fc1", "fc2")
+# forward sites of the block and the attention half-block, then the two
+# products of the attention half-block's backward that read W as (K, N)
+GEMM_SITES = ("modulation", "qkv", "out", "fc1", "fc2", "dattn", "dh")
 LAUNCHES = {
     **{f"mp_gemm/{s}": 0 for s in GEMM_SITES},
     "cosine_attention": 0,
+    "cosine_attention/residual": 0,
     "fused_dit_block": 0,
     "fused_dit_stack": 0,
 }
@@ -70,9 +81,11 @@ def _require_cuda(*tensors: torch.Tensor) -> None:
             raise ValueError("kernel inputs must be contiguous")
 
 
-def _raise_on(code: int, lib, fn: str) -> None:
+def _raise_on(code: int, lib, fn: str, source: Optional[str] = None) -> None:
+    """Raise if a launch returned a CUDA error; ``source`` names the library
+    whose ``<source>_error_string`` decodes it (default ``fn``)."""
     if code != 0:
-        msg = getattr(lib, f"{fn}_error_string")(code).decode()
+        msg = getattr(lib, f"{source or fn}_error_string")(code).decode()
         raise RuntimeError(f"{fn} launch failed: CUDA error {code} ({msg})")
 
 
@@ -81,14 +94,16 @@ def _raise_on(code: int, lib, fn: str) -> None:
 
 
 def mp_gemm_plain(
-    a, w, *, alpha, out_dtype, modulate=None, silu=False, residual=None, tokens=1, out=None, site=None
+    a, w, *, alpha, out_dtype, modulate=None, silu=False, residual=None, tokens=1, out=None, w_kn=False,
+    site=None,
 ):
     """Plain version of :func:`mp_gemm` (``site`` only names a launch count).
 
     ``modulate=(mods, shift_off, scale_off, gain)`` and
     ``residual=(x, mods, gate_off)`` give the prologue and the gated MP
     residual epilogue; ``mods`` is (N, *) f32, column offsets index it, and
-    row r of ``a`` belongs to sample r // tokens."""
+    row r of ``a`` belongs to sample r // tokens. ``w_kn`` reads ``w`` as
+    (K, N) and takes ``a @ w`` instead of ``a @ w.T``."""
     af = a.float()
     if modulate is not None:
         mods, shift_off, scale_off, gain = modulate
@@ -97,12 +112,13 @@ def mp_gemm_plain(
         scale = _rows(mods[:, scale_off : scale_off + k], tokens)
         xs = af * scale
         af = (xs + (shift - xs) * gain) / torch.sqrt((1.0 - gain) ** 2 + gain**2)
-    c = (af.to(w.dtype).float() @ w.float().t()) * alpha
+    n_out = w.shape[1] if w_kn else w.shape[0]
+    c = (af.to(w.dtype).float() @ (w.float() if w_kn else w.float().t())) * alpha
     if silu:
         c = F.silu(c) / SILU_DIV
     if residual is not None:
         x, mods, gate_off = residual
-        gate = _rows(mods[:, gate_off : gate_off + w.shape[0]], tokens)
+        gate = _rows(mods[:, gate_off : gate_off + n_out], tokens)
         xf = x.float()
         c = (xf + (gate * c - xf) * RES_T) / RES_DENOM
     c = c.to(out_dtype)
@@ -112,23 +128,25 @@ def mp_gemm_plain(
 
 
 def mp_gemm(
-    a, w, *, alpha, out_dtype, modulate=None, silu=False, residual=None, tokens=1, out=None,
+    a, w, *, alpha, out_dtype, modulate=None, silu=False, residual=None, tokens=1, out=None, w_kn=False,
     site="modulation",
 ):
     """``C = epilogue(prologue(a) @ w.T * alpha)``: a (M, K) f32 or bf16,
-    w (N, K) bf16, C (M, N) ``out_dtype``; see :func:`mp_gemm_plain` for the
-    optional prologue/epilogue. ``site`` keys the launch count."""
+    w (N, K) bf16, C (M, N) ``out_dtype``; with ``w_kn`` w is read as (K, N)
+    and C = epilogue(prologue(a) @ w * alpha). See :func:`mp_gemm_plain`
+    for the optional prologue/epilogue. ``site`` keys the launch count."""
     if a.device.type == "cpu":
         return mp_gemm_plain(
             a, w, alpha=alpha, out_dtype=out_dtype, modulate=modulate, silu=silu,
-            residual=residual, tokens=tokens, out=out,
+            residual=residual, tokens=tokens, out=out, w_kn=w_kn,
         )
     from mapdit_tpu_torch.ops.cuda import build
 
     m, k = a.shape
-    n = w.shape[0]
-    if w.dtype != torch.bfloat16 or w.shape != (n, k):
-        raise ValueError(f"mp_gemm takes a bf16 (N, {k}) weight, got {w.dtype} {tuple(w.shape)}")
+    n = w.shape[1] if w_kn else w.shape[0]
+    if w.dtype != torch.bfloat16 or w.shape != ((k, n) if w_kn else (n, k)):
+        layout = f"({k}, N)" if w_kn else f"(N, {k})"
+        raise ValueError(f"mp_gemm takes a bf16 {layout} weight, got {w.dtype} {tuple(w.shape)}")
     if a.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
         raise ValueError(f"mp_gemm takes f32 or bf16 activations, got {a.dtype} -> {out_dtype}")
     if silu and residual is not None:
@@ -176,7 +194,7 @@ def mp_gemm(
         gain.data_ptr() if gain is not None else None, tokens,
         1 if silu else (2 if residual is not None else 0),
         x.data_ptr() if x is not None else None, _DTYPE_CODE[x.dtype] if x is not None else 0,
-        stream,
+        1 if w_kn else 0, stream,
     )
     _raise_on(code, lib, "mp_gemm")
     LAUNCHES[f"mp_gemm/{site}"] += 1
@@ -187,10 +205,11 @@ def mp_gemm(
 # cosine attention core
 
 
-def cosine_attention_plain(qkv, tokens, heads, out_dtype, out=None):
+def cosine_attention_plain(qkv, tokens, heads, out_dtype, out=None, normalize_first=False, probs=None):
     """Plain version of :func:`cosine_attention`: the math of the Pallas
-    ``_attention_core``, products on ``out_dtype``-rounded operands with f32
-    sums."""
+    ``_attention_core`` (or, with ``normalize_first``, of the attention in
+    ``_attn_res_kernel``), products on ``out_dtype``-rounded operands with
+    f32 sums."""
     nt, d3 = qkv.shape
     d = d3 // 3
     n, hd = nt // tokens, d // heads
@@ -202,18 +221,30 @@ def cosine_attention_plain(qkv, tokens, heads, out_dtype, out=None):
     logits = logits * qs[..., :, None] * ks[..., None, :]
     ex = torch.exp(logits - math.sqrt(hd))
     denom = ex.sum(dim=-1, keepdim=True)
-    o = (ex.to(dt).float() @ v.to(dt).float()) * (1.0 / denom)
+    if normalize_first:
+        p = ex * (1.0 / denom)
+        if probs is not None:
+            probs.copy_(p)
+        o = p.to(dt).float() @ v.to(dt).float()
+    else:
+        o = (ex.to(dt).float() @ v.to(dt).float()) * (1.0 / denom)
     o = o.permute(0, 2, 1, 3).reshape(nt, d).to(out_dtype)
     if out is None:
         return o
     return out.copy_(o)
 
 
-def cosine_attention(qkv, tokens, heads, out_dtype, out=None):
+def cosine_attention(qkv, tokens, heads, out_dtype, out=None, normalize_first=False, probs=None):
     """Cosine attention over the flat f32 qkv product (N*T, 3D), heads as
-    contiguous column slices; returns (N*T, D) in ``out_dtype``."""
+    contiguous column slices; returns (N*T, D) in ``out_dtype``.
+
+    ``normalize_first`` is the residual mode: the probabilities are
+    normalised before P.V (rounded to bf16 for it) and, when ``probs`` is
+    an (N, heads, T, T) f32 tensor, written there."""
     if qkv.device.type == "cpu":
-        return cosine_attention_plain(qkv, tokens, heads, out_dtype, out=out)
+        return cosine_attention_plain(
+            qkv, tokens, heads, out_dtype, out=out, normalize_first=normalize_first, probs=probs
+        )
     from mapdit_tpu_torch.ops.cuda import build
 
     nt, d3 = qkv.shape
@@ -234,14 +265,22 @@ def cosine_attention(qkv, tokens, heads, out_dtype, out=None):
         out = torch.empty(nt, d, dtype=out_dtype, device=qkv.device)
     elif out.shape != (nt, d) or out.dtype != out_dtype:
         raise ValueError("out has the wrong shape or type")
-    _require_cuda(qkv, out)
+    tensors = [qkv, out]
+    if probs is not None:
+        if not normalize_first:
+            raise ValueError("probs are written in the residual mode (normalize_first=True) only")
+        if probs.dtype != torch.float32 or probs.shape != (nt // tokens, heads, tokens, tokens):
+            raise ValueError(f"probs must be f32 (N, heads, T, T), got {probs.dtype} {tuple(probs.shape)}")
+        tensors.append(probs)
+    _require_cuda(*tensors)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     code = lib.cosine_attention(
         qkv.data_ptr(), out.data_ptr(), 1 if out_dtype == torch.bfloat16 else 0,
+        probs.data_ptr() if probs is not None else None, 1 if normalize_first else 0,
         nt // tokens, tokens, heads, hd, stream,
     )
     _raise_on(code, lib, "cosine_attention")
-    LAUNCHES["cosine_attention"] += 1
+    LAUNCHES["cosine_attention/residual" if normalize_first else "cosine_attention"] += 1
     return out
 
 
@@ -323,10 +362,7 @@ def _check_block_args(x, a, gains, weights, depth: Optional[int]):
             raise ValueError("gains must be f32")
 
 
-def fused_dit_block(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
-    """One whole DiT block. x (N,T,D) residual stream; a (N,D) = mp_silu(c);
-    gains (2,) f32 = [gain_msa, gain_mlp]; folded weights w_mod (6D,D),
-    w_qkv (3D,D), w_out (D,D), w1 (H,D), w2 (D,H). Returns the new stream."""
+def _fused_dit_block_fwd(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
     weights = (w_mod, w_qkv, w_out, w1, w2)
     _check_block_args(x, a, gains, weights, None)
     n, t, d = x.shape
@@ -338,7 +374,7 @@ def fused_dit_block(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
 
 
 def fused_dit_block_plain(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
-    """Plain version of :func:`fused_dit_block` on any device."""
+    """Plain version of :func:`fused_dit_block`'s forward on any device."""
     n, t, d = x.shape
     scratch = BlockScratch.allocate(n, t, d, w1.shape[0], w_qkv.dtype, x.device)
     return _block_sequence(
@@ -360,10 +396,7 @@ def _stack(x, a, gains, weights, heads, gemm, attention):
     return x
 
 
-def fused_dit_stack(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
-    """All ``depth`` blocks over depth-stacked folded weights (leading depth
-    axis on every weight; gains (depth, 2) f32). One scratch set serves every
-    block and the stream ping-pongs between two buffers in x's type."""
+def _fused_dit_stack_fwd(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
     weights = (w_mod, w_qkv, w_out, w1, w2)
     _check_block_args(x, a, gains, weights, w_mod.shape[0])
     out = _stack(x, a, gains, weights, heads, mp_gemm, cosine_attention)
@@ -373,7 +406,109 @@ def fused_dit_stack(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
 
 
 def fused_dit_stack_plain(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
-    """Plain version of :func:`fused_dit_stack` on any device."""
+    """Plain version of :func:`fused_dit_stack`'s forward on any device."""
     return _stack(
         x, a, gains, (w_mod, w_qkv, w_out, w1, w2), heads, mp_gemm_plain, cosine_attention_plain
     )
+
+
+# ---------------------------------------------------------------------------
+# reference math and the VJPs that recompute through it
+
+
+def modulate_reference(z, shift, scale, gain):
+    """``mp_sum(z * scale, shift, gain)`` over (N, T, D) z and (N, D) rows,
+    the denominator constant in ``gain`` (the reference coerces the gain to a
+    float there)."""
+    zs = z * scale[:, None, :]
+    denom = torch.sqrt((1.0 - gain) ** 2 + gain**2).detach()
+    return (zs + (shift[:, None, :] - zs) * gain) / denom
+
+
+def attention_reference(h, w_qkv, w_out, heads: int):
+    """Cosine multi-head attention with its projections, plain ops:
+    ``normalize`` on q and k (full autograd through its denominator),
+    softmax(q k^T / sqrt(hd)) v, then the out-projection / sqrt(D)."""
+    n, t, d = h.shape
+    hd = d // heads
+    q, k, v = (h @ w_qkv.t() / math.sqrt(d)).split(d, dim=-1)
+
+    def to_heads(z):
+        return z.reshape(n, t, heads, hd).transpose(1, 2)
+
+    q, k, v = normalize(to_heads(q)), normalize(to_heads(k)), to_heads(v)
+    attn = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(hd), dim=-1) @ v
+    return attn.transpose(1, 2).reshape(n, t, d) @ w_out.t() / math.sqrt(d)
+
+
+def block_reference(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
+    """Plain implementation of one block's math, the twin of the Pallas
+    package's ``_reference``; differentiable, the oracle of the VJPs."""
+    d = x.shape[-1]
+    sm, scm, gm, sl, scl, gl = (a @ w_mod.t() / math.sqrt(d)).split(d, dim=-1)
+    h = modulate_reference(x, sm, scm, gains[0])
+    x = mp_sum(x, gm[:, None, :] * attention_reference(h, w_qkv, w_out, heads), t=RES_T)
+    h = modulate_reference(x, sl, scl, gains[1])
+    y = mp_silu(h @ w1.t() / math.sqrt(d)) @ w2.t() / math.sqrt(w1.shape[0])
+    return mp_sum(x, gl[:, None, :] * y, t=RES_T)
+
+
+def stack_reference(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
+    """:func:`block_reference` over depth-stacked weights."""
+    for b in range(w_mod.shape[0]):
+        x = block_reference(x, a, gains[b], w_mod[b], w_qkv[b], w_out[b], w1[b], w2[b], heads)
+    return x
+
+
+def vjp_through(fn, inputs, needs, cotangent, *args):
+    """Cotangents of ``fn(*inputs, *args)`` for the inputs flagged in
+    ``needs``, recomputed in float32 from the saved inputs and cast back to
+    each input's type (None where no gradient is asked for)."""
+    with torch.enable_grad():
+        xs = [t.detach().float().requires_grad_(need) for t, need in zip(inputs, needs)]
+        out = fn(*xs, *args)
+        wanted = [x for x in xs if x.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, cotangent.float()) if wanted else ())
+    return [next(grads).to(t.dtype) if need else None for t, need in zip(inputs, needs)]
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class _RecomputedVJP(torch.autograd.Function):
+    """Kernel forward, backward through the reference math (``_make`` /
+    ``_make_stack`` of the Pallas package)."""
+
+    @staticmethod
+    def forward(ctx, forward, reference, heads, *inputs):
+        ctx.reference, ctx.heads = reference, heads
+        ctx.save_for_backward(*inputs)
+        return forward(*inputs, heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = vjp_through(ctx.reference, ctx.saved_tensors, ctx.needs_input_grad[3:], g, ctx.heads)
+        return (None, None, None, *grads)
+
+
+def fused_dit_block(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
+    """One whole DiT block. x (N,T,D) residual stream; a (N,D) = mp_silu(c);
+    gains (2,) f32 = [gain_msa, gain_mlp]; folded weights w_mod (6D,D),
+    w_qkv (3D,D), w_out (D,D), w1 (H,D), w2 (D,H). Returns the new stream;
+    its gradient recomputes through :func:`block_reference`."""
+    inputs = (x, a, gains, w_mod, w_qkv, w_out, w1, w2)
+    if not needs_grad(*inputs):
+        return _fused_dit_block_fwd(*inputs, heads)
+    return _RecomputedVJP.apply(_fused_dit_block_fwd, block_reference, heads, *inputs)
+
+
+def fused_dit_stack(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
+    """All ``depth`` blocks over depth-stacked folded weights (leading depth
+    axis on every weight; gains (depth, 2) f32). One scratch set serves every
+    block and the stream ping-pongs between two buffers in x's type. The
+    gradient recomputes through :func:`stack_reference`."""
+    inputs = (x, a, gains, w_mod, w_qkv, w_out, w1, w2)
+    if not needs_grad(*inputs):
+        return _fused_dit_stack_fwd(*inputs, heads)
+    return _RecomputedVJP.apply(_fused_dit_stack_fwd, stack_reference, heads, *inputs)

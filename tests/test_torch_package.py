@@ -14,7 +14,7 @@ import torch
 import mapdit_tpu_torch
 from mapdit_tpu_torch.diffusion import create_diffusion
 from mapdit_tpu_torch.models import build_config, init_model
-from mapdit_tpu_torch.ops.cuda import dit_block
+from mapdit_tpu_torch.ops.cuda import attn_branch, dit_block
 from mapdit_tpu_torch.runtime import build_sample_fn
 
 PKG = pathlib.Path(mapdit_tpu_torch.__file__).parent
@@ -30,9 +30,13 @@ def _modules():
 
 
 def test_import_loads_no_jax():
-    """Every module of the port imports in a fresh interpreter without
-    bringing in jax, flax or mapdit_tpu (this test process has them loaded,
-    hence the subprocess)."""
+    """Every module of the port (the training modules, the attention
+    half-block and the new diffusion math among them) imports in a fresh
+    interpreter without bringing in jax, flax or mapdit_tpu (this test
+    process has them loaded, hence the subprocess)."""
+    for mod in ("training.state", "training.data", "training.ema", "training.lr", "diffusion.dmath",
+                "ops.cuda.attn_branch"):
+        assert f"mapdit_tpu_torch.{mod}" in _modules()
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}: importlib.import_module(m)\n"
@@ -67,10 +71,15 @@ def test_entry_points_default_to_cuda(monkeypatch):
     model = init_model(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         build_sample_fn(cfg, model.state_dict(), create_diffusion("4", device="cpu"))
+    from mapdit_tpu_torch.training import create_optimizer, create_train_state, warmup_flat_invsqrt
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_train_state(cfg, create_optimizer(warmup_flat_invsqrt(1e-2, 5, 50)))
 
 
 def test_kernel_counts_stay_zero_on_cpu():
     dit_block.reset_launch_counts()
+    attn_branch.reset_launch_counts()
     cfg = build_config("DiT-XS/2", **XS2)
     model = init_model(cfg, device="cpu")
     for kernel in ("mega", "mega_stack"):
@@ -80,7 +89,13 @@ def test_kernel_counts_stay_zero_on_cpu():
         )
         out = sample(torch.zeros(4, 4, 16, 16), torch.tensor([1, 2, 10, 10]), torch.Generator().manual_seed(0))
         assert np.isfinite(out.numpy()).all()
+    for bwd in attn_branch.BWD_IMPLS:
+        model = init_model(cfg.replace(block_kernel="mega_attn", attn_bwd=bwd), device="cpu")
+        out = model(torch.zeros(2, 4, 16, 16), torch.tensor([3.0, 7.0]), torch.tensor([1, 2]))
+        out.square().sum().backward()
+        assert np.isfinite(out.detach().numpy()).all()
     assert all(v == 0 for v in dit_block.LAUNCHES.values()), dit_block.LAUNCHES
+    assert all(v == 0 for v in attn_branch.LAUNCHES.values()), attn_branch.LAUNCHES
 
 
 def test_kernel_wrappers_do_not_fall_back_off_cpu():
@@ -92,6 +107,37 @@ def test_kernel_wrappers_do_not_fall_back_off_cpu():
         dit_block.mp_gemm(a, w, alpha=1.0, out_dtype=torch.float32)
     with pytest.raises(ValueError, match="CUDA"):
         dit_block.cosine_attention(torch.empty(8, 48, device="meta"), 4, 2, torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        dit_block.mp_gemm(a, torch.empty(16, 4, dtype=torch.bfloat16, device="meta"), alpha=1.0,
+                          out_dtype=torch.float32, w_kn=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        dit_block.cosine_attention(torch.empty(8, 48, device="meta"), 4, 2, torch.bfloat16, normalize_first=True,
+                                   probs=torch.empty(2, 2, 4, 4, device="meta"))
+    bf = torch.bfloat16
+    n, t, d, heads = 2, 4, 16, 2
+    x = torch.empty(n * t, d, dtype=bf, device="meta")
+    rows = torch.empty(n, 3 * d, device="meta")
+    gain = torch.empty(1, device="meta")
+    f32 = torch.empty(n * t, d, device="meta")
+    qkv = torch.empty(n * t, 3 * d, device="meta")
+    calls = [
+        lambda: attn_branch.gate_residual_bwd(x, f32, rows, 2 * d, t, bf),
+        lambda: attn_branch.attention_bwd(qkv, f32, t, heads, bf),
+        lambda: attn_branch.modulate_fwd(x, rows, gain, t, bf),
+        lambda: attn_branch.modulate_bwd(f32, x, rows, gain, f32, t),
+    ]
+    xb = torch.empty(n, t, d, dtype=bf, device="meta")
+    r = torch.empty(n, d, dtype=bf, device="meta")
+    branch_args = (xb, r, r, r, torch.empty((), device="meta"), torch.empty(3 * d, d, dtype=bf, device="meta"),
+                   torch.empty(d, d, dtype=bf, device="meta"), heads)
+    calls += [
+        lambda: attn_branch.attn_fwd(*branch_args),
+        lambda: attn_branch.attn_res_fwd(*branch_args),
+        lambda: attn_branch.attn_bwd(xb, *branch_args),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
 
 
 @pytest.mark.parametrize(
@@ -99,7 +145,7 @@ def test_kernel_wrappers_do_not_fall_back_off_cpu():
     [
         (dict(use_cosine_attention=False), "A.2"),
         (dict(modulation="rotation"), "A.2"),
-        (dict(block_kernel="mega_attn"), "B.4"),
+        (dict(block_kernel="mega_attn_tp"), "B.10"),
         (dict(block_kernel="pallas"), "B.8"),
         (dict(attention_impl="pallas"), "B.9"),
     ],
