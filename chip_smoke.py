@@ -23,7 +23,20 @@ Phases, one line each; any failure exits non-zero before the final line:
      path and block_kernel="mega_attn" with attn_bwd "pallas" and
      "residual": the first step's loss and gradients against the float32
      plain path, then timed steps with the launch counts read around them;
-  7. the kernels JSON line, the device line again, and the ok line.
+  7. families: DiT-B/2 (depth 12, width 768, 12 heads, nothing cut) on the
+     generic block path, twice: P1, MaP adaln with block_kernel="pallas" and
+     attention_impl="pallas" (fused_mlp_branch and fused_attention in every
+     block), and P2, modulation="rotation_scale" with
+     attention_impl="pallas" (fused_attention). Each: the first model call
+     and a clipped 10-step chain against the float32 plain path, the
+     250-step chain through build_sample_fn, and train steps at batch 256
+     through make_train_step (first step's loss and gradients against the
+     float32 plain path), launch counts read around each;
+  8. the kernels JSON line, the device line again, and the ok line.
+Phase 3 also holds fused_attention (B/2 sampling and training shapes on
+the model's strided views, the XL head width 72, T=256, f32 without the
+cosine normalisation at logits past 88) and fused_mlp_branch (N=64 and 256)
+and their gradients against their plain versions.
 Weights are random, drawn from a seed. Needs no network and one card.
 """
 
@@ -43,6 +56,13 @@ STEPS = 250
 CFG_SCALE = 1.5
 TRAIN_BATCH = 256
 TRAIN_STEPS = 10  # timed train steps per path, after the checked first step
+FAMILY_MODEL = "DiT-B/2"
+FAMILY_TRAIN_STEPS = 3  # timed DiT-B/2 train steps per path
+# tag: (the family's flags, the kernels its blocks run)
+FAMILIES = {
+    "P1": (dict(), dict(block_kernel="pallas", attention_impl="pallas")),
+    "P2": (dict(modulation="rotation_scale"), dict(block_kernel="off", attention_impl="pallas")),
+}
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate, H100 SXM data sheet
 PALLAS = "mapdit_tpu/ops/pallas/dit_block.py"
@@ -306,16 +326,49 @@ def train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x_s, a_s, gains_s, w0)
     return out_rows
 
 
-def train_phase(torch, dev, cfg) -> dict:
-    """Phase 6: DiT-S/2 training at TRAIN_BATCH on synthetic latents. The
-    first step (same weights, same injected draws on every path) is held
-    against the float32 plain path by check_paths' rule, on the loss and on
-    all gradients; then TRAIN_STEPS timed steps per path with the launch
-    counts read around them. Returns {path: launch counts}."""
+def launch_counts() -> dict:
+    """Every wrapper's launch count, by name."""
+    from mapdit_tpu_torch.ops.cuda import attention, attn_branch, dit_block, mlp_block
+
+    return {**dit_block.LAUNCHES, **attn_branch.LAUNCHES, **attention.LAUNCHES, **mlp_block.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    from mapdit_tpu_torch.ops.cuda import attention, attn_branch, dit_block, mlp_block
+
+    for mod in (dit_block, attn_branch, attention, mlp_block):
+        mod.reset_launch_counts()
+
+
+def check_counts(what: str, counts: dict, exact: dict) -> None:
+    """``exact`` maps a launch count's name to the count it must show; every
+    name outside it must show 0."""
+    wrong = {key: (counts[key], want) for key, want in exact.items() if counts[key] != want}
+    stray = {key: v for key, v in counts.items() if v and key not in exact}
+    if wrong or stray:
+        raise AssertionError(f"{what}: launch counts {counts} (got, expected: {wrong}; launched unexpectedly: {stray})")
+
+
+def draw_gains(torch, model, seed: int) -> None:
+    """The block gains start at 0, which switches the conditioning off (and
+    zeroes the shift's gradient); draw them so the modulations act."""
+    with torch.no_grad():
+        g_cpu = torch.Generator().manual_seed(seed)
+        for blk in model.blocks:
+            blk.gain_msa.uniform_(0.2, 0.8, generator=g_cpu)
+            blk.gain_mlp.uniform_(0.2, 0.8, generator=g_cpu)
+
+
+def train_phase(torch, dev, tag: str, paths: dict, expect: dict, steps: int) -> dict:
+    """Train steps at TRAIN_BATCH on synthetic latents for each config of
+    ``paths`` ("f32", the float32 plain path, and "off", the bf16 plain
+    path, among them). The first step (same weights, same injected draws on
+    every path) is held against the float32 plain path by check_paths' rule,
+    on the loss and on all gradients; then ``steps`` timed steps per path
+    with the launch counts read around them and held to
+    ``expect[path](counts)``. Returns {path: launch counts}."""
     from mapdit_tpu_torch.diffusion import create_diffusion
     from mapdit_tpu_torch.models import init_model
-    from mapdit_tpu_torch.ops.cuda import attn_branch as ab
-    from mapdit_tpu_torch.ops.cuda import dit_block as k
     from mapdit_tpu_torch.training import (
         SyntheticLatentDataset,
         create_optimizer,
@@ -324,14 +377,11 @@ def train_phase(torch, dev, cfg) -> dict:
         warmup_flat_invsqrt,
     )
 
+    cfg = paths["off"]
     init = init_model(cfg, seed=SEED, device="cpu")
-    with torch.no_grad():
-        # gains start at 0, which zeroes the shift's gradient; draw them
-        g_cpu = torch.Generator().manual_seed(SEED)
-        for blk in init.blocks:
-            blk.gain_msa.uniform_(0.2, 0.8, generator=g_cpu)
-            blk.gain_mlp.uniform_(0.2, 0.8, generator=g_cpu)
+    draw_gains(torch, init, SEED)
     sd0 = init.state_dict()
+    del init
     ds = SyntheticLatentDataset(num_examples=max(1024, 2 * TRAIN_BATCH), num_classes=1000, size=16, seed=SEED)
     batch = {key: torch.as_tensor(v).to(dev) for key, v in next(ds.batches(TRAIN_BATCH, seed=SEED)).items()}
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
@@ -344,55 +394,298 @@ def train_phase(torch, dev, cfg) -> dict:
     }
     diffusion = create_diffusion("", device=dev)
     tx = create_optimizer(warmup_flat_invsqrt(1e-2, 100, 1000))
-    paths = {
-        "f32": cfg.replace(compute_dtype="float32"),
-        "off": cfg,
-        "mega_attn+pallas": cfg.replace(block_kernel="mega_attn", attn_bwd="pallas"),
-        "mega_attn+residual": cfg.replace(block_kernel="mega_attn", attn_bwd="residual"),
-    }
-    per_step = cfg.depth * TRAIN_STEPS
-    must_launch = {
-        "off": {},
-        "mega_attn+pallas": {"attn_branch/fwd": per_step, "attn_branch/bwd": per_step, "attn_branch/res_fwd": 0},
-        "mega_attn+residual": {"attn_branch/res_fwd": per_step, "attn_branch/fwd": 0, "attn_branch/bwd": 0},
-    }
-    path_kernels = {
-        "off": (),
-        "mega_attn+pallas": ("mp_gemm/qkv", "mp_gemm/out", "mp_gemm/dattn", "mp_gemm/dh", "cosine_attention",
-                             "cosine_attention/residual", *(key for key in ab.LAUNCHES if key.startswith("attn_bwd/"))),
-        "mega_attn+residual": ("mp_gemm/qkv", "mp_gemm/out", "cosine_attention/residual"),
-    }
     losses, grads, counts = {}, {}, {}
     for name, c in paths.items():
         state = create_train_state(c, tx, seed=SEED, device=dev, state_dict=sd0)
         step = make_train_step(c, diffusion, tx, stats_mean=ds.stats["mean"], stats_std=ds.stats["std"])
         losses[name] = step(state, batch, draws=draws)["loss"].reshape(1)
         grads[name] = torch.cat([p.grad.float().reshape(-1) for p in state.model.parameters()])
-        if name == "f32":
-            continue
+        if name != "f32":
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                metrics = step(state, batch)
+            last = float(metrics["loss"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts[name] = launch_counts()
+            phase(tag, path=name, model=json.dumps(c.flags_dict()["modulation"]), batch=TRAIN_BATCH, steps=steps,
+                  seconds=f"{seconds:.4f}", steps_per_s=f"{steps / seconds:.3f}",
+                  ms_per_step=f"{1e3 * seconds / steps:.4f}", first_loss=f"{float(losses[name]):.6f}",
+                  last_loss=f"{last:.6f}", launches=json.dumps({key: v for key, v in counts[name].items() if v}))
+            if not math.isfinite(last):
+                raise AssertionError(f"{tag}/{name}: non-finite loss")
+            check_counts(f"{tag}/{name}", counts[name], expect[name])
+        del state, step
+        torch.cuda.empty_cache()
+    kernel_paths = tuple(name for name in paths if name not in ("f32", "off"))
+    check_paths(torch, f"{tag}-loss", losses, kernel_paths)
+    check_paths(torch, f"{tag}-grads", grads, kernel_paths)
+    return counts
+
+
+def s2_train_phase(torch, dev, cfg) -> dict:
+    """Phase 6: DiT-S/2 training on the plain path and through the
+    attention half-block kernels with both of their backwards."""
+    from mapdit_tpu_torch.ops.cuda import attn_branch as ab
+
+    per_step = cfg.depth * TRAIN_STEPS
+    paths = {
+        "f32": cfg.replace(compute_dtype="float32"),
+        "off": cfg,
+        "mega_attn+pallas": cfg.replace(block_kernel="mega_attn", attn_bwd="pallas"),
+        "mega_attn+residual": cfg.replace(block_kernel="mega_attn", attn_bwd="residual"),
+    }
+    bwd_kernels = {key: per_step for key in ab.LAUNCHES if key.startswith("attn_bwd/")}
+    expect = {
+        "off": {},
+        # forward and the backward's recompute each launch the qkv and out
+        # products
+        "mega_attn+pallas": {
+            "attn_branch/fwd": per_step, "attn_branch/bwd": per_step, "mp_gemm/qkv": 2 * per_step,
+            "mp_gemm/out": 2 * per_step, "mp_gemm/dattn": per_step, "mp_gemm/dh": per_step,
+            "cosine_attention": per_step, "cosine_attention/residual": per_step, **bwd_kernels,
+        },
+        "mega_attn+residual": {"attn_branch/res_fwd": per_step, "mp_gemm/qkv": per_step, "mp_gemm/out": per_step,
+                               "cosine_attention/residual": per_step},
+    }
+    return train_phase(torch, dev, "train", paths, expect, TRAIN_STEPS)
+
+
+def standalone_kernel_rows(torch, F, gen, dev) -> dict:
+    """Phase 3, third part: fused_attention and fused_mlp_branch against
+    their plain versions at the DiT-B/2 shapes (64 CFG rows and TRAIN_BATCH
+    rows x 64 tokens, D=768, 12 heads, H=3072, bf16), fused_attention also
+    at the XL head width, at T=256 and in f32 without the cosine
+    normalisation, and both gradients against autograd through the plain
+    versions. Returns the report rows (each names the run and the counter
+    whose launch count it reports)."""
+    from mapdit_tpu_torch.ops.cuda import attention as at
+    from mapdit_tpu_torch.ops.cuda import mlp_block as mb
+    from mapdit_tpu_torch.ops.mp import normalize
+
+    bf, f32 = torch.bfloat16, torch.float32
+    t, d, heads, hid = 64, 768, 12, 3072
+    hd = d // heads
+    out_rows = {}
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def model_views(n, t_, h_, hd_, dtype=bf, scale=1.0):
+        """q, k, v as models/layers.py:Attention hands them in: transposed
+        views of one (N, T, 3D) qkv product, no copy."""
+        qkv = (randn(n, t_, 3 * h_ * hd_) * scale).to(dtype)
+        return tuple(z.reshape(n, t_, h_, hd_).transpose(1, 2) for z in qkv.split(h_ * hd_, dim=-1))
+
+    def sdpa(q, k, v, sc, cosine):
+        qn, kn = (normalize(q.float()).to(q.dtype), normalize(k.float()).to(k.dtype)) if cosine else (q, k)
+        qn, kn, vc = qn.contiguous(), kn.contiguous(), v.contiguous()
+        return lambda: F.scaled_dot_product_attention(qn, kn, vc, scale=sc)
+
+    attn_src = "mapdit_tpu_torch/csrc/fused_attention.cu"
+    attn_line = "mapdit_tpu/ops/pallas/attention.py:125"
+    # bf16: 1e-2 relative is ~2.5 bf16 ulps of the output; p and the
+    # normalised rows can each round to the neighbouring bf16
+    for name, n, count_from in (("fused_attention", 2 * BATCH, ("P1/chain", "fused_attention")),
+                                ("fused_attention/train", TRAIN_BATCH, ("P2/train", "fused_attention"))):
+        q, k_, v = model_views(n, t, heads, hd)
+        sc = 1 / math.sqrt(hd)
+        got = at.fused_attention(q, k_, v, sc, True)
+        if got.is_cuda and not got.transpose(1, 2).is_contiguous():
+            raise AssertionError("fused_attention's output does not reshape to (N, T, D) as a view")
+        err = compare(torch, got, at.fused_attention_plain(q, k_, v, sc, True), 1e-2, 1e-2, name)
+        b, by = bound_ms(4 * n * heads * t * t * hd, 4 * n * heads * t * hd * 2)
+        out_rows[name] = dict(
+            source=attn_src, replaces=attn_line, max_abs_err=err,
+            ms=time_ms(torch, lambda: at.fused_attention(q, k_, v, sc, True)),
+            plain_ms=time_ms(torch, lambda: at.fused_attention_plain(q, k_, v, sc, True)),
+            bound_ms=b, bound_by=by, library_ms=time_ms(torch, sdpa(q, k_, v, sc, True)), count_from=count_from,
+        )
+        qc, kc, vc = (z.contiguous() for z in (q, k_, v))
+        compare(torch, at.fused_attention(qc, kc, vc, sc, True), got, 0.0, 0.0, name + ":contiguous==strided")
+        phase("time", kernel=name + ":contiguous", ms=f"{time_ms(torch, lambda: at.fused_attention(qc, kc, vc, sc, True)):.4f}")
+
+    # shapes off the main path: checked and timed, not in the kernels line
+    for what, (n, h_, t_, hd_), dtype, cosine, scale_in, atol, rtol in (
+        ("fused_attention:xl-head-72", (64, 16, 64, 72), bf, True, 1.0, 1e-2, 1e-2),
+        ("fused_attention:t256", (8, 12, 256, 64), bf, True, 1.0, 1e-2, 1e-2),
+        ("fused_attention:bf16-no-cosine", (64, 12, 64, 64), bf, False, 1.0, 1e-2, 1e-2),
+        # f32 sums in another order; logits of a few hundred carry ~1e-5 of
+        # absolute error into the exponent
+        ("fused_attention:f32-no-cosine-logits>88", (4, 4, 64, 32), f32, False, 6.0, 1e-4, 1e-3),
+        ("fused_attention:f32-cosine", (4, 4, 64, 32), f32, True, 1.0, 1e-5, 1e-4),
+    ):
+        q, k_, v = model_views(n, t_, h_, hd_, dtype=dtype, scale=scale_in)
+        sc = 1.0 if scale_in != 1.0 else 1 / math.sqrt(hd_)
+        if scale_in != 1.0:
+            top = float((q.float() @ k_.float().transpose(-1, -2)).abs().max()) * sc
+            phase("check", what=what, max_abs_logit=f"{top:.1f}")
+            if top <= 88.0:
+                raise AssertionError(f"{what}: logits stay under 88, the case does not test the row maximum")
+        compare(torch, at.fused_attention(q, k_, v, sc, cosine), at.fused_attention_plain(q, k_, v, sc, cosine),
+                atol, rtol, what)
+        phase("time", kernel=what, query_tile=at.query_tile(t_, hd_), smem_bytes=at.smem_bytes(t_, hd_, at.query_tile(t_, hd_)),
+              ms=f"{time_ms(torch, lambda: at.fused_attention(q, k_, v, sc, cosine)):.4f}",
+              plain_ms=f"{time_ms(torch, lambda: at.fused_attention_plain(q, k_, v, sc, cosine)):.4f}",
+              library_ms=f"{time_ms(torch, sdpa(q, k_, v, sc, cosine)):.4f}")
+
+    # fused_attention's gradient: kernel forward, backward through the plain
+    # path, against autograd through the plain version in f32
+    q, k_, v = (z.detach().requires_grad_() for z in model_views(2 * BATCH, t, heads, hd))
+    cot = randn(2 * BATCH, heads, t, hd, dtype=bf)
+    sc = 1 / math.sqrt(hd)
+
+    def attn_grad():
+        return torch.autograd.grad(at.fused_attention(q, k_, v, sc, True), (q, k_, v), cot)
+
+    def attn_plain_grad():
+        ref = [z.detach().float().requires_grad_() for z in (q, k_, v)]
+        return torch.autograd.grad(at.fused_attention_plain(*ref, sc, True), ref, cot.float())
+
+    for nm, g_, w_ in zip("qkv", attn_grad(), attn_plain_grad()):
+        compare_rel(torch, g_, w_, 1e-2, f"fused_attention/grad:d{nm}")
+    phase("time", kernel="fused_attention/grad", ms=f"{time_ms(torch, attn_grad, iters=5):.4f}",
+          plain_ms=f"{time_ms(torch, attn_plain_grad, iters=5):.4f}", note="forward+backward, rows=" + str(2 * BATCH))
+
+    mlp_src = "mapdit_tpu_torch/ops/cuda/mlp_block.py"
+    mlp_line = "mapdit_tpu/ops/pallas/mlp_block.py:89"
+    w1, w2 = (normalize(randn(*s_)).to(bf).contiguous() for s_ in ((hid, d), (d, hid)))
+    gain = torch.tensor(0.37, device=dev)
+    for name, n, count_from in (("fused_mlp_branch", 2 * BATCH, ("P1/chain", "mlp_branch/fwd")),
+                                ("fused_mlp_branch/train", TRAIN_BATCH, ("P1/train", "mlp_branch/fwd"))):
+        x = randn(n, t, d, dtype=bf)
+        shift, scale, gate = (randn(n, d, dtype=bf) for _ in range(3))
+        args = (x, shift, scale, gate, gain, w1, w2)
+        # two bf16 roundings upstream (hidden, output): relative L2
+        err = compare_rel(torch, mb.fused_mlp_branch(*args), mb.fused_mlp_branch_plain(*args), 1e-2, name)
+        b, by = bound_ms(4 * n * t * d * hid, 2 * n * t * d * 2 + 3 * n * d * 2 + 4 + 2 * d * hid * 2)
+        xf = x.reshape(n * t, d)
+
+        def two_matmuls(xf=xf):
+            return torch.matmul(torch.matmul(xf, w1.t()), w2.t())
+
+        out_rows[name] = dict(
+            source=mlp_src, replaces=mlp_line, max_abs_err=err,
+            ms=time_ms(torch, lambda args=args: mb.fused_mlp_branch(*args)),
+            plain_ms=time_ms(torch, lambda args=args: mb.fused_mlp_branch_plain(*args)),
+            bound_ms=b, bound_by=by, library_ms=time_ms(torch, two_matmuls), count_from=count_from,
+        )
+    inputs = [z.detach().requires_grad_() for z in args[:4]] + [gain.detach().requires_grad_()] + [
+        z.detach().requires_grad_() for z in (w1, w2)]
+    cot = randn(TRAIN_BATCH, t, d, dtype=bf)
+
+    def mlp_grad():
+        return torch.autograd.grad(mb.fused_mlp_branch(*inputs), inputs, cot)
+
+    def mlp_plain_grad():
+        ref = [z.detach().float().requires_grad_() for z in inputs]
+        return torch.autograd.grad(mb.mlp_reference(*ref), ref, cot.float())
+
+    for nm, g_, w_ in zip(("dx", "dshift", "dscale", "dgate", "dgain", "dw1", "dw2"), mlp_grad(), mlp_plain_grad()):
+        if nm == "dgain":
+            compare_scalar(torch, g_, w_, 1e-3, "fused_mlp_branch/grad:dgain")
+        else:
+            compare_rel(torch, g_, w_, 1e-2, f"fused_mlp_branch/grad:{nm}")
+    phase("time", kernel="fused_mlp_branch/grad", ms=f"{time_ms(torch, mlp_grad, iters=3):.4f}",
+          plain_ms=f"{time_ms(torch, mlp_plain_grad, iters=3):.4f}", note="forward+backward, rows=" + str(TRAIN_BATCH))
+    return out_rows
+
+
+def family_phase(torch, dev, tag: str, flags: dict, kernels: dict) -> dict:
+    """Phase 7 for one family: DiT-B/2 at full width and depth on the
+    generic block path, the family by ``flags``, its kernels by ``kernels``. The first model call and
+    a clipped 10-step chain are held to the float32 plain path; then the
+    STEPS-step chain through build_sample_fn and FAMILY_TRAIN_STEPS train
+    steps at TRAIN_BATCH through make_train_step, launch counts read around
+    each. Returns {"<tag>/call" | "<tag>/chain" | "<tag>/train": counts}."""
+    from mapdit_tpu_torch.diffusion import create_diffusion
+    from mapdit_tpu_torch.models import DiT, build_config, init_model
+    from mapdit_tpu_torch.runtime import build_sample_fn, fold_weights_for_inference
+
+    base = build_config(FAMILY_MODEL, in_channels=4, input_size=16, num_classes=1000, compute_dtype="bfloat16", **flags)
+    kernel_cfg = base.replace(**kernels)
+    depth = base.depth
+    fused_mlp = kernels["block_kernel"] == "pallas"
+
+    def expect(model_calls):
+        counts = {"fused_attention": depth * model_calls}
+        if fused_mlp:
+            counts.update({"mlp_branch/fwd": depth * model_calls, "mp_gemm/fc1": depth * model_calls,
+                           "mp_gemm/fc2": depth * model_calls})
+        return counts
+
+    init = init_model(base, seed=SEED, device="cpu")
+    draw_gains(torch, init, SEED)
+    sd = {key: v.to(dev) for key, v in init.state_dict().items()}
+    n_params = sum(p.numel() for p in init.parameters())
+    del init
+    phase(tag, model=FAMILY_MODEL, flags=json.dumps({**base.flags_dict(), **kernels}), parameters=n_params)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    n = 2 * BATCH
+    z = torch.randn(n, 4, 16, 16, generator=gen, device=dev)
+    y = torch.cat([torch.randint(0, 1000, (BATCH,), generator=gen, device=dev), torch.full((BATCH,), 1000, device=dev)])
+    tf = torch.full((n,), 500.0, device=dev)
+    paths = {"f32": base.replace(compute_dtype="float32"), "off": base, tag: kernel_cfg}
+
+    # first model call, folded weights as the chain folds them
+    outs, counts = {}, {}
+    for name, c in paths.items():
+        c = c.replace(fold_weights=True)
+        model = DiT(c).to(dev).eval()
+        model.load_state_dict(fold_weights_for_inference(sd, c))
+        reset_launch_counts()
+        with torch.no_grad():
+            outs[name] = model.forward_with_cfg(z, tf, y, CFG_SCALE)
         torch.cuda.synchronize()
-        k.reset_launch_counts()
-        ab.reset_launch_counts()
-        t0 = time.perf_counter()
-        for _ in range(TRAIN_STEPS):
-            metrics = step(state, batch)
-        last = float(metrics["loss"])
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        counts[name] = {**k.LAUNCHES, **ab.LAUNCHES}
-        phase("train", path=name, batch=TRAIN_BATCH, steps=TRAIN_STEPS, seconds=f"{seconds:.4f}",
-              steps_per_s=f"{TRAIN_STEPS / seconds:.3f}", ms_per_step=f"{1e3 * seconds / TRAIN_STEPS:.4f}",
-              first_loss=f"{float(losses[name]):.6f}", last_loss=f"{last:.6f}",
-              launches=json.dumps({key: v for key, v in counts[name].items() if v}))
-        if not math.isfinite(last):
-            raise AssertionError(f"train/{name}: non-finite loss")
-        wrong = {key: counts[name][key] for key, want in must_launch[name].items() if counts[name][key] != want}
-        unused = [key for key in path_kernels[name] if counts[name][key] == 0]
-        if wrong or unused or (name == "off" and any(counts[name].values())):
-            raise AssertionError(f"train/{name}: launch counts {counts[name]} (wrong {wrong}, not launched {unused})")
-    kernel_paths = ("mega_attn+pallas", "mega_attn+residual")
-    check_paths(torch, "train-loss", losses, kernel_paths)
-    check_paths(torch, "train-grads", grads, kernel_paths)
+        if name == tag:
+            counts[f"{tag}/call"] = launch_counts()
+        del model
+    phase(tag, step="model-call", launches=json.dumps({key: v for key, v in counts[f"{tag}/call"].items() if v}))
+    check_counts(f"{tag}/call", counts[f"{tag}/call"], expect(1))
+    check_paths(torch, f"{tag}-forward", outs, (tag,))
+
+    # a clipped 10-step chain on every path (also the kernel path's warm-up)
+    short = create_diffusion("10", device=dev)
+    outs = {}
+    for name, c in paths.items():
+        fn = build_sample_fn(c, sd, short, cfg_scale=CFG_SCALE, clip_denoised=True, batch_hint=BATCH, device=dev)
+        outs[name] = fn(z, y, torch.Generator(device=dev).manual_seed(SEED + 1))
+        if name == tag and fn.run_cfg.block_kernel != kernel_cfg.block_kernel:
+            raise AssertionError(f"{tag}: the runtime changed block_kernel to {fn.run_cfg.block_kernel}")
+        del fn
+    check_paths(torch, f"{tag}-chain-10", outs, (tag,))
+
+    sample = build_sample_fn(kernel_cfg, sd, create_diffusion(str(STEPS), device=dev), cfg_scale=CFG_SCALE,
+                             batch_hint=BATCH, device=dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sample(z, y, torch.Generator(device=dev).manual_seed(SEED + 3))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts[f"{tag}/chain"] = launch_counts()
+    finite = bool(torch.isfinite(out).all())
+    phase(tag, step="chain", model=FAMILY_MODEL, batch=f"{BATCH}x2", steps=STEPS, seconds=f"{seconds:.4f}",
+          steps_per_s=f"{STEPS / seconds:.3f}", ms_per_model_call=f"{1e3 * seconds / STEPS:.4f}", finite=finite,
+          shape=tuple(out.shape), launches=json.dumps({key: v for key, v in counts[f"{tag}/chain"].items() if v}))
+    check_counts(f"{tag}/chain", counts[f"{tag}/chain"], expect(STEPS))
+    if not finite:
+        # untrained weights at clip_denoised=False can leave the data range;
+        # the clipped 10-step chain above must be finite
+        clipped = bool(torch.isfinite(outs[tag]).all())
+        phase(tag, note="non-finite at clip_denoised=False; 10-step clip_denoised=True chain", finite=clipped)
+        if not clipped:
+            raise AssertionError(f"{tag}: the sampling chain gives non-finite latents")
+    del sample, sd, outs
+    torch.cuda.empty_cache()
+
+    # the forward of each train step is one model call; the backward
+    # recomputes through the plain references and launches nothing
+    train = train_phase(torch, dev, f"{tag}-train", paths,
+                        {"off": {}, tag: expect(FAMILY_TRAIN_STEPS)}, FAMILY_TRAIN_STEPS)
+    counts[f"{tag}/train"] = train[tag]
     return counts
 
 
@@ -527,6 +820,7 @@ def main() -> int:
         bound_ms=b, bound_by=by, library_ms=None,
     )
     rows.update(train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x, a, gains[0], w0))
+    rows.update(standalone_kernel_rows(torch, F, gen, dev))
     for name, row in rows.items():
         phase("time", kernel=name, ms=f"{row['ms']:.4f}", plain_ms=f"{row['plain_ms']:.4f}",
               bound_ms=f"{row['bound_ms']:.4f}", bound_by=row["bound_by"], library_ms=row["library_ms"])
@@ -574,7 +868,7 @@ def main() -> int:
         raise AssertionError(f"auto with a batch hint resolved to {sample.run_cfg.block_kernel}, not mega_stack")
     sample(z, yf, torch.Generator(device=dev).manual_seed(SEED + 2))  # warm-up
     torch.cuda.synchronize()
-    k.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     out = sample(z, yf, torch.Generator(device=dev).manual_seed(SEED + 3))
     torch.cuda.synchronize()
@@ -601,7 +895,7 @@ def main() -> int:
     block_chain = build_sample_fn(cfg.replace(block_kernel="auto"), sd, short, cfg_scale=CFG_SCALE, device=dev)
     if block_chain.run_cfg.block_kernel != "auto":
         raise AssertionError("without a batch hint auto must stay per-block")
-    k.reset_launch_counts()
+    reset_launch_counts()
     out_b = block_chain(z, yf, torch.Generator(device=dev).manual_seed(SEED + 4))
     torch.cuda.synchronize()
     block_launches = dict(k.LAUNCHES)
@@ -610,16 +904,27 @@ def main() -> int:
         raise AssertionError(f"the per-block chain did not run through fused_dit_block: {block_launches}")
 
     # 6. train
-    train_launches = train_phase(torch, dev, cfg)
+    del model, paths, sample, block_chain, outs
+    torch.cuda.empty_cache()
+    train_launches = s2_train_phase(torch, dev, cfg)
 
-    # 7. report
+    # 7. the flag families at DiT-B/2
+    family_launches = {}
+    for tag, (flags, kernels) in FAMILIES.items():
+        family_launches.update(family_phase(torch, dev, tag, flags, kernels))
+
+    # 8. report
     kernels = []
     for name, row in rows.items():
-        path = row.pop("path", None)
-        if path is not None:
+        path, count_from = row.pop("path", None), row.pop("count_from", None)
+        if count_from is not None:
+            count = family_launches[count_from[0]][count_from[1]]
+        elif path is not None:
             count = train_launches[path][name]
         else:
             count = block_launches[name] if name == "fused_dit_block" else launches[name]
+        if count == 0:
+            raise AssertionError(f"{name}: not launched on the path that the report names")
         kernels.append(dict(name=name, route="cuda", source=row.pop("source"), replaces=row.pop("replaces"),
                             launches=count, **row))
     print(json.dumps({"kernels": kernels}), flush=True)

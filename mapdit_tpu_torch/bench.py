@@ -4,6 +4,12 @@
                                      [--dtype bfloat16] [--block-kernel auto]
     python -m mapdit_tpu_torch.bench --mode train [--batch 32] [--steps 250] [--resident-data]
                                      [--block-kernel mega_attn] [--attn-bwd pallas]
+    python -m mapdit_tpu_torch.bench --model DiT-B/2 --block-kernel pallas --attention-impl pallas
+    python -m mapdit_tpu_torch.bench --model DiT-B/2 --modulation rotation_scale --attention-impl pallas \
+                                     --block-kernel off [--no-use-cosine-attention ...]
+
+``--modulation``, ``--attention-impl`` and one ``--no-use-<flag>`` switch per
+``use_*`` flag of the config select the model family in both modes.
 
 Sample mode is the protocol of the JAX package's ``bench.py`` sample mode:
 4x16x16 latents, 1000 classes, random weights drawn from seed 0 and folded,
@@ -14,8 +20,9 @@ warm-up chain. Train mode is its ``bench_train``: synthetic VAE-posterior
 latents (1000 classes), Adam(0.9, 0.99) under warmup_flat_invsqrt(1e-2,
 100, 1000), two EMAs, one warm-up step, then max(``--steps``, 10) timed
 steps; ``--resident-data`` reuses one device-resident batch;
-``--profile-dir`` then traces a few more steps with ``torch.profiler`` and
-writes the device-time table there (the timed steps run untraced). Each mode
+``--profile-dir`` then traces a few more steps (in sample mode: one 10-step
+chain) with ``torch.profiler`` and writes the device-time table there (the
+timed steps and chains run untraced). Each mode
 prints one JSON line with ``metric``, ``value``, ``unit`` and ``mfu_pct``
 against the H100's 989 TFLOP/s dense bf16 peak (train: 3x the forward's
 matrix-product FLOPs; the backward's recompute is not counted as useful
@@ -25,6 +32,7 @@ work).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import json
 import os
@@ -35,6 +43,8 @@ import torch
 
 from mapdit_tpu_torch.diffusion import create_diffusion
 from mapdit_tpu_torch.models import build_config, init_model
+from mapdit_tpu_torch.models.blocks import modulation_dims
+from mapdit_tpu_torch.models.config import ATTENTION_IMPLS, BLOCK_KERNELS, MODULATION_KINDS, DiTConfig
 from mapdit_tpu_torch.runtime import build_sample_fn
 
 H100_BF16_FLOPS = 989e12  # dense, H100 SXM data sheet
@@ -44,15 +54,22 @@ CFG_SCALE = 1.5
 def model_call_flops(cfg, rows: int) -> int:
     """Matrix-product FLOPs of one model call on ``rows`` samples: the block
     stack (the count of ``mapdit_tpu/ops/pallas/dit_block.py:2024-2029``)
-    plus the layers outside it."""
+    plus the layers outside it. The modulation heads follow
+    ``modulation_dims`` (6D rows a block for adaln, 5D for rotation_scale,
+    3D for rotation, its angles being D/2 wide); the ones column
+    of ``x_embedder`` and the output scales exist only in their families."""
     d, t, depth = cfg.hidden_size, cfg.num_patches, cfg.depth
     h = int(d * cfg.mlp_ratio)
     hd = d // cfg.num_heads
     p2c = cfg.patch_size**2 * cfg.in_channels
-    blocks = depth * (2 * rows * d * 6 * d + 2 * rows * t * d * (3 * d + d + 2 * h) + 4 * rows * cfg.num_heads * t * t * hd)
-    x_embed = 2 * rows * t * (p2c + 1) * d
+    mod_rows = 2 * sum(modulation_dims(cfg, with_gate=True))
+    blocks = depth * (2 * rows * d * mod_rows + 2 * rows * t * d * (3 * d + d + 2 * h) + 4 * rows * cfg.num_heads * t * t * hd)
+    x_embed = 2 * rows * t * (p2c + int(cfg.use_weight_normalization)) * d
     t_embed = 2 * rows * (256 * d + d * d)
-    final = 2 * rows * d * 2 * d + 2 * rows * t * d * 2 * p2c + 2 * 2 * rows * d * 8
+    n_out = 2 if cfg.learn_sigma else 1
+    final = 2 * rows * d * sum(modulation_dims(cfg, with_gate=False)) + 2 * rows * t * d * n_out * p2c
+    if cfg.mp_style:
+        final += n_out * 2 * rows * d * 8
     return blocks + x_embed + t_embed + final
 
 
@@ -96,14 +113,14 @@ def bench_train(args, cfg, device) -> dict:
     value = n_steps / elapsed
     profile = None
     if args.profile_dir:
-        profile = _profile_train(args.profile_dir, lambda: step_fn(state, next(batches)))
+        profile = _profile(args.profile_dir, lambda: step_fn(state, next(batches)), "train_key_averages.txt")
         profile["device_idle_share"] = 1.0 - profile["device_busy_ms_per_step"] / (1e3 / value)
     return {
         "metric": "train_steps_per_sec",
         "value": value,
         "unit": f"steps/s ({args.model}, batch {args.batch}" + (", resident-data" if args.resident_data else "")
                 + f", {args.dtype}, block_kernel {args.block_kernel}"
-                + (f", attn_bwd {args.attn_bwd}" if args.block_kernel == "mega_attn" else "") + ")",
+                + (f", attn_bwd {args.attn_bwd}" if args.block_kernel == "mega_attn" else "") + _family(cfg) + ")",
         "mfu_pct": 100.0 * 3 * model_call_flops(cfg, args.batch) * value / H100_BF16_FLOPS,
         "seconds": elapsed,
         "last_loss": loss,
@@ -112,26 +129,36 @@ def bench_train(args, cfg, device) -> dict:
     }
 
 
-def _profile_train(out_dir: str, step, steps: int = 3) -> dict:
-    """Trace ``steps`` train steps with torch.profiler (CPU + CUDA): write
-    the table of device time by op and kernel to
-    ``out_dir/train_key_averages.txt`` and return the traced wall ms per
-    step, the device-busy ms per step (the kernels' and copies' own time;
-    one stream, so they do not overlap) and the kernels with the most
-    device time. The caller sets the idle share against the untraced step
-    time."""
+def _family(cfg) -> str:
+    """The non-default family switches of ``cfg``, for a result's unit."""
+    off = [name for name, value in cfg.flags_dict().items() if value is False]
+    parts = ([f"modulation {cfg.modulation}"] if cfg.modulation != "adaln" else []) + (
+        [f"attention_impl {cfg.attention_impl}"] if cfg.attention_impl != "auto" else []) + (
+        ["off: " + " ".join(off)] if off else [])
+    return "".join(", " + part for part in parts)
+
+
+def _profile(out_dir: str, call, table: str, calls: int = 3, steps_per_call: int = 1) -> dict:
+    """Trace ``calls`` calls of ``call`` (a train step, or a chain of
+    ``steps_per_call`` denoise steps) with torch.profiler (CPU + CUDA):
+    write the table of device time by op and kernel to ``out_dir/<table>``
+    and return the traced wall ms per step, the device-busy ms per step (the
+    kernels' and copies' own time; one stream, so they do not overlap) and
+    the kernels with the most device time. The caller sets the idle share
+    against the untraced step time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(out_dir, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        for _ in range(steps):
-            step()
+        for _ in range(calls):
+            call()
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
+    steps = calls * steps_per_call
     events = prof.key_averages()
-    with open(os.path.join(out_dir, "train_key_averages.txt"), "w") as f:
+    with open(os.path.join(out_dir, table), "w") as f:
         f.write(events.table(sort_by="self_device_time_total", row_limit=60))
     # device-side events only: a CPU op's row repeats its kernels' time
     kernels = sorted(
@@ -159,13 +186,20 @@ def main(argv=None) -> int:
     p.add_argument("--batch", type=int, default=32, help="pre-CFG samples (sample) or the train batch")
     p.add_argument("--steps", type=int, default=250)
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default="bfloat16")
-    p.add_argument("--block-kernel", choices=["auto", "mega", "mega_attn", "mega_stack", "off"], default="auto")
+    p.add_argument("--block-kernel", choices=list(BLOCK_KERNELS), default="auto")
+    p.add_argument("--modulation", choices=list(MODULATION_KINDS), default="adaln")
+    p.add_argument("--attention-impl", choices=list(ATTENTION_IMPLS), default="auto")
+    use_flags = [f.name for f in dataclasses.fields(DiTConfig) if f.name.startswith("use_")]
+    for name in use_flags:
+        p.add_argument("--no-" + name.replace("_", "-"), dest=name, action="store_false",
+                       help=f"turn {name} off (default on)")
     p.add_argument("--attn-bwd", choices=["pallas", "residual", "reference"], default="pallas",
                    help="train mode with --block-kernel mega_attn: the attention half-block's VJP")
     p.add_argument("--resident-data", action="store_true",
                    help="train mode: reuse one device-resident batch (no per-step host upload)")
     p.add_argument("--profile-dir", default=None,
-                   help="train mode: trace a few steps with torch.profiler first and write the table here")
+                   help="trace a few train steps (or one 10-step chain) with torch.profiler after the timed "
+                        "ones and write the table here")
     p.add_argument("--repeats", type=int, default=3)
     args = p.parse_args(argv)
 
@@ -173,7 +207,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("the benchmark measures a GPU and none is available")
     cfg = build_config(args.model, in_channels=4, input_size=16, num_classes=1000, compute_dtype=args.dtype,
-                       block_kernel=args.block_kernel, attn_bwd=args.attn_bwd)
+                       block_kernel=args.block_kernel, attn_bwd=args.attn_bwd, modulation=args.modulation,
+                       attention_impl=args.attention_impl, **{name: getattr(args, name) for name in use_flags})
     if args.mode == "train":
         print(json.dumps(bench_train(args, cfg, device)))
         return 0
@@ -196,14 +231,23 @@ def main(argv=None) -> int:
         times.append(time.perf_counter() - start)
     best = min(times)
     value = args.steps / best
+    profile = None
+    if args.profile_dir:
+        short = build_sample_fn(cfg, model.state_dict(), create_diffusion("10", device=device), cfg_scale=CFG_SCALE,
+                                batch_hint=args.batch, device=device)
+        short(z, y, torch.Generator(device=device).manual_seed(1))
+        profile = _profile(args.profile_dir, lambda: short(z, y, torch.Generator(device=device).manual_seed(1)),
+                           "sample_key_averages.txt", calls=1, steps_per_call=10)
+        profile["device_idle_share"] = 1.0 - profile["device_busy_ms_per_step"] / (1e3 / value)
     mfu = 100.0 * model_call_flops(cfg, 2 * n) * args.steps / best / H100_BF16_FLOPS
     print(json.dumps({
         "metric": "denoise_steps_per_sec_per_gpu",
         "value": value,
         "unit": f"DDPM steps/s ({args.model}, batch {n}x2 CFG, {args.steps} respaced steps, {args.dtype}, "
-                f"block_kernel {sample.run_cfg.block_kernel})",
+                f"block_kernel {sample.run_cfg.block_kernel}{_family(cfg)})",
         "mfu_pct": mfu,
         "chain_seconds": times,
+        "profile": profile,
         "device": _device_info(),
     }))
     return 0

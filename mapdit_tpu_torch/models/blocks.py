@@ -1,7 +1,10 @@
 """DiT blocks: modulation, embedders, final layer, and the block-kernel policy.
 
-Port of ``mapdit_tpu/models/blocks.py`` for the default MaP family (MP
-adaln modulation, fixed t=0.3 MP residuals, learned scalar gains).
+Port of ``mapdit_tpu/models/blocks.py`` for every ``use_*`` flag set and the
+three modulation kinds. Rotation modulation replaces the shift of adaLN by a
+learned Givens rotation of channel pairs. The block kernels hard-code the
+MP + adaln + cosine-attention arithmetic; any other family runs the generic
+path of :class:`DiTBlock`, whatever ``block_kernel`` says.
 """
 
 from __future__ import annotations
@@ -10,26 +13,58 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from mapdit_tpu_torch.models.config import DiTConfig
-from mapdit_tpu_torch.models.layers import MLP, Attention, MPEmbedding, MPLinear, MPLinearSplit, MPSiLU
-from mapdit_tpu_torch.ops.mp import modulate, mp_silu, mp_sum
+from mapdit_tpu_torch.models.layers import (
+    MLP,
+    Attention,
+    MPEmbedding,
+    MPLinear,
+    MPLinearSplit,
+    activation,
+    activation_module,
+)
+from mapdit_tpu_torch.ops.mp import modulate, mp_sum, rotate_pairs
+
+
+def mp_adaln_family(cfg: DiTConfig) -> bool:
+    """The family whose MLP half ``fused_mlp_branch`` computes."""
+    return (
+        cfg.modulation == "adaln"
+        and cfg.mp_style
+        and cfg.use_mp_silu
+        and cfg.use_mp_residual
+        and cfg.use_weight_normalization
+    )
+
+
+def kernel_family_ok(cfg: DiTConfig) -> bool:
+    """The family whose arithmetic the whole-block, whole-stack and
+    attention half-block kernels hard-code."""
+    return mp_adaln_family(cfg) and cfg.use_cosine_attention and cfg.hidden_size % cfg.num_heads == 0
 
 
 def kernel_policy(cfg: DiTConfig, seq_len: int, device: torch.device) -> str:
     """What ``block_kernel="auto"`` resolves to: the whole-block kernels
-    (``mega``) for folded-weight bf16 programs on a CUDA device at T <= 64,
-    the plain path (``off``) otherwise. The JAX policy's conditions on the
-    flag family, folding and T carry over; its VMEM weight budgets do not.
-    Float32 stays on the plain path: the kernels take bf16 operands."""
+    (``mega``) for folded-weight bf16 programs of the kernels' family
+    (:func:`kernel_family_ok`) on a CUDA device at T <= 64, the plain path
+    (``off``) otherwise. The JAX policy's conditions on the flag family,
+    folding and T carry over; its VMEM weight budgets do not. Float32 stays
+    on the plain path: the kernels take bf16 operands."""
+    if not kernel_family_ok(cfg):
+        return "off"
     if cfg.fold_weights and seq_len <= 64 and cfg.dtype == torch.bfloat16 and torch.device(device).type == "cuda":
         return "mega"
     return "off"
 
 
 def use_megakernel(cfg: DiTConfig, seq_len: int, device: torch.device) -> bool:
-    """Whether a DiTBlock runs through ``fused_dit_block``."""
+    """Whether a DiTBlock runs through ``fused_dit_block``. An explicit
+    ``mega`` on another family takes the generic path."""
+    if not kernel_family_ok(cfg):
+        return False
     if cfg.block_kernel == "mega":
         return True
     return cfg.block_kernel == "auto" and kernel_policy(cfg, seq_len, device) == "mega"
@@ -38,10 +73,19 @@ def use_megakernel(cfg: DiTConfig, seq_len: int, device: torch.device) -> bool:
 def use_attn_halfkernel(cfg: DiTConfig) -> bool:
     """Whether a DiTBlock runs its attention half through
     ``fused_attn_branch`` (modulation head and MLP stay plain): an explicit
-    ``mega_attn``. ``auto`` never resolves to it here: the port's policy has
-    no weight budget and takes the whole-block kernels where the JAX
-    package would take this one for B and XL sampling (ROADMAP A.4)."""
-    return cfg.block_kernel == "mega_attn"
+    ``mega_attn`` on the kernels' family. ``auto`` never resolves to it
+    here: the port's policy has no weight budget and takes the whole-block
+    kernels where the JAX package would take this one for B and XL sampling
+    (ROADMAP A.4)."""
+    return kernel_family_ok(cfg) and cfg.block_kernel == "mega_attn"
+
+
+def use_fused_mlp(cfg: DiTConfig) -> bool:
+    """Whether a DiTBlock on the generic path runs its MLP half through
+    ``fused_mlp_branch``: ``block_kernel="pallas"`` on the MP + adaln
+    family. (The JAX policy also asks for T % 8 == 0, a TPU tile shape; the
+    Hopper kernel takes any T.)"""
+    return mp_adaln_family(cfg) and cfg.block_kernel == "pallas"
 
 
 def stack_auto_ok(cfg: DiTConfig, batch_hint: Optional[int], device: torch.device) -> bool:
@@ -52,12 +96,47 @@ def stack_auto_ok(cfg: DiTConfig, batch_hint: Optional[int], device: torch.devic
     return kernel_policy(cfg, cfg.num_patches, device) == "mega"
 
 
+def modulation_dims(cfg: DiTConfig, with_gate: bool) -> Tuple[int, ...]:
+    """Output chunk sizes of one branch's modulation head: adaln (shift,
+    scale[, gate]), rotation (theta[, gate]) with D/2 angles,
+    rotation_scale (theta, scale[, gate])."""
+    h = cfg.hidden_size
+    base = {"adaln": (h, h), "rotation": (h // 2,), "rotation_scale": (h // 2, h)}[cfg.modulation]
+    return base + ((h,) if with_gate else ())
+
+
+def apply_modulation(x: torch.Tensor, mods: Tuple[torch.Tensor, ...], gain, cfg: DiTConfig) -> torch.Tensor:
+    """Inject the conditioning into (N, T, D) activations. MP-style adaln is
+    ``modulate`` = mp_sum(x*scale, shift, gain); vanilla adaln is
+    ``x * (1 + scale) + shift``. The rotation kinds rotate channel pairs by
+    ``gain * theta`` (the gain starts at 0: the identity at init)."""
+    if cfg.modulation == "adaln":
+        shift, scale = mods
+        if cfg.mp_style:
+            return modulate(x, shift, scale, gain)
+        return x * (1.0 + scale[:, None, :]) + shift[:, None, :]
+    if cfg.modulation == "rotation":
+        (theta,) = mods
+        return rotate_pairs(x, gain * theta)
+    theta, scale = mods
+    scale = scale if cfg.mp_style else 1.0 + scale
+    return rotate_pairs(x * scale[:, None, :], gain * theta)
+
+
+def layer_norm(z: torch.Tensor) -> torch.Tensor:
+    """LayerNorm without affine parameters, eps 1e-6."""
+    return F.layer_norm(z, z.shape[-1:], eps=1e-6)
+
+
 class ModulationHead(nn.Sequential):
-    """MP-SiLU then one linear whose output splits into modulation chunks;
-    a Sequential so the weight is named ``modulation.1.weight``."""
+    """(MP-)SiLU then one linear whose output splits into modulation chunks
+    (zero-initialised without the MP style: adaLN-Zero); a Sequential so the
+    weight is named ``modulation.1.weight``."""
 
     def __init__(self, cfg: DiTConfig, dims: Tuple[int, ...]):
-        super().__init__(MPSiLU(), MPLinearSplit(cfg.hidden_size, dims, cfg))
+        super().__init__(
+            activation_module(cfg), MPLinearSplit(cfg.hidden_size, dims, cfg, zero_init=not cfg.mp_style)
+        )
 
     @property
     def linear(self) -> MPLinearSplit:
@@ -68,14 +147,18 @@ class ModulationHead(nn.Sequential):
 
 
 class DiTBlock(nn.Module):
-    """Transformer block with modulated attention and MLP branches and gated
-    MP residuals ``mp_sum(x, gate * branch, t=0.3)``."""
+    """Transformer block with modulated attention and MLP branches. MP
+    path: learned scalar gains (init 0) drive the modulation mix, residuals
+    are ``mp_sum(x, gate * branch, t=0.3)``. Vanilla path: LayerNorm
+    without affine before each modulation, adaLN-Zero, plain residual add."""
 
     def __init__(self, cfg: DiTConfig):
         super().__init__()
         self.cfg = cfg
         d = cfg.hidden_size
-        self.modulation = ModulationHead(cfg, (d,) * 6)
+        dims = modulation_dims(cfg, with_gate=True)
+        self.branch_chunks = len(dims)
+        self.modulation = ModulationHead(cfg, dims + dims)
         self.gain_msa = nn.Parameter(torch.zeros(()))
         self.gain_mlp = nn.Parameter(torch.zeros(()))
         self.attn = Attention(cfg, d)
@@ -89,7 +172,7 @@ class DiTBlock(nn.Module):
             dt = cfg.dtype
             return fused_dit_block(
                 x.to(dt).contiguous(),
-                mp_silu(c).to(dt).contiguous(),
+                activation(c, cfg).to(dt).contiguous(),
                 torch.stack([self.gain_msa, self.gain_mlp]).float(),
                 self.modulation.linear.effective_weight().to(dt),
                 self.attn.qkv_proj.effective_weight().to(dt),
@@ -98,11 +181,15 @@ class DiTBlock(nn.Module):
                 self.mlp.fc2.effective_weight().to(dt),
                 cfg.num_heads,
             )
-        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.modulation(c)
+        mods = self.modulation(c)
+        n = self.branch_chunks
+        msa_mods, gate_msa = mods[: n - 1], mods[n - 1]
+        mlp_mods, gate_mlp = mods[n : 2 * n - 1], mods[2 * n - 1]
         if use_attn_halfkernel(cfg):
             from mapdit_tpu_torch.ops.cuda.attn_branch import fused_attn_branch
 
             dt = cfg.dtype
+            shift_msa, scale_msa = msa_mods
             x = fused_attn_branch(
                 x.to(dt).contiguous(),
                 shift_msa.to(dt),
@@ -114,11 +201,23 @@ class DiTBlock(nn.Module):
                 cfg.num_heads,
                 bwd=cfg.attn_bwd,
             )
-        else:
-            h = modulate(x, shift_msa, scale_msa, self.gain_msa)
-            x = mp_sum(x, gate_msa[:, None, :] * self.attn(h), t=0.3)
-        h = modulate(x, shift_mlp, scale_mlp, self.gain_mlp)
-        return mp_sum(x, gate_mlp[:, None, :] * self.mlp(h), t=0.3)
+            h = apply_modulation(x, mlp_mods, self.gain_mlp, cfg)
+            return mp_sum(x, gate_mlp[:, None, :] * self.mlp(h), t=0.3)
+
+        def maybe_norm(z):
+            return z if cfg.use_no_layernorm else layer_norm(z)
+
+        def residual(z, branch, gate):
+            gated = gate[:, None, :] * branch
+            return mp_sum(z, gated, t=0.3) if cfg.use_mp_residual else z + gated
+
+        h = apply_modulation(maybe_norm(x), msa_mods, self.gain_msa, cfg)
+        x = residual(x, self.attn(h), gate_msa)
+        if use_fused_mlp(cfg):
+            shift_mlp, scale_mlp = mlp_mods
+            return self.mlp.fused_branch(x, shift_mlp, scale_mlp, gate_mlp, self.gain_mlp)
+        h = apply_modulation(maybe_norm(x), mlp_mods, self.gain_mlp, cfg)
+        return residual(x, self.mlp(h), gate_mlp)
 
 
 class MPFourier(nn.Module):
@@ -139,17 +238,30 @@ class MPFourier(nn.Module):
         return math.sqrt(2.0) * torch.cos(torch.outer(t.float(), self.scale) + self.shift)
 
 
+def sinusoidal_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
+    """Vanilla DiT's deterministic timestep features (cos | sin halves)."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period) * torch.arange(half, dtype=torch.float32, device=t.device) / half)
+    args = t.float()[:, None] * freqs[None]
+    return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
 class TimestepEmbedder(nn.Module):
-    """Timestep -> conditioning vector. Raw float timesteps (0..999) enter
-    with no rescaling."""
+    """Timestep -> conditioning vector: random Fourier features under
+    ``use_mp_embedding``, sinusoidal features otherwise, then an MLP. Raw
+    float timesteps (0..999) enter with no rescaling."""
 
     def __init__(self, cfg: DiTConfig, frequency_embedding_size: int = 256):
         super().__init__()
-        self.embedding = MPFourier(frequency_embedding_size)
+        self.frequency_embedding_size = frequency_embedding_size
+        if cfg.use_mp_embedding:
+            self.embedding = MPFourier(frequency_embedding_size)
         self.mlp = MLP(cfg, frequency_embedding_size, cfg.hidden_size, hidden_dim=cfg.hidden_size)
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
-        return self.mlp(self.embedding(t))
+        if hasattr(self, "embedding"):
+            return self.mlp(self.embedding(t))
+        return self.mlp(sinusoidal_embedding(t, self.frequency_embedding_size))
 
 
 class LabelEmbedder(nn.Module):
@@ -161,7 +273,9 @@ class LabelEmbedder(nn.Module):
     def __init__(self, cfg: DiTConfig):
         super().__init__()
         self.cfg = cfg
-        self.embedding = MPEmbedding(cfg.num_classes + int(cfg.class_dropout_prob > 0), cfg.hidden_size, cfg)
+        self.embedding = MPEmbedding(
+            cfg.num_classes + int(cfg.class_dropout_prob > 0), cfg.hidden_size, cfg, use_wn=cfg.use_mp_embedding
+        )
 
     def forward(
         self,
@@ -198,24 +312,31 @@ class MPScale(nn.Module):
 
 
 class FinalLayer(nn.Module):
-    """Output head: own modulation with a learned gain, fused mean/sigma
-    head, and a per-sample MPScale on each output."""
+    """Output head. MP path: own modulation with a learned gain, fused
+    mean/sigma head, and a per-sample MPScale on each output. Vanilla path
+    (``use_no_layernorm`` off): LayerNorm, modulation, a zero-initialised
+    head and no output scaling."""
 
     def __init__(self, cfg: DiTConfig):
         super().__init__()
         self.cfg = cfg
         d = cfg.hidden_size
         out_dim = cfg.patch_size * cfg.patch_size * cfg.out_channels
-        self.modulation = ModulationHead(cfg, (d, d))
+        self.modulation = ModulationHead(cfg, modulation_dims(cfg, with_gate=False))
         self.gain_mod = nn.Parameter(torch.zeros(()))
-        self.linear = MPLinearSplit(d, (out_dim,) * (2 if cfg.learn_sigma else 1), cfg)
-        self.mean_scale = MPScale(cfg, zero_init=False)
-        if cfg.learn_sigma:
-            self.sigma_scale = MPScale(cfg, zero_init=True)
+        self.linear = MPLinearSplit(d, (out_dim,) * (2 if cfg.learn_sigma else 1), cfg, zero_init=not cfg.mp_style)
+        if cfg.mp_style:
+            self.mean_scale = MPScale(cfg, zero_init=False)
+            if cfg.learn_sigma:
+                self.sigma_scale = MPScale(cfg, zero_init=True)
 
     def forward(self, x: torch.Tensor, c: torch.Tensor):
-        shift, scale = self.modulation(c)
-        heads = self.linear(modulate(x, shift, scale, self.gain_mod))
+        cfg = self.cfg
+        if not cfg.use_no_layernorm:
+            x = layer_norm(x)
+        heads = self.linear(apply_modulation(x, self.modulation(c), self.gain_mod, cfg))
+        if not cfg.mp_style:
+            return heads if cfg.learn_sigma else heads[0]
         mean = heads[0] * self.mean_scale(c)[:, None, None]
         if not self.cfg.learn_sigma:
             return mean

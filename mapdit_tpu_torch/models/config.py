@@ -1,10 +1,12 @@
 """Model configuration, port of ``mapdit_tpu/models/config.py``.
 
-Every field of the JAX ``DiTConfig`` is here. The port so far implements the
-default MaP family (all ``use_*`` flags on, ``modulation="adaln"``), the
-``auto``/``xla`` attention path, the ``auto``, ``mega``, ``mega_attn``,
-``mega_stack`` and ``off`` block kernels and every ``attn_bwd``; any other
-value raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+Every field of the JAX ``DiTConfig`` is here: the eight ``use_*`` flags as
+real switches (all off with ``modulation="adaln"`` is a vanilla DiT), the
+three modulation kinds, every ``attention_impl``, the ``auto``, ``pallas``,
+``mega``, ``mega_attn``, ``mega_stack`` and ``off`` block kernels and every
+``attn_bwd``. The tensor-parallel block kernels, ``scan_blocks`` and
+``remat`` raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.
 """
 
 from __future__ import annotations
@@ -13,11 +15,12 @@ import dataclasses
 
 import torch
 
+from mapdit_tpu_torch.ops.attention import ATTENTION_IMPLS
+
 MODULATION_KINDS = ("adaln", "rotation", "rotation_scale")
-BLOCK_KERNELS = ("auto", "mega", "mega_attn", "mega_stack", "off")
+BLOCK_KERNELS = ("auto", "pallas", "mega", "mega_attn", "mega_stack", "off")
 # block_kernel values of the JAX package the port has not reached yet
 _UNPORTED_BLOCK_KERNELS = {
-    "pallas": "ROADMAP B.8 (MLP half-block kernel)",
     "mega_attn_tp": "ROADMAP B.10 (head-sharded attention kernel)",
     "mega_tp": "ROADMAP B.11 (full-block tensor-parallel kernels)",
 }
@@ -48,13 +51,20 @@ class DiTConfig:
     modulation: str = "adaln"
 
     compute_dtype: str = "float32"  # "float32" | "bfloat16"
-    attention_impl: str = "auto"  # "auto" | "xla"
+    # "auto"/"xla": the plain path; "pallas", "pallas_v2", "pallas_v3": the
+    # standalone attention kernel fused_attention (ops/cuda/attention.py),
+    # one Hopper kernel behind the JAX package's three names
+    attention_impl: str = "auto"
     # "mega": each block through fused_dit_block (ops/cuda/dit_block.py);
     # "mega_stack": the whole stack through fused_dit_stack inside the
     # sampling runtime (elsewhere it runs the plain path, as in the JAX
     # package); "mega_attn": the attention half of each block through
     # fused_attn_branch (ops/cuda/attn_branch.py), the MLP half plain;
+    # "pallas": the MLP half of each block through fused_mlp_branch
+    # (ops/cuda/mlp_block.py), the attention half on the generic path;
     # "auto": the policy in models/blocks.py; "off": plain torch.
+    # The kernels hard-code the MP + adaln arithmetic: on another flag
+    # family every value runs the generic path (models/blocks.py).
     block_kernel: str = "off"
     # VJP of fused_attn_branch under mega_attn: "pallas" (fused backward
     # kernels), "residual" (residual-emitting forward, plain backward),
@@ -70,22 +80,12 @@ class DiTConfig:
         assert self.hidden_size % 2 == 0
         assert self.modulation in MODULATION_KINDS, self.modulation
         assert self.compute_dtype in ("float32", "bfloat16")
-        assert self.attention_impl in ("auto", "xla", "pallas", "pallas_v2", "pallas_v3")
+        assert self.attention_impl in ATTENTION_IMPLS, self.attention_impl
         assert self.block_kernel in BLOCK_KERNELS + tuple(_UNPORTED_BLOCK_KERNELS)
         assert self.attn_bwd in ("pallas", "residual", "reference")
-        off = [f.name for f in dataclasses.fields(self) if f.name.startswith("use_") and not getattr(self, f.name)]
-        if off or self.modulation != "adaln":
-            raise NotImplementedError(
-                f"flag set {off or self.modulation!r}: the port implements the default MaP "
-                "family only; other flag sets and modulations are ROADMAP A.2"
-            )
         if self.block_kernel in _UNPORTED_BLOCK_KERNELS:
             raise NotImplementedError(
                 f"block_kernel={self.block_kernel!r} is {_UNPORTED_BLOCK_KERNELS[self.block_kernel]}"
-            )
-        if self.attention_impl.startswith("pallas"):
-            raise NotImplementedError(
-                f"attention_impl={self.attention_impl!r} is ROADMAP B.9 (standalone attention kernel)"
             )
         if self.scan_blocks or self.remat:
             raise NotImplementedError("scan_blocks and remat are later items of training (ROADMAP A.6)")
@@ -102,5 +102,20 @@ class DiTConfig:
     def num_patches(self) -> int:
         return (self.input_size // self.patch_size) ** 2
 
+    @property
+    def mp_style(self) -> bool:
+        """MP conditioning arithmetic (``mp_sum(x*scale, shift, gain)``)
+        against the classic adaLN-Zero ``x*(1+scale)+shift``; keyed on
+        ``use_no_layernorm`` alone, since the classic form pairs with the
+        pre-modulation LayerNorm."""
+        return self.use_no_layernorm
+
     def replace(self, **kw) -> "DiTConfig":
         return dataclasses.replace(self, **kw)
+
+    def flags_dict(self) -> dict:
+        return {
+            f.name: getattr(self, f.name)
+            for f in dataclasses.fields(self)
+            if f.name.startswith("use_") or f.name == "modulation"
+        }

@@ -9,24 +9,25 @@ from typing import Optional
 import torch
 from torch import nn
 
-from mapdit_tpu_torch.models.blocks import DiTBlock, FinalLayer, LabelEmbedder, TimestepEmbedder
+from mapdit_tpu_torch.models.blocks import DiTBlock, FinalLayer, LabelEmbedder, TimestepEmbedder, kernel_family_ok
 from mapdit_tpu_torch.models.config import DiTConfig
-from mapdit_tpu_torch.models.layers import MPLinear
-from mapdit_tpu_torch.ops.mp import mp_silu, mp_sum, normalize
+from mapdit_tpu_torch.models.layers import MPLinear, activation
+from mapdit_tpu_torch.ops.mp import mp_sum, normalize
 from mapdit_tpu_torch.ops.patch import patchify, unpatchify
 from mapdit_tpu_torch.ops.pos_embed import get_2d_sincos_pos_embed
 from mapdit_tpu_torch.utils.device import resolve_device
 
 
 def pos_embed_buffer(cfg: DiTConfig) -> torch.Tensor:
-    """The normalized (1, T, D) f32 positional table, the reference's
-    ``pos_embed`` buffer."""
-    table = get_2d_sincos_pos_embed(cfg.hidden_size, cfg.input_size // cfg.patch_size)
-    return normalize(torch.from_numpy(table).float())[None]
+    """The (1, T, D) f32 positional table, the reference's ``pos_embed``
+    buffer: row-normalized under ``use_mp_pos_enc``, raw otherwise."""
+    table = torch.from_numpy(get_2d_sincos_pos_embed(cfg.hidden_size, cfg.input_size // cfg.patch_size)).float()
+    return (normalize(table) if cfg.use_mp_pos_enc else table)[None]
 
 
 class DiT(nn.Module):
-    """Diffusion Transformer, default MaP family.
+    """Diffusion Transformer with the magnitude-preserving variants the
+    ``use_*`` flags and ``modulation`` select.
 
     ``forward(x, t, y)`` with x (N, C, H, W), t (N,) float timesteps and
     y (N,) int labels returns (N, 2C, H, W) f32 (learn_sigma) or (N, C, H, W).
@@ -38,8 +39,9 @@ class DiT(nn.Module):
         self.cfg = cfg
         p = cfg.patch_size
         # bias-free MP design: a ones column appended to the patch features
-        # acts as the input bias
-        self.x_embedder = MPLinear(p * p * cfg.in_channels + 1, cfg.hidden_size, cfg)
+        # acts as the input bias; without weight normalization the linear
+        # has its own bias
+        self.x_embedder = MPLinear(p * p * cfg.in_channels + int(cfg.use_weight_normalization), cfg.hidden_size, cfg)
         self.t_embedder = TimestepEmbedder(cfg)
         self.y_embedder = LabelEmbedder(cfg)
         self.blocks = nn.ModuleList(DiTBlock(cfg) for _ in range(cfg.depth))
@@ -70,18 +72,24 @@ class DiT(nn.Module):
         cfg = self.cfg
         dt = cfg.dtype
         x = patchify(x, cfg.patch_size).to(dt)
-        x = torch.cat([x, torch.ones_like(x[:, :, :1])], dim=-1)
+        if cfg.use_weight_normalization:
+            x = torch.cat([x, torch.ones_like(x[:, :, :1])], dim=-1)
         x = self.x_embedder(x)
-        x = mp_sum(x, self.pos_embed.to(dt), t=0.5)
+        pos = self.pos_embed.to(dt)
+        x = mp_sum(x, pos, t=0.5) if cfg.use_mp_pos_enc else x + pos
 
-        c = mp_sum(self.t_embedder(t), self.y_embedder(y, force_drop_ids, train, generator), t=0.5)
+        t_emb, y_emb = self.t_embedder(t), self.y_embedder(y, force_drop_ids, train, generator)
+        c = mp_sum(t_emb, y_emb, t=0.5) if cfg.mp_style else t_emb + y_emb
 
         if block_stack is not None:
             from mapdit_tpu_torch.ops.cuda.dit_block import fused_dit_stack
 
+            if not kernel_family_ok(cfg):
+                raise ValueError("fused_dit_stack hard-codes the MP + adaln + cosine-attention family")
+
             x = fused_dit_stack(
                 x.to(dt).contiguous(),
-                mp_silu(c).to(dt).contiguous(),
+                activation(c, cfg).to(dt).contiguous(),
                 block_stack["gains"],
                 block_stack["w_mod"],
                 block_stack["w_qkv"],

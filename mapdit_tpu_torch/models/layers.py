@@ -1,10 +1,12 @@
 """Basic layers: MP linear / embedding, attention, MLP.
 
-Port of ``mapdit_tpu/models/layers.py`` (default MaP family). Weights keep
-the reference's (out, in) layout and names. The in-graph weight
-normalization is applied unless the weights are folded
-(``cfg.fold_weights``, see ``runtime.fold_weights_for_inference``).
-Parameters are created empty; ``reset_parameters(generator)`` draws them.
+Port of ``mapdit_tpu/models/layers.py``. Weights keep the reference's
+(out, in) layout and names. The in-graph weight normalization is applied
+unless the weights are folded (``cfg.fold_weights``, see
+``runtime.fold_weights_for_inference``). With the flags off the layers are
+vanilla DiT's: a standard linear with bias and xavier-uniform init, plain
+SiLU, attention without the q/k normalization. Parameters are created
+empty; ``reset_parameters(generator)`` draws them.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from mapdit_tpu_torch.models.config import DiTConfig
@@ -25,66 +28,115 @@ class MPSiLU(nn.Module):
         return mp_silu(x)
 
 
-class MPLinear(nn.Module):
-    """Bias-free weight-normalized linear: ``x @ normalize(W).T / sqrt(in)``."""
+def activation(x: torch.Tensor, cfg: DiTConfig) -> torch.Tensor:
+    return mp_silu(x) if cfg.use_mp_silu else F.silu(x)
 
-    def __init__(self, in_dim: int, out_dim: int, cfg: DiTConfig):
+
+def activation_module(cfg: DiTConfig) -> nn.Module:
+    return MPSiLU() if cfg.use_mp_silu else nn.SiLU()
+
+
+class MPLinear(nn.Module):
+    """Bias-free weight-normalized linear ``x @ normalize(W).T * gain /
+    sqrt(in)``, with a learned scalar ``gain`` under ``learn_gain``.
+
+    ``use_wn`` defaults to ``cfg.use_weight_normalization``. Without it this
+    is a standard linear with bias, xavier-uniform init and zero bias;
+    ``zero_init`` zeroes the weight (adaLN-Zero heads) or, with ``use_wn``
+    and ``learn_gain``, starts the gain at 0."""
+
+    def __init__(
+        self, in_dim: int, out_dim: int, cfg: DiTConfig, use_wn: Optional[bool] = None,
+        zero_init: bool = False, learn_gain: bool = False,
+    ):
         super().__init__()
         self.in_dim, self.out_dim = in_dim, out_dim
         self.dtype, self.folded = cfg.dtype, cfg.fold_weights
+        self.use_wn = cfg.use_weight_normalization if use_wn is None else use_wn
+        self.zero_init, self.learn_gain = zero_init, learn_gain and self.use_wn
         self.weight = nn.Parameter(torch.empty(out_dim, in_dim))
+        if self.learn_gain:
+            self.gain = nn.Parameter(torch.empty(()))
+        if not self.use_wn:
+            self.bias = nn.Parameter(torch.empty(out_dim))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
-            self.weight.normal_(0.0, 1.0, generator=generator)
+            if self.use_wn:
+                self.weight.normal_(0.0, 1.0, generator=generator)
+                if self.learn_gain:
+                    self.gain.fill_(0.0 if self.zero_init else 1.0)
+                return
+            self.bias.zero_()
+            if self.zero_init:
+                self.weight.zero_()
+            else:
+                limit = math.sqrt(6.0 / (self.in_dim + self.out_dim))
+                self.weight.uniform_(-limit, limit, generator=generator)
 
     def effective_weight(self) -> torch.Tensor:
         """The (out, in) matrix multiplied against inputs, without the
-        1/sqrt(in) factor, which fused kernels take as a scalar."""
+        1/sqrt(in) factor, which fused kernels take as a scalar (weight
+        normalization without a learned gain only)."""
+        assert self.use_wn and not self.learn_gain
         return self.weight if self.folded else normalize(self.weight)
 
+    def _product(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        if not self.use_wn:
+            return x.to(dt) @ self.weight.t().to(dt) + self.bias.to(dt)
+        w = self.weight if self.folded else normalize(self.weight)
+        gain = self.gain if self.learn_gain else 1.0
+        return x.to(dt) @ (w * (gain / math.sqrt(self.in_dim))).t().to(dt)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.effective_weight() * (1.0 / math.sqrt(self.in_dim))
-        return x.to(self.dtype) @ w.t().to(self.dtype)
+        return self._product(x)
 
 
 class MPLinearSplit(MPLinear):
-    """One weight of concatenated rows whose output splits into chunks
-    (the reference's ``MPLinearChunk``)."""
+    """One weight of concatenated rows whose output splits into chunks of
+    uneven sizes (the reference's ``MPLinearChunk``; rotation modulation
+    emits D/2 angles beside D-wide gates)."""
 
-    def __init__(self, in_dim: int, out_dims: Tuple[int, ...], cfg: DiTConfig):
-        super().__init__(in_dim, sum(out_dims), cfg)
+    def __init__(
+        self, in_dim: int, out_dims: Tuple[int, ...], cfg: DiTConfig, use_wn: Optional[bool] = None,
+        zero_init: bool = False,
+    ):
+        super().__init__(in_dim, sum(out_dims), cfg, use_wn=use_wn, zero_init=zero_init)
         self.out_dims = tuple(out_dims)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        w = self.effective_weight() / math.sqrt(self.in_dim)
-        return torch.split(x.to(self.dtype) @ w.t().to(self.dtype), self.out_dims, dim=-1)
+        return torch.split(self._product(x), self.out_dims, dim=-1)
 
 
 class MPEmbedding(nn.Module):
-    """Weight-normalized embedding table."""
+    """Weight-normalized embedding table; without ``use_wn`` a standard
+    table with N(0, 0.02) init."""
 
-    def __init__(self, num_embeddings: int, embedding_dim: int, cfg: DiTConfig):
+    def __init__(self, num_embeddings: int, embedding_dim: int, cfg: DiTConfig, use_wn: bool = True):
         super().__init__()
-        self.dtype, self.folded = cfg.dtype, cfg.fold_weights
+        self.dtype, self.folded, self.use_wn = cfg.dtype, cfg.fold_weights, use_wn
         self.weight = nn.Parameter(torch.empty(num_embeddings, embedding_dim))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
-            self.weight.normal_(0.0, 1.0, generator=generator)
+            self.weight.normal_(0.0, 1.0 if self.use_wn else 0.02, generator=generator)
 
     def forward(self, idx: torch.Tensor) -> torch.Tensor:
-        w = self.weight if self.folded else normalize(self.weight)
+        w = self.weight if (self.folded or not self.use_wn) else normalize(self.weight)
         return w.to(self.dtype)[idx]
 
 
 class Attention(nn.Module):
-    """Multi-head cosine attention: fused qkv projection, q/k rows
-    normalized, 1/sqrt(head_dim) scale, bias-free output projection."""
+    """Multi-head attention: fused qkv projection, q/k rows normalized
+    under ``use_cosine_attention``, 1/sqrt(head_dim) scale, output
+    projection; the attention itself by ``cfg.attention_impl``
+    (``ops/attention.py``)."""
 
     def __init__(self, cfg: DiTConfig, in_dim: int):
         super().__init__()
         self.num_heads = cfg.num_heads
+        self.cosine, self.impl = cfg.use_cosine_attention, cfg.attention_impl
         self.qkv_proj = MPLinearSplit(in_dim, (in_dim,) * 3, cfg)
         self.out_proj = MPLinear(in_dim, in_dim, cfg)
 
@@ -97,18 +149,21 @@ class Attention(nn.Module):
         def to_heads(z):
             return z.reshape(b, t, h, hd).transpose(1, 2)
 
-        out = dot_product_attention(to_heads(q), to_heads(k), to_heads(v), 1.0 / math.sqrt(hd), cosine=True)
+        out = dot_product_attention(
+            to_heads(q), to_heads(k), to_heads(v), 1.0 / math.sqrt(hd), cosine=self.cosine, impl=self.impl
+        )
         return self.out_proj(out.transpose(1, 2).reshape(b, t, d))
 
 
 class MLP(nn.Module):
-    """fc1 -> MP-SiLU -> fc2, held as ``net`` = (fc1, act, fc2) so the
+    """fc1 -> (MP-)SiLU -> fc2, held as ``net`` = (fc1, act, fc2) so the
     parameter names are the reference's ``net.0`` / ``net.2``."""
 
     def __init__(self, cfg: DiTConfig, in_dim: int, out_dim: int, hidden_dim: Optional[int] = None):
         super().__init__()
+        self.dtype = cfg.dtype
         hidden = int(in_dim * cfg.mlp_ratio) if hidden_dim is None else hidden_dim
-        self.net = nn.Sequential(MPLinear(in_dim, hidden, cfg), MPSiLU(), MPLinear(hidden, out_dim, cfg))
+        self.net = nn.Sequential(MPLinear(in_dim, hidden, cfg), activation_module(cfg), MPLinear(hidden, out_dim, cfg))
 
     @property
     def fc1(self) -> MPLinear:
@@ -120,3 +175,15 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.net(x)
+
+    def fused_branch(self, x, shift, scale, gate, gain) -> torch.Tensor:
+        """The whole MP-MLP half-block (modulate -> MLP -> gate -> mp_sum
+        residual) through ``fused_mlp_branch`` (``ops/cuda/mlp_block.py``).
+        MP + adaln family only."""
+        from mapdit_tpu_torch.ops.cuda.mlp_block import fused_mlp_branch
+
+        dt = self.dtype
+        return fused_mlp_branch(
+            x, shift.to(x.dtype), scale.to(x.dtype), gate.to(x.dtype), gain,
+            self.fc1.effective_weight().to(dt), self.fc2.effective_weight().to(dt),
+        )

@@ -21,7 +21,7 @@ import time
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "mapdit_tpu_torch"
-SOURCES = ("mp_gemm", "cosine_attention", "attn_branch_bwd")
+SOURCES = ("mp_gemm", "cosine_attention", "attn_branch_bwd", "fused_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -29,6 +29,11 @@ NVCC_FLAGS = (
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
+    "fused_attention": {
+        "fused_attention": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _I, _I, _P], ctypes.c_int),
+        "fused_attention_smem_bytes": ([_I, _I, _I], ctypes.c_size_t),
+        "fused_attention_error_string": ([_I], ctypes.c_char_p),
+    },
     "mp_gemm": {
         "mp_gemm": (
             [_P, _I, _P, _P, _I, _I, _I, _I, _F, _I, _P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P],

@@ -41,3 +41,15 @@ def normalize(x: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
 def mp_silu(x: torch.Tensor) -> torch.Tensor:
     """``silu(x) / 0.596``: SiLU rescaled to unit second moment."""
     return F.silu(x) / 0.596
+
+
+def rotate_pairs(x: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
+    """Rotation modulation: rotate the channel pairs ``(x[..., 2i],
+    x[..., 2i+1])`` of (N, T, D) ``x`` by the per-sample angles ``theta``
+    (N, D/2), broadcast over the tokens. Each pair keeps its norm."""
+    n, tok, d = x.shape
+    xp = x.reshape(n, tok, d // 2, 2)
+    cos = torch.cos(theta)[:, None, :]
+    sin = torch.sin(theta)[:, None, :]
+    x0, x1 = xp[..., 0], xp[..., 1]
+    return torch.stack([cos * x0 - sin * x1, sin * x0 + cos * x1], dim=-1).reshape(n, tok, d)

@@ -16,7 +16,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from mapdit_tpu_torch.models.blocks import stack_auto_ok
+from mapdit_tpu_torch.models.blocks import kernel_family_ok, stack_auto_ok
 from mapdit_tpu_torch.models.config import DiTConfig
 from mapdit_tpu_torch.models.dit import DiT
 from mapdit_tpu_torch.ops.mp import normalize
@@ -80,6 +80,13 @@ def build_shared_sample_fn(
     promote to the whole-stack kernel (``models/blocks.py:stack_auto_ok``).
     ``noise_fn(t, shape)`` replaces the step noise (cross-framework parity
     tests). Only ``sampler="ddpm"`` is ported; the others are ROADMAP A.7.
+
+    Weights fold only under ``use_weight_normalization``; without it a
+    weight-normalized class table (``use_mp_embedding``) is normalized in
+    the graph at every step, as in the JAX package. ``fused_dit_stack``
+    hard-codes the MP + adaln + cosine-attention family (a rotation head
+    has 4D or 5D rows, not 6D), so an explicit ``mega_stack`` on another
+    family raises ``ValueError``; ``auto`` never promotes one.
     """
     if sampler != "ddpm":
         raise NotImplementedError(f"sampler={sampler!r} is ROADMAP A.7; the port runs 'ddpm'")
@@ -90,6 +97,10 @@ def build_shared_sample_fn(
     if run_cfg.block_kernel == "auto" and stack_auto_ok(run_cfg, batch_hint, device):
         run_cfg = run_cfg.replace(block_kernel="mega_stack")
     use_stack = run_cfg.block_kernel == "mega_stack"
+    if use_stack and not kernel_family_ok(run_cfg):
+        raise ValueError(
+            f"mega_stack hard-codes the MP + adaln + cosine-attention family; got flags {run_cfg.flags_dict()}"
+        )
     if use_stack and not run_cfg.fold_weights:
         raise ValueError("mega_stack needs fold=True (folded weights)")
     use_fast = diffusion.mean_type == gd.EPSILON and diffusion.var_type == gd.LEARNED_RANGE

@@ -4,7 +4,12 @@ The port's modules use the reference's state-dict names, so a reference
 state dict (for example the goldens' ``sd.*`` arrays) loads as it is, and a
 JAX ``{'params', 'constants'}`` tree maps over by renaming alone: every
 weight is stored (out, in) in both. This module keeps its own copy of the
-name table of ``mapdit_tpu/utils/torch_import.py``.
+name table of ``mapdit_tpu/utils/torch_import.py``, extended to every flag
+family: each ``weight`` may have a ``bias`` beside it (weight normalization
+off); the Fourier constants exist only under ``use_mp_embedding`` and the
+output scales only in the MP style; the shapes (the ones column of
+``x_embedder``, the 4D / 5D / 6D rows of a modulation head) come with the
+arrays.
 """
 
 from __future__ import annotations
@@ -37,6 +42,12 @@ _NAMES = [
     ("final_layer.mean_scale.reference", "params/final_layer/mean_scale/reference"),
     ("final_layer.sigma_scale.linear.weight", "params/final_layer/sigma_scale/linear/weight"),
     ("final_layer.sigma_scale.reference", "params/final_layer/sigma_scale/reference"),
+]
+# a linear without weight normalization has a bias beside its weight
+_NAMES += [
+    (key[: -len("weight")] + "bias", path[: -len("weight")] + "bias")
+    for key, path in _NAMES
+    if key.endswith(".weight") and "embedding" not in key
 ]
 _PATTERNS = [
     (re.compile("^" + re.escape(path).replace(re.escape("{0}"), r"(\d+)") + "$"), key)

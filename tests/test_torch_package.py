@@ -35,7 +35,7 @@ def test_import_loads_no_jax():
     interpreter without bringing in jax, flax or mapdit_tpu (this test
     process has them loaded, hence the subprocess)."""
     for mod in ("training.state", "training.data", "training.ema", "training.lr", "diffusion.dmath",
-                "ops.cuda.attn_branch"):
+                "ops.cuda.attn_branch", "ops.cuda.attention", "ops.cuda.mlp_block"):
         assert f"mapdit_tpu_torch.{mod}" in _modules()
     code = (
         "import importlib, sys\n"
@@ -143,11 +143,11 @@ def test_kernel_wrappers_do_not_fall_back_off_cpu():
 @pytest.mark.parametrize(
     "overrides, item",
     [
-        (dict(use_cosine_attention=False), "A.2"),
-        (dict(modulation="rotation"), "A.2"),
         (dict(block_kernel="mega_attn_tp"), "B.10"),
-        (dict(block_kernel="pallas"), "B.8"),
-        (dict(attention_impl="pallas"), "B.9"),
+        (dict(block_kernel="mega_tp"), "B.11"),
+        (dict(block_kernel="mega_tp", modulation="rotation"), "B.11"),
+        (dict(scan_blocks=True), "A.6"),
+        (dict(remat=True, use_cosine_attention=False), "A.6"),
     ],
 )
 def test_unported_options_name_their_roadmap_item(overrides, item):
