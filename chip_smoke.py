@@ -29,11 +29,21 @@ Phases, one line each; any failure exits non-zero before the final line:
      block), and P2, modulation="rotation_scale" with
      attention_impl="pallas" (fused_attention). Each: the first model call
      and a clipped 10-step chain against the float32 plain path, the
-     250-step chain through build_sample_fn, and train steps at batch 256
+     100-step chain through build_sample_fn, and train steps at batch 256
      through make_train_step (first step's loss and gradients against the
      float32 plain path), launch counts read around each;
-  8. the kernels JSON line, the device line again, and the ok line.
-Phase 3 also holds fused_attention (B/2 sampling and training shapes on
+  8. train CLI: mapdit_tpu_torch.train.main at full DiT-S/2, batch 256, bf16,
+     block_kernel="mega_attn", attn_bwd="pallas", on synthetic:1024, 12 steps
+     with a checkpoint and EMA snapshots at step 8: run A uninterrupted; run
+     B to step 8 and resumed to 12 (restored state bit for bit, losses of
+     steps 9-12 against A's); run C as A with the dW products through
+     dw_gemm (DW_IN_KERNEL_BUDGET raised; launch counts exact, losses
+     against A's, steps/s of both); 4 steps with --grad-accum 4 --grad-clip
+     1.0 (step-1 grad_norm against A's); the artifacts on disk;
+  9. the kernels JSON line, the device line again, and the ok line.
+Phase 3 also holds dw_gemm (the S/2 and B/2 training shapes and a ragged M,
+the same bits on two runs) and attn_bwd with the dW switch on (seven
+cotangents, no f32 matmul left), and fused_attention (B/2 sampling and training shapes on
 the model's strided views, the XL head width 72, T=256, f32 without the
 cosine normalisation at logits past 88) and fused_mlp_branch (N=64 and 256)
 and their gradients against their plain versions.
@@ -47,6 +57,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 0
@@ -58,6 +69,9 @@ TRAIN_BATCH = 256
 TRAIN_STEPS = 10  # timed train steps per path, after the checked first step
 FAMILY_MODEL = "DiT-B/2"
 FAMILY_TRAIN_STEPS = 3  # timed DiT-B/2 train steps per path
+FAMILY_STEPS = 100  # DDPM steps of each DiT-B/2 chain
+CLI_STEPS = 12  # steps of each full run of the train CLI
+CLI_CKPT_STEP = 8  # its checkpoint and EMA snapshots; run B stops and resumes here
 # tag: (the family's flags, the kernels its blocks run)
 FAMILIES = {
     "P1": (dict(), dict(block_kernel="pallas", attention_impl="pallas")),
@@ -306,6 +320,8 @@ def train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x_s, a_s, gains_s, w0)
         lambda: ab.modulate_bwd_plain(dh, xf, rows_, g1, dx0, t), 8 * mt * d,
         mt * d * (4 + 2 + 4 + 2) + 2 * n * d * 4 + 2 * n * d * 4 + 8)
 
+    out_rows["attn_bwd/dw"] = dw_kernel_row(torch, ab, gen, dev, dy, args, (dqkv, h, dout, attn), inv_d)
+
     # fused_dit_block's gradient: kernel forward, backward through the
     # reference math, against autograd of that reference in f32
     inputs = [v.detach().requires_grad_() for v in (x_s, a_s, gains_s, *w0)]
@@ -324,6 +340,101 @@ def train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x_s, a_s, gains_s, w0)
     phase("time", kernel="fused_dit_block/grad", ms=f"{time_ms(torch, block_grad, iters=5):.4f}",
           plain_ms=f"{time_ms(torch, reference_grad, iters=5):.4f}", note="forward+backward, rows=" + str(n_s))
     return out_rows
+
+
+def dw_kernel_row(torch, ab, gen, dev, dy, args, operands, inv_d) -> dict:
+    """Phase 3, row 4': dw_gemm against its plain version on the backward's
+    own operands at the DiT-S/2 training shapes (both products; the row times
+    the pair), at the DiT-B/2 shapes and at a ragged M, the same bits on two
+    runs; then attn_bwd with the dW switch on against attn_bwd_plain with it
+    on (seven cotangents), with no f32 matmul left on the path. The row's
+    launches come from the train CLI's run with the switch on (phase 8)."""
+    from torch.overrides import TorchFunctionMode
+
+    bf = torch.bfloat16
+    dqkv, h, dout, attn = operands
+    pairs = ((dqkv, h), (dout, attn))
+
+    def kernel_pair():
+        return [ab.dw_gemm(a_, b_, inv_d) for a_, b_ in pairs]
+
+    def plain_pair():
+        return [ab.dw_gemm_plain(a_, b_, inv_d) for a_, b_ in pairs]
+
+    # products of bf16 values are exact in f32 and both sides sum in f32:
+    # only the order of the sums differs
+    errs = [compare(torch, g_, w_, 1e-4, 1e-4, f"dw_gemm:{nm}")
+            for nm, g_, w_ in zip(("dqkv^T.h", "dout^T.attn"), kernel_pair(), plain_pair())]
+    for g_, again in zip(kernel_pair(), kernel_pair()):
+        if not torch.equal(g_, again):
+            raise AssertionError("dw_gemm: two runs on the same inputs differ in their bits")
+    flops = sum(2 * a_.shape[0] * a_.shape[1] * b_.shape[1] for a_, b_ in pairs)
+    nbytes = sum((a_.numel() + b_.numel()) * 2 + a_.shape[1] * b_.shape[1] * 4 for a_, b_ in pairs)
+    b, by = bound_ms(flops, nbytes)
+    row = dict(
+        source="mapdit_tpu_torch/csrc/dw_gemm.cu", replaces=f"{PALLAS}:783", max_abs_err=max(errs),
+        ms=time_ms(torch, kernel_pair), plain_ms=time_ms(torch, plain_pair), bound_ms=b, bound_by=by,
+        # one PyTorch call each: the bf16 products cuBLAS would run
+        library_ms=time_ms(torch, lambda: [torch.matmul(a_.t(), b_) for a_, b_ in pairs]),
+        # the products the kernel replaces on the path: f32 torch.matmul
+        replaced_f32_matmul_ms=time_ms(torch, lambda: [(a_.t().float() @ b_.float()) * inv_d for a_, b_ in pairs]),
+        path="cli+dw",
+    )
+    for (a_, b_), nm in zip(pairs, ("dqkv^T.h", "dout^T.attn")):
+        phase("time", kernel=f"dw_gemm:{nm}", shape=f"{tuple(a_.shape)}^T.{tuple(b_.shape)}",
+              ms=f"{time_ms(torch, lambda: ab.dw_gemm(a_, b_, inv_d)):.4f}",
+              f32_matmul_ms=f"{time_ms(torch, lambda: (a_.t().float() @ b_.float()) * inv_d):.4f}",
+              bf16_matmul_ms=f"{time_ms(torch, lambda: torch.matmul(a_.t(), b_)):.4f}")
+    # off the main path: the DiT-B/2 widths, and M that no tile depth divides
+    for what, (m, p_, q) in (("dw_gemm:b2-qkv", (TRAIN_BATCH * 64, 2304, 768)), ("dw_gemm:b2-out", (TRAIN_BATCH * 64, 768, 768)),
+                             ("dw_gemm:ragged-m", (6 * 16, 192, 64)), ("dw_gemm:ragged-m-1000", (1000, 1152, 384))):
+        a_ = torch.randn(m, p_, generator=gen, device=dev).to(bf)
+        b_ = torch.randn(m, q, generator=gen, device=dev).to(bf)
+        alpha = 1 / math.sqrt(q)
+        compare(torch, ab.dw_gemm(a_, b_, alpha), ab.dw_gemm_plain(a_, b_, alpha), 1e-4, 1e-4, what)
+        phase("time", kernel=what, ms=f"{time_ms(torch, lambda: ab.dw_gemm(a_, b_, alpha)):.4f}",
+              plain_ms=f"{time_ms(torch, lambda: ab.dw_gemm_plain(a_, b_, alpha)):.4f}",
+              bf16_matmul_ms=f"{time_ms(torch, lambda: torch.matmul(a_.t(), b_)):.4f}")
+
+    class CountMatmuls(TorchFunctionMode):
+        """Counts the matrix products PyTorch itself is asked for."""
+
+        def __init__(self):
+            super().__init__()
+            self.count = 0
+
+        def __torch_function__(self, func, types, fargs=(), kwargs=None):
+            if getattr(func, "__name__", "") in ("matmul", "mm", "bmm", "addmm", "linear", "einsum"):
+                self.count += 1
+            return func(*fargs, **(kwargs or {}))
+
+    def matmuls_in_attn_bwd():
+        with CountMatmuls() as mode:
+            ab.attn_bwd(dy, *args)
+        return mode.count
+
+    d = args[0].shape[-1]
+    off_ms, off_matmuls = time_ms(torch, lambda: ab.attn_bwd(dy, *args)), matmuls_in_attn_bwd()
+    ab.DW_IN_KERNEL_BUDGET = 16 * d * d
+    try:
+        before = ab.LAUNCHES["attn_bwd/dw"]
+        got, want = ab.attn_bwd(dy, *args), ab.attn_bwd_plain(dy, *args)
+        launched = ab.LAUNCHES["attn_bwd/dw"] - before
+        for nm, g_, w_ in zip(("dx", "dshift", "dscale", "dgate", "dgain", "dw_qkv", "dw_out"), got, want):
+            if nm == "dgain":
+                compare_scalar(torch, g_, w_, 1e-3, "attn_branch/bwd+dw:dgain")
+            else:
+                compare_rel(torch, g_, w_, 1e-2, f"attn_branch/bwd+dw:{nm}")
+        on_ms, on_matmuls = time_ms(torch, lambda: ab.attn_bwd(dy, *args)), matmuls_in_attn_bwd()
+    finally:
+        ab.DW_IN_KERNEL_BUDGET = 0
+    phase("time", kernel="attn_branch/bwd", dw="f32 torch.matmul", ms=f"{off_ms:.4f}", torch_matmuls=off_matmuls)
+    phase("time", kernel="attn_branch/bwd", dw="dw_gemm", ms=f"{on_ms:.4f}", torch_matmuls=on_matmuls,
+          dw_launches=launched)
+    if (off_matmuls, on_matmuls, launched) != (2, 0, 2):
+        raise AssertionError(f"attn_bwd: {off_matmuls} torch matmuls with the switch off (2 expected), {on_matmuls} "
+                             f"with it on (0 expected), {launched} dw_gemm launches (2 expected)")
+    return row
 
 
 def launch_counts() -> dict:
@@ -437,7 +548,8 @@ def s2_train_phase(torch, dev, cfg) -> dict:
         "mega_attn+pallas": cfg.replace(block_kernel="mega_attn", attn_bwd="pallas"),
         "mega_attn+residual": cfg.replace(block_kernel="mega_attn", attn_bwd="residual"),
     }
-    bwd_kernels = {key: per_step for key in ab.LAUNCHES if key.startswith("attn_bwd/")}
+    # the dW products stay f32 torch.matmul here: the switch is off by default
+    bwd_kernels = {key: per_step for key in ab.LAUNCHES if key.startswith("attn_bwd/") and key != "attn_bwd/dw"}
     expect = {
         "off": {},
         # forward and the backward's recompute each launch the qkv and out
@@ -597,7 +709,7 @@ def family_phase(torch, dev, tag: str, flags: dict, kernels: dict) -> dict:
     """Phase 7 for one family: DiT-B/2 at full width and depth on the
     generic block path, the family by ``flags``, its kernels by ``kernels``. The first model call and
     a clipped 10-step chain are held to the float32 plain path; then the
-    STEPS-step chain through build_sample_fn and FAMILY_TRAIN_STEPS train
+    FAMILY_STEPS-step chain through build_sample_fn and FAMILY_TRAIN_STEPS train
     steps at TRAIN_BATCH through make_train_step, launch counts read around
     each. Returns {"<tag>/call" | "<tag>/chain" | "<tag>/train": counts}."""
     from mapdit_tpu_torch.diffusion import create_diffusion
@@ -657,7 +769,7 @@ def family_phase(torch, dev, tag: str, flags: dict, kernels: dict) -> dict:
         del fn
     check_paths(torch, f"{tag}-chain-10", outs, (tag,))
 
-    sample = build_sample_fn(kernel_cfg, sd, create_diffusion(str(STEPS), device=dev), cfg_scale=CFG_SCALE,
+    sample = build_sample_fn(kernel_cfg, sd, create_diffusion(str(FAMILY_STEPS), device=dev), cfg_scale=CFG_SCALE,
                              batch_hint=BATCH, device=dev)
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -667,10 +779,10 @@ def family_phase(torch, dev, tag: str, flags: dict, kernels: dict) -> dict:
     seconds = time.perf_counter() - t0
     counts[f"{tag}/chain"] = launch_counts()
     finite = bool(torch.isfinite(out).all())
-    phase(tag, step="chain", model=FAMILY_MODEL, batch=f"{BATCH}x2", steps=STEPS, seconds=f"{seconds:.4f}",
-          steps_per_s=f"{STEPS / seconds:.3f}", ms_per_model_call=f"{1e3 * seconds / STEPS:.4f}", finite=finite,
+    phase(tag, step="chain", model=FAMILY_MODEL, batch=f"{BATCH}x2", steps=FAMILY_STEPS, seconds=f"{seconds:.4f}",
+          steps_per_s=f"{FAMILY_STEPS / seconds:.3f}", ms_per_model_call=f"{1e3 * seconds / FAMILY_STEPS:.4f}", finite=finite,
           shape=tuple(out.shape), launches=json.dumps({key: v for key, v in counts[f"{tag}/chain"].items() if v}))
-    check_counts(f"{tag}/chain", counts[f"{tag}/chain"], expect(STEPS))
+    check_counts(f"{tag}/chain", counts[f"{tag}/chain"], expect(FAMILY_STEPS))
     if not finite:
         # untrained weights at clip_denoised=False can leave the data range;
         # the clipped 10-step chain above must be finite
@@ -687,6 +799,147 @@ def family_phase(torch, dev, tag: str, flags: dict, kernels: dict) -> dict:
                         {"off": {}, tag: expect(FAMILY_TRAIN_STEPS)}, FAMILY_TRAIN_STEPS)
     counts[f"{tag}/train"] = train[tag]
     return counts
+
+
+def train_cli_phase(torch, dev) -> dict:
+    """Phase 8: the training entry point, ``mapdit_tpu_torch.train.main``
+    called in process, at full DiT-S/2 (depth 12, width 384), batch
+    TRAIN_BATCH, bf16, through the attention half-block kernels, into a
+    temporary results directory. Returns {"cli": run A's launch counts,
+    "cli+dw": run C's}."""
+    from mapdit_tpu_torch import train
+    from mapdit_tpu_torch.models import build_config
+    from mapdit_tpu_torch.ops.cuda import attn_branch as ab
+    from mapdit_tpu_torch.training import checkpoint as ckpt
+    from mapdit_tpu_torch.training import create_optimizer, create_train_state, warmup_flat_invsqrt
+    from mapdit_tpu_torch.utils.experiment import config_from_args, load_config
+
+    depth = build_config(MODEL).depth
+    common = ["--model", MODEL, "--data-path", "synthetic:1024", "--batch-size", str(TRAIN_BATCH), "--compute-dtype",
+              "bfloat16", "--block-kernel", "mega_attn", "--attn-bwd", "pallas", "--num-classes", "1000",
+              "--log-every", "1", "--metrics-jsonl", "auto",
+              # given, because their defaults follow --num-steps, which run B changes
+              "--num-lin-warmup", "4", "--start-decay", "10",
+              "--ckpt-every", str(CLI_CKPT_STEP), "--ema-snapshot-every", str(CLI_CKPT_STEP)]
+
+    def run(results, *flags, steps=CLI_STEPS):
+        """One run of the CLI: (experiment dir, metrics rows, launch counts)."""
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        exp = train.main(train.build_parser().parse_args([*common, "--results-dir", results, "--num-steps", str(steps), *flags]))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        with open(os.path.join(exp, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in rows):
+            raise AssertionError(f"train CLI: non-finite loss or gradient norm in {exp}")
+        return exp, rows, counts
+
+    def expected(steps, dw):
+        per = depth * steps
+        bwd = {key: per for key in ab.LAUNCHES if key.startswith("attn_bwd/")}
+        bwd["attn_bwd/dw"] = 2 * per if dw else 0  # one launch for each of the two products
+        return {"attn_branch/fwd": per, "attn_branch/bwd": per, "mp_gemm/qkv": 2 * per, "mp_gemm/out": 2 * per,
+                "mp_gemm/dattn": per, "mp_gemm/dh": per, "cosine_attention": per, "cosine_attention/residual": per,
+                **{key: v for key, v in bwd.items() if v}}
+
+    def rate(rows):
+        """steps/s from the third logged step to the checkpoint's (the first
+        two build the kernels and warm the allocator up; after the checkpoint
+        the background writers share the host with the loop)."""
+        first, last = rows[1], rows[CLI_CKPT_STEP - 1]
+        return (last["step"] - first["step"]) / (last["wall_time"] - first["wall_time"])
+
+    def rate_after_checkpoint(rows):
+        first, last = rows[CLI_CKPT_STEP - 1], rows[-1]
+        return (last["step"] - first["step"]) / (last["wall_time"] - first["wall_time"])
+
+    def rel_diffs(rows, ref):
+        return [abs(r["loss"] - a["loss"]) / abs(a["loss"]) for r, a in zip(rows, ref)]
+
+    with tempfile.TemporaryDirectory(prefix="mapdit_smoke_") as tmp:
+        # 1. run A
+        exp_a, rows_a, counts_a = run(os.path.join(tmp, "a"))
+        check_counts("cli/A", counts_a, expected(CLI_STEPS, dw=False))
+        phase("cli", run="A", steps=CLI_STEPS, steps_per_s=f"{rate(rows_a):.3f}",
+              steps_per_s_while_writing=f"{rate_after_checkpoint(rows_a):.3f}",
+              losses=json.dumps([r["loss"] for r in rows_a]),
+              launches=json.dumps({key: v for key, v in counts_a.items() if v}))
+
+        # 2. run B: stop at the checkpoint, restore, go on
+        exp_b1, rows_b1, _ = run(os.path.join(tmp, "b"), steps=CLI_CKPT_STEP)
+        ckpt_file = ckpt.checkpoint_path(exp_b1, CLI_CKPT_STEP)
+        saved = torch.load(ckpt_file, map_location="cpu", weights_only=True)
+        args_b = load_config(exp_b1)
+        tx = create_optimizer(warmup_flat_invsqrt(args_b["lr"], args_b["num_lin_warmup"], args_b["start_decay"]))
+        restored = ckpt.restore_state(ckpt_file, create_train_state(config_from_args(args_b), tx, seed=1, device=dev))
+        mismatch = tree_mismatch(torch, ckpt.map_tensors(ckpt.state_tree(restored), lambda v: v.cpu()), saved)
+        phase("cli", run="B", restored_equals_saved=mismatch is None, checkpoint=os.path.basename(ckpt_file))
+        if mismatch is not None:
+            raise AssertionError(f"train CLI: the restored state differs from the saved one at {mismatch}")
+        del restored, saved
+        exp_b2, rows_b2, _ = run(os.path.join(tmp, "b"), "--resume", exp_b1)
+        if [r["step"] for r in rows_b2] != list(range(CLI_CKPT_STEP + 1, CLI_STEPS + 1)):
+            raise AssertionError(f"train CLI: the resumed run logged steps {[r['step'] for r in rows_b2]}")
+        tail_a = rows_a[CLI_CKPT_STEP:]
+        worst = max(rel_diffs(rows_b2, tail_a) + rel_diffs(rows_b1, rows_a))
+        phase("cli", run="B", resumed_losses=json.dumps([r["loss"] for r in rows_b2]),
+              run_a_losses=json.dumps([r["loss"] for r in tail_a]), max_rel_diff=f"{worst:.3e}", tol="1e-3")
+        if worst > 1e-3:
+            raise AssertionError(f"train CLI: the resumed run's losses leave run A's by {worst} relative")
+
+        # 3. run C: run A with the dW products through dw_gemm
+        ab.DW_IN_KERNEL_BUDGET = 16 * build_config(MODEL).hidden_size ** 2
+        try:
+            exp_c, rows_c, counts_c = run(os.path.join(tmp, "c"))
+        finally:
+            ab.DW_IN_KERNEL_BUDGET = 0
+        check_counts("cli/C", counts_c, expected(CLI_STEPS, dw=True))
+        worst = max(rel_diffs(rows_c, rows_a))
+        phase("cli", run="C", steps=CLI_STEPS, steps_per_s=f"{rate(rows_c):.3f}", run_a_steps_per_s=f"{rate(rows_a):.3f}",
+              losses=json.dumps([r["loss"] for r in rows_c]), max_rel_diff_vs_a=f"{worst:.3e}", tol="1e-2",
+              launches=json.dumps({key: v for key, v in counts_c.items() if v}))
+        if worst > 1e-2:
+            raise AssertionError(f"train CLI: run C's losses leave run A's by {worst} relative")
+
+        # 4. gradient accumulation and clipping: the same draws up front
+        _, rows_d, counts_d = run(os.path.join(tmp, "d"), "--grad-accum", "4", "--grad-clip", "1.0", steps=4)
+        check_counts("cli/accum", counts_d, expected(4 * 4, dw=False))
+        g_d, g_a = rows_d[0]["grad_norm"], rows_a[0]["grad_norm"]
+        rel = abs(g_d - g_a) / g_a
+        phase("cli", run="accum4+clip1", losses=json.dumps([r["loss"] for r in rows_d]), grad_norm_step1=g_d,
+              run_a_grad_norm_step1=g_a, rel_diff=f"{rel:.3e}", tol="1e-2")
+        if rel > 1e-2:
+            raise AssertionError(f"train CLI: step-1 grad_norm {g_d} with --grad-accum 4 against {g_a} without")
+
+        # 5. the artifacts
+        keys = {"step", "loss", "steps_per_sec", "lr", "samples_seen", "wall_time"}
+        for exp, rows in ((exp_a, rows_a), (exp_c, rows_c)):
+            missing = [name for name in ("config.yaml", "log.txt", f"checkpoints/{CLI_CKPT_STEP:07d}.pt")
+                       if not os.path.isfile(os.path.join(exp, name))]
+            snaps = sorted(os.listdir(os.path.join(exp, "ema")))
+            want_snaps = [f"{std}_{CLI_CKPT_STEP:07d}.npz" for std in ("0.050", "0.100")]
+            if missing or snaps != want_snaps or not all(keys <= set(r) for r in rows) or len(rows) != CLI_STEPS:
+                raise AssertionError(f"train CLI: artifacts of {exp}: missing {missing}, ema {snaps}, rows {len(rows)}")
+        phase("cli", artifacts="ok", ema=json.dumps(want_snaps), metrics_keys=json.dumps(sorted(rows_a[0])))
+    return {"cli": counts_a, "cli+dw": counts_c}
+
+
+def tree_mismatch(torch, a, b, path=""):
+    """The path of the first leaf where two trees of tensors and plain
+    values differ (tensors bit for bit), or None."""
+    if isinstance(a, torch.Tensor):
+        return None if isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b) else path
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or a.keys() != b.keys():
+            return path + " (keys)"
+        return next((m for key in a if (m := tree_mismatch(torch, a[key], b[key], f"{path}/{key}")) is not None), None)
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return path + " (length)"
+        return next((m for i, (x, y) in enumerate(zip(a, b))
+                     if (m := tree_mismatch(torch, x, y, f"{path}/{i}")) is not None), None)
+    return None if a == b else path
 
 
 def main() -> int:
@@ -913,7 +1166,11 @@ def main() -> int:
     for tag, (flags, kernels) in FAMILIES.items():
         family_launches.update(family_phase(torch, dev, tag, flags, kernels))
 
-    # 8. report
+    # 8. the training entry point
+    torch.cuda.empty_cache()
+    train_launches.update(train_cli_phase(torch, dev))
+
+    # 9. report
     kernels = []
     for name, row in rows.items():
         path, count_from = row.pop("path", None), row.pop("count_from", None)

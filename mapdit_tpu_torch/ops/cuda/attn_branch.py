@@ -6,6 +6,8 @@ Port of the attention half of ``mapdit_tpu/ops/pallas/dit_block.py``:
   row 3  ``_attn_fwd_impl`` (forward)            -> :func:`attn_fwd`
   row 5  ``_attn_res_fwd_impl`` (+ p, attn)      -> :func:`attn_res_fwd`
   row 4  ``_attn_bwd_impl`` / ``_attn_bwd_math`` -> :func:`attn_bwd`
+  row 4' ``_attn_bwd_dw_kernel`` (dW in the kernel) -> :func:`attn_bwd` with
+         :func:`dw_gemm`, taken when ``16*D*D <= DW_IN_KERNEL_BUDGET``
 
 with the plain-op backward over the residuals (``_attn_bwd_from_res``) and
 the reference VJP. The half-block is
@@ -29,12 +31,17 @@ for the stages between the products):
   dqkv = attention_bwd(qkv, dattn)                       (b)
   dh = dqkv . Wqkv / sqrt(D)               mp_gemm reading W as (K, N)
   dx, dshift, dscale, dgain = modulate_bwd(dh, x, dx0)   (c)
-  dWqkv = dqkv^T h / sqrt(D), dWout = dout^T attn / sqrt(D)   torch.matmul, f32
+  dWqkv = dqkv^T h / sqrt(D), dWout = dout^T attn / sqrt(D)   torch.matmul, f32,
+                                           or dw_gemm (csrc/dw_gemm.cu)
 
 The two dW products are plain matmuls, as the Pallas package leaves them to
-XLA outside its kernel. Gradient semantics are the reference's: the modulate
-denominator is constant in the gain, ``normalize`` gets the full quotient
-VJP. Three roundings are kept apart, as in the Pallas kernels: row 3 divides
+XLA outside its streaming kernel; where ``16*D*D <= DW_IN_KERNEL_BUDGET``
+(the Pallas package's predicate for its in-kernel-dW variant, off by default
+there and here) they go through :func:`dw_gemm`, which contracts the bf16
+operands over the N*T rows with f32 sums, split across blocks and reduced in
+a fixed order, and applies 1/sqrt(D) once at the end. Gradient semantics are
+the reference's: the modulate denominator is constant in the gain,
+``normalize`` gets the full quotient VJP. Three roundings are kept apart, as in the Pallas kernels: row 3 divides
 after P.V on the unnormalised exponentials; row 5 and the backward's
 attention normalise p first and round it to bf16; (b) recomputes the exact
 softmax of the pre-normalised bf16 q/k; h, dqkv, attn and dout leave as bf16.
@@ -75,6 +82,7 @@ LAUNCHES = {
     "attn_bwd/attention": 0,
     "attn_bwd/modulate_fwd": 0,
     "attn_bwd/modulate_bwd": 0,
+    "attn_bwd/dw": 0,
     "attn_branch/fwd": 0,
     "attn_branch/res_fwd": 0,
     "attn_branch/bwd": 0,
@@ -83,6 +91,14 @@ BWD_IMPLS = ("pallas", "residual", "reference")
 DX_FAC = (1.0 - RES_T) / RES_DENOM
 DB_FAC = RES_T / RES_DENOM
 _LIB = "attn_branch_bwd"
+# The f32 dW accumulators of the in-kernel-dW backward take 16*D*D bytes; the
+# variant is taken when they fit this budget (the Pallas package's predicate
+# and its default: off). Raise it to run the dW products through dw_gemm.
+DW_IN_KERNEL_BUDGET = 0
+
+
+def dw_in_kernel(d: int) -> bool:
+    return 16 * d * d <= DW_IN_KERNEL_BUDGET
 
 
 def reset_launch_counts() -> None:
@@ -325,6 +341,45 @@ def modulate_bwd(dh, x, rows, gain, dx0, tokens):
 
 
 # ---------------------------------------------------------------------------
+# (d) the weight-gradient products of the in-kernel-dW variant
+
+
+def dw_gemm_plain(a, b, alpha):
+    """Plain version of :func:`dw_gemm`: the operands as they are (already
+    in the weights' type), multiplied in f32."""
+    return (a.t().float() @ b.float()) * alpha
+
+
+def dw_gemm(a, b, alpha):
+    """C (P, Q) f32 = alpha * a^T . b for bf16 a (M, P) and b (M, Q), summed
+    in f32 over the M rows in a fixed order (the same bits on every run).
+    One count of ``attn_bwd/dw`` is one product (two launches: the partial
+    products of the splits of M, then their sum)."""
+    if a.device.type == "cpu":
+        return dw_gemm_plain(a, b, alpha)
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 or a.ndim != 2 or b.ndim != 2:
+        raise ValueError(f"dw_gemm takes bf16 (M, P) and (M, Q) operands, got {a.dtype} {tuple(a.shape)}, "
+                         f"{b.dtype} {tuple(b.shape)}")
+    m, p = a.shape
+    q = b.shape[1]
+    if b.shape[0] != m or m < 1 or p % 8 or q % 8:
+        raise ValueError(f"dw_gemm takes operands with the same M >= 1 rows and widths that are multiples of 8, "
+                         f"got {tuple(a.shape)} and {tuple(b.shape)}")
+    _require_cuda(a, b)
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("dw_gemm reads 16 bytes a thread: the operands must start at a multiple of 16 bytes")
+    from mapdit_tpu_torch.ops.cuda import build
+
+    lib = build.library("dw_gemm")
+    partial = torch.empty(lib.dw_gemm_splits(m, p, q), p, q, dtype=torch.float32, device=a.device)
+    c = torch.empty(p, q, dtype=torch.float32, device=a.device)
+    code = lib.dw_gemm(a.data_ptr(), b.data_ptr(), partial.data_ptr(), c.data_ptr(), m, p, q, float(alpha), _stream(a))
+    _raise_on(code, lib, "dw_gemm")
+    LAUNCHES["attn_bwd/dw"] += 1
+    return c
+
+
+# ---------------------------------------------------------------------------
 # the half-block: forwards and backwards
 
 
@@ -404,7 +459,8 @@ def attn_res_fwd_plain(x, shift, scale, gate, gain, w_qkv, w_out, heads: int):
     return _fwd(x, shift, scale, gate, gain, w_qkv, w_out, heads, True, mp_gemm_plain, cosine_attention_plain)
 
 
-def _bwd_sequence(dy, x, rows, gain, w_qkv, w_out, heads, gemm, attention, gate_bwd, attn_bwd_k, mod_fwd, mod_bwd):
+def _bwd_sequence(dy, x, rows, gain, w_qkv, w_out, heads, gemm, attention, gate_bwd, attn_bwd_k, mod_fwd, mod_bwd,
+                  dw):
     n, t, d = x.shape
     inv_d = 1.0 / math.sqrt(d)
     dt = w_qkv.dtype
@@ -419,8 +475,13 @@ def _bwd_sequence(dy, x, rows, gain, w_qkv, w_out, heads, gemm, attention, gate_
     dqkv = attn_bwd_k(qkv, dattn, t, heads, dt)
     dh = gemm(dqkv, w_qkv, alpha=inv_d, out_dtype=f32, w_kn=True, site="dh")
     dx, dshift, dscale, dgain = mod_bwd(dh, xf, rows, gain, dx0, t)
-    dw_qkv = (dqkv.t().float() @ h.float()) * inv_d
-    dw_out = (dout.t().float() @ attn.float()) * inv_d
+    if dw_in_kernel(d):
+        # h, dqkv, attn and dout are in the weights' type here, as the Pallas
+        # kernel rounds them before its products
+        dw_qkv, dw_out = dw(dqkv, h, inv_d), dw(dout, attn, inv_d)
+    else:
+        dw_qkv = (dqkv.t().float() @ h.float()) * inv_d
+        dw_out = (dout.t().float() @ attn.float()) * inv_d
     return dx.reshape(n, t, d), dshift, dscale, dgate, dgain, dw_qkv, dw_out
 
 
@@ -431,14 +492,16 @@ def _bwd(dy, x, shift, scale, gate, gain, w_qkv, w_out, heads, kernels):
                          *kernels)
 
 
-_KERNELS = (mp_gemm, cosine_attention, gate_residual_bwd, attention_bwd, modulate_fwd, modulate_bwd)
+_KERNELS = (mp_gemm, cosine_attention, gate_residual_bwd, attention_bwd, modulate_fwd, modulate_bwd, dw_gemm)
 _PLAIN = (mp_gemm_plain, cosine_attention_plain, gate_residual_bwd_plain, attention_bwd_plain, modulate_fwd_plain,
-          modulate_bwd_plain)
+          modulate_bwd_plain, dw_gemm_plain)
 
 
 def attn_bwd(dy, x, shift, scale, gate, gain, w_qkv, w_out, heads: int):
     """Row 4: the fused backward. Returns the f32 cotangents (dx in x's
-    type) of x, shift, scale, gate, gain (shape (1,)), w_qkv and w_out."""
+    type) of x, shift, scale, gate, gain (shape (1,)), w_qkv and w_out.
+    Where :func:`dw_in_kernel` holds it is row 4': the two weight-gradient
+    products run through :func:`dw_gemm` instead of f32 ``torch.matmul``."""
     grads = _bwd(dy, x, shift, scale, gate, gain, w_qkv, w_out, heads, _KERNELS)
     if x.device.type == "cuda":
         LAUNCHES["attn_branch/bwd"] += 1

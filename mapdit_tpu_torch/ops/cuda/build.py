@@ -21,7 +21,7 @@ import time
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "mapdit_tpu_torch"
-SOURCES = ("mp_gemm", "cosine_attention", "attn_branch_bwd", "fused_attention")
+SOURCES = ("mp_gemm", "cosine_attention", "attn_branch_bwd", "fused_attention", "dw_gemm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -40,6 +40,11 @@ _SIGNATURES = {
             ctypes.c_int,
         ),
         "mp_gemm_error_string": ([_I], ctypes.c_char_p),
+    },
+    "dw_gemm": {
+        "dw_gemm": ([_P, _P, _P, _P, _I, _I, _I, _F, _P], ctypes.c_int),
+        "dw_gemm_splits": ([_I, _I, _I], ctypes.c_int),
+        "dw_gemm_error_string": ([_I], ctypes.c_char_p),
     },
     "cosine_attention": {
         "cosine_attention": ([_P, _P, _I, _P, _I, _I, _I, _I, _I, _P], ctypes.c_int),

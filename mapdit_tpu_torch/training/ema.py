@@ -1,12 +1,18 @@
 """Karras power-function EMA, port of ``mapdit_tpu/training/ema.py``: the
-numpy profile math (float64) copied as it is, and the per-step update, in
-place on the EMA tensors. Snapshot IO and ``calculate_posthoc_ema`` are
-ROADMAP A.5.
+numpy profile math (float64) copied as it is, the per-step update, in place
+on the EMA tensors, and the snapshot ledger.
+
+Snapshots are fp16 ``.npz`` files named ``<std:.3f>_<step:07d>.npz`` in the
+experiment's ``ema/`` directory, arrays keyed by the state-dict names of the
+parameters. ``calculate_posthoc_ema`` reconstructs an EMA of any std after
+training from the ledger.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import os
+import re
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -79,3 +85,78 @@ def ema_update(ema_params: Dict[str, torch.Tensor], model_params: Dict[str, torc
     diff = torch._foreach_sub([model_params[k].to(e.dtype) for k, e in zip(names, ema)], ema)
     torch._foreach_mul_(diff, beta)
     torch._foreach_add_(ema, diff)
+
+
+# ---------------------------------------------------------------------------
+# snapshot ledger (host-side IO)
+
+
+def save_snapshot(ema_dir: str, std: float, step: int, params: Dict[str, torch.Tensor]) -> str:
+    """Write one fp16 snapshot of ``params`` (name -> tensor or array)."""
+    os.makedirs(ema_dir, exist_ok=True)
+    flat = {
+        name: (v.detach().float().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)).astype(np.float16)
+        for name, v in params.items()
+    }
+    path = os.path.join(ema_dir, f"{std:.3f}_{step:07d}.npz")
+    # Atomic (the tmp name does not match _SNAP_RE): a truncated snapshot
+    # would poison every posthoc reconstruction that scans the ledger.
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **flat)
+    os.replace(tmp, path)
+    return path
+
+
+_SNAP_RE = re.compile(r"^([0-9]*\.[0-9]+)_(\d+)\.(npz|pt)$")
+
+
+def list_snapshots(ema_dir: str) -> List[Tuple[float, int, str]]:
+    """Ledger scan, (std, step, path) sorted by file name: native ``.npz``
+    snapshots and the reference's ``.pt`` ones. Where one (std, step) exists
+    in both formats the ``.npz`` wins (sorted() lists it first): duplicates
+    would make the least-squares Gram matrix singular."""
+    out, seen = [], set()
+    for f in sorted(os.listdir(ema_dir)):
+        m = _SNAP_RE.match(f)
+        if m:
+            key = (float(m.group(1)), int(m.group(2)))
+            if key in seen:
+                continue
+            seen.add(key)
+            out.append((key[0], key[1], os.path.join(ema_dir, f)))
+    return out
+
+
+def load_snapshot(path: str) -> Dict[str, np.ndarray]:
+    """One snapshot as {state-dict name: array}. A ``.pt`` file is a
+    reference ledger entry ``{std, t, state_dict}`` whose keys may carry
+    torch.compile's ``_orig_mod.`` prefix."""
+    if path.endswith(".pt"):
+        d = torch.load(path, map_location="cpu", weights_only=True)
+        return {k.removeprefix("_orig_mod."): v.numpy() for k, v in d["state_dict"].items()}
+    with np.load(path) as f:
+        return {k: f[k] for k in f.files}
+
+
+def calculate_posthoc_ema(out_std: float, ema_dir: str) -> Dict[str, np.ndarray]:
+    """EMA parameters at an arbitrary std, reconstructed from the snapshot
+    ledger by least squares over the profiles' inner products, at the
+    ledger's last step. Returns float32 arrays by state-dict name."""
+    snaps = list_snapshots(ema_dir)
+    if not snaps:
+        raise FileNotFoundError(f"No EMA snapshots found in {ema_dir}")
+    in_stds = np.array([s for s, _, _ in snaps])
+    in_ts = np.array([t for _, t, _ in snaps])
+    out_ts = int(in_ts.max())
+
+    exact = (in_stds == out_std) & (in_ts == out_ts)
+    if exact.any():
+        return {k: v.astype(np.float32) for k, v in load_snapshot(snaps[int(np.argmax(exact))][2]).items()}
+
+    weights = solve_weights(in_ts, std_to_gamma(in_stds), np.array([float(out_ts)]), std_to_gamma(out_std)).flatten()
+    acc: Dict[str, np.ndarray] = {}
+    for w, (_, _, path) in zip(weights, snaps):
+        for name, a in load_snapshot(path).items():
+            term = a.astype(np.float32) * float(w)  # a Python float keeps the array float32
+            acc[name] = term if name not in acc else acc[name] + term
+    return acc

@@ -88,3 +88,63 @@ def state_dict_from_jax(variables: Mapping, cfg=None) -> Dict[str, torch.Tensor]
 
         sd["pos_embed"] = pos_embed_buffer(cfg)
     return sd
+
+
+def _named(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX ``params``-shaped tree by the port's state-dict names."""
+    return state_dict_from_jax({"params": tree})
+
+
+def train_state_from_jax(
+    cfg,
+    tx,
+    params: Mapping,
+    constants: Mapping,
+    mu: Mapping,
+    nu: Mapping,
+    count: int,
+    ema: Mapping[str, Mapping],
+    step: int,
+    seed: int = 0,
+    sampler_state: Mapping = None,
+    device=None,
+):
+    """The port's ``TrainState`` for a JAX ``TrainState`` handed over as
+    numpy trees: ``params`` and ``constants``, Adam's first and second
+    moments ``mu`` / ``nu`` (shaped like ``params``) and its update
+    ``count``, every EMA tree by its std key ("0.050"), the ``step``, and the
+    loss-second-moment sampler's ``{"history", "counts"}`` where the run used
+    it. The generator is seeded with ``seed``: the two packages' random
+    streams differ, so a continued run draws new noise. With it both
+    packages continue one run."""
+    from mapdit_tpu_torch.diffusion.timestep_sampler import LossHistoryState
+    from mapdit_tpu_torch.training.state import create_train_state
+
+    state = create_train_state(
+        cfg, tx, seed=seed, ema_stds=tuple(float(k) for k in ema), device=device,
+        timestep_sampler="uniform" if not sampler_state else "loss-second-moment",
+        num_timesteps=1000 if not sampler_state else int(np.asarray(sampler_state["history"]).shape[0]),
+        state_dict=state_dict_from_jax({"params": params, "constants": constants}, cfg),
+    )
+    dev = state.generator.device
+    first, second = _named(mu), _named(nu)
+    for name, p in state.model.named_parameters():
+        # torch.optim.Adam's own layout: the step count as a float32 scalar
+        # on the CPU, the moments beside the parameter
+        state.optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": first[name].to(device=dev, dtype=p.dtype).reshape(p.shape).clone(),
+            "exp_avg_sq": second[name].to(device=dev, dtype=p.dtype).reshape(p.shape).clone(),
+        }
+    with torch.no_grad():
+        for key, tree in ema.items():
+            named = _named(tree)
+            for name, tensor in state.ema[f"{float(key):.3f}"].items():
+                tensor.copy_(named[name].reshape(tensor.shape))
+    state.step = int(step)
+    if sampler_state:
+        state.sampler_state = LossHistoryState(
+            history=torch.from_numpy(np.array(sampler_state["history"], dtype=np.float32)).to(dev),
+            counts=torch.from_numpy(np.array(sampler_state["counts"], dtype=np.int32)).to(dev),
+        )
+    return state

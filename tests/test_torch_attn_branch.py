@@ -79,6 +79,68 @@ def test_cotangents_match_jax(bwd):
         np.testing.assert_allclose(x.grad.numpy(), np.asarray(w), err_msg=name, **GRAD_TOL)
 
 
+def test_dw_in_kernel_cotangents_match_jax(monkeypatch):
+    """Row 4': with DW_IN_KERNEL_BUDGET raised in both packages, the seven
+    cotangents of fused_attn_branch(bwd="pallas") against the JAX
+    in-kernel-dW Pallas variant in interpret mode and against jax.grad of
+    the reference, at the JAX test's shape (n=6, t=16, d=64, heads=2),
+    rtol = atol = 5e-4 (the JAX package's own). Both dW products go through
+    dw_gemm (its plain version on the CPU), none through the f32 matmuls."""
+    budget = 5 * 2**20
+    monkeypatch.setattr(jdb, "_DW_IN_KERNEL_BUDGET", budget)
+    assert not ab.dw_in_kernel(64)
+    monkeypatch.setattr(ab, "DW_IN_KERNEL_BUDGET", budget)
+    assert ab.dw_in_kernel(64) and not ab.dw_in_kernel(768)
+    calls = []
+
+    def recording_dw(a, b, alpha):
+        calls.append((tuple(a.shape), tuple(b.shape)))
+        return ab.dw_gemm(a, b, alpha)
+
+    monkeypatch.setattr(ab, "_KERNELS", ab._KERNELS[:-1] + (recording_dw,))
+    args = _args(7, 6)
+    cot = np.random.default_rng(8).normal(size=args[0].shape).astype(np.float32)
+
+    def jax_grads(bwd):
+        return jax.grad(lambda *a: jnp.sum(jdb.fused_attn_branch(*a, HEADS, bwd=bwd) * cot),
+                        argnums=tuple(range(7)))(*_jax(args))
+
+    xs = _torch(args, grad=True)
+    (ab.fused_attn_branch(*xs, HEADS, bwd="pallas") * torch.from_numpy(cot)).sum().backward()
+    assert calls == [((96, 192), (96, 64)), ((96, 64), (96, 64))]
+    for bwd in ("pallas", "reference"):
+        for name, x, w in zip(NAMES, xs, jax_grads(bwd)):
+            np.testing.assert_allclose(x.grad.numpy(), np.asarray(w), err_msg=f"{bwd}: {name}", **GRAD_TOL)
+    # the switch changes where the products run, not what they are
+    monkeypatch.setattr(ab, "DW_IN_KERNEL_BUDGET", 0)
+    ys = _torch(args, grad=True)
+    (ab.fused_attn_branch(*ys, HEADS, bwd="pallas") * torch.from_numpy(cot)).sum().backward()
+    assert len(calls) == 2
+    for name, x, y in zip(NAMES, xs, ys):
+        torch.testing.assert_close(x.grad, y.grad, rtol=1e-6, atol=1e-6, msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dw_products_match_jax(dtype):
+    """dw_gemm (its plain version on the CPU) against the JAX kernel's own
+    product, dot_general contracting the rows of both operands with f32
+    accumulation, times 1/sqrt(D): a ragged M; 1e-5 relative of the largest
+    element (f32 sums in another order; products of bf16 values are exact
+    in f32)."""
+    rng = np.random.default_rng(3)
+    m, p_, q = 150, 192, 64
+    a, b = rng.normal(size=(m, p_)).astype(np.float32), rng.normal(size=(m, q)).astype(np.float32)
+    ja, jb = jnp.asarray(a).astype(dtype), jnp.asarray(b).astype(dtype)
+    want = np.asarray(jax.lax.dot_general(ja, jb, dimension_numbers=(((0,), (0,)), ((), ())),
+                                          preferred_element_type=jnp.float32)) / np.sqrt(q)
+    tdt = getattr(torch, dtype)
+    ta, tb = torch.from_numpy(a).to(tdt), torch.from_numpy(b).to(tdt)
+    got = ab.dw_gemm(ta, tb, 1 / np.sqrt(q))
+    assert got.dtype == torch.float32 and got.shape == (p_, q)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
+    torch.testing.assert_close(got, ab.dw_gemm_plain(ta, tb, 1 / np.sqrt(q)), rtol=0, atol=0)
+
+
 def test_attn_bwd_from_res_matches_fused_backward():
     args = _torch(_args(9, 4))
     dy = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(0))

@@ -35,12 +35,14 @@ def test_import_loads_no_jax():
     interpreter without bringing in jax, flax or mapdit_tpu (this test
     process has them loaded, hence the subprocess)."""
     for mod in ("training.state", "training.data", "training.ema", "training.lr", "diffusion.dmath",
-                "ops.cuda.attn_branch", "ops.cuda.attention", "ops.cuda.mlp_block"):
+                "ops.cuda.attn_branch", "ops.cuda.attention", "ops.cuda.mlp_block", "train", "training.checkpoint",
+                "training.native_loader", "training.device_prefetch", "training.telemetry",
+                "diffusion.timestep_sampler", "utils.experiment", "utils.logging"):
         assert f"mapdit_tpu_torch.{mod}" in _modules()
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}: importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'mapdit_tpu')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'mapdit_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )
@@ -58,7 +60,7 @@ def test_sources_import_nothing_of_jax():
                 names = [node.module]
             for name in names:
                 root = name.split(".")[0]
-                assert root not in ("jax", "jaxlib", "flax", "mapdit_tpu"), f"{path}: imports {name}"
+                assert root not in ("jax", "jaxlib", "flax", "optax", "orbax", "mapdit_tpu"), f"{path}: imports {name}"
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -125,6 +127,7 @@ def test_kernel_wrappers_do_not_fall_back_off_cpu():
         lambda: attn_branch.attention_bwd(qkv, f32, t, heads, bf),
         lambda: attn_branch.modulate_fwd(x, rows, gain, t, bf),
         lambda: attn_branch.modulate_bwd(f32, x, rows, gain, f32, t),
+        lambda: attn_branch.dw_gemm(x, x, 0.25),
     ]
     xb = torch.empty(n, t, d, dtype=bf, device="meta")
     r = torch.empty(n, d, dtype=bf, device="meta")
@@ -148,11 +151,27 @@ def test_kernel_wrappers_do_not_fall_back_off_cpu():
         (dict(block_kernel="mega_tp", modulation="rotation"), "B.11"),
         (dict(scan_blocks=True), "A.6"),
         (dict(remat=True, use_cosine_attention=False), "A.6"),
+        (["--fsdp", "true"], "A.8"),
+        (["--n-model", "2"], "A.8"),
+        (["--multihost", "true"], "A.8"),
+        (["--checkpointer", "orbax"], "A.8"),
+        (["--remat", "true"], "A.6"),
+        (["--scan-blocks", "true"], "A.6"),
     ],
 )
-def test_unported_options_name_their_roadmap_item(overrides, item):
+def test_unported_options_name_their_roadmap_item(overrides, item, tmp_path):
+    """A config override (a dict) or a flag of the train CLI (a list) that
+    the port does not take yet raises naming the ROADMAP item that ports
+    it."""
     with pytest.raises(NotImplementedError, match=item):
-        build_config("DiT-XS/2", **XS2, **overrides)
+        if isinstance(overrides, dict):
+            build_config("DiT-XS/2", **XS2, **overrides)
+        else:
+            from mapdit_tpu_torch import train
+
+            train.main(train.build_parser().parse_args(
+                ["--data-path", "synthetic:16", "--results-dir", str(tmp_path), "--device", "cpu", "--model", "DiT-XS/8",
+                 *overrides]))
 
 
 def test_unported_sampler_raises():
