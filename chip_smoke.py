@@ -40,13 +40,27 @@ Phases, one line each; any failure exits non-zero before the final line:
      dw_gemm (DW_IN_KERNEL_BUDGET raised; launch counts exact, losses
      against A's, steps/s of both); 4 steps with --grad-accum 4 --grad-clip
      1.0 (step-1 grad_norm against A's); the artifacts on disk;
-  9. the kernels JSON line, the device line again, and the ok line.
+  9. XL: DiT-XL/2 (depth 28, width 1152, 16 heads, nothing cut) in bf16 on
+     folded weights: the first model call and a clipped 10-step chain at
+     batch 4 x 2 through block_kernel="auto" (the whole-block kernels)
+     against the float32 plain path;
+ 10. TP: two spawned ranks on the one card form a (1, 2) mesh over gloo
+     (ranks sharing a card cannot use NCCL) and run the same clipped chain
+     through build_sample_fn(mesh=) with block_kernel="mega_tp" and then
+     "mega_attn_tp", each against the float32 plain chain, with exact launch
+     counts per rank; then a timed 50-step mega_tp chain and one gloo
+     all-reduce of a (8, 64, 1152) f32 partial. The all-reduces pass
+     through host memory: these are not NCCL tensor-parallel latencies;
+ 11. the kernels JSON line, the device line again, and the ok line.
 Phase 3 also holds dw_gemm (the S/2 and B/2 training shapes and a ragged M,
 the same bits on two runs) and attn_bwd with the dW switch on (seven
 cotangents, no f32 matmul left), and fused_attention (B/2 sampling and training shapes on
 the model's strided views, the XL head width 72, T=256, f32 without the
 cosine normalisation at logits past 88) and fused_mlp_branch (N=64 and 256)
-and their gradients against their plain versions.
+and their gradients against their plain versions, and the three
+tensor-parallel partial kernels (attn_tp_partial, block_tp_attn,
+mlp_tp_partial) at the DiT-XL/2 shard shapes of tp=2 and tp=4 (8 rows x 64
+tokens).
 Weights are random, drawn from a seed. Needs no network and one card.
 """
 
@@ -77,6 +91,10 @@ FAMILIES = {
     "P1": (dict(), dict(block_kernel="pallas", attention_impl="pallas")),
     "P2": (dict(modulation="rotation_scale"), dict(block_kernel="off", attention_impl="pallas")),
 }
+XL_MODEL = "DiT-XL/2"
+XL_BATCH = 4  # pre-CFG samples; 8 rows per model call
+XL_CHECK_STEPS = 10  # clipped chain held to the float32 plain path
+XL_TP_STEPS = 50  # the timed mega_tp chain
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate, H100 SXM data sheet
 PALLAS = "mapdit_tpu/ops/pallas/dit_block.py"
@@ -439,15 +457,16 @@ def dw_kernel_row(torch, ab, gen, dev, dy, args, operands, inv_d) -> dict:
 
 def launch_counts() -> dict:
     """Every wrapper's launch count, by name."""
-    from mapdit_tpu_torch.ops.cuda import attention, attn_branch, dit_block, mlp_block
+    from mapdit_tpu_torch.ops.cuda import attention, attn_branch, dit_block, dit_block_tp, mlp_block
 
-    return {**dit_block.LAUNCHES, **attn_branch.LAUNCHES, **attention.LAUNCHES, **mlp_block.LAUNCHES}
+    return {**dit_block.LAUNCHES, **attn_branch.LAUNCHES, **attention.LAUNCHES, **mlp_block.LAUNCHES,
+            **dit_block_tp.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    from mapdit_tpu_torch.ops.cuda import attention, attn_branch, dit_block, mlp_block
+    from mapdit_tpu_torch.ops.cuda import attention, attn_branch, dit_block, dit_block_tp, mlp_block
 
-    for mod in (dit_block, attn_branch, attention, mlp_block):
+    for mod in (dit_block, attn_branch, attention, mlp_block, dit_block_tp):
         mod.reset_launch_counts()
 
 
@@ -924,6 +943,276 @@ def train_cli_phase(torch, dev) -> dict:
         phase("cli", artifacts="ok", ema=json.dumps(want_snaps), metrics_keys=json.dumps(sorted(rows_a[0])))
     return {"cli": counts_a, "cli+dw": counts_c}
 
+def tp_kernel_rows(torch, F, gen, dev) -> dict:
+    """Phase 3, fourth part: the tensor-parallel partial kernels against
+    their plain versions at the DiT-XL/2 shard shapes (XL_BATCH x 2 rows x
+    64 tokens, D=1152, 16 heads of 72, H=4608, bf16): tp=2 (D_l=576,
+    H_l=2304, the mesh of phase 10; the report rows) and tp=4 (288, 1152;
+    checked and timed). The library yardstick is the bf16 torch.matmul
+    products and SDPA of the same work."""
+    from mapdit_tpu_torch.ops.cuda import dit_block_tp as tpk
+    from mapdit_tpu_torch.ops.mp import mp_silu, normalize
+
+    bf, f32 = torch.bfloat16, torch.float32
+    n, t, d, heads, hid = 2 * XL_BATCH, 64, 1152, 16, 4608
+    hd = d // heads
+    src = "mapdit_tpu_torch/ops/cuda/dit_block_tp.py"
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def weight(*shape):
+        return normalize(randn(*shape)).to(bf).contiguous()
+
+    x = randn(n, t, d, dtype=bf)
+    a = mp_silu(randn(n, d)).to(bf)
+    shift, scale = randn(n, d, dtype=bf), randn(n, d, dtype=bf)
+    gains = torch.rand(2, generator=gen, device=dev) * 0.6 + 0.2
+    w_mod = weight(6 * d, d)
+    xf = x.reshape(n * t, d)
+    out_rows = {}
+    for tp in (2, 4):
+        d_l, h_l, hl = d // tp, hid // tp, heads // tp
+        w_qkv, w_out, w1, w2 = weight(3 * d_l, d), weight(d, d_l), weight(h_l, d), weight(d, h_l)
+        inv_h = 1 / math.sqrt(hid)
+        q, k_, v = (z.contiguous() for z in torch.matmul(xf, w_qkv.t()).reshape(n, t, 3, hl, hd).permute(2, 0, 3, 1, 4))
+        attn = randn(n * t, d_l, dtype=bf)
+
+        def attn_library():
+            return (torch.matmul(xf, w_qkv.t()), F.scaled_dot_product_attention(q, k_, v, scale=1 / math.sqrt(hd)),
+                    torch.matmul(attn, w_out.t()))
+
+        attn_args = (x, shift, scale, gains[0], w_qkv, w_out, hl)
+        block_args = (x, a, gains, w_mod, w_qkv, w_out, hl)
+        mlp_args = (x, shift, scale, gains, w1, w2, inv_h)
+        attn_flops = 2 * n * t * d * 4 * d_l + 4 * n * hl * t * t * hd
+        attn_bytes = n * t * d * 2 + 4 * d * d_l * 2 + n * t * d * 4
+        cases = {
+            # name: (wrapper, plain, pallas_call line, flops, bytes, library)
+            "attn_tp_partial": (tpk.attn_tp_partial, tpk.attn_tp_partial_plain, attn_args, 1467, attn_flops,
+                                attn_bytes + 2 * n * d * 2 + 4, attn_library),
+            "block_tp_attn": (tpk.block_tp_attn, tpk.block_tp_attn_plain, block_args, 1640,
+                              attn_flops + 2 * n * d * 6 * d, attn_bytes + n * d * 2 + 8 + 6 * d * d * 2 + n * 6 * d * 4,
+                              lambda: (torch.matmul(a, w_mod.t()), *attn_library())),
+            "mlp_tp_partial": (tpk.mlp_tp_partial, tpk.mlp_tp_partial_plain, mlp_args, 1739, 4 * n * t * d * h_l,
+                               n * t * d * 2 + 2 * n * d * 2 + 8 + 2 * d * h_l * 2 + n * t * d * 4,
+                               lambda: torch.matmul(torch.matmul(xf, w1.t()), w2.t())),
+        }
+        for name, (fn, plain, args, line, flops, nbytes, library) in cases.items():
+            got, want = fn(*args), plain(*args)
+            what = f"{name}:tp{tp}"
+            if name == "block_tp_attn":
+                # mods: bf16 products summed in f32, only the order differs
+                compare(torch, got[1], want[1], 1e-4, 1e-4, what + ":mods")
+                got, want = got[0], want[0]
+            # f32 partials behind bf16 roundings of the hidden / attention
+            # operands: relative L2, as the other composite outputs
+            err = compare_rel(torch, got, want, 1e-2, what)
+            b, by = bound_ms(flops, nbytes)
+            row = dict(source=src, replaces=f"{PALLAS}:{line}", max_abs_err=err,
+                       ms=time_ms(torch, lambda fn=fn, args=args: fn(*args)),
+                       plain_ms=time_ms(torch, lambda plain=plain, args=args: plain(*args)),
+                       bound_ms=b, bound_by=by, library_ms=time_ms(torch, library),
+                       count_from=("tp/mega_attn_tp" if name == "attn_tp_partial" else "tp/mega_tp", name))
+            if tp == 2:
+                out_rows[name] = row
+            else:
+                phase("time", kernel=what, ms=f"{row['ms']:.4f}", plain_ms=f"{row['plain_ms']:.4f}",
+                      bound_ms=f"{b:.4f}", bound_by=by, library_ms=f"{row['library_ms']:.4f}")
+    return out_rows
+
+
+def xl_config():
+    from mapdit_tpu_torch.models import build_config
+
+    return build_config(XL_MODEL, in_channels=4, input_size=16, num_classes=1000, compute_dtype="bfloat16")
+
+
+def xl_state_dict(torch, cfg) -> dict:
+    """DiT-XL/2's random weights from SEED, gains drawn (on the CPU: the
+    parent and every rank draw the same)."""
+    from mapdit_tpu_torch.models import init_model
+
+    init = init_model(cfg, seed=SEED, device="cpu")
+    draw_gains(torch, init, SEED)
+    return init.state_dict()
+
+
+def xl_phase(torch, dev) -> dict:
+    """Phase 9: DiT-XL/2 at full depth and width on one card. The first
+    model call (folded weights; "auto" takes the whole-block kernels per
+    block) and a clipped XL_CHECK_STEPS-step CFG chain ("auto" with a batch
+    hint takes the whole-stack path) against the float32 plain path, launch
+    counts read around each, and their times. Returns the chain inputs and
+    the plain chains on the CPU, for the TP ranks of phase 10."""
+    from mapdit_tpu_torch.diffusion import create_diffusion
+    from mapdit_tpu_torch.models import DiT
+    from mapdit_tpu_torch.runtime import build_sample_fn, fold_weights_for_inference
+
+    cfg = xl_config()
+    depth = cfg.depth
+    t0 = time.perf_counter()
+    sd = xl_state_dict(torch, cfg)
+    phase("xl", model=XL_MODEL, depth=depth, width=cfg.hidden_size, heads=cfg.num_heads, batch=f"{XL_BATCH}x2",
+          parameters=sum(v.numel() for key, v in sd.items() if key != "pos_embed"),
+          init_seconds=f"{time.perf_counter() - t0:.2f}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    n = 2 * XL_BATCH
+    z = torch.randn(n, 4, 16, 16, generator=gen, device=dev)
+    y = torch.cat([torch.randint(0, 1000, (XL_BATCH,), generator=gen, device=dev),
+                   torch.full((XL_BATCH,), 1000, device=dev)])
+    tf = torch.full((n,), 500.0, device=dev)
+    block_sites = {f"mp_gemm/{s}": 1 for s in ("modulation", "qkv", "out", "fc1", "fc2")}
+    paths = {"f32": cfg.replace(compute_dtype="float32"), "off": cfg, "auto": cfg.replace(block_kernel="auto")}
+
+    outs = {}
+    for name, c in paths.items():
+        c = c.replace(fold_weights=True)
+        model = DiT(c).to(dev).eval()
+        model.load_state_dict(fold_weights_for_inference({key: v.to(dev) for key, v in sd.items()}, c))
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            outs[name] = model.forward_with_cfg(z, tf, y, CFG_SCALE)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            ms = time_ms(torch, lambda: model.forward_with_cfg(z, tf, y, CFG_SCALE), iters=5, warmup=1)
+        phase("xl", step="model-call", path=name, ms=f"{ms:.4f}",
+              launches=json.dumps({key: v for key, v in counts.items() if v}))
+        if name == "auto":
+            check_counts("xl/call", counts, {"fused_dit_block": depth, "cosine_attention": depth,
+                                             **{key: depth for key in block_sites}})
+        del model
+    check_paths(torch, "xl-forward", outs, ("auto",))
+
+    short = create_diffusion(str(XL_CHECK_STEPS), device=dev)
+    chains = {}
+    for name, c in paths.items():
+        fn = build_sample_fn(c, sd, short, cfg_scale=CFG_SCALE, clip_denoised=True,
+                             batch_hint=XL_BATCH if name == "auto" else None, device=dev)
+        for _ in range(2):  # the second run is timed
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            chains[name] = fn(z, y, torch.Generator(device=dev).manual_seed(SEED + 12))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        phase("xl", step="chain", path=name, run_cfg=fn.run_cfg.block_kernel, steps=XL_CHECK_STEPS,
+              seconds=f"{seconds:.4f}", ms_per_model_call=f"{1e3 * seconds / XL_CHECK_STEPS:.4f}",
+              launches=json.dumps({key: v for key, v in counts.items() if v}))
+        if name == "auto":
+            per = depth * XL_CHECK_STEPS
+            check_counts("xl/chain", counts, {"fused_dit_stack": XL_CHECK_STEPS, "cosine_attention": per,
+                                              **{key: per for key in block_sites}})
+        del fn
+    check_paths(torch, "xl-chain-10", chains, ("auto",))
+    torch.cuda.empty_cache()
+    return {name: v.cpu() for name, v in (("z", z), ("y", y), *chains.items())}
+
+
+def tp_rank(rank, dev, refs, out_dir):
+    """One rank of phase 10 (started by mapdit_tpu_torch.parallel.spawn):
+    the (1, 2) mesh, DiT-XL/2 from the seed, the clipped chain through each
+    island held to the float32 plain chain of phase 9 by check_paths' rule,
+    exact launch counts of this rank (its time is a first run's), then the
+    timed mega_tp chain and one all-reduce of a partial. Writes its report to ``out_dir``; any failure
+    raises, and then mapdit_tpu_torch.parallel.spawn raises in the parent."""
+    import torch
+    import torch.distributed as dist
+
+    from mapdit_tpu_torch.diffusion import create_diffusion
+    from mapdit_tpu_torch.parallel import make_mesh
+    from mapdit_tpu_torch.runtime import build_sample_fn
+
+    mesh = make_mesh(1, 2, device=dev)
+    cfg = xl_config()
+    sd = xl_state_dict(torch, cfg)
+    z, y = refs["z"].to(dev), refs["y"].to(dev)
+    per = XL_CHECK_STEPS * cfg.depth
+    expect = {
+        "mega_tp": {"block_tp_attn": per, "mlp_tp_partial": per, "cosine_attention": per,
+                    **{f"mp_gemm/{s}": per for s in ("modulation", "qkv", "out", "fc1", "fc2")}},
+        # the modulation head and the MLP run plain, replicated
+        "mega_attn_tp": {"attn_tp_partial": per, "mp_gemm/qkv": per, "mp_gemm/out": per, "cosine_attention": per},
+    }
+    limit = max(2 * rel_l2(refs["off"], refs["f32"]), 1e-2)
+    report = {"counts": {}, "rel_l2_err_vs_f32": {}, "rel_l2_err_vs_auto": {}, "ms_per_model_call": {}, "limit": limit}
+    short = create_diffusion(str(XL_CHECK_STEPS), device=dev)
+    for kernel in ("mega_tp", "mega_attn_tp"):
+        fn = build_sample_fn(cfg.replace(block_kernel=kernel), sd, short, cfg_scale=CFG_SCALE, clip_denoised=True,
+                             mesh=mesh)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn(z, y, torch.Generator(device=dev).manual_seed(SEED + 12))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        check_counts(f"tp/{kernel}/rank{rank}", counts, expect[kernel])
+        err = rel_l2(out.cpu(), refs["f32"])
+        if not bool(torch.isfinite(out).all()) or err > limit:
+            raise AssertionError(f"tp/{kernel}/rank{rank}: off the f32 plain chain (rel L2 {err} > {limit})")
+        report["counts"][kernel] = counts
+        report["rel_l2_err_vs_f32"][kernel] = err
+        report["rel_l2_err_vs_auto"][kernel] = rel_l2(out.cpu(), refs["auto"])
+        report["ms_per_model_call"][kernel] = 1e3 * seconds / XL_CHECK_STEPS
+        del fn, out
+        torch.cuda.empty_cache()
+
+    fn = build_sample_fn(cfg.replace(block_kernel="mega_tp"), sd, create_diffusion(str(XL_TP_STEPS), device=dev),
+                         cfg_scale=CFG_SCALE, mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(z, y, torch.Generator(device=dev).manual_seed(SEED + 13))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    report["chain50"] = dict(seconds=seconds, ms_per_model_call=1e3 * seconds / XL_TP_STEPS,
+                             finite=bool(torch.isfinite(out).all()))
+    del fn, out
+
+    partial = torch.randn(2 * XL_BATCH, 64, cfg.hidden_size, device=dev)
+    for _ in range(3):
+        dist.all_reduce(partial, group=mesh.model_group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        dist.all_reduce(partial, group=mesh.model_group)
+    torch.cuda.synchronize()
+    report["all_reduce_ms"] = 1e3 * (time.perf_counter() - t0) / 20
+    report["backend"] = dist.get_backend(mesh.model_group)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def tp_phase(torch, refs) -> dict:
+    """Phase 10: two ranks on the card (see tp_rank). Returns rank 0's
+    launch counts of each island's checked chain."""
+    from mapdit_tpu_torch.parallel import spawn
+
+    with tempfile.TemporaryDirectory(prefix="mapdit_smoke_tp_") as tmp:
+        t0 = time.perf_counter()
+        spawn(tp_rank, 2, args=(refs, tmp))
+        seconds = time.perf_counter() - t0
+        reports = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                reports.append(json.load(f))
+    for r, rep in enumerate(reports):
+        for kernel in ("mega_tp", "mega_attn_tp"):
+            phase("tp", rank=r, mesh="(1,2)", backend=rep["backend"], kernel=kernel, steps=XL_CHECK_STEPS,
+                  rel_l2_err_vs_f32=f"{rep['rel_l2_err_vs_f32'][kernel]:.3e}", tol=f"{rep['limit']:.3e}",
+                  rel_l2_err_vs_single_card_kernels=f"{rep['rel_l2_err_vs_auto'][kernel]:.3e}",
+                  ms_per_model_call=f"{rep['ms_per_model_call'][kernel]:.4f}",
+                  launches=json.dumps({key: v for key, v in rep["counts"][kernel].items() if v}))
+        c50 = rep["chain50"]
+        phase("tp", rank=r, kernel="mega_tp", steps=XL_TP_STEPS, batch=f"{XL_BATCH}x2", seconds=f"{c50['seconds']:.4f}",
+              ms_per_model_call=f"{c50['ms_per_model_call']:.4f}", finite=c50["finite"],
+              all_reduce_ms=f"{rep['all_reduce_ms']:.4f}", all_reduce_shape=f"({2 * XL_BATCH},64,1152)f32",
+              note="two ranks share one card; gloo all-reduces pass through host memory")
+    phase("tp", seconds_with_spawn=f"{seconds:.2f}")
+    return {f"tp/{kernel}": reports[0]["counts"][kernel] for kernel in ("mega_tp", "mega_attn_tp")}
+
 
 def tree_mismatch(torch, a, b, path=""):
     """The path of the first leaf where two trees of tensors and plain
@@ -1074,6 +1363,7 @@ def main() -> int:
     )
     rows.update(train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x, a, gains[0], w0))
     rows.update(standalone_kernel_rows(torch, F, gen, dev))
+    rows.update(tp_kernel_rows(torch, F, gen, dev))
     for name, row in rows.items():
         phase("time", kernel=name, ms=f"{row['ms']:.4f}", plain_ms=f"{row['plain_ms']:.4f}",
               bound_ms=f"{row['bound_ms']:.4f}", bound_by=row["bound_by"], library_ms=row["library_ms"])
@@ -1170,7 +1460,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches.update(train_cli_phase(torch, dev))
 
-    # 9. report
+    # 9. DiT-XL/2 on one card, 10. the tensor-parallel islands on two ranks
+    torch.cuda.empty_cache()
+    family_launches.update(tp_phase(torch, xl_phase(torch, dev)))
+
+    # 11. report
     kernels = []
     for name, row in rows.items():
         path, count_from = row.pop("path", None), row.pop("count_from", None)

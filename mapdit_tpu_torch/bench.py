@@ -7,9 +7,15 @@
     python -m mapdit_tpu_torch.bench --model DiT-B/2 --block-kernel pallas --attention-impl pallas
     python -m mapdit_tpu_torch.bench --model DiT-B/2 --modulation rotation_scale --attention-impl pallas \
                                      --block-kernel off [--no-use-cosine-attention ...]
+    torchrun --nproc-per-node 2 -m mapdit_tpu_torch.bench --model DiT-XL/2 --batch 4 --n-model 2
 
 ``--modulation``, ``--attention-impl`` and one ``--no-use-<flag>`` switch per
-``use_*`` flag of the config select the model family in both modes.
+``use_*`` flag of the config select the model family in both modes. Under
+``torchrun`` sample mode runs ``build_sample_fn(mesh=)`` on a mesh of every
+rank with ``--n-model`` ranks on its model axis (the tensor-parallel
+islands; ``auto`` resolves to ``mega_tp`` where the widths split); rank 0
+prints the line. Ranks that share a card talk over gloo, through host
+memory.
 
 Sample mode is the protocol of the JAX package's ``bench.py`` sample mode:
 4x16x16 latents, 1000 classes, random weights drawn from seed 0 and folded,
@@ -201,11 +207,22 @@ def main(argv=None) -> int:
                    help="trace a few train steps (or one 10-step chain) with torch.profiler after the timed "
                         "ones and write the table here")
     p.add_argument("--repeats", type=int, default=3)
+    p.add_argument("--n-model", type=int, default=1,
+                   help="sample mode under torchrun: ranks on the mesh's model axis (the data axis takes the rest)")
     args = p.parse_args(argv)
 
     device = torch.device("cuda")
     if not torch.cuda.is_available():
         raise SystemExit("the benchmark measures a GPU and none is available")
+    mesh, rank = None, 0
+    if "RANK" in os.environ and args.mode == "sample":
+        from mapdit_tpu_torch.parallel import init_distributed, make_mesh
+
+        device = init_distributed()
+        mesh = make_mesh(n_model=args.n_model, device=device)
+        rank = mesh.rank
+    elif args.n_model > 1:
+        raise SystemExit("--n-model > 1 runs in sample mode under torchrun --nproc-per-node N")
     cfg = build_config(args.model, in_channels=4, input_size=16, num_classes=1000, compute_dtype=args.dtype,
                        block_kernel=args.block_kernel, attn_bwd=args.attn_bwd, modulation=args.modulation,
                        attention_impl=args.attention_impl, **{name: getattr(args, name) for name in use_flags})
@@ -215,7 +232,7 @@ def main(argv=None) -> int:
     model = init_model(cfg, seed=0, device=device)
     diffusion = create_diffusion(str(args.steps), device=device)
     sample = build_sample_fn(cfg, model.state_dict(), diffusion, cfg_scale=CFG_SCALE, batch_hint=args.batch,
-                             device=device)
+                             device=device, mesh=mesh)
     n = args.batch
     gen = torch.Generator(device=device).manual_seed(0)
     z = torch.randn(2 * n, 4, 16, 16, generator=gen, device=device)
@@ -234,17 +251,27 @@ def main(argv=None) -> int:
     profile = None
     if args.profile_dir:
         short = build_sample_fn(cfg, model.state_dict(), create_diffusion("10", device=device), cfg_scale=CFG_SCALE,
-                                batch_hint=args.batch, device=device)
+                                batch_hint=args.batch, device=device, mesh=mesh)
         short(z, y, torch.Generator(device=device).manual_seed(1))
-        profile = _profile(args.profile_dir, lambda: short(z, y, torch.Generator(device=device).manual_seed(1)),
-                           "sample_key_averages.txt", calls=1, steps_per_call=10)
-        profile["device_idle_share"] = 1.0 - profile["device_busy_ms_per_step"] / (1e3 / value)
-    mfu = 100.0 * model_call_flops(cfg, 2 * n) * args.steps / best / H100_BF16_FLOPS
+        if rank == 0:
+            profile = _profile(args.profile_dir, lambda: short(z, y, torch.Generator(device=device).manual_seed(1)),
+                               "sample_key_averages.txt", calls=1, steps_per_call=10)
+            profile["device_idle_share"] = 1.0 - profile["device_busy_ms_per_step"] / (1e3 / value)
+        else:  # the other ranks run the traced chain's collectives
+            short(z, y, torch.Generator(device=device).manual_seed(1))
+    # a mesh's ranks may share cards: the peak is that of the cards they use
+    cards = 1 if mesh is None else min(mesh.size, torch.cuda.device_count())
+    mfu = 100.0 * model_call_flops(cfg, 2 * n) * args.steps / best / (cards * H100_BF16_FLOPS)
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
+    if rank != 0:
+        return 0
     print(json.dumps({
         "metric": "denoise_steps_per_sec_per_gpu",
         "value": value,
         "unit": f"DDPM steps/s ({args.model}, batch {n}x2 CFG, {args.steps} respaced steps, {args.dtype}, "
-                f"block_kernel {sample.run_cfg.block_kernel}{_family(cfg)})",
+                f"block_kernel {sample.run_cfg.block_kernel}{_family(cfg)}"
+                + ("" if mesh is None else f", mesh ({mesh.n_data}, {mesh.n_model}) over {cards} card(s)") + ")",
         "mfu_pct": mfu,
         "chain_seconds": times,
         "profile": profile,

@@ -4,7 +4,8 @@ Port of ``mapdit_tpu/models/blocks.py`` for every ``use_*`` flag set and the
 three modulation kinds. Rotation modulation replaces the shift of adaLN by a
 learned Givens rotation of channel pairs. The block kernels hard-code the
 MP + adaln + cosine-attention arithmetic; any other family runs the generic
-path of :class:`DiTBlock`, whatever ``block_kernel`` says.
+path of :class:`DiTBlock`, whatever ``block_kernel`` says, except the
+tensor-parallel islands ``mega_attn_tp`` / ``mega_tp``, which refuse it.
 """
 
 from __future__ import annotations
@@ -96,6 +97,23 @@ def stack_auto_ok(cfg: DiTConfig, batch_hint: Optional[int], device: torch.devic
     return kernel_policy(cfg, cfg.num_patches, device) == "mega"
 
 
+def resolve_block_kernel_tp(cfg: DiTConfig, folded: bool, tp: int, device) -> str:
+    """What ``block_kernel="auto"`` resolves to on a mesh whose model axis
+    has ``tp`` ranks (``blocks.py:210-239`` of the JAX package, its TPU
+    branch read as CUDA): ``off`` for tp < 2, heads that do not split
+    evenly, or a single-device policy of ``off``; the whole-block island
+    ``mega_tp`` when the MLP hidden width splits evenly too, the attention
+    island ``mega_attn_tp`` otherwise. Off CUDA ``off``, as the JAX package
+    resolves off-TPU. Explicit values pass through."""
+    if cfg.block_kernel != "auto":
+        return cfg.block_kernel
+    if torch.device(device).type != "cuda" or tp < 2 or cfg.num_heads % tp:
+        return "off"
+    if kernel_policy(cfg.replace(fold_weights=folded), cfg.num_patches, device) == "off":
+        return "off"
+    return "mega_tp" if int(cfg.hidden_size * cfg.mlp_ratio) % tp == 0 else "mega_attn_tp"
+
+
 def modulation_dims(cfg: DiTConfig, with_gate: bool) -> Tuple[int, ...]:
     """Output chunk sizes of one branch's modulation head: adaln (shift,
     scale[, gate]), rotation (theta[, gate]) with D/2 angles,
@@ -163,9 +181,14 @@ class DiTBlock(nn.Module):
         self.gain_mlp = nn.Parameter(torch.zeros(()))
         self.attn = Attention(cfg, d)
         self.mlp = MLP(cfg, d, d)
+        # the mesh of the tensor-parallel islands, set with this rank's weight
+        # shards by DiT.load_tensor_parallel
+        self.mesh = None
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
+        if cfg.block_kernel in ("mega_attn_tp", "mega_tp"):
+            return self._tensor_parallel(x, c)
         if use_megakernel(cfg, x.shape[1], x.device):
             from mapdit_tpu_torch.ops.cuda.dit_block import fused_dit_block
 
@@ -218,6 +241,53 @@ class DiTBlock(nn.Module):
             return self.mlp.fused_branch(x, shift_mlp, scale_mlp, gate_mlp, self.gain_mlp)
         h = apply_modulation(maybe_norm(x), mlp_mods, self.gain_mlp, cfg)
         return residual(x, self.mlp(h), gate_mlp)
+
+    def _tensor_parallel(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        """The islands of ``ops/cuda/dit_block_tp.py`` on this rank's shards
+        (``blocks.py:348-483`` of the JAX package). ``mega_tp``: the whole
+        block. ``mega_attn_tp``: the attention half; the modulation head and
+        the MLP run replicated in plain PyTorch on full weights (GSPMD's
+        split of them in the JAX package gives the same result)."""
+        from mapdit_tpu_torch.ops.cuda.dit_block_tp import fused_attn_branch_tp, fused_dit_block_tp
+
+        cfg, mesh = self.cfg, self.mesh
+        if not kernel_family_ok(cfg):
+            raise ValueError(f"{cfg.block_kernel} hard-codes the MP + adaln + cosine-attention family")
+        if not cfg.fold_weights:
+            raise ValueError(f"{cfg.block_kernel} takes folded weights, sharded after folding")
+        if mesh is None:
+            raise RuntimeError(
+                f"block_kernel={cfg.block_kernel!r} needs a mesh: build_sample_fn(mesh=) loads the shards"
+            )
+        tp = mesh.n_model
+        if cfg.num_heads % tp:
+            raise ValueError(f"{cfg.num_heads} heads do not split over {tp} model ranks")
+        heads_local = cfg.num_heads // tp
+        dt = cfg.dtype
+        w_qkv = self.attn.qkv_proj.effective_weight().to(dt).contiguous()
+        w_out = self.attn.out_proj.effective_weight().to(dt).contiguous()
+        if cfg.block_kernel == "mega_tp":
+            return fused_dit_block_tp(
+                x.to(dt).contiguous(),
+                activation(c, cfg).to(dt).contiguous(),
+                torch.stack([self.gain_msa, self.gain_mlp]).float(),
+                self.modulation.linear.effective_weight().to(dt),
+                w_qkv,
+                w_out,
+                self.mlp.fc1.effective_weight().to(dt),
+                self.mlp.fc2.effective_weight().to(dt),
+                heads_local=heads_local,
+                hidden_total=int(cfg.hidden_size * cfg.mlp_ratio),
+                group=mesh.model_group,
+            )
+        mods = self.modulation(c)
+        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mods
+        x = fused_attn_branch_tp(
+            x.to(dt).contiguous(), shift_msa.to(dt), scale_msa.to(dt), gate_msa.to(dt), self.gain_msa, w_qkv, w_out,
+            heads_local=heads_local, group=mesh.model_group,
+        )
+        h = apply_modulation(x, (shift_mlp, scale_mlp), self.gain_mlp, cfg)
+        return mp_sum(x, gate_mlp[:, None, :] * self.mlp(h), t=0.3)
 
 
 class MPFourier(nn.Module):

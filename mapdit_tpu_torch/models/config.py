@@ -4,9 +4,9 @@ Every field of the JAX ``DiTConfig`` is here: the eight ``use_*`` flags as
 real switches (all off with ``modulation="adaln"`` is a vanilla DiT), the
 three modulation kinds, every ``attention_impl``, the ``auto``, ``pallas``,
 ``mega``, ``mega_attn``, ``mega_stack`` and ``off`` block kernels and every
-``attn_bwd``. The tensor-parallel block kernels, ``scan_blocks`` and
-``remat`` raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+``attn_bwd``, and the tensor-parallel islands ``mega_attn_tp`` and
+``mega_tp`` (``build_sample_fn(mesh=)``). ``scan_blocks`` and ``remat``
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -18,12 +18,7 @@ import torch
 from mapdit_tpu_torch.ops.attention import ATTENTION_IMPLS
 
 MODULATION_KINDS = ("adaln", "rotation", "rotation_scale")
-BLOCK_KERNELS = ("auto", "pallas", "mega", "mega_attn", "mega_stack", "off")
-# block_kernel values of the JAX package the port has not reached yet
-_UNPORTED_BLOCK_KERNELS = {
-    "mega_attn_tp": "ROADMAP B.10 (head-sharded attention kernel)",
-    "mega_tp": "ROADMAP B.11 (full-block tensor-parallel kernels)",
-}
+BLOCK_KERNELS = ("auto", "pallas", "mega", "mega_attn", "mega_stack", "mega_attn_tp", "mega_tp", "off")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +57,9 @@ class DiTConfig:
     # fused_attn_branch (ops/cuda/attn_branch.py), the MLP half plain;
     # "pallas": the MLP half of each block through fused_mlp_branch
     # (ops/cuda/mlp_block.py), the attention half on the generic path;
+    # "mega_attn_tp" / "mega_tp": the tensor-parallel islands of
+    # ops/cuda/dit_block_tp.py on a mesh's model axis (attention half, or
+    # the whole block), set up by runtime.build_sample_fn(mesh=);
     # "auto": the policy in models/blocks.py; "off": plain torch.
     # The kernels hard-code the MP + adaln arithmetic: on another flag
     # family every value runs the generic path (models/blocks.py).
@@ -81,12 +79,8 @@ class DiTConfig:
         assert self.modulation in MODULATION_KINDS, self.modulation
         assert self.compute_dtype in ("float32", "bfloat16")
         assert self.attention_impl in ATTENTION_IMPLS, self.attention_impl
-        assert self.block_kernel in BLOCK_KERNELS + tuple(_UNPORTED_BLOCK_KERNELS)
+        assert self.block_kernel in BLOCK_KERNELS, self.block_kernel
         assert self.attn_bwd in ("pallas", "residual", "reference")
-        if self.block_kernel in _UNPORTED_BLOCK_KERNELS:
-            raise NotImplementedError(
-                f"block_kernel={self.block_kernel!r} is {_UNPORTED_BLOCK_KERNELS[self.block_kernel]}"
-            )
         if self.scan_blocks or self.remat:
             raise NotImplementedError("scan_blocks and remat are later items of training (ROADMAP A.6)")
 

@@ -55,6 +55,21 @@ class DiT(nn.Module):
             if module is not self and hasattr(module, "reset_parameters"):
                 module.reset_parameters(generator)
 
+    def load_tensor_parallel(self, state_dict, mesh) -> None:
+        """Load one rank's ``parallel.shard_state_dict``: each weight split
+        over the model axis replaces its full-size parameter (so the rank
+        holds only its shard), and every block runs its island over
+        ``mesh``."""
+        for name, value in state_dict.items():
+            module_name, _, attr = name.rpartition(".")
+            module = self.get_submodule(module_name)
+            param = getattr(module, attr)
+            if isinstance(param, nn.Parameter) and param.shape != value.shape:
+                setattr(module, attr, nn.Parameter(param.new_empty(value.shape), requires_grad=False))
+        self.load_state_dict(state_dict)
+        for block in self.blocks:
+            block.mesh = mesh
+
     def forward(
         self,
         x: torch.Tensor,

@@ -8,6 +8,11 @@ the chain evolves only the first half of the [z; z] batch and duplicates it
 into the [cond; uncond] model call (the half-CFG chain); the result keeps
 the reference's 2N shape. PyTorch runs the chain eagerly, one Python
 iteration per step; capturing it in a CUDA graph is ROADMAP A.4.
+
+``build_sample_fn(mesh=)`` runs the chain on a ('data', 'model') mesh of
+ranks (``parallel/mesh.py``): the data axis splits the batch, the model axis
+runs the tensor-parallel islands of ``ops/cuda/dit_block_tp.py`` on each
+rank's weight shards.
 """
 
 from __future__ import annotations
@@ -16,10 +21,11 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from mapdit_tpu_torch.models.blocks import kernel_family_ok, stack_auto_ok
+from mapdit_tpu_torch.models.blocks import kernel_family_ok, resolve_block_kernel_tp, stack_auto_ok
 from mapdit_tpu_torch.models.config import DiTConfig
 from mapdit_tpu_torch.models.dit import DiT
 from mapdit_tpu_torch.ops.mp import normalize
+from mapdit_tpu_torch.parallel.mesh import TP_KERNELS, all_gather_rows, check_replicated, shard_state_dict
 from mapdit_tpu_torch.utils.device import resolve_device
 
 
@@ -70,16 +76,20 @@ def build_shared_sample_fn(
     batch_hint: Optional[int] = None,
     noise_fn: Optional[Callable] = None,
     device=None,
+    mesh=None,
 ):
     """``(prepare, sample_fn)``: ``prepare(state_dict)`` builds the folded
     model (and the weight stack); ``sample_fn(prepared, noise, y,
     generator)`` runs the chain, so one built function serves many weight
-    sets.
+    sets. With a ``mesh`` (two or more ranks), ``prepare`` first checks
+    that every rank holds the same weights, and under a TP kernel loads
+    only this rank's shards of the folded weights.
 
     ``batch_hint`` (the pre-CFG sample count) lets ``block_kernel="auto"``
     promote to the whole-stack kernel (``models/blocks.py:stack_auto_ok``).
     ``noise_fn(t, shape)`` replaces the step noise (cross-framework parity
-    tests). Only ``sampler="ddpm"`` is ported; the others are ROADMAP A.7.
+    tests); a call may pass its own. Only ``sampler="ddpm"`` is ported; the
+    others are ROADMAP A.7.
 
     Weights fold only under ``use_weight_normalization``; without it a
     weight-normalized class table (``use_mp_embedding``) is normalized in
@@ -103,6 +113,8 @@ def build_shared_sample_fn(
         )
     if use_stack and not run_cfg.fold_weights:
         raise ValueError("mega_stack needs fold=True (folded weights)")
+    if run_cfg.block_kernel in TP_KERNELS and (mesh is None or mesh.n_model < 2):
+        raise ValueError(f"block_kernel={run_cfg.block_kernel!r} runs on build_sample_fn(mesh=) with a model axis")
     use_fast = diffusion.mean_type == gd.EPSILON and diffusion.var_type == gd.LEARNED_RANGE
 
     def prepare(state_dict: Dict[str, torch.Tensor]) -> Dict:
@@ -110,11 +122,18 @@ def build_shared_sample_fn(
         if run_cfg.fold_weights:
             sd = fold_weights_for_inference(sd, run_cfg)
         model = DiT(run_cfg).to(device).eval()
-        model.load_state_dict(sd)
+        if mesh is not None:
+            check_replicated(sd, device)
+        if run_cfg.block_kernel in TP_KERNELS:
+            model.load_tensor_parallel(shard_state_dict(sd, run_cfg, mesh, run_cfg.block_kernel), mesh)
+        else:
+            model.load_state_dict(sd)
         return {"model": model, "block_stack": build_block_stack(sd, run_cfg) if use_stack else None}
 
     @torch.no_grad()
-    def sample_fn(prepared: Dict, noise: torch.Tensor, y: torch.Tensor, generator=None) -> torch.Tensor:
+    def sample_fn(
+        prepared: Dict, noise: torch.Tensor, y: torch.Tensor, generator=None, noise_fn=noise_fn
+    ) -> torch.Tensor:
         model, stack = prepared["model"], prepared["block_stack"]
         if cfg_scale is None:
             def model_fn(x, t, y):
@@ -160,18 +179,80 @@ def build_sample_fn(
 ):
     """``sample_fn(noise, y, generator)`` over the full chain, with the
     weights prepared once. ``noise`` is (2N, C, H, W) and ``y`` is
-    [cond labels; null labels] under CFG. ``mesh`` (multi-device layouts) is
-    ROADMAP A.8."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= (multi-device sampling) is ROADMAP A.8")
+    [cond labels; null labels] under CFG.
+
+    ``mesh`` (``parallel.make_mesh``): the layout of ``runtime.py:646-748``
+    of the JAX package on torch.distributed, called on every rank with the
+    same arguments (the same weights, the global noise and labels, a
+    generator with the same seed). Its model axis runs the tensor-parallel
+    islands: ``auto`` resolves through ``resolve_block_kernel_tp``,
+    ``mega_attn_tp`` and ``mega_tp`` may be named; the other kernels, the
+    plain path and every family outside MP + adaln + cosine attention are
+    refused there. A data-only mesh runs any kernel on full weights. The
+    data axis splits the pre-CFG batch, each rank keeping matching cond and
+    null rows; each rank draws the step noise at the global shape and keeps
+    its rows, so the chain equals the unsharded one under the same
+    generator. The result is all-gathered over the data group. A batch the
+    data axis does not divide runs whole on every rank."""
+    if mesh is not None and mesh.size > 1:
+        device = mesh.device if device is None else device
+        cfg = _mesh_config(cfg, fold, mesh, device)
+    else:
+        mesh = None
     prepare, shared_fn = build_shared_sample_fn(
         cfg, diffusion, cfg_scale=cfg_scale, fold=fold, sampler=sampler, clip_denoised=clip_denoised,
-        batch_hint=batch_hint, noise_fn=noise_fn, device=device,
+        batch_hint=batch_hint, noise_fn=noise_fn, device=device, mesh=mesh,
     )
     prepared = prepare(state_dict)
 
     def sample_fn(noise: torch.Tensor, y: torch.Tensor, generator=None) -> torch.Tensor:
-        return shared_fn(prepared, noise, y, generator)
+        n_pre = noise.shape[0] // 2 if cfg_scale is not None else noise.shape[0]
+        if mesh is None or mesh.n_data == 1 or n_pre % mesh.n_data:
+            return shared_fn(prepared, noise, y, generator)
+        n_loc = n_pre // mesh.n_data
+        keep = slice(mesh.data_index * n_loc, (mesh.data_index + 1) * n_loc)
+
+        def rows(z):
+            return torch.cat([z[keep], z[n_pre:][keep]]) if cfg_scale is not None else z[keep]
+
+        def step_noise(t, shape):
+            full = (n_pre, *shape[1:])
+            if noise_fn is not None:
+                return noise_fn(t[:1].expand(n_pre), full)[keep]
+            return torch.randn(full, generator=generator, device=noise.device, dtype=noise.dtype)[keep]
+
+        out = shared_fn(prepared, rows(noise), rows(y), generator, noise_fn=step_noise)
+        x = all_gather_rows(out[:n_loc], mesh.data_group)
+        return torch.cat([x, x]) if cfg_scale is not None else x
 
     sample_fn.run_cfg = shared_fn.run_cfg
     return sample_fn
+
+
+def _mesh_config(cfg: DiTConfig, fold: bool, mesh, device) -> DiTConfig:
+    """The kernel checks of ``runtime.py:692-714`` of the JAX package: the
+    config a mesh of two or more ranks runs, or the reason it cannot."""
+    tp = mesh.n_model
+    if tp == 1:
+        if cfg.block_kernel in TP_KERNELS:
+            raise ValueError(f"block_kernel={cfg.block_kernel!r} needs a model axis of 2 or more ranks")
+        return cfg
+    if cfg.block_kernel not in ("auto", "off", *TP_KERNELS):
+        raise ValueError(
+            f"block_kernel={cfg.block_kernel!r} is a single-device kernel and cannot run on a mesh with a model "
+            f"axis; use 'auto' (resolves to mega_tp or mega_attn_tp), 'mega_attn_tp' or 'mega_tp'"
+        )
+    folded = fold and cfg.use_weight_normalization
+    kernel = resolve_block_kernel_tp(cfg, folded, tp, device)
+    if kernel == "off" or not kernel_family_ok(cfg):
+        raise NotImplementedError(
+            f"tensor parallelism of the plain path (block_kernel={cfg.block_kernel!r} resolving to {kernel!r} on "
+            f"{tp} model ranks, flags {cfg.flags_dict()}) is ROADMAP A.8 (TP of the plain path): the port splits "
+            f"only the MP + adaln + cosine-attention islands mega_attn_tp and mega_tp"
+        )
+    if not folded:
+        raise ValueError(f"{kernel} takes folded weights: build with fold=True")
+    hidden = int(cfg.hidden_size * cfg.mlp_ratio)
+    if cfg.num_heads % tp or (kernel == "mega_tp" and hidden % tp):
+        raise ValueError(f"{kernel}: {cfg.num_heads} heads (and hidden width {hidden}) do not split over {tp} ranks")
+    return cfg.replace(block_kernel=kernel)

@@ -14,7 +14,7 @@ import torch
 import mapdit_tpu_torch
 from mapdit_tpu_torch.diffusion import create_diffusion
 from mapdit_tpu_torch.models import build_config, init_model
-from mapdit_tpu_torch.ops.cuda import attn_branch, dit_block
+from mapdit_tpu_torch.ops.cuda import attn_branch, dit_block, dit_block_tp
 from mapdit_tpu_torch.runtime import build_sample_fn
 
 PKG = pathlib.Path(mapdit_tpu_torch.__file__).parent
@@ -37,7 +37,8 @@ def test_import_loads_no_jax():
     for mod in ("training.state", "training.data", "training.ema", "training.lr", "diffusion.dmath",
                 "ops.cuda.attn_branch", "ops.cuda.attention", "ops.cuda.mlp_block", "train", "training.checkpoint",
                 "training.native_loader", "training.device_prefetch", "training.telemetry",
-                "diffusion.timestep_sampler", "utils.experiment", "utils.logging"):
+                "diffusion.timestep_sampler", "utils.experiment", "utils.logging", "parallel", "parallel.mesh",
+                "ops.cuda.dit_block_tp"):
         assert f"mapdit_tpu_torch.{mod}" in _modules()
     code = (
         "import importlib, sys\n"
@@ -138,6 +139,16 @@ def test_kernel_wrappers_do_not_fall_back_off_cpu():
         lambda: attn_branch.attn_res_fwd(*branch_args),
         lambda: attn_branch.attn_bwd(xb, *branch_args),
     ]
+    # the tensor-parallel partials on a shard of half the heads / hidden lanes
+    d_l, gains = d // 2, torch.empty(2, device="meta")
+    w_qkv_l, w_out_l = (torch.empty(*s, dtype=bf, device="meta") for s in ((3 * d_l, d), (d, d_l)))
+    w1_l, w2_l = (torch.empty(*s, dtype=bf, device="meta") for s in ((2 * d, d), (d, 2 * d)))
+    calls += [
+        lambda: dit_block_tp.attn_tp_partial(xb, r, r, gain, w_qkv_l, w_out_l, 1),
+        lambda: dit_block_tp.block_tp_attn(xb, r, gains, torch.empty(6 * d, d, dtype=bf, device="meta"), w_qkv_l,
+                                           w_out_l, 1),
+        lambda: dit_block_tp.mlp_tp_partial(xb, r, r, gains, w1_l, w2_l, 0.125),
+    ]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
             call()
@@ -146,9 +157,6 @@ def test_kernel_wrappers_do_not_fall_back_off_cpu():
 @pytest.mark.parametrize(
     "overrides, item",
     [
-        (dict(block_kernel="mega_attn_tp"), "B.10"),
-        (dict(block_kernel="mega_tp"), "B.11"),
-        (dict(block_kernel="mega_tp", modulation="rotation"), "B.11"),
         (dict(scan_blocks=True), "A.6"),
         (dict(remat=True, use_cosine_attention=False), "A.6"),
         (["--fsdp", "true"], "A.8"),
