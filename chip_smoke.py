@@ -48,8 +48,8 @@ Phases, one line each; any failure exits non-zero before the final line:
      (ranks sharing a card cannot use NCCL) and run the same clipped chain
      through build_sample_fn(mesh=) with block_kernel="mega_tp" and then
      "mega_attn_tp", each against the float32 plain chain, with exact launch
-     counts per rank; then a timed 50-step mega_tp chain and one gloo
-     all-reduce of a (8, 64, 1152) f32 partial. The all-reduces pass
+     counts per rank, each chain then run again warm and timed; then one
+     gloo all-reduce of a (8, 64, 1152) f32 partial. The all-reduces pass
      through host memory: these are not NCCL tensor-parallel latencies;
  11. the kernels JSON line, the device line again, and the ok line.
 Phase 3 also holds dw_gemm (the S/2 and B/2 training shapes and a ragged M,
@@ -93,8 +93,7 @@ FAMILIES = {
 }
 XL_MODEL = "DiT-XL/2"
 XL_BATCH = 4  # pre-CFG samples; 8 rows per model call
-XL_CHECK_STEPS = 10  # clipped chain held to the float32 plain path
-XL_TP_STEPS = 50  # the timed mega_tp chain
+XL_CHECK_STEPS = 10  # clipped chain held to the float32 plain path, then run again warm and timed
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate, H100 SXM data sheet
 PALLAS = "mapdit_tpu/ops/pallas/dit_block.py"
@@ -485,8 +484,9 @@ def draw_gains(torch, model, seed: int) -> None:
     with torch.no_grad():
         g_cpu = torch.Generator().manual_seed(seed)
         for blk in model.blocks:
-            blk.gain_msa.uniform_(0.2, 0.8, generator=g_cpu)
-            blk.gain_mlp.uniform_(0.2, 0.8, generator=g_cpu)
+            # drawn on the CPU, so the values do not depend on the model's device
+            for gain in (blk.gain_msa, blk.gain_mlp):
+                gain.copy_(torch.empty(()).uniform_(0.2, 0.8, generator=g_cpu))
 
 
 def train_phase(torch, dev, tag: str, paths: dict, expect: dict, steps: int) -> dict:
@@ -1028,12 +1028,14 @@ def xl_config():
     return build_config(XL_MODEL, in_channels=4, input_size=16, num_classes=1000, compute_dtype="bfloat16")
 
 
-def xl_state_dict(torch, cfg) -> dict:
-    """DiT-XL/2's random weights from SEED, gains drawn (on the CPU: the
-    parent and every rank draw the same)."""
-    from mapdit_tpu_torch.models import init_model
+def xl_state_dict(torch, cfg, dev) -> dict:
+    """DiT-XL/2's random weights from SEED, gains drawn. Drawn on the card
+    (a CPU draw of 674M values takes seconds in every process): the parent
+    and every rank draw the same on the same card."""
+    from mapdit_tpu_torch.models import DiT
 
-    init = init_model(cfg, seed=SEED, device="cpu")
+    init = DiT(cfg).to(dev)
+    init.reset_parameters(torch.Generator(device=dev).manual_seed(SEED))
     draw_gains(torch, init, SEED)
     return init.state_dict()
 
@@ -1043,8 +1045,9 @@ def xl_phase(torch, dev) -> dict:
     model call (folded weights; "auto" takes the whole-block kernels per
     block) and a clipped XL_CHECK_STEPS-step CFG chain ("auto" with a batch
     hint takes the whole-stack path) against the float32 plain path, launch
-    counts read around each, and their times. Returns the chain inputs and
-    the plain chains on the CPU, for the TP ranks of phase 10."""
+    counts read around each, and their times (the kernel chain's from a
+    second, warm run). Returns the chain inputs and the chains on the CPU,
+    for the TP ranks of phase 10."""
     from mapdit_tpu_torch.diffusion import create_diffusion
     from mapdit_tpu_torch.models import DiT
     from mapdit_tpu_torch.runtime import build_sample_fn, fold_weights_for_inference
@@ -1052,7 +1055,7 @@ def xl_phase(torch, dev) -> dict:
     cfg = xl_config()
     depth = cfg.depth
     t0 = time.perf_counter()
-    sd = xl_state_dict(torch, cfg)
+    sd = xl_state_dict(torch, cfg, dev)
     phase("xl", model=XL_MODEL, depth=depth, width=cfg.hidden_size, heads=cfg.num_heads, batch=f"{XL_BATCH}x2",
           parameters=sum(v.numel() for key, v in sd.items() if key != "pos_embed"),
           init_seconds=f"{time.perf_counter() - t0:.2f}")
@@ -1069,7 +1072,7 @@ def xl_phase(torch, dev) -> dict:
     for name, c in paths.items():
         c = c.replace(fold_weights=True)
         model = DiT(c).to(dev).eval()
-        model.load_state_dict(fold_weights_for_inference({key: v.to(dev) for key, v in sd.items()}, c))
+        model.load_state_dict(fold_weights_for_inference(sd, c))
         with torch.no_grad():
             torch.cuda.synchronize()
             reset_launch_counts()
@@ -1090,7 +1093,7 @@ def xl_phase(torch, dev) -> dict:
     for name, c in paths.items():
         fn = build_sample_fn(c, sd, short, cfg_scale=CFG_SCALE, clip_denoised=True,
                              batch_hint=XL_BATCH if name == "auto" else None, device=dev)
-        for _ in range(2):  # the second run is timed
+        for _ in range(2 if name == "auto" else 1):  # the kernel chain's second run is timed
             torch.cuda.synchronize()
             reset_launch_counts()
             t0 = time.perf_counter()
@@ -1114,10 +1117,11 @@ def xl_phase(torch, dev) -> dict:
 def tp_rank(rank, dev, refs, out_dir):
     """One rank of phase 10 (started by mapdit_tpu_torch.parallel.spawn):
     the (1, 2) mesh, DiT-XL/2 from the seed, the clipped chain through each
-    island held to the float32 plain chain of phase 9 by check_paths' rule,
-    exact launch counts of this rank (its time is a first run's), then the
-    timed mega_tp chain and one all-reduce of a partial. Writes its report to ``out_dir``; any failure
-    raises, and then mapdit_tpu_torch.parallel.spawn raises in the parent."""
+    island held to the float32 plain chain of phase 9 by check_paths' rule
+    with exact launch counts of this rank, the same chain again warm and
+    timed, then one all-reduce of a partial. Writes its report to
+    ``out_dir``; any failure raises, and then
+    mapdit_tpu_torch.parallel.spawn raises in the parent."""
     import torch
     import torch.distributed as dist
 
@@ -1127,7 +1131,7 @@ def tp_rank(rank, dev, refs, out_dir):
 
     mesh = make_mesh(1, 2, device=dev)
     cfg = xl_config()
-    sd = xl_state_dict(torch, cfg)
+    sd = xl_state_dict(torch, cfg, dev)
     z, y = refs["z"].to(dev), refs["y"].to(dev)
     per = XL_CHECK_STEPS * cfg.depth
     expect = {
@@ -1137,39 +1141,33 @@ def tp_rank(rank, dev, refs, out_dir):
         "mega_attn_tp": {"attn_tp_partial": per, "mp_gemm/qkv": per, "mp_gemm/out": per, "cosine_attention": per},
     }
     limit = max(2 * rel_l2(refs["off"], refs["f32"]), 1e-2)
-    report = {"counts": {}, "rel_l2_err_vs_f32": {}, "rel_l2_err_vs_auto": {}, "ms_per_model_call": {}, "limit": limit}
+    report = {"counts": {}, "rel_l2_err_vs_f32": {}, "rel_l2_err_vs_auto": {}, "first_ms_per_model_call": {},
+              "ms_per_model_call": {}, "limit": limit}
     short = create_diffusion(str(XL_CHECK_STEPS), device=dev)
     for kernel in ("mega_tp", "mega_attn_tp"):
         fn = build_sample_fn(cfg.replace(block_kernel=kernel), sd, short, cfg_scale=CFG_SCALE, clip_denoised=True,
                              mesh=mesh)
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        out = fn(z, y, torch.Generator(device=dev).manual_seed(SEED + 12))
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        counts = launch_counts()
-        check_counts(f"tp/{kernel}/rank{rank}", counts, expect[kernel])
-        err = rel_l2(out.cpu(), refs["f32"])
-        if not bool(torch.isfinite(out).all()) or err > limit:
-            raise AssertionError(f"tp/{kernel}/rank{rank}: off the f32 plain chain (rel L2 {err} > {limit})")
-        report["counts"][kernel] = counts
-        report["rel_l2_err_vs_f32"][kernel] = err
-        report["rel_l2_err_vs_auto"][kernel] = rel_l2(out.cpu(), refs["auto"])
-        report["ms_per_model_call"][kernel] = 1e3 * seconds / XL_CHECK_STEPS
+        seconds = []
+        for run in range(2):  # the first run is checked and counted, the second (warm) timed
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out = fn(z, y, torch.Generator(device=dev).manual_seed(SEED + 12))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            if run == 0:
+                counts = launch_counts()
+                check_counts(f"tp/{kernel}/rank{rank}", counts, expect[kernel])
+                err = rel_l2(out.cpu(), refs["f32"])
+                if not bool(torch.isfinite(out).all()) or err > limit:
+                    raise AssertionError(f"tp/{kernel}/rank{rank}: off the f32 plain chain (rel L2 {err} > {limit})")
+                report["counts"][kernel] = counts
+                report["rel_l2_err_vs_f32"][kernel] = err
+                report["rel_l2_err_vs_auto"][kernel] = rel_l2(out.cpu(), refs["auto"])
+        report["first_ms_per_model_call"][kernel] = 1e3 * seconds[0] / XL_CHECK_STEPS
+        report["ms_per_model_call"][kernel] = 1e3 * seconds[1] / XL_CHECK_STEPS
         del fn, out
         torch.cuda.empty_cache()
-
-    fn = build_sample_fn(cfg.replace(block_kernel="mega_tp"), sd, create_diffusion(str(XL_TP_STEPS), device=dev),
-                         cfg_scale=CFG_SCALE, mesh=mesh)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn(z, y, torch.Generator(device=dev).manual_seed(SEED + 13))
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    report["chain50"] = dict(seconds=seconds, ms_per_model_call=1e3 * seconds / XL_TP_STEPS,
-                             finite=bool(torch.isfinite(out).all()))
-    del fn, out
 
     partial = torch.randn(2 * XL_BATCH, 64, cfg.hidden_size, device=dev)
     for _ in range(3):
@@ -1203,12 +1201,10 @@ def tp_phase(torch, refs) -> dict:
             phase("tp", rank=r, mesh="(1,2)", backend=rep["backend"], kernel=kernel, steps=XL_CHECK_STEPS,
                   rel_l2_err_vs_f32=f"{rep['rel_l2_err_vs_f32'][kernel]:.3e}", tol=f"{rep['limit']:.3e}",
                   rel_l2_err_vs_single_card_kernels=f"{rep['rel_l2_err_vs_auto'][kernel]:.3e}",
+                  first_ms_per_model_call=f"{rep['first_ms_per_model_call'][kernel]:.4f}",
                   ms_per_model_call=f"{rep['ms_per_model_call'][kernel]:.4f}",
                   launches=json.dumps({key: v for key, v in rep["counts"][kernel].items() if v}))
-        c50 = rep["chain50"]
-        phase("tp", rank=r, kernel="mega_tp", steps=XL_TP_STEPS, batch=f"{XL_BATCH}x2", seconds=f"{c50['seconds']:.4f}",
-              ms_per_model_call=f"{c50['ms_per_model_call']:.4f}", finite=c50["finite"],
-              all_reduce_ms=f"{rep['all_reduce_ms']:.4f}", all_reduce_shape=f"({2 * XL_BATCH},64,1152)f32",
+        phase("tp", rank=r, all_reduce_ms=f"{rep['all_reduce_ms']:.4f}", all_reduce_shape=f"({2 * XL_BATCH},64,1152)f32",
               note="two ranks share one card; gloo all-reduces pass through host memory")
     phase("tp", seconds_with_spawn=f"{seconds:.2f}")
     return {f"tp/{kernel}": reports[0]["counts"][kernel] for kernel in ("mega_tp", "mega_attn_tp")}
@@ -1259,6 +1255,11 @@ def main() -> int:
     print(smi, flush=True)
     phase("device", kind=json.dumps(torch.cuda.get_device_name(0)), count=torch.cuda.device_count(),
           torch=torch.__version__, cuda=torch.version.cuda)
+
+    t_smoke = time.perf_counter()
+
+    def elapsed(after: str) -> None:
+        phase("elapsed", after=after, seconds=f"{time.perf_counter() - t_smoke:.2f}")
 
     # 2. build
     t0 = time.perf_counter()
@@ -1363,7 +1364,9 @@ def main() -> int:
     )
     rows.update(train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x, a, gains[0], w0))
     rows.update(standalone_kernel_rows(torch, F, gen, dev))
+    elapsed("3.standalone")
     rows.update(tp_kernel_rows(torch, F, gen, dev))
+    elapsed("3.tp")
     for name, row in rows.items():
         phase("time", kernel=name, ms=f"{row['ms']:.4f}", plain_ms=f"{row['plain_ms']:.4f}",
               bound_ms=f"{row['bound_ms']:.4f}", bound_by=row["bound_by"], library_ms=row["library_ms"])
@@ -1446,23 +1449,31 @@ def main() -> int:
     if block_launches["fused_dit_block"] != 10 * depth or block_launches["fused_dit_stack"] != 0:
         raise AssertionError(f"the per-block chain did not run through fused_dit_block: {block_launches}")
 
+    elapsed("5")
+
     # 6. train
     del model, paths, sample, block_chain, outs
     torch.cuda.empty_cache()
     train_launches = s2_train_phase(torch, dev, cfg)
+    elapsed("6")
 
     # 7. the flag families at DiT-B/2
     family_launches = {}
     for tag, (flags, kernels) in FAMILIES.items():
         family_launches.update(family_phase(torch, dev, tag, flags, kernels))
+    elapsed("7")
 
     # 8. the training entry point
     torch.cuda.empty_cache()
     train_launches.update(train_cli_phase(torch, dev))
+    elapsed("8")
 
     # 9. DiT-XL/2 on one card, 10. the tensor-parallel islands on two ranks
     torch.cuda.empty_cache()
-    family_launches.update(tp_phase(torch, xl_phase(torch, dev)))
+    refs = xl_phase(torch, dev)
+    elapsed("9")
+    family_launches.update(tp_phase(torch, refs))
+    elapsed("10")
 
     # 11. report
     kernels = []

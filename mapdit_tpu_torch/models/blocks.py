@@ -10,6 +10,7 @@ tensor-parallel islands ``mega_attn_tp`` / ``mega_tp``, which refuse it.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -187,13 +188,10 @@ class DiTBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        if cfg.block_kernel in ("mega_attn_tp", "mega_tp"):
-            return self._tensor_parallel(x, c)
-        if use_megakernel(cfg, x.shape[1], x.device):
-            from mapdit_tpu_torch.ops.cuda.dit_block import fused_dit_block
-
+        block_kernel = self._block_kernel(x)
+        if block_kernel is not None:
             dt = cfg.dtype
-            return fused_dit_block(
+            return block_kernel(
                 x.to(dt).contiguous(),
                 activation(c, cfg).to(dt).contiguous(),
                 torch.stack([self.gain_msa, self.gain_mlp]).float(),
@@ -202,18 +200,16 @@ class DiTBlock(nn.Module):
                 self.attn.out_proj.effective_weight().to(dt),
                 self.mlp.fc1.effective_weight().to(dt),
                 self.mlp.fc2.effective_weight().to(dt),
-                cfg.num_heads,
             )
         mods = self.modulation(c)
         n = self.branch_chunks
         msa_mods, gate_msa = mods[: n - 1], mods[n - 1]
         mlp_mods, gate_mlp = mods[n : 2 * n - 1], mods[2 * n - 1]
-        if use_attn_halfkernel(cfg):
-            from mapdit_tpu_torch.ops.cuda.attn_branch import fused_attn_branch
-
+        attn_kernel = self._attn_half_kernel()
+        if attn_kernel is not None:
             dt = cfg.dtype
             shift_msa, scale_msa = msa_mods
-            x = fused_attn_branch(
+            x = attn_kernel(
                 x.to(dt).contiguous(),
                 shift_msa.to(dt),
                 scale_msa.to(dt),
@@ -221,8 +217,6 @@ class DiTBlock(nn.Module):
                 self.gain_msa,
                 self.attn.qkv_proj.effective_weight().to(dt).contiguous(),
                 self.attn.out_proj.effective_weight().to(dt).contiguous(),
-                cfg.num_heads,
-                bwd=cfg.attn_bwd,
             )
             h = apply_modulation(x, mlp_mods, self.gain_mlp, cfg)
             return mp_sum(x, gate_mlp[:, None, :] * self.mlp(h), t=0.3)
@@ -242,14 +236,47 @@ class DiTBlock(nn.Module):
         h = apply_modulation(maybe_norm(x), mlp_mods, self.gain_mlp, cfg)
         return residual(x, self.mlp(h), gate_mlp)
 
-    def _tensor_parallel(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-        """The islands of ``ops/cuda/dit_block_tp.py`` on this rank's shards
-        (``blocks.py:348-483`` of the JAX package). ``mega_tp``: the whole
-        block. ``mega_attn_tp``: the attention half; the modulation head and
-        the MLP run replicated in plain PyTorch on full weights (GSPMD's
-        split of them in the JAX package gives the same result)."""
-        from mapdit_tpu_torch.ops.cuda.dit_block_tp import fused_attn_branch_tp, fused_dit_block_tp
+    def _block_kernel(self, x: torch.Tensor):
+        """The whole-block kernel this block runs, as a function of (x, a,
+        gains, W_mod, W_qkv, W_out, W1, W2): ``fused_dit_block``, or the TP
+        island ``fused_dit_block_tp`` on this rank's shards; None for the
+        paths that run the modulation head in PyTorch."""
+        cfg = self.cfg
+        if cfg.block_kernel == "mega_tp":
+            from mapdit_tpu_torch.ops.cuda.dit_block_tp import fused_dit_block_tp
 
+            heads_local, group = self._tp_layout()
+            return functools.partial(fused_dit_block_tp, heads_local=heads_local,
+                                     hidden_total=int(cfg.hidden_size * cfg.mlp_ratio), group=group)
+        if use_megakernel(cfg, x.shape[1], x.device):
+            from mapdit_tpu_torch.ops.cuda.dit_block import fused_dit_block
+
+            return functools.partial(fused_dit_block, heads=cfg.num_heads)
+        return None
+
+    def _attn_half_kernel(self):
+        """The attention half-block kernel this block runs, as a function of
+        (x, shift, scale, gate, gain, W_qkv, W_out) that returns the stream
+        after the gated residual: ``fused_attn_branch``, or the TP island
+        ``fused_attn_branch_tp`` on this rank's heads (its modulation head
+        and MLP then run replicated in plain PyTorch on full weights; GSPMD's
+        split of them in the JAX package gives the same result); None for
+        the generic path."""
+        cfg = self.cfg
+        if cfg.block_kernel == "mega_attn_tp":
+            from mapdit_tpu_torch.ops.cuda.dit_block_tp import fused_attn_branch_tp
+
+            heads_local, group = self._tp_layout()
+            return functools.partial(fused_attn_branch_tp, heads_local=heads_local, group=group)
+        if use_attn_halfkernel(cfg):
+            from mapdit_tpu_torch.ops.cuda.attn_branch import fused_attn_branch
+
+            return functools.partial(fused_attn_branch, heads=cfg.num_heads, bwd=cfg.attn_bwd)
+        return None
+
+    def _tp_layout(self) -> Tuple[int, object]:
+        """(heads per rank, model group) of the TP islands
+        (``blocks.py:348-483`` of the JAX package), after their checks."""
         cfg, mesh = self.cfg, self.mesh
         if not kernel_family_ok(cfg):
             raise ValueError(f"{cfg.block_kernel} hard-codes the MP + adaln + cosine-attention family")
@@ -259,35 +286,9 @@ class DiTBlock(nn.Module):
             raise RuntimeError(
                 f"block_kernel={cfg.block_kernel!r} needs a mesh: build_sample_fn(mesh=) loads the shards"
             )
-        tp = mesh.n_model
-        if cfg.num_heads % tp:
-            raise ValueError(f"{cfg.num_heads} heads do not split over {tp} model ranks")
-        heads_local = cfg.num_heads // tp
-        dt = cfg.dtype
-        w_qkv = self.attn.qkv_proj.effective_weight().to(dt).contiguous()
-        w_out = self.attn.out_proj.effective_weight().to(dt).contiguous()
-        if cfg.block_kernel == "mega_tp":
-            return fused_dit_block_tp(
-                x.to(dt).contiguous(),
-                activation(c, cfg).to(dt).contiguous(),
-                torch.stack([self.gain_msa, self.gain_mlp]).float(),
-                self.modulation.linear.effective_weight().to(dt),
-                w_qkv,
-                w_out,
-                self.mlp.fc1.effective_weight().to(dt),
-                self.mlp.fc2.effective_weight().to(dt),
-                heads_local=heads_local,
-                hidden_total=int(cfg.hidden_size * cfg.mlp_ratio),
-                group=mesh.model_group,
-            )
-        mods = self.modulation(c)
-        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mods
-        x = fused_attn_branch_tp(
-            x.to(dt).contiguous(), shift_msa.to(dt), scale_msa.to(dt), gate_msa.to(dt), self.gain_msa, w_qkv, w_out,
-            heads_local=heads_local, group=mesh.model_group,
-        )
-        h = apply_modulation(x, (shift_mlp, scale_mlp), self.gain_mlp, cfg)
-        return mp_sum(x, gate_mlp[:, None, :] * self.mlp(h), t=0.3)
+        if cfg.num_heads % mesh.n_model:
+            raise ValueError(f"{cfg.num_heads} heads do not split over {mesh.n_model} model ranks")
+        return cfg.num_heads // mesh.n_model, mesh.model_group
 
 
 class MPFourier(nn.Module):

@@ -18,7 +18,8 @@ import torch
 from mapdit_tpu_torch.ops.attention import ATTENTION_IMPLS
 
 MODULATION_KINDS = ("adaln", "rotation", "rotation_scale")
-BLOCK_KERNELS = ("auto", "pallas", "mega", "mega_attn", "mega_stack", "mega_attn_tp", "mega_tp", "off")
+TP_KERNELS = ("mega_attn_tp", "mega_tp")  # the tensor-parallel islands, on a mesh's model axis
+BLOCK_KERNELS = ("auto", "pallas", "mega", "mega_attn", "mega_stack", *TP_KERNELS, "off")
 
 
 @dataclasses.dataclass(frozen=True)

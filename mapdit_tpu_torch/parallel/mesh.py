@@ -27,9 +27,10 @@ from typing import Callable, Dict, Optional
 import torch
 import torch.distributed as dist
 
+from mapdit_tpu_torch.models.config import TP_KERNELS
+
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-TP_KERNELS = ("mega_attn_tp", "mega_tp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,10 +44,6 @@ class Mesh:
     device: torch.device
     data_group: Optional[object] = None
     model_group: Optional[object] = None
-
-    @property
-    def shape(self) -> Dict[str, int]:
-        return {DATA_AXIS: self.n_data, MODEL_AXIS: self.n_model}
 
     @property
     def size(self) -> int:
@@ -85,16 +82,16 @@ def _rank_device(device, local_rank: int) -> torch.device:
     return torch.device("cuda", local_rank % torch.cuda.device_count())
 
 
-def init_distributed(backend: Optional[str] = None, device=None) -> torch.device:
+def init_distributed(device=None) -> torch.device:
     """Join the process group that ``torchrun`` describes in the environment
     (RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR,
     MASTER_PORT): the counterpart of ``jax.distributed.initialize``. Returns
     this rank's device: ``cuda:LOCAL_RANK % cards`` unless ``device`` is
-    given."""
+    given. The backend follows :func:`choose_backend`."""
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     local_rank = int(os.environ.get("LOCAL_RANK", rank))
     dev = _rank_device(device, local_rank)
-    backend = backend or choose_backend(dev, int(os.environ.get("LOCAL_WORLD_SIZE", world)))
+    backend = choose_backend(dev, int(os.environ.get("LOCAL_WORLD_SIZE", world)))
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     dist.init_process_group(backend, init_method="env://", rank=rank, world_size=world)
@@ -102,9 +99,9 @@ def init_distributed(backend: Optional[str] = None, device=None) -> torch.device
     return dev
 
 
-def _spawned(rank, fn, world, store, backend, device, args):
+def _spawned(rank, fn, world, store, device, args):
     dev = _rank_device(device, rank)
-    backend = backend or choose_backend(dev, world)
+    backend = choose_backend(dev, world)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     dist.init_process_group(backend, init_method=f"file://{store}", rank=rank, world_size=world)
@@ -115,16 +112,17 @@ def _spawned(rank, fn, world, store, backend, device, args):
         dist.destroy_process_group()
 
 
-def spawn(fn: Callable, nprocs: int, args=(), backend: Optional[str] = None, device=None) -> None:
+def spawn(fn: Callable, nprocs: int, args=(), device=None) -> None:
     """Run ``fn(rank, device, *args)`` in ``nprocs`` new processes that form
     one process group over a ``file://`` store in a temporary directory (no
     TCP port to collide with another group's). Raises if a rank fails.
     ``device=None`` puts rank r on ``cuda:r % cards``; ``"cpu"`` keeps every
-    rank on the CPU. ``fn`` must be importable by the new processes."""
+    rank on the CPU. The backend follows :func:`choose_backend`. ``fn`` must
+    be importable by the new processes."""
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory(prefix="mapdit_dist_") as tmp:
-        mp.spawn(_spawned, args=(fn, nprocs, os.path.join(tmp, "store"), backend, device, tuple(args)),
+        mp.spawn(_spawned, args=(fn, nprocs, os.path.join(tmp, "store"), device, tuple(args)),
                  nprocs=nprocs, join=True)
 
 

@@ -22,10 +22,10 @@ from typing import Callable, Dict, Optional
 import torch
 
 from mapdit_tpu_torch.models.blocks import kernel_family_ok, resolve_block_kernel_tp, stack_auto_ok
-from mapdit_tpu_torch.models.config import DiTConfig
+from mapdit_tpu_torch.models.config import TP_KERNELS, DiTConfig
 from mapdit_tpu_torch.models.dit import DiT
 from mapdit_tpu_torch.ops.mp import normalize
-from mapdit_tpu_torch.parallel.mesh import TP_KERNELS, all_gather_rows, check_replicated, shard_state_dict
+from mapdit_tpu_torch.parallel.mesh import all_gather_rows, check_replicated, shard_state_dict
 from mapdit_tpu_torch.utils.device import resolve_device
 
 
