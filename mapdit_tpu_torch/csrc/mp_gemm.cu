@@ -1,46 +1,113 @@
 // mp_gemm: C = epilogue(prologue(A) . op(W) * alpha), bf16 operands, f32 sums,
 // op(W) = W^T for W stored (N, K) or W itself for W stored (K, N).
 //
-// Replaces the five matrix products inside the Pallas whole-block body
-// (mapdit_tpu/ops/pallas/dit_block.py:_block_body, reached from
-// _fwd_impl and _stack_fwd_impl) together with the elementwise stages the
-// Pallas kernel kept in VMEM around them:
+// Replaces the matrix products of the Pallas block kernels together with the
+// elementwise stages the Pallas kernels kept in VMEM around them:
+//   mapdit_tpu/ops/pallas/dit_block.py:_block_body (l.279, the five products
+//   of _fwd_impl / _stack_fwd_impl), _attn_kernel (l.512), the dattn and dh
+//   products of _attn_bwd_math (l.636, 683), _attn_tp_kernel,
+//   _block_tp_kernel and _mlp_tp_kernel (l.1408, 1575, 1683), and
+//   mapdit_tpu/ops/pallas/mlp_block.py:_kernel (l.35).
 //   prologue  MODULATE: per-sample modulate of A before it is rounded to
 //             bf16, (a*scale + (shift - a*scale)*g) / sqrt((1-g)^2 + g^2),
-//             sample = row / tokens, shift/scale read from an f32 (N, 6D)
+//             sample = row / tokens, shift/scale read from an f32 (N, *)
 //             modulation buffer at column offsets, g read from device memory
 //             (no host sync);
 //   epilogue  SILU: silu(c) / 0.596 (MP-SiLU);
 //             RESIDUAL: (x + (gate*c - x)*0.3) / sqrt(0.58), the gated MP
 //             residual, with x read from the stream (f32 or bf16).
 // W is stored (out, in), as the port stores every weight: the forward
-// products read it as (N, K) and take W^T; the attention half-block's
-// backward (mapdit_tpu/ops/pallas/dit_block.py:_attn_bwd_math, dattn =
-// dout . Wout and dh = dqkv . Wqkv) reads the same array as (K, N) and takes
-// W itself, so no transposed weight copy is ever made. Only the tile load
-// differs between the two layouts; the shared-memory tile is (n, k) in both.
+// products read it as (N, K) and take W^T (the K-major B operand of wgmma);
+// the attention half-block's backward (dattn = dout . Wout, dh = dqkv .
+// Wqkv) reads the same array as (K, N) and takes W itself through wgmma's
+// MN-major B operand, so no transposed weight copy is ever made. The layout
+// is a template parameter: a run-time branch in the tile loop cost the S/2
+// headline 4% in the first form.
 //
-// Bound on the H100: at the DiT-S/2 sampling shapes (M = 4096 rows, K = 384
-// or 1536) every product does 2*M*N*K flops on ~(M*K + N*K + M*N) elements,
-// i.e. a few hundred flops per byte: compute-bound on the tensor cores.
-// This first form stages 64x64x32 tiles in shared memory and multiplies with
-// WMMA bf16 16x16x16 fragments (4 warps, 32x32 per warp). It is correct and
-// simple, not fast: TMA + wgmma pipelining is the later step (ROADMAP B.2).
+// Bound on the H100 (max of bytes / 3.35 TB/s and FLOPs / 989 TFLOP/s, as
+// chip_smoke.py counts them): the S/2 sampling products (M = 4096) by their
+// bytes, 0.0007 / 0.0069 / 0.0039 / 0.0060 / 0.0070 ms (modulation, qkv, out,
+// fc1, fc2: f32 operands and results); the S/2 training products (M = 16384)
+// dattn 0.0114 and dh 0.0190 ms (bytes); row 9 at B/2 (M = 4096) 0.0195 ms
+// a product (operations); XL/2 on one card (M = 512, weight streaming)
+// 0.0048 / 0.0049 / 0.0022 / 0.0055 / 0.0056 ms.
+//
+// Design (sm_90a):
+//   * CTA tile 128 x 128, k depth 64: two consumer warpgroups of 64 rows
+//     each issue wgmma.mma_async m64n128k16 (bf16 -> f32, both operands from
+//     shared memory, 64 f32 accumulators a thread); one producer warp keeps
+//     TMA loads (cp.async.bulk.tensor, 128-byte swizzle, full/empty mbarrier
+//     pairs) in flight. The 128-row tile shares each W tile between the two
+//     warpgroups; 128 columns keep the small-N products (N = 384-1152) in
+//     enough tiles.
+//   * Three stages (32 KB each, 96 KB) and at most 96 registers a thread, so
+//     two CTAs share an SM and one's pipeline fill and epilogue hide behind
+//     the other's products. Four stages at one CTA an SM were measured in the
+//     same calls (NVIDIA H100 80GB HBM3, 700.00 W, graph-timed device ms;
+//     this and the other forms below were built for the comparison and are
+//     not kept, so these numbers cannot be re-run from the repo): faster
+//     at the K = 384 products (qkv 0.0210 against 0.0256 ms), slower at the
+//     long ones (B/2 fc1 0.0865 against 0.0656, XL fc1 0.0333 against
+//     0.0275).
+//     A persistent form (one CTA an SM walking the tiles, four stages, an
+//     epilogue tile of its own so the next tile's loads run under the
+//     epilogue), measured in one call against this one: faster at the
+//     training products (dattn 0.0213 against 0.0269 ms, dh 0.0378 against
+//     0.0462) and XL's split ones, slower where many tiles meet a short K
+//     (B/2 fc1 0.0746 against 0.0594, S/2 fc1 0.0311 against 0.0269), even
+//     over the five S/2 products (0.0853 against 0.0854 ms); not kept.
+//   * wgmma of k step i overlaps the loads of step i+1 (wgmma.wait_group 1;
+//     a stage is released one step late).
+//   * What bounds it now: a 128 x 128 x 64 step moves 32 KB from L2 for
+//     2.1 MFLOP, 64 FLOP a byte where the tensor cores need ~180 from L2;
+//     B/2 fc1 streams ~300 MB of tiles through L2 in ~0.06 ms (~5 TB/s).
+//     Wider tiles, or TMA multicast of W across a cluster, are the next
+//     step; the K = 384 products also pay the pipeline fill and epilogue
+//     of every tile.
+//   * The prologue: a bf16 A without MODULATE is read where TMA put it. An
+//     f32 A, or the modulate, first goes through mp_gemm_prologue, an
+//     elementwise pass that writes the modulated A, rounded once to bf16 as
+//     the plain version rounds it, into an (M, K) bf16 buffer the wrapper
+//     allocates; the product then reads that. Converting inside the product
+//     instead, (a) into registers for wgmma's register-A form or (b) into a
+//     swizzled bf16 copy of each tile in shared memory, converts A again for
+//     every column tile: N / 128 times, 9x at S/2 qkv, 36x at XL fc1. Route
+//     (b), built and measured against the pass in one call (graph-timed
+//     device ms, same card, both with the earlier per-thread epilogue): qkv
+//     0.0455 and fc1 0.0806 ms, against 0.0273 and 0.0401; its conversion,
+//     not the tensor cores, set the pace (~64 KB of L1 traffic a CTA and k
+//     step for the shift/scale rows alone). Route (a) shares that cost. The
+//     pass itself takes 0.0034 ms at S/2 qkv and fc1.
+//   * The epilogue goes through shared memory: the accumulators, padded
+//     rows, then eight consecutive columns a thread, so x, the gate and C
+//     move in 16-byte accesses; alpha, MP-SiLU or the gated residual on f32.
+//   * Small grids: shapes with fewer than 66 tiles (the XL/2 products at
+//     M = 512, the modulation GEMVs at M = 8 or 64) split K over blockIdx.z
+//     into f32 partials (allocated by the wrapper) that mp_gemm_reduce sums
+//     in split order, then applies alpha and the epilogue: the same bits on
+//     every run. The split count is mp_gemm_splits(M, N, K): enough for two
+//     CTAs an SM, at least three k steps a split, at most 8. Rows past M
+//     (M = 8 fills 8 of 128) are TMA's out-of-bounds zeros.
+//   * TMA needs 16-byte aligned rows and pointers: K and N multiples of 8;
+//     the modulation rows are read as float4 (the wrapper raises otherwise).
+//     The tensor maps are encoded on the host with cuTensorMapEncodeTiled,
+//     taken from the driver library the process has loaded (dlopen/dlsym of
+//     libcuda.so.1), so the library links no libcuda and builds with plain
+//     nvcc, whatever the toolkit's runtime entry-point API.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <dlfcn.h>
 #include <stdint.h>
-
-using namespace nvcuda;
 
 namespace {
 
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 32;
-constexpr int LDA = BK + 8;  // bf16 elements: a multiple of 8, as wmma needs
-constexpr int LDC = BN + 4;  // f32 elements: a multiple of 4
-constexpr int THREADS = 128;
+constexpr int BM = 128;
+constexpr int BN = 128;
+constexpr int BK = 64;
+constexpr int CONSUMER_THREADS = 256;             // two warpgroups
+constexpr int THREADS = CONSUMER_THREADS + 32;    // and one producer warp
+constexpr int SMS = 132;
 constexpr float RES_T = 0.3f;
 constexpr float SILU_DIV = 0.596f;
 
@@ -48,15 +115,21 @@ enum { DT_F32 = 0, DT_BF16 = 1 };
 enum { PRO_NONE = 0, PRO_MODULATE = 1 };
 enum { EPI_NONE = 0, EPI_SILU = 1, EPI_RESIDUAL = 2 };
 
+constexpr int A_BYTES = BM * BK * 2;
+constexpr int W_BYTES = BN * BK * 2;
+constexpr int STAGE_BYTES = A_BYTES + W_BYTES;
+constexpr int STAGES = 3;
+// 1 KB of slack to align the ring to the 1024 bytes the swizzle needs, then
+// the barriers
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
+
 struct Params {
-  const void* a;
-  int a_dtype;
-  const __nv_bfloat16* w;
   void* c;
   int c_dtype;
+  float* partial;
   int m, n, k;
+  int kt, splits;
   float alpha;
-  int prologue;
   const float* mods;
   int mods_ld, shift_off, scale_off, gate_off;
   const float* gain;
@@ -66,139 +139,439 @@ struct Params {
   int x_dtype;
 };
 
-__device__ __forceinline__ float load_f32(const void* p, int dtype, int64_t i) {
-  return dtype == DT_F32 ? static_cast<const float*>(p)[i]
-                         : __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void store_f32(void* p, int dtype, int64_t i, float v) {
-  if (dtype == DT_F32) {
-    static_cast<float*>(p)[i] = v;
-  } else {
-    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// spins on try_wait; a wait of ~10 s (a lost TMA transaction, a barrier
+// count that cannot complete) traps, so a fault ends the launch with an
+// error instead of holding the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long start = clock64();
+  while (!done) {
+    if (clock64() - start > (1ll << 34)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
   }
 }
 
-// W_KN: W stored (K, N) and C = A . W; otherwise W stored (N, K) and
-// C = A . W^T. A template parameter, so the forward products compile to the
-// same code as without the second layout.
-template <bool W_KN>
-__global__ void __launch_bounds__(THREADS) mp_gemm_kernel(Params p) {
-  __shared__ __align__(32) __nv_bfloat16 As[BM * LDA];
-  __shared__ __align__(32) __nv_bfloat16 Ws[BN * LDA];
-  __shared__ __align__(32) float Cs[BM * LDC];
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = (warp / 2) * 32;
-  const int wn = (warp % 2) * 32;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
+// wgmma shared-memory matrix descriptor, 128-byte swizzle
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo_bytes, uint32_t sbo_bytes) {
+  uint64_t d = 0;
+  d |= static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16;
+  d |= static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32;
+  d |= 1ull << 62;
+  return d;
+}
 
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads across a wgmma wait
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D(64x128, f32) += A(64x16, smem) . B(16x128, smem); TRANS_B = 1 reads B
+// MN-major (W stored (K, N)), 0 K-major (W stored (N, K))
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t u) { return __uint_as_float(u & 0xFFFF0000u); }
+
+// The prologue pass: A (f32 or bf16), modulated when asked, rounded once to
+// the bf16 copy the product reads; eight elements a thread and step, the
+// modulate in f32 as the plain version writes it.
+template <bool A_F32, bool MOD>
+__global__ void __launch_bounds__(256) mp_gemm_prologue(const void* a, uint4* out, const Params p) {
   float g = 0.f, den = 1.f;
-  if (p.prologue == PRO_MODULATE) {
+  if (MOD) {
     g = *p.gain;
     den = sqrtf((1.f - g) * (1.f - g) + g * g);
   }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < p.k; k0 += BK) {
-    for (int i = tid; i < BM * BK; i += THREADS) {
-      const int r = i / BK, kk = i % BK;
-      const int row = m0 + r, col = k0 + kk;
-      float v = 0.f;
-      if (row < p.m && col < p.k) {
-        v = load_f32(p.a, p.a_dtype, (int64_t)row * p.k + col);
-        if (p.prologue == PRO_MODULATE) {
-          const float* mrow = p.mods + (int64_t)(row / p.tokens) * p.mods_ld;
-          const float xs = v * mrow[p.scale_off + col];
-          v = (xs + (mrow[p.shift_off + col] - xs) * g) / den;
-        }
-      }
-      As[r * LDA + kk] = __float2bfloat16(v);
-    }
-    if constexpr (W_KN) {
-      // neighbouring threads read neighbouring n of one k row of W
-      for (int i = tid; i < BN * BK; i += THREADS) {
-        const int r = i % BN, kk = i / BN;
-        const int row = n0 + r, col = k0 + kk;
-        Ws[r * LDA + kk] = (row < p.n && col < p.k) ? p.w[(int64_t)col * p.n + row]
-                                                   : __float2bfloat16(0.f);
-      }
+  const int chunks = p.k / 8;
+  const int64_t total = static_cast<int64_t>(p.m) * chunks;
+  for (int64_t q = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; q < total;
+       q += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    float v[8];
+    if (A_F32) {
+      const float4 lo = __ldg(static_cast<const float4*>(a) + 2 * q);
+      const float4 hi = __ldg(static_cast<const float4*>(a) + 2 * q + 1);
+      v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+      v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
     } else {
-      for (int i = tid; i < BN * BK; i += THREADS) {
-        const int r = i / BK, kk = i % BK;
-        const int row = n0 + r, col = k0 + kk;
-        Ws[r * LDA + kk] = (row < p.n && col < p.k) ? p.w[(int64_t)row * p.k + col]
-                                                   : __float2bfloat16(0.f);
+      const uint4 u = __ldg(static_cast<const uint4*>(a) + q);
+      v[0] = bf16_lo(u.x); v[1] = bf16_hi(u.x); v[2] = bf16_lo(u.y); v[3] = bf16_hi(u.y);
+      v[4] = bf16_lo(u.z); v[5] = bf16_hi(u.z); v[6] = bf16_lo(u.w); v[7] = bf16_hi(u.w);
+    }
+    if (MOD) {
+      const int row = static_cast<int>(q / chunks), col = 8 * static_cast<int>(q % chunks);
+      const float* mrow = p.mods + static_cast<int64_t>(row / p.tokens) * p.mods_ld;
+      const float4 sc0 = __ldg(reinterpret_cast<const float4*>(mrow + p.scale_off + col));
+      const float4 sc1 = __ldg(reinterpret_cast<const float4*>(mrow + p.scale_off + col + 4));
+      const float4 sh0 = __ldg(reinterpret_cast<const float4*>(mrow + p.shift_off + col));
+      const float4 sh1 = __ldg(reinterpret_cast<const float4*>(mrow + p.shift_off + col + 4));
+      const float sc[8] = {sc0.x, sc0.y, sc0.z, sc0.w, sc1.x, sc1.y, sc1.z, sc1.w};
+      const float sh[8] = {sh0.x, sh0.y, sh0.z, sh0.w, sh1.x, sh1.y, sh1.z, sh1.w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float xs = v[e] * sc[e];
+        v[e] = (xs + (sh[e] - xs) * g) / den;
       }
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-      // Ws holds W's rows (n, k): read as the col-major (k, n) operand W^T
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(fa[i], As + (wm + 16 * i) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(fb[j], Ws + (wn + 16 * j) * LDA + kk, LDA);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm + 16 * i) * LDC + wn + 16 * j, acc[i][j], LDC,
-                              wmma::mem_row_major);
-  __syncthreads();
-
-  const float res_denom = sqrtf((1.f - RES_T) * (1.f - RES_T) + RES_T * RES_T);
-  for (int i = tid; i < BM * BN; i += THREADS) {
-    const int r = i / BN, cc = i % BN;
-    const int row = m0 + r, col = n0 + cc;
-    if (row >= p.m || col >= p.n) continue;
-    const int64_t idx = (int64_t)row * p.n + col;
-    float v = Cs[r * LDC + cc] * p.alpha;
-    if (p.epilogue == EPI_SILU) {
-      v = v / (1.f + expf(-v)) / SILU_DIV;
-    } else if (p.epilogue == EPI_RESIDUAL) {
-      const float xv = load_f32(p.x, p.x_dtype, idx);
-      const float gate = p.mods[(int64_t)(row / p.tokens) * p.mods_ld + p.gate_off + col];
-      v = (xv + (gate * v - xv) * RES_T) / res_denom;
-    }
-    store_f32(p.c, p.c_dtype, idx, v);
+    out[q] = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
   }
 }
 
+// eight consecutive elements of an f32 or bf16 row-major matrix, 16-byte
+// aligned
+__device__ __forceinline__ void load8(const void* ptr, int dtype, int64_t i, float (&v)[8]) {
+  if (dtype == DT_F32) {
+    const float4 lo = *reinterpret_cast<const float4*>(static_cast<const float*>(ptr) + i);
+    const float4 hi = *reinterpret_cast<const float4*>(static_cast<const float*>(ptr) + i + 4);
+    v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+    v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+  } else {
+    const uint4 u = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(ptr) + i);
+    v[0] = bf16_lo(u.x); v[1] = bf16_hi(u.x); v[2] = bf16_lo(u.y); v[3] = bf16_hi(u.y);
+    v[4] = bf16_lo(u.z); v[5] = bf16_hi(u.z); v[6] = bf16_lo(u.w); v[7] = bf16_hi(u.w);
+  }
+}
+
+// alpha, the epilogue and the store of C[row, col..col+7] from the f32
+// sums v: 16- or 32-byte loads of x and the gate, one store
+__device__ __forceinline__ void finish8(const Params& p, int row, int col, float (&v)[8]) {
+  const int64_t idx = static_cast<int64_t>(row) * p.n + col;
+  if (p.epilogue == EPI_RESIDUAL) {
+    float x[8], gate[8];
+    load8(p.x, p.x_dtype, idx, x);
+    load8(p.mods, DT_F32, static_cast<int64_t>(row / p.tokens) * p.mods_ld + p.gate_off + col, gate);
+    const float inv_denom = rsqrtf((1.f - RES_T) * (1.f - RES_T) + RES_T * RES_T);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = (x[e] + (gate[e] * (v[e] * p.alpha) - x[e]) * RES_T) * inv_denom;
+  } else if (p.epilogue == EPI_SILU) {
+    // the fast exponential and reciprocals: IEEE division and expf made the
+    // SiLU epilogue outlast a K = 384 tile's products; the f32 result moves
+    // by a few ulps, far inside a bf16 ulp
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float c = v[e] * p.alpha;
+      v[e] = c * __frcp_rn(1.f + __expf(-c)) * (1.f / SILU_DIV);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] *= p.alpha;
+  }
+  if (p.c_dtype == DT_F32) {
+    float4* out = reinterpret_cast<float4*>(static_cast<float*>(p.c) + idx);
+    out[0] = make_float4(v[0], v[1], v[2], v[3]);
+    out[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+    *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.c) + idx) =
+        make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+  }
+}
+
+template <bool W_KN>
+__global__ void __launch_bounds__(THREADS, 2)
+    mp_gemm_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_w, const Params p) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = ring + STAGES * STAGE_BYTES;
+  auto full_bar = [&](int s) { return bars + 8 * s; };
+  auto empty_bar = [&](int s) { return bars + 8 * (STAGES + s); };
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int kb = blockIdx.z * p.kt / p.splits, ke = (blockIdx.z + 1) * p.kt / p.splits;
+  const int nk = ke - kb;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_bar(s), 1);
+      mbar_init(empty_bar(s), CONSUMER_THREADS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMER_THREADS / 32) {
+    // producer: one thread keeps the ring full
+    if (lane == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tm_a)) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tm_w)) : "memory");
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % STAGES;
+        mbar_wait(empty_bar(s), ((i / STAGES) & 1) ^ 1);
+        const uint32_t a_s = ring + s * STAGE_BYTES, w_s = a_s + A_BYTES;
+        const int k0 = (kb + i) * BK;
+        mbar_expect_tx(full_bar(s), STAGE_BYTES);
+        tma_load_2d(a_s, &tm_a, full_bar(s), k0, m0);
+        if constexpr (W_KN) {
+          tma_load_2d(w_s, &tm_w, full_bar(s), n0, k0);
+          tma_load_2d(w_s + BK * 128, &tm_w, full_bar(s), n0 + 64, k0);
+        } else {
+          tma_load_2d(w_s, &tm_w, full_bar(s), k0, n0);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows 64*wg .. 64*wg + 63 of the tile
+  const int wg = warp >> 2;
+  const bool active = m0 + 64 * wg < p.m;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % STAGES;
+    mbar_wait(full_bar(s), (i / STAGES) & 1);
+    const uint32_t a_s = ring + s * STAGE_BYTES, w_s = a_s + A_BYTES;
+    if (active) {
+      const uint32_t a_wg = a_s + wg * (64 * 128);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t da = smem_desc(a_wg + kk * 32, 16, 1024);
+        if constexpr (W_KN) {
+          // MN-major: 64-column boxes 8 KB apart (LBO), 8-k groups 1 KB apart (SBO)
+          wgmma_m64n128k16<1>(acc, da, smem_desc(w_s + kk * 16 * 128, BK * 128, 1024));
+        } else {
+          wgmma_m64n128k16<0>(acc, da, smem_desc(w_s + kk * 32, 16, 1024));
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+    }
+    if (i > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_bar((i - 1) % STAGES));
+    }
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+
+  // accumulator layout of m64nNk16: warp w of the warpgroup holds rows
+  // 16w + lane/4 (+8), columns 8j + 2(lane%4) (+1)
+  const int rt = 64 * wg + 16 * (warp & 3) + (lane >> 2);
+  const int ct = 2 * (lane & 3);
+  if (p.splits > 1) {
+    if (!active) return;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + rt + 8 * h, col = n0 + ct + 8 * j;
+        if (row < p.m && col < p.n) {
+          const int64_t idx = (static_cast<int64_t>(blockIdx.z) * p.m + row) * p.n + col;
+          *reinterpret_cast<float2*>(p.partial + idx) = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+      }
+    }
+    return;
+  }
+  // the epilogue goes through the ring, free once both warpgroups are past
+  // their last wgmma: the tile in f32 (rows padded by 4 floats, so the
+  // fragments' 8-byte writes are free of bank conflicts), then eight
+  // consecutive columns a thread, with 16-byte loads and stores
+  constexpr int LDT = BN + 4;
+  float* tile = reinterpret_cast<float*>(smem_raw + (ring - smem_u32(smem_raw)));
+  asm volatile("bar.sync 3, %0;\n" ::"n"(CONSUMER_THREADS) : "memory");
+  if (active) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        *reinterpret_cast<float2*>(tile + (rt + 8 * h) * LDT + ct + 8 * j) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+  }
+  asm volatile("bar.sync 3, %0;\n" ::"n"(CONSUMER_THREADS) : "memory");
+#pragma unroll 2
+  for (int q = tid; q < BM * BN / 8; q += CONSUMER_THREADS) {
+    const int r = q / (BN / 8), c = 8 * (q % (BN / 8));
+    const int row = m0 + r, col = n0 + c;
+    if (row < p.m && col < p.n) {
+      const float4 lo = *reinterpret_cast<const float4*>(tile + r * LDT + c);
+      const float4 hi = *reinterpret_cast<const float4*>(tile + r * LDT + c + 4);
+      float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      finish8(p, row, col, v);
+    }
+  }
+}
+
+// split-K: sums the partials of every split in split order, then alpha and
+// the epilogue; eight columns a thread
+__global__ void __launch_bounds__(256) mp_gemm_reduce(const Params p) {
+  const int64_t mn = static_cast<int64_t>(p.m) * p.n, chunks = mn / 8;
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < chunks;
+       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t e = 8 * i;
+    float v[8];
+    load8(p.partial, DT_F32, e, v);
+    for (int z = 1; z < p.splits; ++z) {
+      float u[8];
+      load8(p.partial, DT_F32, z * mn + e, u);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] += u[j];
+    }
+    finish8(p, static_cast<int>(e / p.n), static_cast<int>(e % p.n), v);
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* h = dlopen("libcuda.so.1", RTLD_LAZY | RTLD_NOLOAD);
+    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_LAZY);
+    if (h != nullptr) fn = reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// a row-major bf16 (rows, cols) matrix read in (box_rows, box_cols) tiles,
+// 128-byte swizzle, zeros outside
+bool encode(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows, int box_cols) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool W_KN>
+cudaError_t launch(const CUtensorMap& ta, const CUtensorMap& tw, const Params& p, dim3 grid, cudaStream_t s) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e =
+        cudaFuncSetAttribute(mp_gemm_kernel<W_KN>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    // all of the SM's unified memory as shared memory: room for two CTAs
+    if (e == cudaSuccess) {
+      e = cudaFuncSetAttribute(mp_gemm_kernel<W_KN>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    }
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  mp_gemm_kernel<W_KN><<<grid, THREADS, SMEM_BYTES, s>>>(ta, tw, p);
+  return cudaGetLastError();
+}
+
+int cdiv(int a, int b) { return (a + b - 1) / b; }
+
 }  // namespace
 
-extern "C" int mp_gemm(const void* a, int a_dtype, const void* w, void* c, int c_dtype, int m,
-                       int n, int k, float alpha, int prologue, const void* mods, int mods_ld,
-                       int shift_off, int scale_off, int gate_off, const void* gain, int tokens,
-                       int epilogue, const void* x, int x_dtype, int w_kn, void* stream) {
+// Split count over K for an (M, N, K) product: 1 when the tiles alone give
+// every SM a CTA, else enough splits for two CTAs an SM, each at least three
+// k steps deep, at most 8.
+extern "C" int mp_gemm_splits(int m, int n, int k) {
+  const int tiles = cdiv(m, BM) * cdiv(n, BN), kt = cdiv(k, BK);
+  if (2 * tiles > SMS) return 1;
+  int s = 2 * SMS / tiles;
+  if (s > kt / 3) s = kt / 3;
+  if (s > 8) s = 8;
+  return s < 1 ? 1 : s;
+}
+
+// a_work: an (M, K) bf16 buffer for the prologue pass, needed when A is f32
+// or modulated; partial: (splits, M, N) f32, needed when mp_gemm_splits > 1.
+extern "C" int mp_gemm(const void* a, int a_dtype, const void* w, void* c, int c_dtype, int m, int n, int k,
+                       float alpha, int prologue, const void* mods, int mods_ld, int shift_off, int scale_off,
+                       int gate_off, const void* gain, int tokens, int epilogue, const void* x, int x_dtype,
+                       int w_kn, void* a_work, void* partial, void* stream) {
+  const bool a_f32 = a_dtype == DT_F32, modulated = prologue == PRO_MODULATE;
+  const void* a_bf16 = (a_f32 || modulated) ? a_work : a;
+  if (k % 8 || n % 8 || m < 1 || a_bf16 == nullptr ||
+      (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(a_bf16) | reinterpret_cast<uintptr_t>(w)) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap ta, tw;
+  const bool maps_ok = encode(&ta, a_bf16, m, k, BM, BK) &&
+                       (w_kn ? encode(&tw, w, k, n, BK, 64) : encode(&tw, w, n, k, BN, BK));
+  if (!maps_ok) return static_cast<int>(cudaErrorInvalidValue);
+
   Params p;
-  p.a = a;
-  p.a_dtype = a_dtype;
-  p.w = static_cast<const __nv_bfloat16*>(w);
   p.c = c;
   p.c_dtype = c_dtype;
+  p.partial = static_cast<float*>(partial);
   p.m = m;
   p.n = n;
   p.k = k;
+  p.kt = cdiv(k, BK);
+  p.splits = mp_gemm_splits(m, n, k);
   p.alpha = alpha;
-  p.prologue = prologue;
   p.mods = static_cast<const float*>(mods);
   p.mods_ld = mods_ld;
   p.shift_off = shift_off;
@@ -209,13 +582,28 @@ extern "C" int mp_gemm(const void* a, int a_dtype, const void* w, void* c, int c
   p.epilogue = epilogue;
   p.x = x;
   p.x_dtype = x_dtype;
-  dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
+  if (p.splits > 1 && partial == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (w_kn) {
-    mp_gemm_kernel<true><<<grid, THREADS, 0, s>>>(p);
-  } else {
-    mp_gemm_kernel<false><<<grid, THREADS, 0, s>>>(p);
+  if (a_bf16 != a) {
+    const int64_t chunks = static_cast<int64_t>(m) * (k / 8);
+    const int blocks = static_cast<int>(chunks / 256 + 1 < 8 * SMS ? chunks / 256 + 1 : 8 * SMS);
+    uint4* out = static_cast<uint4*>(const_cast<void*>(a_bf16));
+    if (a_f32) {
+      if (modulated) mp_gemm_prologue<true, true><<<blocks, 256, 0, s>>>(a, out, p);
+      else mp_gemm_prologue<true, false><<<blocks, 256, 0, s>>>(a, out, p);
+    } else {
+      mp_gemm_prologue<false, true><<<blocks, 256, 0, s>>>(a, out, p);
+    }
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
+  const dim3 grid(cdiv(n, BN), cdiv(m, BM), p.splits);
+  cudaError_t e = w_kn ? launch<true>(ta, tw, p, grid, s) : launch<false>(ta, tw, p, grid, s);
+  if (e != cudaSuccess || p.splits == 1) return static_cast<int>(e);
+  const int64_t chunks = static_cast<int64_t>(m) * n / 8;
+  const int blocks = static_cast<int>(chunks / 256 + 1 < 4 * SMS ? chunks / 256 + 1 : 4 * SMS);
+  mp_gemm_reduce<<<blocks, 256, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -49,12 +49,17 @@ def kernel_family_ok(cfg: DiTConfig) -> bool:
 
 
 def kernel_policy(cfg: DiTConfig, seq_len: int, device: torch.device) -> str:
-    """What ``block_kernel="auto"`` resolves to: the whole-block kernels
+    """The auto policy (the per-block dispatch, the stack promotion and the
+    tensor-parallel resolver all derive from it): the whole-block kernels
     (``mega``) for folded-weight bf16 programs of the kernels' family
     (:func:`kernel_family_ok`) on a CUDA device at T <= 64, the plain path
     (``off``) otherwise. The JAX policy's conditions on the flag family,
-    folding and T carry over; its VMEM weight budgets do not. Float32 stays
-    on the plain path: the kernels take bf16 operands."""
+    folding and T carry over; its VMEM weight budgets (7 MB / 11 MB, the
+    TPU's) do not, and no budget of the card's takes their place: on the
+    H100 the whole-block kernels were the fastest path measured at DiT-S/2,
+    B/2 and XL/2, ahead of ``mega_attn`` and ``off``
+    (tools/kernel_policy_sweep.py; PERF.md). Float32 stays on the plain
+    path: the kernels take bf16 operands."""
     if not kernel_family_ok(cfg):
         return "off"
     if cfg.fold_weights and seq_len <= 64 and cfg.dtype == torch.bfloat16 and torch.device(device).type == "cuda":
@@ -75,10 +80,9 @@ def use_megakernel(cfg: DiTConfig, seq_len: int, device: torch.device) -> bool:
 def use_attn_halfkernel(cfg: DiTConfig) -> bool:
     """Whether a DiTBlock runs its attention half through
     ``fused_attn_branch`` (modulation head and MLP stay plain): an explicit
-    ``mega_attn`` on the kernels' family. ``auto`` never resolves to it
-    here: the port's policy has no weight budget and takes the whole-block
-    kernels where the JAX package would take this one for B and XL sampling
-    (ROADMAP A.4)."""
+    ``mega_attn`` on the kernels' family. ``auto`` never resolves to it: on
+    the H100 the whole-block kernels were faster at every size measured
+    (:func:`kernel_policy`)."""
     return kernel_family_ok(cfg) and cfg.block_kernel == "mega_attn"
 
 

@@ -156,7 +156,7 @@ def fused_attention(q, k, v, scale: float, cosine: bool = True):
     """Attention over (B, H, T, D') q, k, v (f32 or bf16, any batch, head
     and token strides, last dimension contiguous); returns (B, H, T, D') in
     the input type. Its gradient recomputes through
-    :func:`attention_reference` in float32."""
+    :func:`attention_reference` in the input type."""
     if not needs_grad(q, k, v):
         return _fused_attention_fwd(q, k, v, scale, cosine)
     return _FusedAttention.apply(q, k, v, scale, cosine)

@@ -36,9 +36,10 @@ _SIGNATURES = {
     },
     "mp_gemm": {
         "mp_gemm": (
-            [_P, _I, _P, _P, _I, _I, _I, _I, _F, _I, _P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P],
+            [_P, _I, _P, _P, _I, _I, _I, _I, _F, _I, _P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P],
             ctypes.c_int,
         ),
+        "mp_gemm_splits": ([_I, _I, _I], ctypes.c_int),
         "mp_gemm_error_string": ([_I], ctypes.c_char_p),
     },
     "dw_gemm": {

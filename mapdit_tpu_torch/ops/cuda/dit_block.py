@@ -33,6 +33,7 @@ over ``_reference`` / ``_stack_reference``), so training through
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Optional
 
@@ -73,10 +74,10 @@ def _rows(v: torch.Tensor, tokens: int) -> torch.Tensor:
 
 
 def _require_cuda(*tensors: torch.Tensor) -> None:
-    dev = tensors[0].device
+    index = tensors[0].get_device()
     for t in tensors:
-        if t.device.type != "cuda" or t.device != dev:
-            raise ValueError(f"kernel inputs must share one CUDA device, got {t.device} and {dev}")
+        if not t.is_cuda or t.get_device() != index:
+            raise ValueError(f"kernel inputs must share one CUDA device, got {t.device} and {tensors[0].device}")
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
 
@@ -125,6 +126,27 @@ def mp_gemm_plain(
     if out is None:
         return c
     return out.copy_(c)
+
+
+@functools.lru_cache(maxsize=None)
+def _mp_gemm_splits(m: int, n: int, k: int) -> int:
+    """mp_gemm's split-K count for an (M, N, K) product (the wrapper
+    allocates the partials)."""
+    from mapdit_tpu_torch.ops.cuda import build
+
+    return build.library("mp_gemm").mp_gemm_splits(m, n, k)
+
+
+def _check_tma(a, w, out, x, mods, k, n, shift_off, scale_off, gate_off):
+    """What the TMA loads and 16-byte accesses of ``csrc/mp_gemm.cu`` need:
+    K and N multiples of 8, 16-byte aligned operands, modulation rows read
+    as float4."""
+    if k % 8 or n % 8:
+        raise ValueError(f"mp_gemm needs K and N multiples of 8 (TMA rows of 16 bytes), got K={k}, N={n}")
+    if any(t is not None and t.data_ptr() % 16 for t in (a, w, out, x, mods)):
+        raise ValueError("mp_gemm needs 16-byte aligned operands")
+    if mods is not None and any(v % 4 for v in (mods.shape[1], shift_off, scale_off, gate_off)):
+        raise ValueError("mp_gemm reads modulation rows as float4: row length and offsets must be multiples of 4")
 
 
 def mp_gemm(
@@ -183,8 +205,14 @@ def mp_gemm(
     elif out.shape != (m, n) or out.dtype != out_dtype:
         raise ValueError("out has the wrong shape or type")
     _require_cuda(*tensors, out)
+    _check_tma(a, w, out, x, mods, k, n, shift_off, scale_off, gate_off)
 
     lib = build.library("mp_gemm")
+    splits = _mp_gemm_splits(m, n, k)
+    partial = torch.empty(splits, m, n, dtype=torch.float32, device=a.device) if splits > 1 else None
+    # the prologue pass writes the modulated (or f32) A as bf16 here
+    converted = a.dtype != torch.bfloat16 or modulate is not None
+    a_work = torch.empty(m, k, dtype=torch.bfloat16, device=a.device) if converted else None
     stream = torch.cuda.current_stream(a.device).cuda_stream
     code = lib.mp_gemm(
         a.data_ptr(), _DTYPE_CODE[a.dtype], w.data_ptr(), out.data_ptr(), _DTYPE_CODE[out_dtype],
@@ -194,7 +222,8 @@ def mp_gemm(
         gain.data_ptr() if gain is not None else None, tokens,
         1 if silu else (2 if residual is not None else 0),
         x.data_ptr() if x is not None else None, _DTYPE_CODE[x.dtype] if x is not None else 0,
-        1 if w_kn else 0, stream,
+        1 if w_kn else 0, a_work.data_ptr() if a_work is not None else None,
+        partial.data_ptr() if partial is not None else None, stream,
     )
     _raise_on(code, lib, "mp_gemm")
     LAUNCHES[f"mp_gemm/{site}"] += 1
@@ -462,13 +491,15 @@ def stack_reference(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
 
 def vjp_through(fn, inputs, needs, cotangent, *args):
     """Cotangents of ``fn(*inputs, *args)`` for the inputs flagged in
-    ``needs``, recomputed in float32 from the saved inputs and cast back to
-    each input's type (None where no gradient is asked for)."""
+    ``needs``, recomputed from the saved inputs in their own types (PyTorch's
+    promotion; on bf16 inputs the recompute runs in bf16, as ``jax.vjp`` of
+    the Pallas package's ``_reference`` does) and returned in each input's
+    type (None where no gradient is asked for)."""
     with torch.enable_grad():
-        xs = [t.detach().float().requires_grad_(need) for t, need in zip(inputs, needs)]
+        xs = [t.detach().requires_grad_(need) for t, need in zip(inputs, needs)]
         out = fn(*xs, *args)
         wanted = [x for x in xs if x.requires_grad]
-        grads = iter(torch.autograd.grad(out, wanted, cotangent.float()) if wanted else ())
+        grads = iter(torch.autograd.grad(out, wanted, cotangent.to(out.dtype)) if wanted else ())
     return [next(grads).to(t.dtype) if need else None for t, need in zip(inputs, needs)]
 
 

@@ -127,7 +127,7 @@ class _MLPBranch(torch.autograd.Function):
 
 def fused_mlp_branch(x, shift, scale, gate, gain, w1, w2):
     """The MLP half-block (module docstring); its gradient recomputes
-    through :func:`mlp_reference` in float32."""
+    through :func:`mlp_reference` in the inputs' types."""
     inputs = (x, shift, scale, gate, gain, w1, w2)
     if not needs_grad(*inputs):
         return mlp_fwd(*inputs)

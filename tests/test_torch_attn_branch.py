@@ -244,8 +244,10 @@ def _block_args(seed, depth=None, n=3, t=16, d=64, hidden=256):
         return rng.normal(size=s).astype(np.float32)
 
     def w(*s):
+        # float32, as JAX (no x64) reads them: the VJP recomputes in the
+        # inputs' own types
         m = f(*lead, *s)
-        return m * np.sqrt(s[-1]) / (np.linalg.norm(m, axis=-1, keepdims=True) + 1e-4)
+        return (m * np.sqrt(s[-1]) / (np.linalg.norm(m, axis=-1, keepdims=True) + 1e-4)).astype(np.float32)
 
     gains = rng.uniform(0.1, 0.9, size=lead + (2,)).astype(np.float32)
     return [f(n, t, d), f(n, d), gains, w(6 * d, d), w(3 * d, d), w(d, d), w(hidden, d), w(d, hidden)]

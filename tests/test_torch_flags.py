@@ -29,7 +29,15 @@ from mapdit_tpu.training import warmup_flat_invsqrt as jax_schedule
 from mapdit_tpu.training.data import SyntheticLatentDataset as JaxSyntheticLatentDataset
 from mapdit_tpu_torch.diffusion import create_diffusion
 from mapdit_tpu_torch.models import DiT, build_config, init_model
-from mapdit_tpu_torch.models.blocks import kernel_policy, modulation_dims, use_attn_halfkernel, use_fused_mlp, use_megakernel
+from mapdit_tpu_torch.models.blocks import (
+    kernel_policy,
+    modulation_dims,
+    resolve_block_kernel_tp,
+    stack_auto_ok,
+    use_attn_halfkernel,
+    use_fused_mlp,
+    use_megakernel,
+)
 from mapdit_tpu_torch.models.dit import project_weights
 from mapdit_tpu_torch.ops import mp
 from mapdit_tpu_torch.runtime import build_sample_fn
@@ -186,6 +194,37 @@ def test_policy_takes_the_kernels_for_their_family_only():
     with pytest.raises(ValueError, match="mega_stack"):
         build_sample_fn(cfg.replace(modulation="rotation", block_kernel="mega_stack", fold_weights=False), {},
                         create_diffusion("2", device="cpu"), device="cpu")
+
+
+@pytest.mark.parametrize(
+    "model, input_size, want",
+    [
+        ("DiT-S/2", 16, "mega"),
+        ("DiT-B/2", 16, "mega"),
+        ("DiT-L/2", 16, "mega"),
+        ("DiT-XL/2", 16, "mega"),
+        ("DiT-XL/2", 32, "off"),  # T = 256, past the kernels' T <= 64
+    ],
+)
+def test_auto_takes_the_fastest_measured_path(model, input_size, want):
+    """What ``auto`` resolves to for folded bf16 programs on CUDA (a
+    torch.device("cuda") needs no card): the whole-block kernels at every
+    registry size at T = 64, promoted to ``mega_stack`` with a batch hint,
+    and the ``mega_tp`` island on a model axis of 2 -- the fastest paths
+    measured on the H100 at S/2, B/2 and XL/2 (PERF.md); never the attention
+    half-block. Float32 and the CPU stay on the plain path."""
+    cfg = build_config(model, in_channels=4, input_size=input_size, num_classes=1000, compute_dtype="bfloat16",
+                       fold_weights=True, block_kernel="auto")
+    cuda, t = torch.device("cuda"), cfg.num_patches
+    assert kernel_policy(cfg, t, cuda) == want
+    assert use_megakernel(cfg, t, cuda) == (want == "mega")
+    assert not use_attn_halfkernel(cfg)
+    assert stack_auto_ok(cfg, 32, cuda) == (want == "mega") and not stack_auto_ok(cfg, None, cuda)
+    assert resolve_block_kernel_tp(cfg, True, 2, cuda) == {"mega": "mega_tp", "off": "off"}[want]
+    for other, device in ((cfg.replace(compute_dtype="float32"), cuda), (cfg, torch.device("cpu"))):
+        assert kernel_policy(other, t, device) == "off"
+        assert not stack_auto_ok(other, 32, device)
+        assert resolve_block_kernel_tp(other, True, 2, device) == "off"
 
 
 # ---------------------------------------------------------------------------
