@@ -62,13 +62,16 @@ fused_attention and fused_mlp_branch are held to autograd of the float32
 reference (GRAD_TOL) and, bit for bit, to autograd of the reference they
 recompute in the inputs' types. Phase 3 also holds dw_gemm (the S/2 and B/2 training shapes and a ragged M,
 the same bits on two runs) and attn_bwd with the dW switch on (seven
-cotangents, no f32 matmul left), and fused_attention (B/2 sampling and training shapes on
-the model's strided views, the XL head width 72, T=256, f32 without the
-cosine normalisation at logits past 88) and fused_mlp_branch (N=64 and 256)
-and their gradients against their plain versions, and the three
-tensor-parallel partial kernels (attn_tp_partial, block_tp_attn,
-mlp_tp_partial) at the DiT-XL/2 shard shapes of tp=2 and tp=4 (8 rows x 64
-tokens).
+cotangents, no f32 matmul left), and fused_attention at FUSED_SHAPES (B/2
+sampling and training shapes on the model's strided views, the XL head
+width 72, T=256, without the cosine normalisation at logits past 88 in f32
+and bf16, the ragged T=16 and T=4) and fused_mlp_branch (N=64 and 256) and their gradients against
+their plain versions, and the three tensor-parallel partial kernels
+(attn_tp_partial, block_tp_attn, mlp_tp_partial) at the DiT-XL/2 shard
+shapes of tp=2 and tp=4 (8 rows x 64 tokens); last, cosine_attention at
+COSINE_SHAPES (DiT-XL/2 heads of 72, its tensor-parallel shards, an odd N,
+T=256 in both modes, the ragged T=16 and T=4). The attention rows are device times of CUDA-graph
+replays.
 Weights are random, drawn from a seed. Needs no network and one card.
 """
 
@@ -364,6 +367,153 @@ def mp_gemm_rows(torch, k, gen, dev, names) -> dict:
     return rows
 
 
+# The attention kernels at phase 3's shapes. A name without ":" is a report
+# row (the kernels line); the others are checked and timed beside it.
+# cosine_attention: name -> (N, T, heads, hd, residual mode). The S/2
+# sampling call (64 rows), the S/2 training residual mode (256 rows; drawn
+# from the backward's own qkv in phase 3), DiT-XL/2 on one card (8 rows, 16
+# heads of 72) and its tensor-parallel shards (8 and 4 local heads), an odd
+# N, T=256 (input size 32) in both modes, and the ragged tiles of input size
+# 16: T=16 (patch 4) and T=4 at hd 72 (DiT-XL/8), residual mode.
+COSINE_SHAPES = {
+    "cosine_attention": (64, 64, 6, 64, False),
+    "cosine_attention/residual": (256, 64, 6, 64, True),
+    "cosine_attention:xl": (8, 64, 16, 72, False),
+    "cosine_attention:tp2": (8, 64, 8, 72, False),
+    "cosine_attention:tp4": (8, 64, 4, 72, False),
+    "cosine_attention:n3": (3, 64, 6, 64, False),
+    "cosine_attention:t256": (8, 256, 6, 64, False),
+    "cosine_attention/residual:t256": (8, 256, 6, 64, True),
+    "cosine_attention:t16": (8, 16, 6, 64, False),
+    "cosine_attention/residual:t4": (8, 4, 16, 72, True),
+}
+# fused_attention: name -> ((B, H, T, D'), type, cosine, input scale, atol,
+# rtol). The B/2 sampling (64) and training (256) calls on the model's
+# strided views, then the XL head width, T=256, no cosine, logits past 88
+# (the row maximum at work) in f32 and bf16, f32 with cosine, and the
+# ragged tiles of T=16 and T=4 (hd 72). bf16:
+# 1e-2 relative is ~2.5 bf16 ulps of the output; p and the normalised rows
+# can each round to the neighbouring bf16. f32: sums in another order;
+# logits of a few hundred carry ~1e-5 of absolute error into the exponent.
+# The bf16 case scales its inputs by 2 (logits to ~180): at 6 they reach
+# ~1600, where the order of the f32 sums alone moves a logit by ~1e-3 and a
+# near-tied p across a bf16 rounding boundary (PERF.md).
+FUSED_SHAPES = {
+    "fused_attention": ((64, 12, 64, 64), "bf16", True, 1.0, 1e-2, 1e-2),
+    "fused_attention/train": ((256, 12, 64, 64), "bf16", True, 1.0, 1e-2, 1e-2),
+    "fused_attention:xl-head-72": ((64, 16, 64, 72), "bf16", True, 1.0, 1e-2, 1e-2),
+    "fused_attention:t256": ((8, 12, 256, 64), "bf16", True, 1.0, 1e-2, 1e-2),
+    "fused_attention:bf16-no-cosine": ((64, 12, 64, 64), "bf16", False, 1.0, 1e-2, 1e-2),
+    "fused_attention:f32-no-cosine-logits>88": ((4, 4, 64, 32), "f32", False, 6.0, 1e-4, 1e-3),
+    "fused_attention:f32-cosine": ((4, 4, 64, 32), "f32", True, 1.0, 1e-5, 1e-4),
+    "fused_attention:bf16-no-cosine-logits>88": ((64, 12, 64, 64), "bf16", False, 2.0, 1e-2, 1e-2),
+    "fused_attention:t16": ((8, 12, 16, 64), "bf16", True, 1.0, 1e-2, 1e-2),
+    "fused_attention:t4-head-72": ((8, 16, 4, 72), "bf16", True, 1.0, 1e-2, 1e-2),
+}
+
+
+def cosine_case(torch, F, gen, dev, name, qkv=None):
+    """One COSINE_SHAPES entry on f32 qkv drawn from ``gen`` (or the given
+    one): the wrapper and plain calls (bf16 out; residual mode writes p),
+    FLOPs, bytes (qkv read once, the output and p written once) and the SDPA
+    yardstick on pre-normalised bf16 q, k, v. ``check(got, got_p)`` holds an
+    output (and p) to the plain version: 1e-2 + 1e-2 relative (~2.5 bf16
+    ulps), p 1e-3 + 1e-2 relative (f32, exp in another form)."""
+    import types
+
+    from mapdit_tpu_torch.ops.cuda import dit_block as k
+    from mapdit_tpu_torch.ops.mp import normalize
+
+    n, t, heads, hd, residual = COSINE_SHAPES[name]
+    d, bf = heads * hd, torch.bfloat16
+    if qkv is None:
+        qkv = torch.randn(n * t, 3 * d, generator=gen, device=dev)
+    probs, probs_p = ((torch.empty(n, heads, t, t, device=dev) for _ in range(2)) if residual else (None, None))
+    q4, k4, v4 = qkv.reshape(n, t, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    qn, kn, vb = normalize(q4).to(bf), normalize(k4).to(bf), v4.to(bf)
+
+    def check(got, got_p=None):
+        err = compare(torch, got, k.cosine_attention_plain(qkv, t, heads, bf, normalize_first=residual, probs=probs_p),
+                      1e-2, 1e-2, name)
+        if residual:
+            err = max(err, compare(torch, got_p, probs_p, 1e-3, 1e-2, name + ":p"))
+        return err
+
+    p_bytes = n * heads * t * t * 4 if residual else 0
+    return types.SimpleNamespace(
+        qkv=qkv, probs=probs, shape=(n, t, heads, hd), residual=residual, check=check, sdpa_operands=(qn, kn, vb),
+        run=lambda: k.cosine_attention(qkv, t, heads, bf, normalize_first=residual, probs=probs),
+        plain=lambda: k.cosine_attention_plain(qkv, t, heads, bf, normalize_first=residual, probs=probs_p),
+        library=lambda: F.scaled_dot_product_attention(qn, kn, vb, scale=1 / math.sqrt(hd)),
+        flops=4 * n * heads * t * t * hd, nbytes=n * t * 3 * d * 4 + n * t * d * 2 + p_bytes,
+    )
+
+
+def fused_case(torch, F, gen, dev, name):
+    """One FUSED_SHAPES entry on q, k, v drawn from ``gen`` as the model
+    hands them in (transposed views of one (N, T, 3D) qkv product, no copy):
+    the wrapper and plain calls, FLOPs, bytes and the SDPA yardstick (on
+    pre-normalised q, k under cosine). ``check(got)`` holds an output to the
+    plain version at the entry's tolerance; a case with scaled inputs first
+    shows that its logits pass 88."""
+    import types
+
+    from mapdit_tpu_torch.ops.cuda import attention as at
+    from mapdit_tpu_torch.ops.mp import normalize
+
+    (n, h, t, hd), dtype, cosine, scale_in, atol, rtol = FUSED_SHAPES[name]
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype]
+    qkv = (torch.randn(n, t, 3 * h * hd, generator=gen, device=dev) * scale_in).to(dtype)
+    q, k_, v = (z.reshape(n, t, h, hd).transpose(1, 2) for z in qkv.split(h * hd, dim=-1))
+    sc = 1.0 if scale_in != 1.0 else 1 / math.sqrt(hd)
+    qn, kn = (normalize(q.float()).to(dtype), normalize(k_.float()).to(dtype)) if cosine else (q, k_)
+    qn, kn, vc = qn.contiguous(), kn.contiguous(), v.contiguous()
+
+    def check(got):
+        if scale_in != 1.0:
+            top = float((q.float() @ k_.float().transpose(-1, -2)).abs().max()) * sc
+            phase("check", what=name, max_abs_logit=f"{top:.1f}")
+            if top <= 88.0:
+                raise AssertionError(f"{name}: logits stay under 88, the case does not test the row maximum")
+        return compare(torch, got, at.fused_attention_plain(q, k_, v, sc, cosine), atol, rtol, name)
+
+    return types.SimpleNamespace(
+        q=q, k=k_, v=v, scale=sc, cosine=cosine, shape=(n, h, t, hd), check=check,
+        run=lambda: at.fused_attention(q, k_, v, sc, cosine),
+        plain=lambda: at.fused_attention_plain(q, k_, v, sc, cosine),
+        library=lambda: F.scaled_dot_product_attention(qn, kn, vc, scale=sc),
+        flops=4 * n * h * t * t * hd, nbytes=4 * n * h * t * hd * q.element_size(),
+    )
+
+
+def attention_row(torch, case, name, source, replaces) -> dict:
+    """A case's report row: device ms of the wrapper, the plain version and
+    the SDPA yardstick from CUDA-graph replays, the bound, and the wrapper's
+    host ms printed beside."""
+    b, by = bound_ms(case.flops, case.nbytes)
+    row = dict(source=source, replaces=replaces, ms=graph_ms(torch, case.run), plain_ms=graph_ms(torch, case.plain),
+               bound_ms=b, bound_by=by, library_ms=graph_ms(torch, case.library))
+    phase("time", kernel=name, shape="x".join(map(str, case.shape)), ms=f"{row['ms']:.4f}",
+          plain_ms=f"{row['plain_ms']:.4f}", bound_ms=f"{b:.4f}", library_ms=f"{row['library_ms']:.4f}",
+          host_ms=f"{host_ms(torch, case.run):.4f}")
+    return row
+
+
+COSINE_SRC = "mapdit_tpu_torch/csrc/cosine_attention.cu"
+FUSED_SRC = "mapdit_tpu_torch/csrc/fused_attention.cu"
+FUSED_LINE = "mapdit_tpu/ops/pallas/attention.py:125"
+
+
+def cosine_shape_checks(torch, F, gen, dev) -> None:
+    """Phase 3, last part: cosine_attention at its COSINE_SHAPES entries
+    beside the report rows, checked and timed."""
+    for name in COSINE_SHAPES:
+        if ":" in name:
+            case = cosine_case(torch, F, gen, dev, name)
+            case.check(case.run(), case.probs)
+            attention_row(torch, case, name, COSINE_SRC, None)
+
+
 # The kernel paths' gradients against autograd of the float32 reference on
 # the same bf16 inputs. A bf16 VJP (the JAX package's and the port's: both
 # recompute in the inputs' types) lands ~1e-2 relative L2 from it: JAX's
@@ -530,20 +680,11 @@ def train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x_s, a_s, gains_s, w0)
             library=lambda a_=a_, w_=w_: torch.matmul(a_, w_))
 
     # residual-mode attention, on identical inputs
-    probs, probs_p = (torch.empty(n, heads, t, t, device=dev) for _ in range(2))
-    err = max(
-        compare(torch, k.cosine_attention(qkv, t, heads, bf, normalize_first=True, probs=probs),
-                k.cosine_attention_plain(qkv, t, heads, bf, normalize_first=True, probs=probs_p), 1e-2, 1e-2,
-                "cosine_attention/residual"),
-        compare(torch, probs, probs_p, 1e-3, 1e-2, "cosine_attention/residual:p"),
-    )
-    q4, k4, v4 = qkv.reshape(n, t, 3, heads, hd).permute(2, 0, 3, 1, 4)
-    qn, kn, vb = normalize(q4).to(bf), normalize(k4).to(bf), v4.to(bf)
-    row("cosine_attention/residual", "mapdit_tpu_torch/csrc/cosine_attention.cu", 1083, err,
-        lambda: k.cosine_attention(qkv, t, heads, bf, normalize_first=True, probs=probs),
-        lambda: k.cosine_attention_plain(qkv, t, heads, bf, normalize_first=True, probs=probs_p),
-        attn_flops, mt * 3 * d * 4 + mt * d * 2 + n * heads * t * t * 4,
-        library=lambda: F.scaled_dot_product_attention(qn, kn, vb, scale=1 / math.sqrt(hd)))
+    case = cosine_case(torch, F, gen, dev, "cosine_attention/residual", qkv=qkv)
+    err = case.check(case.run(), case.probs)
+    out_rows["cosine_attention/residual"] = dict(
+        attention_row(torch, case, "cosine_attention/residual", COSINE_SRC, f"{PALLAS}:1083"), max_abs_err=err,
+        path="mega_attn+residual")
 
     # the backward's three kernels, on identical inputs
     got, want = ab.gate_residual_bwd(dy, out, rows_, 2 * d, t, bf), ab.gate_residual_bwd_plain(
@@ -556,7 +697,7 @@ def train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x_s, a_s, gains_s, w0)
 
     err = compare_rel(torch, ab.attention_bwd(qkv, dattn, t, heads, bf),
                       ab.attention_bwd_plain(qkv, dattn, t, heads, bf), 1e-2, "attn_bwd/attention")
-    qs, ks, vs = (z.detach().requires_grad_() for z in (qn, kn, vb))
+    qs, ks, vs = (z.detach().requires_grad_() for z in case.sdpa_operands)
     do4 = dattn.reshape(n, t, heads, hd).transpose(1, 2).to(bf)
 
     def sdpa_fwd_bwd():
@@ -824,11 +965,10 @@ def s2_train_phase(torch, dev, cfg) -> dict:
 
 
 def standalone_kernel_rows(torch, F, gen, dev) -> dict:
-    """Phase 3, third part: fused_attention and fused_mlp_branch against
-    their plain versions at the DiT-B/2 shapes (64 CFG rows and TRAIN_BATCH
-    rows x 64 tokens, D=768, 12 heads, H=3072, bf16), fused_attention also
-    at the XL head width, at T=256 and in f32 without the cosine
-    normalisation, and both gradients against autograd through the plain
+    """Phase 3, third part: fused_attention at its FUSED_SHAPES entries and
+    fused_mlp_branch at the DiT-B/2 shapes (64 CFG rows and TRAIN_BATCH
+    rows x 64 tokens, D=768, 12 heads, H=3072, bf16) against their plain
+    versions, and both gradients against autograd through the plain
     versions. Returns the report rows (each names the run and the counter
     whose launch count it reports)."""
     from mapdit_tpu_torch.ops.cuda import attention as at
@@ -849,57 +989,22 @@ def standalone_kernel_rows(torch, F, gen, dev) -> dict:
         qkv = (randn(n, t_, 3 * h_ * hd_) * scale).to(dtype)
         return tuple(z.reshape(n, t_, h_, hd_).transpose(1, 2) for z in qkv.split(h_ * hd_, dim=-1))
 
-    def sdpa(q, k, v, sc, cosine):
-        qn, kn = (normalize(q.float()).to(q.dtype), normalize(k.float()).to(k.dtype)) if cosine else (q, k)
-        qn, kn, vc = qn.contiguous(), kn.contiguous(), v.contiguous()
-        return lambda: F.scaled_dot_product_attention(qn, kn, vc, scale=sc)
-
-    attn_src = "mapdit_tpu_torch/csrc/fused_attention.cu"
-    attn_line = "mapdit_tpu/ops/pallas/attention.py:125"
-    # bf16: 1e-2 relative is ~2.5 bf16 ulps of the output; p and the
-    # normalised rows can each round to the neighbouring bf16
-    for name, n, count_from in (("fused_attention", 2 * BATCH, ("P1/chain", "fused_attention")),
-                                ("fused_attention/train", TRAIN_BATCH, ("P2/train", "fused_attention"))):
-        q, k_, v = model_views(n, t, heads, hd)
-        sc = 1 / math.sqrt(hd)
-        got = at.fused_attention(q, k_, v, sc, True)
-        if got.is_cuda and not got.transpose(1, 2).is_contiguous():
+    count_from = {"fused_attention": ("P1/chain", "fused_attention"),
+                  "fused_attention/train": ("P2/train", "fused_attention")}
+    for name in FUSED_SHAPES:
+        case = fused_case(torch, F, gen, dev, name)
+        got = case.run()
+        err = case.check(got)
+        row = attention_row(torch, case, name, FUSED_SRC, FUSED_LINE)
+        if ":" in name:  # off the main path: checked and timed, not in the kernels line
+            continue
+        if not got.transpose(1, 2).is_contiguous():
             raise AssertionError("fused_attention's output does not reshape to (N, T, D) as a view")
-        err = compare(torch, got, at.fused_attention_plain(q, k_, v, sc, True), 1e-2, 1e-2, name)
-        b, by = bound_ms(4 * n * heads * t * t * hd, 4 * n * heads * t * hd * 2)
-        out_rows[name] = dict(
-            source=attn_src, replaces=attn_line, max_abs_err=err,
-            ms=time_ms(torch, lambda: at.fused_attention(q, k_, v, sc, True)),
-            plain_ms=time_ms(torch, lambda: at.fused_attention_plain(q, k_, v, sc, True)),
-            bound_ms=b, bound_by=by, library_ms=time_ms(torch, sdpa(q, k_, v, sc, True)), count_from=count_from,
-        )
-        qc, kc, vc = (z.contiguous() for z in (q, k_, v))
-        compare(torch, at.fused_attention(qc, kc, vc, sc, True), got, 0.0, 0.0, name + ":contiguous==strided")
-        phase("time", kernel=name + ":contiguous", ms=f"{time_ms(torch, lambda: at.fused_attention(qc, kc, vc, sc, True)):.4f}")
-
-    # shapes off the main path: checked and timed, not in the kernels line
-    for what, (n, h_, t_, hd_), dtype, cosine, scale_in, atol, rtol in (
-        ("fused_attention:xl-head-72", (64, 16, 64, 72), bf, True, 1.0, 1e-2, 1e-2),
-        ("fused_attention:t256", (8, 12, 256, 64), bf, True, 1.0, 1e-2, 1e-2),
-        ("fused_attention:bf16-no-cosine", (64, 12, 64, 64), bf, False, 1.0, 1e-2, 1e-2),
-        # f32 sums in another order; logits of a few hundred carry ~1e-5 of
-        # absolute error into the exponent
-        ("fused_attention:f32-no-cosine-logits>88", (4, 4, 64, 32), f32, False, 6.0, 1e-4, 1e-3),
-        ("fused_attention:f32-cosine", (4, 4, 64, 32), f32, True, 1.0, 1e-5, 1e-4),
-    ):
-        q, k_, v = model_views(n, t_, h_, hd_, dtype=dtype, scale=scale_in)
-        sc = 1.0 if scale_in != 1.0 else 1 / math.sqrt(hd_)
-        if scale_in != 1.0:
-            top = float((q.float() @ k_.float().transpose(-1, -2)).abs().max()) * sc
-            phase("check", what=what, max_abs_logit=f"{top:.1f}")
-            if top <= 88.0:
-                raise AssertionError(f"{what}: logits stay under 88, the case does not test the row maximum")
-        compare(torch, at.fused_attention(q, k_, v, sc, cosine), at.fused_attention_plain(q, k_, v, sc, cosine),
-                atol, rtol, what)
-        phase("time", kernel=what, query_tile=at.query_tile(t_, hd_), smem_bytes=at.smem_bytes(t_, hd_, at.query_tile(t_, hd_)),
-              ms=f"{time_ms(torch, lambda: at.fused_attention(q, k_, v, sc, cosine)):.4f}",
-              plain_ms=f"{time_ms(torch, lambda: at.fused_attention_plain(q, k_, v, sc, cosine)):.4f}",
-              library_ms=f"{time_ms(torch, sdpa(q, k_, v, sc, cosine)):.4f}")
+        out_rows[name] = dict(row, max_abs_err=err, count_from=count_from[name])
+        qc, kc, vc = (z.contiguous() for z in (case.q, case.k, case.v))
+        compare(torch, at.fused_attention(qc, kc, vc, case.scale, True), got, 0.0, 0.0, name + ":contiguous==strided")
+        phase("time", kernel=name + ":contiguous",
+              ms=f"{graph_ms(torch, lambda: at.fused_attention(qc, kc, vc, case.scale, True)):.4f}")
 
     # fused_attention's gradient: kernel forward, backward through the plain
     # path, against autograd through the plain version in f32
@@ -1542,19 +1647,10 @@ def main() -> int:
     mp_gemm_rows(torch, k, gen, dev, [name for name in GEMM_SHAPES if name not in gemm_cases])
     elapsed("3.mp_gemm")
 
-    qkv = randn(n * t, 3 * d)
-    got = k.cosine_attention(qkv, t, heads, bf)
-    err = compare(torch, got, k.cosine_attention_plain(qkv, t, heads, bf), 1e-2, 1e-2, "cosine_attention")
-    q4, k4, v4 = qkv.reshape(n, t, 3, heads, hd).permute(2, 0, 3, 1, 4)
-    qn, kn, vb = normalize(q4).to(bf), normalize(k4).to(bf), v4.to(bf)
-    b, by = bound_ms(4 * n * heads * t * t * hd, n * t * 3 * d * 4 + n * t * d * 2)
+    case = cosine_case(torch, F, gen, dev, "cosine_attention")
+    err = case.check(case.run())
     rows["cosine_attention"] = dict(
-        source="mapdit_tpu_torch/csrc/cosine_attention.cu", replaces=f"{PALLAS}:129", max_abs_err=err,
-        ms=time_ms(torch, lambda: k.cosine_attention(qkv, t, heads, bf)),
-        plain_ms=time_ms(torch, lambda: k.cosine_attention_plain(qkv, t, heads, bf)),
-        bound_ms=b, bound_by=by,
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(qn, kn, vb, scale=1 / math.sqrt(hd))),
-    )
+        attention_row(torch, case, "cosine_attention", COSINE_SRC, f"{PALLAS}:129"), max_abs_err=err)
 
     block_flops = 2 * n * d * 6 * d + 2 * n * t * d * (3 * d + d + 2 * hid) + 4 * n * heads * t * t * hd
     weight_bytes = (10 * d * d + 2 * d * hid) * 2
@@ -1585,6 +1681,8 @@ def main() -> int:
     elapsed("3.standalone")
     rows.update(tp_kernel_rows(torch, F, gen, dev))
     elapsed("3.tp")
+    cosine_shape_checks(torch, F, gen, dev)
+    elapsed("3.attention")
     for name, row in rows.items():
         phase("time", kernel=name, ms=f"{row['ms']:.4f}", plain_ms=f"{row['plain_ms']:.4f}",
               bound_ms=f"{row['bound_ms']:.4f}", bound_by=row["bound_by"], library_ms=row["library_ms"])

@@ -1,152 +1,287 @@
-// cosine_attention: the attention core of the DiT block, one block of
-// threads per (sample, head).
+// cosine_attention: the attention core of the DiT block on the tensor cores.
 //
-// Replaces mapdit_tpu/ops/pallas/dit_block.py:_attention_core with
-// _cosine_scales, the body shared by the whole-block, whole-stack and
-// attention half-block Pallas kernels. Input is the flat f32 qkv product
-// (N*T, 3D) with heads as contiguous column slices (no head relayout);
-// output is the pre-projection attention (N*T, D), bf16 or f32.
-//   * per-row cosine scales sqrt(hd) / (||row|| + 1e-4), from the f32 rows;
-//   * logits = (bf16(q) . bf16(k)) / sqrt(hd) * qs_i * ks_j (f32 sums);
-//   * max-free softmax exp(l - sqrt(hd)): cosine logits are bounded by
-//     sqrt(hd), so no row max is needed and no exponent overflows;
-//   * o = (bf16(exp) . bf16(v)) * (1 / row sum), the division after P.V.
-// Residual mode (normalize_first = 1) replaces _attn_res_kernel's attention
-// (dit_block.py:_attn_res_fwd_impl, the training forward for
-// attn_bwd="residual", and the recompute of the fused backward): the
-// probabilities p = exp * (1 / row sum) are formed BEFORE P.V, written as
-// f32 (N, heads, T, T) when p_out is given, and rounded to bf16 for
-// o = bf16(p) . bf16(v). The two modes round at different places, as the
-// two Pallas kernels do.
-// Products of bf16 values are exact in f32, so the scalar f32 FMAs here give
-// the bf16-operand, f32-accumulate products of the Pallas kernel up to the
-// order of the sums.
+// Replaces mapdit_tpu/ops/pallas/dit_block.py:129 _attention_core with
+// _cosine_scales (:49), the body shared by the whole-block, whole-stack and
+// attention half-block Pallas kernels, and, in residual mode, the attention
+// of _attn_res_kernel (:1083-1124, under _attn_res_fwd_impl :1152). Input is
+// the flat f32 qkv product (N*T, 3D) with heads as contiguous column slices
+// (no head relayout); output is the pre-projection attention (N*T, D) in
+// bf16. Roundings, those of the Pallas bodies:
+//   * per-row cosine scales qs, ks = sqrt(hd) / (||row|| + 1e-4), from the
+//     f32 rows;
+//   * logits = (bf16(q) . bf16(k)) summed in f32, * 1/sqrt(hd) * qs_i * ks_j;
+//   * max-free softmax ex = exp(l - sqrt(hd)): cosine logits are bounded by
+//     sqrt(hd), so no row max is needed and no exponent overflows; exp is
+//     ex2.approx with log2(e) folded into the argument (exp2_approx);
+//   * normal mode: o = (bf16(ex) . bf16(v)) * (1 / sum ex), the division
+//     after P.V;
+//   * residual mode (normalize_first = 1): p = ex * (1 / sum ex) in f32,
+//     written as (N, heads, T, T) when p_out is given, then
+//     o = bf16(p) . bf16(v).
+// The two modes round at different places, as the two Pallas kernels do.
+// There is no f32 output: the products are bf16 on the tensor cores, so the
+// wrapper refuses out_dtype=float32 on the card (the plain version takes it
+// on the CPU, where nothing is rounded).
 //
-// Bound on the H100: at T = 64, hd = 64 a block moves 3*T*hd f32 in and
-// T*hd out and does 4*T*T*hd flops, ~10 flops per byte: memory-bound. q, k,
-// v (bf16, rows padded by 2 elements against bank conflicts) and the f32
-// T x T exponentials all stay in shared memory, so qkv is read once and the
-// output written once. The products run on the f32 pipes, not the tensor
-// cores; that is the simple first form (ROADMAP B.1).
+// Bound on the H100: bytes. At T = 64, hd = 64 a (sample, head) reads
+// 3*T*hd f32 and writes T*hd bf16 for 4*T*T*hd flops, ~10 flops a byte
+// against the ~295 the tensor cores need; residual mode adds T*T f32 of p.
+//
+// Design. One block of 4 warps per (head, sample, tile of 64 query rows);
+// each warp owns 16 query rows (attention_tiles.cuh). Every byte of qkv a
+// block needs is read once with 16-byte loads, four lanes a row, into
+// registers (fetch); the Q tile's and the first K and V tiles' loads are
+// all in flight before any is used. The pass that stores a row in shared
+// memory as bf16 (commit) also takes its f32 sum of squares (quad
+// shuffles), so the norms cost no second read. Keys run in tiles of 64, so
+// T is not limited by shared memory (34 KB at hd = 72):
+//   * normal mode adds O and sum ex over the key tiles (max-free: nothing
+//     is rescaled, the roundings stay);
+//   * residual mode needs the row sums before p, so for T > 64 a first
+//     sweep takes them and a second recomputes the logits, forms p, writes
+//     it and multiplies; at T <= 64 one sweep does both.
+// Logits and p stay in registers (16 rows x 64 keys a warp); p is repacked
+// from the accumulator fragments as the A operand of P.V; ragged 16-row
+// and 64-key tiles are masked (zero rows, ex = 0). The output is staged in
+// the warp's own Q rows and written with 16-byte stores; p is written from
+// the fragments as 8-byte stores, each quad filling a 32-byte sector.
+// Grid: (heads, N, ceil(T / 64)); at S/2 that is 384 blocks of 128 threads,
+// several resident on each SM, whose loads overlap each other's products.
+// Forms measured beside this one, each in one call with it
+// (tools/bench_attention.py on a copy of the tree; the variants are not
+// kept; PERF.md; NVIDIA H100 80GB HBM3, 700 W; ms at S/2 sampling /
+// residual N=256 / XL head):
+//   * the f32-pipe first form (one block per (sample, head), T x T
+//     exponentials in shared memory): 0.0822 / 0.3005 / 0.0520 ms;
+//   * Q committed before the K and V loads are issued, exp2f: 0.0075 /
+//     0.0443 / 0.0064; with the loads overlapped: 0.0077 / 0.0440 / 0.0058;
+//   * the same capped at 128 registers (4 blocks an SM; spills): 0.0082 /
+//     0.0466 / 0.0075;
+//   * p staged in shared memory for 16-byte stores: residual 0.0448 against
+//     0.0443 for 8-byte stores from the fragments;
+//   * this form (loads overlapped, ex2.approx): 0.0069 / 0.0417 / 0.0048.
+// wgmma (m64nNk16, one warpgroup a 64-row tile) is not built: at S/2 this
+// form takes 0.0069 ms against a byte bound of 0.0066, so faster products
+// have at most 5% to win there.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "attention_tiles.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr float NORM_EPS = 1e-4f;
+using namespace attn_tiles;
 
-__host__ __device__ inline int row_stride(int hd) { return hd + 2; }
+// Rows [0, TILE) of one head slice of the f32 qkv, a thread's share held
+// in registers between the loads (fetch) and the bf16 tile (commit), so
+// that several tiles' loads are in flight at once.
+template <int HD>
+struct Rows {
+  static constexpr int C4 = HD / 4;         // float4 chunks of a row
+  static constexpr int PER = (C4 + 3) / 4;  // chunks a lane takes, four lanes a row
+  static constexpr int PASSES = TILE / (THREADS / 4);
+  float4 x[PASSES][PER];
+};
 
-__host__ inline size_t smem_bytes(int t, int hd) {
-  return 3 * (size_t)t * row_stride(hd) * sizeof(__nv_bfloat16) +
-         ((size_t)t * t + 3 * (size_t)t) * sizeof(float);
+// rows >= `rows` read as zeros
+template <int HD>
+__device__ __forceinline__ void fetch(Rows<HD>& f, const float* src, int64_t ld_src, int rows) {
+  using R = Rows<HD>;
+  const int sub = threadIdx.x & 3;
+#pragma unroll
+  for (int p = 0; p < R::PASSES; ++p) {
+    const int r = (threadIdx.x >> 2) + p * (THREADS / 4);
+    const float4* row = reinterpret_cast<const float4*>(src + (int64_t)r * ld_src);
+#pragma unroll
+    for (int j = 0; j < R::PER; ++j) {
+      const int c = sub + 4 * j;
+      f.x[p][j] = (r < rows && c < R::C4) ? __ldg(row + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
 }
 
-__global__ void __launch_bounds__(THREADS)
-    cosine_attention_kernel(const float* __restrict__ qkv, void* __restrict__ out, int out_bf16,
-                            float* __restrict__ p_out, int normalize_first, int t, int heads,
-                            int hd) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ld = row_stride(hd);
-  __nv_bfloat16* q = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* k = q + t * ld;
-  __nv_bfloat16* v = k + t * ld;
-  float* ex = reinterpret_cast<float*>(v + t * ld);
-  float* qs = ex + t * t;
-  float* ks = qs + t;
-  float* inv_sum = ks + t;
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int nwarps = THREADS / 32;
-  const int sample = blockIdx.y;
-  const int head = blockIdx.x;
-  const int d = heads * hd;
-  const float* base = qkv + (int64_t)sample * t * 3 * d + head * hd;
-
-  for (int i = tid; i < t * hd; i += THREADS) {
-    const int r = i / hd, c = i % hd;
-    const float* row = base + (int64_t)r * 3 * d;
-    q[r * ld + c] = __float2bfloat16(row[c]);
-    k[r * ld + c] = __float2bfloat16(row[d + c]);
-    v[r * ld + c] = __float2bfloat16(row[2 * d + c]);
+// the bf16 rows (pad columns zero) into `tile`; scale[r] = sqrt(hd) /
+// (||row|| + eps) from the f32 values, when scale is given
+template <int HD>
+__device__ __forceinline__ void commit(const Rows<HD>& f, __nv_bfloat16* tile, float* scale) {
+  using D = Dims<HD>;
+  using R = Rows<HD>;
+  const int sub = threadIdx.x & 3;
+  const float sqrt_hd = sqrtf((float)HD);
+#pragma unroll
+  for (int p = 0; p < R::PASSES; ++p) {
+    const int r = (threadIdx.x >> 2) + p * (THREADS / 4);
+    __nv_bfloat16* dst = tile + r * D::LD;
+    float ss = 0.f;
+#pragma unroll
+    for (int j = 0; j < R::PER; ++j) {
+      const int c = sub + 4 * j;
+      if (c < R::C4) {
+        const float4 v = f.x[p][j];
+        ss += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+        *reinterpret_cast<uint2*>(dst + 4 * c) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+      }
+    }
+    for (int c = HD + 4 * sub; c < D::KP; c += 16) *reinterpret_cast<uint2*>(dst + c) = make_uint2(0u, 0u);
+    ss = quad_sum(ss);
+    if (scale != nullptr && sub == 0) scale[r] = sqrt_hd / (sqrtf(ss) + NORM_EPS);
   }
-  // one warp per q or k row: the norm is taken on the f32 values
-  const float sqrt_hd = sqrtf((float)hd);
-  for (int r = warp; r < 2 * t; r += nwarps) {
-    const float* row = base + (int64_t)(r % t) * 3 * d + (r < t ? 0 : d);
-    float s = 0.f;
-    for (int c = lane; c < hd; c += 32) s += row[c] * row[c];
-    for (int off = 16; off > 0; off /= 2) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) (r < t ? qs : ks)[r % t] = sqrt_hd / (sqrtf(s) + NORM_EPS);
-  }
-  __syncthreads();
+}
 
+// ex = exp(l - sqrt(hd)) for the warp's rows against one key tile, in the
+// S fragment layout; keys >= `keys` give 0
+template <int HD>
+__device__ __forceinline__ void exp_tile(float (&s)[KEY_TILES][4], const __nv_bfloat16* sq,
+                                         const __nv_bfloat16* sk, const float* qsc, const float* ksc,
+                                         int keys, int warp, int lane) {
+  qk_tile<HD>(s, sq, sk, warp, lane);
+  const float sqrt_hd = sqrtf((float)HD);
   const float inv_hd = 1.f / sqrt_hd;
-  for (int i = tid; i < t * t; i += THREADS) {
-    const int r = i / t, c = i % t;
-    const __nv_bfloat16* qr = q + r * ld;
-    const __nv_bfloat16* kc = k + c * ld;
-    float acc = 0.f;
-    for (int j = 0; j < hd; ++j) acc += __bfloat162float(qr[j]) * __bfloat162float(kc[j]);
-    const float logit = acc * inv_hd * qs[r] * ks[c];
-    ex[i] = expf(logit - sqrt_hd);
-  }
-  __syncthreads();
-
-  for (int r = warp; r < t; r += nwarps) {
-    float s = 0.f;
-    for (int c = lane; c < t; c += 32) s += ex[r * t + c];
-    for (int off = 16; off > 0; off /= 2) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) inv_sum[r] = 1.f / s;
-  }
-  __syncthreads();
-
-  if (normalize_first) {
-    float* p_head = p_out ? p_out + ((int64_t)sample * heads + head) * t * t : nullptr;
-    for (int i = tid; i < t * t; i += THREADS) {
-      const float p = ex[i] * inv_sum[i / t];
-      ex[i] = p;
-      if (p_head) p_head[i] = p;
+  const int g = lane >> 2, c = lane & 3;
+  const float r0 = qsc[warp * 16 + g], r1 = qsc[warp * 16 + g + 8];
+#pragma unroll
+  for (int j = 0; j < KEY_TILES; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + 2 * c + (e & 1);
+      const float l = s[j][e] * inv_hd * (e < 2 ? r0 : r1) * ksc[col];
+      s[j][e] = col < keys ? exp2_approx((l - sqrt_hd) * LOG2E) : 0.f;
     }
+  }
+}
+
+template <int HD, bool RESIDUAL>
+__global__ void __launch_bounds__(THREADS)
+    cosine_attention_kernel(const float* __restrict__ qkv, __nv_bfloat16* __restrict__ out,
+                            float* __restrict__ p_out, int t, int heads) {
+  using D = Dims<HD>;
+  __shared__ __align__(16) __nv_bfloat16 sq[TILE * D::LD];
+  __shared__ __align__(16) __nv_bfloat16 sk[TILE * D::LD];
+  __shared__ __align__(16) __nv_bfloat16 sv[TILE * D::LD];
+  __shared__ float qsc[TILE], ksc[TILE];
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, c = lane & 3;
+  const int head = blockIdx.x, sample = blockIdx.y, q0 = blockIdx.z * TILE;
+  const int d = heads * HD;
+  const int64_t ld = 3 * (int64_t)d;
+  const float* base = qkv + (int64_t)sample * t * ld + head * HD;
+  const int rows = min(TILE, t - q0);
+  const bool active = warp * 16 < rows;
+  const int tiles = (t + TILE - 1) / TILE;
+
+  Rows<HD> fq, fk, fv;
+  fetch<HD>(fq, base + q0 * ld, ld, rows);
+
+  float s[KEY_TILES][4];
+  uint32_t pa[KEY_TILES / 2][4];
+  float o[D::NT][4];
+#pragma unroll
+  for (int j = 0; j < D::NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float sum0 = 0.f, sum1 = 0.f;
+
+  if (RESIDUAL && tiles > 1) {  // first sweep: the row sums
+    for (int kt = 0; kt < tiles; ++kt) {
+      fetch<HD>(fk, base + d + kt * TILE * ld, ld, min(TILE, t - kt * TILE));
+      __syncthreads();
+      if (kt == 0) commit<HD>(fq, sq, qsc);
+      commit<HD>(fk, sk, ksc);
+      __syncthreads();
+      if (active) {
+        exp_tile<HD>(s, sq, sk, qsc, ksc, t - kt * TILE, warp, lane);
+        add_row_sums(sum0, sum1, s);
+      }
+    }
+    sum0 = quad_sum(sum0);
+    sum1 = quad_sum(sum1);
+  }
+
+  float* p_rows = nullptr;
+  if (RESIDUAL && p_out != nullptr)
+    p_rows = p_out + ((int64_t)sample * heads + head) * t * t + (int64_t)(q0 + warp * 16 + g) * t;
+  for (int kt = 0; kt < tiles; ++kt) {
+    const int keys = t - kt * TILE;
+    fetch<HD>(fk, base + d + kt * TILE * ld, ld, min(TILE, keys));
+    fetch<HD>(fv, base + 2 * d + kt * TILE * ld, ld, min(TILE, keys));
     __syncthreads();
-  }
-
-  for (int i = tid; i < t * hd; i += THREADS) {
-    const int r = i / hd, c = i % hd;
-    const float* er = ex + r * t;
-    float acc = 0.f;
-    for (int j = 0; j < t; ++j)
-      acc += __bfloat162float(__float2bfloat16(er[j])) * __bfloat162float(v[j * ld + c]);
-    const float o = normalize_first ? acc : acc * inv_sum[r];
-    const int64_t idx = ((int64_t)sample * t + r) * d + head * hd + c;
-    if (out_bf16) {
-      static_cast<__nv_bfloat16*>(out)[idx] = __float2bfloat16(o);
+    if (kt == 0 && !(RESIDUAL && tiles > 1)) commit<HD>(fq, sq, qsc);
+    commit<HD>(fk, sk, ksc);
+    commit<HD>(fv, sv, nullptr);
+    __syncthreads();
+    if (!active) continue;
+    exp_tile<HD>(s, sq, sk, qsc, ksc, keys, warp, lane);
+    if (!RESIDUAL) {
+      add_row_sums(sum0, sum1, s);
     } else {
-      static_cast<float*>(out)[idx] = o;
+      if (tiles == 1) {
+        add_row_sums(sum0, sum1, s);
+        sum0 = quad_sum(sum0);
+        sum1 = quad_sum(sum1);
+      }
+      const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
+#pragma unroll
+      for (int j = 0; j < KEY_TILES; ++j) {
+        s[j][0] *= inv0;
+        s[j][1] *= inv0;
+        s[j][2] *= inv1;
+        s[j][3] *= inv1;
+      }
+      if (p_rows != nullptr) {
+        const int r0 = q0 + warp * 16 + g;
+#pragma unroll
+        for (int j = 0; j < KEY_TILES; ++j) {
+          const int col = kt * TILE + 8 * j + 2 * c;
+          if (col < t) {
+            if (r0 < t) *reinterpret_cast<float2*>(p_rows + col) = make_float2(s[j][0], s[j][1]);
+            if (r0 + 8 < t) *reinterpret_cast<float2*>(p_rows + 8 * (int64_t)t + col) = make_float2(s[j][2], s[j][3]);
+          }
+        }
+      }
     }
+    pack_p(pa, s);
+    pv_tile<HD>(o, pa, sv, lane);
   }
+  if (!active) return;
+  float f0 = 1.f, f1 = 1.f;
+  if (!RESIDUAL) {
+    f0 = 1.f / quad_sum(sum0);
+    f1 = 1.f / quad_sum(sum1);
+  }
+  store_rows<HD>(o, f0, f1, sq, out + ((int64_t)sample * t + q0) * d + head * HD, d, rows, warp, lane);
+}
+
+template <int HD>
+int launch(const float* qkv, __nv_bfloat16* out, float* p_out, int normalize_first, int n, int t, int heads,
+           cudaStream_t stream) {
+  dim3 grid(heads, n, (t + TILE - 1) / TILE);
+  if (normalize_first)
+    cosine_attention_kernel<HD, true><<<grid, THREADS, 0, stream>>>(qkv, out, p_out, t, heads);
+  else
+    cosine_attention_kernel<HD, false><<<grid, THREADS, 0, stream>>>(qkv, out, p_out, t, heads);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" size_t cosine_attention_smem_bytes(int t, int hd) { return smem_bytes(t, hd); }
-
-extern "C" int cosine_attention(const void* qkv, void* out, int out_bf16, void* p_out,
-                                int normalize_first, int n, int t, int heads, int hd,
-                                void* stream) {
-  const size_t smem = smem_bytes(t, hd);
-  cudaError_t err = cudaFuncSetAttribute(
-      cosine_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(heads, n);
-  cosine_attention_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(qkv), out, out_bf16, static_cast<float*>(p_out), normalize_first,
-      t, heads, hd);
-  return static_cast<int>(cudaGetLastError());
+// qkv: f32 (n*t, 3*heads*hd), 16-byte aligned; out: bf16 (n*t, heads*hd);
+// p_out: f32 (n, heads, t, t) or null (residual mode only). hd is 64 or 72
+// (every registry head width) and t is even.
+extern "C" int cosine_attention(const void* qkv, void* out, void* p_out, int normalize_first, int n, int t,
+                                int heads, int hd, void* stream) {
+  const float* q = static_cast<const float*>(qkv);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  float* p = static_cast<float*>(p_out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 64:
+      return launch<64>(q, o, p, normalize_first, n, t, heads, s);
+    case 72:
+      return launch<72>(q, o, p, normalize_first, n, t, heads, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" const char* cosine_attention_error_string(int code) {

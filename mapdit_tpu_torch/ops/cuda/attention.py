@@ -14,16 +14,20 @@ rounded to the input type, p to v's type, every sum in f32.
 The kernel addresses q, k, v and the output by their batch, head and token
 strides, so the model's transposed views of the split qkv product are read
 in place: the wrapper never copies an operand. It raises on a layout the
-kernel does not take (a last dimension that is not contiguous). The output
-is allocated in the operands' own order of dimensions: for q laid out
-(B, T, H, D') in memory it is a (B, H, T, D') view of a (B, T, H, D')
-buffer, so the caller's ``transpose(1, 2).reshape(B, T, D)`` is a view too.
+kernel does not take: a last dimension that is not contiguous, or, in bf16,
+a base or stride that is not 16-byte aligned (its 16-byte loads and
+stores; every registry width is aligned). The output is allocated in the
+operands' own order of dimensions: for q laid out (B, T, H, D') in memory
+it is a (B, H, T, D') view of a (B, T, H, D') buffer, so the caller's
+``transpose(1, 2).reshape(B, T, D)`` is a view too.
 
 Bound on the H100: memory (each operand read once, the output written
-once; 32 flops per byte at T = D' = 64 in bf16). K, V, the query tile and
-its logits live in shared memory; :func:`query_tile` picks the tile of
+once; 32 flops per byte at T = D' = 64 in bf16). bf16 runs on the tensor
+cores over key tiles of 64 at any T, for the head widths of
+``ATTENTION_HEAD_WIDTHS``; f32 runs on the f32 pipes with K, V, the query
+tile and its logits in shared memory: :func:`query_tile` picks the tile of
 query rows, and the wrapper raises with the byte count where even the
-smallest tile does not fit.
+smallest tile does not fit. :func:`check_shape` is the domain of both.
 
 For a CUDA tensor the wrapper launches the kernel or raises; for a CPU
 tensor it runs :func:`fused_attention_plain`. ``LAUNCHES`` counts launches.
@@ -37,7 +41,14 @@ import ctypes
 
 import torch
 
-from mapdit_tpu_torch.ops.cuda.dit_block import MAX_SMEM_BYTES, _DTYPE_CODE, _raise_on, needs_grad, vjp_through
+from mapdit_tpu_torch.ops.cuda.dit_block import (
+    ATTENTION_HEAD_WIDTHS,
+    MAX_SMEM_BYTES,
+    _DTYPE_CODE,
+    _raise_on,
+    needs_grad,
+    vjp_through,
+)
 from mapdit_tpu_torch.ops.mp import normalize
 
 LAUNCHES = {"fused_attention": 0}
@@ -50,14 +61,15 @@ def reset_launch_counts() -> None:
 
 
 def smem_bytes(t: int, hd: int, qt: int) -> int:
-    """Shared memory of one block (``csrc/fused_attention.cu:smem_bytes``):
-    K, V and the query tile as f32 rows of hd + 1, and qt x T f32 logits."""
+    """Shared memory of one block of the f32 kernel
+    (``csrc/fused_attention.cu:smem_bytes``): K, V and the query tile as f32
+    rows of hd + 1, and qt x T f32 logits."""
     return ((2 * t + qt) * (hd + 1) + qt * t) * 4
 
 
 def query_tile(t: int, hd: int) -> int:
-    """The largest tile of query rows (at most 64, at most T) whose block
-    fits the card's shared memory. Raises where none does."""
+    """The f32 kernel's largest tile of query rows (at most 64, at most T)
+    whose block fits the card's shared memory. Raises where none does."""
     for qt in QUERY_TILES:
         if qt <= max(t, 1) and smem_bytes(t, hd, qt) <= MAX_SMEM_BYTES:
             return qt
@@ -65,6 +77,16 @@ def query_tile(t: int, hd: int) -> int:
         f"T={t}, head width {hd} needs {smem_bytes(t, hd, 1)} bytes of shared memory for K and V alone; "
         f"the kernel holds at most {MAX_SMEM_BYTES}"
     )
+
+
+def check_shape(t: int, hd: int, dtype: torch.dtype) -> int:
+    """Raise unless the kernel takes T tokens of head width hd in ``dtype``;
+    return the f32 kernel's query tile (0 for bf16, which tiles by 64)."""
+    if dtype == torch.bfloat16:
+        if hd not in ATTENTION_HEAD_WIDTHS:
+            raise ValueError(f"fused_attention on the card takes bf16 head widths {ATTENTION_HEAD_WIDTHS}, got {hd}")
+        return 0
+    return query_tile(t, hd)
 
 
 def attention_reference(q, k, v, scale: float, cosine: bool):
@@ -110,19 +132,26 @@ def _fused_attention_fwd(q, k, v, scale: float, cosine: bool):
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"fused_attention takes f32 or bf16 q, k, v of one type, got {q.dtype}, {k.dtype}, {v.dtype}")
     for z in (q, k, v):
-        if z.device.type != "cuda" or z.device != q.device:
-            raise ValueError(f"kernel inputs must share one CUDA device, got {z.device} and {q.device}")
         if z.stride(3) != 1:
             raise ValueError(
                 f"fused_attention reads rows whose last dimension is contiguous, got strides {z.stride()}; "
                 "it makes no copy of an operand"
             )
+        if q.dtype == torch.bfloat16 and (z.data_ptr() % 16 or any(s % 8 for s in z.stride()[:3])):
+            raise ValueError(
+                f"fused_attention reads bf16 rows with 16-byte loads: the base and the batch, head and token "
+                f"strides must be 16-byte aligned, got strides {z.stride()} at offset {z.data_ptr() % 16}; "
+                "it makes no copy of an operand"
+            )
+    for z in (q, k, v):
+        if z.device.type != "cuda" or z.device != q.device:
+            raise ValueError(f"kernel inputs must share one CUDA device, got {z.device} and {q.device}")
     b, h, t, hd = q.shape
-    qt = query_tile(t, hd)
+    qt = check_shape(t, hd, q.dtype)
     from mapdit_tpu_torch.ops.cuda import build
 
     lib = build.library("fused_attention")
-    if lib.fused_attention_smem_bytes(t, hd, qt) != smem_bytes(t, hd, qt):
+    if qt and lib.fused_attention_smem_bytes(t, hd, qt) != smem_bytes(t, hd, qt):
         raise RuntimeError("the shared-memory sizes of fused_attention.cu and its wrapper differ")
     out = _empty_like_layout(q)
     strides = (ctypes.c_longlong * 12)(*_strides(q), *_strides(k), *_strides(v), *_strides(out))

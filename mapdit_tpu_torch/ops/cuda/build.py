@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 into ``build/mapdit_tpu_torch/<name>-<hash>.so`` under the checkout root (the
-hash of the source keeps a stale library from being loaded). All sources
+hash of the source and of the ``csrc/*.cuh`` headers keeps a stale library
+from being loaded). All sources
 build at once, one nvcc process each, started together. Nothing is built or
 imported when this module is imported.
 """
@@ -48,8 +49,7 @@ _SIGNATURES = {
         "dw_gemm_error_string": ([_I], ctypes.c_char_p),
     },
     "cosine_attention": {
-        "cosine_attention": ([_P, _P, _I, _P, _I, _I, _I, _I, _I, _P], ctypes.c_int),
-        "cosine_attention_smem_bytes": ([_I, _I], ctypes.c_size_t),
+        "cosine_attention": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], ctypes.c_int),
         "cosine_attention_error_string": ([_I], ctypes.c_char_p),
     },
     "attn_branch_bwd": {
@@ -81,7 +81,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> pathlib.Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    # the headers are hashed with every source, so none is built stale
+    parts = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in parts)).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

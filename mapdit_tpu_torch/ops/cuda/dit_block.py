@@ -48,6 +48,9 @@ SILU_DIV = 0.596
 NORM_EPS = 1e-4
 # largest dynamic shared memory a block may take on the H100 (232,448 bytes)
 MAX_SMEM_BYTES = 227 * 1024
+# head widths the tensor-core attention kernels are built for: every
+# registry model's (64 for XS to L, 72 for XL)
+ATTENTION_HEAD_WIDTHS = (64, 72)
 
 # forward sites of the block and the attention half-block, then the two
 # products of the attention half-block's backward that read W as (K, N)
@@ -263,13 +266,28 @@ def cosine_attention_plain(qkv, tokens, heads, out_dtype, out=None, normalize_fi
     return out.copy_(o)
 
 
+def check_attention_shape(tokens: int, hd: int) -> None:
+    """Raise unless :func:`cosine_attention`'s kernel takes ``tokens`` tokens
+    of head width ``hd``: the head widths of every registry model (each a
+    template instance) at any even T (keys run in tiles of 64; p is written
+    in 8-byte pairs)."""
+    if hd not in ATTENTION_HEAD_WIDTHS:
+        raise ValueError(f"cosine_attention on the card takes head widths {ATTENTION_HEAD_WIDTHS}, got {hd}")
+    if tokens % 2:
+        raise ValueError(f"cosine_attention on the card takes an even T, got {tokens}")
+
+
 def cosine_attention(qkv, tokens, heads, out_dtype, out=None, normalize_first=False, probs=None):
     """Cosine attention over the flat f32 qkv product (N*T, 3D), heads as
     contiguous column slices; returns (N*T, D) in ``out_dtype``.
 
     ``normalize_first`` is the residual mode: the probabilities are
     normalised before P.V (rounded to bf16 for it) and, when ``probs`` is
-    an (N, heads, T, T) f32 tensor, written there."""
+    an (N, heads, T, T) f32 tensor, written there.
+
+    The kernel's products are bf16 on the tensor cores, so on the card it
+    writes bf16 only and raises on ``out_dtype=torch.float32``; the CPU's
+    plain version takes either (at f32 it rounds nothing)."""
     if qkv.device.type == "cpu":
         return cosine_attention_plain(
             qkv, tokens, heads, out_dtype, out=out, normalize_first=normalize_first, probs=probs
@@ -280,16 +298,12 @@ def cosine_attention(qkv, tokens, heads, out_dtype, out=None, normalize_first=Fa
     d = d3 // 3
     if qkv.dtype != torch.float32 or d3 != 3 * d or d % heads or nt % tokens:
         raise ValueError(f"cosine_attention takes f32 (N*T, 3D) qkv, got {qkv.dtype} {tuple(qkv.shape)}")
-    hd = d // heads
-    if hd % 2 or out_dtype not in _DTYPE_CODE:
-        raise ValueError(f"cosine_attention needs an even head width and f32/bf16 output (hd={hd})")
-    _require_cuda(qkv)
-    lib = build.library("cosine_attention")
-    smem = lib.cosine_attention_smem_bytes(tokens, hd)
-    if smem > MAX_SMEM_BYTES:
+    if out_dtype != torch.bfloat16:
         raise ValueError(
-            f"T={tokens}, hd={hd} needs {smem} bytes of shared memory; the kernel holds at most {MAX_SMEM_BYTES}"
+            f"cosine_attention's CUDA kernel writes bf16 only (bf16 products on the tensor cores), got out_dtype="
+            f"{out_dtype}; an f32 output is computed on the CPU only"
         )
+    hd = d // heads
     if out is None:
         out = torch.empty(nt, d, dtype=out_dtype, device=qkv.device)
     elif out.shape != (nt, d) or out.dtype != out_dtype:
@@ -302,11 +316,14 @@ def cosine_attention(qkv, tokens, heads, out_dtype, out=None, normalize_first=Fa
             raise ValueError(f"probs must be f32 (N, heads, T, T), got {probs.dtype} {tuple(probs.shape)}")
         tensors.append(probs)
     _require_cuda(*tensors)
+    check_attention_shape(tokens, hd)
+    if any(z.data_ptr() % 16 for z in tensors):
+        raise ValueError("cosine_attention reads and writes with 16-byte accesses: its tensors must be 16-byte aligned")
+    lib = build.library("cosine_attention")
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     code = lib.cosine_attention(
-        qkv.data_ptr(), out.data_ptr(), 1 if out_dtype == torch.bfloat16 else 0,
-        probs.data_ptr() if probs is not None else None, 1 if normalize_first else 0,
-        nt // tokens, tokens, heads, hd, stream,
+        qkv.data_ptr(), out.data_ptr(), probs.data_ptr() if probs is not None else None,
+        1 if normalize_first else 0, nt // tokens, tokens, heads, hd, stream,
     )
     _raise_on(code, lib, "cosine_attention")
     LAUNCHES["cosine_attention/residual" if normalize_first else "cosine_attention"] += 1

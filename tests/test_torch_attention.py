@@ -125,19 +125,39 @@ def test_dispatch_impl_flag():
 
 
 def test_query_tile_serves_every_registry_model():
-    """Every registry model at input sizes 16 and 32 (T = 4 ... 256) has a
-    query tile that fits 227 KB; beyond what fits the wrapper raises with
-    the byte count."""
+    """Every registry model at input sizes 16 and 32 (T = 4 ... 256, head
+    widths 64 and 72) is in the kernel's domain in both types: bf16 runs on
+    the tensor cores over key tiles of 64 at any T; the f32 kernel keeps a
+    query tile that fits 227 KB, and beyond what fits the wrapper raises
+    with the byte count."""
     for name, spec in DIT_MODELS.items():
         hd = spec["hidden_size"] // spec["num_heads"]
         for size in (16, 32):
             t = (size // spec["patch_size"]) ** 2
-            qt = attn_k.query_tile(t, hd)
+            assert attn_k.check_shape(t, hd, torch.bfloat16) == 0, (name, size)
+            qt = attn_k.check_shape(t, hd, torch.float32)
             assert 1 <= qt <= min(64, t) and attn_k.smem_bytes(t, hd, qt) <= dit_block.MAX_SMEM_BYTES, (name, size)
+    assert attn_k.check_shape(256, 72, torch.bfloat16) == 0 and attn_k.check_shape(1024, 64, torch.bfloat16) == 0
     assert attn_k.query_tile(64, 64) == 64 and attn_k.query_tile(256, 72) == 32
     assert attn_k.smem_bytes(256, 72, 32) == 191616
     with pytest.raises(ValueError, match=str(attn_k.smem_bytes(1024, 64, 1))):
-        attn_k.query_tile(1024, 64)
+        attn_k.check_shape(1024, 64, torch.float32)
+    with pytest.raises(ValueError, match="head widths"):
+        attn_k.check_shape(64, 48, torch.bfloat16)
+
+
+def test_fused_attention_raises_on_a_misaligned_stride():
+    """bf16 rows are read with 16-byte loads: a token stride that is not a
+    multiple of 8 elements raises before anything is built, and no copy is
+    made."""
+    bf = torch.bfloat16
+    q = torch.empty(2, 2, 8, 68, dtype=bf, device="meta")[..., :64]
+    assert q.stride(2) == 68
+    with pytest.raises(ValueError, match="16-byte"):
+        attn_k.fused_attention(q, q, q, 0.25, True)
+    aligned = torch.empty(2, 8, 2, 3 * 64, dtype=bf, device="meta")[..., :64].transpose(1, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        attn_k.fused_attention(aligned, aligned, aligned, 0.125, True)
 
 
 def test_new_wrappers_do_not_fall_back_off_cpu():

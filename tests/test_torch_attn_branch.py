@@ -62,6 +62,18 @@ def test_residual_forward_matches_jax():
     np.testing.assert_allclose(got_attn, attn, **FWD_TOL)
 
 
+def test_residual_attention_matches_jax_at_t256():
+    """The residual mode's plain attention (p and the pre-projection
+    attention) against the Pallas residual forward at T=256 (input size 32),
+    where the kernel runs two sweeps over its key tiles."""
+    args = _args(11, 2, t=256)
+    _, p, attn = (np.asarray(v) for v in jdb._attn_res_fwd_impl(*_jax(args), HEADS))
+    _, got_p, got_attn = (v.numpy() for v in ab.attn_res_fwd(*_torch(args), HEADS))
+    assert got_p.shape == p.shape == (2, HEADS, 256, 256)
+    np.testing.assert_allclose(got_p, p, **FWD_TOL)
+    np.testing.assert_allclose(got_attn, attn, **FWD_TOL)
+
+
 @pytest.mark.parametrize("bwd", ab.BWD_IMPLS)
 def test_cotangents_match_jax(bwd):
     """All seven cotangents of each VJP against jax.grad through the JAX

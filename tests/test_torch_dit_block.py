@@ -69,6 +69,51 @@ def test_attention_core_matches_jax(n):
     np.testing.assert_allclose(got, want, **TOL)
 
 
+@pytest.mark.parametrize(
+    "n, t, heads, hd", [(4, 16, 2, 72), (3, 16, 2, 72), (4, 256, 2, 32), (3, 256, 2, 32)],
+    ids=["hd72-n4", "hd72-n3", "t256-n4", "t256-n3"],
+)
+def test_attention_core_shapes_match_jax(n, t, heads, hd):
+    """The plain cosine-attention core against the Pallas _attention_core
+    at the XL head width and at T=256 (input size 32), at n=4 and n=3, the
+    two forms of the Pallas body (paired samples where they fit, per head)."""
+    d = heads * hd
+    qkv = np.random.default_rng(10 + n).normal(size=(n * t, 3 * d)).astype(np.float32)
+    want = np.asarray(jdb._attention_core(jnp.asarray(qkv), n, t, d, heads, jnp.float32))
+    got = tdb.cosine_attention_plain(torch.from_numpy(qkv), t, heads, torch.float32).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_cosine_attention_serves_every_registry_model():
+    """Every registry model at input sizes 16 and 32 (T = 4 ... 256, head
+    widths 64 and 72, and the tensor-parallel shards, which keep the head
+    width) is in the tensor-core kernel's domain; another head width or an
+    odd T raises."""
+    from mapdit_tpu_torch.models.registry import DIT_MODELS
+
+    for name, spec in DIT_MODELS.items():
+        hd = spec["hidden_size"] // spec["num_heads"]
+        for size in (16, 32):
+            tdb.check_attention_shape((size // spec["patch_size"]) ** 2, hd)
+    with pytest.raises(ValueError, match="head widths"):
+        tdb.check_attention_shape(64, 32)
+    with pytest.raises(ValueError, match="even T"):
+        tdb.check_attention_shape(9, 64)
+
+
+def test_cosine_attention_refuses_an_f32_output_off_the_cpu():
+    """The kernel's products are bf16 on the tensor cores: off the CPU an
+    f32 output raises, naming the bf16-only kernel, before anything is
+    built (the plain version on the CPU takes f32 and rounds nothing)."""
+    qkv = torch.empty(8, 3 * 128, device="meta")
+    with pytest.raises(ValueError, match="bf16 only"):
+        tdb.cosine_attention(qkv, 4, 2, torch.float32)
+    with pytest.raises(ValueError, match="bf16 only"):
+        tdb.cosine_attention(qkv, 4, 2, torch.float32, normalize_first=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        tdb.cosine_attention(qkv, 4, 2, torch.bfloat16)
+
+
 def test_fused_dit_block_bf16():
     """bf16 operands and stream, as the sampling path runs them. The two
     packages round the modulate output, attention, hidden and stream to
