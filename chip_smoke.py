@@ -60,9 +60,12 @@ for the same bits, its times the device time of CUDA-graph replays with the
 wrapper's host time beside; the gradients of fused_dit_block,
 fused_attention and fused_mlp_branch are held to autograd of the float32
 reference (GRAD_TOL) and, bit for bit, to autograd of the reference they
-recompute in the inputs' types. Phase 3 also holds dw_gemm (the S/2 and B/2 training shapes and a ragged M,
-the same bits on two runs) and attn_bwd with the dW switch on (seven
-cotangents, no f32 matmul left), and fused_attention at FUSED_SHAPES (B/2
+recompute in the inputs' types. Phase 3 also holds attention_bwd at
+ATTN_BWD_SHAPES (S/2 on the backward's own inputs, B/2's 12 heads, the XL
+head of 72, odd N, the ragged T=16 and T=4, T=96; the same bits on two
+runs; T=129 must raise), dw_gemm (the S/2 and B/2 training shapes and a
+ragged M, the same bits on two runs) and attn_bwd with the dW switch on
+(seven cotangents, no f32 matmul left), and fused_attention at FUSED_SHAPES (B/2
 sampling and training shapes on the model's strided views, the XL head
 width 72, T=256, without the cosine normalisation at logits past 88 in f32
 and bf16, the ragged T=16 and T=4) and fused_mlp_branch (N=64 and 256) and their gradients against
@@ -397,7 +400,10 @@ COSINE_SHAPES = {
 # logits of a few hundred carry ~1e-5 of absolute error into the exponent.
 # The bf16 case scales its inputs by 2 (logits to ~180): at 6 they reach
 # ~1600, where the order of the f32 sums alone moves a logit by ~1e-3 and a
-# near-tied p across a bf16 rounding boundary (PERF.md).
+# near-tied p across a bf16 rounding boundary (PERF.md). At 2 that still
+# happens: the f32 plain version lands up to 0.0234 from a float64
+# evaluation of its roundings, where the kernel was exact, so where the two
+# lie apart float64 decides (order_witness).
 FUSED_SHAPES = {
     "fused_attention": ((64, 12, 64, 64), "bf16", True, 1.0, 1e-2, 1e-2),
     "fused_attention/train": ((256, 12, 64, 64), "bf16", True, 1.0, 1e-2, 1e-2),
@@ -410,6 +416,99 @@ FUSED_SHAPES = {
     "fused_attention:t16": ((8, 12, 16, 64), "bf16", True, 1.0, 1e-2, 1e-2),
     "fused_attention:t4-head-72": ((8, 16, 4, 72), "bf16", True, 1.0, 1e-2, 1e-2),
 }
+
+
+# attention_bwd: name -> (N, T, heads, hd). The S/2 training call (the
+# report row; drawn from the backward's own qkv and dattn in phase 3), then
+# B/2's 12 heads, the XL head (16 of 72), an odd N, the ragged T=16 and T=4
+# (hd 72), one T past one key tile (96); T=ATTN_BWD_TOO_LONG must raise.
+ATTN_BWD_SHAPES = {
+    "attn_bwd/attention": (256, 64, 6, 64),
+    "attn_bwd/attention:b2": (256, 64, 12, 64),
+    "attn_bwd/attention:xl": (32, 64, 16, 72),
+    "attn_bwd/attention:n3": (3, 64, 6, 64),
+    "attn_bwd/attention:t16": (8, 16, 6, 64),
+    "attn_bwd/attention:t4-head-72": (8, 4, 16, 72),
+    "attn_bwd/attention:t96": (8, 96, 6, 64),
+}
+ATTN_BWD_TOO_LONG = 129
+# dw_gemm's product pairs (dqkv^T.h, dout^T.attn) at the training shapes of
+# batch 256 x 64 tokens: name -> ((M, P, Q), (M, P, Q))
+DW_PAIRS = {
+    "s2": ((TRAIN_BATCH * 64, 1152, 384), (TRAIN_BATCH * 64, 384, 384)),
+    "b2": ((TRAIN_BATCH * 64, 2304, 768), (TRAIN_BATCH * 64, 768, 768)),
+}
+BWD_SRC = "mapdit_tpu_torch/csrc/attn_branch_bwd.cu"
+
+
+def attn_bwd_case(torch, F, gen, dev, name, qkv=None, dattn=None):
+    """One ATTN_BWD_SHAPES entry on f32 qkv and dattn drawn from ``gen`` (or
+    the given ones): the wrapper and plain calls (bf16 dqkv), FLOPs, bytes
+    (qkv and dattn read once, dqkv written once) and the yardstick, SDPA's
+    forward and backward on the pre-normalised bf16 q, k, v. ``check(got)``
+    holds dqkv to the plain version at 1e-2 relative L2 (~2.5 bf16 ulps;
+    several bf16 roundings upstream: the normalised rows, p, dlog) and a
+    second run to the same bits."""
+    import types
+
+    from mapdit_tpu_torch.ops.cuda import attn_branch as ab
+    from mapdit_tpu_torch.ops.mp import normalize
+
+    n, t, heads, hd = ATTN_BWD_SHAPES[name]
+    d, bf = heads * hd, torch.bfloat16
+    if qkv is None:
+        qkv = torch.randn(n * t, 3 * d, generator=gen, device=dev)
+    if dattn is None:
+        dattn = torch.randn(n * t, d, generator=gen, device=dev)
+    q4, k4, v4 = qkv.reshape(n, t, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    qs, ks, vs = (z.to(bf).contiguous().requires_grad_() for z in (normalize(q4), normalize(k4), v4))
+    do4 = dattn.reshape(n, t, heads, hd).transpose(1, 2).to(bf).contiguous()
+
+    def run():
+        return ab.attention_bwd(qkv, dattn, t, heads, bf)
+
+    def plain():
+        return ab.attention_bwd_plain(qkv, dattn, t, heads, bf)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qs, ks, vs, scale=1 / math.sqrt(hd))
+        return torch.autograd.grad(o, (qs, ks, vs), do4)
+
+    def check(got):
+        err = compare_rel(torch, got, plain(), 1e-2, name)
+        same = bool(torch.equal(got, run()))
+        phase("check", what=f"{name}:same-bits-twice", ok=same)
+        if not same:
+            raise AssertionError(f"{name}: two runs on the same inputs differ in their bits")
+        return err
+
+    return types.SimpleNamespace(
+        qkv=qkv, dattn=dattn, shape=(n, t, heads, hd), run=run, plain=plain, library=sdpa_fwd_bwd, check=check,
+        flops=10 * n * heads * t * t * hd, nbytes=n * t * 3 * d * 4 + n * t * d * 4 + n * t * 3 * d * 2,
+    )
+
+
+def attn_bwd_shape_checks(torch, F, gen, dev) -> None:
+    """attention_bwd at its ATTN_BWD_SHAPES entries beside the report row,
+    checked and timed; then T=ATTN_BWD_TOO_LONG, which must raise before
+    anything is launched."""
+    from mapdit_tpu_torch.ops.cuda import attn_branch as ab
+
+    for name in ATTN_BWD_SHAPES:
+        if ":" in name:
+            case = attn_bwd_case(torch, F, gen, dev, name)
+            case.check(case.run())
+            attention_row(torch, case, name, BWD_SRC, None)
+    n, t, heads, hd = 2, ATTN_BWD_TOO_LONG, 6, 64
+    before = ab.LAUNCHES["attn_bwd/attention"]
+    try:
+        ab.attention_bwd(torch.zeros(n * t, 3 * heads * hd, device=dev), torch.zeros(n * t, heads * hd, device=dev), t,
+                         heads, torch.bfloat16)
+    except ValueError as e:
+        phase("check", what=f"attn_bwd/attention:t{t}", raises="ValueError", message=json.dumps(str(e)),
+              launched=ab.LAUNCHES["attn_bwd/attention"] - before)
+    else:
+        raise AssertionError(f"attention_bwd took T={t}, past its limit of {ab.ATTENTION_BWD_MAX_T}")
 
 
 def cosine_case(torch, F, gen, dev, name, qkv=None):
@@ -441,7 +540,7 @@ def cosine_case(torch, F, gen, dev, name, qkv=None):
 
     p_bytes = n * heads * t * t * 4 if residual else 0
     return types.SimpleNamespace(
-        qkv=qkv, probs=probs, shape=(n, t, heads, hd), residual=residual, check=check, sdpa_operands=(qn, kn, vb),
+        qkv=qkv, probs=probs, shape=(n, t, heads, hd), residual=residual, check=check,
         run=lambda: k.cosine_attention(qkv, t, heads, bf, normalize_first=residual, probs=probs),
         plain=lambda: k.cosine_attention_plain(qkv, t, heads, bf, normalize_first=residual, probs=probs_p),
         library=lambda: F.scaled_dot_product_attention(qn, kn, vb, scale=1 / math.sqrt(hd)),
@@ -470,12 +569,22 @@ def fused_case(torch, F, gen, dev, name):
     qn, kn, vc = qn.contiguous(), kn.contiguous(), v.contiguous()
 
     def check(got):
+        want = at.fused_attention_plain(q, k_, v, sc, cosine)
         if scale_in != 1.0:
             top = float((q.float() @ k_.float().transpose(-1, -2)).abs().max()) * sc
             phase("check", what=name, max_abs_logit=f"{top:.1f}")
             if top <= 88.0:
                 raise AssertionError(f"{name}: logits stay under 88, the case does not test the row maximum")
-        return compare(torch, got, at.fused_attention_plain(q, k_, v, sc, cosine), atol, rtol, name)
+            if dtype == torch.bfloat16:
+                # where the kernel and the plain version lie apart, float64
+                # decides (order_witness; PERF.md, ROADMAP C)
+                if not torch.isfinite(got).all():
+                    raise AssertionError(f"{name}: non-finite kernel output")
+                row = order_witness(torch, name, q, k_, v, sc, got, want, atol, rtol)
+                if not row["ok"]:
+                    raise AssertionError(f"{name}: kernel or plain version lies past a near tie from float64: {row}")
+                return row["kernel_vs_plain"]
+        return compare(torch, got, want, atol, rtol, name)
 
     return types.SimpleNamespace(
         q=q, k=k_, v=v, scale=sc, cosine=cosine, shape=(n, h, t, hd), check=check,
@@ -484,6 +593,35 @@ def fused_case(torch, F, gen, dev, name):
         library=lambda: F.scaled_dot_product_attention(qn, kn, vc, scale=sc),
         flops=4 * n * h * t * t * hd, nbytes=4 * n * h * t * hd * q.element_size(),
     )
+
+
+def order_witness(torch, name, q, k, v, scale, got, want, atol, rtol) -> dict:
+    """bf16 attention without cosine at logits past 88, where the order of
+    the f32 sums alone moves a near-tied p across a bf16 rounding boundary:
+    the kernel's ``got`` and the plain version's ``want`` against a float64
+    evaluation of the same roundings (p rounded to bf16, the product summed
+    in float64, the output rounded to bf16). Where got and want lie more
+    than atol + rtol |want| apart, ``ok`` asks both to lie within atol +
+    rtol |ref| + tie of it, tie = 2^-8 max|v|: two near-tied p of ~1/2,
+    each moved by its bf16 ulp (2^-9), times the largest |v|. Prints the max
+    abs distances (all, and where got and want lie apart) and ``ok``;
+    returns them."""
+    p64 = torch.softmax((q.double() @ k.double().transpose(-1, -2)) * scale, dim=-1)
+    ref = (p64.to(torch.bfloat16).double() @ v.double()).to(torch.bfloat16).double()
+    g, w = got.double(), want.double()
+    gd, wd = (g - ref).abs(), (w - ref).abs()
+    apart = (g - w).abs() > atol + rtol * w.abs()
+    tie = 2.0 ** -8 * float(v.abs().max())
+    near = atol + rtol * ref.abs() + tie
+
+    def most(d):
+        return float(d.max()) if d.numel() else 0.0
+
+    row = dict(kernel_vs_plain=most((g - w).abs()), kernel_vs_f64=most(gd), plain_vs_f64=most(wd),
+               apart=int(apart.sum()), kernel_vs_f64_apart=most(gd[apart]), plain_vs_f64_apart=most(wd[apart]),
+               tie=tie, ok=bool(((gd <= near) & (wd <= near))[apart].all()))
+    phase("check", what=name + ":order-witness", **row)
+    return row
 
 
 def attention_row(torch, case, name, source, replaces) -> dict:
@@ -635,7 +773,6 @@ def train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x_s, a_s, gains_s, w0)
         )
 
     branch_src = "mapdit_tpu_torch/ops/cuda/attn_branch.py"
-    bwd_src = "mapdit_tpu_torch/csrc/attn_branch_bwd.cu"
     # composite outputs: several bf16 roundings upstream can each land an
     # element one bf16 ulp apart from the plain version, so they are held
     # by relative L2 error (1e-2, ~2.5 bf16 ulps) with the max reported
@@ -691,26 +828,24 @@ def train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x_s, a_s, gains_s, w0)
         dy, out, rows_, 2 * d, t, bf)
     err = max(compare(torch, g_, w_, 1e-2, 1e-2, f"attn_bwd/gate_residual:{nm}")
               for nm, g_, w_ in zip(("dx0", "dout", "dgate"), got, want))
-    row("attn_bwd/gate_residual", bwd_src, 630, err, lambda: ab.gate_residual_bwd(dy, out, rows_, 2 * d, t, bf),
+    row("attn_bwd/gate_residual", BWD_SRC, 630, err, lambda: ab.gate_residual_bwd(dy, out, rows_, 2 * d, t, bf),
         lambda: ab.gate_residual_bwd_plain(dy, out, rows_, 2 * d, t, bf), 5 * mt * d,
         mt * d * (2 + 4 + 4 + 2) + n * d * 4 + n * d * 4)
 
-    err = compare_rel(torch, ab.attention_bwd(qkv, dattn, t, heads, bf),
-                      ab.attention_bwd_plain(qkv, dattn, t, heads, bf), 1e-2, "attn_bwd/attention")
-    qs, ks, vs = (z.detach().requires_grad_() for z in case.sdpa_operands)
-    do4 = dattn.reshape(n, t, heads, hd).transpose(1, 2).to(bf)
-
-    def sdpa_fwd_bwd():
-        o = F.scaled_dot_product_attention(qs, ks, vs, scale=1 / math.sqrt(hd))
-        return torch.autograd.grad(o, (qs, ks, vs), do4)
-
-    row("attn_bwd/attention", bwd_src, 643, err, lambda: ab.attention_bwd(qkv, dattn, t, heads, bf),
-        lambda: ab.attention_bwd_plain(qkv, dattn, t, heads, bf), 10 * n * heads * t * t * hd,
-        mt * 3 * d * 4 + mt * d * 4 + mt * 3 * d * 2, library=sdpa_fwd_bwd)
+    # attention_bwd on identical inputs (device ms of CUDA-graph replays,
+    # SDPA's forward and backward beside), then at its other shapes
+    case = attn_bwd_case(torch, F, gen, dev, "attn_bwd/attention", qkv=qkv, dattn=dattn)
+    if case.shape != (n, t, heads, hd):
+        raise AssertionError(f"ATTN_BWD_SHAPES' report row {case.shape} is not the training shape {(n, t, heads, hd)}")
+    err = case.check(case.run())
+    out_rows["attn_bwd/attention"] = dict(
+        attention_row(torch, case, "attn_bwd/attention", BWD_SRC, f"{PALLAS}:643"), max_abs_err=err,
+        path="mega_attn+pallas")
+    attn_bwd_shape_checks(torch, F, gen, dev)
 
     err = compare(torch, ab.modulate_fwd(xf, rows_, g1, t, bf), ab.modulate_fwd_plain(xf, rows_, g1, t, bf),
                   1e-2, 1e-2, "attn_bwd/modulate_fwd")
-    row("attn_bwd/modulate_fwd", bwd_src, 588, err, lambda: ab.modulate_fwd(xf, rows_, g1, t, bf),
+    row("attn_bwd/modulate_fwd", BWD_SRC, 588, err, lambda: ab.modulate_fwd(xf, rows_, g1, t, bf),
         lambda: ab.modulate_fwd_plain(xf, rows_, g1, t, bf), 5 * mt * d, mt * d * 2 + 2 * n * d * 4 + mt * d * 2)
 
     got, want = ab.modulate_bwd(dh, xf, rows_, g1, dx0, t), ab.modulate_bwd_plain(dh, xf, rows_, g1, dx0, t)
@@ -718,7 +853,7 @@ def train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x_s, a_s, gains_s, w0)
             for nm, g_, w_ in zip(("dx", "dshift", "dscale"), got[:3], want[:3])]
     # identical f32 inputs: only the order of the sum differs
     e = compare_scalar(torch, got[3], want[3], 1e-4, "attn_bwd/modulate_bwd:dgain")
-    row("attn_bwd/modulate_bwd", bwd_src, 690, max(errs + [e]), lambda: ab.modulate_bwd(dh, xf, rows_, g1, dx0, t),
+    row("attn_bwd/modulate_bwd", BWD_SRC, 690, max(errs + [e]), lambda: ab.modulate_bwd(dh, xf, rows_, g1, dx0, t),
         lambda: ab.modulate_bwd_plain(dh, xf, rows_, g1, dx0, t), 8 * mt * d,
         mt * d * (4 + 2 + 4 + 2) + 2 * n * d * 4 + 2 * n * d * 4 + 8)
 
@@ -741,11 +876,12 @@ def train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x_s, a_s, gains_s, w0)
 def dw_kernel_row(torch, ab, gen, dev, dy, args, operands, inv_d, terms) -> dict:
     """Phase 3, row 4': dw_gemm against its plain version on the backward's
     own operands at the DiT-S/2 training shapes (both products; the row times
-    the pair), at the DiT-B/2 shapes and at a ragged M, the same bits on two
-    runs; then attn_bwd with the dW switch on against attn_bwd_plain with it
-    on (seven cotangents, dgain against the spread of its ``terms``), with
-    no f32 matmul left on the path. The row's
-    launches come from the train CLI's run with the switch on (phase 8)."""
+    the pair, device ms of CUDA-graph replays), at the DiT-B/2 shapes and at
+    a ragged M, the same bits on two runs; then attn_bwd with the dW switch
+    on against attn_bwd_plain with it on (seven cotangents, dgain against
+    the spread of its ``terms``), with no f32 matmul left on the path. The
+    row's launches come from the train CLI's run with the switch on (phase
+    8)."""
     from torch.overrides import TorchFunctionMode
 
     bf = torch.bfloat16
@@ -770,28 +906,34 @@ def dw_kernel_row(torch, ab, gen, dev, dy, args, operands, inv_d, terms) -> dict
     b, by = bound_ms(flops, nbytes)
     row = dict(
         source="mapdit_tpu_torch/csrc/dw_gemm.cu", replaces=f"{PALLAS}:783", max_abs_err=max(errs),
-        ms=time_ms(torch, kernel_pair), plain_ms=time_ms(torch, plain_pair), bound_ms=b, bound_by=by,
+        ms=graph_ms(torch, kernel_pair), plain_ms=graph_ms(torch, plain_pair), bound_ms=b, bound_by=by,
         # one PyTorch call each: the bf16 products cuBLAS would run
-        library_ms=time_ms(torch, lambda: [torch.matmul(a_.t(), b_) for a_, b_ in pairs]),
+        library_ms=graph_ms(torch, lambda: [torch.matmul(a_.t(), b_) for a_, b_ in pairs]),
         # the products the kernel replaces on the path: f32 torch.matmul
-        replaced_f32_matmul_ms=time_ms(torch, lambda: [(a_.t().float() @ b_.float()) * inv_d for a_, b_ in pairs]),
+        replaced_f32_matmul_ms=graph_ms(torch, lambda: [(a_.t().float() @ b_.float()) * inv_d for a_, b_ in pairs]),
         path="cli+dw",
     )
     for (a_, b_), nm in zip(pairs, ("dqkv^T.h", "dout^T.attn")):
         phase("time", kernel=f"dw_gemm:{nm}", shape=f"{tuple(a_.shape)}^T.{tuple(b_.shape)}",
-              ms=f"{time_ms(torch, lambda: ab.dw_gemm(a_, b_, inv_d)):.4f}",
-              f32_matmul_ms=f"{time_ms(torch, lambda: (a_.t().float() @ b_.float()) * inv_d):.4f}",
-              bf16_matmul_ms=f"{time_ms(torch, lambda: torch.matmul(a_.t(), b_)):.4f}")
-    # off the main path: the DiT-B/2 widths, and M that no tile depth divides
-    for what, (m, p_, q) in (("dw_gemm:b2-qkv", (TRAIN_BATCH * 64, 2304, 768)), ("dw_gemm:b2-out", (TRAIN_BATCH * 64, 768, 768)),
+              ms=f"{graph_ms(torch, lambda: ab.dw_gemm(a_, b_, inv_d)):.4f}",
+              f32_matmul_ms=f"{graph_ms(torch, lambda: (a_.t().float() @ b_.float()) * inv_d):.4f}",
+              bf16_matmul_ms=f"{graph_ms(torch, lambda: torch.matmul(a_.t(), b_)):.4f}")
+    # off the main path: the DiT-B/2 widths, DiT-XL/2's qkv product (108
+    # tiles: the plan whose splits had run 256 k steps deep), and M that no
+    # tile depth divides
+    for what, (m, p_, q) in (("dw_gemm:b2-qkv", DW_PAIRS["b2"][0]), ("dw_gemm:b2-out", DW_PAIRS["b2"][1]),
+                             ("dw_gemm:xl-qkv", (TRAIN_BATCH * 64, 3456, 1152)),
                              ("dw_gemm:ragged-m", (6 * 16, 192, 64)), ("dw_gemm:ragged-m-1000", (1000, 1152, 384))):
         a_ = torch.randn(m, p_, generator=gen, device=dev).to(bf)
         b_ = torch.randn(m, q, generator=gen, device=dev).to(bf)
         alpha = 1 / math.sqrt(q)
-        compare(torch, ab.dw_gemm(a_, b_, alpha), ab.dw_gemm_plain(a_, b_, alpha), 1e-4, 1e-4, what)
-        phase("time", kernel=what, ms=f"{time_ms(torch, lambda: ab.dw_gemm(a_, b_, alpha)):.4f}",
-              plain_ms=f"{time_ms(torch, lambda: ab.dw_gemm_plain(a_, b_, alpha)):.4f}",
-              bf16_matmul_ms=f"{time_ms(torch, lambda: torch.matmul(a_.t(), b_)):.4f}")
+        got = ab.dw_gemm(a_, b_, alpha)
+        compare(torch, got, ab.dw_gemm_plain(a_, b_, alpha), 1e-4, 1e-4, what)
+        if not torch.equal(got, ab.dw_gemm(a_, b_, alpha)):
+            raise AssertionError(f"{what}: two runs on the same inputs differ in their bits")
+        phase("time", kernel=what, ms=f"{graph_ms(torch, lambda: ab.dw_gemm(a_, b_, alpha)):.4f}",
+              plain_ms=f"{graph_ms(torch, lambda: ab.dw_gemm_plain(a_, b_, alpha)):.4f}",
+              bf16_matmul_ms=f"{graph_ms(torch, lambda: torch.matmul(a_.t(), b_)):.4f}")
 
     class CountMatmuls(TorchFunctionMode):
         """Counts the matrix products PyTorch itself is asked for."""

@@ -32,24 +32,60 @@
 //
 // Bound on the H100 at the DiT-S/2 training shapes (N = 256, T = 64,
 // D = 384, 6 heads): (a) and (c) are elementwise passes over a few (N, T, D)
-// arrays, memory-bound. (b) reads 4*T*hd f32 and writes 3*T*hd bf16 per
-// (sample, head) and does 10*T*T*hd flops (~20 flops per byte), still
-// memory-bound against the tensor cores. Its operands (q, k raw in f32;
-// qn, kn, v, do rounded to bf16; p and dp/dlog T x T in f32; one T x hd f32
-// work buffer) stay in ~117 KB of shared memory at T = hd = 64, so every
-// input is read once and every output written once. The products run on the
-// f32 pipes over bf16-rounded operands (exact products, f32 sums), the
-// simple first form; tensor cores are later work (ROADMAP B.5).
+// arrays, memory-bound. (b) reads 4*T*hd f32 (q, k, v, do) and writes
+// 3*T*hd bf16 per (sample, head) and does 10*T*T*hd flops, ~20 flops a
+// byte against the ~295 of the tensor cores: bound by bytes, 0.0413 ms for
+// the 100.7 MB read and 37.7 MB written at that shape.
+//
+// (b)'s design. One block per (sample, head) and one warp per 16 query
+// rows (up to eight warps: T <= 128), on the tensor cores through
+// attention_tiles.cuh (mma.sync m16n8k16 bf16 products, f32 sums, operands
+// read with ldmatrix from bf16 tiles with padded rows):
+//   * q, k, v and do are read once, 16 bytes a lane and four lanes a row,
+//     and stored as bf16 tiles (qn and kn already normalised, head width
+//     72 padded with zero columns to 80); the pass that normalises q and k
+//     takes each row's f32 norm with quad shuffles and keeps it;
+//   * each warp keeps its 16 rows of S = qn.kn^T and dP = do.v^T (keys in
+//     tiles of 64, up to two) in registers and takes the exact softmax
+//     (row maximum, exponentials, row sum), rowsum(dp*p) and dlog there,
+//     a row lying on the four lanes of a quad; keys past T are masked, and
+//     query rows past T get p = dlog = 0, so they add nothing to dv or dkn;
+//   * dqn = bf16(dlog).kn from the accumulators repacked as A fragments,
+//     as P.V is done in the forward;
+//   * bf16(p) and bf16(dlog) go to shared memory, where each warp takes
+//     its 16 key rows of dv = p^T.do and dkn = dlog^T.qn, reading the A
+//     operand with ldmatrix.trans (a key is a row there);
+//   * the normalize VJP works on the accumulator fragments: Sum z*dzn is a
+//     quad reduction, with the raw f32 rows of q and k read again (from
+//     L2) in the fragment layout and the norms from the load pass;
+//   * dq, dk and dv are staged as bf16 in the warp's own rows of the
+//     tiles and written with 16-byte stores, each element once: no
+//     atomics, the same bits on every run.
+// Shared memory: four bf16 tiles and p, dlog, 55.8 KB at T = 64 and hd 64
+// (four blocks an SM), 63.5 KB at hd 72; 143-160 KB for 64 < T <= 128 (two
+// key tiles, eight warps). The bf16 roundings are the plain version's
+// (attn_branch._attention_vjp): bf16 operands of every product, p and dlog
+// in f32 between them. Two f32 steps differ from it besides the order of
+// the sums, as in the forward kernels: the exponent is ex2.approx.ftz of
+// (l - max) * log2(e) (~2 ulp; torch.softmax takes expf, also ~2 ulp, and
+// an IEEE division; the flush below 2^-126 never acts, as cosine logits
+// lie within +-sqrt(hd)), and p = e * (1 / sum), one rounding more. Taking expf
+// and dividing each element held the same checks and cost 0.0869 ms
+// against 0.0779 at the S/2 shape (PERF.md).
+// The first form of (b) (one 256-thread block per (sample, head) with
+// 117 KB of shared memory, the five T x T x hd products as scalar f32 loops
+// over bf16 values) took 1.1460 ms at the S/2 shape (PERF.md).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_tiles.cuh"
+
 namespace {
 
 constexpr int COLS = 128;  // threads of the column kernels
-constexpr int THREADS = 256;
-constexpr float NORM_EPS = 1e-4f;
+constexpr int REDUCE_THREADS = 256;
 
 enum { DT_F32 = 0, DT_BF16 = 1 };
 
@@ -65,8 +101,6 @@ __device__ __forceinline__ void store_f32(void* p, int dtype, int64_t i, float v
     static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
   }
 }
-
-__device__ __forceinline__ float bf(float v) { return __bfloat162float(__float2bfloat16(v)); }
 
 // ---------------------------------------------------------------------------
 // (a) gated MP residual backward; grid (ceil(D / COLS), N)
@@ -93,159 +127,374 @@ __global__ void __launch_bounds__(COLS)
 }
 
 // ---------------------------------------------------------------------------
-// (b) attention backward; grid (heads, N), one block per (sample, head)
+// (b) attention backward on the tensor cores; grid (heads, N), one block
+// per (sample, head), KT key tiles of 64 (T <= 64 * KT)
 
-struct AttnSmem {
-  int ldf, ldb;
-  float *qf, *kf, *dz, *p, *ds, *rq, *rk;
-  __nv_bfloat16 *qn, *kn, *vb, *dob;
+namespace tiles = attn_tiles;
+
+template <int HD, int KT>
+struct BwdLayout {
+  using D = tiles::Dims<HD>;
+  static constexpr int ROWS = tiles::TILE * KT;  // rows of every tile, zero past T
+  static constexpr int WARPS = ROWS / 16;        // one warp a 16 query (and key) rows
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int LDP = ROWS + 8;           // row stride of p and dlog
+  static constexpr int TILE_ELEMS = ROWS * D::LD;
+  static constexpr int P_ELEMS = ROWS * LDP;
+  static constexpr size_t BYTES = (4 * (size_t)TILE_ELEMS + 2 * (size_t)P_ELEMS) * 2 + 2 * ROWS * sizeof(float);
+  // blocks an SM the registers are capped for (the shared memory allows
+  // four at hd 64, three at hd 72)
+  static constexpr int MIN_BLOCKS = KT > 1 ? 1 : (HD == 64 ? 4 : 3);
 };
 
-__host__ __device__ inline size_t attn_bwd_smem_bytes(int t, int hd) {
-  const size_t ldf = hd + 1, ldb = hd + 2;
-  return (3 * (size_t)t * ldf + 2 * (size_t)t * t + 2 * (size_t)t) * sizeof(float) +
-         4 * (size_t)t * ldb * sizeof(__nv_bfloat16);
-}
+// One thread's share of ROWS rows of a head slice (four lanes a row, two
+// passes), held in registers between the loads and the bf16 tile.
+template <int HD, int KT>
+struct Slice {
+  static constexpr int C4 = HD / 4;         // float4 chunks of a row
+  static constexpr int PER = (C4 + 3) / 4;  // chunks a lane takes
+  static constexpr int STEP = BwdLayout<HD, KT>::THREADS / 4;
+  float4 x[2][PER];
+};
 
-__device__ inline AttnSmem attn_smem(unsigned char* base, int t, int hd) {
-  AttnSmem s;
-  s.ldf = hd + 1;
-  s.ldb = hd + 2;
-  float* f = reinterpret_cast<float*>(base);
-  s.qf = f;
-  s.kf = s.qf + t * s.ldf;
-  s.dz = s.kf + t * s.ldf;
-  s.p = s.dz + t * s.ldf;
-  s.ds = s.p + t * t;
-  s.rq = s.ds + t * t;
-  s.rk = s.rq + t;
-  __nv_bfloat16* b = reinterpret_cast<__nv_bfloat16*>(s.rk + t);
-  s.qn = b;
-  s.kn = s.qn + t * s.ldb;
-  s.vb = s.kn + t * s.ldb;
-  s.dob = s.vb + t * s.ldb;
-  return s;
-}
-
-// dz holds dzn (T x hd); z is the raw f32 row block, r its row norms. One
-// warp per row: dz_row = c*dzn - z*(sum(z*dzn)*sqrt_hd/(r*(r+eps)^2)),
-// written as bf16 into dqkv's column block starting at col0.
-__device__ void normalize_vjp_rows(const AttnSmem& s, const float* z, const float* r,
-                                   __nv_bfloat16* dqkv, int64_t row0, int ld_out, int col0, int t,
-                                   int hd, float sqrt_hd) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, nwarps = THREADS / 32;
-  for (int row = warp; row < t; row += nwarps) {
-    float dot = 0.f;
-    for (int c = lane; c < hd; c += 32) dot += z[row * s.ldf + c] * s.dz[row * s.ldf + c];
-    for (int off = 16; off > 0; off /= 2) dot += __shfl_xor_sync(0xffffffffu, dot, off);
-    const float rr = r[row];
-    const float cc = sqrt_hd / (rr + NORM_EPS);
-    const float k = dot * sqrt_hd / (rr * ((rr + NORM_EPS) * (rr + NORM_EPS)));
-    for (int c = lane; c < hd; c += 32) {
-      const float v = cc * s.dz[row * s.ldf + c] - z[row * s.ldf + c] * k;
-      dqkv[(row0 + row) * ld_out + col0 + c] = __float2bfloat16(v);
+// rows >= `rows` read as zeros
+template <int HD, int KT>
+__device__ __forceinline__ void fetch(Slice<HD, KT>& f, const float* src, int64_t ld, int rows) {
+  using S = Slice<HD, KT>;
+  const int sub = threadIdx.x & 3;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int r = (threadIdx.x >> 2) + p * S::STEP;
+    const float4* row = reinterpret_cast<const float4*>(src + (int64_t)r * ld);
+#pragma unroll
+    for (int j = 0; j < S::PER; ++j) {
+      const int c = sub + 4 * j;
+      f.x[p][j] = (r < rows && c < S::C4) ? __ldg(row + c) : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+// The rows as bf16 into `tile` (pad columns zero). With `norms` given, the
+// rows are normalised first, z*sqrt(hd)/(||z|| + eps) in f32 as the plain
+// version writes it, and ||z|| goes to norms[r]. Rows >= `rows` are zeros
+// and skip the division (an IEEE division of 0 takes its slow path: zero
+// rows made a T=16 block ~1.7x slower than a T=64 one).
+template <int HD, int KT>
+__device__ __forceinline__ void commit(const Slice<HD, KT>& f, __nv_bfloat16* tile, float* norms, int rows) {
+  using D = tiles::Dims<HD>;
+  using S = Slice<HD, KT>;
+  const int sub = threadIdx.x & 3;
+  const float sqrt_hd = sqrtf((float)HD);
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int r = (threadIdx.x >> 2) + p * S::STEP;
+    __nv_bfloat16* dst = tile + r * D::LD;
+    float mul = 1.f, den = 1.f;
+    if (norms != nullptr) {
+      float ss = 0.f;
+#pragma unroll
+      for (int j = 0; j < S::PER; ++j) {
+        const float4 v = f.x[p][j];
+        ss += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+      }
+      const float nrm = sqrtf(tiles::quad_sum(ss));
+      if (sub == 0) norms[r] = nrm;
+      mul = sqrt_hd;
+      den = nrm + tiles::NORM_EPS;
+    }
+    const bool scaled = norms != nullptr && r < rows;
+#pragma unroll
+    for (int j = 0; j < S::PER; ++j) {
+      const int c = sub + 4 * j;
+      if (c < S::C4) {
+        float4 v = f.x[p][j];
+        if (scaled) {
+          v.x = v.x * mul / den;
+          v.y = v.y * mul / den;
+          v.z = v.z * mul / den;
+          v.w = v.w * mul / den;
+        }
+        *reinterpret_cast<uint2*>(dst + 4 * c) = make_uint2(tiles::pack_bf16(v.x, v.y), tiles::pack_bf16(v.z, v.w));
+      }
+    }
+    for (int c = HD + 4 * sub; c < D::KP; c += 16) *reinterpret_cast<uint2*>(dst + c) = make_uint2(0u, 0u);
+  }
+}
+
+// The normalize VJP of the warp's 16 rows r0.. from the dzn accumulators o:
+// dz = c*dzn - z*(Sum(z*dzn)*sqrt(hd)/(r*(r+eps)^2)), c = sqrt(hd)/(r+eps),
+// z the raw f32 rows (zrows + r*ld, read in the fragment layout), r their
+// norms; packed to bf16, rows g and g+8 of each n8 tile.
+template <int HD>
+__device__ __forceinline__ void normalize_vjp(const float (&o)[tiles::Dims<HD>::NT][4],
+                                              uint32_t (&out)[tiles::Dims<HD>::NT][2], const float* zrows,
+                                              int64_t ld, const float* norms, int r0, int t, int lane) {
+  constexpr int NT = tiles::Dims<HD>::NT;
+  const int g = lane >> 2, c = lane & 3;
+  const int ra = r0 + g, rb = ra + 8;
+  float2 za[NT], zb[NT];
+  float dot_a = 0.f, dot_b = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int col = 8 * j + 2 * c;
+    za[j] = ra < t ? __ldg(reinterpret_cast<const float2*>(zrows + (int64_t)ra * ld + col)) : make_float2(0.f, 0.f);
+    zb[j] = rb < t ? __ldg(reinterpret_cast<const float2*>(zrows + (int64_t)rb * ld + col)) : make_float2(0.f, 0.f);
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    dot_a += za[j].x * o[j][0] + za[j].y * o[j][1];
+    dot_b += zb[j].x * o[j][2] + zb[j].y * o[j][3];
+  }
+  dot_a = tiles::quad_sum(dot_a);
+  dot_b = tiles::quad_sum(dot_b);
+  const float sqrt_hd = sqrtf((float)HD);
+  const float na = norms[ra], nb = norms[rb];
+  // rows past T are not stored: they skip the divisions (0 / 0 there)
+  float ca = 0.f, cb = 0.f, ka = 0.f, kb = 0.f;
+  if (ra < t) {
+    ca = sqrt_hd / (na + tiles::NORM_EPS);
+    ka = dot_a * sqrt_hd / (na * ((na + tiles::NORM_EPS) * (na + tiles::NORM_EPS)));
+  }
+  if (rb < t) {
+    cb = sqrt_hd / (nb + tiles::NORM_EPS);
+    kb = dot_b * sqrt_hd / (nb * ((nb + tiles::NORM_EPS) * (nb + tiles::NORM_EPS)));
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    out[j][0] = tiles::pack_bf16(ca * o[j][0] - za[j].x * ka, ca * o[j][1] - za[j].y * ka);
+    out[j][1] = tiles::pack_bf16(cb * o[j][2] - zb[j].x * kb, cb * o[j][3] - zb[j].y * kb);
+  }
+}
+
+template <int HD>
+__device__ __forceinline__ void pack_rows(const float (&o)[tiles::Dims<HD>::NT][4],
+                                          uint32_t (&out)[tiles::Dims<HD>::NT][2]) {
+#pragma unroll
+  for (int j = 0; j < tiles::Dims<HD>::NT; ++j) {
+    out[j][0] = tiles::pack_bf16(o[j][0], o[j][1]);
+    out[j][1] = tiles::pack_bf16(o[j][2], o[j][3]);
+  }
+}
+
+// The warp's 16 rows of one bf16 result (packed fragments) into its own
+// rows of `stage`.
+template <int HD>
+__device__ __forceinline__ void stage_rows(const uint32_t (&v)[tiles::Dims<HD>::NT][2], __nv_bfloat16* stage,
+                                           int r0, int lane) {
+  using D = tiles::Dims<HD>;
+  const int g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int j = 0; j < D::NT; ++j) {
+    *reinterpret_cast<uint32_t*>(stage + (r0 + g) * D::LD + 8 * j + 2 * c) = v[j][0];
+    *reinterpret_cast<uint32_t*>(stage + (r0 + g + 8) * D::LD + 8 * j + 2 * c) = v[j][1];
+  }
+}
+
+// rows r0 .. r0+15 (those < t) of a staged tile to dst + r * ld, 16-byte stores
+template <int HD>
+__device__ __forceinline__ void store_rows(const __nv_bfloat16* stage, __nv_bfloat16* dst, int64_t ld, int r0,
+                                           int t, int lane) {
+  using D = tiles::Dims<HD>;
+  for (int i = lane; i < 16 * D::NT; i += 32) {
+    const int r = r0 + i / D::NT, ch = i % D::NT;
+    if (r < t)
+      *reinterpret_cast<uint4*>(dst + (int64_t)r * ld + 8 * ch) =
+          *reinterpret_cast<const uint4*>(stage + r * D::LD + 8 * ch);
+  }
+}
+
+template <int HD, int KT>
+__global__ void __launch_bounds__(BwdLayout<HD, KT>::THREADS, BwdLayout<HD, KT>::MIN_BLOCKS)
     attention_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dattn,
-                         __nv_bfloat16* __restrict__ dqkv, int t, int heads, int hd) {
+                         __nv_bfloat16* __restrict__ dqkv, int t, int heads) {
+  using D = tiles::Dims<HD>;
+  using L = BwdLayout<HD, KT>;
+  constexpr int KEYS = tiles::KEY_TILES;
   extern __shared__ __align__(16) unsigned char smem[];
-  const AttnSmem s = attn_smem(smem, t, hd);
-  const int tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32, nwarps = THREADS / 32;
-  const int head = blockIdx.x, sample = blockIdx.y;
-  const int d = heads * hd;
-  const int64_t row0 = (int64_t)sample * t;
-  const float* base = qkv + row0 * 3 * d + head * hd;
-  const float* dbase = dattn + row0 * d + head * hd;
-  const float sqrt_hd = sqrtf((float)hd);
-  const float inv_sqrt_hd = 1.f / sqrt_hd;
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);  // qn
+  __nv_bfloat16* sk = sq + L::TILE_ELEMS;                       // kn
+  __nv_bfloat16* sv = sk + L::TILE_ELEMS;                       // v
+  __nv_bfloat16* sd = sv + L::TILE_ELEMS;                       // do
+  __nv_bfloat16* sp = sd + L::TILE_ELEMS;                       // bf16(p), (query, key)
+  __nv_bfloat16* sl = sp + L::P_ELEMS;                          // bf16(dlog), (query, key)
+  float* rq = reinterpret_cast<float*>(sl + L::P_ELEMS);
+  float* rk = rq + L::ROWS;
 
-  for (int i = tid; i < t * hd; i += THREADS) {
-    const int r = i / hd, c = i % hd;
-    const float* row = base + (int64_t)r * 3 * d;
-    s.qf[r * s.ldf + c] = row[c];
-    s.kf[r * s.ldf + c] = row[d + c];
-    s.vb[r * s.ldb + c] = __float2bfloat16(row[2 * d + c]);
-    s.dob[r * s.ldb + c] = __float2bfloat16(dbase[(int64_t)r * d + c]);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, c = lane & 3;
+  const int head = blockIdx.x, sample = blockIdx.y;
+  const int d = heads * HD;
+  const int64_t ld = 3 * (int64_t)d;
+  const float* base = qkv + (int64_t)sample * t * ld + head * HD;
+  const float* dbase = dattn + (int64_t)sample * t * d + head * HD;
+  const int r0 = warp * 16;  // the warp's query rows in phase A, key rows in phase B
+  const bool active = r0 < t;
+  const float inv_sqrt_hd = (float)(1.0 / sqrt((double)HD));
+
+  {
+    Slice<HD, KT> fa, fb;
+    fetch<HD, KT>(fa, base, ld, t);
+    fetch<HD, KT>(fb, base + d, ld, t);
+    commit<HD, KT>(fa, sq, rq, t);
+    commit<HD, KT>(fb, sk, rk, t);
+    fetch<HD, KT>(fa, base + 2 * d, ld, t);
+    fetch<HD, KT>(fb, dbase, d, t);
+    commit<HD, KT>(fa, sv, nullptr, t);
+    commit<HD, KT>(fb, sd, nullptr, t);
   }
   __syncthreads();
-  for (int r = warp; r < 2 * t; r += nwarps) {
-    const float* row = (r < t ? s.qf : s.kf) + (r % t) * s.ldf;
-    float acc = 0.f;
-    for (int c = lane; c < hd; c += 32) acc += row[c] * row[c];
-    for (int off = 16; off > 0; off /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) (r < t ? s.rq : s.rk)[r % t] = sqrtf(acc);
-  }
-  __syncthreads();
-  // qn = q*sqrt_hd/(r+eps), rounded to bf16 for the products
-  for (int i = tid; i < t * hd; i += THREADS) {
-    const int r = i / hd, c = i % hd;
-    s.qn[r * s.ldb + c] = __float2bfloat16(s.qf[r * s.ldf + c] * sqrt_hd / (s.rq[r] + NORM_EPS));
-    s.kn[r * s.ldb + c] = __float2bfloat16(s.kf[r * s.ldf + c] * sqrt_hd / (s.rk[r] + NORM_EPS));
-  }
-  __syncthreads();
-  // logits, then dp = do . v^T (both T x T)
-  for (int i = tid; i < t * t; i += THREADS) {
-    const int r = i / t, c = i % t;
-    float acc = 0.f, dacc = 0.f;
-    for (int j = 0; j < hd; ++j) {
-      acc += __bfloat162float(s.qn[r * s.ldb + j]) * __bfloat162float(s.kn[c * s.ldb + j]);
-      dacc += __bfloat162float(s.dob[r * s.ldb + j]) * __bfloat162float(s.vb[c * s.ldb + j]);
+
+  // phase A, the warp's query rows: S, dP, softmax, dlog, dqn
+  uint32_t dq[D::NT][2];
+  if (active) {
+    float s[KT][KEYS][4], dp[KT][KEYS][4];
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+      tiles::qk_tile<HD>(s[kt], sq, sk + kt * tiles::TILE * D::LD, warp, lane);
+      tiles::qk_tile<HD>(dp[kt], sd, sv + kt * tiles::TILE * D::LD, warp, lane);
     }
-    s.p[i] = acc * inv_sqrt_hd;
-    s.ds[i] = dacc;
-  }
-  __syncthreads();
-  // exact softmax, one warp per row: exp(l - max) / sum
-  for (int r = warp; r < t; r += nwarps) {
-    float m = -INFINITY;
-    for (int c = lane; c < t; c += 32) m = fmaxf(m, s.p[r * t + c]);
-    for (int off = 16; off > 0; off /= 2) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    float sum = 0.f;
-    for (int c = lane; c < t; c += 32) {
-      const float e = expf(s.p[r * t + c] - m);
-      s.p[r * t + c] = e;
-      sum += e;
+    float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+      for (int j = 0; j < KEYS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = kt * tiles::TILE + 8 * j + 2 * c + (e & 1);
+          const float l = col < t ? s[kt][j][e] * inv_sqrt_hd : -INFINITY;
+          s[kt][j][e] = l;
+          if (e < 2) m0 = fmaxf(m0, l);
+          else m1 = fmaxf(m1, l);
+        }
+    m0 = tiles::quad_max(m0);
+    m1 = tiles::quad_max(m1);
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+      for (int j = 0; j < KEYS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = tiles::exp2_approx((s[kt][j][e] - (e < 2 ? m0 : m1)) * tiles::LOG2E);
+          s[kt][j][e] = x;
+          if (e < 2) sum0 += x;
+          else sum1 += x;
+        }
+    // query rows past T take p = 0, so dlog = 0 there too (the shuffles
+    // run on every lane)
+    sum0 = tiles::quad_sum(sum0);
+    sum1 = tiles::quad_sum(sum1);
+    const float inv0 = r0 + g < t ? 1.f / sum0 : 0.f;
+    const float inv1 = r0 + g + 8 < t ? 1.f / sum1 : 0.f;
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+      for (int j = 0; j < KEYS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = s[kt][j][e] * (e < 2 ? inv0 : inv1);
+          s[kt][j][e] = p;
+          if (e < 2) rs0 += dp[kt][j][e] * p;
+          else rs1 += dp[kt][j][e] * p;
+        }
+    rs0 = tiles::quad_sum(rs0);
+    rs1 = tiles::quad_sum(rs1);
+    uint32_t la[KT][KEYS / 2][4];
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+#pragma unroll
+      for (int j = 0; j < KEYS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // dlog = p*(dp - rowsum(dp*p)) / sqrt(hd), in place of dp
+          dp[kt][j][e] = s[kt][j][e] * (dp[kt][j][e] - (e < 2 ? rs0 : rs1)) * inv_sqrt_hd;
+        }
+#pragma unroll
+      for (int j = 0; j < KEYS; ++j) {
+        const int col = kt * tiles::TILE + 8 * j + 2 * c;
+        const int ra = (r0 + g) * L::LDP + col, rb = (r0 + g + 8) * L::LDP + col;
+        *reinterpret_cast<uint32_t*>(sp + ra) = tiles::pack_bf16(s[kt][j][0], s[kt][j][1]);
+        *reinterpret_cast<uint32_t*>(sp + rb) = tiles::pack_bf16(s[kt][j][2], s[kt][j][3]);
+        *reinterpret_cast<uint32_t*>(sl + ra) = tiles::pack_bf16(dp[kt][j][0], dp[kt][j][1]);
+        *reinterpret_cast<uint32_t*>(sl + rb) = tiles::pack_bf16(dp[kt][j][2], dp[kt][j][3]);
+      }
+      tiles::pack_p(la[kt], dp[kt]);
     }
-    for (int off = 16; off > 0; off /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    float dot = 0.f;
-    for (int c = lane; c < t; c += 32) {
-      const float p = s.p[r * t + c] / sum;
-      s.p[r * t + c] = p;
-      dot += s.ds[r * t + c] * p;
+    float o[D::NT][4];
+#pragma unroll
+    for (int j = 0; j < D::NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) tiles::pv_tile<HD>(o, la[kt], sk + kt * tiles::TILE * D::LD, lane);
+    normalize_vjp<HD>(o, dq, base, ld, rq, r0, t, lane);
+  } else {
+    // query rows all past T: p = dlog = 0, which phase B reads as zero
+    // rows of its contraction
+    for (int i = lane; i < 16 * (L::ROWS / 8); i += 32) {
+      const int off = (r0 + i / (L::ROWS / 8)) * L::LDP + 8 * (i % (L::ROWS / 8));
+      *reinterpret_cast<uint4*>(sp + off) = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(sl + off) = make_uint4(0u, 0u, 0u, 0u);
     }
-    for (int off = 16; off > 0; off /= 2) dot += __shfl_xor_sync(0xffffffffu, dot, off);
-    // dlog = p*(dp - rowsum(dp*p)) / sqrt(hd), in place of dp
-    for (int c = lane; c < t; c += 32)
-      s.ds[r * t + c] = s.p[r * t + c] * (s.ds[r * t + c] - dot) * inv_sqrt_hd;
   }
   __syncthreads();
-  // dv = bf16(p)^T . do, straight to dqkv's v columns; dqn = bf16(dlog) . kn
-  for (int i = tid; i < t * hd; i += THREADS) {
-    const int r = i / hd, c = i % hd;
-    float dv = 0.f, dq = 0.f;
-    for (int j = 0; j < t; ++j) {
-      dv += bf(s.p[j * t + r]) * __bfloat162float(s.dob[j * s.ldb + c]);
-      dq += bf(s.ds[r * t + j]) * __bfloat162float(s.kn[j * s.ldb + c]);
+
+  // phase B, the warp's key rows: dv = p^T.do, dkn = dlog^T.qn, the A
+  // operand read transposed from p and dlog
+  uint32_t dk[D::NT][2], dv[D::NT][2];
+  if (active) {
+    const int a_row = (lane & 7) + ((lane >> 4) << 3), a_col = r0 + ((lane >> 3) & 1) * 8;
+    float o[D::NT][4];
+#pragma unroll
+    for (int pass = 0; pass < 2; ++pass) {
+      const __nv_bfloat16* src = pass == 0 ? sp : sl;
+      const __nv_bfloat16* b = pass == 0 ? sd : sq;
+#pragma unroll
+      for (int j = 0; j < D::NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+#pragma unroll
+      for (int qt = 0; qt < KT; ++qt) {
+        uint32_t a[KEYS / 2][4];
+#pragma unroll
+        for (int kk = 0; kk < KEYS / 2; ++kk)
+          tiles::ldsm_x4_trans(a[kk], src + (qt * tiles::TILE + kk * 16 + a_row) * L::LDP + a_col);
+        tiles::pv_tile<HD>(o, a, b + qt * tiles::TILE * D::LD, lane);
+      }
+      if (pass == 0) pack_rows<HD>(o, dv);
+      else normalize_vjp<HD>(o, dk, base + d, ld, rk, r0, t, lane);
     }
-    dqkv[(row0 + r) * 3 * d + 2 * d + head * hd + c] = __float2bfloat16(dv);
-    s.dz[r * s.ldf + c] = dq;
   }
   __syncthreads();
-  normalize_vjp_rows(s, s.qf, s.rq, dqkv, row0, 3 * d, head * hd, t, hd, sqrt_hd);
-  __syncthreads();
-  // dkn = bf16(dlog)^T . qn
-  for (int i = tid; i < t * hd; i += THREADS) {
-    const int r = i / hd, c = i % hd;
-    float dk = 0.f;
-    for (int j = 0; j < t; ++j) dk += bf(s.ds[j * t + r]) * __bfloat162float(s.qn[j * s.ldb + c]);
-    s.dz[r * s.ldf + c] = dk;
+
+  // every tile is free: stage the warp's rows of dq, dk, dv and store them
+  if (active) {
+    stage_rows<HD>(dq, sq, r0, lane);
+    stage_rows<HD>(dk, sk, r0, lane);
+    stage_rows<HD>(dv, sv, r0, lane);
+    __syncwarp();
+    __nv_bfloat16* out = dqkv + (int64_t)sample * t * ld + head * HD;
+    store_rows<HD>(sq, out, ld, r0, t, lane);
+    store_rows<HD>(sk, out + d, ld, r0, t, lane);
+    store_rows<HD>(sv, out + 2 * d, ld, r0, t, lane);
   }
-  __syncthreads();
-  normalize_vjp_rows(s, s.kf, s.rk, dqkv, row0, 3 * d, d + head * hd, t, hd, sqrt_hd);
+}
+
+template <int HD, int KT>
+int launch_attention_bwd(const float* qkv, const float* dattn, __nv_bfloat16* dqkv, int n, int t, int heads,
+                         cudaStream_t stream) {
+  using L = BwdLayout<HD, KT>;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(attention_bwd_kernel<HD, KT>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  attention_bwd_kernel<HD, KT><<<dim3(heads, n), L::THREADS, L::BYTES, stream>>>(qkv, dattn, dqkv, t, heads);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+size_t attention_bwd_bytes(int t) {
+  return t <= tiles::TILE ? BwdLayout<HD, 1>::BYTES : BwdLayout<HD, 2>::BYTES;
 }
 
 // ---------------------------------------------------------------------------
@@ -307,15 +556,15 @@ __global__ void __launch_bounds__(COLS)
 }
 
 // dgain = (sum of the per-block partials) / den, in a fixed order
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(REDUCE_THREADS)
     gain_reduce_kernel(const float* __restrict__ partial, int count, const float* __restrict__ gain,
                        float* __restrict__ dgain) {
-  __shared__ float red[THREADS];
+  __shared__ float red[REDUCE_THREADS];
   float acc = 0.f;
-  for (int i = threadIdx.x; i < count; i += THREADS) acc += partial[i];
+  for (int i = threadIdx.x; i < count; i += REDUCE_THREADS) acc += partial[i];
   red[threadIdx.x] = acc;
   __syncthreads();
-  for (int stride = THREADS / 2; stride > 0; stride /= 2) {
+  for (int stride = REDUCE_THREADS / 2; stride > 0; stride /= 2) {
     if (threadIdx.x < stride) red[threadIdx.x] += red[threadIdx.x + stride];
     __syncthreads();
   }
@@ -339,19 +588,26 @@ extern "C" int gate_residual_bwd(const void* dy, int dy_dtype, const void* out, 
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" size_t attention_bwd_smem_bytes(int t, int hd) { return attn_bwd_smem_bytes(t, hd); }
+// Shared memory of one attention_bwd block, 0 where the kernel does not
+// take (t, hd): head widths 64 and 72, 1 <= t <= 128.
+extern "C" size_t attention_bwd_smem_bytes(int t, int hd) {
+  if (t < 1 || t > 2 * attn_tiles::TILE) return 0;
+  return hd == 64 ? attention_bwd_bytes<64>(t) : hd == 72 ? attention_bwd_bytes<72>(t) : 0;
+}
 
 extern "C" int attention_bwd(const void* qkv, const void* dattn, void* dqkv, int n, int t,
                              int heads, int hd, void* stream) {
-  const size_t smem = attn_bwd_smem_bytes(t, hd);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(heads, n);
-  attention_bwd_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(qkv), static_cast<const float*>(dattn),
-      static_cast<__nv_bfloat16*>(dqkv), t, heads, hd);
-  return static_cast<int>(cudaGetLastError());
+  if (n < 1 || heads < 1 || attention_bwd_smem_bytes(t, hd) == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const float* q = static_cast<const float*>(qkv);
+  const float* da = static_cast<const float*>(dattn);
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(dqkv);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool one = t <= attn_tiles::TILE;
+  if (hd == 64)
+    return one ? launch_attention_bwd<64, 1>(q, da, out, n, t, heads, s)
+               : launch_attention_bwd<64, 2>(q, da, out, n, t, heads, s);
+  return one ? launch_attention_bwd<72, 1>(q, da, out, n, t, heads, s)
+             : launch_attention_bwd<72, 2>(q, da, out, n, t, heads, s);
 }
 
 extern "C" int modulate_fwd(const void* x, int x_dtype, const void* rows, int rows_ld,
@@ -379,7 +635,7 @@ extern "C" int modulate_bwd(const void* dh, const void* x, int x_dtype, const vo
       static_cast<float*>(dshift), static_cast<float*>(dscale), static_cast<float*>(partial), t, d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  gain_reduce_kernel<<<1, THREADS, 0, s>>>(static_cast<const float*>(partial), grid.x * grid.y,
+  gain_reduce_kernel<<<1, REDUCE_THREADS, 0, s>>>(static_cast<const float*>(partial), grid.x * grid.y,
                                            static_cast<const float*>(gain),
                                            static_cast<float*>(dgain));
   return static_cast<int>(cudaGetLastError());

@@ -37,7 +37,8 @@ for the stages between the products):
 The two dW products are plain matmuls, as the Pallas package leaves them to
 XLA outside its streaming kernel; where ``16*D*D <= DW_IN_KERNEL_BUDGET``
 (the Pallas package's predicate for its in-kernel-dW variant, off by default
-there and here) they go through :func:`dw_gemm`, which contracts the bf16
+there and here: the train CLI on the card, bound by the host, ran no faster
+with it, PERF.md) they go through :func:`dw_gemm`, which contracts the bf16
 operands over the N*T rows with f32 sums, split across blocks and reduced in
 a fixed order, and applies 1/sqrt(D) once at the end. Gradient semantics are
 the reference's: the modulate denominator is constant in the gain,
@@ -61,7 +62,7 @@ from mapdit_tpu_torch.ops.cuda.dit_block import (
     RES_DENOM,
     RES_T,
     NORM_EPS,
-    MAX_SMEM_BYTES,
+    ATTENTION_HEAD_WIDTHS,
     _DTYPE_CODE,
     _raise_on,
     _require_cuda,
@@ -95,6 +96,9 @@ _LIB = "attn_branch_bwd"
 # variant is taken when they fit this budget (the Pallas package's predicate
 # and its default: off). Raise it to run the dW products through dw_gemm.
 DW_IN_KERNEL_BUDGET = 0
+# the longest sequence the CUDA attention backward takes: eight warps of 16
+# query rows, two key tiles of 64
+ATTENTION_BWD_MAX_T = 128
 
 
 def dw_in_kernel(d: int) -> bool:
@@ -219,10 +223,22 @@ def attention_bwd_plain(qkv, dattn, tokens, heads, out_dtype):
     return _attention_vjp(qkv, dattn, tokens, heads, out_dtype).to(out_dtype)
 
 
+def check_attention_bwd_shape(tokens: int, hd: int) -> None:
+    """Raise unless the CUDA ``attention_bwd`` takes T = ``tokens`` at head
+    width ``hd``: the head widths of every registry model (each a template
+    instance) and 1 <= T <= ATTENTION_BWD_MAX_T (one warp a 16 query rows, at
+    most eight, keys in tiles of 64)."""
+    if hd not in ATTENTION_HEAD_WIDTHS:
+        raise ValueError(f"attention_bwd on CUDA takes head widths {ATTENTION_HEAD_WIDTHS}, got {hd}")
+    if not 1 <= tokens <= ATTENTION_BWD_MAX_T:
+        raise ValueError(f"attention_bwd on CUDA takes 1 <= T <= {ATTENTION_BWD_MAX_T}, got T={tokens}")
+
+
 def attention_bwd(qkv, dattn, tokens, heads, out_dtype):
     """Attention backward over the flat f32 qkv product (N*T, 3D) and the
     f32 cotangent of the pre-projection attention (N*T, D); returns dqkv
-    (N*T, 3D) in ``out_dtype`` (bf16 on the card), heads as column slices."""
+    (N*T, 3D) in ``out_dtype`` (bf16 on the card), heads as column slices.
+    On the card: :func:`check_attention_bwd_shape`."""
     if qkv.device.type == "cpu":
         return attention_bwd_plain(qkv, dattn, tokens, heads, out_dtype)
     nt, d3 = qkv.shape
@@ -232,15 +248,12 @@ def attention_bwd(qkv, dattn, tokens, heads, out_dtype):
     if dattn.dtype != torch.float32 or dattn.shape != (nt, d) or out_dtype != torch.bfloat16:
         raise ValueError("attention_bwd takes f32 (N*T, D) dattn and writes bf16 dqkv")
     hd = d // heads
-    _require_cuda(qkv, dattn)
-    lib = _lib()
-    smem = lib.attention_bwd_smem_bytes(tokens, hd)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"T={tokens}, hd={hd} needs {smem} bytes of shared memory; the kernel holds at most {MAX_SMEM_BYTES}"
-        )
+    check_attention_bwd_shape(tokens, hd)
     dqkv = torch.empty(nt, d3, dtype=torch.bfloat16, device=qkv.device)
     _require_cuda(qkv, dattn, dqkv)
+    if qkv.data_ptr() % 16 or dattn.data_ptr() % 16:
+        raise ValueError("attention_bwd reads 16 bytes a lane: qkv and dattn must start at a multiple of 16 bytes")
+    lib = _lib()
     code = lib.attention_bwd(qkv.data_ptr(), dattn.data_ptr(), dqkv.data_ptr(), nt // tokens, tokens, heads, hd,
                              _stream(qkv))
     _raise_on(code, lib, "attention_bwd", _LIB)
@@ -353,8 +366,9 @@ def dw_gemm_plain(a, b, alpha):
 def dw_gemm(a, b, alpha):
     """C (P, Q) f32 = alpha * a^T . b for bf16 a (M, P) and b (M, Q), summed
     in f32 over the M rows in a fixed order (the same bits on every run).
-    One count of ``attn_bwd/dw`` is one product (two launches: the partial
-    products of the splits of M, then their sum)."""
+    One count of ``attn_bwd/dw`` is one product (the TMA + wgmma kernel over
+    the splits of M, then, with more than one split, their sum in split
+    order)."""
     if a.device.type == "cpu":
         return dw_gemm_plain(a, b, alpha)
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 or a.ndim != 2 or b.ndim != 2:
@@ -367,13 +381,15 @@ def dw_gemm(a, b, alpha):
                          f"got {tuple(a.shape)} and {tuple(b.shape)}")
     _require_cuda(a, b)
     if a.data_ptr() % 16 or b.data_ptr() % 16:
-        raise ValueError("dw_gemm reads 16 bytes a thread: the operands must start at a multiple of 16 bytes")
+        raise ValueError("dw_gemm reads its operands with TMA: they must start at a multiple of 16 bytes")
     from mapdit_tpu_torch.ops.cuda import build
 
     lib = build.library("dw_gemm")
-    partial = torch.empty(lib.dw_gemm_splits(m, p, q), p, q, dtype=torch.float32, device=a.device)
+    splits = lib.dw_gemm_splits(m, p, q)
+    partial = torch.empty(splits, p, q, dtype=torch.float32, device=a.device) if splits > 1 else None
     c = torch.empty(p, q, dtype=torch.float32, device=a.device)
-    code = lib.dw_gemm(a.data_ptr(), b.data_ptr(), partial.data_ptr(), c.data_ptr(), m, p, q, float(alpha), _stream(a))
+    code = lib.dw_gemm(a.data_ptr(), b.data_ptr(), None if partial is None else partial.data_ptr(), c.data_ptr(),
+                       m, p, q, float(alpha), _stream(a))
     _raise_on(code, lib, "dw_gemm")
     LAUNCHES["attn_bwd/dw"] += 1
     return c

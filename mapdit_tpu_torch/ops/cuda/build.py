@@ -46,6 +46,7 @@ _SIGNATURES = {
     "dw_gemm": {
         "dw_gemm": ([_P, _P, _P, _P, _I, _I, _I, _F, _P], ctypes.c_int),
         "dw_gemm_splits": ([_I, _I, _I], ctypes.c_int),
+        "dw_gemm_planned": ([_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P], ctypes.c_int),
         "dw_gemm_error_string": ([_I], ctypes.c_char_p),
     },
     "cosine_attention": {

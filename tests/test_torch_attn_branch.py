@@ -153,6 +153,49 @@ def test_dw_products_match_jax(dtype):
     torch.testing.assert_close(got, ab.dw_gemm_plain(ta, tb, 1 / np.sqrt(q)), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("n, t, d", [(4, 16, 64), (2, 64, 128)])
+def test_attention_bwd_bf16_roundings_match_jax(n, t, d):
+    """attention_bwd_plain in bf16, the yardstick the CUDA kernel is held to
+    on the card, against the JAX half-block backward's own math in bf16
+    (_attn_bwd_math, the body of the Pallas kernel, called as plain jnp with
+    bf16 weights) on the same numpy-seeded inputs: dqkv rounded to bf16, as
+    the Pallas kernel stores it. The port recomputes qkv and dattn with its
+    plain products (f32 sums in another order), so a few elements land one
+    bf16 rounding away (5e-5 to 6e-4 relative L2 here): held at 2e-3. The
+    same inputs through the products in f32 (no rounding of p, dlog or the
+    normalised rows) land ~3.7e-3 away, outside it, so the check sees the
+    rounding points."""
+    rng = np.random.default_rng(n * t + d)
+
+    def f(*s):
+        return rng.normal(size=s).astype(np.float32)
+
+    x, shift, scale, gate, dy = f(n, t, d), f(n, d), f(n, d), f(n, d), f(n, t, d)
+    bf, f32 = torch.bfloat16, torch.float32
+    wq, wo = (normalize(torch.from_numpy(f(*s))).to(bf) for s in ((3 * d, d), (d, d)))
+    gain, inv_d = np.float32(0.37), 1 / np.sqrt(d)
+    out = jdb._attn_bwd_math(
+        jnp.float32(gain), jnp.asarray(dy), jnp.asarray(x), *(jnp.asarray(v)[:, None] for v in (shift, scale, gate)),
+        *(jnp.asarray(w.float().numpy()).astype(jnp.bfloat16) for w in (wq, wo)), HEADS, inv_d)
+    want = torch.tensor(np.asarray(out[6].astype(jnp.bfloat16).astype(jnp.float32)))
+
+    rows = torch.from_numpy(np.concatenate([shift, scale, gate], axis=1))
+    h = ab.modulate_fwd_plain(torch.from_numpy(x).reshape(n * t, d), rows, torch.tensor([gain]), t, bf)
+    qkv = tdb.mp_gemm_plain(h, wq, alpha=inv_d, out_dtype=f32)
+    attn = tdb.cosine_attention_plain(qkv, t, HEADS, bf, normalize_first=True)
+    y = tdb.mp_gemm_plain(attn, wo, alpha=inv_d, out_dtype=f32)
+    _, dout, _ = ab.gate_residual_bwd_plain(torch.from_numpy(dy), y, rows, 2 * d, t, bf)
+    dattn = tdb.mp_gemm_plain(dout, wo, alpha=inv_d, out_dtype=f32, w_kn=True)
+    got = ab.attention_bwd_plain(qkv, dattn, t, HEADS, bf)
+    assert got.dtype == bf and got.shape == want.shape == (n * t, 3 * d)
+
+    def rel(a):
+        return float((a.float() - want).norm() / want.norm())
+
+    assert rel(got) <= 2e-3, rel(got)
+    assert rel(ab._attention_vjp(qkv, dattn, t, HEADS, f32)) > 2e-3
+
+
 def test_attn_bwd_from_res_matches_fused_backward():
     args = _torch(_args(9, 4))
     dy = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(0))
