@@ -63,7 +63,12 @@ reference (GRAD_TOL) and, bit for bit, to autograd of the reference they
 recompute in the inputs' types. Phase 3 also holds attention_bwd at
 ATTN_BWD_SHAPES (S/2 on the backward's own inputs, B/2's 12 heads, the XL
 head of 72, odd N, the ragged T=16 and T=4, T=96; the same bits on two
-runs; T=129 must raise), dw_gemm (the S/2 and B/2 training shapes and a
+runs; T=129 must raise), the passes around the backward's products
+(modulate_fwd, modulate_bwd, gate_residual_bwd) at MODULATE_SHAPES (S/2 on
+the backward's own tensors, the B/2 and XL/2 widths, odd N, T=16, T=4;
+every output the same bits on two runs; D=388 must raise) and attn_bwd at
+BRANCH_BWD_SHAPES (the B/2 and XL/2 widths, odd N, T=16, T=4), dw_gemm
+(the S/2 and B/2 training shapes and a
 ragged M, the same bits on two runs) and attn_bwd with the dW switch on
 (seven cotangents, no f32 matmul left), and fused_attention at FUSED_SHAPES (B/2
 sampling and training shapes on the model's strided views, the XL head
@@ -439,6 +444,20 @@ DW_PAIRS = {
     "b2": ((TRAIN_BATCH * 64, 2304, 768), (TRAIN_BATCH * 64, 768, 768)),
 }
 BWD_SRC = "mapdit_tpu_torch/csrc/attn_branch_bwd.cu"
+# the modulate passes and the residual backward of the attention half-block:
+# name -> (N, T, D). The S/2 training call (the report rows, on the
+# backward's own tensors in phase 3), then the B/2 and XL/2 widths at batch
+# 256, an odd N, and the registry's T = 16 and T = 4 (16 x 16 latents at
+# patch 4 and 8); D = MODULATE_BAD_D (not a multiple of 8) must raise.
+MODULATE_SHAPES = {
+    "s2": (TRAIN_BATCH, 64, 384),
+    "b2": (TRAIN_BATCH, 64, 768),
+    "xl": (TRAIN_BATCH, 64, 1152),
+    "n3": (3, 64, 384),
+    "t16": (8, 16, 768),
+    "t4": (8, 4, 1152),
+}
+MODULATE_BAD_D = 388
 
 
 def attn_bwd_case(torch, F, gen, dev, name, qkv=None, dattn=None):
@@ -717,7 +736,7 @@ def attn_branch_args(torch, gen, dev, n, t, d, heads):
 def attn_bwd_stages(torch, k, ab, dy, args):
     """The attention half-block backward's intermediates from the plain
     versions, in the order of ``attn_branch._bwd_sequence``: (rows, gain,
-    x, h, qkv, attn, out, dx0, dout, dattn, dqkv, dh), x flat."""
+    x, h, qkv, attn, out, dout, dattn, dqkv, dh), x flat."""
     x, shift, scale, gate, gain, wq, wo, heads = args
     n, t, d = x.shape
     bf, f32, inv_d = torch.bfloat16, torch.float32, 1 / math.sqrt(d)
@@ -728,11 +747,14 @@ def attn_bwd_stages(torch, k, ab, dy, args):
     qkv = k.mp_gemm_plain(h, wq, alpha=inv_d, out_dtype=f32)
     attn = k.cosine_attention_plain(qkv, t, heads, bf, normalize_first=True)
     out = k.mp_gemm_plain(attn, wo, alpha=inv_d, out_dtype=f32)
-    dx0, dout, _ = ab.gate_residual_bwd_plain(dy, out, rows, 2 * d, t, bf)
+    # dout is the second to last output of every form of gate_residual_bwd
+    # (an earlier one returned dx0 first), so tools/attn_bwd_witness.py can
+    # run an older checkout's kernels on the same inputs
+    dout = ab.gate_residual_bwd_plain(dy, out, rows, 2 * d, t, bf)[-2]
     dattn = k.mp_gemm_plain(dout, wo, alpha=inv_d, out_dtype=f32, w_kn=True)
     dqkv = ab.attention_bwd_plain(qkv, dattn, t, heads, bf)
     dh = k.mp_gemm_plain(dqkv, wq, alpha=inv_d, out_dtype=f32, w_kn=True)
-    return rows, g1, xf, h, qkv, attn, out, dx0, dout, dattn, dqkv, dh
+    return rows, g1, xf, h, qkv, attn, out, dout, dattn, dqkv, dh
 
 
 def dgain_terms(torch, stages):
@@ -743,6 +765,153 @@ def dgain_terms(torch, stages):
     shift, scale = (rows[:, i * d:(i + 1) * d].repeat_interleave(t, dim=0) for i in (0, 1))
     g = g1.reshape(())
     return dh * (shift - xf.float() * scale) / torch.sqrt((1 - g) ** 2 + g**2)
+
+
+def modulate_case(torch, gen, dev, name, tensors=None):
+    """One MODULATE_SHAPES entry: x and dy (bf16, flat (N*T, D)), rows
+    (N, 3D) f32 [shift | scale | gate], the gain (0.37), dh and out (f32),
+    drawn from ``gen`` unless ``tensors`` gives them (a dict of those
+    names). Returns ``{kernel: namespace}`` for modulate_fwd, modulate_bwd
+    and gate_residual, with ``run`` and ``plain`` (the wrapper and its plain version), ``check(
+    got)`` (every output against the plain version at 1e-2 + 1e-2 relative,
+    dgain by compare_scalar at 1e-4 (identical f32 inputs: only the order of
+    the sum differs), then a second run to the same bits; returns the max
+    abs error), ``flops``, ``nbytes`` (each input read once, each output
+    written once) and ``library``: for modulate_fwd one torch.addcmul over
+    the (N, T, D) view into a bf16 h with the rows a = scale*(1-g)/den and
+    b = shift*g/den made beforehand, else None (no one call gives the
+    residual's or modulate's backward: dx and three sums)."""
+    import types
+
+    from mapdit_tpu_torch.ops.cuda import attn_branch as ab
+
+    n, t, d = MODULATE_SHAPES[name]
+    mt, bf, f32 = n * t, torch.bfloat16, torch.float32
+    if tensors is None:
+        x, dy = (torch.randn(mt, d, generator=gen, device=dev).to(bf) for _ in range(2))
+        rows = torch.randn(n, 3 * d, generator=gen, device=dev)
+        dh, out = (torch.randn(mt, d, generator=gen, device=dev) for _ in range(2))
+        gain = torch.tensor([0.37], device=dev)
+    else:
+        x, dy, rows, gain, dh, out = (tensors[key] for key in ("x", "dy", "rows", "gain", "dh", "out"))
+    calls = {
+        "modulate_fwd": (lambda: ab.modulate_fwd(x, rows, gain, t, bf),
+                         lambda: ab.modulate_fwd_plain(x, rows, gain, t, bf), ("h",)),
+        "modulate_bwd": (lambda: ab.modulate_bwd(dh, x, rows, gain, dy, t),
+                         lambda: ab.modulate_bwd_plain(dh, x, rows, gain, dy, t), ("dx", "dshift", "dscale", "dgain")),
+        "gate_residual": (lambda: ab.gate_residual_bwd(dy, out, rows, 2 * d, t, bf),
+                          lambda: ab.gate_residual_bwd_plain(dy, out, rows, 2 * d, t, bf), ("dout", "dgate")),
+    }
+    g = gain.reshape(())
+    den = torch.sqrt((1 - g) ** 2 + g**2)
+    a3 = (rows[:, d:2 * d] * ((1 - g) / den)).reshape(n, 1, d)
+    b3 = (rows[:, :d] * (g / den)).reshape(n, 1, d)
+    x3, h3 = x.view(n, t, d), torch.empty(n, t, d, dtype=bf, device=dev)
+    sizes = {  # (flops, bytes)
+        "modulate_fwd": (5 * mt * d, mt * d * (2 + 2) + 2 * n * d * 4 + 4),
+        "modulate_bwd": (10 * mt * d, mt * d * (4 + 2 + 2 + 2) + 2 * n * d * 4 + 2 * n * d * 4 + 4 + 4),
+        "gate_residual": (4 * mt * d, mt * d * (2 + 4 + 2) + n * d * 4 + n * d * 4),
+    }
+    cases = {}
+    for kernel, (run, plain, names) in calls.items():
+        what = f"attn_bwd/{kernel}:{name}"
+
+        def check(got, run=run, plain=plain, names=names, what=what):
+            got = got if isinstance(got, tuple) else (got,)
+            want = plain()
+            want = want if isinstance(want, tuple) else (want,)
+            errs = [compare_scalar(torch, g_, w_, 1e-4, f"{what}:{nm}") if nm == "dgain"
+                    else compare(torch, g_, w_, 1e-2, 1e-2, f"{what}:{nm}") for nm, g_, w_ in zip(names, got, want)]
+            again = run()
+            again = again if isinstance(again, tuple) else (again,)
+            same = all(torch.equal(g_, a_) for g_, a_ in zip(got, again))
+            phase("check", what=f"{what}:same-bits-twice", outputs=",".join(names), ok=same)
+            if not same:
+                raise AssertionError(f"{what}: two runs on the same inputs differ in their bits")
+            return max(errs)
+
+        flops, nbytes = sizes[kernel]
+        library = (lambda: torch.addcmul(b3, x3, a3, out=h3)) if kernel == "modulate_fwd" else None
+        cases[kernel] = types.SimpleNamespace(run=run, plain=plain, check=check, flops=flops, nbytes=nbytes,
+                                              library=library, shape=(n, t, d),
+                                              inputs=dict(x=x, dy=dy, rows=rows, gain=gain, dh=dh, out=out))
+    return cases
+
+
+def modulate_row(torch, case, replaces) -> dict:
+    """A report row of a modulate_case kernel: device ms of CUDA-graph
+    replays for the kernel, its plain version and the library call."""
+    b, by = bound_ms(case.flops, case.nbytes)
+    return dict(source=BWD_SRC, replaces=f"{PALLAS}:{replaces}", ms=graph_ms(torch, case.run),
+                plain_ms=graph_ms(torch, case.plain), bound_ms=b, bound_by=by,
+                library_ms=None if case.library is None else graph_ms(torch, case.library),
+                host_ms=host_ms(torch, case.run))
+
+
+def modulate_shape_checks(torch, gen, dev) -> None:
+    """The modulate passes and the residual backward at their
+    MODULATE_SHAPES entries beside the report rows, checked and timed; then
+    D = MODULATE_BAD_D, which both modulate passes must refuse before
+    anything is launched."""
+    from mapdit_tpu_torch.ops.cuda import attn_branch as ab
+
+    for name in MODULATE_SHAPES:
+        if name == "s2":
+            continue
+        for kernel, case in modulate_case(torch, gen, dev, name).items():
+            case.check(case.run())
+            row = modulate_row(torch, case, None)
+            phase("time", kernel=f"attn_bwd/{kernel}:{name}", shape=case.shape, ms=f"{row['ms']:.4f}",
+                  plain_ms=f"{row['plain_ms']:.4f}", bound_ms=f"{row['bound_ms']:.4f}",
+                  library_ms=row["library_ms"] and f"{row['library_ms']:.4f}")
+    n, t, d = 2, 16, MODULATE_BAD_D
+    x = torch.zeros(n * t, d, dtype=torch.bfloat16, device=dev)
+    rows, gain, dh = torch.zeros(n, 3 * d, device=dev), torch.zeros(1, device=dev), torch.zeros(n * t, d, device=dev)
+    for kernel, call in (("modulate_fwd", lambda: ab.modulate_fwd(x, rows, gain, t, torch.bfloat16)),
+                         ("modulate_bwd", lambda: ab.modulate_bwd(dh, x, rows, gain, x, t))):
+        before = ab.LAUNCHES[f"attn_bwd/{kernel}"]
+        try:
+            call()
+        except ValueError as e:
+            phase("check", what=f"attn_bwd/{kernel}:d{d}", raises="ValueError", message=json.dumps(str(e)),
+                  launched=ab.LAUNCHES[f"attn_bwd/{kernel}"] - before)
+        else:
+            raise AssertionError(f"{kernel} took D={d}, not a multiple of {ab.MODULATE_COLUMNS}")
+
+
+# attn_branch/bwd beside its report row: name -> (N, T, D, heads); the B/2
+# and XL/2 widths, an odd N, T = 16 and T = 4
+BRANCH_BWD_SHAPES = {
+    "b2": (8, 64, 768, 12),
+    "xl": (4, 64, 1152, 16),
+    "n3": (3, 64, 384, 6),
+    "t16": (8, 16, 768, 12),
+    "t4": (8, 4, 1152, 16),
+}
+
+
+def branch_bwd_checks(torch, k, gen, dev) -> None:
+    """attn_branch/bwd at BRANCH_BWD_SHAPES against attn_bwd_plain (the
+    report row's limits: relative L2 1e-2, dgain within 2^-8 of its terms'
+    root-sum-square), and its seven cotangents to the same bits on two
+    runs."""
+    from mapdit_tpu_torch.ops.cuda import attn_branch as ab
+
+    names = ("dx", "dshift", "dscale", "dgate", "dgain", "dw_qkv", "dw_out")
+    for name, (n, t, d, heads) in BRANCH_BWD_SHAPES.items():
+        args, dy = attn_branch_args(torch, gen, dev, n, t, d, heads)
+        terms = dgain_terms(torch, attn_bwd_stages(torch, k, ab, dy, args))
+        got, want = ab.attn_bwd(dy, *args), ab.attn_bwd_plain(dy, *args)
+        for nm, g_, w_ in zip(names, got, want):
+            what = f"attn_branch/bwd:{name}:{nm}"
+            if nm == "dgain":
+                compare_sum(torch, g_, w_, terms, what)
+            else:
+                compare_rel(torch, g_, w_, 1e-2, what)
+        same = all(torch.equal(g_, a_) for g_, a_ in zip(got, ab.attn_bwd(dy, *args)))
+        phase("check", what=f"attn_branch/bwd:{name}:same-bits-twice", ok=same)
+        if not same:
+            raise AssertionError(f"attn_branch/bwd:{name}: two runs on the same inputs differ in their bits")
 
 
 def train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x_s, a_s, gains_s, w0):
@@ -789,7 +958,7 @@ def train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x_s, a_s, gains_s, w0)
     # the backward's intermediates, from the plain versions, as inputs of the
     # sub-kernel checks (the order of attn_branch._bwd_sequence)
     stages = attn_bwd_stages(torch, k, ab, dy, args)
-    rows_, g1, xf, h, qkv, attn, out, dx0, dout, dattn, dqkv, dh = stages
+    rows_, g1, xf, h, qkv, attn, out, dout, dattn, dqkv, dh = stages
     terms = dgain_terms(torch, stages)
 
     got, want = ab.attn_bwd(dy, *args), ab.attn_bwd_plain(dy, *args)
@@ -823,14 +992,21 @@ def train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x_s, a_s, gains_s, w0)
         attention_row(torch, case, "cosine_attention/residual", COSINE_SRC, f"{PALLAS}:1083"), max_abs_err=err,
         path="mega_attn+residual")
 
-    # the backward's three kernels, on identical inputs
-    got, want = ab.gate_residual_bwd(dy, out, rows_, 2 * d, t, bf), ab.gate_residual_bwd_plain(
-        dy, out, rows_, 2 * d, t, bf)
-    err = max(compare(torch, g_, w_, 1e-2, 1e-2, f"attn_bwd/gate_residual:{nm}")
-              for nm, g_, w_ in zip(("dx0", "dout", "dgate"), got, want))
-    row("attn_bwd/gate_residual", BWD_SRC, 630, err, lambda: ab.gate_residual_bwd(dy, out, rows_, 2 * d, t, bf),
-        lambda: ab.gate_residual_bwd_plain(dy, out, rows_, 2 * d, t, bf), 5 * mt * d,
-        mt * d * (2 + 4 + 4 + 2) + n * d * 4 + n * d * 4)
+    # the backward's passes around the products, on identical inputs (device
+    # ms of CUDA-graph replays), then at their other shapes
+    passes = modulate_case(torch, gen, dev, "s2", tensors=dict(x=xf, dy=dy.reshape(mt, d), rows=rows_, gain=g1,
+                                                                dh=dh, out=out))
+    if passes["modulate_bwd"].shape != (n, t, d):
+        raise AssertionError(f"MODULATE_SHAPES' report row {passes['modulate_bwd'].shape} is not the training shape")
+    for kernel, line in (("gate_residual", 630), ("modulate_fwd", 588), ("modulate_bwd", 690)):
+        case = passes[kernel]
+        out_rows[f"attn_bwd/{kernel}"] = dict(modulate_row(torch, case, line), max_abs_err=case.check(case.run()),
+                                              path="mega_attn+pallas")
+    # their own generator: every other row keeps the inputs it drew before
+    # these checks were added
+    mod_gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    modulate_shape_checks(torch, mod_gen, dev)
+    branch_bwd_checks(torch, k, mod_gen, dev)
 
     # attention_bwd on identical inputs (device ms of CUDA-graph replays,
     # SDPA's forward and backward beside), then at its other shapes
@@ -842,20 +1018,6 @@ def train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x_s, a_s, gains_s, w0)
         attention_row(torch, case, "attn_bwd/attention", BWD_SRC, f"{PALLAS}:643"), max_abs_err=err,
         path="mega_attn+pallas")
     attn_bwd_shape_checks(torch, F, gen, dev)
-
-    err = compare(torch, ab.modulate_fwd(xf, rows_, g1, t, bf), ab.modulate_fwd_plain(xf, rows_, g1, t, bf),
-                  1e-2, 1e-2, "attn_bwd/modulate_fwd")
-    row("attn_bwd/modulate_fwd", BWD_SRC, 588, err, lambda: ab.modulate_fwd(xf, rows_, g1, t, bf),
-        lambda: ab.modulate_fwd_plain(xf, rows_, g1, t, bf), 5 * mt * d, mt * d * 2 + 2 * n * d * 4 + mt * d * 2)
-
-    got, want = ab.modulate_bwd(dh, xf, rows_, g1, dx0, t), ab.modulate_bwd_plain(dh, xf, rows_, g1, dx0, t)
-    errs = [compare(torch, g_, w_, 1e-2, 1e-2, f"attn_bwd/modulate_bwd:{nm}")
-            for nm, g_, w_ in zip(("dx", "dshift", "dscale"), got[:3], want[:3])]
-    # identical f32 inputs: only the order of the sum differs
-    e = compare_scalar(torch, got[3], want[3], 1e-4, "attn_bwd/modulate_bwd:dgain")
-    row("attn_bwd/modulate_bwd", BWD_SRC, 690, max(errs + [e]), lambda: ab.modulate_bwd(dh, xf, rows_, g1, dx0, t),
-        lambda: ab.modulate_bwd_plain(dh, xf, rows_, g1, dx0, t), 8 * mt * d,
-        mt * d * (4 + 2 + 4 + 2) + 2 * n * d * 4 + 2 * n * d * 4 + 8)
 
     out_rows["attn_bwd/dw"] = dw_kernel_row(torch, ab, gen, dev, dy, args, (dqkv, h, dout, attn), inv_d, terms)
 

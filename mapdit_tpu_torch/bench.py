@@ -149,9 +149,10 @@ def _profile(out_dir: str, call, table: str, calls: int = 3, steps_per_call: int
     ``steps_per_call`` denoise steps) with torch.profiler (CPU + CUDA):
     write the table of device time by op and kernel to ``out_dir/<table>``
     and return the traced wall ms per step, the device-busy ms per step (the
-    kernels' and copies' own time; one stream, so they do not overlap) and
-    the kernels with the most device time. The caller sets the idle share
-    against the untraced step time."""
+    kernels' and copies' own time; one stream, so they do not overlap), the
+    device launches per step (kernels, copies and fills) and the kernels
+    with the most device time. The caller sets the idle share against the
+    untraced step time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -167,20 +168,15 @@ def _profile(out_dir: str, call, table: str, calls: int = 3, steps_per_call: int
     with open(os.path.join(out_dir, table), "w") as f:
         f.write(events.table(sort_by="self_device_time_total", row_limit=60))
     # device-side events only: a CPU op's row repeats its kernels' time
-    kernels = sorted(
-        (
-            (e.key, e.self_device_time_total)
-            for e in events
-            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
-            and e.self_device_time_total > 0
-        ),
-        key=lambda kv: -kv[1],
-    )
+    device = [e for e in events if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+              and e.self_device_time_total > 0]
+    kernels = sorted(((e.key, e.self_device_time_total) for e in device), key=lambda kv: -kv[1])
     busy_us = sum(us for _, us in kernels)
     return {
         "steps": steps,
         "traced_wall_ms_per_step": 1e3 * wall / steps,
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
+        "device_launches_per_step": sum(e.count for e in device) / steps,
         "top_kernels_ms_per_step": {name[:120]: us / 1e3 / steps for name, us in kernels[:15]},
     }
 

@@ -9,8 +9,8 @@
 // Wout, dh = dqkv . Wqkv) and the stages between them are these kernels:
 //
 //   (a) gate_residual_bwd   y = (x + (gate*out - x)*0.3) / sqrt(0.58):
-//         dx0 = dy*0.7/rd, db = dy*0.3/rd, dgate_rows = sum_t db*out,
-//         dout = bf16(db*gate)
+//         db = dy*0.3/rd, dgate_rows = sum_t db*out, dout = bf16(db*gate)
+//         (the direct path dx0 = dy*0.7/rd is formed by (c))
 //   (b) attention_bwd       one block per (sample, head): recompute the q/k
 //         norms and the exact softmax p of the pre-normalised, bf16-rounded
 //         q/k, then dv = bf16(p)^T bf16(do), dp = bf16(do) bf16(v)^T,
@@ -20,19 +20,20 @@
 //         dz = c*dzn - z*(sum(z*dzn)*sqrt(hd)/(r*(r+eps)^2)), c = sqrt(hd)/(r+eps)
 //   (c) modulate_fwd / modulate_bwd   h = (u + (shift-u)*g)/den, u = x*scale,
 //         den = sqrt((1-g)^2 + g^2) constant in g: h in bf16 for the qkv
-//         GEMM and dW_qkv; du = dh*(1-g)/den, dx = dx0 + du*scale,
+//         GEMM and dW_qkv; du = dh*(1-g)/den, dx = dy*0.7/rd + du*scale,
 //         dshift_rows = sum_t dh * g/den, dscale_rows = sum_t du*x,
 //         dgain = sum(dh*(shift-u))/den over the whole batch.
 //
-// Sums across the sequence run in a fixed order inside one thread (a column
-// of one sample), and dgain's cross-block sum is a second one-block pass
-// over per-block partials in a fixed order: no float atomics, so the bits do
+// No float atomics anywhere: every sum runs in a fixed order, so the bits do
 // not change from run to run (the Pallas grid accumulated the same sums
 // sequentially, l.768-780).
 //
 // Bound on the H100 at the DiT-S/2 training shapes (N = 256, T = 64,
 // D = 384, 6 heads): (a) and (c) are elementwise passes over a few (N, T, D)
-// arrays, memory-bound. (b) reads 4*T*hd f32 (q, k, v, do) and writes
+// arrays, memory-bound: (a) reads dy (bf16) and out (f32) and writes dout
+// (bf16), 51.1 MB, 0.0153 ms; modulate_fwd reads x and writes h (bf16),
+// 25.95 MB, 0.0077 ms; modulate_bwd reads dh (f32), x and dy (bf16) and
+// writes dx (bf16), 64.5 MB, 0.0193 ms. (b) reads 4*T*hd f32 (q, k, v, do) and writes
 // 3*T*hd bf16 per (sample, head) and does 10*T*T*hd flops, ~20 flops a
 // byte against the ~295 of the tensor cores: bound by bytes, 0.0413 ms for
 // the 100.7 MB read and 37.7 MB written at that shape.
@@ -75,17 +76,51 @@
 // The first form of (b) (one 256-thread block per (sample, head) with
 // 117 KB of shared memory, the five T x T x hd products as scalar f32 loops
 // over bf16 values) took 1.1460 ms at the S/2 shape (PERF.md).
+//
+// (c)'s design. Both passes take eight consecutive columns a thread with
+// 16-byte accesses (D % 8 == 0 and 16-byte aligned bases; the wrapper
+// raises otherwise) and the modulate arithmetic of modulate.cuh, the one
+// mp_gemm's prologue runs:
+//   * modulate_fwd: grid (token blocks, N), block (D/8 chunks, RY rows); a
+//     thread reads its eight shift and scale values once and takes
+//     FWD_ROWS token rows of one sample, their loads issued together. The
+//     sample is blockIdx.y: no integer division per element (the first
+//     form took two 64-bit divisions an element).
+//   * modulate_bwd: grid (D/128 column blocks, N or N/2), block (16
+//     chunks, 8 row groups); a thread takes the rows rg, rg + 8, ... of
+//     its sample, BWD_ROWS of them in flight (dh 32, x 16, dy 16 bytes
+//     each, read through the streaming path), and forms the residual's
+//     direct path dx0 = dy*0.7/rd itself (one f32 product, as
+//     gate_residual_bwd stored it before; that f32 array is gone). The row
+//     groups' dshift / dscale sums meet in shared memory in row-group
+//     order; where the grid fills the card four times over, a block takes
+//     two samples, paying its row loads, reductions and ticket half as
+//     often. dgain's per-block partials are summed in block order by the
+//     last block to finish (a ticket counter it resets), in the same
+//     launch. The first form (one thread a column, a serial loop over the
+//     sample's rows with 4- and 2-byte accesses, a second launch for dgain)
+//     was latency-bound.
+//   At S/2 (tools/bench_attention.py --part backward, graph-timed, NVIDIA
+//   H100 80GB HBM3, 700 W; PERF.md): modulate_fwd 0.0083 ms against a byte
+//   bound of 0.0077 (first form 0.0259); modulate_bwd 0.0236 against 0.0192
+//   (first form 0.0488). Forms of modulate_bwd built for the comparison in
+//   one call and not kept: 64-column blocks, loads through the read-only
+//   path and one sample a block were each slower than this form; eight
+//   rows in flight a thread (more registers), 256-thread blocks and four
+//   samples a block were slower still.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
 #include "attention_tiles.cuh"
+#include "modulate.cuh"
 
 namespace {
 
-constexpr int COLS = 128;  // threads of the column kernels
-constexpr int REDUCE_THREADS = 256;
+constexpr int COLS = 128;  // threads of the residual kernel
 
 enum { DT_F32 = 0, DT_BF16 = 1 };
 
@@ -94,22 +129,14 @@ __device__ __forceinline__ float load_f32(const void* p, int dtype, int64_t i) {
                          : __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
 }
 
-__device__ __forceinline__ void store_f32(void* p, int dtype, int64_t i, float v) {
-  if (dtype == DT_F32) {
-    static_cast<float*>(p)[i] = v;
-  } else {
-    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // (a) gated MP residual backward; grid (ceil(D / COLS), N)
 
 __global__ void __launch_bounds__(COLS)
     gate_residual_bwd_kernel(const void* __restrict__ dy, int dy_dtype, const float* __restrict__ out,
                              const float* __restrict__ rows, int rows_ld, int gate_off,
-                             float* __restrict__ dx0, __nv_bfloat16* __restrict__ dout,
-                             float* __restrict__ dgate, int t, int d, float dx_fac, float db_fac) {
+                             __nv_bfloat16* __restrict__ dout, float* __restrict__ dgate, int t, int d,
+                             float db_fac) {
   const int col = blockIdx.x * COLS + threadIdx.x;
   const int sample = blockIdx.y;
   if (col >= d) return;
@@ -117,9 +144,7 @@ __global__ void __launch_bounds__(COLS)
   float acc = 0.f;
   for (int r = 0; r < t; ++r) {
     const int64_t idx = ((int64_t)sample * t + r) * d + col;
-    const float g = load_f32(dy, dy_dtype, idx);
-    dx0[idx] = g * dx_fac;
-    const float db = g * db_fac;
+    const float db = load_f32(dy, dy_dtype, idx) * db_fac;
     acc += db * out[idx];
     dout[idx] = __float2bfloat16(db * gate);
   }
@@ -498,93 +523,186 @@ size_t attention_bwd_bytes(int t) {
 }
 
 // ---------------------------------------------------------------------------
-// (c) modulate forward (elementwise) and backward (grid (ceil(D / COLS), N))
+// (c) modulate forward and backward
 
-__global__ void modulate_fwd_kernel(const void* __restrict__ x, int x_dtype,
-                                    const float* __restrict__ rows, int rows_ld, int shift_off,
-                                    int scale_off, const float* __restrict__ gain,
-                                    __nv_bfloat16* __restrict__ h, int64_t total, int t, int d) {
+constexpr int FWD_THREADS = 256;  // most threads of a modulate_fwd block
+constexpr int FWD_ROWS = 2;       // token rows a modulate_fwd thread takes
+constexpr int BWD_CHUNKS = 16;    // 8-column chunks of a modulate_bwd block: 128 columns
+constexpr int BWD_GROUPS = 8;     // its row groups
+constexpr int BWD_THREADS = BWD_CHUNKS * BWD_GROUPS;
+constexpr int BWD_ROWS = 4;       // rows a modulate_bwd thread has in flight
+constexpr int FOLD_BLOCKS = 4 * 132;  // blocks that fill the H100's SMs four times
+
+// modulate_bwd's blocks that have added their dgain partial; the last one
+// sums the partials and sets it back to 0 (one launch at a time per device:
+// the port launches on one stream)
+__device__ unsigned int modulate_bwd_ticket = 0;
+
+// grid (ceil(t / (RY * FWD_ROWS)), n), block (bx, RY): chunk threadIdx.x
+// (and + bx, ...) of rows threadIdx.y + i * RY of the block's token rows
+template <typename XT>
+__global__ void __launch_bounds__(FWD_THREADS)
+    modulate_fwd_kernel(const XT* __restrict__ x, const float* __restrict__ rows, int rows_ld, int shift_off,
+                        int scale_off, const float* __restrict__ gain, __nv_bfloat16* __restrict__ h, int t,
+                        int d) {
+  const int sample = blockIdx.y;
+  const int r0 = blockIdx.x * blockDim.y * FWD_ROWS + threadIdx.y;
   const float g = *gain;
-  const float den = sqrtf((1.f - g) * (1.f - g) + g * g);
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    const int col = (int)(i % d);
-    const float* mrow = rows + (i / ((int64_t)t * d)) * rows_ld;
-    const float u = load_f32(x, x_dtype, i) * mrow[scale_off + col];
-    h[i] = __float2bfloat16((u + (mrow[shift_off + col] - u) * g) / den);
+  const float den = modulate::denominator(g);
+  const float* mrow = rows + (int64_t)sample * rows_ld;
+  const int64_t base = (int64_t)sample * t * d;
+  for (int c = 8 * threadIdx.x; c < d; c += 8 * blockDim.x) {
+    float v[FWD_ROWS][8], sh[8], sc[8];
+#pragma unroll
+    for (int i = 0; i < FWD_ROWS; ++i) {
+      const int r = r0 + i * blockDim.y;
+      if (r < t) modulate::load8(x + base + (int64_t)r * d + c, v[i]);
+    }
+    modulate::load8(mrow + shift_off + c, sh);
+    modulate::load8(mrow + scale_off + c, sc);
+#pragma unroll
+    for (int i = 0; i < FWD_ROWS; ++i) {
+      const int r = r0 + i * blockDim.y;
+      if (r < t) {
+        modulate::modulate8(v[i], sh, sc, g, den);
+        modulate::store8(h + base + (int64_t)r * d + c, v[i]);
+      }
+    }
   }
 }
 
-__global__ void __launch_bounds__(COLS)
-    modulate_bwd_kernel(const float* __restrict__ dh, const void* __restrict__ x, int x_dtype,
+// grid (ceil(d / (8 * BWD_CHUNKS)), samples), block (BWD_CHUNKS,
+// BWD_GROUPS); block row y takes the samples y, y + gridDim.y, ...
+template <typename XT, typename YT>
+__global__ void __launch_bounds__(BWD_THREADS)
+    modulate_bwd_kernel(const float* __restrict__ dh, const XT* __restrict__ x, const YT* __restrict__ dy,
                         const float* __restrict__ rows, int rows_ld, int shift_off, int scale_off,
-                        const float* __restrict__ gain, const float* __restrict__ dx0,
-                        void* __restrict__ dx, float* __restrict__ dshift,
-                        float* __restrict__ dscale, float* __restrict__ partial, int t, int d) {
-  __shared__ float red[COLS];
-  const int col = blockIdx.x * COLS + threadIdx.x;
-  const int sample = blockIdx.y;
+                        const float* __restrict__ gain, XT* __restrict__ dx, float* __restrict__ dshift,
+                        float* __restrict__ dscale, float* __restrict__ partial, float* __restrict__ dgain, int n,
+                        int t, int d, float dx_fac) {
+  constexpr int BCOLS = 8 * BWD_CHUNKS;
+  __shared__ __align__(16) float red_dh[BWD_GROUPS][BCOLS];
+  __shared__ __align__(16) float red_sc[BWD_GROUPS][BCOLS];
+  __shared__ float red_gain[BWD_THREADS];
+  __shared__ bool last;
+  const int tid = threadIdx.y * BWD_CHUNKS + threadIdx.x;
+  const int col = blockIdx.x * BCOLS + 8 * threadIdx.x;
   const float g = *gain;
-  const float den = sqrtf((1.f - g) * (1.f - g) + g * g);
+  const float den = modulate::denominator(g);
   const float du_fac = (1.f - g) / den;
   float acc_gain = 0.f;
-  if (col < d) {
-    const float* mrow = rows + (int64_t)sample * rows_ld;
-    const float shift = mrow[shift_off + col], scale = mrow[scale_off + col];
-    float acc_dh = 0.f, acc_scale = 0.f;
-    for (int r = 0; r < t; ++r) {
-      const int64_t idx = ((int64_t)sample * t + r) * d + col;
-      const float g_h = dh[idx];
-      const float xv = load_f32(x, x_dtype, idx);
-      const float u = xv * scale;
-      const float du = g_h * du_fac;
-      acc_dh += g_h;
-      acc_gain += g_h * (shift - u);
-      store_f32(dx, x_dtype, idx, dx0[idx] + du * scale);
-      acc_scale += du * xv;
+  for (int sample = blockIdx.y; sample < n; sample += gridDim.y) {
+    float acc_dh[8], acc_sc[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc_dh[e] = acc_sc[e] = 0.f;
+    if (col < d) {
+      const float* mrow = rows + (int64_t)sample * rows_ld;
+      float sh[8], sc[8];
+      modulate::load8(mrow + shift_off + col, sh);
+      modulate::load8(mrow + scale_off + col, sc);
+      const int64_t base = (int64_t)sample * t * d + col;
+      for (int r0 = threadIdx.y; r0 < t; r0 += BWD_GROUPS * BWD_ROWS) {
+        float gh[BWD_ROWS][8], xv[BWD_ROWS][8], yv[BWD_ROWS][8];
+#pragma unroll
+        for (int i = 0; i < BWD_ROWS; ++i) {
+          const int r = r0 + i * BWD_GROUPS;
+          if (r < t) {
+            const int64_t o = base + (int64_t)r * d;
+            modulate::load8_stream(dh + o, gh[i]);
+            modulate::load8_stream(x + o, xv[i]);
+            modulate::load8_stream(dy + o, yv[i]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < BWD_ROWS; ++i) {
+          const int r = r0 + i * BWD_GROUPS;
+          if (r < t) {
+            float out[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              const float u = xv[i][e] * sc[e];
+              const float du = gh[i][e] * du_fac;
+              acc_dh[e] += gh[i][e];
+              acc_gain += gh[i][e] * (sh[e] - u);
+              // dx0 rounded on its own, as gate_residual_bwd stored it
+              out[e] = __fmul_rn(yv[i][e], dx_fac) + du * sc[e];
+              acc_sc[e] += du * xv[i][e];
+            }
+            modulate::store8(dx + base + (int64_t)r * d, out);
+          }
+        }
+      }
     }
-    dshift[(int64_t)sample * d + col] = acc_dh * (g / den);
-    dscale[(int64_t)sample * d + col] = acc_scale;
-  }
-  red[threadIdx.x] = acc_gain;
-  __syncthreads();
-  for (int stride = COLS / 2; stride > 0; stride /= 2) {
-    if (threadIdx.x < stride) red[threadIdx.x] += red[threadIdx.x + stride];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      red_dh[threadIdx.y][8 * threadIdx.x + e] = acc_dh[e];
+      red_sc[threadIdx.y][8 * threadIdx.x + e] = acc_sc[e];
+    }
+    __syncthreads();
+    // the row groups' column sums, in row-group order
+    for (int c = tid; c < BCOLS; c += BWD_THREADS) {
+      float s = 0.f, q = 0.f;
+#pragma unroll
+      for (int i = 0; i < BWD_GROUPS; ++i) {
+        s += red_dh[i][c];
+        q += red_sc[i][c];
+      }
+      const int cc = blockIdx.x * BCOLS + c;
+      if (cc < d) {
+        dshift[(int64_t)sample * d + cc] = s * (g / den);
+        dscale[(int64_t)sample * d + cc] = q;
+      }
+    }
     __syncthreads();
   }
-  if (threadIdx.x == 0) partial[(int64_t)blockIdx.y * gridDim.x + blockIdx.x] = red[0];
+  red_gain[tid] = acc_gain;
+  __syncthreads();
+  for (int stride = BWD_THREADS / 2; stride > 0; stride /= 2) {
+    if (tid < stride) red_gain[tid] += red_gain[tid + stride];
+    __syncthreads();
+  }
+  const unsigned int blocks = gridDim.x * gridDim.y;
+  if (tid == 0) {
+    partial[blockIdx.y * gridDim.x + blockIdx.x] = red_gain[0];
+    __threadfence();
+    last = atomicAdd(&modulate_bwd_ticket, 1u) == blocks - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // the last block: dgain = (sum of the partials in block order) / den
+  float acc = 0.f;
+  for (unsigned int i = tid; i < blocks; i += BWD_THREADS) acc += __ldcg(partial + i);
+  red_gain[tid] = acc;
+  __syncthreads();
+  for (int stride = BWD_THREADS / 2; stride > 0; stride /= 2) {
+    if (tid < stride) red_gain[tid] += red_gain[tid + stride];
+    __syncthreads();
+  }
+  if (tid == 0) {
+    dgain[0] = red_gain[0] / den;
+    modulate_bwd_ticket = 0;
+  }
 }
 
-// dgain = (sum of the per-block partials) / den, in a fixed order
-__global__ void __launch_bounds__(REDUCE_THREADS)
-    gain_reduce_kernel(const float* __restrict__ partial, int count, const float* __restrict__ gain,
-                       float* __restrict__ dgain) {
-  __shared__ float red[REDUCE_THREADS];
-  float acc = 0.f;
-  for (int i = threadIdx.x; i < count; i += REDUCE_THREADS) acc += partial[i];
-  red[threadIdx.x] = acc;
-  __syncthreads();
-  for (int stride = REDUCE_THREADS / 2; stride > 0; stride /= 2) {
-    if (threadIdx.x < stride) red[threadIdx.x] += red[threadIdx.x + stride];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    const float g = *gain;
-    dgain[0] = red[0] / sqrtf((1.f - g) * (1.f - g) + g * g);
-  }
+// 16-byte accesses: eight columns a thread, every base at a multiple of 16
+// bytes (the rows' stride and offsets too: multiples of 4 floats)
+bool modulate_domain(int d, int rows_ld, int shift_off, int scale_off, std::initializer_list<const void*> ptrs) {
+  if (d < 8 || d % 8 || rows_ld % 4 || shift_off % 4 || scale_off % 4) return false;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
 }
 
 }  // namespace
 
 extern "C" int gate_residual_bwd(const void* dy, int dy_dtype, const void* out, const void* rows,
-                                 int rows_ld, int gate_off, void* dx0, void* dout, void* dgate,
-                                 int n, int t, int d, void* stream) {
+                                 int rows_ld, int gate_off, void* dout, void* dgate, int n, int t, int d,
+                                 void* stream) {
   const double t_res = 0.3, rd = sqrt((1.0 - t_res) * (1.0 - t_res) + t_res * t_res);
   dim3 grid((d + COLS - 1) / COLS, n);
   gate_residual_bwd_kernel<<<grid, COLS, 0, static_cast<cudaStream_t>(stream)>>>(
-      dy, dy_dtype, static_cast<const float*>(out), static_cast<const float*>(rows), rows_ld,
-      gate_off, static_cast<float*>(dx0), static_cast<__nv_bfloat16*>(dout),
-      static_cast<float*>(dgate), t, d, (float)((1.0 - t_res) / rd), (float)(t_res / rd));
+      dy, dy_dtype, static_cast<const float*>(out), static_cast<const float*>(rows), rows_ld, gate_off,
+      static_cast<__nv_bfloat16*>(dout), static_cast<float*>(dgate), t, d, (float)(t_res / rd));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -613,32 +731,73 @@ extern "C" int attention_bwd(const void* qkv, const void* dattn, void* dqkv, int
 extern "C" int modulate_fwd(const void* x, int x_dtype, const void* rows, int rows_ld,
                             int shift_off, int scale_off, const void* gain, void* h, int n, int t,
                             int d, void* stream) {
-  const int64_t total = (int64_t)n * t * d;
-  const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
-  modulate_fwd_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, x_dtype, static_cast<const float*>(rows), rows_ld, shift_off, scale_off,
-      static_cast<const float*>(gain), static_cast<__nv_bfloat16*>(h), total, t, d);
+  if (n < 1 || t < 1 || !modulate_domain(d, rows_ld, shift_off, scale_off, {x, rows, h}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks = d / 8;
+  const int bx = chunks < FWD_THREADS ? chunks : FWD_THREADS;
+  // rows a block: a power of two (T = 64 splits evenly), no more than T needs
+  int ry = 1;
+  while (2 * ry * bx <= FWD_THREADS && 2 * ry <= (t + FWD_ROWS - 1) / FWD_ROWS) ry *= 2;
+  const dim3 grid((t + ry * FWD_ROWS - 1) / (ry * FWD_ROWS), n), block(bx, ry);
+  const float* r = static_cast<const float*>(rows);
+  const float* g = static_cast<const float*>(gain);
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(h);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_dtype == DT_F32)
+    modulate_fwd_kernel<float><<<grid, block, 0, s>>>(static_cast<const float*>(x), r, rows_ld, shift_off,
+                                                      scale_off, g, out, t, d);
+  else
+    modulate_fwd_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(static_cast<const __nv_bfloat16*>(x), r, rows_ld,
+                                                              shift_off, scale_off, g, out, t, d);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int modulate_bwd_partials(int n, int d) { return n * ((d + COLS - 1) / COLS); }
+// modulate_bwd's grid: column blocks x rows of blocks; where one sample a
+// block would fill the card four times over, a block takes two samples
+dim3 modulate_bwd_grid(int n, int d) {
+  const int cols = (d + 8 * BWD_CHUNKS - 1) / (8 * BWD_CHUNKS);
+  return dim3(cols, n * cols >= FOLD_BLOCKS ? (n + 1) / 2 : n);
+}
 
-extern "C" int modulate_bwd(const void* dh, const void* x, int x_dtype, const void* rows,
-                            int rows_ld, int shift_off, int scale_off, const void* gain,
-                            const void* dx0, void* dx, void* dshift, void* dscale, void* partial,
-                            void* dgain, int n, int t, int d, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid((d + COLS - 1) / COLS, n);
-  modulate_bwd_kernel<<<grid, COLS, 0, s>>>(
-      static_cast<const float*>(dh), x, x_dtype, static_cast<const float*>(rows), rows_ld,
-      shift_off, scale_off, static_cast<const float*>(gain), static_cast<const float*>(dx0), dx,
-      static_cast<float*>(dshift), static_cast<float*>(dscale), static_cast<float*>(partial), t, d);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  gain_reduce_kernel<<<1, REDUCE_THREADS, 0, s>>>(static_cast<const float*>(partial), grid.x * grid.y,
-                                           static_cast<const float*>(gain),
-                                           static_cast<float*>(dgain));
+extern "C" int modulate_bwd_partials(int n, int d) {
+  const dim3 grid = modulate_bwd_grid(n, d);
+  return grid.x * grid.y;
+}
+
+template <typename XT, typename YT>
+int launch_modulate_bwd(const void* dh, const void* x, const void* dy, const void* rows, int rows_ld, int shift_off,
+                        int scale_off, const void* gain, void* dx, void* dshift, void* dscale, void* partial,
+                        void* dgain, int n, int t, int d, float dx_fac, cudaStream_t stream) {
+  const dim3 grid = modulate_bwd_grid(n, d), block(BWD_CHUNKS, BWD_GROUPS);
+  modulate_bwd_kernel<XT, YT><<<grid, block, 0, stream>>>(
+      static_cast<const float*>(dh), static_cast<const XT*>(x), static_cast<const YT*>(dy),
+      static_cast<const float*>(rows), rows_ld, shift_off, scale_off, static_cast<const float*>(gain),
+      static_cast<XT*>(dx), static_cast<float*>(dshift), static_cast<float*>(dscale), static_cast<float*>(partial),
+      static_cast<float*>(dgain), n, t, d, dx_fac);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int modulate_bwd(const void* dh, const void* x, int x_dtype, const void* dy, int dy_dtype,
+                            const void* rows, int rows_ld, int shift_off, int scale_off, const void* gain,
+                            void* dx, void* dshift, void* dscale, void* partial, void* dgain, int n, int t,
+                            int d, void* stream) {
+  if (n < 1 || t < 1 || !modulate_domain(d, rows_ld, shift_off, scale_off, {dh, x, dy, rows, dx}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const double t_res = 0.3, rd = sqrt((1.0 - t_res) * (1.0 - t_res) + t_res * t_res);
+  const float dx_fac = (float)((1.0 - t_res) / rd);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using bf = __nv_bfloat16;
+  if (x_dtype == DT_F32)
+    return dy_dtype == DT_F32
+               ? launch_modulate_bwd<float, float>(dh, x, dy, rows, rows_ld, shift_off, scale_off, gain, dx, dshift,
+                                                   dscale, partial, dgain, n, t, d, dx_fac, s)
+               : launch_modulate_bwd<float, bf>(dh, x, dy, rows, rows_ld, shift_off, scale_off, gain, dx, dshift,
+                                                dscale, partial, dgain, n, t, d, dx_fac, s);
+  return dy_dtype == DT_F32
+             ? launch_modulate_bwd<bf, float>(dh, x, dy, rows, rows_ld, shift_off, scale_off, gain, dx, dshift,
+                                              dscale, partial, dgain, n, t, d, dx_fac, s)
+             : launch_modulate_bwd<bf, bf>(dh, x, dy, rows, rows_ld, shift_off, scale_off, gain, dx, dshift, dscale,
+                                           partial, dgain, n, t, d, dx_fac, s);
 }
 
 extern "C" const char* attn_branch_bwd_error_string(int code) {

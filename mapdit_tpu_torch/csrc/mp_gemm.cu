@@ -100,6 +100,8 @@
 #include <dlfcn.h>
 #include <stdint.h>
 
+#include "modulate.cuh"
+
 namespace {
 
 constexpr int BM = 128;
@@ -242,13 +244,13 @@ __device__ __forceinline__ float bf16_hi(uint32_t u) { return __uint_as_float(u 
 
 // The prologue pass: A (f32 or bf16), modulated when asked, rounded once to
 // the bf16 copy the product reads; eight elements a thread and step, the
-// modulate in f32 as the plain version writes it.
+// modulate in f32 as the plain version writes it (modulate.cuh).
 template <bool A_F32, bool MOD>
 __global__ void __launch_bounds__(256) mp_gemm_prologue(const void* a, uint4* out, const Params p) {
   float g = 0.f, den = 1.f;
   if (MOD) {
     g = *p.gain;
-    den = sqrtf((1.f - g) * (1.f - g) + g * g);
+    den = modulate::denominator(g);
   }
   const int chunks = p.k / 8;
   const int64_t total = static_cast<int64_t>(p.m) * chunks;
@@ -268,17 +270,7 @@ __global__ void __launch_bounds__(256) mp_gemm_prologue(const void* a, uint4* ou
     if (MOD) {
       const int row = static_cast<int>(q / chunks), col = 8 * static_cast<int>(q % chunks);
       const float* mrow = p.mods + static_cast<int64_t>(row / p.tokens) * p.mods_ld;
-      const float4 sc0 = __ldg(reinterpret_cast<const float4*>(mrow + p.scale_off + col));
-      const float4 sc1 = __ldg(reinterpret_cast<const float4*>(mrow + p.scale_off + col + 4));
-      const float4 sh0 = __ldg(reinterpret_cast<const float4*>(mrow + p.shift_off + col));
-      const float4 sh1 = __ldg(reinterpret_cast<const float4*>(mrow + p.shift_off + col + 4));
-      const float sc[8] = {sc0.x, sc0.y, sc0.z, sc0.w, sc1.x, sc1.y, sc1.z, sc1.w};
-      const float sh[8] = {sh0.x, sh0.y, sh0.z, sh0.w, sh1.x, sh1.y, sh1.z, sh1.w};
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float xs = v[e] * sc[e];
-        v[e] = (xs + (sh[e] - xs) * g) / den;
-      }
+      modulate::apply8(v, mrow + p.shift_off + col, mrow + p.scale_off + col, g, den);
     }
     out[q] = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
   }

@@ -26,11 +26,14 @@ for the stages between the products):
   qkv = h . Wqkv^T / sqrt(D)               mp_gemm
   attn = cosine_attention(qkv), residual   bf16, also the dW_out operand
   out = attn . Wout^T / sqrt(D)            mp_gemm, f32
-  dx0, dout, dgate = gate_residual_bwd(dy, out)          (a)
+  dout, dgate = gate_residual_bwd(dy, out)               (a)
   dattn = dout . Wout / sqrt(D)            mp_gemm reading W as (K, N)
   dqkv = attention_bwd(qkv, dattn)                       (b)
   dh = dqkv . Wqkv / sqrt(D)               mp_gemm reading W as (K, N)
-  dx, dshift, dscale, dgain = modulate_bwd(dh, x, dx0)   (c)
+  dx, dshift, dscale, dgain = modulate_bwd(dh, x, dy)    (c), one launch;
+                                           dx = dy*0.7/rd + du*scale: the
+                                           residual's direct path is formed
+                                           here, no f32 dx0 array
   dWqkv = dqkv^T h / sqrt(D), dWout = dout^T attn / sqrt(D)   torch.matmul, f32,
                                            or dw_gemm (csrc/dw_gemm.cu)
 
@@ -99,6 +102,8 @@ DW_IN_KERNEL_BUDGET = 0
 # the longest sequence the CUDA attention backward takes: eight warps of 16
 # query rows, two key tiles of 64
 ATTENTION_BWD_MAX_T = 128
+# columns a thread of the CUDA modulate passes takes, with 16-byte accesses
+MODULATE_COLUMNS = 8
 
 
 def dw_in_kernel(d: int) -> bool:
@@ -138,18 +143,18 @@ def _gain_value(gain: torch.Tensor) -> torch.Tensor:
 def gate_residual_bwd_plain(dy, out, rows, gate_off, tokens, out_dtype):
     """Plain version of :func:`gate_residual_bwd`."""
     m, d = out.shape
-    dyf = dy.reshape(m, d).float()
-    db = dyf * DB_FAC
+    db = dy.reshape(m, d).float() * DB_FAC
     dgate = (db * out).reshape(m // tokens, tokens, d).sum(dim=1)
     dout = (db * _rows(rows[:, gate_off : gate_off + d], tokens)).to(out_dtype)
-    return dyf * DX_FAC, dout, dgate
+    return dout, dgate
 
 
 def gate_residual_bwd(dy, out, rows, gate_off, tokens, out_dtype):
-    """Backward of y = (x + (gate*out - x)*0.3)/sqrt(0.58) over flat
-    (N*T, D) rows: dy (x's type), out f32, rows (N, *) f32 holding gate at
-    ``gate_off``. Returns dx0 = dy*0.7/rd (f32), dout = dy*0.3/rd*gate
-    (``out_dtype``) and the per-sample dgate rows (N, D) f32."""
+    """Backward of y = (x + (gate*out - x)*0.3)/sqrt(0.58) through its
+    branch, over flat (N*T, D) rows: dy (x's type), out f32, rows (N, *) f32
+    holding gate at ``gate_off``. Returns dout = dy*0.3/rd*gate
+    (``out_dtype``) and the per-sample dgate rows (N, D) f32; the direct
+    path dy*0.7/rd is :func:`modulate_bwd`'s."""
     if out.device.type == "cpu":
         return gate_residual_bwd_plain(dy, out, rows, gate_off, tokens, out_dtype)
     m, d = out.shape
@@ -161,18 +166,17 @@ def gate_residual_bwd(dy, out, rows, gate_off, tokens, out_dtype):
     if gate_off + d > rows.shape[1]:
         raise ValueError("gate offset runs past the rows")
     _check_rows(rows, n)
-    dx0 = torch.empty(m, d, dtype=torch.float32, device=out.device)
     dout = torch.empty(m, d, dtype=torch.bfloat16, device=out.device)
     dgate = torch.empty(n, d, dtype=torch.float32, device=out.device)
-    _require_cuda(dy, out, rows, dx0, dout, dgate)
+    _require_cuda(dy, out, rows, dout, dgate)
     lib = _lib()
     code = lib.gate_residual_bwd(
         dy.data_ptr(), _DTYPE_CODE[dy.dtype], out.data_ptr(), rows.data_ptr(), rows.shape[1], gate_off,
-        dx0.data_ptr(), dout.data_ptr(), dgate.data_ptr(), n, tokens, d, _stream(out),
+        dout.data_ptr(), dgate.data_ptr(), n, tokens, d, _stream(out),
     )
     _raise_on(code, lib, "gate_residual_bwd", _LIB)
     LAUNCHES["attn_bwd/gate_residual"] += 1
-    return dx0, dout, dgate
+    return dout, dgate
 
 
 # ---------------------------------------------------------------------------
@@ -269,6 +273,27 @@ def _modulate_rows(rows, d, tokens):
     return _rows(rows[:, :d], tokens), _rows(rows[:, d : 2 * d], tokens)
 
 
+def check_modulate_shape(d: int) -> None:
+    """Raise unless the CUDA modulate passes take width ``d``: a multiple of
+    MODULATE_COLUMNS (eight columns a thread, 16-byte accesses). Every
+    registry width (256, 384, 768, 1024, 1152) is one."""
+    if d < MODULATE_COLUMNS or d % MODULATE_COLUMNS:
+        raise ValueError(f"the CUDA modulate passes take D a multiple of {MODULATE_COLUMNS}, got D={d}")
+
+
+def _check_modulate_rows(rows, n, d):
+    _check_rows(rows, n)
+    check_modulate_shape(d)
+    if rows.shape[1] < 2 * d or rows.shape[1] % 4:
+        raise ValueError(f"rows must hold shift and scale and be a multiple of 4 floats wide, got {rows.shape[1]}")
+
+
+def _check_aligned(what, *tensors):
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what} reads and writes 16 bytes a thread: its tensors must start at a multiple of 16 "
+                         "bytes")
+
+
 def modulate_fwd_plain(x, rows, gain, tokens, out_dtype):
     """Plain version of :func:`modulate_fwd`."""
     d = x.shape[1]
@@ -281,18 +306,18 @@ def modulate_fwd_plain(x, rows, gain, tokens, out_dtype):
 def modulate_fwd(x, rows, gain, tokens, out_dtype):
     """h = (u + (shift - u)*g) / sqrt((1-g)^2 + g^2), u = x*scale, over flat
     (N*T, D) x with shift at column 0 and scale at column D of the f32 rows;
-    returns h in ``out_dtype`` (bf16 on the card)."""
+    returns h in ``out_dtype`` (bf16 on the card). On the card:
+    :func:`check_modulate_shape` and 16-byte aligned x and rows."""
     if x.device.type == "cpu":
         return modulate_fwd_plain(x, rows, gain, tokens, out_dtype)
     m, d = x.shape
     if x.dtype not in _DTYPE_CODE or out_dtype != torch.bfloat16:
         raise ValueError("modulate_fwd takes f32/bf16 x and writes bf16 h")
-    _check_rows(rows, m // tokens)
-    if rows.shape[1] < 2 * d:
-        raise ValueError("rows must hold shift and scale")
+    _check_modulate_rows(rows, m // tokens, d)
     gain = _gain_value(gain)
     h = torch.empty(m, d, dtype=torch.bfloat16, device=x.device)
     _require_cuda(x, rows, gain, h)
+    _check_aligned("modulate_fwd", x, rows)
     lib = _lib()
     code = lib.modulate_fwd(x.data_ptr(), _DTYPE_CODE[x.dtype], rows.data_ptr(), rows.shape[1], 0, d,
                             gain.data_ptr(), h.data_ptr(), m // tokens, tokens, d, _stream(x))
@@ -301,7 +326,7 @@ def modulate_fwd(x, rows, gain, tokens, out_dtype):
     return h
 
 
-def modulate_bwd_plain(dh, x, rows, gain, dx0, tokens):
+def modulate_bwd_plain(dh, x, rows, gain, dy, tokens):
     """Plain version of :func:`modulate_bwd`."""
     m, d = x.shape
     n = m // tokens
@@ -313,28 +338,31 @@ def modulate_bwd_plain(dh, x, rows, gain, dx0, tokens):
     du = dh * ((1.0 - g) / den)
     dshift = dh.reshape(n, tokens, d).sum(dim=1) * (g / den)
     dgain = (dh * (shift - u)).sum().reshape(1) / den
-    dx = (dx0 + du * scale).to(x.dtype)
+    dx = (dy.reshape(m, d).float() * DX_FAC + du * scale).to(x.dtype)
     dscale = (du * xf).reshape(n, tokens, d).sum(dim=1)
     return dx, dshift, dscale, dgain
 
 
-def modulate_bwd(dh, x, rows, gain, dx0, tokens):
+def modulate_bwd(dh, x, rows, gain, dy, tokens):
     """Backward of :func:`modulate_fwd` with the denominator constant in the
-    gain, plus the residual's direct path: dh f32 (N*T, D), x as given to
-    the forward, dx0 f32. Returns dx = dx0 + du*scale (x's type), the dshift
-    and dscale rows (N, D) f32 and dgain (1,) f32, summed over the batch in a
-    fixed order."""
+    gain, plus the gated residual's direct path: dh f32 (N*T, D), x as given
+    to the forward, dy the residual's cotangent (f32 or bf16, N*T*D
+    elements). Returns dx = dy*0.7/rd + du*scale (x's type), the dshift and
+    dscale rows (N, D) f32 and dgain (1,) f32, summed over the batch in a
+    fixed order. One launch. On the card: :func:`check_modulate_shape` and
+    16-byte aligned tensors."""
     if x.device.type == "cpu":
-        return modulate_bwd_plain(dh, x, rows, gain, dx0, tokens)
+        return modulate_bwd_plain(dh, x, rows, gain, dy, tokens)
     m, d = x.shape
     n = m // tokens
-    if dh.dtype != torch.float32 or dx0.dtype != torch.float32 or dh.shape != (m, d) or dx0.shape != (m, d):
-        raise ValueError("modulate_bwd takes f32 (N*T, D) dh and dx0")
-    if x.dtype not in _DTYPE_CODE:
-        raise ValueError("modulate_bwd takes f32/bf16 x")
-    _check_rows(rows, n)
+    if dh.dtype != torch.float32 or dh.shape != (m, d):
+        raise ValueError("modulate_bwd takes f32 (N*T, D) dh")
+    if x.dtype not in _DTYPE_CODE or dy.dtype not in _DTYPE_CODE or dy.numel() != m * d:
+        raise ValueError("modulate_bwd takes f32/bf16 x and dy of the same size")
+    _check_modulate_rows(rows, n, d)
     gain = _gain_value(gain)
-    _require_cuda(dh, x, rows, gain, dx0)
+    _require_cuda(dh, x, dy, rows, gain)
+    _check_aligned("modulate_bwd", dh, x, dy, rows)
     lib = _lib()
     dev = x.device
     dx = torch.empty_like(x)
@@ -342,11 +370,10 @@ def modulate_bwd(dh, x, rows, gain, dx0, tokens):
     dscale = torch.empty(n, d, dtype=torch.float32, device=dev)
     partial = torch.empty(lib.modulate_bwd_partials(n, d), dtype=torch.float32, device=dev)
     dgain = torch.empty(1, dtype=torch.float32, device=dev)
-    _require_cuda(dh, x, rows, gain, dx0, dx, dshift, dscale, partial, dgain)
     code = lib.modulate_bwd(
-        dh.data_ptr(), x.data_ptr(), _DTYPE_CODE[x.dtype], rows.data_ptr(), rows.shape[1], 0, d, gain.data_ptr(),
-        dx0.data_ptr(), dx.data_ptr(), dshift.data_ptr(), dscale.data_ptr(), partial.data_ptr(), dgain.data_ptr(),
-        n, tokens, d, _stream(x),
+        dh.data_ptr(), x.data_ptr(), _DTYPE_CODE[x.dtype], dy.data_ptr(), _DTYPE_CODE[dy.dtype], rows.data_ptr(),
+        rows.shape[1], 0, d, gain.data_ptr(), dx.data_ptr(), dshift.data_ptr(), dscale.data_ptr(), partial.data_ptr(),
+        dgain.data_ptr(), n, tokens, d, _stream(x),
     )
     _raise_on(code, lib, "modulate_bwd", _LIB)
     LAUNCHES["attn_bwd/modulate_bwd"] += 1
@@ -486,11 +513,12 @@ def _bwd_sequence(dy, x, rows, gain, w_qkv, w_out, heads, gemm, attention, gate_
     qkv = gemm(h, w_qkv, alpha=inv_d, out_dtype=f32, site="qkv")
     attn = attention(qkv, t, heads, dt, normalize_first=True)
     out = gemm(attn, w_out, alpha=inv_d, out_dtype=f32, site="out")
-    dx0, dout, dgate = gate_bwd(dy.reshape(n * t, d), out, rows, 2 * d, t, dt)
+    dyf = dy.reshape(n * t, d)
+    dout, dgate = gate_bwd(dyf, out, rows, 2 * d, t, dt)
     dattn = gemm(dout, w_out, alpha=inv_d, out_dtype=f32, w_kn=True, site="dattn")
     dqkv = attn_bwd_k(qkv, dattn, t, heads, dt)
     dh = gemm(dqkv, w_qkv, alpha=inv_d, out_dtype=f32, w_kn=True, site="dh")
-    dx, dshift, dscale, dgain = mod_bwd(dh, xf, rows, gain, dx0, t)
+    dx, dshift, dscale, dgain = mod_bwd(dh, xf, rows, gain, dyf, t)
     if dw_in_kernel(d):
         # h, dqkv, attn and dout are in the weights' type here, as the Pallas
         # kernel rounds them before its products
@@ -547,11 +575,11 @@ def attn_bwd_from_res(dy, x, shift, scale, gate, gain, w_qkv, w_out, p, attn, he
     h = modulate_fwd_plain(xf, rows, g, t, f32)
     qkv = mp_gemm_plain(h, w_qkv, alpha=inv_d, out_dtype=f32)
     out = mp_gemm_plain(attn2, w_out, alpha=inv_d, out_dtype=f32)
-    dx0, dout, dgate = gate_residual_bwd_plain(dy, out, rows, 2 * d, t, f32)
+    dout, dgate = gate_residual_bwd_plain(dy, out, rows, 2 * d, t, f32)
     dattn = mp_gemm_plain(dout, w_out, alpha=inv_d, out_dtype=f32, w_kn=True)
     dqkv = _attention_vjp(qkv, dattn, t, heads, w_qkv.dtype, p=p)
     dh = mp_gemm_plain(dqkv, w_qkv, alpha=inv_d, out_dtype=f32, w_kn=True)
-    dx, dshift, dscale, dgain = modulate_bwd_plain(dh, xf, rows, g, dx0, t)
+    dx, dshift, dscale, dgain = modulate_bwd_plain(dh, xf, rows, g, dy, t)
     dw_qkv = (dqkv.t() @ h) * inv_d
     dw_out = (dout.t() @ attn2.float()) * inv_d
     return dx.reshape(n, t, d), dshift, dscale, dgate, dgain, dw_qkv, dw_out

@@ -54,13 +54,13 @@ _SIGNATURES = {
         "cosine_attention_error_string": ([_I], ctypes.c_char_p),
     },
     "attn_branch_bwd": {
-        "gate_residual_bwd": ([_P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P], ctypes.c_int),
+        "gate_residual_bwd": ([_P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P], ctypes.c_int),
         "attention_bwd": ([_P, _P, _P, _I, _I, _I, _I, _P], ctypes.c_int),
         "attention_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
         "modulate_fwd": ([_P, _I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P], ctypes.c_int),
         "modulate_bwd_partials": ([_I, _I], ctypes.c_int),
         "modulate_bwd": (
-            [_P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+            [_P, _P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
             ctypes.c_int,
         ),
         "attn_branch_bwd_error_string": ([_I], ctypes.c_char_p),

@@ -184,7 +184,7 @@ def test_attention_bwd_bf16_roundings_match_jax(n, t, d):
     qkv = tdb.mp_gemm_plain(h, wq, alpha=inv_d, out_dtype=f32)
     attn = tdb.cosine_attention_plain(qkv, t, HEADS, bf, normalize_first=True)
     y = tdb.mp_gemm_plain(attn, wo, alpha=inv_d, out_dtype=f32)
-    _, dout, _ = ab.gate_residual_bwd_plain(torch.from_numpy(dy), y, rows, 2 * d, t, bf)
+    dout, _ = ab.gate_residual_bwd_plain(torch.from_numpy(dy), y, rows, 2 * d, t, bf)
     dattn = tdb.mp_gemm_plain(dout, wo, alpha=inv_d, out_dtype=f32, w_kn=True)
     got = ab.attention_bwd_plain(qkv, dattn, t, HEADS, bf)
     assert got.dtype == bf and got.shape == want.shape == (n * t, 3 * d)
@@ -247,10 +247,12 @@ def test_gate_residual_bwd_is_the_residual_vjp():
         return mp_sum(x, gate * out, t=tdb.RES_T)
 
     want_dx, want_dout, want_drows = _vjp(residual, [x, out, rows], dy)
-    dx0, dout, dgate = ab.gate_residual_bwd(dy, out, rows, 2 * d, t, torch.float32)
-    torch.testing.assert_close(dx0, want_dx)
+    dout, dgate = ab.gate_residual_bwd(dy, out, rows, 2 * d, t, torch.float32)
     torch.testing.assert_close(dout, want_dout)
     torch.testing.assert_close(dgate, want_drows[:, 2 * d :])
+    # the direct path x -> y is modulate_bwd's: with dh = 0 its dx is it
+    dx = ab.modulate_bwd(torch.zeros(n * t, d), x, rows, torch.tensor([0.35]), dy, t)[0]
+    torch.testing.assert_close(dx, want_dx)
 
 
 def test_attention_bwd_is_the_attention_vjp():
@@ -269,7 +271,7 @@ def test_attention_bwd_is_the_attention_vjp():
 
 def test_modulate_fwd_and_bwd_are_modulate_and_its_vjp():
     n, t, d = 3, 4, 8
-    x, dh, dx0 = _rand(n, t, d, seed=11), _rand(n * t, d, seed=12), _rand(n * t, d, seed=13)
+    x, dh, dy = _rand(n, t, d, seed=11), _rand(n * t, d, seed=12), _rand(n * t, d, seed=13)
     shift, scale = _rand(n, d, seed=14), _rand(n, d, seed=15)
     gain = torch.tensor([0.35])
     rows = torch.cat([shift, scale, _rand(n, d, seed=16)], dim=1)
@@ -280,11 +282,105 @@ def test_modulate_fwd_and_bwd_are_modulate_and_its_vjp():
     h = ab.modulate_fwd(x.reshape(n * t, d), rows, gain, t, torch.float32)
     torch.testing.assert_close(h, modulate(x, shift, scale, gain))
     want = _vjp(modulate, [x, shift, scale, gain], dh)
-    dx, dshift, dscale, dgain = ab.modulate_bwd(dh, x.reshape(n * t, d), rows, gain, dx0, t)
-    torch.testing.assert_close(dx, dx0 + want[0].reshape(n * t, d))
+    dx, dshift, dscale, dgain = ab.modulate_bwd(dh, x.reshape(n * t, d), rows, gain, dy, t)
+    torch.testing.assert_close(dx, dy * ab.DX_FAC + want[0].reshape(n * t, d))
     torch.testing.assert_close(dshift, want[1])
     torch.testing.assert_close(dscale, want[2])
     torch.testing.assert_close(dgain, want[3])
+
+
+@pytest.mark.parametrize("x_dtype, dy_dtype", [("float32", "float32"), ("bfloat16", "bfloat16"),
+                                               ("bfloat16", "float32")])
+def test_modulate_bwd_forms_dx0_as_the_residual_did(x_dtype, dy_dtype):
+    """modulate_bwd_plain(dh, x, rows, gain, dy, t) gives the same bits as
+    the composition it replaces: gate_residual_bwd's f32 dx0 = dy*DX_FAC,
+    then (dx0 + du*scale) in x's type."""
+    n, t, d = 3, 4, 16
+    x = _rand(n * t, d, seed=21).to(getattr(torch, x_dtype))
+    dy = _rand(n * t, d, seed=22).to(getattr(torch, dy_dtype))
+    dh, rows, gain = _rand(n * t, d, seed=23), _rand(n, 3 * d, seed=24), torch.tensor([0.37])
+    dx = ab.modulate_bwd_plain(dh, x, rows, gain, dy, t)[0]
+    g = gain.reshape(())
+    du = dh * ((1.0 - g) / torch.sqrt((1.0 - g) ** 2 + g**2))
+    dx0 = dy.float() * ab.DX_FAC
+    want = (dx0 + du * tdb._rows(rows[:, d : 2 * d], t)).to(x.dtype)
+    assert dx.dtype == x.dtype and torch.equal(dx, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_modulate_stage_chain_matches_jax_attn_bwd_math(dtype):
+    """The port's stage chain (attn_bwd on CPU tensors: the plain versions of
+    modulate_fwd, the products, cosine_attention, gate_residual_bwd,
+    attention_bwd and modulate_bwd with dy in place of dx0) against JAX's
+    _attn_bwd_math (the Pallas kernel's body, called as plain jnp) on the same
+    numpy-seeded inputs, N = 2, T = 16, D = 64, 2 heads, weights in
+    ``dtype``: dx, dshift, dscale within relative L2 ``tol``, dgain (a sum
+    whose terms cancel) within ``tol`` of its terms' root-sum-square. Both
+    sides round at the same points and sum in f32 in other orders: 7e-8 to
+    3e-7 relative L2 here in f32 and in bf16 (no bf16 rounding tips on these
+    inputs). f32 is held at 1e-5; bf16 at 1e-4, where one tipped rounding of
+    an operand (~4e-3 of that element) would still pass and a rounding left
+    out (attention_bwd's products in f32: 8e-4 to 3.4e-3 here) would not."""
+    tol = {"float32": 1e-5, "bfloat16": 1e-4}[dtype]
+    n, t, d = 2, 16, 64
+    rng = np.random.default_rng(31)
+
+    def f(*s):
+        return rng.normal(size=s).astype(np.float32)
+
+    x, shift, scale, gate, dy = f(n, t, d), f(n, d), f(n, d), f(n, d), f(n, t, d)
+    wdt = getattr(torch, dtype)
+    wq, wo = (normalize(torch.from_numpy(f(*s))).to(wdt) for s in ((3 * d, d), (d, d)))
+    gain, inv_d = np.float32(0.37), 1 / np.sqrt(d)
+    out = jdb._attn_bwd_math(
+        jnp.float32(gain), jnp.asarray(dy), jnp.asarray(x), *(jnp.asarray(v)[:, None] for v in (shift, scale, gate)),
+        *(jnp.asarray(w.float().numpy()).astype(dtype) for w in (wq, wo)), HEADS, inv_d)
+    want = [torch.tensor(np.asarray(v)) for v in out[:5]]
+    got = ab.attn_bwd(torch.from_numpy(dy), torch.from_numpy(x), *(torch.from_numpy(v) for v in (shift, scale, gate)),
+                      torch.tensor(gain), wq, wo, HEADS)
+
+    def rel(a, b):
+        return float((a.float() - b).norm() / b.norm())
+
+    for name, i in (("dx", 0), ("dshift", 1), ("dscale", 2)):
+        assert got[i].shape == want[i].shape, name
+        assert rel(got[i], want[i]) <= tol, (name, rel(got[i], want[i]))
+    # dgain's terms, dh*(shift - x*scale)/den, from the port's own dh
+    f32 = torch.float32
+    xf = torch.from_numpy(x).reshape(n * t, d)
+    rows = torch.from_numpy(np.concatenate([shift, scale, gate], axis=1))
+    h = ab.modulate_fwd_plain(xf, rows, torch.tensor([gain]), t, wdt)
+    qkv = tdb.mp_gemm_plain(h, wq, alpha=inv_d, out_dtype=f32)
+    y = tdb.mp_gemm_plain(tdb.cosine_attention_plain(qkv, t, HEADS, wdt, normalize_first=True), wo, alpha=inv_d,
+                          out_dtype=f32)
+    dout, _ = ab.gate_residual_bwd_plain(torch.from_numpy(dy), y, rows, 2 * d, t, wdt)
+    dattn = tdb.mp_gemm_plain(dout, wo, alpha=inv_d, out_dtype=f32, w_kn=True)
+    dqkv = ab.attention_bwd_plain(qkv, dattn, t, HEADS, wdt)
+    dh = tdb.mp_gemm_plain(dqkv, wq, alpha=inv_d, out_dtype=f32, w_kn=True)
+    shift_r, scale_r = ab._modulate_rows(rows, d, t)
+    terms = dh * (shift_r - xf * scale_r) / np.sqrt((1 - gain) ** 2 + gain**2)
+    rss = float(terms.double().square().sum().sqrt())
+    assert abs(float(got[4].reshape(())) - float(want[4])) <= tol * rss, (float(got[4]), float(want[4]), rss)
+
+
+def test_modulate_passes_raise_outside_their_domain():
+    """The CUDA modulate passes take D a multiple of 8 (16-byte accesses):
+    check_modulate_shape raises on 388 (D of a 97-head model of width 4)
+    and on 12, passes every registry width, and the wrappers raise on a
+    tensor off the CPU outside it before anything is built."""
+    for d in (256, 384, 768, 1024, 1152):
+        ab.check_modulate_shape(d)
+    for d in (388, 12, 4):
+        with pytest.raises(ValueError, match="multiple of 8"):
+            ab.check_modulate_shape(d)
+    n, t, d = 2, 4, 12
+    x = torch.empty(n * t, d, dtype=torch.bfloat16, device="meta")
+    rows, gain = torch.empty(n, 3 * d, device="meta"), torch.empty(1, device="meta")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ab.modulate_fwd(x, rows, gain, t, torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ab.modulate_bwd(torch.empty(n * t, d, device="meta"), x, rows, gain, x, t)
+    assert all(v == 0 for v in ab.LAUNCHES.values()), ab.LAUNCHES
 
 
 # ---------------------------------------------------------------------------

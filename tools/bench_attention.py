@@ -19,7 +19,11 @@ of the same roundings (``chip_smoke.order_witness``).
 
 ``backward``: ``attention_bwd`` (``csrc/attn_branch_bwd.cu``) at every
 shape of ``chip_smoke.ATTN_BWD_SHAPES`` (``attn_bwd_case``'s check, SDPA's
-forward and backward beside) and ``dw_gemm`` (``csrc/dw_gemm.cu``) at the
+forward and backward beside), the passes around the backward's products
+(``modulate_fwd``, ``modulate_bwd`` and ``gate_residual_bwd`` of the same
+source) at every shape of ``chip_smoke.MODULATE_SHAPES``
+(``modulate_case``'s check, ``torch.addcmul`` beside ``modulate_fwd``),
+and ``dw_gemm`` (``csrc/dw_gemm.cu``) at the
 DiT-S/2 and DiT-B/2 training pairs of ``chip_smoke.DW_PAIRS`` and at
 DiT-XL/2's (1e-4 + 1e-4 relative against the plain version, the same bits
 on two runs, the bf16 cuBLAS pair and the f32 ``torch.matmul`` pair
@@ -32,7 +36,9 @@ against the card.
 
 ``--first-form DIR`` names a directory holding earlier sources of the
 part's kernels (e.g. ``mapdit_tpu_torch/csrc`` of a ``git archive`` of an
-earlier tree; their C interfaces are the ones below). They are built with
+earlier tree; their C interfaces are the ones below: the modulate passes'
+first forms took the f32 residual path dx0 that their gate_residual_bwd
+wrote, made here outside the timed call). They are built with
 the port's nvcc flags, called on the same inputs, held to the same check
 and timed new, first, first, new; a shape a first form cannot take (its
 shared memory grows as T^2) is reported as such. Prints one JSON line a
@@ -70,6 +76,10 @@ FIRST_FORM = {
         "attn_branch_bwd": {
             "attention_bwd": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
             "attention_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
+            "gate_residual_bwd": ([_P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P], _I),
+            "modulate_fwd": ([_P, _I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P], _I),
+            "modulate_bwd_partials": ([_I, _I], _I),
+            "modulate_bwd": ([_P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
         },
         "dw_gemm": {"dw_gemm": ([_P, _P, _P, _P, _I, _I, _I, _F, _P], _I), "dw_gemm_splits": ([_I, _I, _I], _I)},
     },
@@ -165,6 +175,67 @@ def first_attention_bwd(torch, lib, case):
     return run, lambda: chip_smoke.rel_l2(run(), case.plain())
 
 
+def first_modulate(torch, lib, kernel, case):
+    """The first form's call of a modulate_case kernel on the case's inputs
+    (x and dy bf16) and its check: every output against the plain version
+    at phase 3's limits, the max abs error returned."""
+    from mapdit_tpu_torch.ops.cuda import attn_branch as ab
+
+    v = case.inputs
+    x, dy, rows, gain, dh, out = (v[key] for key in ("x", "dy", "rows", "gain", "dh", "out"))
+    n, t, d = case.shape
+    dev, f32, bf = x.device, torch.float32, torch.bfloat16
+    dx0 = dy.float() * ab.DX_FAC
+    outs = {
+        "modulate_fwd": (torch.empty(n * t, d, dtype=bf, device=dev),),
+        "modulate_bwd": (torch.empty_like(x), torch.empty(n, d, dtype=f32, device=dev),
+                         torch.empty(n, d, dtype=f32, device=dev), torch.empty(1, dtype=f32, device=dev)),
+        "gate_residual": (torch.empty(n * t, d, dtype=bf, device=dev), torch.empty(n, d, dtype=f32, device=dev)),
+    }[kernel]
+    partial = torch.empty(lib.modulate_bwd_partials(n, d), dtype=f32, device=dev)
+    scratch = torch.empty(n * t, d, dtype=f32, device=dev)  # the dx0 the first gate_residual_bwd writes
+
+    def run():
+        stream = torch.cuda.current_stream().cuda_stream
+        if kernel == "modulate_fwd":
+            code = lib.modulate_fwd(x.data_ptr(), 1, rows.data_ptr(), 3 * d, 0, d, gain.data_ptr(), outs[0].data_ptr(),
+                                    n, t, d, stream)
+        elif kernel == "modulate_bwd":
+            code = lib.modulate_bwd(dh.data_ptr(), x.data_ptr(), 1, rows.data_ptr(), 3 * d, 0, d, gain.data_ptr(),
+                                    dx0.data_ptr(), *(o.data_ptr() for o in outs[:3]), partial.data_ptr(),
+                                    outs[3].data_ptr(), n, t, d, stream)
+        else:
+            code = lib.gate_residual_bwd(dy.data_ptr(), 1, out.data_ptr(), rows.data_ptr(), 3 * d, 2 * d,
+                                         scratch.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(), n, t, d, stream)
+        _raise_on(code)
+        return outs
+
+    def check():
+        got, want = run(), case.plain()
+        want = want if isinstance(want, tuple) else (want,)
+        return max(chip_smoke.compare(torch, g_, w_, 1e-2, 1e-2, f"{kernel}:first:{i}")
+                   for i, (g_, w_) in enumerate(zip(got, want)))
+
+    return run, check
+
+
+def modulate_rows(torch, gen, dev, first) -> list:
+    rows = []
+    for name in chip_smoke.MODULATE_SHAPES:
+        for kernel, case in chip_smoke.modulate_case(torch, gen, dev, name).items():
+            err = case.check(case.run())
+            row = chip_smoke.modulate_row(torch, case, None)
+            row.update(name=f"{kernel}:{name}", shape=list(case.shape), max_abs_err=err)
+            if first is not None:
+                with_first_form(torch, row, case.run, first_modulate(torch, first["attn_branch_bwd"], kernel, case))
+            row["x_bound"] = row["ms"] / row["bound_ms"]
+            if row["library_ms"]:
+                row["x_library"] = row["ms"] / row["library_ms"]
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    return rows
+
+
 def first_dw(torch, lib, a, b, alpha):
     m, p = a.shape
     q = b.shape[1]
@@ -247,7 +318,7 @@ def backward_rows(torch, F, gen, dev, first) -> list:
         row["x_library"] = row["ms"] / row["library_ms"]
         rows.append(row)
         print(json.dumps(row), flush=True)
-    return rows + dw_rows(torch, gen, dev, first)
+    return rows + modulate_rows(torch, gen, dev, first) + dw_rows(torch, gen, dev, first)
 
 
 def dw_check(torch, ab, got, run, a, b, alpha, what) -> float:

@@ -7,12 +7,16 @@ device time of each kernel a call launches (prologue pass, product, split-K
 sum) and, optionally, the first form of the kernel on the same inputs.
 
     python tools/bench_mp_gemm.py [--first-form PATH/mp_gemm.cu] \\
-        [--out results/bench_mp_gemm.json]
+        [--parent PATH/mp_gemm.cu] [--out results/bench_mp_gemm.json]
 
 ``--first-form`` builds the given source (the WMMA form this one replaced, e.g.
 ``mapdit_tpu_torch/csrc/mp_gemm.cu`` from a ``git archive`` of an earlier tree)
 with the port's nvcc flags, calls it through its C interface (no workspace
-arguments) and holds it to the same rule. Prints one JSON line a shape and
+arguments) and holds it to the same rule. ``--parent`` builds an earlier
+source with this tree's C interface (e.g. the parent commit's, from a ``git
+archive``) and runs every shape through both libraries on the same inputs:
+whether the outputs have the same bits, and both device times, in turns
+(this tree, parent, parent, this tree). Prints one JSON line a shape and
 the card's name and power limit; writes all of it to ``--out``.
 """
 
@@ -43,6 +47,34 @@ def load_first_form(build, source: str):
     lib.mp_gemm.argtypes = FIRST_FORM_ARGS
     lib.mp_gemm.restype = ctypes.c_int
     return lib
+
+
+def load_parent(build, source: str):
+    """``source`` built as a library with this tree's C interface."""
+    target = build.BUILD_DIR / "mp_gemm_parent.so"
+    target.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(target), source], check=True)
+    lib = ctypes.CDLL(str(target))
+    for fn, (argtypes, restype) in build._SIGNATURES["mp_gemm"].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
+
+
+def against_parent(torch, build, k, parent, kw) -> dict:
+    """One shape through this tree's library and ``parent`` (the wrapper
+    reads the library from ``build``'s cache): same bits, and the device
+    ms of each in turns."""
+    ours = build.library("mp_gemm")
+    outs, times = {}, {"ms": [], "parent_ms": []}
+    try:
+        for which in ("ms", "parent_ms", "parent_ms", "ms"):
+            build._LIBS["mp_gemm"] = ours if which == "ms" else parent
+            outs[which] = k.mp_gemm(**kw).clone()
+            times[which].append(chip_smoke.graph_ms(torch, lambda: k.mp_gemm(**kw)))
+    finally:
+        build._LIBS["mp_gemm"] = ours
+    return dict(same_bits_as_parent=bool(torch.equal(outs["ms"], outs["parent_ms"])), **times)
 
 
 def first_form_call(torch, lib, kw):
@@ -99,6 +131,7 @@ def kernel_ms(torch, fn, iters: int = 20) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--first-form", default=None, help="source of the first mp_gemm.cu to time beside")
+    parser.add_argument("--parent", default=None, help="an earlier mp_gemm.cu with this tree's C interface")
     parser.add_argument("--out", default=os.path.join(REPO, "results", "bench_mp_gemm.json"))
     args = parser.parse_args()
 
@@ -118,6 +151,7 @@ def main() -> int:
     print(json.dumps({"build_seconds": time.perf_counter() - t0, "compiled": compiled}), flush=True)
     report = {"device": smi, "shapes": []}
     first = load_first_form(build, args.first_form) if args.first_form else None
+    parent = load_parent(build, args.parent) if args.parent else None
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
     for name, spec in chip_smoke.GEMM_SHAPES.items():
@@ -129,6 +163,8 @@ def main() -> int:
             run = first_form_call(torch, first, kw)
             chip_smoke.compare(torch, run(), k.mp_gemm_plain(**kw), 1e-2, 1e-2, f"first-form/{name}")
             row["first_form_ms"] = chip_smoke.graph_ms(torch, run)
+        if parent is not None:
+            row["against_parent"] = against_parent(torch, build, k, parent, kw)
         row["x_library"] = row["ms"] / row["library_ms"]
         report["shapes"].append(row)
         print(json.dumps(row), flush=True)
