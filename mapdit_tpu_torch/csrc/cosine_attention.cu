@@ -69,88 +69,12 @@
 #include <stdint.h>
 
 #include "attention_tiles.cuh"
+#include "cosine_tiles.cuh"
 
 namespace {
 
 using namespace attn_tiles;
-
-// Rows [0, TILE) of one head slice of the f32 qkv, a thread's share held
-// in registers between the loads (fetch) and the bf16 tile (commit), so
-// that several tiles' loads are in flight at once.
-template <int HD>
-struct Rows {
-  static constexpr int C4 = HD / 4;         // float4 chunks of a row
-  static constexpr int PER = (C4 + 3) / 4;  // chunks a lane takes, four lanes a row
-  static constexpr int PASSES = TILE / (THREADS / 4);
-  float4 x[PASSES][PER];
-};
-
-// rows >= `rows` read as zeros
-template <int HD>
-__device__ __forceinline__ void fetch(Rows<HD>& f, const float* src, int64_t ld_src, int rows) {
-  using R = Rows<HD>;
-  const int sub = threadIdx.x & 3;
-#pragma unroll
-  for (int p = 0; p < R::PASSES; ++p) {
-    const int r = (threadIdx.x >> 2) + p * (THREADS / 4);
-    const float4* row = reinterpret_cast<const float4*>(src + (int64_t)r * ld_src);
-#pragma unroll
-    for (int j = 0; j < R::PER; ++j) {
-      const int c = sub + 4 * j;
-      f.x[p][j] = (r < rows && c < R::C4) ? __ldg(row + c) : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  }
-}
-
-// the bf16 rows (pad columns zero) into `tile`; scale[r] = sqrt(hd) /
-// (||row|| + eps) from the f32 values, when scale is given
-template <int HD>
-__device__ __forceinline__ void commit(const Rows<HD>& f, __nv_bfloat16* tile, float* scale) {
-  using D = Dims<HD>;
-  using R = Rows<HD>;
-  const int sub = threadIdx.x & 3;
-  const float sqrt_hd = sqrtf((float)HD);
-#pragma unroll
-  for (int p = 0; p < R::PASSES; ++p) {
-    const int r = (threadIdx.x >> 2) + p * (THREADS / 4);
-    __nv_bfloat16* dst = tile + r * D::LD;
-    float ss = 0.f;
-#pragma unroll
-    for (int j = 0; j < R::PER; ++j) {
-      const int c = sub + 4 * j;
-      if (c < R::C4) {
-        const float4 v = f.x[p][j];
-        ss += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
-        *reinterpret_cast<uint2*>(dst + 4 * c) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
-      }
-    }
-    for (int c = HD + 4 * sub; c < D::KP; c += 16) *reinterpret_cast<uint2*>(dst + c) = make_uint2(0u, 0u);
-    ss = quad_sum(ss);
-    if (scale != nullptr && sub == 0) scale[r] = sqrt_hd / (sqrtf(ss) + NORM_EPS);
-  }
-}
-
-// ex = exp(l - sqrt(hd)) for the warp's rows against one key tile, in the
-// S fragment layout; keys >= `keys` give 0
-template <int HD>
-__device__ __forceinline__ void exp_tile(float (&s)[KEY_TILES][4], const __nv_bfloat16* sq,
-                                         const __nv_bfloat16* sk, const float* qsc, const float* ksc,
-                                         int keys, int warp, int lane) {
-  qk_tile<HD>(s, sq, sk, warp, lane);
-  const float sqrt_hd = sqrtf((float)HD);
-  const float inv_hd = 1.f / sqrt_hd;
-  const int g = lane >> 2, c = lane & 3;
-  const float r0 = qsc[warp * 16 + g], r1 = qsc[warp * 16 + g + 8];
-#pragma unroll
-  for (int j = 0; j < KEY_TILES; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = 8 * j + 2 * c + (e & 1);
-      const float l = s[j][e] * inv_hd * (e < 2 ? r0 : r1) * ksc[col];
-      s[j][e] = col < keys ? exp2_approx((l - sqrt_hd) * LOG2E) : 0.f;
-    }
-  }
-}
+using namespace cosine_tiles;
 
 template <int HD, bool RESIDUAL>
 __global__ void __launch_bounds__(THREADS)
@@ -173,7 +97,7 @@ __global__ void __launch_bounds__(THREADS)
   const int tiles = (t + TILE - 1) / TILE;
 
   Rows<HD> fq, fk, fv;
-  fetch<HD>(fq, base + q0 * ld, ld, rows);
+  fetch<HD>(fq, base + q0 * ld, ld, rows, threadIdx.x);
 
   float s[KEY_TILES][4];
   uint32_t pa[KEY_TILES / 2][4];
@@ -184,10 +108,10 @@ __global__ void __launch_bounds__(THREADS)
 
   if (RESIDUAL && tiles > 1) {  // first sweep: the row sums
     for (int kt = 0; kt < tiles; ++kt) {
-      fetch<HD>(fk, base + d + kt * TILE * ld, ld, min(TILE, t - kt * TILE));
+      fetch<HD>(fk, base + d + kt * TILE * ld, ld, min(TILE, t - kt * TILE), threadIdx.x);
       __syncthreads();
-      if (kt == 0) commit<HD>(fq, sq, qsc);
-      commit<HD>(fk, sk, ksc);
+      if (kt == 0) commit<HD>(fq, sq, qsc, threadIdx.x);
+      commit<HD>(fk, sk, ksc, threadIdx.x);
       __syncthreads();
       if (active) {
         exp_tile<HD>(s, sq, sk, qsc, ksc, t - kt * TILE, warp, lane);
@@ -203,12 +127,12 @@ __global__ void __launch_bounds__(THREADS)
     p_rows = p_out + ((int64_t)sample * heads + head) * t * t + (int64_t)(q0 + warp * 16 + g) * t;
   for (int kt = 0; kt < tiles; ++kt) {
     const int keys = t - kt * TILE;
-    fetch<HD>(fk, base + d + kt * TILE * ld, ld, min(TILE, keys));
-    fetch<HD>(fv, base + 2 * d + kt * TILE * ld, ld, min(TILE, keys));
+    fetch<HD>(fk, base + d + kt * TILE * ld, ld, min(TILE, keys), threadIdx.x);
+    fetch<HD>(fv, base + 2 * d + kt * TILE * ld, ld, min(TILE, keys), threadIdx.x);
     __syncthreads();
-    if (kt == 0 && !(RESIDUAL && tiles > 1)) commit<HD>(fq, sq, qsc);
-    commit<HD>(fk, sk, ksc);
-    commit<HD>(fv, sv, nullptr);
+    if (kt == 0 && !(RESIDUAL && tiles > 1)) commit<HD>(fq, sq, qsc, threadIdx.x);
+    commit<HD>(fk, sk, ksc, threadIdx.x);
+    commit<HD>(fv, sv, nullptr, threadIdx.x);
     __syncthreads();
     if (!active) continue;
     exp_tile<HD>(s, sq, sk, qsc, ksc, keys, warp, lane);

@@ -1,6 +1,7 @@
 """Importance sampling over diffusion timesteps, port of
 ``mapdit_tpu/diffusion/timestep_sampler.py`` for one process (the all-gather
-of the data-parallel layout comes with ROADMAP A.8).
+of the data-parallel layout comes with the ROADMAP item "Multi-GPU layouts,
+the rest").
 
 ``UniformSampler`` and ``LossSecondMomentResampler``; the resampler's state
 (a ring of the last losses seen at each timestep) is two tensors on the

@@ -22,7 +22,7 @@ import time
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "mapdit_tpu_torch"
-SOURCES = ("mp_gemm", "cosine_attention", "attn_branch_bwd", "fused_attention", "dw_gemm")
+SOURCES = ("mp_gemm", "cosine_attention", "attn_branch_bwd", "fused_attention", "dw_gemm", "dit_stack")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -48,6 +48,12 @@ _SIGNATURES = {
         "dw_gemm_splits": ([_I, _I, _I], ctypes.c_int),
         "dw_gemm_planned": ([_P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P], ctypes.c_int),
         "dw_gemm_error_string": ([_I], ctypes.c_char_p),
+    },
+    "dit_stack": {
+        "dit_stack": ([_P] * 17 + [_I] * 12 + [_F, _F, _P, _P], ctypes.c_int),
+        "dit_stack_resident_ctas": ([_I], ctypes.c_int),
+        "dit_stack_smem_bytes": ([], ctypes.c_int),
+        "dit_stack_error_string": ([_I], ctypes.c_char_p),
     },
     "cosine_attention": {
         "cosine_attention": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], ctypes.c_int),

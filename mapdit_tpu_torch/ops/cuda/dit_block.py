@@ -5,7 +5,7 @@ Port of the Pallas whole-block and whole-stack megakernels
 ``_fwd_impl``/``_kernel``, ``fused_dit_stack`` over
 ``_stack_fwd_impl``/``_stack_kernel``, both running ``_block_body`` with the
 attention core ``_attention_core``). The port carries the math, not the TPU
-tiling: a block is a sequence of two hand-written CUDA kernels,
+tiling. A block is
 
   1. mods (N, 6D) f32   = mp_gemm(a, w_mod) / sqrt(D)
   2. qkv (N*T, 3D) f32  = mp_gemm(modulate(x; shift_msa, scale_msa, gain_msa), w_qkv) / sqrt(D)
@@ -16,8 +16,17 @@ tiling: a block is a sequence of two hand-written CUDA kernels,
 
 with the Pallas body's types: the stream is f32 inside a block and x's type
 between blocks; every product takes operands of the weights' type and sums
-in f32. ``csrc/mp_gemm.cu`` and ``csrc/cosine_attention.cu`` hold the
-kernels and their notes on bounds and design.
+in f32. On the card ``fused_dit_stack`` and ``fused_dit_block`` (the same at
+depth 1) run all of it as one persistent kernel, :func:`dit_stack`
+(``csrc/dit_stack.cu``: the modulation rows of every block first, then the
+blocks' tiles as one work list whose items wait only on their own row
+tile's earlier stage, on the tile pipeline of ``csrc/mp_gemm.cu`` and the
+attention tiles of ``csrc/cosine_attention.cu``); :func:`stack_plan` lays
+out its work. The
+sequence of separate launches above (:func:`stack_launch_sequence`, the
+route before it) stays as the yardstick, and the TP islands and the
+attention half-block launch ``mp_gemm`` and ``cosine_attention`` on their
+own. The sources hold the notes on bounds and design.
 
 Each wrapper takes its kernel for a CUDA tensor (and raises on what the
 kernel does not take) and its plain PyTorch version for a CPU tensor; there
@@ -61,6 +70,7 @@ LAUNCHES = {
     "cosine_attention/residual": 0,
     "fused_dit_block": 0,
     "fused_dit_stack": 0,
+    "dit_stack": 0,
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -361,28 +371,35 @@ def _block_sequence(
     gemm: Callable, attention: Callable,
 ):
     """The six-launch block forward (module docstring), writing ``out``."""
+    mods = gemm(a, w_mod, alpha=1.0 / math.sqrt(x.shape[-1]), out_dtype=torch.float32, out=scratch.mods,
+                site="modulation")
+    return _block_stages(x, mods, 0, gains, w_qkv, w_out, w1, w2, heads, scratch, out, gemm, attention)
+
+
+def _block_stages(x, mods, base, gains, w_qkv, w_out, w1, w2, heads, scratch, out, gemm, attention):
+    """Steps 2-6 of a block over its modulation rows, columns ``base`` ..
+    ``base + 6D`` of ``mods``, writing ``out``."""
     n, t, d = x.shape
     hidden = w1.shape[0]
     dt = w_qkv.dtype
     inv_d = 1.0 / math.sqrt(d)
     xf = x.reshape(n * t, d)
     s = scratch
-    mods = gemm(a, w_mod, alpha=inv_d, out_dtype=torch.float32, out=s.mods, site="modulation")
     qkv = gemm(
-        xf, w_qkv, alpha=inv_d, out_dtype=torch.float32, modulate=(mods, 0, d, gains[0:1]),
+        xf, w_qkv, alpha=inv_d, out_dtype=torch.float32, modulate=(mods, base, base + d, gains[0:1]),
         tokens=t, out=s.qkv, site="qkv",
     )
     attn = attention(qkv, t, heads, dt, out=s.attn)
     x1 = gemm(
-        attn, w_out, alpha=inv_d, out_dtype=torch.float32, residual=(xf, mods, 2 * d),
+        attn, w_out, alpha=inv_d, out_dtype=torch.float32, residual=(xf, mods, base + 2 * d),
         tokens=t, out=s.x1, site="out",
     )
     h = gemm(
-        x1, w1, alpha=inv_d, out_dtype=dt, modulate=(mods, 3 * d, 4 * d, gains[1:2]), silu=True,
+        x1, w1, alpha=inv_d, out_dtype=dt, modulate=(mods, base + 3 * d, base + 4 * d, gains[1:2]), silu=True,
         tokens=t, out=s.h, site="fc1",
     )
     gemm(
-        h, w2, alpha=1.0 / math.sqrt(hidden), out_dtype=x.dtype, residual=(x1, mods, 5 * d),
+        h, w2, alpha=1.0 / math.sqrt(hidden), out_dtype=x.dtype, residual=(x1, mods, base + 5 * d),
         tokens=t, out=out.reshape(n * t, d), site="fc2",
     )
     return out
@@ -408,27 +425,6 @@ def _check_block_args(x, a, gains, weights, depth: Optional[int]):
             raise ValueError("gains must be f32")
 
 
-def _fused_dit_block_fwd(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
-    weights = (w_mod, w_qkv, w_out, w1, w2)
-    _check_block_args(x, a, gains, weights, None)
-    n, t, d = x.shape
-    scratch = BlockScratch.allocate(n, t, d, w1.shape[0], w_qkv.dtype, x.device)
-    out = _block_sequence(x, a, gains, *weights, heads, scratch, torch.empty_like(x), mp_gemm, cosine_attention)
-    if x.device.type == "cuda":
-        LAUNCHES["fused_dit_block"] += 1
-    return out
-
-
-def fused_dit_block_plain(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
-    """Plain version of :func:`fused_dit_block`'s forward on any device."""
-    n, t, d = x.shape
-    scratch = BlockScratch.allocate(n, t, d, w1.shape[0], w_qkv.dtype, x.device)
-    return _block_sequence(
-        x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads, scratch, torch.empty_like(x),
-        mp_gemm_plain, cosine_attention_plain,
-    )
-
-
 def _stack(x, a, gains, weights, heads, gemm, attention):
     depth = weights[0].shape[0]
     n, t, d = x.shape
@@ -442,13 +438,14 @@ def _stack(x, a, gains, weights, heads, gemm, attention):
     return x
 
 
-def _fused_dit_stack_fwd(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
-    weights = (w_mod, w_qkv, w_out, w1, w2)
-    _check_block_args(x, a, gains, weights, w_mod.shape[0])
-    out = _stack(x, a, gains, weights, heads, mp_gemm, cosine_attention)
-    if x.device.type == "cuda":
-        LAUNCHES["fused_dit_stack"] += 1
-    return out
+def fused_dit_block_plain(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
+    """Plain version of :func:`fused_dit_block`'s forward on any device."""
+    n, t, d = x.shape
+    scratch = BlockScratch.allocate(n, t, d, w1.shape[0], w_qkv.dtype, x.device)
+    return _block_sequence(
+        x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads, scratch, torch.empty_like(x),
+        mp_gemm_plain, cosine_attention_plain,
+    )
 
 
 def fused_dit_stack_plain(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
@@ -456,6 +453,292 @@ def fused_dit_stack_plain(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
     return _stack(
         x, a, gains, (w_mod, w_qkv, w_out, w1, w2), heads, mp_gemm_plain, cosine_attention_plain
     )
+
+
+def stack_launch_sequence(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
+    """The stack as separate launches of ``mp_gemm`` and
+    ``cosine_attention``, nine a block (the route of ``fused_dit_stack``
+    before :func:`dit_stack`): the yardstick ``chip_smoke.py`` and
+    ``tools/bench_dit_stack.py`` time the kernel against."""
+    return _stack(x, a, gains, (w_mod, w_qkv, w_out, w1, w2), heads, mp_gemm, cosine_attention)
+
+
+# ---------------------------------------------------------------------------
+# the persistent whole-stack kernel
+
+H100_SMS = 132
+# csrc/dit_stack.cu's layout: 128 x 128 product tiles of k depth 64, a ring
+# of four 32 KB stages with its mbarriers (two groups' attention buffers lie
+# in it), the hand-off mbarriers and a count, the f32 epilogue tile (128
+# rows padded by 4 floats), 1 KB of alignment slack; one CTA an SM
+STACK_TILE, STACK_K = 128, 64
+STACK_RING_BYTES = 4 * 2 * STACK_TILE * STACK_K * 2
+STACK_SMEM_BYTES = 1024 + STACK_RING_BYTES + 2 * 4 * 8 + 32 + STACK_TILE * (STACK_TILE + 4) * 4
+# shared memory of an SM (233,472 bytes), 1 KB of it reserved for each block
+SM_SMEM_BYTES = 228 * 1024
+STACK_MAX_T = 64  # the attention stage takes one tile of 64 queries and keys
+# the sync words: the grid barrier's counter, then from word STACK_SYNC_DONE
+# one counter a row tile for each of a block's five stages (8 words apart),
+# then the tile tickets of every split product of every block
+STACK_SYNC_DONE = 32
+STACK_TRACE_WORDS = 8  # a CTA's ns by kind of work (6), its start and end
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def stack_attention_smem(hd: int) -> int:
+    """Shared memory of one group of four warps' attention buffers (Q, K, V
+    rows of 64 tokens padded as attention_tiles.cuh pads them, two scale
+    vectors); the kernel keeps two groups in the ring."""
+    ld = _cdiv(hd, 16) * 16 + 8
+    return 3 * 64 * ld * 2 + 2 * 64 * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class StackProduct:
+    """One product stage of :func:`dit_stack`: C (m, n) = A (m, k) . W^T in
+    128 x 128 tiles, K split ``splits`` ways."""
+
+    name: str
+    m: int
+    n: int
+    k: int
+    splits: int
+
+    @property
+    def tiles(self) -> int:
+        return _cdiv(self.m, STACK_TILE) * _cdiv(self.n, STACK_TILE)
+
+    @property
+    def items(self) -> int:
+        return self.tiles * self.splits
+
+    def item(self, j: int) -> tuple:
+        """Item j: (row tile, column tile, split, k steps [kb, ke)); split
+        major, then row tile, then column tile (the splits of a tile lie
+        ``tiles`` items apart)."""
+        nt, kt = _cdiv(self.n, STACK_TILE), _cdiv(self.k, STACK_K)
+        tile, z = j % self.tiles, j // self.tiles
+        return tile // nt, tile % nt, z, z * kt // self.splits, (z + 1) * kt // self.splits
+
+
+@dataclasses.dataclass(frozen=True)
+class StackPlan:
+    """The work of one :func:`dit_stack` launch: the grid, the product
+    stages (the modulation rows of every block, then qkv, out, fc1, fc2 of
+    each block), the attention's (sample, head) units a block, the shared
+    memory a CTA takes, the tile tickets, and the layout of the one scratch
+    buffer (byte offsets of its parts; ``sync`` is zeroed at every launch;
+    each split product has partials of its own)."""
+
+    ctas: int
+    depth: int
+    products: tuple
+    attention_items: int
+    smem_bytes: int
+    attention_smem_bytes: int
+    tickets: int
+    layout: dict
+    workspace_bytes: int
+
+    @property
+    def items_per_block(self) -> int:
+        """The work list's items of one block: the four products' tiles and
+        K splits and the attention's pairs of (sample, head) units."""
+        return sum(p.items for p in self.products[1:]) + _cdiv(self.attention_items, 2)
+
+    def walk(self):
+        """What each CTA computes, in the kernel's order: the modulation
+        rows' tiles (``block`` -1), then the blocks' work list, CTA c taking
+        items c, c + ctas, ... Per CTA a list of (block, stage, index in the
+        stage, the product item as :meth:`StackProduct.item` gives it, or
+        the attention's two (sample * heads + head) units)."""
+        out = [[] for _ in range(self.ctas)]
+        mods = self.products[0]
+        for j in range(mods.items):
+            out[j % self.ctas].append((-1, "modulation", j, mods.item(j)))
+        stages = [("qkv", self.products[1]), ("attention", None), ("out", self.products[2]),
+                  ("fc1", self.products[3]), ("fc2", self.products[4])]
+        counts = [p.items if p is not None else _cdiv(self.attention_items, 2) for _, p in stages]
+        for g in range(self.depth * self.items_per_block):
+            b, j = divmod(g, self.items_per_block)
+            for (name, prod), count in zip(stages, counts):
+                if j < count:
+                    break
+                j -= count
+            units = tuple(u for u in (2 * j, 2 * j + 1) if u < self.attention_items)
+            what = prod.item(j) if prod is not None else units
+            out[g % self.ctas].append((b, name, j, what))
+        return out
+
+    @property
+    def trace_words(self) -> int:
+        """int64 words of a trace: for each CTA the ns it spent on the
+        modulation rows and the pre stage, on qkv, attention, out, fc1 and
+        fc2 items, then its start and end clock."""
+        return STACK_TRACE_WORDS * self.ctas
+
+    def product(self, name: str) -> StackProduct:
+        return next(p for p in self.products if p.name == name)
+
+
+def _split(tiles: int, kt: int, ctas: int) -> int:
+    """K splits of a product with ``tiles`` output tiles of ``kt`` k steps:
+    none when the tiles fill the grid, else as many as the grid takes at
+    once (the splits of a tile wait on each other), at least three k steps
+    each, at most 8."""
+    if tiles >= ctas:
+        return 1
+    return max(1, min(ctas // tiles, kt // 3, 8))
+
+
+@functools.lru_cache(maxsize=None)
+def stack_plan(
+    n: int, t: int, d: int, hidden: int, heads: int, depth: int, ctas: int = H100_SMS
+) -> StackPlan:
+    """:func:`dit_stack`'s plan for N samples of T tokens at width D, MLP
+    width ``hidden``, on a grid of ``ctas`` resident CTAs. Every split
+    depends on one block's shapes and the grid alone, never on depth, so a
+    stack and a chain of depth-1 calls sum in the same order; a product
+    splits only as far as all its items run at once (the splits of a tile
+    wait on each other)."""
+    m = n * t
+    products = [StackProduct("modulation", n, 6 * d * depth, d, 1)]
+    for name, cols, k in (("qkv", 3 * d, d), ("out", d, d), ("fc1", hidden, d), ("fc2", d, hidden)):
+        tiles = _cdiv(m, STACK_TILE) * _cdiv(cols, STACK_TILE)
+        products.append(StackProduct(name, m, cols, k, _split(tiles, _cdiv(k, STACK_K), ctas)))
+    split = [p for p in products if p.splits > 1]
+    tickets = depth * sum(p.tiles for p in split)  # one a tile of every split product of every block
+    sizes = {
+        "sync": 4 * (STACK_SYNC_DONE + 5 * 8 * _cdiv(m, STACK_TILE) + tickets),
+        "mods": n * 6 * d * depth * 4,
+        "qkv": m * 3 * d * 4,
+        "x1": m * d * 4,
+        "partial": sum(p.splits * p.m * p.n * 4 for p in split),
+        "attn": m * d * 2,
+        "h": m * hidden * 2,
+        "amod": m * d * 2,
+    }
+    layout, offset = {}, 0
+    for name, size in sizes.items():
+        layout[name] = offset
+        offset += _cdiv(size, 256) * 256
+    return StackPlan(
+        ctas=ctas, depth=depth, products=tuple(products), attention_items=n * heads,
+        smem_bytes=STACK_SMEM_BYTES, attention_smem_bytes=2 * stack_attention_smem(d // heads),
+        tickets=tickets, layout=layout, workspace_bytes=offset,
+    )
+
+
+def check_stack_shape(tokens: int, d: int, heads: int) -> None:
+    """Raise unless :func:`dit_stack`'s kernel takes T tokens of width D in
+    ``heads`` heads: head widths 64 and 72 (the attention tiles' template
+    instances, every registry model's), an even T <= 64 (one tile of
+    queries and keys; registry T at 16 x 16 latents is 64, 16 or 4), D a
+    multiple of 8 (TMA rows and 16-byte accesses)."""
+    hd = d // heads
+    if d % heads or hd not in ATTENTION_HEAD_WIDTHS:
+        raise ValueError(f"dit_stack on CUDA takes head widths {ATTENTION_HEAD_WIDTHS}, got D={d} in {heads} heads")
+    if tokens > STACK_MAX_T or tokens % 2:
+        raise ValueError(f"dit_stack on CUDA takes an even T <= {STACK_MAX_T}, got {tokens}")
+    if d % 8:
+        raise ValueError(f"dit_stack on CUDA takes D a multiple of 8, got {d}")
+
+
+def dit_stack_plain(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
+    """Plain version of :func:`dit_stack`, in the kernel's order: the
+    modulation rows of every block first, (N, depth*6D) f32, then each
+    block's stages over its columns of them; the same roundings as
+    :func:`fused_dit_stack_plain`."""
+    depth = w_mod.shape[0]
+    n, t, d = x.shape
+    mods = torch.cat(
+        [mp_gemm_plain(a, w_mod[b], alpha=1.0 / math.sqrt(d), out_dtype=torch.float32) for b in range(depth)], dim=1
+    )
+    scratch = BlockScratch.allocate(n, t, d, w1.shape[1], w_qkv.dtype, x.device)
+    for b in range(depth):
+        x = _block_stages(
+            x, mods, 6 * d * b, gains[b], w_qkv[b], w_out[b], w1[b], w2[b], heads, scratch, torch.empty_like(x),
+            mp_gemm_plain, cosine_attention_plain,
+        )
+    return x
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_ctas(device_index: int, hd: int) -> int:
+    from mapdit_tpu_torch.ops.cuda import build
+
+    with torch.cuda.device(device_index):
+        ctas = build.library("dit_stack").dit_stack_resident_ctas(hd)
+    if ctas < 1:
+        _raise_on(-ctas, build.library("dit_stack"), "dit_stack")
+    return ctas
+
+
+def dit_stack(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int, trace: Optional[torch.Tensor] = None):
+    """All ``depth`` blocks over depth-stacked weights (leading depth axis;
+    gains (depth, 2) f32) in one launch of ``csrc/dit_stack.cu``: x (N, T, D)
+    and a (N, D) bf16, folded bf16 weights; returns the new stream in x's
+    type. The plain version :func:`dit_stack_plain` serves CPU tensors; on
+    the card the kernel takes bf16, head widths 64 and 72, an even T <= 64
+    (:func:`check_stack_shape`) and raises otherwise, never copying.
+    ``trace``, an int64 tensor of the plan's ``trace_words`` on the card,
+    receives each CTA's clock at every grid barrier (a stage timeline)."""
+    if x.device.type == "cpu":
+        return dit_stack_plain(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads)
+    from mapdit_tpu_torch.ops.cuda import build
+
+    weights = (w_mod, w_qkv, w_out, w1, w2)
+    _require_cuda(x, a, gains, *weights)
+    depth = w_mod.shape[0]
+    _check_block_args(x, a, gains, weights, depth)
+    n, t, d = x.shape
+    hidden = w1.shape[1]
+    check_stack_shape(t, d, heads)
+    if any(z.data_ptr() % 16 for z in (x, a, *weights)):
+        raise ValueError(
+            "dit_stack on CUDA reads its operands with TMA and 16-byte loads: they must be 16-byte aligned"
+        )
+    plan = stack_plan(n, t, d, hidden, heads, depth, _resident_ctas(x.get_device(), d // heads))
+    if trace is not None and (
+        trace.dtype != torch.int64 or trace.numel() < plan.trace_words or trace.device != x.device
+    ):
+        raise ValueError(f"trace must be int64 with {plan.trace_words} words on {x.device}")
+    lib = build.library("dit_stack")
+    work = torch.empty(plan.workspace_bytes, dtype=torch.uint8, device=x.device)
+    out = torch.empty_like(x)
+    base, at = work.data_ptr(), plan.layout
+    splits = [plan.product(name).splits for name in ("qkv", "out", "fc1", "fc2")]
+    code = lib.dit_stack(
+        x.data_ptr(), a.data_ptr(), gains.data_ptr(), *(w.data_ptr() for w in weights), out.data_ptr(),
+        *(base + at[name] for name in ("mods", "qkv", "x1", "partial", "attn", "h", "amod", "sync")),
+        at["mods"] - at["sync"], n, t, d, hidden, heads, depth, *splits, plan.ctas,
+        1.0 / math.sqrt(d), 1.0 / math.sqrt(hidden), torch.cuda.current_stream(x.device).cuda_stream,
+        None if trace is None else trace.data_ptr(),
+    )
+    _raise_on(code, lib, "dit_stack")
+    LAUNCHES["dit_stack"] += 1
+    return out
+
+
+def _fused_dit_block_fwd(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
+    weights = (w_mod, w_qkv, w_out, w1, w2)
+    _check_block_args(x, a, gains, weights, None)
+    out = dit_stack(x, a, gains[None], *(w[None] for w in weights), heads)
+    if x.device.type == "cuda":
+        LAUNCHES["fused_dit_block"] += 1
+    return out
+
+
+def _fused_dit_stack_fwd(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
+    weights = (w_mod, w_qkv, w_out, w1, w2)
+    _check_block_args(x, a, gains, weights, w_mod.shape[0])
+    out = dit_stack(x, a, gains, *weights, heads)
+    if x.device.type == "cuda":
+        LAUNCHES["fused_dit_stack"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -543,8 +826,9 @@ class _RecomputedVJP(torch.autograd.Function):
 def fused_dit_block(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
     """One whole DiT block. x (N,T,D) residual stream; a (N,D) = mp_silu(c);
     gains (2,) f32 = [gain_msa, gain_mlp]; folded weights w_mod (6D,D),
-    w_qkv (3D,D), w_out (D,D), w1 (H,D), w2 (D,H). Returns the new stream;
-    its gradient recomputes through :func:`block_reference`."""
+    w_qkv (3D,D), w_out (D,D), w1 (H,D), w2 (D,H). Returns the new stream,
+    through :func:`dit_stack` at depth 1; its gradient recomputes through
+    :func:`block_reference`."""
     inputs = (x, a, gains, w_mod, w_qkv, w_out, w1, w2)
     if not needs_grad(*inputs):
         return _fused_dit_block_fwd(*inputs, heads)
@@ -553,9 +837,9 @@ def fused_dit_block(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
 
 def fused_dit_stack(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
     """All ``depth`` blocks over depth-stacked folded weights (leading depth
-    axis on every weight; gains (depth, 2) f32). One scratch set serves every
-    block and the stream ping-pongs between two buffers in x's type. The
-    gradient recomputes through :func:`stack_reference`."""
+    axis on every weight; gains (depth, 2) f32), through :func:`dit_stack`:
+    one launch on the card. The gradient recomputes through
+    :func:`stack_reference`."""
     inputs = (x, a, gains, w_mod, w_qkv, w_out, w1, w2)
     if not needs_grad(*inputs):
         return _fused_dit_stack_fwd(*inputs, heads)

@@ -7,7 +7,8 @@ when it is chosen, and returns ``sample_fn(noise, y, generator)``. With CFG
 the chain evolves only the first half of the [z; z] batch and duplicates it
 into the [cond; uncond] model call (the half-CFG chain); the result keeps
 the reference's 2N shape. PyTorch runs the chain eagerly, one Python
-iteration per step; capturing it in a CUDA graph is ROADMAP A.4.
+iteration per step; capturing it in a CUDA graph is the ROADMAP item
+"Sampling runtime leftovers".
 
 ``build_sample_fn(mesh=)`` runs the chain on a ('data', 'model') mesh of
 ranks (``parallel/mesh.py``): the data axis splits the batch, the model axis
@@ -89,7 +90,7 @@ def build_shared_sample_fn(
     promote to the whole-stack kernel (``models/blocks.py:stack_auto_ok``).
     ``noise_fn(t, shape)`` replaces the step noise (cross-framework parity
     tests); a call may pass its own. Only ``sampler="ddpm"`` is ported; the
-    others are ROADMAP A.7.
+    others are the ROADMAP item "Beyond-reference samplers".
 
     Weights fold only under ``use_weight_normalization``; without it a
     weight-normalized class table (``use_mp_embedding``) is normalized in
@@ -99,7 +100,9 @@ def build_shared_sample_fn(
     family raises ``ValueError``; ``auto`` never promotes one.
     """
     if sampler != "ddpm":
-        raise NotImplementedError(f"sampler={sampler!r} is ROADMAP A.7; the port runs 'ddpm'")
+        raise NotImplementedError(
+            f"sampler={sampler!r} is the ROADMAP item 'Beyond-reference samplers'; the port runs 'ddpm'"
+        )
     device = resolve_device(device)
     from mapdit_tpu_torch.diffusion import gd
 
@@ -247,7 +250,8 @@ def _mesh_config(cfg: DiTConfig, fold: bool, mesh, device) -> DiTConfig:
     if kernel == "off" or not kernel_family_ok(cfg):
         raise NotImplementedError(
             f"tensor parallelism of the plain path (block_kernel={cfg.block_kernel!r} resolving to {kernel!r} on "
-            f"{tp} model ranks, flags {cfg.flags_dict()}) is ROADMAP A.8 (TP of the plain path): the port splits "
+            f"{tp} model ranks, flags {cfg.flags_dict()}) is the ROADMAP item 'Multi-GPU layouts, the rest' "
+            f"(TP of the plain path): the port splits "
             f"only the MP + adaln + cosine-attention islands mega_attn_tp and mega_tp"
         )
     if not folded:

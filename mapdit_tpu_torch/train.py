@@ -13,7 +13,8 @@ Adam under the schedule, both power EMAs, the forced weight normalization.
 The host shuffles indices and stages (mean, std, label) slices.
 
 Not ported yet, and raising with their ROADMAP item: ``--n-model > 1``,
-``--fsdp``, ``--multihost`` and ``--checkpointer orbax`` (A.8), ``--remat``
+``--fsdp``, ``--multihost`` and ``--checkpointer orbax`` ("Multi-GPU layouts, the
+rest"), ``--remat``
 and ``--scan-blocks`` (A.6).
 """
 
@@ -65,11 +66,13 @@ def build_dataset(data_path: str):
 def _check_ported(args) -> None:
     if args.n_model != 1 or args.fsdp or args.multihost:
         raise NotImplementedError(
-            "--n-model > 1, --fsdp and --multihost are the multi-GPU layouts of ROADMAP A.8; the port trains on one device"
+            "--n-model > 1, --fsdp and --multihost are the ROADMAP item 'Multi-GPU layouts, the rest'; "
+            "the port trains on one device"
         )
     if args.checkpointer == "orbax":
         raise NotImplementedError(
-            "--checkpointer orbax is the multi-host sharded format (ROADMAP A.8); use torch or torch-sync"
+            "--checkpointer orbax is the multi-host sharded format (ROADMAP item 'Multi-GPU layouts, the rest'); "
+            "use torch or torch-sync"
         )
 
 

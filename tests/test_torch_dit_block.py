@@ -144,3 +144,123 @@ def test_mp_gemm_modes_match_plain_algebra():
     torch.testing.assert_close(got, torch.nn.functional.silu(h @ w.t() * 0.5) / 0.596)
     got = tdb.mp_gemm(a, w, alpha=0.5, out_dtype=torch.float32, residual=(x, mods, 2 * k), tokens=tokens)
     torch.testing.assert_close(got, (x + (gate * (a @ w.t() * 0.5) - x) * 0.3) / np.sqrt(0.58))
+
+
+@pytest.mark.parametrize("n, t, depth", [(3, 64, 1), (3, 64, 3), (4, 16, 3), (5, 4, 1), (5, 4, 3)],
+                         ids=["n3-t64-d1", "n3-t64-d3", "n4-t16-d3", "n5-t4-d1", "n5-t4-d3"])
+def test_dit_stack_plain_matches_jax(n, t, depth):
+    """The plain version of the persistent stack kernel, in the kernel's
+    order (the modulation rows of every block first, then each block's
+    stages over its columns of them), against JAX fused_dit_stack in
+    interpret mode at T = 64 / 16 / 4, odd N, depth 1 and 3."""
+    rng = np.random.default_rng(100 * n + t + depth)
+
+    def f(*s):
+        return rng.normal(size=s).astype(np.float32)
+
+    def w(*s):
+        m = f(depth, *s)
+        return m * np.sqrt(s[-1]) / (np.linalg.norm(m, axis=-1, keepdims=True) + 1e-4)
+
+    gains = rng.uniform(0.1, 0.9, size=(depth, 2)).astype(np.float32)
+    args = [f(n, t, D), f(n, D), gains, w(6 * D, D), w(3 * D, D), w(D, D), w(H, D), w(D, H)]
+    want = np.asarray(jdb.fused_dit_stack(*[jnp.asarray(a) for a in args], HEADS))
+    got = tdb.dit_stack_plain(*[torch.from_numpy(a) for a in args], HEADS).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_dit_stack_plain_has_the_launch_sequences_bits():
+    """Reordering the modulation rows changes no rounding: the plain
+    version of the kernel equals fused_dit_stack_plain (the launch sequence
+    over the plain callables) bit for bit, in f32 and in bf16, and so does
+    stack_launch_sequence, the kernel's yardstick, on CPU tensors."""
+    args = _inputs(4, depth=DEPTH)
+    for dtype in (torch.float32, torch.bfloat16):
+        ts = [torch.from_numpy(v).to(dtype if v.ndim > 2 or v.shape != (DEPTH, 2) else torch.float32) for v in args]
+        want = tdb.fused_dit_stack_plain(*ts, HEADS)
+        torch.testing.assert_close(tdb.dit_stack_plain(*ts, HEADS), want, rtol=0, atol=0)
+        # the launch sequence the kernel replaced, on CPU tensors
+        torch.testing.assert_close(tdb.stack_launch_sequence(*ts, HEADS), want, rtol=0, atol=0)
+
+
+def _sampling_shapes():
+    """(model, samples N, T, depth, width, heads, MLP width) of every
+    registry model at 16 x 16 latents, at the headline's 32 x 2 CFG rows and
+    at the XL layout's 4 x 2."""
+    from mapdit_tpu_torch.models.registry import DIT_MODELS
+
+    for name, spec in DIT_MODELS.items():
+        d = spec["hidden_size"]
+        for n in (64, 8):
+            yield pytest.param(name, n, (16 // spec["patch_size"]) ** 2, spec["depth"], d, spec["num_heads"], 4 * d,
+                               id=f"{name}-n{n}")
+
+
+@pytest.mark.parametrize("model, n, t, depth, d, heads, hidden", list(_sampling_shapes()))
+def test_stack_plan_covers_every_tile_once(model, n, t, depth, d, heads, hidden):
+    """The persistent kernel's plan at every registry model's sampling
+    shapes, walked as the kernel walks it: every product tile and K split
+    of every block is computed once, the splits of a tile cover its k steps
+    once in order and run at once on distinct CTAs, every (sample, head)
+    attention unit of every block once; every split but the modulation
+    rows' depends on one block's shapes only (so the stack sums as a chain
+    of depth-1 calls does); the shared memory fits a block's 227 KB with the
+    attention buffers inside the ring, the grid is resident, the tickets fit
+    the sync words, and the scratch parts are disjoint and 256-byte
+    aligned."""
+    tdb.check_stack_shape(t, d, heads)
+    plan = tdb.stack_plan(n, t, d, hidden, heads, depth)
+    one = tdb.stack_plan(n, t, d, hidden, heads, 1)
+    assert [p.name for p in plan.products] == ["modulation", "qkv", "out", "fc1", "fc2"]
+    seen, units, where = {}, {}, {}
+    for cta, items in enumerate(plan.walk()):
+        for b, stage, j, what in items:
+            if stage == "attention":
+                for u in what:
+                    assert (b, u) not in units
+                    units[(b, u)] = cta
+                continue
+            assert (b, stage, what[:3]) not in seen
+            seen[(b, stage, what[:3])] = what[3:]
+            where.setdefault((b, stage), []).append(cta)
+    assert len(units) == depth * n * heads
+    for prod in plan.products:
+        blocks = [-1] if prod.name == "modulation" else range(depth)
+        kt = -(-prod.k // tdb.STACK_K)
+        for b in blocks:
+            for mt in range(-(-prod.m // tdb.STACK_TILE)):
+                for nt in range(-(-prod.n // tdb.STACK_TILE)):
+                    ranges = [seen.pop((b, prod.name, (mt, nt, z))) for z in range(prod.splits)]
+                    assert ranges[0][0] == 0 and ranges[-1][1] == kt
+                    assert all(r[1] == s[0] and r[1] > r[0] for r, s in zip(ranges, ranges[1:] + [(kt, kt)]))
+            if prod.splits > 1:
+                assert len(set(where[(b, prod.name)])) == prod.items <= plan.ctas
+        if prod.name != "modulation":
+            assert prod.splits == one.product(prod.name).splits
+    assert not seen
+    assert plan.product("modulation").splits == 1
+    assert plan.smem_bytes <= tdb.MAX_SMEM_BYTES
+    assert plan.attention_smem_bytes <= tdb.STACK_RING_BYTES
+    assert plan.ctas <= tdb.H100_SMS * (tdb.SM_SMEM_BYTES // (plan.smem_bytes + 1024))
+    assert plan.attention_items == n * heads
+    assert plan.items_per_block == sum(p.items for p in plan.products[1:]) + (n * heads + 1) // 2
+    spans = sorted(plan.layout.items(), key=lambda kv: kv[1])
+    assert spans[0] == ("sync", 0) and all(off % 256 == 0 for _, off in spans)
+    assert plan.layout["mods"] >= 4 * (tdb.STACK_SYNC_DONE + 40 * -(-n * t // tdb.STACK_TILE) + plan.tickets)
+    split = [p for p in plan.products if p.splits > 1]
+    assert plan.tickets == depth * sum(p.tiles for p in split)
+    assert plan.layout["attn"] - plan.layout["partial"] >= sum(p.splits * p.m * p.n * 4 for p in split)
+    assert plan.workspace_bytes >= plan.layout["amod"] + n * t * d * 2
+
+
+def test_dit_stack_serves_the_registry_and_raises_outside():
+    """Every registry model at 16 x 16 latents (T = 64, 16, 4; head widths
+    64 and 72) is in the kernel's domain; T = 256 (32 x 32 latents at patch
+    2), an odd T and another head width raise, naming CUDA."""
+    from mapdit_tpu_torch.models.registry import DIT_MODELS
+
+    for spec in DIT_MODELS.values():
+        tdb.check_stack_shape((16 // spec["patch_size"]) ** 2, spec["hidden_size"], spec["num_heads"])
+    for tokens, d, heads in ((256, 384, 6), (9, 384, 6), (64, 256, 8)):
+        with pytest.raises(ValueError, match="CUDA"):
+            tdb.check_stack_shape(tokens, d, heads)

@@ -149,9 +149,21 @@ def test_kernel_wrappers_do_not_fall_back_off_cpu():
                                            w_out_l, 1),
         lambda: dit_block_tp.mlp_tp_partial(xb, r, r, gains, w1_l, w2_l, 0.125),
     ]
+    # the persistent stack kernel, alone and as the stack's and the block's route
+    hid = 4 * d
+    stacked = [torch.empty(1, *shape, dtype=bf, device="meta") for shape in
+               ((6 * d, d), (3 * d, d), (d, d), (hid, d), (d, hid))]
+    g1 = torch.empty(1, 2, device="meta")
+    calls += [
+        lambda: dit_block.dit_stack(xb, r, g1, *stacked, heads),
+        lambda: dit_block.fused_dit_stack(xb, r, g1, *stacked, heads),
+        lambda: dit_block.fused_dit_block(xb, r, gains, *(w[0] for w in stacked), heads),
+    ]
+    before = dict(dit_block.LAUNCHES)
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
             call()
+    assert dit_block.LAUNCHES == before
 
 
 @pytest.mark.parametrize("tokens, hd, what", [(64, 48, "head widths"), (16, 80, "head widths"), (129, 64, "T <= 128"),
@@ -187,10 +199,10 @@ def test_attention_bwd_takes_every_registry_head():
     [
         (dict(scan_blocks=True), "A.6"),
         (dict(remat=True, use_cosine_attention=False), "A.6"),
-        (["--fsdp", "true"], "A.8"),
-        (["--n-model", "2"], "A.8"),
-        (["--multihost", "true"], "A.8"),
-        (["--checkpointer", "orbax"], "A.8"),
+        (["--fsdp", "true"], "Multi-GPU layouts"),
+        (["--n-model", "2"], "Multi-GPU layouts"),
+        (["--multihost", "true"], "Multi-GPU layouts"),
+        (["--checkpointer", "orbax"], "Multi-GPU layouts"),
         (["--remat", "true"], "A.6"),
         (["--scan-blocks", "true"], "A.6"),
     ],
@@ -212,7 +224,7 @@ def test_unported_options_name_their_roadmap_item(overrides, item, tmp_path):
 
 def test_unported_sampler_raises():
     cfg = build_config("DiT-XS/2", **XS2)
-    with pytest.raises(NotImplementedError, match="A.7"):
+    with pytest.raises(NotImplementedError, match="Beyond-reference samplers"):
         build_sample_fn(cfg, {}, create_diffusion("2", device="cpu"), sampler="dpm++", device="cpu")
 
 
