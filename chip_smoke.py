@@ -11,7 +11,8 @@ Phases, one line each; any failure exits non-zero before the final line:
      6 heads, H=1536, depth 12), with times, bounds and a library yardstick;
      then the attention half-block's wrappers and sub-kernels (forward,
      residual forward, fused backward with its seven cotangents, the A.W
-     products, the residual-mode attention, the backward's three kernels)
+     products, the out product with the residual backward as its
+     epilogue, the residual-mode attention, the backward's other kernels)
      and fused_dit_block's gradient at the DiT-S/2 training shapes (256
      samples x 64 tokens, bf16);
   4. forward: DiT-S/2 forward_with_cfg, kernel paths against the plain path;
@@ -79,9 +80,13 @@ recompute in the inputs' types. Phase 3 also holds attention_bwd at
 ATTN_BWD_SHAPES (S/2 on the backward's own inputs, B/2's 12 heads, the XL
 head of 72, odd N, the ragged T=16 and T=4, T=96; the same bits on two
 runs; T=129 must raise), the passes around the backward's products
-(modulate_fwd, modulate_bwd, gate_residual_bwd) at MODULATE_SHAPES (S/2 on
-the backward's own tensors, the B/2 and XL/2 widths, odd N, T=16, T=4;
-every output the same bits on two runs; D=388 must raise) and attn_bwd at
+(modulate_fwd, modulate_bwd) at MODULATE_SHAPES (S/2 on the backward's own
+tensors, the B/2 and XL/2 widths, odd N, T=16, T=4; every output the same
+bits on two runs; D=388 must raise), the out product with the residual
+backward as its epilogue (out_gate_residual_bwd, csrc/mp_gemm.cu) at
+OUT_GATE_SHAPES (the same shapes, the split-K ones among them, and tiles
+holding T=16, 128, 4 and a last partial tile; dout and dgate against the
+plain version, the same bits on two runs; T=48 must raise) and attn_bwd at
 BRANCH_BWD_SHAPES (the B/2 and XL/2 widths, odd N, T=16, T=4), dw_gemm
 (the S/2 and B/2 training shapes and a
 ragged M, the same bits on two runs) and attn_bwd with the dW switch on
@@ -416,6 +421,13 @@ STACK_YARDSTICK = ("S2", "S2:block", "B2", "XL2")
 # each call of the chain is held to the plain block on the same stream
 STACK_CHAINED = ("S2", "XL2")
 STACK_SRC = "mapdit_tpu_torch/csrc/dit_stack.cu"
+# the S2 stack's float64 witness runs on phase 3's draw and on this many
+# other draws, from the generators tools/bench_dit_stack.py --draws takes
+# (seeds SEED + 20 on)
+STACK_WITNESS_DRAWS = 3
+# the witness rule's bound on the kernel's mean distance from float64
+# against the plain version's (1.005-1.009 on nine draws; PERF.md)
+STACK_WITNESS_MEAN_RATIO = 1.05
 
 
 def stack_case(torch, gen, dev, name):
@@ -453,6 +465,49 @@ def stack_cases(torch):
         yield name, stack_case(torch, torch.Generator(device=dev).manual_seed(SEED) if phase3 else gen, dev, name)
 
 
+def stack_draw(torch, dev, i):
+    """The S2 stack case of other draw i: generator SEED + 20 + i, as
+    tools/bench_dit_stack.py --draws draws it."""
+    return stack_case(torch, torch.Generator(device=dev).manual_seed(SEED + 20 + i), dev, "S2")
+
+
+def stack_witness(torch, k, what, case, got, want, seq_out) -> dict:
+    """The S2 stack's kernel output ``got``, its plain version's ``want``
+    and the launch sequence's ``seq_out`` against the float64 witness
+    (fused_dit_stack_plain at sum_dtype=float64: the plain version's bf16
+    rounding points, every sum in float64): the max and mean abs distance
+    of each. bf16 roundings compound through 12 blocks, so on some draws
+    kernel and plain version land past phase 3's limit (5e-2 + 5e-2
+    |plain|) from each other while both sit as close to float64 (ROADMAP
+    C.1). The rule, ``ok``: where the two lie apart past that limit, each
+    lies within the same limit of float64 (5e-2 + 5e-2 |f64|), and the
+    kernel's mean distance from float64 is at most STACK_WITNESS_MEAN_RATIO
+    times the plain version's, which a faulty stage would break. Prints
+    the distances, the count of elements apart, the rule's margins
+    (``*_apart_margin``: the worst distance minus the limit there; negative
+    holds) and ``ok``; returns them."""
+    x, a, gains, ws, heads = case
+    ref = k.fused_dit_stack_plain(x, a, gains, *ws, heads, sum_dtype=torch.float64).double()
+    row = {}
+    dists = {name: (v.double() - ref).abs() for name, v in (("kernel", got), ("plain", want), ("sequence", seq_out))}
+    for name, e in dists.items():
+        row[f"{name}_vs_f64_max"], row[f"{name}_vs_f64_mean"] = float(e.max()), float(e.mean())
+    apart = (got.double() - want.double()).abs() > 5e-2 + 5e-2 * want.double().abs()
+    near = 5e-2 + 5e-2 * ref.abs()
+    row["apart"] = int(apart.sum())
+    for name in ("kernel", "plain"):
+        row[f"{name}_apart_margin"] = float((dists[name] - near)[apart].max()) if row["apart"] else 0.0
+    row["mean_ratio"] = row["kernel_vs_f64_mean"] / row["plain_vs_f64_mean"]
+    row["ok"] = (row["kernel_apart_margin"] <= 0 and row["plain_apart_margin"] <= 0
+                 and row["mean_ratio"] <= STACK_WITNESS_MEAN_RATIO)
+    phase("check", what=f"{what}:f64-witness", **{key: (f"{v:.4e}" if isinstance(v, float) else v)
+                                                  for key, v in row.items()},
+          tol=f"apart:5e-2+5e-2|f64|,mean_ratio<={STACK_WITNESS_MEAN_RATIO:g}")
+    if not row["ok"]:
+        raise AssertionError(f"{what}: the kernel or the plain version lies past the float64 witness rule: {row}")
+    return row
+
+
 def stack_calls(k, name, x, a, gains, ws, heads):
     """The kernel, its plain version and the launch sequence on one case:
     fused_dit_block on the first block for a ":block" entry, else
@@ -472,7 +527,8 @@ def stack_rows(torch, k) -> dict:
     (errors of single bf16 roundings compound through the stages and
     blocks: max at 5e-2 + 5e-2 relative, the mean printed beside; at the
     chain shapes the launch sequence's errors are printed beside, the same
-    rule's numbers for the route the kernel replaced), the same bits on two
+    rule's numbers for the route the kernel replaced; at S2 and on
+    STACK_WITNESS_DRAWS other draws, stack_witness's float64 rule), the same bits on two
     runs, and at STACK_CHAINED the stack against a chain of depth-1
     fused_dit_block calls bit for bit, each call of the chain held to
     fused_dit_block_plain on the same input stream at the same limits (no
@@ -498,10 +554,13 @@ def stack_rows(torch, k) -> dict:
             raise AssertionError(f"dit_stack:{name}: the call did not launch the kernel once")
         want = plain()
         if name in STACK_YARDSTICK:
-            e = (seq().float() - want.float()).abs()
+            seq_out = seq()
+            e = (seq_out.float() - want.float()).abs()
             phase("check", what=f"dit_stack:{name}:launch-sequence", max_abs_err=f"{float(e.max()):.3e}",
                   mean_abs_err=f"{float(e.mean()):.3e}", note="the replaced route, against the same plain version")
         err = compare(torch, got, want, 5e-2, 5e-2, f"dit_stack:{name}")
+        if name == "S2":
+            stack_witness(torch, k, "dit_stack:S2", (x, a, gains, ws, heads), got, want, seq_out)
         same = bool(torch.equal(got, kernel()))
         phase("check", what=f"dit_stack:{name}:same-bits-twice", ok=same)
         if not same:
@@ -533,6 +592,17 @@ def stack_rows(torch, k) -> dict:
               **{key: (f"{v:.4f}" if isinstance(v, float) else v) for key, v in row.items()
                  if key not in ("source", "replaces")})
         rows[name] = row
+    # the S2 stack on other draws, under the float64 witness rule
+    dev = torch.device("cuda")
+    for i in range(STACK_WITNESS_DRAWS):
+        case, _, _ = stack_draw(torch, dev, i)
+        kernel, plain, seq = stack_calls(k, "S2", *case)
+        got, want = kernel(), plain()
+        e = (got.float() - want.float()).abs()
+        what = f"dit_stack:S2:seed{SEED + 20 + i}"
+        phase("check", what=what, max_abs_err=f"{float(e.max()):.3e}", mean_abs_err=f"{float(e.mean()):.3e}",
+              past_phase3_limit=int((e > 5e-2 + 5e-2 * want.float().abs()).sum()), note="held by the witness rule")
+        stack_witness(torch, k, what, case, got, want, seq())
     return rows
 
 
@@ -619,6 +689,20 @@ MODULATE_SHAPES = {
     "t4": (8, 4, 1152),
 }
 MODULATE_BAD_D = 388
+# the attention backward's out product with the residual backward as its
+# epilogue (attn_branch.out_gate_residual_bwd): name -> (N, T, D). The
+# MODULATE_SHAPES entries (s2 the report row, on the backward's own tensors
+# in phase 3; b2 and xl printed beside it; n3, t16 and t4 split K), then
+# whole tiles at T = 16 and T = 128, and N = 257 at T = 4 and T = 64 (the
+# last tile partly past M); T = OUT_GATE_BAD_T (not dividing 128) must raise.
+OUT_GATE_SHAPES = dict(MODULATE_SHAPES, **{
+    "t16-n256": (TRAIN_BATCH, 16, 768),
+    "t128": (64, 128, 384),
+    "t4-n257": (TRAIN_BATCH + 1, 4, 1152),
+    "t64-n257": (TRAIN_BATCH + 1, 64, 384),
+})
+OUT_GATE_BAD_T = 48
+GEMM_SRC = "mapdit_tpu_torch/csrc/mp_gemm.cu"
 
 
 def attn_bwd_case(torch, F, gen, dev, name, qkv=None, dattn=None):
@@ -928,40 +1012,59 @@ def dgain_terms(torch, stages):
     return dh * (shift - xf.float() * scale) / torch.sqrt((1 - g) ** 2 + g**2)
 
 
+def pass_check(torch, what, run, plain, names, scalars=()):
+    """A check for a kernel of several outputs: every output against the
+    plain version at 1e-2 + 1e-2 relative (those named in ``scalars`` by
+    compare_scalar at 1e-4: one sum of identical f32 inputs, only its order
+    differs), then a second run to the same bits. ``check(got)`` returns
+    the max abs error."""
+
+    def check(got):
+        got = got if isinstance(got, tuple) else (got,)
+        want = plain()
+        want = want if isinstance(want, tuple) else (want,)
+        errs = [compare_scalar(torch, g_, w_, 1e-4, f"{what}:{nm}") if nm in scalars
+                else compare(torch, g_, w_, 1e-2, 1e-2, f"{what}:{nm}") for nm, g_, w_ in zip(names, got, want)]
+        again = run()
+        again = again if isinstance(again, tuple) else (again,)
+        same = all(torch.equal(g_, a_) for g_, a_ in zip(got, again))
+        phase("check", what=f"{what}:same-bits-twice", outputs=",".join(names), ok=same)
+        if not same:
+            raise AssertionError(f"{what}: two runs on the same inputs differ in their bits")
+        return max(errs)
+
+    return check
+
+
 def modulate_case(torch, gen, dev, name, tensors=None):
     """One MODULATE_SHAPES entry: x and dy (bf16, flat (N*T, D)), rows
-    (N, 3D) f32 [shift | scale | gate], the gain (0.37), dh and out (f32),
-    drawn from ``gen`` unless ``tensors`` gives them (a dict of those
-    names). Returns ``{kernel: namespace}`` for modulate_fwd, modulate_bwd
-    and gate_residual, with ``run`` and ``plain`` (the wrapper and its plain version), ``check(
-    got)`` (every output against the plain version at 1e-2 + 1e-2 relative,
-    dgain by compare_scalar at 1e-4 (identical f32 inputs: only the order of
-    the sum differs), then a second run to the same bits; returns the max
-    abs error), ``flops``, ``nbytes`` (each input read once, each output
-    written once) and ``library``: for modulate_fwd one torch.addcmul over
-    the (N, T, D) view into a bf16 h with the rows a = scale*(1-g)/den and
-    b = shift*g/den made beforehand, else None (no one call gives the
-    residual's or modulate's backward: dx and three sums)."""
+    (N, 3D) f32 [shift | scale | gate], the gain (0.37) and dh (f32), drawn
+    from ``gen`` unless ``tensors`` gives them (a dict of those names).
+    Returns ``{kernel: namespace}`` for modulate_fwd and modulate_bwd, with
+    ``run`` and ``plain`` (the wrapper and its plain version), ``check(got)``
+    (pass_check; dgain by compare_scalar), ``flops``, ``nbytes`` (each input
+    read once, each output written once) and ``library``: for modulate_fwd
+    one torch.addcmul over the (N, T, D) view into a bf16 h with the rows
+    a = scale*(1-g)/den and b = shift*g/den made beforehand, else None (no
+    one call gives modulate's backward: dx and three sums)."""
     import types
 
     from mapdit_tpu_torch.ops.cuda import attn_branch as ab
 
     n, t, d = MODULATE_SHAPES[name]
-    mt, bf, f32 = n * t, torch.bfloat16, torch.float32
+    mt, bf = n * t, torch.bfloat16
     if tensors is None:
         x, dy = (torch.randn(mt, d, generator=gen, device=dev).to(bf) for _ in range(2))
         rows = torch.randn(n, 3 * d, generator=gen, device=dev)
-        dh, out = (torch.randn(mt, d, generator=gen, device=dev) for _ in range(2))
+        dh = torch.randn(mt, d, generator=gen, device=dev)
         gain = torch.tensor([0.37], device=dev)
     else:
-        x, dy, rows, gain, dh, out = (tensors[key] for key in ("x", "dy", "rows", "gain", "dh", "out"))
+        x, dy, rows, gain, dh = (tensors[key] for key in ("x", "dy", "rows", "gain", "dh"))
     calls = {
         "modulate_fwd": (lambda: ab.modulate_fwd(x, rows, gain, t, bf),
                          lambda: ab.modulate_fwd_plain(x, rows, gain, t, bf), ("h",)),
         "modulate_bwd": (lambda: ab.modulate_bwd(dh, x, rows, gain, dy, t),
                          lambda: ab.modulate_bwd_plain(dh, x, rows, gain, dy, t), ("dx", "dshift", "dscale", "dgain")),
-        "gate_residual": (lambda: ab.gate_residual_bwd(dy, out, rows, 2 * d, t, bf),
-                          lambda: ab.gate_residual_bwd_plain(dy, out, rows, 2 * d, t, bf), ("dout", "dgate")),
     }
     g = gain.reshape(())
     den = torch.sqrt((1 - g) ** 2 + g**2)
@@ -971,47 +1074,97 @@ def modulate_case(torch, gen, dev, name, tensors=None):
     sizes = {  # (flops, bytes)
         "modulate_fwd": (5 * mt * d, mt * d * (2 + 2) + 2 * n * d * 4 + 4),
         "modulate_bwd": (10 * mt * d, mt * d * (4 + 2 + 2 + 2) + 2 * n * d * 4 + 2 * n * d * 4 + 4 + 4),
-        "gate_residual": (4 * mt * d, mt * d * (2 + 4 + 2) + n * d * 4 + n * d * 4),
     }
     cases = {}
     for kernel, (run, plain, names) in calls.items():
-        what = f"attn_bwd/{kernel}:{name}"
-
-        def check(got, run=run, plain=plain, names=names, what=what):
-            got = got if isinstance(got, tuple) else (got,)
-            want = plain()
-            want = want if isinstance(want, tuple) else (want,)
-            errs = [compare_scalar(torch, g_, w_, 1e-4, f"{what}:{nm}") if nm == "dgain"
-                    else compare(torch, g_, w_, 1e-2, 1e-2, f"{what}:{nm}") for nm, g_, w_ in zip(names, got, want)]
-            again = run()
-            again = again if isinstance(again, tuple) else (again,)
-            same = all(torch.equal(g_, a_) for g_, a_ in zip(got, again))
-            phase("check", what=f"{what}:same-bits-twice", outputs=",".join(names), ok=same)
-            if not same:
-                raise AssertionError(f"{what}: two runs on the same inputs differ in their bits")
-            return max(errs)
-
         flops, nbytes = sizes[kernel]
         library = (lambda: torch.addcmul(b3, x3, a3, out=h3)) if kernel == "modulate_fwd" else None
-        cases[kernel] = types.SimpleNamespace(run=run, plain=plain, check=check, flops=flops, nbytes=nbytes,
-                                              library=library, shape=(n, t, d),
-                                              inputs=dict(x=x, dy=dy, rows=rows, gain=gain, dh=dh, out=out))
+        cases[kernel] = types.SimpleNamespace(
+            run=run, plain=plain, check=pass_check(torch, f"attn_bwd/{kernel}:{name}", run, plain, names, ("dgain",)),
+            flops=flops, nbytes=nbytes, library=library, shape=(n, t, d),
+            inputs=dict(x=x, dy=dy, rows=rows, gain=gain, dh=dh))
     return cases
 
 
-def modulate_row(torch, case, replaces) -> dict:
-    """A report row of a modulate_case kernel: device ms of CUDA-graph
-    replays for the kernel, its plain version and the library call."""
+def out_gate_case(torch, gen, dev, name, tensors=None):
+    """One OUT_GATE_SHAPES entry of out_gate_residual_bwd: attn and dy
+    (bf16, flat (N*T, D)), the weight w (D, D) bf16 and rows (N, 3D) f32
+    holding the gate at 2D, drawn from ``gen`` unless ``tensors`` gives them
+    (a dict of those names). A namespace as modulate_case's: ``check``
+    holds dout and dgate to the plain version (the product's f32 out, then
+    gate_residual_bwd_plain) at 1e-2 + 1e-2 relative and a second run to the
+    same bits; the bound counts attn, w, dy and the gate read once, dout and
+    dgate written once, and the product's 2*M*D*D operations; ``library`` is
+    one torch.matmul of the product alone."""
+    import types
+
+    from mapdit_tpu_torch.ops.cuda import attn_branch as ab
+    from mapdit_tpu_torch.ops.mp import normalize
+
+    n, t, d = OUT_GATE_SHAPES[name]
+    mt, bf = n * t, torch.bfloat16
+    if tensors is None:
+        attn, dy = (torch.randn(mt, d, generator=gen, device=dev).to(bf) for _ in range(2))
+        w = normalize(torch.randn(d, d, generator=gen, device=dev)).to(bf).contiguous()
+        rows = torch.randn(n, 3 * d, generator=gen, device=dev)
+    else:
+        attn, w, dy, rows = (tensors[key] for key in ("attn", "w", "dy", "rows"))
+
+    def run():
+        return ab.out_gate_residual_bwd(attn, w, dy, rows, 2 * d, t)
+
+    def plain():
+        return ab.out_gate_residual_bwd_plain(attn, w, dy, rows, 2 * d, t)
+
+    nbytes = mt * d * 2 + d * d * 2 + dy.numel() * dy.element_size() + n * d * 4 + mt * d * 2 + n * d * 4
+    return types.SimpleNamespace(
+        run=run, plain=plain, check=pass_check(torch, f"attn_bwd/out_gate_residual:{name}", run, plain,
+                                               ("dout", "dgate")),
+        flops=2 * mt * d * d, nbytes=nbytes, library=lambda: torch.matmul(attn, w.t()), shape=(n, t, d),
+        inputs=dict(attn=attn, w=w, dy=dy, rows=rows))
+
+
+def pass_row(torch, case, replaces, source=BWD_SRC) -> dict:
+    """A report row of a modulate_case or out_gate_case kernel: device ms of
+    CUDA-graph replays for the kernel, its plain version and the library
+    call, and the wrapper's host ms."""
     b, by = bound_ms(case.flops, case.nbytes)
-    return dict(source=BWD_SRC, replaces=f"{PALLAS}:{replaces}", ms=graph_ms(torch, case.run),
+    return dict(source=source, replaces=f"{PALLAS}:{replaces}", ms=graph_ms(torch, case.run),
                 plain_ms=graph_ms(torch, case.plain), bound_ms=b, bound_by=by,
                 library_ms=None if case.library is None else graph_ms(torch, case.library),
                 host_ms=host_ms(torch, case.run))
 
 
+def out_gate_shape_checks(torch, gen, dev) -> None:
+    """out_gate_residual_bwd at its OUT_GATE_SHAPES entries beside the
+    report row, checked and timed; then T = OUT_GATE_BAD_T, which it must
+    refuse before anything is launched."""
+    from mapdit_tpu_torch.ops.cuda import attn_branch as ab
+
+    for name in OUT_GATE_SHAPES:
+        if name == "s2":
+            continue
+        case = out_gate_case(torch, gen, dev, name)
+        err = case.check(case.run())
+        row = pass_row(torch, case, None, GEMM_SRC)
+        phase("time", kernel=f"attn_bwd/out_gate_residual:{name}", shape=case.shape, max_abs_err=f"{err:.3e}",
+              **{key: f"{row[key]:.4f}" for key in ("ms", "plain_ms", "bound_ms", "library_ms", "host_ms")},
+              bound_by=row["bound_by"])
+    n, t, d = 2, OUT_GATE_BAD_T, 64
+    z = torch.zeros(n * t, d, dtype=torch.bfloat16, device=dev)
+    before = ab.LAUNCHES["attn_bwd/out_gate_residual"]
+    try:
+        ab.out_gate_residual_bwd(z, z[:d], z, torch.zeros(n, 3 * d, device=dev), 2 * d, t)
+    except ValueError as e:
+        phase("check", what=f"attn_bwd/out_gate_residual:t{t}", raises="ValueError", message=json.dumps(str(e)),
+              launched=ab.LAUNCHES["attn_bwd/out_gate_residual"] - before)
+    else:
+        raise AssertionError(f"out_gate_residual_bwd took T={t}, which does not divide {ab.GEMM_TILE_ROWS}")
+
+
 def modulate_shape_checks(torch, gen, dev) -> None:
-    """The modulate passes and the residual backward at their
-    MODULATE_SHAPES entries beside the report rows, checked and timed; then
+    """The modulate passes at their MODULATE_SHAPES entries beside the
+    report rows, checked and timed; then
     D = MODULATE_BAD_D, which both modulate passes must refuse before
     anything is launched."""
     from mapdit_tpu_torch.ops.cuda import attn_branch as ab
@@ -1021,7 +1174,7 @@ def modulate_shape_checks(torch, gen, dev) -> None:
             continue
         for kernel, case in modulate_case(torch, gen, dev, name).items():
             case.check(case.run())
-            row = modulate_row(torch, case, None)
+            row = pass_row(torch, case, None)
             phase("time", kernel=f"attn_bwd/{kernel}:{name}", shape=case.shape, ms=f"{row['ms']:.4f}",
                   plain_ms=f"{row['plain_ms']:.4f}", bound_ms=f"{row['bound_ms']:.4f}",
                   library_ms=row["library_ms"] and f"{row['library_ms']:.4f}")
@@ -1156,18 +1309,23 @@ def train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x_s, a_s, gains_s, w0)
     # the backward's passes around the products, on identical inputs (device
     # ms of CUDA-graph replays), then at their other shapes
     passes = modulate_case(torch, gen, dev, "s2", tensors=dict(x=xf, dy=dy.reshape(mt, d), rows=rows_, gain=g1,
-                                                                dh=dh, out=out))
-    if passes["modulate_bwd"].shape != (n, t, d):
-        raise AssertionError(f"MODULATE_SHAPES' report row {passes['modulate_bwd'].shape} is not the training shape")
-    for kernel, line in (("gate_residual", 630), ("modulate_fwd", 588), ("modulate_bwd", 690)):
+                                                                dh=dh))
+    passes["out_gate_residual"] = out_gate_case(torch, gen, dev, "s2", tensors=dict(attn=attn, w=wo,
+                                                                                   dy=dy.reshape(mt, d), rows=rows_))
+    for kernel, case in passes.items():
+        if case.shape != (n, t, d):
+            raise AssertionError(f"the {kernel} report row {case.shape} is not the training shape")
+    for kernel, line, source in (("out_gate_residual", 622, GEMM_SRC), ("modulate_fwd", 588, BWD_SRC),
+                                 ("modulate_bwd", 690, BWD_SRC)):
         case = passes[kernel]
-        out_rows[f"attn_bwd/{kernel}"] = dict(modulate_row(torch, case, line), max_abs_err=case.check(case.run()),
-                                              path="mega_attn+pallas")
-    # their own generator: every other row keeps the inputs it drew before
+        out_rows[f"attn_bwd/{kernel}"] = dict(pass_row(torch, case, line, source),
+                                              max_abs_err=case.check(case.run()), path="mega_attn+pallas")
+    # their own generators: every other row keeps the inputs it drew before
     # these checks were added
     mod_gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     modulate_shape_checks(torch, mod_gen, dev)
     branch_bwd_checks(torch, k, mod_gen, dev)
+    out_gate_shape_checks(torch, torch.Generator(device=dev).manual_seed(SEED + 11), dev)
 
     # attention_bwd on identical inputs (device ms of CUDA-graph replays,
     # SDPA's forward and backward beside), then at its other shapes
@@ -1400,6 +1558,14 @@ def train_phase(torch, dev, tag: str, paths: dict, expect: dict, steps: int) -> 
     return counts
 
 
+# kernel launches a call of the attention half-block's forward (row 3: qkv,
+# attention, out) and fused backward (row 4: modulate_fwd, qkv, attention,
+# out with the residual backward, dattn, attention_bwd, dh, modulate_bwd;
+# the f32 out product and the residual pass were two launches before)
+ROW3_LAUNCHES = 3
+ROW4_LAUNCHES = 8
+
+
 def s2_train_phase(torch, dev, cfg) -> dict:
     """Phase 6: DiT-S/2 training on the plain path and through the
     attention half-block kernels with both of their backwards."""
@@ -1416,17 +1582,26 @@ def s2_train_phase(torch, dev, cfg) -> dict:
     bwd_kernels = {key: per_step for key in ab.LAUNCHES if key.startswith("attn_bwd/") and key != "attn_bwd/dw"}
     expect = {
         "off": {},
-        # forward and the backward's recompute each launch the qkv and out
-        # products
+        # forward and the backward's recompute each launch the qkv product;
+        # the backward's out product is out_gate_residual_bwd's
         "mega_attn+pallas": {
             "attn_branch/fwd": per_step, "attn_branch/bwd": per_step, "mp_gemm/qkv": 2 * per_step,
-            "mp_gemm/out": 2 * per_step, "mp_gemm/dattn": per_step, "mp_gemm/dh": per_step,
+            "mp_gemm/out": per_step, "mp_gemm/dattn": per_step, "mp_gemm/dh": per_step,
             "cosine_attention": per_step, "cosine_attention/residual": per_step, **bwd_kernels,
         },
         "mega_attn+residual": {"attn_branch/res_fwd": per_step, "mp_gemm/qkv": per_step, "mp_gemm/out": per_step,
                                "cosine_attention/residual": per_step},
     }
-    return train_phase(torch, dev, "train", paths, expect, TRAIN_STEPS)
+    counts = train_phase(torch, dev, "train", paths, expect, TRAIN_STEPS)
+    # row 4, the fused backward: its kernel launches a call, the forward's
+    # three (qkv, attention, out) taken from a block's share
+    kernels = sum(v for key, v in counts["mega_attn+pallas"].items() if not key.startswith("attn_branch/"))
+    row4 = kernels // per_step - ROW3_LAUNCHES
+    phase("check", what="train/mega_attn+pallas:row4-launches-a-call", launches=row4, expected=ROW4_LAUNCHES,
+          ok=row4 == ROW4_LAUNCHES)
+    if row4 != ROW4_LAUNCHES:
+        raise AssertionError(f"the fused attention backward made {row4} launches a call, not {ROW4_LAUNCHES}")
+    return counts
 
 
 def standalone_kernel_rows(torch, F, gen, dev) -> dict:
@@ -1652,7 +1827,7 @@ def train_cli_phase(torch, dev) -> dict:
         per = depth * steps
         bwd = {key: per for key in ab.LAUNCHES if key.startswith("attn_bwd/")}
         bwd["attn_bwd/dw"] = 2 * per if dw else 0  # one launch for each of the two products
-        return {"attn_branch/fwd": per, "attn_branch/bwd": per, "mp_gemm/qkv": 2 * per, "mp_gemm/out": 2 * per,
+        return {"attn_branch/fwd": per, "attn_branch/bwd": per, "mp_gemm/qkv": 2 * per, "mp_gemm/out": per,
                 "mp_gemm/dattn": per, "mp_gemm/dh": per, "cosine_attention": per, "cosine_attention/residual": per,
                 **{key: v for key, v in bwd.items() if v}}
 

@@ -1,16 +1,17 @@
-// attn_branch_bwd: the three non-GEMM kernels of the attention half-block's
-// fused backward.
+// attn_branch_bwd: the non-GEMM kernels of the attention half-block's fused
+// backward.
 //
 // Replaces mapdit_tpu/ops/pallas/dit_block.py:_attn_bwd_kernel with its
 // body _attn_bwd_math (reached from _attn_bwd_impl, the attn_bwd="pallas"
 // VJP of fused_attn_branch). The Pallas kernel holds a group of samples in
 // VMEM and runs the whole recompute + hand VJP there; on Hopper the four
 // products of width D or 3D go to csrc/mp_gemm.cu (qkv, out, dattn = dout .
-// Wout, dh = dqkv . Wqkv) and the stages between them are these kernels:
+// Wout, dh = dqkv . Wqkv) and the stages between them are these kernels.
+// The residual backward (a), db = dy*0.3/rd, dgate_rows = sum_t db*out,
+// dout = bf16(db*gate), is the out product's epilogue in mp_gemm.cu
+// (mp_gemm_gate_residual_bwd), so out is never stored; the direct path
+// dx0 = dy*0.7/rd is formed by (c).
 //
-//   (a) gate_residual_bwd   y = (x + (gate*out - x)*0.3) / sqrt(0.58):
-//         db = dy*0.3/rd, dgate_rows = sum_t db*out, dout = bf16(db*gate)
-//         (the direct path dx0 = dy*0.7/rd is formed by (c))
 //   (b) attention_bwd       one block per (sample, head): recompute the q/k
 //         norms and the exact softmax p of the pre-normalised, bf16-rounded
 //         q/k, then dv = bf16(p)^T bf16(do), dp = bf16(do) bf16(v)^T,
@@ -29,9 +30,8 @@
 // sequentially, l.768-780).
 //
 // Bound on the H100 at the DiT-S/2 training shapes (N = 256, T = 64,
-// D = 384, 6 heads): (a) and (c) are elementwise passes over a few (N, T, D)
-// arrays, memory-bound: (a) reads dy (bf16) and out (f32) and writes dout
-// (bf16), 51.1 MB, 0.0153 ms; modulate_fwd reads x and writes h (bf16),
+// D = 384, 6 heads): (c) are elementwise passes over a few (N, T, D)
+// arrays, memory-bound: modulate_fwd reads x and writes h (bf16),
 // 25.95 MB, 0.0077 ms; modulate_bwd reads dh (f32), x and dy (bf16) and
 // writes dx (bf16), 64.5 MB, 0.0193 ms. (b) reads 4*T*hd f32 (q, k, v, do) and writes
 // 3*T*hd bf16 per (sample, head) and does 10*T*T*hd flops, ~20 flops a
@@ -90,8 +90,8 @@
 //     chunks, 8 row groups); a thread takes the rows rg, rg + 8, ... of
 //     its sample, BWD_ROWS of them in flight (dh 32, x 16, dy 16 bytes
 //     each, read through the streaming path), and forms the residual's
-//     direct path dx0 = dy*0.7/rd itself (one f32 product, as
-//     gate_residual_bwd stored it before; that f32 array is gone). The row
+//     direct path dx0 = dy*0.7/rd itself (one f32 product, as an
+//     earlier residual pass stored it; that f32 array is gone). The row
 //     groups' dshift / dscale sums meet in shared memory in row-group
 //     order; where the grid fills the card four times over, a block takes
 //     two samples, paying its row loads, reductions and ticket half as
@@ -120,36 +120,7 @@
 
 namespace {
 
-constexpr int COLS = 128;  // threads of the residual kernel
-
 enum { DT_F32 = 0, DT_BF16 = 1 };
-
-__device__ __forceinline__ float load_f32(const void* p, int dtype, int64_t i) {
-  return dtype == DT_F32 ? static_cast<const float*>(p)[i]
-                         : __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
-}
-
-// ---------------------------------------------------------------------------
-// (a) gated MP residual backward; grid (ceil(D / COLS), N)
-
-__global__ void __launch_bounds__(COLS)
-    gate_residual_bwd_kernel(const void* __restrict__ dy, int dy_dtype, const float* __restrict__ out,
-                             const float* __restrict__ rows, int rows_ld, int gate_off,
-                             __nv_bfloat16* __restrict__ dout, float* __restrict__ dgate, int t, int d,
-                             float db_fac) {
-  const int col = blockIdx.x * COLS + threadIdx.x;
-  const int sample = blockIdx.y;
-  if (col >= d) return;
-  const float gate = rows[(int64_t)sample * rows_ld + gate_off + col];
-  float acc = 0.f;
-  for (int r = 0; r < t; ++r) {
-    const int64_t idx = ((int64_t)sample * t + r) * d + col;
-    const float db = load_f32(dy, dy_dtype, idx) * db_fac;
-    acc += db * out[idx];
-    dout[idx] = __float2bfloat16(db * gate);
-  }
-  dgate[(int64_t)sample * d + col] = acc;
-}
 
 // ---------------------------------------------------------------------------
 // (b) attention backward on the tensor cores; grid (heads, N), one block
@@ -624,7 +595,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
               const float du = gh[i][e] * du_fac;
               acc_dh[e] += gh[i][e];
               acc_gain += gh[i][e] * (sh[e] - u);
-              // dx0 rounded on its own, as gate_residual_bwd stored it
+              // dx0 rounded on its own, as the plain version rounds it
               out[e] = __fmul_rn(yv[i][e], dx_fac) + du * sc[e];
               acc_sc[e] += du * xv[i][e];
             }
@@ -694,17 +665,6 @@ bool modulate_domain(int d, int rows_ld, int shift_off, int scale_off, std::init
 }
 
 }  // namespace
-
-extern "C" int gate_residual_bwd(const void* dy, int dy_dtype, const void* out, const void* rows,
-                                 int rows_ld, int gate_off, void* dout, void* dgate, int n, int t, int d,
-                                 void* stream) {
-  const double t_res = 0.3, rd = sqrt((1.0 - t_res) * (1.0 - t_res) + t_res * t_res);
-  dim3 grid((d + COLS - 1) / COLS, n);
-  gate_residual_bwd_kernel<<<grid, COLS, 0, static_cast<cudaStream_t>(stream)>>>(
-      dy, dy_dtype, static_cast<const float*>(out), static_cast<const float*>(rows), rows_ld, gate_off,
-      static_cast<__nv_bfloat16*>(dout), static_cast<float*>(dgate), t, d, (float)(t_res / rd));
-  return static_cast<int>(cudaGetLastError());
-}
 
 // Shared memory of one attention_bwd block, 0 where the kernel does not
 // take (t, hd): head widths 64 and 72, 1 <= t <= 128.

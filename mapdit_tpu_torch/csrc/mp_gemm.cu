@@ -15,7 +15,12 @@
 //             (no host sync);
 //   epilogue  SILU: silu(c) / 0.596 (MP-SiLU);
 //             RESIDUAL: (x + (gate*c - x)*0.3) / sqrt(0.58), the gated MP
-//             residual, with x read from the stream (f32 or bf16).
+//             residual, with x read from the stream (f32 or bf16);
+//             GATE_RESIDUAL_BWD: the backward of that residual through its
+//             branch, taken on the product out = c that is never stored
+//             (the residual backward of _attn_bwd_math, dit_block.py:620-633,
+//             whose Pallas kernel also keeps out in VMEM): db = dy*0.3/rd,
+//             dout = bf16(db*gate) in C, dgate = sum_t db*out (N, D) f32.
 // W is stored (out, in), as the port stores every weight: the forward
 // products read it as (N, K) and take W^T (the K-major B operand of wgmma);
 // the attention half-block's backward (dattn = dout . Wout, dh = dqkv .
@@ -88,6 +93,22 @@
 //     every run. The split count is mp_gemm_splits(M, N, K): enough for two
 //     CTAs an SM, at least three k steps a split, at most 8. Rows past M
 //     (M = 8 fills 8 of 128) are TMA's out-of-bounds zeros.
+//   * GATE_RESIDUAL_BWD (the attention backward's out product, mp_gemm_gate_
+//     residual_bwd): a 128-row tile holds whole samples when T divides 128
+//     (every registry model's T = 64, 16, 4; the wrapper raises otherwise).
+//     On the staged tile, consumer thread (g, c) takes rows 8g .. 8g + 7 of
+//     columns 8c .. 8c + 7: dy and the gate row in 16-byte loads, dout in
+//     16-byte stores, db*out summed down the rows in order. For T <= 8 those
+//     rows hold whole samples and the thread writes their dgate; for T > 8
+//     its partial sum goes to shared memory and (sample, 8 columns) threads
+//     add a sample's T/8 partials in row order. Split-K grids run the same
+//     epilogue in mp_gemm_reduce_gate, a block a tile, each thread summing
+//     its rows' split partials in split order (a first form there, one
+//     thread a (sample, 8 columns) over all T rows, was latency-bound: 1.9x
+//     the pair it replaced at N = 3, T = 64). No float atomics: the same
+//     bits on every run. The f32 out the earlier route wrote for a separate
+//     pass (one thread a column, a serial loop over T, 0.0368 ms against a
+//     bound of 0.0153 at S/2 training) is gone.
 //   * TMA needs 16-byte aligned rows and pointers: K and N multiples of 8;
 //     the modulation rows are read as float4 (the wrapper raises otherwise).
 //     The tensor maps are encoded on the host with cuTensorMapEncodeTiled,
@@ -97,6 +118,7 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "gemm_pipeline.cuh"
@@ -109,12 +131,26 @@ using namespace gemm_pipeline;
 constexpr int SMS = 132;
 
 enum { PRO_NONE = 0, PRO_MODULATE = 1 };
-enum { EPI_NONE = 0, EPI_SILU = 1, EPI_RESIDUAL = 2 };
+enum { EPI_NONE = 0, EPI_SILU = 1, EPI_RESIDUAL = 2, EPI_GATE_RESIDUAL_BWD = 3 };
+// rows of one sample and column chunk a thread of the GATE_RESIDUAL_BWD
+// epilogue takes; BM / GR_ROWS row groups of BN / 8 chunks are the 256
+// consumer threads
+constexpr int GR_ROWS = 8;
+constexpr int GR_GROUPS = BM / GR_ROWS;
+// rows whose loads a thread puts in flight together: one in the product's
+// epilogue (two CTAs an SM cap a thread at 112 registers; four rows spilled
+// and took the S/2 call from 0.029 to 0.035 ms), all of them in the split-K
+// reduction
+constexpr int FLIGHT_TILE = 1;
 
 constexpr int STAGES = 3;
 // 1 KB of slack to align the ring to the 1024 bytes the swizzle needs, then
 // the barriers
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
+// GATE_RESIDUAL_BWD: a thread a (row group, chunk), and the row groups'
+// partial sums beside the staged tile, inside the ring
+static_assert(GR_GROUPS * (BN / 8) == CONSUMER_THREADS, "one consumer thread a row group and chunk");
+static_assert(TILE_BYTES + GR_GROUPS * BN * 4 <= STAGES * STAGE_BYTES, "partials past the ring");
 
 struct Params {
   void* c;
@@ -128,8 +164,10 @@ struct Params {
   const float* gain;
   int tokens;
   int epilogue;
-  const void* x;
+  const void* x;  // the stream x (RESIDUAL) or the cotangent dy (GATE_RESIDUAL_BWD)
   int x_dtype;
+  float* dgate;    // GATE_RESIDUAL_BWD: (M / tokens, N) f32
+  float db_fac;    // GATE_RESIDUAL_BWD: 0.3 / sqrt(0.58)
 };
 
 // The prologue pass: A (f32 or bf16), modulated when asked, rounded once to
@@ -205,6 +243,88 @@ __device__ __forceinline__ void finish8(const Params& p, int row, int col, float
   }
 }
 
+// db = dy*db_fac for eight columns, dout = bf16(db*gate) stored at idx,
+// and acc += db*out
+__device__ __forceinline__ void gate_residual8(const Params& p, int64_t idx, const float (&out)[8],
+                                               const float (&dy)[8], const float (&gate)[8], float (&acc)[8]) {
+  float d[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const float db = dy[e] * p.db_fac;
+    acc[e] += db * out[e];
+    d[e] = db * gate[e];
+  }
+  *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.c) + idx) =
+      make_uint4(pack_bf16(d[0], d[1]), pack_bf16(d[2], d[3]), pack_bf16(d[4], d[5]), pack_bf16(d[6], d[7]));
+}
+
+__device__ __forceinline__ void store8(float* dst, const float (&v)[8]) {
+  reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// The GATE_RESIDUAL_BWD epilogue of one 128 x 128 tile at (m0, n0) over
+// 256 threads (all of them reach the named barrier): see the notes at the
+// top. A thread's GR_ROWS rows go FLIGHT at a time, their loads issued
+// together: sums(r0, col, rows, v) gives the f32 sums of tile rows r0 ..
+// r0 + rows - 1, columns col .. col + 7 (from the staged tile, or the
+// split-K partials), then dy of those rows is read. ``partial`` holds
+// GR_GROUPS x BN f32 of shared memory.
+template <int FLIGHT, class Sums>
+__device__ __forceinline__ void gate_residual_tile(const Sums& sums, float* partial, const Params& p, int m0, int n0,
+                                                   int tid) {
+  const int chunk = tid % (BN / 8), g = tid / (BN / 8);
+  const int col = n0 + 8 * chunk, t = p.tokens, r0 = GR_ROWS * g;
+  const int rows = min(GR_ROWS, p.m - (m0 + r0));
+  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, gate[8];
+  if (col < p.n) {
+#pragma unroll
+    for (int h = 0; h < GR_ROWS; h += FLIGHT) {
+      const int n_rows = min(FLIGHT, rows - h);
+      if (n_rows <= 0) break;
+      float out[FLIGHT][8], dy[FLIGHT][8];
+      sums(r0 + h, col, n_rows, out);
+      // rows past n_rows read the last one again: no branch between the
+      // loads, so they are in flight together
+#pragma unroll
+      for (int i = 0; i < FLIGHT; ++i)
+        load8(p.x, p.x_dtype, static_cast<int64_t>(m0 + r0 + h + min(i, n_rows - 1)) * p.n + col, dy[i]);
+#pragma unroll
+      for (int i = 0; i < FLIGHT; ++i) {
+        if (i >= n_rows) break;
+        const int row = m0 + r0 + h + i, sample = row / t;
+        if (h + i == 0 || row % t == 0) {
+          load8(p.mods, DT_F32, static_cast<int64_t>(sample) * p.mods_ld + p.gate_off + col, gate);
+        }
+        scale8(out[i], p.alpha);
+        gate_residual8(p, static_cast<int64_t>(row) * p.n + col, out[i], dy[i], gate, acc);
+        if (t <= GR_ROWS && row % t == t - 1) {
+          // the sample ends inside this thread's rows: its dgate is whole
+          store8(p.dgate + static_cast<int64_t>(sample) * p.n + col, acc);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+        }
+      }
+    }
+  }
+  if (t <= GR_ROWS) return;
+  store8(partial + g * BN + 8 * chunk, acc);
+  asm volatile("bar.sync %0, %1;\n" ::"n"(CONSUMER_BAR), "n"(CONSUMER_THREADS) : "memory");
+  // (sample, chunk) threads: a sample's T / GR_ROWS row groups in order
+  const int groups = t / GR_ROWS, samples = BM / t;
+  if (tid >= samples * (BN / 8)) return;
+  const int s = tid / (BN / 8), row0 = m0 + s * t;
+  if (row0 >= p.m || col >= p.n) return;
+  float sum[8];
+  for (int e = 0; e < 8; ++e) sum[e] = 0.f;
+  for (int j = 0; j < groups; ++j) {
+    const float* src = partial + (s * groups + j) * BN + 8 * chunk;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sum[e] += src[e];
+  }
+  store8(p.dgate + static_cast<int64_t>(row0 / t) * p.n + col, sum);
+}
+
 template <bool W_KN>
 __global__ void __launch_bounds__(THREADS, 2)
     mp_gemm_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_w, const Params p) {
@@ -247,6 +367,20 @@ __global__ void __launch_bounds__(THREADS, 2)
   // thread, with 16-byte loads and stores
   float* tile = reinterpret_cast<float*>(smem_raw + (ring.base - smem_u32(smem_raw)));
   stage_tile(tile, acc, active, tid);
+  if (p.epilogue == EPI_GATE_RESIDUAL_BWD) {
+    const auto staged = [&](int r0, int col, int rows, float (&v)[FLIGHT_TILE][8]) {
+#pragma unroll
+      for (int i = 0; i < FLIGHT_TILE; ++i) {
+        if (i >= rows) break;
+        const float4 lo = *reinterpret_cast<const float4*>(tile + (r0 + i) * LDT + col - n0);
+        const float4 hi = *reinterpret_cast<const float4*>(tile + (r0 + i) * LDT + col - n0 + 4);
+        v[i][0] = lo.x; v[i][1] = lo.y; v[i][2] = lo.z; v[i][3] = lo.w;
+        v[i][4] = hi.x; v[i][5] = hi.y; v[i][6] = hi.z; v[i][7] = hi.w;
+      }
+    };
+    gate_residual_tile<FLIGHT_TILE>(staged, tile + BM * LDT, p, m0, n0, tid);
+    return;
+  }
   epilogue_tile(tile, p.m, p.n, m0, n0, tid, [&](int row, int col, float (&v)[8]) { finish8(p, row, col, v); });
 }
 
@@ -267,6 +401,33 @@ __global__ void __launch_bounds__(256) mp_gemm_reduce(const Params p) {
     }
     finish8(p, static_cast<int>(e / p.n), static_cast<int>(e % p.n), v);
   }
+}
+
+// split-K with GATE_RESIDUAL_BWD: a block of 256 threads a 128 x 128
+// tile, laid out as the product's epilogue, each (row, eight columns) the
+// splits' partials summed in split order
+__global__ void __launch_bounds__(CONSUMER_THREADS) mp_gemm_reduce_gate(const Params p) {
+  __shared__ __align__(16) float partial[GR_GROUPS * BN];
+  const int64_t mn = static_cast<int64_t>(p.m) * p.n;
+  const auto split_sums = [&](int r0, int col, int rows, float (&v)[GR_ROWS][8]) {
+    // rows past ``rows`` read the last one again: no branch between the
+    // loads of a split, so they are in flight together (loads behind a
+    // branch each ran one after another: twice the pair's time at T = 4)
+    const int64_t e = static_cast<int64_t>(blockIdx.y * BM + r0) * p.n + col;
+#pragma unroll
+    for (int i = 0; i < GR_ROWS; ++i) load8(p.partial, DT_F32, e + static_cast<int64_t>(min(i, rows - 1)) * p.n, v[i]);
+    for (int z = 1; z < p.splits; ++z) {
+      float w[GR_ROWS][8];
+#pragma unroll
+      for (int i = 0; i < GR_ROWS; ++i)
+        load8(p.partial, DT_F32, z * mn + e + static_cast<int64_t>(min(i, rows - 1)) * p.n, w[i]);
+#pragma unroll
+      for (int i = 0; i < GR_ROWS; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[i][j] += w[i][j];
+    }
+  };
+  gate_residual_tile<GR_ROWS>(split_sums, partial, p, blockIdx.y * BM, blockIdx.x * BN, threadIdx.x);
 }
 
 template <bool W_KN>
@@ -303,48 +464,31 @@ extern "C" int mp_gemm_splits(int m, int n, int k) {
   return s < 1 ? 1 : s;
 }
 
-// a_work: an (M, K) bf16 buffer for the prologue pass, needed when A is f32
-// or modulated; partial: (splits, M, N) f32, needed when mp_gemm_splits > 1.
-extern "C" int mp_gemm(const void* a, int a_dtype, const void* w, void* c, int c_dtype, int m, int n, int k,
-                       float alpha, int prologue, const void* mods, int mods_ld, int shift_off, int scale_off,
-                       int gate_off, const void* gain, int tokens, int epilogue, const void* x, int x_dtype,
-                       int w_kn, void* a_work, void* partial, void* stream) {
+namespace {
+
+// The product and its epilogue for the Params ``p`` (epilogue, C and the
+// epilogue's operands set): encodes the maps, runs the prologue pass when A
+// is f32 or modulated, the product, and with split-K the reduction.
+int run(const void* a, int a_dtype, const void* w, Params& p, int prologue, int w_kn, void* a_work, void* partial,
+        void* stream) {
   const bool a_f32 = a_dtype == DT_F32, modulated = prologue == PRO_MODULATE;
   const void* a_bf16 = (a_f32 || modulated) ? a_work : a;
-  if (k % 8 || n % 8 || m < 1 || a_bf16 == nullptr ||
+  if (p.k % 8 || p.n % 8 || p.m < 1 || a_bf16 == nullptr ||
       (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(a_bf16) | reinterpret_cast<uintptr_t>(w)) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap ta, tw;
-  const bool maps_ok = encode(&ta, a_bf16, m, k, BM, BK) &&
-                       (w_kn ? encode(&tw, w, k, n, BK, 64) : encode(&tw, w, n, k, BN, BK));
+  const bool maps_ok = encode(&ta, a_bf16, p.m, p.k, BM, BK) &&
+                       (w_kn ? encode(&tw, w, p.k, p.n, BK, 64) : encode(&tw, w, p.n, p.k, BN, BK));
   if (!maps_ok) return static_cast<int>(cudaErrorInvalidValue);
-
-  Params p;
-  p.c = c;
-  p.c_dtype = c_dtype;
   p.partial = static_cast<float*>(partial);
-  p.m = m;
-  p.n = n;
-  p.k = k;
-  p.kt = cdiv(k, BK);
-  p.splits = mp_gemm_splits(m, n, k);
-  p.alpha = alpha;
-  p.mods = static_cast<const float*>(mods);
-  p.mods_ld = mods_ld;
-  p.shift_off = shift_off;
-  p.scale_off = scale_off;
-  p.gate_off = gate_off;
-  p.gain = static_cast<const float*>(gain);
-  p.tokens = tokens;
-  p.epilogue = epilogue;
-  p.x = x;
-  p.x_dtype = x_dtype;
+  p.kt = cdiv(p.k, BK);
+  p.splits = mp_gemm_splits(p.m, p.n, p.k);
   if (p.splits > 1 && partial == nullptr) return static_cast<int>(cudaErrorInvalidValue);
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a_bf16 != a) {
-    const int64_t chunks = static_cast<int64_t>(m) * (k / 8);
+    const int64_t chunks = static_cast<int64_t>(p.m) * (p.k / 8);
     const int blocks = static_cast<int>(chunks / 256 + 1 < 8 * SMS ? chunks / 256 + 1 : 8 * SMS);
     uint4* out = static_cast<uint4*>(const_cast<void*>(a_bf16));
     if (a_f32) {
@@ -356,13 +500,80 @@ extern "C" int mp_gemm(const void* a, int a_dtype, const void* w, void* c, int c
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const dim3 grid(cdiv(n, BN), cdiv(m, BM), p.splits);
+  const dim3 grid(cdiv(p.n, BN), cdiv(p.m, BM), p.splits);
   cudaError_t e = w_kn ? launch<true>(ta, tw, p, grid, s) : launch<false>(ta, tw, p, grid, s);
   if (e != cudaSuccess || p.splits == 1) return static_cast<int>(e);
-  const int64_t chunks = static_cast<int64_t>(m) * n / 8;
+  if (p.epilogue == EPI_GATE_RESIDUAL_BWD) {
+    mp_gemm_reduce_gate<<<dim3(grid.x, grid.y), CONSUMER_THREADS, 0, s>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int64_t chunks = static_cast<int64_t>(p.m) * p.n / 8;
   const int blocks = static_cast<int>(chunks / 256 + 1 < 4 * SMS ? chunks / 256 + 1 : 4 * SMS);
   mp_gemm_reduce<<<blocks, 256, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// a_work: an (M, K) bf16 buffer for the prologue pass, needed when A is f32
+// or modulated; partial: (splits, M, N) f32, needed when mp_gemm_splits > 1.
+extern "C" int mp_gemm(const void* a, int a_dtype, const void* w, void* c, int c_dtype, int m, int n, int k,
+                       float alpha, int prologue, const void* mods, int mods_ld, int shift_off, int scale_off,
+                       int gate_off, const void* gain, int tokens, int epilogue, const void* x, int x_dtype,
+                       int w_kn, void* a_work, void* partial, void* stream) {
+  if (epilogue == EPI_GATE_RESIDUAL_BWD) return static_cast<int>(cudaErrorInvalidValue);
+  Params p = {};
+  p.c = c;
+  p.c_dtype = c_dtype;
+  p.m = m;
+  p.n = n;
+  p.k = k;
+  p.alpha = alpha;
+  p.mods = static_cast<const float*>(mods);
+  p.mods_ld = mods_ld;
+  p.shift_off = shift_off;
+  p.scale_off = scale_off;
+  p.gate_off = gate_off;
+  p.gain = static_cast<const float*>(gain);
+  p.tokens = tokens;
+  p.epilogue = epilogue;
+  p.x = x;
+  p.x_dtype = x_dtype;
+  return run(a, a_dtype, w, p, prologue, w_kn, a_work, partial, stream);
+}
+
+// The attention backward's out product with the residual backward as its
+// epilogue: out = attn . W^T * alpha (bf16 attn (M, K), W (N, K)), never
+// stored; dout (M, N) bf16 = bf16(db*gate), dgate (M / tokens, N) f32 =
+// sum over each sample's rows of db*out, db = dy*0.3/sqrt(0.58), the gate
+// at column gate_off of the f32 rows (M / tokens, rows_ld). Takes tokens
+// dividing 128 (a tile holds whole samples) and 16-byte aligned tensors.
+extern "C" int mp_gemm_gate_residual_bwd(const void* attn, const void* w, void* dout, void* dgate, int m, int n,
+                                         int k, float alpha, const void* rows, int rows_ld, int gate_off,
+                                         const void* dy, int dy_dtype, int tokens, void* partial, void* stream) {
+  if (tokens < 1 || BM % tokens || m % tokens || rows_ld % 4 || gate_off % 4 ||
+      (reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dgate) | reinterpret_cast<uintptr_t>(rows) |
+       reinterpret_cast<uintptr_t>(dy)) % 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const double t_res = 0.3, rd = sqrt((1.0 - t_res) * (1.0 - t_res) + t_res * t_res);
+  Params p = {};
+  p.c = dout;
+  p.c_dtype = DT_BF16;
+  p.m = m;
+  p.n = n;
+  p.k = k;
+  p.alpha = alpha;
+  p.mods = static_cast<const float*>(rows);
+  p.mods_ld = rows_ld;
+  p.gate_off = gate_off;
+  p.tokens = tokens;
+  p.epilogue = EPI_GATE_RESIDUAL_BWD;
+  p.x = dy;
+  p.x_dtype = dy_dtype;
+  p.dgate = static_cast<float*>(dgate);
+  p.db_fac = static_cast<float>(t_res / rd);
+  return run(attn, DT_BF16, w, p, PRO_NONE, 0, nullptr, partial, stream);
 }
 
 extern "C" const char* mp_gemm_error_string(int code) {

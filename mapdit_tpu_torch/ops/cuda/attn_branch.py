@@ -25,8 +25,10 @@ for the stages between the products):
   h = modulate_fwd(x)                      bf16, also the dW_qkv operand
   qkv = h . Wqkv^T / sqrt(D)               mp_gemm
   attn = cosine_attention(qkv), residual   bf16, also the dW_out operand
-  out = attn . Wout^T / sqrt(D)            mp_gemm, f32
-  dout, dgate = gate_residual_bwd(dy, out)               (a)
+  dout, dgate = out_gate_residual_bwd(attn, dy)          (a) mp_gemm with the
+                                           residual backward as its epilogue:
+                                           out = attn . Wout^T / sqrt(D) is
+                                           never stored
   dattn = dout . Wout / sqrt(D)            mp_gemm reading W as (K, N)
   dqkv = attention_bwd(qkv, dattn)                       (b)
   dh = dqkv . Wqkv / sqrt(D)               mp_gemm reading W as (K, N)
@@ -67,6 +69,7 @@ from mapdit_tpu_torch.ops.cuda.dit_block import (
     NORM_EPS,
     ATTENTION_HEAD_WIDTHS,
     _DTYPE_CODE,
+    _mp_gemm_splits,
     _raise_on,
     _require_cuda,
     _rows,
@@ -82,7 +85,7 @@ from mapdit_tpu_torch.ops.cuda.dit_block import (
 from mapdit_tpu_torch.ops.mp import mp_sum
 
 LAUNCHES = {
-    "attn_bwd/gate_residual": 0,
+    "attn_bwd/out_gate_residual": 0,
     "attn_bwd/attention": 0,
     "attn_bwd/modulate_fwd": 0,
     "attn_bwd/modulate_bwd": 0,
@@ -104,6 +107,9 @@ DW_IN_KERNEL_BUDGET = 0
 ATTENTION_BWD_MAX_T = 128
 # columns a thread of the CUDA modulate passes takes, with 16-byte accesses
 MODULATE_COLUMNS = 8
+# rows of one mp_gemm tile: the CUDA out_gate_residual_bwd sums each sample
+# inside a tile, so T must divide it
+GEMM_TILE_ROWS = 128
 
 
 def dw_in_kernel(d: int) -> bool:
@@ -137,11 +143,15 @@ def _gain_value(gain: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# (a) gated MP residual backward
+# (a) the out product with the gated MP residual backward as its epilogue
 
 
 def gate_residual_bwd_plain(dy, out, rows, gate_off, tokens, out_dtype):
-    """Plain version of :func:`gate_residual_bwd`."""
+    """Backward of y = (x + (gate*out - x)*0.3)/sqrt(0.58) through its
+    branch, over flat (N*T, D) rows: dy (x's type), out f32, rows (N, *) f32
+    holding gate at ``gate_off``. Returns dout = dy*0.3/rd*gate
+    (``out_dtype``) and the per-sample dgate rows (N, D) f32; the direct
+    path dy*0.7/rd is :func:`modulate_bwd`'s."""
     m, d = out.shape
     db = dy.reshape(m, d).float() * DB_FAC
     dgate = (db * out).reshape(m // tokens, tokens, d).sum(dim=1)
@@ -149,33 +159,65 @@ def gate_residual_bwd_plain(dy, out, rows, gate_off, tokens, out_dtype):
     return dout, dgate
 
 
-def gate_residual_bwd(dy, out, rows, gate_off, tokens, out_dtype):
-    """Backward of y = (x + (gate*out - x)*0.3)/sqrt(0.58) through its
-    branch, over flat (N*T, D) rows: dy (x's type), out f32, rows (N, *) f32
-    holding gate at ``gate_off``. Returns dout = dy*0.3/rd*gate
-    (``out_dtype``) and the per-sample dgate rows (N, D) f32; the direct
-    path dy*0.7/rd is :func:`modulate_bwd`'s."""
-    if out.device.type == "cpu":
-        return gate_residual_bwd_plain(dy, out, rows, gate_off, tokens, out_dtype)
-    m, d = out.shape
-    n = m // tokens
-    if out.dtype != torch.float32 or dy.numel() != m * d or dy.dtype not in _DTYPE_CODE:
-        raise ValueError("gate_residual_bwd takes f32 out and f32/bf16 dy of the same size")
-    if out_dtype != torch.bfloat16:
-        raise ValueError("gate_residual_bwd writes bf16 dout")
-    if gate_off + d > rows.shape[1]:
-        raise ValueError("gate offset runs past the rows")
-    _check_rows(rows, n)
-    dout = torch.empty(m, d, dtype=torch.bfloat16, device=out.device)
-    dgate = torch.empty(n, d, dtype=torch.float32, device=out.device)
-    _require_cuda(dy, out, rows, dout, dgate)
-    lib = _lib()
-    code = lib.gate_residual_bwd(
-        dy.data_ptr(), _DTYPE_CODE[dy.dtype], out.data_ptr(), rows.data_ptr(), rows.shape[1], gate_off,
-        dout.data_ptr(), dgate.data_ptr(), n, tokens, d, _stream(out),
+def out_gate_residual_bwd_plain(attn, w_out, dy, rows, gate_off, tokens):
+    """Plain version of :func:`out_gate_residual_bwd`: the f32 product of
+    :func:`mp_gemm_plain`, then :func:`gate_residual_bwd_plain`."""
+    out = mp_gemm_plain(attn, w_out, alpha=1.0 / math.sqrt(w_out.shape[1]), out_dtype=torch.float32)
+    return gate_residual_bwd_plain(dy, out, rows, gate_off, tokens, w_out.dtype)
+
+
+def check_out_gate_residual_shape(tokens: int) -> None:
+    """Raise unless the CUDA :func:`out_gate_residual_bwd` takes T =
+    ``tokens``: T must divide GEMM_TILE_ROWS, so a tile of the product holds
+    whole samples (every registry model's T = 64, 16, 4 does)."""
+    if tokens < 1 or GEMM_TILE_ROWS % tokens:
+        raise ValueError(f"out_gate_residual_bwd on CUDA takes T dividing {GEMM_TILE_ROWS}, got T={tokens}")
+
+
+def out_gate_residual_bwd(attn, w_out, dy, rows, gate_off, tokens):
+    """The attention backward's out product with the residual backward of
+    y = (x + (gate*out - x)*0.3)/sqrt(0.58) as its epilogue: out = attn .
+    w_out^T / sqrt(D) (attn (N*T, D), w_out (D, D) in the weights' type) is
+    formed and used, never stored; dy (N*T*D elements, f32 or bf16) and the
+    f32 rows (N, *) holding gate at ``gate_off``. Returns dout =
+    dy*0.3/rd*gate in the weights' type and dgate = sum_t dy*0.3/rd*out
+    (N, D) f32. One launch of ``csrc/mp_gemm.cu`` (two under split-K). On the
+    card: bf16 operands, :func:`check_out_gate_residual_shape`, D a multiple
+    of 8 and 16-byte aligned tensors; it raises otherwise, naming CUDA."""
+    if attn.device.type == "cpu":
+        return out_gate_residual_bwd_plain(attn, w_out, dy, rows, gate_off, tokens)
+    from mapdit_tpu_torch.ops.cuda import build
+
+    m, k = attn.shape
+    n = w_out.shape[0]
+    if attn.dtype != torch.bfloat16 or w_out.dtype != torch.bfloat16 or w_out.shape != (n, k):
+        raise ValueError(f"out_gate_residual_bwd on CUDA takes bf16 attn (M, K) and a bf16 (N, K) weight, got "
+                         f"{attn.dtype} {tuple(attn.shape)} and {w_out.dtype} {tuple(w_out.shape)}")
+    if dy.dtype not in _DTYPE_CODE or dy.numel() != m * n:
+        raise ValueError(f"out_gate_residual_bwd on CUDA takes f32/bf16 dy of {m}x{n} elements, got {dy.dtype} "
+                         f"{tuple(dy.shape)}")
+    check_out_gate_residual_shape(tokens)
+    if m % tokens or k % 8 or n % 8:
+        raise ValueError(f"out_gate_residual_bwd on CUDA takes M a multiple of T and K, N multiples of 8, got "
+                         f"M={m}, K={k}, N={n}, T={tokens}")
+    _check_rows(rows, m // tokens)
+    if gate_off + n > rows.shape[1] or gate_off % 4 or rows.shape[1] % 4:
+        raise ValueError("out_gate_residual_bwd on CUDA reads the gate as float4: offset and row length must be "
+                         "multiples of 4, the gate inside the rows")
+    dout = torch.empty(m, n, dtype=torch.bfloat16, device=attn.device)
+    dgate = torch.empty(m // tokens, n, dtype=torch.float32, device=attn.device)
+    _require_cuda(attn, w_out, dy, rows, dout, dgate)
+    _check_aligned("out_gate_residual_bwd", attn, w_out, dy, rows)
+    splits = _mp_gemm_splits(m, n, k)
+    partial = torch.empty(splits, m, n, dtype=torch.float32, device=attn.device) if splits > 1 else None
+    lib = build.library("mp_gemm")
+    code = lib.mp_gemm_gate_residual_bwd(
+        attn.data_ptr(), w_out.data_ptr(), dout.data_ptr(), dgate.data_ptr(), m, n, k, 1.0 / math.sqrt(k),
+        rows.data_ptr(), rows.shape[1], gate_off, dy.data_ptr(), _DTYPE_CODE[dy.dtype], tokens,
+        None if partial is None else partial.data_ptr(), _stream(attn),
     )
-    _raise_on(code, lib, "gate_residual_bwd", _LIB)
-    LAUNCHES["attn_bwd/gate_residual"] += 1
+    _raise_on(code, lib, "out_gate_residual_bwd", "mp_gemm")
+    LAUNCHES["attn_bwd/out_gate_residual"] += 1
     return dout, dgate
 
 
@@ -502,8 +544,8 @@ def attn_res_fwd_plain(x, shift, scale, gate, gain, w_qkv, w_out, heads: int):
     return _fwd(x, shift, scale, gate, gain, w_qkv, w_out, heads, True, mp_gemm_plain, cosine_attention_plain)
 
 
-def _bwd_sequence(dy, x, rows, gain, w_qkv, w_out, heads, gemm, attention, gate_bwd, attn_bwd_k, mod_fwd, mod_bwd,
-                  dw):
+def _bwd_sequence(dy, x, rows, gain, w_qkv, w_out, heads, gemm, attention, out_gate_bwd, attn_bwd_k, mod_fwd,
+                  mod_bwd, dw):
     n, t, d = x.shape
     inv_d = 1.0 / math.sqrt(d)
     dt = w_qkv.dtype
@@ -512,9 +554,8 @@ def _bwd_sequence(dy, x, rows, gain, w_qkv, w_out, heads, gemm, attention, gate_
     h = mod_fwd(xf, rows, gain, t, dt)
     qkv = gemm(h, w_qkv, alpha=inv_d, out_dtype=f32, site="qkv")
     attn = attention(qkv, t, heads, dt, normalize_first=True)
-    out = gemm(attn, w_out, alpha=inv_d, out_dtype=f32, site="out")
     dyf = dy.reshape(n * t, d)
-    dout, dgate = gate_bwd(dyf, out, rows, 2 * d, t, dt)
+    dout, dgate = out_gate_bwd(attn, w_out, dyf, rows, 2 * d, t)
     dattn = gemm(dout, w_out, alpha=inv_d, out_dtype=f32, w_kn=True, site="dattn")
     dqkv = attn_bwd_k(qkv, dattn, t, heads, dt)
     dh = gemm(dqkv, w_qkv, alpha=inv_d, out_dtype=f32, w_kn=True, site="dh")
@@ -536,8 +577,8 @@ def _bwd(dy, x, shift, scale, gate, gain, w_qkv, w_out, heads, kernels):
                          *kernels)
 
 
-_KERNELS = (mp_gemm, cosine_attention, gate_residual_bwd, attention_bwd, modulate_fwd, modulate_bwd, dw_gemm)
-_PLAIN = (mp_gemm_plain, cosine_attention_plain, gate_residual_bwd_plain, attention_bwd_plain, modulate_fwd_plain,
+_KERNELS = (mp_gemm, cosine_attention, out_gate_residual_bwd, attention_bwd, modulate_fwd, modulate_bwd, dw_gemm)
+_PLAIN = (mp_gemm_plain, cosine_attention_plain, out_gate_residual_bwd_plain, attention_bwd_plain, modulate_fwd_plain,
           modulate_bwd_plain, dw_gemm_plain)
 
 

@@ -41,6 +41,7 @@ _SIGNATURES = {
             ctypes.c_int,
         ),
         "mp_gemm_splits": ([_I, _I, _I], ctypes.c_int),
+        "mp_gemm_gate_residual_bwd": ([_P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _I, _P, _I, _I, _P, _P], ctypes.c_int),
         "mp_gemm_error_string": ([_I], ctypes.c_char_p),
     },
     "dw_gemm": {
@@ -60,7 +61,6 @@ _SIGNATURES = {
         "cosine_attention_error_string": ([_I], ctypes.c_char_p),
     },
     "attn_branch_bwd": {
-        "gate_residual_bwd": ([_P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P], ctypes.c_int),
         "attention_bwd": ([_P, _P, _P, _I, _I, _I, _I, _P], ctypes.c_int),
         "attention_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
         "modulate_fwd": ([_P, _I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P], ctypes.c_int),

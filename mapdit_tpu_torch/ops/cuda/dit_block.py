@@ -109,7 +109,7 @@ def _raise_on(code: int, lib, fn: str, source: Optional[str] = None) -> None:
 
 def mp_gemm_plain(
     a, w, *, alpha, out_dtype, modulate=None, silu=False, residual=None, tokens=1, out=None, w_kn=False,
-    site=None,
+    site=None, sum_dtype=torch.float32,
 ):
     """Plain version of :func:`mp_gemm` (``site`` only names a launch count).
 
@@ -117,23 +117,27 @@ def mp_gemm_plain(
     ``residual=(x, mods, gate_off)`` give the prologue and the gated MP
     residual epilogue; ``mods`` is (N, *) f32, column offsets index it, and
     row r of ``a`` belongs to sample r // tokens. ``w_kn`` reads ``w`` as
-    (K, N) and takes ``a @ w`` instead of ``a @ w.T``."""
-    af = a.float()
+    (K, N) and takes ``a @ w`` instead of ``a @ w.T``. The arithmetic runs
+    in ``sum_dtype`` (float64 for a witness of the f32 sums), with the
+    operands of the product rounded to the weights' type as in f32."""
+    af = a.to(sum_dtype)
     if modulate is not None:
         mods, shift_off, scale_off, gain = modulate
         k = a.shape[1]
         shift = _rows(mods[:, shift_off : shift_off + k], tokens)
         scale = _rows(mods[:, scale_off : scale_off + k], tokens)
+        g = gain.to(sum_dtype)
         xs = af * scale
-        af = (xs + (shift - xs) * gain) / torch.sqrt((1.0 - gain) ** 2 + gain**2)
+        af = (xs + (shift - xs) * g) / torch.sqrt((1.0 - g) ** 2 + g**2)
     n_out = w.shape[1] if w_kn else w.shape[0]
-    c = (af.to(w.dtype).float() @ (w.float() if w_kn else w.float().t())) * alpha
+    wf = w.to(sum_dtype)
+    c = (af.to(w.dtype).to(sum_dtype) @ (wf if w_kn else wf.t())) * alpha
     if silu:
         c = F.silu(c) / SILU_DIV
     if residual is not None:
         x, mods, gate_off = residual
         gate = _rows(mods[:, gate_off : gate_off + n_out], tokens)
-        xf = x.float()
+        xf = x.to(sum_dtype)
         c = (xf + (gate * c - xf) * RES_T) / RES_DENOM
     c = c.to(out_dtype)
     if out is None:
@@ -247,19 +251,24 @@ def mp_gemm(
 # cosine attention core
 
 
-def cosine_attention_plain(qkv, tokens, heads, out_dtype, out=None, normalize_first=False, probs=None):
+def cosine_attention_plain(qkv, tokens, heads, out_dtype, out=None, normalize_first=False, probs=None,
+                           sum_dtype=torch.float32):
     """Plain version of :func:`cosine_attention`: the math of the Pallas
     ``_attention_core`` (or, with ``normalize_first``, of the attention in
     ``_attn_res_kernel``), products on ``out_dtype``-rounded operands with
-    f32 sums."""
+    sums, norms and softmax in ``sum_dtype`` (f32; float64 for a witness)."""
     nt, d3 = qkv.shape
     d = d3 // 3
     n, hd = nt // tokens, d // heads
-    q, k, v = qkv.float().reshape(n, tokens, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv.to(sum_dtype).reshape(n, tokens, 3, heads, hd).permute(2, 0, 3, 1, 4)
     qs = math.sqrt(hd) / (torch.linalg.vector_norm(q, dim=-1) + NORM_EPS)
     ks = math.sqrt(hd) / (torch.linalg.vector_norm(k, dim=-1) + NORM_EPS)
     dt = out_dtype
-    logits = (q.to(dt).float() @ k.to(dt).float().transpose(-1, -2)) * (1.0 / math.sqrt(hd))
+
+    def rd(z):
+        return z.to(dt).to(sum_dtype)
+
+    logits = (rd(q) @ rd(k).transpose(-1, -2)) * (1.0 / math.sqrt(hd))
     logits = logits * qs[..., :, None] * ks[..., None, :]
     ex = torch.exp(logits - math.sqrt(hd))
     denom = ex.sum(dim=-1, keepdim=True)
@@ -267,9 +276,9 @@ def cosine_attention_plain(qkv, tokens, heads, out_dtype, out=None, normalize_fi
         p = ex * (1.0 / denom)
         if probs is not None:
             probs.copy_(p)
-        o = p.to(dt).float() @ v.to(dt).float()
+        o = rd(p) @ rd(v)
     else:
-        o = (ex.to(dt).float() @ v.to(dt).float()) * (1.0 / denom)
+        o = (rd(ex) @ rd(v)) * (1.0 / denom)
     o = o.permute(0, 2, 1, 3).reshape(nt, d).to(out_dtype)
     if out is None:
         return o
@@ -346,7 +355,9 @@ def cosine_attention(qkv, tokens, heads, out_dtype, out=None, normalize_first=Fa
 
 @dataclasses.dataclass
 class BlockScratch:
-    """The intermediates of one block, allocated once per stack."""
+    """The intermediates of one block, allocated once per stack: mods, qkv
+    and x1 in ``wide`` (f32; float64 for a witness of the f32 sums), attn
+    and h in the weights' type."""
 
     mods: torch.Tensor
     qkv: torch.Tensor
@@ -355,13 +366,12 @@ class BlockScratch:
     h: torch.Tensor
 
     @classmethod
-    def allocate(cls, n, t, d, hidden, dtype, device):
-        f32 = torch.float32
+    def allocate(cls, n, t, d, hidden, dtype, device, wide=torch.float32):
         return cls(
-            mods=torch.empty(n, 6 * d, dtype=f32, device=device),
-            qkv=torch.empty(n * t, 3 * d, dtype=f32, device=device),
+            mods=torch.empty(n, 6 * d, dtype=wide, device=device),
+            qkv=torch.empty(n * t, 3 * d, dtype=wide, device=device),
             attn=torch.empty(n * t, d, dtype=dtype, device=device),
-            x1=torch.empty(n * t, d, dtype=f32, device=device),
+            x1=torch.empty(n * t, d, dtype=wide, device=device),
             h=torch.empty(n * t, hidden, dtype=dtype, device=device),
         )
 
@@ -371,7 +381,7 @@ def _block_sequence(
     gemm: Callable, attention: Callable,
 ):
     """The six-launch block forward (module docstring), writing ``out``."""
-    mods = gemm(a, w_mod, alpha=1.0 / math.sqrt(x.shape[-1]), out_dtype=torch.float32, out=scratch.mods,
+    mods = gemm(a, w_mod, alpha=1.0 / math.sqrt(x.shape[-1]), out_dtype=scratch.mods.dtype, out=scratch.mods,
                 site="modulation")
     return _block_stages(x, mods, 0, gains, w_qkv, w_out, w1, w2, heads, scratch, out, gemm, attention)
 
@@ -386,12 +396,12 @@ def _block_stages(x, mods, base, gains, w_qkv, w_out, w1, w2, heads, scratch, ou
     xf = x.reshape(n * t, d)
     s = scratch
     qkv = gemm(
-        xf, w_qkv, alpha=inv_d, out_dtype=torch.float32, modulate=(mods, base, base + d, gains[0:1]),
+        xf, w_qkv, alpha=inv_d, out_dtype=s.qkv.dtype, modulate=(mods, base, base + d, gains[0:1]),
         tokens=t, out=s.qkv, site="qkv",
     )
     attn = attention(qkv, t, heads, dt, out=s.attn)
     x1 = gemm(
-        attn, w_out, alpha=inv_d, out_dtype=torch.float32, residual=(xf, mods, base + 2 * d),
+        attn, w_out, alpha=inv_d, out_dtype=s.x1.dtype, residual=(xf, mods, base + 2 * d),
         tokens=t, out=s.x1, site="out",
     )
     h = gemm(
@@ -425,10 +435,10 @@ def _check_block_args(x, a, gains, weights, depth: Optional[int]):
             raise ValueError("gains must be f32")
 
 
-def _stack(x, a, gains, weights, heads, gemm, attention):
+def _stack(x, a, gains, weights, heads, gemm, attention, wide=torch.float32):
     depth = weights[0].shape[0]
     n, t, d = x.shape
-    scratch = BlockScratch.allocate(n, t, d, weights[3].shape[1], weights[1].dtype, x.device)
+    scratch = BlockScratch.allocate(n, t, d, weights[3].shape[1], weights[1].dtype, x.device, wide)
     streams = (torch.empty_like(x), torch.empty_like(x))
     for b in range(depth):
         x = _block_sequence(
@@ -448,10 +458,23 @@ def fused_dit_block_plain(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
     )
 
 
-def fused_dit_stack_plain(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
-    """Plain version of :func:`fused_dit_stack`'s forward on any device."""
+SUM_DTYPES = (torch.float32, torch.float64)
+
+
+def fused_dit_stack_plain(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int, sum_dtype=torch.float32):
+    """Plain version of :func:`fused_dit_stack`'s forward on any device.
+
+    ``sum_dtype=torch.float64`` is its float64 witness: the same roundings
+    to the weights' type (the products' operands, attn, the MLP hidden, the
+    stream between blocks) with every product, softmax, norm and the f32
+    intermediates (modulation rows, qkv, x1) in float64. At the default it
+    is the f32 plain version, bit for bit."""
+    if sum_dtype not in SUM_DTYPES:
+        raise ValueError(f"sum_dtype must be one of {SUM_DTYPES}, got {sum_dtype}")
     return _stack(
-        x, a, gains, (w_mod, w_qkv, w_out, w1, w2), heads, mp_gemm_plain, cosine_attention_plain
+        x, a, gains, (w_mod, w_qkv, w_out, w1, w2), heads,
+        functools.partial(mp_gemm_plain, sum_dtype=sum_dtype),
+        functools.partial(cosine_attention_plain, sum_dtype=sum_dtype), wide=sum_dtype,
     )
 
 

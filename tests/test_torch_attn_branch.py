@@ -247,12 +247,48 @@ def test_gate_residual_bwd_is_the_residual_vjp():
         return mp_sum(x, gate * out, t=tdb.RES_T)
 
     want_dx, want_dout, want_drows = _vjp(residual, [x, out, rows], dy)
-    dout, dgate = ab.gate_residual_bwd(dy, out, rows, 2 * d, t, torch.float32)
+    dout, dgate = ab.gate_residual_bwd_plain(dy, out, rows, 2 * d, t, torch.float32)
     torch.testing.assert_close(dout, want_dout)
     torch.testing.assert_close(dgate, want_drows[:, 2 * d :])
     # the direct path x -> y is modulate_bwd's: with dh = 0 its dx is it
     dx = ab.modulate_bwd(torch.zeros(n * t, d), x, rows, torch.tensor([0.35]), dy, t)[0]
     torch.testing.assert_close(dx, want_dx)
+
+
+@pytest.mark.parametrize("n, t", [(5, 4), (3, 16), (3, 64)], ids=["t4", "t16", "t64"])
+def test_out_gate_residual_bwd_plain_is_the_product_then_the_residual_pass(n, t):
+    """out_gate_residual_bwd on CPU tensors (its plain version) gives the
+    bits of the two-step route it replaced: mp_gemm_plain's f32 out, then
+    gate_residual_bwd_plain, in the card's types (bf16 attn, weight and dy;
+    f32 rows), at the registry's T = 4, 16, 64 with N not a multiple of
+    128/T (a tile of the CUDA product holds a partial set of samples)."""
+    d, bf = 64, torch.bfloat16
+    attn, dy = _rand(n * t, d, seed=40).to(bf), _rand(n * t, d, seed=41).to(bf)
+    w_out = normalize(_rand(d, d, seed=42)).to(bf)
+    rows = _rand(n, 3 * d, seed=43)
+    dout, dgate = ab.out_gate_residual_bwd(attn, w_out, dy, rows, 2 * d, t)
+    out = tdb.mp_gemm_plain(attn, w_out, alpha=1 / d**0.5, out_dtype=torch.float32)
+    want_dout, want_dgate = ab.gate_residual_bwd_plain(dy, out, rows, 2 * d, t, bf)
+    assert dout.dtype == bf and dgate.dtype == torch.float32 and dgate.shape == (n, d)
+    assert torch.equal(dout, want_dout) and torch.equal(dgate, want_dgate)
+
+
+@pytest.mark.parametrize("what", ["t-not-dividing-128", "f32-attn", "dy-wrong-size"])
+def test_out_gate_residual_bwd_raises_on_cuda_outside_its_domain(what):
+    """The CUDA out_gate_residual_bwd takes T dividing 128 (a product tile
+    holds whole samples), bf16 attn and a dy of N*T*D elements; on a tensor
+    off the CPU it raises, naming CUDA, before anything is built."""
+    for t in (64, 16, 4, 128, 1):
+        ab.check_out_gate_residual_shape(t)
+    n, t, d, bf = 2, {"t-not-dividing-128": 48}.get(what, 16), 64, torch.bfloat16
+    attn = torch.empty(n * t, d, dtype=torch.float32 if what == "f32-attn" else bf, device="meta")
+    dy = torch.empty(n * t + (1 if what == "dy-wrong-size" else 0), d, dtype=bf, device="meta")
+    w_out = torch.empty(d, d, dtype=bf, device="meta")
+    rows = torch.empty(n, 3 * d, device="meta")
+    before = dict(ab.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        ab.out_gate_residual_bwd(attn, w_out, dy, rows, 2 * d, t)
+    assert ab.LAUNCHES == before
 
 
 def test_attention_bwd_is_the_attention_vjp():

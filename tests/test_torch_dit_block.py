@@ -183,6 +183,45 @@ def test_dit_stack_plain_has_the_launch_sequences_bits():
         torch.testing.assert_close(tdb.stack_launch_sequence(*ts, HEADS), want, rtol=0, atol=0)
 
 
+def _bf16_stack(seed):
+    """_inputs at DEPTH in the card's types: bf16 activations and weights,
+    f32 gains."""
+    return [torch.from_numpy(v).to(torch.float32 if v.shape == (DEPTH, 2) else torch.bfloat16)
+            for v in _inputs(seed, depth=DEPTH)]
+
+
+def test_fused_dit_stack_plain_sums_in_f32_by_default():
+    """sum_dtype=torch.float32 is the plain version as it was: the same bits
+    as the call without it, as a chain of depth-1 plain blocks and as the
+    kernel-order plain version, in bf16 and in f32."""
+    args = _inputs(0, depth=DEPTH)
+    for ts in (_bf16_stack(0), [torch.from_numpy(v) for v in args]):
+        x, a, gains, *ws = ts
+        got = tdb.fused_dit_stack_plain(*ts, HEADS, sum_dtype=torch.float32)
+        assert got.dtype == x.dtype
+        step = x
+        for b in range(DEPTH):
+            step = tdb.fused_dit_block_plain(step, a, gains[b], *[w[b] for w in ws], HEADS)
+        for want in (tdb.fused_dit_stack_plain(*ts, HEADS), step, tdb.dit_stack_plain(*ts, HEADS)):
+            assert torch.equal(got, want)
+
+
+def test_fused_dit_stack_plain_f64_witness_lies_within_bf16_rounding():
+    """sum_dtype=torch.float64 keeps the bf16 rounding points and sums in
+    float64: at depth 2 it lands within one bf16 ulp at unit scale plus one
+    of the element (2^-7 absolute + 2^-7 relative) of the f32 plain version
+    (0.67 of that limit here, at most 0.88 over seeds 0-29), and differs
+    from it (113 elements here), so the sums did change type."""
+    ts = _bf16_stack(0)
+    o32 = tdb.fused_dit_stack_plain(*ts, HEADS)
+    o64 = tdb.fused_dit_stack_plain(*ts, HEADS, sum_dtype=torch.float64)
+    assert o64.dtype == torch.bfloat16 and o64.shape == o32.shape
+    torch.testing.assert_close(o64.float(), o32.float(), rtol=2**-7, atol=2**-7)
+    assert not torch.equal(o64, o32)
+    with pytest.raises(ValueError, match="sum_dtype"):
+        tdb.fused_dit_stack_plain(*ts, HEADS, sum_dtype=torch.bfloat16)
+
+
 def _sampling_shapes():
     """(model, samples N, T, depth, width, heads, MLP width) of every
     registry model at 16 x 16 latents, at the headline's 32 x 2 CFG rows and

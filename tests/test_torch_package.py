@@ -124,7 +124,7 @@ def test_kernel_wrappers_do_not_fall_back_off_cpu():
     f32 = torch.empty(n * t, d, device="meta")
     qkv = torch.empty(n * t, 3 * d, device="meta")
     calls = [
-        lambda: attn_branch.gate_residual_bwd(x, f32, rows, 2 * d, t, bf),
+        lambda: attn_branch.out_gate_residual_bwd(x, torch.empty(d, d, dtype=bf, device="meta"), x, rows, 2 * d, t),
         lambda: attn_branch.attention_bwd(qkv, f32, t, heads, bf),
         lambda: attn_branch.modulate_fwd(x, rows, gain, t, bf),
         lambda: attn_branch.modulate_bwd(f32, x, rows, gain, f32, t),

@@ -5,8 +5,8 @@ CUDA-graph replays beside the plain version, the bound and the library
 yardstick), and, optionally, their first forms on the same inputs in the
 same call.
 
-    python tools/bench_attention.py [--part forward|backward|all] \\
-        [--first-form DIR] [--out results/bench_attention.json]
+    python tools/bench_attention.py [--part forward|backward|out-gate|all] \\
+        [--first-form DIR] [--parent DIR] [--out results/bench_attention.json]
 
 ``forward``: ``cosine_attention`` and ``fused_attention``
 (``mapdit_tpu_torch/csrc/cosine_attention.cu``, ``fused_attention.cu``) at
@@ -19,11 +19,15 @@ of the same roundings (``chip_smoke.order_witness``).
 
 ``backward``: ``attention_bwd`` (``csrc/attn_branch_bwd.cu``) at every
 shape of ``chip_smoke.ATTN_BWD_SHAPES`` (``attn_bwd_case``'s check, SDPA's
-forward and backward beside), the passes around the backward's products
-(``modulate_fwd``, ``modulate_bwd`` and ``gate_residual_bwd`` of the same
-source) at every shape of ``chip_smoke.MODULATE_SHAPES``
-(``modulate_case``'s check, ``torch.addcmul`` beside ``modulate_fwd``),
-and ``dw_gemm`` (``csrc/dw_gemm.cu``) at the
+forward and backward beside), the modulate passes around the backward's
+products (``modulate_fwd``, ``modulate_bwd`` of the same source) at every
+shape of ``chip_smoke.MODULATE_SHAPES`` (``modulate_case``'s check,
+``torch.addcmul`` beside ``modulate_fwd``), the out product with the
+residual backward as its epilogue (``out_gate_residual_bwd``,
+``csrc/mp_gemm.cu``; the ``out-gate`` part alone) at every shape of
+``chip_smoke.OUT_GATE_SHAPES`` (``out_gate_case``'s check, the bound, the
+product alone as one ``torch.matmul``, host ms), and ``dw_gemm``
+(``csrc/dw_gemm.cu``) at the
 DiT-S/2 and DiT-B/2 training pairs of ``chip_smoke.DW_PAIRS`` and at
 DiT-XL/2's (1e-4 + 1e-4 relative against the plain version, the same bits
 on two runs, the bf16 cuBLAS pair and the f32 ``torch.matmul`` pair
@@ -34,11 +38,19 @@ least four k steps deep, timed beside the default plan with its error
 against the plain version, so the thresholds of ``plan()`` can be read
 against the card.
 
+``--parent DIR`` names the ``csrc`` of the tree before the residual
+backward moved into the out product's epilogue (e.g. ``git archive`` of
+that commit): its ``mp_gemm.cu`` and ``attn_branch_bwd.cu`` are built and
+every ``out-gate`` shape also runs the pair it replaced on the same
+inputs, the product with an f32 ``out`` store, then ``gate_residual_bwd``
+(held to the same plain version), timed fused, pair, pair, fused, each
+launch of the pair timed alone beside.
+
 ``--first-form DIR`` names a directory holding earlier sources of the
 part's kernels (e.g. ``mapdit_tpu_torch/csrc`` of a ``git archive`` of an
 earlier tree; their C interfaces are the ones below: the modulate passes'
-first forms took the f32 residual path dx0 that their gate_residual_bwd
-wrote, made here outside the timed call). They are built with
+first forms took the f32 residual path dx0, made here outside the timed
+call). They are built with
 the port's nvcc flags, called on the same inputs, held to the same check
 and timed new, first, first, new; a shape a first form cannot take (its
 shared memory grows as T^2) is reported as such. Prints one JSON line a
@@ -76,7 +88,6 @@ FIRST_FORM = {
         "attn_branch_bwd": {
             "attention_bwd": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
             "attention_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
-            "gate_residual_bwd": ([_P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P], _I),
             "modulate_fwd": ([_P, _I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P], _I),
             "modulate_bwd_partials": ([_I, _I], _I),
             "modulate_bwd": ([_P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
@@ -84,26 +95,38 @@ FIRST_FORM = {
         "dw_gemm": {"dw_gemm": ([_P, _P, _P, _P, _I, _I, _I, _F, _P], _I), "dw_gemm_splits": ([_I, _I, _I], _I)},
     },
 }
+# the parent's pair: its mp_gemm (this tree's C interface) and the residual
+# pass of its attn_branch_bwd.cu
+PARENT = {
+    "mp_gemm": {
+        "mp_gemm": ([_P, _I, _P, _P, _I, _I, _I, _I, _F, _I, _P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P],
+                    _I),
+        "mp_gemm_splits": ([_I, _I, _I], _I),
+    },
+    "attn_branch_bwd": {"gate_residual_bwd": ([_P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P], _I)},
+}
 DW_MIN_STEPS, DW_BK = 4, 64  # dw_gemm.cu's MIN_STEPS and BK
 # chip_smoke's S/2 and B/2 pairs and DiT-XL/2's (D = 1152) at batch 256 x 64
 # tokens, off the smoke
 DW_PAIRS = dict(chip_smoke.DW_PAIRS, xl=((16384, 3456, 1152), (16384, 1152, 1152)))
 
 
-def load_first_form(build, directory: str, parts) -> dict:
-    """The first forms' libraries of ``parts``, built in parallel into the
-    build directory."""
+def load_first_form(build, directory: str, parts, sources=None, suffix="first_form") -> dict:
+    """The first forms' libraries of ``parts`` (or the libraries named in
+    ``sources``, {name: signatures}), built in parallel into the build
+    directory."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = {name: fns for part in parts for name, fns in FIRST_FORM[part].items()}
+    if sources is None:
+        sources = {name: fns for part in parts for name, fns in FIRST_FORM[part].items()}
     procs = {}
     for name in sources:
-        target = build.BUILD_DIR / f"{name}_first_form.so"
+        target = build.BUILD_DIR / f"{name}_{suffix}.so"
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(target), os.path.join(directory, f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd), target)
     libs = {}
     for name, (proc, target) in procs.items():
         if proc.wait() != 0:
-            raise RuntimeError(f"first form {name}: nvcc exit {proc.returncode}")
+            raise RuntimeError(f"{suffix} {name}: nvcc exit {proc.returncode}")
         lib = ctypes.CDLL(str(target))
         for fn, (argtypes, restype) in sources[name].items():
             getattr(lib, fn).argtypes = argtypes
@@ -182,7 +205,7 @@ def first_modulate(torch, lib, kernel, case):
     from mapdit_tpu_torch.ops.cuda import attn_branch as ab
 
     v = case.inputs
-    x, dy, rows, gain, dh, out = (v[key] for key in ("x", "dy", "rows", "gain", "dh", "out"))
+    x, dy, rows, gain, dh = (v[key] for key in ("x", "dy", "rows", "gain", "dh"))
     n, t, d = case.shape
     dev, f32, bf = x.device, torch.float32, torch.bfloat16
     dx0 = dy.float() * ab.DX_FAC
@@ -190,23 +213,18 @@ def first_modulate(torch, lib, kernel, case):
         "modulate_fwd": (torch.empty(n * t, d, dtype=bf, device=dev),),
         "modulate_bwd": (torch.empty_like(x), torch.empty(n, d, dtype=f32, device=dev),
                          torch.empty(n, d, dtype=f32, device=dev), torch.empty(1, dtype=f32, device=dev)),
-        "gate_residual": (torch.empty(n * t, d, dtype=bf, device=dev), torch.empty(n, d, dtype=f32, device=dev)),
     }[kernel]
     partial = torch.empty(lib.modulate_bwd_partials(n, d), dtype=f32, device=dev)
-    scratch = torch.empty(n * t, d, dtype=f32, device=dev)  # the dx0 the first gate_residual_bwd writes
 
     def run():
         stream = torch.cuda.current_stream().cuda_stream
         if kernel == "modulate_fwd":
             code = lib.modulate_fwd(x.data_ptr(), 1, rows.data_ptr(), 3 * d, 0, d, gain.data_ptr(), outs[0].data_ptr(),
                                     n, t, d, stream)
-        elif kernel == "modulate_bwd":
+        else:
             code = lib.modulate_bwd(dh.data_ptr(), x.data_ptr(), 1, rows.data_ptr(), 3 * d, 0, d, gain.data_ptr(),
                                     dx0.data_ptr(), *(o.data_ptr() for o in outs[:3]), partial.data_ptr(),
                                     outs[3].data_ptr(), n, t, d, stream)
-        else:
-            code = lib.gate_residual_bwd(dy.data_ptr(), 1, out.data_ptr(), rows.data_ptr(), 3 * d, 2 * d,
-                                         scratch.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(), n, t, d, stream)
         _raise_on(code)
         return outs
 
@@ -224,7 +242,7 @@ def modulate_rows(torch, gen, dev, first) -> list:
     for name in chip_smoke.MODULATE_SHAPES:
         for kernel, case in chip_smoke.modulate_case(torch, gen, dev, name).items():
             err = case.check(case.run())
-            row = chip_smoke.modulate_row(torch, case, None)
+            row = chip_smoke.pass_row(torch, case, None)
             row.update(name=f"{kernel}:{name}", shape=list(case.shape), max_abs_err=err)
             if first is not None:
                 with_first_form(torch, row, case.run, first_modulate(torch, first["attn_branch_bwd"], kernel, case))
@@ -233,6 +251,71 @@ def modulate_rows(torch, gen, dev, first) -> list:
                 row["x_library"] = row["ms"] / row["library_ms"]
             rows.append(row)
             print(json.dumps(row), flush=True)
+    return rows
+
+
+def parent_pair(torch, libs, case):
+    """The route the fused call replaced, on an out_gate_case's inputs,
+    through the parent's libraries: the product into an f32 out (mp_gemm,
+    split K where it splits), then gate_residual_bwd. Returns the pair's
+    run and each launch's run."""
+    v = case.inputs
+    attn, w, dy, rows = (v[key] for key in ("attn", "w", "dy", "rows"))
+    n, t, d = case.shape
+    m, dev, f32 = n * t, attn.device, torch.float32
+    gemm, resid = libs["mp_gemm"], libs["attn_branch_bwd"]
+    splits = gemm.mp_gemm_splits(m, d, d)
+    partial = torch.empty(splits, m, d, dtype=f32, device=dev) if splits > 1 else None
+    out = torch.empty(m, d, dtype=f32, device=dev)
+    dout = torch.empty(m, d, dtype=torch.bfloat16, device=dev)
+    dgate = torch.empty(n, d, dtype=f32, device=dev)
+
+    def product():
+        _raise_on(gemm.mp_gemm(attn.data_ptr(), 1, w.data_ptr(), out.data_ptr(), 0, m, d, d, 1 / math.sqrt(d), 0, None,
+                               0, 0, 0, 0, None, t, 0, None, 0, 0, None,
+                               None if partial is None else partial.data_ptr(), torch.cuda.current_stream().cuda_stream))
+        return out
+
+    def residual():
+        _raise_on(resid.gate_residual_bwd(dy.data_ptr(), 1, out.data_ptr(), rows.data_ptr(), 3 * d, 2 * d,
+                                          dout.data_ptr(), dgate.data_ptr(), n, t, d,
+                                          torch.cuda.current_stream().cuda_stream))
+        return dout, dgate
+
+    def pair():
+        product()
+        return residual()
+
+    return pair, product, residual
+
+
+def out_gate_rows(torch, gen, dev, parent) -> list:
+    """Every OUT_GATE_SHAPES entry: out_gate_case's check and row (device
+    ms, plain ms, bound, torch.matmul of the product alone, host ms); with
+    the parent's libraries, the pair it replaced held to the same plain
+    version and timed in turns (fused, pair, pair, fused), each launch of
+    the pair alone beside."""
+    rows = []
+    for name in chip_smoke.OUT_GATE_SHAPES:
+        case = chip_smoke.out_gate_case(torch, gen, dev, name)
+        err = case.check(case.run())
+        row = chip_smoke.pass_row(torch, case, None, chip_smoke.GEMM_SRC)
+        row.update(name=f"out_gate_residual:{name}", shape=list(case.shape), max_abs_err=err)
+        if parent is not None:
+            pair, product, residual = parent_pair(torch, parent, case)
+            want = case.plain()
+            row["parent_pair_err"] = max(chip_smoke.compare(torch, g_, w_, 1e-2, 1e-2, f"out_gate_residual:{name}:parent:{i}")
+                                         for i, (g_, w_) in enumerate(zip(pair(), want)))
+            turns = [chip_smoke.graph_ms(torch, fn) for fn in (case.run, pair, pair, case.run)]
+            row.update(ms_turns=turns, parent_pair_ms=min(turns[1:3]),
+                       x_parent_pair=min(turns[0], turns[3]) / min(turns[1:3]),
+                       parent_product_ms=chip_smoke.graph_ms(torch, product),
+                       parent_residual_ms=chip_smoke.graph_ms(torch, residual),
+                       parent_pair_host_ms=chip_smoke.host_ms(torch, pair))
+        row["x_bound"] = row["ms"] / row["bound_ms"]
+        row["x_library"] = row["ms"] / row["library_ms"]
+        rows.append(row)
+        print(json.dumps(row), flush=True)
     return rows
 
 
@@ -306,7 +389,7 @@ def order_witness(torch, gen, dev) -> list:
     return rows
 
 
-def backward_rows(torch, F, gen, dev, first) -> list:
+def backward_rows(torch, F, gen, dev, first, parent) -> list:
     rows = []
     for name in chip_smoke.ATTN_BWD_SHAPES:
         case = chip_smoke.attn_bwd_case(torch, F, gen, dev, name)
@@ -318,7 +401,8 @@ def backward_rows(torch, F, gen, dev, first) -> list:
         row["x_library"] = row["ms"] / row["library_ms"]
         rows.append(row)
         print(json.dumps(row), flush=True)
-    return rows + modulate_rows(torch, gen, dev, first) + dw_rows(torch, gen, dev, first)
+    return (rows + modulate_rows(torch, gen, dev, first) + out_gate_rows(torch, gen, dev, parent)
+            + dw_rows(torch, gen, dev, first))
 
 
 def dw_check(torch, ab, got, run, a, b, alpha, what) -> float:
@@ -414,8 +498,10 @@ def dw_rows(torch, gen, dev, first) -> list:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--part", choices=("forward", "backward", "all"), default="all")
+    parser.add_argument("--part", choices=("forward", "backward", "out-gate", "all"), default="all")
     parser.add_argument("--first-form", default=None, help="directory of the part's first-form sources")
+    parser.add_argument("--parent", default=None,
+                        help="csrc of the tree whose out product stored f32 out for gate_residual_bwd")
     parser.add_argument("--out", default=os.path.join(REPO, "results", "bench_attention.json"))
     args = parser.parse_args()
 
@@ -433,7 +519,8 @@ def main() -> int:
     print(smi, flush=True)
     t0 = time.perf_counter()
     compiled = build.build_all()
-    first = load_first_form(build, args.first_form, parts) if args.first_form else None
+    first = load_first_form(build, args.first_form, [p for p in parts if p != "out-gate"]) if args.first_form else None
+    parent = load_first_form(build, args.parent, (), PARENT, "parent") if args.parent else None
     print(json.dumps({"build_seconds": time.perf_counter() - t0, "compiled": compiled}), flush=True)
     report = {"device": smi}
     dev = torch.device("cuda")
@@ -441,7 +528,9 @@ def main() -> int:
     if "forward" in parts:
         report["forward"] = forward_rows(torch, F, gen, dev, first)
     if "backward" in parts:
-        report["backward"] = backward_rows(torch, F, gen, dev, first)
+        report["backward"] = backward_rows(torch, F, gen, dev, first, parent)
+    if "out-gate" in parts:
+        report["out_gate"] = out_gate_rows(torch, gen, dev, parent)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)

@@ -15,7 +15,9 @@ and eager).
 the registers, shared memory and spills nvcc reports for the source.
 ``--draws N`` first holds the S/2 stack and the launch sequence it replaced
 to the plain version on N other draws (generator seeds SEED + 20 on), with
-how far each lands from phase 3's limit. ``--trace`` first prints where one
+how far each lands from phase 3's limit, and prints the float64 witness of
+each draw (``chip_smoke.stack_witness``: kernel, plain version and launch
+sequence against the plain version's roundings summed in float64). ``--trace`` first prints where one
 launch's time goes at S2, B2 and XL2 (the kernel's own clock: the ms a CTA
 spends on each kind of item). ``--ctas 132,99,66`` first times S2, B2 and
 XL2 on grids of those CTA counts. Prints
@@ -119,19 +121,22 @@ def main() -> int:
         grid_scaling(torch, k, [int(c) for c in args.ctas.split(",")])
     if args.draws:
         # the S/2 stack on other inputs: kernel and launch sequence against
-        # the plain version under phase 3's rule (worst err - limit < 0 passes)
+        # the plain version under phase 3's rule (worst err - limit < 0
+        # passes), then all three against the float64 witness
         dev = torch.device("cuda")
         for i in range(args.draws):
-            gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED + 20 + i)
-            (x, a, gains, ws, heads), _, _ = chip_smoke.stack_case(torch, gen, dev, "S2")
-            kernel, plain, seq = chip_smoke.stack_calls(k, "S2", x, a, gains, ws, heads)
-            want = plain().float()
-            limit = 5e-2 + 5e-2 * want.abs()
-            for what, got in (("kernel", kernel()), ("launch-sequence", seq())):
-                e = (got.float() - want).abs()
+            case, _, _ = chip_smoke.stack_draw(torch, dev, i)
+            kernel, plain, seq = chip_smoke.stack_calls(k, "S2", *case)
+            want = plain()
+            limit = 5e-2 + 5e-2 * want.float().abs()
+            outs = {"kernel": kernel(), "launch-sequence": seq()}
+            for what, got in outs.items():
+                e = (got.float() - want.float()).abs()
                 chip_smoke.phase("draw", seed=chip_smoke.SEED + 20 + i, what=what, max_abs_err=f"{float(e.max()):.3e}",
                                  mean_abs_err=f"{float(e.mean()):.3e}",
                                  worst_err_minus_limit=f"{float((e - limit).max()):+.3e}")
+            chip_smoke.stack_witness(torch, k, f"dit_stack:S2:seed{chip_smoke.SEED + 20 + i}", case, outs["kernel"],
+                                     want, outs["launch-sequence"])
     if args.check_only:
         for name, ((x, a, gains, ws, heads), _, _) in chip_smoke.stack_cases(torch):
             kernel, plain, _ = chip_smoke.stack_calls(k, name, x, a, gains, ws, heads)

@@ -50,14 +50,17 @@ def load_first_form(build, source: str):
 
 
 def load_parent(build, source: str):
-    """``source`` built as a library with this tree's C interface."""
+    """``source`` built as a library with this tree's C interface (the
+    entries it has: an earlier tree may lack a later one, such as
+    mp_gemm_gate_residual_bwd)."""
     target = build.BUILD_DIR / "mp_gemm_parent.so"
     target.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(target), source], check=True)
     lib = ctypes.CDLL(str(target))
     for fn, (argtypes, restype) in build._SIGNATURES["mp_gemm"].items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = restype
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
     return lib
 
 
