@@ -22,6 +22,13 @@ Phases, one line each; any failure exits non-zero before the final line:
      exactly one dit_stack launch a model call (STEPS) and no mp_gemm or
      cosine_attention launch; then the per-block path (no batch hint), one
      dit_stack launch a block;
+ 5b. samplers: on the same weights, short chains of ddim (eta 0 and 1),
+     dpm++ (karras10), unipc, ddpm with limited-interval guidance (its
+     guided and cond-only calls counted apart) and dpm++ with dynamic
+     thresholding, each through auto with a batch hint, and the ddpm chain
+     with span caching (per block), each held to the float32 plain chain
+     with exact launch counts; then ddim 50, dpm++ 20 and unipc 20 timed
+     (three chains each, after a warm-up) beside the headline;
   6. train: DiT-S/2 train steps at batch 256 on synthetic latents, the plain
      path and block_kernel="mega_attn" with attn_bwd "pallas" and
      "residual": the first step's loss and gradients against the float32
@@ -43,6 +50,14 @@ Phases, one line each; any failure exits non-zero before the final line:
      dw_gemm (DW_IN_KERNEL_BUDGET raised; launch counts exact, losses
      against A's, steps/s of both); 4 steps with --grad-accum 4 --grad-clip
      1.0 (step-1 grad_norm against A's); the artifacts on disk;
+ 8b. sampling CLIs: on run A's experiment directory, with a random-weight
+     VAE of the port's init written as .safetensors by the port's writer,
+     mapdit_tpu_torch.sample (ddim 50 steps; ddpm 50 with
+     --save-trajectory), sample_ema (dpm++ 20) and sample_fid (64 images,
+     batch 32, 250 steps, CFG 1.5) in process with exact dit_stack launch
+     counts; every PNG's chunks decoded, arr_0 uint8 NHWC; the VAE decode
+     on the card held to the same module's f32 decode on the CPU (TF32 off,
+     1e-4; then TF32 on, as the CLIs run outside the smoke, 1e-2);
   9. XL: DiT-XL/2 (depth 28, width 1152, 16 heads, nothing cut) in bf16 on
      folded weights: the first model call (one dit_stack launch a block)
      and a clipped 10-step chain (one a model call) at batch 4 x 2 through
@@ -133,6 +148,22 @@ FAMILIES = {
 XL_MODEL = "DiT-XL/2"
 XL_BATCH = 4  # pre-CFG samples; 8 rows per model call
 XL_CHECK_STEPS = 10  # clipped chain held to the float32 plain path, then run again warm and timed
+# phase 5b: each sampler's short chain held to the float32 plain path:
+# name -> (respacing, build_sample_fn arguments)
+SAMPLER_CHECKS = {
+    "ddim-eta0": ("ddim10", dict(sampler="ddim", eta=0.0, clip_denoised=True)),
+    "ddim-eta1": ("ddim10", dict(sampler="ddim", eta=1.0, clip_denoised=True)),
+    "dpm++": ("karras10", dict(sampler="dpm++", clip_denoised=True)),
+    "unipc": ("10", dict(sampler="unipc", clip_denoised=True)),
+    "ddpm-cfg-interval": ("10", dict(sampler="ddpm", cfg_interval=(0.3, 3.0), clip_denoised=True)),
+    "dpm++-threshold": ("10", dict(sampler="dpm++", dynamic_threshold=0.995)),
+}
+CACHE_INTERVAL = 2  # the cached ddpm chain of phase 5b (forecast mode, the default span)
+# the timed chains of phase 5b: name -> (respacing, sampler)
+SAMPLER_TIMES = {"ddim-50": ("ddim50", "ddim"), "dpm++-20": ("karras20", "dpm++"), "unipc-20": ("20", "unipc")}
+SAMPLER_TIME_RUNS = 3  # timed chains of each (steps/s from the fastest; all printed)
+FID_SAMPLES, FID_BATCH = 64, 32  # phase 8b's sample_fid run (250 steps, CFG 1.5)
+VAE_CHECK_IMAGES = 8  # latents decoded on the card and on the CPU in phase 8b
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate, H100 SXM data sheet
 PALLAS = "mapdit_tpu/ops/pallas/dit_block.py"
@@ -1789,12 +1820,12 @@ def family_phase(torch, dev, tag: str, flags: dict, kernels: dict) -> dict:
     return counts
 
 
-def train_cli_phase(torch, dev) -> dict:
+def train_cli_phase(torch, dev, tmp: str):
     """Phase 8: the training entry point, ``mapdit_tpu_torch.train.main``
     called in process, at full DiT-S/2 (depth 12, width 384), batch
-    TRAIN_BATCH, bf16, through the attention half-block kernels, into a
-    temporary results directory. Returns {"cli": run A's launch counts,
-    "cli+dw": run C's}."""
+    TRAIN_BATCH, bf16, through the attention half-block kernels, into the
+    results directory ``tmp``. Returns ({"cli": run A's launch counts,
+    "cli+dw": run C's}, run A's experiment directory)."""
     from mapdit_tpu_torch import train
     from mapdit_tpu_torch.models import build_config
     from mapdit_tpu_torch.ops.cuda import attn_branch as ab
@@ -1845,72 +1876,71 @@ def train_cli_phase(torch, dev) -> dict:
     def rel_diffs(rows, ref):
         return [abs(r["loss"] - a["loss"]) / abs(a["loss"]) for r, a in zip(rows, ref)]
 
-    with tempfile.TemporaryDirectory(prefix="mapdit_smoke_") as tmp:
-        # 1. run A
-        exp_a, rows_a, counts_a = run(os.path.join(tmp, "a"))
-        check_counts("cli/A", counts_a, expected(CLI_STEPS, dw=False))
-        phase("cli", run="A", steps=CLI_STEPS, steps_per_s=f"{rate(rows_a):.3f}",
-              steps_per_s_while_writing=f"{rate_after_checkpoint(rows_a):.3f}",
-              losses=json.dumps([r["loss"] for r in rows_a]),
-              launches=json.dumps({key: v for key, v in counts_a.items() if v}))
+    # 1. run A
+    exp_a, rows_a, counts_a = run(os.path.join(tmp, "a"))
+    check_counts("cli/A", counts_a, expected(CLI_STEPS, dw=False))
+    phase("cli", run="A", steps=CLI_STEPS, steps_per_s=f"{rate(rows_a):.3f}",
+          steps_per_s_while_writing=f"{rate_after_checkpoint(rows_a):.3f}",
+          losses=json.dumps([r["loss"] for r in rows_a]),
+          launches=json.dumps({key: v for key, v in counts_a.items() if v}))
 
-        # 2. run B: stop at the checkpoint, restore, go on
-        exp_b1, rows_b1, _ = run(os.path.join(tmp, "b"), steps=CLI_CKPT_STEP)
-        ckpt_file = ckpt.checkpoint_path(exp_b1, CLI_CKPT_STEP)
-        saved = torch.load(ckpt_file, map_location="cpu", weights_only=True)
-        args_b = load_config(exp_b1)
-        tx = create_optimizer(warmup_flat_invsqrt(args_b["lr"], args_b["num_lin_warmup"], args_b["start_decay"]))
-        restored = ckpt.restore_state(ckpt_file, create_train_state(config_from_args(args_b), tx, seed=1, device=dev))
-        mismatch = tree_mismatch(torch, ckpt.map_tensors(ckpt.state_tree(restored), lambda v: v.cpu()), saved)
-        phase("cli", run="B", restored_equals_saved=mismatch is None, checkpoint=os.path.basename(ckpt_file))
-        if mismatch is not None:
-            raise AssertionError(f"train CLI: the restored state differs from the saved one at {mismatch}")
-        del restored, saved
-        exp_b2, rows_b2, _ = run(os.path.join(tmp, "b"), "--resume", exp_b1)
-        if [r["step"] for r in rows_b2] != list(range(CLI_CKPT_STEP + 1, CLI_STEPS + 1)):
-            raise AssertionError(f"train CLI: the resumed run logged steps {[r['step'] for r in rows_b2]}")
-        tail_a = rows_a[CLI_CKPT_STEP:]
-        worst = max(rel_diffs(rows_b2, tail_a) + rel_diffs(rows_b1, rows_a))
-        phase("cli", run="B", resumed_losses=json.dumps([r["loss"] for r in rows_b2]),
-              run_a_losses=json.dumps([r["loss"] for r in tail_a]), max_rel_diff=f"{worst:.3e}", tol="1e-3")
-        if worst > 1e-3:
-            raise AssertionError(f"train CLI: the resumed run's losses leave run A's by {worst} relative")
+    # 2. run B: stop at the checkpoint, restore, go on
+    exp_b1, rows_b1, _ = run(os.path.join(tmp, "b"), steps=CLI_CKPT_STEP)
+    ckpt_file = ckpt.checkpoint_path(exp_b1, CLI_CKPT_STEP)
+    saved = torch.load(ckpt_file, map_location="cpu", weights_only=True)
+    args_b = load_config(exp_b1)
+    tx = create_optimizer(warmup_flat_invsqrt(args_b["lr"], args_b["num_lin_warmup"], args_b["start_decay"]))
+    restored = ckpt.restore_state(ckpt_file, create_train_state(config_from_args(args_b), tx, seed=1, device=dev))
+    mismatch = tree_mismatch(torch, ckpt.map_tensors(ckpt.state_tree(restored), lambda v: v.cpu()), saved)
+    phase("cli", run="B", restored_equals_saved=mismatch is None, checkpoint=os.path.basename(ckpt_file))
+    if mismatch is not None:
+        raise AssertionError(f"train CLI: the restored state differs from the saved one at {mismatch}")
+    del restored, saved
+    exp_b2, rows_b2, _ = run(os.path.join(tmp, "b"), "--resume", exp_b1)
+    if [r["step"] for r in rows_b2] != list(range(CLI_CKPT_STEP + 1, CLI_STEPS + 1)):
+        raise AssertionError(f"train CLI: the resumed run logged steps {[r['step'] for r in rows_b2]}")
+    tail_a = rows_a[CLI_CKPT_STEP:]
+    worst = max(rel_diffs(rows_b2, tail_a) + rel_diffs(rows_b1, rows_a))
+    phase("cli", run="B", resumed_losses=json.dumps([r["loss"] for r in rows_b2]),
+          run_a_losses=json.dumps([r["loss"] for r in tail_a]), max_rel_diff=f"{worst:.3e}", tol="1e-3")
+    if worst > 1e-3:
+        raise AssertionError(f"train CLI: the resumed run's losses leave run A's by {worst} relative")
 
-        # 3. run C: run A with the dW products through dw_gemm
-        ab.DW_IN_KERNEL_BUDGET = 16 * build_config(MODEL).hidden_size ** 2
-        try:
-            exp_c, rows_c, counts_c = run(os.path.join(tmp, "c"))
-        finally:
-            ab.DW_IN_KERNEL_BUDGET = 0
-        check_counts("cli/C", counts_c, expected(CLI_STEPS, dw=True))
-        worst = max(rel_diffs(rows_c, rows_a))
-        phase("cli", run="C", steps=CLI_STEPS, steps_per_s=f"{rate(rows_c):.3f}", run_a_steps_per_s=f"{rate(rows_a):.3f}",
-              losses=json.dumps([r["loss"] for r in rows_c]), max_rel_diff_vs_a=f"{worst:.3e}", tol="1e-2",
-              launches=json.dumps({key: v for key, v in counts_c.items() if v}))
-        if worst > 1e-2:
-            raise AssertionError(f"train CLI: run C's losses leave run A's by {worst} relative")
+    # 3. run C: run A with the dW products through dw_gemm
+    ab.DW_IN_KERNEL_BUDGET = 16 * build_config(MODEL).hidden_size ** 2
+    try:
+        exp_c, rows_c, counts_c = run(os.path.join(tmp, "c"))
+    finally:
+        ab.DW_IN_KERNEL_BUDGET = 0
+    check_counts("cli/C", counts_c, expected(CLI_STEPS, dw=True))
+    worst = max(rel_diffs(rows_c, rows_a))
+    phase("cli", run="C", steps=CLI_STEPS, steps_per_s=f"{rate(rows_c):.3f}", run_a_steps_per_s=f"{rate(rows_a):.3f}",
+          losses=json.dumps([r["loss"] for r in rows_c]), max_rel_diff_vs_a=f"{worst:.3e}", tol="1e-2",
+          launches=json.dumps({key: v for key, v in counts_c.items() if v}))
+    if worst > 1e-2:
+        raise AssertionError(f"train CLI: run C's losses leave run A's by {worst} relative")
 
-        # 4. gradient accumulation and clipping: the same draws up front
-        _, rows_d, counts_d = run(os.path.join(tmp, "d"), "--grad-accum", "4", "--grad-clip", "1.0", steps=4)
-        check_counts("cli/accum", counts_d, expected(4 * 4, dw=False))
-        g_d, g_a = rows_d[0]["grad_norm"], rows_a[0]["grad_norm"]
-        rel = abs(g_d - g_a) / g_a
-        phase("cli", run="accum4+clip1", losses=json.dumps([r["loss"] for r in rows_d]), grad_norm_step1=g_d,
-              run_a_grad_norm_step1=g_a, rel_diff=f"{rel:.3e}", tol="1e-2")
-        if rel > 1e-2:
-            raise AssertionError(f"train CLI: step-1 grad_norm {g_d} with --grad-accum 4 against {g_a} without")
+    # 4. gradient accumulation and clipping: the same draws up front
+    _, rows_d, counts_d = run(os.path.join(tmp, "d"), "--grad-accum", "4", "--grad-clip", "1.0", steps=4)
+    check_counts("cli/accum", counts_d, expected(4 * 4, dw=False))
+    g_d, g_a = rows_d[0]["grad_norm"], rows_a[0]["grad_norm"]
+    rel = abs(g_d - g_a) / g_a
+    phase("cli", run="accum4+clip1", losses=json.dumps([r["loss"] for r in rows_d]), grad_norm_step1=g_d,
+          run_a_grad_norm_step1=g_a, rel_diff=f"{rel:.3e}", tol="1e-2")
+    if rel > 1e-2:
+        raise AssertionError(f"train CLI: step-1 grad_norm {g_d} with --grad-accum 4 against {g_a} without")
 
-        # 5. the artifacts
-        keys = {"step", "loss", "steps_per_sec", "lr", "samples_seen", "wall_time"}
-        for exp, rows in ((exp_a, rows_a), (exp_c, rows_c)):
-            missing = [name for name in ("config.yaml", "log.txt", f"checkpoints/{CLI_CKPT_STEP:07d}.pt")
-                       if not os.path.isfile(os.path.join(exp, name))]
-            snaps = sorted(os.listdir(os.path.join(exp, "ema")))
-            want_snaps = [f"{std}_{CLI_CKPT_STEP:07d}.npz" for std in ("0.050", "0.100")]
-            if missing or snaps != want_snaps or not all(keys <= set(r) for r in rows) or len(rows) != CLI_STEPS:
-                raise AssertionError(f"train CLI: artifacts of {exp}: missing {missing}, ema {snaps}, rows {len(rows)}")
-        phase("cli", artifacts="ok", ema=json.dumps(want_snaps), metrics_keys=json.dumps(sorted(rows_a[0])))
-    return {"cli": counts_a, "cli+dw": counts_c}
+    # 5. the artifacts
+    keys = {"step", "loss", "steps_per_sec", "lr", "samples_seen", "wall_time"}
+    for exp, rows in ((exp_a, rows_a), (exp_c, rows_c)):
+        missing = [name for name in ("config.yaml", "log.txt", f"checkpoints/{CLI_CKPT_STEP:07d}.pt")
+                   if not os.path.isfile(os.path.join(exp, name))]
+        snaps = sorted(os.listdir(os.path.join(exp, "ema")))
+        want_snaps = [f"{std}_{CLI_CKPT_STEP:07d}.npz" for std in ("0.050", "0.100")]
+        if missing or snaps != want_snaps or not all(keys <= set(r) for r in rows) or len(rows) != CLI_STEPS:
+            raise AssertionError(f"train CLI: artifacts of {exp}: missing {missing}, ema {snaps}, rows {len(rows)}")
+    phase("cli", artifacts="ok", ema=json.dumps(want_snaps), metrics_keys=json.dumps(sorted(rows_a[0])))
+    return {"cli": counts_a, "cli+dw": counts_c}, exp_a
 
 def tp_kernel_rows(torch, F, gen, dev) -> dict:
     """Phase 3, fourth part: the tensor-parallel partial kernels against
@@ -2175,6 +2205,236 @@ def tp_phase(torch, refs) -> dict:
     return {f"tp/{kernel}": reports[0]["counts"][kernel] for kernel in ("mega_tp", "mega_attn_tp")}
 
 
+def count_stack_rows(k):
+    """Wrap ``fused_dit_stack`` (the model looks it up at each call) to
+    record each call's rows; returns (rows seen, undo)."""
+    seen, orig = [], k.fused_dit_stack
+
+    def wrapped(x, *args, **kw):
+        seen.append(x.shape[0])
+        return orig(x, *args, **kw)
+
+    k.fused_dit_stack = wrapped
+    return seen, lambda: setattr(k, "fused_dit_stack", orig)
+
+
+def sampler_phase(torch, dev, cfg, sd, z, yf, headline_steps_per_s: float) -> None:
+    """Phase 5b: every sampler on the card at DiT-S/2, batch BATCH x 2, CFG
+    CFG_SCALE, through block_kernel="auto" with a batch hint (one dit_stack
+    launch a model call). Each short chain of SAMPLER_CHECKS and the cached
+    ddpm chain (per block: fused_dit_block) is held to the float32 plain
+    chain by check_paths' rule, with exact launch counts; then the chains of
+    SAMPLER_TIMES are timed beside phase 5's headline."""
+    from mapdit_tpu_torch.diffusion import create_diffusion
+    from mapdit_tpu_torch.ops.cuda import dit_block as k
+    from mapdit_tpu_torch.runtime import build_cached_sample_fn, build_sample_fn
+
+    depth = cfg.depth
+    paths = (("f32", cfg.replace(compute_dtype="float32"), None), ("off", cfg, None),
+             ("auto+hint", cfg.replace(block_kernel="auto"), BATCH))
+    for name, (spacing, kw) in SAMPLER_CHECKS.items():
+        diffusion = create_diffusion(spacing, device=dev)
+        steps = diffusion.num_timesteps
+        outs = {}
+        for path, c, hint in paths:
+            fn = build_sample_fn(c, sd, diffusion, cfg_scale=CFG_SCALE, batch_hint=hint, device=dev, **kw)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            rows, undo = count_stack_rows(k)
+            try:
+                outs[path] = fn(z, yf, torch.Generator(device=dev).manual_seed(SEED + 5))
+                torch.cuda.synchronize()
+            finally:
+                undo()
+            counts = launch_counts()
+        if fn.run_cfg.block_kernel != "mega_stack":
+            raise AssertionError(f"sampler {name}: auto with a batch hint resolved to {fn.run_cfg.block_kernel}")
+        check_paths(torch, f"sampler-{name}", outs, ("auto+hint",))
+        check_counts(f"sampler-{name}", counts, {"fused_dit_stack": steps, "dit_stack": steps})
+        if fn.cfg_segments is not None:
+            g0, g1 = fn.cfg_segments
+            guided, unguided = rows.count(2 * BATCH), rows.count(BATCH)
+            phase("sampler-" + name, cfg_interval=json.dumps(kw["cfg_interval"]), guided_positions=f"[{g0},{g1})",
+                  guided_calls=guided, cond_only_calls=unguided)
+            if not 0 < g1 - g0 < steps or guided != g1 - g0 or unguided != steps - (g1 - g0):
+                raise AssertionError(f"sampler {name}: guided range [{g0}, {g1}) of {steps}, calls {rows}")
+        elif rows != [2 * BATCH] * steps:
+            raise AssertionError(f"sampler {name}: stack calls of {rows} rows")
+
+    diffusion = create_diffusion("10", device=dev)
+    outs = {}
+    for path, c, _ in paths:
+        fn = build_cached_sample_fn(c, sd, diffusion, cfg_scale=CFG_SCALE, cache_interval=CACHE_INTERVAL,
+                                    cache_mode="forecast", clip_denoised=True, device=dev)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        outs[path] = fn(z, yf, torch.Generator(device=dev).manual_seed(SEED + 5))
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    lo, hi = fn.span
+    full = 10 // CACHE_INTERVAL
+    blocks = full * depth + (10 - full) * (depth - (hi - lo))
+    phase("sampler-cached", interval=CACHE_INTERVAL, mode="forecast", span=f"[{lo},{hi})", full_steps=full,
+          block_launches=counts["fused_dit_block"], expected=blocks)
+    check_paths(torch, "sampler-cached", {"f32": outs["f32"], "off": outs["off"], "auto": outs["auto+hint"]},
+                ("auto",))
+    check_counts("sampler-cached", counts, {"fused_dit_block": blocks, "dit_stack": blocks})
+
+    for name, (spacing, sampler) in SAMPLER_TIMES.items():
+        diffusion = create_diffusion(spacing, device=dev)
+        steps = diffusion.num_timesteps
+        fn = build_sample_fn(cfg.replace(block_kernel="auto"), sd, diffusion, cfg_scale=CFG_SCALE, sampler=sampler,
+                             batch_hint=BATCH, device=dev)
+        fn(z, yf, torch.Generator(device=dev).manual_seed(SEED + 6))  # warm-up
+        runs = []
+        for rep in range(SAMPLER_TIME_RUNS):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out = fn(z, yf, torch.Generator(device=dev).manual_seed(SEED + 7 + rep))
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+            check_counts(f"sampler-time/{name}", launch_counts(), {"fused_dit_stack": steps, "dit_stack": steps})
+        seconds = min(runs)
+        phase("sampler-time", chain=name, batch=f"{BATCH}x2", steps=steps,
+              seconds=json.dumps([round(r, 4) for r in runs]), steps_per_s=f"{steps / seconds:.3f}", ms_per_model_call=f"{1e3 * seconds / steps:.4f}",
+              ddpm_250_steps_per_s=f"{headline_steps_per_s:.3f}", finite=bool(torch.isfinite(out).all()))
+
+
+def png_check(path: str) -> tuple:
+    """Decode a PNG's chunks: CRCs, the IHDR, and the inflated IDAT size
+    against it (a filter byte and width x channels bytes a row). Returns
+    (height, width, channels)."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
+            raise AssertionError(f"{path}: bad CRC in chunk {kind}")
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + length
+    width, height, bits, color = header[:4]
+    channels = {0: 1, 4: 2, 2: 3, 6: 4}[color]
+    raw = zlib.decompress(idat)
+    if bits != 8 or len(raw) != height * (1 + width * channels):
+        raise AssertionError(f"{path}: {len(raw)} bytes inflated for {height}x{width}x{channels}")
+    return height, width, channels
+
+
+def sample_cli_phase(torch, dev, exp: str) -> None:
+    """Phase 8b: the sampling CLIs, called in process on phase 8's run-A
+    experiment directory (full DiT-S/2, its EMA snapshots), with a
+    random-weight VAE of the port's own init written through the port's
+    safetensors writer; block_kernel "auto" (run A trained on mega_attn)."""
+    from mapdit_tpu_torch import sample, sample_ema, sample_fid
+    from mapdit_tpu_torch.models.vae import init_vae, load_decoder
+    from mapdit_tpu_torch.utils.experiment import config_from_args, load_config
+    from mapdit_tpu_torch.utils.safetensors import save_file
+
+    cfg = config_from_args(load_config(exp))
+    depth, side = cfg.depth, 8 * cfg.input_size  # the VAE decodes a latent pixel to 8 x 8
+    vae = init_vae(SEED).eval()
+    vae_path = os.path.join(exp, "vae.safetensors")
+    save_file({key: v.numpy() for key, v in vae.state_dict().items()}, vae_path)
+    common = ["--result-dir", exp, "--vae-path", vae_path, "--block-kernel", "auto"]
+    label = ["--class-label", str(min(88, cfg.num_classes - 1))]
+
+    def run(module, what, argv, expect):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = module.main(module.build_parser().parse_args([*common, *argv]))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        check_counts(f"sample-cli/{what}", counts, expect)
+        return out, seconds, counts
+
+    grid, seconds, counts = run(sample, "sample", [*label, "--sampler", "ddim", "--num-sampling-steps", "50",
+                                                   "--clip-denoised", "true", "--output-file",
+                                                   os.path.join(exp, "ddim.png")],
+                                {"fused_dit_stack": 50, "dit_stack": 50})
+    shape = png_check(grid)
+    phase("sample-cli", cli="sample", sampler="ddim", steps=50, png=json.dumps(shape), seconds=f"{seconds:.3f}",
+          launches=json.dumps({key: v for key, v in counts.items() if v}))
+    if shape != (2 * (side + 2) + 2, 2 * (side + 2) + 2, 3):
+        raise AssertionError(f"sample: grid of shape {shape}")
+    traj = os.path.join(exp, "trajectory.png")
+    # the trajectory's progressive chain runs the model per block (no batch hint)
+    grid, seconds, counts = run(sample, "sample+trajectory",
+                                [*label, "--sampler", "ddpm", "--num-sampling-steps", "50", "--clip-denoised", "true",
+                                 "--output-file", os.path.join(exp, "ddpm.png"), "--save-trajectory", traj],
+                                {"fused_dit_stack": 50, "fused_dit_block": 50 * depth, "dit_stack": 50 + 50 * depth})
+    shapes = (png_check(grid), png_check(traj))
+    phase("sample-cli", cli="sample", sampler="ddpm", steps=50, png=json.dumps(shapes[0]),
+          trajectory_png=json.dumps(shapes[1]), seconds=f"{seconds:.3f}")
+    if shapes[1] != (4 * (side + 2) + 2, 8 * (side + 2) + 2, 3):
+        raise AssertionError(f"sample: trajectory grid of shape {shapes[1]}")
+
+    grid, seconds, counts = run(sample_ema, "sample_ema", [*label, "--sampler", "dpm++", "--num-sampling-steps", "20",
+                                                           "--output-file", os.path.join(exp, "ema.png")],
+                                {"fused_dit_stack": 5 * 20, "dit_stack": 5 * 20})
+    shape = png_check(grid)
+    phase("sample-cli", cli="sample_ema", sampler="dpm++", steps=20, png=json.dumps(shape), seconds=f"{seconds:.3f}")
+    if shape != (8 * (side + 2) + 2, 5 * (side + 2) + 2, 3):
+        raise AssertionError(f"sample_ema: grid of shape {shape}")
+
+    batches = FID_SAMPLES // FID_BATCH
+    npz, seconds, counts = run(sample_fid, "sample_fid",
+                               ["--num-samples", str(FID_SAMPLES), "--batch-size", str(FID_BATCH), "--num-classes",
+                                str(cfg.num_classes), "--cfg-scale",
+                                str(CFG_SCALE), "--num-sampling-steps", str(STEPS)],
+                               {"fused_dit_stack": batches * STEPS, "dit_stack": batches * STEPS})
+    import numpy as np
+
+    with np.load(npz) as f:
+        arr = f["arr_0"]
+    phase("sample-cli", cli="sample_fid", samples=FID_SAMPLES, batch=FID_BATCH, steps=STEPS, seconds=f"{seconds:.3f}",
+          images_per_s=f"{FID_SAMPLES / seconds:.3f}", arr_0=f"{arr.dtype}{tuple(arr.shape)}",
+          launches=json.dumps({key: v for key, v in counts.items() if v}))
+    if arr.dtype != np.uint8 or arr.shape != (FID_SAMPLES, side, side, 3):
+        raise AssertionError(f"sample_fid: arr_0 {arr.dtype} {arr.shape}")
+
+    # the VAE on the card against the same module's f32 decode on the CPU
+    # (TF32 is off for the whole smoke, set at its start: full f32
+    # convolutions on both sides, summed in other orders)
+    decode = load_decoder(vae_path, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    lat = torch.randn(FID_BATCH, cfg.in_channels, cfg.input_size, cfg.input_size, generator=gen, device=dev)
+    got = decode(lat[:VAE_CHECK_IMAGES]).float().cpu()
+    with torch.no_grad():
+        want = vae.decode(lat[:VAE_CHECK_IMAGES].cpu())
+    err = rel_l2(got, want)
+    ms = time_ms(torch, lambda: decode(lat), iters=3, warmup=1)
+    phase("sample-cli", vae="decode", tf32=False, images=VAE_CHECK_IMAGES, rel_l2_err_vs_cpu=f"{err:.3e}",
+          tol="1e-4", ms_per_image=f"{ms / FID_BATCH:.4f}", batch=FID_BATCH, side=side)
+    if not err <= 1e-4:
+        raise AssertionError(f"VAE decode on the card is off the CPU's by {err} relative")
+    # the same with PyTorch's default TF32 convolutions, which the CLIs run
+    # under outside this smoke: a 10-bit mantissa in each product
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        err = rel_l2(decode(lat[:VAE_CHECK_IMAGES]).float().cpu(), want)
+        ms = time_ms(torch, lambda: decode(lat), iters=3, warmup=1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    phase("sample-cli", vae="decode", tf32=True, images=VAE_CHECK_IMAGES, rel_l2_err_vs_cpu=f"{err:.3e}",
+          tol="1e-2", ms_per_image=f"{ms / FID_BATCH:.4f}", batch=FID_BATCH, side=side)
+    if not err <= 1e-2:
+        raise AssertionError(f"VAE decode on the card with TF32 is off the CPU's by {err} relative")
+
+
 def tree_mismatch(torch, a, b, path=""):
     """The path of the first leaf where two trees of tensors and plain
     values differ (tensors bit for bit), or None."""
@@ -2381,8 +2641,12 @@ def main() -> int:
     block_launches = dict(k.LAUNCHES)
     phase("chain-per-block", steps=10, finite=bool(torch.isfinite(out_b).all()), launches=json.dumps(block_launches))
     check_counts("chain-per-block", block_launches, {"fused_dit_block": 10 * depth, "dit_stack": 10 * depth})
-
     elapsed("5")
+
+    # 5b. the other samplers, limited-interval guidance, dynamic
+    # thresholding and span caching on the same weights
+    sampler_phase(torch, dev, cfg, sd, z, yf, STEPS / seconds)
+    elapsed("5b")
 
     # 6. train
     del model, paths, sample, block_chain, outs
@@ -2396,10 +2660,14 @@ def main() -> int:
         family_launches.update(family_phase(torch, dev, tag, flags, kernels))
     elapsed("7")
 
-    # 8. the training entry point
+    # 8. the training entry point, 8b. the sampling entry points on its run A
     torch.cuda.empty_cache()
-    train_launches.update(train_cli_phase(torch, dev))
-    elapsed("8")
+    with tempfile.TemporaryDirectory(prefix="mapdit_smoke_") as tmp:
+        cli_launches, exp_a = train_cli_phase(torch, dev, tmp)
+        train_launches.update(cli_launches)
+        elapsed("8")
+        sample_cli_phase(torch, dev, exp_a)
+        elapsed("8b")
 
     # 9. DiT-XL/2 on one card, 10. the tensor-parallel islands on two ranks
     torch.cuda.empty_cache()

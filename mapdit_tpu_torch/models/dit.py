@@ -1,6 +1,6 @@
 """The DiT model, port of ``mapdit_tpu/models/dit.py`` (forward with train-time
-label dropout, ``forward_with_cfg``, the whole-stack kernel path and
-``project_weights``)."""
+label dropout, ``forward_with_cfg``, the whole-stack kernel path, the
+block-span cache protocol and ``project_weights``)."""
 
 from __future__ import annotations
 
@@ -79,11 +79,21 @@ class DiT(nn.Module):
         block_stack: Optional[dict] = None,
         train: bool = False,
         generator: Optional[torch.Generator] = None,
-    ) -> torch.Tensor:
+        span: Optional[tuple] = None,
+        cached_delta: Optional[torch.Tensor] = None,
+        return_delta: bool = False,
+    ):
         """``block_stack`` (from ``runtime.build_block_stack``) runs all
         blocks through the whole-stack kernel ``fused_dit_stack``. ``train``
         drops class labels with ``class_dropout_prob``, drawn from
-        ``generator``."""
+        ``generator``.
+
+        The block-span cache protocol (``runtime.build_cached_sample_fn``):
+        ``span=(i, j), return_delta=True`` also returns the span's
+        token-state displacement (the stream after block j-1 minus the
+        stream before block i); ``span=(i, j), cached_delta=delta`` skips
+        blocks [i, j) and adds ``delta`` instead. The whole-stack kernel
+        cannot skip a span: ``block_stack`` with ``span`` raises."""
         cfg = self.cfg
         dt = cfg.dtype
         x = patchify(x, cfg.patch_size).to(dt)
@@ -96,8 +106,12 @@ class DiT(nn.Module):
         t_emb, y_emb = self.t_embedder(t), self.y_embedder(y, force_drop_ids, train, generator)
         c = mp_sum(t_emb, y_emb, t=0.5) if cfg.mp_style else t_emb + y_emb
 
+        delta = None
         if block_stack is not None:
             from mapdit_tpu_torch.ops.cuda.dit_block import fused_dit_stack
+
+            if span is not None:
+                raise ValueError("block-span caching composes with the per-block kernels only, not mega_stack")
 
             if not kernel_family_ok(cfg):
                 raise ValueError("fused_dit_stack hard-codes the MP + adaln + cosine-attention family")
@@ -113,6 +127,21 @@ class DiT(nn.Module):
                 block_stack["w2"],
                 cfg.num_heads,
             )
+        elif span is not None:
+            lo, hi = span
+            if not 0 <= lo <= hi <= cfg.depth:
+                raise ValueError(f"span {span} is not inside the depth {cfg.depth}")
+            for block in self.blocks[:lo]:
+                x = block(x, c)
+            if cached_delta is not None:
+                x, delta = x + cached_delta, cached_delta
+            else:
+                x_before = x
+                for block in self.blocks[lo:hi]:
+                    x = block(x, c)
+                delta = x - x_before
+            for block in self.blocks[hi:]:
+                x = block(x, c)
         else:
             for block in self.blocks:
                 x = block(x, c)
@@ -120,11 +149,13 @@ class DiT(nn.Module):
         out = self.final_layer(x, c)
         if cfg.learn_sigma:
             mean, sigma = out
-            return torch.cat(
+            out = torch.cat(
                 [unpatchify(mean, cfg.input_size, cfg.patch_size), unpatchify(sigma, cfg.input_size, cfg.patch_size)],
                 dim=1,
             ).float()
-        return unpatchify(out, cfg.input_size, cfg.patch_size).float()
+        else:
+            out = unpatchify(out, cfg.input_size, cfg.patch_size).float()
+        return (out, delta) if return_delta else out
 
     def forward_with_cfg(
         self,
@@ -133,18 +164,29 @@ class DiT(nn.Module):
         y: torch.Tensor,
         cfg_scale,
         block_stack: Optional[dict] = None,
-    ) -> torch.Tensor:
+        span: Optional[tuple] = None,
+        cached_delta: Optional[torch.Tensor] = None,
+        return_delta: bool = False,
+    ):
         """Batched classifier-free guidance: the first half of x is the real
         batch, labels carry [cond; null]. Only the eps channels are guided;
-        the sigma channels pass through."""
+        the sigma channels pass through. The span protocol passes through to
+        :meth:`forward` (the delta covers the [cond; uncond] batch)."""
         c = self.cfg
         half = x[: x.shape[0] // 2]
-        model_out = self(torch.cat([half, half], dim=0), t, y, block_stack=block_stack)
+        model_out = self(
+            torch.cat([half, half], dim=0), t, y, block_stack=block_stack, span=span, cached_delta=cached_delta,
+            return_delta=return_delta,
+        )
+        delta = None
+        if return_delta:
+            model_out, delta = model_out
         eps, rest = model_out[:, : c.in_channels], model_out[:, c.in_channels :]
         cond_eps, uncond_eps = torch.chunk(eps, 2, dim=0)
         half_eps = uncond_eps + cfg_scale * (cond_eps - uncond_eps)
         eps = torch.cat([half_eps, half_eps], dim=0)
-        return torch.cat([eps, rest], dim=1)
+        out = torch.cat([eps, rest], dim=1)
+        return (out, delta) if return_delta else out
 
 
 @torch.no_grad()

@@ -133,3 +133,14 @@ def config_from_args(args: Dict[str, Any]) -> DiTConfig:
     """Rebuild the DiTConfig a training run used from its config.yaml dict."""
     overrides = {k: args[k] for k in _MODEL_KEYS if k in args}
     return build_config(args["model"], **overrides)
+
+
+def percentile_arg(s: str) -> float:
+    """argparse type of the (0, 1] quantile flags (--dynamic-threshold):
+    an out-of-range value fails at parse time."""
+    import argparse
+
+    v = float(s)
+    if not 0.0 < v <= 1.0:
+        raise argparse.ArgumentTypeError(f"{s!r}: must be in (0, 1]")
+    return v

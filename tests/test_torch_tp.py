@@ -247,7 +247,10 @@ def test_islands_and_mesh_chains_on_spawned_ranks(monkeypatch):
     (2, 2) and (1, 4) layouts with each island, and a pre-CFG batch of 1
     that the (2, 2) data axis does not divide, each against the port's
     unsharded chain under the same generator (1e-4) and against JAX's eager
-    chain on the injected noise (2e-3; ROADMAP C says why eager)."""
+    chain on the injected noise (2e-3; ROADMAP C says why eager); then ddim
+    at eta 1 (the step noise drawn at the global shape, each rank keeping
+    its rows) and dpm++ with limited-interval guidance on the mesh, each
+    against the unsharded chain."""
     v = _block_inputs()
     heads = 4
     islands = dict(
@@ -269,25 +272,33 @@ def test_islands_and_mesh_chains_on_spawned_ranks(monkeypatch):
                                     cfg_scale=torch_tp_ranks.CFG_SCALE, clip_denoised=True)
     # the unsharded chain of each island is the single-device kernel path
     # with the same arithmetic: the whole block (mega) or its attention half
-    port_chains = {
-        island: build_sample_fn(cfg.replace(block_kernel=single), {k: torch.from_numpy(a) for k, a in sd.items()},
-                                create_diffusion(torch_tp_ranks.CHAIN_STEPS, device="cpu"),
-                                cfg_scale=torch_tp_ranks.CFG_SCALE, clip_denoised=True, device="cpu")
-        for island, single in (("mega_tp", "mega"), ("mega_attn_tp", "mega_attn"))
-    }
+    def port_chain(kernel, **sampler):
+        # the unsharded chain of each island is the single-device kernel
+        # path with the same arithmetic: the whole block (mega) or its
+        # attention half
+        single = {"mega_tp": "mega", "mega_attn_tp": "mega_attn"}[kernel]
+        return build_sample_fn(cfg.replace(block_kernel=single), {k: torch.from_numpy(a) for k, a in sd.items()},
+                               create_diffusion(torch_tp_ranks.CHAIN_STEPS, device="cpu"),
+                               cfg_scale=torch_tp_ranks.CFG_SCALE, clip_denoised=True, device="cpu", **sampler)
+
     rng = np.random.default_rng(5)
     chains = []
-    for i, (layout, kernel, n) in enumerate(
-        [((2, 2), "mega_attn_tp", 4), ((2, 2), "mega_tp", 4), ((1, 4), "mega_attn_tp", 4), ((1, 4), "mega_tp", 4),
-         ((2, 2), "mega_attn_tp", 1)]
+    for i, (layout, kernel, n, sampler) in enumerate(
+        [((2, 2), "mega_attn_tp", 4, {}), ((2, 2), "mega_tp", 4, {}), ((1, 4), "mega_attn_tp", 4, {}),
+         ((1, 4), "mega_tp", 4, {}), ((2, 2), "mega_attn_tp", 1, {}),
+         ((2, 2), "mega_tp", 4, dict(sampler="ddim", eta=1.0)),
+         ((2, 2), "mega_attn_tp", 4, dict(sampler="dpm++", cfg_interval=(0.5, 10.0)))]
     ):
         z, y = _chain_inputs(rng, n)
         seed = 10 + i
-        with jax.disable_jit():
-            jax_ref = np.asarray(jax_chain(jnp.asarray(z), jnp.asarray(y.astype(np.int32)), jax.random.PRNGKey(0)))
-        port_ref = port_chains[kernel](*_t(z, y), torch.Generator().manual_seed(seed)).numpy()
-        chains.append(dict(name=f"{layout} {kernel} batch {n}x2", layout=layout, kernel=kernel, z=z, y=y, seed=seed,
-                           port_ref=port_ref, jax_ref=jax_ref))
+        jax_ref = None
+        if not sampler:
+            with jax.disable_jit():
+                jax_ref = np.asarray(jax_chain(jnp.asarray(z), jnp.asarray(y.astype(np.int32)),
+                                               jax.random.PRNGKey(0)))
+        port_ref = port_chain(kernel, **sampler)(*_t(z, y), torch.Generator().manual_seed(seed)).numpy()
+        chains.append(dict(name=f"{layout} {kernel} batch {n}x2 {sampler}", layout=layout, kernel=kernel, z=z, y=y,
+                           seed=seed, sampler=sampler, port_ref=port_ref, jax_ref=jax_ref))
     spawn(torch_tp_ranks.run_cases, 4, args=(islands, chains, sd), device="cpu")
 
 
