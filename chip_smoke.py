@@ -58,6 +58,25 @@ Phases, one line each; any failure exits non-zero before the final line:
      counts; every PNG's chunks decoded, arr_0 uint8 NHWC; the VAE decode
      on the card held to the same module's f32 decode on the CPU (TF32 off,
      1e-4; then TF32 on, as the CLIs run outside the smoke, 1e-2);
+ 8c. serve: the server (mapdit_tpu_torch.serve, buckets 1, 4, 8, 32) on
+     run A's experiment (its latent statistics set to mean 0, std 2**-24 in
+     a copy, so the untrained chains' latents come back exactly scaled and
+     unclipped), over real HTTP on an ephemeral port: the headline protocol
+     (ddpm 250, CFG 1.5, 32 samples) with exactly one dit_stack launch a
+     model call (its unclipped chain on untrained weights is non-finite, so
+     its bits are not compared); the same request at ddpm 2, whose chain
+     stays finite, bit for bit against build_sample_fn on the same z and
+     generator; dpm++ 20 at CFG 4.0 (the default protocol), cached ddpm 2
+     and cached dpm++ 20 at interval 2 bit for bit against their chain
+     functions and held to the float32 plain chain by check_paths' rule,
+     exact launch counts a batch; every compared output finite and inside
+     (-1, 1); coalescing within a bucket bit for bit; bucket 1 against
+     bucket 4 within dpm++ 20's limit; the device memory after the first
+     program and after every program (growth below one folded weight
+     copy); a VAE-decoded PNG from a server on run A itself; then 1, 4 and
+     16 concurrent clients of 64 seeded one-sample requests each
+     (requests/s, latency percentiles, batches, rows a batch, chain ms a
+     batch, coalesced share, dit_stack launches a batch);
   9. XL: DiT-XL/2 (depth 28, width 1152, 16 heads, nothing cut) in bf16 on
      folded weights: the first model call (one dit_stack launch a block)
      and a clipped 10-step chain (one a model call) at batch 4 x 2 through
@@ -164,6 +183,29 @@ SAMPLER_TIMES = {"ddim-50": ("ddim50", "ddim"), "dpm++-20": ("karras20", "dpm++"
 SAMPLER_TIME_RUNS = 3  # timed chains of each (steps/s from the fastest; all printed)
 FID_SAMPLES, FID_BATCH = 64, 32  # phase 8b's sample_fid run (250 steps, CFG 1.5)
 VAE_CHECK_IMAGES = 8  # latents decoded on the card and on the CPU in phase 8b
+# phase 8c: the server's buckets and --seed, the chains it is held on
+# (name -> request fields), and the timed loads (concurrent clients, each
+# sending SERVE_REQUESTS seeded one-sample requests of the default protocol)
+SERVE_BUCKETS = (1, 4, 8, 32)
+SERVE_SEED = 0
+SERVE_DEFAULTS = {"steps": 20, "sampler": "dpm++", "cfg_scale": 4.0}  # the JAX server's default protocol
+SERVE_CHECKS = {
+    "dpm++-20": dict(steps=20, sampler="dpm++", cfg_scale=4.0),
+    "cached-ddpm-2": dict(steps=2, sampler="ddpm", cfg_scale=4.0, cache_interval=2),
+    "cached-dpm++-20": dict(steps=20, sampler="dpm++", cfg_scale=4.0, cache_interval=2),
+}
+# the headline request's bits (and the cached ddpm chain's) are held on a
+# ddpm chain this short: the server does not clip, and an untrained model's
+# learned variance grows with the latent, so its unclipped ddpm chain
+# overflows from a few steps on (run A: non-finite at 4, 10 and 250 steps)
+SERVE_HEADLINE_CHECK_STEPS = 2
+SERVE_LOADS = (1, 4, 16)
+SERVE_REQUESTS = 64  # a client: the one-client window is a few seconds
+# the served experiment's latent statistics: mean 0, std 2**-SERVE_STATS_EXP,
+# so the untrained chains' latents (up to about 1e6 in magnitude at dpm++
+# 20) come back scaled by a power of two (exact) and inside the image range
+# the server clips to; every compared output is checked to lie inside it
+SERVE_STATS_EXP = 24
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate, H100 SXM data sheet
 PALLAS = "mapdit_tpu/ops/pallas/dit_block.py"
@@ -2435,6 +2477,306 @@ def sample_cli_phase(torch, dev, exp: str) -> None:
         raise AssertionError(f"VAE decode on the card with TF32 is off the CPU's by {err} relative")
 
 
+def serve_phase(torch, dev, exp: str) -> None:
+    """Phase 8c: the server (``mapdit_tpu_torch.serve``) on phase 8's run-A
+    experiment, over real HTTP on an ephemeral port, buckets SERVE_BUCKETS,
+    ``--block-kernel auto``. Its latent statistics are set as
+    SERVE_STATS_EXP says in a copy of the experiment (config.yaml, the EMA
+    snapshots, the constants), so what the server returns is the chains'
+    latents times a power of two. Checks: the headline protocol's launches
+    (one dit_stack a model call), and its request at
+    SERVE_HEADLINE_CHECK_STEPS bit for bit against build_sample_fn on the
+    host preamble's z and generator; SERVE_CHECKS against the float32 plain
+    chain by check_paths' rule with exact launch counts; coalescing within a
+    bucket bit for bit; bucket 1 against bucket 4; every compared output
+    finite and unclipped; the device memory of the programs; a VAE-decoded
+    PNG from a second server on run A itself; then the timed loads of
+    SERVE_LOADS."""
+    import io
+    import shutil
+    import threading
+    import urllib.error
+    import urllib.request
+    import numpy as np
+
+    from mapdit_tpu_torch import serve
+    from mapdit_tpu_torch.diffusion import create_diffusion, respacing_string
+    from mapdit_tpu_torch.runtime import build_cached_sample_fn, build_sample_fn
+    from mapdit_tpu_torch.sample import decode_latents, load_variables, run_config
+    from mapdit_tpu_torch.utils.experiment import load_config, save_config
+    from mapdit_tpu_torch.utils.image import to_uint8
+
+    exp_s = exp.rstrip("/") + "-serve"
+    os.makedirs(exp_s)
+    shutil.copytree(os.path.join(exp, "ema"), os.path.join(exp_s, "ema"))
+    shutil.copy(os.path.join(exp, "constants.pt"), exp_s)
+    train_args = load_config(exp)
+    c, side = train_args["in_channels"], train_args["input_size"]
+    train_args.update(stats_mean=[0.0] * c, stats_std=[2.0**-SERVE_STATS_EXP] * c)
+    save_config(exp_s, train_args)
+    cfg = run_config(train_args, "auto")
+    sd = load_variables(exp_s, train_args)
+    weight_bytes = sum(v.numel() * v.element_size() for v in sd.values())  # one f32 folded copy
+    labels = [i % cfg.num_classes for i in range(0, 37 * BATCH, 37)]
+
+    def start(*flags):
+        """The server as ``python -m mapdit_tpu_torch.serve`` builds it (and
+        warms it), its request log off (a line a request would bury the
+        phase's lines), serving from a thread: (server, service, base URL)."""
+        server, service = serve.build_server(serve.build_parser().parse_args(
+            ["--port", "0", "--seed", str(SERVE_SEED), "--block-kernel", "auto", *flags]))
+        server.RequestHandlerClass.log_message = lambda self, fmt, *args: None
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        return server, service, f"http://127.0.0.1:{server.server_address[1]}"
+
+    def unclipped(what, *outs):
+        """Raise unless every served output compared is finite and inside
+        (-1, 1): the image range the server clips to, so a comparison sees
+        the chains' own values."""
+        for out in outs:
+            out = np.asarray(out)
+            if not (np.isfinite(out).all() and np.abs(out).max() < 1):
+                raise AssertionError(f"serve: {what}: a compared output is non-finite or clipped "
+                                     f"(finite share {float(np.isfinite(out).mean()):.4f}, "
+                                     f"max |x| {float(np.nanmax(np.abs(out))):.3e})")
+
+    def post(base, payload):
+        req = urllib.request.Request(base + "/v1/sample", data=json.dumps(payload).encode())
+        try:
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                return resp.status, resp.headers, resp.read()
+        except urllib.error.HTTPError as e:
+            raise AssertionError(f"serve: {payload} -> {e.code} {e.read()[:300]!r}") from None
+
+    def arr_0(body):
+        with np.load(io.BytesIO(body)) as f:
+            return f["arr_0"]
+
+    def served(base, payload, expect, what):
+        """One request alone: (response, launch counts), the counts exact."""
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out = post(base, payload)
+        counts = launch_counts()
+        check_counts(f"serve/{what}", counts, expect)
+        return out, counts
+
+    def reference(path_cfg, proto, z_seed_rows, counter, n, bucket):
+        """The chain function's output on the host preamble's z and generator for
+        one seeded job of n rows in ``bucket``: raw latents (n, C, H, W)."""
+        proto = dict(proto)
+        steps, sampler, cfg_scale = proto.pop("steps"), proto.pop("sampler"), proto.pop("cfg_scale")
+        z = torch.cat([serve.draw(z_seed_rows, (n, c, side, side), dev), torch.zeros(bucket - n, c, side, side,
+                                                                                        device=dev)])
+        y = torch.tensor(labels[:n] + [0] * (bucket - n), device=dev)
+        z, y = torch.cat([z, z]), torch.cat([y, torch.full_like(y, cfg.num_classes)])
+        diffusion = create_diffusion(respacing_string(steps, sampler, proto.pop("schedule", "uniform")), device=dev)
+        if proto.get("cache_interval", 0) > 1:
+            fn = build_cached_sample_fn(path_cfg, sd, diffusion, cfg_scale=cfg_scale, sampler=sampler, device=dev,
+                                        cache_interval=proto.pop("cache_interval"), **proto)
+        else:
+            fn = build_sample_fn(path_cfg, sd, diffusion, cfg_scale=cfg_scale, sampler=sampler, batch_hint=bucket,
+                                 device=dev, **proto)
+        return fn(z, y, serve.generator(serve.chain_seed(SERVE_SEED, counter), dev))[:n]
+
+    def image(latents):
+        """What the server returns for raw latents (its decode, no VAE)."""
+        return decode_latents(latents.float().cpu().numpy(), train_args, False)
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    # warmed at startup: the default protocol's program at the largest bucket
+    server, service, base = start("--result-dir", exp_s, "--buckets", ",".join(map(str, SERVE_BUCKETS)))
+    try:
+        torch.cuda.synchronize()
+        mem_first = torch.cuda.memory_allocated() - mem0
+        prepared = service._prepared
+        held = sum(t.numel() * t.element_size() for t in [*prepared["model"].parameters(), *prepared["model"].buffers(),
+                                                        *(prepared["block_stack"] or {}).values()])
+        depth = cfg.depth
+
+        # the headline protocol: 32 samples, ddpm 250, CFG 1.5, one seeded
+        # request; its launches, then its bits at SERVE_HEADLINE_CHECK_STEPS
+        headline = {"class_labels": labels, "steps": STEPS, "sampler": "ddpm", "cfg_scale": CFG_SCALE, "seed": 101,
+                    "format": "npz"}
+        (_, headers, body), counts = served(base, headline, {"fused_dit_stack": STEPS, "dit_stack": STEPS},
+                                            "headline")
+        phase("serve", protocol="headline", steps=STEPS, samples=BATCH, bucket=BATCH, cfg_scale=CFG_SCALE,
+              launches=json.dumps({key: v for key, v in counts.items() if v}),
+              seed_deterministic=headers["X-Seed-Deterministic"],
+              note="launches only: the bits are held on the same request at SERVE_HEADLINE_CHECK_STEPS")
+        steps = SERVE_HEADLINE_CHECK_STEPS
+        proto = {"steps": steps, "sampler": "ddpm", "cfg_scale": CFG_SCALE}
+        (_, _, body), counts = served(base, {**headline, "steps": steps},
+                                      {"fused_dit_stack": steps, "dit_stack": steps}, "headline-bits")
+        want = reference(cfg, proto, 101, service._request_counter, BATCH, BATCH)
+        same_http = bool(np.array_equal(arr_0(body), to_uint8(image(want))))
+        # the same request in process (floats), against build_sample_fn again
+        got = service.sample(labels, seed=101, **proto)
+        want = image(reference(cfg, proto, 101, service._request_counter, BATCH, BATCH))
+        same = bool(np.array_equal(got, want))
+        phase("serve", protocol=f"headline-ddpm-{steps}", samples=BATCH, bucket=BATCH, cfg_scale=CFG_SCALE,
+              launches=json.dumps({key: v for key, v in counts.items() if v}), npz_equals_build_sample_fn=same_http,
+              floats_equal_build_sample_fn=same, max_abs_served=f"{float(np.nanmax(np.abs(got))):.4e}")
+        unclipped(f"headline-ddpm-{steps}", got, want)
+        if not (same_http and same):
+            raise AssertionError("serve: the headline differs from build_sample_fn on the same z and generator")
+
+        # the other protocols against the float32 plain chain
+        limits = {}
+        for name, proto in SERVE_CHECKS.items():
+            steps, cached = proto["steps"], proto.get("cache_interval", 0) > 1
+            lo, hi = depth // 4, depth - depth // 4
+            blocks = (steps // 2) * depth + (steps - steps // 2) * (depth - (hi - lo))
+            expect = ({"fused_dit_block": blocks, "dit_stack": blocks} if cached
+                      else {"fused_dit_stack": steps, "dit_stack": steps})
+            (_, _, body), counts = served(base, {**proto, "class_labels": labels, "seed": 102, "format": "npz"},
+                                          expect, name)
+            counter = service._request_counter
+            outs = {path: reference(path_cfg, proto, 102, counter, BATCH, BATCH)
+                    for path, path_cfg in (("f32", cfg.replace(compute_dtype="float32", block_kernel="off")),
+                                           ("off", cfg.replace(block_kernel="off")), ("served", cfg))}
+            same_http = bool(np.array_equal(arr_0(body), to_uint8(image(outs["served"]))))
+            got = service.sample(labels, seed=102, **proto)  # in process: floats
+            want = image(reference(cfg, proto, 102, service._request_counter, BATCH, BATCH))
+            same = bool(np.array_equal(got, want))
+            phase("serve", protocol=name, launches=json.dumps({key: v for key, v in counts.items() if v}),
+                  npz_equals_chain_fn=same_http, floats_equal_chain_fn=same,
+                  max_abs_latent=f"{float(outs['served'].abs().max()):.3e}",
+                  max_abs_served=f"{float(np.nanmax(np.abs(got))):.4e}")
+            unclipped(name, got, want, *(image(v) for v in outs.values()))
+            if not (same_http and same):
+                raise AssertionError(f"serve: {name} differs from its chain function on the same z and generator")
+            # the served bits are the chain function's kernel path: hold it to the f32 plain chain
+            check_paths(torch, f"serve-{name}", outs, ("served",))
+            limits[name] = max(2 * rel_l2(outs["off"], outs["f32"]), 1e-2)
+
+        # coalescing: a two-sample job alone and beside another (bucket 4
+        # both), then a one-sample job alone (bucket 1) and beside two others
+        # (bucket 4); deterministic dpm++ 20
+        def concurrently(jobs):
+            results, barrier = [None] * len(jobs), threading.Barrier(len(jobs))
+
+            def run(i, seed, k):
+                barrier.wait()
+                results[i] = service.sample(labels[:k], seed=seed, **SERVE_DEFAULTS)
+
+            threads = [threading.Thread(target=run, args=(i, *job)) for i, job in enumerate(jobs)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            return results
+
+        alone = service.sample(labels[:2], seed=201, **SERVE_DEFAULTS)
+        service.coalesce_ms = 200.0
+        try:
+            before = service.info()["coalesced_batches"]
+            pair = concurrently([(201, 2), (202, 2)])
+            one = service.sample(labels[:1], seed=203, **SERVE_DEFAULTS)
+            three = concurrently([(203, 1), (204, 1), (205, 1)])
+            coalesced = service.info()["coalesced_batches"] - before
+        finally:
+            service.coalesce_ms = 3.0
+        unclipped("coalescing", alone, *pair, one, *three)
+        same = bool(np.array_equal(alone, pair[0]))
+        latent = torch.from_numpy(one[0]) * 2.0**SERVE_STATS_EXP, torch.from_numpy(three[0][0]) * 2.0**SERVE_STATS_EXP
+        across = rel_l2(*latent)
+        limit = limits["dpm++-20"]
+        phase("serve", coalescing="bucket-4", same_bits_alone_and_coalesced=same, coalesced_batches=coalesced,
+              seeds_differ=not np.array_equal(pair[0], pair[1]))
+        phase("serve", across_buckets="1-vs-4", rel_l2=f"{across:.3e}",
+              max_abs_latent_diff=f"{float((latent[0] - latent[1]).abs().max()):.3e}",
+              max_uint8_diff=int(np.abs(to_uint8(one).astype(int) - to_uint8(three[0]).astype(int)).max()),
+              tol=f"{limit:.3e}", note="the tolerance is dpm++-20's limit against the float32 plain chain")
+        if not same or coalesced != 2 or np.array_equal(pair[0], pair[1]):
+            raise AssertionError(f"serve: coalescing within a bucket (same bits {same}, {coalesced} coalesced)")
+        if not across <= limit:
+            raise AssertionError(f"serve: bucket 1 against bucket 4 differ by {across} relative")
+
+        # every bucket of the default protocol, then the memory
+        for b in SERVE_BUCKETS:
+            service.sample(labels[:b], seed=300 + b, **SERVE_DEFAULTS)
+        torch.cuda.synchronize()
+        mem_all = torch.cuda.memory_allocated() - mem0
+        programs = service.info()["compiled_programs"]
+        phase("serve", memory="allocated", prepared_weights_bytes=held, after_first_program=mem_first,
+              after_every_program=mem_all, programs=programs, one_weight_copy_bytes=weight_bytes)
+        if mem_all - mem_first >= weight_bytes:
+            raise AssertionError(f"serve: {programs} programs grew the device memory by {mem_all - mem_first} bytes")
+
+        # the timed loads of the default protocol
+        for clients in SERVE_LOADS:
+            info0 = service.info()
+            latencies, errors = [], []
+            lock = threading.Lock()
+
+            def client(i):
+                for r in range(SERVE_REQUESTS):
+                    t0 = time.perf_counter()
+                    try:
+                        status, _, body = post(base, {"class_label": labels[i], "seed": 1000 * i + r})
+                    except AssertionError as e:
+                        errors.append(str(e))
+                        continue
+                    with lock:
+                        latencies.append(time.perf_counter() - t0)
+                    if status != 200 or body[:8] != b"\x89PNG\r\n\x1a\n":
+                        errors.append(f"status {status}")
+
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            seconds = time.perf_counter() - t0
+            counts = launch_counts()
+            info = service.info()
+            batches = info["batches_run"] - info0["batches_run"]
+            chain_s = info["chain_seconds_sum"] - info0["chain_seconds_sum"]
+            requests = clients * SERVE_REQUESTS
+            lat = np.asarray(latencies) * 1e3
+            phase("serve-load", clients=clients, requests=requests, failed=len(errors),
+                  seconds=f"{seconds:.4f}",
+                  requests_per_s=f"{requests / seconds:.3f}", images_per_s=f"{requests / seconds:.3f}",
+                  p50_ms=f"{np.percentile(lat, 50):.3f}", p95_ms=f"{np.percentile(lat, 95):.3f}",
+                  max_ms=f"{lat.max():.3f}", batches=batches, rows_per_batch=f"{requests / batches:.3f}",
+                  chain_ms_per_batch=f"{1e3 * chain_s / batches:.3f}",
+                  coalesced_share=f"{(info['coalesced_batches'] - info0['coalesced_batches']) / batches:.3f}",
+                  dit_stack_per_batch=f"{counts['dit_stack'] / batches:.3f}", compile_batches=info[
+                      "compile_seconds_count"] - info0["compile_seconds_count"])
+            if errors or len(latencies) != requests:
+                raise AssertionError(f"serve: load of {clients} clients: {errors[:3]}")
+            check_counts(f"serve-load/{clients}", counts,
+                         {"fused_dit_stack": SERVE_DEFAULTS["steps"] * batches,
+                          "dit_stack": SERVE_DEFAULTS["steps"] * batches})
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+
+    # a VAE-decoded PNG from run A itself (phase 8b's random-weight VAE)
+    server, vae, base = start("--result-dir", exp, "--buckets", "1", "--warmup", "false", "--use-vae", "true",
+                              "--vae-path", os.path.join(exp, "vae.safetensors"))
+    try:
+        (_, headers, body), counts = served(base, {"class_label": labels[1], "seed": 7},
+                                            {"fused_dit_stack": 20, "dit_stack": 20}, "vae")
+    finally:
+        server.shutdown()
+        server.server_close()
+        vae.close()
+    path = os.path.join(exp_s, "served.png")
+    with open(path, "wb") as f:
+        f.write(body)
+    shape = png_check(path)
+    phase("serve", decode="vae", png=json.dumps(shape), content_type=headers["Content-Type"])
+    if shape != (8 * side + 4, 8 * side + 4, 3):
+        raise AssertionError(f"serve: VAE PNG of shape {shape}")
+
+
 def tree_mismatch(torch, a, b, path=""):
     """The path of the first leaf where two trees of tensors and plain
     values differ (tensors bit for bit), or None."""
@@ -2668,6 +3010,8 @@ def main() -> int:
         elapsed("8")
         sample_cli_phase(torch, dev, exp_a)
         elapsed("8b")
+        serve_phase(torch, dev, exp_a)
+        elapsed("8c")
 
     # 9. DiT-XL/2 on one card, 10. the tensor-parallel islands on two ranks
     torch.cuda.empty_cache()

@@ -79,6 +79,17 @@ def build_block_stack(state_dict: Dict[str, torch.Tensor], cfg: DiTConfig) -> Di
 SAMPLERS = ("ddpm", "ddim", "dpm++", "unipc")
 
 
+def resolve_run_config(cfg: DiTConfig, fold: bool = True, batch_hint: Optional[int] = None, device=None) -> DiTConfig:
+    """The config a chain runs: folded weights when ``fold`` and weight
+    normalization are on, and ``auto`` promoted to ``mega_stack`` where
+    ``stack_auto_ok`` takes it (a batch hint given; its value does not
+    matter; ``device`` is the chain's torch.device)."""
+    run_cfg = cfg.replace(fold_weights=True) if (fold and cfg.use_weight_normalization) else cfg
+    if run_cfg.block_kernel == "auto" and stack_auto_ok(run_cfg, batch_hint, device):
+        run_cfg = run_cfg.replace(block_kernel="mega_stack")
+    return run_cfg
+
+
 def folded_model(cfg: DiTConfig, state_dict: Dict[str, torch.Tensor], fold: bool = True, device=None) -> DiT:
     """The model on ``device`` (default CUDA) with its weights folded when
     ``fold`` and weight normalization are on."""
@@ -108,6 +119,55 @@ def build_model_fn(
         return model.forward_with_cfg(x, t, y, cfg_scale)
 
     return model_fn
+
+
+def prepare_weights(
+    cfg: DiTConfig, state_dict: Dict[str, torch.Tensor], fold: bool = True, batch_hint: Optional[int] = None,
+    device=None, mesh=None,
+) -> Dict:
+    """The weights the chains of one run config share: ``{"model",
+    "block_stack"}``. The model is :func:`folded_model`'s, on
+    the per-block config (an ``auto`` that resolves to ``mega_stack`` stays
+    ``auto`` in its blocks), so a block-by-block chain runs it as it is;
+    under ``mega_stack`` the bf16 weight stack is built once beside it. They
+    depend on the resolved run config (:func:`resolve_run_config`), not on
+    the batch, so one prepared dict serves every chain of that config
+    whatever its batch hint (:func:`check_prepared`). With a ``mesh`` (two
+    or more ranks) it first checks that every rank holds the same weights,
+    and under a TP kernel loads only this rank's shards."""
+    device = resolve_device(device)
+    run_cfg = resolve_run_config(cfg, fold, batch_hint, device)
+    if mesh is None and run_cfg.block_kernel not in TP_KERNELS:
+        model = folded_model(cfg, state_dict, fold, device)
+        sd = model.state_dict()
+    else:
+        sd = {k: v.to(device) for k, v in state_dict.items()}
+        if run_cfg.fold_weights:
+            sd = fold_weights_for_inference(sd, run_cfg)
+        model = DiT(resolve_run_config(cfg, fold, None, device)).to(device).eval()
+        if mesh is not None:
+            check_replicated(sd, device)
+        if run_cfg.block_kernel in TP_KERNELS:
+            model.load_tensor_parallel(shard_state_dict(sd, run_cfg, mesh, run_cfg.block_kernel), mesh)
+        else:
+            model.load_state_dict(sd)
+    stack = build_block_stack(sd, run_cfg) if run_cfg.block_kernel == "mega_stack" else None
+    return {"model": model, "block_stack": stack}
+
+
+def check_prepared(prepared: Dict, cfg: DiTConfig, fold: bool, use_stack: Optional[bool] = None) -> None:
+    """Raise ``ValueError`` unless ``prepared`` (:func:`prepare_weights`)
+    holds ``cfg``'s model folded as ``fold`` says and, for a chain that
+    runs the block stack (``use_stack``; None for a block-by-block chain,
+    which ignores it), a stack exactly where the chain runs one."""
+    want = resolve_run_config(cfg, fold)
+    model_cfg, has_stack = prepared["model"].cfg, prepared["block_stack"] is not None
+    if model_cfg != want or (use_stack is not None and has_stack != use_stack):
+        raise ValueError(
+            f"the prepared weights run block_kernel={model_cfg.block_kernel!r} (fold_weights="
+            f"{model_cfg.fold_weights}, block stack {has_stack}); this chain needs {want.block_kernel!r} "
+            f"(fold_weights={want.fold_weights}, block stack {use_stack})"
+        )
 
 
 def cfg_interval_segments(diffusion, sigma_lo: float, sigma_hi: float):
@@ -150,13 +210,11 @@ def build_shared_sample_fn(
     device=None,
     mesh=None,
 ):
-    """``(prepare, sample_fn)``: ``prepare(state_dict)`` builds the folded
-    model (and the weight stack); ``sample_fn(prepared, noise, y,
-    generator)`` runs the chain, so one built function serves many weight
-    sets (``sample_ema``'s five EMA stds). With a ``mesh`` (two or more
-    ranks), ``prepare`` first checks that every rank holds the same weights,
-    and under a TP kernel loads only this rank's shards of the folded
-    weights.
+    """``(prepare, sample_fn)``: ``prepare(state_dict)`` is
+    :func:`prepare_weights` at this chain's config (the folded model and
+    the weight stack); ``sample_fn(prepared, noise, y, generator)`` runs the
+    chain, so one built function serves many weight sets (``sample_ema``'s
+    five EMA stds).
 
     ``sampler``: ``ddpm``, ``ddim`` (``eta`` 0 is the ODE, 1 DDPM-like),
     ``dpm++`` or ``unipc``; any other raises naming the ROADMAP item
@@ -196,9 +254,7 @@ def build_shared_sample_fn(
     from mapdit_tpu_torch.diffusion.dpm_solver import dpm_solver_pp_loop, dpm_solver_pp_tables
     from mapdit_tpu_torch.diffusion.unipc import unipc_loop, unipc_tables
 
-    run_cfg = cfg.replace(fold_weights=True) if (fold and cfg.use_weight_normalization) else cfg
-    if run_cfg.block_kernel == "auto" and stack_auto_ok(run_cfg, batch_hint, device):
-        run_cfg = run_cfg.replace(block_kernel="mega_stack")
+    run_cfg = resolve_run_config(cfg, fold, batch_hint, device)
     use_stack = run_cfg.block_kernel == "mega_stack"
     if use_stack and not kernel_family_ok(run_cfg):
         raise ValueError(
@@ -226,17 +282,7 @@ def build_shared_sample_fn(
         tables = unipc_tables(diffusion, device)
 
     def prepare(state_dict: Dict[str, torch.Tensor]) -> Dict:
-        sd = {k: v.to(device) for k, v in state_dict.items()}
-        if run_cfg.fold_weights:
-            sd = fold_weights_for_inference(sd, run_cfg)
-        model = DiT(run_cfg).to(device).eval()
-        if mesh is not None:
-            check_replicated(sd, device)
-        if run_cfg.block_kernel in TP_KERNELS:
-            model.load_tensor_parallel(shard_state_dict(sd, run_cfg, mesh, run_cfg.block_kernel), mesh)
-        else:
-            model.load_state_dict(sd)
-        return {"model": model, "block_stack": build_block_stack(sd, run_cfg) if use_stack else None}
+        return prepare_weights(cfg, state_dict, fold, batch_hint, device, mesh)
 
     def run(model_fn, x, generator, noise_fn, kw, step_slice=None, carry=None, return_carry=False):
         """One segment of the chain: positions ``step_slice`` (None: all)
@@ -315,11 +361,17 @@ def build_sample_fn(
     noise_fn: Optional[Callable] = None,
     mesh=None,
     device=None,
+    prepared: Optional[Dict] = None,
 ):
     """``sample_fn(noise, y, generator)`` over the full chain, with the
     weights prepared once. ``noise`` is (2N, C, H, W) and ``y`` is
     [cond labels; null labels] under CFG. The sampler arguments are those
     of :func:`build_shared_sample_fn`.
+
+    ``prepared`` (:func:`prepare_weights` at the same config, fold and
+    device) is used in place of preparing ``state_dict`` (which may then be
+    None), so many chains share one set of weights on the device
+    (:func:`check_prepared` holds it to this chain).
 
     ``mesh`` (``parallel.make_mesh``): the layout of ``runtime.py:646-748``
     of the JAX package on torch.distributed, called on every rank with the
@@ -345,7 +397,10 @@ def build_sample_fn(
         clip_denoised=clip_denoised, cfg_interval=cfg_interval, batch_hint=batch_hint,
         dynamic_threshold=dynamic_threshold, noise_fn=noise_fn, device=device, mesh=mesh,
     )
-    prepared = prepare(state_dict)
+    if prepared is None:
+        prepared = prepare(state_dict)
+    else:
+        check_prepared(prepared, cfg, fold, shared_fn.run_cfg.block_kernel == "mega_stack")
 
     def sample_fn(noise: torch.Tensor, y: torch.Tensor, generator=None) -> torch.Tensor:
         n_pre = noise.shape[0] // 2 if cfg_scale is not None else noise.shape[0]
@@ -369,6 +424,7 @@ def build_sample_fn(
 
     sample_fn.run_cfg = shared_fn.run_cfg
     sample_fn.cfg_segments = shared_fn.cfg_segments
+    sample_fn.prepared = prepared
     return sample_fn
 
 
@@ -390,6 +446,7 @@ def build_cached_sample_fn(
     dynamic_threshold: Optional[float] = None,
     noise_fn: Optional[Callable] = None,
     device=None,
+    prepared: Optional[Dict] = None,
 ):
     """``sample_fn(noise, y, generator)``: the ddpm or dpm++ chain with
     Delta-DiT block-span caching, a lossy accelerator. The chain runs in
@@ -407,7 +464,10 @@ def build_cached_sample_fn(
     ``cfg_interval`` is snapped outward to whole cache groups (a group's
     delta has the shape of one kind of call) and the chain runs as three
     stitched segments, as in :func:`build_shared_sample_fn`.
-    ``noise_fn(t, shape)`` replaces the ddpm step noise."""
+    ``noise_fn(t, shape)`` replaces the ddpm step noise.
+
+    ``prepared``: as in :func:`build_sample_fn`; the chain runs its model
+    block by block and leaves any block stack aside."""
     from mapdit_tpu_torch.diffusion import gd
     from mapdit_tpu_torch.diffusion.dpm_solver import dpm_solver_pp_tables, dpm_solver_pp_update, x0_of
 
@@ -438,7 +498,11 @@ def build_cached_sample_fn(
         span = (cfg.depth // 4, cfg.depth - cfg.depth // 4)
     denoised = _denoised_fn(dynamic_threshold)
     dev = resolve_device(device)
-    model = folded_model(cfg, state_dict, fold, dev)
+    if prepared is None:
+        model = folded_model(cfg, state_dict, fold, dev)
+    else:
+        check_prepared(prepared, cfg, fold)
+        model = prepared["model"]
     step_tables = None if sampler == "ddpm" else dpm_solver_pp_tables(diffusion, dev)
 
     @torch.no_grad()
@@ -490,6 +554,7 @@ def build_cached_sample_fn(
         return torch.cat([x, x]) if cfg_scale is not None else x
 
     sample_fn.span = span
+    sample_fn.prepared = prepared
     return sample_fn
 
 
