@@ -77,6 +77,23 @@ Phases, one line each; any failure exits non-zero before the final line:
      16 concurrent clients of 64 seeded one-sample requests each
      (requests/s, latency percentiles, batches, rows a batch, chain ms a
      batch, coalesced share, dit_stack launches a batch);
+  8d. distill: progressive distillation of run A (mega_attn + pallas, the
+     teacher its post-hoc EMA): one distill step at batch 256, CFG 1.5, 8 ->
+     4 steps, on the kernel path against the float32 plain path (loss and
+     gradients, check_paths' rule) on the same draws, its launch counts
+     exact and printed beside phase 6's train step, ms a step (three runs
+     after a warm-up), the teacher's tensors unchanged; then
+     mapdit_tpu_torch.distill.main in process (2 stages of 4 steps, batch
+     256, base 8, CFG 1.5, synthetic:1024): the stage directories' distill_*
+     fields, the stage-1 teacher unchanged, the stage-2 teacher stage 1's
+     raw student, steps/s from the log, exact launch counts; the 2-step
+     student through mapdit_tpu_torch.sample at the requested ddpm 250
+     (forced to ddim 2, cfg 1: two dit_stack launches on the 4 undoubled
+     rows, finite, held to the float32 plain chain) and sample_fid (64
+     images, exact counts); then served (buckets 1 and 4, statistics as in
+     8c): a default-protocol request normalised onto ddim 2 at cfg 1, /info's
+     distilled block, two dit_stack launches a batch, the served latents
+     bit for bit against build_sample_fn on the student diffusion, finite;
   9. XL: DiT-XL/2 (depth 28, width 1152, 16 heads, nothing cut) in bf16 on
      folded weights: the first model call (one dit_stack launch a block)
      and a clipped 10-step chain (one a model call) at batch 4 x 2 through
@@ -206,6 +223,15 @@ SERVE_REQUESTS = 64  # a client: the one-client window is a few seconds
 # 20) come back scaled by a power of two (exact) and inside the image range
 # the server clips to; every compared output is checked to lie inside it
 SERVE_STATS_EXP = 24
+# phase 8d: the distill step's batch and protocol (run A's teacher, 8 -> 4
+# steps, guidance baked at CFG 1.5), its timed runs, the CLI's stages, and
+# the student's sample_fid run
+DISTILL_BATCH = 256
+DISTILL_BASE_STEPS = 8
+DISTILL_CFG_SCALE = 1.5
+DISTILL_TIMED_RUNS = 3
+DISTILL_STAGES, DISTILL_STEPS_PER_STAGE = 2, 4
+DISTILL_FID_SAMPLES, DISTILL_FID_BATCH = 64, 32
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate, H100 SXM data sheet
 PALLAS = "mapdit_tpu/ops/pallas/dit_block.py"
@@ -2777,6 +2803,296 @@ def serve_phase(torch, dev, exp: str) -> None:
         raise AssertionError(f"serve: VAE PNG of shape {shape}")
 
 
+def distill_step_launches(depth: int) -> dict:
+    """The launch counts of one distill step on mega_attn + pallas: phase
+    6's train step plus the teacher pair's two forwards (row 3 in every
+    block, run without a gradient), whatever the rows a call."""
+    from mapdit_tpu_torch.ops.cuda import attn_branch as ab
+
+    forwards = 3  # the teacher pair and the student
+    expect = {key: depth for key in ab.LAUNCHES if key.startswith("attn_bwd/") and key != "attn_bwd/dw"}
+    expect.update({"attn_branch/fwd": forwards * depth, "attn_branch/bwd": depth,
+                   "mp_gemm/qkv": (forwards + 1) * depth, "mp_gemm/out": forwards * depth,
+                   "mp_gemm/dattn": depth, "mp_gemm/dh": depth, "cosine_attention": forwards * depth,
+                   "cosine_attention/residual": depth})
+    return expect
+
+
+def distill_phase(torch, dev, exp: str, tmp: str, train_counts: dict) -> None:
+    """Phase 8d: progressive distillation of phase 8's run A, then its
+    2-step student sampled and served (module docstring)."""
+    import contextlib
+    import io
+    import logging
+    import re
+    import shutil
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from mapdit_tpu_torch import distill, sample, sample_fid, serve
+    from mapdit_tpu_torch.diffusion import distill as dd
+    from mapdit_tpu_torch.models import init_model
+    from mapdit_tpu_torch.runtime import build_sample_fn
+    from mapdit_tpu_torch.training import SyntheticLatentDataset, create_optimizer, create_train_state, make_train_step
+    from mapdit_tpu_torch.training import warmup_flat_invsqrt
+    from mapdit_tpu_torch.utils.experiment import config_from_args, load_config, save_config
+    from mapdit_tpu_torch.utils.image import to_uint8
+
+    teacher_args = load_config(exp)
+    cfg = config_from_args(teacher_args)  # run A: mega_attn + pallas, bf16, weights not folded
+    depth = cfg.depth
+    teacher_sd = sample.load_variables(exp, teacher_args)
+
+    def unchanged(model) -> bool:
+        state = model.state_dict()
+        return all(torch.equal(state[key].cpu(), v) for key, v in teacher_sd.items())
+
+    # 1. one distill step: the kernel path against the float32 plain path
+    m = dd.base_timestep_map(DISTILL_BASE_STEPS)
+    d_t, d_s = dd.diffusion_from_map(m, device=dev), dd.diffusion_from_map(dd.halved_map(m), device=dev)
+    ds = SyntheticLatentDataset(num_examples=1024, num_classes=cfg.num_classes, size=cfg.input_size, seed=SEED)
+    batch = {key: torch.as_tensor(v).to(dev) for key, v in next(ds.batches(DISTILL_BATCH, seed=SEED)).items()}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    shape = batch["mean"].shape
+    draws = {"posterior_eps": torch.randn(shape, generator=gen, device=dev),
+             "t": torch.randint(0, d_s.num_timesteps, (DISTILL_BATCH,), generator=gen, device=dev),
+             "noise": torch.randn(shape, generator=gen, device=dev)}
+    tx = create_optimizer(warmup_flat_invsqrt(2e-3, 1, 100))
+    paths = {"f32": cfg.replace(compute_dtype="float32", block_kernel="off"), "off": cfg.replace(block_kernel="off"),
+             "mega_attn+pallas": cfg}
+    expect = distill_step_launches(depth)
+    losses, grads = {}, {}
+    for name, c in paths.items():
+        teacher = init_model(c, seed=SEED, device=dev)
+        teacher.load_state_dict(teacher_sd)
+        teacher.requires_grad_(False)
+        state = create_train_state(c, tx, seed=SEED, device=dev, state_dict=teacher_sd)
+        step = make_train_step(
+            c, d_s, tx, stats_mean=teacher_args["stats_mean"], stats_std=teacher_args["stats_std"],
+            losses_fn=dd.make_distill_losses(d_t, d_s, dd.make_teacher_fn(teacher, c.num_classes, DISTILL_CFG_SCALE)),
+            model_train=False)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        losses[name] = step(state, batch, draws=draws)["loss"].reshape(1)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        grads[name] = torch.cat([p.grad.float().reshape(-1) for p in state.model.parameters()])
+        if name != "f32":
+            times = []
+            for _ in range(DISTILL_TIMED_RUNS + 1):  # the first is the warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metrics = step(state, batch)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+            phase("distill", step=name, batch=DISTILL_BATCH, cfg_scale=DISTILL_CFG_SCALE,
+                  grid=f"{len(m)}->{len(m) // 2}", ms_per_step=json.dumps([round(v, 4) for v in times[1:]]),
+                  warmup_ms=f"{times[0]:.4f}", first_loss=f"{float(losses[name]):.6e}",
+                  last_loss=f"{float(metrics['loss']):.6e}",
+                  launches=json.dumps({key: v for key, v in counts.items() if v}))
+            if not math.isfinite(float(metrics["loss"])):
+                raise AssertionError(f"distill/{name}: non-finite loss")
+            if not unchanged(teacher):
+                raise AssertionError(f"distill/{name}: the student's steps moved the teacher's tensors")
+        if name == "mega_attn+pallas":
+            check_counts("distill/step", counts, expect)
+            train_step = {key: v // TRAIN_STEPS for key, v in train_counts["mega_attn+pallas"].items() if v}
+            phase("distill", launches_a_step="mega_attn+pallas", distill_step=json.dumps(expect),
+                  train_step=json.dumps(train_step), row3_a_step=expect["attn_branch/fwd"],
+                  row3_train_step=train_step["attn_branch/fwd"], row4_a_step=expect["attn_branch/bwd"])
+        del state, step, teacher
+        torch.cuda.empty_cache()
+    check_paths(torch, "distill-loss", losses, ("mega_attn+pallas",))
+    check_paths(torch, "distill-grads", grads, ("mega_attn+pallas",))
+
+    # 2. the CLI in process
+    teachers, records = [], []
+    make_teacher_fn = distill.make_teacher_fn
+
+    def spy(model, num_classes, cfg_scale):
+        teachers.append(model)
+        return make_teacher_fn(model, num_classes, cfg_scale)
+
+    class Log(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    handler = Log()
+    logging.getLogger("mapdit_tpu_torch").addHandler(handler)
+    distill.make_teacher_fn = spy
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        dirs = distill.main(distill.build_parser().parse_args(
+            ["--teacher", exp, "--data-path", "synthetic:1024", "--results-dir", os.path.join(tmp, "distill"),
+             "--stages", str(DISTILL_STAGES), "--steps-per-stage", str(DISTILL_STEPS_PER_STAGE),
+             "--batch-size", str(DISTILL_BATCH), "--base-steps", str(DISTILL_BASE_STEPS),
+             "--cfg-scale", str(DISTILL_CFG_SCALE), "--log-every", "1"]))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        distill.make_teacher_fn = make_teacher_fn
+        logging.getLogger("mapdit_tpu_torch").removeHandler(handler)
+    logged = [re.search(r"\[stage (\d+)\] step (\d+) distill loss (\S+) \((\S+) steps/s\)", r) for r in records]
+    logged = [(int(g[1]), int(g[2]), float(g[3]), float(g[4])) for g in logged if g]
+    fields = [{key: v for key, v in load_config(d).items() if key.startswith("distill_")} for d in dirs]
+    raw = torch.load(os.path.join(dirs[0], "checkpoints", f"{DISTILL_STEPS_PER_STAGE:07d}.pt"), map_location="cpu",
+                     weights_only=True)["model"]
+    chained = all(torch.equal(teachers[1].state_dict()[key].cpu(), v) for key, v in raw.items())
+    phase("distill", cli="stages", seconds=f"{seconds:.3f}", stage_dirs=json.dumps([os.path.basename(d) for d in dirs]),
+          fields=json.dumps(fields), losses=json.dumps([row[2] for row in logged]),
+          steps_per_s=json.dumps([row[3] for row in logged]), stage1_teacher_unchanged=unchanged(teachers[0]),
+          stage2_teacher_is_stage1_student=chained, launches=json.dumps({key: v for key, v in counts.items() if v}))
+    want_fields = [(1, 4), (2, 2)]
+    if ([(f["distill_rounds"], f["distill_num_steps"]) for f in fields] != want_fields
+            or any(f["distill_cfg_scale"] != DISTILL_CFG_SCALE or f["distill_base_steps"] != DISTILL_BASE_STEPS
+                   for f in fields)):
+        raise AssertionError(f"distill CLI: stage fields {fields}")
+    if len(logged) != DISTILL_STAGES * DISTILL_STEPS_PER_STAGE or not all(math.isfinite(r[2]) for r in logged):
+        raise AssertionError(f"distill CLI: logged steps {logged}")
+    if not (unchanged(teachers[0]) and chained):
+        raise AssertionError("distill CLI: a stage's teacher is not the weights it should hold")
+    check_counts("distill/cli", counts, {key: DISTILL_STAGES * DISTILL_STEPS_PER_STAGE * v for key, v in expect.items()})
+    del teachers
+    torch.cuda.empty_cache()
+
+    # 3. the 2-step student sampled at the requested ddpm 250 and CFG 4.0
+    student = dirs[-1]
+    student_args = load_config(student)
+    d_student = dd.student_diffusion_from_config(student_args, device=dev)
+    calls = []
+    build = sample.build_sample_fn
+
+    def spy_build(c, sd, diffusion, **kw):
+        fn = build(c, sd, diffusion, **kw)
+        call = dict(cfg=c, sd=sd, kw=kw, steps=diffusion.num_timesteps)
+        calls.append(call)
+
+        def run(z, y, g):
+            call.update(z=z.clone(), y=y.clone())
+            call["out"] = fn(z, y, g)
+            return call["out"]
+
+        return run
+
+    out = io.StringIO()
+    sample.build_sample_fn = spy_build
+    try:
+        with contextlib.redirect_stdout(out):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            sample.main(sample.build_parser().parse_args(
+                ["--result-dir", student, "--use-vae", "false", "--block-kernel", "auto", "--sampler", "ddpm",
+                 "--num-sampling-steps", str(STEPS), "--class-label", str(min(88, cfg.num_classes - 1)),
+                 "--output-file", os.path.join(student, "sample.png")]))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = launch_counts()
+    finally:
+        sample.build_sample_fn = build
+    printed = out.getvalue()
+    print(printed, end="")
+    (call,) = calls
+    rows = call["z"].shape[0]
+    outs = {"auto": call["out"]}
+    for path, c in (("f32", call["cfg"].replace(compute_dtype="float32", block_kernel="off")),
+                    ("off", call["cfg"].replace(block_kernel="off"))):
+        outs[path] = build_sample_fn(c, call["sd"], d_student, sampler="ddim", device=dev)(call["z"], call["y"], None)
+    finite = bool(torch.isfinite(outs["auto"]).all())
+    phase("distill", cli="sample", requested=f"ddpm-{STEPS}-cfg4.0", sampler=call["kw"]["sampler"],
+          steps=call["steps"], cfg_scale=call["kw"]["cfg_scale"], rows_a_call=rows, seconds=f"{seconds:.3f}",
+          finite=finite, max_abs_latent=f"{float(outs['auto'].abs().max()):.3e}",
+          launches=json.dumps({key: v for key, v in counts.items() if v}))
+    if "forcing --sampler ddim at its 2-step grid" not in printed or "forcing --cfg-scale 1" not in printed:
+        raise AssertionError(f"distill: sample printed {printed!r}")
+    if (call["kw"]["sampler"], call["steps"], call["kw"]["cfg_scale"], rows) != ("ddim", 2, None, 4) or not finite:
+        raise AssertionError(f"distill: the student sampled as {call['kw']}, {call['steps']} steps, {rows} rows, "
+                             f"finite {finite}")
+    check_counts("distill/sample", counts, {"fused_dit_stack": 2, "dit_stack": 2})
+    check_paths(torch, "distill-sample", outs, ("auto",))
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    npz = sample_fid.main(sample_fid.build_parser().parse_args(
+        ["--result-dir", student, "--use-vae", "false", "--block-kernel", "auto", "--num-classes",
+         str(cfg.num_classes), "--num-samples", str(DISTILL_FID_SAMPLES), "--batch-size", str(DISTILL_FID_BATCH)]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    with np.load(npz) as f:
+        arr = f["arr_0"]
+    batches = DISTILL_FID_SAMPLES // DISTILL_FID_BATCH
+    phase("distill", cli="sample_fid", samples=DISTILL_FID_SAMPLES, batch=DISTILL_FID_BATCH, seconds=f"{seconds:.3f}",
+          images_per_s=f"{DISTILL_FID_SAMPLES / seconds:.3f}", arr_0=f"{arr.dtype}{tuple(arr.shape)}",
+          launches=json.dumps({key: v for key, v in counts.items() if v}))
+    check_counts("distill/sample_fid", counts, {"fused_dit_stack": 2 * batches, "dit_stack": 2 * batches})
+    if arr.shape[0] != DISTILL_FID_SAMPLES:
+        raise AssertionError(f"distill: sample_fid wrote {arr.shape}")
+
+    # 4. the student served; its statistics set as phase 8c sets them
+    exp_s = student.rstrip("/") + "-serve"
+    os.makedirs(exp_s)
+    shutil.copytree(os.path.join(student, "ema"), os.path.join(exp_s, "ema"))
+    shutil.copy(os.path.join(student, "constants.pt"), exp_s)
+    c_, side = student_args["in_channels"], student_args["input_size"]
+    student_args.update(stats_mean=[0.0] * c_, stats_std=[2.0**-SERVE_STATS_EXP] * c_)
+    save_config(exp_s, student_args)
+    server, service = serve.build_server(serve.build_parser().parse_args(
+        ["--port", "0", "--seed", str(SERVE_SEED), "--block-kernel", "auto", "--result-dir", exp_s,
+         "--buckets", "1,4"]))
+    server.RequestHandlerClass.log_message = lambda self, fmt, *args: None
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    labels = [3, 141, 592]
+    try:
+        with urllib.request.urlopen(base + "/info", timeout=60) as resp:
+            info = json.loads(resp.read())
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        req = urllib.request.Request(base + "/v1/sample", data=json.dumps(
+            {"class_labels": labels, "seed": 401, "format": "npz"}).encode())
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            body = resp.read()
+        counts = launch_counts()
+        counter = service._request_counter
+        got = service.sample(labels, 20, "dpm++", 4.0, seed=401)  # the default protocol, in process: floats
+        # the host preamble's z (3 rows and a zero pad row in bucket 4) and
+        # chain generator through build_sample_fn on the student diffusion
+        fn = build_sample_fn(sample.run_config(student_args, "auto"), sample.load_variables(exp_s, student_args),
+                             d_student, sampler="ddim", batch_hint=4, device=dev)
+        z = torch.cat([serve.draw(401, (3, c_, side, side), dev), torch.zeros(1, c_, side, side, device=dev)])
+        y = torch.tensor(labels + [0], device=dev)
+
+        def reference(counter_):
+            want = fn(z, y, serve.generator(serve.chain_seed(SERVE_SEED, counter_), dev))[:3]
+            return sample.decode_latents(want.float().cpu().numpy(), student_args, False)
+
+        with np.load(io.BytesIO(body)) as f:
+            same_http = bool(np.array_equal(f["arr_0"], to_uint8(reference(counter))))
+        same = bool(np.array_equal(got, reference(service._request_counter)))
+        programs = sorted(key[:4] for key in service._fns)
+        finite = bool(np.isfinite(got).all() and np.abs(got).max() < 1)
+        phase("distill", serve="default-protocol", programs=json.dumps(programs), distilled=json.dumps(info["distilled"]),
+              npz_equals_build_sample_fn=same_http, floats_equal_build_sample_fn=same, finite_unclipped=finite,
+              max_abs_served=f"{float(np.nanmax(np.abs(got))):.4e}",
+              launches=json.dumps({key: v for key, v in counts.items() if v}))
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+    check_counts("distill/serve", counts, {"fused_dit_stack": 2, "dit_stack": 2})
+    if info["distilled"] != {"steps": 2, "rounds": 2, "baked_cfg_scale": DISTILL_CFG_SCALE}:
+        raise AssertionError(f"distill: /info distilled {info['distilled']}")
+    if any(key[:3] != ("ddim", 2, 1.0) for key in programs) or not (same_http and same and finite):
+        raise AssertionError(f"distill: served programs {programs}, same bits {same_http} / {same}, finite {finite}")
+
+
 def tree_mismatch(torch, a, b, path=""):
     """The path of the first leaf where two trees of tensors and plain
     values differ (tensors bit for bit), or None."""
@@ -3002,7 +3318,8 @@ def main() -> int:
         family_launches.update(family_phase(torch, dev, tag, flags, kernels))
     elapsed("7")
 
-    # 8. the training entry point, 8b. the sampling entry points on its run A
+    # 8. the training entry point, 8b. the sampling entry points on its run A,
+    # 8c. the server on it, 8d. its progressive distillation
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="mapdit_smoke_") as tmp:
         cli_launches, exp_a = train_cli_phase(torch, dev, tmp)
@@ -3012,6 +3329,9 @@ def main() -> int:
         elapsed("8b")
         serve_phase(torch, dev, exp_a)
         elapsed("8c")
+        torch.cuda.empty_cache()
+        distill_phase(torch, dev, exp_a, tmp, train_launches)
+        elapsed("8d")
 
     # 9. DiT-XL/2 on one card, 10. the tensor-parallel islands on two ranks
     torch.cuda.empty_cache()

@@ -22,8 +22,13 @@ from the same seed.
 The run is on one CUDA device unless ``--device`` says otherwise.
 ``--block-kernel`` overrides the training config's block kernel (the
 sampling CLIs pass a batch hint, so ``auto`` runs the whole-stack kernel on
-the card). A distilled student's config (``distill_rounds``) raises, naming
-the ROADMAP item A.6.
+the card). A distilled student (``mapdit_tpu_torch.distill``; its config
+holds ``distill_rounds``) samples on its own nested grid only: the chain is
+pinned to DDIM at its step count, ``--cfg-scale`` to 1 where guidance was
+baked, and a chain at cfg 1 runs the n conditional rows alone (no [z; z]
+doubling; the JAX script doubles there and combines at scale 1).
+``--cache-interval``, ``--cfg-interval`` and ``--save-trajectory`` are
+refused for it.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import numpy as np
 import torch
 
 from mapdit_tpu_torch.diffusion import create_diffusion, respacing_string
+from mapdit_tpu_torch.diffusion.distill import student_diffusion_from_config
 from mapdit_tpu_torch.models.config import BLOCK_KERNELS
 from mapdit_tpu_torch.runtime import SAMPLERS, build_cached_sample_fn, build_model_fn, build_sample_fn
 from mapdit_tpu_torch.training.checkpoint import latest_checkpoint
@@ -151,19 +157,32 @@ def vae_decoder(args, device):
 
 
 def check_experiment(result_dir: str) -> dict:
-    """The run's config.yaml; raises where the directory holds none or the
-    run is a distilled student."""
+    """The run's config.yaml; raises where the directory holds none."""
     cfg_path = os.path.join(result_dir, "config.yaml")
     if not os.path.exists(cfg_path):
         raise SystemExit(
             f"error: {cfg_path} not found — --result-dir must point at an experiment directory created by train.py"
         )
-    train_args = load_config(result_dir)
-    if train_args.get("distill_rounds"):
-        raise NotImplementedError(
-            "sampling a distilled student (its own DDIM grid, guidance baked in) is the ROADMAP item A.6"
-        )
-    return train_args
+    return load_config(result_dir)
+
+
+def pin_student_protocol(args, train_args: dict, device):
+    """A distilled student's diffusion, its own nested DDIM grid, with the
+    protocol pinned in ``args`` as the JAX script pins it: ``--sampler
+    ddim``, and ``--cfg-scale 1`` where guidance was baked (applying it
+    again would compound it); the accelerator flags are refused."""
+    diffusion = student_diffusion_from_config(train_args, device=device)
+    steps = diffusion.num_timesteps
+    if args.sampler != "ddim" or args.num_sampling_steps != steps:
+        print(f"distilled student: forcing --sampler ddim at its {steps}-step grid "
+              f"(requested {args.sampler}/{args.num_sampling_steps})")
+        args.sampler = "ddim"
+    if train_args.get("distill_cfg_scale", 1.0) > 1.0 and args.cfg_scale != 1.0:
+        print(f"distilled student: guidance baked at scale {train_args['distill_cfg_scale']}; forcing --cfg-scale 1")
+        args.cfg_scale = 1.0
+    if args.cache_interval > 1 or args.cfg_interval is not None or args.save_trajectory:
+        raise ValueError("--cache-interval/--cfg-interval/--save-trajectory do not apply to distilled students")
+    return diffusion
 
 
 def run_config(train_args: dict, block_kernel: Optional[str]):
@@ -181,6 +200,13 @@ def main(args) -> str:
     device = resolve_device(args.device)
     train_args = check_experiment(args.result_dir)
     cfg = run_config(train_args, args.block_kernel)
+    steps = args.num_sampling_steps
+    if train_args.get("distill_rounds"):
+        diffusion = pin_student_protocol(args, train_args, device)
+    else:
+        diffusion = create_diffusion(respacing_string(steps, args.sampler, args.time_schedule), device=device)
+    # a student at cfg 1 samples its n conditional rows alone
+    cfg_scale = None if train_args.get("distill_rounds") and args.cfg_scale == 1.0 else args.cfg_scale
     if args.save_trajectory and (args.sampler != "ddpm" or args.cfg_interval is not None):
         raise ValueError("--save-trajectory renders the full-CFG ddpm chain: it needs --sampler ddpm and no --cfg-interval")
     if args.cache_interval > 1 and args.sampler not in ("ddpm", "dpm++"):
@@ -192,24 +218,24 @@ def main(args) -> str:
     z = torch.randn((n, train_args["in_channels"], train_args["input_size"], train_args["input_size"]),
                     generator=gen, device=device)
     chain_state = gen.get_state()
-    z, y = cfg_batch(z, torch.full((n,), args.class_label, dtype=torch.int64, device=device), cfg.num_classes)
+    y = torch.full((n,), args.class_label, dtype=torch.int64, device=device)
+    if cfg_scale is not None:
+        z, y = cfg_batch(z, y, cfg.num_classes)
 
-    steps = args.num_sampling_steps
-    diffusion = create_diffusion(respacing_string(steps, args.sampler, args.time_schedule), device=device)
     cfg_interval = tuple(args.cfg_interval) if args.cfg_interval else None
     if args.cache_interval > 1:
         sample_fn = build_cached_sample_fn(
-            cfg, sd, diffusion, cfg_scale=args.cfg_scale, cache_interval=args.cache_interval, sampler=args.sampler,
+            cfg, sd, diffusion, cfg_scale=cfg_scale, cache_interval=args.cache_interval, sampler=args.sampler,
             cfg_interval=cfg_interval, cache_mode=args.cache_mode, clip_denoised=args.clip_denoised,
             dynamic_threshold=args.dynamic_threshold, device=device,
         )
     else:
         sample_fn = build_sample_fn(
-            cfg, sd, diffusion, cfg_scale=args.cfg_scale, sampler=args.sampler, eta=args.eta,
+            cfg, sd, diffusion, cfg_scale=cfg_scale, sampler=args.sampler, eta=args.eta,
             cfg_interval=cfg_interval, clip_denoised=args.clip_denoised, batch_hint=n,
             dynamic_threshold=args.dynamic_threshold, device=device,
         )
-    samples = sample_fn(z, y, gen)[:n].cpu().numpy()  # the null-class half dropped
+    samples = sample_fn(z, y, gen)[:n].cpu().numpy()  # the null-class half (if any) dropped
 
     decoder = vae_decoder(args, device)
     samples = decode_latents(samples, train_args, decoder is not None, decoder=decoder, device=device)

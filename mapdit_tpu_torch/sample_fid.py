@@ -10,6 +10,10 @@ CFG runs only when ``--cfg-scale`` is above 1. On one device: every batch's
 latents, labels and step noise come from one ``torch.Generator`` seeded
 with ``--seed``, in that order. Progress is printed a batch a line.
 
+A distilled student (``mapdit_tpu_torch.distill``) samples on its own
+nested DDIM grid at cfg 1 (guidance baked, no doubling), as in the JAX
+script; ``--cfg-interval`` is refused for it.
+
 ``--n-model > 1``, ``--kernel-sharding shard_map`` and ``--pit-window > 0``
 are the multi-device layouts and raise, naming the ROADMAP item "Multi-GPU
 layouts, the rest".
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from mapdit_tpu_torch.diffusion import create_diffusion, respacing_string
+from mapdit_tpu_torch.diffusion.distill import student_diffusion_from_config
 from mapdit_tpu_torch.runtime import build_sample_fn
 from mapdit_tpu_torch.sample import (
     _bool, add_common_flags, cfg_batch, check_experiment, decode_latents, load_variables, run_config, vae_decoder,
@@ -49,8 +54,16 @@ def main(args) -> str:
     train_args = check_experiment(args.result_dir)
     cfg = run_config(train_args, args.block_kernel)
     sd = load_variables(args.result_dir, train_args, args.ckpt, args.ema_std)
-    diffusion = create_diffusion(
-        respacing_string(args.num_sampling_steps, args.sampler, args.time_schedule), device=device)
+    if train_args.get("distill_rounds"):
+        diffusion = student_diffusion_from_config(train_args, device=device)
+        if args.sampler != "ddim" or args.cfg_scale > 1.0:
+            print(f"distilled student: forcing ddim at its {diffusion.num_timesteps}-step grid, cfg 1 (guidance baked)")
+        args.sampler, args.cfg_scale = "ddim", 1.0
+        if args.cfg_interval is not None:
+            raise ValueError("--cfg-interval does not apply to distilled students")
+    else:
+        diffusion = create_diffusion(
+            respacing_string(args.num_sampling_steps, args.sampler, args.time_schedule), device=device)
     use_cfg = args.cfg_scale > 1.0
     n = args.batch_size
     sample_fn = build_sample_fn(

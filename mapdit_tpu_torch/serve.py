@@ -65,8 +65,12 @@ copy to the host (a synchronisation).
 Not ported: the persistent compile cache and the relay guard of the JAX
 ``main`` (XLA's). One process is one device: ``--n-model > 1``, and
 ``--shard true`` under a ``torch.distributed`` world of more than one rank,
-raise naming the ROADMAP item "Multi-GPU layouts, the rest". A distilled
-student's experiment raises naming A.6, as the sampling CLIs do.
+raise naming the ROADMAP item "Multi-GPU layouts, the rest".
+
+A distilled student's experiment (``mapdit_tpu_torch.distill``) is served
+on its one valid chain, as in JAX: every request is normalised onto DDIM at
+the student's own grid and cfg 1 (guidance baked, no doubling), and
+``/info`` reports the ``distilled`` block.
 """
 
 from __future__ import annotations
@@ -83,6 +87,7 @@ import numpy as np
 import torch
 
 from mapdit_tpu_torch.diffusion import create_diffusion, respacing_string
+from mapdit_tpu_torch.diffusion.distill import student_diffusion_from_config
 from mapdit_tpu_torch.models.config import BLOCK_KERNELS
 from mapdit_tpu_torch.runtime import SAMPLERS, build_cached_sample_fn, build_sample_fn, prepare_weights
 from mapdit_tpu_torch.sample import check_experiment, decode_latents, load_variables, run_config
@@ -220,12 +225,13 @@ class SamplerService:
             dev = torch.device("cuda", torch.cuda.current_device())
         self.device = dev
         self.result_dir = result_dir
-        self.train_args = check_experiment(result_dir)  # a distilled student raises naming A.6
+        self.train_args = check_experiment(result_dir)
         self.cfg = run_config(self.train_args, block_kernel)
-        # a distilled student raised above (A.6); sample() keeps the JAX
-        # server's normalisation onto its grid for when it is served
-        self._distilled = False
-        self._student_steps = None
+        # a distilled student: exactly ONE valid chain, its own nested DDIM
+        # grid with guidance baked; requests are normalised onto it
+        # (sampler / steps / cfg_scale in the body are advisory for it)
+        self._distilled = bool(self.train_args.get("distill_rounds"))
+        self._student_steps = int(self.train_args["distill_num_steps"]) if self._distilled else None
         variables = load_variables(result_dir, self.train_args, ckpt, ema_std)
         # the folded weights (and the bf16 stack), once, shared by every program
         self._prepared = prepare_weights(self.cfg, variables, batch_hint=max(buckets), device=dev)
@@ -309,7 +315,10 @@ class SamplerService:
                 "steps, cfg_scale, schedule, cache_interval, cfg_interval, cache_mode) protocol or restart with "
                 "--max-programs"
             )
-        diffusion = create_diffusion(respacing_string(steps, sampler, schedule), device=self.device)
+        if self._distilled:
+            diffusion = student_diffusion_from_config(self.train_args, device=self.device)
+        else:
+            diffusion = create_diffusion(respacing_string(steps, sampler, schedule), device=self.device)
         guidance = cfg_scale if cfg_scale > 1.0 else None
         if cache_interval > 1:
             # Delta-DiT block-span caching (lossy), block by block on the shared model
@@ -640,7 +649,13 @@ class SamplerService:
             # reproduces its output only for identical batch compositions
             # (the X-Seed-Deterministic response header per request)
             "seed_deterministic_samplers": ["dpm++", "unipc", "ddim"],
-            "distilled": None,
+            # a distilled student's protocol is pinned server-side: every
+            # request runs its own few-step DDIM grid
+            "distilled": {
+                "steps": self._student_steps,
+                "rounds": int(self.train_args["distill_rounds"]),
+                "baked_cfg_scale": float(self.train_args.get("distill_cfg_scale", 1.0)),
+            } if self._distilled else None,
         }
 
 

@@ -140,6 +140,7 @@ def make_train_step(
     timestep_sampler: str = "uniform",
     grad_accum: int = 1,
     model_train: bool = True,
+    losses_fn: Optional[Callable] = None,
 ):
     """``train_step(state, batch, draws=None) -> metrics``, updating
     ``state`` in place.
@@ -150,13 +151,19 @@ def make_train_step(
     ``draws`` may hold "posterior_eps", "t", "noise" and "drop" (1 where a
     label is dropped) to use instead of the generator's draws.
     ``grad_accum`` must divide the batch. ``model_train=False`` runs the
-    model without label dropout. Metrics are 0-d device tensors: loss, mse,
-    vb, grad_norm (the global L2 norm of the averaged gradients, before any
-    clipping)."""
+    model without label dropout. ``losses_fn`` replaces
+    ``diffusion.training_losses``: any callable of its signature
+    ``(model_fn, x_start, t, model_kwargs, noise) -> {"loss": per sample,
+    ...}`` (progressive distillation's, ``diffusion/distill.py``);
+    ``diffusion`` then only sets ``num_timesteps`` for the t draw. Metrics
+    are 0-d device tensors: loss, mse (the loss where ``losses_fn`` gives
+    none), vb (0 where it gives none), grad_norm (the global L2 norm of the
+    averaged gradients, before any clipping)."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be at least 1, got {grad_accum}")
     resampler = _resampler(timestep_sampler, diffusion.num_timesteps)
     beta_fns = {ema_key(s): ema_lib.make_beta_fn(s) for s in ema_stds}
+    losses_fn = losses_fn or diffusion.training_losses
     stats = None
 
     def train_step(state: TrainState, batch: Dict, draws: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
@@ -207,7 +214,7 @@ def make_train_step(
             def model_fn(xt, tt, y):
                 return model(xt, tt, y, force_drop_ids=drop_i, train=model_train, generator=gen)
 
-            terms = diffusion.training_losses(model_fn, x[rows], t[rows], model_kwargs={"y": y[rows]}, noise=noise[rows])
+            terms = losses_fn(model_fn, x[rows], t[rows], model_kwargs={"y": y[rows]}, noise=noise[rows])
             losses = terms["loss"] if t_weights is None else terms["loss"] * t_weights[rows]
             loss = losses.mean()
             loss.backward()  # sums into .grad across the micro-batches

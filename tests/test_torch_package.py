@@ -39,7 +39,8 @@ def test_import_loads_no_jax():
                 "training.native_loader", "training.device_prefetch", "training.telemetry",
                 "diffusion.timestep_sampler", "utils.experiment", "utils.logging", "parallel", "parallel.mesh",
                 "ops.cuda.dit_block_tp", "diffusion.dpm_solver", "diffusion.unipc", "models.vae", "utils.safetensors",
-                "utils.image", "utils.class_names", "sample", "sample_ema", "sample_fid", "serve"):
+                "utils.image", "utils.class_names", "sample", "sample_ema", "sample_fid", "serve", "diffusion.distill",
+                "distill"):
         assert f"mapdit_tpu_torch.{mod}" in _modules()
     code = (
         "import importlib, sys\n"

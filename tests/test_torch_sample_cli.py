@@ -3,10 +3,12 @@
 port's train CLI wrote (DiT-XS/8, 12 steps, EMA snapshots): every sampler
 flag, the seed rule, the VAE path, the artifacts, the PNG writer against the
 JAX package's PIL grid, decode_latents against the JAX script's, the weight
-loading paths, and the flags deferred to later ROADMAP items."""
+loading paths, and the flags deferred to later ROADMAP items. A distilled
+student's sampling is tests/test_torch_distill.py's."""
 
 import importlib.util
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -22,23 +24,36 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 torch.set_num_threads(2)  # as tests/test_torch_train_cli.py: workers share the cores
 
 
+@pytest.fixture(autouse=True)
+def _drop_tmp_path(tmp_path):
+    """Each test's files go when it ends (a failing test's too): the tier-1
+    run's tests write GBs of checkpoints and weights, and pytest keeps the
+    last three runs' directories, so they filled the disk."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 @pytest.fixture(scope="module")
 def exp(tmp_path_factory):
     """A 12-step DiT-XS/8 run of the port's train CLI: checkpoint 12, EMA
     snapshots at 4, 8 and 12."""
+    results = tmp_path_factory.mktemp("results")
     flags = ["--device", "cpu", "--data-path", "synthetic:64", "--model", "DiT-XS/8", "--num-classes", "10",
              "--batch-size", "8", "--num-lin-warmup", "2", "--start-decay", "8", "--num-steps", "12",
              "--log-every", "6", "--ckpt-every", "12", "--ema-snapshot-every", "4",
-             "--results-dir", str(tmp_path_factory.mktemp("results"))]
-    return train.main(train.build_parser().parse_args(flags))
+             "--results-dir", str(results)]
+    yield train.main(train.build_parser().parse_args(flags))
+    shutil.rmtree(results, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")
 def vae_path(tmp_path_factory):
     """A random-weight VAE of the port's init, through the port's writer."""
-    path = str(tmp_path_factory.mktemp("vae") / "vae.safetensors")
+    vae_dir = tmp_path_factory.mktemp("vae")
+    path = str(vae_dir / "vae.safetensors")
     save_file({k: v.numpy() for k, v in init_vae(0).state_dict().items()}, path)
-    return path
+    yield path
+    shutil.rmtree(vae_dir, ignore_errors=True)
 
 
 def jax_script(name):
@@ -190,8 +205,8 @@ def test_load_variables(exp, tmp_path):
 
 
 def test_deferred_and_refused_flags(exp, tmp_path, monkeypatch):
-    """The multi-device layouts name 'Multi-GPU layouts, the rest', a
-    distilled student names A.6, and the JAX scripts' refusals hold."""
+    """The multi-device layouts name 'Multi-GPU layouts, the rest', and the
+    JAX scripts' refusals hold (a distilled student's: tests/test_torch_distill.py)."""
     for flags in (["--n-model", "2"], ["--kernel-sharding", "shard_map"], ["--pit-window", "4"]):
         with pytest.raises(NotImplementedError, match="Multi-GPU layouts, the rest"):
             run(sample_fid, exp, tmp_path, "--num-samples", "2", *flags)
@@ -203,12 +218,6 @@ def test_deferred_and_refused_flags(exp, tmp_path, monkeypatch):
         sample.build_parser().parse_args(["--result-dir", exp, "--dynamic-threshold", "1.5"])
     with pytest.raises(SystemExit, match="config.yaml"):
         run(sample, str(tmp_path), tmp_path)
-    distilled = tmp_path / "distilled"
-    distilled.mkdir()
-    (distilled / "config.yaml").write_text(open(os.path.join(exp, "config.yaml")).read() + "distill_rounds: 2\n")
-    for module in (sample, sample_ema, sample_fid):
-        with pytest.raises(NotImplementedError, match="A.6"):
-            run(module, str(distilled), tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         sample.main(sample.build_parser().parse_args(["--result-dir", exp]))

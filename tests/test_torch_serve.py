@@ -15,10 +15,12 @@ untrained model's chains reach latents of a few 1e3, which denormalise then to
 below 1 exactly (a power of two), so the served values, clipped to [-1, 1]
 like every image, carry the chains' bits."""
 
+import contextlib
 import importlib.util
 import io
 import json
 import os
+import shutil
 import signal
 import threading
 import time
@@ -55,21 +57,31 @@ def jax_script(name):
 jax_serve = jax_script("serve")
 
 
+@pytest.fixture(autouse=True)
+def _drop_tmp_path(tmp_path):
+    """Each test's files go when it ends (a failing test's too): the tier-1
+    run's tests write GBs of checkpoints and weights, and pytest keeps the
+    last three runs' directories, so they filled the disk."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 @pytest.fixture(scope="module")
 def exp(tmp_path_factory):
     """A 12-step DiT-XS/8 run of the port's train CLI (10 classes, EMA
     snapshots at 4, 8 and 12) with its latent statistics set as the module
     docstring says."""
+    results = tmp_path_factory.mktemp("results")
     flags = ["--device", "cpu", "--data-path", "synthetic:64", "--model", "DiT-XS/8", "--num-classes", "10",
              "--batch-size", "8", "--num-lin-warmup", "2", "--start-decay", "8", "--num-steps", "12",
-             "--log-every", "6", "--ckpt-every", "12", "--ema-snapshot-every", "4",
-             "--results-dir", str(tmp_path_factory.mktemp("results"))]
+             "--log-every", "6", "--ckpt-every", "12", "--ema-snapshot-every", "4", "--results-dir", str(results)]
     exp_dir = train.main(train.build_parser().parse_args(flags))
     args = load_config(exp_dir)
     args["stats_mean"] = [0.0] * args["in_channels"]
     args["stats_std"] = [STATS_STD] * args["in_channels"]
     save_config(exp_dir, args)
-    return exp_dir
+    yield exp_dir
+    shutil.rmtree(results, ignore_errors=True)
 
 
 def start_http(handler):
@@ -114,6 +126,40 @@ def npz(body):
 
 def png(body):
     return np.asarray(Image.open(io.BytesIO(body)))
+
+
+# the time limit of every wait in the tests that hold the dispatcher
+HOLD_LIMIT_S = 60.0
+
+
+def wait_until(predicate, what, limit=HOLD_LIMIT_S):
+    """Poll ``predicate`` (the service's own counters) until it holds."""
+    deadline = time.monotonic() + limit
+    while not predicate():
+        assert time.monotonic() < deadline, f"not within {limit:g} s: {what}"
+        time.sleep(0.01)
+
+
+@contextlib.contextmanager
+def held_dispatcher(service, monkeypatch):
+    """Hold the service's dispatcher in its coalescing window until the
+    event this yields is set: the window's sleep (``serve``'s ``time.sleep``)
+    waits on the event instead of a clock, so a test orders admission and
+    dispatch without racing the dispatcher. Released on exit in any case."""
+    release = threading.Event()
+
+    def sleep(seconds):
+        if not release.wait(timeout=HOLD_LIMIT_S):
+            raise TimeoutError(f"the dispatcher was held past {HOLD_LIMIT_S:g} s")
+
+    monkeypatch.setattr(serve, "time", types.SimpleNamespace(sleep=sleep, time=time.time,
+                                                             perf_counter=time.perf_counter))
+    service.coalesce_ms = 1.0  # the dispatcher enters the window on its next job
+    try:
+        yield release
+    finally:
+        release.set()
+        service.coalesce_ms = 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -373,30 +419,28 @@ def test_http_formats_and_seed_determinism(served):
     assert png(body).shape == (2 * 18 + 2, 2 * 18 + 2, 4)
 
 
-def test_coalescing_is_invariant_within_a_bucket(served):
+def test_coalescing_is_invariant_within_a_bucket(served, monkeypatch):
     """Two concurrent two-sample requests run as one batch of bucket 4, and
     each gets the bits it gets alone (also bucket 4); different seeds give
-    different rows."""
+    different rows. The dispatcher is held until both are queued."""
     service, base = served
     proto = {"steps": 4, "sampler": "dpm++", "cfg_scale": 4.0, "format": "npz"}
     alone = {seed: npz(post(base, {**proto, "class_labels": [5, 6], "seed": seed})[2]) for seed in (11, 12)}
     before = service.info()["coalesced_batches"]
-    results, barrier = {}, threading.Barrier(2)
+    results = {}
 
     def fire(seed):
-        barrier.wait()
-        results[seed] = npz(post(base, {**proto, "class_labels": [5, 6], "seed": seed})[2])
+        results[seed] = npz(post(base, {**proto, "class_labels": [5, 6], "seed": seed}, timeout=HOLD_LIMIT_S)[2])
 
-    service.coalesce_ms = 300.0
-    try:
+    with held_dispatcher(service, monkeypatch) as release:
         threads = [threading.Thread(target=fire, args=(seed,)) for seed in (11, 12)]
         for t in threads:
             t.start()
+        wait_until(lambda: service.info()["pending"] == 2, "both requests queued")
+        release.set()
         for t in threads:
-            t.join(timeout=60)
+            t.join(timeout=HOLD_LIMIT_S)
         assert not any(t.is_alive() for t in threads)
-    finally:
-        service.coalesce_ms = 0.0
     assert service.info()["coalesced_batches"] == before + 1
     for seed in (11, 12):
         np.testing.assert_array_equal(results[seed], alone[seed])
@@ -437,55 +481,62 @@ def test_programs_are_reused(served):
     assert info["request_latency_seconds_count"] >= 4
 
 
-def test_queue_full_503(served):
-    """Past --max-pending a request gets a 503 with Retry-After at once."""
+def test_queue_full_503(served, monkeypatch):
+    """Past --max-pending a request gets a 503 with Retry-After at once: "b"
+    is sent once the service counts "a" as pending, with the dispatcher held
+    so that "a" stays queued."""
     service, base = served
+    proto = {"class_label": 1, "steps": 2, "sampler": "dpm++", "cfg_scale": 1.0}
     codes, rejected = {}, service.info()["rejected"]
 
-    def fire(name, delay):
-        time.sleep(delay)
-        status, headers, _ = post(base, {"class_label": 1, "steps": 2, "sampler": "dpm++", "cfg_scale": 1.0})
+    def fire(name):
+        status, headers, _ = post(base, proto, timeout=HOLD_LIMIT_S)
         codes[name] = (status, headers.get("Retry-After"))
 
-    service.coalesce_ms, service.max_pending = 900.0, 1
+    service.max_pending = 1
     try:
-        threads = [threading.Thread(target=fire, args=args) for args in (("a", 0.0), ("b", 0.3))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=60)
+        with held_dispatcher(service, monkeypatch) as release:
+            first = threading.Thread(target=fire, args=("a",))
+            first.start()
+            wait_until(lambda: service.info()["pending"] == 1, "request a queued")
+            fire("b")
+            release.set()
+            first.join(timeout=HOLD_LIMIT_S)
+            assert not first.is_alive()
     finally:
-        service.coalesce_ms, service.max_pending = 0.0, 64
+        service.max_pending = 64
     assert codes == {"a": (200, None), "b": (503, "5")}
     assert service.info()["rejected"] == rejected + 1 and service.info()["pending"] == 0
 
 
-def test_timeout_504_skips_the_queued_job_and_recovers(served):
+def test_timeout_504_skips_the_queued_job_and_recovers(served, monkeypatch):
     """Jobs whose deadline passes while queued get 504s and are never run;
-    the server then serves the same protocol."""
+    the server then serves the same protocol. The dispatcher is held past
+    both deadlines, then released to drop both."""
     service, base = served
     proto = {"class_label": 1, "steps": 2, "sampler": "dpm++", "cfg_scale": 1.0}
     post(base, proto)  # built
     codes, info0 = {}, service.info()
 
-    def fire(name, delay):
-        time.sleep(delay)
-        codes[name] = post(base, proto)[0]
+    def fire(name):
+        codes[name] = post(base, proto, timeout=HOLD_LIMIT_S)[0]
 
-    service.coalesce_ms, service.request_timeout_s = 1500.0, 0.4
+    service.request_timeout_s = 0.4
     try:
-        threads = [threading.Thread(target=fire, args=args) for args in (("a", 0.0), ("b", 0.1))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=60)
-        assert codes == {"a": 504, "b": 504}
-        time.sleep(1.5)  # the dispatcher wakes, finds both abandoned, runs nothing
+        with held_dispatcher(service, monkeypatch) as release:
+            threads = [threading.Thread(target=fire, args=(name,)) for name in ("a", "b")]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=HOLD_LIMIT_S)
+            assert codes == {"a": 504, "b": 504}
+            release.set()
+            # the dispatcher takes both from the queue, finds them abandoned, runs nothing
+            wait_until(lambda: service.info()["pending"] == 0, "both abandoned jobs dropped")
     finally:
-        service.coalesce_ms, service.request_timeout_s = 0.0, 600.0
+        service.request_timeout_s = 600.0
     info = service.info()
     assert info["timeouts"] == info0["timeouts"] + 2 and info["batches_run"] == info0["batches_run"]
-    assert info["pending"] == 0
     assert post(base, proto)[0] == 200
 
 
@@ -611,14 +662,6 @@ def test_shard_under_a_distributed_world_raises(exp, monkeypatch):
     with pytest.raises(NotImplementedError, match="Multi-GPU layouts, the rest"):
         serve.SamplerService(exp, device="cpu")
     serve.SamplerService(exp, device="cpu", shard=False).close()  # one process a device: served
-
-
-def test_distilled_student_raises(exp, tmp_path):
-    args = load_config(exp)
-    args.update(distill_rounds=2, distill_num_steps=2)
-    save_config(str(tmp_path), args)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        serve.SamplerService(str(tmp_path), device="cpu")
 
 
 def test_device_defaults_to_cuda(exp, monkeypatch):

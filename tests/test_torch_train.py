@@ -6,6 +6,8 @@ draws, the schedule, the EMA math (tests/golden/ema_math.npz) and the
 synthetic dataset. CPU, XS sizes; on CPU tensors the kernel wrappers run
 their plain versions."""
 
+import shutil
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -42,6 +44,15 @@ XS2 = dict(in_channels=4, input_size=16, num_classes=10)
 torch.set_num_threads(2)
 KERNEL_PATHS = [dict(block_kernel="off"), dict(block_kernel="mega_attn", attn_bwd="pallas"),
                 dict(block_kernel="mega_attn", attn_bwd="residual")]
+
+
+@pytest.fixture(autouse=True)
+def _drop_tmp_path(tmp_path):
+    """Each test's files go when it ends (a failing test's too): the tier-1
+    run's tests write GBs of checkpoints and weights, and pytest keeps the
+    last three runs' directories, so they filled the disk."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _ids(paths):

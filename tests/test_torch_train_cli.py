@@ -8,6 +8,7 @@ in process except for the signal test."""
 import json
 import os
 import re
+import shutil
 import signal
 import subprocess
 import sys
@@ -53,11 +54,22 @@ def assert_same_state(a, b):
             assert torch.equal(sa[key], sb[key]), key
 
 
+@pytest.fixture(autouse=True)
+def _drop_tmp_path(tmp_path):
+    """Each test's files go when it ends (a failing test's too): the tier-1
+    run's tests write GBs of checkpoints and weights, and pytest keeps the
+    last three runs' directories, so they filled the disk."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 @pytest.fixture(scope="module")
 def trained_run(tmp_path_factory):
     """12 steps, a checkpoint at 12, EMA snapshots at 4, 8 and 12."""
-    return run(tmp_path_factory.mktemp("results"), "--num-steps", "12", "--log-every", "4", "--ckpt-every", "12",
-               "--ema-snapshot-every", "4", "--metrics-jsonl", "auto")
+    results = tmp_path_factory.mktemp("results")
+    yield run(results, "--num-steps", "12", "--log-every", "4", "--ckpt-every", "12", "--ema-snapshot-every", "4",
+              "--metrics-jsonl", "auto")
+    shutil.rmtree(results, ignore_errors=True)
 
 
 def test_artifact_layout(trained_run):

@@ -4,6 +4,7 @@ mapping, and the port's safetensors reader and writer against the
 safetensors package."""
 
 import os
+import shutil
 import sys
 
 import jax.numpy as jnp
@@ -24,6 +25,15 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 LEGACY = {"to_q": "query", "to_k": "key", "to_v": "value", "to_out.0": "proj_attn"}
 
 
+@pytest.fixture(autouse=True)
+def _drop_tmp_path(tmp_path):
+    """Each test's files go when it ends (a failing test's too): the tier-1
+    run's tests write GBs of checkpoints and weights, and pytest keeps the
+    last three runs' directories, so they filled the disk."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 @pytest.fixture(scope="module")
 def weights(tmp_path_factory):
     """fabricate_state_dict(0) as numpy arrays, the same written as
@@ -34,9 +44,11 @@ def weights(tmp_path_factory):
     from fake_vae import fabricate_state_dict
 
     sd = fabricate_state_dict(0)
-    path = str(tmp_path_factory.mktemp("vae") / "vae.safetensors")
+    vae_dir = tmp_path_factory.mktemp("vae")
+    path = str(vae_dir / "vae.safetensors")
     save_file(sd, path)
-    return sd, path, load_vae_variables(path)
+    yield sd, path, load_vae_variables(path)
+    shutil.rmtree(vae_dir, ignore_errors=True)
 
 
 def test_decode_matches_jax(weights):
