@@ -33,6 +33,22 @@ Phases, one line each; any failure exits non-zero before the final line:
      path and block_kernel="mega_attn" with attn_bwd "pallas" and
      "residual": the first step's loss and gradients against the float32
      plain path, then timed steps with the launch counts read around them;
+ 6b. remat and scan_blocks: DiT-XL/2 (depth 28, width 1152, 16 heads,
+     nothing cut) at batch 256, bf16, block_kernel="mega_attn" with
+     attn_bwd "pallas": a train step with remat off and one with remat on,
+     on the same weights and draws, loss and every gradient bit for bit;
+     per side the allocation peak, ms a step and launches a step over three
+     timed steps after the checked one (exact counts: under remat each
+     block's forward kernels run twice); the remat kernel path held to the
+     float32 plain path by check_paths' rule at XL_CHECK_BATCH rows (the
+     float32 path at 256 rows does not fit beside the others). Then DiT-S/2
+     at batch 256 in the scan_blocks layout on the per-block weights
+     stacked: the step's loss and gradients (unstacked) bit for bit against
+     the per-block layout, wrapper launches (exact) and device launches (the
+     profiler) a step for both; the clipped 10-step chain through auto with
+     a batch hint, one dit_stack launch a block and no whole-stack launch,
+     bit for bit against the per-block layout's per-block chain; an explicit
+     mega_stack under scan_blocks raises;
   7. families: DiT-B/2 (depth 12, width 768, 12 heads, nothing cut) on the
      generic block path, twice: P1, MaP adaln with block_kernel="pallas" and
      attention_impl="pallas" (fused_mlp_branch and fused_attention in every
@@ -94,6 +110,24 @@ Phases, one line each; any failure exits non-zero before the final line:
      8c): a default-protocol request normalised onto ddim 2 at cfg 1, /info's
      distilled block, two dit_stack launches a batch, the served latents
      bit for bit against build_sample_fn on the student diffusion, finite;
+  8e. data and the learning loop: download_data's encode (encode_batches)
+     of 256 synthetic uint8 128 x 128 images at batch 128 through phase
+     8b's random-weight VAE on the card, its first images held to the same
+     module's f32 encode on the CPU (TF32 off 1e-4, then on 1e-2), images/s,
+     the dataset written by save_dataset and read back by LatentDataset;
+     the distribution probe (mapdit_tpu_torch.tools.distribution_probe) at
+     the JAX package's CPU test budget (DiT-XS/4, input 8, 4 classes, 1024
+     examples, 600 steps at batch 64, trained by the train CLI in a
+     subprocess, bf16, mega_attn; 16 samples a class, dpm++ 10 through auto
+     and dit_stack, exact launch counts for the trained and the init chain)
+     at seeds 0, 1 and 2, each seed and its init baseline printed, the
+     means over the seeds held to label_acc >= 0.5, mean_err <= 3.0,
+     std_ratio <= 30 (one 600-step run's mean_err spreads over seeds across
+     that limit, on the float32 plain path as on the kernels: PERF.md);
+     the guidance sweep on run A (CFG 1.5; CFG 4.0
+     with the interval 0.3:3.0; 64 samples, dpm++ 20, random-proj features,
+     each point a sample_fid subprocess) against a cfg-1 reference set,
+     every row finite; run_fid50k at 256 samples;
   9. XL: DiT-XL/2 (depth 28, width 1152, 16 heads, nothing cut) in bf16 on
      folded weights: the first model call (one dit_stack launch a block)
      and a clipped 10-step chain (one a model call) at batch 4 x 2 through
@@ -232,6 +266,28 @@ DISTILL_CFG_SCALE = 1.5
 DISTILL_TIMED_RUNS = 3
 DISTILL_STAGES, DISTILL_STEPS_PER_STAGE = 2, 4
 DISTILL_FID_SAMPLES, DISTILL_FID_BATCH = 64, 32
+# phase 6b: DiT-XL/2 training with remat off and on (batch 256; its float32
+# plain path, which does not fit beside the others at 256 rows on an 80 GB
+# card, is held at XL_CHECK_BATCH rows), timed steps a side, and the S/2
+# step and chain in the scan_blocks layout
+XL_TRAIN_BATCH = 256
+XL_CHECK_BATCH = 64
+REMAT_TIMED_STEPS = 3
+SCAN_PROFILED_STEPS = 2
+# phase 8e: download_data's encode (synthetic uint8 images at the dataset's
+# 128 x 128, batch 128; the CPU holds the first ENCODE_CHECK_IMAGES), the
+# distribution probe at the JAX package's CPU test budget
+# (tests/test_distribution_probe.py) and its limits, the guidance sweep's two
+# points and run_fid50k's sample count
+ENCODE_IMAGES, ENCODE_BATCH, ENCODE_SIDE, ENCODE_CHECK_IMAGES = 256, 128, 128, 8
+PROBE_ARGS = ["--model", "DiT-XS/4", "--input-size", "8", "--classes", "4", "--examples", "1024", "--train-steps",
+              "600", "--batch-size", "64", "--samples-per-class", "16", "--num-sampling-steps", "10",
+              "--compute-dtype", "bfloat16", "--train-args", "--block-kernel mega_attn", "--block-kernel", "auto"]
+PROBE_LIMITS = {"label_acc_trained": (">=", 0.5), "mean_err_trained": ("<=", 3.0), "std_ratio_trained": ("<=", 30.0)}
+PROBE_SEEDS = (0, 1, 2)
+SWEEP_POINTS = (("1.5", "none"), ("4.0", "0.3:3.0"))
+SWEEP_SAMPLES, SWEEP_STEPS = 64, 20
+FID_PROTOCOL_SAMPLES = 256
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate, H100 SXM data sheet
 PALLAS = "mapdit_tpu/ops/pallas/dit_block.py"
@@ -1591,6 +1647,26 @@ def draw_gains(torch, model, seed: int) -> None:
                 gain.copy_(torch.empty(()).uniform_(0.2, 0.8, generator=g_cpu))
 
 
+def train_inputs(torch, dev, cfg, rows: int):
+    """Synthetic VAE-posterior latents (1000 classes, seed SEED): the
+    dataset, one batch of ``rows`` on the card, and one train step's draws
+    (posterior noise, t, q-sample noise, label dropout), so that every path
+    of a phase takes the same step."""
+    from mapdit_tpu_torch.training import SyntheticLatentDataset
+
+    ds = SyntheticLatentDataset(num_examples=max(1024, 2 * rows), num_classes=1000, size=16, seed=SEED)
+    batch = {key: torch.as_tensor(v).to(dev) for key, v in next(ds.batches(rows, seed=SEED)).items()}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    shape = batch["mean"].shape
+    draws = {
+        "posterior_eps": torch.randn(shape, generator=gen, device=dev),
+        "t": torch.randint(0, 1000, (rows,), generator=gen, device=dev),
+        "noise": torch.randn(shape, generator=gen, device=dev),
+        "drop": (torch.rand(rows, generator=gen, device=dev) < cfg.class_dropout_prob).long(),
+    }
+    return ds, batch, draws
+
+
 def train_phase(torch, dev, tag: str, paths: dict, expect: dict, steps: int) -> dict:
     """Train steps at TRAIN_BATCH on synthetic latents for each config of
     ``paths`` ("f32", the float32 plain path, and "off", the bf16 plain
@@ -1601,29 +1677,14 @@ def train_phase(torch, dev, tag: str, paths: dict, expect: dict, steps: int) -> 
     ``expect[path](counts)``. Returns {path: launch counts}."""
     from mapdit_tpu_torch.diffusion import create_diffusion
     from mapdit_tpu_torch.models import init_model
-    from mapdit_tpu_torch.training import (
-        SyntheticLatentDataset,
-        create_optimizer,
-        create_train_state,
-        make_train_step,
-        warmup_flat_invsqrt,
-    )
+    from mapdit_tpu_torch.training import create_optimizer, create_train_state, make_train_step, warmup_flat_invsqrt
 
     cfg = paths["off"]
     init = init_model(cfg, seed=SEED, device="cpu")
     draw_gains(torch, init, SEED)
     sd0 = init.state_dict()
     del init
-    ds = SyntheticLatentDataset(num_examples=max(1024, 2 * TRAIN_BATCH), num_classes=1000, size=16, seed=SEED)
-    batch = {key: torch.as_tensor(v).to(dev) for key, v in next(ds.batches(TRAIN_BATCH, seed=SEED)).items()}
-    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
-    shape = batch["mean"].shape
-    draws = {
-        "posterior_eps": torch.randn(shape, generator=gen, device=dev),
-        "t": torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen, device=dev),
-        "noise": torch.randn(shape, generator=gen, device=dev),
-        "drop": (torch.rand(TRAIN_BATCH, generator=gen, device=dev) < cfg.class_dropout_prob).long(),
-    }
+    ds, batch, draws = train_inputs(torch, dev, cfg, TRAIN_BATCH)
     diffusion = create_diffusion("", device=dev)
     tx = create_optimizer(warmup_flat_invsqrt(1e-2, 100, 1000))
     losses, grads, counts = {}, {}, {}
@@ -1677,17 +1738,9 @@ def s2_train_phase(torch, dev, cfg) -> dict:
         "mega_attn+pallas": cfg.replace(block_kernel="mega_attn", attn_bwd="pallas"),
         "mega_attn+residual": cfg.replace(block_kernel="mega_attn", attn_bwd="residual"),
     }
-    # the dW products stay f32 torch.matmul here: the switch is off by default
-    bwd_kernels = {key: per_step for key in ab.LAUNCHES if key.startswith("attn_bwd/") and key != "attn_bwd/dw"}
     expect = {
         "off": {},
-        # forward and the backward's recompute each launch the qkv product;
-        # the backward's out product is out_gate_residual_bwd's
-        "mega_attn+pallas": {
-            "attn_branch/fwd": per_step, "attn_branch/bwd": per_step, "mp_gemm/qkv": 2 * per_step,
-            "mp_gemm/out": per_step, "mp_gemm/dattn": per_step, "mp_gemm/dh": per_step,
-            "cosine_attention": per_step, "cosine_attention/residual": per_step, **bwd_kernels,
-        },
+        "mega_attn+pallas": mega_attn_expect(ab, cfg.depth, TRAIN_STEPS, remat=False),
         "mega_attn+residual": {"attn_branch/res_fwd": per_step, "mp_gemm/qkv": per_step, "mp_gemm/out": per_step,
                                "cosine_attention/residual": per_step},
     }
@@ -1700,6 +1753,183 @@ def s2_train_phase(torch, dev, cfg) -> dict:
           ok=row4 == ROW4_LAUNCHES)
     if row4 != ROW4_LAUNCHES:
         raise AssertionError(f"the fused attention backward made {row4} launches a call, not {ROW4_LAUNCHES}")
+    return counts
+
+
+def checked_step(torch, dev, cfg, sd0, batch, draws, stats, ema_stds=None):
+    """A train state of ``cfg`` on the weights ``sd0``, its step, and the
+    first step's loss and gradients (by parameter name, on the card) on the
+    injected ``draws``."""
+    from mapdit_tpu_torch.diffusion import create_diffusion
+    from mapdit_tpu_torch.training import EMA_STDS, create_optimizer, create_train_state, make_train_step
+    from mapdit_tpu_torch.training import warmup_flat_invsqrt
+
+    tx = create_optimizer(warmup_flat_invsqrt(1e-2, 100, 1000))
+    emas = EMA_STDS if ema_stds is None else ema_stds
+    state = create_train_state(cfg, tx, seed=SEED, device=dev, state_dict=sd0, ema_stds=emas)
+    step = make_train_step(cfg, create_diffusion("", device=dev), tx, stats_mean=stats["mean"],
+                           stats_std=stats["std"], ema_stds=emas)
+    loss = step(state, batch, draws=draws)["loss"].detach()
+    return state, step, loss, {name: p.grad for name, p in state.model.named_parameters()}
+
+
+def timed_steps(torch, state, step, batch, runs: int) -> dict:
+    """``runs`` steps after the checked one, each timed on the host clock
+    to a synchronise: ms a step, wrapper launches, the allocation peak."""
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        metrics = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return {"ms": ms, "launches": launch_counts(), "peak": torch.cuda.max_memory_allocated(),
+            "loss": float(metrics["loss"])}
+
+
+def mega_attn_expect(ab, depth: int, steps: int, remat: bool) -> dict:
+    """The wrapper launches of ``steps`` train steps on mega_attn + pallas:
+    the forward and the backward's recompute each launch the qkv product,
+    the backward's out product is out_gate_residual_bwd's, and the dW
+    products stay f32 torch.matmul (the switch is off by default); under
+    remat every block's forward runs again in the backward: the forward's
+    kernels twice."""
+    per = depth * steps
+    bwd = {key: per for key in ab.LAUNCHES if key.startswith("attn_bwd/") and key != "attn_bwd/dw"}
+    fwd = 2 if remat else 1
+    return {"attn_branch/fwd": fwd * per, "attn_branch/bwd": per, "mp_gemm/qkv": (fwd + 1) * per,
+            "mp_gemm/out": fwd * per, "mp_gemm/dattn": per, "mp_gemm/dh": per, "cosine_attention": fwd * per,
+            "cosine_attention/residual": per, **bwd}
+
+
+def remat_scan_phase(torch, dev, s2_cfg) -> dict:
+    """Phase 6b: DiT-XL/2 training with remat off and on, then the S/2 train
+    step and chain in the scan_blocks layout (module docstring). Returns
+    {path: launch counts} of the timed steps."""
+    from mapdit_tpu_torch.bench import _profile
+    from mapdit_tpu_torch.diffusion import create_diffusion
+    from mapdit_tpu_torch.models import build_config, init_model
+    from mapdit_tpu_torch.models.dit import stack_block_params, unstack_block_params
+    from mapdit_tpu_torch.ops.cuda import attn_branch as ab
+    from mapdit_tpu_torch.runtime import build_sample_fn
+
+    counts = {}
+    # 1. DiT-XL/2 at batch 256 on mega_attn + pallas, remat off then on, on
+    # the same weights and draws: loss and every gradient bit for bit
+    xl = build_config(XL_MODEL, in_channels=4, input_size=16, num_classes=1000, compute_dtype="bfloat16",
+                      block_kernel="mega_attn", attn_bwd="pallas")
+    sd0 = xl_state_dict(torch, xl.replace(block_kernel="off"), dev)
+    ds, batch, draws = train_inputs(torch, dev, xl, XL_TRAIN_BATCH)
+    sides = {}
+    for remat in (False, True):
+        name = "remat" if remat else "no-remat"
+        cfg = xl.replace(remat=remat)
+        state, step, loss, grads = checked_step(torch, dev, cfg, sd0, batch, draws, ds.stats)
+        sides[name] = (loss.cpu(), {key: g.cpu() for key, g in grads.items()})
+        del grads
+        run = timed_steps(torch, state, step, batch, REMAT_TIMED_STEPS)
+        counts[f"xl/mega_attn+pallas:{name}"] = run["launches"]
+        phase("remat", model=XL_MODEL, depth=xl.depth, width=xl.hidden_size, heads=xl.num_heads,
+              batch=XL_TRAIN_BATCH, path=f"mega_attn+pallas:{name}", first_loss=f"{float(loss):.6f}",
+              ms_per_step=json.dumps([round(v, 4) for v in run["ms"]]), peak_allocated_bytes=run["peak"],
+              peak_allocated_gib=f"{run['peak'] / 2**30:.3f}", last_loss=f"{run['loss']:.6f}",
+              launches_per_step=json.dumps({k: v // REMAT_TIMED_STEPS for k, v in run["launches"].items() if v}))
+        if not math.isfinite(run["loss"]):
+            raise AssertionError(f"remat/{name}: non-finite loss")
+        check_counts(f"remat/{name}", run["launches"], mega_attn_expect(ab, xl.depth, REMAT_TIMED_STEPS, remat))
+        del state, step, run
+        torch.cuda.empty_cache()
+    (loss_off, grads_off), (loss_on, grads_on) = sides["no-remat"], sides["remat"]
+    loss_same, differs = torch.equal(loss_on, loss_off), tree_mismatch(torch, grads_on, grads_off)
+    phase("check", what="remat/xl:same-bits-as-no-remat", loss=loss_same, gradients=differs is None,
+          tensors=len(grads_off), first_differing=differs)
+    if not loss_same or differs is not None:
+        raise AssertionError(f"remat changes the step: loss same {loss_same}, first differing gradient {differs}")
+    del sides, grads_off, grads_on
+
+    # the kernel path under remat against the float32 plain path, by
+    # check_paths' rule, at XL_CHECK_BATCH rows
+    ds, batch, draws = train_inputs(torch, dev, xl, XL_CHECK_BATCH)
+    losses, grads = {}, {}
+    for name, cfg in (("f32", xl.replace(compute_dtype="float32", block_kernel="off")),
+                      ("off", xl.replace(block_kernel="off")), ("mega_attn+pallas:remat", xl.replace(remat=True))):
+        state, step, losses[name], g = checked_step(torch, dev, cfg, sd0, batch, draws, ds.stats, ema_stds=())
+        grads[name] = torch.cat([v.float().reshape(-1) for v in g.values()])
+        del state, step, g
+        torch.cuda.empty_cache()
+    phase("remat", check_batch=XL_CHECK_BATCH, note="the f32 plain path at 256 rows does not fit beside the others")
+    check_paths(torch, "remat-xl-loss", {k: v.reshape(1) for k, v in losses.items()}, ("mega_attn+pallas:remat",))
+    check_paths(torch, "remat-xl-grads", grads, ("mega_attn+pallas:remat",))
+    del sd0, grads, losses, batch, draws
+    torch.cuda.empty_cache()
+
+    # 2. DiT-S/2 at batch 256 in the scan_blocks layout on the per-block
+    # weights stacked: the step bit for bit, launches a step of both
+    cfg = s2_cfg.replace(block_kernel="mega_attn", attn_bwd="pallas")
+    init = init_model(cfg, seed=SEED, device="cpu")
+    draw_gains(torch, init, SEED)
+    sd0 = init.state_dict()
+    del init
+    ds, batch, draws = train_inputs(torch, dev, cfg, TRAIN_BATCH)
+    steps = {}
+    for name, c, weights in (("per-block", cfg, sd0),
+                             ("scan_blocks", cfg.replace(scan_blocks=True), stack_block_params(sd0, cfg.depth))):
+        state, step, loss, g = checked_step(torch, dev, c, weights, batch, draws, ds.stats)
+        steps[name] = (loss, unstack_block_params(g, cfg.depth) if c.scan_blocks else dict(g))
+        run = timed_steps(torch, state, step, batch, REMAT_TIMED_STEPS)
+        with tempfile.TemporaryDirectory(prefix="mapdit_scan_profile_") as out_dir:
+            prof = _profile(out_dir, lambda: step(state, batch), "key_averages.txt", calls=SCAN_PROFILED_STEPS)
+        counts[f"s2/mega_attn+pallas:{name}"] = run["launches"]
+        phase("scan", model=MODEL, layout=name, batch=TRAIN_BATCH, first_loss=f"{float(loss):.6f}",
+              ms_per_step=json.dumps([round(v, 4) for v in run["ms"]]),
+              device_launches_per_step=f"{prof['device_launches_per_step']:.1f}",
+              device_busy_ms_per_step=f"{prof['device_busy_ms_per_step']:.4f}", parameters=len(g),
+              launches_per_step=json.dumps({k: v // REMAT_TIMED_STEPS for k, v in run["launches"].items() if v}))
+        check_counts(f"scan/{name}", run["launches"], mega_attn_expect(ab, cfg.depth, REMAT_TIMED_STEPS, False))
+        del state, step
+    (loss_a, grads_a), (loss_b, grads_b) = steps["per-block"], steps["scan_blocks"]
+    differs = tree_mismatch(torch, grads_b, grads_a)
+    phase("check", what="scan/s2:step-same-bits-as-per-block", loss=torch.equal(loss_a, loss_b),
+          gradients=differs is None, first_differing=differs)
+    if not torch.equal(loss_a, loss_b) or differs is not None:
+        raise AssertionError(f"scan_blocks changes the S/2 step (first differing gradient {differs})")
+    del steps, grads_a, grads_b
+
+    # the clipped 10-step chain through auto with a batch hint: one dit_stack
+    # launch a block (the per-block kernel on the views), never the stack,
+    # bit for bit against the per-block layout's per-block path
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    z = torch.randn(2 * BATCH, 4, 16, 16, generator=gen, device=dev)
+    y = torch.cat([torch.randint(0, 1000, (BATCH,), generator=gen, device=dev), torch.full((BATCH,), 1000, device=dev)])
+    short = create_diffusion("10", device=dev)
+    chains = {}
+    for name, c, weights, hint in (("per-block", s2_cfg, sd0, None),
+                                   ("scan_blocks", s2_cfg.replace(scan_blocks=True), stack_block_params(sd0, cfg.depth),
+                                    BATCH)):
+        fn = build_sample_fn(c.replace(block_kernel="auto"), weights, short, cfg_scale=CFG_SCALE, clip_denoised=True,
+                             batch_hint=hint, device=dev)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        chains[name] = fn(z, y, torch.Generator(device=dev).manual_seed(SEED + 12))
+        torch.cuda.synchronize()
+        launched = launch_counts()
+        phase("scan", chain=name, run_cfg=fn.run_cfg.block_kernel, batch_hint=hint, steps=10,
+              finite=bool(torch.isfinite(chains[name]).all()),
+              launches=json.dumps({k: v for k, v in launched.items() if v}))
+        check_counts(f"scan/chain:{name}", launched, {"fused_dit_block": 10 * cfg.depth, "dit_stack": 10 * cfg.depth})
+    same = torch.equal(chains["scan_blocks"], chains["per-block"])
+    phase("check", what="scan/s2:chain-same-bits-as-per-block", ok=same)
+    if not same:
+        raise AssertionError("the scan_blocks chain differs from the per-block layout's")
+    try:
+        build_sample_fn(s2_cfg.replace(scan_blocks=True, block_kernel="mega_stack"), stack_block_params(sd0, cfg.depth),
+                        short, cfg_scale=CFG_SCALE, batch_hint=BATCH, device=dev)
+    except ValueError as e:
+        phase("check", what="scan/mega_stack", raises="ValueError", message=json.dumps(str(e)))
+    else:
+        raise AssertionError("an explicit mega_stack under scan_blocks did not raise")
     return counts
 
 
@@ -3093,6 +3323,149 @@ def distill_phase(torch, dev, exp: str, tmp: str, train_counts: dict) -> None:
         raise AssertionError(f"distill: served programs {programs}, same bits {same_http} / {same}, finite {finite}")
 
 
+def data_probe_phase(torch, dev, exp: str, tmp: str) -> None:
+    """Phase 8e: download_data's encode on the card, the distribution probe
+    (trained on mega_attn, sampled through dit_stack), the guidance sweep
+    and run_fid50k on run A (module docstring)."""
+    import re
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from mapdit_tpu_torch import sample_fid
+    from mapdit_tpu_torch.download_data import encode_batches, mog_stats
+    from mapdit_tpu_torch.models.vae import load_encoder
+    from mapdit_tpu_torch.tools import distribution_probe, guidance_sweep, run_fid50k
+    from mapdit_tpu_torch.training.data import LatentDataset, save_dataset
+
+    # 1. the encode: synthetic uint8 images through the random-weight VAE of
+    # phase 8b on the card, held to the same module's f32 encode on the CPU
+    vae_path = os.path.join(exp, "vae.safetensors")
+    rng = np.random.default_rng(SEED)
+    images = rng.integers(0, 256, (ENCODE_IMAGES, ENCODE_SIDE, ENCODE_SIDE, 3), dtype=np.uint8)
+    labels = rng.integers(0, 1000, ENCODE_IMAGES)
+    batches = [(images[i:i + ENCODE_BATCH], labels[i:i + ENCODE_BATCH]) for i in range(0, ENCODE_IMAGES, ENCODE_BATCH)]
+    encoder = load_encoder(vae_path, dev)
+    encode_batches(encoder, batches[:1], ENCODE_BATCH, ENCODE_SIDE, SEED, dev)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    means, stds, got_labels = encode_batches(encoder, batches, ENCODE_IMAGES, ENCODE_SIDE, SEED, dev)
+    seconds = time.perf_counter() - t0
+    n = ENCODE_CHECK_IMAGES
+    # the flips of the first images are the stream's first draws whatever the batch
+    want = encode_batches(load_encoder(vae_path, "cpu"), [(images[:n], labels[:n])], n, ENCODE_SIDE, SEED, "cpu")
+    errs = {}
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            got = encode_batches(encoder, [(images[:n], labels[:n])], n, ENCODE_SIDE, SEED, dev)
+        finally:
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        errs[tf32] = max(rel_l2(torch.from_numpy(g), torch.from_numpy(w)) for g, w in zip(got[:2], want[:2]))
+        limit = 1e-2 if tf32 else 1e-4
+        phase("encode", tf32=tf32, images=n, rel_l2_err_vs_cpu=f"{errs[tf32]:.3e}", tol=f"{limit:g}")
+        if not errs[tf32] <= limit:
+            raise AssertionError(f"the VAE encode on the card (TF32 {tf32}) is off the CPU's by {errs[tf32]} relative")
+    out_dir = os.path.join(tmp, "latents")
+    save_dataset(out_dir, means, stds, got_labels, mog_stats(means, stds))
+    ds = LatentDataset(out_dir)
+    same = (np.array_equal(ds.means, means) and np.array_equal(ds.stds, stds) and np.array_equal(ds.labels, labels)
+            and len(ds) == ENCODE_IMAGES and ds.channels == 4 and ds.data_size == ENCODE_SIDE // 8)
+    finite = bool(np.isfinite(means).all() and np.isfinite(stds).all())
+    phase("encode", images=ENCODE_IMAGES, batch=ENCODE_BATCH, side=ENCODE_SIDE, seconds=f"{seconds:.4f}",
+          images_per_s=f"{ENCODE_IMAGES / seconds:.3f}", latents=f"{means.dtype}{means.shape}", finite=finite,
+          read_back=same, stats_std=json.dumps([round(float(v), 6) for v in ds.stats["std"]]))
+    if not (same and finite):
+        raise AssertionError("the encoded dataset is not finite or does not read back")
+    del encoder
+    torch.cuda.empty_cache()
+
+    # 2. the distribution probe at PROBE_SEEDS: each trained by the train CLI
+    # in a subprocess on mega_attn (the three at once), then sampled here
+    # through auto (the whole-stack kernel); the limits hold on the mean
+    # over the seeds (one 600-step run's mean_err spreads 0.60-3.13 over
+    # seeds on the card, PERF.md)
+    def argv(seed):
+        return ["--work-dir", os.path.join(tmp, f"dprobe_s{seed}"), "--device", dev.type, "--seed", str(seed),
+                *PROBE_ARGS]
+
+    def train(seed):
+        args = distribution_probe.build_parser().parse_args(argv(seed))
+        data = os.path.join(args.work_dir, "data")
+        distribution_probe.make_data(data, args.classes, args.examples, args.input_size, seed=seed)
+        return distribution_probe.run_train(args, data, os.path.join(args.work_dir, "results"))
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(PROBE_SEEDS)) as pool:
+        run_dirs = list(pool.map(train, PROBE_SEEDS))
+    train_seconds = time.perf_counter() - t0
+    steps = int(PROBE_ARGS[PROBE_ARGS.index("--num-sampling-steps") + 1])
+    outs = []
+    for seed, run_dir in zip(PROBE_SEEDS, run_dirs):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = distribution_probe.main([*argv(seed), "--skip-train"])
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        # two chains (trained and init), one dit_stack launch a model call
+        check_counts(f"probe/seed{seed}", counts, {"fused_dit_stack": 2 * steps, "dit_stack": 2 * steps})
+        log = open(os.path.join(run_dir, "log.txt")).read()
+        phase("probe", seed=seed, model=out["model"], classes=out["classes"], train_steps=out["train_steps"],
+              batch=out["batch_size"], sampler=out["sampler"], eval_seconds=f"{seconds:.2f}",
+              **{key[: -len("_trained")]: out[key] for key in PROBE_LIMITS},
+              **{f"{key[: -len('_trained')]}_init": out[key.replace("_trained", "_init")] for key in PROBE_LIMITS},
+              conditioning_signal=json.dumps(out["conditioning_signal"]),
+              launches=json.dumps({k: v for k, v in counts.items() if v}),
+              train_steps_per_s=json.dumps([float(v) for v in re.findall(r"train steps/sec: ([0-9.]+)", log)]))
+        outs.append(out)
+    means = {key: float(np.mean([o[key] if o[key] is not None else np.nan for o in outs])) for key in PROBE_LIMITS}
+    ok = {key: (means[key] >= limit if op == ">=" else means[key] <= limit) for key, (op, limit) in PROBE_LIMITS.items()}
+    phase("probe", seeds=json.dumps(PROBE_SEEDS), train="mega_attn+pallas, bf16, the seeds' trainings at once",
+          train_seconds=f"{train_seconds:.2f}", **{f"mean_{key[: -len('_trained')]}": f"{v:.6f}"
+                                                   for key, v in means.items()},
+          limits=json.dumps({key: f"{op}{limit:g}" for key, (op, limit) in PROBE_LIMITS.items()}), ok=all(ok.values()))
+    if not all(ok.values()):
+        raise AssertionError(f"the probe's trained models miss their limits on the mean over seeds: {means}")
+
+    # 3. the guidance sweep on run A: a reference set at cfg 1 (dpm++ 20,
+    # no VAE), then one sweep a point, each point a sample_fid subprocess
+    torch.cuda.empty_cache()
+    ref = sample_fid.main(sample_fid.build_parser().parse_args([
+        "--result-dir", exp, "--use-vae", "false", "--num-samples", str(SWEEP_SAMPLES), "--batch-size",
+        str(SWEEP_SAMPLES), "--num-classes", "1000", "--cfg-scale", "1.0", "--sampler", "dpm++",
+        "--time-schedule", "karras", "--num-sampling-steps", str(SWEEP_STEPS), "--seed", "1", "--block-kernel", "auto",
+        "--device", dev.type, "--output-file", os.path.join(tmp, "sweep_ref.npz")]))
+    rows = []
+    t0 = time.perf_counter()
+    for scale, interval in SWEEP_POINTS:
+        rows += guidance_sweep.main([
+            "--result-dir", exp, "--ref-samples", ref, "--cfg-scales", scale, "--cfg-intervals", interval,
+            "--num-samples", str(SWEEP_SAMPLES), "--batch-size", str(SWEEP_SAMPLES), "--steps", str(SWEEP_STEPS), "--sampler", "dpm++", "--time-schedule", "karras",
+            "--features", "random-proj", "--block-kernel", "auto", "--device", dev.type,
+            "--work-dir", os.path.join(tmp, "sweep"),
+            "--out", os.path.join(tmp, f"sweep_{scale}.jsonl")])
+    seconds = time.perf_counter() - t0
+    for row in rows:
+        finite = all(math.isfinite(row[k]) for k in ("fid", "kid", "kid_std", "precision", "recall"))
+        phase("sweep", cfg_scale=row["cfg_scale"], cfg_interval=json.dumps(row["cfg_interval"]), fid=row["fid"],
+              kid=row["kid"], kid_std=row["kid_std"], precision=row["precision"], recall=row["recall"],
+              samples=SWEEP_SAMPLES, finite=finite)
+        if not finite:
+            raise AssertionError(f"guidance sweep: non-finite row {row}")
+    phase("sweep", points=len(rows), seconds_with_subprocesses=f"{seconds:.2f}", features="random-proj")
+
+    # 4. the FID protocol runner at FID_PROTOCOL_SAMPLES samples
+    report = run_fid50k.main(["--result-dir", exp, "--num-samples", str(FID_PROTOCOL_SAMPLES), "--num-classes", "1000",
+                              "--block-kernel", "auto", "--device", dev.type, "--output-file", "fid_protocol.npz"])
+    phase("fid50k", samples=FID_PROTOCOL_SAMPLES, wall_seconds=f"{report['wall_seconds']:.2f}",
+          peak_rss_mb=f"{report['peak_rss_kb'] / 1024:.0f}", shape=json.dumps(report["shape"]),
+          fid_vs_own_stats=f"{report['fid']:.3e}")
+    # no VAE: the latents as uint8 NHWC (run A's 16 x 16 x 4)
+    if report["shape"] != [FID_PROTOCOL_SAMPLES, 16, 16, 4] or not math.isfinite(report["fid"]):
+        raise AssertionError(f"run_fid50k: samples of shape {report['shape']}, FID {report['fid']}")
+
+
 def tree_mismatch(torch, a, b, path=""):
     """The path of the first leaf where two trees of tensors and plain
     values differ (tensors bit for bit), or None."""
@@ -3311,6 +3684,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches = s2_train_phase(torch, dev, cfg)
     elapsed("6")
+    # 6b. remat at DiT-XL/2, the scan_blocks layout at DiT-S/2
+    train_launches.update(remat_scan_phase(torch, dev, cfg))
+    torch.cuda.empty_cache()
+    elapsed("6b")
 
     # 7. the flag families at DiT-B/2
     family_launches = {}
@@ -3319,7 +3696,8 @@ def main() -> int:
     elapsed("7")
 
     # 8. the training entry point, 8b. the sampling entry points on its run A,
-    # 8c. the server on it, 8d. its progressive distillation
+    # 8c. the server on it, 8d. its progressive distillation, 8e. the data
+    # path, the distribution probe and the tools that read samples
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="mapdit_smoke_") as tmp:
         cli_launches, exp_a = train_cli_phase(torch, dev, tmp)
@@ -3332,6 +3710,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         distill_phase(torch, dev, exp_a, tmp, train_launches)
         elapsed("8d")
+        torch.cuda.empty_cache()
+        data_probe_phase(torch, dev, exp_a, tmp)
+        elapsed("8e")
 
     # 9. DiT-XL/2 on one card, 10. the tensor-parallel islands on two ranks
     torch.cuda.empty_cache()

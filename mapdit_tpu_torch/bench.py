@@ -3,14 +3,16 @@
     python -m mapdit_tpu_torch.bench [--mode sample] [--model DiT-S/2] [--batch 32] [--steps 250]
                                      [--dtype bfloat16] [--block-kernel auto]
     python -m mapdit_tpu_torch.bench --mode train [--batch 32] [--steps 250] [--resident-data]
-                                     [--block-kernel mega_attn] [--attn-bwd pallas]
+                                     [--block-kernel mega_attn] [--attn-bwd pallas] [--remat] [--scan-blocks]
     python -m mapdit_tpu_torch.bench --model DiT-B/2 --block-kernel pallas --attention-impl pallas
     python -m mapdit_tpu_torch.bench --model DiT-B/2 --modulation rotation_scale --attention-impl pallas \
                                      --block-kernel off [--no-use-cosine-attention ...]
     torchrun --nproc-per-node 2 -m mapdit_tpu_torch.bench --model DiT-XL/2 --batch 4 --n-model 2
 
 ``--modulation``, ``--attention-impl`` and one ``--no-use-<flag>`` switch per
-``use_*`` flag of the config select the model family in both modes. Under
+``use_*`` flag of the config select the model family in both modes;
+``--remat`` (train mode: each block recomputed in the backward) and
+``--scan-blocks`` (the depth-stacked parameter layout) the execution. Under
 ``torchrun`` sample mode runs ``build_sample_fn(mesh=)`` on a mesh of every
 rank with ``--n-model`` ranks on its model axis (the tensor-parallel
 islands; ``auto`` resolves to ``mega_tp`` where the widths split); rank 0
@@ -126,7 +128,8 @@ def bench_train(args, cfg, device) -> dict:
         "value": value,
         "unit": f"steps/s ({args.model}, batch {args.batch}" + (", resident-data" if args.resident_data else "")
                 + f", {args.dtype}, block_kernel {args.block_kernel}"
-                + (f", attn_bwd {args.attn_bwd}" if args.block_kernel == "mega_attn" else "") + _family(cfg) + ")",
+                + (f", attn_bwd {args.attn_bwd}" if args.block_kernel == "mega_attn" else "")
+                + (", remat" if cfg.remat else "") + (", scan_blocks" if cfg.scan_blocks else "") + _family(cfg) + ")",
         "mfu_pct": 100.0 * 3 * model_call_flops(cfg, args.batch) * value / H100_BF16_FLOPS,
         "seconds": elapsed,
         "last_loss": loss,
@@ -197,6 +200,10 @@ def main(argv=None) -> int:
                        help=f"turn {name} off (default on)")
     p.add_argument("--attn-bwd", choices=["pallas", "residual", "reference"], default="pallas",
                    help="train mode with --block-kernel mega_attn: the attention half-block's VJP")
+    p.add_argument("--remat", action="store_true",
+                   help="per-block activation rematerialization (XL-scale train memory)")
+    p.add_argument("--scan-blocks", action="store_true",
+                   help="block parameters stacked on a leading depth axis (the JAX --scan-blocks layout)")
     p.add_argument("--resident-data", action="store_true",
                    help="train mode: reuse one device-resident batch (no per-step host upload)")
     p.add_argument("--profile-dir", default=None,
@@ -221,7 +228,8 @@ def main(argv=None) -> int:
         raise SystemExit("--n-model > 1 runs in sample mode under torchrun --nproc-per-node N")
     cfg = build_config(args.model, in_channels=4, input_size=16, num_classes=1000, compute_dtype=args.dtype,
                        block_kernel=args.block_kernel, attn_bwd=args.attn_bwd, modulation=args.modulation,
-                       attention_impl=args.attention_impl, **{name: getattr(args, name) for name in use_flags})
+                       attention_impl=args.attention_impl, remat=args.remat, scan_blocks=args.scan_blocks,
+                       **{name: getattr(args, name) for name in use_flags})
     if args.mode == "train":
         print(json.dumps(bench_train(args, cfg, device)))
         return 0
@@ -266,7 +274,8 @@ def main(argv=None) -> int:
         "metric": "denoise_steps_per_sec_per_gpu",
         "value": value,
         "unit": f"DDPM steps/s ({args.model}, batch {n}x2 CFG, {args.steps} respaced steps, {args.dtype}, "
-                f"block_kernel {sample.run_cfg.block_kernel}{_family(cfg)}"
+                f"block_kernel {sample.run_cfg.block_kernel}" + (", scan_blocks" if cfg.scan_blocks else "")
+                + _family(cfg)
                 + ("" if mesh is None else f", mesh ({mesh.n_data}, {mesh.n_model}) over {cards} card(s)") + ")",
         "mfu_pct": mfu,
         "chain_seconds": times,

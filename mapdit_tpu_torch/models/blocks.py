@@ -96,8 +96,10 @@ def use_fused_mlp(cfg: DiTConfig) -> bool:
 
 def stack_auto_ok(cfg: DiTConfig, batch_hint: Optional[int], device: torch.device) -> bool:
     """Whether the sampling runtime promotes ``auto`` to ``mega_stack``: a
-    batch hint is given and the per-block policy would take the kernels."""
-    if batch_hint is None:
+    batch hint is given, the blocks are in the per-block layout (a
+    ``scan_blocks`` model runs its blocks one by one, as in the JAX
+    package) and the per-block policy would take the kernels."""
+    if batch_hint is None or cfg.scan_blocks:
         return False
     return kernel_policy(cfg, cfg.num_patches, device) == "mega"
 

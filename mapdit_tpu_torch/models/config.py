@@ -5,8 +5,9 @@ real switches (all off with ``modulation="adaln"`` is a vanilla DiT), the
 three modulation kinds, every ``attention_impl``, the ``auto``, ``pallas``,
 ``mega``, ``mega_attn``, ``mega_stack`` and ``off`` block kernels and every
 ``attn_bwd``, and the tensor-parallel islands ``mega_attn_tp`` and
-``mega_tp`` (``build_sample_fn(mesh=)``). ``scan_blocks`` and ``remat``
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+``mega_tp`` (``build_sample_fn(mesh=)``), ``remat`` (each block under
+``torch.utils.checkpoint`` where gradients are taken) and ``scan_blocks``
+(the block parameters stacked on a leading depth axis, ``models/dit.py``).
 """
 
 from __future__ import annotations
@@ -69,7 +70,12 @@ class DiTConfig:
     # kernels), "residual" (residual-emitting forward, plain backward),
     # "reference" (autograd through the plain reference)
     attn_bwd: str = "pallas"
+    # per-block activation rematerialization: each block's activations are
+    # recomputed in the backward instead of kept (models/dit.py)
     remat: bool = False
+    # the block parameters live once, stacked on a leading (depth,) axis
+    # under the reference names without the block index; the forward runs
+    # the depth as a loop over views of them (models/dit.py)
     scan_blocks: bool = False
     # weights pre-normalized once (runtime.fold_weights_for_inference)
     fold_weights: bool = False
@@ -82,8 +88,6 @@ class DiTConfig:
         assert self.attention_impl in ATTENTION_IMPLS, self.attention_impl
         assert self.block_kernel in BLOCK_KERNELS, self.block_kernel
         assert self.attn_bwd in ("pallas", "residual", "reference")
-        if self.scan_blocks or self.remat:
-            raise NotImplementedError("scan_blocks and remat are later items of training (ROADMAP A.6)")
 
     @property
     def dtype(self) -> torch.dtype:

@@ -40,17 +40,23 @@ from mapdit_tpu_torch.utils.device import resolve_device
 
 
 def fold_weights_for_inference(state_dict: Dict[str, torch.Tensor], cfg: DiTConfig) -> Dict[str, torch.Tensor]:
-    """Normalize every weight-normalized matrix once (2-D ``*.weight``
-    entries, the class embedding table included)."""
+    """Normalize every weight-normalized matrix once (``*.weight`` entries,
+    the class embedding table included). The 3-D stacks of ``scan_blocks``
+    are normalized a depth at a time, as the per-block layout's matrices
+    are, so both layouts fold to the same bits (the JAX package leaves
+    them unfolded)."""
     out = {}
     for key, value in state_dict.items():
         names = key.split(".")
-        if names[-1] != "weight" or value.ndim != 2:
+        if names[-1] != "weight" or value.ndim not in (2, 3):
             out[key] = value
             continue
         is_embedding = len(names) >= 2 and names[-2] == "embedding"
         flag = cfg.use_mp_embedding if is_embedding else cfg.use_weight_normalization
-        out[key] = normalize(value) if flag else value
+        if not flag:
+            out[key] = value
+        else:
+            out[key] = torch.stack([normalize(w) for w in value]) if value.ndim == 3 else normalize(value)
     return out
 
 
@@ -87,6 +93,9 @@ def resolve_run_config(cfg: DiTConfig, fold: bool = True, batch_hint: Optional[i
     run_cfg = cfg.replace(fold_weights=True) if (fold and cfg.use_weight_normalization) else cfg
     if run_cfg.block_kernel == "auto" and stack_auto_ok(run_cfg, batch_hint, device):
         run_cfg = run_cfg.replace(block_kernel="mega_stack")
+    if run_cfg.block_kernel == "mega_stack" and run_cfg.scan_blocks:
+        raise ValueError("mega_stack replaces scan_blocks: a scan_blocks model runs its blocks one by one "
+                         "(auto takes the whole-block kernel for each)")
     return run_cfg
 
 
@@ -480,6 +489,8 @@ def build_cached_sample_fn(
             "block-span caching skips a block subrange, which the whole-stack kernel cannot express; use "
             "--block-kernel mega (or auto) with --cache-interval"
         )
+    if cfg.scan_blocks:
+        raise ValueError("block-span caching needs scan_blocks=False")
     if not (diffusion.mean_type == gd.EPSILON and diffusion.var_type == gd.LEARNED_RANGE):
         raise ValueError("block-span caching runs the eps + learned-range chain")
     n_steps = diffusion.num_timesteps
@@ -562,6 +573,10 @@ def _mesh_config(cfg: DiTConfig, fold: bool, mesh, device) -> DiTConfig:
     """The kernel checks of ``runtime.py:692-714`` of the JAX package: the
     config a mesh of two or more ranks runs, or the reason it cannot."""
     tp = mesh.n_model
+    if tp > 1 and cfg.scan_blocks:
+        raise NotImplementedError(
+            "tensor parallelism on the scan_blocks layout is the ROADMAP item 'Multi-GPU layouts, the rest'"
+        )
     if tp == 1:
         if cfg.block_kernel in TP_KERNELS:
             raise ValueError(f"block_kernel={cfg.block_kernel!r} needs a model axis of 2 or more ranks")

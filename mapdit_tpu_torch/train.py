@@ -12,10 +12,15 @@ run is on one CUDA device unless ``--device`` says otherwise. One step
 Adam under the schedule, both power EMAs, the forced weight normalization.
 The host shuffles indices and stages (mean, std, label) slices.
 
+``--remat true`` recomputes each block in the backward instead of keeping
+its activations (the memory of DiT-XL/2 at batch 256); ``--scan-blocks
+true`` keeps the block parameters stacked on a depth axis, as a JAX
+``--scan-blocks`` run saves them, and its checkpoints and EMA snapshots
+hold that layout.
+
 Not ported yet, and raising with their ROADMAP item: ``--n-model > 1``,
 ``--fsdp``, ``--multihost`` and ``--checkpointer orbax`` ("Multi-GPU layouts, the
-rest"), ``--remat``
-and ``--scan-blocks`` (A.6).
+rest").
 """
 
 from __future__ import annotations
@@ -417,9 +422,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "'high' sets torch.set_float32_matmul_precision('high') (TF32 passes), "
                              "'highest' sets 'highest' (full float32)")
     parser.add_argument("--remat", type=_bool, default=False, metavar="BOOL",
-                        help="per-block activation rematerialization (not ported yet)")
+                        help="per-block activation rematerialization (XL-scale train memory)")
     parser.add_argument("--scan-blocks", type=_bool, default=False, metavar="BOOL",
-                        help="one loop over depth-stacked block parameters (not ported yet)")
+                        help="block parameters stacked on a leading depth axis (the JAX --scan-blocks layout)")
     parser.add_argument("--attention-impl", choices=list(ATTENTION_IMPLS), default="auto")
     parser.add_argument("--block-kernel", choices=["auto", "pallas", "mega", "mega_attn", "off"], default="auto",
                         help="block kernels: mega = whole-block kernel, mega_attn = attention half-block kernels "

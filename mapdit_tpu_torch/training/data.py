@@ -5,8 +5,9 @@ the VAE posterior from memory-mapped arrays; the posterior draw and the
 normalization happen inside the train step on the device
 (``training/state.py``). Native artifacts: posterior_means.npy /
 posterior_stds.npy / labels.npy (memmap) + stats.npz {mean, std}; reference
-``.pt`` artifacts load through torch. For a seed the arrays are
-bit-identical to the JAX package's.
+``.pt`` artifacts load through torch; :func:`save_dataset` writes the
+native family, which the JAX package's loader reads too. For a seed the
+arrays are bit-identical to the JAX package's.
 """
 
 from __future__ import annotations
@@ -147,3 +148,18 @@ class SyntheticLatentDataset(LatentDataset):
             axis=(0, 2, 3)
         )
         self.stats = {"mean": mean, "std": np.sqrt(var)}
+
+
+def save_dataset(
+    out_dir: str,
+    means: np.ndarray,
+    stds: np.ndarray,
+    labels: np.ndarray,
+    stats: Dict[str, np.ndarray],
+) -> None:
+    """Write the native artifact family (memmap-friendly .npy + stats.npz)."""
+    os.makedirs(out_dir, exist_ok=True)
+    np.save(os.path.join(out_dir, "posterior_means.npy"), means)
+    np.save(os.path.join(out_dir, "posterior_stds.npy"), stds)
+    np.save(os.path.join(out_dir, "labels.npy"), labels)
+    np.savez(os.path.join(out_dir, "stats.npz"), mean=stats["mean"], std=stats["std"])

@@ -105,13 +105,16 @@ def create_train_state(
     device=None,
     state_dict: Optional[Dict[str, torch.Tensor]] = None,
 ) -> TrainState:
-    """A model drawn from ``seed`` (or loaded from ``state_dict``) on
-    ``device`` (default CUDA), its optimizer, one EMA copy of the
-    parameters per std, and a generator seeded with ``seed`` on the device."""
+    """A model drawn from ``seed`` (or loaded from ``state_dict``, which
+    then holds every parameter and buffer, with no draw) on ``device``
+    (default CUDA), its optimizer, one EMA copy of the parameters per std,
+    and a generator seeded with ``seed`` on the device."""
     resampler = _resampler(timestep_sampler, num_timesteps)
     device = resolve_device(device)
-    model = init_model(cfg, seed=seed, device=device)
-    if state_dict is not None:
+    if state_dict is None:
+        model = init_model(cfg, seed=seed, device=device)
+    else:
+        model = DiT(cfg).to(device).eval()
         model.load_state_dict(state_dict)
     params = dict(model.named_parameters())
     return TrainState(

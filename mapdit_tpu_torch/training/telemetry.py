@@ -1,12 +1,14 @@
 """Magnitude-preservation telemetry (``--log-magnitudes``), port of
 ``mapdit_tpu/training/telemetry.py``.
 
-* :func:`weight_magnitudes`: over every 2-D ``weight`` the row RMS
+* :func:`weight_magnitudes`: over every ``weight`` (2-D, or 3-D stacked
+  under ``scan_blocks``) the row RMS
   ``||w_i|| / sqrt(in_dim)`` (which forced weight normalization pins to 1)
   as its deviation from 1, and the magnitude of every learned ``gain*``.
 * :func:`make_activation_probe`: one eval-mode forward at mid-noise
-  (t = T/2) on the current batch with forward hooks on the blocks,
-  reporting the residual stream's RMS after each block and the RMS of the
+  (t = T/2) on the current batch with forward hooks on the blocks (one
+  hook on the stacked block under ``scan_blocks``, which fires once a
+  depth), reporting the residual stream's RMS after each block and the RMS of the
   model output's eps channels.
 
 Both run once per log interval and go into the ``--metrics-jsonl`` rows.
@@ -26,7 +28,7 @@ def weight_magnitudes(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor
     devs, gains = [], []
     for name, p in params.items():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf == "weight" and p.ndim == 2:
+        if leaf == "weight" and p.ndim in (2, 3):
             rms = torch.linalg.vector_norm(p.float(), dim=-1) / p.shape[-1] ** 0.5
             devs.append((rms - 1.0).abs().reshape(-1))
         elif leaf.startswith("gain"):
@@ -69,7 +71,8 @@ def make_activation_probe(cfg, diffusion, stats_mean=None, stats_std=None):
         t = torch.full((x.shape[0],), diffusion.num_timesteps // 2, dtype=torch.int64, device=dev)
         x_t = diffusion.q_sample(x, t, torch.randn(x.shape, generator=generator, device=dev))
         block_rms = []
-        hooks = [blk.register_forward_hook(lambda mod, args, out: block_rms.append(_rms(out))) for blk in model.blocks]
+        blocks = [model.blocks] if cfg.scan_blocks else model.blocks
+        hooks = [blk.register_forward_hook(lambda mod, args, out: block_rms.append(_rms(out))) for blk in blocks]
         try:
             out = model(x_t, t, on_device(batch["y"], torch.int64), train=False)
         finally:

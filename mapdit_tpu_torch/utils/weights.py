@@ -6,7 +6,9 @@ JAX ``{'params', 'constants'}`` tree maps over by renaming alone: every
 weight is stored (out, in) in both. This module keeps its own copy of the
 name table of ``mapdit_tpu/utils/torch_import.py``, extended to every flag
 family: each ``weight`` may have a ``bias`` beside it (weight normalization
-off); the Fourier constants exist only under ``use_mp_embedding`` and the
+off); a ``scan_blocks`` tree's ``params/blocks/...`` leaves, stacked on a
+leading depth axis, map onto the port's stacked ``blocks.<name>`` entries;
+the Fourier constants exist only under ``use_mp_embedding`` and the
 output scales only in the MP style; the shapes (the ones column of
 ``x_embedder``, the 4D / 5D / 6D rows of a modulation head) come with the
 arrays.
@@ -42,6 +44,12 @@ _NAMES = [
     ("final_layer.mean_scale.reference", "params/final_layer/mean_scale/reference"),
     ("final_layer.sigma_scale.linear.weight", "params/final_layer/sigma_scale/linear/weight"),
     ("final_layer.sigma_scale.reference", "params/final_layer/sigma_scale/reference"),
+]
+# the scan_blocks layout: one stacked entry for every block entry
+_NAMES += [
+    (key.replace("blocks.{0}.", "blocks."), path.replace("blocks_{0}/", "blocks/"))
+    for key, path in _NAMES
+    if "{0}" in key
 ]
 # a linear without weight normalization has a bias beside its weight
 _NAMES += [

@@ -4,6 +4,7 @@ tensors."""
 
 import ast
 import pathlib
+import shutil
 import subprocess
 import sys
 
@@ -40,7 +41,8 @@ def test_import_loads_no_jax():
                 "diffusion.timestep_sampler", "utils.experiment", "utils.logging", "parallel", "parallel.mesh",
                 "ops.cuda.dit_block_tp", "diffusion.dpm_solver", "diffusion.unipc", "models.vae", "utils.safetensors",
                 "utils.image", "utils.class_names", "sample", "sample_ema", "sample_fid", "serve", "diffusion.distill",
-                "distill"):
+                "distill", "download_data", "tools.fid", "tools.distribution_probe", "tools.guidance_sweep",
+                "tools.run_fid50k"):
         assert f"mapdit_tpu_torch.{mod}" in _modules()
     code = (
         "import importlib, sys\n"
@@ -54,6 +56,9 @@ def test_import_loads_no_jax():
 
 
 def test_sources_import_nothing_of_jax():
+    """No source of the port, and not chip_smoke.py, imports JAX, the JAX
+    package or a module of the repository's tools/ (the port keeps its own
+    copies, mapdit_tpu_torch/tools/)."""
     for path in list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
@@ -63,7 +68,8 @@ def test_sources_import_nothing_of_jax():
                 names = [node.module]
             for name in names:
                 root = name.split(".")[0]
-                assert root not in ("jax", "jaxlib", "flax", "optax", "orbax", "mapdit_tpu"), f"{path}: imports {name}"
+                assert root not in ("jax", "jaxlib", "flax", "optax", "orbax", "mapdit_tpu", "tools"), (
+                    f"{path}: imports {name}")
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -196,32 +202,58 @@ def test_attention_bwd_takes_every_registry_head():
         attn_branch.check_attention_bwd_shape(attn_branch.ATTENTION_BWD_MAX_T, hd)
 
 
+def _cli_run(tmp_path, flags):
+    from mapdit_tpu_torch import train
+
+    return train.main(train.build_parser().parse_args(
+        ["--data-path", "synthetic:16", "--results-dir", str(tmp_path), "--device", "cpu", "--model", "DiT-XS/8",
+         *flags]))
+
+
 @pytest.mark.parametrize(
     "overrides, item",
     [
-        (dict(scan_blocks=True), "A.6"),
-        (dict(remat=True, use_cosine_attention=False), "A.6"),
         (["--fsdp", "true"], "Multi-GPU layouts"),
         (["--n-model", "2"], "Multi-GPU layouts"),
         (["--multihost", "true"], "Multi-GPU layouts"),
         (["--checkpointer", "orbax"], "Multi-GPU layouts"),
-        (["--remat", "true"], "A.6"),
-        (["--scan-blocks", "true"], "A.6"),
     ],
 )
 def test_unported_options_name_their_roadmap_item(overrides, item, tmp_path):
-    """A config override (a dict) or a flag of the train CLI (a list) that
-    the port does not take yet raises naming the ROADMAP item that ports
-    it."""
+    """A flag of the train CLI that the port does not take yet raises
+    naming the ROADMAP item that ports it."""
     with pytest.raises(NotImplementedError, match=item):
-        if isinstance(overrides, dict):
-            build_config("DiT-XS/2", **XS2, **overrides)
-        else:
-            from mapdit_tpu_torch import train
+        _cli_run(tmp_path, overrides)
 
-            train.main(train.build_parser().parse_args(
-                ["--data-path", "synthetic:16", "--results-dir", str(tmp_path), "--device", "cpu", "--model", "DiT-XS/8",
-                 *overrides]))
+
+@pytest.mark.parametrize(
+    "overrides",
+    [
+        dict(scan_blocks=True),
+        dict(remat=True, use_cosine_attention=False),
+        ["--remat", "true"],
+        ["--scan-blocks", "true"],
+    ],
+    ids=["config-scan_blocks", "config-remat-vanilla-attention", "cli-remat", "cli-scan-blocks"],
+)
+def test_remat_and_scan_blocks_options_run(overrides, tmp_path):
+    """The options that raised naming A.6 until the port took them: a config
+    override (a dict) builds a model whose forward is finite, and a flag of
+    the train CLI (a list) runs one CPU step and writes its checkpoint."""
+    if isinstance(overrides, dict):
+        cfg = build_config("DiT-XS/8", **XS2, **overrides)
+        model = init_model(cfg, seed=0, device="cpu")
+        out = model(torch.randn(2, 4, 16, 16), torch.full((2,), 10.0), torch.ones(2, dtype=torch.long))
+        assert out.shape == (2, 8, 16, 16) and torch.isfinite(out).all()
+        assert any(p.ndim == 3 for p in model.parameters()) == cfg.scan_blocks
+    else:
+        try:
+            exp = _cli_run(tmp_path, [*overrides, "--num-steps", "1", "--batch-size", "4", "--num-classes", "10",
+                                      "--log-every", "1", "--ckpt-every", "1", "--ema-snapshot-every", "0"])
+            assert "(step=0000001)" in open(f"{exp}/log.txt").read()
+            assert (pathlib.Path(exp) / "checkpoints" / "0000001.pt").exists()
+        finally:
+            shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def test_unported_sampler_raises():

@@ -245,8 +245,9 @@ def test_loss_falls_and_weights_stay_projected():
 
 def test_unported_training_options_name_their_roadmap_item():
     """What training still lacks raises with its ROADMAP item (the CLI's
-    flags: test_torch_package.py); gradient accumulation and the
-    loss-second-moment sampler no longer do."""
+    flags: test_torch_package.py); gradient accumulation, the
+    loss-second-moment sampler and remat (test_torch_remat_scan.py) no
+    longer do."""
     cfg = build_config("DiT-XS/8", **XS2)
     tx = create_optimizer(warmup_flat_invsqrt(1e-2, 5, 50))
     diffusion = create_diffusion("", device="cpu")
@@ -254,8 +255,6 @@ def test_unported_training_options_name_their_roadmap_item():
     make_train_step(cfg, diffusion, tx, timestep_sampler="loss-second-moment")
     with pytest.raises(ValueError, match="timestep sampler"):
         make_train_step(cfg, diffusion, tx, timestep_sampler="second-loss")
-    with pytest.raises(NotImplementedError, match="A.6"):
-        build_config("DiT-XS/8", **XS2, remat=True)
 
 
 # ---------------------------------------------------------------------------
