@@ -29,6 +29,24 @@ Phases, one line each; any failure exits non-zero before the final line:
      with span caching (per block), each held to the float32 plain chain
      with exact launch counts; then ddim 50, dpm++ 20 and unipc 20 timed
      (three chains each, after a warm-up) beside the headline;
+ 5c. parallel-in-time ddim (build_pit_sample_fn) on the same weights at 8 x
+     2 CFG rows, clipped ddim 50, window 10, through auto (one dit_stack
+     launch a sweep over 160 rows, exact counts 50 / 59 / 25 / 29): the
+     exact schedules (block J=10, slide S=1) held to the f32 plain
+     sequential ddim chain by check_paths' rule and to the kernels' own
+     sequential chain within phase 8c's bucket limit (same bits
+     reported); the accelerated ones (block J=5, slide S=2) held to the
+     f32 plain chain of their schedule, their distance from the sequential
+     chain printed; each chain's ms beside sequential ddim 50 at the same
+     rows, the dit_stack workspace of a sweep (stack_plan) and the
+     allocation peak;
+ 5d. bench: mapdit_tpu_torch.bench.main in process for ddim 50, dpm++ 20,
+     unipc 20, dpm++ 20 karras, ddpm 250 with the cfg interval 0.3-3.0,
+     the span cache at interval 2 in both modes, --input-size 32 (auto
+     resolves to the plain path) and train mode with --grad-accum 4 at
+     batch 256 on mega_attn: each JSON line, exact launch counts (phase
+     5b's one dit_stack a model call; the cached chain one a block it
+     runs; none at 32 x 32; phase 6's a micro-batch);
   6. train: DiT-S/2 train steps at batch 256 on synthetic latents, the plain
      path and block_kernel="mega_attn" with attn_bwd "pallas" and
      "residual": the first step's loss and gradients against the float32
@@ -139,7 +157,15 @@ Phases, one line each; any failure exits non-zero before the final line:
      "mega_attn_tp", each against the float32 plain chain, with exact launch
      counts per rank, each chain then run again warm and timed; then one
      gloo all-reduce of a (8, 64, 1152) f32 partial. The all-reduces pass
-     through host memory: these are not NCCL tensor-parallel latencies;
+     through host memory: these are not NCCL tensor-parallel latencies.
+     Then the same ranks as a (2, 1) mesh at DiT-S/2: the dp-sharded
+     clipped ddpm chain (build_dp_sharded_sample_fn), each rank's rows the
+     same bits as the one-device chain on them under its stream; PIT
+     (block, full sweeps, one sample, window 10) with its rows split over
+     the ranks against the unsharded PIT chain within phase 5c's limit;
+     sample_fid in process on phase 8's run A with --kernel-sharding
+     shard_map and with --pit-window 10, 16 images each, rank 0's npz;
+     exact dit_stack launches per rank;
  11. the kernels JSON line, the device line again, and the ok line.
 Phase 3 holds dit_stack (csrc/dit_stack.cu: the one persistent kernel of
 fused_dit_stack and, at depth 1, fused_dit_block) at STACK_SHAPES (the S/2
@@ -232,6 +258,38 @@ CACHE_INTERVAL = 2  # the cached ddpm chain of phase 5b (forecast mode, the defa
 # the timed chains of phase 5b: name -> (respacing, sampler)
 SAMPLER_TIMES = {"ddim-50": ("ddim50", "ddim"), "dpm++-20": ("karras20", "dpm++"), "unipc-20": ("20", "unipc")}
 SAMPLER_TIME_RUNS = 3  # timed chains of each (steps/s from the fastest; all printed)
+# phase 5c: parallel-in-time ddim on the headline's weights: PIT_BATCH x 2
+# CFG rows, clipped ddim PIT_STEPS, window PIT_WINDOW; name -> (schedule,
+# model calls, exact). The exact schedules are held to the sequential chain,
+# the accelerated ones to the f32 plain chain of their own schedule.
+PIT_BATCH, PIT_STEPS, PIT_WINDOW = 8, 50, 10
+PIT_SCHEDULES = {
+    "block-J10": (dict(sweeps=10), 50, True),
+    "slide-S1": (dict(shift=1), 59, True),
+    "block-J5": (dict(sweeps=5), 25, False),
+    "slide-S2": (dict(shift=2), 29, False),
+}
+PIT_TIME_RUNS = 2  # timed chains of each, after a warm-up
+PIT_FID_BATCH = 128  # sample_fid's default batch: the workspace its PIT sweeps take is printed
+# phase 5d: mapdit_tpu_torch.bench in process; tag -> flags (each sample
+# chain runs once to warm up and BENCH_REPEATS times timed)
+BENCH_REPEATS = 2
+BENCH_RUNS = {
+    "ddim-50": ["--sampler", "ddim", "--steps", "50"],
+    "dpm++-20": ["--sampler", "dpm++", "--steps", "20"],
+    "unipc-20": ["--sampler", "unipc", "--steps", "20"],
+    "dpm++-20-karras": ["--sampler", "dpm++", "--steps", "20", "--time-schedule", "karras"],
+    "ddpm-250-cfg-interval": ["--cfg-interval", "0.3", "3.0"],
+    "ddpm-250-cache-2-forecast": ["--cache-interval", "2"],
+    "ddpm-250-cache-2-hold": ["--cache-interval", "2", "--cache-mode", "hold"],
+    "ddpm-50-input-32": ["--input-size", "32", "--steps", "50"],
+    "train-accum-4": ["--mode", "train", "--grad-accum", "4", "--batch", "256", "--resident-data", "--steps", "10",
+                      "--block-kernel", "mega_attn"],
+}
+# phase 10's data-parallel part on a (2, 1) mesh: the dp-sharded clipped
+# ddpm chain over DP_BATCH un-doubled samples, PIT (block, full sweeps) on
+# one sample, and sample_fid's two layouts at DP_FID_IMAGES images each
+DP_BATCH, DP_STEPS, DP_FID_IMAGES = 16, 10, 16
 FID_SAMPLES, FID_BATCH = 64, 32  # phase 8b's sample_fid run (250 steps, CFG 1.5)
 VAE_CHECK_IMAGES = 8  # latents decoded on the card and on the CPU in phase 8b
 # phase 8c: the server's buckets and --seed, the chains it is held on
@@ -2472,8 +2530,105 @@ def tp_rank(rank, dev, refs, out_dir):
     torch.cuda.synchronize()
     report["all_reduce_ms"] = 1e3 * (time.perf_counter() - t0) / 20
     report["backend"] = dist.get_backend(mesh.model_group)
+    del sd, partial
+    torch.cuda.empty_cache()
+    report["dp"] = dp_checks(torch, rank, dev, refs)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(report, f)
+
+
+def dp_checks(torch, rank, dev, refs) -> dict:
+    """Phase 10's data-parallel part on a (2, 1) mesh of the two ranks, at
+    DiT-S/2 (weights from SEED, gains drawn): build_dp_sharded_sample_fn's
+    clipped ddpm chain, this rank's rows the same bits as the one-device
+    chain on them under this rank's stream; PIT on the mesh (block, full
+    sweeps, one sample, window PIT_WINDOW: its rows split over the ranks)
+    against the unsharded PIT chain within phase 5c's limit; sample_fid in
+    process with --kernel-sharding shard_map and with --pit-window on phase
+    8's run A, rank 0's npz. Exact dit_stack launches of this rank for each.
+    Returns the report's rows."""
+    import numpy as np
+
+    from mapdit_tpu_torch import sample_fid
+    from mapdit_tpu_torch.diffusion import create_diffusion
+    from mapdit_tpu_torch.models import build_config, init_model
+    from mapdit_tpu_torch.parallel import make_mesh
+    from mapdit_tpu_torch.runtime import (
+        build_dp_sharded_sample_fn, build_pit_sample_fn, build_sample_fn, data_rank_generator,
+    )
+
+    mesh = make_mesh(2, 1, device=dev)
+    cfg = build_config(MODEL, in_channels=4, input_size=16, num_classes=1000, compute_dtype="bfloat16",
+                       block_kernel="auto")
+    model = init_model(cfg, seed=SEED, device=dev)
+    draw_gains(torch, model, SEED)
+    sd = model.state_dict()
+    del model
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    z = torch.randn(DP_BATCH, 4, 16, 16, generator=gen, device=dev)
+    y = torch.randint(0, 1000, (DP_BATCH,), generator=gen, device=dev)
+    out = {}
+
+    def run(what, fn, *args, calls):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        check_counts(f"{what}/rank{rank}", counts, {"fused_dit_stack": calls, "dit_stack": calls})
+        return res, seconds, counts
+
+    d = create_diffusion(str(DP_STEPS), device=dev)
+    fn = build_dp_sharded_sample_fn(cfg, sd, d, mesh, cfg_scale=CFG_SCALE, clip_denoised=True, batch_hint=DP_BATCH)
+    got, seconds, counts = run("dp", fn, z, y, torch.Generator(device=dev).manual_seed(SEED + 14), calls=DP_STEPS)
+    n_loc = DP_BATCH // mesh.n_data
+    rows = slice(mesh.data_index * n_loc, (mesh.data_index + 1) * n_loc)
+    single = build_sample_fn(cfg, sd, d, cfg_scale=CFG_SCALE, clip_denoised=True, batch_hint=n_loc, device=dev,
+                             prepared=fn.prepared)
+    stream = data_rank_generator(torch.Generator(device=dev).manual_seed(SEED + 14), mesh.data_index, dev)
+    want = single(torch.cat([z[rows], z[rows]]), torch.cat([y[rows], torch.full_like(y[rows], 1000)]), stream)[:n_loc]
+    same = bool(torch.equal(got[rows], want))
+    out["dp"] = dict(kernel=fn.run_cfg.block_kernel, rows_a_rank=n_loc, same_bits_as_one_device_chain=same,
+                     finite=bool(torch.isfinite(got).all()), shape=list(got.shape), seconds=seconds,
+                     launches={key: v for key, v in counts.items() if v})
+    if not same or got.shape != z.shape or fn.run_cfg.block_kernel != "mega_stack":
+        raise AssertionError(f"dp/rank{rank}: {out['dp']}")
+
+    d = create_diffusion(f"ddim{PIT_STEPS}", device=dev)
+    z1, y1 = torch.cat([z[:1], z[:1]]), torch.cat([y[:1], torch.full_like(y[:1], 1000)])
+    kw = dict(cfg_scale=CFG_SCALE, window=PIT_WINDOW, sweeps=PIT_WINDOW, clip_denoised=True)
+    pit_mesh = build_pit_sample_fn(cfg, sd, d, mesh=mesh, **kw)
+    got, seconds, counts = run("dp/pit", pit_mesh, z1, y1, calls=PIT_STEPS)
+    want = build_pit_sample_fn(cfg, sd, d, device=dev, prepared=pit_mesh.prepared, **kw)(z1, y1)
+    err, limit = rel_l2(got, want), refs["pit_limit"]
+    out["pit"] = dict(kernel=pit_mesh.run_cfg.block_kernel, rel_l2_vs_unsharded=err, tol=limit,
+                      same_bits_as_unsharded=bool(torch.equal(got, want)), seconds=seconds,
+                      rows_a_call=2 * PIT_WINDOW // mesh.n_data, launches={key: v for key, v in counts.items() if v})
+    if not (bool(torch.isfinite(got).all()) and err <= limit):
+        raise AssertionError(f"dp/pit/rank{rank}: {out['pit']}")
+
+    # sample_fid's PIT: DP_STEPS / PIT_WINDOW blocks of 2 sweeps
+    for tag, flags, calls in (("shard_map", ["--kernel-sharding", "shard_map"], DP_STEPS),
+                              ("pit", ["--pit-window", str(PIT_WINDOW), "--pit-sweeps", "2", "--sampler", "ddim"],
+                               DP_STEPS // PIT_WINDOW * 2)):
+        argv = ["--result-dir", refs["exp"], "--use-vae", "false", "--num-classes", "1000", "--num-samples",
+                str(DP_FID_IMAGES), "--batch-size", str(DP_FID_IMAGES), "--num-sampling-steps", str(DP_STEPS),
+                "--clip-denoised", "true", "--block-kernel", "auto", "--output-file", f"mesh_{tag}.npz", *flags]
+        path, seconds, counts = run(f"dp/sample_fid-{tag}", sample_fid.main, sample_fid.build_parser().parse_args(argv),
+                                    calls=calls)
+        row = dict(seconds=seconds, launches={key: v for key, v in counts.items() if v})
+        if rank == 0:
+            with np.load(path) as f:
+                arr = f["arr_0"]
+            row["arr_0"] = f"{arr.dtype}{tuple(arr.shape)}"
+            if arr.dtype != np.uint8 or arr.shape != (DP_FID_IMAGES, 16, 16, 4):
+                raise AssertionError(f"dp/sample_fid-{tag}: arr_0 {arr.dtype} {arr.shape}")
+        elif path is not None:
+            raise AssertionError(f"dp/sample_fid-{tag}: rank {rank} wrote {path}")
+        out[f"sample_fid-{tag}"] = row
+    return out
 
 
 def tp_phase(torch, refs) -> dict:
@@ -2499,7 +2654,10 @@ def tp_phase(torch, refs) -> dict:
                   launches=json.dumps({key: v for key, v in rep["counts"][kernel].items() if v}))
         phase("tp", rank=r, all_reduce_ms=f"{rep['all_reduce_ms']:.4f}", all_reduce_shape=f"({2 * XL_BATCH},64,1152)f32",
               note="two ranks share one card; gloo all-reduces pass through host memory")
-    phase("tp", seconds_with_spawn=f"{seconds:.2f}")
+        for what, row in rep["dp"].items():
+            phase("dp", rank=r, mesh="(2,1)", what=what, **{key: json.dumps(v) if isinstance(v, (dict, list)) else v
+                                                             for key, v in row.items()})
+    phase("tp", seconds_with_spawn=f"{seconds:.2f}", card=json.dumps(smi_line()))
     return {f"tp/{kernel}": reports[0]["counts"][kernel] for kernel in ("mega_tp", "mega_attn_tp")}
 
 
@@ -2597,6 +2755,151 @@ def sampler_phase(torch, dev, cfg, sd, z, yf, headline_steps_per_s: float) -> No
         phase("sampler-time", chain=name, batch=f"{BATCH}x2", steps=steps,
               seconds=json.dumps([round(r, 4) for r in runs]), steps_per_s=f"{steps / seconds:.3f}", ms_per_model_call=f"{1e3 * seconds / steps:.4f}",
               ddpm_250_steps_per_s=f"{headline_steps_per_s:.3f}", finite=bool(torch.isfinite(out).all()))
+
+
+def pit_phase(torch, dev, cfg, sd, z, yf) -> float:
+    """Phase 5c: parallel-in-time ddim (build_pit_sample_fn) at DiT-S/2 on
+    the headline's weights, PIT_BATCH x 2 CFG rows, clipped ddim PIT_STEPS,
+    window PIT_WINDOW, through auto (one dit_stack launch a sweep over
+    window x PIT_BATCH x 2 rows, exact counts). The exact schedules are held
+    to the f32 plain sequential ddim chain by check_paths' rule and to the
+    kernels' own sequential chain within the limit of phase 8c's bucket 1
+    against 4 (twice the bf16 plain chain's distance from f32, floor
+    1e-2), with the same bits reported; the accelerated ones to the f32
+    plain chain of their own schedule, their distance from the sequential
+    chain printed. Every chain's ms beside sequential ddim at the same
+    rows; the JAX package expects PIT to be slower on one chip, and nothing
+    is claimed. Returns that limit (phase 10 holds the mesh's PIT to it)."""
+    from mapdit_tpu_torch.diffusion import create_diffusion
+    from mapdit_tpu_torch.ops.cuda import dit_block as k
+    from mapdit_tpu_torch.runtime import build_pit_sample_fn, build_sample_fn
+
+    n = PIT_BATCH
+    zp, yp = torch.cat([z[:n], z[:n]]), torch.cat([yf[:n], yf[BATCH:BATCH + n]])
+    d = create_diffusion(f"ddim{PIT_STEPS}", device=dev)
+    auto, f32 = cfg.replace(block_kernel="auto"), cfg.replace(compute_dtype="float32")
+    hidden = int(cfg.hidden_size * cfg.mlp_ratio)
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(SEED + 9)
+
+    def timed(what, fn, calls, rows):
+        """A warm-up (stack rows checked), then PIT_TIME_RUNS timed runs,
+        each with exact launch counts; the last output, seconds, peak MiB
+        of allocation above the start."""
+        seen, undo = count_stack_rows(k)
+        try:
+            fn(zp, yp, gen())
+            torch.cuda.synchronize()
+        finally:
+            undo()
+        if seen != [rows] * calls:
+            raise AssertionError(f"{what}: stack calls of {sorted(set(seen))} rows, {len(seen)} calls")
+        runs = []
+        torch.cuda.reset_peak_memory_stats()
+        start_bytes = torch.cuda.memory_allocated()
+        for _ in range(PIT_TIME_RUNS):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out = fn(zp, yp, gen())
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+            check_counts(what, launch_counts(), {"fused_dit_stack": calls, "dit_stack": calls})
+        return out, runs, (torch.cuda.max_memory_allocated() - start_bytes) / 2**20
+
+    seq = {name: build_sample_fn(c, sd, d, cfg_scale=CFG_SCALE, sampler="ddim", clip_denoised=True, device=dev)(
+        zp, yp, gen()) for name, c in (("f32", f32), ("off", cfg))}
+    limit = max(2 * rel_l2(seq["off"], seq["f32"]), 1e-2)
+    seq_fn = build_sample_fn(auto, sd, d, cfg_scale=CFG_SCALE, sampler="ddim", clip_denoised=True, batch_hint=n,
+                             device=dev)
+    seq_k, seq_runs, _ = timed("pit/sequential-ddim", seq_fn, PIT_STEPS, 2 * n)
+    check_paths(torch, "pit-sequential", {**seq, "kernels": seq_k}, ("kernels",))
+    seq_ms = 1e3 * min(seq_runs)
+    prepared = seq_fn.prepared
+    for rows, what in ((2 * BATCH, "headline"), (2 * n * PIT_WINDOW, "pit-sweep"),
+                       (2 * PIT_FID_BATCH * PIT_WINDOW, f"sample_fid-batch-{PIT_FID_BATCH}")):
+        plan = k.stack_plan(rows, cfg.num_patches, cfg.hidden_size, hidden, cfg.num_heads, cfg.depth)
+        phase("pit", workspace=what, rows=rows, token_rows=rows * cfg.num_patches,
+              dit_stack_workspace_mib=f"{plan.workspace_bytes / 2**20:.1f}", source="stack_plan")
+    for name, (schedule, calls, exact) in PIT_SCHEDULES.items():
+        kw = dict(cfg_scale=CFG_SCALE, window=PIT_WINDOW, clip_denoised=True, device=dev, **schedule)
+        fn = build_pit_sample_fn(auto, sd, d, prepared=prepared, **kw)
+        if fn.run_cfg.block_kernel != "mega_stack" or fn.model_calls != calls:
+            raise AssertionError(f"pit {name}: {fn.run_cfg.block_kernel}, {fn.model_calls} model calls")
+        out, runs, peak_mib = timed(f"pit/{name}", fn, calls, 2 * n * PIT_WINDOW)
+        if exact:
+            check_paths(torch, f"pit-{name}", {**seq, "kernels": out}, ("kernels",))
+            err = rel_l2(out, seq_k)
+            phase("pit", schedule=name, exact=True, rel_l2_vs_kernel_sequential=f"{err:.3e}", tol=f"{limit:.3e}",
+                  same_bits_as_kernel_sequential=bool(torch.equal(out, seq_k)),
+                  max_abs_vs_kernel_sequential=f"{float((out - seq_k).abs().max()):.3e}")
+            if not err <= limit:
+                raise AssertionError(f"pit {name}: off the kernels' sequential ddim by {err} > {limit}")
+        else:
+            plain = {p: build_pit_sample_fn(c, sd, d, **kw)(zp, yp, gen()) for p, c in (("f32", f32), ("off", cfg))}
+            check_paths(torch, f"pit-{name}", {**plain, "kernels": out}, ("kernels",))
+            phase("pit", schedule=name, exact=False, rel_l2_vs_f32_sequential=f"{rel_l2(out, seq['f32']):.3e}",
+                  rel_l2_vs_kernel_sequential=f"{rel_l2(out, seq_k):.3e}",
+                  f32_pit_rel_l2_vs_f32_sequential=f"{rel_l2(plain['f32'], seq['f32']):.3e}")
+        phase("pit-time", schedule=name, batch=f"{n}x2", window=PIT_WINDOW, steps=PIT_STEPS, model_calls=calls,
+              rows_a_call=2 * n * PIT_WINDOW, seconds=json.dumps([round(r, 4) for r in runs]),
+              ms=f"{1e3 * min(runs):.3f}", ms_per_model_call=f"{1e3 * min(runs) / calls:.4f}",
+              sequential_ddim_ms=f"{seq_ms:.3f}", sequential_ms_per_model_call=f"{seq_ms / PIT_STEPS:.4f}",
+              peak_alloc_above_start_mib=f"{peak_mib:.1f}", card=json.dumps(smi_line()))
+        del fn, out
+    torch.cuda.empty_cache()
+    return limit
+
+
+def bench_phase(torch, dev) -> None:
+    """Phase 5d: mapdit_tpu_torch.bench.main in process for each of
+    BENCH_RUNS; its JSON line printed. The sampler chains make phase 5b's
+    launches (one dit_stack a model call; the cached chain one a block it
+    runs), the 32 x 32 run resolves auto to the plain path (no launch), the
+    train run with --grad-accum 4 phase 6's launches per micro-batch."""
+    import contextlib
+    import io
+
+    from mapdit_tpu_torch import bench
+    from mapdit_tpu_torch.ops.cuda import attn_branch as ab
+
+    depth = 12
+    for tag, flags in BENCH_RUNS.items():
+        argv = [*flags, "--repeats", str(BENCH_REPEATS)]
+        args = bench.build_parser().parse_args(argv)
+        chains = 1 + BENCH_REPEATS
+        if args.mode == "train":
+            expect = mega_attn_expect(ab, depth, (1 + max(args.steps, 10)) * args.grad_accum, remat=False)
+        elif args.input_size != 16:
+            expect = {}
+        elif args.cache_interval > 1:
+            full = args.steps // args.cache_interval
+            blocks = chains * (full * depth + (args.steps - full) * (depth - depth // 2))
+            expect = {"fused_dit_block": blocks, "dit_stack": blocks}
+        else:
+            expect = {"fused_dit_stack": chains * args.steps, "dit_stack": chains * args.steps}
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            bench.main(argv)
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        line = buf.getvalue().strip().splitlines()[-1]
+        result = json.loads(line)
+        print(line, flush=True)
+        phase("bench", run=tag, value=f"{result['value']:.3f}", mfu_pct=result["mfu_pct"],
+              block_kernel=result.get("block_kernel"), seconds_with_build=f"{seconds:.2f}",
+              launches=json.dumps({key: v for key, v in counts.items() if v}), card=json.dumps(smi_line()))
+        check_counts(f"bench/{tag}", counts, expect)
+        want = "off" if args.input_size != 16 else ("mega" if args.cache_interval > 1 else "mega_stack")
+        if args.mode == "sample" and result["block_kernel"] != want:
+            raise AssertionError(f"bench {tag}: block_kernel {result['block_kernel']}, not {want}")
+        if f"block_kernel {want}" not in result["unit"] and args.mode == "sample":
+            raise AssertionError(f"bench {tag}: the unit does not name block_kernel {want}: {result['unit']}")
+        torch.cuda.empty_cache()
 
 
 def png_check(path: str) -> tuple:
@@ -3678,6 +3981,11 @@ def main() -> int:
     # thresholding and span caching on the same weights
     sampler_phase(torch, dev, cfg, sd, z, yf, STEPS / seconds)
     elapsed("5b")
+    # 5c. parallel-in-time ddim on the same weights, 5d. the bench's flags
+    pit_limit = pit_phase(torch, dev, cfg, sd, z, yf)
+    elapsed("5c")
+    bench_phase(torch, dev)
+    elapsed("5d")
 
     # 6. train
     del model, paths, sample, block_chain, outs
@@ -3714,12 +4022,13 @@ def main() -> int:
         data_probe_phase(torch, dev, exp_a, tmp)
         elapsed("8e")
 
-    # 9. DiT-XL/2 on one card, 10. the tensor-parallel islands on two ranks
-    torch.cuda.empty_cache()
-    refs = xl_phase(torch, dev)
-    elapsed("9")
-    family_launches.update(tp_phase(torch, refs))
-    elapsed("10")
+        # 9. DiT-XL/2 on one card, 10. the tensor-parallel islands and the
+        # data-parallel layouts (sample_fid on run A) on two ranks
+        torch.cuda.empty_cache()
+        refs = xl_phase(torch, dev)
+        elapsed("9")
+        family_launches.update(tp_phase(torch, dict(refs, exp=exp_a, pit_limit=pit_limit)))
+        elapsed("10")
 
     # 11. report
     kernels = []

@@ -1,8 +1,10 @@
 """Benchmarks of the port on one GPU: denoise steps/s (sample) or train steps/s.
 
     python -m mapdit_tpu_torch.bench [--mode sample] [--model DiT-S/2] [--batch 32] [--steps 250]
-                                     [--dtype bfloat16] [--block-kernel auto]
-    python -m mapdit_tpu_torch.bench --mode train [--batch 32] [--steps 250] [--resident-data]
+                                     [--dtype bfloat16] [--block-kernel auto] [--input-size 16]
+    python -m mapdit_tpu_torch.bench --sampler dpm++ --steps 20 --time-schedule karras
+    python -m mapdit_tpu_torch.bench --cfg-interval 0.3 3.0 [--cache-interval 2 --cache-mode hold]
+    python -m mapdit_tpu_torch.bench --mode train [--batch 32] [--steps 250] [--resident-data] [--grad-accum 4]
                                      [--block-kernel mega_attn] [--attn-bwd pallas] [--remat] [--scan-blocks]
     python -m mapdit_tpu_torch.bench --model DiT-B/2 --block-kernel pallas --attention-impl pallas
     python -m mapdit_tpu_torch.bench --model DiT-B/2 --modulation rotation_scale --attention-impl pallas \
@@ -28,13 +30,16 @@ warm-up chain. Train mode is its ``bench_train``: synthetic VAE-posterior
 latents (1000 classes), Adam(0.9, 0.99) under warmup_flat_invsqrt(1e-2,
 100, 1000), two EMAs, one warm-up step, then max(``--steps``, 10) timed
 steps; ``--resident-data`` reuses one device-resident batch;
+``--grad-accum`` splits each step's batch into that many micro-batches;
 ``--profile-dir`` then traces a few more steps (in sample mode: one 10-step
 chain) with ``torch.profiler`` and writes the device-time table there (the
 timed steps and chains run untraced). Each mode
 prints one JSON line with ``metric``, ``value``, ``unit`` and ``mfu_pct``
 against the H100's 989 TFLOP/s dense bf16 peak (train: 3x the forward's
 matrix-product FLOPs; the backward's recompute is not counted as useful
-work).
+work; sample: one CFG model call a step, an unguided step of
+``--cfg-interval`` counting half; null under a cache, whose skipped spans
+the count would overstate).
 """
 
 from __future__ import annotations
@@ -49,14 +54,17 @@ import time
 
 import torch
 
-from mapdit_tpu_torch.diffusion import create_diffusion
+from mapdit_tpu_torch.diffusion import create_diffusion, respacing_string
 from mapdit_tpu_torch.models import build_config, init_model
-from mapdit_tpu_torch.models.blocks import modulation_dims
+from mapdit_tpu_torch.models.blocks import kernel_policy, modulation_dims
 from mapdit_tpu_torch.models.config import ATTENTION_IMPLS, BLOCK_KERNELS, MODULATION_KINDS, DiTConfig
-from mapdit_tpu_torch.runtime import build_sample_fn
+from mapdit_tpu_torch.runtime import (
+    SAMPLERS, build_cached_sample_fn, build_sample_fn, cfg_interval_segments, resolve_run_config,
+)
 
 H100_BF16_FLOPS = 989e12  # dense, H100 SXM data sheet
 CFG_SCALE = 1.5
+USE_FLAGS = [f.name for f in dataclasses.fields(DiTConfig) if f.name.startswith("use_")]
 
 
 def model_call_flops(cfg, rows: int) -> int:
@@ -90,8 +98,11 @@ def _device_info() -> dict:
     return {"kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(), "nvidia_smi": _smi()}
 
 
-def bench_train(args, cfg, device) -> dict:
-    """Train steps/s at ``args.batch`` (the JAX package's ``bench_train``)."""
+def build_train(args, cfg, device):
+    """``(step_fn, state, batches)`` of train mode: synthetic VAE-posterior
+    latents at ``--input-size``, Adam under warmup_flat_invsqrt(1e-2, 100,
+    1000), ``--grad-accum`` micro-batches a step, the state from seed 0;
+    ``--resident-data`` repeats one batch on the device."""
     from mapdit_tpu_torch.training import (
         SyntheticLatentDataset,
         create_optimizer,
@@ -101,15 +112,21 @@ def bench_train(args, cfg, device) -> dict:
     )
 
     diffusion = create_diffusion("", device=device)
-    ds = SyntheticLatentDataset(num_examples=max(1024, 2 * args.batch), num_classes=1000, size=16)
+    ds = SyntheticLatentDataset(num_examples=max(1024, 2 * args.batch), num_classes=1000, size=args.input_size)
     tx = create_optimizer(warmup_flat_invsqrt(1e-2, 100, 1000))
-    step_fn = make_train_step(cfg, diffusion, tx, stats_mean=ds.stats["mean"], stats_std=ds.stats["std"])
+    step_fn = make_train_step(cfg, diffusion, tx, stats_mean=ds.stats["mean"], stats_std=ds.stats["std"],
+                              grad_accum=args.grad_accum)
     state = create_train_state(cfg, tx, seed=0, device=device)
     batches = ds.batches(batch_size=args.batch, seed=0)
     if args.resident_data:
         fixed = {k: torch.as_tensor(v).to(device) for k, v in next(batches).items()}
         batches = itertools.repeat(fixed)
+    return step_fn, state, batches
 
+
+def bench_train(args, cfg, device) -> dict:
+    """Train steps/s at ``args.batch`` (the JAX package's ``bench_train``)."""
+    step_fn, state, batches = build_train(args, cfg, device)
     metrics = step_fn(state, next(batches))  # warm-up: builds the kernels
     torch.cuda.synchronize()
     n_steps = max(args.steps, 10)
@@ -126,7 +143,8 @@ def bench_train(args, cfg, device) -> dict:
     return {
         "metric": "train_steps_per_sec",
         "value": value,
-        "unit": f"steps/s ({args.model}, batch {args.batch}" + (", resident-data" if args.resident_data else "")
+        "unit": f"steps/s ({args.model}, batch {args.batch}" + (f" accum {args.grad_accum}" if args.grad_accum > 1 else "")
+                + _latents(args) + (", resident-data" if args.resident_data else "")
                 + f", {args.dtype}, block_kernel {args.block_kernel}"
                 + (f", attn_bwd {args.attn_bwd}" if args.block_kernel == "mega_attn" else "")
                 + (", remat" if cfg.remat else "") + (", scan_blocks" if cfg.scan_blocks else "") + _family(cfg) + ")",
@@ -136,6 +154,11 @@ def bench_train(args, cfg, device) -> dict:
         "profile": profile,
         "device": _device_info(),
     }
+
+
+def _latents(args) -> str:
+    """The latent size for a result's unit, where it is not the default 16."""
+    return "" if args.input_size == 16 else f", {args.input_size}x{args.input_size} latents"
 
 
 def _family(cfg) -> str:
@@ -184,18 +207,20 @@ def _profile(out_dir: str, call, table: str, calls: int = 3, steps_per_call: int
     }
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--mode", choices=["sample", "train"], default="sample")
     p.add_argument("--model", default="DiT-S/2")
     p.add_argument("--batch", type=int, default=32, help="pre-CFG samples (sample) or the train batch")
     p.add_argument("--steps", type=int, default=250)
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default="bfloat16")
+    p.add_argument("--input-size", type=int, default=16,
+                   help="latent side (16: the ImageNet-128 latents, T=64 tokens at patch 2; 32: ImageNet-256, "
+                        "T=256, past dit_stack's T <= 64, so auto runs the plain path)")
     p.add_argument("--block-kernel", choices=list(BLOCK_KERNELS), default="auto")
     p.add_argument("--modulation", choices=list(MODULATION_KINDS), default="adaln")
     p.add_argument("--attention-impl", choices=list(ATTENTION_IMPLS), default="auto")
-    use_flags = [f.name for f in dataclasses.fields(DiTConfig) if f.name.startswith("use_")]
-    for name in use_flags:
+    for name in USE_FLAGS:
         p.add_argument("--no-" + name.replace("_", "-"), dest=name, action="store_false",
                        help=f"turn {name} off (default on)")
     p.add_argument("--attn-bwd", choices=["pallas", "residual", "reference"], default="pallas",
@@ -204,16 +229,104 @@ def main(argv=None) -> int:
                    help="per-block activation rematerialization (XL-scale train memory)")
     p.add_argument("--scan-blocks", action="store_true",
                    help="block parameters stacked on a leading depth axis (the JAX --scan-blocks layout)")
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="train mode: micro-batch gradient accumulation factor")
     p.add_argument("--resident-data", action="store_true",
                    help="train mode: reuse one device-resident batch (no per-step host upload)")
+    p.add_argument("--sampler", choices=list(SAMPLERS), default="ddpm",
+                   help="sample mode: the chain's sampler (ddim at eta 0)")
+    p.add_argument("--time-schedule", choices=["uniform", "karras"], default="uniform")
+    p.add_argument("--cfg-interval", type=float, nargs=2, default=None, metavar=("SIGMA_LO", "SIGMA_HI"),
+                   help="sample mode: limited-interval guidance (arXiv 2404.07724), CFG only where sigma(t) is in "
+                        "[LO, HI]; the unguided steps run cond-only on half the rows (ddpm, dpm++, unipc)")
+    p.add_argument("--cache-interval", type=int, default=0,
+                   help="sample mode: block-span caching, the span recomputed every N steps (0: the exact chain; "
+                        "ddpm and dpm++); lossy")
+    p.add_argument("--cache-span", type=str, default=None, help="lo,hi block span to cache (default the middle half)")
+    p.add_argument("--cache-mode", choices=["hold", "forecast"], default="forecast",
+                   help="the skipped steps' span delta: held (Delta-DiT) or linearly forecast")
+    p.add_argument("--scan-unroll", type=int, default=1, help="taken for the JAX flag and ignored")
     p.add_argument("--profile-dir", default=None,
                    help="trace a few train steps (or one 10-step chain) with torch.profiler after the timed "
                         "ones and write the table here")
     p.add_argument("--repeats", type=int, default=3)
     p.add_argument("--n-model", type=int, default=1,
                    help="sample mode under torchrun: ranks on the mesh's model axis (the data axis takes the rest)")
-    args = p.parse_args(argv)
+    return p
 
+
+def bench_config(args) -> DiTConfig:
+    """The model config of both modes."""
+    return build_config(args.model, in_channels=4, input_size=args.input_size, num_classes=1000,
+                        compute_dtype=args.dtype, block_kernel=args.block_kernel, attn_bwd=args.attn_bwd,
+                        modulation=args.modulation, attention_impl=args.attention_impl, remat=args.remat,
+                        scan_blocks=args.scan_blocks, **{name: getattr(args, name) for name in USE_FLAGS})
+
+
+def bench_diffusion(args, device, steps=None):
+    """The respaced diffusion of ``--steps`` (or ``steps``) on the sampler's
+    and schedule's grid."""
+    return create_diffusion(respacing_string(steps or args.steps, args.sampler, args.time_schedule), device=device)
+
+
+def build_chain(args, cfg: DiTConfig, state_dict, diffusion, device, mesh=None):
+    """The chain sample mode times (JAX ``bench.py:279-305``): the
+    block-span cached chain under ``--cache-interval`` > 1 (ddpm or dpm++;
+    one device), else ``build_sample_fn`` with the batch as hint. CFG at
+    scale 1.5, unclipped, ddim at eta 0; ``--cfg-interval`` composes with
+    both."""
+    interval = tuple(args.cfg_interval) if args.cfg_interval else None
+    if args.cache_interval > 1:
+        if args.sampler not in ("ddpm", "dpm++"):
+            raise SystemExit("--cache-interval composes with --sampler ddpm or dpm++")
+        if mesh is not None:
+            raise SystemExit("--cache-interval runs on one device")
+        span = tuple(int(v) for v in args.cache_span.split(",")) if args.cache_span else None
+        return build_cached_sample_fn(cfg, state_dict, diffusion, cfg_scale=CFG_SCALE, fold=True, span=span,
+                                      cache_interval=args.cache_interval, sampler=args.sampler, cfg_interval=interval,
+                                      cache_mode=args.cache_mode, device=device)
+    return build_sample_fn(cfg, state_dict, diffusion, cfg_scale=CFG_SCALE, sampler=args.sampler,
+                           scan_unroll=args.scan_unroll, cfg_interval=interval, batch_hint=args.batch, device=device,
+                           mesh=mesh)
+
+
+def resolved_kernel(cfg: DiTConfig, chain, device) -> str:
+    """What the chain's blocks run: its run config's kernel, ``auto`` read
+    through the per-block policy (``mega`` or ``off``; the cached chain runs
+    per block)."""
+    run_cfg = getattr(chain, "run_cfg", None) or resolve_run_config(cfg, True, None, device)
+    if run_cfg.block_kernel == "auto":
+        return kernel_policy(run_cfg, run_cfg.num_patches, device)
+    return run_cfg.block_kernel
+
+
+def effective_steps(args, diffusion):
+    """The steps ``mfu_pct`` counts (JAX ``bench.py:395-412``): None under a
+    cache; an unguided step of ``--cfg-interval`` counts half (the
+    cond-only call runs half the rows)."""
+    if args.cache_interval > 1:
+        return None
+    if not args.cfg_interval:
+        return args.steps
+    g0, g1 = cfg_interval_segments(diffusion, *args.cfg_interval)
+    return (g1 - g0) + (args.steps - (g1 - g0)) * 0.5
+
+
+def sample_unit(args, kernel: str) -> str:
+    """The unit of sample mode's line: the sampler, the steps, the schedule,
+    the cache and the interval (JAX ``bench.py:418-431``)."""
+    return (
+        f"{args.sampler.upper()} steps/s ({args.model}, batch {args.batch}x2 CFG, {args.steps} respaced steps"
+        + _latents(args)
+        + (f", {args.time_schedule}" if args.time_schedule != "uniform" else "")
+        + (f", cache-interval {args.cache_interval}, cache-mode {args.cache_mode}" if args.cache_interval > 1 else "")
+        + (f", cfg-interval {args.cfg_interval[0]:g}-{args.cfg_interval[1]:g}" if args.cfg_interval else "")
+        + f", {args.dtype}, block_kernel {kernel}"
+    )
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
     device = torch.device("cuda")
     if not torch.cuda.is_available():
         raise SystemExit("the benchmark measures a GPU and none is available")
@@ -226,20 +339,17 @@ def main(argv=None) -> int:
         rank = mesh.rank
     elif args.n_model > 1:
         raise SystemExit("--n-model > 1 runs in sample mode under torchrun --nproc-per-node N")
-    cfg = build_config(args.model, in_channels=4, input_size=16, num_classes=1000, compute_dtype=args.dtype,
-                       block_kernel=args.block_kernel, attn_bwd=args.attn_bwd, modulation=args.modulation,
-                       attention_impl=args.attention_impl, remat=args.remat, scan_blocks=args.scan_blocks,
-                       **{name: getattr(args, name) for name in use_flags})
+    cfg = bench_config(args)
     if args.mode == "train":
         print(json.dumps(bench_train(args, cfg, device)))
         return 0
     model = init_model(cfg, seed=0, device=device)
-    diffusion = create_diffusion(str(args.steps), device=device)
-    sample = build_sample_fn(cfg, model.state_dict(), diffusion, cfg_scale=CFG_SCALE, batch_hint=args.batch,
-                             device=device, mesh=mesh)
-    n = args.batch
+    diffusion = bench_diffusion(args, device)
+    sample = build_chain(args, cfg, model.state_dict(), diffusion, device, mesh)
+    kernel = resolved_kernel(cfg, sample, device)
+    n, side = args.batch, args.input_size
     gen = torch.Generator(device=device).manual_seed(0)
-    z = torch.randn(2 * n, 4, 16, 16, generator=gen, device=device)
+    z = torch.randn(2 * n, 4, side, side, generator=gen, device=device)
     y = torch.cat([torch.randint(0, 1000, (n,), generator=gen, device=device), torch.full((n,), 1000, device=device)])
 
     sample(z, y, torch.Generator(device=device).manual_seed(1))
@@ -254,18 +364,22 @@ def main(argv=None) -> int:
     value = args.steps / best
     profile = None
     if args.profile_dir:
-        short = build_sample_fn(cfg, model.state_dict(), create_diffusion("10", device=device), cfg_scale=CFG_SCALE,
-                                batch_hint=args.batch, device=device, mesh=mesh)
+        # a short chain of the same kind; a cache's interval must divide it
+        k = max(args.cache_interval, 1)
+        short = build_chain(args, cfg, model.state_dict(), bench_diffusion(args, device, k * -(-10 // k)), device,
+                            mesh)
         short(z, y, torch.Generator(device=device).manual_seed(1))
         if rank == 0:
             profile = _profile(args.profile_dir, lambda: short(z, y, torch.Generator(device=device).manual_seed(1)),
-                               "sample_key_averages.txt", calls=1, steps_per_call=10)
+                               "sample_key_averages.txt", calls=1, steps_per_call=k * -(-10 // k))
             profile["device_idle_share"] = 1.0 - profile["device_busy_ms_per_step"] / (1e3 / value)
         else:  # the other ranks run the traced chain's collectives
             short(z, y, torch.Generator(device=device).manual_seed(1))
     # a mesh's ranks may share cards: the peak is that of the cards they use
     cards = 1 if mesh is None else min(mesh.size, torch.cuda.device_count())
-    mfu = 100.0 * model_call_flops(cfg, 2 * n) * args.steps / best / (cards * H100_BF16_FLOPS)
+    eff_steps = effective_steps(args, diffusion)
+    mfu = None if eff_steps is None else (
+        100.0 * model_call_flops(cfg, 2 * n) * eff_steps / best / (cards * H100_BF16_FLOPS))
     if mesh is not None:
         torch.distributed.destroy_process_group()
     if rank != 0:
@@ -273,11 +387,10 @@ def main(argv=None) -> int:
     print(json.dumps({
         "metric": "denoise_steps_per_sec_per_gpu",
         "value": value,
-        "unit": f"DDPM steps/s ({args.model}, batch {n}x2 CFG, {args.steps} respaced steps, {args.dtype}, "
-                f"block_kernel {sample.run_cfg.block_kernel}" + (", scan_blocks" if cfg.scan_blocks else "")
-                + _family(cfg)
+        "unit": sample_unit(args, kernel) + (", scan_blocks" if cfg.scan_blocks else "") + _family(cfg)
                 + ("" if mesh is None else f", mesh ({mesh.n_data}, {mesh.n_model}) over {cards} card(s)") + ")",
         "mfu_pct": mfu,
+        "block_kernel": kernel,
         "chain_seconds": times,
         "profile": profile,
         "device": _device_info(),

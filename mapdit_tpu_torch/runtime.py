@@ -21,7 +21,13 @@ the whole-stack kernel cannot skip a span.
 ``build_sample_fn(mesh=)`` runs the chain on a ('data', 'model') mesh of
 ranks (``parallel/mesh.py``): the data axis splits the batch, the model axis
 runs the tensor-parallel islands of ``ops/cuda/dit_block_tp.py`` on each
-rank's weight shards.
+rank's weight shards. ``build_dp_sharded_sample_fn`` is the other
+data-parallel layout: each data rank runs the whole one-device chain on its
+own rows with its own stream.
+
+``build_pit_sample_fn`` is parallel-in-time DDIM: each Picard sweep is one
+model call over a window of chain positions, on one device or with the
+window's rows split over a mesh's data axis.
 """
 
 from __future__ import annotations
@@ -566,6 +572,243 @@ def build_cached_sample_fn(
 
     sample_fn.span = span
     sample_fn.prepared = prepared
+    return sample_fn
+
+
+def data_rank_generator(generator, data_index: int, device) -> Optional[torch.Generator]:
+    """The stream of one data rank of :func:`build_dp_sharded_sample_fn`:
+    a seed drawn once from ``generator`` (every rank holds the same
+    generator, so every rank draws the same seed) plus the rank's data
+    index. The port's counterpart of JAX's ``fold_in(key, axis_index)``;
+    None (the global RNG) without a generator."""
+    if generator is None:
+        return None
+    seed = int(torch.randint(0, 2**62, (1,), generator=generator, device=generator.device))
+    return torch.Generator(device=device).manual_seed(seed + data_index)
+
+
+def build_dp_sharded_sample_fn(
+    cfg: DiTConfig,
+    state_dict: Dict[str, torch.Tensor],
+    diffusion,
+    mesh,
+    cfg_scale: Optional[float] = None,
+    fold: bool = True,
+    sampler: str = "ddpm",
+    eta: float = 0.0,
+    scan_unroll: int = 1,
+    clip_denoised: bool = False,
+    cfg_interval: Optional[tuple] = None,
+    batch_hint: Optional[int] = None,
+    dynamic_threshold: Optional[float] = None,
+    device=None,
+    prepared: Optional[Dict] = None,
+):
+    """``sample_fn(noise, y, generator)``: data-parallel sampling in which
+    every data rank runs the whole one-device chain on its rows
+    (``runtime.py:751-849`` of the JAX package, its ``shard_map`` layout),
+    the twin of :func:`build_sample_fn`'s sampler arguments.
+
+    ``mesh`` needs one model rank (the chain is a one-device program);
+    ``parallel.Mesh(1, 1, 0, device)`` built by hand is one rank without a
+    process group. Kernels resolve per rank as on one device, ``auto``
+    promoting to the whole-stack kernel with the per-rank batch
+    ``batch_hint // n_data`` as its hint.
+
+    Unlike :func:`build_sample_fn` it takes the un-doubled (N, C, H, W)
+    noise and (N,) cond labels: each rank takes its N / n_data rows and
+    doubles them for CFG itself, so cond / uncond pairs stay on one rank.
+    Each rank draws its own stream (:func:`data_rank_generator`), so the
+    result is a different (equally valid) draw than the one-device chain's
+    under the same generator. Returns the N rows all-gathered over the data
+    group."""
+    if mesh.n_model != 1:
+        raise ValueError(
+            "kernel-sharded sampling is data-parallel only (each rank runs the one-device chain); tensor "
+            f"parallelism runs on build_sample_fn(mesh=), got {mesh.n_model} model ranks"
+        )
+    device = mesh.device if device is None else device
+    hint = None if batch_hint is None else max(1, batch_hint // mesh.n_data)
+    prepare, shared_fn = build_shared_sample_fn(
+        cfg, diffusion, cfg_scale=cfg_scale, fold=fold, sampler=sampler, eta=eta, scan_unroll=scan_unroll,
+        clip_denoised=clip_denoised, cfg_interval=cfg_interval, batch_hint=hint,
+        dynamic_threshold=dynamic_threshold, device=device, mesh=mesh if mesh.size > 1 else None,
+    )
+    if prepared is None:
+        prepared = prepare(state_dict)
+    else:
+        check_prepared(prepared, cfg, fold, shared_fn.run_cfg.block_kernel == "mega_stack")
+
+    def sample_fn(noise: torch.Tensor, y: torch.Tensor, generator=None) -> torch.Tensor:
+        n_all = noise.shape[0]
+        if n_all % mesh.n_data:
+            raise ValueError(f"the batch of {n_all} does not divide over {mesh.n_data} data ranks")
+        n = n_all // mesh.n_data
+        keep = slice(mesh.data_index * n, (mesh.data_index + 1) * n)
+        z, labels = noise[keep], y[keep]
+        if cfg_scale is not None:
+            z = torch.cat([z, z])
+            labels = torch.cat([labels, torch.full_like(labels, cfg.num_classes)])
+        out = shared_fn(prepared, z, labels, data_rank_generator(generator, mesh.data_index, noise.device))[:n]
+        return out if mesh.n_data == 1 else all_gather_rows(out, mesh.data_group)
+
+    sample_fn.run_cfg = shared_fn.run_cfg
+    sample_fn.prepared = prepared
+    return sample_fn
+
+
+def pit_schedule(num_timesteps: int, window: int, sweeps: int = 2, shift: Optional[int] = None):
+    """The static schedule of :func:`build_pit_sample_fn`
+    (``runtime.py:1015-1068`` of the JAX package) as chain-order timestep
+    indices, one (window,) int64 row a sweep: ``("block", rows)`` with
+    ``rows`` of shape (T / window, window), each row's window swept
+    ``sweeps`` times; or ``("slide", warm, rows)`` with ``rows`` of shape
+    (T / shift, window), the first row swept ``warm = window / shift - 1``
+    parked times before the slides. Raises ``ValueError`` where the JAX
+    package asserts."""
+    t = num_timesteps
+    chain = np.arange(t - 1, -1, -1)
+    if shift is not None:
+        if shift < 1 or window % shift or t % shift:
+            raise ValueError(f"shift {shift} must divide window {window} and chain length {t}")
+        if window > t:
+            raise ValueError(f"window {window} is longer than the {t}-step chain")
+        pos = np.arange(t // shift)[:, None] * shift + np.arange(window)[None, :]
+        return "slide", window // shift - 1, torch.from_numpy(chain[np.minimum(pos, t - 1)])
+    if window < 1 or t % window:
+        raise ValueError(f"window {window} must divide the respaced chain length {t}")
+    if not 1 <= sweeps <= window:
+        raise ValueError(f"sweeps {sweeps} must lie in [1, window {window}]")
+    return "block", None, torch.from_numpy(chain.reshape(t // window, window))
+
+
+def build_pit_sample_fn(
+    cfg: DiTConfig,
+    state_dict: Dict[str, torch.Tensor],
+    diffusion,
+    cfg_scale: Optional[float] = None,
+    fold: bool = True,
+    window: int = 8,
+    sweeps: int = 2,
+    shift: Optional[int] = None,
+    clip_denoised: bool = False,
+    dynamic_threshold: Optional[float] = None,
+    mesh=None,
+    device=None,
+    prepared: Optional[Dict] = None,
+):
+    """``sample_fn(noise, y, generator)``: parallel-in-time DDIM at eta 0
+    (block / sliding Picard, ParaDiGMS family, arXiv 2305.16317), the twin
+    of ``runtime.py:852-1070`` of the JAX package.
+
+    The sequential chain x_{i+1} = Phi(x_i, t_i) is solved in windows of
+    ``window`` consecutive steps. Each Picard sweep evaluates the model at
+    every window position in one call over window x N rows (position-major,
+    per-row timesteps) and shifts the results one position down the window.
+    The block schedule runs ``sweeps`` Jacobi sweeps a window: T / window x
+    ``sweeps`` model calls, exact at ``sweeps == window``. ``shift=S``
+    selects the sliding schedule: ``window / S - 1`` parked warm-up sweeps,
+    then T / S sweeps that each accept the window's leading S positions;
+    exact at ``shift=1``; ``sweeps`` is then ignored. On one device it is
+    slower than the sequential chain (window x the rows a call).
+
+    The batch contract is :func:`build_sample_fn`'s: [z; z] and [y; null]
+    under CFG, 2N rows out; the [cond; uncond] doubling happens inside each
+    sweep's call (``DiT.forward_with_cfg``). The generator is ignored:
+    eta 0 draws no noise. Each step is ``GaussianDiffusion.ddim_sample``
+    with per-row table gathers. Weights are prepared as
+    :func:`build_sample_fn` prepares them, the window's rows as the batch
+    hint (``auto`` takes the whole-stack kernel on the card: one
+    ``dit_stack`` launch a sweep). ``prepared`` as in
+    :func:`build_sample_fn`.
+
+    ``mesh`` (two or more ranks): the window x N rows of each sweep split
+    over the data axis (rows a data axis does not divide run whole on every
+    rank), each rank running its slice and all-gathering the results; a
+    model axis runs the tensor-parallel islands exactly as
+    ``build_sample_fn(mesh=)`` does. The JAX package runs only ``auto`` /
+    ``off`` on a mesh (GSPMD cannot partition its kernels)."""
+    mode, warm, t_rows = pit_schedule(diffusion.num_timesteps, window, sweeps, shift)
+    if mesh is not None and mesh.size > 1:
+        device = mesh.device if device is None else device
+        cfg = _mesh_config(cfg, fold, mesh, device)
+    else:
+        mesh = None
+    device = resolve_device(device)
+    # the ddim chain's checks and weights; its batch hint (only whether one is
+    # given matters) stands for the window x N rows of a sweep
+    prepare, ddim_fn = build_shared_sample_fn(
+        cfg, diffusion, cfg_scale=cfg_scale, fold=fold, sampler="ddim", clip_denoised=clip_denoised,
+        batch_hint=window, dynamic_threshold=dynamic_threshold, device=device, mesh=mesh,
+    )
+    run_cfg = ddim_fn.run_cfg
+    if prepared is None:
+        prepared = prepare(state_dict)
+    else:
+        check_prepared(prepared, cfg, fold, run_cfg.block_kernel == "mega_stack")
+    model, stack = prepared["model"], prepared["block_stack"]
+    denoised = _denoised_fn(dynamic_threshold)
+    t_rows = t_rows.to(device)
+
+    @torch.no_grad()
+    def sample_fn(noise: torch.Tensor, y: torch.Tensor, generator=None) -> torch.Tensor:
+        del generator  # eta 0: the chain draws no noise
+        n = noise.shape[0] // 2 if cfg_scale is not None else noise.shape[0]
+        x0, y_tiled = noise[:n], y[:n].repeat(window)
+        m = window * n
+        split = mesh is not None and mesh.n_data > 1 and m % mesh.n_data == 0
+        keep = slice(None)
+        if split:
+            m_loc = m // mesh.n_data
+            keep = slice(mesh.data_index * m_loc, (mesh.data_index + 1) * m_loc)
+        y_loc = y_tiled[keep]
+
+        if cfg_scale is None:
+            def model_fn(x, t, y):
+                return model(x, t, y, block_stack=stack)
+        else:
+            y_full = torch.cat([y_loc, torch.full_like(y_loc, run_cfg.num_classes)])
+
+            def model_fn(x, t, y):
+                out = model.forward_with_cfg(torch.cat([x, x]), torch.cat([t, t]), y_full, cfg_scale,
+                                             block_stack=stack)
+                return out[: x.shape[0]]
+
+        def sweep(X, t_window):
+            """One Picard sweep: the ddim step at every (position, sample)
+            row of ``X`` (window, N, ...) in one model call."""
+            rows = X.reshape(m, *X.shape[2:])[keep]
+            t = t_window.repeat_interleave(n)[keep]
+            out = diffusion.ddim_sample(
+                model_fn, rows, t, clip_denoised=clip_denoised, denoised_fn=denoised, model_kwargs={"y": y_loc},
+                eta=0.0,
+            )["sample"]
+            if split:
+                out = all_gather_rows(out, mesh.data_group)
+            return out.reshape(X.shape)
+
+        if mode == "slide":
+            X = x0.expand(window, *x0.shape)
+            for _ in range(warm):
+                X = torch.cat([x0[None], sweep(X, t_rows[0])[:-1]])
+            x = x0
+            for t_window in t_rows:
+                Y = sweep(X, t_window)
+                x = Y[shift - 1]
+                X = torch.cat([Y[shift - 1 : window - 1], Y[-1].expand(shift, *Y.shape[1:])])
+        else:
+            x = x0
+            for t_window in t_rows:
+                X = x.expand(window, *x.shape)
+                for _ in range(sweeps):
+                    Y = sweep(X, t_window)
+                    X = torch.cat([x[None], Y[:-1]])
+                x = Y[-1]
+        return torch.cat([x, x]) if cfg_scale is not None else x
+
+    sample_fn.run_cfg = run_cfg
+    sample_fn.prepared = prepared
+    sample_fn.model_calls = warm + len(t_rows) if mode == "slide" else len(t_rows) * sweeps
     return sample_fn
 
 

@@ -22,9 +22,7 @@ evaluation runs in this process on ``--device`` (CUDA unless given),
 through ``--block-kernel`` (default: the training config's; ``auto`` takes
 the whole-stack kernel on a bf16 run). ``--grid`` also scores the lossy and
 few-step accelerators on the trained weights (span caching, few-step
-dpm++, limited-interval guidance). The JAX tool's parallel-in-time rows
-need ``build_pit_sample_fn``, a multi-device layout (ROADMAP item
-"Multi-GPU layouts, the rest"), and are not in this grid.
+dpm++, limited-interval guidance, parallel-in-time ddim).
 """
 
 from __future__ import annotations
@@ -150,15 +148,17 @@ def draw_samples(
     dynamic_threshold=None,
     block_kernel=None,
     device=None,
+    pit=None,
 ) -> np.ndarray:
     """Run the sampling chain on ``state_dict``; returns denormalized,
     unclipped latents (K, M, C, S, S). z, labels and the chain's noise come
     from one generator seeded with ``seed``, so every config of a family
-    sees the same draws."""
+    sees the same draws. ``pit=(window, sweeps or None, shift or None)``
+    runs the parallel-in-time ddim chain (``runtime.build_pit_sample_fn``)."""
     import torch
 
     from mapdit_tpu_torch.diffusion import create_diffusion, respacing_string
-    from mapdit_tpu_torch.runtime import build_cached_sample_fn, build_sample_fn
+    from mapdit_tpu_torch.runtime import build_cached_sample_fn, build_pit_sample_fn, build_sample_fn
     from mapdit_tpu_torch.sample import decode_latents, run_config
     from mapdit_tpu_torch.utils.device import resolve_device
 
@@ -171,7 +171,7 @@ def draw_samples(
         # any guidance baked in (no CFG doubling)
         from mapdit_tpu_torch.diffusion.distill import student_diffusion_from_config
 
-        if cache_interval > 1 or cfg_interval is not None:
+        if cache_interval > 1 or cfg_interval is not None or pit is not None:
             raise ValueError("the accelerator grid does not apply to distilled students")
         diffusion = student_diffusion_from_config(train_args, device=device)
         sampler = "ddim"
@@ -179,7 +179,13 @@ def draw_samples(
             cfg_scale = None
     else:
         diffusion = create_diffusion(respacing_string(num_sampling_steps, sampler, time_schedule), device=device)
-    if cache_interval > 1:
+    if pit is not None:
+        window, sweeps, shift = pit
+        sample_fn = build_pit_sample_fn(
+            cfg, state_dict, diffusion, cfg_scale=cfg_scale, window=window, sweeps=sweeps or 2, shift=shift,
+            dynamic_threshold=dynamic_threshold, device=device,
+        )
+    elif cache_interval > 1:
         sample_fn = build_cached_sample_fn(
             cfg, state_dict, diffusion, cfg_scale=cfg_scale, sampler=sampler, cache_interval=cache_interval,
             cache_mode=cache_mode, cfg_interval=cfg_interval, dynamic_threshold=dynamic_threshold, device=device,
@@ -307,9 +313,9 @@ def finite_json(obj):
 
 
 # (family, label, sampler, steps, schedule, cache interval, mode, cfg_scale,
-# cfg_interval); a family's exact chain (interval 0, no cfg interval) comes
-# before its variants. The JAX grid's ddim50 parallel-in-time family is a
-# multi-device layout (ROADMAP item "Multi-GPU layouts, the rest").
+# cfg_interval[, pit]); a family's exact chain (interval 0, no cfg interval,
+# no pit) comes before its variants. pit = (window, sweeps, shift): the
+# parallel-in-time family, scored against the sequential ddim chain.
 GRID = [
     ("ddpm250", "ddpm:250", "ddpm", 250, "uniform", 0, "hold", None, None),
     ("ddpm250", "ddpm:250:k2-hold", "ddpm", 250, "uniform", 2, "hold", None, None),
@@ -326,6 +332,9 @@ GRID = [
     ("cfg4", "dpm++:20:karras:cfg4:interval", "dpm++", 20, "karras", 0, "hold", 4.0, (0.3, 3.0)),
     ("cfg1.5", "ddpm:250:cfg1.5", "ddpm", 250, "uniform", 0, "hold", 1.5, None),
     ("cfg1.5", "ddpm:250:cfg1.5:interval", "ddpm", 250, "uniform", 0, "hold", 1.5, (0.3, 3.0)),
+    ("ddim50", "ddim:50", "ddim", 50, "uniform", 0, "hold", None, None),
+    ("ddim50", "ddim:50:pit-slide-K10-S2", "ddim", 50, "uniform", 0, "hold", None, None, (10, None, 2)),
+    ("ddim50", "ddim:50:pit-block-K10-J5", "ddim", 50, "uniform", 0, "hold", None, None, (10, 5, None)),
 ]
 
 
@@ -334,15 +343,16 @@ def run_grid(state_dict, train_args: dict, gt: dict, args) -> list:
     config the distribution-recovery metrics and the final samples' rel L2
     against the exact chain of its family on the same draws."""
     rows, exact_by_family = [], {}
-    for family, label, sampler, steps, schedule, k, mode, scale, interval in GRID:
+    for family, label, sampler, steps, schedule, k, mode, scale, interval, *pit in GRID:
+        pit = pit[0] if pit else None
         latents = draw_samples(
             state_dict, train_args, samples_per_class=args.samples_per_class, sampler=sampler,
             num_sampling_steps=steps, time_schedule=schedule, seed=args.seed + 1, cache_interval=k,
             cache_mode=mode, cfg_scale=scale, cfg_interval=interval, dynamic_threshold=args.dynamic_threshold,
-            block_kernel=args.block_kernel, device=args.device,
+            block_kernel=args.block_kernel, device=args.device, pit=pit,
         )
         row = {"config": label, **dist_metrics(latents, gt)}
-        if k == 0 and interval is None:
+        if k == 0 and interval is None and pit is None:
             exact_by_family[family] = latents
         else:
             row["rel_l2_vs_exact"] = rel_l2(latents, exact_by_family[family])
@@ -384,7 +394,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--skip-init-baseline", action="store_true")
     p.add_argument("--grid", action="store_true",
                    help="also score the accelerator grid (span cache hold / forecast, few-step dpm++, "
-                        "limited-interval guidance) on the trained weights, one JSON row per config")
+                        "limited-interval guidance, parallel-in-time ddim) on the trained weights, one JSON row per config")
     p.add_argument("--device", type=str, default="cuda", help="where the evaluation samples; cuda unless given")
     p.add_argument("--block-kernel", choices=list(BLOCK_KERNELS), default=None,
                    help="the evaluation chains' block kernel (default: the training config's)")

@@ -3,8 +3,9 @@
 port's train CLI wrote (DiT-XS/8, 12 steps, EMA snapshots): every sampler
 flag, the seed rule, the VAE path, the artifacts, the PNG writer against the
 JAX package's PIL grid, decode_latents against the JAX script's, the weight
-loading paths, and the flags deferred to later ROADMAP items. A distilled
-student's sampling is tests/test_torch_distill.py's."""
+loading paths, and the refused flags. A distilled student's sampling is
+tests/test_torch_distill.py's; sample_fid's parallel-in-time and mesh
+layouts are tests/test_torch_pit.py's and tests/test_torch_dp_sample.py's."""
 
 import importlib.util
 import os
@@ -205,10 +206,19 @@ def test_load_variables(exp, tmp_path):
 
 
 def test_deferred_and_refused_flags(exp, tmp_path, monkeypatch):
-    """The multi-device layouts name 'Multi-GPU layouts, the rest', and the
-    JAX scripts' refusals hold (a distilled student's: tests/test_torch_distill.py)."""
-    for flags in (["--n-model", "2"], ["--kernel-sharding", "shard_map"], ["--pit-window", "4"]):
-        with pytest.raises(NotImplementedError, match="Multi-GPU layouts, the rest"):
+    """The JAX scripts' refusals hold: sample_fid's layout refusals (JAX
+    sample_fid.py:82-106: parallel-in-time needs ddim at eta 0 and the
+    gspmd layout without a cfg interval, shard_map is data-parallel only)
+    and the port's own, --n-model > 1 outside torchrun; the sampling CLIs'
+    (a distilled student's: tests/test_torch_distill.py)."""
+    for flags, match in (
+        (["--pit-window", "4"], "--sampler ddim --eta 0"),
+        (["--pit-window", "4", "--sampler", "ddim", "--eta", "1.0"], "--sampler ddim --eta 0"),
+        (["--pit-window", "4", "--sampler", "ddim", "--cfg-interval", "0.3", "3.0"], "gspmd layout only"),
+        (["--n-model", "2", "--kernel-sharding", "shard_map"], "data-parallel only"),
+        (["--n-model", "2"], "torchrun"),
+    ):
+        with pytest.raises(SystemExit, match=match):
             run(sample_fid, exp, tmp_path, "--num-samples", "2", *flags)
     with pytest.raises(ValueError, match="--save-trajectory"):
         run(sample, exp, tmp_path, "--sampler", "ddim", "--save-trajectory", str(tmp_path / "t.png"))

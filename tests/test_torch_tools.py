@@ -232,7 +232,7 @@ def test_probe_runs_end_to_end_in_process(tmp_path):
     with the arguments run_train passes to its subprocess, then the probe
     with --skip-train, the init baseline and --grid: its one JSON line has
     the JAX tool's keys, finite trained metrics and one row a grid config
-    (the JAX grid less its parallel-in-time rows)."""
+    (the JAX grid's, its parallel-in-time rows included)."""
     work = str(tmp_path)
     argv = ["--work-dir", work, "--model", "DiT-XS/4", "--classes", "4", "--input-size", "8", "--train-steps", "8",
             "--batch-size", "16", "--samples-per-class", "2", "--num-sampling-steps", "4", "--examples", "64",
@@ -251,7 +251,7 @@ def test_probe_runs_end_to_end_in_process(tmp_path):
         assert key in out, key
     assert out["sampler"] == "dpm++:4:karras" and out["run_dir"].endswith("000-DiT-XS-4")
     assert all(np.isfinite(out[k]) for k in ("mean_err_trained", "std_ratio_trained", "label_acc_trained"))
-    assert [row["config"] for row in out["grid"]] == [g[1] for g in probe.GRID] and len(out["grid"]) == 13
+    assert [row["config"] for row in out["grid"]] == [g[1] for g in probe.GRID] and len(out["grid"]) == 16
 
 
 # --------------------------------------------- sweep and the FID protocol
