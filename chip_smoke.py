@@ -166,6 +166,18 @@ Phases, one line each; any failure exits non-zero before the final line:
      sample_fid in process on phase 8's run A with --kernel-sharding
      shard_map and with --pit-window 10, 16 images each, rank 0's npz;
      exact dit_stack launches per rank;
+ 10b. data-parallel training on the same two ranks as a (2, 1) mesh, on
+     mega_attn + pallas: DiT-S/2 at the global batch 256, the 2-rank step
+     against the one-card step from one seed (the float32 plain path at the
+     CPU test's tolerances, the kernel path by check_paths' rule against the
+     float32 one-card step), each rank's launches a step the one-card
+     step's, every rank's weights, EMA copies and generator the same after
+     3 steps; DiT-XL/2 at the global batch 64, DP and FSDP 3 steps each,
+     FSDP's loss and grad_norm held to DP's, each rank's allocation peak and
+     resident state beside the prediction; ms a step per rank and the gloo
+     collectives' ms (through host memory: not NCCL); then the train CLI
+     under torchrun (2 ranks, --fsdp true --checkpointer torch-sharded) at
+     S/2, resumed on one process and sampled from its EMA snapshot;
  11. the kernels JSON line, the device line again, and the ok line.
 Phase 3 holds dit_stack (csrc/dit_stack.cu: the one persistent kernel of
 fused_dit_stack and, at depth 1, fused_dit_block) at STACK_SHAPES (the S/2
@@ -290,6 +302,24 @@ BENCH_RUNS = {
 # ddpm chain over DP_BATCH un-doubled samples, PIT (block, full sweeps) on
 # one sample, and sample_fid's two layouts at DP_FID_IMAGES images each
 DP_BATCH, DP_STEPS, DP_FID_IMAGES = 16, 10, 16
+# phase 10b: data-parallel training on the (2, 1) mesh of two ranks sharing
+# the card, mega_attn + pallas: DiT-S/2 at the global batch TRAIN_BATCH
+# against the one-card step, DP_TRAIN_STEPS steps; DiT-XL/2 DP and FSDP at
+# DP_XL_BATCH rows, DP_TRAIN_STEPS steps each; the train CLI under torchrun
+# at S/2 (--fsdp true --checkpointer torch-sharded), DP_CLI_STEPS steps with
+# a checkpoint at DP_CLI_CKPT, then resumed on one process to DP_CLI_RESUMED
+DP_TRAIN_STEPS, DP_XL_BATCH = 3, 64
+DP_CLI_STEPS, DP_CLI_CKPT, DP_CLI_RESUMED = 6, 4, 8
+# a rank's resident state (f32 params, two Adam moments, two EMA copies) at
+# XL/2's 674,364,745 parameters on two ranks: 5 x 2.697 GB, halved under FSDP
+DP_XL_RESIDENT_GB = {"dp": 13.49, "fsdp": 6.74}
+# the 2-rank step against the one-card step on the float32 plain path: the
+# CPU test's tolerances (tests/torch_dp_train_ranks.py), the same sums in
+# another order (on the bf16 kernel path the kernels' roundings differ at 128
+# rows and 256, so that path is held by check_paths' rule against the
+# float32 one-card step); FSDP's later steps against DP's on parameters that
+# differ by those sums
+DP_METRIC_RTOL, DP_GRAD_ATOL, DP_PARAM_ATOL, DP_LATER_RTOL = 1e-5, 1e-5, 1e-5, 1e-4
 FID_SAMPLES, FID_BATCH = 64, 32  # phase 8b's sample_fid run (250 steps, CFG 1.5)
 VAE_CHECK_IMAGES = 8  # latents decoded on the card and on the CPU in phase 8b
 # phase 8c: the server's buckets and --seed, the chains it is held on
@@ -2661,6 +2691,297 @@ def tp_phase(torch, refs) -> dict:
     return {f"tp/{kernel}": reports[0]["counts"][kernel] for kernel in ("mega_tp", "mega_attn_tp")}
 
 
+def dp_train_rank(rank, dev, out_dir):
+    """One rank of phase 10b (started by mapdit_tpu_torch.parallel.spawn) on
+    the (2, 1) mesh: DiT-S/2 at TRAIN_BATCH global rows (the one-card step
+    on rank 0 first, from the same seed and weights), then DiT-XL/2 DP and
+    FSDP. Writes its report to ``out_dir``; any failure raises, and then
+    spawn raises in the parent."""
+    import torch
+    import torch.distributed as dist
+
+    from mapdit_tpu_torch.diffusion import create_diffusion
+    from mapdit_tpu_torch.models import build_config, init_model
+    from mapdit_tpu_torch.ops.cuda import attn_branch as ab
+    from mapdit_tpu_torch.parallel import make_mesh
+    from mapdit_tpu_torch.parallel.mesh import check_replicated, mean_all_reduce_
+    from mapdit_tpu_torch.training import (
+        SyntheticLatentDataset, create_optimizer, create_train_state, make_train_step, warmup_flat_invsqrt,
+    )
+
+    mesh = make_mesh(2, 1, device=dev)
+    tx = create_optimizer(warmup_flat_invsqrt(1e-2, 100, 1000))
+    diffusion = create_diffusion("", device=dev)
+    ds = SyntheticLatentDataset(num_examples=1024, num_classes=1000, size=16, seed=SEED)
+    report = {"backend": dist.get_backend(mesh.data_group)}
+
+    def make(cfg, sd, on_mesh, fsdp=False):
+        m = mesh if on_mesh else None
+        state = create_train_state(cfg, tx, seed=SEED, device=dev, state_dict=sd, mesh=m, fsdp=fsdp)
+        step = make_train_step(cfg, diffusion, tx, stats_mean=ds.stats["mean"], stats_std=ds.stats["std"], mesh=m,
+                               fsdp=fsdp)
+        return state, step
+
+    def rows(batch, on_mesh):
+        if not on_mesh:
+            return batch
+        n = next(iter(batch.values())).shape[0] // mesh.n_data
+        return {k: v[mesh.data_index * n:(mesh.data_index + 1) * n] for k, v in batch.items()}
+
+    def timed(state, step, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(state, batch)
+        torch.cuda.synchronize()
+        return {k: float(v) for k, v in metrics.items()}, 1e3 * (time.perf_counter() - t0)
+
+    def collective_ms(fn, runs=3, warm=True):
+        """Host ms of one collective call (after a warm-up call), to a
+        synchronise."""
+        if warm:
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / runs
+
+    # 1. DiT-S/2 at the global batch TRAIN_BATCH: the one-card steps on rank
+    # 0 (float32 plain, then the bf16 kernel path), then the same on the mesh
+    cfg = build_config(MODEL, in_channels=4, input_size=16, num_classes=1000, compute_dtype="bfloat16",
+                       block_kernel="mega_attn", attn_bwd="pallas")
+    f32 = cfg.replace(compute_dtype="float32", block_kernel="off")
+    init = init_model(cfg, seed=SEED, device="cpu")
+    draw_gains(torch, init, SEED)
+    sd0 = init.state_dict()
+    del init
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in next(ds.batches(TRAIN_BATCH, seed=SEED)).items()}
+    steps = {}
+    for name, c, on_mesh in (("one/f32", f32, False), ("one", cfg, False), ("dp/f32", f32, True), ("dp", cfg, True)):
+        if not on_mesh and rank != 0:
+            continue
+        state, step = make(c, sd0, on_mesh)
+        reset_launch_counts()
+        metrics, ms = timed(state, step, rows(batch, on_mesh))
+        counts = launch_counts()
+        check_counts(f"dp-train/s2/{name}/rank{rank}", counts,
+                     {} if c is f32 else mega_attn_expect(ab, cfg.depth, 1, remat=False))
+        steps[name] = {"metrics": metrics, "ms": ms, "counts": counts,
+                       "grads": {k: p.grad.detach().float().cpu() for k, p in state.params.items()},
+                       "params": {k: p.detach().cpu() for k, p in state.params.items()}}
+        if name != "dp":
+            del state, step
+            torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        one, dp = steps["one/f32"], steps["dp/f32"]
+        err = {"metrics": max(abs(dp["metrics"][k] - v) / abs(v) for k, v in one["metrics"].items()),
+               "grads": 0.0, "params": 0.0}
+        for k, g in one["grads"].items():
+            scale = float(g.abs().max()) + 1e-12
+            err["grads"] = max(err["grads"], float((dp["grads"][k] - g).abs().max()) / scale)
+            settled = g.abs() > DP_GRAD_ATOL * scale + 1e-7
+            if bool(settled.any()):
+                err["params"] = max(err["params"], float((dp["params"][k] - one["params"][k])[settled].abs().max()))
+        report["s2_f32_vs_one_card"] = err
+        if err["metrics"] > DP_METRIC_RTOL or err["grads"] > DP_GRAD_ATOL or err["params"] > DP_PARAM_ATOL:
+            raise AssertionError(f"dp-train/s2: the 2-rank float32 step leaves the one-card step: {err}")
+
+        def flat(side):
+            return (torch.tensor([steps[side]["metrics"]["loss"]]),
+                    torch.cat([g.reshape(-1) for g in steps[side]["grads"].values()]))
+
+        (loss_f32, grads_f32), (loss_one, grads_one), (loss_dp, grads_dp) = flat("one/f32"), flat("one"), flat("dp")
+        limit = {"loss": max(2 * rel_l2(loss_one, loss_f32), 1e-2), "grads": max(2 * rel_l2(grads_one, grads_f32), 1e-2)}
+        got = {"loss": rel_l2(loss_dp, loss_f32), "grads": rel_l2(grads_dp, grads_f32)}
+        report["s2_kernels_vs_f32"] = {"dp": got, "one_card": {"loss": rel_l2(loss_one, loss_f32),
+                                                               "grads": rel_l2(grads_one, grads_f32)}, "limit": limit}
+        if any(got[k] > limit[k] for k in got):
+            raise AssertionError(f"dp-train/s2: the 2-rank kernel step {got} off the float32 step beyond {limit}")
+        report["s2_one_card_ms"] = steps["one"]["ms"]
+        if steps["one"]["counts"] != steps["dp"]["counts"]:
+            raise AssertionError(f"dp-train/s2: launches a step {steps['dp']['counts']} against the one-card "
+                                 f"{steps['one']['counts']}")
+    dp = steps.pop("dp")
+    report["s2_first"] = {"metrics": dp["metrics"], "ms": dp["ms"]}
+    counts = dict(dp["counts"])
+    del steps, dp
+    ms = []
+    for _ in range(DP_TRAIN_STEPS - 1):
+        reset_launch_counts()
+        metrics, t = timed(state, step, rows(batch, True))
+        ms.append(t)
+        after = launch_counts()
+        counts = {k: v + after[k] for k, v in counts.items()}
+    report["s2_ms"], report["s2_last_loss"], report["s2_counts"] = ms, metrics["loss"], counts
+    tree = {**state.params, "generator": state.generator.get_state()}
+    for key, ema in state.ema.items():
+        tree.update({f"ema{key}.{k}": v for k, v in ema.items()})
+    check_replicated(tree, dev)
+    grads = [p.grad for p in state.params.values()]
+    report["s2_all_reduce_ms"] = collective_ms(lambda: mean_all_reduce_(grads, mesh.data_group))
+    report["s2_grad_bytes"] = sum(g.numel() * g.element_size() for g in grads)
+    del state, step, grads, tree, batch, sd0
+    torch.cuda.empty_cache()
+
+    # 2. DiT-XL/2 at DP_XL_BATCH global rows, DP then FSDP
+    xl = xl_config().replace(block_kernel="mega_attn", attn_bwd="pallas")
+    sd_xl = xl_state_dict(torch, xl.replace(block_kernel="off"), dev)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in next(ds.batches(DP_XL_BATCH, seed=SEED)).items()}
+    report["xl"] = {}
+    for name, fsdp in (("dp", False), ("fsdp", True)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        state, step = make(xl, sd_xl, True, fsdp)
+        runs = [timed(state, step, rows(batch, True)) for _ in range(DP_TRAIN_STEPS)]
+        opt_bytes = sum(t.numel() * t.element_size() for st in state.optimizer.state.values() for t in st.values()
+                        if torch.is_tensor(t) and t.is_cuda)
+        held_bytes = sum(t.numel() * t.element_size() for t in state.held.values())
+        ema_bytes = sum(t.numel() * t.element_size() for ema in state.ema.values() for t in ema.values())
+        row = {"ms": [t for _, t in runs], "loss": [m["loss"] for m, _ in runs],
+               "grad_norm": [m["grad_norm"] for m, _ in runs], "peak_bytes": torch.cuda.max_memory_allocated(dev),
+               "resident_bytes": held_bytes + opt_bytes + ema_bytes}
+        if fsdp:
+            dp_ = state.dp
+            row["sharded_tensors"], row["replicated_tensors"] = len(dp_.sharded), len(dp_.replicated)
+            # one call each: the steps warmed them up, and each takes seconds through host memory
+            row["all_gather_ms"] = collective_ms(dp_.gather_params, runs=1, warm=False)
+            stage = dp_.flat.new_zeros(dp_.n * dp_.shard_numel)
+            row["reduce_scatter_ms"] = collective_ms(
+                lambda: dist.reduce_scatter_tensor(dp_.grad_flat, stage, group=mesh.data_group), runs=1, warm=False)
+            row["gathered_bytes"] = stage.numel() * stage.element_size()
+            del stage, dp_
+        else:
+            grads = [p.grad for p in state.params.values()]
+            row["all_reduce_ms"] = collective_ms(lambda: mean_all_reduce_(grads, mesh.data_group), runs=1, warm=False)
+            row["grad_bytes"] = sum(g.numel() * g.element_size() for g in grads)
+            del grads
+        report["xl"][name] = row
+        del state, step
+    dp_row, fsdp_row = report["xl"]["dp"], report["xl"]["fsdp"]
+    for key in ("loss", "grad_norm"):
+        for i, (a, b) in enumerate(zip(fsdp_row[key], dp_row[key])):
+            tol = DP_METRIC_RTOL if i == 0 else DP_LATER_RTOL
+            if not math.isfinite(a) or abs(a - b) > tol * abs(b):
+                raise AssertionError(f"dp-train/xl: FSDP {key} at step {i + 1} {a} against DP's {b} (rtol {tol})")
+    del sd_xl, batch
+    torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def dp_train_phase(torch, dev, tmp: str) -> dict:
+    """Phase 10b: data-parallel and fully-sharded training on two ranks
+    sharing the card (see dp_train_rank), then the train CLI under torchrun
+    at S/2 with --fsdp true --checkpointer torch-sharded, resumed on one
+    process in process and sampled from its EMA snapshot. Returns rank 0's
+    launch counts of its S/2 DP steps."""
+    from mapdit_tpu_torch import sample, train
+    from mapdit_tpu_torch.models import build_config
+    from mapdit_tpu_torch.ops.cuda import attn_branch as ab
+    from mapdit_tpu_torch.parallel import spawn
+
+    card = smi_line()
+    with tempfile.TemporaryDirectory(prefix="mapdit_smoke_dp_") as out:
+        t0 = time.perf_counter()
+        spawn(dp_train_rank, 2, args=(out,))
+        seconds = time.perf_counter() - t0
+        reports = []
+        for r in range(2):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                reports.append(json.load(f))
+    err, kern = reports[0]["s2_f32_vs_one_card"], reports[0]["s2_kernels_vs_f32"]
+    phase("dp-train", model=MODEL, mesh="(2,1)", batch=TRAIN_BATCH, path="f32 plain", vs="one card",
+          metrics_rel_err=f"{err['metrics']:.3e}", grads_err_scaled=f"{err['grads']:.3e}",
+          params_err_settled=f"{err['params']:.3e}",
+          tol=f"metrics rtol {DP_METRIC_RTOL:g}, grads {DP_GRAD_ATOL:g} of max, params {DP_PARAM_ATOL:g}")
+    phase("dp-train", model=MODEL, mesh="(2,1)", batch=TRAIN_BATCH, path="mega_attn+pallas", vs="f32 one card",
+          rel_l2_loss=f"{kern['dp']['loss']:.3e}", rel_l2_grads=f"{kern['dp']['grads']:.3e}",
+          one_card_rel_l2_loss=f"{kern['one_card']['loss']:.3e}",
+          one_card_rel_l2_grads=f"{kern['one_card']['grads']:.3e}",
+          tol=json.dumps({k: float(f"{v:.3e}") for k, v in kern["limit"].items()}),
+          launches_a_step_equal_one_card=True, one_card_ms=f"{reports[0]['s2_one_card_ms']:.4f}", card=json.dumps(card))
+    for r, rep in enumerate(reports):
+        phase("dp-train", rank=r, model=MODEL, backend=rep["backend"], rows_a_rank=TRAIN_BATCH // 2,
+              first_ms=f"{rep['s2_first']['ms']:.4f}", ms_per_step=json.dumps([round(v, 4) for v in rep["s2_ms"]]),
+              loss=f"{rep['s2_last_loss']:.6f}", replicas_identical=True,
+              all_reduce_ms=f"{rep['s2_all_reduce_ms']:.4f}", all_reduce_bytes=rep["s2_grad_bytes"],
+              launches=json.dumps({k: v for k, v in rep["s2_counts"].items() if v}), card=json.dumps(card))
+        for name, row in rep["xl"].items():
+            coll = {k: (f"{v:.4f}" if k.endswith("_ms") else v) for k, v in row.items()
+                    if k.endswith("_ms") or k.endswith("_bytes") and k not in ("peak_bytes", "resident_bytes")
+                    or k.endswith("_tensors")}
+            phase("dp-train", rank=r, model=XL_MODEL, layout=name, batch=DP_XL_BATCH, rows_a_rank=DP_XL_BATCH // 2,
+                  ms_per_step=json.dumps([round(v, 4) for v in row["ms"]]),
+                  loss=json.dumps([round(v, 6) for v in row["loss"]]),
+                  grad_norm=json.dumps([round(v, 6) for v in row["grad_norm"]]),
+                  max_memory_allocated_gb=f"{row['peak_bytes'] / 1e9:.3f}",
+                  resident_state_gb=f"{row['resident_bytes'] / 1e9:.3f}",
+                  predicted_resident_gb=DP_XL_RESIDENT_GB[name], **coll, card=json.dumps(card))
+    phase("dp-train", check="xl fsdp loss and grad_norm vs dp", step1_rtol=DP_METRIC_RTOL,
+          later_rtol=DP_LATER_RTOL, ok=True, seconds_with_spawn=f"{seconds:.2f}")
+
+    # the CLI under torchrun, every rank on the one card
+    repo = os.path.dirname(os.path.abspath(__file__))
+    results = os.path.join(tmp, "dp_cli")
+    flags = ["--model", MODEL, "--data-path", "synthetic:1024", "--results-dir", results, "--batch-size",
+             str(TRAIN_BATCH), "--compute-dtype", "bfloat16", "--block-kernel", "mega_attn", "--attn-bwd", "pallas",
+             "--num-classes", "1000", "--log-every", "1", "--metrics-jsonl", "auto", "--num-lin-warmup", "4",
+             "--start-decay", "10", "--ckpt-every", str(DP_CLI_CKPT), "--ema-snapshot-every", str(DP_CLI_CKPT)]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+                           "-m", "mapdit_tpu_torch.train", *flags, "--num-steps", str(DP_CLI_STEPS), "--fsdp", "true",
+                           "--checkpointer", "torch-sharded"],
+                          cwd=repo, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"dp-cli: torchrun exited {proc.returncode}\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    (exp,) = [os.path.join(results, d) for d in os.listdir(results)]
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    shards = os.path.join(exp, "checkpoints", f"{DP_CLI_CKPT:07d}.shards")
+    files = sorted(os.listdir(shards))
+    snaps = sorted(os.listdir(os.path.join(exp, "ema")))
+    log = open(os.path.join(exp, "log.txt")).read()
+    rate = (rows[-1]["step"] - rows[1]["step"]) / (rows[-1]["wall_time"] - rows[1]["wall_time"])
+    phase("dp-cli", run="torchrun", ranks=2, fsdp=True, checkpointer="torch-sharded", steps=DP_CLI_STEPS,
+          seconds=f"{seconds:.2f}", steps_per_s=f"{rate:.3f}", losses=json.dumps([r["loss"] for r in rows]),
+          shards=json.dumps(files), ema=json.dumps(snaps), card=json.dumps(card))
+    if ("devices: 2x" not in log or files != ["index.pt", "rank00000.pt", "rank00001.pt"] or len(rows) != DP_CLI_STEPS
+            or not all(math.isfinite(r["loss"]) for r in rows)
+            or snaps != [f"{std}_{DP_CLI_CKPT:07d}.npz" for std in ("0.050", "0.100")]):
+        raise AssertionError(f"dp-cli: artifacts of {exp}: shards {files}, ema {snaps}, rows {len(rows)}")
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    exp_b = train.main(train.build_parser().parse_args(
+        [*flags, "--num-steps", str(DP_CLI_RESUMED), "--resume", shards]))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    with open(os.path.join(exp_b, "metrics.jsonl")) as f:
+        rows_b = [json.loads(line) for line in f]
+    resumed = f"resumed from {shards} at step {DP_CLI_CKPT}" in open(os.path.join(exp_b, "log.txt")).read()
+    depth = build_config(MODEL).depth
+    check_counts("dp-cli/resume", counts, mega_attn_expect(ab, depth, DP_CLI_RESUMED - DP_CLI_CKPT, remat=False))
+    phase("dp-cli", run="resume on one process", resumed_from_shards=resumed, steps=json.dumps([r["step"] for r in rows_b]),
+          losses=json.dumps([r["loss"] for r in rows_b]))
+    if not resumed or [r["step"] for r in rows_b] != list(range(DP_CLI_CKPT + 1, DP_CLI_RESUMED + 1)) or not all(
+            math.isfinite(r["loss"]) for r in rows_b):
+        raise AssertionError(f"dp-cli: the one-process resume of {shards}: {rows_b}")
+
+    png = os.path.join(tmp, "dp_cli_sample.png")
+    reset_launch_counts()
+    sample.main(sample.build_parser().parse_args(
+        ["--result-dir", exp, "--use-vae", "false", "--class-label", "3", "--sampler", "ddim", "--num-sampling-steps",
+         "10", "--clip-denoised", "true", "--block-kernel", "auto", "--output-file", png]))
+    torch.cuda.synchronize()
+    shape = png_check(png)
+    check_counts("dp-cli/sample", launch_counts(), {"fused_dit_stack": 10, "dit_stack": 10})
+    phase("dp-cli", run="sample from the EMA snapshot", png=json.dumps(shape), snapshot=json.dumps(snaps))
+    return reports[0]["s2_counts"]
+
+
 def count_stack_rows(k):
     """Wrap ``fused_dit_stack`` (the model looks it up at each call) to
     record each call's rows; returns (rows seen, undo)."""
@@ -4029,6 +4350,13 @@ def main() -> int:
         elapsed("9")
         family_launches.update(tp_phase(torch, dict(refs, exp=exp_a, pit_limit=pit_limit)))
         elapsed("10")
+        # 10b. data-parallel and fully-sharded training on the two ranks, and
+        # the train CLI under torchrun; its S/2 steps' launches join phase 6's
+        torch.cuda.empty_cache()
+        dp_counts = dp_train_phase(torch, dev, tmp)
+        train_launches["mega_attn+pallas"] = {
+            key: v + dp_counts.get(key, 0) for key, v in train_launches["mega_attn+pallas"].items()}
+        elapsed("10b")
 
     # 11. report
     kernels = []

@@ -1,7 +1,7 @@
 """Importance sampling over diffusion timesteps, port of
-``mapdit_tpu/diffusion/timestep_sampler.py`` for one process (the all-gather
-of the data-parallel layout comes with the ROADMAP item "Multi-GPU layouts,
-the rest").
+``mapdit_tpu/diffusion/timestep_sampler.py``; under data parallelism every
+rank's (t, loss) pairs are all-gathered before the fold, so that every
+rank's history evolves the same.
 
 ``UniformSampler`` and ``LossSecondMomentResampler``; the resampler's state
 (a ring of the last losses seen at each timestep) is two tensors on the
@@ -14,6 +14,8 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+
+from mapdit_tpu_torch.parallel.mesh import all_gather_rows
 
 
 def create_named_schedule_sampler(name: str, num_timesteps: int):
@@ -84,14 +86,20 @@ class LossSecondMomentResampler:
             t = torch.multinomial(p, batch_size, replacement=True, generator=generator)
         return t, (1.0 / (self.num_timesteps * p[t])).float()
 
-    def update_with_local_losses(self, state: LossHistoryState, ts: torch.Tensor, losses: torch.Tensor) -> LossHistoryState:
+    def update_with_local_losses(
+        self, state: LossHistoryState, ts: torch.Tensor, losses: torch.Tensor, group=None
+    ) -> LossHistoryState:
         """Fold a batch of (t, loss) pairs into the ring buffer, in batch
         order: a timestep's row takes the new losses at its end and, once
         full, drops its oldest. The sequential fold of the JAX package,
         computed for all rows at once: a row holding ``cnt`` losses that gets
         ``c`` new ones shifts left by max(0, cnt + c - H), and its j-th new
         loss lands at column cnt + j - shift (dropped where that is
-        negative)."""
+        negative). With a process ``group`` (the data group), every rank's
+        pairs are all-gathered in rank order first (JAX l.103-109), which
+        every rank of the group must call."""
+        if group is not None:
+            ts, losses = all_gather_rows(ts, group), all_gather_rows(losses.detach().float(), group)
         hist, counts = state.history, state.counts.long()
         num_t, cap = hist.shape
         ts = ts.long()

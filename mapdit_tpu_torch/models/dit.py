@@ -268,13 +268,18 @@ def project_weights(model: DiT, cfg: DiTConfig) -> None:
     ``use_forced_weight_normalization``. In place where the JAX package
     returns a new tree."""
     for name, param in model.named_parameters():
-        names = name.split(".")
-        if names[-1] != "weight" or param.ndim not in (2, 3):
-            continue
-        is_embedding = len(names) >= 2 and names[-2] == "embedding"
-        flag = cfg.use_mp_embedding if is_embedding else cfg.use_weight_normalization
-        if flag and cfg.use_forced_weight_normalization:
+        if forced_wn(name, param, cfg):
             param.copy_(normalize(param))
+
+
+def forced_wn(name: str, param: torch.Tensor, cfg: DiTConfig) -> bool:
+    """Whether :func:`project_weights` row-normalizes the parameter ``name``."""
+    names = name.split(".")
+    if names[-1] != "weight" or param.ndim not in (2, 3):
+        return False
+    is_embedding = len(names) >= 2 and names[-2] == "embedding"
+    flag = cfg.use_mp_embedding if is_embedding else cfg.use_weight_normalization
+    return flag and cfg.use_forced_weight_normalization
 
 
 def init_model(cfg: DiTConfig, seed: int = 0, device=None) -> DiT:

@@ -1,7 +1,8 @@
-"""A ('data', 'model') grid of ranks over torch.distributed, and the weight
-layout of the tensor-parallel (TP) sampling islands.
+"""A ('data', 'model') grid of ranks over torch.distributed, the weight
+layout of the tensor-parallel (TP) sampling islands, and the fully-sharded
+(FSDP) layout of training over the data axis.
 
-Port of ``mapdit_tpu/parallel/mesh.py`` for the TP sampling layout. The JAX
+Port of ``mapdit_tpu/parallel/mesh.py``. The JAX
 package lays its devices out as a (n_data, n_model) ``jax.sharding.Mesh``;
 here the ranks of one process group form the same grid, data outermost:
 rank = data_index * n_model + model_index.
@@ -11,10 +12,16 @@ rank = data_index * n_model + model_index.
   * **model**: the weights of each block are split; a rank's model group
     holds the ranks with its data index, and the islands all-reduce their
     partial branch outputs over it.
+  * **fsdp** (:func:`fsdp_layout`): training's parameters, Adam moments and
+    EMA copies sharded (ZeRO-3) over the data axis; the data axis plays both
+    roles, as in the JAX package.
 
 Backend: NCCL when every rank has a card of its own, gloo when ranks share
 a card (NCCL refuses two ranks on one device) or run on the CPU. The choice
 is printed. Nothing moves a rank to the CPU unless the caller asks for it.
+Gloo takes ``all_reduce``, ``all_gather``, ``all_gather_into_tensor``,
+``reduce_scatter_tensor`` and ``broadcast`` on CPU tensors and (torch 2.11
+and later) on CUDA tensors, which it stages through host memory itself.
 """
 
 from __future__ import annotations
@@ -153,6 +160,35 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, device=None) -> Me
     return Mesh(n_data, n_model, rank, torch.device(device), groups[DATA_AXIS], groups[MODEL_AXIS])
 
 
+def mean_all_reduce_(tensors, group) -> None:
+    """Replace each tensor of ``tensors`` (one dtype and device) by its mean
+    over the ranks of ``group``, in place, with one all-reduce of a flat
+    buffer."""
+    tensors = list(tensors)
+    if not tensors:
+        return
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    flat.div_(dist.get_world_size(group))
+    torch._foreach_copy_(tensors, [f.view_as(t) for f, t in zip(flat.split([t.numel() for t in tensors]), tensors)])
+
+
+def any_rank(flag: bool, device, group=None) -> bool:
+    """Whether ``flag`` is set on any rank of ``group`` (default: the
+    world): the agreement every rank reaches at the same point, so that all
+    of them leave a loop of collectives at the same step."""
+    t = torch.tensor([1.0 if flag else 0.0], device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return bool(t.item())
+
+
+def broadcast_str(text: Optional[str], src: int = 0) -> str:
+    """``text`` of rank ``src`` on every rank of the world."""
+    box = [text]
+    dist.broadcast_object_list(box, src=src)
+    return box[0]
+
+
 def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     """Concatenate every rank's ``x`` along dim 0 in rank order. Gloo cannot
     all-gather CUDA tensors; under gloo they pass through host memory."""
@@ -167,13 +203,45 @@ def check_replicated(state_dict: Dict[str, torch.Tensor], device) -> None:
     """Raise unless every rank of the default group holds the same tensors:
     per-tensor float64 sums all-reduced by min and by max must agree."""
     keys = sorted(state_dict)
-    sums = torch.stack([state_dict[k].detach().double().sum() for k in keys]).to(device)
+    sums = torch.stack([state_dict[k].detach().double().sum().to(device) for k in keys])
     lo, hi = sums.clone(), sums.clone()
     dist.all_reduce(lo, op=dist.ReduceOp.MIN)
     dist.all_reduce(hi, op=dist.ReduceOp.MAX)
     differ = [k for k, a, b in zip(keys, lo.tolist(), hi.tolist()) if a != b]
     if differ:
-        raise RuntimeError(f"ranks hold different weights before sharding: {differ[:5]}")
+        raise RuntimeError(f"ranks hold different tensors: {differ[:5]}")
+
+
+# ---------------------------------------------------------------------------
+# the FSDP layout of training
+
+
+def fsdp_layout(named_params: Dict[str, torch.Tensor], mesh: Mesh) -> Dict[str, Optional[int]]:
+    """The dim of each parameter that FSDP shards over the data ranks, or
+    None where it stays replicated: the data-axis rule of JAX
+    ``param_sharding(..., fsdp=True)`` (``mapdit_tpu/parallel/mesh.py:61-122``).
+
+      * a ``weight`` matrix (2-D, or 3-D stacked on a depth axis under
+        ``scan_blocks``: the same rule one axis later) shards its out-rows,
+        where the forced weight normalization stays shard-local, and falls
+        back to its in-columns;
+      * a dim that the data size does not divide is never sharded;
+      * gather-indexed tables (``*.embedding.weight``), everything under
+        ``t_embedder``, gains, biases and other tensors stay replicated.
+
+    Applied by parameter name, the same rule lays out the Adam moments and
+    the EMA copies."""
+    out = {}
+    for name, p in named_params.items():
+        names = name.split(".")
+        out[name] = None
+        if mesh.n_data == 1 or names[-1] != "weight" or p.ndim not in (2, 3):
+            continue
+        if (len(names) >= 2 and names[-2] == "embedding") or "t_embedder" in names:
+            continue
+        off = p.ndim - 2
+        out[name] = next((dim for dim in (off, off + 1) if p.shape[dim] % mesh.n_data == 0), None)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -4,6 +4,7 @@
         --model DiT-S/2 --batch-size 256 --compute-dtype bfloat16 \\
         --block-kernel mega_attn --attn-bwd pallas
     python -m mapdit_tpu_torch.train --device cpu --data-path synthetic:64 ...   # plain PyTorch on the CPU
+    torchrun --nproc-per-node N -m mapdit_tpu_torch.train ... [--fsdp true] [--checkpointer torch-sharded]
 
 The flags, the config.yaml round trip, the experiment / checkpoint /
 EMA-snapshot layout, the log format and ``--resume`` are the JAX CLI's; the
@@ -12,15 +13,28 @@ run is on one CUDA device unless ``--device`` says otherwise. One step
 Adam under the schedule, both power EMAs, the forced weight normalization.
 The host shuffles indices and stages (mean, std, label) slices.
 
+Under ``torchrun`` (``WORLD_SIZE`` > 1, or ``--multihost true``) the ranks
+join one process group (one process a device; ``parallel/mesh.py``) and
+train data-parallel over a (world, 1) mesh, or fully sharded with ``--fsdp
+true``: ``--batch-size`` is the global batch, each rank's loader feeds its
+slice of it, and the train step averages the gradients over the ranks. The
+lead (rank 0) creates the experiment directory, whose path every rank
+receives, and alone logs and writes config.yaml, constants.pt, the metrics
+stream, the ``.pt`` checkpoints and the EMA snapshots; every rank joins the
+saves, which gather the state under FSDP. ``--checkpointer torch-sharded``
+writes a directory of per-rank slices (``training/checkpoint.py``), the
+counterpart of the JAX CLI's orbax; ``--resume`` reads either format on any
+number of ranks. A SIGTERM to any rank stops every rank at the same log
+boundary, where each saves and exits 0.
+
 ``--remat true`` recomputes each block in the backward instead of keeping
 its activations (the memory of DiT-XL/2 at batch 256); ``--scan-blocks
 true`` keeps the block parameters stacked on a depth axis, as a JAX
 ``--scan-blocks`` run saves them, and its checkpoints and EMA snapshots
 hold that layout.
 
-Not ported yet, and raising with their ROADMAP item: ``--n-model > 1``,
-``--fsdp``, ``--multihost`` and ``--checkpointer orbax`` ("Multi-GPU layouts, the
-rest").
+Not ported yet, and raising with its ROADMAP item: ``--n-model > 1``
+(tensor-parallel training, "Multi-GPU layouts, the rest").
 """
 
 from __future__ import annotations
@@ -32,10 +46,12 @@ import signal
 import time
 
 import torch
+import torch.distributed as dist
 
 from mapdit_tpu_torch.diffusion import create_diffusion
 from mapdit_tpu_torch.models.config import ATTENTION_IMPLS, MODULATION_KINDS
 from mapdit_tpu_torch.models.registry import DIT_MODELS
+from mapdit_tpu_torch.parallel.mesh import any_rank, broadcast_str, init_distributed, make_mesh
 from mapdit_tpu_torch.training import (
     EMA_STDS,
     create_optimizer,
@@ -50,6 +66,7 @@ from mapdit_tpu_torch.training.checkpoint import (
     AsyncTreeWriter,
     latest_checkpoint,
     restore_state,
+    save_sharded,
     save_state,
 )
 from mapdit_tpu_torch.training.data import LatentDataset, SyntheticLatentDataset
@@ -68,17 +85,34 @@ def build_dataset(data_path: str):
     return LatentDataset(data_path)
 
 
+# what torchrun sets and init_distributed reads
+TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+
+
 def _check_ported(args) -> None:
-    if args.n_model != 1 or args.fsdp or args.multihost:
+    if args.n_model != 1:
         raise NotImplementedError(
-            "--n-model > 1, --fsdp and --multihost are the ROADMAP item 'Multi-GPU layouts, the rest'; "
-            "the port trains on one device"
+            "--n-model > 1 (tensor-parallel training) is the ROADMAP item 'Multi-GPU layouts, the rest'; "
+            "the port trains data-parallel or fully sharded (--fsdp) over the data axis"
         )
     if args.checkpointer == "orbax":
         raise NotImplementedError(
-            "--checkpointer orbax is the multi-host sharded format (ROADMAP item 'Multi-GPU layouts, the rest'); "
-            "use torch or torch-sync"
+            "--checkpointer orbax is the JAX package's sharded format; the port's is --checkpointer torch-sharded"
         )
+
+
+def _joins_group(args) -> bool:
+    """Whether the run joins a process group: under torchrun (WORLD_SIZE >
+    1) or with --multihost true, which then needs torchrun's variables."""
+    if not args.multihost and int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return False
+    missing = [name for name in TORCHRUN_ENV if name not in os.environ]
+    if missing:
+        raise ValueError(
+            f"--multihost true joins the process group that torchrun describes, and {', '.join(missing)} "
+            "are not set: launch with torchrun --nproc-per-node N -m mapdit_tpu_torch.train ..."
+        )
+    return True
 
 
 def _write_profile(prof, out_dir: str, steps: int, seconds: float) -> None:
@@ -109,17 +143,35 @@ def _write_profile(prof, out_dir: str, steps: int, seconds: float) -> None:
 
 def main(args) -> str:
     """Run the training the parsed ``args`` describe; returns the experiment
-    directory."""
+    directory (on every rank)."""
     _check_ported(args)
-    device = resolve_device(args.device)
+    if not _joins_group(args):
+        return _train(args, resolve_device(args.device), None)
+    device = init_distributed(None if args.device == "cuda" else args.device)
+    try:
+        return _train(args, device, make_mesh(n_model=args.n_model, device=device))
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args, device: torch.device, mesh) -> str:
     if args.matmul_precision != "default":  # "default" leaves PyTorch's own setting ("highest")
         torch.set_float32_matmul_precision(args.matmul_precision)
+    world = 1 if mesh is None else mesh.size
+    n_data = 1 if mesh is None else mesh.n_data
+    lead = mesh is None or mesh.rank == 0
 
-    exp_dir = setup_experiment(args.model, args.results_dir)
-    logger = create_logger(exp_dir, verbose=args.verbose)
+    # the lead owns the experiment directory; every rank gets its path
+    exp_dir = setup_experiment(args.model, args.results_dir) if lead else None
+    if mesh is not None:
+        exp_dir = broadcast_str(exp_dir)
+    logger = create_logger(exp_dir if lead else None, verbose=args.verbose if lead else 0)
     kind = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    logger.info(f"devices: 1x {kind}")
+    logger.info(f"devices: {world}x {kind}; mesh data={n_data} model={args.n_model}")
     logger.info(f"experiment directory created at {exp_dir}")
+    fsdp = args.fsdp and mesh is not None
+    if args.fsdp and mesh is None:
+        logger.info("--fsdp on one process: a data axis of 1 shards nothing")
 
     dataset = build_dataset(args.data_path)
     logger.info(
@@ -133,7 +185,8 @@ def main(args) -> str:
     args.input_size = dataset.data_size
     args.stats_std = [float(x) for x in dataset.stats["std"]]
     args.stats_mean = [float(x) for x in dataset.stats["mean"]]
-    save_config(exp_dir, vars(args))
+    if lead:
+        save_config(exp_dir, vars(args))
 
     diffusion = create_diffusion("", device=device)
     cfg = config_from_args(vars(args))
@@ -146,12 +199,13 @@ def main(args) -> str:
     ema_stds = tuple(args.ema_stds)
     state = create_train_state(
         cfg, tx, seed=args.seed, ema_stds=ema_stds, timestep_sampler=args.timestep_sampler,
-        num_timesteps=diffusion.num_timesteps, device=device,
+        num_timesteps=diffusion.num_timesteps, device=device, mesh=mesh, fsdp=fsdp,
     )
     logger.info(f"model parameters: {sum(p.numel() for p in state.model.parameters()):,}")
 
     if args.resume:
-        path = args.resume if os.path.isfile(args.resume) else latest_checkpoint(args.resume)
+        sharded_dir = args.resume.rstrip("/").endswith(".shards")
+        path = args.resume if os.path.isfile(args.resume) or sharded_dir else latest_checkpoint(args.resume)
         if not path:
             raise FileNotFoundError(f"--resume: no checkpoint found at {args.resume}")
         state = restore_state(path, state)
@@ -159,17 +213,23 @@ def main(args) -> str:
 
     # The buffers (Fourier constants, positional table) once, so that
     # sampling from EMA snapshots alone does not need a full checkpoint.
-    torch.save({k: v.detach().cpu() for k, v in state.model.named_buffers()}, os.path.join(exp_dir, "constants.pt"))
+    if lead:
+        torch.save({k: v.detach().cpu() for k, v in state.model.named_buffers()},
+                   os.path.join(exp_dir, "constants.pt"))
 
+    # --batch-size is the global batch: every rank feeds its slice of it
     if args.batch_size % args.grad_accum:
         raise ValueError("--grad-accum must divide --batch-size")
+    if args.batch_size % n_data or (args.batch_size // args.grad_accum) % n_data:
+        raise ValueError(f"the batch ({args.batch_size}) and the micro batch (batch-size / grad-accum) must divide "
+                         f"over the data axis of {n_data} ranks")
     step_fn = make_train_step(
         cfg, diffusion, tx, stats_mean=dataset.stats["mean"], stats_std=dataset.stats["std"], ema_stds=ema_stds,
-        timestep_sampler=args.timestep_sampler, grad_accum=args.grad_accum,
+        timestep_sampler=args.timestep_sampler, grad_accum=args.grad_accum, mesh=mesh, fsdp=fsdp,
     )
 
     mag_probe = None
-    if args.log_magnitudes:
+    if args.log_magnitudes and lead:  # the model's whole weights, this rank's rows
         from mapdit_tpu_torch.training.telemetry import make_activation_probe, weight_magnitudes
 
         act_probe = make_activation_probe(cfg, diffusion, stats_mean=dataset.stats["mean"], stats_std=dataset.stats["std"])
@@ -183,14 +243,15 @@ def main(args) -> str:
 
     # start_step resumes the shuffle stream at the checkpointed step
     data_start_step = state.step
+    part = dict(process_index=0 if mesh is None else mesh.data_index, process_count=n_data)
     native = None
     if NativeLatentLoader.available(args.data_path):
         native = NativeLatentLoader(args.data_path, args.batch_size, seed=args.seed,
-                                    num_threads=max(2, args.num_workers), start_step=data_start_step)
+                                    num_threads=max(2, args.num_workers), start_step=data_start_step, **part)
         batches = native.batches()
         logger.info("using native latent loader (prefetch threads)")
     else:
-        batches = dataset.batches(batch_size=args.batch_size, seed=args.seed, start_step=data_start_step)
+        batches = dataset.batches(batch_size=args.batch_size, seed=args.seed, start_step=data_start_step, **part)
 
     stage_batch = make_stage_fn(device)
     dev_prefetch = None
@@ -202,7 +263,7 @@ def main(args) -> str:
         return next(dev_prefetch) if dev_prefetch is not None else stage_batch(next(batches))
 
     metrics_sink = None
-    if args.metrics_jsonl:
+    if args.metrics_jsonl and lead:
         path = args.metrics_jsonl if args.metrics_jsonl != "auto" else os.path.join(exp_dir, "metrics.jsonl")
         metrics_sink = open(path, "a")
 
@@ -210,8 +271,13 @@ def main(args) -> str:
     ema_writer = None  # lazy background EMA snapshot writer
 
     def save_checkpoint(step, st):
+        """Every rank calls it (the saves of a mesh are collectives); the
+        lead writes, or every rank its slices under torch-sharded."""
         nonlocal state_saver
-        if args.checkpointer == "torch-sync":
+        if args.checkpointer == "torch-sharded":
+            path = save_sharded(exp_dir, step, st)
+            logger.info(f"saving checkpoint to {path} at step {step}...")
+        elif args.checkpointer == "torch-sync":
             path = save_state(exp_dir, step, st)
             logger.info(f"saving checkpoint to {path} at step {step}...")
         else:
@@ -221,15 +287,27 @@ def main(args) -> str:
             logger.info(f"saving checkpoint to {path} at step {step} (async write)...")
 
     def save_ema_snapshots(step, st):
+        """Every rank calls it: under FSDP each copy is gathered whole (a
+        collective); the lead writes."""
         nonlocal ema_writer
         ema_dir = os.path.join(exp_dir, "ema")
-        if ema_writer is None:
+        if ema_writer is None and lead:
             ema_writer = AsyncTreeWriter()
         for std in ema_stds:
-            ema_writer.submit(
-                st.ema[ema_key(std)],
-                lambda host, _std=std, _step=step: ema_lib.save_snapshot(ema_dir, _std, _step, host),
-            )
+            tree = st.ema[ema_key(std)]
+            gathered = fsdp and bool(st.dp.sharded)
+            if gathered:
+                tree = st.dp.gather(tree)
+            if not lead:
+                continue
+
+            def write(host, _std=std, _step=step):
+                ema_lib.save_snapshot(ema_dir, _std, _step, host)
+
+            if gathered:  # new tensors: no clone needed
+                ema_writer.submit_snapshot(tree, write)
+            else:
+                ema_writer.submit(tree, write)
         logger.info(f"saving ema snapshot to {ema_dir} at step {step}...")
 
     # Graceful preemption: SIGTERM / SIGINT finish the step in flight, save a
@@ -242,8 +320,18 @@ def main(args) -> str:
 
     old_handlers = {sig: signal.signal(sig, _request_stop) for sig in (signal.SIGTERM, signal.SIGINT)}
 
+    def stop_agreed() -> bool:
+        """Whether the loop stops now. One process: at once on the flag. On
+        a mesh every rank must leave at the same step (the steps and saves
+        are collectives), so the flags are OR-combined at log boundaries."""
+        if mesh is None:
+            return preempt["sig"] is not None
+        if train_steps % args.log_every:
+            return False
+        return any_rank(preempt["sig"] is not None, device)
+
     prof = None
-    if args.profile_dir:
+    if args.profile_dir and lead:
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
@@ -317,13 +405,13 @@ def main(args) -> str:
             if ema_now:
                 save_ema_snapshots(train_steps, state)
 
-            if preempt["sig"] is not None:
+            if stop_agreed():
                 if not ckpt_now:
                     save_checkpoint(train_steps, state)
                 if args.ema_snapshot_every and not ema_now:
                     save_ema_snapshots(train_steps, state)
                 logger.info(
-                    f"({preempt['sig']}) graceful stop at step {train_steps}: state saved; "
+                    f"({preempt['sig'] or 'SIGTERM'}) graceful stop at step {train_steps}: state saved; "
                     f"continue with --resume {exp_dir}"
                 )
                 break
@@ -410,9 +498,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", type=str, default="cuda",
                         help="the device to train on; 'cpu' runs the plain PyTorch path")
     parser.add_argument("--n-model", type=int, default=1,
-                        help="tensor-parallel axis size (only 1 until the multi-GPU layouts are ported)")
+                        help="tensor-parallel axis size (only 1 until tensor-parallel training is ported)")
     parser.add_argument("--fsdp", type=_bool, default=False, metavar="BOOL",
-                        help="fully-sharded params/optimizer/EMA (not ported yet)")
+                        help="fully-sharded (ZeRO-3) params/optimizer/EMA over the data axis (under torchrun)")
     parser.add_argument("--grad-accum", type=int, default=1,
                         help="micro-batch gradient accumulation: batch-size/N slices, one optimizer update, "
                              "the same trajectory, 1/N activation memory")
@@ -434,10 +522,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="VJP for --block-kernel mega_attn: pallas = fused backward kernels (recompute), "
                              "residual = residual-emitting forward kernel + plain backward, reference = "
                              "autograd through the plain math")
-    parser.add_argument("--checkpointer", choices=["torch", "torch-sync", "orbax"], default="torch",
+    parser.add_argument("--checkpointer", choices=["torch", "torch-sync", "torch-sharded", "orbax"], default="torch",
                         help="torch (default) clones the state on the device and writes from a background "
-                             "thread; torch-sync writes on the train loop's thread; orbax (multi-host sharded) "
-                             "is not ported yet")
+                             "thread; torch-sync writes on the train loop's thread; torch-sharded writes each "
+                             "rank's slices into a directory (the counterpart of the JAX CLI's orbax, which "
+                             "the port does not write)")
     parser.add_argument("--resume", type=str, default=None, help="checkpoint file or experiment dir to resume from")
     parser.add_argument("--profile-dir", type=str, default=None, help="write a torch.profiler trace of the loop here")
     parser.add_argument("--metrics-jsonl", type=str, default=None,
@@ -446,7 +535,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="per log interval, record magnitude-preservation telemetry: weight-row RMS "
                              "deviation, gain magnitudes, and per-block residual-stream RMS at t=T/2")
     parser.add_argument("--multihost", type=_bool, default=False, metavar="BOOL",
-                        help="one process per host (not ported yet)")
+                        help="join the process group that torchrun describes (RANK, WORLD_SIZE, MASTER_ADDR, "
+                             "MASTER_PORT); a torchrun launch of more than one rank joins it anyway")
     return parser
 
 

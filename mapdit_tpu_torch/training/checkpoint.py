@@ -8,6 +8,23 @@ step, the generator's state and the timestep sampler's state.
 run continues the exact trajectory. Writes are atomic (a ``.tmp`` file, then
 ``os.replace``), and the default saver writes from a background thread after
 one clone of the state on the device.
+
+On a mesh (``TrainState.dp``) every rank calls the savers and the lead (data
+index 0) writes; under FSDP the state is first gathered whole, a collective
+of the data group. (The JAX package refuses its msgpack file under
+multi-host FSDP because one process cannot address the shards of other
+hosts; the port gathers them.)
+
+The sharded format, ``checkpoints/<step:07d>.shards/`` (``--checkpointer
+torch-sharded``, the counterpart of the JAX package's orbax directories):
+each data rank writes its slices of the parameters, the Adam moments and
+the EMA copies to ``rank<r:05d>.pt`` (rank 0 the replicated tensors too),
+and the lead writes ``index.pt`` (the step, each parameter's sharded dim
+and whole shape, the buffers, Adam's step counts and hyper-parameters, the
+generator's and the timestep sampler's state, once). The ranks write into
+``<step:07d>.shards.tmp/``, which the lead renames when all are done.
+``restore_state`` reads either format into any data-axis size, one process
+included.
 """
 
 from __future__ import annotations
@@ -15,10 +32,12 @@ from __future__ import annotations
 import dataclasses
 import os
 import re
+import shutil
 import threading
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from mapdit_tpu_torch.diffusion.timestep_sampler import LossHistoryState
 
@@ -27,6 +46,16 @@ MAX_IN_FLIGHT = 2  # snapshots a background writer may hold at once
 
 def checkpoint_path(exp_dir: str, step: int) -> str:
     return os.path.join(exp_dir, "checkpoints", f"{step:07d}.pt")
+
+
+def sharded_path(exp_dir: str, step: int) -> str:
+    return os.path.join(exp_dir, "checkpoints", f"{step:07d}.shards")
+
+
+def is_lead(state) -> bool:
+    """Whether this rank writes the files of the run: data index 0, or the
+    one process."""
+    return state.dp is None or state.dp.index == 0
 
 
 def map_tensors(tree, fn: Callable[[torch.Tensor], torch.Tensor]):
@@ -43,9 +72,12 @@ def map_tensors(tree, fn: Callable[[torch.Tensor], torch.Tensor]):
 
 def state_tree(state) -> dict:
     """The ``TrainState`` as a tree of tensors and plain values. The tensors
-    are the live ones: clone or copy them before the next train step."""
+    are the live ones: clone or copy them before the next train step. Under
+    FSDP the Adam moments and the EMA copies are gathered whole and the
+    tree is on the host: a collective that every rank of the data group
+    must call."""
     sampler = state.sampler_state
-    return {
+    tree = {
         "step": int(state.step),
         "model": state.model.state_dict(),
         "optimizer": state.optimizer.state_dict(),
@@ -53,6 +85,18 @@ def state_tree(state) -> dict:
         "generator": state.generator.get_state(),
         "sampler_state": dataclasses.asdict(sampler) if isinstance(sampler, LossHistoryState) else None,
     }
+    dp = state.dp
+    if dp is None or not dp.sharded:
+        return tree
+    names = list(dp.held)
+    opt = tree["optimizer"]
+    opt["state"] = {i: dict(st) for i, st in opt["state"].items()}  # not the optimizer's own dicts
+    for slot in ("exp_avg", "exp_avg_sq"):
+        whole = _to_host(dp.gather({names[i]: st[slot] for i, st in opt["state"].items()}))
+        for i, st in opt["state"].items():
+            st[slot] = whole[names[i]]
+    tree["ema"] = {key: _to_host(dp.gather(ema)) for key, ema in tree["ema"].items()}
+    return _to_host(tree)
 
 
 def _to_host(tree):
@@ -77,10 +121,96 @@ def _write(path: str, host_tree) -> None:
 
 
 def save_state(exp_dir: str, step: int, state) -> str:
-    """Write the checkpoint of ``state`` now, on the calling thread."""
+    """Write the checkpoint of ``state`` now, on the calling thread. On a
+    mesh every rank calls it and the lead writes."""
     path = checkpoint_path(exp_dir, step)
-    _write(path, _to_host(state_tree(state)))
+    if is_lead(state) or (state.dp is not None and state.dp.sharded):
+        tree = _to_host(state_tree(state))
+        if is_lead(state):
+            _write(path, tree)
     return path
+
+
+def _barrier(state) -> None:
+    if state.dp is not None:
+        dist.barrier(group=state.dp.group)
+
+
+def save_sharded(exp_dir: str, step: int, state) -> str:
+    """Write the sharded checkpoint of ``state`` (see the module docstring)
+    on the calling thread: a collective that every rank of the data group
+    must call; on one process, the same files for one rank."""
+    final = sharded_path(exp_dir, step)
+    tmp = final + ".tmp"
+    lead, index = is_lead(state), (0 if state.dp is None else state.dp.index)
+    if lead:
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+    _barrier(state)
+    held = state.held
+    names = list(held)
+    layout = dict.fromkeys(names) if state.dp is None else state.dp.layout
+    mine = {k for k in names if layout[k] is not None or lead}
+    opt = state.optimizer.state_dict()
+    moments = {slot: {names[i]: st[slot] for i, st in opt["state"].items() if names[i] in mine}
+               for slot in ("exp_avg", "exp_avg_sq")}
+    part = {"params": {k: held[k] for k in names if k in mine}, **moments,
+            "ema": {key: {k: t for k, t in ema.items() if k in mine} for key, ema in state.ema.items()}}
+    _write(os.path.join(tmp, f"rank{index:05d}.pt"), _to_host(part))
+    _barrier(state)
+    if lead:
+        params = state.params
+        sampler = state.sampler_state
+        _write(os.path.join(tmp, "index.pt"), _to_host({
+            "step": int(state.step),
+            "n_data": 1 if state.dp is None else state.dp.n,
+            "layout": layout,
+            "shapes": {k: tuple(p.shape) for k, p in params.items()},
+            "buffers": {k: v for k, v in state.model.state_dict().items() if k not in params},
+            "adam_steps": {names[i]: st["step"] for i, st in opt["state"].items()},
+            "param_groups": opt["param_groups"],
+            "ema_keys": list(state.ema),
+            "generator": state.generator.get_state(),
+            "sampler_state": dataclasses.asdict(sampler) if isinstance(sampler, LossHistoryState) else None,
+        }))
+        shutil.rmtree(final, ignore_errors=True)
+        os.replace(tmp, final)
+    _barrier(state)
+    return final
+
+
+def _read_sharded(path: str) -> dict:
+    """A sharded checkpoint as the tree of a ``.pt`` one: each sharded
+    tensor concatenated from the ranks' slices along its dim."""
+    def load(name):
+        return torch.load(os.path.join(path, name), map_location="cpu", weights_only=True)
+
+    index = load("index.pt")
+    parts = [load(f"rank{r:05d}.pt") for r in range(index["n_data"])]
+    layout = index["layout"]
+
+    def whole(slot: Callable[[dict], Dict[str, torch.Tensor]], name: str) -> torch.Tensor:
+        if layout[name] is None:
+            return slot(parts[0])[name]
+        out = torch.cat([slot(p)[name] for p in parts], dim=layout[name])
+        if tuple(out.shape) != tuple(index["shapes"][name]):
+            raise ValueError(f"{path}: the slices of {name} make {tuple(out.shape)}, not {index['shapes'][name]}")
+        return out
+
+    names = list(layout)
+    state = {
+        i: {"step": index["adam_steps"][k], "exp_avg": whole(lambda p: p["exp_avg"], k),
+            "exp_avg_sq": whole(lambda p: p["exp_avg_sq"], k)}
+        for i, k in enumerate(names) if k in index["adam_steps"]
+    }
+    return {
+        "step": index["step"],
+        "model": {**{k: whole(lambda p: p["params"], k) for k in names}, **index["buffers"]},
+        "optimizer": {"state": state, "param_groups": index["param_groups"]},
+        "ema": {key: {k: whole(lambda p, key=key: p["ema"][key], k) for k in names} for key in index["ema_keys"]},
+        "generator": index["generator"],
+        "sampler_state": index["sampler_state"],
+    }
 
 
 class AsyncTreeWriter:
@@ -181,10 +311,19 @@ class AsyncStateSaver:
         self._writer = AsyncTreeWriter()
 
     def save(self, exp_dir: str, step: int, state) -> str:
+        """On a mesh every rank calls it and the lead writes; under FSDP
+        the state is gathered to the host first (a collective)."""
         # a failed earlier write surfaces here, before this step's own
         # handling could hide it
         self._writer.check()
         path = checkpoint_path(exp_dir, step)
+        if state.dp is not None and state.dp.sharded:
+            tree = state_tree(state)  # gathered, on the host: no clone needed
+            if is_lead(state):
+                self._writer.submit_snapshot(tree, lambda host: _write(path, host))
+            return path
+        if not is_lead(state):
+            return path
         try:
             snap = self._writer.snapshot(state_tree(state))
         except torch.cuda.OutOfMemoryError:
@@ -199,25 +338,43 @@ class AsyncStateSaver:
         self._writer.close()
 
 
-_CKPT_RE = re.compile(r"^(\d+)\.pt$")
+_CKPT_RE = re.compile(r"^(\d+)\.(pt|shards)$")
 
 
 def latest_checkpoint(exp_dir: str) -> Optional[str]:
+    """The newest checkpoint of either format (a ``.pt`` file or a
+    ``.shards`` directory; the file where a step has both), like the JAX
+    package's ``latest_checkpoint_any``."""
     ckpt_dir = os.path.join(exp_dir, "checkpoints")
     if not os.path.isdir(ckpt_dir):
         return None
-    steps = [int(m.group(1)) for f in os.listdir(ckpt_dir) if (m := _CKPT_RE.match(f))]
-    return checkpoint_path(exp_dir, max(steps)) if steps else None
+    found = [(int(m.group(1)), m.group(2) == "pt", f) for f in os.listdir(ckpt_dir) if (m := _CKPT_RE.match(f))]
+    return os.path.join(ckpt_dir, max(found)[2]) if found else None
 
 
 def restore_state(path: str, state):
-    """Load the checkpoint at ``path`` into ``state`` (a freshly built
-    ``TrainState`` of the same configuration), in place, and return it.
-    Names and shapes are checked by the strict ``load_state_dict``s."""
+    """Load the checkpoint at ``path`` (a ``.pt`` file or a ``.shards``
+    directory) into ``state`` (a freshly built ``TrainState`` of the same
+    configuration, on any mesh or none), in place, and return it. Names and
+    shapes are checked by the strict ``load_state_dict``s."""
     dev = state.generator.device
-    tree = torch.load(path, map_location="cpu", weights_only=True)
+    if os.path.isdir(path):
+        tree = _read_sharded(path)
+    else:
+        tree = torch.load(path, map_location="cpu", weights_only=True)
     state.model.load_state_dict(tree["model"])
-    state.optimizer.load_state_dict(tree["optimizer"])
+    dp = state.dp
+    local = (lambda t, name: t) if dp is None else dp.local
+    names = list(state.held)
+    optimizer = tree["optimizer"]
+    if dp is not None and dp.sharded:
+        with torch.no_grad():
+            for name in dp.sharded:
+                state.held[name].copy_(dp.local(state.params[name], name))
+        optimizer = {"param_groups": optimizer["param_groups"], "state": {
+            i: {**st, **{slot: dp.local(st[slot], names[i]) for slot in ("exp_avg", "exp_avg_sq")}}
+            for i, st in optimizer["state"].items()}}
+    state.optimizer.load_state_dict(optimizer)
     if set(tree["ema"]) != set(state.ema):
         raise ValueError(f"checkpoint tracks EMA stds {sorted(tree['ema'])}, the run {sorted(state.ema)}")
     with torch.no_grad():
@@ -226,7 +383,7 @@ def restore_state(path: str, state):
             if set(saved) != set(ema):
                 raise ValueError(f"checkpoint EMA {key} holds other parameters than the model")
             for name, tensor in ema.items():
-                tensor.copy_(saved[name])
+                tensor.copy_(local(saved[name], name))
     state.step = int(tree["step"])
     state.generator.set_state(tree["generator"])
     sampler = tree["sampler_state"]

@@ -79,7 +79,9 @@ def make_beta_fn(std: float):
 def ema_update(ema_params: Dict[str, torch.Tensor], model_params: Dict[str, torch.Tensor], beta: float) -> None:
     """ema <- ema + (model - ema) * beta, in place (one foreach op per
     stage over all tensors): beta weights the model, so beta(1) = 0 keeps
-    the EMA at its initial copy."""
+    the EMA at its initial copy. Elementwise, so under FSDP both trees are
+    a rank's slices (``TrainState.held``); a snapshot takes the copy
+    gathered whole (``DataParallel.gather``)."""
     names = list(ema_params)
     ema = [ema_params[k] for k in names]
     diff = torch._foreach_sub([model_params[k].to(e.dtype) for k, e in zip(names, ema)], ema)

@@ -22,6 +22,19 @@ where the unaccumulated step draws it, so the two steps see the same masks
 and differ only in the order of the gradients' sums.
 ``timestep_sampler="loss-second-moment"`` draws t by importance and keeps
 the loss history in ``TrainState.sampler_state``.
+
+On a (n_data, 1) ``mesh`` (``parallel/mesh.py``) the step is data-parallel,
+or fully sharded with ``fsdp=True`` (``parallel/data_parallel.py``): the
+batch holds this rank's rows of the global batch (the loader's slice); every
+rank draws the global batch's posterior eps, t, noise and label-dropout mask
+from its generator (the same seed on every rank) and keeps its own rows, so
+a run on N ranks sees the draws of the one-device run from the same seed;
+the gradients are averaged over the data group once, after the
+micro-batches; grad_norm and clipping use the global norm; Adam, the EMAs
+and the projection update what the rank holds (its slices under FSDP, whose
+whole parameters one all-gather then refills); the metrics are the means
+over the group, equal on every rank. The JAX package gets the same draws for
+free: its GSPMD program is the one-device program.
 """
 
 from __future__ import annotations
@@ -35,6 +48,8 @@ import torch
 from mapdit_tpu_torch.diffusion.timestep_sampler import LossSecondMomentResampler
 from mapdit_tpu_torch.models.config import DiTConfig
 from mapdit_tpu_torch.models.dit import DiT, init_model, project_weights
+from mapdit_tpu_torch.parallel.data_parallel import DataParallel
+from mapdit_tpu_torch.parallel.mesh import Mesh, mean_all_reduce_
 from mapdit_tpu_torch.training import ema as ema_lib
 from mapdit_tpu_torch.utils.device import resolve_device
 
@@ -81,10 +96,20 @@ class TrainState:
     # the loss history of timestep_sampler="loss-second-moment"; () under the
     # uniform sampler
     sampler_state: Any = ()
+    # on a mesh: what this data rank holds and its collectives (DP / FSDP)
+    dp: Optional[DataParallel] = None
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
+        """The model's whole parameters (under FSDP refilled after every
+        step)."""
         return dict(self.model.named_parameters())
+
+    @property
+    def held(self) -> Dict[str, torch.Tensor]:
+        """The tensors that Adam, the EMAs and the projection update: the
+        parameters, or under FSDP this rank's slices of the sharded ones."""
+        return self.params if self.dp is None else self.dp.held
 
 
 def _resampler(timestep_sampler: str, num_timesteps: int) -> Optional[LossSecondMomentResampler]:
@@ -104,26 +129,35 @@ def create_train_state(
     num_timesteps: int = 1000,
     device=None,
     state_dict: Optional[Dict[str, torch.Tensor]] = None,
+    mesh: Optional[Mesh] = None,
+    fsdp: bool = False,
 ) -> TrainState:
     """A model drawn from ``seed`` (or loaded from ``state_dict``, which
     then holds every parameter and buffer, with no draw) on ``device``
-    (default CUDA), its optimizer, one EMA copy of the parameters per std,
-    and a generator seeded with ``seed`` on the device."""
+    (default: the mesh's, else CUDA), its optimizer, one EMA copy of the
+    parameters per std, and a generator seeded with ``seed`` on the device.
+    On a ``mesh`` every rank of the data group builds it from the same seed
+    (or weights); with ``fsdp=True`` the optimizer and the EMA copies hold
+    this rank's slices (``parallel/data_parallel.py``)."""
     resampler = _resampler(timestep_sampler, num_timesteps)
-    device = resolve_device(device)
+    if fsdp and mesh is None:
+        raise ValueError("fsdp=True shards over a mesh's data axis; give the mesh")
+    device = resolve_device(mesh.device if device is None and mesh is not None else device)
     if state_dict is None:
         model = init_model(cfg, seed=seed, device=device)
     else:
         model = DiT(cfg).to(device).eval()
         model.load_state_dict(state_dict)
-    params = dict(model.named_parameters())
+    dp = None if mesh is None else DataParallel(model, mesh, fsdp)
+    held = dict(model.named_parameters()) if dp is None else dp.held
     return TrainState(
         step=0,
         model=model,
-        optimizer=tx.build(list(params.values())),
-        ema={ema_key(s): {k: p.detach().clone() for k, p in params.items()} for s in ema_stds},
+        optimizer=tx.build(list(held.values())),
+        ema={ema_key(s): {k: p.detach().clone() for k, p in held.items()} for s in ema_stds},
         generator=torch.Generator(device=device).manual_seed(seed),
         sampler_state=() if resampler is None else resampler.init_state(device),
+        dp=dp,
     )
 
 
@@ -144,6 +178,8 @@ def make_train_step(
     grad_accum: int = 1,
     model_train: bool = True,
     losses_fn: Optional[Callable] = None,
+    mesh: Optional[Mesh] = None,
+    fsdp: bool = False,
 ):
     """``train_step(state, batch, draws=None) -> metrics``, updating
     ``state`` in place.
@@ -161,9 +197,15 @@ def make_train_step(
     ``diffusion`` then only sets ``num_timesteps`` for the t draw. Metrics
     are 0-d device tensors: loss, mse (the loss where ``losses_fn`` gives
     none), vb (0 where it gives none), grad_norm (the global L2 norm of the
-    averaged gradients, before any clipping)."""
+    averaged gradients, before any clipping).
+
+    On a ``mesh`` (the one ``state`` was built on, with the same ``fsdp``)
+    ``batch`` holds this rank's rows and ``draws`` the global batch's; see
+    the module docstring."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be at least 1, got {grad_accum}")
+    if fsdp and mesh is None:
+        raise ValueError("fsdp=True shards over a mesh's data axis; give the mesh")
     resampler = _resampler(timestep_sampler, diffusion.num_timesteps)
     beta_fns = {ema_key(s): ema_lib.make_beta_fn(s) for s in ema_stds}
     losses_fn = losses_fn or diffusion.training_losses
@@ -174,7 +216,14 @@ def make_train_step(
         draws = draws or {}
         model, gen = state.model, state.generator
         dev = gen.device
+        if (state.dp is None) != (mesh is None) or (state.dp is not None and state.dp.fsdp != fsdp):
+            raise ValueError("the train state was built for another layout (mesh, fsdp) than this step")
         y = _device_tensor(batch["y"], dev, torch.int64)
+        n = y.shape[0]
+        # on a mesh: the draws are the global batch's, and this rank keeps
+        # its rows of them
+        n_data = 1 if mesh is None else mesh.n_data
+        rows_here = slice(None) if mesh is None else slice(mesh.data_index * n, (mesh.data_index + 1) * n)
         if "x" in batch:
             x = _device_tensor(batch["x"], dev, torch.float32)
         else:
@@ -183,30 +232,35 @@ def make_train_step(
             mean = _device_tensor(batch["mean"], dev, torch.float32)
             eps = draws.get("posterior_eps")
             if eps is None:
-                eps = torch.randn(mean.shape, generator=gen, device=dev)
-            x = mean + _device_tensor(eps, dev, torch.float32) * _device_tensor(batch["std"], dev, torch.float32)
+                eps = torch.randn((n_data * n, *mean.shape[1:]), generator=gen, device=dev)
+            eps = _device_tensor(eps, dev, torch.float32)[rows_here]
+            x = mean + eps * _device_tensor(batch["std"], dev, torch.float32)
             x = (x - stats[0]) / stats[1]
-        n = x.shape[0]
         if n % grad_accum:
             raise ValueError(f"grad_accum={grad_accum} does not divide the batch of {n}")
         t = draws.get("t")
         t = None if t is None else _device_tensor(t, dev, torch.int64)
         t_weights = None
         if resampler is not None:
-            t, t_weights = resampler.sample(state.sampler_state, gen, n, t=t)
+            t, t_weights = resampler.sample(state.sampler_state, gen, n_data * n, t=t)
+            t_weights = t_weights[rows_here]
         elif t is None:
-            t = torch.randint(0, diffusion.num_timesteps, (n,), generator=gen, device=dev)
+            t = torch.randint(0, diffusion.num_timesteps, (n_data * n,), generator=gen, device=dev)
+        t = t[rows_here]
         noise = draws.get("noise")
-        noise = torch.randn(x.shape, generator=gen, device=dev) if noise is None else (
+        noise = torch.randn((n_data * n, *x.shape[1:]), generator=gen, device=dev) if noise is None else (
             _device_tensor(noise, dev, torch.float32))
+        noise = noise[rows_here]
         drop = draws.get("drop")
         drop = None if drop is None else _device_tensor(drop, dev, torch.int64)
-        if drop is None and grad_accum > 1 and model_train and cfg.class_dropout_prob > 0:
-            # the label embedder's own draw, made here for the full batch at
-            # the point of the stream where the unaccumulated step makes it
-            drop = (torch.rand((n,), generator=gen, device=dev) < cfg.class_dropout_prob).long()
+        if drop is None and (grad_accum > 1 or mesh is not None) and model_train and cfg.class_dropout_prob > 0:
+            # the label embedder's own draw, made here for the global batch
+            # at the point of the stream where the unaccumulated one-device
+            # step makes it
+            drop = (torch.rand((n_data * n,), generator=gen, device=dev) < cfg.class_dropout_prob).long()
+        drop = None if drop is None else drop[rows_here]
 
-        state.optimizer.zero_grad(set_to_none=True)
+        model.zero_grad(set_to_none=True)
         m = n // grad_accum
         sums = {"loss": 0.0, "mse": 0.0, "vb": 0.0}
         per_sample = []
@@ -228,13 +282,19 @@ def make_train_step(
                 sums["vb"] = sums["vb"] + (terms["vb"].mean() if "vb" in terms else torch.zeros((), device=dev))
 
         if resampler is not None:
-            state.sampler_state = resampler.update_with_local_losses(state.sampler_state, t, torch.cat(per_sample))
-        params = state.params
-        grads = [p.grad for p in params.values() if p.grad is not None]
+            state.sampler_state = resampler.update_with_local_losses(
+                state.sampler_state, t, torch.cat(per_sample), group=None if mesh is None else mesh.data_group)
+        if state.dp is not None:
+            state.dp.reduce_grads()
+        held = state.held
+        grads = [p.grad for p in held.values() if p.grad is not None]
         with torch.no_grad():
             if grad_accum > 1:
                 torch._foreach_mul_(grads, 1.0 / grad_accum)
-            grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            if state.dp is None:
+                grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            else:
+                grad_norm = state.dp.grad_norm()
             if tx.grad_clip is not None:
                 torch._foreach_mul_(grads, tx.grad_clip / torch.clamp(grad_norm, min=tx.grad_clip))
         for group in state.optimizer.param_groups:
@@ -242,8 +302,17 @@ def make_train_step(
         state.optimizer.step()
         state.step += 1
         for key, tree in state.ema.items():
-            ema_lib.ema_update(tree, params, beta_fns[key](state.step))
-        project_weights(model, cfg)
-        return {**{key: v / grad_accum for key, v in sums.items()}, "grad_norm": grad_norm}
+            ema_lib.ema_update(tree, held, beta_fns[key](state.step))
+        metrics = {key: v / grad_accum for key, v in sums.items()}
+        if state.dp is None:
+            project_weights(model, cfg)
+        else:
+            state.dp.project(cfg)
+            state.dp.gather_params()
+            with torch.no_grad():
+                means = torch.stack([torch.as_tensor(v, device=dev, dtype=torch.float32) for v in metrics.values()])
+                mean_all_reduce_([means], mesh.data_group)
+            metrics = dict(zip(metrics, means.unbind()))
+        return {**metrics, "grad_norm": grad_norm}
 
     return train_step

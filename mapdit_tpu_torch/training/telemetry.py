@@ -12,6 +12,8 @@
   model output's eps channels.
 
 Both run once per log interval and go into the ``--metrics-jsonl`` rows.
+On a mesh the train CLI's lead runs them on the model's whole weights
+(refilled after every step under FSDP) and its own rows of the batch.
 """
 
 from __future__ import annotations

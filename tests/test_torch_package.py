@@ -213,16 +213,27 @@ def _cli_run(tmp_path, flags):
 @pytest.mark.parametrize(
     "overrides, item",
     [
-        (["--fsdp", "true"], "Multi-GPU layouts"),
+        (["--fsdp", "true", "--num-steps", "1", "--batch-size", "8", "--num-classes", "10", "--log-every", "1",
+          "--ckpt-every", "1", "--ema-snapshot-every", "0", "--checkpointer", "torch-sync"], None),
         (["--n-model", "2"], "Multi-GPU layouts"),
-        (["--multihost", "true"], "Multi-GPU layouts"),
-        (["--checkpointer", "orbax"], "Multi-GPU layouts"),
+        (["--multihost", "true"], "RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT"),
+        (["--checkpointer", "orbax"], "torch-sharded"),
     ],
 )
-def test_unported_options_name_their_roadmap_item(overrides, item, tmp_path):
-    """A flag of the train CLI that the port does not take yet raises
-    naming the ROADMAP item that ports it."""
-    with pytest.raises(NotImplementedError, match=item):
+def test_unported_options_name_their_roadmap_item(overrides, item, tmp_path, monkeypatch):
+    """The train CLI's multi-device flags on one process: ``--fsdp true``
+    runs (a data axis of 1 shards nothing) and writes its checkpoint;
+    ``--n-model > 1`` (tensor-parallel training) raises naming the ROADMAP
+    item that ports it; ``--multihost true`` without torchrun's variables
+    raises naming them; ``--checkpointer orbax`` names the port's sharded
+    format. (Under torchrun: tests/test_torch_train_cli_dp.py.)"""
+    for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(name, raising=False)
+    if item is None:
+        exp = _cli_run(tmp_path, overrides)
+        assert (pathlib.Path(exp) / "checkpoints" / "0000001.pt").is_file()
+        return
+    with pytest.raises((NotImplementedError, ValueError), match=item):
         _cli_run(tmp_path, overrides)
 
 
