@@ -10,6 +10,7 @@ lerp numerator.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -31,11 +32,14 @@ def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor, t=0.5) -
     return mp_sum(x * scale[:, None, :], shift[:, None, :], t=t)
 
 
-def normalize(x: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
+def normalize(x: torch.Tensor, eps: float = 1e-4, norm: Optional[torch.Tensor] = None,
+              dim: Optional[int] = None) -> torch.Tensor:
     """Row-normalize the last dim to norm ``sqrt(dim)``:
-    ``x * sqrt(dim) / (||x||_2 + eps)``."""
-    norm = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
-    return x * (math.sqrt(x.shape[-1]) / (norm + eps))
+    ``x * sqrt(dim) / (||x||_2 + eps)``. For a slice of the rows' columns,
+    ``norm`` (keepdim) and ``dim`` give the whole rows' norm and length."""
+    if norm is None:
+        norm = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+    return x * (math.sqrt(x.shape[-1] if dim is None else dim) / (norm + eps))
 
 
 def mp_silu(x: torch.Tensor) -> torch.Tensor:

@@ -40,7 +40,10 @@ from mapdit_tpu_torch.models.dit import forced_wn, project_weights
 from mapdit_tpu_torch.ops.mp import normalize
 from mapdit_tpu_torch.parallel.mesh import Mesh, fsdp_layout, mean_all_reduce_
 
-NORMALIZE_EPS = 1e-4  # ops/mp.py normalize's
+
+def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """The L2 norm of all of ``tensors`` together."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
 class DataParallel:
@@ -109,17 +112,19 @@ class DataParallel:
         return full.reshape(pre, self.n, cp)[:, self.index].reshape(self.shard_shape(name)).clone()
 
     def gather(self, tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """A tree in the held layout as whole tensors, new ones where
-        sharded: one all-gather over the data group under FSDP, which every
-        rank of the group must call; the tree itself under DP."""
+        """A tree in the held layout as whole tensors. Under FSDP: one
+        all-gather over the data group, which every rank of the group must
+        call, and every tensor a new one (the replicated ones cloned), so
+        that a background writer may hold the tree while training goes on.
+        Under DP: the tree itself, its live tensors."""
         if not self.sharded:
             return dict(tree)
         part = torch.cat([tree[name].reshape(-1) for name in self.sharded])
         stage = part.new_empty(self.n * self.shard_numel)
         dist.all_gather_into_tensor(stage, part, group=self.group)
-        out = dict(tree)
-        for name in self.sharded:
-            out[name] = stage.new_empty(self.shapes[name])
+        with torch.no_grad():
+            out = {name: t.detach().clone() if self.layout[name] is None else stage.new_empty(self.shapes[name])
+                   for name, t in tree.items()}
         self._unpack(stage, {name: out[name] for name in self.sharded})
         return out
 
@@ -176,7 +181,7 @@ class DataParallel:
         slices' squares summed over the group, the replicated tensors'
         counted once."""
         if not self.sharded:
-            return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(self.grads())))
+            return global_norm(self.grads())
         sq = torch.stack(torch._foreach_norm([self.held[k].grad for k in self.sharded])).square().sum()
         dist.all_reduce(sq, group=self.group)
         rep = [self.held[k].grad for k in self.replicated if self.held[k].grad is not None]
@@ -205,5 +210,4 @@ class DataParallel:
             sq = torch.cat([t.square().sum(dim=-1).reshape(-1) for t in cols])
             dist.all_reduce(sq, group=self.group)
             for t, s in zip(cols, sq.split([t[..., 0].numel() for t in cols])):
-                dim = t.shape[-1] * self.n
-                t.mul_(math.sqrt(dim) / (s.sqrt().view(t.shape[:-1] + (1,)) + NORMALIZE_EPS))
+                t.copy_(normalize(t, norm=s.sqrt().view(t.shape[:-1] + (1,)), dim=t.shape[-1] * self.n))

@@ -64,6 +64,11 @@ class Mesh:
     def model_index(self) -> int:
         return self.rank % self.n_model
 
+    @property
+    def lead(self) -> bool:
+        """Whether this rank writes the files of a run (rank 0)."""
+        return self.rank == 0
+
 
 def choose_backend(device: torch.device, ranks_on_host: int) -> str:
     """NCCL when every rank of the host has a card of its own, else gloo."""

@@ -159,7 +159,7 @@ def _train(args, device: torch.device, mesh) -> str:
         torch.set_float32_matmul_precision(args.matmul_precision)
     world = 1 if mesh is None else mesh.size
     n_data = 1 if mesh is None else mesh.n_data
-    lead = mesh is None or mesh.rank == 0
+    lead = mesh is None or mesh.lead
 
     # the lead owns the experiment directory; every rank gets its path
     exp_dir = setup_experiment(args.model, args.results_dir) if lead else None
@@ -304,7 +304,7 @@ def _train(args, device: torch.device, mesh) -> str:
             def write(host, _std=std, _step=step):
                 ema_lib.save_snapshot(ema_dir, _std, _step, host)
 
-            if gathered:  # new tensors: no clone needed
+            if gathered:  # new tensors throughout (DataParallel.gather): no clone needed
                 ema_writer.submit_snapshot(tree, write)
             else:
                 ema_writer.submit(tree, write)

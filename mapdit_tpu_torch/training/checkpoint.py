@@ -53,9 +53,9 @@ def sharded_path(exp_dir: str, step: int) -> str:
 
 
 def is_lead(state) -> bool:
-    """Whether this rank writes the files of the run: data index 0, or the
-    one process."""
-    return state.dp is None or state.dp.index == 0
+    """Whether this rank writes the files of the run: the mesh's lead, or
+    the one process."""
+    return state.dp is None or state.dp.mesh.lead
 
 
 def map_tensors(tree, fn: Callable[[torch.Tensor], torch.Tensor]):
@@ -73,9 +73,10 @@ def map_tensors(tree, fn: Callable[[torch.Tensor], torch.Tensor]):
 def state_tree(state) -> dict:
     """The ``TrainState`` as a tree of tensors and plain values. The tensors
     are the live ones: clone or copy them before the next train step. Under
-    FSDP the Adam moments and the EMA copies are gathered whole and the
-    tree is on the host: a collective that every rank of the data group
-    must call."""
+    FSDP the Adam moments and the EMA copies are gathered whole, a
+    collective that every rank of the data group must call, and the tree is
+    on the host and holds no live tensor: a background writer may hold it
+    while training goes on."""
     sampler = state.sampler_state
     tree = {
         "step": int(state.step),
@@ -89,18 +90,29 @@ def state_tree(state) -> dict:
     if dp is None or not dp.sharded:
         return tree
     names = list(dp.held)
+    moments = ("exp_avg", "exp_avg_sq")
     opt = tree["optimizer"]
-    opt["state"] = {i: dict(st) for i, st in opt["state"].items()}  # not the optimizer's own dicts
-    for slot in ("exp_avg", "exp_avg_sq"):
-        whole = _to_host(dp.gather({names[i]: st[slot] for i, st in opt["state"].items()}))
+    live = opt["state"]
+    # copies of the live tensors (the weights, Adam's step counts); the
+    # gathers below give new ones
+    tree["model"] = _host_copy(tree["model"])
+    opt["state"] = {i: {k: v if k in moments else _host_copy(v) for k, v in st.items()} for i, st in live.items()}
+    for slot in moments:
+        whole = _to_host(dp.gather({names[i]: st[slot] for i, st in live.items()}))
         for i, st in opt["state"].items():
             st[slot] = whole[names[i]]
     tree["ema"] = {key: _to_host(dp.gather(ema)) for key, ema in tree["ema"].items()}
-    return _to_host(tree)
+    return tree
 
 
 def _to_host(tree):
     return map_tensors(tree, lambda t: t.detach().cpu())
+
+
+def _host_copy(tree):
+    """``tree`` on the host, every tensor a copy (``.cpu()`` copies no CPU
+    tensor)."""
+    return map_tensors(tree, lambda t: t.detach().to("cpu", copy=True))
 
 
 def _cuda_device(tree) -> Optional[torch.device]:
@@ -318,7 +330,7 @@ class AsyncStateSaver:
         self._writer.check()
         path = checkpoint_path(exp_dir, step)
         if state.dp is not None and state.dp.sharded:
-            tree = state_tree(state)  # gathered, on the host: no clone needed
+            tree = state_tree(state)  # on the host, holding no live tensor: no clone needed
             if is_lead(state):
                 self._writer.submit_snapshot(tree, lambda host: _write(path, host))
             return path

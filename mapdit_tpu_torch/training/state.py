@@ -48,7 +48,7 @@ import torch
 from mapdit_tpu_torch.diffusion.timestep_sampler import LossSecondMomentResampler
 from mapdit_tpu_torch.models.config import DiTConfig
 from mapdit_tpu_torch.models.dit import DiT, init_model, project_weights
-from mapdit_tpu_torch.parallel.data_parallel import DataParallel
+from mapdit_tpu_torch.parallel.data_parallel import DataParallel, global_norm
 from mapdit_tpu_torch.parallel.mesh import Mesh, mean_all_reduce_
 from mapdit_tpu_torch.training import ema as ema_lib
 from mapdit_tpu_torch.utils.device import resolve_device
@@ -291,10 +291,7 @@ def make_train_step(
         with torch.no_grad():
             if grad_accum > 1:
                 torch._foreach_mul_(grads, 1.0 / grad_accum)
-            if state.dp is None:
-                grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-            else:
-                grad_norm = state.dp.grad_norm()
+            grad_norm = global_norm(grads) if state.dp is None else state.dp.grad_norm()
             if tx.grad_clip is not None:
                 torch._foreach_mul_(grads, tx.grad_clip / torch.clamp(grad_norm, min=tx.grad_clip))
         for group in state.optimizer.param_groups:

@@ -14,6 +14,9 @@ tests/test_parallel.py:29-45:
   * the forced weight normalization on a column-sharded weight;
   * the checkpoint formats: a torch-sharded checkpoint written by 4 or 2
     ranks resumed on 1, 2 and 4, the gathered .pt beside it;
+  * the background writers (the async checkpoint, the gathered EMA
+    snapshot) write the step they were handed after a later step has
+    changed the live tensors;
   * after three steps every rank holds the same weights, EMA copies and
     generator state.
 

@@ -8,6 +8,7 @@ module imports torch and the port only, never JAX.
 """
 
 import os
+import threading
 
 import numpy as np
 import torch
@@ -290,6 +291,36 @@ def checkpoint_cases(device, mesh, rank, tmp):
     assert_step_close(on_four, pair_ref, "2-rank shards resumed on 4 ranks")
 
 
+def background_write_case(device, mesh, rank, tmp):
+    """Under FSDP the background writers write what they were handed: a
+    checkpoint of the async saver and the gathered EMA copies, whose writes
+    are held until the next train step has changed the live weights, Adam
+    moments and EMA copies in place, still hold the step they were taken
+    at."""
+    t = Trainer(device)
+    state, _ = t.run(2, mesh, fsdp=True)
+    want = ckpt.save_state(os.path.join(tmp, "held-sync"), 2, state)
+    release = threading.Event()
+    saver, ema_writer = ckpt.AsyncStateSaver(), ckpt.AsyncTreeWriter()
+    for writer in (saver._writer, ema_writer):  # a write that holds the ones behind it
+        writer.submit_snapshot({}, lambda host: release.wait())
+    got = saver.save(os.path.join(tmp, "held-async"), 2, state)
+    snapshots = {key: state.dp.gather(tree) for key, tree in state.ema.items()}
+    taken = ckpt.map_tensors(snapshots, torch.clone)
+    written = {}
+    ema_writer.submit_snapshot(snapshots, lambda host: written.update(ckpt.map_tensors(host, torch.clone)))
+    t.run(1, mesh, fsdp=True, state=state)
+    release.set()
+    saver.close()
+    ema_writer.close()
+    mismatch = tree_mismatch(written, taken)
+    assert mismatch is None, f"the EMA snapshot written in the background changed at {mismatch}"
+    dist.barrier()
+    if rank == 0:
+        mismatch = tree_mismatch(torch.load(got, weights_only=True), torch.load(want, weights_only=True))
+        assert mismatch is None, f"the background checkpoint changed after the save at {mismatch}"
+
+
 def tree_mismatch(a, b, path=""):
     """The path of the first leaf where two trees differ (tensors bit for
     bit), or None."""
@@ -317,3 +348,4 @@ def run_cases(rank, device, jax_ref, tmp):
     sampler_cases(device, mesh, rank)
     projection_case(device, mesh)
     checkpoint_cases(device, mesh, rank, tmp)
+    background_write_case(device, mesh, rank, tmp)
