@@ -178,6 +178,25 @@ Phases, one line each; any failure exits non-zero before the final line:
      collectives' ms (through host memory: not NCCL); then the train CLI
      under torchrun (2 ranks, --fsdp true --checkpointer torch-sharded) at
      S/2, resumed on one process and sampled from its EMA snapshot;
+ 10c. multi-device serving on the same two ranks, each rank building the
+     service through the entry point's build_service / build_server (rank 0
+     serves HTTP and samples in process, rank 1 follows the lead's batch
+     descriptors): (2, 1) on phase 8c's copy of run A (DiT-S/2, buckets 1, 2,
+     4): /info's mesh, the default protocol (dpm++ 20, CFG 4.0) at 4 rows
+     (each rank the one-device chain on two rows) and at 1 row (the whole
+     batch on both ranks) held to the float32 plain chain by check_paths'
+     rule, a dpm++ 20 request over HTTP, a cached ddpm 2 request on the data
+     axis, 1 and 4 clients of 64 seeded one-sample requests (requests/s, p50,
+     p95); (1, 2) on a DiT-XL/2 experiment written from phase 9's weights
+     (auto -> mega_tp): a dpm++ 20 request at 4 x 2 rows held to the float32
+     plain chain, a timed request, a cached request answered 400; every
+     batch's launches on each rank exact and equal across the ranks; then
+     build_sample_fn(mesh=) at DiT-B/2 rotation_scale with attention_impl
+     pallas (the plain path, fused_attention on each rank's heads): the model
+     call and a clipped 10-step chain against the float32 plain path, exact
+     launches a rank; then the server's entry point under torchrun (2 ranks,
+     --shard true): /info, a request, SIGTERM to the lead worker, every
+     process exits 0. Gloo passes through host memory: not NCCL figures;
  11. the kernels JSON line, the device line again, and the ok line.
 Phase 3 holds dit_stack (csrc/dit_stack.cu: the one persistent kernel of
 fused_dit_stack and, at depth 1, fused_dit_block) at STACK_SHAPES (the S/2
@@ -320,6 +339,15 @@ DP_XL_RESIDENT_GB = {"dp": 13.49, "fsdp": 6.74}
 # float32 one-card step); FSDP's later steps against DP's on parameters that
 # differ by those sums
 DP_METRIC_RTOL, DP_GRAD_ATOL, DP_PARAM_ATOL, DP_LATER_RTOL = 1e-5, 1e-5, 1e-5, 1e-4
+# phase 10c: the server on two ranks sharing the card: (2, 1) on phase 8c's
+# copy of run A with buckets MESH_SERVE_BUCKETS (the default protocol held at
+# 4 and 1 rows, the timed loads of MESH_SERVE_LOADS clients), then (1, 2) at
+# DiT-XL/2 with MESH_TP_BATCH rows (one held request, MESH_TP_TIMED timed),
+# and the plain path's TP at DiT-B/2 rotation_scale on MESH_TP_BATCH x 2 rows
+MESH_SERVE_SEED = 500
+MESH_SERVE_BUCKETS = (1, 2, 4)
+MESH_SERVE_LOADS = (1, 4)
+MESH_TP_BATCH, MESH_TP_TIMED = 4, 3
 FID_SAMPLES, FID_BATCH = 64, 32  # phase 8b's sample_fid run (250 steps, CFG 1.5)
 VAE_CHECK_IMAGES = 8  # latents decoded on the card and on the CPU in phase 8b
 # phase 8c: the server's buckets and --seed, the chains it is held on
@@ -2982,6 +3010,443 @@ def dp_train_phase(torch, dev, tmp: str) -> dict:
     return reports[0]["s2_counts"]
 
 
+def mesh_serve_expect(key, depth: int, layout: str) -> dict:
+    """The launches one rank makes for one batch of program ``key`` (the
+    server's program key) on phase 10c's servers: one dit_stack launch a
+    model call for an exact chain on the data axis or on every rank, one a
+    computed block for a cached chain (blocks [depth/4, 3 depth/4) skipped
+    on every other step), and the TP island's eight partial launches a block
+    and a model call on a model axis."""
+    sampler, steps, cache_interval = key[0], key[1], key[5]
+    if cache_interval > 1:
+        lo, hi = depth // 4, depth - depth // 4
+        blocks = (steps // cache_interval) * depth + (steps - steps // cache_interval) * (depth - (hi - lo))
+        return {"fused_dit_block": blocks, "dit_stack": blocks}
+    if layout == "mega_tp":
+        per = steps * depth
+        return {"block_tp_attn": per, "mlp_tp_partial": per, "cosine_attention": per,
+                **{f"mp_gemm/{s}": per for s in ("modulation", "qkv", "out", "fc1", "fc2")}}
+    return {"fused_dit_stack": steps, "dit_stack": steps}
+
+
+def mesh_serve_rank(rank, dev, refs, out_dir):
+    """One rank of phase 10c (started by mapdit_tpu_torch.parallel.spawn):
+    the server of ``mapdit_tpu_torch.serve`` as one service over the two
+    ranks, built by the entry point's own build_service / build_server (rank
+    0 serves HTTP on an ephemeral port and samples in process, rank 1
+    follows), first (2, 1) on phase 8c's copy of run A, then (1, 2) on the
+    DiT-XL/2 experiment; each batch's launches recorded on both ranks around
+    the service's batch execution. Then build_sample_fn(mesh=) on (1, 2) at
+    DiT-B/2 rotation_scale, the plain path. Writes its report to
+    ``out_dir``; any failure raises, and then spawn raises in the parent."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mapdit_tpu_torch import serve
+    from mapdit_tpu_torch.diffusion import create_diffusion
+    from mapdit_tpu_torch.parallel import make_mesh
+    from mapdit_tpu_torch.runtime import build_sample_fn
+
+    report = {"batches": {}, "checks": {}, "loads": {}}
+    scale = 2.0**SERVE_STATS_EXP
+
+    def record(service, log):
+        """Wrap the service's batch execution (the whole of a batch's
+        device work on every rank) to log each batch's launches."""
+        execute = service._execute
+
+        def logged(fn_key, *rest):
+            out = execute(fn_key, *rest)
+            torch.cuda.synchronize()
+            log.append([list(fn_key[:6]), launch_counts()])
+            reset_launch_counts()
+            return out
+
+        service._execute = logged
+
+    def post(base, payload):
+        req = urllib.request.Request(base + "/v1/sample", data=json.dumps(payload).encode())
+        try:
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                return resp.status, resp.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    def info(base):
+        with urllib.request.urlopen(base + "/info", timeout=60) as resp:
+            return json.loads(resp.read())
+
+    def served(tag, flags, body):
+        """The service of ``flags`` on both ranks; ``body(service, base)``
+        on the lead while HTTP serves from a thread."""
+        args = serve.build_parser().parse_args(
+            ["--port", "0", "--seed", str(SERVE_SEED), "--block-kernel", "auto", "--device", str(dev),
+             "--shard", "true", *flags])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        service = serve.build_service(args)
+        log = report["batches"].setdefault(tag, [])
+        reset_launch_counts()
+        record(service, log)
+        if not service.lead:
+            service.follow()
+            return
+        server, service = serve.build_server(args, service)  # warms the default protocol at the largest bucket
+        report["checks"][f"{tag}:startup_s"] = time.perf_counter() - t0
+        server.RequestHandlerClass.log_message = lambda self, fmt, *a: None
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        try:
+            body(service, f"http://127.0.0.1:{server.server_address[1]}")
+        finally:
+            server.shutdown()
+            server.server_close()
+            service.close()
+
+    def held(tag, got, ref):
+        """check_paths' rule on served floats (latents times 2**-24)."""
+        got = torch.from_numpy(np.asarray(got)) * scale
+        err, limit = rel_l2(got, ref["f32"]), max(2 * rel_l2(ref["off"], ref["f32"]), 1e-2)
+        ok = bool(torch.isfinite(got).all()) and err <= limit
+        report["checks"][tag] = dict(rel_l2_err_vs_f32=err, tol=limit, ok=ok)
+        if not ok:
+            raise AssertionError(f"serve-mesh: {tag} off the f32 plain chain (rel L2 {err} > {limit})")
+
+    def load(base, clients):
+        latencies, errors, lock = [], [], threading.Lock()
+
+        def client(i):
+            for r in range(SERVE_REQUESTS):
+                t0 = time.perf_counter()
+                status, body = post(base, {"class_label": (37 * i) % 1000, "seed": 1000 * i + r})
+                with lock:
+                    latencies.append(time.perf_counter() - t0)
+                    if status != 200 or body[:8] != b"\x89PNG\r\n\x1a\n":
+                        errors.append(status)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        seconds = time.perf_counter() - t0
+        lat = np.asarray(latencies) * 1e3
+        if errors or len(latencies) != clients * SERVE_REQUESTS:
+            raise AssertionError(f"serve-mesh: load of {clients} clients: {errors[:3]}")
+        return dict(requests=clients * SERVE_REQUESTS, seconds=seconds, requests_per_s=len(lat) / seconds,
+                    p50_ms=float(np.percentile(lat, 50)), p95_ms=float(np.percentile(lat, 95)))
+
+    def data_parallel(service, base):
+        i = info(base)
+        report["checks"]["dp:info"] = dict(devices=i["devices"], mesh=i["mesh"])
+        if i["devices"] != 2 or i["mesh"] != {"data": 2, "model": 1}:
+            raise AssertionError(f"serve-mesh: /info {i['devices']} {i['mesh']}")
+        labels = refs["s2_labels"]
+        # the default protocol at bucket 4 (each rank the one-device chain on
+        # two rows) and at bucket 1 (the whole batch on both ranks)
+        held("dp:default-b4", service.sample(labels, seed=MESH_SERVE_SEED, **SERVE_DEFAULTS), refs["s2_b4"])
+        held("dp:default-b1", service.sample(labels[:1], seed=MESH_SERVE_SEED, **SERVE_DEFAULTS), refs["s2_b1"])
+        status, body = post(base, {"class_labels": labels, "seed": MESH_SERVE_SEED + 1, "steps": 20,
+                                   "sampler": "dpm++", "format": "npz"})
+        if status != 200:
+            raise AssertionError(f"serve-mesh: dpm++ 20 over HTTP: {status} {body[:200]!r}")
+        cached = service.sample(labels, seed=MESH_SERVE_SEED, steps=2, sampler="ddpm", cfg_scale=4.0,
+                                cache_interval=2)
+        report["checks"]["dp:cached-ddpm-2"] = dict(finite=bool(np.isfinite(cached).all()), shape=list(cached.shape))
+        if not np.isfinite(cached).all():
+            raise AssertionError("serve-mesh: the cached ddpm 2 chain on the data axis is non-finite")
+        for clients in MESH_SERVE_LOADS:
+            report["loads"][f"dp:{clients}"] = load(base, clients)
+
+    def tensor_parallel(service, base):
+        i = info(base)
+        report["checks"]["tp:info"] = dict(devices=i["devices"], mesh=i["mesh"],
+                                           block_kernel=service._prepared["model"].cfg.block_kernel)
+        if i["mesh"] != {"data": 1, "model": 2} or service._prepared["model"].cfg.block_kernel != "mega_tp":
+            raise AssertionError(f"serve-mesh: TP server {report['checks']['tp:info']}")
+        labels = refs["xl_labels"]
+        held("tp:dpm++-20", service.sample(labels, seed=MESH_SERVE_SEED, **SERVE_DEFAULTS), refs["xl"])
+        times = []
+        for r in range(MESH_TP_TIMED):
+            t0 = time.perf_counter()
+            status, _ = post(base, {"class_labels": labels, "seed": MESH_SERVE_SEED + 2 + r})
+            times.append(1e3 * (time.perf_counter() - t0))
+            if status != 200:
+                raise AssertionError(f"serve-mesh: TP request {status}")
+        report["checks"]["tp:request_ms"] = times
+        status, body = post(base, {"class_label": 1, "cache_interval": 2, "steps": 20})
+        report["checks"]["tp:cached"] = dict(status=status, error=json.loads(body)["error"])
+        if status != 400 or "tensor-parallel" not in json.loads(body)["error"]:
+            raise AssertionError(f"serve-mesh: a cached request on the TP server gave {status}")
+
+    served("dp", ["--result-dir", refs["s2_exp"], "--buckets", ",".join(map(str, MESH_SERVE_BUCKETS))],
+           data_parallel)
+    torch.cuda.empty_cache()
+    served("tp", ["--result-dir", refs["xl_exp"], "--ckpt", "0000000", "--buckets", str(len(refs["xl_labels"])),
+                  "--n-model", "2"], tensor_parallel)
+    torch.cuda.empty_cache()
+
+    # the plain path's tensor parallelism at DiT-B/2 rotation_scale (P2)
+    mesh = make_mesh(1, 2, device=dev)
+    cfg = refs["b2_cfg"]
+    sd = b2_state_dict(torch, cfg, dev)
+    z, y, tf = (refs["b2_in"][k].to(dev) for k in ("z", "y", "t"))
+    fn = build_sample_fn(cfg, sd, create_diffusion("10", device=dev), cfg_scale=CFG_SCALE, clip_denoised=True,
+                         mesh=mesh)
+    model = fn.prepared["model"]
+    if fn.run_cfg.block_kernel != "off" or model.blocks[0].attn.tp_group is None:
+        raise AssertionError(f"plain-tp: resolved {fn.run_cfg.block_kernel}")
+    counts = {}
+    with torch.no_grad():
+        for what, run in (("call", lambda: model.forward_with_cfg(z, tf, y, CFG_SCALE)),
+                          ("chain-10", lambda: fn(z, y, torch.Generator(device=dev).manual_seed(SEED + 1)))):
+            times = []
+            for r in range(2):  # checked and counted, then timed warm
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                out = run()
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+                if r == 0:
+                    counts[what] = launch_counts()
+                    calls = 1 if what == "call" else 10
+                    check_counts(f"plain-tp/{what}/rank{rank}", counts[what], {"fused_attention": cfg.depth * calls})
+                    ref = refs["b2"][what]
+                    err, limit = rel_l2(out.cpu(), ref["f32"]), max(2 * rel_l2(ref["off"], ref["f32"]), 1e-2)
+                    report["checks"][f"plain-tp:{what}"] = dict(rel_l2_err_vs_f32=err, tol=limit)
+                    if not bool(torch.isfinite(out).all()) or err > limit:
+                        raise AssertionError(f"plain-tp/{what}: off the f32 plain path (rel L2 {err} > {limit})")
+            report["checks"][f"plain-tp:{what}:ms"] = times
+    report["plain_counts"] = counts
+    report["backend"] = dist.get_backend()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def mesh_serve_refs(torch, dev, exp_s: str, tmp: str) -> dict:
+    """Phase 10c's references on one device: the float32 and bf16 plain
+    chains of the requests the servers are held on (the host preamble's z
+    for MESH_SERVE_SEED), DiT-XL/2's experiment directory (phase 9's weights
+    as a checkpoint, statistics as phase 8c's copy), and DiT-B/2
+    rotation_scale's weights, inputs, model call and clipped chain."""
+    from mapdit_tpu_torch import serve
+    from mapdit_tpu_torch.diffusion import create_diffusion
+    from mapdit_tpu_torch.models import DiT, build_config
+    from mapdit_tpu_torch.runtime import build_sample_fn, fold_weights_for_inference
+    from mapdit_tpu_torch.sample import load_variables, run_config
+    from mapdit_tpu_torch.utils.experiment import load_config, save_config
+
+    def chains(cfg, sd, labels):
+        z = serve.draw(MESH_SERVE_SEED, (len(labels), 4, 16, 16), dev)
+        y = torch.tensor(labels, device=dev)
+        z, y = torch.cat([z, z]), torch.cat([y, torch.full_like(y, 1000)])
+        d = create_diffusion("20", device=dev)
+        out = {}
+        for name, c in (("f32", cfg.replace(compute_dtype="float32", block_kernel="off")),
+                        ("off", cfg.replace(block_kernel="off"))):
+            fn = build_sample_fn(c, sd, d, cfg_scale=4.0, sampler="dpm++", device=dev)
+            out[name] = fn(z, y)[: len(labels)].cpu()
+        return out
+
+    train_args = load_config(exp_s)
+    s2_cfg = run_config(train_args, "auto")
+    s2_sd = load_variables(exp_s, train_args)
+    s2_labels = [(37 * i) % 1000 for i in range(MESH_SERVE_BUCKETS[-1])]
+    refs = dict(s2_exp=exp_s, s2_labels=s2_labels, s2_b4=chains(s2_cfg, s2_sd, s2_labels),
+                s2_b1=chains(s2_cfg, s2_sd, s2_labels[:1]))
+
+    xl_cfg = xl_config()
+    xl_sd = xl_state_dict(torch, xl_cfg, dev)
+    xl_exp = os.path.join(tmp, "xl_serve")
+    os.makedirs(os.path.join(xl_exp, "checkpoints"))
+    torch.save({"model": {k: v.cpu() for k, v in xl_sd.items()}}, os.path.join(xl_exp, "checkpoints", "0000000.pt"))
+    save_config(xl_exp, dict(train_args, model=XL_MODEL))
+    xl_labels = [(37 * i) % 1000 for i in range(MESH_TP_BATCH)]
+    refs.update(xl_exp=xl_exp, xl_labels=xl_labels, xl=chains(xl_cfg, xl_sd, xl_labels))
+    del xl_sd
+    torch.cuda.empty_cache()
+
+    flags, kernels = FAMILIES["P2"]
+    b2 = build_config(FAMILY_MODEL, in_channels=4, input_size=16, num_classes=1000, compute_dtype="bfloat16",
+                      **flags)
+    sd_dev = b2_state_dict(torch, b2, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    n = 2 * MESH_TP_BATCH
+    b2_in = dict(z=torch.randn(n, 4, 16, 16, generator=gen, device=dev),
+                 y=torch.cat([torch.randint(0, 1000, (MESH_TP_BATCH,), generator=gen, device=dev),
+                              torch.full((MESH_TP_BATCH,), 1000, device=dev)]),
+                 t=torch.full((n,), 500.0, device=dev))
+    # the references are the plain path on one device, without kernels
+    b2_refs = {"call": {}, "chain-10": {}}
+    for name, c in (("f32", b2.replace(compute_dtype="float32")), ("off", b2)):
+        model = DiT(c.replace(fold_weights=True)).to(dev).eval()
+        model.load_state_dict(fold_weights_for_inference(sd_dev, c.replace(fold_weights=True)))
+        with torch.no_grad():
+            b2_refs["call"][name] = model.forward_with_cfg(b2_in["z"], b2_in["t"], b2_in["y"], CFG_SCALE).cpu()
+        fn = build_sample_fn(c, sd_dev, create_diffusion("10", device=dev), cfg_scale=CFG_SCALE, clip_denoised=True,
+                             device=dev)
+        b2_refs["chain-10"][name] = fn(b2_in["z"], b2_in["y"],
+                                       torch.Generator(device=dev).manual_seed(SEED + 1)).cpu()
+        del model, fn
+    refs.update(b2_cfg=b2.replace(**kernels), b2_in={k: v.cpu() for k, v in b2_in.items()}, b2=b2_refs)
+    return refs
+
+
+def b2_state_dict(torch, cfg, dev) -> dict:
+    """DiT-B/2's weights of phase 7 (init from SEED, gains drawn) on the
+    card; the parent and each rank draw the same."""
+    from mapdit_tpu_torch.models import init_model
+
+    init = init_model(cfg, seed=SEED, device="cpu")
+    draw_gains(torch, init, SEED)
+    return {key: v.to(dev) for key, v in init.state_dict().items()}
+
+
+def torchrun_children(pid: int) -> dict:
+    """{RANK: pid} of the worker processes torchrun ``pid`` started (its
+    children, read from /proc)."""
+    ranks = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            if ppid != pid:
+                continue
+            with open(f"/proc/{entry}/environ", "rb") as f:
+                env = dict(item.split(b"=", 1) for item in f.read().split(b"\0") if b"=" in item)
+        except OSError:
+            continue
+        if b"RANK" in env:
+            ranks[int(env[b"RANK"])] = int(entry)
+    return ranks
+
+
+def mesh_serve_cli(exp_s: str) -> dict:
+    """The server's entry point under torchrun: two ranks on the card with
+    --shard true, /info's mesh, one request, then SIGTERM to the lead
+    worker alone: it stops accepting, broadcasts the stop, both workers and
+    torchrun exit 0."""
+    import signal
+    import threading
+    import urllib.request
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2", "-m",
+         "mapdit_tpu_torch.serve", "--result-dir", exp_s, "--port", "0", "--shard", "true", "--buckets", "2",
+         "--block-kernel", "auto", "--warmup", "false", "--default-steps", "2"],
+        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    reader = threading.Thread(target=lambda: [lines.append(x) for x in proc.stdout], daemon=True)
+    reader.start()
+    t0 = time.perf_counter()
+    try:
+        port = None
+        while port is None and time.perf_counter() - t0 < 300:
+            text = "".join(lines)
+            if "listening on http://" in text:
+                port = int(text.split("listening on http://")[1].split()[0].rsplit(":", 1)[1])
+            elif proc.poll() is not None:
+                raise AssertionError(f"serve-cli: torchrun exited {proc.returncode}:\n{text[-3000:]}")
+            time.sleep(0.2)
+        if port is None:
+            raise AssertionError("serve-cli: no listening line")
+        startup = time.perf_counter() - t0
+        base = f"http://127.0.0.1:{port}"
+        with urllib.request.urlopen(base + "/info", timeout=60) as resp:
+            info = json.loads(resp.read())
+        req = urllib.request.Request(base + "/v1/sample", data=json.dumps({"class_labels": [1, 2], "seed": 3}).encode())
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            status, png = resp.status, resp.read()
+        workers = torchrun_children(proc.pid)
+        os.kill(workers[0], signal.SIGTERM)
+        code = proc.wait(timeout=120)
+        reader.join(timeout=10)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    text = "".join(lines)
+    out = dict(startup_s=startup, mesh=info["mesh"], devices=info["devices"], status=status,
+               png=png[:8] == b"\x89PNG\r\n\x1a\n", torchrun_exit=code, lead_stopped="[serve] stopped" in text,
+               follower_stopped="[serve] rank 1 stopped" in text)
+    if not (info["mesh"] == {"data": 2, "model": 1} and status == 200 and out["png"] and code == 0
+            and out["lead_stopped"] and out["follower_stopped"]):
+        raise AssertionError(f"serve-cli: {out}\n{text[-3000:]}")
+    return out
+
+
+def mesh_serve_phase(torch, dev, exp_a: str, tmp: str) -> dict:
+    """Phase 10c: the server on two ranks sharing the card (see
+    mesh_serve_rank), then its entry point under torchrun (mesh_serve_cli).
+    Every batch's launches of each rank are held to mesh_serve_expect and
+    to the other rank's. Returns rank 0's launch counts of the plain path's
+    TP chain."""
+    import shutil
+
+    from mapdit_tpu_torch.parallel import spawn
+
+    card = smi_line()
+    exp_s = exp_a.rstrip("/") + "-serve"  # phase 8c's copy of run A, statistics 2**-24
+    t0 = time.perf_counter()
+    refs = mesh_serve_refs(torch, dev, exp_s, tmp)
+    refs_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="mapdit_smoke_serve_") as out:
+        t0 = time.perf_counter()
+        spawn(mesh_serve_rank, 2, args=(refs, out))
+        seconds = time.perf_counter() - t0
+        reports = []
+        for r in range(2):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                reports.append(json.load(f))
+    shutil.rmtree(refs["xl_exp"], ignore_errors=True)
+    depth = {"dp": 12, "tp": 28}
+    for tag in ("dp", "tp"):
+        logs = [rep["batches"][tag] for rep in reports]
+        if len(logs[0]) != len(logs[1]):
+            raise AssertionError(f"serve-mesh/{tag}: the ranks ran {len(logs[0])} and {len(logs[1])} batches")
+        for i, ((key0, c0), (key1, c1)) in enumerate(zip(*logs)):
+            layout = "mega_tp" if tag == "tp" else "dp"
+            if key0 != key1:
+                raise AssertionError(f"serve-mesh/{tag}: batch {i} ran {key0} and {key1}")
+            for r, counts in enumerate((c0, c1)):
+                check_counts(f"serve-mesh/{tag}/batch{i}/rank{r}", counts, mesh_serve_expect(key0, depth[tag], layout))
+        kinds = {}
+        for key, counts in logs[0]:
+            kinds.setdefault(json.dumps(key), {k: v for k, v in counts.items() if v})
+        for key, counts in kinds.items():
+            phase("serve-mesh", server=tag, program=key, launches_a_batch_each_rank=json.dumps(counts))
+        phase("serve-mesh", server=tag, batches=len(logs[0]), ranks_launched_alike=True)
+    checks = reports[0]["checks"]
+    for name, row in checks.items():
+        phase("serve-mesh", check=name, **({k: json.dumps(v) if isinstance(v, (dict, list)) else v
+                                            for k, v in row.items()} if isinstance(row, dict) else {"value": row}))
+    for name, row in reports[0]["loads"].items():
+        phase("serve-mesh-load", server=name.split(":")[0], clients=int(name.split(":")[1]), requests=row["requests"],
+              seconds=f"{row['seconds']:.4f}", requests_per_s=f"{row['requests_per_s']:.3f}",
+              p50_ms=f"{row['p50_ms']:.3f}", p95_ms=f"{row['p95_ms']:.3f}",
+              note="two ranks share one card over gloo; phase 8c's serve-load lines are the one-device numbers",
+              card=json.dumps(card))
+    for r, rep in enumerate(reports):
+        phase("plain-tp", rank=r, model=FAMILY_MODEL, family="rotation_scale", attention_impl="pallas",
+              mesh="(1,2)", backend=rep["backend"],
+              launches=json.dumps({w: {k: v for k, v in c.items() if v} for w, c in rep["plain_counts"].items()}),
+              call_ms=json.dumps([round(v, 4) for v in rep["checks"]["plain-tp:call:ms"]]),
+              chain10_ms=json.dumps([round(v, 4) for v in rep["checks"]["plain-tp:chain-10:ms"]]))
+    cli = mesh_serve_cli(exp_s)
+    phase("serve-cli", **{k: json.dumps(v) if isinstance(v, dict) else v for k, v in cli.items()})
+    phase("serve-mesh", refs_seconds=f"{refs_s:.2f}", seconds_with_spawn=f"{seconds:.2f}", card=json.dumps(card))
+    return {"plain-tp/chain": reports[0]["plain_counts"]["chain-10"]}
+
+
 def count_stack_rows(k):
     """Wrap ``fused_dit_stack`` (the model looks it up at each call) to
     record each call's rows; returns (rows seen, undo)."""
@@ -3403,8 +3868,9 @@ def serve_phase(torch, dev, exp: str) -> None:
         """The server as ``python -m mapdit_tpu_torch.serve`` builds it (and
         warms it), its request log off (a line a request would bury the
         phase's lines), serving from a thread: (server, service, base URL)."""
-        server, service = serve.build_server(serve.build_parser().parse_args(
-            ["--port", "0", "--seed", str(SERVE_SEED), "--block-kernel", "auto", *flags]))
+        args = serve.build_parser().parse_args(
+            ["--port", "0", "--seed", str(SERVE_SEED), "--block-kernel", "auto", *flags])
+        server, service = serve.build_server(args, serve.build_service(args))
         server.RequestHandlerClass.log_message = lambda self, fmt, *args: None
         threading.Thread(target=server.serve_forever, daemon=True).start()
         return server, service, f"http://127.0.0.1:{server.server_address[1]}"
@@ -3897,9 +4363,10 @@ def distill_phase(torch, dev, exp: str, tmp: str, train_counts: dict) -> None:
     c_, side = student_args["in_channels"], student_args["input_size"]
     student_args.update(stats_mean=[0.0] * c_, stats_std=[2.0**-SERVE_STATS_EXP] * c_)
     save_config(exp_s, student_args)
-    server, service = serve.build_server(serve.build_parser().parse_args(
+    args = serve.build_parser().parse_args(
         ["--port", "0", "--seed", str(SERVE_SEED), "--block-kernel", "auto", "--result-dir", exp_s,
-         "--buckets", "1,4"]))
+         "--buckets", "1,4"])
+    server, service = serve.build_server(args, serve.build_service(args))
     server.RequestHandlerClass.log_message = lambda self, fmt, *args: None
     threading.Thread(target=server.serve_forever, daemon=True).start()
     base = f"http://127.0.0.1:{server.server_address[1]}"
@@ -4357,6 +4824,11 @@ def main() -> int:
         train_launches["mega_attn+pallas"] = {
             key: v + dp_counts.get(key, 0) for key, v in train_launches["mega_attn+pallas"].items()}
         elapsed("10b")
+        # 10c. the server on the two ranks, data- and tensor-parallel, and the
+        # plain path's tensor parallelism
+        torch.cuda.empty_cache()
+        family_launches.update(mesh_serve_phase(torch, dev, exp_a, tmp))
+        elapsed("10c")
 
     # 11. report
     kernels = []

@@ -15,7 +15,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from mapdit_tpu_torch.models.blocks import DiTBlock, FinalLayer, LabelEmbedder, TimestepEmbedder, kernel_family_ok
-from mapdit_tpu_torch.models.config import DiTConfig
+from mapdit_tpu_torch.models.config import TP_KERNELS, DiTConfig
 from mapdit_tpu_torch.models.layers import MPLinear, activation
 from mapdit_tpu_torch.ops.mp import mp_sum, normalize
 from mapdit_tpu_torch.ops.patch import patchify, unpatchify
@@ -117,13 +117,25 @@ class DiT(nn.Module):
         return calls
 
     def load_tensor_parallel(self, state_dict, mesh) -> None:
-        """Load one rank's ``parallel.shard_state_dict``: each weight split
+        """Load one rank's ``parallel.shard_state_dict``: each tensor split
         over the model axis replaces its full-size parameter (so the rank
-        holds only its shard), and every block runs its island over
-        ``mesh``."""
+        holds only its shard). Under a TP island (``mega_attn_tp``,
+        ``mega_tp``) every block runs its island over ``mesh``; otherwise
+        the blocks run the plain path (``block_kernel="off"``) on the plain
+        layout: each split attention or MLP half sums its row-parallel
+        partials over the mesh's model group
+        (``layers.MPLinear.row_parallel``)."""
+        from mapdit_tpu_torch.parallel.mesh import plain_tp_splits
+
         if self.cfg.scan_blocks:
             raise NotImplementedError(
                 "tensor parallelism on the scan_blocks layout is the ROADMAP item 'Multi-GPU layouts, the rest'"
+            )
+        plain = self.cfg.block_kernel not in TP_KERNELS
+        if plain and self.cfg.block_kernel != "off":
+            raise ValueError(
+                f"block_kernel={self.cfg.block_kernel!r} is a single-device kernel; the plain path's tensor-parallel "
+                "layout runs block_kernel 'off'"
             )
         for name, value in state_dict.items():
             module_name, _, attr = name.rpartition(".")
@@ -132,8 +144,12 @@ class DiT(nn.Module):
             if isinstance(param, nn.Parameter) and param.shape != value.shape:
                 setattr(module, attr, nn.Parameter(param.new_empty(value.shape), requires_grad=False))
         self.load_state_dict(state_dict)
+        attn_split, mlp_split = plain_tp_splits(self.cfg, mesh.n_model)
         for block in self.blocks:
             block.mesh = mesh
+            if plain:
+                block.attn.tp_group = mesh.model_group if attn_split else None
+                block.mlp.tp_group = mesh.model_group if mlp_split else None
 
     def forward(
         self,

@@ -15,6 +15,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -81,16 +82,36 @@ class MPLinear(nn.Module):
         assert self.use_wn and not self.learn_gain
         return self.weight if self.folded else normalize(self.weight)
 
-    def _product(self, x: torch.Tensor) -> torch.Tensor:
+    def product(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
+        """``x`` against the weight (``bias=False``: without the bias)."""
         dt = self.dtype
         if not self.use_wn:
-            return x.to(dt) @ self.weight.t().to(dt) + self.bias.to(dt)
+            y = x.to(dt) @ self.weight.t().to(dt)
+            return y + self.bias.to(dt) if bias else y
         w = self.weight if self.folded else normalize(self.weight)
         gain = self.gain if self.learn_gain else 1.0
         return x.to(dt) @ (w * (gain / math.sqrt(self.in_dim))).t().to(dt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._product(x)
+        return self.product(x)
+
+    def row_parallel(self, x: torch.Tensor, group) -> torch.Tensor:
+        """The product of a weight split on its input columns over the ranks
+        of ``group`` (tensor parallelism of the plain path): this rank's
+        partial product on its slice ``x`` of the input, summed over the
+        group in float32, rounded to the compute type, then the bias once.
+        ``in_dim`` stays the full fan-in, so the MP scale is the unsplit
+        one; the weights must be folded (a slice's rows cannot be
+        normalized alone). Inference only."""
+        if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad):
+            raise RuntimeError(
+                "row_parallel is inference-only (tensor parallelism of the plain path has no VJP, as the islands "
+                "have none); run it under torch.no_grad()"
+            )
+        partial = self.product(x, bias=False).float()
+        dist.all_reduce(partial, group=group)
+        y = partial.to(self.dtype)
+        return y if self.use_wn else y + self.bias.to(self.dtype)
 
 
 class MPLinearSplit(MPLinear):
@@ -106,7 +127,7 @@ class MPLinearSplit(MPLinear):
         self.out_dims = tuple(out_dims)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        return torch.split(self._product(x), self.out_dims, dim=-1)
+        return torch.split(self.product(x), self.out_dims, dim=-1)
 
 
 class MPEmbedding(nn.Module):
@@ -131,20 +152,28 @@ class Attention(nn.Module):
     """Multi-head attention: fused qkv projection, q/k rows normalized
     under ``use_cosine_attention``, 1/sqrt(head_dim) scale, output
     projection; the attention itself by ``cfg.attention_impl``
-    (``ops/attention.py``)."""
+    (``ops/attention.py``).
+
+    Under tensor parallelism (``tp_group`` set by
+    ``DiT.load_tensor_parallel``) the rank holds the qkv rows of a block of
+    whole heads and the matching input columns of the out-projection: it
+    attends over its heads and the out-projection's partials are summed over
+    the group (:meth:`MPLinear.row_parallel`)."""
 
     def __init__(self, cfg: DiTConfig, in_dim: int):
         super().__init__()
         self.num_heads = cfg.num_heads
+        self.head_dim = in_dim // cfg.num_heads
         self.cosine, self.impl = cfg.use_cosine_attention, cfg.attention_impl
         self.qkv_proj = MPLinearSplit(in_dim, (in_dim,) * 3, cfg)
         self.out_proj = MPLinear(in_dim, in_dim, cfg)
+        self.tp_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, t, d = x.shape
-        h = self.num_heads
-        hd = d // h
-        q, k, v = self.qkv_proj(x)
+        b, t, _ = x.shape
+        hd = self.head_dim
+        q, k, v = self.qkv_proj.product(x).chunk(3, dim=-1)
+        h = q.shape[-1] // hd  # this rank's heads
 
         def to_heads(z):
             return z.reshape(b, t, h, hd).transpose(1, 2)
@@ -152,18 +181,23 @@ class Attention(nn.Module):
         out = dot_product_attention(
             to_heads(q), to_heads(k), to_heads(v), 1.0 / math.sqrt(hd), cosine=self.cosine, impl=self.impl
         )
-        return self.out_proj(out.transpose(1, 2).reshape(b, t, d))
+        out = out.transpose(1, 2).reshape(b, t, h * hd)
+        return self.out_proj(out) if self.tp_group is None else self.out_proj.row_parallel(out, self.tp_group)
 
 
 class MLP(nn.Module):
     """fc1 -> (MP-)SiLU -> fc2, held as ``net`` = (fc1, act, fc2) so the
-    parameter names are the reference's ``net.0`` / ``net.2``."""
+    parameter names are the reference's ``net.0`` / ``net.2``. Under tensor
+    parallelism (``tp_group`` set) the rank holds a block of fc1's rows and
+    the matching input columns of fc2, whose partials are summed over the
+    group."""
 
     def __init__(self, cfg: DiTConfig, in_dim: int, out_dim: int, hidden_dim: Optional[int] = None):
         super().__init__()
         self.dtype = cfg.dtype
         hidden = int(in_dim * cfg.mlp_ratio) if hidden_dim is None else hidden_dim
         self.net = nn.Sequential(MPLinear(in_dim, hidden, cfg), activation_module(cfg), MPLinear(hidden, out_dim, cfg))
+        self.tp_group = None
 
     @property
     def fc1(self) -> MPLinear:
@@ -174,7 +208,9 @@ class MLP(nn.Module):
         return self.net[2]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.net(x)
+        if self.tp_group is None:
+            return self.net(x)
+        return self.fc2.row_parallel(self.net[1](self.fc1(x)), self.tp_group)
 
     def fused_branch(self, x, shift, scale, gate, gain) -> torch.Tensor:
         """The whole MP-MLP half-block (modulate -> MLP -> gate -> mp_sum

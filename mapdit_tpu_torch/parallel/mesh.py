@@ -27,6 +27,7 @@ and later) on CUDA tensors, which it stages through host memory itself.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 import tempfile
 from typing import Callable, Dict, Optional
@@ -94,19 +95,22 @@ def _rank_device(device, local_rank: int) -> torch.device:
     return torch.device("cuda", local_rank % torch.cuda.device_count())
 
 
-def init_distributed(device=None) -> torch.device:
+def init_distributed(device=None, timeout_s: Optional[float] = None) -> torch.device:
     """Join the process group that ``torchrun`` describes in the environment
     (RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR,
     MASTER_PORT): the counterpart of ``jax.distributed.initialize``. Returns
     this rank's device: ``cuda:LOCAL_RANK % cards`` unless ``device`` is
-    given. The backend follows :func:`choose_backend`."""
+    given. The backend follows :func:`choose_backend`. ``timeout_s`` bounds
+    every collective's wait (torch's default, 10 or 30 minutes by backend,
+    when None)."""
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     local_rank = int(os.environ.get("LOCAL_RANK", rank))
     dev = _rank_device(device, local_rank)
     backend = choose_backend(dev, int(os.environ.get("LOCAL_WORLD_SIZE", world)))
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    dist.init_process_group(backend, init_method="env://", rank=rank, world_size=world)
+    kw = {} if timeout_s is None else {"timeout": datetime.timedelta(seconds=timeout_s)}
+    dist.init_process_group(backend, init_method="env://", rank=rank, world_size=world, **kw)
     _announce(rank, world, backend, dev)
     return dev
 
@@ -250,16 +254,41 @@ def fsdp_layout(named_params: Dict[str, torch.Tensor], mesh: Mesh) -> Dict[str, 
 
 
 # ---------------------------------------------------------------------------
-# weight layout of the islands
+# weight layouts of tensor parallelism: the islands and the plain path
+
+PLAIN_TP = "off"  # the layout of the plain path, named by its block kernel
 
 
-def _tp_split(name: str, kernel: str) -> Optional[str]:
-    """How the island splits a block weight over the model axis: "qkv"
-    (viewed (3, D, D), split on axis 1), "rows" or "cols"; None: replicated."""
+def plain_tp_splits(cfg, tp: int):
+    """(attention split, MLP split) of the plain path's layout on ``tp``
+    model ranks: each half splits where its heads (its hidden width)
+    divide over the ranks and stays whole on every rank otherwise, as JAX
+    ``param_sharding`` leaves a dim the model axis does not divide."""
+    return cfg.num_heads % tp == 0, int(cfg.hidden_size * cfg.mlp_ratio) % tp == 0
+
+
+def _tp_split(name: str, kernel: str, splits=(True, True)) -> Optional[str]:
+    """How a block tensor splits over the model axis: "qkv" (viewed
+    (3, D, ...), split on axis 1), "rows" or "cols"; None: replicated.
+    ``splits`` is the plain layout's (attention, MLP) of
+    :func:`plain_tp_splits`."""
     parts = name.split(".")
-    if len(parts) < 3 or parts[0] != "blocks" or parts[-1] != "weight":
+    if len(parts) < 3 or parts[0] != "blocks" or parts[-1] not in ("weight", "bias"):
         return None
-    module = ".".join(parts[2:-1])
+    module, attr = ".".join(parts[2:-1]), parts[-1]
+    if kernel == PLAIN_TP:
+        attn, mlp = splits
+        split = {
+            ("attn.qkv_proj", "weight"): "qkv" if attn else None,
+            ("attn.qkv_proj", "bias"): "qkv" if attn else None,
+            ("attn.out_proj", "weight"): "cols" if attn else None,
+            ("mlp.net.0", "weight"): "rows" if mlp else None,
+            ("mlp.net.0", "bias"): "rows" if mlp else None,
+            ("mlp.net.2", "weight"): "cols" if mlp else None,
+        }
+        return split.get((module, attr))
+    if attr != "weight":
+        return None
     if module == "attn.qkv_proj":
         return "qkv"
     if module == "attn.out_proj":
@@ -272,12 +301,13 @@ def _tp_split(name: str, kernel: str) -> Optional[str]:
 
 
 def shard_tensor(value: torch.Tensor, split: str, tp: int, index: int) -> torch.Tensor:
-    """Shard ``index`` of ``tp`` of one weight by ``split`` (see _tp_split),
-    as a tensor of its own."""
+    """Shard ``index`` of ``tp`` of one weight or bias by ``split`` (see
+    _tp_split), as a tensor of its own."""
     if split == "qkv":
-        three_d, d = value.shape
-        d_l = three_d // 3 // tp
-        return value.reshape(3, three_d // 3, d)[:, index * d_l : (index + 1) * d_l].reshape(3 * d_l, d).clone()
+        rows = value.shape[0] // 3
+        d_l = rows // tp
+        three = value.reshape(3, rows, *value.shape[1:])
+        return three[:, index * d_l : (index + 1) * d_l].reshape(3 * d_l, *value.shape[1:]).clone()
     if split == "rows":
         rows = value.shape[0] // tp
         return value[index * rows : (index + 1) * rows].clone()
@@ -286,29 +316,38 @@ def shard_tensor(value: torch.Tensor, split: str, tp: int, index: int) -> torch.
 
 
 def shard_state_dict(folded_sd: Dict[str, torch.Tensor], cfg, mesh: Mesh, kernel: str) -> Dict[str, torch.Tensor]:
-    """This rank's tensors of the TP island ``kernel`` over a folded state
-    dict (the islands at ``blocks.py:395-398, 468-471`` of the JAX package):
+    """This rank's tensors of the tensor-parallel layout ``kernel`` over a
+    folded state dict: an island (``blocks.py:395-398, 468-471`` of the JAX
+    package) or the plain path (``PLAIN_TP``, the twin of JAX
+    ``param_sharding``'s model axis, ``mapdit_tpu/parallel/mesh.py:61-119``):
 
       * qkv (3D, D) is viewed (3, D, D) and split on axis 1, so each rank
-        holds the same heads of q, k and v, stacked (3*D_l, D);
+        holds the same whole heads of q, k and v, stacked (3*D_l, D);
       * the out-projection is split on its input columns (D, D_l);
-      * under ``mega_tp`` fc1 is split on its rows (H_l, D), fc2 on its
-        columns (D, H_l);
+      * under ``mega_tp`` and the plain path fc1 is split on its rows
+        (H_l, D), fc2 on its columns (D, H_l);
+      * on the plain path a column-parallel bias (qkv, fc1; the vanilla
+        family has biases) is split with its rows; a row-parallel bias
+        (out-proj, fc2) stays whole and is added once, after the sum;
+        a half whose heads (hidden width) do not divide stays whole;
       * everything else is replicated.
 
     Shard after folding: ``normalize`` divides each row by its norm over the
     full input width, so a column slice of out-proj or fc2 must never be
-    normalized again."""
-    if kernel not in TP_KERNELS:
-        raise ValueError(f"shard_state_dict shards for {TP_KERNELS}, got {kernel!r}")
-    if not cfg.fold_weights:
-        raise ValueError("the TP islands take folded weights: fold the full state dict, then shard it")
+    normalized again. (Without weight normalization there is nothing to
+    fold.)"""
+    if kernel not in (*TP_KERNELS, PLAIN_TP):
+        raise ValueError(f"shard_state_dict shards for {TP_KERNELS} and the plain path {PLAIN_TP!r}, got {kernel!r}")
+    if cfg.use_weight_normalization and not cfg.fold_weights:
+        raise ValueError("tensor parallelism takes folded weights: fold the full state dict, then shard it")
     tp, index = mesh.n_model, mesh.model_index
-    hidden = int(cfg.hidden_size * cfg.mlp_ratio)
-    if cfg.num_heads % tp or (kernel == "mega_tp" and hidden % tp):
-        raise ValueError(f"{cfg.num_heads} heads and hidden width {hidden} do not split over {tp} model ranks")
+    splits = plain_tp_splits(cfg, tp)
+    if kernel != PLAIN_TP:
+        hidden = int(cfg.hidden_size * cfg.mlp_ratio)
+        if cfg.num_heads % tp or (kernel == "mega_tp" and hidden % tp):
+            raise ValueError(f"{cfg.num_heads} heads and hidden width {hidden} do not split over {tp} model ranks")
     out = {}
     for name, value in folded_sd.items():
-        split = _tp_split(name, kernel)
+        split = _tp_split(name, kernel, splits)
         out[name] = value if split is None else shard_tensor(value, split, tp, index)
     return out

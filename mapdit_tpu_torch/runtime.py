@@ -20,10 +20,11 @@ the whole-stack kernel cannot skip a span.
 
 ``build_sample_fn(mesh=)`` runs the chain on a ('data', 'model') mesh of
 ranks (``parallel/mesh.py``): the data axis splits the batch, the model axis
-runs the tensor-parallel islands of ``ops/cuda/dit_block_tp.py`` on each
-rank's weight shards. ``build_dp_sharded_sample_fn`` is the other
-data-parallel layout: each data rank runs the whole one-device chain on its
-own rows with its own stream.
+runs the tensor-parallel islands of ``ops/cuda/dit_block_tp.py`` or the
+plain path on each rank's weight shards. ``build_cached_sample_fn(mesh=)``
+splits the cached chain's batch over a data axis.
+``build_dp_sharded_sample_fn`` is the other data-parallel layout: each data
+rank runs the whole one-device chain on its own rows with its own stream.
 
 ``build_pit_sample_fn`` is parallel-in-time DDIM: each Picard sweep is one
 model call over a window of chain positions, on one device or with the
@@ -41,7 +42,7 @@ from mapdit_tpu_torch.models.blocks import kernel_family_ok, resolve_block_kerne
 from mapdit_tpu_torch.models.config import TP_KERNELS, DiTConfig
 from mapdit_tpu_torch.models.dit import DiT
 from mapdit_tpu_torch.ops.mp import normalize
-from mapdit_tpu_torch.parallel.mesh import all_gather_rows, check_replicated, shard_state_dict
+from mapdit_tpu_torch.parallel.mesh import PLAIN_TP, all_gather_rows, check_replicated, shard_state_dict
 from mapdit_tpu_torch.utils.device import resolve_device
 
 
@@ -149,9 +150,13 @@ def prepare_weights(
     the batch, so one prepared dict serves every chain of that config
     whatever its batch hint (:func:`check_prepared`). With a ``mesh`` (two
     or more ranks) it first checks that every rank holds the same weights,
-    and under a TP kernel loads only this rank's shards."""
+    and on a model axis loads only this rank's shards: a TP island's, or
+    the plain path's layout, as :func:`_mesh_config` resolves ``cfg``."""
     device = resolve_device(device)
+    if mesh is not None and mesh.size > 1:
+        cfg = _mesh_config(cfg, fold, mesh, device)
     run_cfg = resolve_run_config(cfg, fold, batch_hint, device)
+    tensor_parallel = mesh is not None and mesh.n_model > 1
     if mesh is None and run_cfg.block_kernel not in TP_KERNELS:
         model = folded_model(cfg, state_dict, fold, device)
         sd = model.state_dict()
@@ -162,8 +167,9 @@ def prepare_weights(
         model = DiT(resolve_run_config(cfg, fold, None, device)).to(device).eval()
         if mesh is not None:
             check_replicated(sd, device)
-        if run_cfg.block_kernel in TP_KERNELS:
-            model.load_tensor_parallel(shard_state_dict(sd, run_cfg, mesh, run_cfg.block_kernel), mesh)
+        if tensor_parallel:
+            kernel = run_cfg.block_kernel if run_cfg.block_kernel in TP_KERNELS else PLAIN_TP
+            model.load_tensor_parallel(shard_state_dict(sd, run_cfg, mesh, kernel), mesh)
         else:
             model.load_state_dict(sd)
     stack = build_block_stack(sd, run_cfg) if run_cfg.block_kernel == "mega_stack" else None
@@ -391,11 +397,18 @@ def build_sample_fn(
     ``mesh`` (``parallel.make_mesh``): the layout of ``runtime.py:646-748``
     of the JAX package on torch.distributed, called on every rank with the
     same arguments (the same weights, the global noise and labels, a
-    generator with the same seed). Its model axis runs the tensor-parallel
-    islands: ``auto`` resolves through ``resolve_block_kernel_tp``,
-    ``mega_attn_tp`` and ``mega_tp`` may be named; the other kernels, the
-    plain path and every family outside MP + adaln + cosine attention are
-    refused there. A data-only mesh runs any kernel on full weights. The
+    generator with the same seed). Its model axis splits the weights:
+    ``auto`` resolves through ``resolve_block_kernel_tp`` to a
+    tensor-parallel island where one applies (MP + adaln + cosine
+    attention, folded bf16 on the card) and to ``off`` otherwise, which
+    runs the plain path of every family and flag set on whole heads and
+    MLP lanes, the row-parallel partials summed over the model group (the
+    attention by ``attention_impl``, so ``fused_attention`` on the card
+    where it is named); ``off``, ``mega_attn_tp`` and ``mega_tp`` may be
+    named. Single-device kernels, ``fold=False`` on weight-normalized
+    weights and the ``scan_blocks`` layout are refused there (the last two
+    name the ROADMAP item "Multi-GPU layouts, the rest"). A data-only mesh
+    runs any kernel on full weights. The
     data axis splits the pre-CFG batch, each rank keeping matching cond and
     null rows; each rank draws the step noise at the global shape and keeps
     its rows, so the chain equals the unsharded one under the same
@@ -417,10 +430,27 @@ def build_sample_fn(
     else:
         check_prepared(prepared, cfg, fold, shared_fn.run_cfg.block_kernel == "mega_stack")
 
+    sample_fn = _on_data_rows(
+        mesh, cfg_scale, noise_fn, lambda z, labels, gen, step_noise: shared_fn(prepared, z, labels, gen, step_noise))
+    sample_fn.run_cfg = shared_fn.run_cfg
+    sample_fn.cfg_segments = shared_fn.cfg_segments
+    sample_fn.prepared = prepared
+    return sample_fn
+
+
+def _on_data_rows(mesh, cfg_scale: Optional[float], noise_fn: Optional[Callable], chain: Callable) -> Callable:
+    """``sample_fn(noise, y, generator)`` over ``chain(noise, y, generator,
+    noise_fn)`` split over a mesh's data axis: each rank runs its slice of
+    the pre-CFG rows (cond and null rows together), draws the step noise at
+    the global shape and keeps its rows, so the chain equals the unsharded
+    one under the same generator; the rows are all-gathered over the data
+    group. Without a data axis, or for a batch it does not divide, every
+    rank runs the whole batch."""
+
     def sample_fn(noise: torch.Tensor, y: torch.Tensor, generator=None) -> torch.Tensor:
         n_pre = noise.shape[0] // 2 if cfg_scale is not None else noise.shape[0]
         if mesh is None or mesh.n_data == 1 or n_pre % mesh.n_data:
-            return shared_fn(prepared, noise, y, generator)
+            return chain(noise, y, generator, noise_fn)
         n_loc = n_pre // mesh.n_data
         keep = slice(mesh.data_index * n_loc, (mesh.data_index + 1) * n_loc)
 
@@ -433,13 +463,10 @@ def build_sample_fn(
                 return noise_fn(t[:1].expand(n_pre), full)[keep]
             return torch.randn(full, generator=generator, device=noise.device, dtype=noise.dtype)[keep]
 
-        out = shared_fn(prepared, rows(noise), rows(y), generator, noise_fn=step_noise)
+        out = chain(rows(noise), rows(y), generator, step_noise)
         x = all_gather_rows(out[:n_loc], mesh.data_group)
         return torch.cat([x, x]) if cfg_scale is not None else x
 
-    sample_fn.run_cfg = shared_fn.run_cfg
-    sample_fn.cfg_segments = shared_fn.cfg_segments
-    sample_fn.prepared = prepared
     return sample_fn
 
 
@@ -462,6 +489,7 @@ def build_cached_sample_fn(
     noise_fn: Optional[Callable] = None,
     device=None,
     prepared: Optional[Dict] = None,
+    mesh=None,
 ):
     """``sample_fn(noise, y, generator)``: the ddpm or dpm++ chain with
     Delta-DiT block-span caching, a lossy accelerator. The chain runs in
@@ -482,7 +510,14 @@ def build_cached_sample_fn(
     ``noise_fn(t, shape)`` replaces the ddpm step noise.
 
     ``prepared``: as in :func:`build_sample_fn`; the chain runs its model
-    block by block and leaves any block stack aside."""
+    block by block and leaves any block stack aside.
+
+    ``mesh`` (a data axis only, the JAX package's cached chain under its
+    data sharding): a batch the data axis divides runs on each rank's rows
+    as :func:`build_sample_fn` splits them (the step noise drawn at the
+    global shape), the rows all-gathered; any other batch runs whole on
+    every rank. A model axis raises: the span cache has no tensor-parallel
+    form."""
     from mapdit_tpu_torch.diffusion import gd
     from mapdit_tpu_torch.diffusion.dpm_solver import dpm_solver_pp_tables, dpm_solver_pp_update, x0_of
 
@@ -497,6 +532,10 @@ def build_cached_sample_fn(
         )
     if cfg.scan_blocks:
         raise ValueError("block-span caching needs scan_blocks=False")
+    if mesh is not None and mesh.n_model > 1:
+        raise ValueError("block-span caching has no tensor-parallel form: run it on a data axis (n_model 1)")
+    if mesh is not None and mesh.size == 1:
+        mesh = None
     if not (diffusion.mean_type == gd.EPSILON and diffusion.var_type == gd.LEARNED_RANGE):
         raise ValueError("block-span caching runs the eps + learned-range chain")
     n_steps = diffusion.num_timesteps
@@ -514,7 +553,7 @@ def build_cached_sample_fn(
     if span is None:
         span = (cfg.depth // 4, cfg.depth - cfg.depth // 4)
     denoised = _denoised_fn(dynamic_threshold)
-    dev = resolve_device(device)
+    dev = resolve_device(mesh.device if mesh is not None and device is None else device)
     if prepared is None:
         model = folded_model(cfg, state_dict, fold, dev)
     else:
@@ -523,7 +562,7 @@ def build_cached_sample_fn(
     step_tables = None if sampler == "ddpm" else dpm_solver_pp_tables(diffusion, dev)
 
     @torch.no_grad()
-    def sample_fn(noise: torch.Tensor, y: torch.Tensor, generator=None, noise_fn=noise_fn) -> torch.Tensor:
+    def chain(noise: torch.Tensor, y: torch.Tensor, generator, noise_fn) -> torch.Tensor:
         if cfg_scale is None:
             chain_noise, chain_y = noise, y
         else:
@@ -570,6 +609,7 @@ def build_cached_sample_fn(
                 prev_delta = delta
         return torch.cat([x, x]) if cfg_scale is not None else x
 
+    sample_fn = _on_data_rows(mesh, cfg_scale, noise_fn, chain)
     sample_fn.span = span
     sample_fn.prepared = prepared
     return sample_fn
@@ -725,8 +765,8 @@ def build_pit_sample_fn(
     ``mesh`` (two or more ranks): the window x N rows of each sweep split
     over the data axis (rows a data axis does not divide run whole on every
     rank), each rank running its slice and all-gathering the results; a
-    model axis runs the tensor-parallel islands exactly as
-    ``build_sample_fn(mesh=)`` does. The JAX package runs only ``auto`` /
+    model axis splits the weights exactly as ``build_sample_fn(mesh=)``
+    does (a TP island or the plain path). The JAX package runs only ``auto`` /
     ``off`` on a mesh (GSPMD cannot partition its kernels)."""
     mode, warm, t_rows = pit_schedule(diffusion.num_timesteps, window, sweeps, shift)
     if mesh is not None and mesh.size > 1:
@@ -814,7 +854,11 @@ def build_pit_sample_fn(
 
 def _mesh_config(cfg: DiTConfig, fold: bool, mesh, device) -> DiTConfig:
     """The kernel checks of ``runtime.py:692-714`` of the JAX package: the
-    config a mesh of two or more ranks runs, or the reason it cannot."""
+    config a mesh of two or more ranks runs, or the reason it cannot. On a
+    model axis ``auto`` resolves through ``resolve_block_kernel_tp``: to a
+    TP island where one applies, else to ``off``, the plain path on the
+    plain layout (``parallel.mesh.shard_state_dict``), which runs every
+    family and flag set, as GSPMD runs JAX's."""
     tp = mesh.n_model
     if tp > 1 and cfg.scan_blocks:
         raise NotImplementedError(
@@ -827,20 +871,24 @@ def _mesh_config(cfg: DiTConfig, fold: bool, mesh, device) -> DiTConfig:
     if cfg.block_kernel not in ("auto", "off", *TP_KERNELS):
         raise ValueError(
             f"block_kernel={cfg.block_kernel!r} is a single-device kernel and cannot run on a mesh with a model "
-            f"axis; use 'auto' (resolves to mega_tp or mega_attn_tp), 'mega_attn_tp' or 'mega_tp'"
+            f"axis; use 'auto' (resolves to mega_tp, mega_attn_tp or the plain path), 'off', 'mega_attn_tp' or "
+            f"'mega_tp'"
         )
-    folded = fold and cfg.use_weight_normalization
-    kernel = resolve_block_kernel_tp(cfg, folded, tp, device)
-    if kernel == "off" or not kernel_family_ok(cfg):
-        raise NotImplementedError(
-            f"tensor parallelism of the plain path (block_kernel={cfg.block_kernel!r} resolving to {kernel!r} on "
-            f"{tp} model ranks, flags {cfg.flags_dict()}) is the ROADMAP item 'Multi-GPU layouts, the rest' "
-            f"(TP of the plain path): the port splits "
-            f"only the MP + adaln + cosine-attention islands mega_attn_tp and mega_tp"
+    if cfg.use_weight_normalization and not fold:
+        raise ValueError(
+            f"tensor parallelism of unfolded weight-normalized weights (fold=False on {tp} model ranks) needs a row "
+            "norm that spans the ranks (out-proj and fc2 are split on their input columns): TP training's cross-rank "
+            "norm, the ROADMAP item 'Multi-GPU layouts, the rest'; build with fold=True"
         )
-    if not folded:
-        raise ValueError(f"{kernel} takes folded weights: build with fold=True")
-    hidden = int(cfg.hidden_size * cfg.mlp_ratio)
-    if cfg.num_heads % tp or (kernel == "mega_tp" and hidden % tp):
-        raise ValueError(f"{kernel}: {cfg.num_heads} heads (and hidden width {hidden}) do not split over {tp} ranks")
+    kernel = resolve_block_kernel_tp(cfg, fold and cfg.use_weight_normalization, tp, device)
+    if kernel in TP_KERNELS:
+        if not kernel_family_ok(cfg):
+            raise ValueError(
+                f"{kernel} hard-codes the MP + adaln + cosine-attention family, got flags {cfg.flags_dict()}; "
+                "use 'auto' or 'off' (the plain path)"
+            )
+        hidden = int(cfg.hidden_size * cfg.mlp_ratio)
+        if cfg.num_heads % tp or (kernel == "mega_tp" and hidden % tp):
+            raise ValueError(
+                f"{kernel}: {cfg.num_heads} heads (and hidden width {hidden}) do not split over {tp} ranks")
     return cfg.replace(block_kernel=kernel)

@@ -62,10 +62,40 @@ which here is the kernels' build or load, CUDA set-up and the first chain;
 ``chain_seconds`` is every later call, host clock around the chain and its
 copy to the host (a synchronisation).
 
+Several ranks (``torchrun``, ``--shard true``): one service over a
+('data', 'model') mesh of the world's ranks, ``--n-model`` of them on the
+model axis, as the JAX server lays out its devices
+(``serve.py:122-178, 264-320`` of the JAX package):
+
+    python -m torch.distributed.run --nproc-per-node 2 -m mapdit_tpu_torch.serve \
+        --result-dir results/000-DiT-S-2 --shard true [--n-model 2]
+
+  * The lead (rank 0) owns HTTP, admission, the queues and the dispatcher;
+    every other rank runs :meth:`SamplerService.follow`. For each batch the
+    lead's dispatcher thread broadcasts a descriptor (the program key, the
+    z rows and labels it drew, the chain seed; HTTP threads never touch the
+    process group); every rank looks the program up or builds it, one
+    ``any_rank`` agrees that every rank has it, then all run the chain and
+    the lead gets the gathered rows. An idle lead broadcasts a no-op every
+    few seconds, so no follower waits on a collective longer than that and
+    the group's timeout (``DIST_TIMEOUT_S``) bounds a real hang.
+  * Layouts: an exact protocol whose bucket divides the data axis under
+    ``--n-model 1`` runs ``build_dp_sharded_sample_fn`` (each rank the
+    one-device chain on its rows, its own stream); a tensor-parallel server
+    runs ``build_sample_fn(mesh=)`` (a TP island or the plain path, the
+    batch on the data axis where it divides); a cached protocol runs
+    ``build_cached_sample_fn(mesh=)`` on the data axis and is refused (400,
+    "tensor-parallel") on a TP server; anything else runs the one-device
+    chain on every rank.
+  * SIGTERM to the lead (or to torchrun, which passes it on) stops
+    accepting, finishes the batch in flight and broadcasts a stop; every
+    rank leaves the group and exits 0. A follower ignores SIGTERM alone.
+    A rank whose chain fails ends the world with a non-zero exit.
+  * ``--shard false`` under several ranks is one independent server a
+    rank; the fused preamble runs on one device only, as in JAX.
+
 Not ported: the persistent compile cache and the relay guard of the JAX
-``main`` (XLA's). One process is one device: ``--n-model > 1``, and
-``--shard true`` under a ``torch.distributed`` world of more than one rank,
-raise naming the ROADMAP item "Multi-GPU layouts, the rest".
+``main`` (XLA's).
 
 A distilled student's experiment (``mapdit_tpu_torch.distill``) is served
 on its one valid chain, as in JAX: every request is normalised onto DDIM at
@@ -79,6 +109,7 @@ import argparse
 import io
 import json
 import os
+import signal
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -89,12 +120,24 @@ import torch
 from mapdit_tpu_torch.diffusion import create_diffusion, respacing_string
 from mapdit_tpu_torch.diffusion.distill import student_diffusion_from_config
 from mapdit_tpu_torch.models.config import BLOCK_KERNELS
-from mapdit_tpu_torch.runtime import SAMPLERS, build_cached_sample_fn, build_sample_fn, prepare_weights
+from mapdit_tpu_torch.parallel.mesh import any_rank, init_distributed, make_mesh
+from mapdit_tpu_torch.runtime import (
+    SAMPLERS,
+    build_cached_sample_fn,
+    build_dp_sharded_sample_fn,
+    build_sample_fn,
+    prepare_weights,
+)
 from mapdit_tpu_torch.sample import check_experiment, decode_latents, load_variables, run_config
 from mapdit_tpu_torch.utils.device import resolve_device
 from mapdit_tpu_torch.utils.image import save_image_grid, to_uint8
 
-MULTI_DEVICE = "Multi-GPU layouts, the rest"
+# an idle lead's no-op broadcast, so followers never wait long in one collective
+HEARTBEAT_S = 5.0
+# the process group's timeout under torchrun: past it a hung collective ends
+# the world non-zero (above any program's build and chain)
+DIST_TIMEOUT_S = 600.0
+_NOOP, _STOP = "noop", "stop"
 
 _M64 = (1 << 64) - 1
 # the streams' tags, the first word of every stream_seed
@@ -146,6 +189,10 @@ def draw(seed: int, shape, device) -> torch.Tensor:
     return torch.randn(shape, generator=generator(seed, device), device=device)
 
 
+_CACHE_ON_TP = ("cache_interval is not supported on a tensor-parallel (--n-model) server; use a data-parallel "
+                "fleet for cached protocols")
+
+
 class QueueFullError(Exception):
     """Pending-request cap hit — surfaces as HTTP 503 (shed load now,
     retry later) instead of letting queues grow without bound."""
@@ -176,6 +223,12 @@ def _world_size() -> int:
     return int(os.environ.get("WORLD_SIZE", "1"))
 
 
+def _distributed(shard: bool) -> bool:
+    """Whether a server joins a process group: ``--shard true`` under a
+    torchrun world of several ranks."""
+    return bool(shard) and int(os.environ.get("WORLD_SIZE", "1")) > 1
+
+
 class SamplerService:
     """Loads a trained experiment once; serves padded-bucket sample calls.
 
@@ -187,6 +240,11 @@ class SamplerService:
     ``mega_attn`` training run serves through ``auto`` with it), as the
     sampling CLIs' ``--block-kernel`` does. ``close()`` stops the
     dispatcher.
+
+    In a process group of several ranks with ``shard`` (the module
+    docstring) every rank constructs the service with the same arguments;
+    the lead (``mesh.lead``) serves and every other rank calls
+    :meth:`follow`.
     """
 
     def __init__(
@@ -208,18 +266,22 @@ class SamplerService:
         device="cuda",
         block_kernel=None,
     ):
-        if int(n_model) > 1:
-            raise NotImplementedError(
-                f"--n-model {n_model}: tensor-parallel serving is the ROADMAP item '{MULTI_DEVICE}'; "
-                "the port serves on one device"
-            )
-        if shard and _world_size() > 1:
-            raise NotImplementedError(
-                f"--shard true in a torch.distributed world of {_world_size()} ranks: data-parallel serving is the "
-                f"ROADMAP item '{MULTI_DEVICE}'; run one server a device"
-            )
+        n_model = max(1, int(n_model))
+        if n_model > 1 and not shard:
+            raise ValueError("--n-model needs --shard true")
+        world = _world_size() if shard else 1
+        if world % n_model:
+            raise ValueError(f"--n-model {n_model} does not divide the {world}-rank world")
         if preamble not in ("host", "fused"):
             raise ValueError(f"preamble must be 'host' or 'fused', got {preamble!r}")
+        if world > 1 and not torch.distributed.is_initialized():
+            raise RuntimeError(
+                f"--shard true in a world of {world} ranks serves over their process group: join it first "
+                "(main does, under torchrun), or run one server a rank with --shard false"
+            )
+        if world > 1 and preamble == "fused":
+            # the fused preamble's program is a one-device call (as in JAX)
+            raise ValueError("--preamble fused requires a single device")
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -227,14 +289,27 @@ class SamplerService:
         self.result_dir = result_dir
         self.train_args = check_experiment(result_dir)
         self.cfg = run_config(self.train_args, block_kernel)
+        if n_model > 1 and self.cfg.block_kernel not in ("auto", "off"):
+            # fail at startup, not on the first request (JAX's rule)
+            raise ValueError(
+                f"--n-model {n_model} needs block_kernel auto/off (the experiment pins "
+                f"'{self.cfg.block_kernel}', a single-device kernel)"
+            )
+        self.mesh = make_mesh(n_model=n_model, device=dev) if world > 1 else None
+        # collectives go through host memory under gloo
+        self._flag_device = dev if self.mesh is None or torch.distributed.get_backend() == "nccl" else "cpu"
         # a distilled student: exactly ONE valid chain, its own nested DDIM
         # grid with guidance baked; requests are normalised onto it
         # (sampler / steps / cfg_scale in the body are advisory for it)
         self._distilled = bool(self.train_args.get("distill_rounds"))
         self._student_steps = int(self.train_args["distill_num_steps"]) if self._distilled else None
         variables = load_variables(result_dir, self.train_args, ckpt, ema_std)
-        # the folded weights (and the bf16 stack), once, shared by every program
-        self._prepared = prepare_weights(self.cfg, variables, batch_hint=max(buckets), device=dev)
+        # the folded weights (and the bf16 stack), once, shared by every
+        # program: on a model axis this rank's shards; on a data axis the
+        # per-rank bucket is the hint (only whether one is given matters)
+        n_data = self.mesh.n_data if self.mesh is not None else 1
+        self._prepared = prepare_weights(self.cfg, variables, batch_hint=max(1, max(buckets) // n_data),
+                                         device=dev, mesh=self.mesh)
         self.use_vae = use_vae
         self.vae_path = vae_path
         self._decoder = None
@@ -273,19 +348,37 @@ class SamplerService:
         self._coalesced_batches = 0
         self._batches_run = 0
         self._closed = False
+        # set when a chain failed under a mesh: the world is broken
+        self.fatal = None
+        self.on_fatal = None
         self.started = time.time()
         # protocol-key -> list of pending _Job; one dispatcher owns the device
         self._queues = {}
         self._cv = threading.Condition()
         self._dispatcher = threading.Thread(target=self._dispatch_loop, daemon=True)
-        self._dispatcher.start()
+        if self.mesh is None or self.mesh.lead:
+            self._dispatcher.start()
+
+    @property
+    def lead(self) -> bool:
+        """Whether this rank serves HTTP (always, on one device)."""
+        return self.mesh is None or self.mesh.lead
 
     def close(self) -> None:
-        """Stop the dispatcher once its current batch ends."""
+        """Stop the dispatcher once its current batch ends (under a mesh it
+        then broadcasts the stop to the followers). Jobs still queued fail
+        with a 503."""
         with self._cv:
             self._closed = True
+            for jobs in self._queues.values():
+                for job in jobs:
+                    job.error = QueueFullError("server shutting down")
+                    job.done.set()
+                jobs.clear()
+            self._pending = 0
             self._cv.notify_all()
-        self._dispatcher.join(timeout=60)
+        if self._dispatcher.is_alive():
+            self._dispatcher.join(timeout=None if self.mesh is not None else 60)
 
     # ------------------------------------------------------------------ #
 
@@ -320,20 +413,37 @@ class SamplerService:
         else:
             diffusion = create_diffusion(respacing_string(steps, sampler, schedule), device=self.device)
         guidance = cfg_scale if cfg_scale > 1.0 else None
+        mesh, layout = self.mesh, "plain"
+        n_model = mesh.n_model if mesh is not None else 1
         if cache_interval > 1:
-            # Delta-DiT block-span caching (lossy), block by block on the shared model
+            if n_model > 1:
+                raise ValueError(_CACHE_ON_TP)
+            # Delta-DiT block-span caching (lossy), block by block on the
+            # shared model; on a data axis each rank takes its rows
             base = build_cached_sample_fn(
                 self.cfg, None, diffusion, cfg_scale=guidance, cache_interval=cache_interval, sampler=sampler,
                 cfg_interval=cfg_interval, cache_mode=cache_mode, dynamic_threshold=dynamic_threshold,
-                device=self.device, prepared=self._prepared,
+                device=self.device, prepared=self._prepared, mesh=mesh,
             )
-        else:
-            base = build_sample_fn(
-                self.cfg, None, diffusion, cfg_scale=guidance, sampler=sampler, cfg_interval=cfg_interval,
+        elif mesh is not None and n_model == 1 and bucket % mesh.n_data == 0:
+            # each data rank runs the one-device chain on its rows (the
+            # un-doubled interface: CFG doubled on each rank), so the
+            # kernels stay those of one device
+            base = build_dp_sharded_sample_fn(
+                self.cfg, None, diffusion, mesh, cfg_scale=guidance, sampler=sampler, cfg_interval=cfg_interval,
                 batch_hint=bucket, dynamic_threshold=dynamic_threshold, device=self.device,
                 prepared=self._prepared,
             )
-        fn = (self._fused(base, cfg_scale), "fused") if self.preamble == "fused" else (base, "plain")
+            layout = "shard_map"
+        else:
+            # a TP server runs every exact program on the mesh; any other
+            # program runs the one-device chain on every rank
+            base = build_sample_fn(
+                self.cfg, None, diffusion, cfg_scale=guidance, sampler=sampler, cfg_interval=cfg_interval,
+                batch_hint=bucket, dynamic_threshold=dynamic_threshold, device=self.device,
+                prepared=self._prepared, mesh=mesh if n_model > 1 else None,
+            )
+        fn = (self._fused(base, cfg_scale), "fused") if self.preamble == "fused" else (base, layout)
         with self._cv:  # admission reads the keys from the HTTP threads
             self._fns[key] = fn
         return fn
@@ -410,6 +520,8 @@ class SamplerService:
             cfg_scale = 1.0  # all <= 1 values build the same no-CFG program
         cache_interval = int(cache_interval)
         if cache_interval > 1:
+            if self.mesh is not None and self.mesh.n_model > 1:
+                raise ValueError(_CACHE_ON_TP)
             if sampler not in ("ddpm", "dpm++"):
                 raise ValueError("cache_interval composes with sampler ddpm or dpm++")
             if int(steps) % cache_interval != 0:
@@ -488,16 +600,20 @@ class SamplerService:
     def _take_group(self):
         """Block until work exists; return (protocol_key, jobs) where the
         jobs fit one bucket, or (None, []) once closed. Waits coalesce_ms
-        for companions first."""
+        for companions first. Under a mesh an idle wait ends after
+        ``HEARTBEAT_S`` with (_NOOP, [])."""
         with self._cv:
             while not self._closed and not any(self._queues.values()):
-                self._cv.wait()
+                if not self._cv.wait(timeout=HEARTBEAT_S if self.mesh is not None else None):
+                    return _NOOP, []
             if self._closed:
                 return None, []
         if self.coalesce_ms > 0:
             time.sleep(self.coalesce_ms / 1e3)
         with self._cv:
-            key = next(k for k, v in self._queues.items() if v)
+            key = next((k for k, v in self._queues.items() if v), None)
+            if key is None:  # closed while coalescing
+                return _NOOP, []
             # round-robin across protocols: move the served key to the back
             # so a sustained stream on one protocol cannot starve others
             self._queues[key] = self._queues.pop(key)
@@ -527,8 +643,10 @@ class SamplerService:
                     time.sleep(0.1)
                     continue
                 if key is None:
+                    self._broadcast(_STOP)
                     return
-                if not group:  # every queued job timed out before we got to it
+                if not group:  # idle, or every queued job timed out before we got to it
+                    self._broadcast(_NOOP)
                     continue
                 try:
                     self._run_group(key, group)
@@ -536,24 +654,94 @@ class SamplerService:
                     for job in group:
                         job.error = e
                         job.done.set()
+                if self.fatal is not None:
+                    if self.on_fatal is not None:
+                        self.on_fatal()
+                    return
+
+    def _broadcast(self, descriptor):
+        """The lead's descriptor on every rank (the lead passes it, the
+        followers pass None); nothing on one device."""
+        if self.mesh is None:
+            return descriptor
+        box = [descriptor]
+        torch.distributed.broadcast_object_list(box, src=0)
+        return box[0]
+
+    def follow(self) -> None:
+        """A follower's loop: receive each batch descriptor from the lead
+        and run the same program, in the lead's order, until the lead
+        broadcasts the stop. An error in a chain propagates (the world is
+        broken: the rank must exit non-zero); a program that some rank could
+        not build is skipped on every rank, as the lead answers it."""
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        with torch.no_grad():
+            while True:
+                d = self._broadcast(None)
+                if d == _STOP:
+                    return
+                if d == _NOOP:
+                    continue
+                self._execute(*d)
+
+    def _program(self, fn_key):
+        """The program of ``fn_key``, built on first use. Under a mesh every
+        rank builds it in descriptor order and one ``any_rank`` agrees that
+        every rank has it before any chain runs; if some rank failed, every
+        rank drops it and raises (the lead answers the batch with it)."""
+        if self.mesh is None:
+            return self._get_fn(*fn_key)
+        fn, err = None, None
+        try:
+            fn = self._get_fn(*fn_key)
+        except Exception as e:  # noqa: BLE001 — agreed below, then raised
+            err = e
+        if any_rank(err is not None, self._flag_device):
+            with self._cv:
+                self._fns.pop(fn_key, None)
+            raise err if err is not None else RuntimeError(f"another rank failed to build the program {fn_key}")
+        return fn
+
+    def _execute(self, fn_key, z, labels, seed):
+        """Run program ``fn_key`` on the bucket's z rows and labels with a
+        chain generator seeded ``seed``: the whole of a batch's device work
+        on every rank. Returns the bucket's rows (the gathered rows under a
+        mesh)."""
+        try:
+            fn, layout = self._program(fn_key)
+        except Exception:  # noqa: BLE001 — agreed by every rank
+            if self.lead:
+                raise
+            return None
+        dev = self.device
+        z, y = z.to(dev), torch.as_tensor(labels, dtype=torch.int64, device=dev)
+        gen = generator(seed, dev)
+        try:
+            # the un-doubled interface under shard_map
+            out = fn(z, y, gen) if layout == "shard_map" else fn(*self._cfg_batch(z, y, fn_key[2]), gen)
+        except Exception as e:
+            if self.mesh is not None:
+                self.fatal = e
+            raise
+        return out
 
     def _run_group(self, key, group):
         (sampler, steps, cfg_scale, schedule, cache_interval, cfg_interval, cache_mode, dynamic_threshold) = key
         n = sum(len(j.labels) for j in group)
         bucket = self._bucket(n)
         c, s, dev = self.train_args["in_channels"], self.train_args["input_size"], self.device
-        fn, layout = self._get_fn(
-            sampler, steps, cfg_scale, bucket, schedule, cache_interval, cfg_interval, cache_mode, dynamic_threshold,
-        )
         # program identity (the bucket included): its first run is kept out
         # of the steady-state chain window
         fn_key = (
             sampler, steps, float(cfg_scale), bucket, schedule, cache_interval, cfg_interval, cache_mode,
             dynamic_threshold,
         )
+        # a program the lead cannot build fails this batch before any rank sees it
+        fn, _ = self._get_fn(*fn_key)
         labels = np.zeros((bucket,), np.int64)
         labels[:n] = np.concatenate([job.labels for job in group])
-        if layout == "fused":
+        if self.preamble == "fused":
             row_seeds = []
             for job in group:
                 if job.seed is None:
@@ -563,26 +751,33 @@ class SamplerService:
                     row_seeds += [row_seed(job.seed, r) for r in range(len(job.labels))]
             row_seeds += [None] * (bucket - n)
             self._request_counter += 1
-            args = (row_seeds, labels, chain_seed(self.seed, self._request_counter))
-        else:
-            # per-job z: a row's noise does not depend on its batch position
-            zs = []
-            for job in group:
-                if job.seed is None:
-                    self._request_counter += 1
-                    job_seed = anon_job_seed(self.seed, self._request_counter)
-                else:
-                    job_seed = job.seed
-                zs.append(draw(job_seed, (len(job.labels), c, s, s), dev))
-            zs.append(torch.zeros((bucket - n, c, s, s), device=dev))
-            # the step noise (ddpm, ddim at eta > 0): a fresh stream a batch
-            self._request_counter += 1
-            z, y = self._cfg_batch(torch.cat(zs), torch.as_tensor(labels, device=dev), cfg_scale)
-            args = (z, y, generator(chain_seed(self.seed, self._request_counter), dev))
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            chain_t0 = time.perf_counter()
+            out = fn(row_seeds, labels, chain_seed(self.seed, self._request_counter))[:n].cpu().numpy()
+            self._finish_group(group, out, fn_key, time.perf_counter() - chain_t0)
+            return
+        # per-job z: a row's noise does not depend on its batch position
+        zs = []
+        for job in group:
+            if job.seed is None:
+                self._request_counter += 1
+                job_seed = anon_job_seed(self.seed, self._request_counter)
+            else:
+                job_seed = job.seed
+            zs.append(draw(job_seed, (len(job.labels), c, s, s), dev))
+        zs.append(torch.zeros((bucket - n, c, s, s), device=dev))
+        z = torch.cat(zs)
+        # the step noise (ddpm, ddim at eta > 0): a fresh stream a batch
+        self._request_counter += 1
+        seed = chain_seed(self.seed, self._request_counter)
+        if self.mesh is not None:
+            z = z.cpu()  # the descriptor travels through host memory
+            self._broadcast((fn_key, z, labels, seed))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         chain_t0 = time.perf_counter()
-        out = fn(*args)[:n].cpu().numpy()  # the copy to the host synchronises
+        out = self._execute(fn_key, z, labels, seed)[:n].cpu().numpy()  # the copy to the host synchronises
         chain_s = time.perf_counter() - chain_t0
         self._finish_group(group, out, fn_key, chain_s)
 
@@ -620,8 +815,9 @@ class SamplerService:
             "in_channels": self.train_args["in_channels"],
             "buckets": list(self.buckets),
             "device": str(self.device),
-            "devices": 1,
-            "mesh": {"data": 1, "model": 1},
+            "devices": self.mesh.size if self.mesh is not None else 1,
+            "mesh": {"data": self.mesh.n_data, "model": self.mesh.n_model} if self.mesh is not None else
+                    {"data": 1, "model": 1},
             "compiled_programs": len(self._fns),
             "max_programs": self.max_programs,
             "batches_run": self._batches_run,
@@ -767,16 +963,21 @@ class ServingHTTPServer(ThreadingHTTPServer):
     request_queue_size = 128
 
 
-def build_server(args):
-    """The service (warmed as ``--warmup`` and ``--warmup-protocols`` say)
-    and its HTTP server, bound but not yet serving: ``(server, service)``."""
-    service = SamplerService(
+def build_service(args) -> SamplerService:
+    """The service of the parsed flags (every rank builds it alike)."""
+    return SamplerService(
         args.result_dir, ckpt=args.ckpt, ema_std=args.ema_std, use_vae=args.use_vae, vae_path=args.vae_path,
         buckets=tuple(int(b) for b in args.buckets.split(",")), seed=args.seed, coalesce_ms=args.coalesce_ms,
         shard=args.shard, n_model=args.n_model, max_programs=args.max_programs, max_pending=args.max_pending,
         request_timeout_s=args.request_timeout_s, preamble=args.preamble, device=args.device,
         block_kernel=args.block_kernel,
     )
+
+
+def build_server(args, service: SamplerService):
+    """``service`` (of :func:`build_service`), warmed as ``--warmup`` and
+    ``--warmup-protocols`` say, and its HTTP server, bound but not yet
+    serving: ``(server, service)``."""
     defaults = {"steps": args.default_steps, "sampler": args.default_sampler, "cfg_scale": args.default_cfg_scale}
     try:
         if args.warmup:
@@ -804,21 +1005,52 @@ def build_server(args):
         raise
     info = service.info()
     print(f"[serve] listening on http://{args.host}:{server.server_address[1]} "
-          f"({info['model']}, decode={info['decode']}, device={info['device']})", flush=True)
+          f"({info['model']}, decode={info['decode']}, device={info['device']}, mesh={info['mesh']})", flush=True)
     return server, service
 
 
 def main(args) -> None:
     """Serve until SIGTERM (the container stop signal: finish in-flight
-    requests, stop accepting, return) or an interrupt."""
-    import signal
+    requests, stop accepting, return) or an interrupt. Under torchrun with
+    ``--shard true`` every rank joins the process group; the lead serves
+    and the others follow it (module docstring) until its stop."""
+    distributed = _distributed(args.shard)
+    if distributed:
+        dev = init_distributed(None if args.device == "cuda" else args.device, timeout_s=DIST_TIMEOUT_S)
+        args = argparse.Namespace(**{**vars(args), "device": str(dev)})
+    try:
+        if distributed and torch.distributed.get_rank() != 0:
+            _follow(args)
+        else:
+            _serve(args)
+    finally:
+        if distributed:
+            torch.distributed.destroy_process_group()
 
-    server, service = build_server(args)
+
+def _follow(args) -> None:
+    """A follower rank: the service's collectives, then its loop."""
+    # a follower stops when the lead broadcasts the stop; torchrun passes
+    # its SIGTERM to every rank, and the lead's carries the shutdown
+    previous = signal.signal(signal.SIGTERM, lambda *_: print("[serve] SIGTERM: a follower waits for the lead's stop",
+                                                              flush=True))
+    try:
+        service = build_service(args)
+        service.follow()
+    finally:
+        signal.signal(signal.SIGTERM, previous)
+    print(f"[serve] rank {torch.distributed.get_rank()} stopped", flush=True)
+
+
+def _serve(args) -> None:
+    """The lead rank, or the one server of a process."""
+    server, service = build_server(args, build_service(args))
 
     def _term(signum, frame):
         print("[serve] SIGTERM: shutting down", flush=True)
         threading.Thread(target=server.shutdown, daemon=True).start()
 
+    service.on_fatal = lambda: threading.Thread(target=server.shutdown, daemon=True).start()
     previous = signal.signal(signal.SIGTERM, _term)
     try:
         server.serve_forever()
@@ -829,6 +1061,8 @@ def main(args) -> None:
         server.server_close()
         service.close()
         print("[serve] stopped", flush=True)
+    if service.fatal is not None:
+        raise SystemExit(f"[serve] a chain failed on the mesh, the world is broken: {service.fatal!r}")
 
 
 def _bool(s: str) -> bool:
@@ -862,10 +1096,10 @@ def build_parser() -> argparse.ArgumentParser:
                              "run). The first use of a protocol pays its kernel build and first chain: keep this "
                              "above that or pre-warm (0 = no deadline)")
     parser.add_argument("--shard", type=_bool, default=True, metavar="BOOL",
-                        help="shard divisible buckets over all devices (data-parallel); one device here, and more "
-                             "than one rank raises")
+                        help="under torchrun, serve over every rank as one service: divisible buckets "
+                             "data-parallel, --n-model ranks tensor-parallel (false: one independent server a rank)")
     parser.add_argument("--n-model", type=int, default=1,
-                        help="tensor-parallel width; above 1 raises (multi-device serving is not ported)")
+                        help="tensor-parallel width on the ranks (needs --shard true; must divide the world)")
     parser.add_argument("--preamble", choices=["host", "fused"], default="host",
                         help="request preamble: host = per-job z generators (the default seed rule); fused = "
                              "per-row z generators, CFG doubling and the chain generator inside the program's call "

@@ -287,7 +287,8 @@ def bare_service(cls, **attrs):
     admission reads, for a service of buckets 1 and 4 and 10 classes."""
     service = cls.__new__(cls)
     state = dict(_distilled=False, _student_steps=None, buckets=(1, 4), cfg=types.SimpleNamespace(num_classes=10),
-                 _cv=threading.Condition(), _pending=0, max_pending=64, _fns={}, max_programs=32, _rejected=0)
+                 _cv=threading.Condition(), _pending=0, max_pending=64, _fns={}, max_programs=32, _rejected=0,
+                 mesh=None)
     state.update(attrs)
     for key, value in state.items():
         setattr(service, key, value)
@@ -560,7 +561,7 @@ def test_warmup_protocols(exp):
         "--result-dir", exp, "--device", "cpu", "--port", "0", "--buckets", "1,4", "--default-steps", "4",
         "--warmup", "false", "--coalesce-ms", "0",
         "--warmup-protocols", '[{"steps": 2, "sampler": "dpm++", "cfg_scale": 4.0, "cfg_interval": [0.3, 3.0]}]'])
-    server, service = serve.build_server(args)
+    server, service = serve.build_server(args, serve.build_service(args))
     try:
         assert service.info()["compiled_programs"] == 1 and service.info()["compile_seconds_count"] == 1
         service.sample([1, 2, 3, 4], 2, "dpm++", 4.0, cfg_interval=[0.3, 3.0])
@@ -649,7 +650,7 @@ def test_weight_stack_is_built_once(exp):
 
 
 @pytest.mark.parametrize("kw, match", [
-    (dict(n_model=2), "Multi-GPU layouts, the rest"),
+    (dict(n_model=2), "does not divide the 1-rank world"),  # JAX's rule: n_model divides the fleet
     (dict(preamble="jit"), "preamble"),
 ])
 def test_refusals(exp, kw, match):
@@ -658,8 +659,11 @@ def test_refusals(exp, kw, match):
 
 
 def test_shard_under_a_distributed_world_raises(exp, monkeypatch):
+    """Under a torchrun world of several ranks ``--shard true`` serves over
+    the process group, which the service does not join itself (``main``
+    does); ``--shard false`` is one independent server a rank."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="Multi-GPU layouts, the rest"):
+    with pytest.raises(RuntimeError, match="join it first"):
         serve.SamplerService(exp, device="cpu")
     serve.SamplerService(exp, device="cpu", shard=False).close()  # one process a device: served
 
@@ -677,8 +681,8 @@ def test_main_serves_until_sigterm(exp, monkeypatch, capsys):
     built = {}
     build_server = serve.build_server
 
-    def spy(args):
-        built["server"], built["service"] = build_server(args)
+    def spy(args, service):
+        built["server"], built["service"] = build_server(args, service)
         return built["server"], built["service"]
 
     monkeypatch.setattr(serve, "build_server", spy)

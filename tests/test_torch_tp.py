@@ -348,16 +348,21 @@ def test_mesh_refuses_single_device_kernels(kernel):
 
 @pytest.mark.parametrize(
     "overrides",
-    [dict(block_kernel="off"), dict(block_kernel="auto"), dict(block_kernel="mega_tp", modulation="rotation"),
-     dict(block_kernel="mega_attn_tp", use_cosine_attention=False)],
+    [dict(block_kernel="off", fold=False), dict(block_kernel="auto", scan_blocks=True),
+     dict(block_kernel="mega_tp", modulation="rotation"), dict(block_kernel="mega_attn_tp", use_cosine_attention=False)],
 )
 def test_mesh_refuses_the_plain_path_and_other_families(overrides):
-    """TP of the plain path (which GSPMD gives JAX for free) and of other
-    families raises, naming its ROADMAP item; ``auto`` on the CPU resolves
-    to the plain path."""
-    cfg = build_config("DiT-XS/8", **XS8).replace(**overrides)
-    with pytest.raises(NotImplementedError, match="Multi-GPU layouts"):
-        build_sample_fn(cfg, {}, create_diffusion("2", device="cpu"), mesh=_cpu_mesh(1, 2))
+    """What a model axis still refuses: the plain path on unfolded
+    weight-normalized weights (its split rows need TP training's cross-rank
+    norm) and on the scan_blocks layout, each naming its ROADMAP item; and
+    an island named on a family it does not hard-code. (The plain path on
+    folded weights runs, for every family: test_torch_tp_plain.py.)"""
+    kw = dict(overrides)
+    fold = kw.pop("fold", True)
+    cfg = build_config("DiT-XS/8", **XS8).replace(**kw)
+    match = "Multi-GPU layouts" if "block_kernel" in kw and kw["block_kernel"] in ("off", "auto") else "hard-codes"
+    with pytest.raises((NotImplementedError, ValueError), match=match):
+        build_sample_fn(cfg, {}, create_diffusion("2", device="cpu"), fold=fold, mesh=_cpu_mesh(1, 2))
 
 
 def test_mesh_refuses_unfolded_weights_and_misplaced_islands():
