@@ -422,54 +422,24 @@ def smi_line() -> str:
 
 
 def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    """Eager ms a call (mapdit_tpu_torch/utils/timing.py eager_ms)."""
+    from mapdit_tpu_torch.utils.timing import eager_ms
+
+    return eager_ms(fn, iters, warmup)
 
 
 def graph_ms(torch, fn, iters: int = 20, replays: int = 5) -> float:
-    """Device time of one call: ``iters`` calls captured in a CUDA graph,
-    replayed ``replays`` times between two events. A call whose host side
-    (checks, allocation, launch) outlasts its kernels is timed by what the
-    card does, not by the host's launch rate."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (iters * replays)
+    """Device ms a call from CUDA graph replays (timing.graph_ms)."""
+    from mapdit_tpu_torch.utils import timing
+
+    return timing.graph_ms(fn, iters, replays)
 
 
 def host_ms(torch, fn, iters: int = 200) -> float:
-    """Host time of one call: ``iters`` calls on the host clock with no
-    synchronisation between them (the card runs behind)."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    seconds = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return 1e3 * seconds / iters
+    """Host ms a call, launched without synchronisation (timing.host_ms)."""
+    from mapdit_tpu_torch.utils import timing
+
+    return timing.host_ms(fn, iters)
 
 
 def bound_ms(flops: float, nbytes: float):
@@ -2356,82 +2326,116 @@ def train_cli_phase(torch, dev, tmp: str):
     phase("cli", artifacts="ok", ema=json.dumps(want_snaps), metrics_keys=json.dumps(sorted(rows_a[0])))
     return {"cli": counts_a, "cli+dw": counts_c}, exp_a
 
-def tp_kernel_rows(torch, F, gen, dev) -> dict:
-    """Phase 3, fourth part: the tensor-parallel partial kernels against
-    their plain versions at the DiT-XL/2 shard shapes (XL_BATCH x 2 rows x
-    64 tokens, D=1152, 16 heads of 72, H=4608, bf16): tp=2 (D_l=576,
-    H_l=2304, the mesh of phase 10; the report rows) and tp=4 (288, 1152;
-    checked and timed). The library yardstick is the bf16 torch.matmul
-    products and SDPA of the same work."""
+TP_SRC = "mapdit_tpu_torch/csrc/dit_block_tp.cu"
+TP_LONG_T = 256  # the attention partials' T > 64 route (the launch sequence), at 2 samples
+
+
+def tp_check(torch, what, got, again, want) -> float:
+    """A partial kernel's output against its plain version (f32 partials
+    behind bf16 roundings of the hidden / attention operands: relative L2
+    1e-2, as the other composite outputs; row 7's mods, bf16 products summed
+    in f32 where only the order differs, 1e-4), and the same bits on two
+    runs. Returns the partial's max abs error."""
+    if isinstance(got, tuple):
+        compare(torch, got[1], want[1], 1e-4, 1e-4, what + ":mods")
+        same = all(torch.equal(g, h) for g, h in zip(got, again))
+        got, want = got[0], want[0]
+    else:
+        same = torch.equal(got, again)
+    err = compare_rel(torch, got, want, 1e-2, what)
+    phase("check", what=f"{what}:same-bits-twice", ok=same)
+    if not same:
+        raise AssertionError(f"{what}: two runs of the kernel differ")
+    return err
+
+
+def tp_kernel_rows(torch, gen, dev) -> dict:
+    """Phase 3, fourth part: the tensor-parallel partial kernels
+    (csrc/dit_block_tp.cu) against their plain versions at the DiT-XL/2
+    shard shapes (XL_BATCH x 2 rows x 64 tokens; the cases of
+    mapdit_tpu_torch/tools/bench_tp_kernels.py): tp=2 (the mesh of phase
+    10; the report rows) and tp=4 (checked and timed), the same bits twice,
+    rows 6 and 8 also on f32 shift and scale views of a mods-shaped buffer
+    (the kernels round them to bf16 as they read them); one launch and one
+    device operation a call (torch.profiler). Times: device ms from
+    CUDA-graph replays, host ms and eager ms (a host-launched loop, as the
+    program runs them), each beside the launch sequence the kernel replaced
+    (same call), the plain version and the library call; then one XL/2
+    fused_dit_block_tp without its all-reduces, kernels against sequences.
+    Then rows 6 and 7 at T > 64, through the launch sequence the wrappers
+    take there."""
+    from mapdit_tpu_torch.ops.cuda import build
+    from mapdit_tpu_torch.ops.cuda import dit_block as k
     from mapdit_tpu_torch.ops.cuda import dit_block_tp as tpk
-    from mapdit_tpu_torch.ops.mp import mp_silu, normalize
+    from mapdit_tpu_torch.tools import bench_tp_kernels as bench
 
-    bf, f32 = torch.bfloat16, torch.float32
-    n, t, d, heads, hid = 2 * XL_BATCH, 64, 1152, 16, 4608
-    hd = d // heads
-    src = "mapdit_tpu_torch/ops/cuda/dit_block_tp.py"
-
-    def randn(*shape, dtype=f32):
-        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
-
-    def weight(*shape):
-        return normalize(randn(*shape)).to(bf).contiguous()
-
-    x = randn(n, t, d, dtype=bf)
-    a = mp_silu(randn(n, d)).to(bf)
-    shift, scale = randn(n, d, dtype=bf), randn(n, d, dtype=bf)
-    gains = torch.rand(2, generator=gen, device=dev) * 0.6 + 0.2
-    w_mod = weight(6 * d, d)
-    xf = x.reshape(n * t, d)
+    words = build.library("dit_block_tp").dit_block_tp_plan_words()
+    phase("check", what="dit_block_tp:plan-words", kernel_words=words, plan_words=tpk.TP_PLAN_WORDS,
+          ok=words == tpk.TP_PLAN_WORDS)
+    if words != tpk.TP_PLAN_WORDS:
+        raise AssertionError("dit_block_tp reads another number of plan words than tp_plan gives")
+    card = json.dumps(smi_line())
     out_rows = {}
-    for tp in (2, 4):
-        d_l, h_l, hl = d // tp, hid // tp, heads // tp
-        w_qkv, w_out, w1, w2 = weight(3 * d_l, d), weight(d, d_l), weight(h_l, d), weight(d, h_l)
-        inv_h = 1 / math.sqrt(hid)
-        q, k_, v = (z.contiguous() for z in torch.matmul(xf, w_qkv.t()).reshape(n, t, 3, hl, hd).permute(2, 0, 3, 1, 4))
-        attn = randn(n * t, d_l, dtype=bf)
-
-        def attn_library():
-            return (torch.matmul(xf, w_qkv.t()), F.scaled_dot_product_attention(q, k_, v, scale=1 / math.sqrt(hd)),
-                    torch.matmul(attn, w_out.t()))
-
-        attn_args = (x, shift, scale, gains[0], w_qkv, w_out, hl)
-        block_args = (x, a, gains, w_mod, w_qkv, w_out, hl)
-        mlp_args = (x, shift, scale, gains, w1, w2, inv_h)
-        attn_flops = 2 * n * t * d * 4 * d_l + 4 * n * hl * t * t * hd
-        attn_bytes = n * t * d * 2 + 4 * d * d_l * 2 + n * t * d * 4
-        cases = {
-            # name: (wrapper, plain, pallas_call line, flops, bytes, library)
-            "attn_tp_partial": (tpk.attn_tp_partial, tpk.attn_tp_partial_plain, attn_args, 1467, attn_flops,
-                                attn_bytes + 2 * n * d * 2 + 4, attn_library),
-            "block_tp_attn": (tpk.block_tp_attn, tpk.block_tp_attn_plain, block_args, 1640,
-                              attn_flops + 2 * n * d * 6 * d, attn_bytes + n * d * 2 + 8 + 6 * d * d * 2 + n * 6 * d * 4,
-                              lambda: (torch.matmul(a, w_mod.t()), *attn_library())),
-            "mlp_tp_partial": (tpk.mlp_tp_partial, tpk.mlp_tp_partial_plain, mlp_args, 1739, 4 * n * t * d * h_l,
-                               n * t * d * 2 + 2 * n * d * 2 + 8 + 2 * d * h_l * 2 + n * t * d * 4,
-                               lambda: torch.matmul(torch.matmul(xf, w1.t()), w2.t())),
-        }
-        for name, (fn, plain, args, line, flops, nbytes, library) in cases.items():
-            got, want = fn(*args), plain(*args)
+    for tp in bench.TP_WAYS:
+        cases = bench.tp_cases(gen, dev, tp)
+        for name, (fn, seq, plain, args, line, flops, nbytes, library) in cases.items():
             what = f"{name}:tp{tp}"
-            if name == "block_tp_attn":
-                # mods: bf16 products summed in f32, only the order differs
-                compare(torch, got[1], want[1], 1e-4, 1e-4, what + ":mods")
-                got, want = got[0], want[0]
-            # f32 partials behind bf16 roundings of the hidden / attention
-            # operands: relative L2, as the other composite outputs
-            err = compare_rel(torch, got, want, 1e-2, what)
+            before, before_k = dict(tpk.LAUNCHES), dict(k.LAUNCHES)
+            got = fn(*args)
+            key = "dit_block_tp/mlp" if name == "mlp_tp_partial" else "dit_block_tp/attn"
+            if (tpk.LAUNCHES[key] != before[key] + 1 or tpk.LAUNCHES[name + "/sequence"] != before[name + "/sequence"]
+                    or k.LAUNCHES != before_k):
+                raise AssertionError(f"{what}: not one launch of {key} and no other kernel's")
+            ops = bench.device_ops(lambda fn=fn, args=args: fn(*args))
+            phase("check", what=f"{what}:device-operations-a-call", ops=ops, ok=ops == 1)
+            if ops != 1:
+                raise AssertionError(f"{what}: {ops} device operations a call, not 1")
+            err = tp_check(torch, what, got, fn(*args), plain(*args))
+            compare_rel(torch, seq(*args)[0] if name == "block_tp_attn" else seq(*args),
+                        got[0] if name == "block_tp_attn" else got, 1e-2, what + ":sequence-vs-kernel")
+            if name != "block_tp_attn":
+                # shift and scale as f32 views of an (N, 6, D) buffer, as row 8 reads row 7's mods
+                mods = torch.randn(args[0].shape[0], 6, args[0].shape[2], generator=gen, device=dev)
+                f32_args = (args[0], mods[:, 3], mods[:, 4], *args[3:])
+                tp_check(torch, what + ":f32-row-views", fn(*f32_args), fn(*f32_args), plain(*f32_args))
             b, by = bound_ms(flops, nbytes)
-            row = dict(source=src, replaces=f"{PALLAS}:{line}", max_abs_err=err,
-                       ms=time_ms(torch, lambda fn=fn, args=args: fn(*args)),
-                       plain_ms=time_ms(torch, lambda plain=plain, args=args: plain(*args)),
-                       bound_ms=b, bound_by=by, library_ms=time_ms(torch, library),
+            row = dict(source=TP_SRC, replaces=f"{PALLAS}:{line}", max_abs_err=err,
+                       **bench.times(lambda fn=fn, args=args: fn(*args), lambda seq=seq, args=args: seq(*args)),
+                       plain_ms=graph_ms(torch, lambda plain=plain, args=args: plain(*args)),
+                       bound_ms=b, bound_by=by, library_ms=graph_ms(torch, library),
                        count_from=("tp/mega_attn_tp" if name == "attn_tp_partial" else "tp/mega_tp", name))
-            if tp == 2:
+            phase("time", kernel=what, **{key: f"{v:.4f}" for key, v in row.items() if isinstance(v, float)},
+                  bound_by=by, card=card)
+            if tp == bench.TP_WAYS[0]:
                 out_rows[name] = row
-            else:
-                phase("time", kernel=what, ms=f"{row['ms']:.4f}", plain_ms=f"{row['plain_ms']:.4f}",
-                      bound_ms=f"{b:.4f}", bound_by=by, library_ms=f"{row['library_ms']:.4f}")
+        # one XL/2 block on a rank as fused_dit_block_tp runs it, all-reduces skipped
+        kernel, seq = bench.block_call(cases, "kernel"), bench.block_call(cases, "sequence")
+        before = dict(tpk.LAUNCHES)
+        got = kernel()
+        moved = {key: v - before[key] for key, v in tpk.LAUNCHES.items() if v != before[key]}
+        want = {"block_tp_attn": 1, "mlp_tp_partial": 1, "dit_block_tp/attn": 1, "dit_block_tp/mlp": 1}
+        phase("check", what=f"fused_dit_block_tp:tp{tp}:launches", launches=json.dumps(moved), ok=moved == want)
+        if moved != want:
+            raise AssertionError(f"fused_dit_block_tp:tp{tp}: launches {moved}, not {want}")
+        compare_rel(torch, got, seq(), 1e-2, f"fused_dit_block_tp:tp{tp}:kernels-vs-sequences")
+        same = torch.equal(got, kernel())
+        phase("check", what=f"fused_dit_block_tp:tp{tp}:same-bits-twice", ok=same)
+        if not same:
+            raise AssertionError(f"fused_dit_block_tp:tp{tp}: two runs differ")
+        row = dict(bench.times(kernel, seq), device_ops=bench.device_ops(kernel),
+                   sequence_device_ops=bench.device_ops(seq))
+        phase("time", kernel=f"fused_dit_block_tp-without-all-reduce:tp{tp}",
+              **{key: f"{v:.4f}" for key, v in row.items()}, card=card)
+    # T > 64: rows 6 and 7 take the launch sequence, counted under its own key
+    cases = bench.tp_cases(gen, dev, bench.TP_WAYS[0], t=TP_LONG_T, n=2)
+    for name in ("attn_tp_partial", "block_tp_attn"):
+        fn, _, plain, args = cases[name][:4]
+        before = dict(tpk.LAUNCHES)
+        got = fn(*args)
+        if (tpk.LAUNCHES[name + "/sequence"] != before[name + "/sequence"] + 1
+                or tpk.LAUNCHES["dit_block_tp/attn"] != before["dit_block_tp/attn"]):
+            raise AssertionError(f"{name} at T={TP_LONG_T}: not the launch sequence's route")
+        tp_check(torch, f"{name}:tp{bench.TP_WAYS[0]}:t{TP_LONG_T}:sequence-route", got, fn(*args), plain(*args))
     return out_rows
 
 
@@ -2544,10 +2548,10 @@ def tp_rank(rank, dev, refs, out_dir):
     z, y = refs["z"].to(dev), refs["y"].to(dev)
     per = XL_CHECK_STEPS * cfg.depth
     expect = {
-        "mega_tp": {"block_tp_attn": per, "mlp_tp_partial": per, "cosine_attention": per,
-                    **{f"mp_gemm/{s}": per for s in ("modulation", "qkv", "out", "fc1", "fc2")}},
+        # one launch of each dit_block_tp kernel a block, no mp_gemm or cosine_attention launch
+        "mega_tp": {"block_tp_attn": per, "mlp_tp_partial": per, "dit_block_tp/attn": per, "dit_block_tp/mlp": per},
         # the modulation head and the MLP run plain, replicated
-        "mega_attn_tp": {"attn_tp_partial": per, "mp_gemm/qkv": per, "mp_gemm/out": per, "cosine_attention": per},
+        "mega_attn_tp": {"attn_tp_partial": per, "dit_block_tp/attn": per},
     }
     limit = max(2 * rel_l2(refs["off"], refs["f32"]), 1e-2)
     report = {"counts": {}, "rel_l2_err_vs_f32": {}, "rel_l2_err_vs_auto": {}, "first_ms_per_model_call": {},
@@ -3015,8 +3019,8 @@ def mesh_serve_expect(key, depth: int, layout: str) -> dict:
     server's program key) on phase 10c's servers: one dit_stack launch a
     model call for an exact chain on the data axis or on every rank, one a
     computed block for a cached chain (blocks [depth/4, 3 depth/4) skipped
-    on every other step), and the TP island's eight partial launches a block
-    and a model call on a model axis."""
+    on every other step), and the TP island's two partial launches a block
+    and a model call on a model axis (one of each dit_block_tp kernel)."""
     sampler, steps, cache_interval = key[0], key[1], key[5]
     if cache_interval > 1:
         lo, hi = depth // 4, depth - depth // 4
@@ -3024,8 +3028,7 @@ def mesh_serve_expect(key, depth: int, layout: str) -> dict:
         return {"fused_dit_block": blocks, "dit_stack": blocks}
     if layout == "mega_tp":
         per = steps * depth
-        return {"block_tp_attn": per, "mlp_tp_partial": per, "cosine_attention": per,
-                **{f"mp_gemm/{s}": per for s in ("modulation", "qkv", "out", "fc1", "fc2")}}
+        return {"block_tp_attn": per, "mlp_tp_partial": per, "dit_block_tp/attn": per, "dit_block_tp/mlp": per}
     return {"fused_dit_stack": steps, "dit_stack": steps}
 
 
@@ -4669,15 +4672,25 @@ def main() -> int:
     err = case.check(case.run())
     rows["cosine_attention"] = dict(
         attention_row(torch, case, "cosine_attention", COSINE_SRC, f"{PALLAS}:129"), max_abs_err=err)
-    # the sampling chain runs these shapes inside dit_stack now; the separate
-    # launches' counts come from the TP island that still makes them
-    for name in [f"mp_gemm/{site}" for site in gemm_cases] + ["cosine_attention"]:
-        rows[name]["count_from"] = ("tp/mega_tp", name)
+    # the sampling chain runs these shapes inside dit_stack and the TP islands
+    # inside dit_block_tp now; the separate launches' counts come from the
+    # paths that still make them: the attention half-block's training
+    # forward (qkv, out, the attention) and P1's MLP branch (fc1, fc2). No
+    # main path launches the modulation product on its own any more: its
+    # row is checked and timed, and left out of the kernels line.
+    for name in ("mp_gemm/qkv", "mp_gemm/out", "cosine_attention"):
+        rows[name]["path"] = "mega_attn+pallas"
+    for name in ("mp_gemm/fc1", "mp_gemm/fc2"):
+        rows[name]["count_from"] = ("P1/chain", name)
+    modulation_row = rows.pop("mp_gemm/modulation")
+    phase("time", kernel="mp_gemm/modulation", ms=f"{modulation_row['ms']:.4f}",
+          plain_ms=f"{modulation_row['plain_ms']:.4f}", bound_ms=f"{modulation_row['bound_ms']:.4f}",
+          library_ms=modulation_row["library_ms"], note="no main path launches it; not in the kernels line")
 
     rows.update(train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x, a, gains[0], w0))
     rows.update(standalone_kernel_rows(torch, F, gen, dev))
     elapsed("3.standalone")
-    rows.update(tp_kernel_rows(torch, F, gen, dev))
+    rows.update(tp_kernel_rows(torch, gen, dev))
     elapsed("3.tp")
     cosine_shape_checks(torch, F, gen, dev)
     elapsed("3.attention")

@@ -22,7 +22,7 @@ import time
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "mapdit_tpu_torch"
-SOURCES = ("mp_gemm", "cosine_attention", "attn_branch_bwd", "fused_attention", "dw_gemm", "dit_stack")
+SOURCES = ("mp_gemm", "cosine_attention", "attn_branch_bwd", "fused_attention", "dw_gemm", "dit_stack", "dit_block_tp")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -55,6 +55,13 @@ _SIGNATURES = {
         "dit_stack_resident_ctas": ([_I], ctypes.c_int),
         "dit_stack_smem_bytes": ([], ctypes.c_int),
         "dit_stack_error_string": ([_I], ctypes.c_char_p),
+    },
+    "dit_block_tp": {
+        "tp_attn": ([_P] * 5 + [_P, _I, _P, _I, _I] + [_P] * 11 + [_I] * 6 + [_F, _P, _P], ctypes.c_int),
+        "tp_mlp": ([_P] * 3 + [_P, _I, _P, _I, _I] + [_P] * 8 + [_I] * 5 + [_F, _F, _P, _P], ctypes.c_int),
+        "dit_block_tp_plan_words": ([], ctypes.c_int),
+        "dit_block_tp_resident_ctas": ([_I], ctypes.c_int),
+        "dit_block_tp_error_string": ([_I], ctypes.c_char_p),
     },
     "cosine_attention": {
         "cosine_attention": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], ctypes.c_int),

@@ -157,6 +157,18 @@ def test_kernel_wrappers_do_not_fall_back_off_cpu():
                                            w_out_l, 1),
         lambda: dit_block_tp.mlp_tp_partial(xb, r, r, gains, w1_l, w2_l, 0.125),
     ]
+    # the two kernels' own wrappers
+    calls += [
+        lambda: dit_block_tp.tp_attn(xb, r, r, gain, w_qkv_l, w_out_l, 1),
+        lambda: dit_block_tp.tp_mlp(xb, r, r, gain, w1_l, w2_l, 0.125),
+    ]
+    # and at T > 64, the attention partials' launch-sequence route
+    x_long = torch.empty(n, 2 * 64 + 2, d, dtype=bf, device="meta")
+    calls += [
+        lambda: dit_block_tp.attn_tp_partial(x_long, r, r, gain, w_qkv_l, w_out_l, 1),
+        lambda: dit_block_tp.block_tp_attn(x_long, r, gains, torch.empty(6 * d, d, dtype=bf, device="meta"),
+                                           w_qkv_l, w_out_l, 1),
+    ]
     # the persistent stack kernel, alone and as the stack's and the block's route
     hid = 4 * d
     stacked = [torch.empty(1, *shape, dtype=bf, device="meta") for shape in
@@ -167,11 +179,12 @@ def test_kernel_wrappers_do_not_fall_back_off_cpu():
         lambda: dit_block.fused_dit_stack(xb, r, g1, *stacked, heads),
         lambda: dit_block.fused_dit_block(xb, r, gains, *(w[0] for w in stacked), heads),
     ]
-    before = dict(dit_block.LAUNCHES)
+    before, before_tp = dict(dit_block.LAUNCHES), dict(dit_block_tp.LAUNCHES)
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
             call()
     assert dit_block.LAUNCHES == before
+    assert dit_block_tp.LAUNCHES == before_tp
 
 
 @pytest.mark.parametrize("tokens, hd, what", [(64, 48, "head widths"), (16, 80, "head widths"), (129, 64, "T <= 128"),
