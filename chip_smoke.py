@@ -235,7 +235,12 @@ ragged M, the same bits on two runs) and attn_bwd with the dW switch on
 (seven cotangents, no f32 matmul left), and fused_attention at FUSED_SHAPES (B/2
 sampling and training shapes on the model's strided views, the XL head
 width 72, T=256, without the cosine normalisation at logits past 88 in f32
-and bf16, the ragged T=16 and T=4) and fused_mlp_branch (N=64 and 256) and their gradients against
+and bf16, the ragged T=16 and T=4) and fused_mlp_branch (row 9: one launch
+of mlp_branch, csrc/dit_block_tp.cu; N=64 and 256 timed beside its former
+two-launch route mlp_launch_sequence and the library pair, graph, host and
+eager ms, one device operation a call by the profiler; T=4, 16, 256, the
+S/2 and XL/2 widths and an odd count of row tiles checked, the same bits
+twice) and their gradients against
 their plain versions, and the three tensor-parallel partial kernels
 (attn_tp_partial, block_tp_attn, mlp_tp_partial) at the DiT-XL/2 shard
 shapes of tp=2 and tp=4 (8 rows x 64 tokens); last, cosine_attention at
@@ -2028,10 +2033,9 @@ def standalone_kernel_rows(torch, F, gen, dev) -> dict:
     whose launch count it reports)."""
     from mapdit_tpu_torch.ops.cuda import attention as at
     from mapdit_tpu_torch.ops.cuda import mlp_block as mb
-    from mapdit_tpu_torch.ops.mp import normalize
 
     bf, f32 = torch.bfloat16, torch.float32
-    t, d, heads, hid = 64, 768, 12, 3072
+    t, d, heads = 64, 768, 12
     hd = d // heads
     out_rows = {}
 
@@ -2073,31 +2077,69 @@ def standalone_kernel_rows(torch, F, gen, dev) -> dict:
     grad_checks(torch, "fused_attention/grad", attn_grad, lambda *z: at.attention_reference(*z, sc, True),
                 [q, k_, v], cot, ["dq", "dk", "dv"])
 
-    mlp_src = "mapdit_tpu_torch/ops/cuda/mlp_block.py"
-    mlp_line = "mapdit_tpu/ops/pallas/mlp_block.py:89"
-    w1, w2 = (normalize(randn(*s_)).to(bf).contiguous() for s_ in ((hid, d), (d, hid)))
-    gain = torch.tensor(0.37, device=dev)
-    for name, n, count_from in (("fused_mlp_branch", 2 * BATCH, ("P1/chain", "mlp_branch/fwd")),
-                                ("fused_mlp_branch/train", TRAIN_BATCH, ("P1/train", "mlp_branch/fwd"))):
-        x = randn(n, t, d, dtype=bf)
-        shift, scale, gate = (randn(n, d, dtype=bf) for _ in range(3))
-        args = (x, shift, scale, gate, gain, w1, w2)
+    # row 9: one launch of mlp_branch (csrc/dit_block_tp.cu) a call, at the
+    # B/2 shapes (timed beside its former two-launch route and the library
+    # pair), then at the other token counts and widths (checked)
+    from mapdit_tpu_torch.ops.cuda import build
+    from mapdit_tpu_torch.ops.cuda import dit_block as k
+    from mapdit_tpu_torch.tools import bench_mlp_branch as mbench
+    from mapdit_tpu_torch.tools import bench_tp_kernels as tpbench
+
+    words = build.library("dit_block_tp").dit_block_tp_plan_words()
+    plan_words = len(mb.mlp_plan(2 * BATCH, t, d, 4 * d).words())
+    phase("check", what="mlp_branch:plan-words", kernel_words=words, plan_words=plan_words, ok=words == plan_words)
+    if words != plan_words:
+        raise AssertionError("mlp_branch reads another number of plan words than mlp_plan gives")
+    card = json.dumps(smi_line())
+
+    def mlp_check(what, args, timed=False):
+        before, before_k = dict(mb.LAUNCHES), dict(k.LAUNCHES)
+        got = mb.fused_mlp_branch(*args)
+        moved = {key: v - before[key] for key, v in mb.LAUNCHES.items() if v != before[key]}
+        if moved != {"mlp_branch/fwd": 1, "mlp_branch/kernel": 1} or k.LAUNCHES != before_k:
+            raise AssertionError(f"{what}: not one launch of mlp_branch and no other kernel's ({moved})")
         # two bf16 roundings upstream (hidden, output): relative L2
-        err = compare_rel(torch, mb.fused_mlp_branch(*args), mb.fused_mlp_branch_plain(*args), 1e-2, name)
-        b, by = bound_ms(4 * n * t * d * hid, 2 * n * t * d * 2 + 3 * n * d * 2 + 4 + 2 * d * hid * 2)
-        xf = x.reshape(n * t, d)
+        err = compare_rel(torch, got, mb.fused_mlp_branch_plain(*args), 1e-2, what)
+        compare(torch, mb.fused_mlp_branch(*args), got, 0.0, 0.0, what + ":same-bits-twice")
+        if timed:
+            ops = tpbench.device_ops(lambda: mb.fused_mlp_branch(*args))
+            phase("check", what=f"{what}:device-operations-a-call", ops=ops, ok=ops == 1)
+            if ops != 1:
+                raise AssertionError(f"{what}: {ops} device operations a call, not 1")
+            compare_rel(torch, mb.mlp_launch_sequence(*args), got, 1e-2, what + ":route-vs-kernel")
+        return err
 
-        def two_matmuls(xf=xf):
-            return torch.matmul(torch.matmul(xf, w1.t()), w2.t())
-
-        out_rows[name] = dict(
-            source=mlp_src, replaces=mlp_line, max_abs_err=err,
-            ms=time_ms(torch, lambda args=args: mb.fused_mlp_branch(*args)),
-            plain_ms=time_ms(torch, lambda args=args: mb.fused_mlp_branch_plain(*args)),
-            bound_ms=b, bound_by=by, library_ms=time_ms(torch, two_matmuls), count_from=count_from,
-        )
-    inputs = [z.detach().requires_grad_() for z in args[:4]] + [gain.detach().requires_grad_()] + [
-        z.detach().requires_grad_() for z in (w1, w2)]
+    mlp_src = "mapdit_tpu_torch/csrc/dit_block_tp.cu"
+    mlp_line = "mapdit_tpu/ops/pallas/mlp_block.py:89"
+    for name, n, count_from in (("fused_mlp_branch", 2 * BATCH, ("P1/chain", "mlp_branch/kernel")),
+                                ("fused_mlp_branch/train", TRAIN_BATCH, ("P1/train", "mlp_branch/kernel"))):
+        case = mbench.mlp_case(gen, dev, n)
+        args = case["args"]
+        err = mlp_check(name, args, timed=True)
+        b, by = bound_ms(case["flops"], case["bytes"])
+        kernel_times = tpbench.times(lambda args=args: mb.fused_mlp_branch(*args),
+                                     lambda args=args: mb.mlp_launch_sequence(*args))
+        row = dict(source=mlp_src, replaces=mlp_line, max_abs_err=err, **kernel_times,
+                   plain_ms=graph_ms(torch, lambda args=args: mb.fused_mlp_branch_plain(*args)),
+                   bound_ms=b, bound_by=by, library_ms=graph_ms(torch, case["library"]),
+                   library_eager_ms=time_ms(torch, case["library"]), count_from=count_from)
+        phase("time", kernel=name, **{key: f"{v:.4f}" for key, v in row.items() if isinstance(v, float)},
+              bound_by=by, card=card)
+        out_rows[name] = row
+    for tag, n, t_, d_, hid_ in mbench.RAGGED:
+        mlp_check(f"fused_mlp_branch:{tag}", mbench.mlp_case(gen, dev, n, t_, d_, hid_)["args"])
+    # fc1 pre-activations far below -88, where e^-c overflows f32: the
+    # MP-SiLU gives -0 there, as the plain version and the former route do
+    tag, n, t_, d_, hid_, deep = mbench.DEEP
+    deep_args = mbench.mlp_case(gen, dev, n, t_, d_, hid_, deep=deep)["args"]
+    below = mbench.fc1_below(deep_args)
+    phase("check", what=f"fused_mlp_branch:{tag}:inputs", fc1_below=below, ok=below > 0)
+    if not below:
+        raise AssertionError(f"fused_mlp_branch:{tag}: no fc1 pre-activation below -88")
+    mlp_check(f"fused_mlp_branch:{tag}", deep_args)
+    compare_rel(torch, mb.fused_mlp_branch(*deep_args), mb.mlp_launch_sequence(*deep_args), 1e-2,
+                f"fused_mlp_branch:{tag}:kernel-vs-route")
+    inputs = [z.detach().requires_grad_() for z in args]
     cot = randn(TRAIN_BATCH, t, d, dtype=bf)
 
     def mlp_grad():
@@ -2127,8 +2169,7 @@ def family_phase(torch, dev, tag: str, flags: dict, kernels: dict) -> dict:
     def expect(model_calls):
         counts = {"fused_attention": depth * model_calls}
         if fused_mlp:
-            counts.update({"mlp_branch/fwd": depth * model_calls, "mp_gemm/fc1": depth * model_calls,
-                           "mp_gemm/fc2": depth * model_calls})
+            counts.update({"mlp_branch/fwd": depth * model_calls, "mlp_branch/kernel": depth * model_calls})
         return counts
 
     init = init_model(base, seed=SEED, device="cpu")
@@ -4672,20 +4713,20 @@ def main() -> int:
     err = case.check(case.run())
     rows["cosine_attention"] = dict(
         attention_row(torch, case, "cosine_attention", COSINE_SRC, f"{PALLAS}:129"), max_abs_err=err)
-    # the sampling chain runs these shapes inside dit_stack and the TP islands
-    # inside dit_block_tp now; the separate launches' counts come from the
-    # paths that still make them: the attention half-block's training
-    # forward (qkv, out, the attention) and P1's MLP branch (fc1, fc2). No
-    # main path launches the modulation product on its own any more: its
-    # row is checked and timed, and left out of the kernels line.
+    # the sampling chain runs these shapes inside dit_stack, the TP islands
+    # inside dit_block_tp and P1's MLP branch inside mlp_branch now; the
+    # separate launches' counts come from the path that still makes them:
+    # the attention half-block's training forward (qkv, out, the attention).
+    # No main path launches the modulation, fc1 or fc2 product on its own any
+    # more: their rows are checked and timed, and left out of the kernels
+    # line.
     for name in ("mp_gemm/qkv", "mp_gemm/out", "cosine_attention"):
         rows[name]["path"] = "mega_attn+pallas"
-    for name in ("mp_gemm/fc1", "mp_gemm/fc2"):
-        rows[name]["count_from"] = ("P1/chain", name)
-    modulation_row = rows.pop("mp_gemm/modulation")
-    phase("time", kernel="mp_gemm/modulation", ms=f"{modulation_row['ms']:.4f}",
-          plain_ms=f"{modulation_row['plain_ms']:.4f}", bound_ms=f"{modulation_row['bound_ms']:.4f}",
-          library_ms=modulation_row["library_ms"], note="no main path launches it; not in the kernels line")
+    for name in ("mp_gemm/modulation", "mp_gemm/fc1", "mp_gemm/fc2"):
+        off_path = rows.pop(name)
+        phase("time", kernel=name, ms=f"{off_path['ms']:.4f}", plain_ms=f"{off_path['plain_ms']:.4f}",
+              bound_ms=f"{off_path['bound_ms']:.4f}", library_ms=off_path["library_ms"],
+              note="no main path launches it; not in the kernels line")
 
     rows.update(train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x, a, gains[0], w0))
     rows.update(standalone_kernel_rows(torch, F, gen, dev))

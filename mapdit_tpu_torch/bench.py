@@ -33,7 +33,9 @@ steps; ``--resident-data`` reuses one device-resident batch;
 ``--grad-accum`` splits each step's batch into that many micro-batches;
 ``--profile-dir`` then traces a few more steps (in sample mode: one 10-step
 chain) with ``torch.profiler`` and writes the device-time table there (the
-timed steps and chains run untraced). Each mode
+timed steps and chains run untraced); the JSON's ``profile`` gives device
+busy ms, launches and the top kernels a step, and the host's CUDA runtime
+calls a step (launches, allocations, synchronizations). Each mode
 prints one JSON line with ``metric``, ``value``, ``unit`` and ``mfu_pct``
 against the H100's 989 TFLOP/s dense bf16 peak (train: 3x the forward's
 matrix-product FLOPs; the backward's recompute is not counted as useful
@@ -198,12 +200,17 @@ def _profile(out_dir: str, call, table: str, calls: int = 3, steps_per_call: int
               and e.self_device_time_total > 0]
     kernels = sorted(((e.key, e.self_device_time_total) for e in device), key=lambda kv: -kv[1])
     busy_us = sum(us for _, us in kernels)
+    # the host's CUDA runtime calls (launches, allocations, synchronizations)
+    api = sorted((e for e in events if e.device_type == DeviceType.CPU and e.key.startswith("cuda")),
+                 key=lambda e: -e.self_cpu_time_total)
     return {
         "steps": steps,
         "traced_wall_ms_per_step": 1e3 * wall / steps,
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
         "device_launches_per_step": sum(e.count for e in device) / steps,
         "top_kernels_ms_per_step": {name[:120]: us / 1e3 / steps for name, us in kernels[:15]},
+        "cuda_api_per_step": {e.key: {"calls": e.count / steps, "host_ms": e.self_cpu_time_total / 1e3 / steps}
+                              for e in api[:8]},
     }
 
 

@@ -23,6 +23,8 @@ PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "mapdit_tpu_torch"
 SOURCES = ("mp_gemm", "cosine_attention", "attn_branch_bwd", "fused_attention", "dw_gemm", "dit_stack", "dit_block_tp")
+# measurement-only sources, built when a tool asks for their library
+PROBES = ("kstep_probe",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -60,8 +62,14 @@ _SIGNATURES = {
         "tp_attn": ([_P] * 5 + [_P, _I, _P, _I, _I] + [_P] * 11 + [_I] * 6 + [_F, _P, _P], ctypes.c_int),
         "tp_mlp": ([_P] * 3 + [_P, _I, _P, _I, _I] + [_P] * 8 + [_I] * 5 + [_F, _F, _P, _P], ctypes.c_int),
         "dit_block_tp_plan_words": ([], ctypes.c_int),
+        "mlp_branch": ([_P] * 3 + [_P, _I, _P, _I, _P, _I, _I] + [_P] * 8 + [_I] * 5 + [_F, _F, _P, _P], ctypes.c_int),
+        "mlp_branch_resident_ctas": ([], ctypes.c_int),
         "dit_block_tp_resident_ctas": ([_I], ctypes.c_int),
         "dit_block_tp_error_string": ([_I], ctypes.c_char_p),
+    },
+    "kstep_probe": {
+        "kstep_probe": ([_I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P], ctypes.c_int),
+        "kstep_probe_error_string": ([_I], ctypes.c_char_p),
     },
     "cosine_attention": {
         "cosine_attention": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], ctypes.c_int),
@@ -101,14 +109,14 @@ def _target(name: str) -> pathlib.Path:
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def build_all() -> dict:
-    """Compile every source whose library is missing, all in parallel, and
-    return ``{name: seconds}`` for the ones compiled. Raises with nvcc's
-    output if a compile fails."""
+def build_all(names: tuple = SOURCES) -> dict:
+    """Compile every source of ``names`` (the kernels' by default) whose
+    library is missing, all in parallel, and return ``{name: seconds}`` for
+    the ones compiled. Raises with nvcc's output if a compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
-    for name in SOURCES:
+    for name in names:
         target = _target(name)
         if target.exists():
             continue
@@ -130,12 +138,13 @@ def build_all() -> dict:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building all sources first
-    if needed, with argument and return types declared."""
+    """The loaded library for ``csrc/<name>.cu``, building all kernel
+    sources first if needed (a probe's only itself), with argument and
+    return types declared."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            build_all()
+            build_all((name,) if name in PROBES else SOURCES)
             lib = ctypes.CDLL(str(_target(name)))
             for fn, (argtypes, restype) in _SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes

@@ -521,18 +521,33 @@ def stack_attention_smem(hd: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class StackProduct:
-    """One product stage of :func:`dit_stack`: C (m, n) = A (m, k) . W^T in
-    128 x 128 tiles, K split ``splits`` ways."""
+    """One product stage of :func:`dit_stack` (and of the work lists of
+    ``dit_block_tp``): C (m, n) = A (m, k) . W^T in tiles of 128 rows by
+    ``width`` columns (128, or 256 for row 9's kernel), K split ``splits``
+    ways."""
 
     name: str
     m: int
     n: int
     k: int
     splits: int
+    width: int = STACK_TILE
+
+    @property
+    def row_tiles(self) -> int:
+        return _cdiv(self.m, STACK_TILE)
+
+    @property
+    def col_tiles(self) -> int:
+        return _cdiv(self.n, self.width)
+
+    @property
+    def kt(self) -> int:
+        return _cdiv(self.k, STACK_K)
 
     @property
     def tiles(self) -> int:
-        return _cdiv(self.m, STACK_TILE) * _cdiv(self.n, STACK_TILE)
+        return self.row_tiles * self.col_tiles
 
     @property
     def items(self) -> int:
@@ -542,7 +557,7 @@ class StackProduct:
         """Item j: (row tile, column tile, split, k steps [kb, ke)); split
         major, then row tile, then column tile (the splits of a tile lie
         ``tiles`` items apart)."""
-        nt, kt = _cdiv(self.n, STACK_TILE), _cdiv(self.k, STACK_K)
+        nt, kt = self.col_tiles, self.kt
         tile, z = j % self.tiles, j // self.tiles
         return tile // nt, tile % nt, z, z * kt // self.splits, (z + 1) * kt // self.splits
 

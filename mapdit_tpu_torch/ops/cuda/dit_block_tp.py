@@ -257,7 +257,15 @@ TP_PLAN_STAGE_WORDS = 6
 TP_PLAN_WORDS = TP_PLAN_HEADER + 4 * TP_PLAN_STAGE_WORDS
 TP_STAGE_KINDS = {"pre": 0, "attention": 2}  # a product stage is kind 1
 TP_TRACE_WORDS = 16  # a CTA's ns by stage and part of its items, its start and end (csrc/dit_block_tp.cu)
-TP_KERNELS = ("attn", "mlp")
+# the kernels of csrc/dit_block_tp.cu: rows 6 and 7, row 8, and row 9
+# (``mlp_block.fused_mlp_branch``: the MLP half-block at full width)
+TP_KERNELS = ("attn", "mlp", "mlp_branch")
+# row 9's tiles: 256 columns, on ring stages of a 128 x 64 A tile and a
+# 256 x 64 W tile of bf16; a pre item takes the most of MLP_PRE_ROWS token
+# rows whose rows of x (ceil(D / 64) boxes of 64 columns) fill one stage
+MLP_WIDE = 256
+MLP_STAGE_BYTES = (STACK_TILE + MLP_WIDE) * STACK_K * 2
+MLP_PRE_ROWS = (32, 16, 8)
 
 
 def tp_attn_route(tokens: int) -> str:
@@ -268,9 +276,9 @@ def tp_attn_route(tokens: int) -> str:
 
 
 def check_tp_shape(kernel: str, tokens: int, d: int, width: int, heads: int = 0) -> None:
-    """Raise unless ``csrc/dit_block_tp.cu``'s ``kernel`` ("attn" or "mlp")
-    takes T tokens of width D and a local width ``width`` (D_l in ``heads``
-    heads, or H_l): D and the local width multiples of 8 (TMA rows of 16
+    """Raise unless ``csrc/dit_block_tp.cu``'s ``kernel`` (one of
+    TP_KERNELS) takes T tokens of width D and a width ``width`` (D_l in
+    ``heads`` heads, H_l, or row 9's H): D and that width multiples of 8 (TMA rows of 16
     bytes, 16-byte accesses); for the attention, head widths 64 and 72 (the
     tiles' template instances, every registry model's) and an even T <= 64
     (one tile of queries and keys)."""
@@ -289,8 +297,8 @@ def check_tp_shape(kernel: str, tokens: int, d: int, width: int, heads: int = 0)
 
 @dataclasses.dataclass(frozen=True)
 class TpStage:
-    """One stage of the work list: ``pre`` (the modulate, 4 token rows an
-    item), a product (``qkv``, ``out``, ``fc1``, ``fc2``) or ``attention``
+    """One stage of the work list: ``pre`` (the modulate, the plan's
+    ``pre_rows`` token rows an item), a product (``qkv``, ``out``, ``fc1``, ``fc2``) or ``attention``
     (two (sample, head) units an item)."""
 
     name: str
@@ -315,6 +323,7 @@ class TpPlan:
     samples: int
     tokens: int
     heads: int
+    pre_rows: int
     modulation: Optional[StackProduct]
     stages: tuple
     tickets: dict
@@ -349,6 +358,16 @@ class TpPlan:
     def stage(self, name: str) -> TpStage:
         return next(s for s in self.stages if s.name == name)
 
+    @property
+    def products(self) -> tuple:
+        """The list's products in order (row 7's modulation product is not
+        one of its stages)."""
+        return tuple(s.product for s in self.stages if s.product is not None)
+
+    @property
+    def pre_items(self) -> int:
+        return self.stages[0].items
+
     def counter_word(self, i: int, r: int) -> int:
         """Sync word of stage i's counter of row tile r."""
         return TP_SYNC_DONE + 8 * (i * self.row_tiles + r)
@@ -367,7 +386,7 @@ class TpPlan:
         rows in)."""
         stage = self.stages[i]
         if stage.name == "pre":
-            return (j * TP_PRE_ROWS // STACK_TILE,)
+            return (j * self.pre_rows // STACK_TILE,)
         if stage.product is not None:
             return (stage.product.item(j)[0],)
         return tuple(r for u in self.units(j) for r in self._sample_tiles(u // self.heads))
@@ -377,11 +396,11 @@ class TpPlan:
         done there (the kernel's per_row)."""
         stage = self.stages[i]
         if stage.name == "pre":
-            per_tile = STACK_TILE // TP_PRE_ROWS
+            per_tile = STACK_TILE // self.pre_rows
             return min(stage.items, (r + 1) * per_tile) - r * per_tile
         if stage.product is not None:
             p = stage.product
-            return _cdiv(p.n, STACK_TILE) * p.splits
+            return p.col_tiles * p.splits
         first = r * STACK_TILE // self.tokens
         last = min(self.samples, (r * STACK_TILE + STACK_TILE + self.tokens - 1) // self.tokens) - 1
         return (last - first + 1) * self.heads
@@ -412,7 +431,7 @@ class TpPlan:
             i, j = self.locate(g)
             stage = self.stages[i]
             if stage.name == "pre":
-                what = (j * TP_PRE_ROWS, min(self.m, (j + 1) * TP_PRE_ROWS))
+                what = (j * self.pre_rows, min(self.m, (j + 1) * self.pre_rows))
             elif stage.product is not None:
                 what = stage.product.item(j)
             else:
@@ -441,12 +460,13 @@ class TpPlan:
     def words(self) -> tuple:
         """The TP_PLAN_WORDS words the launch reads: stages, sync words,
         buffer words, CTAs, the modulation product's splits and ticket word
-        (0, 0 without it), then for each stage its kind, items, K splits,
-        counter word of row tile 0, ticket word (0 unsplit) and target
-        offset."""
+        (0, 0 without it; row 9's kernel has the token rows of a pre item in
+        the first), then for each stage its kind, items, K splits, counter
+        word of row tile 0, ticket word (0 unsplit) and target offset."""
         mods = self.modulation
+        first = self.pre_rows if self.kernel == "mlp_branch" else mods.splits if mods else 0
         out = [len(self.stages), self.sync_words, self.buffer_words, self.ctas,
-               mods.splits if mods else 0, self.tickets.get("modulation", 0) if mods else 0, 0, 0]
+               first, self.tickets.get("modulation", 0) if mods else 0, 0, 0]
         for i, stage in enumerate(self.stages):
             p = stage.product
             out += [1 if p else TP_STAGE_KINDS[stage.name], stage.items, p.splits if p else 1,
@@ -459,22 +479,32 @@ def tp_plan(kernel: str, n: int, t: int, d: int, width: int, heads: int = 0, mod
             ctas: int = H100_SMS) -> TpPlan:
     """The plan of one launch for N samples of T tokens at width D: the
     attention kernel (``"attn"``: ``width`` = D_l in ``heads`` local heads;
-    ``modulation`` switches on row 7's stage) or the MLP kernel (``"mlp"``:
-    ``width`` = H_l), on ``ctas`` resident CTAs. A product splits K only as
-    far as one wave takes, into at most TP_MAX_SPLITS splits of at least
-    TP_MIN_SPLIT_K k steps (TP_MIN_SPLIT_K_MODULATION for row 7's
-    modulation product)."""
+    ``modulation`` switches on row 7's stage), the MLP kernel (``"mlp"``:
+    ``width`` = H_l) or row 9's (``"mlp_branch"``: ``width`` = H, the
+    products on MLP_WIDE-column tiles, pre items of the most of
+    MLP_PRE_ROWS token rows whose rows of x fill one ring stage), on
+    ``ctas`` resident CTAs. A product splits K only as far as one wave
+    takes, into at most TP_MAX_SPLITS splits of at least TP_MIN_SPLIT_K k
+    steps (TP_MIN_SPLIT_K_MODULATION for row 7's modulation product)."""
     if kernel not in TP_KERNELS or (modulation and kernel != "attn"):
         raise ValueError(f"no plan for kernel {kernel!r} with modulation={modulation}")
     m = n * t
+    wide = kernel == "mlp_branch"
+    tile_cols = MLP_WIDE if wide else STACK_TILE
+    pre_rows = TP_PRE_ROWS
+    if wide:
+        pre_rows = next((r for r in MLP_PRE_ROWS if _cdiv(d, 64) * r * 128 <= MLP_STAGE_BYTES), 0)
+        if not pre_rows:
+            raise ValueError(f"no plan at D={d}: not eight rows of x fit a ring stage")
 
     def product(name, rows, cols, k):
-        tiles = _cdiv(rows, STACK_TILE) * _cdiv(cols, STACK_TILE)
+        width = STACK_TILE if name == "modulation" else tile_cols
+        tiles = _cdiv(rows, STACK_TILE) * _cdiv(cols, width)
         min_k = TP_MIN_SPLIT_K_MODULATION if name == "modulation" else TP_MIN_SPLIT_K
         fit = 1 if tiles >= ctas else min(ctas // tiles, _cdiv(k, STACK_K) // min_k)
-        return StackProduct(name, rows, cols, k, max(1, min(fit, TP_MAX_SPLITS)))
+        return StackProduct(name, rows, cols, k, max(1, min(fit, TP_MAX_SPLITS)), width)
 
-    pre = TpStage("pre", _cdiv(m, TP_PRE_ROWS))
+    pre = TpStage("pre", _cdiv(m, pre_rows))
     mods = product("modulation", n, 6 * d, d) if modulation else None
     if kernel == "attn":
         first, second = product("qkv", m, 3 * width, d), product("out", m, d, width)
@@ -499,7 +529,7 @@ def tp_plan(kernel: str, n: int, t: int, d: int, width: int, heads: int = 0, mod
         layout[name] = offset
         offset += _cdiv(size, 256) * 256
     return TpPlan(
-        kernel=kernel, ctas=ctas, samples=n, tokens=t, heads=heads, modulation=mods, stages=stages,
+        kernel=kernel, ctas=ctas, samples=n, tokens=t, heads=heads, pre_rows=pre_rows, modulation=mods, stages=stages,
         tickets=tickets, sync_words=words, layout=layout, workspace_bytes=offset,
     )
 
@@ -547,23 +577,25 @@ def _trace_ptr(plan: TpPlan, trace, device):
     return trace.data_ptr()
 
 
-def _row_operands(shift, scale, x) -> tuple:
-    """shift and scale (N, D) as the kernels read them in place: f32 or bf16
-    (one type), a sample's row at a stride of whole 16-byte chunks. Returns
-    (shift, scale, bf16 or not); a view that does not fit is copied (no path
-    of the port passes one)."""
+def _row_operands(x, *rows) -> tuple:
+    """The modulation rows, shift and scale (row 9: and the gate), each (N,
+    D), as the kernels read them in place: f32 or bf16 (one type), a
+    sample's row at a stride of whole 16-byte chunks. Returns (*rows, bf16
+    or not); a view that does not fit is copied (no path of the port passes
+    one)."""
     n, _, d = x.shape
-    if shift.dtype != scale.dtype or shift.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"the CUDA TP kernels take shift and scale as f32 or bf16 of one type, got {shift.dtype}, "
-                         f"{scale.dtype}")
-    if shift.shape != (n, d) or scale.shape != (n, d):
-        raise ValueError(f"shift and scale must be (N, D) = {(n, d)}, got {tuple(shift.shape)}, {tuple(scale.shape)}")
-    if any(z.device != x.device for z in (shift, scale)):
-        raise ValueError("shift and scale must lie on x's CUDA device")
-    per16 = 16 // shift.element_size()
-    shift, scale = (z if z.stride(1) == 1 and z.stride(0) % per16 == 0 and z.data_ptr() % 16 == 0
-                    else z.clone(memory_format=torch.contiguous_format) for z in (shift, scale))
-    return shift, scale, shift.dtype == torch.bfloat16
+    dtype = rows[0].dtype
+    if any(z.dtype != dtype for z in rows) or dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the CUDA dit_block_tp kernels take their modulation rows as f32 or bf16 of one type, got "
+                         f"{[z.dtype for z in rows]}")
+    if any(z.shape != (n, d) for z in rows):
+        raise ValueError(f"the modulation rows must be (N, D) = {(n, d)}, got {[tuple(z.shape) for z in rows]}")
+    if any(z.device != x.device for z in rows):
+        raise ValueError("the modulation rows must lie on x's CUDA device")
+    per16 = 16 // rows[0].element_size()
+    rows = tuple(z if z.stride(1) == 1 and z.stride(0) % per16 == 0 and z.data_ptr() % 16 == 0
+                 else z.clone(memory_format=torch.contiguous_format) for z in rows)
+    return (*rows, dtype == torch.bfloat16)
 
 
 def tp_attn(x, shift, scale, gain, w_qkv_l, w_out_l, heads_local: int, *, a=None, w_mod=None,
@@ -588,7 +620,7 @@ def tp_attn(x, shift, scale, gain, w_qkv_l, w_out_l, heads_local: int, *, a=None
     if modulated:
         rows, rows_bf16 = (None, 0, None, 0), False
     else:
-        shift, scale, rows_bf16 = _row_operands(shift, scale, x)
+        shift, scale, rows_bf16 = _row_operands(x, shift, scale)
         rows = (shift.data_ptr(), shift.stride(0), scale.data_ptr(), scale.stride(0))
     _aligned(*(z for z in operands if z is not gain))  # the gain is read as one float
     plan = tp_plan("attn", n, t, d, d_l, heads_local, modulated, _resident_ctas(x.get_device(), d_l // heads_local))
@@ -626,7 +658,7 @@ def tp_mlp(x, shift, scale, gain, w1_l, w2_l, inv_h: float, *, trace: Optional[t
     check_tp_shape("mlp", t, d, h_l)
     if gain.dtype != torch.float32 or gain.numel() != 1:
         raise ValueError("the modulate gain must be one f32 value")
-    shift, scale, rows_bf16 = _row_operands(shift, scale, x)
+    shift, scale, rows_bf16 = _row_operands(x, shift, scale)
     _aligned(*(z for z in operands if z is not gain))
     plan = tp_plan("mlp", n, t, d, h_l, ctas=_resident_ctas(x.get_device(), 0))
     words, buffer = _launch_state(plan, x.get_device())

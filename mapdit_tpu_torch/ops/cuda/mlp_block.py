@@ -5,48 +5,68 @@ Port of ``mapdit_tpu/ops/pallas/mlp_block.py``: ``fused_mlp_branch`` over
 
     y = mp_sum(x, gate * fc2(mp_silu(fc1(modulate(x, shift, scale, gain)))), 0.3)
 
-The Pallas kernel holds both weight matrices in VMEM beside the
-activations; a Hopper block's shared memory cannot, so the half-block is two
-launches of the hand-written ``csrc/mp_gemm.cu`` and the elementwise stages
-ride them, as in stages 5-6 of ``fused_dit_block``: fc1 with the modulate
-prologue (before the rounding to the weights' type) and the MP-SiLU
-epilogue, the hidden leaving in the weights' type; fc2 with the
-gated-residual epilogue, reading x and writing y in x's type. shift, scale
-and gate arrive as (N, D) tensors in x's type and are packed once into one
-(N, 3D) f32 row buffer (an exact upcast), the gain is read from device
-memory. Only the (N*T, H) hidden passes through device memory between the
-two launches.
+On the card a call is ONE persistent launch of ``mlp_branch``
+(``csrc/dit_block_tp.cu``, on the work-list machinery of the TP partials
+and ``csrc/wide_tile.cuh``'s 128 x 256 tiles) and no other device
+operation: its list runs the modulate (pre items, into a bf16 scratch),
+fc1 with the MP-SiLU (the hidden h in bf16 scratch) and fc2 with the gated
+residual, laid out by :func:`mlp_plan`, whose words
+the launch reads and the CPU tests walk. The Pallas kernel keeps both
+weight matrices and the hidden activations in VMEM; here h passes through
+L2 and device memory. shift, scale and gate are read in place, in x's type
+(or f32), as they are; the gain is read from device memory. The rounding
+points are those of the route before the kernel (:func:`mlp_launch_sequence`,
+two ``mp_gemm`` launches, kept as the yardstick and never dispatched): the
+modulate in f32 rounded once to bf16, fc1 summed in f32 and scaled by
+1/sqrt(D), MP-SiLU, h rounded to bf16; fc2 summed in f32 and scaled by
+1/sqrt(H), then the gated residual in f32, y in x's type.
 
 Bound on the H100: operations (4*N*T*D*H flops on bf16 operands against
-x in, y out, the weights and the rows). On the card the kernels take bf16
-weights (``mp_gemm``); a float32 model runs ``block_kernel="off"``.
+x in, y out, the weights and the rows). On the card the kernel takes bf16
+x and weights; a float32 model runs ``block_kernel="off"``.
 
-For a CUDA tensor the wrapper launches the kernels or raises; for a CPU
-tensor it runs :func:`fused_mlp_branch_plain`. ``LAUNCHES`` counts calls of
-the wrapper on the card; each is one ``mp_gemm/fc1`` and one ``mp_gemm/fc2``
-launch in ``dit_block.LAUNCHES``. The gradient recomputes through
+For a CUDA tensor the wrapper launches the kernel or raises; for a CPU
+tensor it runs :func:`fused_mlp_branch_plain`. ``LAUNCHES`` counts, on the
+card, wrapper calls (``mlp_branch/fwd``), launches of the kernel
+(``mlp_branch/kernel``) and calls of the yardstick
+(``mlp_branch/sequence``; its ``mp_gemm`` launches are counted in
+``dit_block.LAUNCHES``). The gradient recomputes through
 :func:`mlp_reference` (the Pallas package's ``_reference``; the modulate
 denominator is constant in the gain).
 """
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import Optional
 
 import torch
 
 from mapdit_tpu_torch.ops.cuda.attn_branch import _pack
 from mapdit_tpu_torch.ops.cuda.dit_block import (
+    H100_SMS,
     RES_T,
+    _raise_on,
+    _require_cuda,
     modulate_reference,
     mp_gemm,
     mp_gemm_plain,
     needs_grad,
     vjp_through,
 )
+from mapdit_tpu_torch.ops.cuda.dit_block_tp import (
+    _aligned,
+    _launch_state,
+    _row_operands,
+    _scratch,
+    _trace_ptr,
+    check_tp_shape,
+    tp_plan,
+)
 from mapdit_tpu_torch.ops.mp import mp_silu, mp_sum
 
-LAUNCHES = {"mlp_branch/fwd": 0}
+LAUNCHES = {"mlp_branch/fwd": 0, "mlp_branch/kernel": 0, "mlp_branch/sequence": 0}
 
 
 def reset_launch_counts() -> None:
@@ -65,7 +85,7 @@ def _check(x, shift, scale, gate, gain, w1, w2):
         x.dtype != torch.bfloat16 or w1.dtype != torch.bfloat16 or w2.dtype != torch.bfloat16
     ):
         raise ValueError(
-            "the CUDA MLP half-block kernels run bf16 only: x and the weights must be bf16 "
+            "the CUDA MLP half-block kernel runs bf16 only: x and the weights must be bf16 "
             "(a float32 model runs block_kernel='off')"
         )
 
@@ -87,19 +107,89 @@ def _fwd(x, shift, scale, gate, gain, w1, w2, gemm):
     return y.reshape(n, t, d)
 
 
-def mlp_fwd(x, shift, scale, gate, gain, w1, w2):
-    """The MLP half-block forward. x (N, T, D); shift, scale, gate (N, D);
-    gain one f32 value; w1 (H, D), w2 (D, H) pre-normalized. Returns the new
-    stream in x's type."""
+def mlp_launch_sequence(x, shift, scale, gate, gain, w1, w2):
+    """Row 9 as the route before the kernel: the rows packed into one f32
+    buffer, then two launches of ``mp_gemm`` (fc1 with its modulate
+    prologue pass and the MP-SiLU, fc2 with the gated residual). Kept as
+    the kernel's yardstick; never dispatched."""
     y = _fwd(x, shift, scale, gate, gain, w1, w2, mp_gemm)
     if x.device.type == "cuda":
-        LAUNCHES["mlp_branch/fwd"] += 1
+        LAUNCHES["mlp_branch/sequence"] += 1
     return y
 
 
 def fused_mlp_branch_plain(x, shift, scale, gate, gain, w1, w2):
     """Plain version of :func:`fused_mlp_branch`'s forward."""
     return _fwd(x, shift, scale, gate, gain, w1, w2, mp_gemm_plain)
+
+
+def mlp_plan(n: int, t: int, d: int, hidden: int, ctas: int = H100_SMS):
+    """The plan of one launch of ``mlp_branch`` for N samples of T tokens at
+    width D and hidden width H on ``ctas`` resident CTAs: the TP kernels'
+    plan (``dit_block_tp.tp_plan``) of the list [pre, fc1, fc2] at full
+    width, on 128 x 256 tiles."""
+    return tp_plan("mlp_branch", n, t, d, hidden, ctas=ctas)
+
+
+@functools.lru_cache(maxsize=None)
+def resident_ctas(device_index: int) -> int:
+    """CTAs of row 9's kernel resident at once on the device (one an SM)."""
+    from mapdit_tpu_torch.ops.cuda import build
+
+    lib = build.library("dit_block_tp")
+    with torch.cuda.device(device_index):
+        ctas = lib.mlp_branch_resident_ctas()
+    if ctas < 1:
+        _raise_on(-ctas, lib, "mlp_branch_resident_ctas", "dit_block_tp")
+    return ctas
+
+
+def mlp_branch(x, shift, scale, gate, gain, w1, w2, *, trace: Optional[torch.Tensor] = None):
+    """One launch of ``mlp_branch`` (``csrc/dit_block_tp.cu``) on CUDA
+    tensors: x (N, T, D) bf16; shift, scale, gate (N, D) f32 or bf16 of one
+    type; gain a one-element f32 tensor; w1 (H, D), w2 (D, H) bf16. Returns
+    y (N, T, D) bf16. ``trace``: int64 of :func:`mlp_plan`'s
+    ``trace_words`` on the resident CTAs (each CTA's ns by stage), as for
+    the TP kernels."""
+    from mapdit_tpu_torch.ops.cuda import build
+
+    n, t, d = x.shape
+    hidden = w1.shape[0]
+    _require_cuda(x, gain, w1, w2)
+    _check(x, shift, scale, gate, gain, w1, w2)
+    check_tp_shape("mlp_branch", t, d, hidden)
+    if gain.dtype != torch.float32 or gain.numel() != 1:
+        raise ValueError("the modulate gain must be one f32 value")
+    shift, scale, gate, rows_bf16 = _row_operands(x, shift, scale, gate)
+    _aligned(x, w1, w2)
+    plan = mlp_plan(n, t, d, hidden, ctas=resident_ctas(x.get_device()))
+    words, buffer = _launch_state(plan, x.get_device())
+    lib = build.library("dit_block_tp")
+    work = torch.empty(plan.workspace_bytes, dtype=torch.uint8, device=x.device)
+    y = torch.empty(n, t, d, dtype=torch.bfloat16, device=x.device)
+    code = lib.mlp_branch(
+        x.data_ptr(), w1.data_ptr(), w2.data_ptr(), shift.data_ptr(), shift.stride(0), scale.data_ptr(),
+        scale.stride(0), gate.data_ptr(), gate.stride(0), rows_bf16, gain.data_ptr(), y.data_ptr(),
+        *(_scratch(plan, work, name) for name in ("amod", "h", "partial_fc1", "partial_fc2")),
+        buffer.data_ptr(), words, n, t, d, hidden, plan.ctas, 1.0 / math.sqrt(d), 1.0 / math.sqrt(hidden),
+        torch.cuda.current_stream(x.device).cuda_stream, _trace_ptr(plan, trace, x.device),
+    )
+    _raise_on(code, lib, "mlp_branch", "dit_block_tp")
+    LAUNCHES["mlp_branch/kernel"] += 1
+    return y
+
+
+def mlp_fwd(x, shift, scale, gate, gain, w1, w2):
+    """The MLP half-block forward. x (N, T, D); shift, scale, gate (N, D);
+    gain one f32 value; w1 (H, D), w2 (D, H) pre-normalized. Returns the new
+    stream in x's type: the plain version on CPU tensors, one launch of the
+    kernel on CUDA tensors (any other device raises, naming CUDA)."""
+    if x.device.type == "cpu":
+        return fused_mlp_branch_plain(x, shift, scale, gate, gain, w1, w2)
+    gain = torch.as_tensor(gain, device=x.device).detach().reshape(1).float().contiguous()
+    y = mlp_branch(x.contiguous(), shift, scale, gate, gain, w1.contiguous(), w2.contiguous())
+    LAUNCHES["mlp_branch/fwd"] += 1
+    return y
 
 
 def mlp_reference(x, shift, scale, gate, gain, w1, w2):

@@ -15,7 +15,7 @@ import torch
 import mapdit_tpu_torch
 from mapdit_tpu_torch.diffusion import create_diffusion
 from mapdit_tpu_torch.models import build_config, init_model
-from mapdit_tpu_torch.ops.cuda import attn_branch, dit_block, dit_block_tp
+from mapdit_tpu_torch.ops.cuda import attn_branch, dit_block, dit_block_tp, mlp_block
 from mapdit_tpu_torch.runtime import build_sample_fn
 
 PKG = pathlib.Path(mapdit_tpu_torch.__file__).parent
@@ -179,12 +179,19 @@ def test_kernel_wrappers_do_not_fall_back_off_cpu():
         lambda: dit_block.fused_dit_stack(xb, r, g1, *stacked, heads),
         lambda: dit_block.fused_dit_block(xb, r, gains, *(w[0] for w in stacked), heads),
     ]
-    before, before_tp = dict(dit_block.LAUNCHES), dict(dit_block_tp.LAUNCHES)
+    # row 9's kernel, alone and as the MLP half-block's route
+    w1, w2 = (torch.empty(*s, dtype=bf, device="meta") for s in ((hid, d), (d, hid)))
+    calls += [
+        lambda: mlp_block.mlp_branch(xb, r, r, r, gain, w1, w2),
+        lambda: mlp_block.fused_mlp_branch(xb, r, r, r, gain, w1, w2),
+    ]
+    before, before_tp, before_mlp = dict(dit_block.LAUNCHES), dict(dit_block_tp.LAUNCHES), dict(mlp_block.LAUNCHES)
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
             call()
     assert dit_block.LAUNCHES == before
     assert dit_block_tp.LAUNCHES == before_tp
+    assert mlp_block.LAUNCHES == before_mlp
 
 
 @pytest.mark.parametrize("tokens, hd, what", [(64, 48, "head widths"), (16, 80, "head widths"), (129, 64, "T <= 128"),
