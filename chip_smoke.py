@@ -197,6 +197,18 @@ Phases, one line each; any failure exits non-zero before the final line:
      launches a rank; then the server's entry point under torchrun (2 ranks,
      --shard true): /info, a request, SIGTERM to the lead worker, every
      process exits 0. Gloo passes through host memory: not NCCL figures;
+ 10d. tensor-parallel training on the same two ranks as a (1, 2) mesh:
+     DiT-XL/2 at full width, 16 global rows, 3 steps a path, the plain path
+     on each rank's shards of the raw weights (the row norm of out-proj and
+     fc2 summed over the ranks): the float32 step held against rank 0's
+     one-card float32 step from the same weights (loss and grad_norm rtol
+     1e-5, every parameter after step 1 at rtol 5e-4 / atol 5e-5 where its
+     gradient settled), the bf16 step with attention_impl pallas
+     (fused_attention on each rank's heads, exact launches) held by
+     check_paths' rule against the float32 one-card step; resident GB a
+     rank, ms a step, all-reduces a step; then the train CLI under torchrun
+     (4 ranks, --n-model 2 --fsdp true --checkpointer torch-sharded, DiT-S/2)
+     with a checkpoint mid-run, resumed on one process in process;
  11. the kernels JSON line, the device line again, and the ok line.
 Phase 3 holds dit_stack (csrc/dit_stack.cu: the one persistent kernel of
 fused_dit_stack and, at depth 1, fused_dit_block) at STACK_SHAPES (the S/2
@@ -344,6 +356,28 @@ DP_XL_RESIDENT_GB = {"dp": 13.49, "fsdp": 6.74}
 # float32 one-card step); FSDP's later steps against DP's on parameters that
 # differ by those sums
 DP_METRIC_RTOL, DP_GRAD_ATOL, DP_PARAM_ATOL, DP_LATER_RTOL = 1e-5, 1e-5, 1e-5, 1e-4
+# phase 10d: tensor-parallel training on the (1, 2) mesh of two ranks sharing
+# the card: DiT-XL/2 at TP_TRAIN_ROWS global rows, TP_TRAIN_STEPS steps a path
+# (float32 plain, bf16 with attention_impl pallas), each against rank 0's
+# one-card step; then the train CLI under torchrun at S/2 on four ranks
+# (--n-model 2 --fsdp true --checkpointer torch-sharded) at TP_CLI_BATCH rows,
+# DP_CLI_STEPS steps with a checkpoint at DP_CLI_CKPT, resumed on one process
+# to DP_CLI_RESUMED
+TP_TRAIN_ROWS, TP_TRAIN_STEPS, TP_CLI_BATCH = 16, 3, 64
+# a rank's resident state (f32 params, two Adam moments, two EMA copies) at
+# tp=2: the replicated 228,457,801 parameters and half of the 12 D^2 of each
+# of 28 blocks (445,906,944), 451,411,273 a rank, x 5 x 4 bytes
+TP_XL_RESIDENT_GB = 9.03
+# JAX tests/test_parallel.py:87: every parameter after step 1 at rtol 5e-4 /
+# atol 5e-5, on the elements whose one-card gradient lies above the float32
+# noise of its sums (DP_GRAD_ATOL of the tensor's largest); every element
+# within TP_LR_BOUND learning rates (Adam's first step is lr * g / (|g| +
+# eps): a gradient within that noise of 0 moves its element up to 2 lr)
+TP_PARAM_RTOL, TP_PARAM_ATOL, TP_METRIC_RTOL, TP_LR_BOUND = 5e-4, 5e-5, 1e-5, 2.1
+# the all-reduces a step counts apart: activation-sized (the partial sums and
+# the input gradients, 16 x 64 x 1152 x 4 bytes at XL/2) and the rest (row
+# norms, grad_norm, the projection, the metrics)
+TP_LARGE_ALL_REDUCE_BYTES = 1 << 20
 # phase 10c: the server on two ranks sharing the card: (2, 1) on phase 8c's
 # copy of run A with buckets MESH_SERVE_BUCKETS (the default protocol held at
 # 4 and 1 rows, the timed loads of MESH_SERVE_LOADS clients), then (1, 2) at
@@ -3055,6 +3089,250 @@ def dp_train_phase(torch, dev, tmp: str) -> dict:
     return reports[0]["s2_counts"]
 
 
+def tp_train_rank(rank, dev, out_dir):
+    """One rank of phase 10d (started by mapdit_tpu_torch.parallel.spawn) on
+    the (1, 2) mesh: DiT-XL/2 at TP_TRAIN_ROWS rows, rank 0's one-card steps
+    first (float32 plain, then bf16 with fused_attention), then the same two
+    on the mesh. Writes its report to ``out_dir``; any failure raises, and
+    then spawn raises in the parent."""
+    import torch
+    import torch.distributed as dist
+
+    from mapdit_tpu_torch.diffusion import create_diffusion
+    from mapdit_tpu_torch.ops.cuda import attention
+    from mapdit_tpu_torch.parallel import make_mesh
+    from mapdit_tpu_torch.parallel.mesh import check_replicated
+    from mapdit_tpu_torch.training import (
+        SyntheticLatentDataset, create_optimizer, create_train_state, make_train_step, warmup_flat_invsqrt,
+    )
+
+    t_rank = time.perf_counter()
+    mesh = make_mesh(1, 2, device=dev)
+    tx = create_optimizer(warmup_flat_invsqrt(1e-2, 100, 1000))
+    diffusion = create_diffusion("", device=dev)
+    ds = SyntheticLatentDataset(num_examples=1024, num_classes=1000, size=16, seed=SEED)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in next(ds.batches(TP_TRAIN_ROWS, seed=SEED)).items()}
+    xl = xl_config()
+    paths = {"f32": xl.replace(compute_dtype="float32", block_kernel="off"),
+             "bf16+pallas": xl.replace(block_kernel="auto", attention_impl="pallas")}
+    sd = xl_state_dict(torch, paths["f32"], dev)
+    report = {"backend": dist.get_backend(mesh.model_group)}
+    sizes = []  # the bytes of each all-reduce, while counted
+    real_all_reduce = dist.all_reduce
+
+    def counted_all_reduce(tensor, *args, **kwargs):
+        sizes.append(tensor.numel() * tensor.element_size())
+        return real_all_reduce(tensor, *args, **kwargs)
+
+    def timed(state, step):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(state, batch)
+        torch.cuda.synchronize()
+        return {k: float(v) for k, v in metrics.items()}, 1e3 * (time.perf_counter() - t0)
+
+    def run(name, on_mesh):
+        """TP_TRAIN_STEPS steps; the first one's metrics, whole gradients and
+        parameters (gathered over the mesh), launches and all-reduces a
+        step."""
+        m = mesh if on_mesh else None
+        cfg = paths[name]
+        state = create_train_state(cfg, tx, seed=SEED, device=dev, state_dict=sd, mesh=m)
+        step = make_train_step(cfg, diffusion, tx, stats_mean=ds.stats["mean"], stats_std=ds.stats["std"], mesh=m)
+        out = {"ms": [], "launches": []}
+        for i in range(TP_TRAIN_STEPS):
+            reset_launch_counts()
+            sizes.clear()
+            metrics, ms = timed(state, step)
+            out["ms"].append(ms)
+            out["launches"].append(dict(launch_counts()))
+            if i == 0:
+                held = {k: t.grad for k, t in state.held.items()}
+                out["metrics"] = metrics
+                out["grads"] = held if not on_mesh else state.dp.gather(held)
+                if name == "f32":  # the parameters after step 1, held against the one-card step
+                    params = dict(state.params) if not on_mesh else state.dp.gather_model(state.params)
+                    out["params"] = {k: v.detach().clone() for k, v in params.items()}
+            out["all_reduces"] = list(sizes)
+        if on_mesh:
+            dp = state.dp
+            opt = sum(t.numel() * t.element_size() for st in state.optimizer.state.values() for t in st.values()
+                      if torch.is_tensor(t) and t.is_cuda)
+            held = sum(t.numel() * t.element_size() for t in dp.held.values())
+            ema = sum(t.numel() * t.element_size() for e in state.ema.values() for t in e.values())
+            out["resident_bytes"], out["held_params"] = held + opt + ema, sum(t.numel() for t in dp.held.values())
+            split = set(dp.tp_split)
+            tree = {k: v.detach() for k, v in state.params.items() if k not in split}
+            tree["generator"] = state.generator.get_state()
+            check_replicated(tree, dev)  # the model group holds the same replicated tensors and draws
+        del state, step
+        torch.cuda.empty_cache()
+        return out
+
+    dist.all_reduce = counted_all_reduce
+    try:
+        one = {}
+        if rank == 0:
+            for name in paths:
+                one[name] = run(name, False)
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats(dev)
+        tp = {name: run(name, True) for name in paths}
+    finally:
+        dist.all_reduce = real_all_reduce
+    report["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    report["tp"] = {name: {k: v for k, v in r.items() if k not in ("grads", "params")} for name, r in tp.items()}
+    want_launches = {"fused_attention": xl.depth}
+    for i, counts in enumerate(tp["bf16+pallas"]["launches"]):
+        check_counts(f"tp-train/bf16+pallas/rank{rank}/step{i + 1}", counts, want_launches)
+    for i, counts in enumerate(tp["f32"]["launches"]):
+        check_counts(f"tp-train/f32/rank{rank}/step{i + 1}", counts, {})
+    if rank == 0:
+        a, b = tp["f32"], one["f32"]
+        err = {"metrics": max(abs(a["metrics"][k] - v) / abs(v) for k, v in b["metrics"].items()),
+               "params_settled": 0.0, "params_lr": 0.0, "settled_share": 0.0}
+        lr0 = tx.lr_schedule(0)
+        settled_n = total_n = 0
+        for k, g in b["grads"].items():
+            settled = g.abs() > DP_GRAD_ATOL * float(g.abs().max()) + 1e-7
+            diff = (a["params"][k] - b["params"][k]).abs()
+            over = diff > TP_PARAM_ATOL + TP_PARAM_RTOL * b["params"][k].abs()
+            if bool((over & settled).any()):
+                raise AssertionError(f"tp-train/f32: {k} after step 1 off the one-card step at rtol {TP_PARAM_RTOL} / "
+                                     f"atol {TP_PARAM_ATOL}: max abs err {float(diff[settled].max())}")
+            if bool(settled.any()):
+                err["params_settled"] = max(err["params_settled"], float(diff[settled].max()))
+            err["params_lr"] = max(err["params_lr"], float(diff.max()) / lr0)
+            settled_n, total_n = settled_n + int(settled.sum()), total_n + g.numel()
+        err["settled_share"] = settled_n / total_n
+        report["f32_vs_one_card"] = err
+        if err["metrics"] > TP_METRIC_RTOL or err["params_lr"] > TP_LR_BOUND:
+            raise AssertionError(f"tp-train/f32: the 2-rank float32 step leaves the one-card step: {err}")
+
+        def flat(r):
+            return torch.tensor([r["metrics"]["loss"]]), torch.cat([g.reshape(-1) for g in r["grads"].values()])
+
+        (loss_f32, grads_f32), (loss_one, grads_one) = flat(one["f32"]), flat(one["bf16+pallas"])
+        loss_tp, grads_tp = flat(tp["bf16+pallas"])
+        limit = {"loss": max(2 * rel_l2(loss_one, loss_f32), 1e-2), "grads": max(2 * rel_l2(grads_one, grads_f32), 1e-2)}
+        got = {"loss": rel_l2(loss_tp, loss_f32), "grads": rel_l2(grads_tp, grads_f32)}
+        report["bf16_vs_f32"] = {"tp": got, "one_card": {"loss": rel_l2(loss_one, loss_f32),
+                                                        "grads": rel_l2(grads_one, grads_f32)}, "limit": limit}
+        if any(got[k] > limit[k] for k in got):
+            raise AssertionError(f"tp-train/bf16+pallas: the 2-rank step {got} off the float32 step beyond {limit}")
+        report["one_card"] = {name: {"ms": r["ms"], "loss": r["metrics"]["loss"],
+                                     "grad_norm": r["metrics"]["grad_norm"]} for name, r in one.items()}
+    report["seconds"] = time.perf_counter() - t_rank
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def tp_train_phase(torch, dev, tmp: str) -> dict:
+    """Phase 10d: tensor-parallel training on two ranks sharing the card
+    (see tp_train_rank), then the train CLI under torchrun on four ranks
+    (--n-model 2 --fsdp true --checkpointer torch-sharded) at S/2 with
+    attention_impl pallas, a checkpoint mid-run, resumed on one process in
+    process. Returns the launch counts of the one-process resume."""
+    from mapdit_tpu_torch import train
+    from mapdit_tpu_torch.models import build_config
+    from mapdit_tpu_torch.parallel import spawn
+
+    card = smi_line()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mapdit_smoke_tp_train_") as out:
+        t0 = time.perf_counter()
+        spawn(tp_train_rank, 2, args=(out,))
+        seconds = time.perf_counter() - t0
+        reports = []
+        for r in range(2):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                reports.append(json.load(f))
+    lead = reports[0]
+    err, kern = lead["f32_vs_one_card"], lead["bf16_vs_f32"]
+    phase("tp-train", model=XL_MODEL, mesh="(1,2)", rows=TP_TRAIN_ROWS, path="f32 plain", vs="one card f32",
+          metrics_rel_err=f"{err['metrics']:.3e}", params_settled_max_abs_err=f"{err['params_settled']:.3e}",
+          params_max_err_in_lr=f"{err['params_lr']:.3e}", settled_share=f"{err['settled_share']:.6f}",
+          tol=f"metrics rtol {TP_METRIC_RTOL:g}, params rtol {TP_PARAM_RTOL:g} atol {TP_PARAM_ATOL:g} settled, "
+              f"{TP_LR_BOUND:g} lr everywhere", card=json.dumps(card))
+    phase("tp-train", model=XL_MODEL, mesh="(1,2)", rows=TP_TRAIN_ROWS, path="bf16+pallas (fused_attention)",
+          vs="one card f32", rel_l2_loss=f"{kern['tp']['loss']:.3e}", rel_l2_grads=f"{kern['tp']['grads']:.3e}",
+          one_card_rel_l2_loss=f"{kern['one_card']['loss']:.3e}",
+          one_card_rel_l2_grads=f"{kern['one_card']['grads']:.3e}",
+          tol=json.dumps({k: float(f"{v:.3e}") for k, v in kern["limit"].items()}), card=json.dumps(card))
+    for name, row in lead["one_card"].items():
+        phase("tp-train", model=XL_MODEL, layout="one card", path=name, rows=TP_TRAIN_ROWS,
+              ms_per_step=json.dumps([round(v, 4) for v in row["ms"]]), loss=f"{row['loss']:.6f}",
+              grad_norm=f"{row['grad_norm']:.6f}", card=json.dumps(card))
+    for r, rep in enumerate(reports):
+        for name, row in rep["tp"].items():
+            large = [b for b in row["all_reduces"] if b >= TP_LARGE_ALL_REDUCE_BYTES]
+            phase("tp-train", rank=r, model=XL_MODEL, mesh="(1,2)", backend=rep["backend"], path=name,
+                  rows=TP_TRAIN_ROWS, ms_per_step=json.dumps([round(v, 4) for v in row["ms"]]),
+                  loss=f"{row['metrics']['loss']:.6f}", grad_norm=f"{row['metrics']['grad_norm']:.6f}",
+                  all_reduces_a_step=len(row["all_reduces"]), activation_all_reduces_a_step=len(large),
+                  activation_all_reduce_bytes=json.dumps(sorted(set(large))),
+                  other_all_reduce_bytes=sum(row["all_reduces"]) - sum(large),
+                  fused_attention_a_step=json.dumps([c["fused_attention"] for c in row["launches"]]),
+                  resident_state_gb=f"{row['resident_bytes'] / 1e9:.3f}", held_params=row["held_params"],
+                  predicted_resident_gb=TP_XL_RESIDENT_GB, card=json.dumps(card))
+        phase("tp-train", rank=r, max_memory_allocated_gb=f"{rep['peak_bytes'] / 1e9:.3f}",
+              rank_seconds=f"{rep['seconds']:.2f}", replicas_identical=True)
+    phase("tp-train", check="f32 vs one card, bf16+pallas vs f32, launches, replicas", ok=True,
+          seconds_with_spawn=f"{seconds:.2f}")
+
+    # the CLI under torchrun: four ranks on the one card, a (2, 2) mesh
+    repo = os.path.dirname(os.path.abspath(__file__))
+    results = os.path.join(tmp, "tp_cli")
+    flags = ["--model", MODEL, "--data-path", "synthetic:1024", "--results-dir", results, "--batch-size",
+             str(TP_CLI_BATCH), "--compute-dtype", "bfloat16", "--attention-impl", "pallas", "--num-classes", "1000",
+             "--log-every", "1", "--metrics-jsonl", "auto", "--num-lin-warmup", "4", "--start-decay", "10",
+             "--ckpt-every", str(DP_CLI_CKPT), "--ema-snapshot-every", str(DP_CLI_CKPT)]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "4",
+                           "-m", "mapdit_tpu_torch.train", *flags, "--num-steps", str(DP_CLI_STEPS), "--n-model", "2",
+                           "--fsdp", "true", "--checkpointer", "torch-sharded"],
+                          cwd=repo, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"tp-cli: torchrun exited {proc.returncode}\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    (exp,) = [os.path.join(results, d) for d in os.listdir(results)]
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    shards = os.path.join(exp, "checkpoints", f"{DP_CLI_CKPT:07d}.shards")
+    files = sorted(os.listdir(shards))
+    snaps = sorted(os.listdir(os.path.join(exp, "ema")))
+    log = open(os.path.join(exp, "log.txt")).read()
+    rate = (rows[-1]["step"] - rows[1]["step"]) / (rows[-1]["wall_time"] - rows[1]["wall_time"])
+    phase("tp-cli", run="torchrun", ranks=4, mesh="(2,2)", fsdp=True, checkpointer="torch-sharded", steps=DP_CLI_STEPS,
+          batch=TP_CLI_BATCH, seconds=f"{seconds:.2f}", steps_per_s=f"{rate:.3f}",
+          losses=json.dumps([r["loss"] for r in rows]), shards=json.dumps(files), ema=json.dumps(snaps),
+          card=json.dumps(card))
+    if ("devices: 4x" not in log or "mesh data=2 model=2" not in log or len(rows) != DP_CLI_STEPS
+            or files != ["index.pt", "rank00000.pt", "rank00001.pt"] or not all(math.isfinite(r["loss"]) for r in rows)
+            or snaps != [f"{std}_{DP_CLI_CKPT:07d}.npz" for std in ("0.050", "0.100")]):
+        raise AssertionError(f"tp-cli: artifacts of {exp}: shards {files}, ema {snaps}, rows {len(rows)}")
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    exp_b = train.main(train.build_parser().parse_args(
+        [*flags, "--num-steps", str(DP_CLI_RESUMED), "--resume", shards]))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    with open(os.path.join(exp_b, "metrics.jsonl")) as f:
+        rows_b = [json.loads(line) for line in f]
+    resumed = f"resumed from {shards} at step {DP_CLI_CKPT}" in open(os.path.join(exp_b, "log.txt")).read()
+    depth = build_config(MODEL).depth
+    check_counts("tp-cli/resume", counts, {"fused_attention": depth * (DP_CLI_RESUMED - DP_CLI_CKPT)})
+    phase("tp-cli", run="resume on one process", resumed_from_shards=resumed,
+          steps=json.dumps([r["step"] for r in rows_b]), losses=json.dumps([r["loss"] for r in rows_b]),
+          launches=json.dumps({k: v for k, v in counts.items() if v}))
+    if not resumed or [r["step"] for r in rows_b] != list(range(DP_CLI_CKPT + 1, DP_CLI_RESUMED + 1)) or not all(
+            math.isfinite(r["loss"]) for r in rows_b):
+        raise AssertionError(f"tp-cli: the one-process resume of {shards}: {rows_b}")
+    phase("tp-train", phase_seconds=f"{time.perf_counter() - t_phase:.2f}")
+    return counts
+
+
 def mesh_serve_expect(key, depth: int, layout: str) -> dict:
     """The launches one rank makes for one batch of program ``key`` (the
     server's program key) on phase 10c's servers: one dit_stack launch a
@@ -4883,6 +5161,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         family_launches.update(mesh_serve_phase(torch, dev, exp_a, tmp))
         elapsed("10c")
+        # 10d. tensor-parallel training on the two ranks, and the train CLI
+        # under torchrun on a (2, 2) mesh
+        torch.cuda.empty_cache()
+        tp_train_phase(torch, dev, tmp)
+        elapsed("10d")
 
     # 11. report
     kernels = []

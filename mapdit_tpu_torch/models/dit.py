@@ -119,18 +119,18 @@ class DiT(nn.Module):
     def load_tensor_parallel(self, state_dict, mesh) -> None:
         """Load one rank's ``parallel.shard_state_dict``: each tensor split
         over the model axis replaces its full-size parameter (so the rank
-        holds only its shard). Under a TP island (``mega_attn_tp``,
-        ``mega_tp``) every block runs its island over ``mesh``; otherwise
-        the blocks run the plain path (``block_kernel="off"``) on the plain
-        layout: each split attention or MLP half sums its row-parallel
-        partials over the mesh's model group
-        (``layers.MPLinear.row_parallel``)."""
+        holds only its shard; it keeps the full-size one's
+        ``requires_grad``). Under a TP island (``mega_attn_tp``,
+        ``mega_tp``; folded weights) every block runs its island over
+        ``mesh``; otherwise the blocks run the plain path
+        (``block_kernel="off"``) on the plain layout, raw or folded: each
+        split attention or MLP half sums its row-parallel partials over the
+        mesh's model group (``layers.MPLinear.row_parallel``), under
+        autograd too. Under ``scan_blocks`` the stacked block takes the
+        group and its (depth, out, in) stacks are split one axis later;
+        ``_call_at_depth`` views them a depth at a time."""
         from mapdit_tpu_torch.parallel.mesh import plain_tp_splits
 
-        if self.cfg.scan_blocks:
-            raise NotImplementedError(
-                "tensor parallelism on the scan_blocks layout is the ROADMAP item 'Multi-GPU layouts, the rest'"
-            )
         plain = self.cfg.block_kernel not in TP_KERNELS
         if plain and self.cfg.block_kernel != "off":
             raise ValueError(
@@ -142,10 +142,10 @@ class DiT(nn.Module):
             module = self.get_submodule(module_name)
             param = getattr(module, attr)
             if isinstance(param, nn.Parameter) and param.shape != value.shape:
-                setattr(module, attr, nn.Parameter(param.new_empty(value.shape), requires_grad=False))
+                setattr(module, attr, nn.Parameter(param.new_empty(value.shape), requires_grad=param.requires_grad))
         self.load_state_dict(state_dict)
         attn_split, mlp_split = plain_tp_splits(self.cfg, mesh.n_model)
-        for block in self.blocks:
+        for block in [self.blocks] if self.cfg.scan_blocks else self.blocks:
             block.mesh = mesh
             if plain:
                 block.attn.tp_group = mesh.model_group if attn_split else None

@@ -7,6 +7,22 @@ unless the weights are folded (``cfg.fold_weights``, see
 vanilla DiT's: a standard linear with bias and xavier-uniform init, plain
 SiLU, attention without the q/k normalization. Parameters are created
 empty; ``reset_parameters(generator)`` draws them.
+
+Tensor parallelism of the plain path (``DiT.load_tensor_parallel``): the
+attention and MLP halves hold a model rank's shard of their weights and
+run three small autograd functions over the model group, the collectives
+that GSPMD inserts into the JAX package's program:
+
+  * :func:`copy_to_model_ranks`, the entry of a column-parallel product
+    (qkv, fc1): the identity forward, an all-reduce of dx backward (every
+    rank's product sees only its own rows);
+  * :func:`sum_partials`, the exit of a row-parallel product (out-proj,
+    fc2): the f32 partials summed forward; the identity backward (every
+    rank computes the same thing downstream and holds the whole dy);
+  * :func:`split_row_normalize`, the weight normalization of a column
+    slice: each row's sum of squares is summed over the group forward (and
+    its gradient backward), then ``normalize`` divides by the whole row's
+    norm at the full fan-in.
 """
 
 from __future__ import annotations
@@ -22,6 +38,59 @@ from torch import nn
 from mapdit_tpu_torch.models.config import DiTConfig
 from mapdit_tpu_torch.ops.attention import dot_product_attention
 from mapdit_tpu_torch.ops.mp import mp_silu, normalize
+
+
+class _CopyToModelRanks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _SumOverModelRanks(torch.autograd.Function):
+    """All-reduce forward; ``reduce_grad``: all-reduce backward too, else
+    the identity."""
+
+    @staticmethod
+    def forward(ctx, x, group, reduce_grad):
+        ctx.group, ctx.reduce_grad = group, reduce_grad
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.reduce_grad:
+            g = g.clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(g, group=ctx.group)
+        return g, None, None
+
+
+def copy_to_model_ranks(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as it is; its gradient summed over ``group`` (the input of a
+    column-parallel product)."""
+    return _CopyToModelRanks.apply(x, group)
+
+
+def sum_partials(partial: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` of every rank's ``partial``; the gradient
+    passes through as it is (the output of a row-parallel product)."""
+    return _SumOverModelRanks.apply(partial, group, False)
+
+
+def split_row_normalize(w: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """``normalize`` of the rows of a weight whose input columns are split
+    over ``group``: ``w`` is this rank's slice, ``dim`` the whole row
+    length. Each row's sum of squares is summed over the group (and so is
+    its gradient: every rank's slice uses the shared sum)."""
+    sq = _SumOverModelRanks.apply(w.square().sum(dim=-1, keepdim=True), group, True)
+    return normalize(w, norm=sq.sqrt(), dim=dim)
 
 
 class MPSiLU(nn.Module):
@@ -82,13 +151,19 @@ class MPLinear(nn.Module):
         assert self.use_wn and not self.learn_gain
         return self.weight if self.folded else normalize(self.weight)
 
-    def product(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
-        """``x`` against the weight (``bias=False``: without the bias)."""
+    def product(self, x: torch.Tensor, bias: bool = True, group=None) -> torch.Tensor:
+        """``x`` against the weight (``bias=False``: without the bias).
+        ``group``: the weight is this rank's slice of input columns split
+        over the group, whose unfolded rows :func:`split_row_normalize`
+        normalizes."""
         dt = self.dtype
         if not self.use_wn:
             y = x.to(dt) @ self.weight.t().to(dt)
             return y + self.bias.to(dt) if bias else y
-        w = self.weight if self.folded else normalize(self.weight)
+        if self.folded:
+            w = self.weight
+        else:
+            w = normalize(self.weight) if group is None else split_row_normalize(self.weight, group, self.in_dim)
         gain = self.gain if self.learn_gain else 1.0
         return x.to(dt) @ (w * (gain / math.sqrt(self.in_dim))).t().to(dt)
 
@@ -101,15 +176,13 @@ class MPLinear(nn.Module):
         partial product on its slice ``x`` of the input, summed over the
         group in float32, rounded to the compute type, then the bias once.
         ``in_dim`` stays the full fan-in, so the MP scale is the unsplit
-        one; the weights must be folded (a slice's rows cannot be
-        normalized alone). Inference only."""
-        if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad):
-            raise RuntimeError(
-                "row_parallel is inference-only (tensor parallelism of the plain path has no VJP, as the islands "
-                "have none); run it under torch.no_grad()"
-            )
-        partial = self.product(x, bias=False).float()
-        dist.all_reduce(partial, group=group)
+        one. Under autograd the sum is :func:`sum_partials`; with gradients
+        off, an all-reduce in place and no graph."""
+        partial = self.product(x, bias=False, group=group).float()
+        if torch.is_grad_enabled() and partial.requires_grad:
+            partial = sum_partials(partial, group)
+        else:
+            dist.all_reduce(partial, group=group)
         y = partial.to(self.dtype)
         return y if self.use_wn else y + self.bias.to(self.dtype)
 
@@ -158,7 +231,8 @@ class Attention(nn.Module):
     ``DiT.load_tensor_parallel``) the rank holds the qkv rows of a block of
     whole heads and the matching input columns of the out-projection: it
     attends over its heads and the out-projection's partials are summed over
-    the group (:meth:`MPLinear.row_parallel`)."""
+    the group (:meth:`MPLinear.row_parallel`); under autograd the input
+    enters through :func:`copy_to_model_ranks`."""
 
     def __init__(self, cfg: DiTConfig, in_dim: int):
         super().__init__()
@@ -172,6 +246,8 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, _ = x.shape
         hd = self.head_dim
+        if self.tp_group is not None and torch.is_grad_enabled():
+            x = copy_to_model_ranks(x, self.tp_group)
         q, k, v = self.qkv_proj.product(x).chunk(3, dim=-1)
         h = q.shape[-1] // hd  # this rank's heads
 
@@ -190,7 +266,8 @@ class MLP(nn.Module):
     parameter names are the reference's ``net.0`` / ``net.2``. Under tensor
     parallelism (``tp_group`` set) the rank holds a block of fc1's rows and
     the matching input columns of fc2, whose partials are summed over the
-    group."""
+    group; under autograd the input enters through
+    :func:`copy_to_model_ranks`."""
 
     def __init__(self, cfg: DiTConfig, in_dim: int, out_dim: int, hidden_dim: Optional[int] = None):
         super().__init__()
@@ -210,6 +287,8 @@ class MLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.tp_group is None:
             return self.net(x)
+        if torch.is_grad_enabled():
+            x = copy_to_model_ranks(x, self.tp_group)
         return self.fc2.row_parallel(self.net[1](self.fc1(x)), self.tp_group)
 
     def fused_branch(self, x, shift, scale, gate, gain) -> torch.Tensor:

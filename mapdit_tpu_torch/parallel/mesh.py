@@ -1,6 +1,7 @@
 """A ('data', 'model') grid of ranks over torch.distributed, the weight
-layout of the tensor-parallel (TP) sampling islands, and the fully-sharded
-(FSDP) layout of training over the data axis.
+layouts of tensor parallelism (TP: the sampling islands, and the plain path
+that samples and trains), and the fully-sharded (FSDP) layout of training
+over the data axis.
 
 Port of ``mapdit_tpu/parallel/mesh.py``. The JAX
 package lays its devices out as a (n_data, n_model) ``jax.sharding.Mesh``;
@@ -9,12 +10,14 @@ rank = data_index * n_model + model_index.
 
   * **data**: the batch is split; a rank's data group holds the ranks with
     its model index, and the sampling runtime all-gathers its rows over it.
-  * **model**: the weights of each block are split; a rank's model group
-    holds the ranks with its data index, and the islands all-reduce their
-    partial branch outputs over it.
+  * **model**: the weights of each block are split (:func:`tp_layout`,
+    :func:`shard_state_dict`); a rank's model group holds the ranks with
+    its data index, and the islands and the plain path all-reduce their
+    partial branch outputs over it (the plain path's gradients too).
   * **fsdp** (:func:`fsdp_layout`): training's parameters, Adam moments and
-    EMA copies sharded (ZeRO-3) over the data axis; the data axis plays both
-    roles, as in the JAX package.
+    EMA copies sharded (ZeRO-3) over the data axis, on the free dim of a
+    TP-split matrix; the data axis plays both roles, as in the JAX
+    package.
 
 Backend: NCCL when every rank has a card of its own, gloo when ranks share
 a card (NCCL refuses two ranks on one device) or run on the CPU. The choice
@@ -30,7 +33,7 @@ import dataclasses
 import datetime
 import os
 import tempfile
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -172,9 +175,10 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, device=None) -> Me
 def mean_all_reduce_(tensors, group) -> None:
     """Replace each tensor of ``tensors`` (one dtype and device) by its mean
     over the ranks of ``group``, in place, with one all-reduce of a flat
-    buffer."""
+    buffer (none over a group of one rank, the data group of a mesh that is
+    all model axis)."""
     tensors = list(tensors)
-    if not tensors:
+    if not tensors or dist.get_world_size(group) == 1:
         return
     flat = torch.cat([t.reshape(-1) for t in tensors])
     dist.all_reduce(flat, group=group)
@@ -225,7 +229,8 @@ def check_replicated(state_dict: Dict[str, torch.Tensor], device) -> None:
 # the FSDP layout of training
 
 
-def fsdp_layout(named_params: Dict[str, torch.Tensor], mesh: Mesh) -> Dict[str, Optional[int]]:
+def fsdp_layout(named_params: Dict[str, torch.Tensor], mesh: Mesh,
+                tp_dims: Optional[Dict[str, Optional[int]]] = None) -> Dict[str, Optional[int]]:
     """The dim of each parameter that FSDP shards over the data ranks, or
     None where it stays replicated: the data-axis rule of JAX
     ``param_sharding(..., fsdp=True)`` (``mapdit_tpu/parallel/mesh.py:61-122``).
@@ -234,12 +239,15 @@ def fsdp_layout(named_params: Dict[str, torch.Tensor], mesh: Mesh) -> Dict[str, 
         ``scan_blocks``: the same rule one axis later) shards its out-rows,
         where the forced weight normalization stays shard-local, and falls
         back to its in-columns;
+      * a matrix that the model axis splits (``tp_dims``, name -> the dim it
+        splits, :func:`tp_layout`) takes the data axis on its free dim;
       * a dim that the data size does not divide is never sharded;
       * gather-indexed tables (``*.embedding.weight``), everything under
         ``t_embedder``, gains, biases and other tensors stay replicated.
 
     Applied by parameter name, the same rule lays out the Adam moments and
     the EMA copies."""
+    tp_dims = tp_dims or {}
     out = {}
     for name, p in named_params.items():
         names = name.split(".")
@@ -249,7 +257,8 @@ def fsdp_layout(named_params: Dict[str, torch.Tensor], mesh: Mesh) -> Dict[str, 
         if (len(names) >= 2 and names[-2] == "embedding") or "t_embedder" in names:
             continue
         off = p.ndim - 2
-        out[name] = next((dim for dim in (off, off + 1) if p.shape[dim] % mesh.n_data == 0), None)
+        free = [dim for dim in (off, off + 1) if dim != tp_dims.get(name)]
+        out[name] = next((dim for dim in free if p.shape[dim] % mesh.n_data == 0), None)
     return out
 
 
@@ -267,15 +276,29 @@ def plain_tp_splits(cfg, tp: int):
     return cfg.num_heads % tp == 0, int(cfg.hidden_size * cfg.mlp_ratio) % tp == 0
 
 
+def _block_module(name: str):
+    """(module path inside a block, attribute, axis offset) of a block
+    tensor: ``blocks.{i}.<module>.<attr>`` (offset 0) or, in the
+    ``scan_blocks`` layout, ``blocks.<module>.<attr>`` stacked on a leading
+    depth axis (offset 1); None for any other tensor."""
+    parts = name.split(".")
+    if len(parts) < 3 or parts[0] != "blocks":
+        return None
+    stacked = not parts[1].isdigit()
+    inner = parts[1:-1] if stacked else parts[2:-1]
+    return ".".join(inner), parts[-1], int(stacked)
+
+
 def _tp_split(name: str, kernel: str, splits=(True, True)) -> Optional[str]:
     """How a block tensor splits over the model axis: "qkv" (viewed
     (3, D, ...), split on axis 1), "rows" or "cols"; None: replicated.
     ``splits`` is the plain layout's (attention, MLP) of
-    :func:`plain_tp_splits`."""
-    parts = name.split(".")
-    if len(parts) < 3 or parts[0] != "blocks" or parts[-1] not in ("weight", "bias"):
+    :func:`plain_tp_splits`. A ``scan_blocks`` tensor splits the same way,
+    one axis later (:func:`_block_module`)."""
+    where = _block_module(name)
+    if where is None or where[1] not in ("weight", "bias"):
         return None
-    module, attr = ".".join(parts[2:-1]), parts[-1]
+    module, attr, _ = where
     if kernel == PLAIN_TP:
         attn, mlp = splits
         split = {
@@ -300,26 +323,61 @@ def _tp_split(name: str, kernel: str, splits=(True, True)) -> Optional[str]:
     return None
 
 
-def shard_tensor(value: torch.Tensor, split: str, tp: int, index: int) -> torch.Tensor:
+def tp_layout(names, cfg, tp: int, kernel: str = PLAIN_TP) -> Dict[str, Optional[Tuple[str, int]]]:
+    """(split, axis offset) of each tensor name over ``tp`` model ranks
+    (:func:`_tp_split`; offset 1 for a ``scan_blocks`` stack), None where
+    it is replicated. Everything is replicated on a model axis of 1."""
+    splits = plain_tp_splits(cfg, tp)
+    out = {}
+    for name in names:
+        split = _tp_split(name, kernel, splits) if tp > 1 else None
+        out[name] = None if split is None else (split, _block_module(name)[2])
+    return out
+
+
+def tp_dim(where: Optional[Tuple[str, int]]) -> Optional[int]:
+    """The dim of the whole tensor that a :func:`tp_layout` entry splits."""
+    if where is None:
+        return None
+    split, off = where
+    return off + 1 if split == "cols" else off
+
+
+def shard_tensor(value: torch.Tensor, split: str, tp: int, index: int, off: int = 0) -> torch.Tensor:
     """Shard ``index`` of ``tp`` of one weight or bias by ``split`` (see
-    _tp_split), as a tensor of its own."""
+    _tp_split), as a tensor of its own; ``off`` leading axes (the depth axis
+    of a ``scan_blocks`` stack) stay whole."""
+    lead = value.shape[:off]
     if split == "qkv":
-        rows = value.shape[0] // 3
+        rows = value.shape[off] // 3
         d_l = rows // tp
-        three = value.reshape(3, rows, *value.shape[1:])
-        return three[:, index * d_l : (index + 1) * d_l].reshape(3 * d_l, *value.shape[1:]).clone()
-    if split == "rows":
-        rows = value.shape[0] // tp
-        return value[index * rows : (index + 1) * rows].clone()
-    cols = value.shape[1] // tp
-    return value[:, index * cols : (index + 1) * cols].clone()
+        three = value.reshape(*lead, 3, rows, *value.shape[off + 1 :])
+        part = three.narrow(off + 1, index * d_l, d_l)
+        return part.reshape(*lead, 3 * d_l, *value.shape[off + 1 :]).clone()
+    dim = off if split == "rows" else off + 1
+    size = value.shape[dim] // tp
+    return value.narrow(dim, index * size, size).clone()
 
 
-def shard_state_dict(folded_sd: Dict[str, torch.Tensor], cfg, mesh: Mesh, kernel: str) -> Dict[str, torch.Tensor]:
-    """This rank's tensors of the tensor-parallel layout ``kernel`` over a
-    folded state dict: an island (``blocks.py:395-398, 468-471`` of the JAX
-    package) or the plain path (``PLAIN_TP``, the twin of JAX
-    ``param_sharding``'s model axis, ``mapdit_tpu/parallel/mesh.py:61-119``):
+def unshard_tensor(parts, split: str, off: int = 0) -> torch.Tensor:
+    """The inverse of :func:`shard_tensor`: the whole tensor from every
+    rank's shard, in model-rank order. Dims other than the split one may be
+    sliced (an FSDP slice), as long as every part is sliced alike."""
+    if split == "qkv":
+        like = parts[0]
+        lead, d_l = like.shape[:off], like.shape[off] // 3
+        views = [p.reshape(*lead, 3, d_l, *like.shape[off + 1 :]) for p in parts]
+        whole = torch.cat(views, dim=off + 1)
+        return whole.reshape(*lead, 3 * d_l * len(parts), *like.shape[off + 1 :])
+    return torch.cat(list(parts), dim=off if split == "rows" else off + 1)
+
+
+def shard_state_dict(state_dict: Dict[str, torch.Tensor], cfg, mesh: Mesh, kernel: str) -> Dict[str, torch.Tensor]:
+    """This rank's tensors of the tensor-parallel layout ``kernel``: an
+    island (``blocks.py:395-398, 468-471`` of the JAX package) over a
+    folded state dict, or the plain path (``PLAIN_TP``, the twin of JAX
+    ``param_sharding``'s model axis, ``mapdit_tpu/parallel/mesh.py:61-119``)
+    over folded or raw weights:
 
       * qkv (3D, D) is viewed (3, D, D) and split on axis 1, so each rank
         holds the same whole heads of q, k and v, stacked (3*D_l, D);
@@ -330,24 +388,27 @@ def shard_state_dict(folded_sd: Dict[str, torch.Tensor], cfg, mesh: Mesh, kernel
         family has biases) is split with its rows; a row-parallel bias
         (out-proj, fc2) stays whole and is added once, after the sum;
         a half whose heads (hidden width) do not divide stays whole;
+      * the 3-D stacks of ``scan_blocks`` split the same way, one axis
+        later;
       * everything else is replicated.
 
-    Shard after folding: ``normalize`` divides each row by its norm over the
-    full input width, so a column slice of out-proj or fc2 must never be
-    normalized again. (Without weight normalization there is nothing to
-    fold.)"""
+    The islands take folded weights, sharded after folding. The plain path
+    also takes raw weight-normalized ones: a column slice of out-proj or fc2
+    is then normalized by its whole rows' norm, whose squares the model
+    ranks sum (``layers.MPLinear.product`` with a group), and a folded one
+    is never normalized again."""
     if kernel not in (*TP_KERNELS, PLAIN_TP):
         raise ValueError(f"shard_state_dict shards for {TP_KERNELS} and the plain path {PLAIN_TP!r}, got {kernel!r}")
-    if cfg.use_weight_normalization and not cfg.fold_weights:
-        raise ValueError("tensor parallelism takes folded weights: fold the full state dict, then shard it")
+    if kernel != PLAIN_TP and cfg.use_weight_normalization and not cfg.fold_weights:
+        raise ValueError(f"{kernel} takes folded weights: fold the full state dict, then shard it")
     tp, index = mesh.n_model, mesh.model_index
-    splits = plain_tp_splits(cfg, tp)
     if kernel != PLAIN_TP:
         hidden = int(cfg.hidden_size * cfg.mlp_ratio)
         if cfg.num_heads % tp or (kernel == "mega_tp" and hidden % tp):
             raise ValueError(f"{cfg.num_heads} heads and hidden width {hidden} do not split over {tp} model ranks")
+    layout = tp_layout(state_dict, cfg, tp, kernel)
     out = {}
-    for name, value in folded_sd.items():
-        split = _tp_split(name, kernel, splits)
-        out[name] = value if split is None else shard_tensor(value, split, tp, index)
+    for name, value in state_dict.items():
+        where = layout[name]
+        out[name] = value if where is None else shard_tensor(value, where[0], tp, index, where[1])
     return out

@@ -405,9 +405,11 @@ def build_sample_fn(
     MLP lanes, the row-parallel partials summed over the model group (the
     attention by ``attention_impl``, so ``fused_attention`` on the card
     where it is named); ``off``, ``mega_attn_tp`` and ``mega_tp`` may be
-    named. Single-device kernels, ``fold=False`` on weight-normalized
-    weights and the ``scan_blocks`` layout are refused there (the last two
-    name the ROADMAP item "Multi-GPU layouts, the rest"). A data-only mesh
+    named. Single-device kernels are refused there. The plain path takes
+    ``fold=False`` on weight-normalized weights (a column slice of out-proj
+    or fc2 is normalized by its whole rows' norm, summed over the model
+    group) and the ``scan_blocks`` layout (the 3-D stacks split one axis
+    later); the islands take folded weights. A data-only mesh
     runs any kernel on full weights. The
     data axis splits the pre-CFG batch, each rank keeping matching cond and
     null rows; each rank draws the step noise at the global shape and keeps
@@ -858,12 +860,9 @@ def _mesh_config(cfg: DiTConfig, fold: bool, mesh, device) -> DiTConfig:
     model axis ``auto`` resolves through ``resolve_block_kernel_tp``: to a
     TP island where one applies, else to ``off``, the plain path on the
     plain layout (``parallel.mesh.shard_state_dict``), which runs every
-    family and flag set, as GSPMD runs JAX's."""
+    family and flag set, as GSPMD runs JAX's, on folded or raw weights and
+    in either block layout."""
     tp = mesh.n_model
-    if tp > 1 and cfg.scan_blocks:
-        raise NotImplementedError(
-            "tensor parallelism on the scan_blocks layout is the ROADMAP item 'Multi-GPU layouts, the rest'"
-        )
     if tp == 1:
         if cfg.block_kernel in TP_KERNELS:
             raise ValueError(f"block_kernel={cfg.block_kernel!r} needs a model axis of 2 or more ranks")
@@ -874,14 +873,11 @@ def _mesh_config(cfg: DiTConfig, fold: bool, mesh, device) -> DiTConfig:
             f"axis; use 'auto' (resolves to mega_tp, mega_attn_tp or the plain path), 'off', 'mega_attn_tp' or "
             f"'mega_tp'"
         )
-    if cfg.use_weight_normalization and not fold:
-        raise ValueError(
-            f"tensor parallelism of unfolded weight-normalized weights (fold=False on {tp} model ranks) needs a row "
-            "norm that spans the ranks (out-proj and fc2 are split on their input columns): TP training's cross-rank "
-            "norm, the ROADMAP item 'Multi-GPU layouts, the rest'; build with fold=True"
-        )
     kernel = resolve_block_kernel_tp(cfg, fold and cfg.use_weight_normalization, tp, device)
     if kernel in TP_KERNELS:
+        if cfg.use_weight_normalization and not fold:
+            raise ValueError(f"{kernel} takes folded weights (fold=True); the plain path ('auto' or 'off') takes "
+                             "unfolded ones")
         if not kernel_family_ok(cfg):
             raise ValueError(
                 f"{kernel} hard-codes the MP + adaln + cosine-attention family, got flags {cfg.flags_dict()}; "

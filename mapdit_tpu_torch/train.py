@@ -15,32 +15,36 @@ The host shuffles indices and stages (mean, std, label) slices.
 
 Under ``torchrun`` (``WORLD_SIZE`` > 1, or ``--multihost true``) the ranks
 join one process group (one process a device; ``parallel/mesh.py``) and
-train data-parallel over a (world, 1) mesh, or fully sharded with ``--fsdp
-true``: ``--batch-size`` is the global batch, each rank's loader feeds its
-slice of it, and the train step averages the gradients over the ranks. The
-lead (rank 0) creates the experiment directory, whose path every rank
+train on a (world / n_model, n_model) mesh: data-parallel, or fully sharded
+with ``--fsdp true``, and with ``--n-model M > 1`` tensor-parallel as well
+(the plain path on each rank's shards; ``training/state.py``):
+``--batch-size`` is the global batch, each data rank's loader feeds its
+slice of it, and the train step averages the gradients over the data ranks.
+The lead (rank 0) creates the experiment directory, whose path every rank
 receives, and alone logs and writes config.yaml, constants.pt, the metrics
 stream, the ``.pt`` checkpoints and the EMA snapshots; every rank joins the
-saves, which gather the state under FSDP. ``--checkpointer torch-sharded``
-writes a directory of per-rank slices (``training/checkpoint.py``), the
-counterpart of the JAX CLI's orbax; ``--resume`` reads either format on any
-number of ranks. A SIGTERM to any rank stops every rank at the same log
-boundary, where each saves and exits 0.
+saves, which gather the state whole under FSDP and TP. ``--checkpointer
+torch-sharded`` writes a directory of per-data-rank slices
+(``training/checkpoint.py``), the counterpart of the JAX CLI's orbax;
+``--resume`` reads either format on any mesh or one process. A SIGTERM to
+any rank stops every rank at the same log boundary, where each saves and
+exits 0. ``--n-model > 1`` needs ``torchrun``; the TP islands
+(``--block-kernel mega_attn_tp / mega_tp``) are inference-only and refused,
+as the JAX CLI refuses them, and so are the single-device kernels on a
+model axis.
 
 ``--remat true`` recomputes each block in the backward instead of keeping
 its activations (the memory of DiT-XL/2 at batch 256); ``--scan-blocks
 true`` keeps the block parameters stacked on a depth axis, as a JAX
 ``--scan-blocks`` run saves them, and its checkpoints and EMA snapshots
 hold that layout.
-
-Not ported yet, and raising with its ROADMAP item: ``--n-model > 1``
-(tensor-parallel training, "Multi-GPU layouts, the rest").
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import signal
 import time
@@ -49,7 +53,7 @@ import torch
 import torch.distributed as dist
 
 from mapdit_tpu_torch.diffusion import create_diffusion
-from mapdit_tpu_torch.models.config import ATTENTION_IMPLS, MODULATION_KINDS
+from mapdit_tpu_torch.models.config import ATTENTION_IMPLS, MODULATION_KINDS, TP_KERNELS
 from mapdit_tpu_torch.models.registry import DIT_MODELS
 from mapdit_tpu_torch.parallel.mesh import any_rank, broadcast_str, init_distributed, make_mesh
 from mapdit_tpu_torch.training import (
@@ -90,10 +94,11 @@ TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
 
 def _check_ported(args) -> None:
-    if args.n_model != 1:
-        raise NotImplementedError(
-            "--n-model > 1 (tensor-parallel training) is the ROADMAP item 'Multi-GPU layouts, the rest'; "
-            "the port trains data-parallel or fully sharded (--fsdp) over the data axis"
+    if args.block_kernel in TP_KERNELS:
+        # the JAX CLI's words (its train.py:124-129)
+        raise SystemExit(
+            f"--block-kernel {args.block_kernel} is an inference-only TP layout; training uses the XLA path "
+            "(leave --block-kernel auto)"
         )
     if args.checkpointer == "orbax":
         raise NotImplementedError(
@@ -146,6 +151,11 @@ def main(args) -> str:
     directory (on every rank)."""
     _check_ported(args)
     if not _joins_group(args):
+        if args.n_model > 1:
+            raise ValueError(
+                f"--n-model {args.n_model} splits the model over {args.n_model} ranks of a process group: launch "
+                f"with torchrun --nproc-per-node N -m mapdit_tpu_torch.train ... (N a multiple of {args.n_model})"
+            )
         return _train(args, resolve_device(args.device), None)
     device = init_distributed(None if args.device == "cuda" else args.device)
     try:
@@ -159,6 +169,7 @@ def _train(args, device: torch.device, mesh) -> str:
         torch.set_float32_matmul_precision(args.matmul_precision)
     world = 1 if mesh is None else mesh.size
     n_data = 1 if mesh is None else mesh.n_data
+    tensor_parallel = mesh is not None and mesh.n_model > 1
     lead = mesh is None or mesh.lead
 
     # the lead owns the experiment directory; every rank gets its path
@@ -201,7 +212,11 @@ def _train(args, device: torch.device, mesh) -> str:
         cfg, tx, seed=args.seed, ema_stds=ema_stds, timestep_sampler=args.timestep_sampler,
         num_timesteps=diffusion.num_timesteps, device=device, mesh=mesh, fsdp=fsdp,
     )
-    logger.info(f"model parameters: {sum(p.numel() for p in state.model.parameters()):,}")
+    if state.dp is None:
+        n_params = sum(p.numel() for p in state.model.parameters())
+    else:
+        n_params = sum(math.prod(state.dp.whole_shape(k)) for k in state.params)
+    logger.info(f"model parameters: {n_params:,}")
 
     if args.resume:
         sharded_dir = args.resume.rstrip("/").endswith(".shards")
@@ -229,13 +244,16 @@ def _train(args, device: torch.device, mesh) -> str:
     )
 
     mag_probe = None
-    if args.log_magnitudes and lead:  # the model's whole weights, this rank's rows
+    # the model's whole weights, this rank's rows; on a model axis every rank
+    # runs the probe (its forward and the weights' gather are collectives)
+    if args.log_magnitudes and (lead or tensor_parallel):
         from mapdit_tpu_torch.training.telemetry import make_activation_probe, weight_magnitudes
 
         act_probe = make_activation_probe(cfg, diffusion, stats_mean=dataset.stats["mean"], stats_std=dataset.stats["std"])
 
         def mag_probe(st, probe_batch, step):
-            row = {k: float(v) for k, v in weight_magnitudes(st.params).items()}
+            params = st.dp.gather_model(st.params, fresh=True) if tensor_parallel else st.params
+            row = {k: float(v) for k, v in weight_magnitudes(params).items()}
             act = act_probe(st.model, probe_batch, torch.Generator(device=device).manual_seed(step))
             row["block_rms"] = [round(float(v), 4) for v in act["block_rms"]]
             row["out_rms"] = round(float(act["out_rms"]), 4)
@@ -287,15 +305,15 @@ def _train(args, device: torch.device, mesh) -> str:
             logger.info(f"saving checkpoint to {path} at step {step} (async write)...")
 
     def save_ema_snapshots(step, st):
-        """Every rank calls it: under FSDP each copy is gathered whole (a
-        collective); the lead writes."""
+        """Every rank calls it: under FSDP and TP each copy is gathered
+        whole (a collective); the lead writes."""
         nonlocal ema_writer
         ema_dir = os.path.join(exp_dir, "ema")
         if ema_writer is None and lead:
             ema_writer = AsyncTreeWriter()
         for std in ema_stds:
             tree = st.ema[ema_key(std)]
-            gathered = fsdp and bool(st.dp.sharded)
+            gathered = st.dp is not None and st.dp.splits
             if gathered:
                 tree = st.dp.gather(tree)
             if not lead:
@@ -498,7 +516,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", type=str, default="cuda",
                         help="the device to train on; 'cpu' runs the plain PyTorch path")
     parser.add_argument("--n-model", type=int, default=1,
-                        help="tensor-parallel axis size (only 1 until tensor-parallel training is ported)")
+                        help="tensor-parallel axis size (under torchrun; must divide the number of ranks)")
     parser.add_argument("--fsdp", type=_bool, default=False, metavar="BOOL",
                         help="fully-sharded (ZeRO-3) params/optimizer/EMA over the data axis (under torchrun)")
     parser.add_argument("--grad-accum", type=int, default=1,
@@ -514,10 +532,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--scan-blocks", type=_bool, default=False, metavar="BOOL",
                         help="block parameters stacked on a leading depth axis (the JAX --scan-blocks layout)")
     parser.add_argument("--attention-impl", choices=list(ATTENTION_IMPLS), default="auto")
-    parser.add_argument("--block-kernel", choices=["auto", "pallas", "mega", "mega_attn", "off"], default="auto",
+    parser.add_argument("--block-kernel", choices=["auto", "pallas", "mega", "mega_attn", "off", *TP_KERNELS],
+                        default="auto",
                         help="block kernels: mega = whole-block kernel, mega_attn = attention half-block kernels "
                              "with a fused backward, pallas = MLP half-block kernel, auto/off = plain PyTorch "
-                             "when training")
+                             "when training; the TP islands mega_attn_tp / mega_tp are inference-only and refused")
     parser.add_argument("--attn-bwd", choices=["pallas", "residual", "reference"], default="pallas",
                         help="VJP for --block-kernel mega_attn: pallas = fused backward kernels (recompute), "
                              "residual = residual-emitting forward kernel + plain backward, reference = "

@@ -9,11 +9,12 @@ run continues the exact trajectory. Writes are atomic (a ``.tmp`` file, then
 ``os.replace``), and the default saver writes from a background thread after
 one clone of the state on the device.
 
-On a mesh (``TrainState.dp``) every rank calls the savers and the lead (data
-index 0) writes; under FSDP the state is first gathered whole, a collective
-of the data group. (The JAX package refuses its msgpack file under
-multi-host FSDP because one process cannot address the shards of other
-hosts; the port gathers them.)
+On a mesh (``TrainState.dp``) every rank calls the savers and the lead
+(rank 0) writes; under FSDP and TP the state is first gathered whole, a
+collective of the data group and then of the model group, so a file written
+on any mesh holds the one-device tree. (The JAX package refuses its msgpack
+file under multi-host FSDP because one process cannot address the shards of
+other hosts; the port gathers them.)
 
 The sharded format, ``checkpoints/<step:07d>.shards/`` (``--checkpointer
 torch-sharded``, the counterpart of the JAX package's orbax directories):
@@ -21,10 +22,13 @@ each data rank writes its slices of the parameters, the Adam moments and
 the EMA copies to ``rank<r:05d>.pt`` (rank 0 the replicated tensors too),
 and the lead writes ``index.pt`` (the step, each parameter's sharded dim
 and whole shape, the buffers, Adam's step counts and hyper-parameters, the
-generator's and the timestep sampler's state, once). The ranks write into
+generator's and the timestep sampler's state, once). On a model axis the
+slices are first gathered over the model group (the FSDP dim is never the
+TP one, so they are the data slices of the whole tensors) and model rank 0
+of each data index writes them. The ranks write into
 ``<step:07d>.shards.tmp/``, which the lead renames when all are done.
-``restore_state`` reads either format into any data-axis size, one process
-included.
+``restore_state`` reads either format into any mesh, one process
+included: it loads the whole tree and takes the rank's part of it.
 """
 
 from __future__ import annotations
@@ -71,11 +75,12 @@ def map_tensors(tree, fn: Callable[[torch.Tensor], torch.Tensor]):
 
 
 def state_tree(state) -> dict:
-    """The ``TrainState`` as a tree of tensors and plain values. The tensors
-    are the live ones: clone or copy them before the next train step. Under
-    FSDP the Adam moments and the EMA copies are gathered whole, a
-    collective that every rank of the data group must call, and the tree is
-    on the host and holds no live tensor: a background writer may hold it
+    """The ``TrainState`` as a tree of tensors and plain values, the
+    one-device tree. The tensors are the live ones: clone or copy them
+    before the next train step. Where the mesh splits a tensor (FSDP, TP)
+    the weights, the Adam moments and the EMA copies are gathered whole, a
+    collective that every rank of the mesh must call, and the tree is on
+    the host and holds no live tensor: a background writer may hold it
     while training goes on."""
     sampler = state.sampler_state
     tree = {
@@ -87,7 +92,7 @@ def state_tree(state) -> dict:
         "sampler_state": dataclasses.asdict(sampler) if isinstance(sampler, LossHistoryState) else None,
     }
     dp = state.dp
-    if dp is None or not dp.sharded:
+    if dp is None or not dp.splits:
         return tree
     names = list(dp.held)
     moments = ("exp_avg", "exp_avg_sq")
@@ -95,7 +100,8 @@ def state_tree(state) -> dict:
     live = opt["state"]
     # copies of the live tensors (the weights, Adam's step counts); the
     # gathers below give new ones
-    tree["model"] = _host_copy(tree["model"])
+    whole = dp.gather_model(state.params, fresh=True)  # _host_copy copies them
+    tree["model"] = _host_copy({k: whole.get(k, v) for k, v in tree["model"].items()})
     opt["state"] = {i: {k: v if k in moments else _host_copy(v) for k, v in st.items()} for i, st in live.items()}
     for slot in moments:
         whole = _to_host(dp.gather({names[i]: st[slot] for i, st in live.items()}))
@@ -136,7 +142,7 @@ def save_state(exp_dir: str, step: int, state) -> str:
     """Write the checkpoint of ``state`` now, on the calling thread. On a
     mesh every rank calls it and the lead writes."""
     path = checkpoint_path(exp_dir, step)
-    if is_lead(state) or (state.dp is not None and state.dp.sharded):
+    if is_lead(state) or (state.dp is not None and state.dp.splits):
         tree = _to_host(state_tree(state))
         if is_lead(state):
             _write(path, tree)
@@ -144,40 +150,53 @@ def save_state(exp_dir: str, step: int, state) -> str:
 
 
 def _barrier(state) -> None:
+    """A barrier of every rank of the mesh: its data group, then its model
+    group."""
     if state.dp is not None:
         dist.barrier(group=state.dp.group)
+        if state.dp.tp > 1:
+            dist.barrier(group=state.dp.model_group)
 
 
 def save_sharded(exp_dir: str, step: int, state) -> str:
     """Write the sharded checkpoint of ``state`` (see the module docstring)
-    on the calling thread: a collective that every rank of the data group
-    must call; on one process, the same files for one rank."""
+    on the calling thread: a collective that every rank of the mesh must
+    call; on one process, the same files for one rank."""
     final = sharded_path(exp_dir, step)
     tmp = final + ".tmp"
-    lead, index = is_lead(state), (0 if state.dp is None else state.dp.index)
+    dp = state.dp
+    lead, index = is_lead(state), (0 if dp is None else dp.index)
     if lead:
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
     _barrier(state)
     held = state.held
     names = list(held)
-    layout = dict.fromkeys(names) if state.dp is None else state.dp.layout
+    layout = dict.fromkeys(names) if dp is None else dp.layout
     mine = {k for k in names if layout[k] is not None or lead}
     opt = state.optimizer.state_dict()
-    moments = {slot: {names[i]: st[slot] for i, st in opt["state"].items() if names[i] in mine}
+
+    def slices(tree):
+        """What this data rank writes of ``tree``: on a model axis gathered
+        over the model group first, the data slices of the whole tensors."""
+        if dp is not None:
+            tree = dp.gather_model(tree, fresh=True)
+        return {k: t for k, t in tree.items() if k in mine}
+
+    moments = {slot: slices({names[i]: st[slot] for i, st in opt["state"].items()})
                for slot in ("exp_avg", "exp_avg_sq")}
-    part = {"params": {k: held[k] for k in names if k in mine}, **moments,
-            "ema": {key: {k: t for k, t in ema.items() if k in mine} for key, ema in state.ema.items()}}
-    _write(os.path.join(tmp, f"rank{index:05d}.pt"), _to_host(part))
+    part = {"params": slices(held), **moments, "ema": {key: slices(ema) for key, ema in state.ema.items()}}
+    if dp is None or dp.model_index == 0:
+        _write(os.path.join(tmp, f"rank{index:05d}.pt"), _to_host(part))
     _barrier(state)
     if lead:
         params = state.params
         sampler = state.sampler_state
         _write(os.path.join(tmp, "index.pt"), _to_host({
             "step": int(state.step),
-            "n_data": 1 if state.dp is None else state.dp.n,
+            "n_data": 1 if dp is None else dp.n,
             "layout": layout,
-            "shapes": {k: tuple(p.shape) for k, p in params.items()},
+            "shapes": {k: (tuple(p.shape) if dp is None else dp.whole_shape(k)) for k, p in params.items()},
             "buffers": {k: v for k, v in state.model.state_dict().items() if k not in params},
             "adam_steps": {names[i]: st["step"] for i, st in opt["state"].items()},
             "param_groups": opt["param_groups"],
@@ -329,7 +348,7 @@ class AsyncStateSaver:
         # handling could hide it
         self._writer.check()
         path = checkpoint_path(exp_dir, step)
-        if state.dp is not None and state.dp.sharded:
+        if state.dp is not None and state.dp.splits:
             tree = state_tree(state)  # on the host, holding no live tensor: no clone needed
             if is_lead(state):
                 self._writer.submit_snapshot(tree, lambda host: _write(path, host))
@@ -367,24 +386,28 @@ def latest_checkpoint(exp_dir: str) -> Optional[str]:
 def restore_state(path: str, state):
     """Load the checkpoint at ``path`` (a ``.pt`` file or a ``.shards``
     directory) into ``state`` (a freshly built ``TrainState`` of the same
-    configuration, on any mesh or none), in place, and return it. Names and
+    configuration, on any mesh or none), in place, and return it: the whole
+    tree, of which each rank takes its TP shards and FSDP slices. Names and
     shapes are checked by the strict ``load_state_dict``s."""
     dev = state.generator.device
     if os.path.isdir(path):
         tree = _read_sharded(path)
     else:
         tree = torch.load(path, map_location="cpu", weights_only=True)
-    state.model.load_state_dict(tree["model"])
     dp = state.dp
-    local = (lambda t, name: t) if dp is None else dp.local
+    model_sd = tree["model"]
+    if dp is not None and dp.tp_split:
+        model_sd = {k: dp.tp_part(v, k) if k in dp.tp_layout else v for k, v in model_sd.items()}
+    state.model.load_state_dict(model_sd)
+    local = (lambda t, name: t) if dp is None else dp.held_part
     names = list(state.held)
     optimizer = tree["optimizer"]
-    if dp is not None and dp.sharded:
+    if dp is not None and dp.splits:
         with torch.no_grad():
             for name in dp.sharded:
                 state.held[name].copy_(dp.local(state.params[name], name))
         optimizer = {"param_groups": optimizer["param_groups"], "state": {
-            i: {**st, **{slot: dp.local(st[slot], names[i]) for slot in ("exp_avg", "exp_avg_sq")}}
+            i: {**st, **{slot: dp.held_part(st[slot], names[i]) for slot in ("exp_avg", "exp_avg_sq")}}
             for i, st in optimizer["state"].items()}}
     state.optimizer.load_state_dict(optimizer)
     if set(tree["ema"]) != set(state.ema):

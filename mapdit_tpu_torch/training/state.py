@@ -35,6 +35,19 @@ and the projection update what the rank holds (its slices under FSDP, whose
 whole parameters one all-gather then refills); the metrics are the means
 over the group, equal on every rank. The JAX package gets the same draws for
 free: its GSPMD program is the one-device program.
+
+On a mesh with a model axis (n_model > 1) the step is tensor-parallel as
+well, alone or with ``fsdp=True``: every rank builds the whole model from
+the seed (or weights) and keeps its model rank's shard of the split block
+tensors (``parallel/mesh.py`` ``tp_layout``), then, under FSDP, its data
+slice of that. The blocks run the plain path (``block_kernel`` ``auto``
+resolves to ``off``; the TP islands are inference-only and the
+single-device kernels cannot be split, so both are refused), the attention
+by ``attention_impl``. The model ranks of one data index draw the same
+noise, t and label dropout (one seed, the global batch, their data rows),
+compute the same loss and the same whole gradients of the replicated
+tensors; the gradients are averaged over the data group only, and
+grad_norm counts every element of the whole tree once.
 """
 
 from __future__ import annotations
@@ -46,10 +59,10 @@ import numpy as np
 import torch
 
 from mapdit_tpu_torch.diffusion.timestep_sampler import LossSecondMomentResampler
-from mapdit_tpu_torch.models.config import DiTConfig
+from mapdit_tpu_torch.models.config import TP_KERNELS, DiTConfig
 from mapdit_tpu_torch.models.dit import DiT, init_model, project_weights
 from mapdit_tpu_torch.parallel.data_parallel import DataParallel, global_norm
-from mapdit_tpu_torch.parallel.mesh import Mesh, mean_all_reduce_
+from mapdit_tpu_torch.parallel.mesh import PLAIN_TP, Mesh, mean_all_reduce_, shard_state_dict
 from mapdit_tpu_torch.training import ema as ema_lib
 from mapdit_tpu_torch.utils.device import resolve_device
 
@@ -101,8 +114,9 @@ class TrainState:
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
-        """The model's whole parameters (under FSDP refilled after every
-        step)."""
+        """The model's parameters: whole over the data axis (under FSDP
+        refilled after every step); on a model axis the rank's TP shards
+        (``dp.gather_model`` makes them whole)."""
         return dict(self.model.named_parameters())
 
     @property
@@ -118,6 +132,22 @@ def _resampler(timestep_sampler: str, num_timesteps: int) -> Optional[LossSecond
     if timestep_sampler != "uniform":
         raise ValueError(f"unknown timestep sampler {timestep_sampler!r}")
     return None
+
+
+def tp_train_config(cfg: DiTConfig) -> DiTConfig:
+    """The config a tensor-parallel train step runs: the plain path
+    (``block_kernel`` ``auto`` and ``off`` both run ``off``). The TP islands
+    are inference-only, as in the JAX package (its ``train.py:124-129``),
+    and a single-device kernel cannot be split over model ranks."""
+    if cfg.block_kernel in TP_KERNELS:
+        raise ValueError(
+            f"--block-kernel {cfg.block_kernel} is an inference-only TP layout; training uses the XLA path "
+            "(leave --block-kernel auto)")
+    if cfg.block_kernel not in ("auto", "off"):
+        raise ValueError(
+            f"block_kernel={cfg.block_kernel!r} is a single-device kernel and cannot run on a model axis; "
+            "tensor-parallel training runs the plain path (leave --block-kernel auto, or 'off')")
+    return cfg.replace(block_kernel="off")
 
 
 def create_train_state(
@@ -136,18 +166,24 @@ def create_train_state(
     then holds every parameter and buffer, with no draw) on ``device``
     (default: the mesh's, else CUDA), its optimizer, one EMA copy of the
     parameters per std, and a generator seeded with ``seed`` on the device.
-    On a ``mesh`` every rank of the data group builds it from the same seed
-    (or weights); with ``fsdp=True`` the optimizer and the EMA copies hold
-    this rank's slices (``parallel/data_parallel.py``)."""
+    On a ``mesh`` every rank builds it from the same seed (or weights); on
+    a model axis the model keeps this rank's TP shards and runs the plain
+    path (:func:`tp_train_config`); with ``fsdp=True`` the optimizer and the
+    EMA copies hold this rank's slices (``parallel/data_parallel.py``)."""
     resampler = _resampler(timestep_sampler, num_timesteps)
     if fsdp and mesh is None:
         raise ValueError("fsdp=True shards over a mesh's data axis; give the mesh")
+    tensor_parallel = mesh is not None and mesh.n_model > 1
+    if tensor_parallel:
+        cfg = tp_train_config(cfg)
     device = resolve_device(mesh.device if device is None and mesh is not None else device)
     if state_dict is None:
         model = init_model(cfg, seed=seed, device=device)
     else:
         model = DiT(cfg).to(device).eval()
         model.load_state_dict(state_dict)
+    if tensor_parallel:
+        model.load_tensor_parallel(shard_state_dict(model.state_dict(), cfg, mesh, PLAIN_TP), mesh)
     dp = None if mesh is None else DataParallel(model, mesh, fsdp)
     held = dict(model.named_parameters()) if dp is None else dp.held
     return TrainState(

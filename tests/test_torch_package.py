@@ -235,25 +235,28 @@ def _cli_run(tmp_path, flags):
     [
         (["--fsdp", "true", "--num-steps", "1", "--batch-size", "8", "--num-classes", "10", "--log-every", "1",
           "--ckpt-every", "1", "--ema-snapshot-every", "0", "--checkpointer", "torch-sync"], None),
-        (["--n-model", "2"], "Multi-GPU layouts"),
+        (["--n-model", "2"], "torchrun --nproc-per-node N"),
         (["--multihost", "true"], "RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT"),
         (["--checkpointer", "orbax"], "torch-sharded"),
+        (["--block-kernel", "mega_tp"], "--block-kernel mega_tp is an inference-only TP layout"),
     ],
 )
 def test_unported_options_name_their_roadmap_item(overrides, item, tmp_path, monkeypatch):
     """The train CLI's multi-device flags on one process: ``--fsdp true``
     runs (a data axis of 1 shards nothing) and writes its checkpoint;
-    ``--n-model > 1`` (tensor-parallel training) raises naming the ROADMAP
-    item that ports it; ``--multihost true`` without torchrun's variables
+    ``--n-model > 1`` (tensor-parallel training) splits the model over the
+    ranks of a process group, and one process raises naming the torchrun
+    launch; ``--multihost true`` without torchrun's variables
     raises naming them; ``--checkpointer orbax`` names the port's sharded
-    format. (Under torchrun: tests/test_torch_train_cli_dp.py.)"""
+    format; a TP island exits with the JAX CLI's words (``train.py:124-129``
+    of the JAX package). (Under torchrun: tests/test_torch_train_cli_dp.py.)"""
     for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(name, raising=False)
     if item is None:
         exp = _cli_run(tmp_path, overrides)
         assert (pathlib.Path(exp) / "checkpoints" / "0000001.pt").is_file()
         return
-    with pytest.raises((NotImplementedError, ValueError), match=item):
+    with pytest.raises((NotImplementedError, ValueError, SystemExit), match=item):
         _cli_run(tmp_path, overrides)
 
 

@@ -28,6 +28,8 @@ from mapdit_tpu_torch.diffusion import create_diffusion
 from mapdit_tpu_torch.models import DiT, build_config, init_model
 from mapdit_tpu_torch.models.blocks import stack_auto_ok
 from mapdit_tpu_torch.models.dit import project_weights, stack_block_params, unstack_block_params
+from mapdit_tpu_torch.parallel import Mesh
+from mapdit_tpu_torch.parallel.mesh import PLAIN_TP, shard_state_dict
 from mapdit_tpu_torch.runtime import build_cached_sample_fn, build_sample_fn, resolve_run_config
 from mapdit_tpu_torch.training.telemetry import make_activation_probe, weight_magnitudes
 from mapdit_tpu_torch.utils.weights import state_dict_from_jax
@@ -265,8 +267,12 @@ def test_jax_rules_under_scan_blocks():
     """The JAX package's rules, kept: auto never promotes to mega_stack
     under scan_blocks (blocks.py:177; the per-block kernels run on the
     views), an explicit mega_stack raises (runtime.py:189), span caching
-    raises (runtime.py:448, dit.py:178), and tensor parallelism on the
-    stacked layout raises naming its ROADMAP item."""
+    raises (runtime.py:448, dit.py:178). Tensor parallelism takes the
+    stacked layout, as JAX shards its 3-D weights one axis later
+    (mapdit_tpu/parallel/mesh.py:87-99): on a model axis auto resolves to
+    the plain path off the card, and a model rank loads its shards of the
+    (depth, out, in) stacks (the spawned chains are in
+    tests/test_torch_tp.py test_mesh_runs_unfolded_and_scan_blocks_weights)."""
     from mapdit_tpu_torch.runtime import _mesh_config
 
     cuda = torch.device("cuda")  # the policy reads the device's type only
@@ -285,10 +291,17 @@ def test_jax_rules_under_scan_blocks():
     model = _port_model(xs, sd)
     with pytest.raises(ValueError, match="scan_blocks=False"):
         model(torch.zeros(1, 4, 16, 16), torch.zeros(1), torch.zeros(1, dtype=torch.long), span=(1, 3))
-    with pytest.raises(NotImplementedError, match="Multi-GPU layouts, the rest"):
-        _mesh_config(xs, True, SimpleNamespace(n_model=2), "cpu")
-    with pytest.raises(NotImplementedError, match="Multi-GPU layouts, the rest"):
-        model.load_tensor_parallel({}, None)
+    assert _mesh_config(xs, True, SimpleNamespace(n_model=2), "cpu") == xs.replace(block_kernel="off")
+    mesh = Mesh(1, 2, 1, torch.device("cpu"), None, object())  # no collective runs here
+    tp_model = DiT(xs.replace(block_kernel="off"))
+    tp_model.load_tensor_parallel(shard_state_dict(sd, xs, mesh, PLAIN_TP), mesh)
+    d, depth = xs.hidden_size, xs.depth
+    qkv = tp_model.blocks.attn.qkv_proj.weight
+    assert tuple(qkv.shape) == (depth, 3 * d // 2, d)
+    assert torch.equal(qkv.view(depth, 3, d // 2, d), sd["blocks.attn.qkv_proj.weight"].view(depth, 3, d, d)[:, :, d // 2:])
+    assert torch.equal(tp_model.blocks.attn.out_proj.weight, sd["blocks.attn.out_proj.weight"][:, :, d // 2:])
+    assert tp_model.blocks.mlp.net[0].weight.shape[1] == 2 * d and tp_model.blocks.mlp.net[2].weight.shape[2] == 2 * d
+    assert tp_model.blocks.attn.tp_group is mesh.model_group and tp_model.blocks.mesh is mesh
 
 
 @pytest.mark.parametrize("sampler", ["ddpm", "dpm++"])

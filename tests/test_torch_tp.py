@@ -2,8 +2,9 @@
 plain versions against the Pallas kernels (interpret mode) and their jnp
 references, the partials' algebra, the weight shards against the slices
 JAX's islands receive, the islands and ``build_sample_fn(mesh=)`` on four
-spawned gloo ranks against JAX and the port's unsharded chain, the ``auto``
-resolver and the refusals.
+spawned gloo ranks against JAX and the port's unsharded chain, the plain
+path on unfolded weights and the scan_blocks layout on two spawned ranks,
+the ``auto`` resolver and the refusals that remain.
 
 Shapes are those of ``tests/test_parallel.py``'s island tests. The ranks'
 bodies live in ``tests/torch_tp_ranks.py``, which imports no JAX: every JAX
@@ -12,6 +13,7 @@ reference is computed here and handed to the ranks as numpy arrays.
 
 import functools
 import math
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +23,7 @@ import torch
 from jax.sharding import NamedSharding
 from jax.sharding import PartitionSpec as P
 
+import torch_tp_plain_ranks
 import torch_tp_ranks
 from mapdit_tpu.diffusion import create_diffusion as jax_create_diffusion
 from mapdit_tpu.diffusion.gaussian import GaussianDiffusion as JaxGaussianDiffusion
@@ -348,21 +351,71 @@ def test_mesh_refuses_single_device_kernels(kernel):
 
 @pytest.mark.parametrize(
     "overrides",
-    [dict(block_kernel="off", fold=False), dict(block_kernel="auto", scan_blocks=True),
-     dict(block_kernel="mega_tp", modulation="rotation"), dict(block_kernel="mega_attn_tp", use_cosine_attention=False)],
+    [dict(block_kernel="mega_tp", modulation="rotation"), dict(block_kernel="mega_attn_tp", use_cosine_attention=False)],
 )
 def test_mesh_refuses_the_plain_path_and_other_families(overrides):
-    """What a model axis still refuses: the plain path on unfolded
-    weight-normalized weights (its split rows need TP training's cross-rank
-    norm) and on the scan_blocks layout, each naming its ROADMAP item; and
-    an island named on a family it does not hard-code. (The plain path on
-    folded weights runs, for every family: test_torch_tp_plain.py.)"""
-    kw = dict(overrides)
-    fold = kw.pop("fold", True)
-    cfg = build_config("DiT-XS/8", **XS8).replace(**kw)
-    match = "Multi-GPU layouts" if "block_kernel" in kw and kw["block_kernel"] in ("off", "auto") else "hard-codes"
-    with pytest.raises((NotImplementedError, ValueError), match=match):
-        build_sample_fn(cfg, {}, create_diffusion("2", device="cpu"), fold=fold, mesh=_cpu_mesh(1, 2))
+    """What a model axis still refuses: an island named on a family it does
+    not hard-code. (The plain path runs every family, on folded weights in
+    test_torch_tp_plain.py, on unfolded ones and the scan_blocks layout in
+    test_mesh_runs_unfolded_and_scan_blocks_weights.)"""
+    cfg = build_config("DiT-XS/8", **XS8).replace(**overrides)
+    with pytest.raises(ValueError, match="hard-codes"):
+        build_sample_fn(cfg, {}, create_diffusion("2", device="cpu"), mesh=_cpu_mesh(1, 2))
+
+
+# the chains a model axis refused before the cross-rank row norm, and the
+# island on the stacked layout: (name, overrides, fold, the kernel it runs)
+PLAIN_CHAINS = [("off-unfolded", dict(block_kernel="off"), False, "off"),
+                ("auto-scan_blocks", dict(block_kernel="auto", scan_blocks=True), True, "off"),
+                ("mega_tp-scan_blocks", dict(block_kernel="mega_tp", scan_blocks=True), True, "mega_tp")]
+
+
+@pytest.fixture(scope="module")
+def plain_chains(tmp_path_factory):
+    """Every PLAIN_CHAINS case on two spawned gloo ranks (one spawn), with
+    its one-device chain on the same weights beside it."""
+    out = tmp_path_factory.mktemp("tp_plain_chains")
+    rng = np.random.default_rng(31)
+    cases, want = [], {}
+    for name, overrides, fold, kernel in PLAIN_CHAINS:
+        cfg = build_config("DiT-XS/8", **XS8).replace(**overrides)
+        model = DiT(cfg)
+        model.reset_parameters(torch.Generator().manual_seed(5))
+        with torch.no_grad():  # the gains start at 0: draw them, so the branches count
+            for key, p in model.named_parameters():
+                if key.rsplit(".", 1)[-1] in ("gain_msa", "gain_mlp"):
+                    p.uniform_(0.2, 0.8, generator=torch.Generator().manual_seed(len(key)))
+        sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        z, y = _chain_inputs(rng, 2)
+        fn = build_sample_fn(cfg.replace(block_kernel="off"), sd, create_diffusion(torch_tp_ranks.CHAIN_STEPS,
+                             device="cpu"), cfg_scale=torch_tp_ranks.CFG_SCALE, clip_denoised=True, fold=fold,
+                             device="cpu", noise_fn=torch_tp_ranks.det_noise)
+        with torch.no_grad():
+            call = fn.prepared["model"].forward_with_cfg(torch.from_numpy(z), torch.full((z.shape[0],), 500.0),
+                                                         torch.from_numpy(y), torch_tp_ranks.CFG_SCALE)
+        want[name] = dict(call=call.numpy(), chain=fn(torch.from_numpy(z), torch.from_numpy(y)).numpy())
+        cases.append(dict(name=name, overrides=overrides, fold=fold, kernel=kernel, z=z, y=y,
+                          sd={k: v.numpy() for k, v in sd.items()}))
+    try:
+        spawn(torch_tp_ranks.plain_chain_cases, 2, args=(cases, str(out)), device="cpu")
+        got = {name: dict(np.load(out / f"{name}.npz")) for name, *_ in PLAIN_CHAINS}
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    return got, want
+
+
+@pytest.mark.parametrize("name", [c[0] for c in PLAIN_CHAINS])
+def test_mesh_runs_unfolded_and_scan_blocks_weights(plain_chains, name):
+    """On a (1, 2) mesh the plain path takes unfolded weight-normalized
+    weights (out-proj and fc2 column slices normalized by their whole rows'
+    norm, the squares summed over the model group) and the scan_blocks
+    layout (the 3-D stacks split one axis later), and the mega_tp island
+    takes the stacked layout too: the model call at 1e-5 and the 4-step
+    chain at the bounds of test_torch_tp_plain.py, against the one-device
+    chain on the same weights."""
+    got, want = plain_chains
+    np.testing.assert_allclose(got[name]["call"], want[name]["call"], err_msg=name, **torch_tp_plain_ranks.MODEL_TOL)
+    torch_tp_plain_ranks.chain_bounds(got[name]["chain"], want[name]["chain"], name)
 
 
 def test_mesh_refuses_unfolded_weights_and_misplaced_islands():

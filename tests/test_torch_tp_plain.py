@@ -17,7 +17,8 @@ test_pure_tp_mesh_dp1``).
     not split; the cached chain on a data axis against JAX's cached chain
     under the data sharding (``serve.py:683-699`` of the JAX package) and
     against the port's one-device chain;
-  * the refusals that remain, and autograd.
+  * the refusals that remain, and the collectives of the plain path under
+    autograd (the train step's parity: tests/test_torch_tp_train.py).
 """
 
 import functools
@@ -255,21 +256,43 @@ def test_plain_path_tp_matches_jax_gspmd_on_spawned_ranks(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# what stays refused
+# what stays refused, and autograd
 
 
-def test_plain_path_refuses_autograd():
-    """Inference only, as the islands: a row-parallel product under
-    autograd with an input that requires grad raises before any
-    collective."""
-    cfg = build_config("DiT-XS/8", fold_weights=True, **XS8)
+def test_plain_path_refuses_autograd(monkeypatch):
+    """Autograd is no longer refused: the plain layout trains (the step's
+    parity on four ranks is tests/test_torch_tp_train.py). On raw
+    weight-normalized shards of a model rank, with the model group's
+    all-reduce recorded (and the sum of a group of one), a forward makes
+    per block two row-norm sums (out-proj, fc2) and two partial sums, and
+    the backward two input-gradient sums (qkv, fc1) and the two row norms'
+    gradient sums; without gradients the forward makes the same four and no
+    graph. Every gradient lands on a shard-shaped parameter."""
+    from mapdit_tpu_torch.models import layers
+
+    calls = []
+
+    def all_reduce(tensor, group=None):
+        assert group is mesh.model_group
+        calls.append(tuple(tensor.shape))
+
+    monkeypatch.setattr(layers.dist, "all_reduce", all_reduce)
+    cfg = build_config("DiT-XS/8", **XS8)
     model = DiT(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(0))
     sd = {k: v.detach() for k, v in model.state_dict().items()}
-    mesh = Mesh(1, 2, 0, torch.device("cpu"), None, object())  # a group the refusal never reaches
+    mesh = Mesh(1, 2, 0, torch.device("cpu"), None, object())
     model.load_tensor_parallel(shard_state_dict(sd, cfg, mesh, PLAIN_TP), mesh)
-    x = torch.zeros(2, 4, 16, 16)
-    with pytest.raises(RuntimeError, match="inference-only"):
-        model(x, torch.zeros(2), torch.zeros(2, dtype=torch.int64))
+    x, t, y = torch.randn(2, 4, 16, 16), torch.full((2,), 10.0), torch.ones(2, dtype=torch.int64)
+    with torch.no_grad():
+        model(x, t, y)
+    assert len(calls) == 4 * cfg.depth, len(calls)
+    calls.clear()
+    model(x, t, y).square().mean().backward()
+    assert len(calls) == 8 * cfg.depth, len(calls)
+    for name, p in model.named_parameters():
+        assert p.grad is not None and p.grad.shape == p.shape and torch.isfinite(p.grad).all(), name
+    assert model.blocks[0].attn.out_proj.weight.shape == (cfg.hidden_size, cfg.hidden_size // 2)
 
 
 @pytest.mark.parametrize("kernel", ["mega", "mega_attn", "mega_stack", "auto", "pallas"])

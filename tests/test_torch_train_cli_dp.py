@@ -9,7 +9,11 @@ JAX tests/test_multiprocess.py and tests/test_parallel.py TestFsdpCli):
   * a SIGTERM to one rank stops both at the same log boundary, each writing
     its slices of the checkpoint, and both exit 0 (l.120). The ranks are
     started with the environment torchrun gives them, so that one of them
-    can be signalled.
+    can be signalled;
+  * FSDP + TP on four ranks (``--n-model 2 --fsdp true``, a (2, 2) mesh;
+    the twin of JAX tests/test_parallel.py:130 through the CLI) writes
+    whole-tree files, and a resume on one process continues its loss
+    history.
 
 Each run is a few steps of XS/8 at a global batch of 16.
 """
@@ -49,9 +53,9 @@ def _env(**extra):
     return env
 
 
-def _torchrun(results, *flags):
+def _torchrun(results, *flags, ranks=2):
     proc = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(ranks),
          "-m", "mapdit_tpu_torch.train", *COMMON, "--results-dir", str(results), *flags],
         cwd=REPO, env=_env(), capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
@@ -114,6 +118,44 @@ def test_fsdp_sharded_run_resumes_on_two_ranks_and_on_one(tmp_path):
     assert f"resumed from {shards} at step 4" in open(os.path.join(one, "log.txt")).read()
     rows = _rows(one)
     assert [r["step"] for r in rows] == [5, 6] and all(np.isfinite(r["loss"]) for r in rows)
+
+
+def test_tp_fsdp_run_on_four_ranks_resumes_on_one_process(tmp_path):
+    """One torchrun launch of four ranks, --n-model 2 --fsdp true, with the
+    loss-history sampler and the magnitude telemetry (every rank runs its
+    probe on a model axis): a torch-sharded checkpoint of two data ranks'
+    slices of the whole tree, whole EMA snapshots and .pt-shaped state,
+    resumed on one process, whose loss history continues the run's."""
+    flags = ["--timestep-sampler", "loss-second-moment", "--log-every", "1", "--ckpt-every", "4",
+             "--ema-snapshot-every", "4"]
+    first, exps = _torchrun(tmp_path / "a", "--num-steps", "6", "--n-model", "2", "--fsdp", "true", "--checkpointer",
+                            "torch-sharded", "--log-magnitudes", *flags, ranks=4)
+    assert len(exps) == 1, exps
+    log = open(os.path.join(first, "log.txt")).read()
+    assert "devices: 4x cpu; mesh data=2 model=2" in log and log.count("(step=") == 6, log
+    shapes = _whole_shapes()
+    assert f"model parameters: {sum(int(np.prod(s)) for s in shapes.values()):,}" in log
+    rows = _rows(first)
+    assert [r["step"] for r in rows] == list(range(1, 7)) and all(np.isfinite(r["loss"]) for r in rows)
+    assert all(len(r["magnitudes"]["block_rms"]) == 6 and r["magnitudes"]["w_rms_dev_max"] < 1e-3 for r in rows)
+    shards = os.path.join(first, "checkpoints", "0000004.shards")
+    assert sorted(os.listdir(shards)) == ["index.pt", "rank00000.pt", "rank00001.pt"]
+    with np.load(os.path.join(first, "ema", "0.050_0000004.npz")) as f:
+        assert {k: f[k].shape for k in f.files} == shapes
+    index = torch.load(os.path.join(shards, "index.pt"), weights_only=True)
+    assert {k: tuple(v) for k, v in index["shapes"].items()} == shapes
+
+    one = train.main(train.build_parser().parse_args(
+        [*COMMON, "--results-dir", str(tmp_path / "b"), "--num-steps", "6", "--resume", shards, *flags,
+         "--ckpt-every", "2"]))
+    assert f"resumed from {shards} at step 4" in open(os.path.join(one, "log.txt")).read()
+    resumed = _rows(one)
+    assert [r["step"] for r in resumed] == [5, 6] and all(np.isfinite(r["loss"]) for r in resumed)
+    # the history: 16 draws a step, the run's 64 carried into the resumed 96
+    carried = index["sampler_state"]["counts"]
+    after = torch.load(os.path.join(one, "checkpoints", "0000006.pt"), weights_only=True)["sampler_state"]["counts"]
+    assert int(carried.sum()) == 4 * 16 and int(after.sum()) == 6 * 16, (carried.sum(), after.sum())
+    assert bool((after >= carried).all())
 
 
 def _free_port() -> int:

@@ -82,3 +82,29 @@ def run_cases(rank, device, islands, chains, sd):
     _islands(make_mesh(2, 2, device=device), islands)
     for case in chains:
         _chain(make_mesh(*case["layout"], device=device), case, sd)
+
+
+def plain_chain_cases(rank, device, cases, out_dir):
+    """The plain path on a (1, 2) mesh where a model axis refused it before
+    the cross-rank row norm: unfolded weight-normalized weights, and the
+    ``scan_blocks`` layout (plain and on the ``mega_tp`` island). Rank 0
+    writes each case's model call and 4-step chain (injected noise) to
+    ``out_dir``."""
+    torch.set_num_threads(1)
+    mesh = make_mesh(1, 2, device=device)
+    for case in cases:
+        cfg = build_config("DiT-XS/8", **XS8).replace(**case["overrides"])
+        sd = {k: torch.from_numpy(v) for k, v in case["sd"].items()}
+        z, y = torch.from_numpy(case["z"]), torch.from_numpy(case["y"])
+        fn = build_sample_fn(cfg, sd, create_diffusion(CHAIN_STEPS, device="cpu"), cfg_scale=CFG_SCALE,
+                             clip_denoised=True, fold=case["fold"], mesh=mesh, noise_fn=det_noise)
+        assert fn.run_cfg.block_kernel == case["kernel"], (case["name"], fn.run_cfg.block_kernel)
+        model = fn.prepared["model"]
+        qkv = model.blocks.attn.qkv_proj.weight if cfg.scan_blocks else model.blocks[0].attn.qkv_proj.weight
+        assert qkv.shape[-2] == 3 * cfg.hidden_size // 2, (case["name"], tuple(qkv.shape))
+        with torch.no_grad():
+            call = model.forward_with_cfg(z, torch.full((z.shape[0],), 500.0), y, CFG_SCALE)
+        chain = fn(z, y)
+        if rank == 0:
+            np.savez(f"{out_dir}/{case['name']}.npz", call=call.numpy(), chain=chain.numpy())
+
