@@ -9,12 +9,14 @@ Phases, one line each; any failure exits non-zero before the final line:
   3. kernels: every kernel wrapper against its plain PyTorch version at the
      DiT-S/2 sampling shapes in bf16 (64 CFG rows x 64 tokens, D=384,
      6 heads, H=1536, depth 12), with times, bounds and a library yardstick;
-     then the attention half-block's wrappers and sub-kernels (forward,
-     residual forward, fused backward with its seven cotangents, the A.W
-     products, the out product with the residual backward as its
-     epilogue, the residual-mode attention, the backward's other kernels)
-     and fused_dit_block's gradient at the DiT-S/2 training shapes (256
-     samples x 64 tokens, bf16);
+     then the attention half-block's wrappers and sub-kernels (rows 3 and 4,
+     one launch each of csrc/attn_branch.cu, beside their launch sequences
+     at S/2 and XL/2 and checked at BRANCH_BWD_SHAPES, T=48 taking the
+     sequence route; the dW pair against the f32 pair; the residual
+     forward, the A.W products, the out product with the residual backward
+     as its epilogue, the residual-mode attention, the backward's other
+     kernels) and fused_dit_block's gradient at the DiT-S/2 training shapes
+     (256 samples x 64 tokens, bf16);
   4. forward: DiT-S/2 forward_with_cfg, kernel paths against the plain path;
   5. chain: a short CFG chain, kernel path against the plain path; then the
      headline chain (build_sample_fn, block_kernel="auto" with a batch hint,
@@ -48,7 +50,8 @@ Phases, one line each; any failure exits non-zero before the final line:
      5b's one dit_stack a model call; the cached chain one a block it
      runs; none at 32 x 32; phase 6's a micro-batch);
   6. train: DiT-S/2 train steps at batch 256 on synthetic latents, the plain
-     path and block_kernel="mega_attn" with attn_bwd "pallas" and
+     path and block_kernel="mega_attn" with attn_bwd "pallas" (rows 3 and 4
+     one launch each a block, and again as their launch sequences) and
      "residual": the first step's loss and gradients against the float32
      plain path, then timed steps with the launch counts read around them;
  6b. remat and scan_blocks: DiT-XL/2 (depth 28, width 1152, 16 heads,
@@ -264,6 +267,7 @@ Weights are random, drawn from a seed. Needs no network and one card.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1260,7 +1264,7 @@ def attn_branch_args(torch, gen, dev, n, t, d, heads):
 
 def attn_bwd_stages(torch, k, ab, dy, args):
     """The attention half-block backward's intermediates from the plain
-    versions, in the order of ``attn_branch._bwd_sequence``: (rows, gain,
+    versions, in the order of ``attn_branch._bwd_stages``: (rows, gain,
     x, h, qkv, attn, out, dout, dattn, dqkv, dh), x flat."""
     x, shift, scale, gate, gain, wq, wo, heads = args
     n, t, d = x.shape
@@ -1285,11 +1289,11 @@ def attn_bwd_stages(torch, k, ab, dy, args):
 def dgain_terms(torch, stages):
     """The terms whose sum is the attention half-block's dgain,
     dh * (shift - x*scale) / sqrt((1-g)^2 + g^2), from attn_bwd_stages."""
+    from mapdit_tpu_torch.ops.cuda import attn_branch as ab
+
     rows, g1, xf, dh = stages[0], stages[1], stages[2], stages[-1]
-    d, t = xf.shape[1], xf.shape[0] // rows.shape[0]
-    shift, scale = (rows[:, i * d:(i + 1) * d].repeat_interleave(t, dim=0) for i in (0, 1))
     g = g1.reshape(())
-    return dh * (shift - xf.float() * scale) / torch.sqrt((1 - g) ** 2 + g**2)
+    return ab.dgain_terms(dh, xf, rows, g1, xf.shape[0] // rows.shape[0]) / torch.sqrt((1 - g) ** 2 + g**2)
 
 
 def pass_check(torch, what, run, plain, names, scalars=()):
@@ -1481,31 +1485,93 @@ BRANCH_BWD_SHAPES = {
     "n3": (3, 64, 384, 6),
     "t16": (8, 16, 768, 12),
     "t4": (8, 4, 1152, 16),
+    "t2": (5, 2, 384, 6),
 }
+# a T outside the one-launch kernels' domain (even, not dividing 128)
+BRANCH_OUTSIDE_T = 48
+# rows 3 and 4's report rows at DiT-XL/2 (hd 72) at its training batch:
+# (N, T, D, heads), and the train path whose launches they report
+BRANCH_XL = (XL_TRAIN_BATCH, 64, 1152, 16)
+BRANCH_XL_PATH = "xl/mega_attn+pallas:no-remat"
+BRANCH_SRC = "mapdit_tpu_torch/csrc/attn_branch.cu"
 
 
 def branch_bwd_checks(torch, k, gen, dev) -> None:
-    """attn_branch/bwd at BRANCH_BWD_SHAPES against attn_bwd_plain (the
-    report row's limits: relative L2 1e-2, dgain within 2^-8 of its terms'
-    root-sum-square), and its seven cotangents to the same bits on two
-    runs."""
+    """Rows 3 and 4 (csrc/attn_branch.cu through attn_fwd and attn_bwd) at
+    BRANCH_BWD_SHAPES against attn_fwd_plain and attn_bwd_plain (the report
+    rows' limits: relative L2 1e-2, dgain within 2^-8 of its terms'
+    root-sum-square), the same bits on two runs and whether they equal the
+    launch sequences'; then the domain rule at T = 48: the forward takes its
+    launch sequence, the backward's sequence raises (out_gate_residual_bwd
+    takes T dividing 128), no one-launch kernel runs."""
     from mapdit_tpu_torch.ops.cuda import attn_branch as ab
+    from mapdit_tpu_torch.tools import bench_attn_branch as bab
 
-    names = ("dx", "dshift", "dscale", "dgate", "dgain", "dw_qkv", "dw_out")
     for name, (n, t, d, heads) in BRANCH_BWD_SHAPES.items():
         args, dy = attn_branch_args(torch, gen, dev, n, t, d, heads)
-        terms = dgain_terms(torch, attn_bwd_stages(torch, k, ab, dy, args))
-        got, want = ab.attn_bwd(dy, *args), ab.attn_bwd_plain(dy, *args)
-        for nm, g_, w_ in zip(names, got, want):
-            what = f"attn_branch/bwd:{name}:{nm}"
-            if nm == "dgain":
-                compare_sum(torch, g_, w_, terms, what)
-            else:
-                compare_rel(torch, g_, w_, 1e-2, what)
-        same = all(torch.equal(g_, a_) for g_, a_ in zip(got, ab.attn_bwd(dy, *args)))
-        phase("check", what=f"attn_branch/bwd:{name}:same-bits-twice", ok=same)
-        if not same:
-            raise AssertionError(f"attn_branch/bwd:{name}: two runs on the same inputs differ in their bits")
+        before = launch_counts()
+        bab.check(name, args, dy)
+        after = launch_counts()
+        if after["attn_branch/bwd"] == before["attn_branch/bwd"] or after["attn_branch/bwd/sequence"] != before[
+                "attn_branch/bwd/sequence"]:
+            raise AssertionError(f"attn_branch:{name}: attn_bwd did not take the one-launch kernel")
+    args, dy = attn_branch_args(torch, gen, dev, 4, BRANCH_OUTSIDE_T, 384, 6)
+    before = launch_counts()
+    y = ab.attn_fwd(*args)
+    compare_rel(torch, y, ab.attn_fwd_plain(*args), 1e-2, f"attn_branch/fwd:t{BRANCH_OUTSIDE_T}:sequence")
+    try:
+        ab.attn_bwd(dy, *args)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    after = launch_counts()
+    moved = {key: after[key] - before[key] for key in after if after[key] != before[key]}
+    ok = (raised is not None and moved.get("attn_branch/fwd/sequence") == 1 and moved.get("attn_branch/bwd/sequence") == 1
+          and not moved.get("attn_branch/fwd") and not moved.get("attn_branch/bwd"))
+    phase("check", what=f"attn_branch:t{BRANCH_OUTSIDE_T}:sequence-route", raises=json.dumps(raised),
+          launched=json.dumps(moved), ok=ok)
+    if not ok:
+        raise AssertionError(f"attn_branch at T={BRANCH_OUTSIDE_T}: not the sequence route ({moved}, {raised})")
+
+
+def branch_rows(torch, args, dy, path: str) -> dict:
+    """Rows 3 and 4 at one shape: both kernels held to their plain versions
+    (mapdit_tpu_torch/tools/bench_attn_branch.py check: relative L2 1e-2,
+    dgain within 2^-8 of its terms' root-sum-square, the same bits twice,
+    whether they equal the launch sequences'), timed beside the launch
+    sequences in the same call (graph, eager and host ms), their bounds
+    (row 4's without the dW pair); then the dW pair as the path runs it
+    (one bf16 product each with f32 sums) against the f32 pair (relative L2
+    1e-5), both timed. Returns the kernels line's two rows."""
+    from mapdit_tpu_torch.ops.cuda import attn_branch as ab
+    from mapdit_tpu_torch.tools import bench_attn_branch as bab
+
+    x, heads = args[0], args[-1]
+    n, t, d = x.shape
+    tag = "s2" if d == 384 else "xl" if d == 1152 else f"d{d}"
+    checks = bab.check(tag, args, dy)
+    bounds = bab.bounds(n, t, d, heads)
+    out = {}
+    for kind, line, fn, seq, plain in (
+        ("fwd", 1007, lambda: ab.attn_branch_fwd(*args), lambda: ab.fwd_launch_sequence(*args),
+         lambda: ab.attn_fwd_plain(*args)),
+        ("bwd", 918, lambda: ab.attn_branch_bwd(dy, *args), lambda: ab.bwd_launch_sequence(dy, *args),
+         lambda: ab.attn_bwd_plain(dy, *args)),
+    ):
+        times = bab.times(fn, seq, plain)
+        out[f"attn_branch/{kind}"] = dict(
+            source=BRANCH_SRC, replaces=f"{PALLAS}:{line}", max_abs_err=checks[kind]["max_abs_err"], ms=times["ms"],
+            plain_ms=times["plain_ms"], bound_ms=bounds[kind][0], bound_by=bounds[kind][1], library_ms=None, path=path,
+            eager_ms=times["eager_ms"], host_ms=times["host_ms"], sequence_ms=times["sequence_ms"],
+            sequence_eager_ms=times["sequence_eager_ms"], sequence_host_ms=times["sequence_host_ms"],
+            same_bits_as_sequence=checks[kind]["same_bits_as_sequence"])
+        phase("time", kernel=f"attn_branch/{kind}:{tag}", **{key: (f"{v:.4f}" if isinstance(v, float) else v)
+                                                            for key, v in times.items()},
+              bound_ms=f"{bounds[kind][0]:.4f}", bound_by=bounds[kind][1])
+    pair = bab.dw_pair(args, dy)
+    phase("time", kernel=f"attn_branch/dw-pair:{tag}", **{key: f"{v:.4e}" for key, v in pair.items()},
+          library="torch.mm(out_dtype=torch.float32) x 2")
+    return out
 
 
 def train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x_s, a_s, gains_s, w0):
@@ -1527,7 +1593,7 @@ def train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x_s, a_s, gains_s, w0)
     in_bytes = mt * d * 2 + 3 * n * d * 2 + 4 * d * d * 2 + 4
     out_rows = {}
 
-    def row(name, source, replaces, err, fn, plain, flops, nbytes, path="mega_attn+pallas", library=None):
+    def row(name, source, replaces, err, fn, plain, flops, nbytes, path, library=None):
         b, by = bound_ms(flops, nbytes)
         out_rows[name] = dict(
             source=source, replaces=f"{PALLAS}:{replaces}", max_abs_err=err, ms=time_ms(torch, fn),
@@ -1536,12 +1602,16 @@ def train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x_s, a_s, gains_s, w0)
         )
 
     branch_src = "mapdit_tpu_torch/ops/cuda/attn_branch.py"
-    # composite outputs: several bf16 roundings upstream can each land an
-    # element one bf16 ulp apart from the plain version, so they are held
-    # by relative L2 error (1e-2, ~2.5 bf16 ulps) with the max reported
-    err = compare_rel(torch, ab.attn_fwd(*args), ab.attn_fwd_plain(*args), 1e-2, "attn_branch/fwd")
-    row("attn_branch/fwd", branch_src, 1007, err, lambda: ab.attn_fwd(*args), lambda: ab.attn_fwd_plain(*args),
-        gemm_flops + attn_flops, in_bytes + mt * d * 2)
+    # rows 3 and 4, one launch each (csrc/attn_branch.cu): composite outputs,
+    # where several bf16 roundings upstream can each land an element one bf16
+    # ulp apart from the plain version, so they are held by relative L2 error
+    # (1e-2, ~2.5 bf16 ulps) with the max reported; timed beside their launch
+    # sequences; at S/2 here and at XL/2 (hd 72) on draws of their own
+    out_rows.update(branch_rows(torch, args, dy, "mega_attn+pallas"))
+    xl_args, xl_dy = attn_branch_args(torch, torch.Generator(device=dev).manual_seed(SEED + 13), dev, *BRANCH_XL)
+    out_rows.update({f"{key}:xl": dict(row_, path=BRANCH_XL_PATH, count_key=key)
+                     for key, row_ in branch_rows(torch, xl_args, xl_dy, BRANCH_XL_PATH).items()})
+    del xl_args, xl_dy
     got, want = ab.attn_res_fwd(*args), ab.attn_res_fwd_plain(*args)
     err = max(compare_rel(torch, g_, w_, 1e-2, f"attn_branch/res_fwd:{nm}")
               for nm, g_, w_ in zip(("y", "p", "attn"), got, want))
@@ -1550,23 +1620,10 @@ def train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x_s, a_s, gains_s, w0)
         in_bytes + 2 * mt * d * 2 + n * heads * t * t * 4, path="mega_attn+residual")
 
     # the backward's intermediates, from the plain versions, as inputs of the
-    # sub-kernel checks (the order of attn_branch._bwd_sequence)
+    # sub-kernel checks (the order of attn_branch._bwd_stages)
     stages = attn_bwd_stages(torch, k, ab, dy, args)
     rows_, g1, xf, h, qkv, attn, out, dout, dattn, dqkv, dh = stages
     terms = dgain_terms(torch, stages)
-
-    got, want = ab.attn_bwd(dy, *args), ab.attn_bwd_plain(dy, *args)
-    names = ("dx", "dshift", "dscale", "dgate", "dgain", "dw_qkv", "dw_out")
-    errs = []
-    for nm, g_, w_ in zip(names, got, want):
-        if nm == "dgain":
-            # one sum behind several bf16 roundings (h, dqkv, dout)
-            errs.append(compare_sum(torch, g_, w_, terms, "attn_branch/bwd:dgain"))
-        else:
-            errs.append(compare_rel(torch, g_, w_, 1e-2, f"attn_branch/bwd:{nm}"))
-    row("attn_branch/bwd", branch_src, 918, max(errs), lambda: ab.attn_bwd(dy, *args),
-        lambda: ab.attn_bwd_plain(dy, *args), 3 * gemm_flops + 14 * n * heads * t * t * hd,
-        in_bytes + mt * d * 2 + mt * d * 2 + 3 * n * d * 4 + 4 + 4 * d * d * 4)
 
     # the A.W products of the backward, on identical inputs
     for site, a_, w_, line in (("dattn", dout, wo, 636), ("dh", dqkv, wq, 683)):
@@ -1577,7 +1634,7 @@ def train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x_s, a_s, gains_s, w0)
             lambda a_=a_, w_=w_, site=site: k.mp_gemm(a_, w_, alpha=inv_d, out_dtype=f32, w_kn=True, site=site),
             lambda a_=a_, w_=w_: k.mp_gemm_plain(a_, w_, alpha=inv_d, out_dtype=f32, w_kn=True),
             2 * mt * kk * nn, mt * kk * 2 + kk * nn * 2 + mt * nn * 4,
-            library=lambda a_=a_, w_=w_: torch.matmul(a_, w_))
+            library=lambda a_=a_, w_=w_: torch.matmul(a_, w_), path="mega_attn+sequence")
 
     # residual-mode attention, on identical inputs
     case = cosine_case(torch, F, gen, dev, "cosine_attention/residual", qkv=qkv)
@@ -1599,7 +1656,7 @@ def train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x_s, a_s, gains_s, w0)
                                  ("modulate_bwd", 690, BWD_SRC)):
         case = passes[kernel]
         out_rows[f"attn_bwd/{kernel}"] = dict(pass_row(torch, case, line, source),
-                                              max_abs_err=case.check(case.run()), path="mega_attn+pallas")
+                                              max_abs_err=case.check(case.run()), path="mega_attn+sequence")
     # their own generators: every other row keeps the inputs it drew before
     # these checks were added
     mod_gen = torch.Generator(device=dev).manual_seed(SEED + 9)
@@ -1615,7 +1672,7 @@ def train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x_s, a_s, gains_s, w0)
     err = case.check(case.run())
     out_rows["attn_bwd/attention"] = dict(
         attention_row(torch, case, "attn_bwd/attention", BWD_SRC, f"{PALLAS}:643"), max_abs_err=err,
-        path="mega_attn+pallas")
+        path="mega_attn+sequence")
     attn_bwd_shape_checks(torch, F, gen, dev)
 
     out_rows["attn_bwd/dw"] = dw_kernel_row(torch, ab, gen, dev, dy, args, (dqkv, h, dout, attn), inv_d, terms)
@@ -1792,14 +1849,15 @@ def train_inputs(torch, dev, cfg, rows: int):
     return ds, batch, draws
 
 
-def train_phase(torch, dev, tag: str, paths: dict, expect: dict, steps: int) -> dict:
+def train_phase(torch, dev, tag: str, paths: dict, expect: dict, steps: int, around=None) -> dict:
     """Train steps at TRAIN_BATCH on synthetic latents for each config of
     ``paths`` ("f32", the float32 plain path, and "off", the bf16 plain
     path, among them). The first step (same weights, same injected draws on
     every path) is held against the float32 plain path by check_paths' rule,
     on the loss and on all gradients; then ``steps`` timed steps per path
     with the launch counts read around them and held to
-    ``expect[path](counts)``. Returns {path: launch counts}."""
+    ``expect[path](counts)``; ``around[path]()``, where given, is a context
+    the path runs inside. Returns {path: launch counts}."""
     from mapdit_tpu_torch.diffusion import create_diffusion
     from mapdit_tpu_torch.models import init_model
     from mapdit_tpu_torch.training import create_optimizer, create_train_state, make_train_step, warmup_flat_invsqrt
@@ -1814,70 +1872,96 @@ def train_phase(torch, dev, tag: str, paths: dict, expect: dict, steps: int) -> 
     tx = create_optimizer(warmup_flat_invsqrt(1e-2, 100, 1000))
     losses, grads, counts = {}, {}, {}
     for name, c in paths.items():
-        state = create_train_state(c, tx, seed=SEED, device=dev, state_dict=sd0)
-        step = make_train_step(c, diffusion, tx, stats_mean=ds.stats["mean"], stats_std=ds.stats["std"])
-        losses[name] = step(state, batch, draws=draws)["loss"].reshape(1)
-        grads[name] = torch.cat([p.grad.float().reshape(-1) for p in state.model.parameters()])
-        if name != "f32":
-            torch.cuda.synchronize()
-            reset_launch_counts()
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                metrics = step(state, batch)
-            last = float(metrics["loss"])
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            counts[name] = launch_counts()
-            phase(tag, path=name, model=json.dumps(c.flags_dict()["modulation"]), batch=TRAIN_BATCH, steps=steps,
-                  seconds=f"{seconds:.4f}", steps_per_s=f"{steps / seconds:.3f}",
-                  ms_per_step=f"{1e3 * seconds / steps:.4f}", first_loss=f"{float(losses[name]):.6f}",
-                  last_loss=f"{last:.6f}", launches=json.dumps({key: v for key, v in counts[name].items() if v}))
-            if not math.isfinite(last):
-                raise AssertionError(f"{tag}/{name}: non-finite loss")
-            check_counts(f"{tag}/{name}", counts[name], expect[name])
-        del state, step
-        torch.cuda.empty_cache()
+        with (around or {}).get(name, contextlib.nullcontext)():
+            state = create_train_state(c, tx, seed=SEED, device=dev, state_dict=sd0)
+            step = make_train_step(c, diffusion, tx, stats_mean=ds.stats["mean"], stats_std=ds.stats["std"])
+            losses[name] = step(state, batch, draws=draws)["loss"].reshape(1)
+            grads[name] = torch.cat([p.grad.float().reshape(-1) for p in state.model.parameters()])
+            if name != "f32":
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    metrics = step(state, batch)
+                last = float(metrics["loss"])
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                counts[name] = launch_counts()
+                phase(tag, path=name, model=json.dumps(c.flags_dict()["modulation"]), batch=TRAIN_BATCH, steps=steps,
+                      seconds=f"{seconds:.4f}", steps_per_s=f"{steps / seconds:.3f}",
+                      ms_per_step=f"{1e3 * seconds / steps:.4f}", first_loss=f"{float(losses[name]):.6f}",
+                      last_loss=f"{last:.6f}", launches=json.dumps({key: v for key, v in counts[name].items() if v}))
+                if not math.isfinite(last):
+                    raise AssertionError(f"{tag}/{name}: non-finite loss")
+                check_counts(f"{tag}/{name}", counts[name], expect[name])
+            del state, step
+            torch.cuda.empty_cache()
     kernel_paths = tuple(name for name in paths if name not in ("f32", "off"))
     check_paths(torch, f"{tag}-loss", losses, kernel_paths)
     check_paths(torch, f"{tag}-grads", grads, kernel_paths)
     return counts
 
 
-# kernel launches a call of the attention half-block's forward (row 3: qkv,
-# attention, out) and fused backward (row 4: modulate_fwd, qkv, attention,
-# out with the residual backward, dattn, attention_bwd, dh, modulate_bwd;
-# the f32 out product and the residual pass were two launches before)
-ROW3_LAUNCHES = 3
-ROW4_LAUNCHES = 8
+# kernel launches a call of the attention half-block's forward (row 3) and
+# fused backward (row 4): one each, csrc/attn_branch.cu; their launch
+# sequences (the route before it, and outside its domain): qkv, attention,
+# out, and modulate_fwd, qkv, attention, out with the residual backward,
+# dattn, attention_bwd, dh, modulate_bwd
+ROW3_LAUNCHES = 1
+ROW4_LAUNCHES = 1
+ROW3_SEQUENCE_LAUNCHES = 3
+ROW4_SEQUENCE_LAUNCHES = 8
+
+
+@contextlib.contextmanager
+def launch_sequences(ab):
+    """The attention half-block's one-launch kernels switched off: rows 3
+    and 4 run their launch sequences (attn_branch.BRANCH_KERNELS)."""
+    ab.BRANCH_KERNELS = False
+    try:
+        yield
+    finally:
+        ab.BRANCH_KERNELS = True
 
 
 def s2_train_phase(torch, dev, cfg) -> dict:
     """Phase 6: DiT-S/2 training on the plain path and through the
-    attention half-block kernels with both of their backwards."""
+    attention half-block kernels with both of their backwards, and with rows
+    3 and 4 as their launch sequences (the path the other rows' kernels in
+    the kernels line report their launches from)."""
     from mapdit_tpu_torch.ops.cuda import attn_branch as ab
 
     per_step = cfg.depth * TRAIN_STEPS
+    kernel = cfg.replace(block_kernel="mega_attn", attn_bwd="pallas")
     paths = {
         "f32": cfg.replace(compute_dtype="float32"),
         "off": cfg,
-        "mega_attn+pallas": cfg.replace(block_kernel="mega_attn", attn_bwd="pallas"),
+        "mega_attn+pallas": kernel,
+        "mega_attn+sequence": kernel,
         "mega_attn+residual": cfg.replace(block_kernel="mega_attn", attn_bwd="residual"),
     }
     expect = {
         "off": {},
         "mega_attn+pallas": mega_attn_expect(ab, cfg.depth, TRAIN_STEPS, remat=False),
+        "mega_attn+sequence": mega_attn_expect(ab, cfg.depth, TRAIN_STEPS, remat=False, sequence=True),
         "mega_attn+residual": {"attn_branch/res_fwd": per_step, "mp_gemm/qkv": per_step, "mp_gemm/out": per_step,
                                "cosine_attention/residual": per_step},
     }
-    counts = train_phase(torch, dev, "train", paths, expect, TRAIN_STEPS)
-    # row 4, the fused backward: its kernel launches a call, the forward's
-    # three (qkv, attention, out) taken from a block's share
-    kernels = sum(v for key, v in counts["mega_attn+pallas"].items() if not key.startswith("attn_branch/"))
-    row4 = kernels // per_step - ROW3_LAUNCHES
-    phase("check", what="train/mega_attn+pallas:row4-launches-a-call", launches=row4, expected=ROW4_LAUNCHES,
-          ok=row4 == ROW4_LAUNCHES)
-    if row4 != ROW4_LAUNCHES:
-        raise AssertionError(f"the fused attention backward made {row4} launches a call, not {ROW4_LAUNCHES}")
+    counts = train_phase(torch, dev, "train", paths, expect, TRAIN_STEPS,
+                         around={"mega_attn+sequence": lambda: launch_sequences(ab)})
+    # rows 3 and 4: their launches a call, one each; on the sequence path
+    # row 4's own kernels a call, the forward's three taken from a block's
+    # share
+    pallas, seq = counts["mega_attn+pallas"], counts["mega_attn+sequence"]
+    row3, row4 = pallas["attn_branch/fwd"] / per_step, pallas["attn_branch/bwd"] / per_step
+    seq_row4 = sum(v for key, v in seq.items() if not key.startswith("attn_branch/")) // per_step - ROW3_SEQUENCE_LAUNCHES
+    ok = (row3, row4, seq_row4) == (ROW3_LAUNCHES, ROW4_LAUNCHES, ROW4_SEQUENCE_LAUNCHES)
+    phase("check", what="train/mega_attn+pallas:launches-a-call", row3=row3, row4=row4,
+          expected=f"{ROW3_LAUNCHES},{ROW4_LAUNCHES}", sequence_row4=seq_row4, sequence_expected=ROW4_SEQUENCE_LAUNCHES,
+          ok=ok)
+    if not ok:
+        raise AssertionError(f"rows 3 and 4 made {row3} and {row4} launches a call ({ROW3_LAUNCHES}, {ROW4_LAUNCHES} "
+                             f"expected), the backward's sequence {seq_row4} ({ROW4_SEQUENCE_LAUNCHES})")
     return counts
 
 
@@ -1914,17 +1998,22 @@ def timed_steps(torch, state, step, batch, runs: int) -> dict:
             "loss": float(metrics["loss"])}
 
 
-def mega_attn_expect(ab, depth: int, steps: int, remat: bool) -> dict:
-    """The wrapper launches of ``steps`` train steps on mega_attn + pallas:
-    the forward and the backward's recompute each launch the qkv product,
-    the backward's out product is out_gate_residual_bwd's, and the dW
-    products stay f32 torch.matmul (the switch is off by default); under
-    remat every block's forward runs again in the backward: the forward's
-    kernels twice."""
+def mega_attn_expect(ab, depth: int, steps: int, remat: bool, forwards: int = 1, sequence: bool = False) -> dict:
+    """The wrapper launches of ``steps`` train steps on mega_attn + pallas
+    with ``forwards`` forwards a step taking gradient or not (under remat
+    every block's forward runs again in the backward): one launch of row 3
+    (``csrc/attn_branch.cu``) a block and forward, one of row 4 a block and
+    backward; the dW products are library calls (the switch is off by
+    default). ``sequence``: with the one-launch kernels switched off, the
+    launch sequences in their place (the forward and the backward's
+    recompute each launch the qkv product, the backward's out product is
+    out_gate_residual_bwd's)."""
     per = depth * steps
+    fwd = (2 if remat else 1) * forwards
+    if not sequence:
+        return {"attn_branch/fwd": fwd * per, "attn_branch/bwd": per}
     bwd = {key: per for key in ab.LAUNCHES if key.startswith("attn_bwd/") and key != "attn_bwd/dw"}
-    fwd = 2 if remat else 1
-    return {"attn_branch/fwd": fwd * per, "attn_branch/bwd": per, "mp_gemm/qkv": (fwd + 1) * per,
+    return {"attn_branch/fwd/sequence": fwd * per, "attn_branch/bwd/sequence": per, "mp_gemm/qkv": (fwd + 1) * per,
             "mp_gemm/out": fwd * per, "mp_gemm/dattn": per, "mp_gemm/dh": per, "cosine_attention": fwd * per,
             "cosine_attention/residual": per, **bwd}
 
@@ -2314,12 +2403,8 @@ def train_cli_phase(torch, dev, tmp: str):
         return exp, rows, counts
 
     def expected(steps, dw):
-        per = depth * steps
-        bwd = {key: per for key in ab.LAUNCHES if key.startswith("attn_bwd/")}
-        bwd["attn_bwd/dw"] = 2 * per if dw else 0  # one launch for each of the two products
-        return {"attn_branch/fwd": per, "attn_branch/bwd": per, "mp_gemm/qkv": 2 * per, "mp_gemm/out": per,
-                "mp_gemm/dattn": per, "mp_gemm/dh": per, "cosine_attention": per, "cosine_attention/residual": per,
-                **{key: v for key, v in bwd.items() if v}}
+        # one launch for each of the two dW products with the switch on
+        return {**mega_attn_expect(ab, depth, steps, remat=False), **({"attn_bwd/dw": 2 * depth * steps} if dw else {})}
 
     def rate(rows):
         """steps/s from the third logged step to the checkpoint's (the first
@@ -3966,7 +4051,6 @@ def bench_phase(torch, dev) -> None:
     launches (one dit_stack a model call; the cached chain one a block it
     runs), the 32 x 32 run resolves auto to the plain path (no launch), the
     train run with --grad-accum 4 phase 6's launches per micro-batch."""
-    import contextlib
     import io
 
     from mapdit_tpu_torch import bench
@@ -4451,19 +4535,12 @@ def distill_step_launches(depth: int) -> dict:
     block, run without a gradient), whatever the rows a call."""
     from mapdit_tpu_torch.ops.cuda import attn_branch as ab
 
-    forwards = 3  # the teacher pair and the student
-    expect = {key: depth for key in ab.LAUNCHES if key.startswith("attn_bwd/") and key != "attn_bwd/dw"}
-    expect.update({"attn_branch/fwd": forwards * depth, "attn_branch/bwd": depth,
-                   "mp_gemm/qkv": (forwards + 1) * depth, "mp_gemm/out": forwards * depth,
-                   "mp_gemm/dattn": depth, "mp_gemm/dh": depth, "cosine_attention": forwards * depth,
-                   "cosine_attention/residual": depth})
-    return expect
+    return mega_attn_expect(ab, depth, 1, remat=False, forwards=3)  # the teacher pair and the student
 
 
 def distill_phase(torch, dev, exp: str, tmp: str, train_counts: dict) -> None:
     """Phase 8d: progressive distillation of phase 8's run A, then its
     2-step student sampled and served (module docstring)."""
-    import contextlib
     import io
     import logging
     import re
@@ -4999,7 +5076,7 @@ def main() -> int:
     # more: their rows are checked and timed, and left out of the kernels
     # line.
     for name in ("mp_gemm/qkv", "mp_gemm/out", "cosine_attention"):
-        rows[name]["path"] = "mega_attn+pallas"
+        rows[name]["path"] = "mega_attn+sequence"
     for name in ("mp_gemm/modulation", "mp_gemm/fc1", "mp_gemm/fc2"):
         off_path = rows.pop(name)
         phase("time", kernel=name, ms=f"{off_path['ms']:.4f}", plain_ms=f"{off_path['plain_ms']:.4f}",
@@ -5171,10 +5248,11 @@ def main() -> int:
     kernels = []
     for name, row in rows.items():
         path, count_from = row.pop("path", None), row.pop("count_from", None)
+        count_key = row.pop("count_key", name)
         if count_from is not None:
             count = family_launches[count_from[0]][count_from[1]]
         elif path is not None:
-            count = train_launches[path][name]
+            count = train_launches[path][count_key]
         else:
             count = block_launches[name] if name == "fused_dit_block" else launches[name]
         if count == 0:

@@ -156,6 +156,7 @@ __device__ __forceinline__ float bf16_hi(uint32_t u) { return __uint_as_float(u 
 // the swizzle, then the full and empty barriers.
 template <int STAGES>
 struct Ring {
+  static constexpr int N_STAGES = STAGES;
   uint32_t base;
   __device__ __forceinline__ uint32_t stage(int s) const { return base + s * STAGE_BYTES; }
   __device__ __forceinline__ uint32_t full(int s) const { return base + STAGES * STAGE_BYTES + 8 * s; }

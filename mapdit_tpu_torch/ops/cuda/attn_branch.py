@@ -14,13 +14,21 @@ the reference VJP. The half-block is
 
   y = mp_sum(x, gate * out_proj(cosine_attention(qkv(modulate(x)))), 0.3)
 
-with shift, scale and gate packed once into one (N, 3D) f32 row buffer (the
-model hands them in as bf16, so the upcast is exact) and the gain read from
-device memory. The forwards are three launches: ``mp_gemm`` with the
-modulate prologue, ``cosine_attention`` (the residual mode for row 5), and
-``mp_gemm`` with the gated-residual epilogue. The fused backward recomputes
-the forward and runs the hand VJP in this order (``csrc/attn_branch_bwd.cu``
-for the stages between the products):
+On the card rows 3 and 4 are one launch each of ``csrc/attn_branch.cu``
+(:func:`attn_branch_fwd`, :func:`attn_branch_bwd`: a persistent work list
+laid out by :func:`branch_plan`, shift, scale and gate read in place) where
+:func:`branch_route` takes the shape: bf16, head widths 64 and 72, an even
+T <= 64 dividing 128, D a multiple of 8, 16-byte aligned operands. Elsewhere,
+and for row 5, the half-block runs as a launch sequence of other rows'
+kernels (:func:`fwd_launch_sequence`, :func:`bwd_launch_sequence`, counted as
+``attn_branch/fwd/sequence`` and ``attn_branch/bwd/sequence``), with shift,
+scale and gate packed once into one (N, 3D) f32 row buffer (the model hands
+them in as bf16, so the upcast is exact) and the gain read from device
+memory: ``mp_gemm`` with the modulate prologue, ``cosine_attention`` (the
+residual mode for row 5), and ``mp_gemm`` with the gated-residual epilogue.
+The fused backward recomputes the forward and runs the hand VJP in this
+order, the one-launch kernel's stages too (``csrc/attn_branch_bwd.cu`` for
+the sequence's stages between the products):
 
   h = modulate_fwd(x)                      bf16, also the dW_qkv operand
   qkv = h . Wqkv^T / sqrt(D)               mp_gemm
@@ -36,11 +44,15 @@ for the stages between the products):
                                            dx = dy*0.7/rd + du*scale: the
                                            residual's direct path is formed
                                            here, no f32 dx0 array
-  dWqkv = dqkv^T h / sqrt(D), dWout = dout^T attn / sqrt(D)   torch.matmul, f32,
-                                           or dw_gemm (csrc/dw_gemm.cu)
+  dWqkv = dqkv^T h / sqrt(D), dWout = dout^T attn / sqrt(D)   one bf16 product
+                                           each with f32 sums and output, or
+                                           dw_gemm (csrc/dw_gemm.cu)
 
-The two dW products are plain matmuls, as the Pallas package leaves them to
-XLA outside its streaming kernel; where ``16*D*D <= DW_IN_KERNEL_BUDGET``
+The two dW products are library products, as the Pallas package leaves them
+to XLA outside its streaming kernel (``dot_general`` of the bf16 operands
+with ``preferred_element_type=f32``: every product of two bf16 values is
+exact in f32, so only the order of the sums differs); where
+``16*D*D <= DW_IN_KERNEL_BUDGET``
 (the Pallas package's predicate for its in-kernel-dW variant, off by default
 there and here: the train CLI on the card, bound by the host, ran no faster
 with it, PERF.md) they go through :func:`dw_gemm`, which contracts the bf16
@@ -54,21 +66,31 @@ softmax of the pre-normalised bf16 q/k; h, dqkv, attn and dout leave as bf16.
 
 Every wrapper takes its kernel for a CUDA tensor (raising on what it does not
 take) and its plain PyTorch version for a CPU tensor. ``LAUNCHES`` counts
-launches; :func:`reset_launch_counts` zeroes them.
+launches (``attn_branch/fwd`` and ``attn_branch/bwd``: of the one-launch
+kernels; ``attn_branch/res_fwd``: calls of row 5's sequence);
+:func:`reset_launch_counts` zeroes them.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
+from typing import Optional
 
 import torch
 
 from mapdit_tpu_torch.ops.cuda.dit_block import (
+    H100_SMS,
     RES_DENOM,
     RES_T,
     NORM_EPS,
     ATTENTION_HEAD_WIDTHS,
+    STACK_TILE,
+    STACK_K,
+    StackProduct,
     _DTYPE_CODE,
+    _cdiv,
     _mp_gemm_splits,
     _raise_on,
     _require_cuda,
@@ -82,6 +104,14 @@ from mapdit_tpu_torch.ops.cuda.dit_block import (
     needs_grad,
     vjp_through,
 )
+from mapdit_tpu_torch.ops.cuda.dit_block_tp import (
+    TP_PLAN_HEADER,
+    TP_PLAN_STAGE_WORDS,
+    TP_SYNC_DONE,
+    TpPlan,
+    TpStage,
+    _row_operands,
+)
 from mapdit_tpu_torch.ops.mp import mp_sum
 
 LAUNCHES = {
@@ -93,6 +123,8 @@ LAUNCHES = {
     "attn_branch/fwd": 0,
     "attn_branch/res_fwd": 0,
     "attn_branch/bwd": 0,
+    "attn_branch/fwd/sequence": 0,
+    "attn_branch/bwd/sequence": 0,
 }
 BWD_IMPLS = ("pallas", "residual", "reference")
 DX_FAC = (1.0 - RES_T) / RES_DENOM
@@ -110,6 +142,30 @@ MODULATE_COLUMNS = 8
 # rows of one mp_gemm tile: the CUDA out_gate_residual_bwd sums each sample
 # inside a tile, so T must divide it
 GEMM_TILE_ROWS = 128
+# the one-launch kernels of rows 3 and 4 (csrc/attn_branch.cu): their lists
+# (stage kinds: dit_block_tp.TP_STAGE_KINDS), the plan's words (the TP plans'
+# header, one group a stage), the longest sequence (one tile of 64 queries
+# and keys), the trace's words a CTA.
+# BRANCH_KERNELS False runs the launch sequences in their place (the
+# yardstick: chip_smoke.py trains on both)
+BRANCH_STAGES = {
+    "fwd": ("pre", "qkv", "attention", "out"),
+    "bwd": ("pre", "qkv", "attention", "out", "dattn", "attention_bwd", "dh"),
+}
+BRANCH_PLAN_WORDS = TP_PLAN_HEADER + 7 * TP_PLAN_STAGE_WORDS
+BRANCH_MAX_T = 64
+# token rows of a pre item: the most of these whose rows of x (ceil(D / 64)
+# boxes of 64 columns, bf16) fill one 32 KB ring stage
+BRANCH_PRE_ROWS = (32, 16, 8)
+BRANCH_STAGE_BYTES = 2 * STACK_TILE * STACK_K * 2
+BRANCH_MAX_D = BRANCH_STAGE_BYTES // (BRANCH_PRE_ROWS[-1] * 2)  # the widest D whose 8 rows fill a stage
+BRANCH_TRACE_WORDS = 24
+BRANCH_KERNELS = True
+# row splits of a dW product on the card, each one bf16 product with f32
+# output, the splits' sums added in order: one product over the N*T rows of
+# DiT-XL/2 at 256 lands 1.7-1.9e-5 (relative L2) off the f32 pair, four hold
+# it to 4-5e-6 (mapdit_tpu_torch/tools/bench_attn_branch.py)
+DW_SPLITS = (4, 2, 1)
 
 
 def dw_in_kernel(d: int) -> bool:
@@ -514,14 +570,27 @@ def _fwd(x, shift, scale, gate, gain, w_qkv, w_out, heads, residual, gemm, atten
     return (y, probs, attn.reshape(x.shape)) if residual else y
 
 
+def fwd_launch_sequence(x, shift, scale, gate, gain, w_qkv, w_out, heads: int):
+    """Row 3 as three launches of other rows' kernels (``mp_gemm`` with the
+    modulate prologue, ``cosine_attention``, ``mp_gemm`` with the gated
+    residual epilogue): the route outside :func:`attn_branch_fwd`'s domain,
+    and its yardstick."""
+    return _fwd(x, shift, scale, gate, gain, w_qkv, w_out, heads, False, mp_gemm, cosine_attention)
+
+
 def attn_fwd(x, shift, scale, gate, gain, w_qkv, w_out, heads: int):
     """Row 3: the attention half-block forward. x (N,T,D); shift, scale,
     gate (N,D); gain one f32 value; w_qkv (3D,D), w_out (D,D) folded.
-    Returns the new stream in x's type."""
-    y = _fwd(x, shift, scale, gate, gain, w_qkv, w_out, heads, False, mp_gemm, cosine_attention)
-    if x.device.type == "cuda":
-        LAUNCHES["attn_branch/fwd"] += 1
-    return y
+    Returns the new stream in x's type. On the card: one launch of
+    :func:`attn_branch_fwd` where :func:`branch_route` takes the call, else
+    :func:`fwd_launch_sequence` (counted as ``attn_branch/fwd/sequence``)."""
+    _check(x, shift, scale, gate, gain, w_qkv, w_out, heads)
+    if x.device.type == "cpu":
+        return attn_fwd_plain(x, shift, scale, gate, gain, w_qkv, w_out, heads)
+    if branch_route(x, w_qkv, w_out, heads) == "kernel":
+        return attn_branch_fwd(x, shift, scale, gate, gain, w_qkv, w_out, heads)
+    LAUNCHES["attn_branch/fwd/sequence"] += 1
+    return fwd_launch_sequence(x, shift, scale, gate, gain, w_qkv, w_out, heads)
 
 
 def attn_fwd_plain(x, shift, scale, gate, gain, w_qkv, w_out, heads: int):
@@ -532,7 +601,9 @@ def attn_fwd_plain(x, shift, scale, gate, gain, w_qkv, w_out, heads: int):
 def attn_res_fwd(x, shift, scale, gate, gain, w_qkv, w_out, heads: int):
     """Row 5: :func:`attn_fwd` that also returns the residuals of the plain
     backward, the probabilities p (N, heads, T, T) f32 (normalised before
-    P.V) and the pre-projection attention (N, T, D) in the weights' type."""
+    P.V) and the pre-projection attention (N, T, D) in the weights' type.
+    On the card a launch sequence (as row 3's), counted as
+    ``attn_branch/res_fwd``."""
     out = _fwd(x, shift, scale, gate, gain, w_qkv, w_out, heads, True, mp_gemm, cosine_attention)
     if x.device.type == "cuda":
         LAUNCHES["attn_branch/res_fwd"] += 1
@@ -544,8 +615,61 @@ def attn_res_fwd_plain(x, shift, scale, gate, gain, w_qkv, w_out, heads: int):
     return _fwd(x, shift, scale, gate, gain, w_qkv, w_out, heads, True, mp_gemm_plain, cosine_attention_plain)
 
 
-def _bwd_sequence(dy, x, rows, gain, w_qkv, w_out, heads, gemm, attention, out_gate_bwd, attn_bwd_k, mod_fwd,
-                  mod_bwd, dw):
+def dgain_terms(dh, x, rows, gain, tokens):
+    """The terms of dgain's sum, dh * (shift - x*scale), f32, as
+    :func:`modulate_bwd_plain` forms them (shift at column 0 and scale at
+    column D of the rows)."""
+    shift, scale = _modulate_rows(rows, x.shape[1], tokens)
+    return dh * (shift - x.float() * scale)
+
+
+def dgain_in_tile_order(terms, gain):
+    """dgain as :func:`attn_branch_bwd` orders its sums: each 128 x 128
+    tile's terms summed, the tiles' sums added in tile order (row tile
+    major), the total divided by sqrt((1-g)^2 + g^2). Returns (1,) f32."""
+    m, d = terms.shape
+    total = None
+    for r0 in range(0, m, STACK_TILE):
+        for c0 in range(0, d, STACK_TILE):
+            part = terms[r0 : r0 + STACK_TILE, c0 : c0 + STACK_TILE].contiguous().sum()
+            total = part if total is None else total + part
+    g = gain.reshape(()).float()
+    return (total / torch.sqrt((1.0 - g) ** 2 + g**2)).reshape(1)
+
+
+def _dw_product(a, b, alpha):
+    """alpha * a^T . b (C (P, Q) f32) for a (M, P), b (M, Q) in the weights'
+    type, as the Pallas package's ``dot_general`` writes it: bf16 operands
+    with f32 sums and an f32 result (products of bf16 values are exact in
+    f32). On the card the rows split into the first of DW_SPLITS that
+    divides M, one batched bf16 product with f32 output, the splits' sums
+    added in order; on the CPU the product of the f32 upcasts."""
+    if a.device.type == "cpu":
+        return (a.t().float() @ b.float()) * alpha
+    m = a.shape[0]
+    splits = next(s for s in DW_SPLITS if m % s == 0)
+    if splits == 1:
+        return torch.mm(a.t(), b, out_dtype=torch.float32) * alpha
+    a3, b3 = a.reshape(splits, m // splits, a.shape[1]), b.reshape(splits, m // splits, b.shape[1])
+    return torch.bmm(a3.transpose(1, 2), b3, out_dtype=torch.float32).sum(0) * alpha
+
+
+def _dw_pair(dqkv, h, dout, attn, inv_d, dw):
+    """The two weight-gradient products: through ``dw`` (dw_gemm, the
+    in-kernel-dW variant) where :func:`dw_in_kernel` holds, else
+    :func:`_dw_product`. h, dqkv, attn and dout are in the weights' type, as
+    the Pallas kernel rounds them before its products."""
+    if dw_in_kernel(h.shape[1]):
+        return dw(dqkv, h, inv_d), dw(dout, attn, inv_d)
+    return _dw_product(dqkv, h, inv_d), _dw_product(dout, attn, inv_d)
+
+
+def _bwd_stages(dy, x, rows, gain, w_qkv, w_out, heads, gemm, attention, out_gate_bwd, attn_bwd_k, mod_fwd,
+                mod_bwd, dgain_tiles):
+    """The backward's stages through the given kernels: ((dx, dshift,
+    dscale, dgate, dgain), (h, attn, dout, dqkv)), the second the dW
+    products' operands; dgain_tiles sums dgain in the one-launch kernel's
+    order."""
     n, t, d = x.shape
     inv_d = 1.0 / math.sqrt(d)
     dt = w_qkv.dtype
@@ -560,21 +684,23 @@ def _bwd_sequence(dy, x, rows, gain, w_qkv, w_out, heads, gemm, attention, out_g
     dqkv = attn_bwd_k(qkv, dattn, t, heads, dt)
     dh = gemm(dqkv, w_qkv, alpha=inv_d, out_dtype=f32, w_kn=True, site="dh")
     dx, dshift, dscale, dgain = mod_bwd(dh, xf, rows, gain, dyf, t)
-    if dw_in_kernel(d):
-        # h, dqkv, attn and dout are in the weights' type here, as the Pallas
-        # kernel rounds them before its products
-        dw_qkv, dw_out = dw(dqkv, h, inv_d), dw(dout, attn, inv_d)
-    else:
-        dw_qkv = (dqkv.t().float() @ h.float()) * inv_d
-        dw_out = (dout.t().float() @ attn.float()) * inv_d
-    return dx.reshape(n, t, d), dshift, dscale, dgate, dgain, dw_qkv, dw_out
+    if dgain_tiles:
+        dgain = dgain_in_tile_order(dgain_terms(dh, xf, rows, gain, t), gain)
+    return (dx.reshape(n, t, d), dshift, dscale, dgate, dgain), (h, attn, dout, dqkv)
 
 
-def _bwd(dy, x, shift, scale, gate, gain, w_qkv, w_out, heads, kernels):
+def _bwd(dy, x, shift, scale, gate, gain, w_qkv, w_out, heads, kernels, dgain_tiles=False, operands=False):
+    """The seven cotangents through ``kernels`` (the last of them the dW
+    product of the in-kernel-dW variant), or with ``operands`` the five
+    before the dW pair and its operands (h, attn, dout, dqkv)."""
     _check(x, shift, scale, gate, gain, w_qkv, w_out, heads)
     rows, g = _pack(shift, scale, gate, gain)
-    return _bwd_sequence(dy.contiguous(), x.contiguous(), rows, g, w_qkv.contiguous(), w_out.contiguous(), heads,
-                         *kernels)
+    grads, ops = _bwd_stages(dy.contiguous(), x.contiguous(), rows, g, w_qkv.contiguous(), w_out.contiguous(), heads,
+                             *kernels[:-1], dgain_tiles)
+    if operands:
+        return (*grads, ops)
+    h, attn, dout, dqkv = ops
+    return (*grads, *_dw_pair(dqkv, h, dout, attn, 1.0 / math.sqrt(x.shape[-1]), kernels[-1]))
 
 
 _KERNELS = (mp_gemm, cosine_attention, out_gate_residual_bwd, attention_bwd, modulate_fwd, modulate_bwd, dw_gemm)
@@ -582,20 +708,258 @@ _PLAIN = (mp_gemm_plain, cosine_attention_plain, out_gate_residual_bwd_plain, at
           modulate_bwd_plain, dw_gemm_plain)
 
 
+def bwd_launch_sequence(dy, x, shift, scale, gate, gain, w_qkv, w_out, heads: int):
+    """Row 4 as eight launches of other rows' kernels (modulate_fwd, qkv,
+    attention, out with the residual backward, dattn, attention_bwd, dh,
+    modulate_bwd) and the dW pair: the route outside
+    :func:`attn_branch_bwd`'s domain, and its yardstick."""
+    return _bwd(dy, x, shift, scale, gate, gain, w_qkv, w_out, heads, _KERNELS)
+
+
 def attn_bwd(dy, x, shift, scale, gate, gain, w_qkv, w_out, heads: int):
     """Row 4: the fused backward. Returns the f32 cotangents (dx in x's
-    type) of x, shift, scale, gate, gain (shape (1,)), w_qkv and w_out.
-    Where :func:`dw_in_kernel` holds it is row 4': the two weight-gradient
-    products run through :func:`dw_gemm` instead of f32 ``torch.matmul``."""
-    grads = _bwd(dy, x, shift, scale, gate, gain, w_qkv, w_out, heads, _KERNELS)
-    if x.device.type == "cuda":
-        LAUNCHES["attn_branch/bwd"] += 1
-    return grads
+    type) of x, shift, scale, gate, gain (shape (1,)), w_qkv and w_out. On
+    the card: one launch of :func:`attn_branch_bwd` and the dW pair where
+    :func:`branch_route` takes the call, else :func:`bwd_launch_sequence`
+    (counted as ``attn_branch/bwd/sequence``). Where :func:`dw_in_kernel`
+    holds it is row 4': the two weight-gradient products run through
+    :func:`dw_gemm`. On the CPU: :func:`attn_bwd_plain`'s math, through the
+    wrappers."""
+    if x.device.type == "cpu":
+        return _bwd(dy, x, shift, scale, gate, gain, w_qkv, w_out, heads, _KERNELS, dgain_tiles=True)
+    _check(x, shift, scale, gate, gain, w_qkv, w_out, heads)
+    if branch_route(x, w_qkv, w_out, heads, dy) == "kernel":
+        n, t, d = x.shape
+        dx, dshift, dscale, dgate, dgain, (h, attn, dout, dqkv) = attn_branch_bwd(
+            dy, x, shift, scale, gate, gain, w_qkv, w_out, heads)
+        dw_qkv, dw_out = _dw_pair(dqkv, h, dout, attn, 1.0 / math.sqrt(d), _KERNELS[-1])
+        return dx, dshift, dscale, dgate, dgain, dw_qkv, dw_out
+    LAUNCHES["attn_branch/bwd/sequence"] += 1
+    return bwd_launch_sequence(dy, x, shift, scale, gate, gain, w_qkv, w_out, heads)
 
 
 def attn_bwd_plain(dy, x, shift, scale, gate, gain, w_qkv, w_out, heads: int):
-    """Plain version of :func:`attn_bwd`."""
-    return _bwd(dy, x, shift, scale, gate, gain, w_qkv, w_out, heads, _PLAIN)
+    """Plain version of :func:`attn_bwd`: the sequence's plain versions,
+    with dgain summed in :func:`attn_branch_bwd`'s order
+    (:func:`dgain_in_tile_order`)."""
+    return _bwd(dy, x, shift, scale, gate, gain, w_qkv, w_out, heads, _PLAIN, dgain_tiles=True)
+
+
+def attn_branch_bwd_plain(dy, x, shift, scale, gate, gain, w_qkv, w_out, heads: int):
+    """Plain version of :func:`attn_branch_bwd`: :func:`attn_bwd_plain`
+    before its dW pair, with the pair's operands."""
+    return _bwd(dy, x, shift, scale, gate, gain, w_qkv, w_out, heads, _PLAIN, dgain_tiles=True, operands=True)
+
+
+# ---------------------------------------------------------------------------
+# rows 3 and 4 as one launch each (csrc/attn_branch.cu)
+
+
+def check_branch_shape(tokens: int, d: int, heads: int) -> None:
+    """Raise unless ``csrc/attn_branch.cu`` takes T = ``tokens`` at width D
+    in ``heads`` heads: head widths 64 and 72 (the attention tiles' template
+    instances, every registry model's), D a multiple of 8 (TMA rows, 16-byte
+    accesses) up to BRANCH_MAX_D (a pre item's rows of x in one ring stage),
+    and an even T <= BRANCH_MAX_T that divides 128 (one tile of queries and
+    keys; a sample inside one row tile, so its sums are the tile's)."""
+    hd = d // heads if heads > 0 and d % heads == 0 else 0
+    if hd not in ATTENTION_HEAD_WIDTHS:
+        raise ValueError(f"attn_branch on CUDA takes head widths {ATTENTION_HEAD_WIDTHS}, got D={d} in {heads} heads")
+    if d % 8 or d > BRANCH_MAX_D:
+        raise ValueError(f"attn_branch on CUDA takes D a multiple of 8 up to {BRANCH_MAX_D}, got {d}")
+    if not 2 <= tokens <= BRANCH_MAX_T or tokens % 2 or STACK_TILE % tokens:
+        raise ValueError(f"attn_branch on CUDA takes an even T <= {BRANCH_MAX_T} dividing {STACK_TILE}, got T={tokens}")
+
+
+def branch_route(x, w_qkv, w_out, heads: int, dy=None) -> str:
+    """``"kernel"`` (one launch of ``csrc/attn_branch.cu``) where the call
+    lies in its domain: bf16 x and weights, :func:`check_branch_shape`,
+    16-byte aligned x, weights (and dy); else ``"sequence"`` (the launch
+    sequence, which raises where it raises). BRANCH_KERNELS False: always
+    ``"sequence"``."""
+    _, t, d = x.shape
+    try:
+        check_branch_shape(t, d, heads)
+    except ValueError:
+        return "sequence"
+    tensors = (x, w_qkv, w_out) + (() if dy is None else (dy,))
+    ok = (BRANCH_KERNELS and x.dtype == w_qkv.dtype == w_out.dtype == torch.bfloat16
+          and all(z.data_ptr() % 16 == 0 for z in tensors))
+    return "kernel" if ok else "sequence"
+
+
+@functools.lru_cache(maxsize=None)
+def branch_plan(kind: str, n: int, t: int, d: int, heads: int, ctas: int = H100_SMS) -> TpPlan:
+    """The plan of one launch of ``csrc/attn_branch.cu`` for N samples of T
+    tokens at width D in ``heads`` heads: ``kind`` "fwd" (row 3: pre, qkv,
+    attention, out) or "bwd" (row 4: then dattn, attention_bwd, dh), on
+    ``ctas`` resident CTAs, pre items of the most of BRANCH_PRE_ROWS token
+    rows whose rows of x fill one ring stage. A ``dit_block_tp.TpPlan`` (the TP kernels' list
+    machinery: stages, waits, counter targets, words, scratch layout), its
+    products unsplit; the backward's dgain ticket is the sync word after
+    the counters. Scratch: h, qkv and attn (and dout, dattn, dqkv, one dgain
+    partial a dh tile)."""
+    if kind not in BRANCH_STAGES:
+        raise ValueError(f"kind must be one of {tuple(BRANCH_STAGES)}, got {kind!r}")
+    check_branch_shape(t, d, heads)
+    pre_rows = next(r for r in BRANCH_PRE_ROWS if _cdiv(d, 64) * r * 128 <= BRANCH_STAGE_BYTES)
+    m = n * t
+    prods = {"qkv": StackProduct("qkv", m, 3 * d, d, 1), "out": StackProduct("out", m, d, d, 1),
+             "dattn": StackProduct("dattn", m, d, d, 1), "dh": StackProduct("dh", m, d, 3 * d, 1)}
+    stages = []
+    for name in BRANCH_STAGES[kind]:
+        if name == "pre":
+            stages.append(TpStage(name, _cdiv(m, pre_rows)))
+        elif name in prods:
+            stages.append(TpStage(name, prods[name].items, prods[name]))
+        else:
+            stages.append(TpStage(name, _cdiv(n * heads, 2)))
+    words = TP_SYNC_DONE + 8 * len(stages) * _cdiv(m, STACK_TILE)
+    tickets = {}
+    if kind == "bwd":
+        tickets["dgain"] = words
+        words += 1
+    sizes = {"h": m * d * 2, "qkv": m * 3 * d * 4, "attn": m * d * 2}
+    if kind == "bwd":
+        sizes.update(dout=m * d * 2, dattn=m * d * 4, dqkv=m * 3 * d * 2, dgain_partial=prods["dh"].tiles * 4)
+    layout, offset = {}, 0
+    for name, size in sizes.items():
+        layout[name] = offset
+        offset += _cdiv(size, 256) * 256
+    return TpPlan(
+        kernel=f"branch_{kind}", ctas=ctas, samples=n, tokens=t, heads=heads, pre_rows=pre_rows, modulation=None,
+        stages=tuple(stages), tickets=tickets, sync_words=words, layout=layout, workspace_bytes=offset,
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _branch_ctas(device_index: int, hd: int) -> int:
+    from mapdit_tpu_torch.ops.cuda import build
+
+    lib = build.library("attn_branch")
+    with torch.cuda.device(device_index):
+        ctas = lib.attn_branch_resident_ctas(hd)
+    if ctas < 1:
+        _raise_on(-ctas, lib, "attn_branch")
+    return ctas
+
+
+@functools.lru_cache(maxsize=None)
+def _branch_state(plan: TpPlan, device_index: int) -> tuple:
+    """The plan's words for the launch (host) and its buffer on the card:
+    made once a plan and device (a copy to the card, so not while a CUDA
+    graph is being captured); the kernel leaves the buffer's sync words
+    zeroed after every launch."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("attn_branch: call the kernel once at this shape before capturing a CUDA graph (its "
+                           "plan's buffer is copied to the card at the first call)")
+    words = plan.words()
+    words = words + (0,) * (BRANCH_PLAN_WORDS - len(words))
+    buffer = torch.tensor(plan.table(), dtype=torch.int32, device=torch.device("cuda", device_index))
+    return (ctypes.c_int * len(words))(*words), buffer
+
+
+def _branch_call(kind, x, shift, scale, gate, gain, w_qkv, w_out, heads, trace):
+    """What both launches share: the checks, the plan, its state, the
+    workspace and the operands' pointers."""
+    n, t, d = x.shape
+    _require_cuda(x, gain, w_qkv, w_out)
+    check_branch_shape(t, d, heads)
+    if x.dtype != torch.bfloat16 or w_qkv.dtype != torch.bfloat16 or w_out.dtype != torch.bfloat16:
+        raise ValueError("attn_branch on CUDA takes bf16 x and weights")
+    x, w_qkv, w_out = x.contiguous(), w_qkv.contiguous(), w_out.contiguous()
+    if any(z.data_ptr() % 16 for z in (x, w_qkv, w_out)):
+        raise ValueError("attn_branch reads its operands with TMA and 16-byte loads: they must be 16-byte aligned")
+    g = gain.detach().reshape(1)
+    if g.dtype != torch.float32:
+        g = g.float()
+    shift, scale, gate, rows_bf16 = _row_operands(x, shift, scale, gate)
+    dev = x.get_device()
+    plan = branch_plan(kind, n, t, d, heads, _branch_ctas(dev, d // heads))
+    words, buffer = _branch_state(plan, dev)
+    work = torch.empty(plan.workspace_bytes, dtype=torch.uint8, device=x.device)
+    if trace is not None and (trace.dtype != torch.int64 or trace.numel() < plan.ctas * BRANCH_TRACE_WORDS
+                              or trace.device != x.device):
+        raise ValueError(f"trace must be int64 with {plan.ctas * BRANCH_TRACE_WORDS} words on {x.device}")
+    rows = (shift.data_ptr(), shift.stride(0), scale.data_ptr(), scale.stride(0), gate.data_ptr(), gate.stride(0),
+            int(rows_bf16), g.data_ptr())
+    return plan, words, buffer, work, (x, w_qkv, w_out), rows, None if trace is None else trace.data_ptr()
+
+
+def _view(work, plan, name, shape, dtype):
+    size = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+    off = plan.layout[name]
+    return work[off : off + size].view(dtype).view(*shape)
+
+
+def attn_branch_fwd(x, shift, scale, gate, gain, w_qkv, w_out, heads: int, *, trace: Optional[torch.Tensor] = None):
+    """Row 3 as one launch of ``attn_branch_fwd`` (``csrc/attn_branch.cu``)
+    on CUDA tensors in its domain (:func:`check_branch_shape`, bf16 x and
+    weights, 16-byte aligned): y (N, T, D) bf16. shift, scale and gate (N,
+    D), f32 or bf16 of one type, are read in place; the gain is one f32
+    value. On CPU tensors: :func:`attn_fwd_plain`. ``trace``: int64 of BRANCH_TRACE_WORDS a CTA (each CTA's ns by
+    stage). Calls of one plan run on one stream, and the first call at a
+    shape comes before any CUDA graph capture of it (its plan's buffer is
+    copied to the card then); a build or launch failure raises."""
+    if x.device.type == "cpu":
+        return attn_fwd_plain(x, shift, scale, gate, gain, w_qkv, w_out, heads)
+    from mapdit_tpu_torch.ops.cuda import build
+
+    n, t, d = x.shape
+    plan, words, buffer, work, (x, w_qkv, w_out), rows, trace_ptr = _branch_call(
+        "fwd", x, shift, scale, gate, gain, w_qkv, w_out, heads, trace)
+    lib = build.library("attn_branch")
+    y = torch.empty_like(x)
+    code = lib.attn_branch_fwd(
+        x.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(), *rows, y.data_ptr(),
+        *(work.data_ptr() + plan.layout[name] for name in ("h", "qkv", "attn")),
+        buffer.data_ptr(), words, n, t, d, heads, plan.ctas, 1.0 / math.sqrt(d),
+        torch.cuda.current_stream(x.device).cuda_stream, trace_ptr,
+    )
+    _raise_on(code, lib, "attn_branch_fwd", "attn_branch")
+    LAUNCHES["attn_branch/fwd"] += 1
+    return y
+
+
+def attn_branch_bwd(dy, x, shift, scale, gate, gain, w_qkv, w_out, heads: int, *,
+                    trace: Optional[torch.Tensor] = None):
+    """Row 4 without its dW products as one launch of ``attn_branch_bwd``
+    (``csrc/attn_branch.cu``), inputs as for :func:`attn_branch_fwd` and dy
+    (N, T, D) bf16 or f32. Returns dx (N, T, D, x's type), dshift, dscale,
+    dgate (N, D) f32, dgain (1,) f32 and the dW products' operands (h, attn,
+    dout, dqkv: (N*T, D) or (N*T, 3D) bf16 views of the call's workspace).
+    On CPU tensors: :func:`attn_branch_bwd_plain`. The same rules as :func:`attn_branch_fwd`'s."""
+    if x.device.type == "cpu":
+        return attn_branch_bwd_plain(dy, x, shift, scale, gate, gain, w_qkv, w_out, heads)
+    from mapdit_tpu_torch.ops.cuda import build
+
+    n, t, d = x.shape
+    m, bf, f32 = n * t, torch.bfloat16, torch.float32
+    plan, words, buffer, work, (x, w_qkv, w_out), rows, trace_ptr = _branch_call(
+        "bwd", x, shift, scale, gate, gain, w_qkv, w_out, heads, trace)
+    if dy.numel() != m * d or dy.dtype not in (bf, f32) or dy.device != x.device:
+        raise ValueError(f"attn_branch_bwd takes dy of {m}x{d} bf16 or f32 elements on {x.device}, got {dy.dtype} "
+                         f"{tuple(dy.shape)}")
+    dy = dy.contiguous()
+    if dy.data_ptr() % 16:
+        raise ValueError("attn_branch_bwd reads dy 16 bytes a thread: it must be 16-byte aligned")
+    lib = build.library("attn_branch")
+    dx = torch.empty_like(x)
+    dshift, dscale, dgate = (torch.empty(n, d, dtype=f32, device=x.device) for _ in range(3))
+    dgain = torch.empty(1, dtype=f32, device=x.device)
+    code = lib.attn_branch_bwd(
+        dy.data_ptr(), int(dy.dtype == bf), x.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(), *rows,
+        dx.data_ptr(), dshift.data_ptr(), dscale.data_ptr(), dgate.data_ptr(), dgain.data_ptr(),
+        *(work.data_ptr() + plan.layout[name] for name in ("h", "qkv", "attn", "dout", "dattn", "dqkv",
+                                                           "dgain_partial")),
+        buffer.data_ptr(), words, n, t, d, heads, plan.ctas, 1.0 / math.sqrt(d), DB_FAC, DX_FAC,
+        torch.cuda.current_stream(x.device).cuda_stream, trace_ptr,
+    )
+    _raise_on(code, lib, "attn_branch_bwd", "attn_branch")
+    LAUNCHES["attn_branch/bwd"] += 1
+    operands = tuple(_view(work, plan, name, (m, w), bf) for name, w in (("h", d), ("attn", d), ("dout", d),
+                                                                         ("dqkv", 3 * d)))
+    return dx, dshift, dscale, dgate, dgain, operands
 
 
 def attn_bwd_from_res(dy, x, shift, scale, gate, gain, w_qkv, w_out, p, attn, heads: int):

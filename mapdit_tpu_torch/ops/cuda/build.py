@@ -22,7 +22,8 @@ import time
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "mapdit_tpu_torch"
-SOURCES = ("mp_gemm", "cosine_attention", "attn_branch_bwd", "fused_attention", "dw_gemm", "dit_stack", "dit_block_tp")
+SOURCES = ("mp_gemm", "cosine_attention", "attn_branch_bwd", "fused_attention", "dw_gemm", "dit_stack", "dit_block_tp",
+           "attn_branch")
 # measurement-only sources, built when a tool asks for their library
 PROBES = ("kstep_probe",)
 NVCC_FLAGS = (
@@ -66,6 +67,14 @@ _SIGNATURES = {
         "mlp_branch_resident_ctas": ([], ctypes.c_int),
         "dit_block_tp_resident_ctas": ([_I], ctypes.c_int),
         "dit_block_tp_error_string": ([_I], ctypes.c_char_p),
+    },
+    "attn_branch": {
+        "attn_branch_fwd": ([_P] * 4 + [_I, _P, _I, _P, _I, _I] + [_P] * 7 + [_I] * 5 + [_F, _P, _P], ctypes.c_int),
+        "attn_branch_bwd": ([_P, _I] + [_P] * 4 + [_I, _P, _I, _P, _I, _I] + [_P] * 15 + [_I] * 5 + [_F] * 3
+                            + [_P, _P], ctypes.c_int),
+        "attn_branch_resident_ctas": ([_I], ctypes.c_int),
+        "attn_branch_plan_words": ([], ctypes.c_int),
+        "attn_branch_error_string": ([_I], ctypes.c_char_p),
     },
     "kstep_probe": {
         "kstep_probe": ([_I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P], ctypes.c_int),

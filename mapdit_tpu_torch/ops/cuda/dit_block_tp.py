@@ -255,7 +255,9 @@ TP_SYNC_DONE = 32
 TP_PLAN_HEADER = 8
 TP_PLAN_STAGE_WORDS = 6
 TP_PLAN_WORDS = TP_PLAN_HEADER + 4 * TP_PLAN_STAGE_WORDS
-TP_STAGE_KINDS = {"pre": 0, "attention": 2}  # a product stage is kind 1
+# a product stage is kind 1; attention_bwd is the attention half-block's
+# backward list's (ops/cuda/attn_branch.py branch_plan)
+TP_STAGE_KINDS = {"pre": 0, "attention": 2, "attention_bwd": 3}
 TP_TRACE_WORDS = 16  # a CTA's ns by stage and part of its items, its start and end (csrc/dit_block_tp.cu)
 # the kernels of csrc/dit_block_tp.cu: rows 6 and 7, row 8, and row 9
 # (``mlp_block.fused_mlp_branch``: the MLP half-block at full width)
@@ -458,15 +460,21 @@ class TpPlan:
         return (0,) * self.sync_words + tuple(targets)
 
     def words(self) -> tuple:
-        """The TP_PLAN_WORDS words the launch reads: stages, sync words,
-        buffer words, CTAs, the modulation product's splits and ticket word
-        (0, 0 without it; row 9's kernel has the token rows of a pre item in
-        the first), then for each stage its kind, items, K splits, counter
-        word of row tile 0, ticket word (0 unsplit) and target offset."""
+        """The words the launch reads (TP_PLAN_WORDS, or more for a longer
+        list): stages, sync words, buffer words, CTAs, the modulation
+        product's splits and ticket word (0, 0 without it; row 9's kernel has
+        the token rows of a pre item in the first; the attention half-block's
+        kernels their dgain ticket word (0 forward) and the token rows of a
+        pre item), then for each stage its kind, items,
+        K splits, counter word of row tile 0, ticket word (0 unsplit) and
+        target offset."""
         mods = self.modulation
-        first = self.pre_rows if self.kernel == "mlp_branch" else mods.splits if mods else 0
-        out = [len(self.stages), self.sync_words, self.buffer_words, self.ctas,
-               first, self.tickets.get("modulation", 0) if mods else 0, 0, 0]
+        if self.kernel.startswith("branch_"):
+            first, second = self.tickets.get("dgain", 0), self.pre_rows
+        else:
+            first = self.pre_rows if self.kernel == "mlp_branch" else mods.splits if mods else 0
+            second = self.tickets.get("modulation", 0) if mods else 0
+        out = [len(self.stages), self.sync_words, self.buffer_words, self.ctas, first, second, 0, 0]
         for i, stage in enumerate(self.stages):
             p = stage.product
             out += [1 if p else TP_STAGE_KINDS[stage.name], stage.items, p.splits if p else 1,
