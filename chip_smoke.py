@@ -9,14 +9,14 @@ Phases, one line each; any failure exits non-zero before the final line:
   3. kernels: every kernel wrapper against its plain PyTorch version at the
      DiT-S/2 sampling shapes in bf16 (64 CFG rows x 64 tokens, D=384,
      6 heads, H=1536, depth 12), with times, bounds and a library yardstick;
-     then the attention half-block's wrappers and sub-kernels (rows 3 and 4,
-     one launch each of csrc/attn_branch.cu, beside their launch sequences
-     at S/2 and XL/2 and checked at BRANCH_BWD_SHAPES, T=48 taking the
-     sequence route; the dW pair against the f32 pair; the residual
-     forward, the A.W products, the out product with the residual backward
-     as its epilogue, the residual-mode attention, the backward's other
-     kernels) and fused_dit_block's gradient at the DiT-S/2 training shapes
-     (256 samples x 64 tokens, bf16);
+     then the attention half-block's wrappers and sub-kernels (rows 3, 4
+     and 5, one launch each of csrc/attn_branch.cu, beside their launch
+     sequences at S/2 and XL/2, row 5 on draws of its own, and checked at
+     BRANCH_BWD_SHAPES, T=48 taking the sequence route; the dW pair against
+     the f32 pair; the A.W products, the out product with the residual
+     backward as its epilogue, the residual-mode attention, the backward's
+     other kernels) and fused_dit_block's gradient at the DiT-S/2 training
+     shapes (256 samples x 64 tokens, bf16);
   4. forward: DiT-S/2 forward_with_cfg, kernel paths against the plain path;
   5. chain: a short CFG chain, kernel path against the plain path; then the
      headline chain (build_sample_fn, block_kernel="auto" with a batch hint,
@@ -52,7 +52,8 @@ Phases, one line each; any failure exits non-zero before the final line:
   6. train: DiT-S/2 train steps at batch 256 on synthetic latents, the plain
      path and block_kernel="mega_attn" with attn_bwd "pallas" (rows 3 and 4
      one launch each a block, and again as their launch sequences) and
-     "residual": the first step's loss and gradients against the float32
+     "residual" (row 5 one launch a block, and again as its launch
+     sequence): the first step's loss and gradients against the float32
      plain path, then timed steps with the launch counts read around them;
  6b. remat and scan_blocks: DiT-XL/2 (depth 28, width 1152, 16 heads,
      nothing cut) at batch 256, bf16, block_kernel="mega_attn" with
@@ -1497,13 +1498,14 @@ BRANCH_SRC = "mapdit_tpu_torch/csrc/attn_branch.cu"
 
 
 def branch_bwd_checks(torch, k, gen, dev) -> None:
-    """Rows 3 and 4 (csrc/attn_branch.cu through attn_fwd and attn_bwd) at
-    BRANCH_BWD_SHAPES against attn_fwd_plain and attn_bwd_plain (the report
-    rows' limits: relative L2 1e-2, dgain within 2^-8 of its terms'
-    root-sum-square), the same bits on two runs and whether they equal the
-    launch sequences'; then the domain rule at T = 48: the forward takes its
-    launch sequence, the backward's sequence raises (out_gate_residual_bwd
-    takes T dividing 128), no one-launch kernel runs."""
+    """Rows 3, 4 and 5 (csrc/attn_branch.cu through attn_fwd, attn_bwd and
+    attn_branch_res_fwd) at BRANCH_BWD_SHAPES against attn_fwd_plain,
+    attn_bwd_plain and attn_res_fwd_plain (the report rows' limits: relative
+    L2 1e-2, dgain within 2^-8 of its terms' root-sum-square), the same bits
+    on two runs and whether they equal the launch sequences'; then the
+    domain rule at T = 48: both forwards take their launch sequences, the
+    backward's sequence raises (out_gate_residual_bwd takes T dividing 128),
+    no one-launch kernel runs."""
     from mapdit_tpu_torch.ops.cuda import attn_branch as ab
     from mapdit_tpu_torch.tools import bench_attn_branch as bab
 
@@ -1519,6 +1521,8 @@ def branch_bwd_checks(torch, k, gen, dev) -> None:
     before = launch_counts()
     y = ab.attn_fwd(*args)
     compare_rel(torch, y, ab.attn_fwd_plain(*args), 1e-2, f"attn_branch/fwd:t{BRANCH_OUTSIDE_T}:sequence")
+    for nm, g_, w_ in zip(("y", "p", "attn"), ab.attn_res_fwd(*args), ab.attn_res_fwd_plain(*args)):
+        compare_rel(torch, g_, w_, 1e-2, f"attn_branch/res_fwd:t{BRANCH_OUTSIDE_T}:sequence:{nm}")
     try:
         ab.attn_bwd(dy, *args)
         raised = None
@@ -1526,8 +1530,8 @@ def branch_bwd_checks(torch, k, gen, dev) -> None:
         raised = str(e)
     after = launch_counts()
     moved = {key: after[key] - before[key] for key in after if after[key] != before[key]}
-    ok = (raised is not None and moved.get("attn_branch/fwd/sequence") == 1 and moved.get("attn_branch/bwd/sequence") == 1
-          and not moved.get("attn_branch/fwd") and not moved.get("attn_branch/bwd"))
+    ok = (raised is not None and all(moved.get(f"attn_branch/{row}/sequence") == 1 for row in ("fwd", "bwd", "res_fwd"))
+          and not any(moved.get(f"attn_branch/{row}") for row in ("fwd", "bwd", "res_fwd")))
     phase("check", what=f"attn_branch:t{BRANCH_OUTSIDE_T}:sequence-route", raises=json.dumps(raised),
           launched=json.dumps(moved), ok=ok)
     if not ok:
@@ -1549,7 +1553,7 @@ def branch_rows(torch, args, dy, path: str) -> dict:
     x, heads = args[0], args[-1]
     n, t, d = x.shape
     tag = "s2" if d == 384 else "xl" if d == 1152 else f"d{d}"
-    checks = bab.check(tag, args, dy)
+    checks = bab.check(tag, args, dy, kinds=("fwd", "bwd"))
     bounds = bab.bounds(n, t, d, heads)
     out = {}
     for kind, line, fn, seq, plain in (
@@ -1574,6 +1578,46 @@ def branch_rows(torch, args, dy, path: str) -> dict:
     return out
 
 
+# row 5's draws: a generator of its own, so that every other row keeps the
+# inputs it drew before row 5 had a kernel
+RES_SEED_OFFSET = 17
+
+
+def res_rows(torch, dev, t, d, heads) -> dict:
+    """Row 5 (csrc/attn_branch.cu attn_branch_res_fwd) at the DiT-S/2 and
+    DiT-XL/2 training shapes on draws of its own: y, p and attn each held to
+    attn_res_fwd_plain by relative L2 1e-2, the same bits twice, whether
+    each equals the launch sequence's bits
+    (mapdit_tpu_torch/tools/bench_attn_branch.py check_res); timed beside
+    its launch sequence (graph, host and eager ms), the plain version's
+    graph ms, the bound. Returns the kernels line's S/2 row (its launches
+    from phase 6's mega_attn+residual path); XL/2 is printed only (no main
+    path trains XL/2 on the residual backward)."""
+    from mapdit_tpu_torch.ops.cuda import attn_branch as ab
+    from mapdit_tpu_torch.tools import bench_attn_branch as bab
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + RES_SEED_OFFSET)
+    out = {}
+    for tag, shape in (("s2", (TRAIN_BATCH, t, d, heads)), ("xl", BRANCH_XL)):
+        args, _ = attn_branch_args(torch, gen, dev, *shape)
+        check = bab.check_res(tag, args)
+        bound, by, *_ = bab.bounds(*shape)["res_fwd"]
+        times = bab.times(lambda: ab.attn_branch_res_fwd(*args), lambda: ab.res_fwd_launch_sequence(*args),
+                          lambda: ab.attn_res_fwd_plain(*args))
+        phase("time", kernel=f"attn_branch/res_fwd:{tag}", **{key: f"{v:.4f}" for key, v in times.items()},
+              bound_ms=f"{bound:.4f}", bound_by=by)
+        if tag == "s2":
+            out["attn_branch/res_fwd"] = dict(
+                source=BRANCH_SRC, replaces=f"{PALLAS}:1152", max_abs_err=check["max_abs_err"], ms=times["ms"],
+                plain_ms=times["plain_ms"], bound_ms=bound, bound_by=by, library_ms=None, path="mega_attn+residual",
+                eager_ms=times["eager_ms"], host_ms=times["host_ms"], sequence_ms=times["sequence_ms"],
+                sequence_eager_ms=times["sequence_eager_ms"], sequence_host_ms=times["sequence_host_ms"],
+                same_bits_as_sequence=check["same_bits_as_sequence"])
+        del args
+        torch.cuda.empty_cache()
+    return out
+
+
 def train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x_s, a_s, gains_s, w0):
     """Phase 3, second part: the attention half-block's wrappers and
     sub-kernels at the DiT-S/2 training shapes (TRAIN_BATCH samples x t
@@ -1588,9 +1632,6 @@ def train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x_s, a_s, gains_s, w0)
     mt, inv_d = n * t, 1 / math.sqrt(d)
     args, dy = attn_branch_args(torch, gen, dev, n, t, d, heads)
     x, shift, scale, gate, gain, wq, wo, _ = args
-    attn_flops = 4 * n * heads * t * t * hd
-    gemm_flops = 2 * mt * d * 4 * d  # the qkv and out products together
-    in_bytes = mt * d * 2 + 3 * n * d * 2 + 4 * d * d * 2 + 4
     out_rows = {}
 
     def row(name, source, replaces, err, fn, plain, flops, nbytes, path, library=None):
@@ -1601,7 +1642,6 @@ def train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x_s, a_s, gains_s, w0)
             library_ms=None if library is None else time_ms(torch, library), path=path,
         )
 
-    branch_src = "mapdit_tpu_torch/ops/cuda/attn_branch.py"
     # rows 3 and 4, one launch each (csrc/attn_branch.cu): composite outputs,
     # where several bf16 roundings upstream can each land an element one bf16
     # ulp apart from the plain version, so they are held by relative L2 error
@@ -1612,12 +1652,8 @@ def train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x_s, a_s, gains_s, w0)
     out_rows.update({f"{key}:xl": dict(row_, path=BRANCH_XL_PATH, count_key=key)
                      for key, row_ in branch_rows(torch, xl_args, xl_dy, BRANCH_XL_PATH).items()})
     del xl_args, xl_dy
-    got, want = ab.attn_res_fwd(*args), ab.attn_res_fwd_plain(*args)
-    err = max(compare_rel(torch, g_, w_, 1e-2, f"attn_branch/res_fwd:{nm}")
-              for nm, g_, w_ in zip(("y", "p", "attn"), got, want))
-    row("attn_branch/res_fwd", branch_src, 1152, err, lambda: ab.attn_res_fwd(*args),
-        lambda: ab.attn_res_fwd_plain(*args), gemm_flops + attn_flops,
-        in_bytes + 2 * mt * d * 2 + n * heads * t * t * 4, path="mega_attn+residual")
+    # row 5, one launch (csrc/attn_branch.cu), on draws of its own
+    out_rows.update(res_rows(torch, dev, t, d, heads))
 
     # the backward's intermediates, from the plain versions, as inputs of the
     # sub-kernel checks (the order of attn_branch._bwd_stages)
@@ -1641,7 +1677,7 @@ def train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x_s, a_s, gains_s, w0)
     err = case.check(case.run(), case.probs)
     out_rows["cosine_attention/residual"] = dict(
         attention_row(torch, case, "cosine_attention/residual", COSINE_SRC, f"{PALLAS}:1083"), max_abs_err=err,
-        path="mega_attn+residual")
+        path="mega_attn+residual+sequence")
 
     # the backward's passes around the products, on identical inputs (device
     # ms of CUDA-graph replays), then at their other shapes
@@ -1902,21 +1938,24 @@ def train_phase(torch, dev, tag: str, paths: dict, expect: dict, steps: int, aro
     return counts
 
 
-# kernel launches a call of the attention half-block's forward (row 3) and
-# fused backward (row 4): one each, csrc/attn_branch.cu; their launch
-# sequences (the route before it, and outside its domain): qkv, attention,
-# out, and modulate_fwd, qkv, attention, out with the residual backward,
-# dattn, attention_bwd, dh, modulate_bwd
+# kernel launches a call of the attention half-block's forward (row 3),
+# fused backward (row 4) and residual forward (row 5): one each,
+# csrc/attn_branch.cu; their launch sequences (the route before it, and
+# outside its domain): qkv, attention, out (rows 3 and 5), and
+# modulate_fwd, qkv, attention, out with the residual backward, dattn,
+# attention_bwd, dh, modulate_bwd
 ROW3_LAUNCHES = 1
 ROW4_LAUNCHES = 1
+ROW5_LAUNCHES = 1
 ROW3_SEQUENCE_LAUNCHES = 3
 ROW4_SEQUENCE_LAUNCHES = 8
+ROW5_SEQUENCE_LAUNCHES = 3
 
 
 @contextlib.contextmanager
 def launch_sequences(ab):
-    """The attention half-block's one-launch kernels switched off: rows 3
-    and 4 run their launch sequences (attn_branch.BRANCH_KERNELS)."""
+    """The attention half-block's one-launch kernels switched off: rows 3,
+    4 and 5 run their launch sequences (attn_branch.BRANCH_KERNELS)."""
     ab.BRANCH_KERNELS = False
     try:
         yield
@@ -1927,8 +1966,8 @@ def launch_sequences(ab):
 def s2_train_phase(torch, dev, cfg) -> dict:
     """Phase 6: DiT-S/2 training on the plain path and through the
     attention half-block kernels with both of their backwards, and with rows
-    3 and 4 as their launch sequences (the path the other rows' kernels in
-    the kernels line report their launches from)."""
+    3, 4 and 5 as their launch sequences (the paths the other rows' kernels
+    in the kernels line report their launches from)."""
     from mapdit_tpu_torch.ops.cuda import attn_branch as ab
 
     per_step = cfg.depth * TRAIN_STEPS
@@ -1939,16 +1978,19 @@ def s2_train_phase(torch, dev, cfg) -> dict:
         "mega_attn+pallas": kernel,
         "mega_attn+sequence": kernel,
         "mega_attn+residual": cfg.replace(block_kernel="mega_attn", attn_bwd="residual"),
+        "mega_attn+residual+sequence": cfg.replace(block_kernel="mega_attn", attn_bwd="residual"),
     }
     expect = {
         "off": {},
         "mega_attn+pallas": mega_attn_expect(ab, cfg.depth, TRAIN_STEPS, remat=False),
         "mega_attn+sequence": mega_attn_expect(ab, cfg.depth, TRAIN_STEPS, remat=False, sequence=True),
-        "mega_attn+residual": {"attn_branch/res_fwd": per_step, "mp_gemm/qkv": per_step, "mp_gemm/out": per_step,
-                               "cosine_attention/residual": per_step},
+        "mega_attn+residual": {"attn_branch/res_fwd": ROW5_LAUNCHES * per_step},
+        "mega_attn+residual+sequence": {"attn_branch/res_fwd/sequence": per_step, "mp_gemm/qkv": per_step,
+                                        "mp_gemm/out": per_step, "cosine_attention/residual": per_step},
     }
     counts = train_phase(torch, dev, "train", paths, expect, TRAIN_STEPS,
-                         around={"mega_attn+sequence": lambda: launch_sequences(ab)})
+                         around={name: lambda: launch_sequences(ab)
+                                 for name in ("mega_attn+sequence", "mega_attn+residual+sequence")})
     # rows 3 and 4: their launches a call, one each; on the sequence path
     # row 4's own kernels a call, the forward's three taken from a block's
     # share
@@ -1962,6 +2004,16 @@ def s2_train_phase(torch, dev, cfg) -> dict:
     if not ok:
         raise AssertionError(f"rows 3 and 4 made {row3} and {row4} launches a call ({ROW3_LAUNCHES}, {ROW4_LAUNCHES} "
                              f"expected), the backward's sequence {seq_row4} ({ROW4_SEQUENCE_LAUNCHES})")
+    # row 5: one launch a call, its sequence none; on the sequence path three
+    res, res_seq = counts["mega_attn+residual"], counts["mega_attn+residual+sequence"]
+    row5, row5_seq = res["attn_branch/res_fwd"] / per_step, res["attn_branch/res_fwd/sequence"]
+    seq_row5 = sum(v for key, v in res_seq.items() if not key.startswith("attn_branch/")) // per_step
+    ok = (row5, row5_seq, seq_row5) == (ROW5_LAUNCHES, 0, ROW5_SEQUENCE_LAUNCHES)
+    phase("check", what="train/mega_attn+residual:launches-a-call", row5=row5, expected=ROW5_LAUNCHES,
+          row5_sequence_calls=row5_seq, sequence_row5=seq_row5, sequence_expected=ROW5_SEQUENCE_LAUNCHES, ok=ok)
+    if not ok:
+        raise AssertionError(f"row 5 made {row5} launches a call ({ROW5_LAUNCHES} expected) and {row5_seq} sequence "
+                             f"calls, its sequence {seq_row5} launches a call ({ROW5_SEQUENCE_LAUNCHES})")
     return counts
 
 

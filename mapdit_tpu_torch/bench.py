@@ -29,7 +29,10 @@ batch as hint; ``value`` is the best of ``--repeats`` timed chains after one
 warm-up chain. Train mode is its ``bench_train``: synthetic VAE-posterior
 latents (1000 classes), Adam(0.9, 0.99) under warmup_flat_invsqrt(1e-2,
 100, 1000), two EMAs, one warm-up step, then max(``--steps``, 10) timed
-steps; ``--resident-data`` reuses one device-resident batch;
+steps (``peak_allocated_gb``: the card's allocation peak over them, state
+included, in the caching allocator's blocks; ``peak_requested_gb``: the
+peak of the bytes the tensors asked for, without the blocks' rounding);
+``--resident-data`` reuses one device-resident batch;
 ``--grad-accum`` splits each step's batch into that many micro-batches;
 ``--profile-dir`` then traces a few more steps (in sample mode: one 10-step
 chain) with ``torch.profiler`` and writes the device-time table there (the
@@ -131,6 +134,8 @@ def bench_train(args, cfg, device) -> dict:
     step_fn, state, batches = build_train(args, cfg, device)
     metrics = step_fn(state, next(batches))  # warm-up: builds the kernels
     torch.cuda.synchronize()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     n_steps = max(args.steps, 10)
     start = time.perf_counter()
     for _ in range(n_steps):
@@ -138,6 +143,10 @@ def bench_train(args, cfg, device) -> dict:
     loss = float(metrics["loss"])
     elapsed = time.perf_counter() - start
     value = n_steps / elapsed
+    peak = requested = None
+    if device.type == "cuda":
+        peak = torch.cuda.max_memory_allocated(device) / 1e9
+        requested = torch.cuda.memory_stats(device).get("requested_bytes.all.peak", 0) / 1e9
     profile = None
     if args.profile_dir:
         profile = _profile(args.profile_dir, lambda: step_fn(state, next(batches)), "train_key_averages.txt")
@@ -153,6 +162,8 @@ def bench_train(args, cfg, device) -> dict:
         "mfu_pct": 100.0 * 3 * model_call_flops(cfg, args.batch) * value / H100_BF16_FLOPS,
         "seconds": elapsed,
         "last_loss": loss,
+        "peak_allocated_gb": peak,
+        "peak_requested_gb": requested,
         "profile": profile,
         "device": _device_info(),
     }
@@ -186,11 +197,15 @@ def _profile(out_dir: str, call, table: str, calls: int = 3, steps_per_call: int
 
     os.makedirs(out_dir, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # idle trace on either side: the profiler drops a device event that a
+        # skew of the card's clock moves out of the trace's window
+        time.sleep(0.1)
         start = time.perf_counter()
         for _ in range(calls):
             call()
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
+        time.sleep(0.1)
     steps = calls * steps_per_call
     events = prof.key_averages()
     with open(os.path.join(out_dir, table), "w") as f:

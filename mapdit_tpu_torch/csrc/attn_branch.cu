@@ -9,21 +9,28 @@
 //     weight-gradient products, which the Pallas package leaves to XLA
 //     outside its kernel (l.948-970) and the port to one bf16 product each
 //     (ops/cuda/attn_branch.py);
+//   * row 5, attn_branch_res_fwd: _attn_res_fwd_impl (l.1136; pallas_call
+//     l.1152, body _attn_res_kernel l.1038), row 3's list whose attention
+//     normalises p first (row 4's recompute) and writes the residuals of
+//     the plain backward: p in f32 (N, heads, T, T), JAX's values
+//     (l.1114-1115) before their rounding to bf16 for P.V, and attn to the
+//     caller's tensor;
 // and in the port the launch sequences of other rows' kernels those rows
-// ran before (ops/cuda/attn_branch.py fwd_launch_sequence: 3 launches,
-// bwd_launch_sequence: 8), kept as the yardstick and as the route outside
-// this kernel's domain.
+// ran before (ops/cuda/attn_branch.py fwd_launch_sequence and
+// res_fwd_launch_sequence: 3 launches, bwd_launch_sequence: 8), kept as the
+// yardstick and as the route outside this kernel's domain.
 //
 // The half-block is y = mp_sum(x, gate * out_proj(attn(qkv(modulate(x)))),
 // 0.3). M = N*T token rows; the lists, stage by stage, each item a 128-row
 // tile (or a (sample, head) unit) of the stage:
 //
-//   fwd                                     bwd
+//   fwd (and res_fwd)                       bwd
 //   pre  h (M, D) bf16 = modulate(x; shift, scale, gain)
 //   qkv  (M, 3D) f32 = h . Wqkv^T / sqrt(D)
 //   attention (M, D) bf16, a (sample, head) unit at a time:
 //        P.V on the exponentials,           p normalised first, rounded to
-//        divided after                      bf16, then P.V (the residual mode)
+//        divided after (res_fwd: as bwd,    bf16, then P.V (the residual mode)
+//        p stored in f32 first)
 //   out  y = mp_sum(x, gate * attn . Wout^T / sqrt(D), 0.3), in x's type
 //                                           out: dout = bf16(dy*0.3/rd * gate),
 //                                           dgate = sum_t dy*0.3/rd * out
@@ -48,8 +55,9 @@
 // Bound on the H100 (the larger of the bytes over 3.35 TB/s and the
 // products' FLOPs over 989 TFLOP/s; mapdit_tpu_torch/tools/
 // bench_attn_branch.py bounds): DiT-S/2 at 256 x 64 tokens, row 3 0.0212 ms,
-// row 4 without its dW products 0.0448 (both by operations); DiT-XL/2 at
-// 256 0.1808 and 0.3689.
+// row 4 without its dW products 0.0448, row 5 0.0212 (its 64.7 MB, p 25.2
+// of them, take 0.0193; all by operations); DiT-XL/2 at 256 0.1808, 0.3689
+// and 0.1808 (row 5's 192.7 MB: 0.0575).
 //
 // Design: the TP kernels' (dit_block_tp.cu), on work_list.cuh's machinery:
 //   * One cooperative launch of one CTA an SM; a producer warpgroup (a TMA
@@ -95,8 +103,12 @@
 //     global memory; the item that takes the last ticket of them sums them
 //     in tile order and divides by den. No float atomics: the same bits on
 //     every run.
-//   * -Xptxas -v (sm_90a): 168 registers, 396 / 280 bytes of spill stores
-//     at head width 72 / 64.
+//   * Two kernels a head width: attn_branch_kernel<HD, false> runs rows 3
+//     and 4 (the list's kinds chosen at run time), <HD, true> row 5 (the
+//     forward stages alone, p stored: the backward's stages and epilogues
+//     are compiled out).
+//   * -Xptxas -v (sm_90a): 168 registers each; rows 3 and 4's kernel 396 /
+//     280 bytes of spill stores at head width 72 / 64, row 5's 56 / 44.
 // Forms built and measured (bench_attn_branch.py, S/2 graph ms of rows 3 /
 // 4 over their launch sequences' in the same call; NVIDIA H100 80GB HBM3,
 // 700.00 W; a machine's own speed moves both by up to ~10% between calls):
@@ -226,6 +238,7 @@ struct Args {
   int pre_rows;  // token rows of a pre item
   // the half-block's own
   int bwd;  // the backward's list: normalise-first attention, attention_bwd
+  float* probs;  // row 5's f32 p (samples, heads, t, t), or null; a launch with it runs attn_branch_kernel<HD, true>
   const void* gate;
   int gate_ld;
   const void* dy;  // the cotangent of y, bf16 or f32 (dy_bf16)
@@ -476,7 +489,9 @@ __device__ __forceinline__ void dgain_tile(const Args& A, const Prod& p, int til
 }
 
 // The consumers' side of product item j of stage s: the k steps, the
-// staged tile, the stage's epilogue.
+// staged tile, the stage's epilogue (RES: row 5's list, forward epilogues
+// only).
+template <bool RES>
 __device__ __forceinline__ void consume_product(const Args& A, const Ring<STAGES>& ring, float* tile, float* sums,
                                                 float* warp_sums, const TileHand& th, uint32_t& f32_staged, int s,
                                                 int j, volatile int* last, uint32_t& it, unsigned long long* spent) {
@@ -518,10 +533,11 @@ __device__ __forceinline__ void consume_product(const Args& A, const Ring<STAGES
       residual_tile(A, p, tile, tl.m0, tl.n0, tid);
       break;
     case EPI_GATE_BWD:
-      gate_bwd_tile(A, p, tile, sums, tl.m0, tl.n0, tid);
+      if constexpr (!RES) gate_bwd_tile(A, p, tile, sums, tl.m0, tl.n0, tid);
       break;
     default:
-      dgain_tile(A, p, tl.tile_i, mod_bwd_tile(A, p, tile, sums, tl.m0, tl.n0, tid), sums, warp_sums, last, spent);
+      if constexpr (!RES)
+        dgain_tile(A, p, tl.tile_i, mod_bwd_tile(A, p, tile, sums, tl.m0, tl.n0, tid), sums, warp_sums, last, spent);
   }
   if (tid == 0) spent[T_EPILOGUE] += global_ns() - t0;
 }
@@ -647,7 +663,7 @@ __device__ __forceinline__ void prefetch_unit(const Args& A, const CUtensorMap* 
 // are done), its tiles in `work`; then the group's unit of the CTA's next
 // item is prefetched into `stage` where it lies in this stage and its rows
 // are done, and the unit is computed and counted done.
-template <int HD, bool NORM_FIRST>
+template <int HD, bool NORM_FIRST, bool STORE_P = false>
 __device__ __forceinline__ void attention_item(const Args& A, const Maps& maps, const Work& W, int s, int g, int j,
                                                uint8_t* stage, uint8_t* work, Prefetch* pf, uint32_t pf_bar,
                                                unsigned long long* spent) {
@@ -710,7 +726,8 @@ __device__ __forceinline__ void attention_item(const Args& A, const Maps& maps, 
     pf->unit[group] = next;
   }
   attention_core<HD, NORM_FIRST>(sq, sk, sv, qsc, ksc, A.attn + static_cast<int64_t>(sample) * t * A.d + head * HD,
-                                 A.d, t, warp, lane);
+                                 A.d, t, warp, lane,
+                                 STORE_P ? A.probs + static_cast<int64_t>(unit) * t * t : nullptr);
   // the out product's TMA loads read these rows
   asm volatile("fence.proxy.async;\n" ::: "memory");
   sync();
@@ -813,8 +830,9 @@ __device__ __forceinline__ void store_main(const Args& A, const float* tile, con
   }
 }
 
-// The two consumer warpgroups: their share of the list, in order.
-template <int HD>
+// The two consumer warpgroups: their share of the list, in order (RES: row
+// 5's, whose attention stores p).
+template <int HD, bool RES>
 __device__ __forceinline__ void consumer_main(const Maps& maps, const Args& A, const Ring<STAGES>& ring,
                                               uint8_t* ring_mem, float* tile, float* sums, float* warp_sums,
                                               const Handoff& hand, const TileHand& th, Prefetch* pf,
@@ -832,14 +850,16 @@ __device__ __forceinline__ void consumer_main(const Maps& maps, const Args& A, c
     } else if (kind == S_ATTN || kind == S_ATTN_BWD) {
       // units 2j (the first group) and 2j + 1 (the second)
       const int group = tid / attn_tiles::THREADS, unit = 2 * j + group;
-      if (kind == S_ATTN_BWD) {
+      if (!RES && kind == S_ATTN_BWD) {
         if (unit < A.samples * A.heads) attention_bwd_item<HD>(A, s, unit, ring_mem, group, spent);
       } else {
         // the units' tiles take the f32 tile's memory: the store warp
         // are through with it
         if (f32_staged > 0) mbar_wait(th.free, (f32_staged - 1) & 1);
         uint8_t* work = reinterpret_cast<uint8_t*>(tile);
-        if (A.bwd)
+        if constexpr (RES)
+          attention_item<HD, true, true>(A, maps, W, s, g, j, ring_mem, work, pf, pf_bar, spent);
+        else if (A.bwd)
           attention_item<HD, true>(A, maps, W, s, g, j, ring_mem, work, pf, pf_bar, spent);
         else
           attention_item<HD, false>(A, maps, W, s, g, j, ring_mem, work, pf, pf_bar, spent);
@@ -849,7 +869,7 @@ __device__ __forceinline__ void consumer_main(const Maps& maps, const Args& A, c
       consumer_sync();
       if (tid == 0) *hand.attn_done = *hand.attn_done + 1;
     } else {
-      consume_product(A, ring, tile, sums, warp_sums, th, f32_staged, s, j, last, it, spent);
+      consume_product<RES>(A, ring, tile, sums, warp_sums, th, f32_staged, s, j, last, it, spent);
       if (A.prod[s].epi == EPI_F32) {
         if (tid == 0) spent[s] += global_ns() - t0;
         continue;
@@ -867,7 +887,7 @@ __device__ __forceinline__ void consumer_main(const Maps& maps, const Args& A, c
   }
 }
 
-template <int HD>
+template <int HD, bool RES>
 __global__ void __launch_bounds__(KERNEL_THREADS, 1)
     attn_branch_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Args A) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -910,7 +930,7 @@ __global__ void __launch_bounds__(KERNEL_THREADS, 1)
       producer_main(maps, A, ring, hand, W);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
-    consumer_main<HD>(maps, A, ring, smem, tile, sums, warp_sums, hand, th, pf, pf_bar, W, last, spent);
+    consumer_main<HD, RES>(maps, A, ring, smem, tile, sums, warp_sums, hand, th, pf, pf_bar, W, last, spent);
   }
   __syncthreads();
   if (A.trace != nullptr && threadIdx.x == 0) {
@@ -922,14 +942,14 @@ __global__ void __launch_bounds__(KERNEL_THREADS, 1)
   leave_launch(A);
 }
 
-template <int HD>
+template <int HD, bool RES>
 cudaError_t configure() {
   static bool configured = false;
   if (!configured) {
     cudaError_t e =
-        cudaFuncSetAttribute(attn_branch_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+        cudaFuncSetAttribute(attn_branch_kernel<HD, RES>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (e == cudaSuccess) {
-      e = cudaFuncSetAttribute(attn_branch_kernel<HD>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      e = cudaFuncSetAttribute(attn_branch_kernel<HD, RES>, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     }
     if (e != cudaSuccess) return e;
@@ -938,21 +958,30 @@ cudaError_t configure() {
   return cudaSuccess;
 }
 
-template <int HD>
+template <int HD, bool RES>
 int resident_ctas() {
-  cudaError_t e = configure<HD>();
+  cudaError_t e = configure<HD, RES>();
   int dev = 0, sms = 0, per_sm = 0;
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, attn_branch_kernel<HD>, KERNEL_THREADS, SMEM_BYTES);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, attn_branch_kernel<HD, RES>, KERNEL_THREADS,
+                                                      SMEM_BYTES);
   return e == cudaSuccess ? sms * per_sm : -static_cast<int>(e);
 }
 
-// One cooperative launch (every CTA resident, so a CTA may wait on another).
+// the CTAs both of a head width's kernels (rows 3 and 4, row 5) keep
+// resident at once, so one plan's CTAs suit either
 template <int HD>
+int resident_ctas_both() {
+  const int a = resident_ctas<HD, false>(), b = resident_ctas<HD, true>();
+  return a < 0 ? a : b < 0 ? b : a < b ? a : b;
+}
+
+// One cooperative launch (every CTA resident, so a CTA may wait on another).
+template <int HD, bool RES>
 int launch(const Maps& maps, const Args& args, int ctas, void* stream) {
-  cudaError_t e = configure<HD>();
+  cudaError_t e = configure<HD, RES>();
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(ctas);
@@ -964,7 +993,7 @@ int launch(const Maps& maps, const Args& args, int ctas, void* stream) {
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, attn_branch_kernel<HD>, maps, args);
+  e = cudaLaunchKernelEx(&cfg, attn_branch_kernel<HD, RES>, maps, args);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
@@ -983,7 +1012,9 @@ bool encode_f32(CUtensorMap* map, const void* ptr, int rows, int cols, int box_r
 }
 
 int run(int hd, const Maps& maps, const Args& args, int ctas, void* stream) {
-  return hd == 64 ? launch<64>(maps, args, ctas, stream) : launch<72>(maps, args, ctas, stream);
+  if (args.probs != nullptr)
+    return hd == 64 ? launch<64, true>(maps, args, ctas, stream) : launch<72, true>(maps, args, ctas, stream);
+  return hd == 64 ? launch<64, false>(maps, args, ctas, stream) : launch<72, false>(maps, args, ctas, stream);
 }
 
 // What both lists share, into args: the shapes (the domain: head widths 64
@@ -1036,13 +1067,41 @@ bool pre_rows_ok(const int* plan, int d) {
 extern "C" int attn_branch_resident_ctas(int hd) {
   switch (hd) {
     case 64:
-      return resident_ctas<64>();
+      return resident_ctas_both<64>();
     case 72:
-      return resident_ctas<72>();
+      return resident_ctas_both<72>();
     default:
       return -static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+namespace {
+
+// Rows 3 and 5: the forward list, p stored where probs is given.
+int forward(const void* x, const void* w_qkv, const void* w_out, const void* shift, int shift_ld, const void* scale,
+            int scale_ld, const void* gate, int gate_ld, int rows_bf16, const void* gain, void* y, void* h, void* qkv,
+            void* attn, void* probs, void* sync, const int* plan, int n, int t, int d, int heads, int ctas,
+            float alpha_d, void* stream, void* trace) {
+  Args args = {};
+  if (!common(args, x, shift, shift_ld, scale, scale_ld, gate, gate_ld, rows_bf16, gain, h, qkv, attn, sync, n, t, d,
+              heads, trace) ||
+      !aligned16({w_qkv, w_out, y, probs}) || !pre_rows_ok(plan, d) || plan[P_DGAIN_TICKET] != 0 ||
+      !read_plan(plan, args, ctas, {S_PRE, S_GEMM, S_ATTN, S_GEMM},
+                 {{3 * d, d, MAP_H, MAP_WQKV, EPI_F32, alpha_d, qkv, nullptr},
+                  {d, d, MAP_ATTN, MAP_WOUT, EPI_RESIDUAL, alpha_d, y, nullptr}}, BN, plan[P_PRE_ROWS]))
+    return static_cast<int>(cudaErrorInvalidValue);
+  args.probs = static_cast<float*>(probs);
+  const int m = n * t;
+  Maps maps = {};
+  const bool ok = cached_map(&maps.m[MAP_H], h, m, d, BM) && cached_map(&maps.m[MAP_WQKV], w_qkv, 3 * d, d, BN) &&
+                  cached_map(&maps.m[MAP_ATTN], attn, m, d, BM) && cached_map(&maps.m[MAP_WOUT], w_out, d, d, BN) &&
+                  cached_map(&maps.m[MAP_X], x, m, d, args.pre_rows) &&
+                  encode_f32(&maps.m[MAP_QKV32], qkv, m, 3 * d, attn_tiles::TILE, d / heads);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return run(d / heads, maps, args, ctas, stream);
+}
+
+}  // namespace
 
 // Row 3. x: bf16 (n*t, d); w_qkv: bf16 (3d, d); w_out: bf16 (d, d); shift,
 // scale, gate: a sample's row at ptr + sample * ld (elements), f32 or bf16
@@ -1055,22 +1114,24 @@ extern "C" int attn_branch_fwd(const void* x, const void* w_qkv, const void* w_o
                                const void* scale, int scale_ld, const void* gate, int gate_ld, int rows_bf16,
                                const void* gain, void* y, void* h, void* qkv, void* attn, void* sync, const int* plan,
                                int n, int t, int d, int heads, int ctas, float alpha_d, void* stream, void* trace) {
-  Args args = {};
-  if (!common(args, x, shift, shift_ld, scale, scale_ld, gate, gate_ld, rows_bf16, gain, h, qkv, attn, sync, n, t, d,
-              heads, trace) ||
-      !aligned16({w_qkv, w_out, y}) || !pre_rows_ok(plan, d) || plan[P_DGAIN_TICKET] != 0 ||
-      !read_plan(plan, args, ctas, {S_PRE, S_GEMM, S_ATTN, S_GEMM},
-                 {{3 * d, d, MAP_H, MAP_WQKV, EPI_F32, alpha_d, qkv, nullptr},
-                  {d, d, MAP_ATTN, MAP_WOUT, EPI_RESIDUAL, alpha_d, y, nullptr}}, BN, plan[P_PRE_ROWS]))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int m = n * t;
-  Maps maps = {};
-  const bool ok = cached_map(&maps.m[MAP_H], h, m, d, BM) && cached_map(&maps.m[MAP_WQKV], w_qkv, 3 * d, d, BN) &&
-                  cached_map(&maps.m[MAP_ATTN], attn, m, d, BM) && cached_map(&maps.m[MAP_WOUT], w_out, d, d, BN) &&
-                  cached_map(&maps.m[MAP_X], x, m, d, args.pre_rows) &&
-                  encode_f32(&maps.m[MAP_QKV32], qkv, m, 3 * d, attn_tiles::TILE, d / heads);
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  return run(d / heads, maps, args, ctas, stream);
+  return forward(x, w_qkv, w_out, shift, shift_ld, scale, scale_ld, gate, gate_ld, rows_bf16, gain, y, h, qkv, attn,
+                 nullptr, sync, plan, n, t, d, heads, ctas, alpha_d, stream, trace);
+}
+
+// Row 5: row 3's list, its attention normalising p first (rounded to bf16
+// before P.V) and storing it in f32. The arguments of attn_branch_fwd, but
+// attn (bf16, n*t x d) is the caller's output, not scratch, and probs the
+// f32 (n, heads, t, t) p; qkv: scratch (branch_plan("res_fwd")); h may be
+// attn (the wrapper passes it so): a row tile's attention units start once
+// every qkv item of the tile, the only readers of its h rows, is done.
+extern "C" int attn_branch_res_fwd(const void* x, const void* w_qkv, const void* w_out, const void* shift,
+                                   int shift_ld, const void* scale, int scale_ld, const void* gate, int gate_ld,
+                                   int rows_bf16, const void* gain, void* y, void* h, void* qkv, void* attn,
+                                   void* probs, void* sync, const int* plan, int n, int t, int d, int heads, int ctas,
+                                   float alpha_d, void* stream, void* trace) {
+  if (probs == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return forward(x, w_qkv, w_out, shift, shift_ld, scale, scale_ld, gate, gate_ld, rows_bf16, gain, y, h, qkv, attn,
+                 probs, sync, plan, n, t, d, heads, ctas, alpha_d, stream, trace);
 }
 
 // Row 4 without its dW products. dy: (n*t, d), bf16 or f32 (dy_bf16); x,

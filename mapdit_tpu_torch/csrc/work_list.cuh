@@ -1,6 +1,6 @@
 // work_list.cuh: the persistent work-list machinery of the port's one-launch
 // kernels, shared by csrc/dit_block_tp.cu (the TP partials, row 9) and
-// csrc/attn_branch.cu (the attention half-block, rows 3 and 4).
+// csrc/attn_branch.cu (the attention half-block, rows 3, 4 and 5).
 //
 // A launch runs one list of stages laid out by a host plan (the plan's
 // words: each stage's kind, items, K splits, counter word, ticket word and
@@ -390,15 +390,35 @@ __device__ __forceinline__ void consume_pre(const Args& A, const Ring& ring, int
 }
 
 
+// The f32 probabilities of a warp's 16 query rows, from the accumulator
+// fragments, to the unit's (T, T) row-major block p: a thread holds rows g
+// and g + 8, two adjacent keys a key tile, so a quad fills 32 contiguous
+// bytes of a row (cosine_attention.cu's residual-mode store).
+__device__ __forceinline__ void store_probs(float* p, const float (&sc)[attn_tiles::KEY_TILES][4], int t,
+                                            int warp, int lane) {
+  const int r = warp * 16 + (lane >> 2), c = 2 * (lane & 3);
+  float* row = p + r * t;
+#pragma unroll
+  for (int jj = 0; jj < attn_tiles::KEY_TILES; ++jj) {
+    const int col = 8 * jj + c;
+    if (col < t) {
+      if (r < t) *reinterpret_cast<float2*>(row + col) = make_float2(sc[jj][0], sc[jj][1]);
+      if (r + 8 < t) *reinterpret_cast<float2*>(row + 8 * t + col) = make_float2(sc[jj][2], sc[jj][3]);
+    }
+  }
+}
+
 // The cosine attention of one (sample, head) unit on a group of four warps
 // once its q, k and v tiles (and the q and k scales) are staged: a warp's 16
 // query rows against the T keys, the output rows (bf16) to out + r * ld.
-// NORM_FIRST: p = ex * (1 / sum ex) rounded to bf16 before P.V, else P.V on
-// the unnormalised exponentials divided after.
+// NORM_FIRST: p = ex * (1 / sum ex) rounded to bf16 before P.V, and, where
+// probs is given, p in f32 to the unit's (T, T) block probs first (the
+// residual forward's saved softmax); else P.V on the unnormalised
+// exponentials divided after.
 template <int HD, bool NORM_FIRST>
 __device__ __forceinline__ void attention_core(__nv_bfloat16* sq, const __nv_bfloat16* sk, const __nv_bfloat16* sv,
                                                const float* qsc, const float* ksc, __nv_bfloat16* out, int64_t ld,
-                                               int t, int warp, int lane) {
+                                               int t, int warp, int lane, float* probs = nullptr) {
   using namespace cosine_tiles;
   using D = Dims<HD>;
   if (warp * 16 >= t) return;
@@ -416,6 +436,7 @@ __device__ __forceinline__ void attention_core(__nv_bfloat16* sq, const __nv_bfl
       sc[jj][3] *= f1;
     }
     f0 = f1 = 1.f;
+    if (probs != nullptr) store_probs(probs, sc, t, warp, lane);
   }
   uint32_t pa[KEY_TILES / 2][4];
   pack_p(pa, sc);

@@ -14,15 +14,15 @@ the reference VJP. The half-block is
 
   y = mp_sum(x, gate * out_proj(cosine_attention(qkv(modulate(x)))), 0.3)
 
-On the card rows 3 and 4 are one launch each of ``csrc/attn_branch.cu``
-(:func:`attn_branch_fwd`, :func:`attn_branch_bwd`: a persistent work list
-laid out by :func:`branch_plan`, shift, scale and gate read in place) where
-:func:`branch_route` takes the shape: bf16, head widths 64 and 72, an even
-T <= 64 dividing 128, D a multiple of 8, 16-byte aligned operands. Elsewhere,
-and for row 5, the half-block runs as a launch sequence of other rows'
-kernels (:func:`fwd_launch_sequence`, :func:`bwd_launch_sequence`, counted as
-``attn_branch/fwd/sequence`` and ``attn_branch/bwd/sequence``), with shift,
-scale and gate packed once into one (N, 3D) f32 row buffer (the model hands
+On the card rows 3, 4 and 5 are one launch each of ``csrc/attn_branch.cu``
+(:func:`attn_branch_fwd`, :func:`attn_branch_bwd`, :func:`attn_branch_res_fwd`:
+a persistent work list laid out by :func:`branch_plan`, shift, scale and gate
+read in place) where :func:`branch_route` takes the shape: bf16, head widths
+64 and 72, an even T <= 64 dividing 128, D a multiple of 8, 16-byte aligned
+operands. Elsewhere the half-block runs as a launch sequence of other rows'
+kernels (:func:`fwd_launch_sequence`, :func:`bwd_launch_sequence`,
+:func:`res_fwd_launch_sequence`, counted as ``attn_branch/<row>/sequence``),
+with shift, scale and gate packed once into one (N, 3D) f32 row buffer (the model hands
 them in as bf16, so the upcast is exact) and the gain read from device
 memory: ``mp_gemm`` with the modulate prologue, ``cosine_attention`` (the
 residual mode for row 5), and ``mp_gemm`` with the gated-residual epilogue.
@@ -66,9 +66,9 @@ softmax of the pre-normalised bf16 q/k; h, dqkv, attn and dout leave as bf16.
 
 Every wrapper takes its kernel for a CUDA tensor (raising on what it does not
 take) and its plain PyTorch version for a CPU tensor. ``LAUNCHES`` counts
-launches (``attn_branch/fwd`` and ``attn_branch/bwd``: of the one-launch
-kernels; ``attn_branch/res_fwd``: calls of row 5's sequence);
-:func:`reset_launch_counts` zeroes them.
+launches (``attn_branch/fwd``, ``attn_branch/bwd`` and ``attn_branch/res_fwd``:
+of the one-launch kernels; ``attn_branch/<row>/sequence``: calls of a launch
+sequence); :func:`reset_launch_counts` zeroes them.
 """
 
 from __future__ import annotations
@@ -125,6 +125,7 @@ LAUNCHES = {
     "attn_branch/bwd": 0,
     "attn_branch/fwd/sequence": 0,
     "attn_branch/bwd/sequence": 0,
+    "attn_branch/res_fwd/sequence": 0,
 }
 BWD_IMPLS = ("pallas", "residual", "reference")
 DX_FAC = (1.0 - RES_T) / RES_DENOM
@@ -142,7 +143,7 @@ MODULATE_COLUMNS = 8
 # rows of one mp_gemm tile: the CUDA out_gate_residual_bwd sums each sample
 # inside a tile, so T must divide it
 GEMM_TILE_ROWS = 128
-# the one-launch kernels of rows 3 and 4 (csrc/attn_branch.cu): their lists
+# the one-launch kernels of rows 3, 4 and 5 (csrc/attn_branch.cu): their lists
 # (stage kinds: dit_block_tp.TP_STAGE_KINDS), the plan's words (the TP plans'
 # header, one group a stage), the longest sequence (one tile of 64 queries
 # and keys), the trace's words a CTA.
@@ -150,6 +151,7 @@ GEMM_TILE_ROWS = 128
 # yardstick: chip_smoke.py trains on both)
 BRANCH_STAGES = {
     "fwd": ("pre", "qkv", "attention", "out"),
+    "res_fwd": ("pre", "qkv", "attention", "out"),
     "bwd": ("pre", "qkv", "attention", "out", "dattn", "attention_bwd", "dh"),
 }
 BRANCH_PLAN_WORDS = TP_PLAN_HEADER + 7 * TP_PLAN_STAGE_WORDS
@@ -598,16 +600,27 @@ def attn_fwd_plain(x, shift, scale, gate, gain, w_qkv, w_out, heads: int):
     return _fwd(x, shift, scale, gate, gain, w_qkv, w_out, heads, False, mp_gemm_plain, cosine_attention_plain)
 
 
+def res_fwd_launch_sequence(x, shift, scale, gate, gain, w_qkv, w_out, heads: int):
+    """Row 5 as three launches of other rows' kernels (row 3's sequence with
+    ``cosine_attention`` in its residual mode): the route outside
+    :func:`attn_branch_res_fwd`'s domain, and its yardstick."""
+    return _fwd(x, shift, scale, gate, gain, w_qkv, w_out, heads, True, mp_gemm, cosine_attention)
+
+
 def attn_res_fwd(x, shift, scale, gate, gain, w_qkv, w_out, heads: int):
     """Row 5: :func:`attn_fwd` that also returns the residuals of the plain
     backward, the probabilities p (N, heads, T, T) f32 (normalised before
     P.V) and the pre-projection attention (N, T, D) in the weights' type.
-    On the card a launch sequence (as row 3's), counted as
-    ``attn_branch/res_fwd``."""
-    out = _fwd(x, shift, scale, gate, gain, w_qkv, w_out, heads, True, mp_gemm, cosine_attention)
-    if x.device.type == "cuda":
-        LAUNCHES["attn_branch/res_fwd"] += 1
-    return out
+    On the card: one launch of :func:`attn_branch_res_fwd` where
+    :func:`branch_route` takes the call, else :func:`res_fwd_launch_sequence`
+    (counted as ``attn_branch/res_fwd/sequence``)."""
+    _check(x, shift, scale, gate, gain, w_qkv, w_out, heads)
+    if x.device.type == "cpu":
+        return attn_res_fwd_plain(x, shift, scale, gate, gain, w_qkv, w_out, heads)
+    if branch_route(x, w_qkv, w_out, heads) == "kernel":
+        return attn_branch_res_fwd(x, shift, scale, gate, gain, w_qkv, w_out, heads)
+    LAUNCHES["attn_branch/res_fwd/sequence"] += 1
+    return res_fwd_launch_sequence(x, shift, scale, gate, gain, w_qkv, w_out, heads)
 
 
 def attn_res_fwd_plain(x, shift, scale, gate, gain, w_qkv, w_out, heads: int):
@@ -752,7 +765,7 @@ def attn_branch_bwd_plain(dy, x, shift, scale, gate, gain, w_qkv, w_out, heads: 
 
 
 # ---------------------------------------------------------------------------
-# rows 3 and 4 as one launch each (csrc/attn_branch.cu)
+# rows 3, 4 and 5 as one launch each (csrc/attn_branch.cu)
 
 
 def check_branch_shape(tokens: int, d: int, heads: int) -> None:
@@ -792,13 +805,18 @@ def branch_route(x, w_qkv, w_out, heads: int, dy=None) -> str:
 def branch_plan(kind: str, n: int, t: int, d: int, heads: int, ctas: int = H100_SMS) -> TpPlan:
     """The plan of one launch of ``csrc/attn_branch.cu`` for N samples of T
     tokens at width D in ``heads`` heads: ``kind`` "fwd" (row 3: pre, qkv,
-    attention, out) or "bwd" (row 4: then dattn, attention_bwd, dh), on
-    ``ctas`` resident CTAs, pre items of the most of BRANCH_PRE_ROWS token
-    rows whose rows of x fill one ring stage. A ``dit_block_tp.TpPlan`` (the TP kernels' list
+    attention, out), "res_fwd" (row 5: row 3's list) or "bwd" (row 4: then
+    dattn, attention_bwd, dh), on ``ctas`` resident CTAs, pre items of the
+    most of BRANCH_PRE_ROWS token rows whose rows of x fill one ring stage.
+    A ``dit_block_tp.TpPlan`` (the TP kernels' list
     machinery: stages, waits, counter targets, words, scratch layout), its
     products unsplit; the backward's dgain ticket is the sync word after
-    the counters. Scratch: h, qkv and attn (and dout, dattn, dqkv, one dgain
-    partial a dh tile)."""
+    the counters. Scratch: h, qkv and attn (and for row 4 dout, dattn, dqkv,
+    one dgain partial a dh tile); row 5's is qkv alone: its attn is an output
+    of the call, kept by the caller as the backward's residual, and h lies
+    in attn's memory (a row tile's attention units wait for every qkv item
+    of the tile, the only readers of its h rows, so they overwrite h only
+    once it is read)."""
     if kind not in BRANCH_STAGES:
         raise ValueError(f"kind must be one of {tuple(BRANCH_STAGES)}, got {kind!r}")
     check_branch_shape(t, d, heads)
@@ -819,7 +837,7 @@ def branch_plan(kind: str, n: int, t: int, d: int, heads: int, ctas: int = H100_
     if kind == "bwd":
         tickets["dgain"] = words
         words += 1
-    sizes = {"h": m * d * 2, "qkv": m * 3 * d * 4, "attn": m * d * 2}
+    sizes = {"qkv": m * 3 * d * 4} if kind == "res_fwd" else {"h": m * d * 2, "qkv": m * 3 * d * 4, "attn": m * d * 2}
     if kind == "bwd":
         sizes.update(dout=m * d * 2, dattn=m * d * 4, dqkv=m * 3 * d * 2, dgain_partial=prods["dh"].tiles * 4)
     layout, offset = {}, 0
@@ -919,6 +937,38 @@ def attn_branch_fwd(x, shift, scale, gate, gain, w_qkv, w_out, heads: int, *, tr
     _raise_on(code, lib, "attn_branch_fwd", "attn_branch")
     LAUNCHES["attn_branch/fwd"] += 1
     return y
+
+
+def attn_branch_res_fwd(x, shift, scale, gate, gain, w_qkv, w_out, heads: int, *,
+                        trace: Optional[torch.Tensor] = None):
+    """Row 5 as one launch of ``attn_branch_res_fwd`` (``csrc/attn_branch.cu``):
+    row 3's list with its attention normalising p first and storing it in
+    f32. Inputs as for :func:`attn_branch_fwd`. Returns y (N, T, D) bf16, p
+    (N, heads, T, T) f32 and attn (N, T, D) bf16, each a tensor of its own
+    (p and attn are the backward's residuals: no view of the launch's
+    scratch, which is freed when the call returns; h, the modulated x, lives
+    in attn's memory until the attention overwrites it). On CPU tensors:
+    :func:`attn_res_fwd_plain`. The same rules as :func:`attn_branch_fwd`'s."""
+    if x.device.type == "cpu":
+        return attn_res_fwd_plain(x, shift, scale, gate, gain, w_qkv, w_out, heads)
+    from mapdit_tpu_torch.ops.cuda import build
+
+    n, t, d = x.shape
+    plan, words, buffer, work, (x, w_qkv, w_out), rows, trace_ptr = _branch_call(
+        "res_fwd", x, shift, scale, gate, gain, w_qkv, w_out, heads, trace)
+    lib = build.library("attn_branch")
+    y = torch.empty_like(x)
+    attn = torch.empty_like(x)
+    p = torch.empty(n, heads, t, t, dtype=torch.float32, device=x.device)
+    code = lib.attn_branch_res_fwd(
+        x.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(), *rows, y.data_ptr(), attn.data_ptr(),
+        work.data_ptr() + plan.layout["qkv"], attn.data_ptr(), p.data_ptr(),
+        buffer.data_ptr(), words, n, t, d, heads, plan.ctas, 1.0 / math.sqrt(d),
+        torch.cuda.current_stream(x.device).cuda_stream, trace_ptr,
+    )
+    _raise_on(code, lib, "attn_branch_res_fwd", "attn_branch")
+    LAUNCHES["attn_branch/res_fwd"] += 1
+    return y, p, attn
 
 
 def attn_branch_bwd(dy, x, shift, scale, gate, gain, w_qkv, w_out, heads: int, *,

@@ -70,6 +70,8 @@ _SIGNATURES = {
     },
     "attn_branch": {
         "attn_branch_fwd": ([_P] * 4 + [_I, _P, _I, _P, _I, _I] + [_P] * 7 + [_I] * 5 + [_F, _P, _P], ctypes.c_int),
+        "attn_branch_res_fwd": ([_P] * 4 + [_I, _P, _I, _P, _I, _I] + [_P] * 8 + [_I] * 5 + [_F, _P, _P],
+                                ctypes.c_int),
         "attn_branch_bwd": ([_P, _I] + [_P] * 4 + [_I, _P, _I, _P, _I, _I] + [_P] * 15 + [_I] * 5 + [_F] * 3
                             + [_P, _P], ctypes.c_int),
         "attn_branch_resident_ctas": ([_I], ctypes.c_int),

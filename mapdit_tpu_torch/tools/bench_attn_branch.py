@@ -1,25 +1,30 @@
 """Check and time the attention half-block's one-launch training kernels
 (``mapdit_tpu_torch/csrc/attn_branch.cu``: ``attn_branch_fwd``, row 3;
-``attn_branch_bwd``, row 4 without its dW products) on one NVIDIA GPU, and
-hold the cases ``chip_smoke.py`` phase 3 checks them on.
+``attn_branch_bwd``, row 4 without its dW products; ``attn_branch_res_fwd``,
+row 5) on one NVIDIA GPU, and hold the cases ``chip_smoke.py`` phase 3
+checks them on.
 
     python -m mapdit_tpu_torch.tools.bench_attn_branch [--check-only] [--ptxas] [--trace] \\
         [--out results/bench_attn_branch.json]
 
-``--check-only`` builds and runs both kernels against their plain versions
-at every case of CASES (rel L2 1e-2, dgain within 2^-8 of its terms'
-root-sum-square, the same bits twice; whether the bits equal the launch
-sequence's is printed) and times nothing: the first call after a change.
+``--check-only`` builds and runs the three kernels against their plain
+versions at every case of CASES (rel L2 1e-2, row 5's y, p and attn each;
+dgain within 2^-8 of its terms' root-sum-square, the same bits twice;
+whether the bits equal the launch sequence's is printed) and times nothing:
+the first call after a change.
 Otherwise the report rows (S/2 and XL/2 training shapes) are timed beside
 the launch sequences they replaced: device ms of CUDA-graph replays, host
 ms a call and eager ms (a host-launched loop, as training runs them), the
 plain versions' graph ms, and the dW pair as one bf16 product each against
 the f32 pair. ``--ptxas`` first prints the registers, shared memory and
-spills nvcc reports for the source. ``--trace`` prints where one launch's
-time goes at each report row (the kernel's own clock: ms a CTA spends on
-each stage's items, mean and max over CTAs, the pre items' bodies, product
-mainloops and epilogues an item, the last dgain sum, the attention units'
-waits, the launch's span). Prints one line a check and a timing and the
+spills nvcc reports for the source (both kernels a head width: rows 3 and
+4's, row 5's). ``--trace`` prints where one launch's time goes at each
+report row (the kernel's own clock: ms a CTA spends on each stage's items,
+mean and max over CTAs, the pre items' bodies, product mainloops and
+epilogues an item, the last dgain sum, the attention units' waits, staging
+and computing, the launch's span); row 5's attention stage is row 4's
+recompute with the f32 p store added, so their ``attention_compute`` ms
+differ by what the store costs. Prints one line a check and a timing and the
 card's name and power limit; writes the rows to ``--out``.
 """
 
@@ -50,6 +55,8 @@ CASES = {
     "t2": (5, 2, 384, 6),
 }
 GRAD_NAMES = ("dx", "dshift", "dscale", "dgate", "dgain", "dw_qkv", "dw_out")
+RES_NAMES = ("y", "p", "attn")
+KINDS = ("fwd", "bwd", "res_fwd")
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate, H100 SXM data sheet
 
@@ -103,12 +110,40 @@ def rel_l2(got, want) -> float:
     return float((got.float() - want.float()).norm() / want.float().norm())
 
 
-def check(name, args, dy) -> dict:
-    """Both kernels at one case against their plain versions (rel L2 1e-2;
-    dgain within 2^-8 of its terms' root-sum-square), the same bits on two
-    runs, and whether the bits equal the launch sequences'. Raises on a
-    disagreement."""
-    out = {}
+def check_res(name, args) -> dict:
+    """Row 5's kernel at one case against its plain version (rel L2 1e-2 for
+    y, p and attn each), the same bits on two runs, and whether each output
+    equals the launch sequence's bits. Raises on a disagreement."""
+    got, again = ab.attn_branch_res_fwd(*args), ab.attn_branch_res_fwd(*args)
+    want, seq = ab.attn_res_fwd_plain(*args), ab.res_fwd_launch_sequence(*args)
+    errs, max_abs, all_ok = {}, 0.0, True
+    for nm, g_, w_ in zip(RES_NAMES, got, want):
+        e, m = rel_l2(g_, w_), float((g_.float() - w_.float()).abs().max())
+        ok = g_.shape == w_.shape and g_.dtype == w_.dtype and bool(torch.isfinite(g_.float()).all()) and e <= 1e-2
+        errs[nm], max_abs, all_ok = e, max(max_abs, m), all_ok and ok
+        print(f"[check] what=attn_branch/res_fwd:{name}:{nm} rel_l2_err={e:.3e} max_abs_err={m:.3e} ok={ok}",
+              flush=True)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    seq_bits = {nm: torch.equal(a, b) for nm, a, b in zip(RES_NAMES, got, seq)}
+    print(f"[check] what=attn_branch/res_fwd:{name}:same-bits-twice ok={same} same_bits_as_sequence="
+          f"{json.dumps(seq_bits)}", flush=True)
+    if not (all_ok and same):
+        raise AssertionError(f"attn_branch/res_fwd:{name}: the kernel disagrees with its plain version or itself")
+    return dict(errs=errs, max_abs_err=max_abs, same_bits_twice=same, same_bits_as_sequence=seq_bits)
+
+
+def check(name, args, dy, kinds=KINDS) -> dict:
+    """The kernels of ``kinds`` at one case against their plain versions
+    (rel L2 1e-2; dgain within 2^-8 of its terms' root-sum-square), the same
+    bits on two runs, and whether the bits equal the launch sequences'.
+    Raises on a disagreement."""
+    checks = {"fwd": lambda: check_fwd(name, args), "bwd": lambda: check_bwd(name, args, dy),
+              "res_fwd": lambda: check_res(name, args)}
+    return {kind: checks[kind]() for kind in kinds}
+
+
+def check_fwd(name, args) -> dict:
+    """Row 3's kernel at one case (check)."""
     fwd = ab.attn_branch_fwd(*args)
     want = ab.attn_fwd_plain(*args)
     err, max_abs = rel_l2(fwd, want), float((fwd.float() - want.float()).abs().max())
@@ -119,8 +154,11 @@ def check(name, args, dy) -> dict:
           f"same_bits_as_sequence={seq_bits} ok={ok}", flush=True)
     if not ok:
         raise AssertionError(f"attn_branch/fwd:{name}: the kernel disagrees with its plain version")
-    out["fwd"] = dict(rel_l2_err=err, max_abs_err=max_abs, same_bits_twice=same, same_bits_as_sequence=seq_bits)
+    return dict(rel_l2_err=err, max_abs_err=max_abs, same_bits_twice=same, same_bits_as_sequence=seq_bits)
 
+
+def check_bwd(name, args, dy) -> dict:
+    """Row 4's kernel and the dW pair at one case (check)."""
     got, again = ab.attn_bwd(dy, *args), ab.attn_bwd(dy, *args)
     want, seq = ab.attn_bwd_plain(dy, *args), ab.bwd_launch_sequence(dy, *args)
     terms = dgain_terms(args, dy)
@@ -146,15 +184,15 @@ def check(name, args, dy) -> dict:
           f"{json.dumps(seq_bits)}", flush=True)
     if not (all_ok and same):
         raise AssertionError(f"attn_branch/bwd:{name}: the kernel disagrees with its plain version or itself")
-    out["bwd"] = dict(errs=errs, max_abs_err=max_abs, same_bits_twice=same, same_bits_as_sequence=seq_bits)
-    return out
+    return dict(errs=errs, max_abs_err=max_abs, same_bits_twice=same, same_bits_as_sequence=seq_bits)
 
 
 def bounds(n, t, d, heads) -> dict:
     """Each kernel's least time on the card (ms): the larger of its bytes
     (inputs read once, outputs written once) over the memory rate and its
     products' FLOPs over the bf16 tensor-core peak. Row 4's counts its own
-    work, the dW pair apart."""
+    work, the dW pair apart; row 5's is row 3's work with p (f32) and attn
+    (bf16) written besides y."""
     m, hd = n * t, d // heads
     attn = 4 * n * heads * t * t * hd  # QK^T and P.V
     gemm = 2 * m * d * 4 * d  # qkv and out
@@ -164,8 +202,9 @@ def bounds(n, t, d, heads) -> dict:
     # five T x T x hd products
     bwd = (2 * gemm + 10 * n * heads * t * t * hd + attn,
            inputs + m * d * 2 + m * d * 2 + 3 * n * d * 4 + 4)
+    res_fwd = (fwd[0], fwd[1] + m * d * 2 + n * heads * t * t * 4)
     out = {}
-    for kind, (flops, nbytes) in (("fwd", fwd), ("bwd", bwd)):
+    for kind, (flops, nbytes) in (("fwd", fwd), ("bwd", bwd), ("res_fwd", res_fwd)):
         t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
         out[kind] = (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
     return out
@@ -218,6 +257,8 @@ def timeline(kind, args, dy) -> dict:
     trace = torch.zeros(plan.ctas * ab.BRANCH_TRACE_WORDS, dtype=torch.int64, device=x.device)
     if kind == "fwd":
         ab.attn_branch_fwd(*args, trace=trace)
+    elif kind == "res_fwd":
+        ab.attn_branch_res_fwd(*args, trace=trace)
     else:
         ab.attn_branch_bwd(dy, *args, trace=trace)
     torch.cuda.synchronize()
@@ -257,6 +298,7 @@ def ptxas() -> None:
     out = subprocess.run(cmd, capture_output=True, text=True, check=True)
     for line in (out.stdout + out.stderr).splitlines():
         if "registers" in line or "spill" in line or "Function properties" in line or "C7511" in line:
+            # attn_branch_kernel<HD, RES>: the mangled name ends in its template arguments
             print("[ptxas]", line.strip(), flush=True)
 
 
@@ -292,10 +334,13 @@ def main(argv=None) -> int:
             continue
         if not args.check_only:
             b = bounds(*shape)
-            for kind in ("fwd", "bwd"):
+            for kind in KINDS:
                 if kind == "fwd":
                     fn, seq, plain = (lambda: ab.attn_branch_fwd(*fargs), lambda: ab.fwd_launch_sequence(*fargs),
                                       lambda: ab.attn_fwd_plain(*fargs))
+                elif kind == "res_fwd":
+                    fn, seq, plain = (lambda: ab.attn_branch_res_fwd(*fargs),
+                                      lambda: ab.res_fwd_launch_sequence(*fargs), lambda: ab.attn_res_fwd_plain(*fargs))
                 else:
                     fn, seq, plain = (lambda: ab.attn_branch_bwd(dy, *fargs),
                                       lambda: ab.bwd_launch_sequence(dy, *fargs),
@@ -313,7 +358,7 @@ def main(argv=None) -> int:
             print(f"[time] kernel=attn_branch/dw-pair:{name} " + " ".join(f"{k}={v:.4e}" for k, v in row.items()),
                   flush=True)
         if args.trace:
-            for kind in ("fwd", "bwd"):
+            for kind in KINDS:
                 row = timeline(kind, fargs, dy)
                 report["trace"][f"{kind}:{name}"] = row
                 print(f"[trace] kernel=attn_branch/{kind}:{name} " + " ".join(f"{k}={v:.4f}" for k, v in row.items()),

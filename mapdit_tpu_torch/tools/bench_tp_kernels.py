@@ -4,7 +4,7 @@
 tp=2 and tp=4, and hold the cases ``chip_smoke.py`` phase 3 checks them on.
 
     python -m mapdit_tpu_torch.tools.bench_tp_kernels [--check-only] [--ptxas] [--trace] \\
-        [--out results/bench_tp.json]
+        [--profiler-sessions N] [--out results/bench_tp.json]
 
 ``--check-only`` builds and runs each kernel against its plain version at
 T = 64, 16 and 4 (rel L2 1e-2, row 7's mods 1e-4, the same bits twice) and
@@ -16,7 +16,10 @@ program runs them); and rows 7 and 8 back to back in one graph. ``--ptxas`` firs
 and spills nvcc reports for the source. ``--trace`` prints where one
 launch's time goes at tp=2 (the kernel's own clock: the ms a CTA spends in
 each stage, mean and max over CTAs, and the launch's span). All at 8
-samples of 64 tokens, phase 3's rows. Prints one line a check and a timing
+samples of 64 tokens, phase 3's rows. ``--profiler-sessions N`` only
+counts, over N torch.profiler sessions a case, the device operations a
+call that ``device_ops`` reads with its trace window padded and without.
+Prints one line a check and a timing
 and the card's name and power limit; writes the rows to ``--out``.
 """
 
@@ -29,6 +32,7 @@ import math
 import os
 import subprocess
 import sys
+import time
 
 import torch
 import torch.nn.functional as F
@@ -140,21 +144,52 @@ def times(fn, seq=None) -> dict:
     return out
 
 
-def device_ops(fn, calls: int = 5) -> float:
+# host seconds of idle trace before the first call and after the last one
+PROFILE_PAD_S = 0.1
+
+
+def device_ops(fn, calls: int = 5, pad: float = PROFILE_PAD_S) -> float:
     """Device operations (kernels, copies, fills) a call, from a
-    torch.profiler trace of ``calls`` calls after a warm-up one."""
+    torch.profiler trace of ``calls`` calls after a warm-up one. The
+    profiler drops a device event whose span, moved onto the host's clock,
+    leaves the trace's window; the calls sit ``pad`` seconds inside it on
+    either side, so a skew between the two clocks cannot drop the first or
+    the last calls (``--profiler-sessions`` counts such drops)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        time.sleep(pad)
     device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False) and e.self_device_time_total > 0]
     return sum(e.count for e in device) / calls
+
+
+def profiler_sessions(gen, dev, sessions: int) -> dict:
+    """How often a profiler session miscounts a partial's device operations:
+    for each case at tp=2 and tp=4, ``sessions`` runs of :func:`device_ops`
+    unpadded and as many padded, taking turns; the count of sessions at
+    each result."""
+    out = {}
+    for tp in TP_WAYS:
+        for name, (fn, *_, fargs) in ((k, v[:4]) for k, v in tp_cases(gen, dev, tp).items()):
+            call = lambda fn=fn, fargs=fargs: fn(*fargs)
+            timing.graph_ms(call)
+            seen = {pad: {} for pad in (0.0, PROFILE_PAD_S)}
+            for _ in range(sessions):
+                for pad, counts in seen.items():
+                    ops = device_ops(call, pad=pad)
+                    counts[ops] = counts.get(ops, 0) + 1
+            out[f"{name}:tp{tp}"] = {f"pad_s={pad}": counts for pad, counts in seen.items()}
+            print(f"[profiler] case={name}:tp{tp} " + " ".join(f"pad_s={pad}:{json.dumps(counts)}"
+                                                              for pad, counts in seen.items()), flush=True)
+    return out
 
 
 def smi_line() -> str:
@@ -244,6 +279,8 @@ def main(argv=None) -> int:
     p.add_argument("--check-only", action="store_true")
     p.add_argument("--ptxas", action="store_true")
     p.add_argument("--trace", action="store_true")
+    p.add_argument("--profiler-sessions", type=int, default=0, metavar="N",
+                   help="only count device_ops' results over N profiler sessions a case, unpadded and padded")
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -260,7 +297,9 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     report = {"card": smi, "checks": {}, "times": {}}
-    for tp in TP_WAYS:
+    if args.profiler_sessions:
+        report["profiler_sessions"] = profiler_sessions(gen, dev, args.profiler_sessions)
+    for tp in (() if args.profiler_sessions else TP_WAYS):
         for t in ((64, 16, 4) if args.check_only else (64,)):
             cases = tp_cases(gen, dev, tp, t=t)
             for name, (fn, seq, plain, fargs) in ((k, v[:4]) for k, v in cases.items()):

@@ -1,12 +1,13 @@
-"""The attention half-block's one-launch kernels of rows 3 and 4
+"""The attention half-block's one-launch kernels of rows 3, 4 and 5
 (``csrc/attn_branch.cu``) on the CPU: their plan (``ops/cuda/attn_branch.py``
 ``branch_plan``, the words and counter targets the launch reads) walked as
 the kernel walks it at the DiT-S/2, B/2 and XL/2 training shapes and at a
 ragged last tile; the route and the shape rule; an emulation that runs the
 plan's items in list order, each with its plain math, against
-``attn_fwd_plain`` / ``attn_bwd_plain`` bit for bit; and the port's
-cotangents against the JAX package's ``_attn_bwd`` (its Pallas kernel in
-interpret mode) at the JAX package's tolerance, for head widths 64 and 72.
+``attn_fwd_plain`` / ``attn_bwd_plain`` / ``attn_res_fwd_plain`` bit for
+bit; the port's cotangents against the JAX package's ``_attn_bwd`` and its
+residual forward against ``_attn_res_fwd_impl`` (their Pallas kernels in
+interpret mode) at the JAX package's tolerances, for head widths 64 and 72.
 The kernels themselves run on the card only (``chip_smoke.py`` phase 3).
 """
 
@@ -25,6 +26,7 @@ from mapdit_tpu_torch.ops.cuda import dit_block_tp as tpk
 from mapdit_tpu_torch.ops.cuda.dit_block import STACK_TILE
 
 GRAD_TOL = dict(rtol=5e-4, atol=5e-4)
+FWD_TOL = dict(rtol=2e-4, atol=2e-4)
 CTAS = 132
 # name -> (N, T, D, heads): the training shapes at batch 256, then a ragged
 # last row tile (N = 3 at T = 64), and the short sequences
@@ -36,7 +38,7 @@ WALKS = {
     "xl-t16": (8, 16, 1152, 16),
     "t2": (5, 2, 384, 6),
 }
-PLANS = [pytest.param(kind, name, id=f"{kind}-{name}") for kind in ("fwd", "bwd") for name in WALKS]
+PLANS = [pytest.param(kind, name, id=f"{kind}-{name}") for kind in ("fwd", "bwd", "res_fwd") for name in WALKS]
 
 
 def _plan(kind, name, ctas=CTAS):
@@ -157,11 +159,13 @@ def test_plan_words_sync_words_and_scratch_are_what_the_launch_reads(kind, name)
         assert g == (kind_word, stage.items, 1, plan.counter_word(i, 0), 0, plan.target_offset(i))
     counters = {plan.counter_word(i, r) for i in range(len(plan.stages)) for r in range(plan.row_tiles)}
     assert min(counters) >= tpk.TP_SYNC_DONE and max(counters) < plan.sync_words
-    assert (ticket == 0) == (kind == "fwd")
+    assert (ticket == 0) == (kind in ("fwd", "res_fwd"))
     if ticket:
         assert ticket not in counters and ticket == plan.sync_words - 1
     assert plan.buffer_words == plan.sync_words + len(plan.stages) * plan.row_tiles
-    sizes = {"h": m * d * 2, "qkv": m * 3 * d * 4, "attn": m * d * 2}
+    # row 5's attn is an output of the call (the backward keeps it), not
+    # scratch, and its h lies in attn's memory
+    sizes = {"qkv": m * 3 * d * 4} if kind == "res_fwd" else {"h": m * d * 2, "qkv": m * 3 * d * 4, "attn": m * d * 2}
     if kind == "bwd":
         dh = plan.stage("dh").product
         sizes.update(dout=m * d * 2, dattn=m * d * 4, dqkv=m * 3 * d * 2, dgain_partial=dh.tiles * 4)
@@ -188,11 +192,36 @@ def test_route_is_the_shape_rule(t, d, heads, route):
     if route == "kernel":
         ab.check_branch_shape(t, d, heads)
         assert ab.branch_plan("bwd", 2, t, d, heads).tokens == t
+        assert ab.branch_plan("res_fwd", 2, t, d, heads).kernel == "branch_res_fwd"
     else:
         with pytest.raises(ValueError, match="attn_branch on CUDA"):
             ab.check_branch_shape(t, d, heads)
-        with pytest.raises(ValueError, match="attn_branch on CUDA"):
-            ab.branch_plan("fwd", 2, t, d, heads)
+        for kind in ("fwd", "res_fwd"):
+            with pytest.raises(ValueError, match="attn_branch on CUDA"):
+                ab.branch_plan(kind, 2, t, d, heads)
+
+
+@pytest.mark.parametrize("t, switch, route", [(64, True, "kernel"), (64, False, "sequence"), (48, True, "sequence")],
+                         ids=["s2", "switched-off", "t48"])
+def test_res_fwd_route_off_the_cpu(monkeypatch, t, switch, route):
+    """Row 5 on a tensor that is not on the CPU (a meta tensor: nothing is
+    built or launched) takes the one-launch kernel where branch_route takes
+    the shape, which raises naming CUDA before anything is counted, and
+    otherwise its launch sequence, counted as attn_branch/res_fwd/sequence,
+    whose first kernel raises naming CUDA; BRANCH_KERNELS False switches row
+    5 to its sequence with rows 3 and 4."""
+    monkeypatch.setattr(ab, "BRANCH_KERNELS", switch)
+    n, d, heads, bf = 2, 384, 6, torch.bfloat16
+    x = torch.empty(n, t, d, dtype=bf, device="meta")
+    r = torch.empty(n, d, dtype=bf, device="meta")
+    w_qkv, w_out = torch.empty(3 * d, d, dtype=bf, device="meta"), torch.empty(d, d, dtype=bf, device="meta")
+    assert ab.branch_route(x, w_qkv, w_out, heads) == route
+    ab.reset_launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        ab.attn_res_fwd(x, r, r, r, torch.empty((), device="meta"), w_qkv, w_out, heads)
+    seq = 1 if route == "sequence" else 0
+    assert ab.LAUNCHES["attn_branch/res_fwd/sequence"] == seq and ab.LAUNCHES["attn_branch/res_fwd"] == 0
+    ab.reset_launch_counts()
 
 
 def test_route_follows_the_switch(monkeypatch):
@@ -212,6 +241,10 @@ def test_one_launch_wrappers_are_their_plain_versions_on_the_cpu():
     assert h.dtype == attn.dtype == dout.dtype == dqkv.dtype == torch.bfloat16
     inv_d = 1 / math.sqrt(128)
     assert torch.equal(want[5], ab._dw_product(dqkv, h, inv_d)) and torch.equal(want[6], ab._dw_product(dout, attn, inv_d))
+    res = ab.attn_branch_res_fwd(*args, 2)
+    assert all(torch.equal(a, b) for a, b in zip(res, ab.attn_res_fwd_plain(*args, 2)))
+    assert [tuple(v.shape) for v in res] == [(2, 16, 128), (2, 2, 16, 16), (2, 16, 128)]
+    assert [v.dtype for v in res] == [torch.bfloat16, torch.float32, torch.bfloat16]
 
 
 # ---------------------------------------------------------------------------
@@ -242,7 +275,11 @@ def emulate(kind, args, heads, dy=None):
     stage's plain product over the whole (partly written) operand: a row of
     a product depends on its own row of A alone, and the library's sums
     over K differ between sub-blocks of one shape and another. Returns y
-    (fwd) or the seven cotangents (bwd), the dW pair from the emulated
+    (fwd), y, p and attn (res_fwd: row 3's list whose attention normalises
+    p first and stores it, as the bwd list's recompute does without the
+    store; h and attn are one array, as the launch lays them out, so an
+    attention item that overwrote h rows a qkv item had still to read would
+    show) or the seven cotangents (bwd), the dW pair from the emulated
     operands."""
     x, shift, scale, gate, gain, w_qkv, w_out = args
     n, t, d = x.shape
@@ -257,8 +294,11 @@ def emulate(kind, args, heads, dy=None):
         return torch.full(shape, float("nan"), dtype=dtype)
 
     h, qkv, attn = nan(m, d, dtype=bf), nan(m, 3 * d), nan(m, d, dtype=bf)
+    if kind == "res_fwd":
+        attn = h
     y, dout, dattn, dqkv = nan(m, d, dtype=x.dtype), nan(m, d, dtype=bf), nan(m, d), nan(m, 3 * d, dtype=bf)
     dx, dshift, dscale, dgate = nan(m, d, dtype=x.dtype), nan(n, d), nan(n, d), nan(n, d)
+    probs = nan(n, heads, t, t)
     partials = []
     counts = collections.Counter()
     for gi in range(plan.items):
@@ -278,8 +318,9 @@ def emulate(kind, args, heads, dy=None):
                 sample, head = divmod(u, heads)
                 rs, cols = slice(sample * t, (sample + 1) * t), _unit_cols(head, hd, d)
                 if stage.name == "attention":
+                    p_unit = probs[sample, head : head + 1][None] if kind == "res_fwd" else None
                     attn[rs, head * hd : (head + 1) * hd] = tdb.cosine_attention_plain(
-                        qkv[rs][:, cols], t, 1, bf, normalize_first=kind == "bwd")
+                        qkv[rs][:, cols], t, 1, bf, normalize_first=kind != "fwd", probs=p_unit)
                 else:
                     dqkv[rs, cols] = ab.attention_bwd_plain(qkv[rs][:, cols], dattn[rs, head * hd : (head + 1) * hd],
                                                             t, 1, bf)
@@ -294,7 +335,7 @@ def emulate(kind, args, heads, dy=None):
             continue
         cs = slice(c0, min(d, c0 + STACK_TILE))
         width = cs.stop - cs.start
-        if stage.name == "out" and kind == "fwd":
+        if stage.name == "out" and kind != "bwd":
             y[rs, cs] = tdb.mp_gemm_plain(attn, w_out, alpha=inv_d, out_dtype=x.dtype, residual=(xf, rows, 2 * d),
                                           tokens=t)[rs, cs]
         elif stage.name == "out":
@@ -311,6 +352,8 @@ def emulate(kind, args, heads, dy=None):
             partials.append(ab.dgain_terms(dh, xf[rs, cs], tile_rows, g, t).contiguous().sum())
     if kind == "fwd":
         return y.reshape(n, t, d)
+    if kind == "res_fwd":
+        return y.reshape(n, t, d), probs, attn.reshape(n, t, d)
     total = partials[0]
     for p in partials[1:]:
         total = total + p
@@ -336,6 +379,19 @@ def test_emulated_forward_plan_is_the_plain_forward_bit_for_bit(name):
     want = ab.attn_fwd_plain(*args, heads)
     assert torch.equal(emulate("fwd", args, heads), want)
     assert torch.equal(ab.attn_fwd(*args, heads), want)
+
+
+@pytest.mark.parametrize("name", EMULATED)
+def test_emulated_residual_forward_plan_is_the_plain_residual_forward_bit_for_bit(name):
+    """y, the f32 p and attn of row 5's list in order equal
+    attn_res_fwd_plain's bits; the wrappers on the CPU give the same."""
+    n, t, d, heads = EMULATED[name]
+    *args, _ = _inputs(np.random.default_rng(3), n, t, d, heads)
+    want = ab.attn_res_fwd_plain(*args, heads)
+    for nm, got, w in zip(("y", "p", "attn"), emulate("res_fwd", args, heads), want):
+        assert got.dtype == w.dtype and got.shape == w.shape and torch.equal(got, w), nm
+    for wrapper in (ab.attn_res_fwd, ab.attn_branch_res_fwd):
+        assert all(torch.equal(a, b) for a, b in zip(wrapper(*args, heads), want))
 
 
 @pytest.mark.parametrize("name", EMULATED)
@@ -393,3 +449,27 @@ def test_cotangents_match_jax_attn_bwd(d, heads):
         w_ = np.asarray(w_)
         assert g_.numpy().size == w_.size, nm
         np.testing.assert_allclose(g_.numpy().reshape(w_.shape), w_, err_msg=nm, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("d, heads", [(128, 2), (144, 2)], ids=["hd64", "hd72"])
+def test_residual_forward_matches_jax_attn_res_fwd(d, heads):
+    """attn_res_fwd (its plain math on the CPU, which the emulation above
+    holds row 5's list to bit for bit) against JAX's ``_attn_res_fwd_impl``
+    (its Pallas kernel in interpret mode) on the same numpy inputs: y, the
+    f32 p and the pre-projection attention at the JAX package's forward
+    tolerance (rtol = atol = 2e-4), at the head widths the kernel takes."""
+    rng = np.random.default_rng(6)
+    n, t = 4, 16
+
+    def f(*s, scale=1.0):
+        return rng.normal(size=s).astype(np.float32) * scale
+
+    args = [f(n, t, d), f(n, d), f(n, d), f(n, d), np.float32(0.4), f(3 * d, d, scale=d**-0.5),
+            f(d, d, scale=d**-0.5)]
+    want = jdb._attn_res_fwd_impl(*(jnp.asarray(a) for a in args), heads)
+    got = ab.attn_res_fwd(*(torch.as_tensor(a) for a in args), heads)
+    shapes = ((n, t, d), (n, heads, t, t), (n, t, d))
+    for nm, g_, w_, shape in zip(("y", "p", "attn"), got, want, shapes):
+        w_ = np.asarray(w_)
+        assert tuple(g_.shape) == shape and g_.dtype == torch.float32, nm
+        np.testing.assert_allclose(g_.numpy(), w_.reshape(shape), err_msg=nm, **FWD_TOL)
