@@ -12,7 +12,8 @@ Phases, one line each; any failure exits non-zero before the final line:
      then the attention half-block's wrappers and sub-kernels (rows 3, 4
      and 5, one launch each of csrc/attn_branch.cu, beside their launch
      sequences at S/2 and XL/2, row 5 on draws of its own, and checked at
-     BRANCH_BWD_SHAPES, T=48 taking the sequence route; the dW pair against
+     BRANCH_BWD_SHAPES, T=48 taking the sequence route, its backward held
+     to the plain version; the dW pair against
      the f32 pair; the A.W products, the out product with the residual
      backward as its epilogue, the residual-mode attention, the backward's
      other kernels) and fused_dit_block's gradient at the DiT-S/2 training
@@ -45,10 +46,12 @@ Phases, one line each; any failure exits non-zero before the final line:
  5d. bench: mapdit_tpu_torch.bench.main in process for ddim 50, dpm++ 20,
      unipc 20, dpm++ 20 karras, ddpm 250 with the cfg interval 0.3-3.0,
      the span cache at interval 2 in both modes, --input-size 32 (auto
-     resolves to the plain path) and train mode with --grad-accum 4 at
-     batch 256 on mega_attn: each JSON line, exact launch counts (phase
+     resolves to the plain path; and again with --block-kernel
+     mega_stack, T = 256 on dit_stack) and train mode with --grad-accum 4
+     at batch 256 on mega_attn: each JSON line, exact launch counts (phase
      5b's one dit_stack a model call; the cached chain one a block it
-     runs; none at 32 x 32; phase 6's a micro-batch);
+     runs; none at 32 x 32 on auto, one dit_stack a model call on
+     mega_stack; phase 6's a micro-batch);
   6. train: DiT-S/2 train steps at batch 256 on synthetic latents, the plain
      path and block_kernel="mega_attn" with attn_bwd "pallas" (rows 3 and 4
      one launch each a block, and again as their launch sequences) and
@@ -71,6 +74,14 @@ Phases, one line each; any failure exits non-zero before the final line:
      a batch hint, one dit_stack launch a block and no whole-stack launch,
      bit for bit against the per-block layout's per-block chain; an explicit
      mega_stack under scan_blocks raises;
+ 6c. 32 x 32: DiT-S/2 at 32 x 32 latents (T = 256), batch 32, 3 timed
+     steps a path after the checked one: the plain path, mega_attn with
+     attn_bwd "pallas" (rows 3 and 4 past their one-launch kernels'
+     T <= 64 run their launch sequences, with attention_bwd's form past
+     T = 128 and out_gate_residual_bwd's tile-order sums) and mega (one
+     dit_stack launch a block, the gradient recomputed through the
+     reference math), each held to the float32 plain step by check_paths'
+     rule, exact launch counts;
   7. families: DiT-B/2 (depth 12, width 768, 12 heads, nothing cut) on the
      generic block path, twice: P1, MaP adaln with block_kernel="pallas" and
      attention_impl="pallas" (fused_mlp_branch and fused_attention in every
@@ -217,8 +228,11 @@ Phases, one line each; any failure exits non-zero before the final line:
 Phase 3 holds dit_stack (csrc/dit_stack.cu: the one persistent kernel of
 fused_dit_stack and, at depth 1, fused_dit_block) at STACK_SHAPES (the S/2
 headline call and fused_dit_block's on phase 3's S/2 draws, B/2 at 64 rows,
-XL/2 at 8 rows and depth 28, T = 16, T = 4 at the XL head, an odd N)
-against its plain version at 5e-2 + 5e-2 relative, the same bits on two
+XL/2 at 8 rows and depth 28, T = 16, T = 4 at the XL head, an odd N, then
+T = 256: S/2 at 64 rows and depth 12, its block at 32 rows, XL/2 at 8 rows
+and depth 2, and a ragged T = 144)
+against its plain version at 5e-2 + 5e-2 relative (S/2 at T = 64 and 256
+also against float64, stack_witness), the same bits on two
 runs, and, at S/2 and XL/2, the stack against a chain of depth-1
 fused_dit_block calls bit for bit with every call of the chain held to
 the plain block on the same stream; its rows are device times of CUDA-graph
@@ -236,15 +250,17 @@ fused_attention and fused_mlp_branch are held to autograd of the float32
 reference (GRAD_TOL) and, bit for bit, to autograd of the reference they
 recompute in the inputs' types. Phase 3 also holds attention_bwd at
 ATTN_BWD_SHAPES (S/2 on the backward's own inputs, B/2's 12 heads, the XL
-head of 72, odd N, the ragged T=16 and T=4, T=96; the same bits on two
-runs; T=129 must raise), the passes around the backward's products
+head of 72, odd N, the ragged T=16 and T=4, T=96, and the form past
+T = 128 at T=256 (hd 64 and 72) and T=144; the same bits on two runs;
+T=257 must raise), the passes around the backward's products
 (modulate_fwd, modulate_bwd) at MODULATE_SHAPES (S/2 on the backward's own
 tensors, the B/2 and XL/2 widths, odd N, T=16, T=4; every output the same
 bits on two runs; D=388 must raise), the out product with the residual
 backward as its epilogue (out_gate_residual_bwd, csrc/mp_gemm.cu) at
 OUT_GATE_SHAPES (the same shapes, the split-K ones among them, and tiles
-holding T=16, 128, 4 and a last partial tile; dout and dgate against the
-plain version, the same bits on two runs; T=48 must raise) and attn_bwd at
+holding T=16, 128, 4 and a last partial tile, then T = 256, 48 and 144,
+whose samples span row tiles; dout and dgate against the plain version,
+the same bits on two runs; T=6 must raise) and attn_bwd at
 BRANCH_BWD_SHAPES (the B/2 and XL/2 widths, odd N, T=16, T=4), dw_gemm
 (the S/2 and B/2 training shapes and a
 ragged M, the same bits on two runs) and attn_bwd with the dW switch on
@@ -336,6 +352,7 @@ BENCH_RUNS = {
     "ddpm-250-cache-2-forecast": ["--cache-interval", "2"],
     "ddpm-250-cache-2-hold": ["--cache-interval", "2", "--cache-mode", "hold"],
     "ddpm-50-input-32": ["--input-size", "32", "--steps", "50"],
+    "ddpm-50-input-32-mega-stack": ["--input-size", "32", "--steps", "50", "--block-kernel", "mega_stack"],
     "train-accum-4": ["--mode", "train", "--grad-accum", "4", "--batch", "256", "--resident-data", "--steps", "10",
                       "--block-kernel", "mega_attn"],
 }
@@ -689,7 +706,11 @@ def mp_gemm_rows(torch, k, gen, dev, names) -> dict:
 # always been held on); B2 is the S2 call at DiT-B/2, XL2 DiT-XL/2 at 4 x 2
 # (8 rows, depth 28: its out and fc2 products split K); then T = 16
 # (DiT-B/4's tokens), T = 4 at the XL head of 72 (DiT-XL/8) and an odd N,
-# drawn in this order from generator SEED + 20.
+# then 32 x 32 latents (T = 256): the S/2 call of the 32 x 32 bench chain
+# (64 rows, depth 12), fused_dit_block at the 32 x 32 train batch (32 rows),
+# DiT-XL/2 at 8 rows (head width 72, depth cut to 2) and an even T that
+# crosses row tiles (144, a query tile across a row tile's edge), drawn in
+# this order from generator SEED + 20.
 STACK_SHAPES = {
     "S2": ("DiT-S/2", 64, 12, 64),
     "S2:block": ("DiT-S/2", 64, 12, 64),
@@ -698,10 +719,16 @@ STACK_SHAPES = {
     "B4:T16": ("DiT-B/4", 32, 2, 16),
     "XL8:T4": ("DiT-XL/8", 16, 2, 4),
     "S2:N3": ("DiT-S/2", 3, 2, 64),
+    "S2:T256": ("DiT-S/2", 64, 12, 256),
+    "S2:T256:block": ("DiT-S/2", 32, 12, 256),
+    "XL2:T256": ("DiT-XL/2", 8, 2, 256),
+    "S2:T144": ("DiT-S/2", 3, 2, 144),
 }
 # the launch sequence is timed beside the kernel, and held to the plain
 # version beside it, at the chain shapes
-STACK_YARDSTICK = ("S2", "S2:block", "B2", "XL2")
+STACK_YARDSTICK = ("S2", "S2:block", "B2", "XL2", "S2:T256")
+# the stack is held to the float64 witness (stack_witness) at these
+STACK_WITNESSED = ("S2", "S2:T256")
 # the stack must equal a chain of depth-1 calls bit for bit at these, and
 # each call of the chain is held to the plain block on the same stream
 STACK_CHAINED = ("S2", "XL2")
@@ -844,8 +871,8 @@ def stack_rows(torch, k) -> dict:
             phase("check", what=f"dit_stack:{name}:launch-sequence", max_abs_err=f"{float(e.max()):.3e}",
                   mean_abs_err=f"{float(e.mean()):.3e}", note="the replaced route, against the same plain version")
         err = compare(torch, got, want, 5e-2, 5e-2, f"dit_stack:{name}")
-        if name == "S2":
-            stack_witness(torch, k, "dit_stack:S2", (x, a, gains, ws, heads), got, want, seq_out)
+        if name in STACK_WITNESSED:
+            stack_witness(torch, k, f"dit_stack:{name}", (x, a, gains, ws, heads), got, want, seq_out)
         same = bool(torch.equal(got, kernel()))
         phase("check", what=f"dit_stack:{name}:same-bits-twice", ok=same)
         if not same:
@@ -942,7 +969,10 @@ FUSED_SHAPES = {
 # attention_bwd: name -> (N, T, heads, hd). The S/2 training call (the
 # report row; drawn from the backward's own qkv and dattn in phase 3), then
 # B/2's 12 heads, the XL head (16 of 72), an odd N, the ragged T=16 and T=4
-# (hd 72), one T past one key tile (96); T=ATTN_BWD_TOO_LONG must raise.
+# (hd 72), then the form past T = 64: one T past one key tile (96), T=256
+# (32 x 32 latents) at the 32 x 32 train batch (the report row of that
+# form, counted on phase 6c's path) and at the XL head, and a ragged T=144;
+# T=ATTN_BWD_TOO_LONG must raise.
 ATTN_BWD_SHAPES = {
     "attn_bwd/attention": (256, 64, 6, 64),
     "attn_bwd/attention:b2": (256, 64, 12, 64),
@@ -951,8 +981,11 @@ ATTN_BWD_SHAPES = {
     "attn_bwd/attention:t16": (8, 16, 6, 64),
     "attn_bwd/attention:t4-head-72": (8, 4, 16, 72),
     "attn_bwd/attention:t96": (8, 96, 6, 64),
+    "attn_bwd/attention:t256": (32, 256, 6, 64),
+    "attn_bwd/attention:t256-head-72": (8, 256, 16, 72),
+    "attn_bwd/attention:t144": (8, 144, 6, 64),
 }
-ATTN_BWD_TOO_LONG = 129
+ATTN_BWD_TOO_LONG = 257
 # dw_gemm's product pairs (dqkv^T.h, dout^T.attn) at the training shapes of
 # batch 256 x 64 tokens: name -> ((M, P, Q), (M, P, Q))
 DW_PAIRS = {
@@ -979,14 +1012,26 @@ MODULATE_BAD_D = 388
 # MODULATE_SHAPES entries (s2 the report row, on the backward's own tensors
 # in phase 3; b2 and xl printed beside it; n3, t16 and t4 split K), then
 # whole tiles at T = 16 and T = 128, and N = 257 at T = 4 and T = 64 (the
-# last tile partly past M); T = OUT_GATE_BAD_T (not dividing 128) must raise.
+# last tile partly past M), then T not dividing 128, where a sample's sums
+# cross row tiles: T = 256 at the 32 x 32 train batch (the report row of
+# that form, counted on phase 6c's path) and at the XL width (split K),
+# T = 48 (the former refusal) and T = 144; T = OUT_GATE_BAD_T (below 8, not
+# dividing 128) must raise.
 OUT_GATE_SHAPES = dict(MODULATE_SHAPES, **{
     "t16-n256": (TRAIN_BATCH, 16, 768),
     "t128": (64, 128, 384),
     "t4-n257": (TRAIN_BATCH + 1, 4, 1152),
     "t64-n257": (TRAIN_BATCH + 1, 64, 384),
+    "t256": (32, 256, 384),
+    "t256-xl": (2, 256, 1152),
+    "t48": (64, 48, 384),
+    "t144": (3, 144, 768),
 })
-OUT_GATE_BAD_T = 48
+OUT_GATE_BAD_T = 6
+# the report rows of the T = 256 forms and the path whose launches they
+# report: phase 6c's mega_attn path, phase 5d's 32 x 32 mega_stack run
+T256_PATH = "t256/mega_attn+pallas"
+T256_BENCH = "bench/ddpm-50-input-32-mega-stack"
 GEMM_SRC = "mapdit_tpu_torch/csrc/mp_gemm.cu"
 
 
@@ -1037,17 +1082,21 @@ def attn_bwd_case(torch, F, gen, dev, name, qkv=None, dattn=None):
     )
 
 
-def attn_bwd_shape_checks(torch, F, gen, dev) -> None:
+def attn_bwd_shape_checks(torch, F, gen, dev) -> dict:
     """attention_bwd at its ATTN_BWD_SHAPES entries beside the report row,
     checked and timed; then T=ATTN_BWD_TOO_LONG, which must raise before
-    anything is launched."""
+    anything is launched. Returns the report row of the form past T = 64
+    (at T = 256, counted on phase 6c's path)."""
     from mapdit_tpu_torch.ops.cuda import attn_branch as ab
 
+    rows = {}
     for name in ATTN_BWD_SHAPES:
         if ":" in name:
             case = attn_bwd_case(torch, F, gen, dev, name)
-            case.check(case.run())
-            attention_row(torch, case, name, BWD_SRC, None)
+            err = case.check(case.run())
+            row = attention_row(torch, case, name, BWD_SRC, f"{PALLAS}:643")
+            if name == "attn_bwd/attention:t256":
+                rows[name] = dict(row, max_abs_err=err, path=T256_PATH, count_key="attn_bwd/attention")
     n, t, heads, hd = 2, ATTN_BWD_TOO_LONG, 6, 64
     before = ab.LAUNCHES["attn_bwd/attention"]
     try:
@@ -1058,6 +1107,7 @@ def attn_bwd_shape_checks(torch, F, gen, dev) -> None:
               launched=ab.LAUNCHES["attn_bwd/attention"] - before)
     else:
         raise AssertionError(f"attention_bwd took T={t}, past its limit of {ab.ATTENTION_BWD_MAX_T}")
+    return rows
 
 
 def cosine_case(torch, F, gen, dev, name, qkv=None):
@@ -1420,18 +1470,23 @@ def pass_row(torch, case, replaces, source=BWD_SRC) -> dict:
                 host_ms=host_ms(torch, case.run))
 
 
-def out_gate_shape_checks(torch, gen, dev) -> None:
+def out_gate_shape_checks(torch, gen, dev) -> dict:
     """out_gate_residual_bwd at its OUT_GATE_SHAPES entries beside the
     report row, checked and timed; then T = OUT_GATE_BAD_T, which it must
-    refuse before anything is launched."""
+    refuse before anything is launched. Returns the report row of the form
+    where T does not divide 128 (at T = 256, counted on phase 6c's path)."""
     from mapdit_tpu_torch.ops.cuda import attn_branch as ab
 
+    rows = {}
     for name in OUT_GATE_SHAPES:
         if name == "s2":
             continue
         case = out_gate_case(torch, gen, dev, name)
         err = case.check(case.run())
-        row = pass_row(torch, case, None, GEMM_SRC)
+        row = pass_row(torch, case, 622, GEMM_SRC)
+        if name == "t256":
+            rows["attn_bwd/out_gate_residual:t256"] = dict(row, max_abs_err=err, path=T256_PATH,
+                                                          count_key="attn_bwd/out_gate_residual")
         phase("time", kernel=f"attn_bwd/out_gate_residual:{name}", shape=case.shape, max_abs_err=f"{err:.3e}",
               **{key: f"{row[key]:.4f}" for key in ("ms", "plain_ms", "bound_ms", "library_ms", "host_ms")},
               bound_by=row["bound_by"])
@@ -1444,7 +1499,9 @@ def out_gate_shape_checks(torch, gen, dev) -> None:
         phase("check", what=f"attn_bwd/out_gate_residual:t{t}", raises="ValueError", message=json.dumps(str(e)),
               launched=ab.LAUNCHES["attn_bwd/out_gate_residual"] - before)
     else:
-        raise AssertionError(f"out_gate_residual_bwd took T={t}, which does not divide {ab.GEMM_TILE_ROWS}")
+        raise AssertionError(f"out_gate_residual_bwd took T={t}, which neither divides {ab.GEMM_TILE_ROWS} nor "
+                             f"exceeds {ab.GATE_GROUP_ROWS}")
+    return rows
 
 
 def modulate_shape_checks(torch, gen, dev) -> None:
@@ -1503,9 +1560,10 @@ def branch_bwd_checks(torch, k, gen, dev) -> None:
     attn_bwd_plain and attn_res_fwd_plain (the report rows' limits: relative
     L2 1e-2, dgain within 2^-8 of its terms' root-sum-square), the same bits
     on two runs and whether they equal the launch sequences'; then the
-    domain rule at T = 48: both forwards take their launch sequences, the
-    backward's sequence raises (out_gate_residual_bwd takes T dividing 128),
-    no one-launch kernel runs."""
+    domain rule at T = 48: all three take their launch sequences (the
+    backward's, past the T dividing 128 that out_gate_residual_bwd once
+    took, held to attn_bwd_plain by the same limits), no one-launch kernel
+    runs."""
     from mapdit_tpu_torch.ops.cuda import attn_branch as ab
     from mapdit_tpu_torch.tools import bench_attn_branch as bab
 
@@ -1524,13 +1582,15 @@ def branch_bwd_checks(torch, k, gen, dev) -> None:
     for nm, g_, w_ in zip(("y", "p", "attn"), ab.attn_res_fwd(*args), ab.attn_res_fwd_plain(*args)):
         compare_rel(torch, g_, w_, 1e-2, f"attn_branch/res_fwd:t{BRANCH_OUTSIDE_T}:sequence:{nm}")
     try:
-        ab.attn_bwd(dy, *args)
+        bab.check_bwd(f"t{BRANCH_OUTSIDE_T}:sequence", args, dy)
         raised = None
     except ValueError as e:
         raised = str(e)
     after = launch_counts()
     moved = {key: after[key] - before[key] for key in after if after[key] != before[key]}
-    ok = (raised is not None and all(moved.get(f"attn_branch/{row}/sequence") == 1 for row in ("fwd", "bwd", "res_fwd"))
+    # check_bwd calls the backward twice (the same bits on two runs)
+    ok = (raised is None and all(moved.get(f"attn_branch/{row}/sequence") == 1 for row in ("fwd", "res_fwd"))
+          and moved.get("attn_branch/bwd/sequence") == 2
           and not any(moved.get(f"attn_branch/{row}") for row in ("fwd", "bwd", "res_fwd")))
     phase("check", what=f"attn_branch:t{BRANCH_OUTSIDE_T}:sequence-route", raises=json.dumps(raised),
           launched=json.dumps(moved), ok=ok)
@@ -1698,7 +1758,7 @@ def train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x_s, a_s, gains_s, w0)
     mod_gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     modulate_shape_checks(torch, mod_gen, dev)
     branch_bwd_checks(torch, k, mod_gen, dev)
-    out_gate_shape_checks(torch, torch.Generator(device=dev).manual_seed(SEED + 11), dev)
+    out_rows.update(out_gate_shape_checks(torch, torch.Generator(device=dev).manual_seed(SEED + 11), dev))
 
     # attention_bwd on identical inputs (device ms of CUDA-graph replays,
     # SDPA's forward and backward beside), then at its other shapes
@@ -1709,7 +1769,7 @@ def train_kernel_rows(torch, F, k, gen, dev, t, d, heads, x_s, a_s, gains_s, w0)
     out_rows["attn_bwd/attention"] = dict(
         attention_row(torch, case, "attn_bwd/attention", BWD_SRC, f"{PALLAS}:643"), max_abs_err=err,
         path="mega_attn+sequence")
-    attn_bwd_shape_checks(torch, F, gen, dev)
+    out_rows.update(attn_bwd_shape_checks(torch, F, gen, dev))
 
     out_rows["attn_bwd/dw"] = dw_kernel_row(torch, ab, gen, dev, dy, args, (dqkv, h, dout, attn), inv_d, terms)
 
@@ -1866,13 +1926,13 @@ def draw_gains(torch, model, seed: int) -> None:
 
 
 def train_inputs(torch, dev, cfg, rows: int):
-    """Synthetic VAE-posterior latents (1000 classes, seed SEED): the
-    dataset, one batch of ``rows`` on the card, and one train step's draws
-    (posterior noise, t, q-sample noise, label dropout), so that every path
-    of a phase takes the same step."""
+    """Synthetic VAE-posterior latents (1000 classes, seed SEED, the
+    model's latent side): the dataset, one batch of ``rows`` on the card,
+    and one train step's draws (posterior noise, t, q-sample noise, label
+    dropout), so that every path of a phase takes the same step."""
     from mapdit_tpu_torch.training import SyntheticLatentDataset
 
-    ds = SyntheticLatentDataset(num_examples=max(1024, 2 * rows), num_classes=1000, size=16, seed=SEED)
+    ds = SyntheticLatentDataset(num_examples=max(1024, 2 * rows), num_classes=1000, size=cfg.input_size, seed=SEED)
     batch = {key: torch.as_tensor(v).to(dev) for key, v in next(ds.batches(rows, seed=SEED)).items()}
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     shape = batch["mean"].shape
@@ -1885,8 +1945,9 @@ def train_inputs(torch, dev, cfg, rows: int):
     return ds, batch, draws
 
 
-def train_phase(torch, dev, tag: str, paths: dict, expect: dict, steps: int, around=None) -> dict:
-    """Train steps at TRAIN_BATCH on synthetic latents for each config of
+def train_phase(torch, dev, tag: str, paths: dict, expect: dict, steps: int, around=None,
+                rows: int = TRAIN_BATCH) -> dict:
+    """Train steps at ``rows`` on synthetic latents for each config of
     ``paths`` ("f32", the float32 plain path, and "off", the bf16 plain
     path, among them). The first step (same weights, same injected draws on
     every path) is held against the float32 plain path by check_paths' rule,
@@ -1903,7 +1964,7 @@ def train_phase(torch, dev, tag: str, paths: dict, expect: dict, steps: int, aro
     draw_gains(torch, init, SEED)
     sd0 = init.state_dict()
     del init
-    ds, batch, draws = train_inputs(torch, dev, cfg, TRAIN_BATCH)
+    ds, batch, draws = train_inputs(torch, dev, cfg, rows)
     diffusion = create_diffusion("", device=dev)
     tx = create_optimizer(warmup_flat_invsqrt(1e-2, 100, 1000))
     losses, grads, counts = {}, {}, {}
@@ -1923,7 +1984,7 @@ def train_phase(torch, dev, tag: str, paths: dict, expect: dict, steps: int, aro
                 torch.cuda.synchronize()
                 seconds = time.perf_counter() - t0
                 counts[name] = launch_counts()
-                phase(tag, path=name, model=json.dumps(c.flags_dict()["modulation"]), batch=TRAIN_BATCH, steps=steps,
+                phase(tag, path=name, model=json.dumps(c.flags_dict()["modulation"]), batch=rows, steps=steps,
                       seconds=f"{seconds:.4f}", steps_per_s=f"{steps / seconds:.3f}",
                       ms_per_step=f"{1e3 * seconds / steps:.4f}", first_loss=f"{float(losses[name]):.6f}",
                       last_loss=f"{last:.6f}", launches=json.dumps({key: v for key, v in counts[name].items() if v}))
@@ -2015,6 +2076,35 @@ def s2_train_phase(torch, dev, cfg) -> dict:
         raise AssertionError(f"row 5 made {row5} launches a call ({ROW5_LAUNCHES} expected) and {row5_seq} sequence "
                              f"calls, its sequence {seq_row5} launches a call ({ROW5_SEQUENCE_LAUNCHES})")
     return counts
+
+
+# phase 6c: DiT-S/2 training at 32 x 32 latents (T = 256)
+T256_TRAIN_BATCH = 32
+T256_TRAIN_STEPS = 3
+
+
+def t256_train_phase(torch, dev, cfg) -> dict:
+    """Phase 6c: DiT-S/2 at 32 x 32 latents (T = 256), batch
+    T256_TRAIN_BATCH, on the plain path, on mega_attn with attn_bwd pallas
+    (rows 3 and 4 past their one-launch kernels' T <= 64: their launch
+    sequences, with attention_bwd's form past T = 64 and
+    out_gate_residual_bwd's tile-order form at T = 256) and on mega (the
+    forward one dit_stack launch a block, the gradient recomputed through the
+    reference math): the first step held to the float32 plain step by
+    check_paths' rule, then T256_TRAIN_STEPS timed steps a path with exact
+    launch counts. Returns {path: launch counts}, keyed "t256/<path>"."""
+    from mapdit_tpu_torch.ops.cuda import attn_branch as ab
+
+    c32 = cfg.replace(input_size=32)
+    per = c32.depth * T256_TRAIN_STEPS
+    paths = {"f32": c32.replace(compute_dtype="float32"), "off": c32,
+             "mega_attn+pallas": c32.replace(block_kernel="mega_attn", attn_bwd="pallas"),
+             "mega": c32.replace(block_kernel="mega")}
+    expect = {"off": {},
+              "mega_attn+pallas": mega_attn_expect(ab, c32.depth, T256_TRAIN_STEPS, remat=False, sequence=True),
+              "mega": {"fused_dit_block": per, "dit_stack": per}}
+    counts = train_phase(torch, dev, "train-t256", paths, expect, T256_TRAIN_STEPS, rows=T256_TRAIN_BATCH)
+    return {f"t256/{name}": v for name, v in counts.items()}
 
 
 def checked_step(torch, dev, cfg, sd0, batch, draws, stats, ema_stds=None):
@@ -4097,25 +4187,27 @@ def pit_phase(torch, dev, cfg, sd, z, yf) -> float:
     return limit
 
 
-def bench_phase(torch, dev) -> None:
+def bench_phase(torch, dev) -> dict:
     """Phase 5d: mapdit_tpu_torch.bench.main in process for each of
     BENCH_RUNS; its JSON line printed. The sampler chains make phase 5b's
     launches (one dit_stack a model call; the cached chain one a block it
-    runs), the 32 x 32 run resolves auto to the plain path (no launch), the
-    train run with --grad-accum 4 phase 6's launches per micro-batch."""
+    runs), the 32 x 32 run on auto resolves to the plain path (no launch)
+    and on an explicit mega_stack makes one dit_stack launch a model call
+    (T = 256), the train run with --grad-accum 4 phase 6's launches per
+    micro-batch. Returns each run's launch counts, by tag."""
     import io
 
     from mapdit_tpu_torch import bench
     from mapdit_tpu_torch.ops.cuda import attn_branch as ab
 
-    depth = 12
+    depth, runs = 12, {}
     for tag, flags in BENCH_RUNS.items():
         argv = [*flags, "--repeats", str(BENCH_REPEATS)]
         args = bench.build_parser().parse_args(argv)
         chains = 1 + BENCH_REPEATS
         if args.mode == "train":
             expect = mega_attn_expect(ab, depth, (1 + max(args.steps, 10)) * args.grad_accum, remat=False)
-        elif args.input_size != 16:
+        elif args.input_size != 16 and args.block_kernel == "auto":
             expect = {}
         elif args.cache_interval > 1:
             full = args.steps // args.cache_interval
@@ -4138,12 +4230,16 @@ def bench_phase(torch, dev) -> None:
               block_kernel=result.get("block_kernel"), seconds_with_build=f"{seconds:.2f}",
               launches=json.dumps({key: v for key, v in counts.items() if v}), card=json.dumps(smi_line()))
         check_counts(f"bench/{tag}", counts, expect)
+        runs[tag] = counts
         want = "off" if args.input_size != 16 else ("mega" if args.cache_interval > 1 else "mega_stack")
+        if args.block_kernel != "auto":
+            want = args.block_kernel
         if args.mode == "sample" and result["block_kernel"] != want:
             raise AssertionError(f"bench {tag}: block_kernel {result['block_kernel']}, not {want}")
         if f"block_kernel {want}" not in result["unit"] and args.mode == "sample":
             raise AssertionError(f"bench {tag}: the unit does not name block_kernel {want}: {result['unit']}")
         torch.cuda.empty_cache()
+    return runs
 
 
 def png_check(path: str) -> tuple:
@@ -5144,6 +5240,10 @@ def main() -> int:
     elapsed("3.attention")
     stack = stack_rows(torch, k)
     rows["fused_dit_stack"], rows["fused_dit_block"] = stack["S2"], stack["S2:block"]
+    # at 32 x 32 latents: the stack counted on phase 5d's mega_stack bench
+    # run, the block on phase 6c's mega train path
+    rows["fused_dit_stack:t256"] = dict(stack["S2:T256"], count_from=(T256_BENCH, "fused_dit_stack"))
+    rows["fused_dit_block:t256"] = dict(stack["S2:T256:block"], path="t256/mega", count_key="fused_dit_block")
     elapsed("3.stack")
     for name, row in rows.items():
         phase("time", kernel=name, ms=f"{row['ms']:.4f}", plain_ms=f"{row['plain_ms']:.4f}",
@@ -5233,7 +5333,7 @@ def main() -> int:
     # 5c. parallel-in-time ddim on the same weights, 5d. the bench's flags
     pit_limit = pit_phase(torch, dev, cfg, sd, z, yf)
     elapsed("5c")
-    bench_phase(torch, dev)
+    bench_counts = bench_phase(torch, dev)
     elapsed("5d")
 
     # 6. train
@@ -5246,8 +5346,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     elapsed("6b")
 
+    # 6c. DiT-S/2 training at 32 x 32 latents
+    train_launches.update(t256_train_phase(torch, dev, cfg))
+    torch.cuda.empty_cache()
+    elapsed("6c")
+
     # 7. the flag families at DiT-B/2
-    family_launches = {}
+    family_launches = {T256_BENCH: bench_counts["ddpm-50-input-32-mega-stack"]}
     for tag, (flags, kernels) in FAMILIES.items():
         family_launches.update(family_phase(torch, dev, tag, flags, kernels))
     elapsed("7")

@@ -238,7 +238,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default="bfloat16")
     p.add_argument("--input-size", type=int, default=16,
                    help="latent side (16: the ImageNet-128 latents, T=64 tokens at patch 2; 32: ImageNet-256, "
-                        "T=256, past dit_stack's T <= 64, so auto runs the plain path)")
+                        "T=256, past the auto policy's T <= 64, so auto runs the plain path and --block-kernel "
+                        "mega_stack or mega the kernels)")
     p.add_argument("--block-kernel", choices=list(BLOCK_KERNELS), default="auto")
     p.add_argument("--modulation", choices=list(MODULATION_KINDS), default="adaln")
     p.add_argument("--attention-impl", choices=list(ATTENTION_IMPLS), default="auto")

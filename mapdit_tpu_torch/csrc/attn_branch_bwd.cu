@@ -39,15 +39,16 @@
 // the 100.7 MB read and 37.7 MB written at that shape.
 //
 // (b)'s design. One block per (sample, head) and one warp per 16 query
-// rows (up to eight warps: T <= 128), on the tensor cores through
+// rows (four warps: T <= 64, one key tile; the form past 64 below), on
+// the tensor cores through
 // attention_tiles.cuh (mma.sync m16n8k16 bf16 products, f32 sums, operands
 // read with ldmatrix from bf16 tiles with padded rows):
 //   * q, k, v and do are read once, 16 bytes a lane and four lanes a row,
 //     and stored as bf16 tiles (qn and kn already normalised, head width
 //     72 padded with zero columns to 80); the pass that normalises q and k
 //     takes each row's f32 norm with quad shuffles and keeps it;
-//   * each warp keeps its 16 rows of S = qn.kn^T and dP = do.v^T (keys in
-//     tiles of 64, up to two) in registers and takes the exact softmax
+//   * each warp keeps its 16 rows of S = qn.kn^T and dP = do.v^T (one
+//     key tile of 64) in registers and takes the exact softmax
 //     (row maximum, exponentials, row sum), rowsum(dp*p) and dlog there,
 //     a row lying on the four lanes of a quad; keys past T are masked, and
 //     query rows past T get p = dlog = 0, so they add nothing to dv or dkn;
@@ -63,8 +64,28 @@
 //     tiles and written with 16-byte stores, each element once: no
 //     atomics, the same bits on every run.
 // Shared memory: four bf16 tiles and p, dlog, 55.8 KB at T = 64 and hd 64
-// (four blocks an SM), 63.5 KB at hd 72; 143-160 KB for 64 < T <= 128 (two
-// key tiles, eight warps). The bf16 roundings are the plain version's
+// (four blocks an SM), 63.5 KB at hd 72. This form is also row 4's
+// persistent kernel's attention stage (attention_bwd_tiles.cuh).
+// Past T = 64 (up to 256, 32 x 32 latents at patch 2) a second form keeps
+// no T x T array (p and dlog would take 270 KB at T = 256): one block of
+// eight warps per (sample, head) holds the T rows of qn, kn, v and do as
+// bf16, rounded up to 128 rows (74 KB at T = 128 and hd 64, 148 KB at
+// T = 256, 180 KB at hd 72: one block an SM there) and recomputes S and dP
+// from them:
+//   * phase A, 16 query rows a warp: a first sweep over the key tiles of
+//     64 takes sum ex and sum dp*ex of each row, the exponent max-free,
+//     ex = exp(l - sqrt(hd)) (cosine logits are bounded by sqrt(hd), as in
+//     the forward kernels), so 1/sum and rowsum(dp*p) = sum(dp*ex)/sum go
+//     to shared memory; a second sweep forms p and dlog tile by tile and
+//     adds dqn = bf16(dlog).kn over the key tiles;
+//   * phase B, 16 key rows a warp: S^T = kn.qn^T and dP^T = v.do^T against
+//     each tile of 64 queries, p and dlog from the stored row sums, and
+//     dv = bf16(p)^T.do, dkn = bf16(dlog)^T.qn added over the query tiles;
+//   * dq, dk and dv are written once each from the fragments (after the
+//     normalize VJP): every sum runs in a fixed order, no atomics.
+// Its roundings are the first form's (bf16 operands of every product, p
+// and dlog in f32 between them) but for the max-free exponent and
+// rowsum(dp*p) taken as sum(dp*ex)/sum. The bf16 roundings are the plain version's
 // (attn_branch._attention_vjp): bf16 operands of every product, p and dlog
 // in f32 between them. Two f32 steps differ from it besides the order of
 // the sums, as in the forward kernels: the exponent is ex2.approx.ftz of
@@ -125,8 +146,8 @@ enum { DT_F32 = 0, DT_BF16 = 1 };
 
 // ---------------------------------------------------------------------------
 // (b) attention backward on the tensor cores (attention_bwd_tiles.cuh);
-// grid (heads, N), one block per (sample, head), KT key tiles of 64
-// (T <= 64 * KT)
+// grid (heads, N), one block per (sample, head), for T <= 64 (KT = 1, one
+// key tile)
 
 using attn_bwd_tiles::BwdLayout;
 
@@ -158,9 +179,192 @@ int launch_attention_bwd(const float* qkv, const float* dattn, __nv_bfloat16* dq
   return static_cast<int>(cudaGetLastError());
 }
 
+// (b) past T = 64: one block of LONG_THREADS per (sample, head) holding the
+// head's T rows of qn, kn, v and do as bf16 tiles (rows rounded up to 128,
+// zero past T) and no T x T array; the notes at the top
+constexpr int LONG_WARPS = 8;
+constexpr int LONG_THREADS = 32 * LONG_WARPS;
+constexpr int LONG_MAX_T = 256;
+constexpr int LONG_ROWS = 128;  // rows a load pass takes (attn_bwd_tiles::Slice<HD, 2>)
+static_assert(BwdLayout<64, 2>::THREADS == LONG_THREADS, "the load passes take the long form's threads");
+
+template <int HD>
+size_t long_bytes(int t) {
+  const size_t rows = (t + LONG_ROWS - 1) / LONG_ROWS * LONG_ROWS;
+  return 4 * rows * attn_tiles::Dims<HD>::LD * 2 + 4 * rows * sizeof(float);
+}
+
+// a warp's 16 rows of one bf16 result (packed fragments) straight to dst +
+// r * ld, rows r0 + g and r0 + g + 8 below t
+template <int HD>
+__device__ __forceinline__ void store_fragments(const uint32_t (&v)[attn_tiles::Dims<HD>::NT][2], __nv_bfloat16* dst,
+                                                int64_t ld, int r0, int t, int lane) {
+  const int g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int j = 0; j < attn_tiles::Dims<HD>::NT; ++j) {
+    if (r0 + g < t) *reinterpret_cast<uint32_t*>(dst + (int64_t)(r0 + g) * ld + 8 * j + 2 * c) = v[j][0];
+    if (r0 + g + 8 < t) *reinterpret_cast<uint32_t*>(dst + (int64_t)(r0 + g + 8) * ld + 8 * j + 2 * c) = v[j][1];
+  }
+}
+
+// ex = exp(l - sqrt(hd)), l = s / sqrt(hd): the max-free exponent of a
+// cosine logit (|l| <= sqrt(hd), so ex lies in [e^-2sqrt(hd), 1])
+__device__ __forceinline__ float cosine_exp(float s, float inv_sqrt_hd, float sqrt_hd) {
+  return attn_tiles::exp2_approx((s * inv_sqrt_hd - sqrt_hd) * attn_tiles::LOG2E);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(LONG_THREADS, 1)
+    attention_bwd_long_kernel(const float* __restrict__ qkv, const float* __restrict__ dattn,
+                              __nv_bfloat16* __restrict__ dqkv, int t, int heads) {
+  namespace tiles = attn_tiles;
+  using D = tiles::Dims<HD>;
+  using S = attn_bwd_tiles::Slice<HD, 2>;
+  constexpr int KEYS = tiles::KEY_TILES, TILE = tiles::TILE;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rows = (t + LONG_ROWS - 1) / LONG_ROWS * LONG_ROWS;
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);  // qn
+  __nv_bfloat16* sk = sq + rows * D::LD;                        // kn
+  __nv_bfloat16* sv = sk + rows * D::LD;                        // v
+  __nv_bfloat16* sd = sv + rows * D::LD;                        // do
+  float* rq = reinterpret_cast<float*>(sd + rows * D::LD);      // ||q||, ||k||
+  float* rk = rq + rows;
+  float* pinv = rk + rows;  // 1 / sum ex of each query row, 0 past T
+  float* prs = pinv + rows; // rowsum(dp * p) of each query row
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, c = lane & 3;
+  const int sample = blockIdx.y, head = blockIdx.x;
+  const int d = heads * HD;
+  const int64_t ld = 3 * (int64_t)d;
+  const float* base = qkv + (int64_t)sample * t * ld + head * HD;
+  const float* dbase = dattn + (int64_t)sample * t * d + head * HD;
+  __nv_bfloat16* out = dqkv + (int64_t)sample * t * ld + head * HD;
+  const float sqrt_hd = sqrtf((float)HD), inv_sqrt_hd = (float)(1.0 / sqrt((double)HD));
+
+  for (int r = tid; r < rows; r += LONG_THREADS) pinv[r] = prs[r] = 0.f;
+  for (int r0 = 0; r0 < rows; r0 += LONG_ROWS) {
+    S fa, fb;
+    attn_bwd_tiles::fetch<HD, 2, false>(fa, base + r0 * ld, ld, t - r0, tid);
+    attn_bwd_tiles::fetch<HD, 2, false>(fb, base + d + r0 * ld, ld, t - r0, tid);
+    attn_bwd_tiles::commit<HD, 2>(fa, sq + r0 * D::LD, rq + r0, t - r0, tid);
+    attn_bwd_tiles::commit<HD, 2>(fb, sk + r0 * D::LD, rk + r0, t - r0, tid);
+    attn_bwd_tiles::fetch<HD, 2, false>(fa, base + 2 * d + r0 * ld, ld, t - r0, tid);
+    attn_bwd_tiles::fetch<HD, 2, false>(fb, dbase + r0 * d, d, t - r0, tid);
+    attn_bwd_tiles::commit<HD, 2>(fa, sv + r0 * D::LD, nullptr, t - r0, tid);
+    attn_bwd_tiles::commit<HD, 2>(fb, sd + r0 * D::LD, nullptr, t - r0, tid);
+  }
+  __syncthreads();
+
+  // phase A, 16 query rows a warp at a time: a first sweep over the key
+  // tiles takes sum ex and sum dp*ex, a second forms p and dlog and adds
+  // dqn = dlog . kn over the key tiles
+  for (int q0 = 16 * warp; q0 < t; q0 += 16 * LONG_WARPS) {
+    float s[KEYS][4], dp[KEYS][4];
+    float sum0 = 0.f, sum1 = 0.f, rs0 = 0.f, rs1 = 0.f;
+    for (int k0 = 0; k0 < t; k0 += TILE) {
+      tiles::qk_tile<HD>(s, sq + q0 * D::LD, sk + k0 * D::LD, 0, lane);
+      tiles::qk_tile<HD>(dp, sd + q0 * D::LD, sv + k0 * D::LD, 0, lane);
+#pragma unroll
+      for (int j = 0; j < KEYS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + 8 * j + 2 * c + (e & 1);
+          const float x = col < t ? cosine_exp(s[j][e], inv_sqrt_hd, sqrt_hd) : 0.f;
+          if (e < 2) sum0 += x, rs0 += dp[j][e] * x;
+          else sum1 += x, rs1 += dp[j][e] * x;
+        }
+    }
+    const float inv0 = q0 + g < t ? 1.f / tiles::quad_sum(sum0) : 0.f;
+    const float inv1 = q0 + g + 8 < t ? 1.f / tiles::quad_sum(sum1) : 0.f;
+    rs0 = tiles::quad_sum(rs0) * inv0;
+    rs1 = tiles::quad_sum(rs1) * inv1;
+    if (c == 0) {
+      pinv[q0 + g] = inv0;
+      pinv[q0 + g + 8] = inv1;
+      prs[q0 + g] = rs0;
+      prs[q0 + g + 8] = rs1;
+    }
+    float o[D::NT][4];
+#pragma unroll
+    for (int j = 0; j < D::NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+    for (int k0 = 0; k0 < t; k0 += TILE) {
+      tiles::qk_tile<HD>(s, sq + q0 * D::LD, sk + k0 * D::LD, 0, lane);
+      tiles::qk_tile<HD>(dp, sd + q0 * D::LD, sv + k0 * D::LD, 0, lane);
+#pragma unroll
+      for (int j = 0; j < KEYS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + 8 * j + 2 * c + (e & 1);
+          const float p = col < t ? cosine_exp(s[j][e], inv_sqrt_hd, sqrt_hd) * (e < 2 ? inv0 : inv1) : 0.f;
+          // dlog = p*(dp - rowsum(dp*p)) / sqrt(hd)
+          dp[j][e] = p * (dp[j][e] - (e < 2 ? rs0 : rs1)) * inv_sqrt_hd;
+        }
+      uint32_t la[KEYS / 2][4];
+      tiles::pack_p(la, dp);
+      tiles::pv_tile<HD>(o, la, sk + k0 * D::LD, lane);
+    }
+    uint32_t dq[D::NT][2];
+    attn_bwd_tiles::normalize_vjp<HD, false>(o, dq, base, ld, rq, q0, t, lane);
+    store_fragments<HD>(dq, out, ld, q0, t, lane);
+  }
+  __syncthreads();
+
+  // phase B, 16 key rows a warp at a time: S^T = kn . qn^T and dP^T = v .
+  // do^T against each tile of 64 queries, p and dlog from the query rows'
+  // sums, dv = p^T . do and dkn = dlog^T . qn added over the query tiles
+  for (int k0 = 16 * warp; k0 < t; k0 += 16 * LONG_WARPS) {
+    float ov[D::NT][4], ok[D::NT][4];
+#pragma unroll
+    for (int j = 0; j < D::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ov[j][e] = ok[j][e] = 0.f;
+    for (int q0 = 0; q0 < t; q0 += TILE) {
+      float s[KEYS][4], dp[KEYS][4];
+      tiles::qk_tile<HD>(s, sk + k0 * D::LD, sq + q0 * D::LD, 0, lane);
+      tiles::qk_tile<HD>(dp, sv + k0 * D::LD, sd + q0 * D::LD, 0, lane);
+#pragma unroll
+      for (int j = 0; j < KEYS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q = q0 + 8 * j + 2 * c + (e & 1);
+          const float p = cosine_exp(s[j][e], inv_sqrt_hd, sqrt_hd) * pinv[q];
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - prs[q]) * inv_sqrt_hd;
+        }
+      uint32_t pa[KEYS / 2][4], la[KEYS / 2][4];
+      tiles::pack_p(pa, s);
+      tiles::pack_p(la, dp);
+      tiles::pv_tile<HD>(ov, pa, sd + q0 * D::LD, lane);
+      tiles::pv_tile<HD>(ok, la, sq + q0 * D::LD, lane);
+    }
+    uint32_t dk[D::NT][2], dv[D::NT][2];
+    attn_bwd_tiles::pack_rows<HD>(ov, dv);
+    attn_bwd_tiles::normalize_vjp<HD, false>(ok, dk, base + d, ld, rk, k0, t, lane);
+    store_fragments<HD>(dk, out + d, ld, k0, t, lane);
+    store_fragments<HD>(dv, out + 2 * d, ld, k0, t, lane);
+  }
+}
+
+template <int HD>
+int launch_attention_bwd_long(const float* qkv, const float* dattn, __nv_bfloat16* dqkv, int n, int t, int heads,
+                              cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(attention_bwd_long_kernel<HD>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (int)long_bytes<HD>(LONG_MAX_T));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  attention_bwd_long_kernel<HD><<<dim3(heads, n), LONG_THREADS, long_bytes<HD>(t), stream>>>(qkv, dattn, dqkv, t,
+                                                                                           heads);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int HD>
 size_t attention_bwd_bytes(int t) {
-  return t <= attn_tiles::TILE ? BwdLayout<HD, 1>::BYTES : BwdLayout<HD, 2>::BYTES;
+  return t <= attn_tiles::TILE ? BwdLayout<HD, 1>::BYTES : long_bytes<HD>(t);
 }
 
 // ---------------------------------------------------------------------------
@@ -337,9 +541,9 @@ bool modulate_domain(int d, int rows_ld, int shift_off, int scale_off, std::init
 }  // namespace
 
 // Shared memory of one attention_bwd block, 0 where the kernel does not
-// take (t, hd): head widths 64 and 72, 1 <= t <= 128.
+// take (t, hd): head widths 64 and 72, 1 <= t <= 256.
 extern "C" size_t attention_bwd_smem_bytes(int t, int hd) {
-  if (t < 1 || t > 2 * attn_tiles::TILE) return 0;
+  if (t < 1 || t > LONG_MAX_T) return 0;
   return hd == 64 ? attention_bwd_bytes<64>(t) : hd == 72 ? attention_bwd_bytes<72>(t) : 0;
 }
 
@@ -350,12 +554,11 @@ extern "C" int attention_bwd(const void* qkv, const void* dattn, void* dqkv, int
   const float* da = static_cast<const float*>(dattn);
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(dqkv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool one = t <= attn_tiles::TILE;
-  if (hd == 64)
-    return one ? launch_attention_bwd<64, 1>(q, da, out, n, t, heads, s)
-               : launch_attention_bwd<64, 2>(q, da, out, n, t, heads, s);
-  return one ? launch_attention_bwd<72, 1>(q, da, out, n, t, heads, s)
-             : launch_attention_bwd<72, 2>(q, da, out, n, t, heads, s);
+  if (t > attn_tiles::TILE)
+    return hd == 64 ? launch_attention_bwd_long<64>(q, da, out, n, t, heads, s)
+                    : launch_attention_bwd_long<72>(q, da, out, n, t, heads, s);
+  return hd == 64 ? launch_attention_bwd<64, 1>(q, da, out, n, t, heads, s)
+                  : launch_attention_bwd<72, 1>(q, da, out, n, t, heads, s);
 }
 
 extern "C" int modulate_fwd(const void* x, int x_dtype, const void* rows, int rows_ld,

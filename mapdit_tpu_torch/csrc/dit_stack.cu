@@ -31,7 +31,8 @@
 // chip_smoke.py counts them: inputs read once, output written once):
 // DiT-S/2 sampling (64 rows x 64 tokens, depth 12) 0.1821 ms, B/2 (64 x 64,
 // depth 12) 0.7188 ms, XL/2 (8 x 64, depth 28) 0.4696 ms, all by operations
-// (XL/2's weights, 1.34 GB, alone take 0.40 ms).
+// (XL/2's weights, 1.34 GB, alone take 0.40 ms); at 32 x 32 latents S/2 (64
+// x 256, depth 12) 0.7831 ms by operations (773 GFLOP).
 //
 // Design (sm_90a):
 //   * One cooperative launch of one CTA an SM (cudaLaunchKernelEx with the
@@ -49,9 +50,10 @@
 //     the blocks are one list of items (qkv, attention, out, fc1, fc2 of
 //     block 0, then block 1, ...; within a product's split, row tile
 //     major), CTA c
-//     taking items c, c + ctas, ... Rows never meet across samples, so an
-//     item waits only on its own row tile's earlier stage: one counter a
-//     row tile and stage, which the signalling thread raises (a release
+//     taking items c, c + ctas, ... Rows never meet across samples, so a
+//     product item waits only on its own row tile's earlier stage, and an
+//     attention unit only on its sample's row tiles: one counter a row
+//     tile and stage, which the signalling thread raises (a release
 //     add, after the consumers hand the item over through shared-memory
 //     mbarriers) and the TMA thread or an attention group awaits (acquire
 //     loads) before it reads. fence.proxy.async orders the ordinary stores
@@ -66,10 +68,20 @@
 //     chain of depth-1 calls bit for bit.
 //   * The attention runs attention_tiles.cuh's mma.sync tiles with
 //     cosine_tiles.cuh's row staging on two groups of four consumer warps,
-//     one (sample, head) unit each (T <= 64: one tile of queries and keys),
-//     in the ring's memory (the TMA thread loads nothing meanwhile); rows
-//     this launch wrote are read through L2 (ld.global.cg), never the
-//     read-only path.
+//     one (sample, head, tile of 64 queries) unit each, in the ring's memory
+//     (the TMA thread loads nothing meanwhile); at T > 64 the keys stream
+//     through the group's buffers in tiles of 64 (cosine_attention.cu's
+//     normal mode), so T is not bounded by shared memory. A unit waits for
+//     the qkv rows of its whole sample and, since it read them all, counts
+//     itself done for every row tile of its sample (at T = 256 a sample
+//     spans two): the out product of row tile r waits for every unit of
+//     every sample with a row in r, so the next block's qkv items, which
+//     wait on r's fc2, never overwrite rows a unit still streams. Rows
+//     this launch wrote are read through L2
+//     (ld.global.cg), never the read-only path.
+//   * T <= 64 and T > 64 are kernel instances of their own (LONG): the key
+//     tile loop's registers pushed the one-tile instance into spills when
+//     both shared one (XL/2 at T = 64 took 2.88 ms against 2.67).
 //   * The work list's shape and the trace sums live in shared memory, not
 //     in registers: with them in registers the attention and the epilogues
 //     spilled, and S/2 took 1.2724-1.2945 ms where it takes 1.1425 now.
@@ -110,6 +122,14 @@
 // time scales with 1/SMs, so it is each SM's pipeline, not L2 as a whole).
 // Wider tiles need registers a 384-thread CTA's 168 a thread do not leave
 // (the 256-row form above); TMA multicast of W across a cluster is untried.
+// At T = 256 (S/2, 64 rows) the launch takes 5.04-5.05 ms against its launch
+// sequence's 4.15-4.24 (NVIDIA H100 80GB HBM3, 700.00 W): a CTA spends
+// ~1.44 ms on attention units, two at a time, each streaming K and V four
+// times (the standalone kernel keeps several blocks an SM), and ~3.4 ms on
+// the products. The next key tile's loads put in flight during this one's
+// products (a form built and measured in one call, not kept) pushed the
+// consumers into spills (420 / 760 bytes at hd 72 against 188 / 456) and
+// took S/2 at T = 256 to 5.52-5.55 ms.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -350,12 +370,13 @@ __device__ __forceinline__ void finish_chunks(const Epi& epi, const Sums& sums, 
 // grid barrier), the blocks' work is one list of items, block by block and
 // within a block stage by stage: the qkv, out, fc1 and fc2 products' tiles
 // (K split major, then row tile, then column tile) and the attention's
-// pairs of (sample, head) units. CTA c takes items c, c + ctas, ... in
+// pairs of (sample, head, query tile) units. CTA c takes items c, c + ctas, ... in
 // order. An item waits only on items earlier in the list, of its own row
 // tile (the counters of the sync words), and every CTA is resident, so the
 // earliest unfinished item can always run.
 struct Work {
   int m, mt, depth, heads, t, n;
+  int qt, units;  // query tiles of 64 a sample; attention units (sample, head, query tile) a block
   int nt[4], splits[4], kt[4], items[5];  // per stage: qkv, attention, out, fc1, fc2 (nt, kt, splits: products)
   int block_items;
   int64_t partial_off[4];  // floats: each split product's own partials
@@ -369,6 +390,8 @@ struct Work {
     heads = A.heads;
     t = A.t;
     n = A.n;
+    qt = cdiv_d(A.t, attn_tiles::TILE);
+    units = A.n * A.heads * qt;
     const int cols[4] = {3 * A.d, A.d, A.hidden, A.d}, ks[4] = {A.d, A.d, A.d, A.hidden};
     const int sp[4] = {A.splits_qkv, A.splits_out, A.splits_fc1, A.splits_fc2};
     int64_t off = 0;
@@ -386,7 +409,7 @@ struct Work {
     }
     tickets_per_block = tk;
     items[0] = mt * nt[0] * splits[0];
-    items[1] = (A.n * A.heads + 1) / 2;
+    items[1] = (units + 1) / 2;
     items[2] = mt * nt[1] * splits[1];
     items[3] = mt * nt[2] * splits[2];
     items[4] = mt * nt[3] * splits[3];
@@ -400,10 +423,12 @@ struct Work {
   }
   // the product (0-3: qkv, out, fc1, fc2) of stage kind
   __device__ __forceinline__ static int product(int kind) { return kind == K_QKV ? 0 : kind - 1; }
-  // samples with a row in row tile r, times heads: the attention units of r
+  // the attention units that read row tile r: each (sample, head, query
+  // tile) unit reads the keys of its whole sample, so every unit of every
+  // sample with a row in r
   __device__ __forceinline__ int units_of(int r) const {
     const int first = r * BM / t, last = min(n, (r * BM + BM + t - 1) / t) - 1;
-    return (last - first + 1) * heads;
+    return (last - first + 1) * heads * qt;
   }
   // items of a product stage a row tile has, per block
   __device__ __forceinline__ int per_row(int p) const { return nt[p] * splits[p]; }
@@ -534,18 +559,33 @@ __device__ __forceinline__ void pre_stage(const Args& A) {
   }
 }
 
-// One (sample, head) unit of the cosine attention core over the qkv
-// product of block b, on a group of four consumer warps (group's threads
-// tid 0-127), as one block of cosine_attention's normal mode at T <= 64:
-// wait for the qkv tiles of the sample's row tiles, the q, k and v loads in
-// flight at once, then count the unit done for those row tiles.
-template <int HD>
+// One (sample, head, query tile) unit of the cosine attention core over the
+// qkv product of block b, on a group of four consumer warps (group's threads
+// tid 0-127): wait for the qkv tiles of the sample's row tiles (its keys
+// span the sample), then, as cosine_attention's normal mode,
+//   * T <= 64 (one tile of queries and keys): the q, k and v loads in
+//     flight at once, one pass;
+//   * T > 64: the query tile's rows loaded once, K and V streamed through
+//     the group's buffers in tiles of 64, O and sum ex added over the key
+//     tiles (max-free: cosine logits are bounded by sqrt(hd), so nothing is
+//     rescaled) and divided after P.V;
+// then count the unit done for every row tile of its sample: it read them
+// all, and the next block's qkv items overwrite them once the out product
+// of their row tile has run.
+template <int HD, bool LONG>
 __device__ __forceinline__ void attention_unit(const Args& A, const Work& W, int b, int unit, uint8_t* buf,
                                                int group) {
   using namespace cosine_tiles;
   using D = Dims<HD>;
   const int tid = threadIdx.x % attn_tiles::THREADS, warp = tid >> 5, lane = tid & 31;
-  const int sample = unit / A.heads, head = unit % A.heads, t = A.t, d = A.d;
+  const int t = A.t, d = A.d;
+  int sample = unit / A.heads, head = unit % A.heads, q0 = 0, rows = t;
+  if constexpr (LONG) {
+    sample = unit / W.qt / A.heads;
+    head = unit / W.qt % A.heads;
+    q0 = unit % W.qt * TILE;
+    rows = min(TILE, t - q0);
+  }
   const int r0 = sample * t / BM, r1 = (sample * t + t - 1) / BM;
   if (tid == 0) {
     for (int r = r0; r <= r1; ++r) spin_until(done(A, W, K_QKV, r), (b + 1) * W.per_row(0));
@@ -561,27 +601,55 @@ __device__ __forceinline__ void attention_unit(const Args& A, const Work& W, int
   // this one's qkv rows done
   asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "n"(attn_tiles::THREADS) : "memory");
   const float* base = A.qkv + static_cast<int64_t>(sample) * t * ld + head * HD;
+  __nv_bfloat16* dst = A.attn + (static_cast<int64_t>(sample) * t + q0) * d + head * HD;
   Rows<HD> fq, fk, fv;
-  fetch<HD, true>(fq, base, ld, t, tid);
-  fetch<HD, true>(fk, base + d, ld, t, tid);
-  fetch<HD, true>(fv, base + 2 * d, ld, t, tid);
-  commit<HD>(fq, sq, qsc, tid);
-  commit<HD>(fk, sk, ksc, tid);
-  commit<HD>(fv, sv, nullptr, tid);
-  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "n"(attn_tiles::THREADS) : "memory");
-  if (warp * 16 < t) {
-    float s[KEY_TILES][4];
-    exp_tile<HD>(s, sq, sk, qsc, ksc, t, warp, lane);
-    float sum0 = 0.f, sum1 = 0.f;
-    add_row_sums(sum0, sum1, s);
-    uint32_t pa[KEY_TILES / 2][4];
-    pack_p(pa, s);
+  if constexpr (!LONG) {
+    fetch<HD, true>(fq, base, ld, t, tid);
+    fetch<HD, true>(fk, base + d, ld, t, tid);
+    fetch<HD, true>(fv, base + 2 * d, ld, t, tid);
+    commit<HD>(fq, sq, qsc, tid);
+    commit<HD>(fk, sk, ksc, tid);
+    commit<HD>(fv, sv, nullptr, tid);
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "n"(attn_tiles::THREADS) : "memory");
+    if (warp * 16 < t) {
+      float s[KEY_TILES][4];
+      exp_tile<HD>(s, sq, sk, qsc, ksc, t, warp, lane);
+      float sum0 = 0.f, sum1 = 0.f;
+      add_row_sums(sum0, sum1, s);
+      uint32_t pa[KEY_TILES / 2][4];
+      pack_p(pa, s);
+      float o[D::NT][4];
+#pragma unroll
+      for (int j = 0; j < D::NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+      pv_tile<HD>(o, pa, sv, lane);
+      store_rows<HD>(o, 1.f / quad_sum(sum0), 1.f / quad_sum(sum1), sq, dst, d, t, warp, lane);
+    }
+  } else {
+    const bool active = warp * 16 < rows;
+    fetch<HD, true>(fq, base + q0 * ld, ld, rows, tid);
     float o[D::NT][4];
 #pragma unroll
     for (int j = 0; j < D::NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-    pv_tile<HD>(o, pa, sv, lane);
-    store_rows<HD>(o, 1.f / quad_sum(sum0), 1.f / quad_sum(sum1), sq,
-                   A.attn + static_cast<int64_t>(sample) * t * d + head * HD, d, t, warp, lane);
+    float sum0 = 0.f, sum1 = 0.f;
+    for (int kt = 0; kt * TILE < t; ++kt) {
+      const int keys = t - kt * TILE;
+      fetch<HD, true>(fk, base + d + kt * TILE * ld, ld, min(TILE, keys), tid);
+      fetch<HD, true>(fv, base + 2 * d + kt * TILE * ld, ld, min(TILE, keys), tid);
+      // every warp is done with the previous key tile
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "n"(attn_tiles::THREADS) : "memory");
+      if (kt == 0) commit<HD>(fq, sq, qsc, tid);
+      commit<HD>(fk, sk, ksc, tid);
+      commit<HD>(fv, sv, nullptr, tid);
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "n"(attn_tiles::THREADS) : "memory");
+      if (!active) continue;
+      float s[KEY_TILES][4];
+      exp_tile<HD>(s, sq, sk, qsc, ksc, keys, warp, lane);
+      add_row_sums(sum0, sum1, s);
+      uint32_t pa[KEY_TILES / 2][4];
+      pack_p(pa, s);
+      pv_tile<HD>(o, pa, sv, lane);
+    }
+    if (active) store_rows<HD>(o, 1.f / quad_sum(sum0), 1.f / quad_sum(sum1), sq, dst, d, rows, warp, lane);
   }
   // the out product's TMA loads read these rows
   asm volatile("fence.proxy.async;\n" ::: "memory");
@@ -673,7 +741,7 @@ __device__ __forceinline__ void producer_main(const Maps& maps, const Args& A, c
 // their share of the item list (the products' mainloops and epilogues, the
 // attention units on two groups of four warps). spent: the ns each kind of
 // work took on this CTA (thread 0 adds them up).
-template <int HD>
+template <int HD, bool LONG>
 __device__ __forceinline__ void consumer_main(const Args& A, const Ring<STAGES>& ring, uint8_t* ring_mem,
                                               float* tile, const Handoff& hand, const Work& W,
                                               unsigned long long* spent) {
@@ -704,7 +772,7 @@ __device__ __forceinline__ void consumer_main(const Args& A, const Ring<STAGES>&
     if (kind == K_ATTN) {
       // units 2j (the first group) and 2j + 1 (the second)
       const int group = tid / attn_tiles::THREADS, unit = 2 * j + group;
-      if (unit < A.n * A.heads) attention_unit<HD>(A, W, b, unit, ring_mem, group);
+      if (unit < W.units) attention_unit<HD, LONG>(A, W, b, unit, ring_mem, group);
       // the producer may load into the ring again
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       asm volatile("bar.sync %0, %1;\n" ::"n"(CONSUMER_BAR), "n"(CONSUMER_THREADS) : "memory");
@@ -748,7 +816,7 @@ __device__ __forceinline__ void consumer_main(const Args& A, const Ring<STAGES>&
   }
 }
 
-template <int HD>
+template <int HD, bool LONG>
 __global__ void __launch_bounds__(STACK_THREADS, 1)
     dit_stack_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Args A) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -780,7 +848,7 @@ __global__ void __launch_bounds__(STACK_THREADS, 1)
     producer_main(maps, A, ring, hand, W);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
-    consumer_main<HD>(A, ring, smem, tile, hand, W, spent);
+    consumer_main<HD, LONG>(A, ring, smem, tile, hand, W, spent);
   }
   if (A.trace != nullptr) {
     // every thread is through its items when thread 0 reads the clock
@@ -827,14 +895,14 @@ bool cached_map(CUtensorMap* out, const void* ptr, int rows, int cols, int box_r
   return true;
 }
 
-template <int HD>
+template <int HD, bool LONG>
 cudaError_t configure() {
   static bool configured = false;
   if (!configured) {
     cudaError_t e =
-        cudaFuncSetAttribute(dit_stack_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+        cudaFuncSetAttribute(dit_stack_kernel<HD, LONG>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (e == cudaSuccess) {
-      e = cudaFuncSetAttribute(dit_stack_kernel<HD>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      e = cudaFuncSetAttribute(dit_stack_kernel<HD, LONG>, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     }
     if (e != cudaSuccess) return e;
@@ -843,22 +911,28 @@ cudaError_t configure() {
   return cudaSuccess;
 }
 
-// CTAs of dit_stack_kernel<HD> that are resident at once on the current
-// device, or a negative CUDA error
+// CTAs of dit_stack_kernel<HD, *> that are resident at once on the current
+// device (both instances: one an SM), or a negative CUDA error
 template <int HD>
 int resident_ctas() {
-  cudaError_t e = configure<HD>();
+  cudaError_t e = configure<HD, false>();
+  if (e == cudaSuccess) e = configure<HD, true>();
   int dev = 0, sms = 0, per_sm = 0;
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dit_stack_kernel<HD>, STACK_THREADS, SMEM_BYTES);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dit_stack_kernel<HD, false>, STACK_THREADS, SMEM_BYTES);
+  int per_sm_long = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm_long, dit_stack_kernel<HD, true>, STACK_THREADS,
+                                                      SMEM_BYTES);
+  if (per_sm_long < per_sm) per_sm = per_sm_long;
   return e == cudaSuccess ? sms * per_sm : -static_cast<int>(e);
 }
 
-template <int HD>
+template <int HD, bool LONG>
 cudaError_t launch(const Maps& maps, const Args& args, int ctas, cudaStream_t s) {
-  cudaError_t e = configure<HD>();
+  cudaError_t e = configure<HD, LONG>();
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(ctas);
@@ -870,7 +944,7 @@ cudaError_t launch(const Maps& maps, const Args& args, int ctas, cudaStream_t s)
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, dit_stack_kernel<HD>, maps, args);
+  e = cudaLaunchKernelEx(&cfg, dit_stack_kernel<HD, LONG>, maps, args);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
@@ -909,7 +983,7 @@ extern "C" int dit_stack(const void* x, const void* a, const void* gains, const 
   const void* aligned[] = {x, a, w_mod, w_qkv, w_out, w1, w2, out, mods, qkv, x1, attn, h, amod};
   uintptr_t bits = 0;
   for (const void* p : aligned) bits |= reinterpret_cast<uintptr_t>(p);
-  if (n < 1 || t < 1 || t > attn_tiles::TILE || t % 2 || depth < 1 || hd * heads != d || (hd != 64 && hd != 72) ||
+  if (n < 1 || t < 2 || t % 2 || depth < 1 || hd * heads != d || (hd != 64 && hd != 72) ||
       d % 8 || hidden % 8 || bits % 16 || ctas < 1 || splits_qkv < 1 || splits_out < 1 || splits_fc1 < 1 ||
       splits_fc2 < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -966,7 +1040,14 @@ extern "C" int dit_stack(const void* x, const void* a, const void* gains, const 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemsetAsync(sync, 0, sync_bytes, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = hd == 64 ? launch<64>(maps, args, ctas, s) : launch<72>(maps, args, ctas, s);
+  // T <= 64 and past it are instances of their own: the key-tile loop's
+  // registers would push the one-tile instance into spills (at hd 72 188 /
+  // 456 bytes against 20 / 232, XL/2 at T = 64 2.88 ms against 2.67)
+  const bool long_t = t > attn_tiles::TILE;
+  if (hd == 64)
+    e = long_t ? launch<64, true>(maps, args, ctas, s) : launch<64, false>(maps, args, ctas, s);
+  else
+    e = long_t ? launch<72, true>(maps, args, ctas, s) : launch<72, false>(maps, args, ctas, s);
   return static_cast<int>(e);
 }
 

@@ -94,14 +94,20 @@
 //     CTAs an SM, at least three k steps a split, at most 8. Rows past M
 //     (M = 8 fills 8 of 128) are TMA's out-of-bounds zeros.
 //   * GATE_RESIDUAL_BWD (the attention backward's out product, mp_gemm_gate_
-//     residual_bwd): a 128-row tile holds whole samples when T divides 128
-//     (every registry model's T = 64, 16, 4; the wrapper raises otherwise).
-//     On the staged tile, consumer thread (g, c) takes rows 8g .. 8g + 7 of
-//     columns 8c .. 8c + 7: dy and the gate row in 16-byte loads, dout in
-//     16-byte stores, db*out summed down the rows in order. For T <= 8 those
-//     rows hold whole samples and the thread writes their dgate; for T > 8
-//     its partial sum goes to shared memory and (sample, 8 columns) threads
-//     add a sample's T/8 partials in row order. Split-K grids run the same
+//     residual_bwd): on the staged tile, consumer thread (g, c) takes rows
+//     8g .. 8g + 7 of columns 8c .. 8c + 7: dy and the gate row in 16-byte
+//     loads, dout in 16-byte stores, db*out summed down the rows in order.
+//     Where T divides 128 (T = 64, 16, 4 at 16 x 16 latents) a 128-row
+//     tile holds whole samples: for T <= 8 the thread's rows hold whole
+//     samples and it writes their dgate; for T > 8 its partial sum goes to
+//     shared memory and (sample, 8 columns) threads add a sample's T/8
+//     partials in row order. Where T does not divide 128 (T = 256 at 32 x
+//     32 latents; any T > 8) a sample spans row tiles, so each tile writes
+//     its row-ordered sum of each sample it meets to a (row tiles, samples
+//     a tile meets, N) f32 buffer, and mp_gemm_gate_sum adds a sample's
+//     tile sums in tile order (a second launch; no atomics). A thread's 8
+//     rows meet at most two samples there: the rows before a sample's
+//     start go to a second slot of its partial. Split-K grids run the same
 //     epilogue in mp_gemm_reduce_gate, a block a tile, each thread summing
 //     its rows' split partials in split order (a first form there, one
 //     thread a (sample, 8 columns) over all T rows, was latency-bound: 1.9x
@@ -148,9 +154,14 @@ constexpr int STAGES = 3;
 // the barriers
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
 // GATE_RESIDUAL_BWD: a thread a (row group, chunk), and the row groups'
-// partial sums beside the staged tile, inside the ring
+// partial sums (two slots a group: the rows before and after a sample's
+// start inside it) beside the staged tile, inside the ring
 static_assert(GR_GROUPS * (BN / 8) == CONSUMER_THREADS, "one consumer thread a row group and chunk");
-static_assert(TILE_BYTES + GR_GROUPS * BN * 4 <= STAGES * STAGE_BYTES, "partials past the ring");
+static_assert(TILE_BYTES + 2 * GR_GROUPS * BN * 4 <= STAGES * STAGE_BYTES, "partials past the ring");
+// samples a 128-row tile meets at T > GR_ROWS (at most 16, at T = 9: one
+// (sample, chunk) thread each)
+__host__ __device__ constexpr int gate_slots(int t) { return (BM - 1) / t + 2; }
+static_assert(gate_slots(GR_ROWS + 1) * (BN / 8) <= CONSUMER_THREADS, "a thread a sample and chunk of a tile");
 
 struct Params {
   void* c;
@@ -168,6 +179,10 @@ struct Params {
   int x_dtype;
   float* dgate;    // GATE_RESIDUAL_BWD: (M / tokens, N) f32
   float db_fac;    // GATE_RESIDUAL_BWD: 0.3 / sqrt(0.58)
+  // GATE_RESIDUAL_BWD where T does not divide BM: each tile's sums of each
+  // sample it meets, (row tiles, gate_slots(T), N) f32, summed in tile
+  // order by mp_gemm_gate_sum; null where T divides BM
+  float* tile_partial;
 };
 
 // The prologue pass: A (f32 or bf16), modulated when asked, rounded once to
@@ -269,7 +284,7 @@ __device__ __forceinline__ void store8(float* dst, const float (&v)[8]) {
 // together: sums(r0, col, rows, v) gives the f32 sums of tile rows r0 ..
 // r0 + rows - 1, columns col .. col + 7 (from the staged tile, or the
 // split-K partials), then dy of those rows is read. ``partial`` holds
-// GR_GROUPS x BN f32 of shared memory.
+// 2 x GR_GROUPS x BN f32 of shared memory.
 template <int FLIGHT, class Sums>
 __device__ __forceinline__ void gate_residual_tile(const Sums& sums, float* partial, const Params& p, int m0, int n0,
                                                    int tid) {
@@ -277,6 +292,9 @@ __device__ __forceinline__ void gate_residual_tile(const Sums& sums, float* part
   const int col = n0 + 8 * chunk, t = p.tokens, r0 = GR_ROWS * g;
   const int rows = min(GR_ROWS, p.m - (m0 + r0));
   float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, gate[8];
+  // at T > GR_ROWS a sample may start inside the thread's rows (T not a
+  // multiple of GR_ROWS): the rows before it went to slot 0
+  bool split = false;
   if (col < p.n) {
 #pragma unroll
     for (int h = 0; h < GR_ROWS; h += FLIGHT) {
@@ -293,6 +311,12 @@ __device__ __forceinline__ void gate_residual_tile(const Sums& sums, float* part
       for (int i = 0; i < FLIGHT; ++i) {
         if (i >= n_rows) break;
         const int row = m0 + r0 + h + i, sample = row / t;
+        if (t > GR_ROWS && h + i > 0 && row % t == 0) {
+          store8(partial + g * BN + 8 * chunk, acc);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+          split = true;
+        }
         if (h + i == 0 || row % t == 0) {
           load8(p.mods, DT_F32, static_cast<int64_t>(sample) * p.mods_ld + p.gate_off + col, gate);
         }
@@ -308,21 +332,47 @@ __device__ __forceinline__ void gate_residual_tile(const Sums& sums, float* part
     }
   }
   if (t <= GR_ROWS) return;
-  store8(partial + g * BN + 8 * chunk, acc);
+  store8(partial + ((split ? GR_GROUPS : 0) + g) * BN + 8 * chunk, acc);
   asm volatile("bar.sync %0, %1;\n" ::"n"(CONSUMER_BAR), "n"(CONSUMER_THREADS) : "memory");
-  // (sample, chunk) threads: a sample's T / GR_ROWS row groups in order
-  const int groups = t / GR_ROWS, samples = BM / t;
-  if (tid >= samples * (BN / 8)) return;
-  const int s = tid / (BN / 8), row0 = m0 + s * t;
-  if (row0 >= p.m || col >= p.n) return;
+  // (sample, chunk) threads: the row groups of each sample the tile meets,
+  // in row order (slot 1 of a group where the sample starts inside it);
+  // the whole dgate where T divides BM, else the tile's part of it
+  const int first = m0 / t, samples = (min(m0 + BM, p.m) - 1) / t - first + 1;
+  if (tid >= samples * (BN / 8) || col >= p.n) return;
+  const int j = tid / (BN / 8), s = first + j;
+  const int lo = max(s * t, m0) - m0, hi = min(min(s * t + t, m0 + BM), p.m) - m0;
   float sum[8];
   for (int e = 0; e < 8; ++e) sum[e] = 0.f;
-  for (int j = 0; j < groups; ++j) {
-    const float* src = partial + (s * groups + j) * BN + 8 * chunk;
+  for (int grp = lo / GR_ROWS; grp <= (hi - 1) / GR_ROWS; ++grp) {
+    const float* src = partial + ((GR_ROWS * grp < lo ? GR_GROUPS : 0) + grp) * BN + 8 * chunk;
 #pragma unroll
     for (int e = 0; e < 8; ++e) sum[e] += src[e];
   }
-  store8(p.dgate + static_cast<int64_t>(row0 / t) * p.n + col, sum);
+  if (p.tile_partial == nullptr)
+    store8(p.dgate + static_cast<int64_t>(s) * p.n + col, sum);
+  else
+    store8(p.tile_partial + (static_cast<int64_t>(m0 / BM) * gate_slots(t) + j) * p.n + col, sum);
+}
+
+// GATE_RESIDUAL_BWD where T does not divide BM: dgate of each sample, the
+// tile sums of the row tiles it spans added in tile order; eight columns a
+// thread
+__global__ void __launch_bounds__(256) mp_gemm_gate_sum(const Params p) {
+  const int t = p.tokens, chunks = p.n / 8, slots = gate_slots(t);
+  const int64_t total = static_cast<int64_t>(p.m / t) * chunks;
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < total;
+       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int s = static_cast<int>(i / chunks), col = 8 * static_cast<int>(i % chunks);
+    float sum[8];
+    for (int e = 0; e < 8; ++e) sum[e] = 0.f;
+    for (int r = s * t / BM; r <= (s * t + t - 1) / BM; ++r) {
+      float v[8];
+      load8(p.tile_partial, DT_F32, (static_cast<int64_t>(r) * slots + s - r * BM / t) * p.n + col, v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sum[e] += v[e];
+    }
+    store8(p.dgate + static_cast<int64_t>(s) * p.n + col, sum);
+  }
 }
 
 template <bool W_KN>
@@ -407,7 +457,7 @@ __global__ void __launch_bounds__(256) mp_gemm_reduce(const Params p) {
 // tile, laid out as the product's epilogue, each (row, eight columns) the
 // splits' partials summed in split order
 __global__ void __launch_bounds__(CONSUMER_THREADS) mp_gemm_reduce_gate(const Params p) {
-  __shared__ __align__(16) float partial[GR_GROUPS * BN];
+  __shared__ __align__(16) float partial[2 * GR_GROUPS * BN];
   const int64_t mn = static_cast<int64_t>(p.m) * p.n;
   const auto split_sums = [&](int r0, int col, int rows, float (&v)[GR_ROWS][8]) {
     // rows past ``rows`` read the last one again: no branch between the
@@ -502,11 +552,21 @@ int run(const void* a, int a_dtype, const void* w, Params& p, int prologue, int 
   }
   const dim3 grid(cdiv(p.n, BN), cdiv(p.m, BM), p.splits);
   cudaError_t e = w_kn ? launch<true>(ta, tw, p, grid, s) : launch<false>(ta, tw, p, grid, s);
-  if (e != cudaSuccess || p.splits == 1) return static_cast<int>(e);
+  if (e != cudaSuccess) return static_cast<int>(e);
   if (p.epilogue == EPI_GATE_RESIDUAL_BWD) {
-    mp_gemm_reduce_gate<<<dim3(grid.x, grid.y), CONSUMER_THREADS, 0, s>>>(p);
-    return static_cast<int>(cudaGetLastError());
+    if (p.splits > 1) {
+      mp_gemm_reduce_gate<<<dim3(grid.x, grid.y), CONSUMER_THREADS, 0, s>>>(p);
+      e = cudaGetLastError();
+    }
+    if (e == cudaSuccess && p.tile_partial != nullptr) {
+      const int64_t chunks = static_cast<int64_t>(p.m / p.tokens) * (p.n / 8);
+      const int blocks = static_cast<int>(chunks / 256 + 1 < 4 * SMS ? chunks / 256 + 1 : 4 * SMS);
+      mp_gemm_gate_sum<<<blocks, 256, 0, s>>>(p);
+      e = cudaGetLastError();
+    }
+    return static_cast<int>(e);
   }
+  if (p.splits == 1) return static_cast<int>(e);
   const int64_t chunks = static_cast<int64_t>(p.m) * p.n / 8;
   const int blocks = static_cast<int>(chunks / 256 + 1 < 4 * SMS ? chunks / 256 + 1 : 4 * SMS);
   mp_gemm_reduce<<<blocks, 256, 0, s>>>(p);
@@ -547,11 +607,16 @@ extern "C" int mp_gemm(const void* a, int a_dtype, const void* w, void* c, int c
 // stored; dout (M, N) bf16 = bf16(db*gate), dgate (M / tokens, N) f32 =
 // sum over each sample's rows of db*out, db = dy*0.3/sqrt(0.58), the gate
 // at column gate_off of the f32 rows (M / tokens, rows_ld). Takes tokens
-// dividing 128 (a tile holds whole samples) and 16-byte aligned tensors.
+// dividing 128 (a tile holds whole samples) or above 8 (a row group of 8
+// meets at most two samples) and 16-byte aligned tensors; where tokens do
+// not divide 128, tile_partial holds mp_gemm_gate_partial_floats floats.
 extern "C" int mp_gemm_gate_residual_bwd(const void* attn, const void* w, void* dout, void* dgate, int m, int n,
                                          int k, float alpha, const void* rows, int rows_ld, int gate_off,
-                                         const void* dy, int dy_dtype, int tokens, void* partial, void* stream) {
-  if (tokens < 1 || BM % tokens || m % tokens || rows_ld % 4 || gate_off % 4 ||
+                                         const void* dy, int dy_dtype, int tokens, void* partial, void* tile_partial,
+                                         void* stream) {
+  const bool whole = tokens > 0 && BM % tokens == 0;
+  if (tokens < 1 || (!whole && (tokens <= GR_ROWS || tile_partial == nullptr)) || m % tokens || rows_ld % 4 ||
+      gate_off % 4 || reinterpret_cast<uintptr_t>(tile_partial) % 16 ||
       (reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dgate) | reinterpret_cast<uintptr_t>(rows) |
        reinterpret_cast<uintptr_t>(dy)) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -573,7 +638,15 @@ extern "C" int mp_gemm_gate_residual_bwd(const void* attn, const void* w, void* 
   p.x_dtype = dy_dtype;
   p.dgate = static_cast<float*>(dgate);
   p.db_fac = static_cast<float>(t_res / rd);
+  p.tile_partial = whole ? nullptr : static_cast<float*>(tile_partial);
   return run(attn, DT_BF16, w, p, PRO_NONE, 0, nullptr, partial, stream);
+}
+
+// floats of mp_gemm_gate_residual_bwd's tile_partial for an (M, N) output
+// at T = tokens: 0 where tokens divide 128
+extern "C" int64_t mp_gemm_gate_partial_floats(int m, int n, int tokens) {
+  if (tokens < 1 || BM % tokens == 0) return 0;
+  return static_cast<int64_t>(cdiv(m, BM)) * gate_slots(tokens) * n;
 }
 
 extern "C" const char* mp_gemm_error_string(int code) {

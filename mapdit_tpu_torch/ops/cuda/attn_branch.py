@@ -19,8 +19,8 @@ On the card rows 3, 4 and 5 are one launch each of ``csrc/attn_branch.cu``
 a persistent work list laid out by :func:`branch_plan`, shift, scale and gate
 read in place) where :func:`branch_route` takes the shape: bf16, head widths
 64 and 72, an even T <= 64 dividing 128, D a multiple of 8, 16-byte aligned
-operands. Elsewhere the half-block runs as a launch sequence of other rows'
-kernels (:func:`fwd_launch_sequence`, :func:`bwd_launch_sequence`,
+operands. Elsewhere (T = 256 at 32 x 32 latents among them) the half-block
+runs as a launch sequence of other rows' kernels (:func:`fwd_launch_sequence`, :func:`bwd_launch_sequence`,
 :func:`res_fwd_launch_sequence`, counted as ``attn_branch/<row>/sequence``),
 with shift, scale and gate packed once into one (N, 3D) f32 row buffer (the model hands
 them in as bf16, so the upcast is exact) and the gain read from device
@@ -135,14 +135,19 @@ _LIB = "attn_branch_bwd"
 # variant is taken when they fit this budget (the Pallas package's predicate
 # and its default: off). Raise it to run the dW products through dw_gemm.
 DW_IN_KERNEL_BUDGET = 0
-# the longest sequence the CUDA attention backward takes: eight warps of 16
-# query rows, two key tiles of 64
-ATTENTION_BWD_MAX_T = 128
+# the longest sequence the CUDA attention backward takes: up to 64 one form
+# (four warps of 16 query rows, one key tile, p and dlog in shared memory),
+# past it a second that keeps the head's T rows of q, k, v and do in shared
+# memory and no T x T array (180 KB at T = 256 and hd 72)
+ATTENTION_BWD_MAX_T = 256
 # columns a thread of the CUDA modulate passes takes, with 16-byte accesses
 MODULATE_COLUMNS = 8
-# rows of one mp_gemm tile: the CUDA out_gate_residual_bwd sums each sample
-# inside a tile, so T must divide it
+# rows of one mp_gemm tile: where T divides it the CUDA out_gate_residual_bwd
+# sums each sample inside a tile; elsewhere a sample's tile sums are added in
+# tile order, which takes T > GATE_GROUP_ROWS (a thread's 8 rows meet at most
+# two samples)
 GEMM_TILE_ROWS = 128
+GATE_GROUP_ROWS = 8
 # the one-launch kernels of rows 3, 4 and 5 (csrc/attn_branch.cu): their lists
 # (stage kinds: dit_block_tp.TP_STAGE_KINDS), the plan's words (the TP plans'
 # header, one group a stage), the longest sequence (one tile of 64 queries
@@ -226,10 +231,13 @@ def out_gate_residual_bwd_plain(attn, w_out, dy, rows, gate_off, tokens):
 
 def check_out_gate_residual_shape(tokens: int) -> None:
     """Raise unless the CUDA :func:`out_gate_residual_bwd` takes T =
-    ``tokens``: T must divide GEMM_TILE_ROWS, so a tile of the product holds
-    whole samples (every registry model's T = 64, 16, 4 does)."""
-    if tokens < 1 or GEMM_TILE_ROWS % tokens:
-        raise ValueError(f"out_gate_residual_bwd on CUDA takes T dividing {GEMM_TILE_ROWS}, got T={tokens}")
+    ``tokens``: T dividing GEMM_TILE_ROWS (a tile of the product holds whole
+    samples: T = 64, 16, 4 at 16 x 16 latents) or T > GATE_GROUP_ROWS (a
+    sample's sums cross tiles and are added in tile order: T = 256 at 32 x
+    32). T = 3, 5, 6 and 7 are refused."""
+    if tokens < 1 or (GEMM_TILE_ROWS % tokens and tokens <= GATE_GROUP_ROWS):
+        raise ValueError(f"out_gate_residual_bwd on CUDA takes T dividing {GEMM_TILE_ROWS} or above "
+                         f"{GATE_GROUP_ROWS}, got T={tokens}")
 
 
 def out_gate_residual_bwd(attn, w_out, dy, rows, gate_off, tokens):
@@ -239,9 +247,11 @@ def out_gate_residual_bwd(attn, w_out, dy, rows, gate_off, tokens):
     formed and used, never stored; dy (N*T*D elements, f32 or bf16) and the
     f32 rows (N, *) holding gate at ``gate_off``. Returns dout =
     dy*0.3/rd*gate in the weights' type and dgate = sum_t dy*0.3/rd*out
-    (N, D) f32. One launch of ``csrc/mp_gemm.cu`` (two under split-K). On the
-    card: bf16 operands, :func:`check_out_gate_residual_shape`, D a multiple
-    of 8 and 16-byte aligned tensors; it raises otherwise, naming CUDA."""
+    (N, D) f32. One launch of ``csrc/mp_gemm.cu`` (one more under split-K,
+    and one more where T does not divide 128: the tiles' sums of a sample
+    added in tile order). On the card: bf16 operands,
+    :func:`check_out_gate_residual_shape`, D a multiple of 8 and 16-byte
+    aligned tensors; it raises otherwise, naming CUDA."""
     if attn.device.type == "cpu":
         return out_gate_residual_bwd_plain(attn, w_out, dy, rows, gate_off, tokens)
     from mapdit_tpu_torch.ops.cuda import build
@@ -269,10 +279,13 @@ def out_gate_residual_bwd(attn, w_out, dy, rows, gate_off, tokens):
     splits = _mp_gemm_splits(m, n, k)
     partial = torch.empty(splits, m, n, dtype=torch.float32, device=attn.device) if splits > 1 else None
     lib = build.library("mp_gemm")
+    tile_floats = lib.mp_gemm_gate_partial_floats(m, n, tokens)
+    tile_partial = torch.empty(tile_floats, dtype=torch.float32, device=attn.device) if tile_floats else None
     code = lib.mp_gemm_gate_residual_bwd(
         attn.data_ptr(), w_out.data_ptr(), dout.data_ptr(), dgate.data_ptr(), m, n, k, 1.0 / math.sqrt(k),
         rows.data_ptr(), rows.shape[1], gate_off, dy.data_ptr(), _DTYPE_CODE[dy.dtype], tokens,
-        None if partial is None else partial.data_ptr(), _stream(attn),
+        None if partial is None else partial.data_ptr(), None if tile_partial is None else tile_partial.data_ptr(),
+        _stream(attn),
     )
     _raise_on(code, lib, "out_gate_residual_bwd", "mp_gemm")
     LAUNCHES["attn_bwd/out_gate_residual"] += 1
@@ -330,8 +343,9 @@ def attention_bwd_plain(qkv, dattn, tokens, heads, out_dtype):
 def check_attention_bwd_shape(tokens: int, hd: int) -> None:
     """Raise unless the CUDA ``attention_bwd`` takes T = ``tokens`` at head
     width ``hd``: the head widths of every registry model (each a template
-    instance) and 1 <= T <= ATTENTION_BWD_MAX_T (one warp a 16 query rows, at
-    most eight, keys in tiles of 64)."""
+    instance) and 1 <= T <= ATTENTION_BWD_MAX_T (T = 256 at 32 x 32 latents;
+    past 64 the form that holds the head's rows, not p, in shared
+    memory)."""
     if hd not in ATTENTION_HEAD_WIDTHS:
         raise ValueError(f"attention_bwd on CUDA takes head widths {ATTENTION_HEAD_WIDTHS}, got {hd}")
     if not 1 <= tokens <= ATTENTION_BWD_MAX_T:

@@ -44,7 +44,9 @@ _SIGNATURES = {
             ctypes.c_int,
         ),
         "mp_gemm_splits": ([_I, _I, _I], ctypes.c_int),
-        "mp_gemm_gate_residual_bwd": ([_P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _I, _P, _I, _I, _P, _P], ctypes.c_int),
+        "mp_gemm_gate_residual_bwd": ([_P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _I, _P, _I, _I, _P, _P, _P],
+                                      ctypes.c_int),
+        "mp_gemm_gate_partial_floats": ([_I, _I, _I], ctypes.c_int64),
         "mp_gemm_error_string": ([_I], ctypes.c_char_p),
     },
     "dw_gemm": {

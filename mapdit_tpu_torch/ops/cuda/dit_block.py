@@ -499,7 +499,12 @@ STACK_RING_BYTES = 4 * 2 * STACK_TILE * STACK_K * 2
 STACK_SMEM_BYTES = 1024 + STACK_RING_BYTES + 2 * 4 * 8 + 32 + STACK_TILE * (STACK_TILE + 4) * 4
 # shared memory of an SM (233,472 bytes), 1 KB of it reserved for each block
 SM_SMEM_BYTES = 228 * 1024
-STACK_MAX_T = 64  # the attention stage takes one tile of 64 queries and keys
+# the attention stage streams its keys in tiles of 64 (a unit is one tile of
+# 64 queries), so shared memory does not bound T; the limit is the largest
+# registry T (32 x 32 latents at patch 2), the T chip_smoke.py holds the
+# kernel to its plain version at
+STACK_MAX_T = 256
+STACK_QUERY_TILE = 64  # query rows of an attention unit, keys of a tile
 # the sync words: the grid barrier's counter, then from word STACK_SYNC_DONE
 # one counter a row tile for each of a block's five stages (8 words apart),
 # then the tile tickets of every split product of every block
@@ -566,10 +571,12 @@ class StackProduct:
 class StackPlan:
     """The work of one :func:`dit_stack` launch: the grid, the product
     stages (the modulation rows of every block, then qkv, out, fc1, fc2 of
-    each block), the attention's (sample, head) units a block, the shared
-    memory a CTA takes, the tile tickets, and the layout of the one scratch
-    buffer (byte offsets of its parts; ``sync`` is zeroed at every launch;
-    each split product has partials of its own)."""
+    each block), the attention's (sample, head, query tile) units a block
+    (unit ``u`` is query tile ``u % query_tiles`` of head ``u //
+    query_tiles % heads`` of sample ``u // query_tiles // heads``), the
+    shared memory a CTA takes, the tile tickets, and the layout of the one
+    scratch buffer (byte offsets of its parts; ``sync`` is zeroed at every
+    launch; each split product has partials of its own)."""
 
     ctas: int
     depth: int
@@ -580,11 +587,32 @@ class StackPlan:
     tickets: int
     layout: dict
     workspace_bytes: int
+    tokens: int
+    heads: int
+
+    @property
+    def query_tiles(self) -> int:
+        return _cdiv(self.tokens, STACK_QUERY_TILE)
+
+    def unit(self, u: int) -> tuple:
+        """Attention unit ``u``: (sample, head, first query row, query rows)."""
+        q0 = u % self.query_tiles * STACK_QUERY_TILE
+        return u // self.query_tiles // self.heads, u // self.query_tiles % self.heads, q0, min(
+            STACK_QUERY_TILE, self.tokens - q0)
+
+    def units_of(self, r: int) -> int:
+        """The attention units that read row tile ``r``: every unit of every
+        sample with a row in it (a unit reads its whole sample's keys). The
+        count a block's out product of that row tile waits for (the
+        kernel's Work::units_of)."""
+        t, m = self.tokens, self.products[1].m
+        first, last = r * STACK_TILE // t, min(m // t, _cdiv(r * STACK_TILE + STACK_TILE, t)) - 1
+        return (last - first + 1) * self.heads * self.query_tiles
 
     @property
     def items_per_block(self) -> int:
         """The work list's items of one block: the four products' tiles and
-        K splits and the attention's pairs of (sample, head) units."""
+        K splits and the attention's pairs of units."""
         return sum(p.items for p in self.products[1:]) + _cdiv(self.attention_items, 2)
 
     def walk(self):
@@ -592,7 +620,7 @@ class StackPlan:
         rows' tiles (``block`` -1), then the blocks' work list, CTA c taking
         items c, c + ctas, ... Per CTA a list of (block, stage, index in the
         stage, the product item as :meth:`StackProduct.item` gives it, or
-        the attention's two (sample * heads + head) units)."""
+        the attention's two units, as :meth:`unit` reads them)."""
         out = [[] for _ in range(self.ctas)]
         mods = self.products[0]
         for j in range(mods.items):
@@ -664,18 +692,19 @@ def stack_plan(
         layout[name] = offset
         offset += _cdiv(size, 256) * 256
     return StackPlan(
-        ctas=ctas, depth=depth, products=tuple(products), attention_items=n * heads,
+        ctas=ctas, depth=depth, products=tuple(products), attention_items=n * heads * _cdiv(t, STACK_QUERY_TILE),
         smem_bytes=STACK_SMEM_BYTES, attention_smem_bytes=2 * stack_attention_smem(d // heads),
-        tickets=tickets, layout=layout, workspace_bytes=offset,
+        tickets=tickets, layout=layout, workspace_bytes=offset, tokens=t, heads=heads,
     )
 
 
 def check_stack_shape(tokens: int, d: int, heads: int) -> None:
     """Raise unless :func:`dit_stack`'s kernel takes T tokens of width D in
     ``heads`` heads: head widths 64 and 72 (the attention tiles' template
-    instances, every registry model's), an even T <= 64 (one tile of
-    queries and keys; registry T at 16 x 16 latents is 64, 16 or 4), D a
-    multiple of 8 (TMA rows and 16-byte accesses)."""
+    instances, every registry model's), an even T <= STACK_MAX_T (registry
+    T is 256, 64, 16 or 4 at 32 x 32 and 16 x 16 latents; the keys stream in
+    tiles of 64, so the limit is the one held on the card, not shared
+    memory), D a multiple of 8 (TMA rows and 16-byte accesses)."""
     hd = d // heads
     if d % heads or hd not in ATTENTION_HEAD_WIDTHS:
         raise ValueError(f"dit_stack on CUDA takes head widths {ATTENTION_HEAD_WIDTHS}, got D={d} in {heads} heads")
@@ -720,8 +749,9 @@ def dit_stack(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int, trace: Optio
     gains (depth, 2) f32) in one launch of ``csrc/dit_stack.cu``: x (N, T, D)
     and a (N, D) bf16, folded bf16 weights; returns the new stream in x's
     type. The plain version :func:`dit_stack_plain` serves CPU tensors; on
-    the card the kernel takes bf16, head widths 64 and 72, an even T <= 64
-    (:func:`check_stack_shape`) and raises otherwise, never copying.
+    the card the kernel takes bf16, head widths 64 and 72, an even T <=
+    STACK_MAX_T (:func:`check_stack_shape`) and raises otherwise, never
+    copying.
     ``trace``, an int64 tensor of the plan's ``trace_words`` on the card,
     receives each CTA's clock at every grid barrier (a stage timeline)."""
     if x.device.type == "cpu":

@@ -68,7 +68,6 @@ from mapdit_tpu_torch.ops.cuda.dit_block import (
     RES_DENOM,
     RES_T,
     STACK_K,
-    STACK_MAX_T,
     STACK_TILE,
     StackProduct,
     _cdiv,
@@ -233,7 +232,9 @@ def mlp_tp_launch_sequence(x, shift, scale, gains, w1_l, w2_l, inv_h: float):
 # ---------------------------------------------------------------------------
 # the plan of one launch
 
-TP_MAX_T = STACK_MAX_T  # the attention stage takes one tile of 64 queries and keys
+# the attention stage takes one tile of 64 queries and keys (dit_stack's
+# streams its keys and goes further: its limit is not this one)
+TP_MAX_T = 64
 TP_PRE_ROWS = 4  # token rows of a pre item
 TP_MAX_SPLITS = 8
 # k steps a split keeps at least: a list product's split partials cost a

@@ -276,11 +276,13 @@ def test_out_gate_residual_bwd_plain_is_the_product_then_the_residual_pass(n, t)
 @pytest.mark.parametrize("what", ["t-not-dividing-128", "f32-attn", "dy-wrong-size"])
 def test_out_gate_residual_bwd_raises_on_cuda_outside_its_domain(what):
     """The CUDA out_gate_residual_bwd takes T dividing 128 (a product tile
-    holds whole samples), bf16 attn and a dy of N*T*D elements; on a tensor
-    off the CPU it raises, naming CUDA, before anything is built."""
-    for t in (64, 16, 4, 128, 1):
+    holds whole samples) or above 8 (a sample's sums cross tiles: T = 256,
+    48, 144), bf16 attn and a dy of N*T*D elements; on a tensor off the CPU
+    it raises, naming CUDA, before anything is built (T = 6: below 8 and
+    not dividing 128)."""
+    for t in (64, 16, 4, 128, 1, 256, 48, 144, 9):
         ab.check_out_gate_residual_shape(t)
-    n, t, d, bf = 2, {"t-not-dividing-128": 48}.get(what, 16), 64, torch.bfloat16
+    n, t, d, bf = 2, {"t-not-dividing-128": 6}.get(what, 16), 64, torch.bfloat16
     attn = torch.empty(n * t, d, dtype=torch.float32 if what == "f32-attn" else bf, device="meta")
     dy = torch.empty(n * t + (1 if what == "dy-wrong-size" else 0), d, dtype=bf, device="meta")
     w_out = torch.empty(d, d, dtype=bf, device="meta")

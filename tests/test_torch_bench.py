@@ -151,9 +151,9 @@ def test_unit_and_mfu_steps():
 def test_resolved_kernel_on_the_card(size, kernel, want):
     """What the line names on a CUDA device (the policy reads the device's
     type only): auto with the batch hint takes the whole-stack kernel at
-    16 x 16 (T = 64) and the plain path at 32 x 32 (T = 256, past
-    dit_stack's T <= 64); the cached chain's blocks read the per-block
-    policy."""
+    16 x 16 (T = 64) and the plain path at 32 x 32 (T = 256, past the
+    auto policy's T <= 64, where an explicit mega takes the kernels); the
+    cached chain's blocks read the per-block policy."""
     cuda = torch.device("cuda")
     cfg = bench.bench_config(bench.build_parser().parse_args(["--input-size", str(size), "--block-kernel", kernel]))
     chain = types.SimpleNamespace(run_cfg=resolve_run_config(cfg, True, 32, cuda))

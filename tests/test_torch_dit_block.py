@@ -225,14 +225,16 @@ def test_fused_dit_stack_plain_f64_witness_lies_within_bf16_rounding():
 def _sampling_shapes():
     """(model, samples N, T, depth, width, heads, MLP width) of every
     registry model at 16 x 16 latents, at the headline's 32 x 2 CFG rows and
-    at the XL layout's 4 x 2."""
+    at the XL layout's 4 x 2, and the same at 32 x 32 latents (T = 256, 64,
+    16)."""
     from mapdit_tpu_torch.models.registry import DIT_MODELS
 
-    for name, spec in DIT_MODELS.items():
-        d = spec["hidden_size"]
-        for n in (64, 8):
-            yield pytest.param(name, n, (16 // spec["patch_size"]) ** 2, spec["depth"], d, spec["num_heads"], 4 * d,
-                               id=f"{name}-n{n}")
+    for size, tag in ((16, ""), (32, "-32x32")):
+        for name, spec in DIT_MODELS.items():
+            d = spec["hidden_size"]
+            for n in (64, 8):
+                yield pytest.param(name, n, (size // spec["patch_size"]) ** 2, spec["depth"], d, spec["num_heads"],
+                                   4 * d, id=f"{name}-n{n}{tag}")
 
 
 @pytest.mark.parametrize("model, n, t, depth, d, heads, hidden", list(_sampling_shapes()))
@@ -240,8 +242,12 @@ def test_stack_plan_covers_every_tile_once(model, n, t, depth, d, heads, hidden)
     """The persistent kernel's plan at every registry model's sampling
     shapes, walked as the kernel walks it: every product tile and K split
     of every block is computed once, the splits of a tile cover its k steps
-    once in order and run at once on distinct CTAs, every (sample, head)
-    attention unit of every block once; every split but the modulation
+    once in order and run at once on distinct CTAs, every (sample, head,
+    query tile of 64) attention unit of every block once, and each row
+    tile's out product waits for exactly the units that read or write a row
+    of it (a unit reads its whole sample's qkv rows: two row tiles a sample
+    at T = 256), so the next block's qkv items, which follow that out
+    product, never overwrite rows a unit still reads; every split but the modulation
     rows' depends on one block's shapes only (so the stack sums as a chain
     of depth-1 calls does); the shared memory fits a block's 227 KB with the
     attention buffers inside the ring, the grid is resident, the tickets fit
@@ -262,7 +268,20 @@ def test_stack_plan_covers_every_tile_once(model, n, t, depth, d, heads, hidden)
             assert (b, stage, what[:3]) not in seen
             seen[(b, stage, what[:3])] = what[3:]
             where.setdefault((b, stage), []).append(cta)
-    assert len(units) == depth * n * heads
+    qt = -(-t // tdb.STACK_QUERY_TILE)
+    assert len(units) == depth * n * heads * qt
+    assert {plan.unit(u)[:3] for b, u in units if b == 0} == {
+        (s, h, q * tdb.STACK_QUERY_TILE) for s in range(n) for h in range(heads) for q in range(qt)}
+    row_tiles = -(-n * t // tdb.STACK_TILE)
+    waits = [0] * row_tiles
+    for u in range(plan.attention_items):
+        s, _, q0, rows = plan.unit(u)
+        reads, writes = (s * t, s * t + t), (s * t + q0, s * t + q0 + rows)
+        assert reads[0] <= writes[0] < writes[1] <= reads[1]
+        for r in range(row_tiles):
+            if r * tdb.STACK_TILE < reads[1] and reads[0] < (r + 1) * tdb.STACK_TILE:
+                waits[r] += 1
+    assert [plan.units_of(r) for r in range(row_tiles)] == waits
     for prod in plan.products:
         blocks = [-1] if prod.name == "modulation" else range(depth)
         kt = -(-prod.k // tdb.STACK_K)
@@ -281,8 +300,8 @@ def test_stack_plan_covers_every_tile_once(model, n, t, depth, d, heads, hidden)
     assert plan.smem_bytes <= tdb.MAX_SMEM_BYTES
     assert plan.attention_smem_bytes <= tdb.STACK_RING_BYTES
     assert plan.ctas <= tdb.H100_SMS * (tdb.SM_SMEM_BYTES // (plan.smem_bytes + 1024))
-    assert plan.attention_items == n * heads
-    assert plan.items_per_block == sum(p.items for p in plan.products[1:]) + (n * heads + 1) // 2
+    assert plan.attention_items == n * heads * qt
+    assert plan.items_per_block == sum(p.items for p in plan.products[1:]) + (n * heads * qt + 1) // 2
     spans = sorted(plan.layout.items(), key=lambda kv: kv[1])
     assert spans[0] == ("sync", 0) and all(off % 256 == 0 for _, off in spans)
     assert plan.layout["mods"] >= 4 * (tdb.STACK_SYNC_DONE + 40 * -(-n * t // tdb.STACK_TILE) + plan.tickets)
@@ -293,13 +312,16 @@ def test_stack_plan_covers_every_tile_once(model, n, t, depth, d, heads, hidden)
 
 
 def test_dit_stack_serves_the_registry_and_raises_outside():
-    """Every registry model at 16 x 16 latents (T = 64, 16, 4; head widths
-    64 and 72) is in the kernel's domain; T = 256 (32 x 32 latents at patch
-    2), an odd T and another head width raise, naming CUDA."""
+    """Every registry model at 16 x 16 and 32 x 32 latents (T = 256, 64, 16,
+    4; head widths 64 and 72) is in the kernel's domain, an even T that
+    crosses row tiles (144) too; T past STACK_MAX_T, an odd T and another
+    head width raise, naming CUDA."""
     from mapdit_tpu_torch.models.registry import DIT_MODELS
 
     for spec in DIT_MODELS.values():
-        tdb.check_stack_shape((16 // spec["patch_size"]) ** 2, spec["hidden_size"], spec["num_heads"])
-    for tokens, d, heads in ((256, 384, 6), (9, 384, 6), (64, 256, 8)):
+        for size in (16, 32):
+            tdb.check_stack_shape((size // spec["patch_size"]) ** 2, spec["hidden_size"], spec["num_heads"])
+    tdb.check_stack_shape(144, 384, 6)
+    for tokens, d, heads in ((tdb.STACK_MAX_T + 2, 384, 6), (9, 384, 6), (64, 256, 8)):
         with pytest.raises(ValueError, match="CUDA"):
             tdb.check_stack_shape(tokens, d, heads)

@@ -203,7 +203,7 @@ def test_policy_takes_the_kernels_for_their_family_only():
         ("DiT-B/2", 16, "mega"),
         ("DiT-L/2", 16, "mega"),
         ("DiT-XL/2", 16, "mega"),
-        ("DiT-XL/2", 32, "off"),  # T = 256, past the kernels' T <= 64
+        ("DiT-XL/2", 32, "off"),  # T = 256, past the auto policy's T <= 64
     ],
 )
 def test_auto_takes_the_fastest_measured_path(model, input_size, want):

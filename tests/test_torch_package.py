@@ -194,13 +194,13 @@ def test_kernel_wrappers_do_not_fall_back_off_cpu():
     assert mlp_block.LAUNCHES == before_mlp
 
 
-@pytest.mark.parametrize("tokens, hd, what", [(64, 48, "head widths"), (16, 80, "head widths"), (129, 64, "T <= 128"),
-                                              (256, 72, "T <= 128")])
+@pytest.mark.parametrize("tokens, hd, what", [(64, 48, "head widths"), (16, 80, "head widths"), (257, 64, "T <= 256"),
+                                              (512, 72, "T <= 256")])
 def test_attention_bwd_raises_off_its_card_domain(tokens, hd, what):
     """On the card attention_bwd takes head widths 64 and 72 and T up to
-    128 (eight warps of 16 query rows, two key tiles of 64); a tensor off
-    the CPU outside that raises naming CUDA and the limit, before anything
-    is built or launched."""
+    256 (32 x 32 latents at patch 2); a tensor off the CPU outside that
+    raises naming CUDA and the limit, before anything is built or
+    launched."""
     heads, n = 2, 2
     qkv = torch.empty(n * tokens, 3 * heads * hd, device="meta")
     dattn = torch.empty(n * tokens, heads * hd, device="meta")
@@ -211,15 +211,18 @@ def test_attention_bwd_raises_off_its_card_domain(tokens, hd, what):
 
 
 def test_attention_bwd_takes_every_registry_head():
-    """Every registry model's head width at input size 16 (T = 64, 16, 4)
-    lies in the card kernel's domain, and so does T = 128, past the first
-    form's shared-memory limit (T <= 107 at hd 64, 101 at hd 72)."""
+    """Every registry model's head width at input sizes 16 and 32 (T = 256,
+    64, 16, 4) lies in the card kernel's domain, and so do T = 128 (the
+    last of the form with p in shared memory) and a ragged T = 144 of the
+    form past it."""
     from mapdit_tpu_torch.models.registry import DIT_MODELS
 
     for name, spec in DIT_MODELS.items():
         hd = spec["hidden_size"] // spec["num_heads"]
-        attn_branch.check_attention_bwd_shape((16 // spec["patch_size"]) ** 2, hd)
-        attn_branch.check_attention_bwd_shape(attn_branch.ATTENTION_BWD_MAX_T, hd)
+        for size in (16, 32):
+            attn_branch.check_attention_bwd_shape((size // spec["patch_size"]) ** 2, hd)
+        for tokens in (128, 144, attn_branch.ATTENTION_BWD_MAX_T):
+            attn_branch.check_attention_bwd_shape(tokens, hd)
 
 
 def _cli_run(tmp_path, flags):

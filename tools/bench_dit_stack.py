@@ -18,8 +18,8 @@ to the plain version on N other draws (generator seeds SEED + 20 on), with
 how far each lands from phase 3's limit, and prints the float64 witness of
 each draw (``chip_smoke.stack_witness``: kernel, plain version and launch
 sequence against the plain version's roundings summed in float64). ``--trace`` first prints where one
-launch's time goes at S2, B2 and XL2 (the kernel's own clock: the ms a CTA
-spends on each kind of item). ``--ctas 132,99,66`` first times S2, B2 and
+launch's time goes at S2, B2, XL2 and S2:T256 (the kernel's own clock: the
+ms a CTA spends on each kind of item). ``--ctas 132,99,66`` first times S2, B2 and
 XL2 on grids of those CTA counts. Prints
 one line a check and a shape and the card's name and power limit; writes
 the rows to ``--out``.
@@ -94,7 +94,7 @@ def main() -> int:
                         help="first hold the S/2 stack and the launch sequence to the plain version on this many "
                              "other draws")
     parser.add_argument("--trace", action="store_true",
-                        help="first print where one launch's time goes at S2, B2 and XL2")
+                        help="first print where one launch's time goes at S2, B2, XL2 and S2:T256")
     parser.add_argument("--ctas", default=None,
                         help="first time S2, B2 and XL2 on grids of these CTA counts, e.g. 132,99,66")
     parser.add_argument("--ptxas", action="store_true", help="print nvcc -Xptxas -v for csrc/dit_stack.cu first")
@@ -146,7 +146,7 @@ def main() -> int:
         print(smi, flush=True)
         return 0
     if args.trace:
-        for name in ("S2", "B2", "XL2"):
+        for name in ("S2", "B2", "XL2", "S2:T256"):
             chip_smoke.phase("timeline", shape=name, **{key: f"{v:.4f}" for key, v in timeline(torch, k, name).items()})
     rows = chip_smoke.stack_rows(torch, k)
     report = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "rows": rows,
