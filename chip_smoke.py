@@ -466,6 +466,7 @@ SWEEP_POINTS = (("1.5", "none"), ("4.0", "0.3:3.0"))
 SWEEP_SAMPLES, SWEEP_STEPS = 64, 20
 FID_PROTOCOL_SAMPLES = 256
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
+H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate, H100 SXM data sheet
 PALLAS = "mapdit_tpu/ops/pallas/dit_block.py"
 
@@ -503,8 +504,11 @@ def host_ms(torch, fn, iters: int = 200) -> float:
     return timing.host_ms(fn, iters)
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+def bound_ms(flops: float, nbytes: float, peak: float = H100_BF16_FLOPS):
+    """The least ms: operations at ``peak`` (the bf16 tensor cores, or
+    H100_F32_FLOPS for the f32 forms, whose products run on the f32 pipes)
+    or bytes at the HBM rate, whichever is larger, and which."""
+    t_ops, t_bytes = flops / peak, nbytes / H100_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -742,28 +746,32 @@ STACK_WITNESS_DRAWS = 3
 STACK_WITNESS_MEAN_RATIO = 1.05
 
 
-def stack_case(torch, gen, dev, name):
+def stack_case(torch, gen, dev, name, dtype=None, spec=None):
     """The inputs of a STACK_SHAPES entry (x, a, gains, weights, heads), in
     the order phase 3 draws its S/2 inputs, and its flops and bytes (each
-    input read once, the output written once; S2:block's of one block)."""
+    input read once, the output written once; S2:block's of one block).
+    ``dtype`` (default bf16) is the inputs' type, ``spec`` the entry's
+    (model, N, depth, T) where it is not STACK_SHAPES[name]."""
     from mapdit_tpu_torch.models.registry import DIT_MODELS
     from mapdit_tpu_torch.ops.mp import mp_silu, normalize
 
-    model, n, depth, t = STACK_SHAPES[name]
+    dtype = dtype or torch.bfloat16
+    model, n, depth, t = spec or STACK_SHAPES[name]
     d, heads = DIT_MODELS[model]["hidden_size"], DIT_MODELS[model]["num_heads"]
     hid, hd = 4 * d, d // heads
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
-    x = randn(n, t, d).to(torch.bfloat16)
-    a = mp_silu(randn(n, d)).to(torch.bfloat16)
+    x = randn(n, t, d).to(dtype)
+    a = mp_silu(randn(n, d)).to(dtype)
     gains = torch.rand(depth, 2, generator=gen, device=dev) * 0.6 + 0.2
-    ws = [normalize(randn(depth, r, c)).to(torch.bfloat16).contiguous()
+    ws = [normalize(randn(depth, r, c)).to(dtype).contiguous()
           for r, c in ((6 * d, d), (3 * d, d), (d, d), (hid, d), (d, hid))]
     blocks = 1 if name.endswith(":block") else depth
+    eb = x.element_size()
     flops = blocks * (2 * n * d * 6 * d + 2 * n * t * d * (3 * d + d + 2 * hid) + 4 * n * heads * t * t * hd)
-    nbytes = 2 * n * t * d * 2 + n * d * 2 + blocks * ((10 * d * d + 2 * d * hid) * 2 + 8)
+    nbytes = 2 * n * t * d * eb + n * d * eb + blocks * ((10 * d * d + 2 * d * hid) * eb + 8)
     return (x, a, gains, ws, heads), flops, nbytes
 
 
@@ -915,6 +923,232 @@ def stack_rows(torch, k) -> dict:
         phase("check", what=what, max_abs_err=f"{float(e.max()):.3e}", mean_abs_err=f"{float(e.mean()):.3e}",
               past_phase3_limit=int((e > 5e-2 + 5e-2 * want.float().abs()).sum()), note="held by the witness rule")
         stack_witness(torch, k, what, case, got, want, seq())
+    return rows
+
+
+# The f32 forms: mp_gemm_f32, cosine_attention_f32 and dit_stack's f32
+# instances, the kernels of a float32 model (the JAX package's kernels at
+# dtype = float32). Each is held to its f32 plain version with TF32 off
+# (main sets it; tools/bench_f32 too) at the JAX package's own f32 kernel
+# tolerance, rtol = atol = 2e-4 (tests/test_pallas.py:180), and bounded on
+# the f32 pipes (H100_F32_FLOPS: the products run there, not on the tensor
+# cores). The depth-12 stack is also held to its float64 witness.
+F32_TOL = 2e-4
+# dit_stack f32: name -> (model, N, depth, T), drawn in f32 in this order
+# from generator SEED + 40: fused_dit_block's call at S/2 (64 rows x 64
+# tokens), the S/2 chain's stack (depth 12), the 32 x 32 stack (64 x 256,
+# depth 12) and DiT-XL/2's block at 8 rows (head width 72; its qkv, out and
+# fc2 split K); then the domain's edges, as STACK_SHAPES has them: T = 16,
+# T = 4 at the head of 72, and an odd N at a T whose query tiles cross row
+# tiles (144)
+F32_STACK_SHAPES = {
+    "S2:block": ("DiT-S/2", 64, 1, 64),
+    "S2": ("DiT-S/2", 64, 12, 64),
+    "S2:T256": ("DiT-S/2", 64, 12, 256),
+    "XL2:block": ("DiT-XL/2", 8, 1, 64),
+    "B4:T16": ("DiT-B/4", 32, 2, 16),
+    "XL8:T4": ("DiT-XL/8", 16, 2, 4),
+    "S2:N3:T144": ("DiT-S/2", 3, 2, 144),
+}
+# its float64 witness rule: the kernel's rel L2 from the witness at most
+# F32_WITNESS_RATIO times the f32 plain version's (floor 1e-6)
+F32_WITNESSED = ("S2",)
+F32_WITNESS_RATIO, F32_WITNESS_FLOOR = 4.0, 1e-6
+# cosine_attention f32: name -> (N, T, heads, hd, residual mode): the S/2
+# sampling call in both modes (the residual mode writes p), 32 x 32 latents
+# in both, the XL head of 72, and T = 4 at the XL head with an odd N in the
+# residual mode (a ragged 16-row tile, ragged key tiles)
+F32_COSINE_SHAPES = {
+    "cosine_attention:f32": (64, 64, 6, 64, False),
+    "cosine_attention:f32/residual": (64, 64, 6, 64, True),
+    "cosine_attention:f32:t256": (16, 256, 6, 64, False),
+    "cosine_attention:f32:t256/residual": (16, 256, 6, 64, True),
+    "cosine_attention:f32:xl": (8, 64, 16, 72, False),
+    "cosine_attention:f32:t4/residual": (5, 4, 16, 72, True),
+}
+
+
+def f32_gemm_rows(torch, k, gen, dev) -> dict:
+    """The five products of an S/2 block (64 rows x 64 tokens, D=384,
+    H=1536) in the f32 form, each with its prologue and epilogue as
+    dit_stack's f32 instance and the f32 launch sequence run them (f32 A,
+    W, C and stream), against mp_gemm_plain at F32_TOL, a split-K product
+    also against its second run bit for bit; timed (device ms from CUDA
+    graphs, host ms, eager ms) beside the plain version and one f32
+    torch.matmul (TF32 off) of the same product; then a ragged product
+    (M, N, K off the tiles, split K), checked only. Returns a row a product
+    and the five together ("block")."""
+    from mapdit_tpu_torch.ops.cuda import build
+    from mapdit_tpu_torch.ops.mp import mp_silu, normalize
+
+    n, t, d, hid = 64, 64, 384, 1536
+    f32 = torch.float32
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    a, x, x1 = mp_silu(randn(n, d)), randn(n * t, d), randn(n * t, d)
+    attn, h = randn(n * t, d), mp_silu(randn(n * t, hid))
+    w = {site: normalize(randn(r, c)).contiguous()
+         for site, (r, c) in (("modulation", (6 * d, d)), ("qkv", (3 * d, d)), ("out", (d, d)), ("fc1", (hid, d)),
+                              ("fc2", (d, hid)))}
+    mods = k.mp_gemm_plain(a, w["modulation"], alpha=1 / math.sqrt(d), out_dtype=f32)
+    gains = torch.tensor([0.37, 0.61], device=dev)
+    inv_d = 1 / math.sqrt(d)
+    cases = {
+        # site: (kwargs, M, K, extra bytes read)
+        "modulation": (dict(a=a, alpha=inv_d), n, d, 0),
+        "qkv": (dict(a=x, alpha=inv_d, modulate=(mods, 0, d, gains[0:1]), tokens=t), n * t, d, n * 2 * d * 4),
+        "out": (dict(a=attn, alpha=inv_d, residual=(x, mods, 2 * d), tokens=t), n * t, d, n * d * 4 + n * t * d * 4),
+        "fc1": (dict(a=x1, alpha=inv_d, modulate=(mods, 3 * d, 4 * d, gains[1:2]), silu=True, tokens=t), n * t, d,
+                n * 2 * d * 4),
+        "fc2": (dict(a=h, alpha=1 / math.sqrt(hid), residual=(x1, mods, 5 * d), tokens=t), n * t, hid,
+                n * d * 4 + n * t * d * 4),
+    }
+    rows, flops, nbytes = {}, 0, 0
+    for site, (kw, m_, k_, extra) in cases.items():
+        kw = dict(kw, w=w[site], out_dtype=f32)
+        n_ = w[site].shape[0]
+        before = k.LAUNCHES[f"mp_gemm/{site}"]
+        got = k.mp_gemm(**kw, site=site)
+        if k.LAUNCHES[f"mp_gemm/{site}"] != before + 1:
+            raise AssertionError(f"mp_gemm:f32/{site}: the call did not launch the kernel once")
+        err = compare(torch, got, k.mp_gemm_plain(**kw), F32_TOL, F32_TOL, f"mp_gemm:f32/{site}")
+        splits = build.library("mp_gemm").mp_gemm_f32_splits(m_, n_, k_)
+        if splits > 1:
+            same = bool(torch.equal(got, k.mp_gemm(**kw, site=site)))
+            phase("check", what=f"mp_gemm:f32/{site}:same-bits-twice", splits=splits, ok=same)
+            if not same:
+                raise AssertionError(f"mp_gemm:f32/{site}: the split-K sum differs between two runs")
+        flops, nbytes = flops + 2 * m_ * n_ * k_, nbytes + 4 * (m_ * k_ + n_ * k_ + m_ * n_) + extra
+        b, by = bound_ms(2 * m_ * n_ * k_, 4 * (m_ * k_ + n_ * k_ + m_ * n_) + extra, H100_F32_FLOPS)
+        a_op, w_op = kw["a"], w[site].t()
+        row = dict(source=GEMM_SRC, replaces=f"{PALLAS}:279", max_abs_err=err,
+                   ms=graph_ms(torch, lambda kw=kw, site=site: k.mp_gemm(**kw, site=site)),
+                   plain_ms=graph_ms(torch, lambda kw=kw: k.mp_gemm_plain(**kw)), bound_ms=b, bound_by=by,
+                   library_ms=graph_ms(torch, lambda a_op=a_op, w_op=w_op: torch.matmul(a_op, w_op)),
+                   host_ms=host_ms(torch, lambda kw=kw, site=site: k.mp_gemm(**kw, site=site)),
+                   eager_ms=time_ms(torch, lambda kw=kw, site=site: k.mp_gemm(**kw, site=site)))
+        phase("time", kernel=f"mp_gemm:f32/{site}", shape=f"{m_}x{n_}x{k_}", splits=splits, bound_by=by,
+              **{key: f"{row[key]:.4f}" for key in ("ms", "plain_ms", "bound_ms", "library_ms", "host_ms", "eager_ms")})
+        rows[site] = row
+    # a ragged product: M, N and K off the 128 x 128 x 32 tiles, 8 tokens a
+    # sample, the modulate prologue and the f32 residual (checked only)
+    m_, n_, k_, t_ = 200, 328, 392, 8
+    ragged_rows = randn(m_ // t_, 2 * k_ + n_)
+    kw = dict(a=randn(m_, k_), w=normalize(randn(n_, k_)).contiguous(), alpha=1 / math.sqrt(k_), out_dtype=f32,
+              modulate=(ragged_rows, 0, k_, gains[0:1]), residual=(randn(m_, n_), ragged_rows, 2 * k_), tokens=t_)
+    compare(torch, k.mp_gemm(**kw, site="qkv"), k.mp_gemm_plain(**kw), F32_TOL, F32_TOL, "mp_gemm:f32/ragged")
+    # the five together (a block's products, as the f32 launch sequence
+    # launches them): the kernels line's mp_gemm:f32 row
+    b, by = bound_ms(flops, nbytes, H100_F32_FLOPS)
+    block = dict(source=GEMM_SRC, replaces=f"{PALLAS}:279", max_abs_err=max(r["max_abs_err"] for r in rows.values()),
+                 **{key: sum(r[key] for r in rows.values())
+                    for key in ("ms", "plain_ms", "library_ms", "host_ms", "eager_ms")}, bound_ms=b, bound_by=by)
+    phase("time", kernel="mp_gemm:f32/block", products=",".join(rows), bound_by=by,
+          **{key: f"{block[key]:.4f}" for key in ("ms", "plain_ms", "bound_ms", "library_ms", "host_ms", "eager_ms")})
+    rows["block"] = block
+    return rows
+
+
+def f32_cosine_rows(torch, F, k, gen, dev) -> dict:
+    """cosine_attention's f32 form at F32_COSINE_SHAPES on f32 qkv: out
+    (and in residual mode p) against cosine_attention_plain at out_dtype
+    f32 and F32_TOL; timed beside the plain version and f32 SDPA on the
+    pre-normalised q, k (TF32 off). Returns a row a shape."""
+    from mapdit_tpu_torch.ops.mp import normalize
+
+    f32, rows = torch.float32, {}
+    for name, (n, t, heads, hd, residual) in F32_COSINE_SHAPES.items():
+        d = heads * hd
+        qkv = torch.randn(n * t, 3 * d, generator=gen, device=dev)
+        probs, probs_p = ((torch.empty(n, heads, t, t, device=dev) for _ in range(2)) if residual else (None, None))
+
+        def run(qkv=qkv, t=t, heads=heads, residual=residual, probs=probs):
+            return k.cosine_attention(qkv, t, heads, f32, normalize_first=residual, probs=probs)
+
+        def plain(qkv=qkv, t=t, heads=heads, residual=residual, probs=probs_p):
+            return k.cosine_attention_plain(qkv, t, heads, f32, normalize_first=residual, probs=probs)
+
+        key = "cosine_attention/residual" if residual else "cosine_attention"
+        before = k.LAUNCHES[key]
+        got = run()
+        if k.LAUNCHES[key] != before + 1 or got.dtype != f32:
+            raise AssertionError(f"{name}: the call did not launch the f32 kernel once")
+        err = compare(torch, got, plain(), F32_TOL, F32_TOL, name)
+        if residual:
+            err = max(err, compare(torch, probs, probs_p, F32_TOL, F32_TOL, name + ":p"))
+        same = bool(torch.equal(got, run()))
+        phase("check", what=f"{name}:same-bits-twice", ok=same)
+        if not same:
+            raise AssertionError(f"{name}: two runs differ")
+        q4, k4, v4 = qkv.reshape(n, t, 3, heads, hd).permute(2, 0, 3, 1, 4)
+        qn, kn, vc = normalize(q4).contiguous(), normalize(k4).contiguous(), v4.contiguous()
+        p_bytes = n * heads * t * t * 4 if residual else 0
+        b, by = bound_ms(4 * n * heads * t * t * hd, n * t * 3 * d * 4 + n * t * d * 4 + p_bytes, H100_F32_FLOPS)
+        row = dict(source=COSINE_SRC, replaces=f"{PALLAS}:129", max_abs_err=err, ms=graph_ms(torch, run),
+                   plain_ms=graph_ms(torch, plain), bound_ms=b, bound_by=by,
+                   library_ms=graph_ms(torch, lambda qn=qn, kn=kn, vc=vc, hd=hd: F.scaled_dot_product_attention(
+                       qn, kn, vc, scale=1 / math.sqrt(hd))),
+                   host_ms=host_ms(torch, run), eager_ms=time_ms(torch, run))
+        phase("time", kernel=name, shape=f"{n}x{t}x{heads}x{hd}", bound_by=by,
+              **{key: f"{row[key]:.4f}" for key in ("ms", "plain_ms", "bound_ms", "library_ms", "host_ms", "eager_ms")})
+        rows[name] = row
+    return rows
+
+
+def f32_stack_rows(torch, k, check_only: bool = False) -> dict:
+    """dit_stack's f32 instances at F32_STACK_SHAPES against the f32 plain
+    version at F32_TOL, one launch a call, the same bits on two runs; the
+    f32 launch sequence (stack_launch_sequence: mp_gemm_f32 and
+    cosine_attention_f32, six launches a block) against the same plain
+    version at the same tolerance; at F32_WITNESSED the float64 witness
+    (fused_dit_stack_plain at sum_dtype=float64): the kernel's rel L2 from
+    it at most F32_WITNESS_RATIO times the f32 plain version's (floor
+    F32_WITNESS_FLOOR). Then (unless ``check_only``) the times: device ms
+    from CUDA graphs, host and eager ms, the plain version's eager ms, the
+    launch sequence graph-captured and eager, the bound on the f32 pipes.
+    Returns a row a shape."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    rows = {}
+    for name, spec in F32_STACK_SHAPES.items():
+        (x, a, gains, ws, heads), flops, nbytes = stack_case(torch, gen, dev, name, torch.float32, spec)
+        kernel, plain, seq = stack_calls(k, name, x, a, gains, ws, heads)
+        before = k.LAUNCHES["dit_stack"]
+        got = kernel()
+        if k.LAUNCHES["dit_stack"] != before + 1 or got.dtype != torch.float32:
+            raise AssertionError(f"dit_stack:f32:{name}: the call did not launch the f32 kernel once")
+        want = plain()
+        err = compare(torch, got, want, F32_TOL, F32_TOL, f"dit_stack:f32:{name}")
+        seq_out = seq()
+        compare(torch, seq_out, want, F32_TOL, F32_TOL, f"dit_stack:f32:{name}:launch-sequence")
+        if name in F32_WITNESSED:
+            ref = k.fused_dit_stack_plain(x, a, gains, *ws, heads, sum_dtype=torch.float64)
+            e_kernel, e_plain, e_seq = (rel_l2(v.double(), ref) for v in (got, want, seq_out))
+            limit = max(F32_WITNESS_RATIO * e_plain, F32_WITNESS_FLOOR)
+            phase("check", what=f"dit_stack:f32:{name}:f64-witness", kernel_rel_l2=f"{e_kernel:.4e}",
+                  plain_rel_l2=f"{e_plain:.4e}", sequence_rel_l2=f"{e_seq:.4e}", tol=f"{limit:.4e}",
+                  ok=e_kernel <= limit)
+            if e_kernel > limit:
+                raise AssertionError(f"dit_stack:f32:{name}: {e_kernel} from the float64 witness, past {limit}")
+        same = bool(torch.equal(got, kernel()))
+        phase("check", what=f"dit_stack:f32:{name}:same-bits-twice", ok=same)
+        if not same:
+            raise AssertionError(f"dit_stack:f32:{name}: two runs differ")
+        if check_only:
+            continue
+        b, by = bound_ms(flops, nbytes, H100_F32_FLOPS)
+        iters = 3 if spec[3] > 64 else 10
+        row = dict(source=STACK_SRC, replaces=f"{PALLAS}:476" if name.endswith(":block") else f"{PALLAS}:1980",
+                   max_abs_err=err, ms=graph_ms(torch, kernel, iters=iters),
+                   plain_ms=time_ms(torch, plain, iters=3, warmup=1), bound_ms=b, bound_by=by, library_ms=None,
+                   host_ms=host_ms(torch, kernel, iters=10 * iters), eager_ms=time_ms(torch, kernel, iters=iters),
+                   sequence_ms=graph_ms(torch, seq, iters=iters), sequence_eager_ms=time_ms(torch, seq, iters=iters))
+        phase("time", kernel=f"dit_stack:f32:{name}", shape=f"{x.shape[0]}x{x.shape[1]}x{x.shape[2]}",
+              depth=spec[2], **{key: (f"{v:.4f}" if isinstance(v, float) else v) for key, v in row.items()
+                                if key not in ("source", "replaces")})
+        rows[name] = row
     return rows
 
 
@@ -2105,6 +2339,243 @@ def t256_train_phase(torch, dev, cfg) -> dict:
               "mega": {"fused_dit_block": per, "dit_stack": per}}
     counts = train_phase(torch, dev, "train-t256", paths, expect, T256_TRAIN_STEPS, rows=T256_TRAIN_BATCH)
     return {f"t256/{name}": v for name, v in counts.items()}
+
+
+# phase 6d: float32 on the whole-block kernels (a float32 model: the train
+# CLI's default --compute-dtype, and every experiment trained with it
+# samples in float32). The checked step's and chains' batch, the CLI's steps,
+# the ddim chain, the launch-sequence chain and the bench's turns.
+F32_TRAIN_BATCH = 64
+F32_CLI_STEPS = 4
+F32_CHAIN_STEPS = 50
+F32_CHAIN_BATCH = 8  # pre-CFG samples of the checked chains
+F32_SEQUENCE_STEPS = 10
+F32_BENCH_ORDER = ("off", "mega_stack", "mega_stack", "off")
+# the f32 kernel path's rel L2 from the f32 plain path, times this, is at
+# most the bf16 kernel path's: TF32- or bf16-rounded products would fail it
+F32_CLOSER = 10.0
+
+
+def f32_distances(ref, f32_kernel, bf16_kernel) -> tuple:
+    """The f32 and bf16 kernel paths' rel L2 from ``ref`` (the L2 distance
+    itself where ``ref`` is zero: a gradient that is 0 on the plain path,
+    as the zero-initialised output layer's is) and whether the f32 one is
+    at least F32_CLOSER times closer (or exactly on it)."""
+    ref, a, b = ref.double(), f32_kernel.double(), bf16_kernel.double()
+    norm = float(ref.norm())
+    e32, e16 = (float((v - ref).norm()) / (norm if norm > 0 else 1.0) for v in (a, b))
+    ok = math.isfinite(e32) and math.isfinite(e16) and (e32 == 0 or F32_CLOSER * e32 <= e16)
+    return e32, e16, ok
+
+
+def f32_closer(what: str, ref, f32_kernel, bf16_kernel) -> float:
+    """``f32_kernel`` at least F32_CLOSER times closer to ``ref`` than
+    ``bf16_kernel`` is (f32_distances); prints both distances and the ratio,
+    returns the ratio."""
+    e32, e16, ok = f32_distances(ref, f32_kernel, bf16_kernel)
+    ratio = e16 / e32 if e32 > 0 else math.inf
+    phase("check", what=what, f32_kernel_rel_l2=f"{e32:.4e}", bf16_kernel_rel_l2=f"{e16:.4e}", ratio=f"{ratio:.1f}",
+          tol=f"ratio>={F32_CLOSER:g}", ok=ok)
+    if not ok:
+        raise AssertionError(f"{what}: the f32 kernel path lies {e32} from the f32 plain path, the bf16 one {e16}")
+    return ratio
+
+
+def f32_phase(torch, dev, cfg) -> dict:
+    """Phase 6d, float32 at full DiT-S/2 on dit_stack's f32 instances:
+    (1) one train step (make_train_step, the same weights and injected
+    draws) on the f32 plain path, on f32 mega and on bf16 mega: the f32
+    mega step's loss and every gradient at least F32_CLOSER times closer to
+    the f32 plain step than the bf16 mega step's, one dit_stack launch a
+    block; (2) the train CLI in process at its default --compute-dtype
+    float32 with --block-kernel mega (F32_CLI_STEPS steps, a checkpoint and
+    EMA snapshots), its first logged loss held to a one-step run of the same
+    CLI on --block-kernel off (the same seed: the same batch and draws) at
+    F32_TOL; (3) mapdit_tpu_torch.sample on that experiment with
+    --block-kernel mega_stack, ddim 50 (one dit_stack launch a model call);
+    (4) ddim 50 chains on the same weights, f32 mega_stack at least
+    F32_CLOSER times closer to the f32 plain chain than bf16 mega_stack;
+    (5) the f32 launch sequence as the stack's route (dit_block.STACK_KERNEL
+    off: mp_gemm_f32 and cosine_attention_f32, the path the kernels line
+    counts their launches on) on a ddim F32_SEQUENCE_STEPS chain against
+    the kernel's; (6) mapdit_tpu_torch.bench --dtype float32 on off and
+    mega_stack in turns (F32_BENCH_ORDER), one JSON line each. Every run
+    has exact launch counts. Returns {path: launch counts}."""
+    import io
+
+    from mapdit_tpu_torch import bench, sample, train
+    from mapdit_tpu_torch.diffusion import create_diffusion
+    from mapdit_tpu_torch.models import init_model
+    from mapdit_tpu_torch.ops.cuda import dit_block as k
+    from mapdit_tpu_torch.runtime import build_sample_fn
+    from mapdit_tpu_torch.utils.experiment import load_config
+
+    t_phase = time.perf_counter()
+    depth, f32 = cfg.depth, torch.float32
+    c32 = cfg.replace(compute_dtype="float32")
+    out = {}
+
+    # 1. the checked step
+    init = init_model(cfg, seed=SEED, device="cpu")
+    draw_gains(torch, init, SEED)
+    sd0 = init.state_dict()
+    del init
+    ds, batch, draws = train_inputs(torch, dev, cfg, F32_TRAIN_BATCH)
+    losses, grads = {}, {}
+    for name, c in (("f32", c32), ("f32+mega", c32.replace(block_kernel="mega")),
+                    ("bf16+mega", cfg.replace(block_kernel="mega"))):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        state, _, loss, g = checked_step(torch, dev, c, sd0, batch, draws, ds.stats)
+        torch.cuda.synchronize()
+        check_counts(f"f32/step/{name}", launch_counts(),
+                     {} if name == "f32" else {"fused_dit_block": depth, "dit_stack": depth})
+        losses[name] = loss.float().reshape(1)
+        grads[name] = {key: v.float().clone() for key, v in g.items() if v is not None}
+        del state, g
+        torch.cuda.empty_cache()
+    f32_closer("f32/step:loss", losses["f32"], losses["f32+mega"], losses["bf16+mega"])
+    dist = {key: f32_distances(want, grads["f32+mega"][key], grads["bf16+mega"][key])
+            for key, want in grads["f32"].items()}
+    failed = {key: v[:2] for key, v in dist.items() if not v[2]}
+    ratio = {key: (e16 / e32 if e32 > 0 else math.inf) for key, (e32, e16, _) in dist.items()}
+    worst = min(ratio, key=ratio.get)
+    phase("check", what="f32/step:grads", parameters=len(dist), zero_on_plain=sum(
+              float(w.norm()) == 0 for w in grads["f32"].values()),
+          f32_kernel_rel_l2_max=f"{max(v[0] for v in dist.values()):.4e}",
+          bf16_kernel_rel_l2_min=f"{min(v[1] for v in dist.values()):.4e}", worst_ratio=f"{ratio[worst]:.1f}",
+          worst=worst, tol=f"ratio>={F32_CLOSER:g} each", ok=not failed)
+    if failed:
+        raise AssertionError(f"f32 step: gradients not {F32_CLOSER}x closer to the f32 plain step: {failed}")
+    del grads
+
+    with tempfile.TemporaryDirectory(prefix="mapdit_f32_") as tmp:
+        # 2. the train CLI
+        common = ["--model", MODEL, "--data-path", "synthetic:1024", "--batch-size", str(F32_TRAIN_BATCH),
+                  "--compute-dtype", "float32", "--num-classes", "1000", "--log-every", "1", "--metrics-jsonl", "auto",
+                  "--num-lin-warmup", "2", "--start-decay", "10"]
+
+        def cli(kernel, steps, *flags):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            exp = train.main(train.build_parser().parse_args(
+                [*common, "--block-kernel", kernel, "--num-steps", str(steps), "--results-dir",
+                 os.path.join(tmp, kernel), *flags]))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            with open(os.path.join(exp, "metrics.jsonl")) as f:
+                rows = [json.loads(line) for line in f]
+            if len(rows) != steps or not all(math.isfinite(r["loss"]) for r in rows):
+                raise AssertionError(f"f32 train CLI ({kernel}): {len(rows)} rows or a non-finite loss in {exp}")
+            return exp, rows, launch_counts(), seconds
+
+        exp, rows, counts, seconds = cli("mega", F32_CLI_STEPS, "--ckpt-every", str(F32_CLI_STEPS),
+                                         "--ema-snapshot-every", str(F32_CLI_STEPS))
+        check_counts("f32/train-cli", counts, {"fused_dit_block": depth * F32_CLI_STEPS,
+                                               "dit_stack": depth * F32_CLI_STEPS})
+        out["f32/train-cli"] = counts
+        _, rows_off, _, _ = cli("off", 1, "--ckpt-every", "1000", "--ema-snapshot-every", "0")
+        rel = abs(rows[0]["loss"] - rows_off[0]["loss"]) / abs(rows_off[0]["loss"])
+        dtype = load_config(exp)["compute_dtype"]
+        phase("f32", cli="train", block_kernel="mega", compute_dtype=dtype, batch=F32_TRAIN_BATCH,
+              steps=F32_CLI_STEPS, seconds_with_setup=f"{seconds:.3f}", losses=json.dumps([r["loss"] for r in rows]),
+              first_loss_off=f"{rows_off[0]['loss']:.6f}", first_loss_rel_diff=f"{rel:.3e}", tol=f"{F32_TOL:g}",
+              launches=json.dumps({key: v for key, v in counts.items() if v}))
+        if rel > F32_TOL or dtype != "float32":
+            raise AssertionError(f"f32 train CLI: first loss {rows[0]['loss']} against {rows_off[0]['loss']} off "
+                                 f"({dtype})")
+
+        # 3. the sample CLI on that experiment
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        png = sample.main(sample.build_parser().parse_args(
+            ["--result-dir", exp, "--use-vae", "false", "--block-kernel", "mega_stack", "--sampler", "ddim",
+             "--num-sampling-steps", str(F32_CHAIN_STEPS), "--clip-denoised", "true", "--class-label", "3",
+             "--output-file", os.path.join(tmp, "f32.png")]))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        check_counts("f32/sample-cli", counts, {"fused_dit_stack": F32_CHAIN_STEPS, "dit_stack": F32_CHAIN_STEPS})
+        out["f32/sample-cli"] = counts
+        phase("f32", cli="sample", block_kernel="mega_stack", sampler="ddim", steps=F32_CHAIN_STEPS,
+              png=json.dumps(png_check(png)), seconds=f"{seconds:.3f}",
+              launches=json.dumps({key: v for key, v in counts.items() if v}))
+
+    # 4. the checked chains
+    z = torch.randn(2 * F32_CHAIN_BATCH, 4, cfg.input_size, cfg.input_size,
+                    generator=torch.Generator(device=dev).manual_seed(SEED + 50), device=dev)
+    y = torch.cat([torch.arange(F32_CHAIN_BATCH, device=dev) * 97 % 1000,
+                   torch.full((F32_CHAIN_BATCH,), 1000, device=dev)])
+    ddim = create_diffusion(f"ddim{F32_CHAIN_STEPS}", device=dev)
+
+    def chain(c, diffusion, kernel):
+        fn = build_sample_fn(c.replace(block_kernel=kernel), sd0, diffusion, cfg_scale=CFG_SCALE, sampler="ddim",
+                             clip_denoised=True, batch_hint=F32_CHAIN_BATCH, device=dev)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got = fn(z, y, torch.Generator(device=dev).manual_seed(SEED + 51))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"f32 chain ({kernel}): non-finite latents")
+        return got, launch_counts(), seconds
+
+    chains = {}
+    for name, c, kernel in (("f32", c32, "off"), ("f32+mega_stack", c32, "mega_stack"),
+                            ("bf16+mega_stack", cfg, "mega_stack")):
+        chains[name], counts, seconds = chain(c, ddim, kernel)
+        check_counts(f"f32/chain/{name}", counts, {} if kernel == "off" else
+                     {"fused_dit_stack": F32_CHAIN_STEPS, "dit_stack": F32_CHAIN_STEPS})
+        phase("f32", chain=name, sampler="ddim", steps=F32_CHAIN_STEPS, batch=f"{F32_CHAIN_BATCH}x2",
+              seconds=f"{seconds:.4f}", launches=json.dumps({key: v for key, v in counts.items() if v}))
+    f32_closer("f32/chain-ddim50", chains["f32"], chains["f32+mega_stack"], chains["bf16+mega_stack"])
+
+    # 5. the f32 launch sequence as the stack's route
+    short = create_diffusion(f"ddim{F32_SEQUENCE_STEPS}", device=dev)
+    kernel_out, _, _ = chain(c32, short, "mega_stack")
+    k.STACK_KERNEL = False
+    try:
+        seq_out, counts, seconds = chain(c32, short, "mega_stack")
+    finally:
+        k.STACK_KERNEL = True
+    calls = F32_SEQUENCE_STEPS * depth
+    check_counts("f32/mega_stack+sequence", counts, {"fused_dit_stack": F32_SEQUENCE_STEPS, "cosine_attention": calls,
+                                                    **{f"mp_gemm/{site}": calls for site in k.GEMM_SITES[:5]}})
+    err = rel_l2(seq_out, kernel_out)
+    phase("f32", chain="f32+mega_stack+sequence", sampler="ddim", steps=F32_SEQUENCE_STEPS, seconds=f"{seconds:.4f}",
+          rel_l2_vs_kernel=f"{err:.3e}", tol=f"{F32_TOL:g}",
+          launches=json.dumps({key: v for key, v in counts.items() if v}))
+    if err > F32_TOL:
+        raise AssertionError(f"f32 launch-sequence chain lies {err} from the kernel's")
+    out["f32/mega_stack+sequence"] = dict(counts, mp_gemm=sum(v for key, v in counts.items()
+                                                              if key.startswith("mp_gemm/")))
+
+    # 6. the bench in turns
+    for kernel in F32_BENCH_ORDER:
+        argv = ["--dtype", "float32", "--block-kernel", kernel, "--sampler", "ddim", "--steps", str(F32_CHAIN_STEPS),
+                "--repeats", str(BENCH_REPEATS)]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            bench.main(argv)
+        counts = launch_counts()
+        line = buf.getvalue().strip().splitlines()[-1]
+        result = json.loads(line)
+        print(line, flush=True)
+        runs = (1 + BENCH_REPEATS) * F32_CHAIN_STEPS
+        check_counts(f"f32/bench/{kernel}", counts,
+                     {} if kernel == "off" else {"fused_dit_stack": runs, "dit_stack": runs})
+        phase("bench-f32", block_kernel=result["block_kernel"], dtype="float32", value=f"{result['value']:.3f}",
+              unit=json.dumps(result["unit"]), card=json.dumps(smi_line()))
+        if result["block_kernel"] != kernel:
+            raise AssertionError(f"bench --dtype float32 --block-kernel {kernel} ran {result['block_kernel']}")
+        torch.cuda.empty_cache()
+    phase("f32", seconds=f"{time.perf_counter() - t_phase:.2f}")
+    return out
 
 
 def checked_step(torch, dev, cfg, sd0, batch, draws, stats, ema_stds=None):
@@ -5245,6 +5716,19 @@ def main() -> int:
     rows["fused_dit_stack:t256"] = dict(stack["S2:T256"], count_from=(T256_BENCH, "fused_dit_stack"))
     rows["fused_dit_block:t256"] = dict(stack["S2:T256:block"], path="t256/mega", count_key="fused_dit_block")
     elapsed("3.stack")
+    # the f32 forms, on draws of their own; phase 6d's float32 paths count
+    # their launches: the sample CLI's mega_stack chain, the train CLI's mega
+    # steps, and the f32 launch sequence as the stack's route
+    gen32 = torch.Generator(device=dev).manual_seed(SEED + 30)
+    f32_gemm = f32_gemm_rows(torch, k, gen32, dev)
+    f32_cos = f32_cosine_rows(torch, F, k, gen32, dev)
+    f32_stack = f32_stack_rows(torch, k)
+    rows["fused_dit_stack:f32"] = dict(f32_stack["S2"], path="f32/sample-cli", count_key="fused_dit_stack")
+    rows["fused_dit_block:f32"] = dict(f32_stack["S2:block"], path="f32/train-cli", count_key="fused_dit_block")
+    rows["mp_gemm:f32"] = dict(f32_gemm["block"], path="f32/mega_stack+sequence", count_key="mp_gemm")
+    rows["cosine_attention:f32"] = dict(f32_cos["cosine_attention:f32"], path="f32/mega_stack+sequence",
+                                        count_key="cosine_attention")
+    elapsed("3.f32")
     for name, row in rows.items():
         phase("time", kernel=name, ms=f"{row['ms']:.4f}", plain_ms=f"{row['plain_ms']:.4f}",
               bound_ms=f"{row['bound_ms']:.4f}", bound_by=row["bound_by"], library_ms=row["library_ms"])
@@ -5350,6 +5834,12 @@ def main() -> int:
     train_launches.update(t256_train_phase(torch, dev, cfg))
     torch.cuda.empty_cache()
     elapsed("6c")
+
+    # 6d. float32 on the whole-block kernels: the train CLI, the sample CLI,
+    # the chains and the bench
+    train_launches.update(f32_phase(torch, dev, cfg))
+    torch.cuda.empty_cache()
+    elapsed("6d")
 
     # 7. the flag families at DiT-B/2
     family_launches = {T256_BENCH: bench_counts["ddpm-50-input-32-mega-stack"]}

@@ -19,9 +19,8 @@
 //     written as (N, heads, T, T) when p_out is given, then
 //     o = bf16(p) . bf16(v).
 // The two modes round at different places, as the two Pallas kernels do.
-// There is no f32 output: the products are bf16 on the tensor cores, so the
-// wrapper refuses out_dtype=float32 on the card (the plain version takes it
-// on the CPU, where nothing is rounded).
+// An f32 output (a float32 model, where the Pallas core rounds nothing) is
+// the f32 form, cosine_attention_f32 (notes below).
 //
 // Bound on the H100: bytes. At T = 64, hd = 64 a (sample, head) reads
 // 3*T*hd f32 and writes T*hd bf16 for 4*T*T*hd flops, ~10 flops a byte
@@ -63,6 +62,18 @@
 // wgmma (m64nNk16, one warpgroup a 64-row tile) is not built: at S/2 this
 // form takes 0.0069 ms against a byte bound of 0.0066, so faster products
 // have at most 5% to win there.
+//
+// The f32 form (cosine_attention_f32; the core at dtype = float32, and in
+// residual mode row 5's attention at float32): f32 qkv, f32 attn and p,
+// nothing rounded, the same grid and the same sweeps, with the rows f32 in
+// shared memory (53 / 59 KB at hd 64 / 72, dynamic) and both products by
+// FFMA on the f32 pipes in k order (cosine_tiles.cuh's f32 part: a lane
+// holds 4 query rows by 8 keys of a tile, p passes to P.V by shuffles inside
+// its group of eight lanes). TF32 mma.sync would round q, k, p and v to 10
+// mantissa bits, past the 2e-4 the f32 kernel is held to. Bound at S/2
+// (64 x 64 tokens, 6 heads): bytes, T*3D f32 read and T*D f32 written a
+// sample, 0.0075 ms; the products' 4*T*T*hd flops a (sample, head) take
+// 0.0060 ms on the f32 pipes (67 TFLOP/s).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -176,6 +187,108 @@ __global__ void __launch_bounds__(THREADS)
   store_rows<HD>(o, f0, f1, sq, out + ((int64_t)sample * t + q0) * d + head * HD, d, rows, warp, lane);
 }
 
+// The f32 form: one block of four warps a (head, sample, tile of 64 query
+// rows), as above; o = (ex . v) * (1 / sum ex), or in residual mode
+// p = ex * (1 / sum ex) written when p_out is given and o = p . v, all f32.
+template <int HD, bool RESIDUAL>
+__global__ void __launch_bounds__(THREADS)
+    cosine_attention_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, float* __restrict__ p_out,
+                                int t, int heads) {
+  using D = DimsF32<HD>;
+  extern __shared__ __align__(16) float smem_f32[];
+  float* sq = smem_f32;
+  float* sk = sq + TILE * D::LD;
+  float* sv = sk + TILE * D::LD;
+  float* qsc = sv + TILE * D::LD;
+  float* ksc = qsc + TILE;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int head = blockIdx.x, sample = blockIdx.y, q0 = blockIdx.z * TILE;
+  const int d = heads * HD;
+  const int64_t ld = 3 * (int64_t)d;
+  const float* base = qkv + (int64_t)sample * t * ld + head * HD;
+  const int rows = min(TILE, t - q0);
+  const bool active = warp * 16 < rows;
+  const int tiles = (t + TILE - 1) / TILE;
+
+  Rows<HD> fq, fk, fv;
+  fetch<HD>(fq, base + q0 * ld, ld, rows, threadIdx.x);
+
+  float s[4][8];
+  float o[4][D::NJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < D::NJ; ++j) o[i][j] = 0.f;
+  float sum[4] = {0.f, 0.f, 0.f, 0.f};
+
+  if (RESIDUAL && tiles > 1) {  // first sweep: the row sums
+    for (int kt = 0; kt < tiles; ++kt) {
+      fetch<HD>(fk, base + d + kt * TILE * ld, ld, min(TILE, t - kt * TILE), threadIdx.x);
+      __syncthreads();
+      if (kt == 0) commit_f32<HD>(fq, sq, qsc, threadIdx.x);
+      commit_f32<HD>(fk, sk, ksc, threadIdx.x);
+      __syncthreads();
+      if (active) {
+        exp_tile_f32<HD>(s, sq, sk, qsc, ksc, t - kt * TILE, warp, lane);
+        add_row_sums_f32(sum, s);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sum[i] = oct_sum(sum[i]);
+  }
+
+  const int r0 = q0 + warp * 16 + (lane >> 3), kc = lane & 7;
+  float* p_rows = nullptr;
+  if (RESIDUAL && p_out != nullptr) p_rows = p_out + ((int64_t)sample * heads + head) * t * t + (int64_t)r0 * t;
+  for (int kt = 0; kt < tiles; ++kt) {
+    const int keys = t - kt * TILE;
+    fetch<HD>(fk, base + d + kt * TILE * ld, ld, min(TILE, keys), threadIdx.x);
+    fetch<HD>(fv, base + 2 * d + kt * TILE * ld, ld, min(TILE, keys), threadIdx.x);
+    __syncthreads();
+    if (kt == 0 && !(RESIDUAL && tiles > 1)) commit_f32<HD>(fq, sq, qsc, threadIdx.x);
+    commit_f32<HD>(fk, sk, ksc, threadIdx.x);
+    commit_f32<HD>(fv, sv, nullptr, threadIdx.x);
+    __syncthreads();
+    if (!active) continue;
+    exp_tile_f32<HD>(s, sq, sk, qsc, ksc, keys, warp, lane);
+    if (!RESIDUAL) {
+      add_row_sums_f32(sum, s);
+    } else {
+      if (tiles == 1) {
+        add_row_sums_f32(sum, s);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sum[i] = oct_sum(sum[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float inv = 1.f / sum[i];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[i][j] *= inv;
+      }
+      if (p_rows != nullptr) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (r0 + 4 * i >= t) continue;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int col = kt * TILE + kc + 8 * j;
+            if (col < t) p_rows[4 * i * (int64_t)t + col] = s[i][j];
+          }
+        }
+      }
+    }
+    pv_tile_f32<HD>(o, s, sv, lane);
+  }
+  if (!active) return;
+  float f[4] = {1.f, 1.f, 1.f, 1.f};
+  if (!RESIDUAL) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f[i] = 1.f / oct_sum(sum[i]);
+  }
+  store_rows_f32<HD>(o, f, out + ((int64_t)sample * t + q0) * d + head * HD, d, rows, warp, lane);
+}
+
 template <int HD>
 int launch(const float* qkv, __nv_bfloat16* out, float* p_out, int normalize_first, int n, int t, int heads,
            cudaStream_t stream) {
@@ -203,6 +316,51 @@ extern "C" int cosine_attention(const void* qkv, void* out, void* p_out, int nor
       return launch<64>(q, o, p, normalize_first, n, t, heads, s);
     case 72:
       return launch<72>(q, o, p, normalize_first, n, t, heads, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+namespace {
+
+template <int HD, bool RESIDUAL>
+cudaError_t launch_f32(const float* qkv, float* out, float* p_out, int n, int t, int heads, cudaStream_t stream) {
+  static bool configured = false;
+  constexpr int bytes = DimsF32<HD>::BYTES;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(cosine_attention_f32_kernel<HD, RESIDUAL>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const dim3 grid(heads, n, (t + TILE - 1) / TILE);
+  cosine_attention_f32_kernel<HD, RESIDUAL><<<grid, THREADS, bytes, stream>>>(qkv, out, p_out, t, heads);
+  return cudaGetLastError();
+}
+
+template <int HD>
+int launch_f32_mode(const float* qkv, float* out, float* p_out, int normalize_first, int n, int t, int heads,
+                    cudaStream_t stream) {
+  return static_cast<int>(normalize_first ? launch_f32<HD, true>(qkv, out, p_out, n, t, heads, stream)
+                                          : launch_f32<HD, false>(qkv, out, p_out, n, t, heads, stream));
+}
+
+}  // namespace
+
+// The f32 form: qkv f32 (n*t, 3*heads*hd), 16-byte aligned; out: f32
+// (n*t, heads*hd); p_out: f32 (n, heads, t, t) or null (residual mode
+// only). hd is 64 or 72 and t is even.
+extern "C" int cosine_attention_f32(const void* qkv, void* out, void* p_out, int normalize_first, int n, int t,
+                                    int heads, int hd, void* stream) {
+  const float* q = static_cast<const float*>(qkv);
+  float* o = static_cast<float*>(out);
+  float* p = static_cast<float*>(p_out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 64:
+      return launch_f32_mode<64>(q, o, p, normalize_first, n, t, heads, s);
+    case 72:
+      return launch_f32_mode<72>(q, o, p, normalize_first, n, t, heads, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -117,6 +117,24 @@
 //   * the dataflow form without its row waits (wrong results; a bound on
 //     what the waits cost): 1.2406 / 3.1440 / 2.3861 against 1.2510 /
 //     3.0778 / 3.0232 with them (the register-held form).
+// The float32 instances (dit_stack_f32; the Pallas kernels at dtype =
+// float32, where nothing is rounded): the element type is a template
+// parameter, E = float beside E = bf16. x, out, attn, h and amod are f32, the
+// products take f32 A and W tiles at k depth 32 through the same ring
+// (gemm_pipeline.cuh's f32 form: the same 32 KB stages, FFMA on the f32
+// pipes in k order, the accumulators in wgmma's layout, so the staging,
+// split sums and epilogues are shared), the epilogues store f32 and round
+// nothing, and the attention units run cosine_tiles.cuh's f32 core (f32
+// rows, 58880 bytes a group at hd 72, two groups in the ring). A TF32 wgmma
+// rounds each operand to 10 mantissa bits (~3e-4 a product, past the 2e-4
+// the Pallas f32 kernel is held to); 3xTF32 would split every tile into hi
+// and lo parts beside the ring. Bound at S/2 sampling (64 rows x 64 tokens,
+// depth 12): operations on the f32 pipes, 180 GFLOP over 67 TFLOP/s, 2.69
+// ms; measured 7.63 ms (its f32 launch sequence 8.83), S2:T256 28.72 ms
+// against a bound of 11.56 (mapdit_tpu_torch/tools/bench_f32.py; NVIDIA
+// H100 80GB HBM3, 700.00 W): the FFMA mainloop's shared-memory loads
+// (gemm_pipeline.cuh) set the pace. The bf16 instances are compiled from the
+// same code with E = bf16 and keep their bits.
 // What bounds it now: the tile pipeline itself, mp_gemm's: a 128 x 128 x 64
 // k step takes ~1.6 us of an SM against 0.28 us of tensor-core time (the
 // time scales with 1/SMs, so it is each SM's pipeline, not L2 as a whole).
@@ -137,6 +155,7 @@
 
 #include <initializer_list>
 #include <mutex>
+#include <type_traits>
 
 #include "attention_tiles.cuh"
 #include "cosine_tiles.cuh"
@@ -167,6 +186,7 @@ struct AttnSmem {
   static constexpr int BYTES = 3 * attn_tiles::TILE * LD * 2 + 2 * attn_tiles::TILE * 4;
 };
 static_assert(2 * AttnSmem<72>::BYTES <= STAGES * STAGE_BYTES, "attention buffers must fit in the ring");
+static_assert(2 * cosine_tiles::DimsF32<72>::BYTES <= STAGES * STAGE_BYTES, "f32 attention buffers must fit in the ring");
 // the ring (and its barriers), the hand-off mbarriers and the attention
 // count, the f32 epilogue tile, and 1 KB of slack to align the ring to the
 // 1024 bytes the swizzle needs
@@ -179,23 +199,32 @@ struct Maps {
   CUtensorMap a, amod, attn, h, w_mod, w_qkv, w_out, w1, w2;
 };
 
-struct Args {
+// E: the element type of the stream, the products' operands, attn and h
+// (bf16, or float in the f32 instances)
+template <class E>
+struct ArgsT {
   int n, t, d, hidden, heads, depth;
   int splits_qkv, splits_out, splits_fc1, splits_fc2;
   float alpha_d, alpha_h;
-  const __nv_bfloat16* x;  // the input stream (N*T, D), never written
-  __nv_bfloat16* out;      // the stream from block 1 on, and the output
-  const float* gains;      // (depth, 2)
-  float* mods;             // (N, depth*6D)
+  const E* x;          // the input stream (N*T, D), never written
+  E* out;              // the stream from block 1 on, and the output
+  const float* gains;  // (depth, 2)
+  float* mods;         // (N, depth*6D)
   float* qkv;
   float* x1;
   float* partial;
-  __nv_bfloat16* attn;
-  __nv_bfloat16* h;
-  __nv_bfloat16* amod;
+  E* attn;
+  E* h;
+  E* amod;
   unsigned* sync;             // the sync words (above), zero at launch
   unsigned long long* trace;  // null, or TRACE_WORDS a CTA: ns by kind of work, then its start and end
 };
+
+template <class E>
+constexpr bool is_f32 = std::is_same<E, float>::value;
+// a k step's elements: 128-byte rows either way
+template <class E>
+constexpr int kstep = is_f32<E> ? BK_F32 : BK;
 
 __device__ __forceinline__ int cdiv_d(int a, int b) { return (a + b - 1) / b; }
 
@@ -273,14 +302,15 @@ struct RowsIn {
 
 // out: x1 = mp_sum(x, gate_msa * C * alpha) in f32, and fc1's A,
 // amod = modulate(x1; shift_mlp, scale_mlp, gain_mlp) in bf16
+template <class E>
 struct OutEpi {
-  const __nv_bfloat16* stream;
+  const E* stream;
   const float* mods_b;  // block b's six rows of sample 0
   int64_t mods_ld;
   int t, d;
   float alpha, g;
   float* x1;
-  __nv_bfloat16* amod;
+  E* amod;
   using In = RowsIn;
   __device__ __forceinline__ void load(int row, int col, In& in) const {
     const float* mrow = mods_b + (row / t) * mods_ld;
@@ -298,9 +328,10 @@ struct OutEpi {
   }
 };
 
-// fc1: h = mp_silu(C * alpha) in bf16
+// fc1: h = mp_silu(C * alpha) in bf16 (f32 in the f32 instances)
+template <class E>
 struct SiluEpi {
-  __nv_bfloat16* h;
+  E* h;
   int hidden;
   float alpha;
   using In = NoLoads;
@@ -313,6 +344,7 @@ struct SiluEpi {
 
 // fc2: the stream x = mp_sum(x1, gate_mlp * C * alpha) in bf16, and, before
 // another block, its qkv's A, amod = modulate(x; that block's msa rows)
+template <class E>
 struct Fc2Epi {
   const float* x1;
   const float* mods_b;
@@ -320,8 +352,8 @@ struct Fc2Epi {
   int t, d;
   float alpha, g_next;
   bool next;
-  __nv_bfloat16* out;
-  __nv_bfloat16* amod;
+  E* out;
+  E* amod;
   using In = RowsIn;
   __device__ __forceinline__ void load(int row, int col, In& in) const {
     const float* mrow = mods_b + (row / t) * mods_ld;
@@ -337,9 +369,12 @@ struct Fc2Epi {
     residual8(v, in.x, in.gate, alpha);
     modulate::store8(out + idx, v);
     if (next) {
-      // the next block's qkv reads the stream as stored, in bf16
+      // the next block's qkv reads the stream as stored, in bf16 (in f32
+      // nothing is rounded)
+      if constexpr (!is_f32<E>) {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = __bfloat162float(__float2bfloat16_rn(v[e]));
+        for (int e = 0; e < 8; ++e) v[e] = __bfloat162float(__float2bfloat16_rn(v[e]));
+      }
       modulate::modulate8(v, in.shift, in.scale, g_next, modulate::denominator(g_next));
       modulate::store8(amod + idx, v);
     }
@@ -383,7 +418,8 @@ struct Work {
   int ticket_off[4], tickets_per_block;
 
   Work() = default;
-  __device__ __forceinline__ explicit Work(const Args& A) {
+  template <class E>
+  __device__ __forceinline__ explicit Work(const ArgsT<E>& A) {
     m = A.n * A.t;
     mt = cdiv_d(m, BM);
     depth = A.depth;
@@ -398,7 +434,7 @@ struct Work {
     int tk = 0;
     for (int i = 0; i < 4; ++i) {
       nt[i] = cdiv_d(cols[i], BN);
-      kt[i] = cdiv_d(ks[i], BK);
+      kt[i] = cdiv_d(ks[i], kstep<E>);
       splits[i] = sp[i];
       partial_off[i] = off;
       ticket_off[i] = tk;
@@ -437,20 +473,22 @@ struct Work {
 // The modulation rows' tiles: (n, depth*6d), unsplit.
 struct Items {
   int nt, kt, tiles;
-  __device__ __forceinline__ Items(int m, int n, int k)
-      : nt(cdiv_d(n, BN)), kt(cdiv_d(k, BK)), tiles(cdiv_d(m, BM) * cdiv_d(n, BN)) {}
+  __device__ __forceinline__ Items(int m, int n, int k, int bk)
+      : nt(cdiv_d(n, BN)), kt(cdiv_d(k, bk)), tiles(cdiv_d(m, BM) * cdiv_d(n, BN)) {}
   __device__ __forceinline__ int m0(int item) const { return item / nt * BM; }
   __device__ __forceinline__ int n0(int item) const { return item % nt * BN; }
 };
 
-__device__ __forceinline__ unsigned* done(const Args& A, const Work& W, int kind, int r) {
+template <class E>
+__device__ __forceinline__ unsigned* done(const ArgsT<E>& A, const Work& W, int kind, int r) {
   return A.sync + SYNC_DONE + 8 * (kind * W.mt + r);
 }
 
 // What item (kind, j) of block b must wait for: the counter and the count
 // it must reach (none for block 0's qkv, which the pre stage's grid
 // barrier orders).
-__device__ __forceinline__ void dependency(const Args& A, const Work& W, int b, int kind, int r, unsigned*& ctr,
+template <class E>
+__device__ __forceinline__ void dependency(const ArgsT<E>& A, const Work& W, int b, int kind, int r, unsigned*& ctr,
                                            unsigned& target) {
   ctr = nullptr;
   target = 0;
@@ -496,6 +534,17 @@ struct TileSums {
   }
 };
 
+// the consumers' k steps of a tile: wgmma (bf16) or the f32 pipes (f32)
+template <bool F32>
+__device__ __forceinline__ void consume_k(const Ring<STAGES>& ring, float (&acc)[64], int tid, bool active, int nk,
+                                          uint32_t& it) {
+  if constexpr (F32) {
+    consume_tile_f32<STAGES>(ring, acc, tid, active, nk, it);
+  } else {
+    consume_tile<STAGES, false>(ring, acc, tid >> 7, tid & 31, active, nk, it);
+  }
+}
+
 // The consumers' side of one product tile (the producer has loaded its k
 // steps), then the epilogue `epi`. Unsplit, the tile's sums go through the
 // epilogue tile. Split (the plan splits only where tiles x splits fit the
@@ -504,15 +553,15 @@ struct TileSums {
 // tickets are all taken, split z sums the partials of rows z/splits ..
 // (z+1)/splits of the tile in split order and runs their epilogue: the
 // same bits on every run. `tickets` and `partial` are the product's own.
-template <class Epi>
+template <bool F32, class Epi>
 __device__ __forceinline__ void consume_item(const Ring<STAGES>& ring, float* tile, int m, int n, const Tile& tl,
                                              int splits, float* partial, unsigned* tickets, uint32_t& it,
                                              const Epi& epi) {
-  const int tid = threadIdx.x, lane = tid & 31, wg = tid >> 7;
+  const int tid = threadIdx.x, wg = tid >> 7;
   const int m0 = tl.m0, n0 = tl.n0;
   const bool active = m0 + 64 * wg < m;
   float acc[64];
-  consume_tile<STAGES, false>(ring, acc, wg, lane, active, tl.nk, it);
+  consume_k<F32>(ring, acc, tid, active, tl.nk, it);
   if (splits == 1) {
     stage_tile(tile, acc, active, tid);
     finish_chunks(epi, TileSums{tile}, m, n, m0, n0, 0, BM * BN / 8, tid);
@@ -541,7 +590,8 @@ __device__ __forceinline__ void consume_item(const Ring<STAGES>& ring, float* ti
 }
 
 // amod = bf16(modulate(x; block 0's msa rows)), eight columns a thread
-__device__ __forceinline__ void pre_stage(const Args& A) {
+template <class E>
+__device__ __forceinline__ void pre_stage(const ArgsT<E>& A) {
   const int chunks = A.d / 8;
   const int64_t total = static_cast<int64_t>(A.n) * A.t * chunks, mods_ld = 6ll * A.d * A.depth;
   const float g = __ldg(A.gains);
@@ -573,8 +623,8 @@ __device__ __forceinline__ void pre_stage(const Args& A) {
 // all, and the next block's qkv items overwrite them once the out product
 // of their row tile has run.
 template <int HD, bool LONG>
-__device__ __forceinline__ void attention_unit(const Args& A, const Work& W, int b, int unit, uint8_t* buf,
-                                               int group) {
+__device__ __forceinline__ void attention_unit(const ArgsT<__nv_bfloat16>& A, const Work& W, int b, int unit,
+                                               uint8_t* buf, int group) {
   using namespace cosine_tiles;
   using D = Dims<HD>;
   const int tid = threadIdx.x % attn_tiles::THREADS, warp = tid >> 5, lane = tid & 31;
@@ -660,6 +710,94 @@ __device__ __forceinline__ void attention_unit(const Args& A, const Work& W, int
   }
 }
 
+// attention_unit in the f32 form: the same waits, units and key tiles,
+// the group's rows f32 in its buffers (cosine_tiles.cuh DimsF32), both
+// products on the f32 pipes, attn stored in f32; nothing is rounded.
+template <int HD, bool LONG>
+__device__ __forceinline__ void attention_unit_f32(const ArgsT<float>& A, const Work& W, int b, int unit,
+                                                   uint8_t* buf, int group) {
+  using namespace cosine_tiles;
+  using D = DimsF32<HD>;
+  const int tid = threadIdx.x % attn_tiles::THREADS, warp = tid >> 5, lane = tid & 31;
+  const int t = A.t, d = A.d;
+  int sample = unit / A.heads, head = unit % A.heads, q0 = 0, rows = t;
+  if constexpr (LONG) {
+    sample = unit / W.qt / A.heads;
+    head = unit / W.qt % A.heads;
+    q0 = unit % W.qt * TILE;
+    rows = min(TILE, t - q0);
+  }
+  const int r0 = sample * t / BM, r1 = (sample * t + t - 1) / BM;
+  if (tid == 0) {
+    for (int r = r0; r <= r1; ++r) spin_until(done(A, W, K_QKV, r), (b + 1) * W.per_row(0));
+    __threadfence();
+  }
+  float* sq = reinterpret_cast<float*>(buf + group * D::BYTES);
+  float* sk = sq + TILE * D::LD;
+  float* sv = sk + TILE * D::LD;
+  float* qsc = sv + TILE * D::LD;
+  float* ksc = qsc + TILE;
+  const int64_t ld = 3ll * d;
+  // the group's previous unit is done with the buffers, and tid 0 has seen
+  // this one's qkv rows done
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "n"(attn_tiles::THREADS) : "memory");
+  const float* base = A.qkv + static_cast<int64_t>(sample) * t * ld + head * HD;
+  float* dst = A.attn + (static_cast<int64_t>(sample) * t + q0) * d + head * HD;
+  const bool active = warp * 16 < rows;
+  Rows<HD> fq, fk, fv;
+  float o[4][D::NJ], sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < D::NJ; ++j) o[i][j] = 0.f;
+  if constexpr (!LONG) {
+    fetch<HD, true>(fq, base, ld, t, tid);
+    fetch<HD, true>(fk, base + d, ld, t, tid);
+    fetch<HD, true>(fv, base + 2 * d, ld, t, tid);
+    commit_f32<HD>(fq, sq, qsc, tid);
+    commit_f32<HD>(fk, sk, ksc, tid);
+    commit_f32<HD>(fv, sv, nullptr, tid);
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "n"(attn_tiles::THREADS) : "memory");
+    if (active) {
+      float s[4][8];
+      exp_tile_f32<HD>(s, sq, sk, qsc, ksc, t, warp, lane);
+      add_row_sums_f32(sum, s);
+      pv_tile_f32<HD>(o, s, sv, lane);
+    }
+  } else {
+    fetch<HD, true>(fq, base + q0 * ld, ld, rows, tid);
+    for (int kt = 0; kt * TILE < t; ++kt) {
+      const int keys = t - kt * TILE;
+      fetch<HD, true>(fk, base + d + kt * TILE * ld, ld, min(TILE, keys), tid);
+      fetch<HD, true>(fv, base + 2 * d + kt * TILE * ld, ld, min(TILE, keys), tid);
+      // every warp is done with the previous key tile
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "n"(attn_tiles::THREADS) : "memory");
+      if (kt == 0) commit_f32<HD>(fq, sq, qsc, tid);
+      commit_f32<HD>(fk, sk, ksc, tid);
+      commit_f32<HD>(fv, sv, nullptr, tid);
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "n"(attn_tiles::THREADS) : "memory");
+      if (!active) continue;
+      float s[4][8];
+      exp_tile_f32<HD>(s, sq, sk, qsc, ksc, keys, warp, lane);
+      add_row_sums_f32(sum, s);
+      pv_tile_f32<HD>(o, s, sv, lane);
+    }
+  }
+  if (active) {
+    float f[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f[i] = 1.f / oct_sum(sum[i]);
+    store_rows_f32<HD>(o, f, dst, d, rows, warp, lane);
+  }
+  // the out product's TMA loads read these rows
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "n"(attn_tiles::THREADS) : "memory");
+  if (tid == 0) {
+    __threadfence();
+    for (int r = r0; r <= r1; ++r) atomicAdd(done(A, W, K_ATTN, r), 1u);
+  }
+}
+
 // The consumers hand each finished product item to the signalling thread
 // through two mbarriers in shared memory: `done` (the eight consumer warps
 // arrive once the item's stores are issued) and `ack` (the signalling
@@ -679,7 +817,8 @@ struct Handoff {
 // run an attention item in the ring); its second warp's lane 0 counts each
 // product item done (a release add to the row's counter) once the
 // consumers hand it over. All of it meets the two grid barriers.
-__device__ __forceinline__ void producer_main(const Maps& maps, const Args& A, const Ring<STAGES>& ring,
+template <class E>
+__device__ __forceinline__ void producer_main(const Maps& maps, const ArgsT<E>& A, const Ring<STAGES>& ring,
                                               const Handoff& hand, const Work& W) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int d = A.d, hid = A.hidden;
@@ -691,9 +830,10 @@ __device__ __forceinline__ void producer_main(const Maps& maps, const Args& A, c
     for (const CUtensorMap* map : {&maps.a, &maps.amod, &maps.attn, &maps.h, &maps.w_mod, &maps.w_qkv, &maps.w_out,
                                    &maps.w1, &maps.w2})
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
-    const Items mods(A.n, 6 * d * A.depth, d);
+    const Items mods(A.n, 6 * d * A.depth, d, kstep<E>);
     for (int item = blockIdx.x; item < mods.tiles; item += gridDim.x)
-      produce_tile<STAGES, false>(ring, &maps.a, &maps.w_mod, mods.m0(item), mods.n0(item), 0, mods.kt, it);
+      produce_tile<STAGES, false, kstep<E>>(ring, &maps.a, &maps.w_mod, mods.m0(item), mods.n0(item), 0, mods.kt,
+                                            it);
   }
   grid_sync(A.sync, gridDim.x);
   grid_sync(A.sync, 2 * gridDim.x);  // the pre stage
@@ -726,7 +866,8 @@ __device__ __forceinline__ void producer_main(const Maps& maps, const Args& A, c
       dependency(A, W, b, kind, tl.r, ctr, target);
       if (ctr != nullptr) spin_until(ctr, target);
       asm volatile("fence.proxy.async;\n" ::: "memory");
-      produce_tile<STAGES, false>(ring, a_maps[p], w_maps[p], tl.m0, w_rows[p] * b + tl.n0, tl.kb, tl.nk, it);
+      produce_tile<STAGES, false, kstep<E>>(ring, a_maps[p], w_maps[p], tl.m0, w_rows[p] * b + tl.n0, tl.kb, tl.nk,
+                                            it);
     } else {
       mbar_wait(hand.done, handed & 1);
       __threadfence();
@@ -741,8 +882,8 @@ __device__ __forceinline__ void producer_main(const Maps& maps, const Args& A, c
 // their share of the item list (the products' mainloops and epilogues, the
 // attention units on two groups of four warps). spent: the ns each kind of
 // work took on this CTA (thread 0 adds them up).
-template <int HD, bool LONG>
-__device__ __forceinline__ void consumer_main(const Args& A, const Ring<STAGES>& ring, uint8_t* ring_mem,
+template <int HD, bool LONG, class E>
+__device__ __forceinline__ void consumer_main(const ArgsT<E>& A, const Ring<STAGES>& ring, uint8_t* ring_mem,
                                               float* tile, const Handoff& hand, const Work& W,
                                               unsigned long long* spent) {
   const int tid = threadIdx.x, lane = tid & 31;
@@ -750,12 +891,12 @@ __device__ __forceinline__ void consumer_main(const Args& A, const Ring<STAGES>&
   const int64_t mods_ld = 6ll * d * A.depth;
   uint32_t it = 0, handed = 0;
   unsigned long long t0 = global_ns();
-  const Items mods(A.n, 6 * d * A.depth, d);
+  const Items mods(A.n, 6 * d * A.depth, d, kstep<E>);
   for (int item = blockIdx.x; item < mods.tiles; item += gridDim.x) {
     const int m0 = mods.m0(item), n0 = mods.n0(item), wg = tid >> 7;
     float acc[64];
     const bool active = m0 + 64 * wg < A.n;
-    consume_tile<STAGES, false>(ring, acc, wg, lane, active, mods.kt, it);
+    consume_k<is_f32<E>>(ring, acc, tid, active, mods.kt, it);
     stage_tile(tile, acc, active, tid);
     finish_chunks(ScaleEpi{A.mods, mods_ld, A.alpha_d}, TileSums{tile}, A.n, 6 * d * A.depth, m0, n0, 0, BM * BN / 8,
                   tid);
@@ -772,7 +913,13 @@ __device__ __forceinline__ void consumer_main(const Args& A, const Ring<STAGES>&
     if (kind == K_ATTN) {
       // units 2j (the first group) and 2j + 1 (the second)
       const int group = tid / attn_tiles::THREADS, unit = 2 * j + group;
-      if (unit < W.units) attention_unit<HD, LONG>(A, W, b, unit, ring_mem, group);
+      if (unit < W.units) {
+        if constexpr (is_f32<E>) {
+          attention_unit_f32<HD, LONG>(A, W, b, unit, ring_mem, group);
+        } else {
+          attention_unit<HD, LONG>(A, W, b, unit, ring_mem, group);
+        }
+      }
       // the producer may load into the ring again
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       asm volatile("bar.sync %0, %1;\n" ::"n"(CONSUMER_BAR), "n"(CONSUMER_THREADS) : "memory");
@@ -787,22 +934,22 @@ __device__ __forceinline__ void consumer_main(const Args& A, const Ring<STAGES>&
     const bool next = b + 1 < A.depth;
     switch (kind) {
       case K_QKV:
-        consume_item(ring, tile, W.m, 3 * d, tl, W.splits[p], A.partial + W.partial_off[p], tickets, it,
-                     ScaleEpi{A.qkv, 3ll * d, A.alpha_d});
+        consume_item<is_f32<E>>(ring, tile, W.m, 3 * d, tl, W.splits[p], A.partial + W.partial_off[p], tickets, it,
+                                ScaleEpi{A.qkv, 3ll * d, A.alpha_d});
         break;
       case K_OUT:
-        consume_item(ring, tile, W.m, d, tl, W.splits[p], A.partial + W.partial_off[p], tickets, it,
-                     OutEpi{b == 0 ? A.x : A.out, mods_b, mods_ld, A.t, d, A.alpha_d, __ldg(A.gains + 2 * b + 1), A.x1,
-                            A.amod});
+        consume_item<is_f32<E>>(ring, tile, W.m, d, tl, W.splits[p], A.partial + W.partial_off[p], tickets, it,
+                                OutEpi<E>{b == 0 ? A.x : A.out, mods_b, mods_ld, A.t, d, A.alpha_d,
+                                          __ldg(A.gains + 2 * b + 1), A.x1, A.amod});
         break;
       case K_FC1:
-        consume_item(ring, tile, W.m, hid, tl, W.splits[p], A.partial + W.partial_off[p], tickets, it,
-                     SiluEpi{A.h, hid, A.alpha_d});
+        consume_item<is_f32<E>>(ring, tile, W.m, hid, tl, W.splits[p], A.partial + W.partial_off[p], tickets, it,
+                                SiluEpi<E>{A.h, hid, A.alpha_d});
         break;
       default:
-        consume_item(ring, tile, W.m, d, tl, W.splits[p], A.partial + W.partial_off[p], tickets, it,
-                     Fc2Epi{A.x1, mods_b, mods_ld, A.t, d, A.alpha_h, next ? __ldg(A.gains + 2 * (b + 1)) : 0.f, next,
-                            A.out, A.amod});
+        consume_item<is_f32<E>>(ring, tile, W.m, d, tl, W.splits[p], A.partial + W.partial_off[p], tickets, it,
+                                Fc2Epi<E>{A.x1, mods_b, mods_ld, A.t, d, A.alpha_h,
+                                          next ? __ldg(A.gains + 2 * (b + 1)) : 0.f, next, A.out, A.amod});
     }
     // later items (other CTAs' TMA loads among them) read these stores
     asm volatile("fence.proxy.async;\n" ::: "memory");
@@ -816,9 +963,9 @@ __device__ __forceinline__ void consumer_main(const Args& A, const Ring<STAGES>&
   }
 }
 
-template <int HD, bool LONG>
+template <int HD, bool LONG, class E>
 __global__ void __launch_bounds__(STACK_THREADS, 1)
-    dit_stack_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Args A) {
+    dit_stack_kernel(const __grid_constant__ Maps maps, const __grid_constant__ ArgsT<E> A) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   uint8_t* smem = smem_raw + (base - smem_u32(smem_raw));
@@ -848,7 +995,7 @@ __global__ void __launch_bounds__(STACK_THREADS, 1)
     producer_main(maps, A, ring, hand, W);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
-    consumer_main<HD, LONG>(A, ring, smem, tile, hand, W, spent);
+    consumer_main<HD, LONG, E>(A, ring, smem, tile, hand, W, spent);
   }
   if (A.trace != nullptr) {
     // every thread is through its items when thread 0 reads the clock
@@ -861,11 +1008,12 @@ __global__ void __launch_bounds__(STACK_THREADS, 1)
     }
   }
 }
-// Tensor maps by pointer and shape: encoded once, reused while the pointer
-// and shape repeat (a weight set, a scratch buffer the allocator hands back).
+// Tensor maps by pointer, shape and element type: encoded once, reused
+// while they repeat (a weight set, a scratch buffer the allocator hands
+// back).
 struct MapEntry {
   const void* ptr;
-  int rows, cols, box_rows;
+  int rows, cols, box_rows, elem_bytes;
   CUtensorMap map;
 };
 constexpr int MAP_CACHE = 64;
@@ -873,16 +1021,19 @@ MapEntry map_cache[MAP_CACHE];
 int map_next = 0;
 std::mutex map_lock;
 
-bool cached_map(CUtensorMap* out, const void* ptr, int rows, int cols, int box_rows) {
+// elem_bytes 2: bf16 in k steps of BK; 4: f32 in k steps of BK_F32
+bool cached_map(CUtensorMap* out, const void* ptr, int rows, int cols, int box_rows, int elem_bytes) {
   std::lock_guard<std::mutex> guard(map_lock);
   for (const MapEntry& e : map_cache) {
-    if (e.ptr == ptr && e.rows == rows && e.cols == cols && e.box_rows == box_rows) {
+    if (e.ptr == ptr && e.rows == rows && e.cols == cols && e.box_rows == box_rows && e.elem_bytes == elem_bytes) {
       *out = e.map;
       return true;
     }
   }
   MapEntry& e = map_cache[map_next];
-  if (!encode(&e.map, ptr, rows, cols, box_rows, BK)) {
+  const bool ok = elem_bytes == 4 ? encode_f32_swizzled(&e.map, ptr, rows, cols, box_rows, BK_F32)
+                                  : encode(&e.map, ptr, rows, cols, box_rows, BK);
+  if (!ok) {
     e.ptr = nullptr;
     return false;
   }
@@ -890,19 +1041,20 @@ bool cached_map(CUtensorMap* out, const void* ptr, int rows, int cols, int box_r
   e.rows = rows;
   e.cols = cols;
   e.box_rows = box_rows;
+  e.elem_bytes = elem_bytes;
   map_next = (map_next + 1) % MAP_CACHE;
   *out = e.map;
   return true;
 }
 
-template <int HD, bool LONG>
+template <int HD, bool LONG, class E>
 cudaError_t configure() {
   static bool configured = false;
   if (!configured) {
     cudaError_t e =
-        cudaFuncSetAttribute(dit_stack_kernel<HD, LONG>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+        cudaFuncSetAttribute(dit_stack_kernel<HD, LONG, E>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (e == cudaSuccess) {
-      e = cudaFuncSetAttribute(dit_stack_kernel<HD, LONG>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      e = cudaFuncSetAttribute(dit_stack_kernel<HD, LONG, E>, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     }
     if (e != cudaSuccess) return e;
@@ -911,28 +1063,41 @@ cudaError_t configure() {
   return cudaSuccess;
 }
 
-// CTAs of dit_stack_kernel<HD, *> that are resident at once on the current
-// device (both instances: one an SM), or a negative CUDA error
-template <int HD>
+// CTAs of dit_stack_kernel<HD, *, E> that are resident at once on the
+// current device (both instances: one an SM), or a negative CUDA error
+template <int HD, class E>
 int resident_ctas() {
-  cudaError_t e = configure<HD, false>();
-  if (e == cudaSuccess) e = configure<HD, true>();
+  cudaError_t e = configure<HD, false, E>();
+  if (e == cudaSuccess) e = configure<HD, true, E>();
   int dev = 0, sms = 0, per_sm = 0;
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dit_stack_kernel<HD, false>, STACK_THREADS, SMEM_BYTES);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dit_stack_kernel<HD, false, E>, STACK_THREADS,
+                                                      SMEM_BYTES);
   int per_sm_long = 0;
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm_long, dit_stack_kernel<HD, true>, STACK_THREADS,
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm_long, dit_stack_kernel<HD, true, E>, STACK_THREADS,
                                                       SMEM_BYTES);
   if (per_sm_long < per_sm) per_sm = per_sm_long;
   return e == cudaSuccess ? sms * per_sm : -static_cast<int>(e);
 }
 
-template <int HD, bool LONG>
-cudaError_t launch(const Maps& maps, const Args& args, int ctas, cudaStream_t s) {
-  cudaError_t e = configure<HD, LONG>();
+template <class E>
+int resident_ctas_hd(int hd) {
+  switch (hd) {
+    case 64:
+      return resident_ctas<64, E>();
+    case 72:
+      return resident_ctas<72, E>();
+    default:
+      return -static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int HD, bool LONG, class E>
+cudaError_t launch(const Maps& maps, const ArgsT<E>& args, int ctas, cudaStream_t s) {
+  cudaError_t e = configure<HD, LONG, E>();
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(ctas);
@@ -944,41 +1109,17 @@ cudaError_t launch(const Maps& maps, const Args& args, int ctas, cudaStream_t s)
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, dit_stack_kernel<HD, LONG>, maps, args);
+  e = cudaLaunchKernelEx(&cfg, dit_stack_kernel<HD, LONG, E>, maps, args);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int dit_stack_smem_bytes() { return SMEM_BYTES; }
-
-// CTAs resident at once for head width hd on the current device (the
-// cooperative grid), or a negative CUDA error code.
-extern "C" int dit_stack_resident_ctas(int hd) {
-  switch (hd) {
-    case 64:
-      return resident_ctas<64>();
-    case 72:
-      return resident_ctas<72>();
-    default:
-      return -static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// x, out: bf16 (n*t, d); a: bf16 (n, d); gains: f32 (depth, 2); the
-// weights bf16, depth-stacked: w_mod (depth*6d, d), w_qkv (depth*3d, d),
-// w_out (depth*d, d), w1 (depth*hidden, d), w2 (depth*d, hidden). The
-// scratch pointers come from one workspace the wrapper lays out
-// (ops/cuda/dit_block.py stack_plan); sync (sync_bytes) is zeroed here.
-// trace: null, or TRACE_WORDS int64 a CTA (stack_plan's trace words): the
-// ns it spent on the modulation rows and the pre stage, on qkv, attention,
-// out, fc1 and fc2 items, then its start and end globaltimer.
-extern "C" int dit_stack(const void* x, const void* a, const void* gains, const void* w_mod, const void* w_qkv,
-                         const void* w_out, const void* w1, const void* w2, void* out, void* mods, void* qkv,
-                         void* x1, void* partial, void* attn, void* h, void* amod, void* sync, int sync_bytes, int n,
-                         int t, int d, int hidden, int heads, int depth, int splits_qkv, int splits_out,
-                         int splits_fc1, int splits_fc2, int ctas, float alpha_d, float alpha_h, void* stream,
-                         void* trace) {
+// One launch of the E instance (the C entry points' arguments).
+template <class E>
+int run_stack(const void* x, const void* a, const void* gains, const void* w_mod, const void* w_qkv, const void* w_out,
+              const void* w1, const void* w2, void* out, void* mods, void* qkv, void* x1, void* partial, void* attn,
+              void* h, void* amod, void* sync, int sync_bytes, int n, int t, int d, int hidden, int heads, int depth,
+              int splits_qkv, int splits_out, int splits_fc1, int splits_fc2, int ctas, float alpha_d, float alpha_h,
+              void* stream, void* trace) {
   const int hd = heads > 0 ? d / heads : 0;
   const void* aligned[] = {x, a, w_mod, w_qkv, w_out, w1, w2, out, mods, qkv, x1, attn, h, amod};
   uintptr_t bits = 0;
@@ -1003,16 +1144,17 @@ extern "C" int dit_stack(const void* x, const void* a, const void* gains, const 
   }
   const int64_t words = SYNC_DONE + 5 * 8 * ((m + BM - 1) / BM) + tickets * depth;
   if (4 * words > sync_bytes) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int eb = sizeof(E);
   Maps maps;
-  const bool maps_ok = cached_map(&maps.a, a, n, d, BM) && cached_map(&maps.amod, amod, m, d, BM) &&
-                       cached_map(&maps.attn, attn, m, d, BM) && cached_map(&maps.h, h, m, hidden, BM) &&
-                       cached_map(&maps.w_mod, w_mod, depth * 6 * d, d, BN) &&
-                       cached_map(&maps.w_qkv, w_qkv, depth * 3 * d, d, BN) &&
-                       cached_map(&maps.w_out, w_out, depth * d, d, BN) &&
-                       cached_map(&maps.w1, w1, depth * hidden, d, BN) &&
-                       cached_map(&maps.w2, w2, depth * d, hidden, BN);
+  const bool maps_ok = cached_map(&maps.a, a, n, d, BM, eb) && cached_map(&maps.amod, amod, m, d, BM, eb) &&
+                       cached_map(&maps.attn, attn, m, d, BM, eb) && cached_map(&maps.h, h, m, hidden, BM, eb) &&
+                       cached_map(&maps.w_mod, w_mod, depth * 6 * d, d, BN, eb) &&
+                       cached_map(&maps.w_qkv, w_qkv, depth * 3 * d, d, BN, eb) &&
+                       cached_map(&maps.w_out, w_out, depth * d, d, BN, eb) &&
+                       cached_map(&maps.w1, w1, depth * hidden, d, BN, eb) &&
+                       cached_map(&maps.w2, w2, depth * d, hidden, BN, eb);
   if (!maps_ok) return static_cast<int>(cudaErrorInvalidValue);
-  Args args;
+  ArgsT<E> args;
   args.n = n;
   args.t = t;
   args.d = d;
@@ -1025,16 +1167,16 @@ extern "C" int dit_stack(const void* x, const void* a, const void* gains, const 
   args.splits_fc2 = splits_fc2;
   args.alpha_d = alpha_d;
   args.alpha_h = alpha_h;
-  args.x = static_cast<const __nv_bfloat16*>(x);
-  args.out = static_cast<__nv_bfloat16*>(out);
+  args.x = static_cast<const E*>(x);
+  args.out = static_cast<E*>(out);
   args.gains = static_cast<const float*>(gains);
   args.mods = static_cast<float*>(mods);
   args.qkv = static_cast<float*>(qkv);
   args.x1 = static_cast<float*>(x1);
   args.partial = static_cast<float*>(partial);
-  args.attn = static_cast<__nv_bfloat16*>(attn);
-  args.h = static_cast<__nv_bfloat16*>(h);
-  args.amod = static_cast<__nv_bfloat16*>(amod);
+  args.attn = static_cast<E*>(attn);
+  args.h = static_cast<E*>(h);
+  args.amod = static_cast<E*>(amod);
   args.sync = static_cast<unsigned*>(sync);
   args.trace = static_cast<unsigned long long*>(trace);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1045,10 +1187,53 @@ extern "C" int dit_stack(const void* x, const void* a, const void* gains, const 
   // 456 bytes against 20 / 232, XL/2 at T = 64 2.88 ms against 2.67)
   const bool long_t = t > attn_tiles::TILE;
   if (hd == 64)
-    e = long_t ? launch<64, true>(maps, args, ctas, s) : launch<64, false>(maps, args, ctas, s);
+    e = long_t ? launch<64, true, E>(maps, args, ctas, s) : launch<64, false, E>(maps, args, ctas, s);
   else
-    e = long_t ? launch<72, true>(maps, args, ctas, s) : launch<72, false>(maps, args, ctas, s);
+    e = long_t ? launch<72, true, E>(maps, args, ctas, s) : launch<72, false, E>(maps, args, ctas, s);
   return static_cast<int>(e);
+}
+
+}  // namespace
+
+extern "C" int dit_stack_smem_bytes() { return SMEM_BYTES; }
+
+// CTAs resident at once for head width hd on the current device (the
+// cooperative grid), or a negative CUDA error code; the bf16 instances and
+// the f32 ones.
+extern "C" int dit_stack_resident_ctas(int hd) { return resident_ctas_hd<__nv_bfloat16>(hd); }
+extern "C" int dit_stack_f32_resident_ctas(int hd) { return resident_ctas_hd<float>(hd); }
+
+// x, out: bf16 (n*t, d); a: bf16 (n, d); gains: f32 (depth, 2); the
+// weights bf16, depth-stacked: w_mod (depth*6d, d), w_qkv (depth*3d, d),
+// w_out (depth*d, d), w1 (depth*hidden, d), w2 (depth*d, hidden). The
+// scratch pointers come from one workspace the wrapper lays out
+// (ops/cuda/dit_block.py stack_plan); sync (sync_bytes) is zeroed here.
+// trace: null, or TRACE_WORDS int64 a CTA (stack_plan's trace words): the
+// ns it spent on the modulation rows and the pre stage, on qkv, attention,
+// out, fc1 and fc2 items, then its start and end globaltimer.
+extern "C" int dit_stack(const void* x, const void* a, const void* gains, const void* w_mod, const void* w_qkv,
+                         const void* w_out, const void* w1, const void* w2, void* out, void* mods, void* qkv,
+                         void* x1, void* partial, void* attn, void* h, void* amod, void* sync, int sync_bytes, int n,
+                         int t, int d, int hidden, int heads, int depth, int splits_qkv, int splits_out,
+                         int splits_fc1, int splits_fc2, int ctas, float alpha_d, float alpha_h, void* stream,
+                         void* trace) {
+  return run_stack<__nv_bfloat16>(x, a, gains, w_mod, w_qkv, w_out, w1, w2, out, mods, qkv, x1, partial, attn, h,
+                                  amod, sync, sync_bytes, n, t, d, hidden, heads, depth, splits_qkv, splits_out,
+                                  splits_fc1, splits_fc2, ctas, alpha_d, alpha_h, stream, trace);
+}
+
+// The f32 instances: the same arguments with x, out, a, the weights and the
+// attn, h and amod scratch in f32 (stack_plan(..., elem_bytes=4) lays out
+// the workspace and the k-step splits).
+extern "C" int dit_stack_f32(const void* x, const void* a, const void* gains, const void* w_mod, const void* w_qkv,
+                             const void* w_out, const void* w1, const void* w2, void* out, void* mods, void* qkv,
+                             void* x1, void* partial, void* attn, void* h, void* amod, void* sync, int sync_bytes,
+                             int n, int t, int d, int hidden, int heads, int depth, int splits_qkv, int splits_out,
+                             int splits_fc1, int splits_fc2, int ctas, float alpha_d, float alpha_h, void* stream,
+                             void* trace) {
+  return run_stack<float>(x, a, gains, w_mod, w_qkv, w_out, w1, w2, out, mods, qkv, x1, partial, attn, h, amod, sync,
+                          sync_bytes, n, t, d, hidden, heads, depth, splits_qkv, splits_out, splits_fc1, splits_fc2,
+                          ctas, alpha_d, alpha_h, stream, trace);
 }
 
 extern "C" const char* dit_stack_error_string(int code) {

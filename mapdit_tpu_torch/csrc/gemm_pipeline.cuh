@@ -20,6 +20,23 @@
 // consecutive columns to the caller's functor, which moves x, the gate and
 // C in 16-byte accesses. The arithmetic of the epilogues (alpha, MP-SiLU,
 // the gated MP residual) is here once.
+//
+// The f32 form (the float32 instances of mp_gemm.cu and dit_stack.cu, the
+// Pallas kernels at dtype = float32): f32 A and W, k depth BK_F32 = 32, so
+// a stage's tiles are 128-byte rows as in bf16 and the ring, its swizzle
+// and its barriers stay byte for byte the same; consume_tile_f32 runs the
+// products on the f32 pipes (FFMA, k in order) into accumulators laid out
+// as wgmma's, so stage_tile, store_partial and the epilogues take them
+// unchanged. The products must be f32-accurate (the Pallas f32 kernel is
+// held to its f32 reference at 2e-4): a single TF32 wgmma rounds each
+// operand to 10 mantissa bits (~3e-4 a product), and 3xTF32 would need the
+// hi / lo split of every A and W tile in shared memory beside the ring, so
+// the first form is the f32 pipes' (bound: 67 TFLOP/s, not 989). What bounds
+// it now: shared-memory loads. A thread's fragment (2 rows by 32 columns)
+// takes 34 16-byte loads for 256 FMAs a 4-k chunk; S/2 qkv runs at 19.4
+// TFLOP/s, f32 cuBLAS at 37 (mapdit_tpu_torch/tools/bench_f32.py; NVIDIA H100
+// 80GB HBM3, 700.00 W). An 8 x 8 register tile (16 loads) with a staging of
+// its own is the next step.
 #pragma once
 
 #include <cuda.h>
@@ -44,6 +61,9 @@ enum { DT_F32 = 0, DT_BF16 = 1 };
 constexpr int A_BYTES = BM * BK * 2;
 constexpr int W_BYTES = BN * BK * 2;
 constexpr int STAGE_BYTES = A_BYTES + W_BYTES;
+// the f32 form's k depth: 128-byte rows, the bf16 stage's bytes
+constexpr int BK_F32 = 32;
+static_assert(BM * BK_F32 * 4 == A_BYTES && BN * BK_F32 * 4 == W_BYTES, "an f32 stage holds the bf16 stage's bytes");
 // the f32 epilogue tile, rows padded by 4 floats so the fragments' 8-byte
 // writes are free of bank conflicts
 constexpr int LDT = BN + 4;
@@ -174,16 +194,18 @@ struct Ring {
 };
 
 // The producer (one thread): the nk k steps from k step kb of the tile at
-// rows m0 of A and rows (or, W_KN, columns) n0 of W.
-template <int STAGES, bool W_KN>
+// rows m0 of A and rows (or, W_KN, columns) n0 of W; KSTEP elements a k
+// step (BK, or BK_F32 for f32 operands).
+template <int STAGES, bool W_KN, int KSTEP = BK>
 __device__ __forceinline__ void produce_tile(const Ring<STAGES>& ring, const CUtensorMap* tm_a,
                                              const CUtensorMap* tm_w, int m0, int n0, int kb, int nk,
                                              uint32_t& it) {
+  static_assert(!W_KN || KSTEP == BK, "the MN-major W tiles are bf16");
   for (int i = 0; i < nk; ++i, ++it) {
     const int s = it % STAGES;
     mbar_wait(ring.empty(s), ((it / STAGES) & 1) ^ 1);
     const uint32_t a_s = ring.stage(s), w_s = a_s + A_BYTES;
-    const int k0 = (kb + i) * BK;
+    const int k0 = (kb + i) * KSTEP;
     mbar_expect_tx(ring.full(s), STAGE_BYTES);
     tma_load_2d(a_s, tm_a, ring.full(s), k0, m0);
     if constexpr (W_KN) {
@@ -241,6 +263,65 @@ __device__ __forceinline__ void consume_tile(const Ring<STAGES>& ring, float (&a
 // 16w + lane/4 (+8), columns 8j + 2(lane%4) (+1); for consumer thread tid
 __device__ __forceinline__ int acc_row(int tid) { return 64 * (tid >> 7) + 16 * ((tid >> 5) & 3) + ((tid & 31) >> 2); }
 __device__ __forceinline__ int acc_col(int tid) { return 2 * (tid & 3); }
+
+// 16 bytes of shared memory at a shared-window address
+__device__ __forceinline__ float4 lds_float4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// byte offset of 16-byte chunk c of row r in a 1024-byte aligned tile of
+// 128-byte rows that TMA wrote with the 128-byte swizzle (the chunk index
+// XOR the row's place in its group of eight)
+__device__ __forceinline__ uint32_t swizzle_offset(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
+
+// acc += a . w over four consecutive k, in k order
+__device__ __forceinline__ void fma_k4(float& acc, const float4& a, const float4& w) {
+  acc = fmaf(a.x, w.x, acc);
+  acc = fmaf(a.y, w.y, acc);
+  acc = fmaf(a.z, w.z, acc);
+  acc = fmaf(a.w, w.w, acc);
+}
+
+// consume_tile for f32 operands on the f32 pipes: consumer thread tid
+// (0-255) sums the 64 elements of its wgmma fragment (rows rt, rt + 8,
+// columns ct + 8j, ct + 8j + 1) over each stage's 32 k, 16-byte loads of A
+// and W rows from the swizzled tiles (a warp's loads meet eight rows of A
+// and four of W at distinct chunks: no bank conflicts), every product an
+// FFMA in k order. A stage is released as soon as the warp is through it.
+template <int STAGES>
+__device__ __forceinline__ void consume_tile_f32(const Ring<STAGES>& ring, float (&acc)[64], int tid, bool active,
+                                                 int nk, uint32_t& it) {
+  const int lane = tid & 31, rt = acc_row(tid), ct = acc_col(tid);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < nk; ++i, ++it) {
+    const int s = it % STAGES;
+    mbar_wait(ring.full(s), (it / STAGES) & 1);
+    if (active) {
+      const uint32_t a_s = ring.stage(s), w_s = a_s + A_BYTES;
+#pragma unroll 2
+      for (int c = 0; c < BK_F32 / 4; ++c) {
+        const float4 a0 = lds_float4(a_s + swizzle_offset(rt, c)), a1 = lds_float4(a_s + swizzle_offset(rt + 8, c));
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float4 w0 = lds_float4(w_s + swizzle_offset(ct + 8 * j, c));
+          const float4 w1 = lds_float4(w_s + swizzle_offset(ct + 8 * j + 1, c));
+          fma_k4(acc[4 * j], a0, w0);
+          fma_k4(acc[4 * j + 1], a0, w1);
+          fma_k4(acc[4 * j + 2], a1, w0);
+          fma_k4(acc[4 * j + 3], a1, w1);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(ring.empty(s));
+  }
+}
 
 // The f32 partial sums of split z of a split-K product at (z, row, col) of
 // (splits, m, n), straight from the fragments (8-byte stores).
@@ -337,18 +418,29 @@ inline EncodeTiled encode_fn() {
   return fn;
 }
 
-// a row-major bf16 (rows, cols) matrix read in (box_rows, box_cols) tiles,
-// 128-byte swizzle, zeros outside
-inline bool encode(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows, int box_cols) {
+// a row-major (rows, cols) matrix of elem_bytes elements read in
+// (box_rows, box_cols) tiles, 128-byte swizzle, zeros outside
+inline bool encode_typed(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const void* ptr, int rows,
+                         int cols, int box_rows, int box_cols) {
   EncodeTiled fn = encode_fn();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a row-major bf16 matrix
+inline bool encode(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows, int box_cols) {
+  return encode_typed(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, rows, cols, box_rows, box_cols);
+}
+
+// a row-major f32 matrix (box_cols of at most 32: 128-byte rows)
+inline bool encode_f32_swizzled(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows, int box_cols) {
+  return encode_typed(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, rows, cols, box_rows, box_cols);
 }
 
 }  // namespace gemm_pipeline

@@ -115,6 +115,19 @@
 //     bits on every run. The f32 out the earlier route wrote for a separate
 //     pass (one thread a column, a serial loop over T, 0.0368 ms against a
 //     bound of 0.0153 at S/2 training) is gone.
+//   * The f32 form (mp_gemm_f32: f32 A, W (N, K) and C, the products of the
+//     Pallas block body at dtype = float32, where nothing is rounded): the
+//     same tiles and ring at k depth 32 (128-byte f32 rows, 32 KB stages),
+//     the products on the f32 pipes in k order (gemm_pipeline.cuh
+//     consume_tile_f32: a TF32 wgmma would round each operand to 10
+//     mantissa bits, past the 2e-4 the f32 kernel is held to), the same
+//     epilogues. A without MODULATE is read where TMA put it; with it, the
+//     prologue pass writes the modulated A in f32 (mp_gemm_prologue_f32),
+//     nothing rounded. Split-K counts k steps of 32. Bound at the S/2
+//     sampling products: operations, 2*M*N*K / 67 TFLOP/s (the H100's f32
+//     pipes), 0.0541 ms at qkv and 0.0721 at fc1 and fc2 (M = 4096). No
+//     residual-backward form (GATE_RESIDUAL_BWD belongs to row 4's f32
+//     slice) and no MN-major W.
 //   * TMA needs 16-byte aligned rows and pointers: K and N multiples of 8;
 //     the modulation rows are read as float4 (the wrapper raises otherwise).
 //     The tensor maps are encoded on the host with cuTensorMapEncodeTiled,
@@ -216,6 +229,24 @@ __global__ void __launch_bounds__(256) mp_gemm_prologue(const void* a, uint4* ou
       modulate::apply8(v, mrow + p.shift_off + col, mrow + p.scale_off + col, g, den);
     }
     out[q] = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+  }
+}
+
+// The f32 form's prologue pass: the modulated f32 A, nothing rounded, into
+// the (M, K) f32 buffer the product reads.
+__global__ void __launch_bounds__(256) mp_gemm_prologue_f32(const float* a, float4* out, const Params p) {
+  const float g = *p.gain, den = modulate::denominator(g);
+  const int chunks = p.k / 8;
+  const int64_t total = static_cast<int64_t>(p.m) * chunks;
+  for (int64_t q = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; q < total;
+       q += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    float v[8];
+    modulate::load8(a + 8 * q, v);
+    const int row = static_cast<int>(q / chunks), col = 8 * static_cast<int>(q % chunks);
+    const float* mrow = p.mods + static_cast<int64_t>(row / p.tokens) * p.mods_ld;
+    modulate::apply8(v, mrow + p.shift_off + col, mrow + p.scale_off + col, g, den);
+    out[2 * q] = make_float4(v[0], v[1], v[2], v[3]);
+    out[2 * q + 1] = make_float4(v[4], v[5], v[6], v[7]);
   }
 }
 
@@ -375,7 +406,8 @@ __global__ void __launch_bounds__(256) mp_gemm_gate_sum(const Params p) {
   }
 }
 
-template <bool W_KN>
+// F32: f32 A and W, k steps of BK_F32 on the f32 pipes (the f32 form)
+template <bool W_KN, bool F32>
 __global__ void __launch_bounds__(THREADS, 2)
     mp_gemm_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_w, const Params p) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -396,7 +428,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     if (lane == 0) {
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tm_a)) : "memory");
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tm_w)) : "memory");
-      produce_tile<STAGES, W_KN>(ring, &tm_a, &tm_w, m0, n0, kb, nk, it);
+      produce_tile<STAGES, W_KN, F32 ? BK_F32 : BK>(ring, &tm_a, &tm_w, m0, n0, kb, nk, it);
     }
     return;
   }
@@ -405,7 +437,11 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int wg = warp >> 2;
   const bool active = m0 + 64 * wg < p.m;
   float acc[64];
-  consume_tile<STAGES, W_KN>(ring, acc, wg, lane, active, nk, it);
+  if constexpr (F32) {
+    consume_tile_f32<STAGES>(ring, acc, tid, active, nk, it);
+  } else {
+    consume_tile<STAGES, W_KN>(ring, acc, wg, lane, active, nk, it);
+  }
 
   if (p.splits > 1) {
     if (!active) return;
@@ -480,33 +516,31 @@ __global__ void __launch_bounds__(CONSUMER_THREADS) mp_gemm_reduce_gate(const Pa
   gate_residual_tile<GR_ROWS>(split_sums, partial, p, blockIdx.y * BM, blockIdx.x * BN, threadIdx.x);
 }
 
-template <bool W_KN>
+template <bool W_KN, bool F32>
 cudaError_t launch(const CUtensorMap& ta, const CUtensorMap& tw, const Params& p, dim3 grid, cudaStream_t s) {
   static bool configured = false;
   if (!configured) {
     cudaError_t e =
-        cudaFuncSetAttribute(mp_gemm_kernel<W_KN>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+        cudaFuncSetAttribute(mp_gemm_kernel<W_KN, F32>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     // all of the SM's unified memory as shared memory: room for two CTAs
     if (e == cudaSuccess) {
-      e = cudaFuncSetAttribute(mp_gemm_kernel<W_KN>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      e = cudaFuncSetAttribute(mp_gemm_kernel<W_KN, F32>, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     }
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  mp_gemm_kernel<W_KN><<<grid, THREADS, SMEM_BYTES, s>>>(ta, tw, p);
+  mp_gemm_kernel<W_KN, F32><<<grid, THREADS, SMEM_BYTES, s>>>(ta, tw, p);
   return cudaGetLastError();
 }
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-}  // namespace
-
-// Split count over K for an (M, N, K) product: 1 when the tiles alone give
-// every SM a CTA, else enough splits for two CTAs an SM, each at least three
-// k steps deep, at most 8.
-extern "C" int mp_gemm_splits(int m, int n, int k) {
-  const int tiles = cdiv(m, BM) * cdiv(n, BN), kt = cdiv(k, BK);
+// Split count over the kt k steps of an (M, N) product: 1 when the tiles
+// alone give every SM a CTA, else enough splits for two CTAs an SM, each at
+// least three k steps deep, at most 8.
+int splits_over(int m, int n, int kt) {
+  const int tiles = cdiv(m, BM) * cdiv(n, BN);
   if (2 * tiles > SMS) return 1;
   int s = 2 * SMS / tiles;
   if (s > kt / 3) s = kt / 3;
@@ -514,44 +548,62 @@ extern "C" int mp_gemm_splits(int m, int n, int k) {
   return s < 1 ? 1 : s;
 }
 
+}  // namespace
+
+// Split count over K for a bf16 (M, N, K) product (k steps of 64), and for
+// an f32 one (k steps of 32).
+extern "C" int mp_gemm_splits(int m, int n, int k) { return splits_over(m, n, cdiv(k, BK)); }
+extern "C" int mp_gemm_f32_splits(int m, int n, int k) { return splits_over(m, n, cdiv(k, BK_F32)); }
+
 namespace {
 
 // The product and its epilogue for the Params ``p`` (epilogue, C and the
 // epilogue's operands set): encodes the maps, runs the prologue pass when A
-// is f32 or modulated, the product, and with split-K the reduction.
+// is f32 or modulated (bf16 form) or modulated (f32 form), the product, and
+// with split-K the reduction. f32: the f32 form (f32 A and W (N, K)).
 int run(const void* a, int a_dtype, const void* w, Params& p, int prologue, int w_kn, void* a_work, void* partial,
-        void* stream) {
+        void* stream, bool f32 = false) {
   const bool a_f32 = a_dtype == DT_F32, modulated = prologue == PRO_MODULATE;
-  const void* a_bf16 = (a_f32 || modulated) ? a_work : a;
-  if (p.k % 8 || p.n % 8 || p.m < 1 || a_bf16 == nullptr ||
-      (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(a_bf16) | reinterpret_cast<uintptr_t>(w)) % 16) {
+  const void* a_tiles = (modulated || (a_f32 && !f32)) ? a_work : a;
+  if (p.k % 8 || p.n % 8 || p.m < 1 || a_tiles == nullptr || (f32 && (!a_f32 || w_kn)) ||
+      (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(a_tiles) | reinterpret_cast<uintptr_t>(w)) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap ta, tw;
-  const bool maps_ok = encode(&ta, a_bf16, p.m, p.k, BM, BK) &&
-                       (w_kn ? encode(&tw, w, p.k, p.n, BK, 64) : encode(&tw, w, p.n, p.k, BN, BK));
+  const bool maps_ok =
+      f32 ? encode_f32_swizzled(&ta, a_tiles, p.m, p.k, BM, BK_F32) &&
+                encode_f32_swizzled(&tw, w, p.n, p.k, BN, BK_F32)
+          : encode(&ta, a_tiles, p.m, p.k, BM, BK) &&
+                (w_kn ? encode(&tw, w, p.k, p.n, BK, 64) : encode(&tw, w, p.n, p.k, BN, BK));
   if (!maps_ok) return static_cast<int>(cudaErrorInvalidValue);
   p.partial = static_cast<float*>(partial);
-  p.kt = cdiv(p.k, BK);
-  p.splits = mp_gemm_splits(p.m, p.n, p.k);
+  p.kt = cdiv(p.k, f32 ? BK_F32 : BK);
+  p.splits = splits_over(p.m, p.n, p.kt);
   if (p.splits > 1 && partial == nullptr) return static_cast<int>(cudaErrorInvalidValue);
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a_bf16 != a) {
+  if (a_tiles != a) {
     const int64_t chunks = static_cast<int64_t>(p.m) * (p.k / 8);
     const int blocks = static_cast<int>(chunks / 256 + 1 < 8 * SMS ? chunks / 256 + 1 : 8 * SMS);
-    uint4* out = static_cast<uint4*>(const_cast<void*>(a_bf16));
-    if (a_f32) {
-      if (modulated) mp_gemm_prologue<true, true><<<blocks, 256, 0, s>>>(a, out, p);
-      else mp_gemm_prologue<true, false><<<blocks, 256, 0, s>>>(a, out, p);
+    if (f32) {
+      mp_gemm_prologue_f32<<<blocks, 256, 0, s>>>(static_cast<const float*>(a),
+                                                  static_cast<float4*>(const_cast<void*>(a_tiles)), p);
     } else {
-      mp_gemm_prologue<false, true><<<blocks, 256, 0, s>>>(a, out, p);
+      uint4* out = static_cast<uint4*>(const_cast<void*>(a_tiles));
+      if (a_f32) {
+        if (modulated) mp_gemm_prologue<true, true><<<blocks, 256, 0, s>>>(a, out, p);
+        else mp_gemm_prologue<true, false><<<blocks, 256, 0, s>>>(a, out, p);
+      } else {
+        mp_gemm_prologue<false, true><<<blocks, 256, 0, s>>>(a, out, p);
+      }
     }
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid(cdiv(p.n, BN), cdiv(p.m, BM), p.splits);
-  cudaError_t e = w_kn ? launch<true>(ta, tw, p, grid, s) : launch<false>(ta, tw, p, grid, s);
+  cudaError_t e = f32    ? launch<false, true>(ta, tw, p, grid, s)
+                  : w_kn ? launch<true, false>(ta, tw, p, grid, s)
+                         : launch<false, false>(ta, tw, p, grid, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (p.epilogue == EPI_GATE_RESIDUAL_BWD) {
     if (p.splits > 1) {
@@ -573,15 +625,9 @@ int run(const void* a, int a_dtype, const void* w, Params& p, int prologue, int 
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// a_work: an (M, K) bf16 buffer for the prologue pass, needed when A is f32
-// or modulated; partial: (splits, M, N) f32, needed when mp_gemm_splits > 1.
-extern "C" int mp_gemm(const void* a, int a_dtype, const void* w, void* c, int c_dtype, int m, int n, int k,
-                       float alpha, int prologue, const void* mods, int mods_ld, int shift_off, int scale_off,
-                       int gate_off, const void* gain, int tokens, int epilogue, const void* x, int x_dtype,
-                       int w_kn, void* a_work, void* partial, void* stream) {
-  if (epilogue == EPI_GATE_RESIDUAL_BWD) return static_cast<int>(cudaErrorInvalidValue);
+Params forward_params(void* c, int c_dtype, int m, int n, int k, float alpha, const void* mods, int mods_ld,
+                      int shift_off, int scale_off, int gate_off, const void* gain, int tokens, int epilogue,
+                      const void* x, int x_dtype) {
   Params p = {};
   p.c = c;
   p.c_dtype = c_dtype;
@@ -599,7 +645,35 @@ extern "C" int mp_gemm(const void* a, int a_dtype, const void* w, void* c, int c
   p.epilogue = epilogue;
   p.x = x;
   p.x_dtype = x_dtype;
+  return p;
+}
+
+}  // namespace
+
+// a_work: an (M, K) bf16 buffer for the prologue pass, needed when A is f32
+// or modulated; partial: (splits, M, N) f32, needed when mp_gemm_splits > 1.
+extern "C" int mp_gemm(const void* a, int a_dtype, const void* w, void* c, int c_dtype, int m, int n, int k,
+                       float alpha, int prologue, const void* mods, int mods_ld, int shift_off, int scale_off,
+                       int gate_off, const void* gain, int tokens, int epilogue, const void* x, int x_dtype,
+                       int w_kn, void* a_work, void* partial, void* stream) {
+  if (epilogue == EPI_GATE_RESIDUAL_BWD) return static_cast<int>(cudaErrorInvalidValue);
+  Params p = forward_params(c, c_dtype, m, n, k, alpha, mods, mods_ld, shift_off, scale_off, gate_off, gain, tokens,
+                            epilogue, x, x_dtype);
   return run(a, a_dtype, w, p, prologue, w_kn, a_work, partial, stream);
+}
+
+// The f32 form: a f32 (M, K), w f32 (N, K), C f32 or bf16 (c_dtype), the
+// same prologue and epilogues; a_work: an (M, K) f32 buffer, needed when
+// modulated; partial: (splits, M, N) f32, needed when mp_gemm_f32_splits >
+// 1. The residual backward (GATE_RESIDUAL_BWD) is row 4's and raises here.
+extern "C" int mp_gemm_f32(const void* a, const void* w, void* c, int c_dtype, int m, int n, int k, float alpha,
+                           int prologue, const void* mods, int mods_ld, int shift_off, int scale_off, int gate_off,
+                           const void* gain, int tokens, int epilogue, const void* x, int x_dtype, void* a_work,
+                           void* partial, void* stream) {
+  if (epilogue == EPI_GATE_RESIDUAL_BWD) return static_cast<int>(cudaErrorInvalidValue);
+  Params p = forward_params(c, c_dtype, m, n, k, alpha, mods, mods_ld, shift_off, scale_off, gate_off, gain, tokens,
+                            epilogue, x, x_dtype);
+  return run(a, DT_F32, w, p, prologue, 0, a_work, partial, stream, true);
 }
 
 // The attention backward's out product with the residual backward as its

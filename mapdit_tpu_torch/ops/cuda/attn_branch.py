@@ -259,7 +259,8 @@ def out_gate_residual_bwd(attn, w_out, dy, rows, gate_off, tokens):
     m, k = attn.shape
     n = w_out.shape[0]
     if attn.dtype != torch.bfloat16 or w_out.dtype != torch.bfloat16 or w_out.shape != (n, k):
-        raise ValueError(f"out_gate_residual_bwd on CUDA takes bf16 attn (M, K) and a bf16 (N, K) weight, got "
+        raise ValueError(f"out_gate_residual_bwd on CUDA takes bf16 attn (M, K) and a bf16 (N, K) weight (its float32 "
+                         f"form comes with row 4's float32 slice), got "
                          f"{attn.dtype} {tuple(attn.shape)} and {w_out.dtype} {tuple(w_out.shape)}")
     if dy.dtype not in _DTYPE_CODE or dy.numel() != m * n:
         raise ValueError(f"out_gate_residual_bwd on CUDA takes f32/bf16 dy of {m}x{n} elements, got {dy.dtype} "
@@ -555,12 +556,13 @@ def _check(x, shift, scale, gate, gain, w_qkv, w_out, heads):
         raise ValueError(f"w_qkv must be (3D, D) and w_out (D, D), got {tuple(w_qkv.shape)}, {tuple(w_out.shape)}")
     if any(r.shape != (n, d) for r in (shift, scale, gate)) or gain.numel() != 1:
         raise ValueError("shift, scale and gate must be (N, D) and the gain one value")
-    if x.device.type == "cuda" and (
+    if x.device.type != "cpu" and (
         x.dtype != torch.bfloat16 or w_qkv.dtype != torch.bfloat16 or w_out.dtype != torch.bfloat16
     ):
         raise ValueError(
-            "the CUDA attention half-block kernels run bf16 only: x and the weights must be bf16 "
-            "(a float32 model runs block_kernel='off')"
+            "the CUDA attention half-block kernels (rows 3-5 and their launch sequences) run bf16 only: x and the "
+            "weights must be bf16; their float32 forms come in a later slice of the port (a float32 model runs "
+            "block_kernel='mega' or 'mega_stack' on the whole-block kernel's f32 instances, or 'off')"
         )
 
 

@@ -44,6 +44,9 @@ _SIGNATURES = {
             ctypes.c_int,
         ),
         "mp_gemm_splits": ([_I, _I, _I], ctypes.c_int),
+        "mp_gemm_f32": ([_P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P],
+                        ctypes.c_int),
+        "mp_gemm_f32_splits": ([_I, _I, _I], ctypes.c_int),
         "mp_gemm_gate_residual_bwd": ([_P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _I, _P, _I, _I, _P, _P, _P],
                                       ctypes.c_int),
         "mp_gemm_gate_partial_floats": ([_I, _I, _I], ctypes.c_int64),
@@ -57,7 +60,9 @@ _SIGNATURES = {
     },
     "dit_stack": {
         "dit_stack": ([_P] * 17 + [_I] * 12 + [_F, _F, _P, _P], ctypes.c_int),
+        "dit_stack_f32": ([_P] * 17 + [_I] * 12 + [_F, _F, _P, _P], ctypes.c_int),
         "dit_stack_resident_ctas": ([_I], ctypes.c_int),
+        "dit_stack_f32_resident_ctas": ([_I], ctypes.c_int),
         "dit_stack_smem_bytes": ([], ctypes.c_int),
         "dit_stack_error_string": ([_I], ctypes.c_char_p),
     },
@@ -86,6 +91,7 @@ _SIGNATURES = {
     },
     "cosine_attention": {
         "cosine_attention": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+        "cosine_attention_f32": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], ctypes.c_int),
         "cosine_attention_error_string": ([_I], ctypes.c_char_p),
     },
     "attn_branch_bwd": {

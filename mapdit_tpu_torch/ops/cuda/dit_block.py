@@ -16,8 +16,11 @@ tiling. A block is
 
 with the Pallas body's types: the stream is f32 inside a block and x's type
 between blocks; every product takes operands of the weights' type and sums
-in f32. On the card ``fused_dit_stack`` and ``fused_dit_block`` (the same at
-depth 1) run all of it as one persistent kernel, :func:`dit_stack`
+in f32. A float32 model (x, a and the weights f32) rounds nothing, as the
+Pallas body at ``dtype = float32``; its kernels are the f32 forms of the
+same sources (the products and the attention on the f32 pipes). On the
+card ``fused_dit_stack`` and ``fused_dit_block`` (the same at depth 1) run
+all of it as one persistent kernel, :func:`dit_stack`
 (``csrc/dit_stack.cu``: the modulation rows of every block first, then the
 blocks' tiles as one work list whose items wait only on their own row
 tile's earlier stage, on the tile pipeline of ``csrc/mp_gemm.cu`` and the
@@ -31,6 +34,9 @@ own. The sources hold the notes on bounds and design.
 Each wrapper takes its kernel for a CUDA tensor (and raises on what the
 kernel does not take) and its plain PyTorch version for a CPU tensor; there
 is no other fallback. ``LAUNCHES`` counts kernel launches by call site.
+``STACK_KERNEL = False`` routes ``fused_dit_stack`` and ``fused_dit_block``
+on the card through :func:`stack_launch_sequence` instead of :func:`dit_stack`
+(the yardstick route, which launches ``mp_gemm`` and ``cosine_attention``).
 
 Gradients: ``fused_dit_block`` and ``fused_dit_stack`` are autograd
 functions whose backward recomputes through :func:`block_reference`, the
@@ -74,6 +80,10 @@ LAUNCHES = {
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# fused_dit_stack / fused_dit_block on the card: dit_stack (True), or the
+# launch sequence it replaced (False; chip_smoke.py counts the sequence
+# kernels' launches on that route)
+STACK_KERNEL = True
 
 
 def reset_launch_counts() -> None:
@@ -146,12 +156,13 @@ def mp_gemm_plain(
 
 
 @functools.lru_cache(maxsize=None)
-def _mp_gemm_splits(m: int, n: int, k: int) -> int:
-    """mp_gemm's split-K count for an (M, N, K) product (the wrapper
-    allocates the partials)."""
+def _mp_gemm_splits(m: int, n: int, k: int, f32: bool = False) -> int:
+    """mp_gemm's split-K count for an (M, N, K) product, bf16 or (``f32``)
+    its f32 form's (the wrapper allocates the partials)."""
     from mapdit_tpu_torch.ops.cuda import build
 
-    return build.library("mp_gemm").mp_gemm_splits(m, n, k)
+    lib = build.library("mp_gemm")
+    return (lib.mp_gemm_f32_splits if f32 else lib.mp_gemm_splits)(m, n, k)
 
 
 def _check_tma(a, w, out, x, mods, k, n, shift_off, scale_off, gate_off):
@@ -172,8 +183,9 @@ def mp_gemm(
 ):
     """``C = epilogue(prologue(a) @ w.T * alpha)``: a (M, K) f32 or bf16,
     w (N, K) bf16, C (M, N) ``out_dtype``; with ``w_kn`` w is read as (K, N)
-    and C = epilogue(prologue(a) @ w * alpha). See :func:`mp_gemm_plain`
-    for the optional prologue/epilogue. ``site`` keys the launch count."""
+    and C = epilogue(prologue(a) @ w * alpha). An f32 w (the f32 form: a
+    f32 too, w (N, K)) rounds nothing. See :func:`mp_gemm_plain` for the
+    optional prologue/epilogue. ``site`` keys the launch count."""
     if a.device.type == "cpu":
         return mp_gemm_plain(
             a, w, alpha=alpha, out_dtype=out_dtype, modulate=modulate, silu=silu,
@@ -183,9 +195,14 @@ def mp_gemm(
 
     m, k = a.shape
     n = w.shape[1] if w_kn else w.shape[0]
-    if w.dtype != torch.bfloat16 or w.shape != ((k, n) if w_kn else (n, k)):
+    f32 = w.dtype == torch.float32
+    if f32 and (w_kn or a.dtype != torch.float32):
+        raise ValueError(
+            f"mp_gemm's f32 form takes an f32 a and an f32 (N, K) weight, got a {a.dtype}"
+            + (" and a (K, N) weight" if w_kn else ""))
+    if w.dtype not in _DTYPE_CODE or w.shape != ((k, n) if w_kn else (n, k)):
         layout = f"({k}, N)" if w_kn else f"(N, {k})"
-        raise ValueError(f"mp_gemm takes a bf16 {layout} weight, got {w.dtype} {tuple(w.shape)}")
+        raise ValueError(f"mp_gemm takes a bf16 or f32 {layout} weight, got {w.dtype} {tuple(w.shape)}")
     if a.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
         raise ValueError(f"mp_gemm takes f32 or bf16 activations, got {a.dtype} -> {out_dtype}")
     if silu and residual is not None:
@@ -225,23 +242,30 @@ def mp_gemm(
     _check_tma(a, w, out, x, mods, k, n, shift_off, scale_off, gate_off)
 
     lib = build.library("mp_gemm")
-    splits = _mp_gemm_splits(m, n, k)
+    splits = _mp_gemm_splits(m, n, k, f32)
     partial = torch.empty(splits, m, n, dtype=torch.float32, device=a.device) if splits > 1 else None
-    # the prologue pass writes the modulated (or f32) A as bf16 here
-    converted = a.dtype != torch.bfloat16 or modulate is not None
-    a_work = torch.empty(m, k, dtype=torch.bfloat16, device=a.device) if converted else None
+    # the prologue pass writes the modulated (or f32) A as bf16 here; in the
+    # f32 form the modulated A in f32
+    converted = modulate is not None or (a.dtype != torch.bfloat16 and not f32)
+    a_work = torch.empty(m, k, dtype=w.dtype, device=a.device) if converted else None
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    code = lib.mp_gemm(
-        a.data_ptr(), _DTYPE_CODE[a.dtype], w.data_ptr(), out.data_ptr(), _DTYPE_CODE[out_dtype],
-        m, n, k, float(alpha),
+    epilogue_args = (
         1 if modulate is not None else 0,
         mods.data_ptr() if mods is not None else None, mods_ld, shift_off, scale_off, gate_off,
         gain.data_ptr() if gain is not None else None, tokens,
         1 if silu else (2 if residual is not None else 0),
         x.data_ptr() if x is not None else None, _DTYPE_CODE[x.dtype] if x is not None else 0,
-        1 if w_kn else 0, a_work.data_ptr() if a_work is not None else None,
-        partial.data_ptr() if partial is not None else None, stream,
     )
+    work_args = (a_work.data_ptr() if a_work is not None else None,
+                 partial.data_ptr() if partial is not None else None, stream)
+    if f32:
+        code = lib.mp_gemm_f32(a.data_ptr(), w.data_ptr(), out.data_ptr(), _DTYPE_CODE[out_dtype], m, n, k,
+                               float(alpha), *epilogue_args, *work_args)
+    else:
+        code = lib.mp_gemm(
+            a.data_ptr(), _DTYPE_CODE[a.dtype], w.data_ptr(), out.data_ptr(), _DTYPE_CODE[out_dtype],
+            m, n, k, float(alpha), *epilogue_args, 1 if w_kn else 0, *work_args,
+        )
     _raise_on(code, lib, "mp_gemm")
     LAUNCHES[f"mp_gemm/{site}"] += 1
     return out
@@ -301,12 +325,12 @@ def cosine_attention(qkv, tokens, heads, out_dtype, out=None, normalize_first=Fa
     contiguous column slices; returns (N*T, D) in ``out_dtype``.
 
     ``normalize_first`` is the residual mode: the probabilities are
-    normalised before P.V (rounded to bf16 for it) and, when ``probs`` is
-    an (N, heads, T, T) f32 tensor, written there.
+    normalised before P.V (rounded to ``out_dtype`` for it) and, when
+    ``probs`` is an (N, heads, T, T) f32 tensor, written there.
 
-    The kernel's products are bf16 on the tensor cores, so on the card it
-    writes bf16 only and raises on ``out_dtype=torch.float32``; the CPU's
-    plain version takes either (at f32 it rounds nothing)."""
+    ``out_dtype=torch.bfloat16`` runs the kernel's bf16 tensor-core form;
+    ``torch.float32`` its f32 form (``cosine_attention_f32``: both products
+    on the f32 pipes, nothing rounded)."""
     if qkv.device.type == "cpu":
         return cosine_attention_plain(
             qkv, tokens, heads, out_dtype, out=out, normalize_first=normalize_first, probs=probs
@@ -317,11 +341,8 @@ def cosine_attention(qkv, tokens, heads, out_dtype, out=None, normalize_first=Fa
     d = d3 // 3
     if qkv.dtype != torch.float32 or d3 != 3 * d or d % heads or nt % tokens:
         raise ValueError(f"cosine_attention takes f32 (N*T, 3D) qkv, got {qkv.dtype} {tuple(qkv.shape)}")
-    if out_dtype != torch.bfloat16:
-        raise ValueError(
-            f"cosine_attention's CUDA kernel writes bf16 only (bf16 products on the tensor cores), got out_dtype="
-            f"{out_dtype}; an f32 output is computed on the CPU only"
-        )
+    if out_dtype not in _DTYPE_CODE:
+        raise ValueError(f"cosine_attention writes bf16 or f32, got out_dtype={out_dtype}")
     hd = d // heads
     if out is None:
         out = torch.empty(nt, d, dtype=out_dtype, device=qkv.device)
@@ -340,7 +361,8 @@ def cosine_attention(qkv, tokens, heads, out_dtype, out=None, normalize_first=Fa
         raise ValueError("cosine_attention reads and writes with 16-byte accesses: its tensors must be 16-byte aligned")
     lib = build.library("cosine_attention")
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    code = lib.cosine_attention(
+    launch = lib.cosine_attention_f32 if out_dtype == torch.float32 else lib.cosine_attention
+    code = launch(
         qkv.data_ptr(), out.data_ptr(), probs.data_ptr() if probs is not None else None,
         1 if normalize_first else 0, nt // tokens, tokens, heads, hd, stream,
     )
@@ -425,11 +447,12 @@ def _check_block_args(x, a, gains, weights, depth: Optional[int]):
             raise ValueError(f"weight shape {tuple(w.shape)}, expected {lead + shape}")
     if tuple(a.shape) != (n, d) or tuple(gains.shape) != lead + (2,):
         raise ValueError(f"a must be (N, D) and gains {lead + (2,)}")
-    if x.device.type == "cuda":
-        if any(w.dtype != torch.bfloat16 for w in weights) or x.dtype != torch.bfloat16 or a.dtype != torch.bfloat16:
+    if x.device.type != "cpu":
+        types = {x.dtype, a.dtype, *(w.dtype for w in weights)}
+        if types not in ({torch.bfloat16}, {torch.float32}):
             raise ValueError(
-                "the CUDA block kernels run bf16 only: x, a and the weights must be bf16 "
-                "(a float32 model runs block_kernel='off')"
+                "the CUDA block kernels take x, a and the weights all bf16 (the bf16 instances) or all f32 "
+                f"(the f32 instances), got {sorted(str(t) for t in types)}"
             )
         if gains.dtype != torch.float32:
             raise ValueError("gains must be f32")
@@ -490,10 +513,11 @@ def stack_launch_sequence(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
 # the persistent whole-stack kernel
 
 H100_SMS = 132
-# csrc/dit_stack.cu's layout: 128 x 128 product tiles of k depth 64, a ring
-# of four 32 KB stages with its mbarriers (two groups' attention buffers lie
-# in it), the hand-off mbarriers and a count, the f32 epilogue tile (128
-# rows padded by 4 floats), 1 KB of alignment slack; one CTA an SM
+# csrc/dit_stack.cu's layout: 128 x 128 product tiles of k depth 64 (32 in
+# the f32 instances: 128-byte rows either way), a ring of four 32 KB stages
+# with its mbarriers (two groups' attention buffers lie in it), the
+# hand-off mbarriers and a count, the f32 epilogue tile (128 rows padded by 4
+# floats), 1 KB of alignment slack; one CTA an SM
 STACK_TILE, STACK_K = 128, 64
 STACK_RING_BYTES = 4 * 2 * STACK_TILE * STACK_K * 2
 STACK_SMEM_BYTES = 1024 + STACK_RING_BYTES + 2 * 4 * 8 + 32 + STACK_TILE * (STACK_TILE + 4) * 4
@@ -516,12 +540,14 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def stack_attention_smem(hd: int) -> int:
+def stack_attention_smem(hd: int, elem_bytes: int = 2) -> int:
     """Shared memory of one group of four warps' attention buffers (Q, K, V
     rows of 64 tokens padded as attention_tiles.cuh pads them, two scale
-    vectors); the kernel keeps two groups in the ring."""
-    ld = _cdiv(hd, 16) * 16 + 8
-    return 3 * 64 * ld * 2 + 2 * 64 * 4
+    vectors; with ``elem_bytes=4`` the f32 rows of cosine_tiles.cuh's
+    DimsF32, hd + 4 floats a row); the kernel keeps two groups in the
+    ring."""
+    ld = hd + 4 if elem_bytes == 4 else _cdiv(hd, 16) * 16 + 8
+    return 3 * 64 * ld * elem_bytes + 2 * 64 * 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -537,6 +563,7 @@ class StackProduct:
     k: int
     splits: int
     width: int = STACK_TILE
+    k_step: int = STACK_K  # elements a k step (32 for f32 operands)
 
     @property
     def row_tiles(self) -> int:
@@ -548,7 +575,7 @@ class StackProduct:
 
     @property
     def kt(self) -> int:
-        return _cdiv(self.k, STACK_K)
+        return _cdiv(self.k, self.k_step)
 
     @property
     def tiles(self) -> int:
@@ -662,19 +689,24 @@ def _split(tiles: int, kt: int, ctas: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def stack_plan(
-    n: int, t: int, d: int, hidden: int, heads: int, depth: int, ctas: int = H100_SMS
+    n: int, t: int, d: int, hidden: int, heads: int, depth: int, ctas: int = H100_SMS, elem_bytes: int = 2
 ) -> StackPlan:
     """:func:`dit_stack`'s plan for N samples of T tokens at width D, MLP
-    width ``hidden``, on a grid of ``ctas`` resident CTAs. Every split
-    depends on one block's shapes and the grid alone, never on depth, so a
-    stack and a chain of depth-1 calls sum in the same order; a product
-    splits only as far as all its items run at once (the splits of a tile
-    wait on each other)."""
+    width ``hidden``, on a grid of ``ctas`` resident CTAs; ``elem_bytes`` 2
+    for the bf16 instances, 4 for the f32 ones (k steps of 32, f32 attn, h
+    and amod scratch, f32 attention rows). Every split depends on one
+    block's shapes and the grid alone, never on depth, so a stack and a
+    chain of depth-1 calls sum in the same order; a product splits only as
+    far as all its items run at once (the splits of a tile wait on each
+    other)."""
+    if elem_bytes not in (2, 4):
+        raise ValueError(f"elem_bytes must be 2 (bf16) or 4 (f32), got {elem_bytes}")
     m = n * t
-    products = [StackProduct("modulation", n, 6 * d * depth, d, 1)]
+    k_step = 128 // elem_bytes
+    products = [StackProduct("modulation", n, 6 * d * depth, d, 1, k_step=k_step)]
     for name, cols, k in (("qkv", 3 * d, d), ("out", d, d), ("fc1", hidden, d), ("fc2", d, hidden)):
         tiles = _cdiv(m, STACK_TILE) * _cdiv(cols, STACK_TILE)
-        products.append(StackProduct(name, m, cols, k, _split(tiles, _cdiv(k, STACK_K), ctas)))
+        products.append(StackProduct(name, m, cols, k, _split(tiles, _cdiv(k, k_step), ctas), k_step=k_step))
     split = [p for p in products if p.splits > 1]
     tickets = depth * sum(p.tiles for p in split)  # one a tile of every split product of every block
     sizes = {
@@ -683,9 +715,9 @@ def stack_plan(
         "qkv": m * 3 * d * 4,
         "x1": m * d * 4,
         "partial": sum(p.splits * p.m * p.n * 4 for p in split),
-        "attn": m * d * 2,
-        "h": m * hidden * 2,
-        "amod": m * d * 2,
+        "attn": m * d * elem_bytes,
+        "h": m * hidden * elem_bytes,
+        "amod": m * d * elem_bytes,
     }
     layout, offset = {}, 0
     for name, size in sizes.items():
@@ -693,7 +725,7 @@ def stack_plan(
         offset += _cdiv(size, 256) * 256
     return StackPlan(
         ctas=ctas, depth=depth, products=tuple(products), attention_items=n * heads * _cdiv(t, STACK_QUERY_TILE),
-        smem_bytes=STACK_SMEM_BYTES, attention_smem_bytes=2 * stack_attention_smem(d // heads),
+        smem_bytes=STACK_SMEM_BYTES, attention_smem_bytes=2 * stack_attention_smem(d // heads, elem_bytes),
         tickets=tickets, layout=layout, workspace_bytes=offset, tokens=t, heads=heads,
     )
 
@@ -734,11 +766,12 @@ def dit_stack_plain(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_ctas(device_index: int, hd: int) -> int:
+def _resident_ctas(device_index: int, hd: int, f32: bool = False) -> int:
     from mapdit_tpu_torch.ops.cuda import build
 
+    lib = build.library("dit_stack")
     with torch.cuda.device(device_index):
-        ctas = build.library("dit_stack").dit_stack_resident_ctas(hd)
+        ctas = (lib.dit_stack_f32_resident_ctas if f32 else lib.dit_stack_resident_ctas)(hd)
     if ctas < 1:
         _raise_on(-ctas, build.library("dit_stack"), "dit_stack")
     return ctas
@@ -747,11 +780,11 @@ def _resident_ctas(device_index: int, hd: int) -> int:
 def dit_stack(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int, trace: Optional[torch.Tensor] = None):
     """All ``depth`` blocks over depth-stacked weights (leading depth axis;
     gains (depth, 2) f32) in one launch of ``csrc/dit_stack.cu``: x (N, T, D)
-    and a (N, D) bf16, folded bf16 weights; returns the new stream in x's
-    type. The plain version :func:`dit_stack_plain` serves CPU tensors; on
-    the card the kernel takes bf16, head widths 64 and 72, an even T <=
-    STACK_MAX_T (:func:`check_stack_shape`) and raises otherwise, never
-    copying.
+    and a (N, D) bf16 with folded bf16 weights (the bf16 instances), or all
+    of them f32 (the f32 instances); returns the new stream in x's type. The
+    plain version :func:`dit_stack_plain` serves CPU tensors; on the card the
+    kernel takes head widths 64 and 72, an even T <= STACK_MAX_T
+    (:func:`check_stack_shape`) and raises otherwise, never copying.
     ``trace``, an int64 tensor of the plan's ``trace_words`` on the card,
     receives each CTA's clock at every grid barrier (a stage timeline)."""
     if x.device.type == "cpu":
@@ -769,7 +802,9 @@ def dit_stack(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int, trace: Optio
         raise ValueError(
             "dit_stack on CUDA reads its operands with TMA and 16-byte loads: they must be 16-byte aligned"
         )
-    plan = stack_plan(n, t, d, hidden, heads, depth, _resident_ctas(x.get_device(), d // heads))
+    f32 = x.dtype == torch.float32
+    plan = stack_plan(n, t, d, hidden, heads, depth, _resident_ctas(x.get_device(), d // heads, f32),
+                      elem_bytes=x.element_size())
     if trace is not None and (
         trace.dtype != torch.int64 or trace.numel() < plan.trace_words or trace.device != x.device
     ):
@@ -779,7 +814,7 @@ def dit_stack(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int, trace: Optio
     out = torch.empty_like(x)
     base, at = work.data_ptr(), plan.layout
     splits = [plan.product(name).splits for name in ("qkv", "out", "fc1", "fc2")]
-    code = lib.dit_stack(
+    code = (lib.dit_stack_f32 if f32 else lib.dit_stack)(
         x.data_ptr(), a.data_ptr(), gains.data_ptr(), *(w.data_ptr() for w in weights), out.data_ptr(),
         *(base + at[name] for name in ("mods", "qkv", "x1", "partial", "attn", "h", "amod", "sync")),
         at["mods"] - at["sync"], n, t, d, hidden, heads, depth, *splits, plan.ctas,
@@ -791,10 +826,19 @@ def dit_stack(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int, trace: Optio
     return out
 
 
+def _stack_route(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
+    """The stack forward on the route ``STACK_KERNEL`` picks: :func:`dit_stack`
+    (the plain version on the CPU), or on the card with ``STACK_KERNEL =
+    False`` :func:`stack_launch_sequence`."""
+    if x.device.type == "cuda" and not STACK_KERNEL:
+        return stack_launch_sequence(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads)
+    return dit_stack(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads)
+
+
 def _fused_dit_block_fwd(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
     weights = (w_mod, w_qkv, w_out, w1, w2)
     _check_block_args(x, a, gains, weights, None)
-    out = dit_stack(x, a, gains[None], *(w[None] for w in weights), heads)
+    out = _stack_route(x, a, gains[None], *(w[None] for w in weights), heads)
     if x.device.type == "cuda":
         LAUNCHES["fused_dit_block"] += 1
     return out
@@ -803,7 +847,7 @@ def _fused_dit_block_fwd(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
 def _fused_dit_stack_fwd(x, a, gains, w_mod, w_qkv, w_out, w1, w2, heads: int):
     weights = (w_mod, w_qkv, w_out, w1, w2)
     _check_block_args(x, a, gains, weights, w_mod.shape[0])
-    out = dit_stack(x, a, gains, *weights, heads)
+    out = _stack_route(x, a, gains, *weights, heads)
     if x.device.type == "cuda":
         LAUNCHES["fused_dit_stack"] += 1
     return out

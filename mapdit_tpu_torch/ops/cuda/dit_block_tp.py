@@ -111,10 +111,11 @@ def _check(x, w_in, w_out, n_rows, what):
     n, t, d = x.shape
     if w_in.shape[1] != d or w_out.shape[0] != d or w_out.shape[1] * n_rows != w_in.shape[0]:
         raise ValueError(f"{what}: weights {tuple(w_in.shape)}, {tuple(w_out.shape)} do not fit D={d}")
-    if x.device.type == "cuda" and (
+    if x.device.type != "cpu" and (
         x.dtype != torch.bfloat16 or w_in.dtype != torch.bfloat16 or w_out.dtype != torch.bfloat16
     ):
-        raise ValueError(f"the CUDA {what} kernels run bf16 only: x and the weights must be bf16")
+        raise ValueError(f"the CUDA {what} kernels (rows 6-8) run bf16 only: x and the weights must be bf16; their "
+                         "float32 forms come in a later slice of the port")
 
 
 def _check_heads(d_l, heads_local):

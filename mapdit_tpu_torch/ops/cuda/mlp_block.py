@@ -81,12 +81,13 @@ def _check(x, shift, scale, gate, gain, w1, w2):
         raise ValueError(f"w1 must be (H, D) and w2 (D, H), got {tuple(w1.shape)}, {tuple(w2.shape)}")
     if any(r.shape != (n, d) for r in (shift, scale, gate)) or gain.numel() != 1:
         raise ValueError("shift, scale and gate must be (N, D) and the gain one value")
-    if x.device.type == "cuda" and (
+    if x.device.type != "cpu" and (
         x.dtype != torch.bfloat16 or w1.dtype != torch.bfloat16 or w2.dtype != torch.bfloat16
     ):
         raise ValueError(
-            "the CUDA MLP half-block kernel runs bf16 only: x and the weights must be bf16 "
-            "(a float32 model runs block_kernel='off')"
+            "the CUDA MLP half-block kernel (row 9) runs bf16 only: x and the weights must be bf16; its float32 "
+            "form comes in a later slice of the port (a float32 model runs block_kernel='mega' or 'mega_stack' on "
+            "the whole-block kernel's f32 instances, or 'off')"
         )
 
 

@@ -12,7 +12,11 @@ The cases: ``dit_stack`` (rows 1 and 2: ``fused_dit_block`` and
 row 4's one-launch kernel (``attn_branch.attn_bwd``, csrc/attn_branch.cu)
 at the S/2 training shape and chip_smoke.py's BRANCH_BWD_SHAPES;
 ``attention_bwd`` at T = 64 and 4 and ``out_gate_residual_bwd`` at T
-= 64, 16, 4 and 128 (split K among them). Each draws from a seed of its own.
+= 64, 16, 4 and 128 (split K among them); the bf16 ``mp_gemm`` instances
+at the five S/2 products with their epilogues, a split-K product, the
+MN-major W and a ragged shape, and the bf16 ``cosine_attention`` in both
+modes at S/2 and at T = 256 (the kernels whose sources gained f32 forms
+beside them). Each draws from a seed of its own.
 ``--compare`` prints one line an output and exits 1 unless every output has
 the saved bits (``torch.equal``).
 """
@@ -33,6 +37,19 @@ BRANCH = {"s2": (256, 64, 384, 6), "b2": (8, 64, 768, 12), "xl": (4, 64, 1152, 1
           "t16": (8, 16, 768, 12), "t4": (8, 4, 1152, 16), "t2": (5, 2, 384, 6)}
 # name -> (N, T, heads, hd)
 ATTN_BWD = {"t64": (256, 64, 6, 64), "t64-head-72": (32, 64, 16, 72), "t4-head-72": (8, 4, 16, 72)}
+# mp_gemm: name -> (M, N, K, A type, modulate prologue, epilogue, W read as
+# (K, N), tokens a sample); C is f32 where the epilogue is none, else bf16
+GEMM = {"modulation": (64, 2304, 384, "bf16", False, None, False, 1),
+        "qkv": (4096, 1152, 384, "bf16", True, None, False, 64),
+        "out": (4096, 384, 384, "bf16", False, "residual-bf16", False, 64),
+        "fc1": (4096, 1536, 384, "f32", True, "silu", False, 64),
+        "fc2": (4096, 384, 1536, "bf16", False, "residual-f32", False, 64),
+        "xl-split": (8, 6912, 1152, "bf16", False, None, False, 1),
+        "dattn-w_kn": (16384, 384, 384, "bf16", False, None, True, 64),
+        "ragged": (200, 328, 392, "f32", True, "residual-f32", False, 8)}
+# cosine_attention: name -> (N, T, heads, hd, residual mode)
+COSINE = {"s2": (64, 64, 6, 64, False), "s2-residual": (64, 64, 6, 64, True), "t256": (16, 256, 6, 64, False),
+          "t256-residual": (4, 256, 6, 64, True), "xl": (8, 64, 16, 72, False)}
 # name -> (N, T, D)
 OUT_GATE = {"t64": (256, 64, 384), "t16": (256, 16, 768), "t4": (8, 4, 1152), "t128": (64, 128, 384),
             "t64-n3": (3, 64, 384), "t64-n257": (257, 64, 384)}
@@ -98,11 +115,42 @@ def pass_outputs(dev, out: dict) -> None:
             out[f"out_gate_residual_bwd:{name}:{j}"] = z.cpu()
 
 
+def forward_outputs(dev, out: dict) -> None:
+    from mapdit_tpu_torch.ops.cuda import dit_block as k
+    from mapdit_tpu_torch.ops.mp import normalize
+
+    types = {"bf16": torch.bfloat16, "f32": torch.float32}
+    for i, (name, (m, n, kk, a_dt, modulated, epilogue, w_kn, tokens)) in enumerate(GEMM.items()):
+        gen = torch.Generator(device=dev).manual_seed(500 + i)
+        a = _normal(gen, dev, m, kk).to(types[a_dt])
+        w = normalize(_normal(gen, dev, n, kk)).to(torch.bfloat16)
+        w = w.t().contiguous() if w_kn else w
+        mods = _normal(gen, dev, m // tokens, 2 * kk + n)
+        kw = dict(alpha=1 / kk**0.5, out_dtype=torch.float32 if epilogue is None else torch.bfloat16, tokens=tokens,
+                  w_kn=w_kn)
+        if modulated:
+            kw["modulate"] = (mods, 0, kk, torch.tensor([0.37], device=dev))
+        if epilogue == "silu":
+            kw["silu"] = True
+        elif epilogue is not None:
+            kw["residual"] = (_normal(gen, dev, m, n).to(types[epilogue.split("-")[1]]), mods, 2 * kk)
+        out[f"mp_gemm:{name}"] = k.mp_gemm(a, w, **kw).cpu()
+    for i, (name, (n, t, heads, hd, residual)) in enumerate(COSINE.items()):
+        gen = torch.Generator(device=dev).manual_seed(600 + i)
+        qkv = _normal(gen, dev, n * t, 3 * heads * hd)
+        probs = torch.empty(n, heads, t, t, device=dev) if residual else None
+        out[f"cosine_attention:{name}"] = k.cosine_attention(qkv, t, heads, torch.bfloat16, normalize_first=residual,
+                                                             probs=probs).cpu()
+        if residual:
+            out[f"cosine_attention:{name}:p"] = probs.cpu()
+
+
 def outputs(dev) -> dict:
     out = {}
     stack_outputs(dev, out)
     branch_outputs(dev, out)
     pass_outputs(dev, out)
+    forward_outputs(dev, out)
     return out
 
 

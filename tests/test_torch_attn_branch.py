@@ -405,7 +405,9 @@ def test_modulate_passes_raise_outside_their_domain():
     """The CUDA modulate passes take D a multiple of 8 (16-byte accesses):
     check_modulate_shape raises on 388 (D of a 97-head model of width 4)
     and on 12, passes every registry width, and the wrappers raise on a
-    tensor off the CPU outside it before anything is built."""
+    tensor off the CPU outside it before anything is built (no count moves,
+    whatever earlier tests in the process launched)."""
+    before = dict(ab.LAUNCHES)
     for d in (256, 384, 768, 1024, 1152):
         ab.check_modulate_shape(d)
     for d in (388, 12, 4):
@@ -418,7 +420,7 @@ def test_modulate_passes_raise_outside_their_domain():
         ab.modulate_fwd(x, rows, gain, t, torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 8"):
         ab.modulate_bwd(torch.empty(n * t, d, device="meta"), x, rows, gain, x, t)
-    assert all(v == 0 for v in ab.LAUNCHES.values()), ab.LAUNCHES
+    assert ab.LAUNCHES == before, (ab.LAUNCHES, before)
 
 
 # ---------------------------------------------------------------------------

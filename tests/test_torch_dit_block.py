@@ -102,16 +102,18 @@ def test_cosine_attention_serves_every_registry_model():
 
 
 def test_cosine_attention_refuses_an_f32_output_off_the_cpu():
-    """The kernel's products are bf16 on the tensor cores: off the CPU an
-    f32 output raises, naming the bf16-only kernel, before anything is
-    built (the plain version on the CPU takes f32 and rounds nothing)."""
+    """An f32 output is the kernel's f32 form: off the CPU it gets, in both
+    modes, as far as the bf16 output does, the CUDA check, before anything
+    is built; an output type of neither form raises naming both."""
     qkv = torch.empty(8, 3 * 128, device="meta")
-    with pytest.raises(ValueError, match="bf16 only"):
+    with pytest.raises(ValueError, match="CUDA"):
         tdb.cosine_attention(qkv, 4, 2, torch.float32)
-    with pytest.raises(ValueError, match="bf16 only"):
+    with pytest.raises(ValueError, match="CUDA"):
         tdb.cosine_attention(qkv, 4, 2, torch.float32, normalize_first=True)
     with pytest.raises(ValueError, match="CUDA"):
         tdb.cosine_attention(qkv, 4, 2, torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        tdb.cosine_attention(qkv, 4, 2, torch.float16)
 
 
 def test_fused_dit_block_bf16():
