@@ -82,6 +82,14 @@ Phases, one line each; any failure exits non-zero before the final line:
      dit_stack launch a block, the gradient recomputed through the
      reference math), each held to the float32 plain step by check_paths'
      rule, exact launch counts;
+ 6d. float32 on the whole-block kernels (f32_phase): a checked step on f32
+     mega against bf16 mega (F32_CLOSER), the train CLI on mega at its
+     default float32, sample on mega_stack, ddim chains, the f32 launch
+     sequence as the stack's route, the f32 bench in turns;
+ 6e. float32 on the attention half-block kernels (f32_attn_phase): a
+     checked step on f32 mega_attn with attn_bwd pallas and residual, each
+     also as its launch sequences, against bf16 mega_attn (F32_CLOSER), the
+     train CLI on mega_attn, sample on mega_attn, a checked step at 32 x 32;
   7. families: DiT-B/2 (depth 12, width 768, 12 heads, nothing cut) on the
      generic block path, twice: P1, MaP adaln with block_kernel="pallas" and
      attention_impl="pallas" (fused_mlp_branch and fused_attention in every
@@ -799,8 +807,9 @@ def stack_witness(torch, k, what, case, got, want, seq_out) -> dict:
     of each. bf16 roundings compound through 12 blocks, so on some draws
     kernel and plain version land past phase 3's limit (5e-2 + 5e-2
     |plain|) from each other while both sit as close to float64 (ROADMAP
-    C.1). The rule, ``ok``: where the two lie apart past that limit, each
-    lies within the same limit of float64 (5e-2 + 5e-2 |f64|), and the
+    C, the closed dit_stack:S2 entry). The rule, ``ok``: where the two lie
+    apart past that limit, each lies within the same limit of float64
+    (5e-2 + 5e-2 |f64|), and the
     kernel's mean distance from float64 is at most STACK_WITNESS_MEAN_RATIO
     times the plain version's, which a faulty stage would break. Prints
     the distances, the count of elements apart, the rule's margins
@@ -1149,6 +1158,229 @@ def f32_stack_rows(torch, k, check_only: bool = False) -> dict:
               depth=spec[2], **{key: (f"{v:.4f}" if isinstance(v, float) else v) for key, v in row.items()
                                 if key not in ("source", "replaces")})
         rows[name] = row
+    return rows
+
+
+# rows 3, 4 and 5 in f32 (csrc/attn_branch.cu's f32 instances; a float32
+# model on mega_attn): name -> (N, T, D, heads), drawn in f32 from generator
+# SEED + 60 in this order: the DiT-S/2 training shape at 256 (the report
+# rows, timed), B/2 at T = 16, and the edge, an odd N at T = 4 and the head
+# of 72
+F32_BRANCH_SHAPES = {
+    "s2": (TRAIN_BATCH, 64, 384, 6),
+    "b2:t16": (8, 16, 768, 12),
+    "xl:t4:n3": (3, 4, 1152, 16),
+}
+# the f32 launch sequences' own kernels (the route past T = 64 and the
+# yardstick): attention_bwd at the S/2 shape, at 32 x 32 latents and at the
+# edge (odd N, T = 4, hd 72): name -> (N, T, heads, hd); out_gate_residual_bwd
+# at T = 64 and 256: name -> (N, T, D)
+F32_ATTN_BWD_SHAPES = {"attention_bwd:f32": (TRAIN_BATCH, 64, 6, 64), "attention_bwd:f32:t256": (32, 256, 6, 64),
+                       "attention_bwd:f32:t4:n5": (5, 4, 16, 72)}
+F32_OUT_GATE_SHAPES = {"out_gate_residual_bwd:f32": (TRAIN_BATCH, 64, 384),
+                       "out_gate_residual_bwd:f32:t256": (32, 256, 384)}
+
+
+def f32_branch_args(torch, gen, dev, n, t, d, heads):
+    """The half-block's inputs in f32 drawn from ``gen``: ((x, shift, scale,
+    gate, gain, W_qkv, W_out, heads), dy)."""
+    from mapdit_tpu_torch.ops.mp import normalize
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    x = randn(n, t, d)
+    shift, scale, gate = (randn(n, d) for _ in range(3))
+    gain = torch.tensor(0.37, device=dev)
+    wq, wo = (normalize(randn(*s)).contiguous() for s in ((3 * d, d), (d, d)))
+    return (x, shift, scale, gate, gain, wq, wo, heads), randn(n, t, d)
+
+
+def launched_once(key: str, fn):
+    """fn() and a check that it moved the launch count ``key`` by one."""
+    before = launch_counts()[key]
+    out = fn()
+    if launch_counts()[key] != before + 1:
+        raise AssertionError(f"{key}: the call did not launch it once")
+    return out
+
+
+def f32_branch_rows(torch, dev, check_only: bool = False) -> dict:
+    """Rows 3, 5 and 4 in f32 at F32_BRANCH_SHAPES: each one launch of its
+    f32 instance (branch_route takes the call) held to its f32 plain version
+    at F32_TOL (mapdit_tpu_torch/tools/bench_attn_branch.py check under its
+    F32 rule: row 5's y, p and attn; row 4's cotangents, dgain within F32_TOL
+    of its terms' root-sum-square, the dW pair, f32 products with TF32 off,
+    and its operands), each f32 launch sequence (the route past the kernels'
+    domain) against the same plain versions, the same bits on two runs.
+    Then (unless ``check_only``) the S/2 rows timed beside their launch
+    sequences: graph, host and eager ms, the plain version's graph ms, the
+    bound on the f32 pipes. Returns the kernels line's three rows."""
+    from mapdit_tpu_torch.ops.cuda import attn_branch as ab
+    from mapdit_tpu_torch.tools import bench_attn_branch as bab
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    rows = {}
+    for name, (n, t, d, heads) in F32_BRANCH_SHAPES.items():
+        args, dy = f32_branch_args(torch, gen, dev, n, t, d, heads)
+        if ab.branch_route(args[0], args[5], args[6], heads, dy) != "kernel":
+            raise AssertionError(f"attn_branch:f32:{name}: not the one-launch kernel's route")
+        before = launch_counts()
+        checks = bab.check(name, args, dy, rule=bab.F32)
+        after = launch_counts()
+        moved = {key: after[key] - before[key] for key in after if after[key] != before[key]}
+        if any(not moved.get(f"attn_branch/{kind}") or moved.get(f"attn_branch/{kind}/sequence")
+               for kind in bab.KINDS):
+            raise AssertionError(f"attn_branch:f32:{name}: not the one-launch kernels ({moved})")
+        errs = {kind: check["max_abs_err"] for kind, check in checks.items()}
+        if check_only or name != "s2":
+            continue
+        bounds = bab.bounds(n, t, d, heads, f32=True)
+        for kind, line, path, fn, seq_fn, plain_fn in (
+            ("fwd", 1007, "f32/mega_attn+pallas", lambda: ab.attn_branch_fwd(*args),
+             lambda: ab.fwd_launch_sequence(*args), lambda: ab.attn_fwd_plain(*args)),
+            ("res_fwd", 1152, "f32/mega_attn+residual", lambda: ab.attn_branch_res_fwd(*args),
+             lambda: ab.res_fwd_launch_sequence(*args), lambda: ab.attn_res_fwd_plain(*args)),
+            ("bwd", 918, "f32/mega_attn+pallas", lambda: ab.attn_branch_bwd(dy, *args),
+             lambda: ab.bwd_launch_sequence(dy, *args), lambda: ab.attn_branch_bwd_plain(dy, *args)),
+        ):
+            times = bab.times(fn, seq_fn, plain_fn)
+            rows[f"attn_branch/{kind}:f32"] = dict(
+                source=BRANCH_SRC, replaces=f"{PALLAS}:{line}", max_abs_err=errs[kind], ms=times["ms"],
+                plain_ms=times["plain_ms"], bound_ms=bounds[kind][0], bound_by=bounds[kind][1], library_ms=None,
+                path=path, count_key=f"attn_branch/{kind}", eager_ms=times["eager_ms"], host_ms=times["host_ms"],
+                sequence_ms=times["sequence_ms"], sequence_eager_ms=times["sequence_eager_ms"],
+                sequence_host_ms=times["sequence_host_ms"])
+            phase("time", kernel=f"attn_branch/{kind}:f32:{name}", shape=f"{n}x{t}x{d}x{heads}",
+                  **{key: f"{v:.4f}" for key, v in times.items()}, bound_ms=f"{bounds[kind][0]:.4f}",
+                  bound_by=bounds[kind][1], card=json.dumps(smi_line()))
+        h, attn, dout, dqkv = ab.attn_branch_bwd(dy, *args)[5]
+        pair = {"ms": graph_ms(torch, lambda: ab._dw_pair(dqkv, h, dout, attn, 1 / math.sqrt(d), ab.dw_gemm))}
+        phase("time", kernel=f"attn_branch/dw-pair:f32:{name}", ms=f"{pair['ms']:.4f}",
+              library="torch.mm, f32 operands, TF32 off, x 2")
+        del args, dy, h, attn, dout, dqkv
+        torch.cuda.empty_cache()
+    return rows
+
+
+def f32_part_rows(torch, F, dev, check_only: bool = False) -> dict:
+    """The f32 launch sequences' own kernels of row 4, each held to its f32
+    plain version at F32_TOL and to the same bits twice: attention_bwd_f32
+    at F32_ATTN_BWD_SHAPES (dqkv from f32 qkv and dattn), the f32
+    out_gate_residual_bwd at F32_OUT_GATE_SHAPES (dout and dgate; T = 256
+    sums each sample's row tiles in tile order), the f32 dattn and dh
+    products (W read as (K, N)) and modulate_fwd writing f32 h at the S/2
+    training shape, on draws of generator SEED + 61. Then (unless
+    ``check_only``) each timed (graph, host and eager ms) beside its plain
+    version and a library call, bounded on the f32 pipes or by bytes.
+    Returns the kernels line's rows (the S/2 shapes; their launches from
+    phase 6e's f32 mega_attn sequence paths)."""
+    from mapdit_tpu_torch.ops.cuda import attn_branch as ab
+    from mapdit_tpu_torch.ops.cuda import dit_block as k
+    from mapdit_tpu_torch.ops.mp import normalize
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 61)
+    f32, rows = torch.float32, {}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def row(name, key, run, plain, err, flops, nbytes, library, replaces, source, path):
+        same = run()
+        again = run()
+        same = all(torch.equal(a_, b_) for a_, b_ in zip(same if isinstance(same, tuple) else (same,),
+                                                        again if isinstance(again, tuple) else (again,)))
+        phase("check", what=f"{name}:same-bits-twice", ok=same)
+        if not same:
+            raise AssertionError(f"{name}: two runs differ")
+        if check_only:
+            return
+        b, by = bound_ms(flops, nbytes, H100_F32_FLOPS)
+        r = dict(source=source, replaces=replaces, max_abs_err=err, ms=graph_ms(torch, run),
+                 plain_ms=graph_ms(torch, plain), bound_ms=b, bound_by=by,
+                 library_ms=None if library is None else graph_ms(torch, library),
+                 host_ms=host_ms(torch, run), eager_ms=time_ms(torch, run), path=path, count_key=key)
+        phase("time", kernel=name, bound_by=by, card=json.dumps(smi_line()),
+              **{kk: (f"{v:.4f}" if isinstance(v, float) else v) for kk, v in r.items()
+                 if kk in ("ms", "plain_ms", "bound_ms", "library_ms", "host_ms", "eager_ms")})
+        if ":" not in name.replace(":f32", "", 1):
+            rows[name] = r
+
+    # attention_bwd in f32
+    for name, (n, t, heads, hd) in F32_ATTN_BWD_SHAPES.items():
+        d = heads * hd
+        qkv, dattn = randn(n * t, 3 * d), randn(n * t, d)
+
+        def run(qkv=qkv, dattn=dattn, t=t, heads=heads):
+            return ab.attention_bwd(qkv, dattn, t, heads, f32)
+
+        def plain(qkv=qkv, dattn=dattn, t=t, heads=heads):
+            return ab.attention_bwd_plain(qkv, dattn, t, heads, f32)
+
+        got = launched_once("attn_bwd/attention", run)
+        err = compare(torch, got, plain(), F32_TOL, F32_TOL, name)
+        q4, k4, v4 = qkv.reshape(n, t, 3, heads, hd).permute(2, 0, 3, 1, 4)
+        qs, ks, vs = (z.contiguous().requires_grad_() for z in (normalize(q4), normalize(k4), v4))
+        do4 = dattn.reshape(n, t, heads, hd).transpose(1, 2).contiguous()
+
+        def sdpa(qs=qs, ks=ks, vs=vs, do4=do4, hd=hd):
+            o = F.scaled_dot_product_attention(qs, ks, vs, scale=1 / math.sqrt(hd))
+            return torch.autograd.grad(o, (qs, ks, vs), do4)
+
+        row(name, "attn_bwd/attention", run, plain, err, 10 * n * heads * t * t * hd,
+            n * t * 3 * d * 4 + n * t * d * 4 + n * t * 3 * d * 4, sdpa, f"{PALLAS}:643", BWD_SRC,
+            "f32/mega_attn+sequence")
+    # out_gate_residual_bwd in f32
+    for name, (n, t, d) in F32_OUT_GATE_SHAPES.items():
+        attn, dy = randn(n * t, d), randn(n * t, d)
+        w = normalize(randn(d, d)).contiguous()
+        mods = randn(n, 3 * d)
+
+        def run(attn=attn, w=w, dy=dy, mods=mods, t=t, d=d):
+            return ab.out_gate_residual_bwd(attn, w, dy, mods, 2 * d, t)
+
+        def plain(attn=attn, w=w, dy=dy, mods=mods, t=t, d=d):
+            return ab.out_gate_residual_bwd_plain(attn, w, dy, mods, 2 * d, t)
+
+        got = launched_once("attn_bwd/out_gate_residual", run)
+        err = max(compare(torch, g_, w_, F32_TOL, F32_TOL, f"{name}:{nm}")
+                  for nm, g_, w_ in zip(("dout", "dgate"), got, plain()))
+        m = n * t
+        row(name, "attn_bwd/out_gate_residual", run, plain, err, 2 * m * d * d, 4 * (3 * m * d + d * d + n * 2 * d),
+            lambda attn=attn, w=w: torch.matmul(attn, w.t()), f"{PALLAS}:622", GEMM_SRC, "f32/mega_attn+sequence")
+    # the dattn and dh products, W read as (K, N), and modulate_fwd writing f32 h
+    n, t, d = TRAIN_BATCH, 64, 384
+    m, inv_d = n * t, 1 / math.sqrt(d)
+    for site, (a_, w_) in (("dattn", (randn(m, d), normalize(randn(d, d)).contiguous())),
+                           ("dh", (randn(m, 3 * d), normalize(randn(3 * d, d)).contiguous()))):
+        kw = dict(a=a_, w=w_, alpha=inv_d, out_dtype=f32, w_kn=True)
+        name = f"mp_gemm:f32/{site}"
+
+        def run(kw=kw, site=site):
+            return k.mp_gemm(**kw, site=site)
+
+        def plain(kw=kw):
+            return k.mp_gemm_plain(**kw)
+
+        got = launched_once(f"mp_gemm/{site}", run)
+        err = compare(torch, got, plain(), F32_TOL, F32_TOL, name)
+        kk, nn = a_.shape[1], w_.shape[1]
+        row(name, f"mp_gemm/{site}", run, plain, err, 2 * m * nn * kk, 4 * (m * kk + kk * nn + m * nn),
+            lambda a_=a_, w_=w_: torch.matmul(a_, w_), f"{PALLAS}:{636 if site == 'dattn' else 683}", GEMM_SRC,
+            "f32/mega_attn+sequence")
+    x, mods, gain = randn(m, d), randn(n, 3 * d), torch.tensor([0.37], device=dev)
+
+    def run():
+        return ab.modulate_fwd(x, mods, gain, t, f32)
+
+    def plain():
+        return ab.modulate_fwd_plain(x, mods, gain, t, f32)
+
+    got = launched_once("attn_bwd/modulate_fwd", run)
+    err = compare(torch, got, plain(), F32_TOL, F32_TOL, "modulate_fwd:f32")
+    shift, scale = mods[:, :d].repeat_interleave(t, 0), mods[:, d:2 * d].repeat_interleave(t, 0)
+    row("modulate_fwd:f32", "attn_bwd/modulate_fwd", run, plain, err, 0, 4 * (2 * m * d + 2 * n * d),
+        lambda: torch.addcmul(shift, x, scale), f"{PALLAS}:588", BWD_SRC, "f32/mega_attn+sequence")
     return rows
 
 
@@ -2381,6 +2613,71 @@ def f32_closer(what: str, ref, f32_kernel, bf16_kernel) -> float:
     return ratio
 
 
+def f32_step_closer(torch, tag: str, losses: dict, grads: dict, kernel_paths, bf16_path: str) -> None:
+    """Each f32 kernel path's loss and every gradient at least F32_CLOSER
+    times closer to the f32 plain step ("f32") than ``bf16_path``'s
+    (f32_distances), one check line a path."""
+    for name in kernel_paths:
+        f32_closer(f"{tag}:{name}:loss", losses["f32"], losses[name], losses[bf16_path])
+        dist = {key: f32_distances(want, grads[name][key], grads[bf16_path][key])
+                for key, want in grads["f32"].items()}
+        failed = {key: v[:2] for key, v in dist.items() if not v[2]}
+        ratio = {key: (e16 / e32 if e32 > 0 else math.inf) for key, (e32, e16, _) in dist.items()}
+        worst = min(ratio, key=ratio.get)
+        phase("check", what=f"{tag}:{name}:grads", parameters=len(dist),
+              zero_on_plain=sum(float(w.norm()) == 0 for w in grads["f32"].values()),
+              f32_kernel_rel_l2_max=f"{max(v[0] for v in dist.values()):.4e}",
+              bf16_kernel_rel_l2_min=f"{min(v[1] for v in dist.values()):.4e}", worst_ratio=f"{ratio[worst]:.1f}",
+              worst=worst, tol=f"ratio>={F32_CLOSER:g} each", ok=not failed)
+        if failed:
+            raise AssertionError(f"{tag}/{name}: gradients not {F32_CLOSER}x closer to the f32 plain step: {failed}")
+
+
+def f32_checked_steps(torch, dev, tag: str, paths: dict, sd0, batch, draws, stats) -> tuple:
+    """One checked train step (make_train_step on the same weights and
+    injected draws) for each (config, expected launch counts, context) of
+    ``paths``, the counts held exact. Returns ({path: loss}, {path:
+    {parameter: gradient}}, {path: launch counts})."""
+    losses, grads, counts = {}, {}, {}
+    for name, (c, expect, around) in paths.items():
+        with around():
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            state, _, loss, g = checked_step(torch, dev, c, sd0, batch, draws, stats)
+            torch.cuda.synchronize()
+            counts[name] = launch_counts()
+        check_counts(f"{tag}/{name}", counts[name], expect)
+        losses[name] = loss.float().reshape(1)
+        grads[name] = {key: v.float().clone() for key, v in g.items() if v is not None}
+        phase("f32", step=tag, path=name, loss=f"{float(loss):.6f}",
+              launches=json.dumps({key: v for key, v in counts[name].items() if v}))
+        del state, g
+        torch.cuda.empty_cache()
+    return losses, grads, counts
+
+
+def f32_train_cli(torch, tmp: str, common: list, kernel: str, steps: int, *flags) -> tuple:
+    """The train CLI in process (float32, its default) on --block-kernel
+    ``kernel`` for ``steps`` steps under ``tmp``, the launch counts zeroed
+    first: (experiment, its metrics rows, the launch counts, seconds with
+    set-up). Raises on a missing row or a non-finite loss."""
+    from mapdit_tpu_torch import train
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    exp = train.main(train.build_parser().parse_args(
+        [*common, "--block-kernel", kernel, "--num-steps", str(steps), "--results-dir", os.path.join(tmp, kernel),
+         *flags]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    if len(rows) != steps or not all(math.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"f32 train CLI ({kernel}): {len(rows)} rows or a non-finite loss in {exp}")
+    return exp, rows, launch_counts(), seconds
+
+
 def f32_phase(torch, dev, cfg) -> dict:
     """Phase 6d, float32 at full DiT-S/2 on dit_stack's f32 instances:
     (1) one train step (make_train_step, the same weights and injected
@@ -2403,7 +2700,7 @@ def f32_phase(torch, dev, cfg) -> dict:
     has exact launch counts. Returns {path: launch counts}."""
     import io
 
-    from mapdit_tpu_torch import bench, sample, train
+    from mapdit_tpu_torch import bench, sample
     from mapdit_tpu_torch.diffusion import create_diffusion
     from mapdit_tpu_torch.models import init_model
     from mapdit_tpu_torch.ops.cuda import dit_block as k
@@ -2421,32 +2718,12 @@ def f32_phase(torch, dev, cfg) -> dict:
     sd0 = init.state_dict()
     del init
     ds, batch, draws = train_inputs(torch, dev, cfg, F32_TRAIN_BATCH)
-    losses, grads = {}, {}
-    for name, c in (("f32", c32), ("f32+mega", c32.replace(block_kernel="mega")),
-                    ("bf16+mega", cfg.replace(block_kernel="mega"))):
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        state, _, loss, g = checked_step(torch, dev, c, sd0, batch, draws, ds.stats)
-        torch.cuda.synchronize()
-        check_counts(f"f32/step/{name}", launch_counts(),
-                     {} if name == "f32" else {"fused_dit_block": depth, "dit_stack": depth})
-        losses[name] = loss.float().reshape(1)
-        grads[name] = {key: v.float().clone() for key, v in g.items() if v is not None}
-        del state, g
-        torch.cuda.empty_cache()
-    f32_closer("f32/step:loss", losses["f32"], losses["f32+mega"], losses["bf16+mega"])
-    dist = {key: f32_distances(want, grads["f32+mega"][key], grads["bf16+mega"][key])
-            for key, want in grads["f32"].items()}
-    failed = {key: v[:2] for key, v in dist.items() if not v[2]}
-    ratio = {key: (e16 / e32 if e32 > 0 else math.inf) for key, (e32, e16, _) in dist.items()}
-    worst = min(ratio, key=ratio.get)
-    phase("check", what="f32/step:grads", parameters=len(dist), zero_on_plain=sum(
-              float(w.norm()) == 0 for w in grads["f32"].values()),
-          f32_kernel_rel_l2_max=f"{max(v[0] for v in dist.values()):.4e}",
-          bf16_kernel_rel_l2_min=f"{min(v[1] for v in dist.values()):.4e}", worst_ratio=f"{ratio[worst]:.1f}",
-          worst=worst, tol=f"ratio>={F32_CLOSER:g} each", ok=not failed)
-    if failed:
-        raise AssertionError(f"f32 step: gradients not {F32_CLOSER}x closer to the f32 plain step: {failed}")
+    mega = {"fused_dit_block": depth, "dit_stack": depth}
+    none = contextlib.nullcontext
+    paths = {"f32": (c32, {}, none), "f32+mega": (c32.replace(block_kernel="mega"), mega, none),
+             "bf16+mega": (cfg.replace(block_kernel="mega"), mega, none)}
+    losses, grads, _ = f32_checked_steps(torch, dev, "f32/step", paths, sd0, batch, draws, ds.stats)
+    f32_step_closer(torch, "f32/step", losses, grads, ("f32+mega",), "bf16+mega")
     del grads
 
     with tempfile.TemporaryDirectory(prefix="mapdit_f32_") as tmp:
@@ -2456,19 +2733,7 @@ def f32_phase(torch, dev, cfg) -> dict:
                   "--num-lin-warmup", "2", "--start-decay", "10"]
 
         def cli(kernel, steps, *flags):
-            torch.cuda.synchronize()
-            reset_launch_counts()
-            t0 = time.perf_counter()
-            exp = train.main(train.build_parser().parse_args(
-                [*common, "--block-kernel", kernel, "--num-steps", str(steps), "--results-dir",
-                 os.path.join(tmp, kernel), *flags]))
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            with open(os.path.join(exp, "metrics.jsonl")) as f:
-                rows = [json.loads(line) for line in f]
-            if len(rows) != steps or not all(math.isfinite(r["loss"]) for r in rows):
-                raise AssertionError(f"f32 train CLI ({kernel}): {len(rows)} rows or a non-finite loss in {exp}")
-            return exp, rows, launch_counts(), seconds
+            return f32_train_cli(torch, tmp, common, kernel, steps, *flags)
 
         exp, rows, counts, seconds = cli("mega", F32_CLI_STEPS, "--ckpt-every", str(F32_CLI_STEPS),
                                          "--ema-snapshot-every", str(F32_CLI_STEPS))
@@ -2575,6 +2840,131 @@ def f32_phase(torch, dev, cfg) -> dict:
             raise AssertionError(f"bench --dtype float32 --block-kernel {kernel} ran {result['block_kernel']}")
         torch.cuda.empty_cache()
     phase("f32", seconds=f"{time.perf_counter() - t_phase:.2f}")
+    return out
+
+
+# phase 6e: float32 on the attention half-block kernels (rows 3, 5 and 4's
+# f32 instances and their f32 launch sequences), at phase 6d's batch, CLI
+# steps and ddim chain; the checked step at 32 x 32 latents (T = 256: the
+# sequences' route) takes this batch
+F32_T256_BATCH = 8
+
+
+def f32_attn_phase(torch, dev, cfg) -> dict:
+    """Phase 6e, float32 at full DiT-S/2 on the attention half-block's f32
+    kernels (rows 3, 5 and 4: csrc/attn_branch.cu's f32 instances; past
+    their domain the f32 launch sequences): (1) one checked train step at
+    F32_TRAIN_BATCH on the f32 plain path, on f32 mega_attn with attn_bwd
+    pallas and residual (one launch a block of rows 3 and 4, or of row 5),
+    on each again as its launch sequence (attn_branch.BRANCH_KERNELS off:
+    the path the sequences' kernels count their launches on) and on bf16
+    mega_attn: every f32 kernel path's loss and every gradient at least
+    F32_CLOSER times closer to the f32 plain step than bf16 mega_attn's;
+    (2) the train CLI in process at its default --compute-dtype float32 with
+    --block-kernel mega_attn --attn-bwd pallas (F32_CLI_STEPS steps, a
+    checkpoint), its first logged loss held to a one-step run of the CLI on
+    --block-kernel off at F32_TOL; (3) mapdit_tpu_torch.sample on that
+    experiment with --block-kernel mega_attn, ddim F32_CHAIN_STEPS (one
+    row 3 launch a block and model call); (4) one checked f32 step at 32 x
+    32 latents (T = 256, F32_T256_BATCH rows) on mega_attn + pallas, whose
+    rows take their f32 launch sequences there, against the f32 plain step
+    and bf16 mega_attn's by the same rule. Every run has exact launch counts.
+    Returns {path: launch counts}."""
+    from mapdit_tpu_torch import sample
+    from mapdit_tpu_torch.models import init_model
+    from mapdit_tpu_torch.ops.cuda import attn_branch as ab
+    from mapdit_tpu_torch.utils.experiment import load_config
+
+    t_phase = time.perf_counter()
+    depth = cfg.depth
+    c32 = cfg.replace(compute_dtype="float32")
+    none = contextlib.nullcontext
+    out = {}
+
+    # 1. the checked step
+    init = init_model(cfg, seed=SEED, device="cpu")
+    draw_gains(torch, init, SEED)
+    sd0 = init.state_dict()
+    del init
+    ds, batch, draws = train_inputs(torch, dev, cfg, F32_TRAIN_BATCH)
+    pallas, residual = (dict(block_kernel="mega_attn", attn_bwd=bwd) for bwd in ("pallas", "residual"))
+    res_seq = {"attn_branch/res_fwd/sequence": depth, "mp_gemm/qkv": depth, "mp_gemm/out": depth,
+               "cosine_attention/residual": depth}
+    paths = {
+        "f32": (c32, {}, none),
+        "f32+mega_attn+pallas": (c32.replace(**pallas), mega_attn_expect(ab, depth, 1, remat=False), none),
+        "f32+mega_attn+residual": (c32.replace(**residual), {"attn_branch/res_fwd": ROW5_LAUNCHES * depth}, none),
+        "f32+mega_attn+sequence": (c32.replace(**pallas), mega_attn_expect(ab, depth, 1, remat=False, sequence=True),
+                                   lambda: launch_sequences(ab)),
+        "f32+mega_attn+residual+sequence": (c32.replace(**residual), res_seq, lambda: launch_sequences(ab)),
+        "bf16+mega_attn+pallas": (cfg.replace(**pallas), mega_attn_expect(ab, depth, 1, remat=False), none),
+    }
+    losses, grads, counts = f32_checked_steps(torch, dev, "f32-attn/step", paths, sd0, batch, draws, ds.stats)
+    f32_step_closer(torch, "f32-attn/step", losses, grads, [p for p in paths if p.startswith("f32+")],
+                    "bf16+mega_attn+pallas")
+    out.update({f"f32/{name[4:]}": counts[name] for name in paths if name.startswith("f32+")})
+    del grads
+
+    with tempfile.TemporaryDirectory(prefix="mapdit_f32_attn_") as tmp:
+        # 2. the train CLI
+        common = ["--model", MODEL, "--data-path", "synthetic:1024", "--batch-size", str(F32_TRAIN_BATCH),
+                  "--num-classes", "1000", "--log-every", "1", "--metrics-jsonl", "auto", "--num-lin-warmup", "2",
+                  "--start-decay", "10"]
+
+        def cli(kernel, steps, *flags):
+            return f32_train_cli(torch, tmp, common, kernel, steps, *flags)
+
+        steps = F32_CLI_STEPS
+        exp, rows, counts, seconds = cli("mega_attn", steps, "--attn-bwd", "pallas", "--ckpt-every", str(steps),
+                                         "--ema-snapshot-every", str(steps))
+        check_counts("f32-attn/train-cli", counts, mega_attn_expect(ab, depth, steps, remat=False))
+        out["f32/attn-train-cli"] = counts
+        _, rows_off, _, _ = cli("off", 1, "--ckpt-every", "1000", "--ema-snapshot-every", "0")
+        rel = abs(rows[0]["loss"] - rows_off[0]["loss"]) / abs(rows_off[0]["loss"])
+        dtype = load_config(exp)["compute_dtype"]
+        phase("f32-attn", cli="train", block_kernel="mega_attn", attn_bwd="pallas", compute_dtype=dtype,
+              batch=F32_TRAIN_BATCH, steps=steps, seconds_with_setup=f"{seconds:.3f}",
+              losses=json.dumps([r["loss"] for r in rows]), first_loss_off=f"{rows_off[0]['loss']:.6f}",
+              first_loss_rel_diff=f"{rel:.3e}", tol=f"{F32_TOL:g}",
+              launches=json.dumps({key: v for key, v in counts.items() if v}))
+        if rel > F32_TOL or dtype != "float32":
+            raise AssertionError(f"f32 train CLI on mega_attn: first loss {rows[0]['loss']} against "
+                                 f"{rows_off[0]['loss']} off ({dtype})")
+
+        # 3. the sample CLI on that experiment
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        png = sample.main(sample.build_parser().parse_args(
+            ["--result-dir", exp, "--use-vae", "false", "--block-kernel", "mega_attn", "--sampler", "ddim",
+             "--num-sampling-steps", str(F32_CHAIN_STEPS), "--clip-denoised", "true", "--class-label", "3",
+             "--output-file", os.path.join(tmp, "f32_attn.png")]))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        check_counts("f32-attn/sample-cli", counts, {"attn_branch/fwd": ROW3_LAUNCHES * depth * F32_CHAIN_STEPS})
+        out["f32/attn-sample-cli"] = counts
+        phase("f32-attn", cli="sample", block_kernel="mega_attn", sampler="ddim", steps=F32_CHAIN_STEPS,
+              png=json.dumps(png_check(png)), seconds=f"{seconds:.3f}",
+              launches=json.dumps({key: v for key, v in counts.items() if v}))
+
+    # 4. one checked step at 32 x 32 latents: the rows' f32 launch sequences
+    c256 = cfg.replace(input_size=32)
+    init = init_model(c256, seed=SEED, device="cpu")
+    draw_gains(torch, init, SEED)
+    sd0 = init.state_dict()
+    del init
+    ds, batch, draws = train_inputs(torch, dev, c256, F32_T256_BATCH)
+    seq = mega_attn_expect(ab, depth, 1, remat=False, sequence=True)
+    paths = {"f32": (c256.replace(compute_dtype="float32"), {}, none),
+             "f32+mega_attn+pallas": (c256.replace(compute_dtype="float32", **pallas), seq, none),
+             "bf16+mega_attn+pallas": (c256.replace(**pallas), seq, none)}
+    losses, grads, counts = f32_checked_steps(torch, dev, "f32-attn/t256-step", paths, sd0, batch, draws, ds.stats)
+    f32_step_closer(torch, "f32-attn/t256-step", losses, grads, ("f32+mega_attn+pallas",), "bf16+mega_attn+pallas")
+    out["f32/t256/mega_attn+pallas"] = counts["f32+mega_attn+pallas"]
+    del grads
+    torch.cuda.empty_cache()
+    phase("f32-attn", seconds=f"{time.perf_counter() - t_phase:.2f}")
     return out
 
 
@@ -5728,6 +6118,11 @@ def main() -> int:
     rows["mp_gemm:f32"] = dict(f32_gemm["block"], path="f32/mega_stack+sequence", count_key="mp_gemm")
     rows["cosine_attention:f32"] = dict(f32_cos["cosine_attention:f32"], path="f32/mega_stack+sequence",
                                         count_key="cosine_attention")
+    # the attention half-block's f32 forms: rows 3, 5 and 4 (their launches
+    # from phase 6e's f32 mega_attn paths) and their launch sequences' own
+    # kernels (from phase 6e's f32 sequence path)
+    rows.update(f32_branch_rows(torch, dev))
+    rows.update(f32_part_rows(torch, F, dev))
     elapsed("3.f32")
     for name, row in rows.items():
         phase("time", kernel=name, ms=f"{row['ms']:.4f}", plain_ms=f"{row['plain_ms']:.4f}",
@@ -5840,6 +6235,12 @@ def main() -> int:
     train_launches.update(f32_phase(torch, dev, cfg))
     torch.cuda.empty_cache()
     elapsed("6d")
+
+    # 6e. float32 on the attention half-block kernels: the checked steps, the
+    # train CLI on mega_attn, the sample CLI on mega_attn, T = 256
+    train_launches.update(f32_attn_phase(torch, dev, cfg))
+    torch.cuda.empty_cache()
+    elapsed("6e")
 
     # 7. the flag families at DiT-B/2
     family_launches = {T256_BENCH: bench_counts["ddpm-50-input-32-mega-stack"]}

@@ -55,9 +55,10 @@
 // Bound on the H100 (the larger of the bytes over 3.35 TB/s and the
 // products' FLOPs over 989 TFLOP/s; mapdit_tpu_torch/tools/
 // bench_attn_branch.py bounds): DiT-S/2 at 256 x 64 tokens, row 3 0.0212 ms,
-// row 4 without its dW products 0.0448, row 5 0.0212 (its 64.7 MB, p 25.2
-// of them, take 0.0193; all by operations); DiT-XL/2 at 256 0.1808, 0.3689
-// and 0.1808 (row 5's 192.7 MB: 0.0575).
+// row 4 without its dW products 0.0440, row 5 0.0212 (its 64.7 MB, p 25.2
+// of them, take 0.0193; all by operations); DiT-XL/2 at 256 0.1808, 0.3664
+// and 0.1808 (row 5's 192.7 MB: 0.0575). The f32 instances, on the f32
+// pipes' 67 TFLOP/s: S/2 0.3125, 0.6491 and 0.3125 ms (operations).
 //
 // Design: the TP kernels' (dit_block_tp.cu), on work_list.cuh's machinery:
 //   * One cooperative launch of one CTA an SM; a producer warpgroup (a TMA
@@ -103,12 +104,36 @@
 //     global memory; the item that takes the last ticket of them sums them
 //     in tile order and divides by den. No float atomics: the same bits on
 //     every run.
-//   * Two kernels a head width: attn_branch_kernel<HD, false> runs rows 3
-//     and 4 (the list's kinds chosen at run time), <HD, true> row 5 (the
-//     forward stages alone, p stored: the backward's stages and epilogues
-//     are compiled out).
+//   * Two kernels a head width in bf16: attn_branch_kernel<HD, false,
+//     false, false> runs rows 3 and 4 (the list's kinds chosen at run
+//     time), <HD, true, false, false> row 5 (the forward stages alone, p
+//     stored: the backward's stages and epilogues are compiled out). Three
+//     in f32: <HD, false, true, false> row 4, <HD, true, true, false> row 5
+//     and <HD, false, true, true> row 3 (its own forward-only instance:
+//     sharing row 4's, its consumers spilled 1332-1544 bytes a thread
+//     against row 5's 48, and row 3 ran at 1.1874 ms against row 5's
+//     0.8491 and its launch sequence's 0.8206 at S/2 x 256: chip_smoke.py's
+//     phase-3 rows, NVIDIA H100 80GB HBM3, 700.00 W). The f32 ones are
+//     built from attn_branch_f32.cu (this file with ATTN_BRANCH_F32 set),
+//     a library of their own that nvcc compiles beside this one: in one
+//     unit the five instances took 110 s of the kernels' build.
 //   * -Xptxas -v (sm_90a): 168 registers each; rows 3 and 4's kernel 396 /
 //     280 bytes of spill stores at head width 72 / 64, row 5's 56 / 44.
+//   * The f32 instances (attn_branch_kernel<HD, RES, true, FWD>; a float32 model:
+//     the Pallas kernels at dtype = float32, where nothing is rounded): the
+//     same lists, plans and handoffs; the products on the f32 pipes through
+//     the same ring at k depth 32 (gemm_pipeline.cuh consume_tile_f32, W
+//     read as (K, N) in four 32-column boxes a stage); h, attn, dout and
+//     dqkv stored in f32, y and dx in x's type (f32). The pre items read x
+//     through the read-only path, not the ring (an f32 row of XL/2 would
+//     outgrow a stage's boxes), and write f32 h. A forward unit's f32 q, k
+//     and v rows (cosine_tiles.cuh's f32 core, 59 KB at hd 72) lie in the
+//     ring, both groups' at once, read through L2 (no prefetch); a backward
+//     unit (attention_bwd_f32.cuh: four f32 tiles and the row sums, 79 KB
+//     at hd 72) lies in the ring for the first group and in the epilogue
+//     tile's and sums' memory for the second, once the store warp is
+//     through with the tile. dgain's tile partials are the bf16 kernel's:
+//     the same 128 x 128 tiles, the same order.
 // Forms built and measured (bench_attn_branch.py, S/2 graph ms of rows 3 /
 // 4 over their launch sequences' in the same call; NVIDIA H100 80GB HBM3,
 // 700.00 W; a machine's own speed moves both by up to ~10% between calls):
@@ -142,10 +167,20 @@
 
 #include <initializer_list>
 
+#include "attention_bwd_f32.cuh"
 #include "attention_bwd_tiles.cuh"
 #include "work_list.cuh"
 
+// Which element type this translation unit instantiates and exports: the
+// bf16 instances here, the f32 ones where attn_branch_f32.cu includes this
+// file with ATTN_BRANCH_F32 set, so that nvcc compiles the two at once.
+#ifndef ATTN_BRANCH_F32
+#define ATTN_BRANCH_F32 0
+#endif
+
 namespace {
+
+constexpr bool TU_F32 = ATTN_BRANCH_F32;
 
 using namespace work_list;
 
@@ -176,6 +211,12 @@ static_assert(2 * attn_bwd_tiles::BwdLayout<72, 1>::BYTES <= STAGES * STAGE_BYTE
               "two attention backward units must fit in the ring");
 static_assert(TILE_BYTES % 16 == 0 && 2 * AttnSmem<72>::BYTES <= TILE_BYTES + SUMS_FLOATS * 4,
               "two attention units' tiles must fit in the f32 tile's and the sums' memory");
+// the f32 instances: both forward units' f32 rows in the ring; a backward
+// unit in the ring and one in the f32 tile's and the sums' memory
+static_assert(2 * cosine_tiles::DimsF32<72>::BYTES <= STAGES * STAGE_BYTES, "two f32 units must fit in the ring");
+constexpr int F32_BWD_BYTES = attn_bwd_f32::Layout<72, attn_tiles::TILE>::BYTES;
+static_assert(F32_BWD_BYTES <= STAGES * STAGE_BYTES && F32_BWD_BYTES <= TILE_BYTES + SUMS_FLOATS * 4,
+              "an f32 attention backward unit must fit in the ring and in the tile's memory");
 // the trace, a CTA's ns: [s] in the items of stage s (up to seven), [7] in
 // its pre items' bodies, [8] its start and [9] its end (the clock), [10] in
 // product mainloops (ring waits included), [11] in product epilogues, [12]
@@ -252,7 +293,32 @@ struct Args {
   float* dgain;
   float* dgain_partial;  // one a dh tile
   int dgain_ticket;      // sync word
+  // the f32 instances' x, h, attn and dqkv (f32; y, dout and dx go through
+  // the products' C)
+  const float* x32;
+  float* amod32;
+  float* attn32;
+  float* dqkv32;
 };
+
+// the element of x, y, h, attn, dout, dqkv and dx: bf16, or f32 in the f32
+// instances
+template <bool F32>
+struct Elem {
+  using T = __nv_bfloat16;
+};
+template <>
+struct Elem<true> {
+  using T = float;
+};
+
+template <bool F32>
+__device__ __forceinline__ const typename Elem<F32>::T* x_of(const Args& A) {
+  if constexpr (F32)
+    return A.x32;
+  else
+    return A.x;
+}
 
 __device__ __forceinline__ void load_rows8(const Args& A, const void* rows, int ld, int64_t sample, int col,
                                            float (&v)[8]) {
@@ -281,18 +347,19 @@ __device__ __forceinline__ void read_tile8(const float* tile, int r, int c, floa
 // alpha), 0.3) in x's type (gemm_pipeline.cuh's residual8, mp_gemm.cu's
 // RESIDUAL). A consumer thread's chunks share its eight columns (rows tid /
 // 16 + 16 k), their x and gate loads FLIGHT rows at a time.
+template <bool F32>
 __device__ __forceinline__ void residual_tile(const Args& A, const Prod& p, const float* tile, int m0, int n0,
                                               int tid) {
   constexpr int STEP = CONSUMER_THREADS / (BN / 8);
   const int c = 8 * (tid % (BN / 8)), col = n0 + c, r0 = tid / (BN / 8);
   if (col >= p.n) return;
-  __nv_bfloat16* y = static_cast<__nv_bfloat16*>(p.c);
+  typename Elem<F32>::T* y = static_cast<typename Elem<F32>::T*>(p.c);
   for (int h = 0; h < BM / STEP; h += FLIGHT) {
     float xv[FLIGHT][8], g[FLIGHT][8];
 #pragma unroll
     for (int i = 0; i < FLIGHT; ++i) {
       const int row = min(m0 + r0 + STEP * (h + i), p.m - 1);
-      modulate::load8(A.x + static_cast<int64_t>(row) * p.n + col, xv[i]);
+      modulate::load8(x_of<F32>(A) + static_cast<int64_t>(row) * p.n + col, xv[i]);
       load_rows8(A, A.gate, A.gate_ld, row / A.t, col, g[i]);
     }
 #pragma unroll
@@ -334,12 +401,13 @@ __device__ __forceinline__ void sample_sums(const float* plane_a, const float* p
 // The backward's out epilogue on the staged tile (out = v * alpha, never
 // stored): dout = bf16(db * gate), dgate = sum_t db * out, db = dy * db_fac;
 // mp_gemm.cu's GATE_RESIDUAL_BWD layout and order (its FLIGHT 1 form).
+template <bool F32>
 __device__ __forceinline__ void gate_bwd_tile(const Args& A, const Prod& p, const float* tile, float* sums, int m0,
                                               int n0, int tid) {
   const int chunk = tid % (BN / 8), grp = tid / (BN / 8);
   const int col = n0 + 8 * chunk, t = A.t, r0 = GR_ROWS * grp;
   const int rows = min(GR_ROWS, p.m - (m0 + r0));
-  __nv_bfloat16* dout = static_cast<__nv_bfloat16*>(p.c);
+  typename Elem<F32>::T* dout = static_cast<typename Elem<F32>::T*>(p.c);
   float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, gate[8];
   if (col < p.n) {
     for (int h = 0; h < rows; h += FLIGHT) {
@@ -385,6 +453,7 @@ __device__ __forceinline__ void gate_bwd_tile(const Args& A, const Prod& p, cons
 // modulate's backward with the residual's direct path, attn_branch_bwd.cu's
 // modulate_bwd arithmetic, a thread's rows summed in order. Returns the
 // thread's share of the tile's dgain sum.
+template <bool F32>
 __device__ __forceinline__ float mod_bwd_tile(const Args& A, const Prod& p, const float* tile, float* sums, int m0,
                                               int n0, int tid) {
   const int chunk = tid % (BN / 8), grp = tid / (BN / 8);
@@ -393,7 +462,7 @@ __device__ __forceinline__ float mod_bwd_tile(const Args& A, const Prod& p, cons
   const float g = __ldg(A.gain);
   const float den = modulate::denominator(g);
   const float du_fac = (1.f - g) / den, dsh_fac = g / den;
-  __nv_bfloat16* dx = static_cast<__nv_bfloat16*>(p.c);
+  typename Elem<F32>::T* dx = static_cast<typename Elem<F32>::T*>(p.c);
   float acc_dh[8], acc_sc[8], sh[8], sc[8], acc_gain = 0.f;
 #pragma unroll
   for (int e = 0; e < 8; ++e) acc_dh[e] = acc_sc[e] = 0.f;
@@ -403,7 +472,7 @@ __device__ __forceinline__ float mod_bwd_tile(const Args& A, const Prod& p, cons
 #pragma unroll
       for (int i = 0; i < FLIGHT; ++i) {
         const int64_t idx = static_cast<int64_t>(m0 + r0 + min(h + i, rows - 1)) * p.n + col;
-        modulate::load8(A.x + idx, xv[i]);
+        modulate::load8(x_of<F32>(A) + idx, xv[i]);
         load_dy8(A, idx, yv[i]);
       }
 #pragma unroll
@@ -489,9 +558,10 @@ __device__ __forceinline__ void dgain_tile(const Args& A, const Prod& p, int til
 }
 
 // The consumers' side of product item j of stage s: the k steps, the
-// staged tile, the stage's epilogue (RES: row 5's list, forward epilogues
-// only).
-template <bool RES>
+// staged tile, the stage's epilogue (RES: a forward list, row 5's or an f32
+// row 3's, forward epilogues only; F32: the f32 instances, products on the
+// f32 pipes).
+template <bool RES, bool F32>
 __device__ __forceinline__ void consume_product(const Args& A, const Ring<STAGES>& ring, float* tile, float* sums,
                                                 float* warp_sums, const TileHand& th, uint32_t& f32_staged, int s,
                                                 int j, volatile int* last, uint32_t& it, unsigned long long* spent) {
@@ -502,10 +572,16 @@ __device__ __forceinline__ void consume_product(const Args& A, const Ring<STAGES
   unsigned long long t0 = global_ns();
   {
     float acc[64];
-    if (p.w_kn)
+    if constexpr (F32) {
+      if (p.w_kn)
+        consume_tile_f32<STAGES, true>(ring, acc, tid, active, tl.nk, it);
+      else
+        consume_tile_f32<STAGES, false>(ring, acc, tid, active, tl.nk, it);
+    } else if (p.w_kn) {
       consume_tile<STAGES, true>(ring, acc, wg, lane, active, tl.nk, it);
-    else
+    } else {
       consume_tile<STAGES, false>(ring, acc, wg, lane, active, tl.nk, it);
+    }
     if (tid == 0) {
       const unsigned long long t1 = global_ns();
       spent[T_MAINLOOP] += t1 - t0;
@@ -530,14 +606,15 @@ __device__ __forceinline__ void consume_product(const Args& A, const Ring<STAGES
       ++f32_staged;
       break;
     case EPI_RESIDUAL:
-      residual_tile(A, p, tile, tl.m0, tl.n0, tid);
+      residual_tile<F32>(A, p, tile, tl.m0, tl.n0, tid);
       break;
     case EPI_GATE_BWD:
-      if constexpr (!RES) gate_bwd_tile(A, p, tile, sums, tl.m0, tl.n0, tid);
+      if constexpr (!RES) gate_bwd_tile<F32>(A, p, tile, sums, tl.m0, tl.n0, tid);
       break;
     default:
       if constexpr (!RES)
-        dgain_tile(A, p, tl.tile_i, mod_bwd_tile(A, p, tile, sums, tl.m0, tl.n0, tid), sums, warp_sums, last, spent);
+        dgain_tile(A, p, tl.tile_i, mod_bwd_tile<F32>(A, p, tile, sums, tl.m0, tl.n0, tid), sums, warp_sums, last,
+                   spent);
   }
   if (tid == 0) spent[T_EPILOGUE] += global_ns() - t0;
 }
@@ -738,11 +815,184 @@ __device__ __forceinline__ void attention_item(const Args& A, const Maps& maps, 
   lap(2);
 }
 
+// ---------------------------------------------------------------------------
+// the f32 instances' pre and attention items (a float32 model: the Pallas
+// kernels at dtype = float32, nothing rounded)
+
+// Pre item j in f32: h = modulate(x; shift, scale, gain) on its token rows,
+// x read through the read-only path (not through the ring: an f32 row of
+// XL/2's width outgrows a stage's box rows), eight columns a thread and
+// step, PRE_UNROLL steps' loads in flight; then the row tile's counter.
+__device__ __forceinline__ void pre_item_f32(const Args& A, int s, int j, unsigned long long* body_ns) {
+  const unsigned long long t0 = global_ns();
+  const int tid = threadIdx.x, chunks = A.d / 8;
+  const int r0 = j * A.pre_rows, total = min(A.pre_rows, A.m - r0) * chunks;
+  const float g = __ldg(A.gain);
+  const float den = modulate::denominator(g), rcp = modulate::reciprocal(den);
+  for (int q0 = tid; q0 < total; q0 += PRE_UNROLL * CONSUMER_THREADS) {
+    float v[PRE_UNROLL][8], shift[PRE_UNROLL][8], scale[PRE_UNROLL][8];
+#pragma unroll
+    for (int u = 0; u < PRE_UNROLL; ++u) {
+      const int q = q0 + u * CONSUMER_THREADS;
+      if (q < total) {
+        const int64_t row = r0 + q / chunks;
+        const int col = 8 * (q % chunks);
+        modulate::load8(A.x32 + row * A.d + col, v[u]);
+        load_row8(A, A.shift, A.shift_ld, row / A.t, col, shift[u]);
+        load_row8(A, A.scale, A.scale_ld, row / A.t, col, scale[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < PRE_UNROLL; ++u) {
+      const int q = q0 + u * CONSUMER_THREADS;
+      if (q < total) {
+        modulate::modulate8_branchless(v[u], shift[u], scale[u], g, den, rcp);
+        modulate::store8(A.amod32 + static_cast<int64_t>(r0 + q / chunks) * A.d + 8 * (q % chunks), v[u]);
+      }
+    }
+  }
+  if (threadIdx.x == 0) *body_ns += global_ns() - t0;
+  // the qkv product's TMA loads (other CTAs) read these rows
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+  consumer_sync();
+  if (tid == 0) {
+    __threadfence();
+    atomicAdd(counter(A, s, r0 / BM), 1u);
+  }
+}
+
+// The f32 cosine attention of one unit (T <= 64: one key tile) once its f32
+// rows are staged: cosine_attention_f32's single-tile sweep. NORM_FIRST: p
+// = ex * (1/sum) (stored in f32 to probs where given), then p.v; else
+// (ex.v) * (1/sum).
+template <int HD, bool NORM_FIRST>
+__device__ __forceinline__ void attention_core_f32(const float* sq, const float* sk, const float* sv, const float* qsc,
+                                                   const float* ksc, float* out, int64_t ld, int t, int warp,
+                                                   int lane, float* probs) {
+  using namespace cosine_tiles;
+  if (warp * 16 >= t) return;
+  float s[4][8], sum[4] = {0.f, 0.f, 0.f, 0.f}, f[4];
+  exp_tile_f32<HD>(s, sq, sk, qsc, ksc, t, warp, lane);
+  add_row_sums_f32(sum, s);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) sum[i] = oct_sum(sum[i]);
+  const int r = warp * 16 + (lane >> 3), kc = lane & 7;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (NORM_FIRST) {
+      const float inv = 1.f / sum[i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] *= inv;
+      f[i] = 1.f;
+      if (probs != nullptr && r + 4 * i < t) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (kc + 8 * j < t) probs[(r + 4 * i) * t + kc + 8 * j] = s[i][j];
+      }
+    } else {
+      f[i] = 1.f / sum[i];
+    }
+  }
+  float o[4][DimsF32<HD>::NJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < DimsF32<HD>::NJ; ++jj) o[i][jj] = 0.f;
+  pv_tile_f32<HD>(o, s, sv, lane);
+  store_rows_f32<HD>(o, f, out, ld, t, warp, lane);
+}
+
+// One forward attention item in f32 on the group of four consumer warps
+// this thread is in: unit 2j + group, its rows read through L2 once they
+// are done, its f32 tiles in the group's part of the ring; then counted done.
+template <int HD, bool NORM_FIRST, bool STORE_P>
+__device__ __forceinline__ void attention_item_f32(const Args& A, int s, int j, uint8_t* ring_mem,
+                                                   unsigned long long* spent) {
+  using namespace cosine_tiles;
+  using D = DimsF32<HD>;
+  const int group = threadIdx.x / attn_tiles::THREADS, tid = threadIdx.x % attn_tiles::THREADS;
+  const int warp = tid >> 5, lane = tid & 31, unit = 2 * j + group;
+  if (unit >= A.samples * A.heads) return;
+  const int sample = unit / A.heads, head = unit % A.heads, t = A.t, ld = 3 * A.d;
+  const int r0 = sample * t / BM, r1 = (sample * t + t - 1) / BM;
+  const GroupSync sync{1 + group};
+  float* sq = reinterpret_cast<float*>(ring_mem + group * D::BYTES);
+  float* sk = sq + TILE * D::LD;
+  float* sv = sk + TILE * D::LD;
+  float* qsc = sv + TILE * D::LD;
+  float* ksc = qsc + TILE;
+  const unsigned long long t0 = global_ns();
+  if (tid == 0) {
+    for (int r = r0; r <= r1; ++r) spin_until(counter(A, s - 1, r), per_row(A, s - 1, r));
+    __threadfence();
+  }
+  sync();
+  const unsigned long long t1 = global_ns();
+  const float* base = A.qkv + static_cast<int64_t>(sample) * t * ld + head * HD;
+  Rows<HD> fq, fk, fv;
+  fetch<HD, true>(fq, base, ld, t, tid);
+  fetch<HD, true>(fk, base + A.d, ld, t, tid);
+  fetch<HD, true>(fv, base + 2 * A.d, ld, t, tid);
+  commit_f32<HD>(fq, sq, qsc, tid);
+  commit_f32<HD>(fk, sk, ksc, tid);
+  commit_f32<HD>(fv, sv, nullptr, tid);
+  sync();
+  const unsigned long long t2 = global_ns();
+  attention_core_f32<HD, NORM_FIRST>(sq, sk, sv, qsc, ksc,
+                                     A.attn32 + static_cast<int64_t>(sample) * t * A.d + head * HD, A.d, t, warp,
+                                     lane, STORE_P ? A.probs + static_cast<int64_t>(unit) * t * t : nullptr);
+  // the out product's TMA loads read these rows
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+  sync();
+  if (tid == 0) {
+    __threadfence();
+    for (int r = r0; r <= r1; ++r) atomicAdd(counter(A, s, r), 1u);
+  }
+  if (tid == 0 && group == 0) {
+    const unsigned long long t3 = global_ns();
+    spent[T_ATTN_PHASES] += t1 - t0;
+    spent[T_ATTN_PHASES + 1] += t2 - t1;
+    spent[T_ATTN_PHASES + 2] += t3 - t2;
+  }
+}
+
+// One (sample, head) unit of the attention backward in f32 on a group of
+// four consumer warps (attention_bwd_f32.cuh), its tiles at buf: wait for
+// the dattn rows of the sample's row tiles, run the unit, count it done.
+template <int HD>
+__device__ __forceinline__ void attention_bwd_item_f32(const Args& A, int s, int unit, float* buf, int group,
+                                                       unsigned long long* spent) {
+  const int tid = threadIdx.x % attn_tiles::THREADS;
+  const int sample = unit / A.heads, head = unit % A.heads, t = A.t;
+  const int r0 = sample * t / BM, r1 = (sample * t + t - 1) / BM;
+  const GroupSync sync{1 + group};
+  if (tid == 0) {
+    const unsigned long long t0 = global_ns();
+    for (int r = r0; r <= r1; ++r) spin_until(counter(A, s - 1, r), per_row(A, s - 1, r));
+    __threadfence();
+    if (group == 0) spent[T_ATTN_WAIT] += global_ns() - t0;
+  }
+  sync();
+  const unsigned long long t0 = global_ns();
+  attn_bwd_f32::attention_bwd_unit<HD, attn_tiles::TILE>(A.qkv, A.dattn, A.dqkv32, t, A.heads, sample, head, buf,
+                                                         tid, sync);
+  if (tid == 0 && group == 0) spent[T_ATTN_BWD_BODY] += global_ns() - t0;
+  // the dh product's TMA loads read these rows
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+  sync();
+  if (tid == 0) {
+    __threadfence();
+    for (int r = r0; r <= r1; ++r) atomicAdd(counter(A, s, r), 1u);
+  }
+}
+
 // The producer warpgroup: the TMA thread loads each pre item's rows of x
 // into a ring stage and issues each product item's loads once the rows it
 // reads are done (and none while the consumers run an attention item in the
 // ring); the signalling thread counts each product item done once the
-// consumers hand it over. Attention items are the consumers' alone.
+// consumers hand it over. Attention items are the consumers' alone, and in
+// the f32 instances (F32) the pre items too.
+template <bool F32>
 __device__ __forceinline__ void producer_main(const Maps& maps, const Args& A, const Ring<STAGES>& ring,
                                               const Handoff& hand, const Work& W) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -755,7 +1005,7 @@ __device__ __forceinline__ void producer_main(const Maps& maps, const Args& A, c
     W.locate(g, s, j);
     const int kind = A.kind[s];
     if (kind == S_PRE) {
-      if (loads) produce_pre(A, ring, &maps.m[MAP_X], j, it++);
+      if (loads && !F32) produce_pre(A, ring, &maps.m[MAP_X], j, it++);
       continue;
     }
     if (kind == S_ATTN || kind == S_ATTN_BWD) {
@@ -777,10 +1027,11 @@ __device__ __forceinline__ void producer_main(const Maps& maps, const Args& A, c
         spin_until(counter(A, s - 1, tl.r), per_row(A, s - 1, tl.r));
         asm volatile("fence.proxy.async;\n" ::: "memory");
       };
+      constexpr int KSTEP = F32 ? BK_F32 : BK;
       if (p.w_kn)
-        produce_item<true>(ring, &maps.m[p.a_map], &maps.m[p.w_map], tl, it, wait);
+        produce_item<true, KSTEP>(ring, &maps.m[p.a_map], &maps.m[p.w_map], tl, it, wait);
       else
-        produce_item<false>(ring, &maps.m[p.a_map], &maps.m[p.w_map], tl, it, wait);
+        produce_item<false, KSTEP>(ring, &maps.m[p.a_map], &maps.m[p.w_map], tl, it, wait);
     } else {
       mbar_wait(hand.done, handed & 1);
       __threadfence();
@@ -831,8 +1082,9 @@ __device__ __forceinline__ void store_main(const Args& A, const float* tile, con
 }
 
 // The two consumer warpgroups: their share of the list, in order (RES: row
-// 5's, whose attention stores p).
-template <int HD, bool RES>
+// 5's, whose attention stores p; F32: the f32 instances; FWD: row 3's list
+// alone, the backward's stages compiled out).
+template <int HD, bool RES, bool F32, bool FWD>
 __device__ __forceinline__ void consumer_main(const Maps& maps, const Args& A, const Ring<STAGES>& ring,
                                               uint8_t* ring_mem, float* tile, float* sums, float* warp_sums,
                                               const Handoff& hand, const TileHand& th, Prefetch* pf,
@@ -846,12 +1098,30 @@ __device__ __forceinline__ void consumer_main(const Maps& maps, const Args& A, c
     const unsigned long long t0 = global_ns();
     const int kind = A.kind[s];
     if (kind == S_PRE) {
-      consume_pre(A, ring, s, j, it, spent + T_PRE_BODY);
+      if constexpr (F32)
+        pre_item_f32(A, s, j, spent + T_PRE_BODY);
+      else
+        consume_pre(A, ring, s, j, it, spent + T_PRE_BODY);
     } else if (kind == S_ATTN || kind == S_ATTN_BWD) {
       // units 2j (the first group) and 2j + 1 (the second)
       const int group = tid / attn_tiles::THREADS, unit = 2 * j + group;
-      if (!RES && kind == S_ATTN_BWD) {
-        if (unit < A.samples * A.heads) attention_bwd_item<HD>(A, s, unit, ring_mem, group, spent);
+      if (!RES && !FWD && kind == S_ATTN_BWD) {
+        if constexpr (F32) {
+          // the second group's unit takes the f32 tile's memory: the store
+          // warp is through with it
+          if (f32_staged > 0) mbar_wait(th.free, (f32_staged - 1) & 1);
+          float* buf = group == 0 ? reinterpret_cast<float*>(ring_mem) : tile;
+          if (unit < A.samples * A.heads) attention_bwd_item_f32<HD>(A, s, unit, buf, group, spent);
+        } else if (unit < A.samples * A.heads) {
+          attention_bwd_item<HD>(A, s, unit, ring_mem, group, spent);
+        }
+      } else if constexpr (F32) {
+        if (RES)
+          attention_item_f32<HD, true, true>(A, s, j, ring_mem, spent);
+        else if (!FWD && A.bwd)
+          attention_item_f32<HD, true, false>(A, s, j, ring_mem, spent);
+        else
+          attention_item_f32<HD, false, false>(A, s, j, ring_mem, spent);
       } else {
         // the units' tiles take the f32 tile's memory: the store warp
         // are through with it
@@ -869,7 +1139,7 @@ __device__ __forceinline__ void consumer_main(const Maps& maps, const Args& A, c
       consumer_sync();
       if (tid == 0) *hand.attn_done = *hand.attn_done + 1;
     } else {
-      consume_product<RES>(A, ring, tile, sums, warp_sums, th, f32_staged, s, j, last, it, spent);
+      consume_product<RES || FWD, F32>(A, ring, tile, sums, warp_sums, th, f32_staged, s, j, last, it, spent);
       if (A.prod[s].epi == EPI_F32) {
         if (tid == 0) spent[s] += global_ns() - t0;
         continue;
@@ -887,7 +1157,7 @@ __device__ __forceinline__ void consumer_main(const Maps& maps, const Args& A, c
   }
 }
 
-template <int HD, bool RES>
+template <int HD, bool RES, bool F32, bool FWD>
 __global__ void __launch_bounds__(KERNEL_THREADS, 1)
     attn_branch_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Args A) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -927,10 +1197,11 @@ __global__ void __launch_bounds__(KERNEL_THREADS, 1)
     if (warp == STORE_WARP)
       store_main(A, tile, th, W, spent);
     else if (warp < STORE_WARP)
-      producer_main(maps, A, ring, hand, W);
+      producer_main<F32>(maps, A, ring, hand, W);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
-    consumer_main<HD, RES>(maps, A, ring, smem, tile, sums, warp_sums, hand, th, pf, pf_bar, W, last, spent);
+    consumer_main<HD, RES, F32, FWD>(maps, A, ring, smem, tile, sums, warp_sums, hand, th, pf, pf_bar, W, last,
+                                     spent);
   }
   __syncthreads();
   if (A.trace != nullptr && threadIdx.x == 0) {
@@ -942,14 +1213,14 @@ __global__ void __launch_bounds__(KERNEL_THREADS, 1)
   leave_launch(A);
 }
 
-template <int HD, bool RES>
+template <int HD, bool RES, bool F32, bool FWD>
 cudaError_t configure() {
   static bool configured = false;
   if (!configured) {
-    cudaError_t e =
-        cudaFuncSetAttribute(attn_branch_kernel<HD, RES>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    cudaError_t e = cudaFuncSetAttribute(attn_branch_kernel<HD, RES, F32, FWD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (e == cudaSuccess) {
-      e = cudaFuncSetAttribute(attn_branch_kernel<HD, RES>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      e = cudaFuncSetAttribute(attn_branch_kernel<HD, RES, F32, FWD>, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     }
     if (e != cudaSuccess) return e;
@@ -958,30 +1229,35 @@ cudaError_t configure() {
   return cudaSuccess;
 }
 
-template <int HD, bool RES>
+template <int HD, bool RES, bool F32, bool FWD = false>
 int resident_ctas() {
-  cudaError_t e = configure<HD, RES>();
+  cudaError_t e = configure<HD, RES, F32, FWD>();
   int dev = 0, sms = 0, per_sm = 0;
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, attn_branch_kernel<HD, RES>, KERNEL_THREADS,
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, attn_branch_kernel<HD, RES, F32, FWD>, KERNEL_THREADS,
                                                       SMEM_BYTES);
   return e == cudaSuccess ? sms * per_sm : -static_cast<int>(e);
 }
 
-// the CTAs both of a head width's kernels (rows 3 and 4, row 5) keep
-// resident at once, so one plan's CTAs suit either
-template <int HD>
+// the CTAs every kernel of a head width and element type (rows 3 and 4,
+// row 5; in f32 also row 3's own) keeps resident at once, so one plan's
+// CTAs suit any of them
+template <int HD, bool F32>
 int resident_ctas_both() {
-  const int a = resident_ctas<HD, false>(), b = resident_ctas<HD, true>();
-  return a < 0 ? a : b < 0 ? b : a < b ? a : b;
+  int least = resident_ctas<HD, false, F32>();
+  int fwd_only = least;
+  if constexpr (F32) fwd_only = resident_ctas<HD, false, true, true>();
+  for (const int c : {resident_ctas<HD, true, F32>(), fwd_only})
+    least = least < 0 ? least : c < 0 ? c : c < least ? c : least;
+  return least;
 }
 
 // One cooperative launch (every CTA resident, so a CTA may wait on another).
-template <int HD, bool RES>
+template <int HD, bool RES, bool F32, bool FWD = false>
 int launch(const Maps& maps, const Args& args, int ctas, void* stream) {
-  cudaError_t e = configure<HD, RES>();
+  cudaError_t e = configure<HD, RES, F32, FWD>();
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(ctas);
@@ -993,7 +1269,7 @@ int launch(const Maps& maps, const Args& args, int ctas, void* stream) {
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, attn_branch_kernel<HD, RES>, maps, args);
+  e = cudaLaunchKernelEx(&cfg, attn_branch_kernel<HD, RES, F32, FWD>, maps, args);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
@@ -1011,10 +1287,18 @@ bool encode_f32(CUtensorMap* map, const void* ptr, int rows, int cols, int box_r
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// Row 5 on its own instance, rows 3 and 4 on theirs; in f32 row 3 on one of
+// its own as well (the notes at the top)
+template <bool F32>
 int run(int hd, const Maps& maps, const Args& args, int ctas, void* stream) {
   if (args.probs != nullptr)
-    return hd == 64 ? launch<64, true>(maps, args, ctas, stream) : launch<72, true>(maps, args, ctas, stream);
-  return hd == 64 ? launch<64, false>(maps, args, ctas, stream) : launch<72, false>(maps, args, ctas, stream);
+    return hd == 64 ? launch<64, true, F32>(maps, args, ctas, stream) : launch<72, true, F32>(maps, args, ctas, stream);
+  if constexpr (F32) {
+    if (!args.bwd)
+      return hd == 64 ? launch<64, false, true, true>(maps, args, ctas, stream)
+                      : launch<72, false, true, true>(maps, args, ctas, stream);
+  }
+  return hd == 64 ? launch<64, false, F32>(maps, args, ctas, stream) : launch<72, false, F32>(maps, args, ctas, stream);
 }
 
 // What both lists share, into args: the shapes (the domain: head widths 64
@@ -1063,13 +1347,18 @@ bool pre_rows_ok(const int* plan, int d) {
 }  // namespace
 
 // CTAs resident at once for head width hd (64, 72) on the current device,
-// or a negative CUDA error code.
+// or a negative CUDA error code (attn_branch_f32_resident_ctas: the same for
+// the f32 instances).
+#if ATTN_BRANCH_F32
+extern "C" int attn_branch_f32_resident_ctas(int hd) {
+#else
 extern "C" int attn_branch_resident_ctas(int hd) {
+#endif
   switch (hd) {
     case 64:
-      return resident_ctas_both<64>();
+      return resident_ctas_both<64, TU_F32>();
     case 72:
-      return resident_ctas_both<72>();
+      return resident_ctas_both<72, TU_F32>();
     default:
       return -static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1077,32 +1366,102 @@ extern "C" int attn_branch_resident_ctas(int hd) {
 
 namespace {
 
-// Rows 3 and 5: the forward list, p stored where probs is given.
+// Rows 3 and 5: the forward list, p stored where probs is given; in the
+// f32 unit the f32 instances (x, the weights, y, h and attn f32).
 int forward(const void* x, const void* w_qkv, const void* w_out, const void* shift, int shift_ld, const void* scale,
             int scale_ld, const void* gate, int gate_ld, int rows_bf16, const void* gain, void* y, void* h, void* qkv,
             void* attn, void* probs, void* sync, const int* plan, int n, int t, int d, int heads, int ctas,
             float alpha_d, void* stream, void* trace) {
+  constexpr bool f32 = TU_F32;
   Args args = {};
+  const int kstep = f32 ? BK_F32 : BK;
   if (!common(args, x, shift, shift_ld, scale, scale_ld, gate, gate_ld, rows_bf16, gain, h, qkv, attn, sync, n, t, d,
               heads, trace) ||
       !aligned16({w_qkv, w_out, y, probs}) || !pre_rows_ok(plan, d) || plan[P_DGAIN_TICKET] != 0 ||
       !read_plan(plan, args, ctas, {S_PRE, S_GEMM, S_ATTN, S_GEMM},
-                 {{3 * d, d, MAP_H, MAP_WQKV, EPI_F32, alpha_d, qkv, nullptr},
-                  {d, d, MAP_ATTN, MAP_WOUT, EPI_RESIDUAL, alpha_d, y, nullptr}}, BN, plan[P_PRE_ROWS]))
+                 {{3 * d, d, MAP_H, MAP_WQKV, EPI_F32, alpha_d, qkv, nullptr, 0, kstep},
+                  {d, d, MAP_ATTN, MAP_WOUT, EPI_RESIDUAL, alpha_d, y, nullptr, 0, kstep}}, BN, plan[P_PRE_ROWS]))
     return static_cast<int>(cudaErrorInvalidValue);
   args.probs = static_cast<float*>(probs);
   const int m = n * t;
   Maps maps = {};
-  const bool ok = cached_map(&maps.m[MAP_H], h, m, d, BM) && cached_map(&maps.m[MAP_WQKV], w_qkv, 3 * d, d, BN) &&
-                  cached_map(&maps.m[MAP_ATTN], attn, m, d, BM) && cached_map(&maps.m[MAP_WOUT], w_out, d, d, BN) &&
-                  cached_map(&maps.m[MAP_X], x, m, d, args.pre_rows) &&
-                  encode_f32(&maps.m[MAP_QKV32], qkv, m, 3 * d, attn_tiles::TILE, d / heads);
+  bool ok = cached_map(&maps.m[MAP_H], h, m, d, BM, f32) && cached_map(&maps.m[MAP_WQKV], w_qkv, 3 * d, d, BN, f32) &&
+            cached_map(&maps.m[MAP_ATTN], attn, m, d, BM, f32) && cached_map(&maps.m[MAP_WOUT], w_out, d, d, BN, f32);
+  if (f32) {
+    args.x32 = static_cast<const float*>(x);
+    args.amod32 = static_cast<float*>(h);
+    args.attn32 = static_cast<float*>(attn);
+  } else {
+    ok = ok && cached_map(&maps.m[MAP_X], x, m, d, args.pre_rows) &&
+         encode_f32(&maps.m[MAP_QKV32], qkv, m, 3 * d, attn_tiles::TILE, d / heads);
+  }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  return run(d / heads, maps, args, ctas, stream);
+  return run<TU_F32>(d / heads, maps, args, ctas, stream);
+}
+
+// Row 4 without its dW products; in the f32 unit the f32 instance (x, the
+// weights, dx, h, attn, dout and dqkv f32).
+int backward(const void* dy, int dy_bf16, const void* x, const void* w_qkv, const void* w_out, const void* shift,
+             int shift_ld, const void* scale, int scale_ld, const void* gate, int gate_ld, int rows_bf16,
+             const void* gain, void* dx, void* dshift, void* dscale, void* dgate, void* dgain, void* h, void* qkv,
+             void* attn, void* dout, void* dattn, void* dqkv, void* dgain_partial, void* sync, const int* plan, int n,
+             int t, int d, int heads, int ctas, float alpha_d, float db_fac, float dx_fac, void* stream,
+             void* trace) {
+  constexpr bool f32 = TU_F32;
+  Args args = {};
+  const int kstep = f32 ? BK_F32 : BK;
+  if (!common(args, x, shift, shift_ld, scale, scale_ld, gate, gate_ld, rows_bf16, gain, h, qkv, attn, sync, n, t, d,
+              heads, trace) ||
+      dgain == nullptr || dgain_partial == nullptr ||
+      !aligned16({dy, w_qkv, w_out, dx, dshift, dscale, dgate, dout, dattn, dqkv}) || !pre_rows_ok(plan, d) ||
+      !read_plan(plan, args, ctas, {S_PRE, S_GEMM, S_ATTN, S_GEMM, S_GEMM, S_ATTN_BWD, S_GEMM},
+                 {{3 * d, d, MAP_H, MAP_WQKV, EPI_F32, alpha_d, qkv, nullptr, 0, kstep},
+                  {d, d, MAP_ATTN, MAP_WOUT, EPI_GATE_BWD, alpha_d, dout, nullptr, 0, kstep},
+                  {d, d, MAP_DOUT, MAP_WOUT_KN, EPI_F32, alpha_d, dattn, nullptr, 1, kstep},
+                  {d, 3 * d, MAP_DQKV, MAP_WQKV_KN, EPI_MOD_BWD, alpha_d, dx, nullptr, 1, kstep}},
+                 BN, plan[P_PRE_ROWS]))
+    return static_cast<int>(cudaErrorInvalidValue);
+  args.dgain_ticket = plan[P_DGAIN_TICKET];
+  if (args.dgain_ticket < SYNC_DONE || args.dgain_ticket >= args.sync_words) return static_cast<int>(cudaErrorInvalidValue);
+  args.bwd = 1;
+  args.dy = dy;
+  args.dy_bf16 = dy_bf16;
+  args.db_fac = db_fac;
+  args.dx_fac = dx_fac;
+  args.dattn = static_cast<const float*>(dattn);
+  args.dqkv = static_cast<__nv_bfloat16*>(dqkv);
+  args.dgate = static_cast<float*>(dgate);
+  args.dshift = static_cast<float*>(dshift);
+  args.dscale = static_cast<float*>(dscale);
+  args.dgain = static_cast<float*>(dgain);
+  args.dgain_partial = static_cast<float*>(dgain_partial);
+  const int m = n * t;
+  // the (K, N) reads of W: boxes of a k step's rows (BK bf16 rows by 64
+  // columns, or BK_F32 f32 rows by 32)
+  const int kn_rows = f32 ? BK_F32 : BK;
+  Maps maps = {};
+  bool ok = cached_map(&maps.m[MAP_H], h, m, d, BM, f32) && cached_map(&maps.m[MAP_WQKV], w_qkv, 3 * d, d, BN, f32) &&
+            cached_map(&maps.m[MAP_ATTN], attn, m, d, BM, f32) && cached_map(&maps.m[MAP_WOUT], w_out, d, d, BN, f32) &&
+            cached_map(&maps.m[MAP_DOUT], dout, m, d, BM, f32) &&
+            cached_map(&maps.m[MAP_WOUT_KN], w_out, d, d, kn_rows, f32) &&
+            cached_map(&maps.m[MAP_DQKV], dqkv, m, 3 * d, BM, f32) &&
+            cached_map(&maps.m[MAP_WQKV_KN], w_qkv, 3 * d, d, kn_rows, f32);
+  if (f32) {
+    args.x32 = static_cast<const float*>(x);
+    args.amod32 = static_cast<float*>(h);
+    args.attn32 = static_cast<float*>(attn);
+    args.dqkv32 = static_cast<float*>(dqkv);
+  } else {
+    ok = ok && cached_map(&maps.m[MAP_X], x, m, d, args.pre_rows) &&
+         encode_f32(&maps.m[MAP_QKV32], qkv, m, 3 * d, attn_tiles::TILE, d / heads);
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return run<TU_F32>(d / heads, maps, args, ctas, stream);
 }
 
 }  // namespace
 
+#if !ATTN_BRANCH_F32
 // Row 3. x: bf16 (n*t, d); w_qkv: bf16 (3d, d); w_out: bf16 (d, d); shift,
 // scale, gate: a sample's row at ptr + sample * ld (elements), f32 or bf16
 // (rows_bf16), read as they are; gain: one f32 value; y: bf16 (n*t, d). h,
@@ -1147,45 +1506,48 @@ extern "C" int attn_branch_bwd(const void* dy, int dy_bf16, const void* x, const
                                void* dqkv, void* dgain_partial, void* sync, const int* plan, int n, int t, int d,
                                int heads, int ctas, float alpha_d, float db_fac, float dx_fac, void* stream,
                                void* trace) {
-  Args args = {};
-  if (!common(args, x, shift, shift_ld, scale, scale_ld, gate, gate_ld, rows_bf16, gain, h, qkv, attn, sync, n, t, d,
-              heads, trace) ||
-      dgain == nullptr || dgain_partial == nullptr ||
-      !aligned16({dy, w_qkv, w_out, dx, dshift, dscale, dgate, dout, dattn, dqkv}) || !pre_rows_ok(plan, d) ||
-      !read_plan(plan, args, ctas, {S_PRE, S_GEMM, S_ATTN, S_GEMM, S_GEMM, S_ATTN_BWD, S_GEMM},
-                 {{3 * d, d, MAP_H, MAP_WQKV, EPI_F32, alpha_d, qkv, nullptr},
-                  {d, d, MAP_ATTN, MAP_WOUT, EPI_GATE_BWD, alpha_d, dout, nullptr},
-                  {d, d, MAP_DOUT, MAP_WOUT_KN, EPI_F32, alpha_d, dattn, nullptr, 1},
-                  {d, 3 * d, MAP_DQKV, MAP_WQKV_KN, EPI_MOD_BWD, alpha_d, dx, nullptr, 1}},
-                 BN, plan[P_PRE_ROWS]))
-    return static_cast<int>(cudaErrorInvalidValue);
-  args.dgain_ticket = plan[P_DGAIN_TICKET];
-  if (args.dgain_ticket < SYNC_DONE || args.dgain_ticket >= args.sync_words) return static_cast<int>(cudaErrorInvalidValue);
-  args.bwd = 1;
-  args.dy = dy;
-  args.dy_bf16 = dy_bf16;
-  args.db_fac = db_fac;
-  args.dx_fac = dx_fac;
-  args.dattn = static_cast<const float*>(dattn);
-  args.dqkv = static_cast<__nv_bfloat16*>(dqkv);
-  args.dgate = static_cast<float*>(dgate);
-  args.dshift = static_cast<float*>(dshift);
-  args.dscale = static_cast<float*>(dscale);
-  args.dgain = static_cast<float*>(dgain);
-  args.dgain_partial = static_cast<float*>(dgain_partial);
-  const int m = n * t;
-  Maps maps = {};
-  const bool ok = cached_map(&maps.m[MAP_H], h, m, d, BM) && cached_map(&maps.m[MAP_WQKV], w_qkv, 3 * d, d, BN) &&
-                  cached_map(&maps.m[MAP_ATTN], attn, m, d, BM) && cached_map(&maps.m[MAP_WOUT], w_out, d, d, BN) &&
-                  cached_map(&maps.m[MAP_DOUT], dout, m, d, BM) &&
-                  cached_map(&maps.m[MAP_WOUT_KN], w_out, d, d, BK) &&
-                  cached_map(&maps.m[MAP_DQKV], dqkv, m, 3 * d, BM) &&
-                  cached_map(&maps.m[MAP_WQKV_KN], w_qkv, 3 * d, d, BK) &&
-                  cached_map(&maps.m[MAP_X], x, m, d, args.pre_rows) &&
-                  encode_f32(&maps.m[MAP_QKV32], qkv, m, 3 * d, attn_tiles::TILE, d / heads);
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  return run(d / heads, maps, args, ctas, stream);
+  return backward(dy, dy_bf16, x, w_qkv, w_out, shift, shift_ld, scale, scale_ld, gate, gate_ld, rows_bf16, gain, dx,
+                  dshift, dscale, dgate, dgain, h, qkv, attn, dout, dattn, dqkv, dgain_partial, sync, plan, n, t, d,
+                  heads, ctas, alpha_d, db_fac, dx_fac, stream, trace);
 }
+
+#else
+// The f32 instances (a float32 model: the Pallas kernels at dtype =
+// float32, nothing rounded): the arguments of attn_branch_fwd,
+// attn_branch_res_fwd and attn_branch_bwd with x, the weights, y, dx and
+// the scratch's h, attn, dout and dqkv in f32; the plan is
+// branch_plan(..., f32=True) on attn_branch_f32_resident_ctas CTAs.
+extern "C" int attn_branch_fwd_f32(const void* x, const void* w_qkv, const void* w_out, const void* shift,
+                                   int shift_ld, const void* scale, int scale_ld, const void* gate, int gate_ld,
+                                   int rows_bf16, const void* gain, void* y, void* h, void* qkv, void* attn,
+                                   void* sync, const int* plan, int n, int t, int d, int heads, int ctas,
+                                   float alpha_d, void* stream, void* trace) {
+  return forward(x, w_qkv, w_out, shift, shift_ld, scale, scale_ld, gate, gate_ld, rows_bf16, gain, y, h, qkv, attn,
+                 nullptr, sync, plan, n, t, d, heads, ctas, alpha_d, stream, trace);
+}
+
+extern "C" int attn_branch_res_fwd_f32(const void* x, const void* w_qkv, const void* w_out, const void* shift,
+                                       int shift_ld, const void* scale, int scale_ld, const void* gate, int gate_ld,
+                                       int rows_bf16, const void* gain, void* y, void* h, void* qkv, void* attn,
+                                       void* probs, void* sync, const int* plan, int n, int t, int d, int heads,
+                                       int ctas, float alpha_d, void* stream, void* trace) {
+  if (probs == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return forward(x, w_qkv, w_out, shift, shift_ld, scale, scale_ld, gate, gate_ld, rows_bf16, gain, y, h, qkv, attn,
+                 probs, sync, plan, n, t, d, heads, ctas, alpha_d, stream, trace);
+}
+
+extern "C" int attn_branch_bwd_f32(const void* dy, int dy_bf16, const void* x, const void* w_qkv, const void* w_out,
+                                   const void* shift, int shift_ld, const void* scale, int scale_ld, const void* gate,
+                                   int gate_ld, int rows_bf16, const void* gain, void* dx, void* dshift, void* dscale,
+                                   void* dgate, void* dgain, void* h, void* qkv, void* attn, void* dout, void* dattn,
+                                   void* dqkv, void* dgain_partial, void* sync, const int* plan, int n, int t, int d,
+                                   int heads, int ctas, float alpha_d, float db_fac, float dx_fac, void* stream,
+                                   void* trace) {
+  return backward(dy, dy_bf16, x, w_qkv, w_out, shift, shift_ld, scale, scale_ld, gate, gate_ld, rows_bf16, gain, dx,
+                  dshift, dscale, dgate, dgain, h, qkv, attn, dout, dattn, dqkv, dgain_partial, sync, plan, n, t, d,
+                  heads, ctas, alpha_d, db_fac, dx_fac, stream, trace);
+}
+#endif
 
 extern "C" int attn_branch_plan_words() { return PLAN_WORDS; }
 

@@ -29,6 +29,15 @@
 // not change from run to run (the Pallas grid accumulated the same sums
 // sequentially, l.768-780).
 //
+// The f32 forms (a float32 model: _attn_bwd_math at dtype = float32, where
+// nothing is rounded): attention_bwd_f32 (f32 dqkv; one block of four warps
+// a (sample, head) on attention_bwd_f32.cuh, the products on the f32 pipes,
+// T up to 256 in tiles of 64) and modulate_fwd_f32 (f32 h); modulate_bwd
+// takes f32 x, dy and dh as it stands. Bound of attention_bwd_f32 at the S/2
+// shape: its 10*T*T*hd flops a (sample, head) on the f32 pipes (67
+// TFLOP/s), 0.0601 ms, above its bytes' 0.0526 (f32 qkv and dattn read,
+// f32 dqkv written).
+//
 // Bound on the H100 at the DiT-S/2 training shapes (N = 256, T = 64,
 // D = 384, 6 heads): (c) are elementwise passes over a few (N, T, D)
 // arrays, memory-bound: modulate_fwd reads x and writes h (bf16),
@@ -136,6 +145,7 @@
 
 #include <initializer_list>
 
+#include "attention_bwd_f32.cuh"
 #include "attention_bwd_tiles.cuh"
 #include "attention_tiles.cuh"
 #include "modulate.cuh"
@@ -367,6 +377,34 @@ size_t attention_bwd_bytes(int t) {
   return t <= attn_tiles::TILE ? BwdLayout<HD, 1>::BYTES : long_bytes<HD>(t);
 }
 
+// (b) in f32 (attention_bwd_f32.cuh): one block of four warps per (sample,
+// head), any 1 <= T <= LONG_MAX_T, the rows' sums for up to LONG_MAX_T
+// queries beside the four tiles (70 KB at hd 64, 78 KB at hd 72: two
+// blocks an SM)
+template <int HD>
+__global__ void __launch_bounds__(attn_tiles::THREADS)
+    attention_bwd_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ dattn,
+                             float* __restrict__ dqkv, int t, int heads) {
+  extern __shared__ __align__(16) float smem_f32[];
+  attn_bwd_f32::attention_bwd_unit<HD, LONG_MAX_T>(qkv, dattn, dqkv, t, heads, blockIdx.y, blockIdx.x, smem_f32,
+                                                   threadIdx.x, BlockSync{});
+}
+
+template <int HD>
+int launch_attention_bwd_f32(const float* qkv, const float* dattn, float* dqkv, int n, int t, int heads,
+                             cudaStream_t stream) {
+  constexpr int bytes = attn_bwd_f32::Layout<HD, LONG_MAX_T>::BYTES;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(attention_bwd_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  attention_bwd_f32_kernel<HD><<<dim3(heads, n), attn_tiles::THREADS, bytes, stream>>>(qkv, dattn, dqkv, t, heads);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---------------------------------------------------------------------------
 // (c) modulate forward and backward
 
@@ -385,11 +423,10 @@ __device__ unsigned int modulate_bwd_ticket = 0;
 
 // grid (ceil(t / (RY * FWD_ROWS)), n), block (bx, RY): chunk threadIdx.x
 // (and + bx, ...) of rows threadIdx.y + i * RY of the block's token rows
-template <typename XT>
+template <typename XT, typename HT = __nv_bfloat16>
 __global__ void __launch_bounds__(FWD_THREADS)
     modulate_fwd_kernel(const XT* __restrict__ x, const float* __restrict__ rows, int rows_ld, int shift_off,
-                        int scale_off, const float* __restrict__ gain, __nv_bfloat16* __restrict__ h, int t,
-                        int d) {
+                        int scale_off, const float* __restrict__ gain, HT* __restrict__ h, int t, int d) {
   const int sample = blockIdx.y;
   const int r0 = blockIdx.x * blockDim.y * FWD_ROWS + threadIdx.y;
   const float g = *gain;
@@ -561,9 +598,28 @@ extern "C" int attention_bwd(const void* qkv, const void* dattn, void* dqkv, int
                   : launch_attention_bwd<72, 1>(q, da, out, n, t, heads, s);
 }
 
-extern "C" int modulate_fwd(const void* x, int x_dtype, const void* rows, int rows_ld,
-                            int shift_off, int scale_off, const void* gain, void* h, int n, int t,
-                            int d, void* stream) {
+// The f32 form: f32 qkv (n*t, 3*heads*hd) and dattn (n*t, heads*hd) in,
+// f32 dqkv out, 16-byte aligned; head widths 64 and 72, 1 <= t <= 256.
+extern "C" int attention_bwd_f32(const void* qkv, const void* dattn, void* dqkv, int n, int t, int heads, int hd,
+                                 void* stream) {
+  if (n < 1 || heads < 1 || t < 1 || t > LONG_MAX_T || (hd != 64 && hd != 72) ||
+      (reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(dattn) | reinterpret_cast<uintptr_t>(dqkv)) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* q = static_cast<const float*>(qkv);
+  const float* da = static_cast<const float*>(dattn);
+  float* out = static_cast<float*>(dqkv);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return hd == 64 ? launch_attention_bwd_f32<64>(q, da, out, n, t, heads, s)
+                  : launch_attention_bwd_f32<72>(q, da, out, n, t, heads, s);
+}
+
+namespace {
+
+// modulate_fwd's launch: h in bf16 (rounded once, as the plain version
+// rounds it for the qkv product) or f32 (the f32 form: nothing rounded)
+template <typename HT>
+int launch_modulate_fwd(const void* x, int x_dtype, const void* rows, int rows_ld, int shift_off, int scale_off,
+                        const void* gain, void* h, int n, int t, int d, void* stream) {
   if (n < 1 || t < 1 || !modulate_domain(d, rows_ld, shift_off, scale_off, {x, rows, h}))
     return static_cast<int>(cudaErrorInvalidValue);
   const int chunks = d / 8;
@@ -574,15 +630,31 @@ extern "C" int modulate_fwd(const void* x, int x_dtype, const void* rows, int ro
   const dim3 grid((t + ry * FWD_ROWS - 1) / (ry * FWD_ROWS), n), block(bx, ry);
   const float* r = static_cast<const float*>(rows);
   const float* g = static_cast<const float*>(gain);
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(h);
+  HT* out = static_cast<HT*>(h);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == DT_F32)
-    modulate_fwd_kernel<float><<<grid, block, 0, s>>>(static_cast<const float*>(x), r, rows_ld, shift_off,
-                                                      scale_off, g, out, t, d);
+    modulate_fwd_kernel<float, HT><<<grid, block, 0, s>>>(static_cast<const float*>(x), r, rows_ld, shift_off,
+                                                          scale_off, g, out, t, d);
   else
-    modulate_fwd_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(static_cast<const __nv_bfloat16*>(x), r, rows_ld,
-                                                              shift_off, scale_off, g, out, t, d);
+    modulate_fwd_kernel<__nv_bfloat16, HT><<<grid, block, 0, s>>>(static_cast<const __nv_bfloat16*>(x), r, rows_ld,
+                                                                  shift_off, scale_off, g, out, t, d);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int modulate_fwd(const void* x, int x_dtype, const void* rows, int rows_ld,
+                            int shift_off, int scale_off, const void* gain, void* h, int n, int t,
+                            int d, void* stream) {
+  return launch_modulate_fwd<__nv_bfloat16>(x, x_dtype, rows, rows_ld, shift_off, scale_off, gain, h, n, t, d,
+                                            stream);
+}
+
+// modulate_fwd writing f32 h (a float32 model's backward: h is the qkv
+// product's f32 operand and the dW pair's)
+extern "C" int modulate_fwd_f32(const void* x, int x_dtype, const void* rows, int rows_ld, int shift_off,
+                                int scale_off, const void* gain, void* h, int n, int t, int d, void* stream) {
+  return launch_modulate_fwd<float>(x, x_dtype, rows, rows_ld, shift_off, scale_off, gain, h, n, t, d, stream);
 }
 
 // modulate_bwd's grid: column blocks x rows of blocks; where one sample a

@@ -146,11 +146,11 @@ __device__ __forceinline__ float oct_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 4);
 }
 
-// ex = exp(l - sqrt(hd)) of the lane's rows against its keys of one tile,
-// l = (q . k) * 1/sqrt(hd) * qs * ks in f32; keys >= `keys` give 0
+// s[i][j] = row (warp*16 + lane/8 + 4i) of sq . row (lane%8 + 8j) of sk
+// over the HD columns, FFMA in column order (the rows of a tile at the
+// DimsF32 stride)
 template <int HD>
-__device__ __forceinline__ void exp_tile_f32(float (&s)[4][8], const float* sq, const float* sk, const float* qsc,
-                                             const float* ksc, int keys, int warp, int lane) {
+__device__ __forceinline__ void qk_tile_f32(float (&s)[4][8], const float* sq, const float* sk, int warp, int lane) {
   using D = DimsF32<HD>;
   const int r = warp * 16 + (lane >> 3), kc = lane & 7;
 #pragma unroll
@@ -174,6 +174,15 @@ __device__ __forceinline__ void exp_tile_f32(float (&s)[4][8], const float* sq, 
         s[i][j] = fmaf(q[i].w, k[j].w, s[i][j]);
       }
   }
+}
+
+// ex = exp(l - sqrt(hd)) of the lane's rows against its keys of one tile,
+// l = (q . k) * 1/sqrt(hd) * qs * ks in f32; keys >= `keys` give 0
+template <int HD>
+__device__ __forceinline__ void exp_tile_f32(float (&s)[4][8], const float* sq, const float* sk, const float* qsc,
+                                             const float* ksc, int keys, int warp, int lane) {
+  const int r = warp * 16 + (lane >> 3), kc = lane & 7;
+  qk_tile_f32<HD>(s, sq, sk, warp, lane);
   const float sqrt_hd = sqrtf((float)HD);
   const float inv_hd = 1.f / sqrt_hd;
 #pragma unroll

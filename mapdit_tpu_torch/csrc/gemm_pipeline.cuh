@@ -27,7 +27,9 @@
 // and its barriers stay byte for byte the same; consume_tile_f32 runs the
 // products on the f32 pipes (FFMA, k in order) into accumulators laid out
 // as wgmma's, so stage_tile, store_partial and the epilogues take them
-// unchanged. The products must be f32-accurate (the Pallas f32 kernel is
+// unchanged. A W read as (K, N) (the attention backward's dattn and dh
+// products) comes as four 32-column boxes a stage, its two fragment columns
+// of a k row one 8-byte load. The products must be f32-accurate (the Pallas f32 kernel is
 // held to its f32 reference at 2e-4): a single TF32 wgmma rounds each
 // operand to 10 mantissa bits (~3e-4 a product), and 3xTF32 would need the
 // hi / lo split of every A and W tile in shared memory beside the ring, so
@@ -193,6 +195,21 @@ struct Ring {
   }
 };
 
+// The W tiles of one k step at k0 into w_s: K-major (W stored (N, K)) one
+// box of BN rows; MN-major (W_KN, W stored (K, N)) boxes of 128-byte rows
+// side by side, two of 64 bf16 columns or four of 32 f32 columns (KSTEP
+// BK_F32), each KSTEP rows deep.
+template <bool W_KN, int KSTEP>
+__device__ __forceinline__ void load_w_step(const CUtensorMap* tm_w, uint32_t w_s, uint32_t bar, int n0, int k0) {
+  if constexpr (W_KN) {
+    constexpr int COLS = KSTEP == BK ? 64 : 32;
+#pragma unroll
+    for (int b = 0; b < BN / COLS; ++b) tma_load_2d(w_s + b * KSTEP * 128, tm_w, bar, n0 + b * COLS, k0);
+  } else {
+    tma_load_2d(w_s, tm_w, bar, k0, n0);
+  }
+}
+
 // The producer (one thread): the nk k steps from k step kb of the tile at
 // rows m0 of A and rows (or, W_KN, columns) n0 of W; KSTEP elements a k
 // step (BK, or BK_F32 for f32 operands).
@@ -200,7 +217,6 @@ template <int STAGES, bool W_KN, int KSTEP = BK>
 __device__ __forceinline__ void produce_tile(const Ring<STAGES>& ring, const CUtensorMap* tm_a,
                                              const CUtensorMap* tm_w, int m0, int n0, int kb, int nk,
                                              uint32_t& it) {
-  static_assert(!W_KN || KSTEP == BK, "the MN-major W tiles are bf16");
   for (int i = 0; i < nk; ++i, ++it) {
     const int s = it % STAGES;
     mbar_wait(ring.empty(s), ((it / STAGES) & 1) ^ 1);
@@ -208,12 +224,7 @@ __device__ __forceinline__ void produce_tile(const Ring<STAGES>& ring, const CUt
     const int k0 = (kb + i) * KSTEP;
     mbar_expect_tx(ring.full(s), STAGE_BYTES);
     tma_load_2d(a_s, tm_a, ring.full(s), k0, m0);
-    if constexpr (W_KN) {
-      tma_load_2d(w_s, tm_w, ring.full(s), n0, k0);
-      tma_load_2d(w_s + BK * 128, tm_w, ring.full(s), n0 + 64, k0);
-    } else {
-      tma_load_2d(w_s, tm_w, ring.full(s), k0, n0);
-    }
+    load_w_step<W_KN, KSTEP>(tm_w, w_s, ring.full(s), n0, k0);
   }
 }
 
@@ -287,13 +298,24 @@ __device__ __forceinline__ void fma_k4(float& acc, const float4& a, const float4
   acc = fmaf(a.w, w.w, acc);
 }
 
+// 8 bytes of shared memory at a shared-window address
+__device__ __forceinline__ float2 lds_float2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
 // consume_tile for f32 operands on the f32 pipes: consumer thread tid
 // (0-255) sums the 64 elements of its wgmma fragment (rows rt, rt + 8,
 // columns ct + 8j, ct + 8j + 1) over each stage's 32 k, 16-byte loads of A
 // and W rows from the swizzled tiles (a warp's loads meet eight rows of A
 // and four of W at distinct chunks: no bank conflicts), every product an
 // FFMA in k order. A stage is released as soon as the warp is through it.
-template <int STAGES>
+// W_KN: W stored (K, N), the stage's W tile four boxes of 32 columns by 32
+// k rows (load_w_step); a k row's two fragment columns are one 8-byte load
+// (a warp's lanes meet four distinct words of it: broadcasts), 64 of them
+// for 256 FMAs a 4-k chunk, where the K-major tile takes 32 16-byte loads.
+template <int STAGES, bool W_KN = false>
 __device__ __forceinline__ void consume_tile_f32(const Ring<STAGES>& ring, float (&acc)[64], int tid, bool active,
                                                  int nk, uint32_t& it) {
   const int lane = tid & 31, rt = acc_row(tid), ct = acc_col(tid);
@@ -307,14 +329,33 @@ __device__ __forceinline__ void consume_tile_f32(const Ring<STAGES>& ring, float
 #pragma unroll 2
       for (int c = 0; c < BK_F32 / 4; ++c) {
         const float4 a0 = lds_float4(a_s + swizzle_offset(rt, c)), a1 = lds_float4(a_s + swizzle_offset(rt + 8, c));
+        if constexpr (W_KN) {
+          const float a0k[4] = {a0.x, a0.y, a0.z, a0.w}, a1k[4] = {a1.x, a1.y, a1.z, a1.w};
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const float4 w0 = lds_float4(w_s + swizzle_offset(ct + 8 * j, c));
-          const float4 w1 = lds_float4(w_s + swizzle_offset(ct + 8 * j + 1, c));
-          fma_k4(acc[4 * j], a0, w0);
-          fma_k4(acc[4 * j + 1], a0, w1);
-          fma_k4(acc[4 * j + 2], a1, w0);
-          fma_k4(acc[4 * j + 3], a1, w1);
+          for (int j = 0; j < 16; ++j) {
+            // columns ct + 8j, +1: box (ct + 8j) / 32, 16-byte chunk ((ct + 8j) % 32) / 4, word ct % 4
+            const int col = ct + 8 * j;
+            const uint32_t box = w_s + (col >> 5) * (BK_F32 * 128) + (col & 3) * 4;
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const int k = 4 * c + kk;
+              const float2 w = lds_float2(box + k * 128 + ((((col & 31) >> 2) ^ (k & 7)) << 4));
+              acc[4 * j] = fmaf(a0k[kk], w.x, acc[4 * j]);
+              acc[4 * j + 1] = fmaf(a0k[kk], w.y, acc[4 * j + 1]);
+              acc[4 * j + 2] = fmaf(a1k[kk], w.x, acc[4 * j + 2]);
+              acc[4 * j + 3] = fmaf(a1k[kk], w.y, acc[4 * j + 3]);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const float4 w0 = lds_float4(w_s + swizzle_offset(ct + 8 * j, c));
+            const float4 w1 = lds_float4(w_s + swizzle_offset(ct + 8 * j + 1, c));
+            fma_k4(acc[4 * j], a0, w0);
+            fma_k4(acc[4 * j + 1], a0, w1);
+            fma_k4(acc[4 * j + 2], a1, w0);
+            fma_k4(acc[4 * j + 3], a1, w1);
+          }
         }
       }
     }

@@ -115,8 +115,9 @@
 //     bits on every run. The f32 out the earlier route wrote for a separate
 //     pass (one thread a column, a serial loop over T, 0.0368 ms against a
 //     bound of 0.0153 at S/2 training) is gone.
-//   * The f32 form (mp_gemm_f32: f32 A, W (N, K) and C, the products of the
-//     Pallas block body at dtype = float32, where nothing is rounded): the
+//   * The f32 form (mp_gemm_f32: f32 A, W and C, the products of the Pallas
+//     block body and of the attention half-block at dtype = float32, where
+//     nothing is rounded): the
 //     same tiles and ring at k depth 32 (128-byte f32 rows, 32 KB stages),
 //     the products on the f32 pipes in k order (gemm_pipeline.cuh
 //     consume_tile_f32: a TF32 wgmma would round each operand to 10
@@ -125,9 +126,11 @@
 //     prologue pass writes the modulated A in f32 (mp_gemm_prologue_f32),
 //     nothing rounded. Split-K counts k steps of 32. Bound at the S/2
 //     sampling products: operations, 2*M*N*K / 67 TFLOP/s (the H100's f32
-//     pipes), 0.0541 ms at qkv and 0.0721 at fc1 and fc2 (M = 4096). No
-//     residual-backward form (GATE_RESIDUAL_BWD belongs to row 4's f32
-//     slice) and no MN-major W.
+//     pipes), 0.0541 ms at qkv and 0.0721 at fc1 and fc2 (M = 4096). The
+//     attention backward's products at f32: dattn and dh read W as (K, N)
+//     (four 32-column boxes a stage, gemm_pipeline.cuh), and the out
+//     product's GATE_RESIDUAL_BWD epilogue writes f32 dout
+//     (mp_gemm_f32_gate_residual_bwd), split-K and tile sums as in bf16.
 //   * TMA needs 16-byte aligned rows and pointers: K and N multiples of 8;
 //     the modulation rows are read as float4 (the wrapper raises otherwise).
 //     The tensor maps are encoded on the host with cuTensorMapEncodeTiled,
@@ -289,7 +292,12 @@ __device__ __forceinline__ void finish8(const Params& p, int row, int col, float
   }
 }
 
-// db = dy*db_fac for eight columns, dout = bf16(db*gate) stored at idx,
+__device__ __forceinline__ void store8(float* dst, const float (&v)[8]) {
+  reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// db = dy*db_fac for eight columns, dout = db*gate (bf16, or f32 in the f32 form) stored at idx,
 // and acc += db*out
 __device__ __forceinline__ void gate_residual8(const Params& p, int64_t idx, const float (&out)[8],
                                                const float (&dy)[8], const float (&gate)[8], float (&acc)[8]) {
@@ -300,13 +308,11 @@ __device__ __forceinline__ void gate_residual8(const Params& p, int64_t idx, con
     acc[e] += db * out[e];
     d[e] = db * gate[e];
   }
-  *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.c) + idx) =
-      make_uint4(pack_bf16(d[0], d[1]), pack_bf16(d[2], d[3]), pack_bf16(d[4], d[5]), pack_bf16(d[6], d[7]));
-}
-
-__device__ __forceinline__ void store8(float* dst, const float (&v)[8]) {
-  reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  if (p.c_dtype == DT_F32)
+    store8(static_cast<float*>(p.c) + idx, d);
+  else
+    *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.c) + idx) =
+        make_uint4(pack_bf16(d[0], d[1]), pack_bf16(d[2], d[3]), pack_bf16(d[4], d[5]), pack_bf16(d[6], d[7]));
 }
 
 // The GATE_RESIDUAL_BWD epilogue of one 128 x 128 tile at (m0, n0) over
@@ -438,7 +444,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   const bool active = m0 + 64 * wg < p.m;
   float acc[64];
   if constexpr (F32) {
-    consume_tile_f32<STAGES>(ring, acc, tid, active, nk, it);
+    consume_tile_f32<STAGES, W_KN>(ring, acc, tid, active, nk, it);
   } else {
     consume_tile<STAGES, W_KN>(ring, acc, wg, lane, active, nk, it);
   }
@@ -565,14 +571,15 @@ int run(const void* a, int a_dtype, const void* w, Params& p, int prologue, int 
         void* stream, bool f32 = false) {
   const bool a_f32 = a_dtype == DT_F32, modulated = prologue == PRO_MODULATE;
   const void* a_tiles = (modulated || (a_f32 && !f32)) ? a_work : a;
-  if (p.k % 8 || p.n % 8 || p.m < 1 || a_tiles == nullptr || (f32 && (!a_f32 || w_kn)) ||
+  if (p.k % 8 || p.n % 8 || p.m < 1 || a_tiles == nullptr || (f32 && !a_f32) ||
       (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(a_tiles) | reinterpret_cast<uintptr_t>(w)) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap ta, tw;
   const bool maps_ok =
       f32 ? encode_f32_swizzled(&ta, a_tiles, p.m, p.k, BM, BK_F32) &&
-                encode_f32_swizzled(&tw, w, p.n, p.k, BN, BK_F32)
+                (w_kn ? encode_f32_swizzled(&tw, w, p.k, p.n, BK_F32, 32)
+                      : encode_f32_swizzled(&tw, w, p.n, p.k, BN, BK_F32))
           : encode(&ta, a_tiles, p.m, p.k, BM, BK) &&
                 (w_kn ? encode(&tw, w, p.k, p.n, BK, 64) : encode(&tw, w, p.n, p.k, BN, BK));
   if (!maps_ok) return static_cast<int>(cudaErrorInvalidValue);
@@ -601,7 +608,7 @@ int run(const void* a, int a_dtype, const void* w, Params& p, int prologue, int 
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid(cdiv(p.n, BN), cdiv(p.m, BM), p.splits);
-  cudaError_t e = f32    ? launch<false, true>(ta, tw, p, grid, s)
+  cudaError_t e = f32    ? (w_kn ? launch<true, true>(ta, tw, p, grid, s) : launch<false, true>(ta, tw, p, grid, s))
                   : w_kn ? launch<true, false>(ta, tw, p, grid, s)
                          : launch<false, false>(ta, tw, p, grid, s);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -662,32 +669,28 @@ extern "C" int mp_gemm(const void* a, int a_dtype, const void* w, void* c, int c
   return run(a, a_dtype, w, p, prologue, w_kn, a_work, partial, stream);
 }
 
-// The f32 form: a f32 (M, K), w f32 (N, K), C f32 or bf16 (c_dtype), the
-// same prologue and epilogues; a_work: an (M, K) f32 buffer, needed when
-// modulated; partial: (splits, M, N) f32, needed when mp_gemm_f32_splits >
-// 1. The residual backward (GATE_RESIDUAL_BWD) is row 4's and raises here.
+// The f32 form: a f32 (M, K), w f32 (N, K) or, w_kn, (K, N), C f32 or bf16
+// (c_dtype), the same prologue and epilogues; a_work: an (M, K) f32
+// buffer, needed when modulated; partial: (splits, M, N) f32, needed when
+// mp_gemm_f32_splits > 1. The residual backward has its own entry,
+// mp_gemm_f32_gate_residual_bwd.
 extern "C" int mp_gemm_f32(const void* a, const void* w, void* c, int c_dtype, int m, int n, int k, float alpha,
                            int prologue, const void* mods, int mods_ld, int shift_off, int scale_off, int gate_off,
-                           const void* gain, int tokens, int epilogue, const void* x, int x_dtype, void* a_work,
-                           void* partial, void* stream) {
+                           const void* gain, int tokens, int epilogue, const void* x, int x_dtype, int w_kn,
+                           void* a_work, void* partial, void* stream) {
   if (epilogue == EPI_GATE_RESIDUAL_BWD) return static_cast<int>(cudaErrorInvalidValue);
   Params p = forward_params(c, c_dtype, m, n, k, alpha, mods, mods_ld, shift_off, scale_off, gate_off, gain, tokens,
                             epilogue, x, x_dtype);
-  return run(a, DT_F32, w, p, prologue, 0, a_work, partial, stream, true);
+  return run(a, DT_F32, w, p, prologue, w_kn, a_work, partial, stream, true);
 }
 
-// The attention backward's out product with the residual backward as its
-// epilogue: out = attn . W^T * alpha (bf16 attn (M, K), W (N, K)), never
-// stored; dout (M, N) bf16 = bf16(db*gate), dgate (M / tokens, N) f32 =
-// sum over each sample's rows of db*out, db = dy*0.3/sqrt(0.58), the gate
-// at column gate_off of the f32 rows (M / tokens, rows_ld). Takes tokens
-// dividing 128 (a tile holds whole samples) or above 8 (a row group of 8
-// meets at most two samples) and 16-byte aligned tensors; where tokens do
-// not divide 128, tile_partial holds mp_gemm_gate_partial_floats floats.
-extern "C" int mp_gemm_gate_residual_bwd(const void* attn, const void* w, void* dout, void* dgate, int m, int n,
-                                         int k, float alpha, const void* rows, int rows_ld, int gate_off,
-                                         const void* dy, int dy_dtype, int tokens, void* partial, void* tile_partial,
-                                         void* stream) {
+namespace {
+
+// The residual backward's product and epilogue: bf16 attn, W and dout, or
+// (f32) the f32 form's f32 attn, W and dout.
+int gate_residual_bwd(const void* attn, const void* w, void* dout, void* dgate, int m, int n, int k, float alpha,
+                      const void* rows, int rows_ld, int gate_off, const void* dy, int dy_dtype, int tokens,
+                      void* partial, void* tile_partial, void* stream, bool f32) {
   const bool whole = tokens > 0 && BM % tokens == 0;
   if (tokens < 1 || (!whole && (tokens <= GR_ROWS || tile_partial == nullptr)) || m % tokens || rows_ld % 4 ||
       gate_off % 4 || reinterpret_cast<uintptr_t>(tile_partial) % 16 ||
@@ -698,7 +701,7 @@ extern "C" int mp_gemm_gate_residual_bwd(const void* attn, const void* w, void* 
   const double t_res = 0.3, rd = sqrt((1.0 - t_res) * (1.0 - t_res) + t_res * t_res);
   Params p = {};
   p.c = dout;
-  p.c_dtype = DT_BF16;
+  p.c_dtype = f32 ? DT_F32 : DT_BF16;
   p.m = m;
   p.n = n;
   p.k = k;
@@ -713,7 +716,36 @@ extern "C" int mp_gemm_gate_residual_bwd(const void* attn, const void* w, void* 
   p.dgate = static_cast<float*>(dgate);
   p.db_fac = static_cast<float>(t_res / rd);
   p.tile_partial = whole ? nullptr : static_cast<float*>(tile_partial);
-  return run(attn, DT_BF16, w, p, PRO_NONE, 0, nullptr, partial, stream);
+  return run(attn, f32 ? DT_F32 : DT_BF16, w, p, PRO_NONE, 0, nullptr, partial, stream, f32);
+}
+
+}  // namespace
+
+// The attention backward's out product with the residual backward as its
+// epilogue: out = attn . W^T * alpha (bf16 attn (M, K), W (N, K)), never
+// stored; dout (M, N) bf16 = bf16(db*gate), dgate (M / tokens, N) f32 =
+// sum over each sample's rows of db*out, db = dy*0.3/sqrt(0.58), the gate
+// at column gate_off of the f32 rows (M / tokens, rows_ld). Takes tokens
+// dividing 128 (a tile holds whole samples) or above 8 (a row group of 8
+// meets at most two samples) and 16-byte aligned tensors; where tokens do
+// not divide 128, tile_partial holds mp_gemm_gate_partial_floats floats.
+extern "C" int mp_gemm_gate_residual_bwd(const void* attn, const void* w, void* dout, void* dgate, int m, int n,
+                                         int k, float alpha, const void* rows, int rows_ld, int gate_off,
+                                         const void* dy, int dy_dtype, int tokens, void* partial, void* tile_partial,
+                                         void* stream) {
+  return gate_residual_bwd(attn, w, dout, dgate, m, n, k, alpha, rows, rows_ld, gate_off, dy, dy_dtype, tokens,
+                           partial, tile_partial, stream, false);
+}
+
+// Its f32 form (a float32 model: row 4 at dtype = float32): f32 attn (M,
+// K), W (N, K) and dout (M, N), the product on the f32 pipes; partial:
+// (mp_gemm_f32_splits, M, N) f32 where that is above 1. The rest as above.
+extern "C" int mp_gemm_f32_gate_residual_bwd(const void* attn, const void* w, void* dout, void* dgate, int m, int n,
+                                             int k, float alpha, const void* rows, int rows_ld, int gate_off,
+                                             const void* dy, int dy_dtype, int tokens, void* partial,
+                                             void* tile_partial, void* stream) {
+  return gate_residual_bwd(attn, w, dout, dgate, m, n, k, alpha, rows, rows_ld, gate_off, dy, dy_dtype, tokens,
+                           partial, tile_partial, stream, true);
 }
 
 // floats of mp_gemm_gate_residual_bwd's tile_partial for an (M, N) output

@@ -492,9 +492,10 @@ __device__ __forceinline__ void attention_unit(const Args& A, int s, int unit, u
 // The producer's side of one product item: the W tiles of its first k
 // steps (they depend on no earlier item) go out before it waits for the
 // rows of A it reads (`wait`), then the A tiles, then the rest as
-// produce_tile issues them. W_KN: W stored (K, N), two 64-column boxes a
-// stage.
-template <bool W_KN, class Wait>
+// produce_tile issues them. W_KN: W stored (K, N), boxes of 128-byte rows
+// side by side (gemm_pipeline.cuh load_w_step); KSTEP: k a step (BK, or
+// BK_F32 for f32 operands).
+template <bool W_KN, int KSTEP = BK, class Wait>
 __device__ __forceinline__ void produce_item(const Ring<STAGES>& ring, const CUtensorMap* tm_a,
                                              const CUtensorMap* tm_w, const Tile& tl, uint32_t& it,
                                              const Wait& wait) {
@@ -504,21 +505,15 @@ __device__ __forceinline__ void produce_item(const Ring<STAGES>& ring, const CUt
     const int s = at % STAGES;
     mbar_wait(ring.empty(s), ((at / STAGES) & 1) ^ 1);
     mbar_expect_tx(ring.full(s), STAGE_BYTES);
-    const uint32_t w_s = ring.stage(s) + A_BYTES;
-    if constexpr (W_KN) {
-      tma_load_2d(w_s, tm_w, ring.full(s), tl.n0, (tl.kb + i) * BK);
-      tma_load_2d(w_s + BK * 128, tm_w, ring.full(s), tl.n0 + 64, (tl.kb + i) * BK);
-    } else {
-      tma_load_2d(w_s, tm_w, ring.full(s), (tl.kb + i) * BK, tl.n0);
-    }
+    load_w_step<W_KN, KSTEP>(tm_w, ring.stage(s) + A_BYTES, ring.full(s), tl.n0, (tl.kb + i) * KSTEP);
   }
   wait();
   for (int i = 0; i < early; ++i) {
     const int s = (it + i) % STAGES;
-    tma_load_2d(ring.stage(s), tm_a, ring.full(s), (tl.kb + i) * BK, tl.m0);
+    tma_load_2d(ring.stage(s), tm_a, ring.full(s), (tl.kb + i) * KSTEP, tl.m0);
   }
   it += early;
-  produce_tile<STAGES, W_KN>(ring, tm_a, tm_w, tl.m0, tl.n0, tl.kb + early, tl.nk - early, it);
+  produce_tile<STAGES, W_KN, KSTEP>(ring, tm_a, tm_w, tl.m0, tl.n0, tl.kb + early, tl.nk - early, it);
 }
 
 // The consumers hand each finished product item to the signalling thread
@@ -553,7 +548,7 @@ __device__ __forceinline__ void leave_launch(const Args& A) {
 // buffer the allocator hands back).
 struct MapEntry {
   const void* ptr;
-  int rows, cols, box_rows;
+  int rows, cols, box_rows, f32;
   CUtensorMap map;
 };
 constexpr int MAP_CACHE = 64;
@@ -561,16 +556,19 @@ inline MapEntry map_cache[MAP_CACHE];
 inline int map_next = 0;
 inline std::mutex map_lock;
 
-inline bool cached_map(CUtensorMap* out, const void* ptr, int rows, int cols, int box_rows) {
+// A bf16 matrix in boxes of box_rows x BK, or (f32) an f32 one in boxes of
+// box_rows x BK_F32 (128-byte rows either way).
+inline bool cached_map(CUtensorMap* out, const void* ptr, int rows, int cols, int box_rows, bool f32 = false) {
   std::lock_guard<std::mutex> guard(map_lock);
   for (const MapEntry& e : map_cache) {
-    if (e.ptr == ptr && e.rows == rows && e.cols == cols && e.box_rows == box_rows) {
+    if (e.ptr == ptr && e.rows == rows && e.cols == cols && e.box_rows == box_rows && e.f32 == f32) {
       *out = e.map;
       return true;
     }
   }
   MapEntry& e = map_cache[map_next];
-  if (!encode(&e.map, ptr, rows, cols, box_rows, BK)) {
+  if (!(f32 ? encode_f32_swizzled(&e.map, ptr, rows, cols, box_rows, BK_F32)
+            : encode(&e.map, ptr, rows, cols, box_rows, BK))) {
     e.ptr = nullptr;
     return false;
   }
@@ -578,6 +576,7 @@ inline bool cached_map(CUtensorMap* out, const void* ptr, int rows, int cols, in
   e.rows = rows;
   e.cols = cols;
   e.box_rows = box_rows;
+  e.f32 = f32;
   map_next = (map_next + 1) % MAP_CACHE;
   *out = e.map;
   return true;
@@ -587,11 +586,12 @@ inline bool cached_map(CUtensorMap* out, const void* ptr, int rows, int cols, in
 // words do not fit it. (tp_plan splits only as far as one wave takes; the
 // kernel does not need it, since no split waits on another.)
 inline bool make_prod(Prod& p, int m, int n, int k, int splits, int ticket_off, int sync_words, int a_map,
-                      int w_map, int epi, float alpha, void* c, void* partial, int nb = BN, int w_kn = 0) {
+                      int w_map, int epi, float alpha, void* c, void* partial, int nb = BN, int w_kn = 0,
+                      int kstep = BK) {
   p.m = m;
   p.n = n;
   p.nt = (n + nb - 1) / nb;
-  p.kt = (k + BK - 1) / BK;
+  p.kt = (k + kstep - 1) / kstep;
   p.splits = splits;
   p.a_map = a_map;
   p.w_map = w_map;
@@ -610,13 +610,15 @@ inline bool make_prod(Prod& p, int m, int n, int k, int splits, int ticket_off, 
 // kernel runs: the kinds in order, each stage's items (the token rows in
 // pre items, the units two an item, a product's tiles times its splits),
 // counters and targets inside the buffer. prods: for each S_GEMM stage in
-// order, its (n, k, a map, w map, epilogue, alpha, C, partials).
+// order, its (n, k, a map, w map, epilogue, alpha, C, partials, W read as
+// (K, N), k a step).
 struct ProdShape {
   int n, k, a_map, w_map, epi;
   float alpha;
   void* c;
   void* partial;
   int w_kn = 0;
+  int kstep = BK;
 };
 
 template <class Args>
@@ -648,7 +650,7 @@ bool read_plan(const int* plan, Args& args, int ctas, std::initializer_list<int>
     } else {
       Prod& p = args.prod[s];
       if (!make_prod(p, args.m, prod->n, prod->k, w[PS_SPLITS], w[PS_TICKET], sync_words, prod->a_map, prod->w_map,
-                     prod->epi, prod->alpha, prod->c, prod->partial, nb, prod->w_kn))
+                     prod->epi, prod->alpha, prod->c, prod->partial, nb, prod->w_kn, prod->kstep))
         return false;
       items = mt * p.nt * p.splits;
       ++prod;

@@ -48,21 +48,39 @@ def kernel_family_ok(cfg: DiTConfig) -> bool:
     return mp_adaln_family(cfg) and cfg.use_cosine_attention and cfg.hidden_size % cfg.num_heads == 0
 
 
+# The float32 weights of a block up to which ``auto`` takes the whole-block
+# kernels (bf16 has no budget). Their f32 forms run the products by FFMA, at
+# about half f32 cuBLAS's rate: ahead of the plain path at DiT-S/2 (10.6 MB),
+# behind it from DiT-B/2 (42.5 MB) up wherever the device sets the pace
+# (tools/kernel_policy_sweep.py --dtype float32; PERF.md section 5).
+F32_WEIGHT_BUDGET = 16 * 2**20
+
+
+def whole_block_weight_bytes(cfg: DiTConfig) -> int:
+    """A block's weights as the JAX policy counts them: 10 D^2 + 2 D H
+    elements of the model's type."""
+    d, hid = cfg.hidden_size, int(cfg.hidden_size * cfg.mlp_ratio)
+    return (10 * d * d + 2 * d * hid) * (2 if cfg.dtype == torch.bfloat16 else 4)
+
+
 def kernel_policy(cfg: DiTConfig, seq_len: int, device: torch.device) -> str:
     """The auto policy (the per-block dispatch, the stack promotion and the
     tensor-parallel resolver all derive from it): the whole-block kernels
-    (``mega``) for folded-weight bf16 programs of the kernels' family
-    (:func:`kernel_family_ok`) on a CUDA device at T <= 64, the plain path
-    (``off``) otherwise. The JAX policy's conditions on the flag family,
-    folding and T carry over; its VMEM weight budgets (7 MB / 11 MB, the
-    TPU's) do not, and no budget of the card's takes their place: on the
-    H100 the whole-block kernels were the fastest path measured at DiT-S/2,
-    B/2 and XL/2, ahead of ``mega_attn`` and ``off``
-    (tools/kernel_policy_sweep.py; PERF.md). Float32 stays on the plain
-    path: the kernels take bf16 operands."""
+    (``mega``) for folded-weight programs of the kernels' family
+    (:func:`kernel_family_ok`) on a CUDA device at T <= 64, in bf16, or in
+    float32 within :data:`F32_WEIGHT_BUDGET`; the plain path (``off``)
+    otherwise. The JAX policy's conditions on the flag family, folding and
+    T carry over; its VMEM weight budgets (7 MB / 11 MB, the TPU's) do not:
+    on the H100 the whole-block kernels were the fastest path measured at
+    DiT-S/2, B/2 and XL/2 in bf16, ahead of ``mega_attn`` and ``off``, and
+    in float32 at S/2 only (PERF.md)."""
     if not kernel_family_ok(cfg):
         return "off"
-    if cfg.fold_weights and seq_len <= 64 and cfg.dtype == torch.bfloat16 and torch.device(device).type == "cuda":
+    if not (cfg.fold_weights and seq_len <= 64 and torch.device(device).type == "cuda"):
+        return "off"
+    if cfg.dtype == torch.bfloat16:
+        return "mega"
+    if cfg.dtype == torch.float32 and whole_block_weight_bytes(cfg) <= F32_WEIGHT_BUDGET:
         return "mega"
     return "off"
 
@@ -111,10 +129,12 @@ def resolve_block_kernel_tp(cfg: DiTConfig, folded: bool, tp: int, device) -> st
     evenly, or a single-device policy of ``off``; the whole-block island
     ``mega_tp`` when the MLP hidden width splits evenly too, the attention
     island ``mega_attn_tp`` otherwise. Off CUDA ``off``, as the JAX package
-    resolves off-TPU. Explicit values pass through."""
+    resolves off-TPU, and for a float32 model, whose islands' kernels take
+    bf16 only until their own slice (ROADMAP B.0.3). Explicit values pass
+    through."""
     if cfg.block_kernel != "auto":
         return cfg.block_kernel
-    if torch.device(device).type != "cuda" or tp < 2 or cfg.num_heads % tp:
+    if torch.device(device).type != "cuda" or tp < 2 or cfg.num_heads % tp or cfg.dtype != torch.bfloat16:
         return "off"
     if kernel_policy(cfg.replace(fold_weights=folded), cfg.num_patches, device) == "off":
         return "off"

@@ -17,10 +17,11 @@ the reference VJP. The half-block is
 On the card rows 3, 4 and 5 are one launch each of ``csrc/attn_branch.cu``
 (:func:`attn_branch_fwd`, :func:`attn_branch_bwd`, :func:`attn_branch_res_fwd`:
 a persistent work list laid out by :func:`branch_plan`, shift, scale and gate
-read in place) where :func:`branch_route` takes the shape: bf16, head widths
-64 and 72, an even T <= 64 dividing 128, D a multiple of 8, 16-byte aligned
-operands. Elsewhere (T = 256 at 32 x 32 latents among them) the half-block
-runs as a launch sequence of other rows' kernels (:func:`fwd_launch_sequence`, :func:`bwd_launch_sequence`,
+read in place) where :func:`branch_route` takes the shape: x and weights all
+bf16 or all f32 (a float32 model: the f32 instances, products on the f32
+pipes, nothing rounded), head widths 64 and 72, an even T <= 64 dividing
+128, D a multiple of 8, 16-byte aligned operands. Elsewhere (T = 256 at
+32 x 32 latents among them) the half-block runs as a launch sequence of other rows' kernels (:func:`fwd_launch_sequence`, :func:`bwd_launch_sequence`,
 :func:`res_fwd_launch_sequence`, counted as ``attn_branch/<row>/sequence``),
 with shift, scale and gate packed once into one (N, 3D) f32 row buffer (the model hands
 them in as bf16, so the upcast is exact) and the gain read from device
@@ -63,6 +64,12 @@ the reference's: the modulate denominator is constant in the gain,
 after P.V on the unnormalised exponentials; row 5 and the backward's
 attention normalise p first and round it to bf16; (b) recomputes the exact
 softmax of the pre-normalised bf16 q/k; h, dqkv, attn and dout leave as bf16.
+A float32 model rounds none of it, as the Pallas kernels at dtype = float32:
+every stage above has an f32 form (``modulate_fwd_f32``, ``mp_gemm_f32`` with
+W read as (K, N), ``mp_gemm_f32_gate_residual_bwd``, ``attention_bwd_f32``
+on ``csrc/attention_bwd_f32.cuh``), h, attn, dout and dqkv leave in f32, and
+the dW pair is two f32 products with TF32 off; ``dw_gemm`` (row 4') raises on
+f32 operands, its f32 form being a later slice.
 
 Every wrapper takes its kernel for a CUDA tensor (raising on what it does not
 take) and its plain PyTorch version for a CPU tensor. ``LAUNCHES`` counts
@@ -175,6 +182,39 @@ BRANCH_KERNELS = True
 DW_SPLITS = (4, 2, 1)
 
 
+# a CTA's shared memory in csrc/attn_branch.cu (SMEM_BYTES): 1 KB to align
+# the ring, the ring (four stages and their full / empty barriers), the
+# handoff words, the f32 epilogue tile (128 rows of 132 floats), the
+# per-sample sums' partials (two planes of 16 row groups by 128 columns),
+# the warps' dgain sums
+BRANCH_RING_BYTES = 4 * BRANCH_STAGE_BYTES
+BRANCH_TILE_BYTES = STACK_TILE * (STACK_TILE + 4) * 4
+BRANCH_SUMS_BYTES = 2 * (STACK_TILE // 8) * STACK_TILE * 4
+BRANCH_SMEM_BYTES = 1024 + BRANCH_RING_BYTES + 2 * 4 * 8 + 96 + BRANCH_TILE_BYTES + BRANCH_SUMS_BYTES + 64
+
+
+def branch_f32_units(kind: str, hd: int) -> dict:
+    """Where the f32 instances put their attention units (two a CTA, one a
+    group of four consumer warps), as ``csrc/attn_branch.cu`` lays them out:
+    {region: (bytes the units take there, bytes the region holds)}. The
+    forward's units (rows 3 and 5, and row 4's recompute): each a group's
+    f32 q, k and v rows (64 x (hd + 4) floats) and two scale vectors, both
+    in the ring. The backward's (row 4): each four f32 tiles of 64 rows (q,
+    do, k, v) with the query rows' 1/sum and rowsum(dp*p) and the tiles'
+    norms (``csrc/attention_bwd_f32.cuh`` Layout at T <= 64), the first in
+    the ring, the second in the epilogue tile's and the sums' memory."""
+    if kind not in BRANCH_STAGES:
+        raise ValueError(f"kind must be one of {tuple(BRANCH_STAGES)}, got {kind!r}")
+    rows, ld = BRANCH_MAX_T, hd + 4
+    fwd = 3 * rows * ld * 4 + 2 * rows * 4
+    out = {"ring": (2 * fwd, BRANCH_RING_BYTES)}
+    if kind == "bwd":
+        bwd = 4 * rows * ld * 4 + 4 * rows * 4
+        out = {"ring": (max(2 * fwd, bwd), BRANCH_RING_BYTES),
+               "tile+sums": (bwd, BRANCH_TILE_BYTES + BRANCH_SUMS_BYTES)}
+    return out
+
+
 def dw_in_kernel(d: int) -> bool:
     return 16 * d * d <= DW_IN_KERNEL_BUDGET
 
@@ -249,19 +289,20 @@ def out_gate_residual_bwd(attn, w_out, dy, rows, gate_off, tokens):
     dy*0.3/rd*gate in the weights' type and dgate = sum_t dy*0.3/rd*out
     (N, D) f32. One launch of ``csrc/mp_gemm.cu`` (one more under split-K,
     and one more where T does not divide 128: the tiles' sums of a sample
-    added in tile order). On the card: bf16 operands,
-    :func:`check_out_gate_residual_shape`, D a multiple of 8 and 16-byte
-    aligned tensors; it raises otherwise, naming CUDA."""
+    added in tile order). On the card: bf16 attn and weight (dout bf16), or
+    both f32 (the f32 form, ``mp_gemm_f32_gate_residual_bwd``: the product
+    on the f32 pipes, dout f32), :func:`check_out_gate_residual_shape`, D a
+    multiple of 8 and 16-byte aligned tensors; it raises otherwise, naming
+    CUDA."""
     if attn.device.type == "cpu":
         return out_gate_residual_bwd_plain(attn, w_out, dy, rows, gate_off, tokens)
     from mapdit_tpu_torch.ops.cuda import build
 
     m, k = attn.shape
     n = w_out.shape[0]
-    if attn.dtype != torch.bfloat16 or w_out.dtype != torch.bfloat16 or w_out.shape != (n, k):
-        raise ValueError(f"out_gate_residual_bwd on CUDA takes bf16 attn (M, K) and a bf16 (N, K) weight (its float32 "
-                         f"form comes with row 4's float32 slice), got "
-                         f"{attn.dtype} {tuple(attn.shape)} and {w_out.dtype} {tuple(w_out.shape)}")
+    if attn.dtype not in _DTYPE_CODE or w_out.dtype != attn.dtype or w_out.shape != (n, k):
+        raise ValueError(f"out_gate_residual_bwd on CUDA takes attn (M, K) and an (N, K) weight, both bf16 or both "
+                         f"f32, got {attn.dtype} {tuple(attn.shape)} and {w_out.dtype} {tuple(w_out.shape)}")
     if dy.dtype not in _DTYPE_CODE or dy.numel() != m * n:
         raise ValueError(f"out_gate_residual_bwd on CUDA takes f32/bf16 dy of {m}x{n} elements, got {dy.dtype} "
                          f"{tuple(dy.shape)}")
@@ -273,16 +314,17 @@ def out_gate_residual_bwd(attn, w_out, dy, rows, gate_off, tokens):
     if gate_off + n > rows.shape[1] or gate_off % 4 or rows.shape[1] % 4:
         raise ValueError("out_gate_residual_bwd on CUDA reads the gate as float4: offset and row length must be "
                          "multiples of 4, the gate inside the rows")
-    dout = torch.empty(m, n, dtype=torch.bfloat16, device=attn.device)
+    f32 = attn.dtype == torch.float32
+    dout = torch.empty(m, n, dtype=attn.dtype, device=attn.device)
     dgate = torch.empty(m // tokens, n, dtype=torch.float32, device=attn.device)
     _require_cuda(attn, w_out, dy, rows, dout, dgate)
     _check_aligned("out_gate_residual_bwd", attn, w_out, dy, rows)
-    splits = _mp_gemm_splits(m, n, k)
+    splits = _mp_gemm_splits(m, n, k, f32)
     partial = torch.empty(splits, m, n, dtype=torch.float32, device=attn.device) if splits > 1 else None
     lib = build.library("mp_gemm")
     tile_floats = lib.mp_gemm_gate_partial_floats(m, n, tokens)
     tile_partial = torch.empty(tile_floats, dtype=torch.float32, device=attn.device) if tile_floats else None
-    code = lib.mp_gemm_gate_residual_bwd(
+    code = (lib.mp_gemm_f32_gate_residual_bwd if f32 else lib.mp_gemm_gate_residual_bwd)(
         attn.data_ptr(), w_out.data_ptr(), dout.data_ptr(), dgate.data_ptr(), m, n, k, 1.0 / math.sqrt(k),
         rows.data_ptr(), rows.shape[1], gate_off, dy.data_ptr(), _DTYPE_CODE[dy.dtype], tokens,
         None if partial is None else partial.data_ptr(), None if tile_partial is None else tile_partial.data_ptr(),
@@ -356,25 +398,28 @@ def check_attention_bwd_shape(tokens: int, hd: int) -> None:
 def attention_bwd(qkv, dattn, tokens, heads, out_dtype):
     """Attention backward over the flat f32 qkv product (N*T, 3D) and the
     f32 cotangent of the pre-projection attention (N*T, D); returns dqkv
-    (N*T, 3D) in ``out_dtype`` (bf16 on the card), heads as column slices.
-    On the card: :func:`check_attention_bwd_shape`."""
+    (N*T, 3D) in ``out_dtype``, heads as column slices. On the card
+    :func:`check_attention_bwd_shape`, and bf16 dqkv (``attention_bwd``: the
+    products on the tensor cores, on bf16 operands) or f32
+    (``attention_bwd_f32``, ``csrc/attention_bwd_f32.cuh``: the f32 pipes,
+    nothing rounded)."""
     if qkv.device.type == "cpu":
         return attention_bwd_plain(qkv, dattn, tokens, heads, out_dtype)
     nt, d3 = qkv.shape
     d = d3 // 3
     if qkv.dtype != torch.float32 or d3 != 3 * d or d % heads or nt % tokens:
         raise ValueError(f"attention_bwd takes f32 (N*T, 3D) qkv, got {qkv.dtype} {tuple(qkv.shape)}")
-    if dattn.dtype != torch.float32 or dattn.shape != (nt, d) or out_dtype != torch.bfloat16:
-        raise ValueError("attention_bwd takes f32 (N*T, D) dattn and writes bf16 dqkv")
+    if dattn.dtype != torch.float32 or dattn.shape != (nt, d) or out_dtype not in _DTYPE_CODE:
+        raise ValueError("attention_bwd takes f32 (N*T, D) dattn and writes bf16 or f32 dqkv")
     hd = d // heads
     check_attention_bwd_shape(tokens, hd)
-    dqkv = torch.empty(nt, d3, dtype=torch.bfloat16, device=qkv.device)
+    dqkv = torch.empty(nt, d3, dtype=out_dtype, device=qkv.device)
     _require_cuda(qkv, dattn, dqkv)
     if qkv.data_ptr() % 16 or dattn.data_ptr() % 16:
         raise ValueError("attention_bwd reads 16 bytes a lane: qkv and dattn must start at a multiple of 16 bytes")
     lib = _lib()
-    code = lib.attention_bwd(qkv.data_ptr(), dattn.data_ptr(), dqkv.data_ptr(), nt // tokens, tokens, heads, hd,
-                             _stream(qkv))
+    launch = lib.attention_bwd_f32 if out_dtype == torch.float32 else lib.attention_bwd
+    code = launch(qkv.data_ptr(), dattn.data_ptr(), dqkv.data_ptr(), nt // tokens, tokens, heads, hd, _stream(qkv))
     _raise_on(code, lib, "attention_bwd", _LIB)
     LAUNCHES["attn_bwd/attention"] += 1
     return dqkv
@@ -421,21 +466,23 @@ def modulate_fwd_plain(x, rows, gain, tokens, out_dtype):
 def modulate_fwd(x, rows, gain, tokens, out_dtype):
     """h = (u + (shift - u)*g) / sqrt((1-g)^2 + g^2), u = x*scale, over flat
     (N*T, D) x with shift at column 0 and scale at column D of the f32 rows;
-    returns h in ``out_dtype`` (bf16 on the card). On the card:
-    :func:`check_modulate_shape` and 16-byte aligned x and rows."""
+    returns h in ``out_dtype``: bf16 (rounded once) or f32 (``modulate_fwd_f32``,
+    nothing rounded). On the card: :func:`check_modulate_shape` and 16-byte
+    aligned x and rows."""
     if x.device.type == "cpu":
         return modulate_fwd_plain(x, rows, gain, tokens, out_dtype)
     m, d = x.shape
-    if x.dtype not in _DTYPE_CODE or out_dtype != torch.bfloat16:
-        raise ValueError("modulate_fwd takes f32/bf16 x and writes bf16 h")
+    if x.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
+        raise ValueError("modulate_fwd takes f32/bf16 x and writes bf16 or f32 h")
     _check_modulate_rows(rows, m // tokens, d)
     gain = _gain_value(gain)
-    h = torch.empty(m, d, dtype=torch.bfloat16, device=x.device)
+    h = torch.empty(m, d, dtype=out_dtype, device=x.device)
     _require_cuda(x, rows, gain, h)
     _check_aligned("modulate_fwd", x, rows)
     lib = _lib()
-    code = lib.modulate_fwd(x.data_ptr(), _DTYPE_CODE[x.dtype], rows.data_ptr(), rows.shape[1], 0, d,
-                            gain.data_ptr(), h.data_ptr(), m // tokens, tokens, d, _stream(x))
+    launch = lib.modulate_fwd_f32 if out_dtype == torch.float32 else lib.modulate_fwd
+    code = launch(x.data_ptr(), _DTYPE_CODE[x.dtype], rows.data_ptr(), rows.shape[1], 0, d, gain.data_ptr(),
+                  h.data_ptr(), m // tokens, tokens, d, _stream(x))
     _raise_on(code, lib, "modulate_fwd", _LIB)
     LAUNCHES["attn_bwd/modulate_fwd"] += 1
     return h
@@ -513,6 +560,10 @@ def dw_gemm(a, b, alpha):
     order)."""
     if a.device.type == "cpu":
         return dw_gemm_plain(a, b, alpha)
+    if torch.float32 in (a.dtype, b.dtype):
+        raise ValueError("dw_gemm (row 4', the in-kernel-dW variant) takes bf16 operands: its float32 form is a "
+                         "later slice of the port (ROADMAP B.0.1); a float32 model runs the dW pair as f32 "
+                         "library products (DW_IN_KERNEL_BUDGET = 0)")
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 or a.ndim != 2 or b.ndim != 2:
         raise ValueError(f"dw_gemm takes bf16 (M, P) and (M, Q) operands, got {a.dtype} {tuple(a.shape)}, "
                          f"{b.dtype} {tuple(b.shape)}")
@@ -556,13 +607,11 @@ def _check(x, shift, scale, gate, gain, w_qkv, w_out, heads):
         raise ValueError(f"w_qkv must be (3D, D) and w_out (D, D), got {tuple(w_qkv.shape)}, {tuple(w_out.shape)}")
     if any(r.shape != (n, d) for r in (shift, scale, gate)) or gain.numel() != 1:
         raise ValueError("shift, scale and gate must be (N, D) and the gain one value")
-    if x.device.type != "cpu" and (
-        x.dtype != torch.bfloat16 or w_qkv.dtype != torch.bfloat16 or w_out.dtype != torch.bfloat16
-    ):
+    types = {x.dtype, w_qkv.dtype, w_out.dtype}
+    if x.device.type != "cpu" and types not in ({torch.bfloat16}, {torch.float32}):
         raise ValueError(
-            "the CUDA attention half-block kernels (rows 3-5 and their launch sequences) run bf16 only: x and the "
-            "weights must be bf16; their float32 forms come in a later slice of the port (a float32 model runs "
-            "block_kernel='mega' or 'mega_stack' on the whole-block kernel's f32 instances, or 'off')"
+            "the CUDA attention half-block kernels (rows 3-5 and their launch sequences) take x and the weights "
+            f"all bf16 (the bf16 forms) or all f32 (the f32 forms), got {sorted(str(z) for z in types)}"
         )
 
 
@@ -672,9 +721,18 @@ def _dw_product(a, b, alpha):
     with f32 sums and an f32 result (products of bf16 values are exact in
     f32). On the card the rows split into the first of DW_SPLITS that
     divides M, one batched bf16 product with f32 output, the splits' sums
-    added in order; on the CPU the product of the f32 upcasts."""
+    added in order; f32 operands (a float32 model) one f32 product at full
+    f32 precision (TF32 off, whatever the process's matmul precision); on
+    the CPU the product of the f32 upcasts."""
     if a.device.type == "cpu":
         return (a.t().float() @ b.float()) * alpha
+    if a.dtype == torch.float32:
+        precision = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("highest")
+        try:
+            return torch.mm(a.t(), b) * alpha
+        finally:
+            torch.set_float32_matmul_precision(precision)
     m = a.shape[0]
     splits = next(s for s in DW_SPLITS if m % s == 0)
     if splits == 1:
@@ -802,28 +860,31 @@ def check_branch_shape(tokens: int, d: int, heads: int) -> None:
 
 def branch_route(x, w_qkv, w_out, heads: int, dy=None) -> str:
     """``"kernel"`` (one launch of ``csrc/attn_branch.cu``) where the call
-    lies in its domain: bf16 x and weights, :func:`check_branch_shape`,
-    16-byte aligned x, weights (and dy); else ``"sequence"`` (the launch
-    sequence, which raises where it raises). BRANCH_KERNELS False: always
-    ``"sequence"``."""
+    lies in its domain: x and weights all bf16 (the bf16 instances) or all
+    f32 (the f32 instances), :func:`check_branch_shape`, 16-byte aligned x,
+    weights (and dy); else ``"sequence"`` (the launch sequence, which raises
+    where it raises). BRANCH_KERNELS False: always ``"sequence"``."""
     _, t, d = x.shape
     try:
         check_branch_shape(t, d, heads)
     except ValueError:
         return "sequence"
     tensors = (x, w_qkv, w_out) + (() if dy is None else (dy,))
-    ok = (BRANCH_KERNELS and x.dtype == w_qkv.dtype == w_out.dtype == torch.bfloat16
+    ok = (BRANCH_KERNELS and x.dtype == w_qkv.dtype == w_out.dtype and x.dtype in _DTYPE_CODE
           and all(z.data_ptr() % 16 == 0 for z in tensors))
     return "kernel" if ok else "sequence"
 
 
 @functools.lru_cache(maxsize=None)
-def branch_plan(kind: str, n: int, t: int, d: int, heads: int, ctas: int = H100_SMS) -> TpPlan:
+def branch_plan(kind: str, n: int, t: int, d: int, heads: int, ctas: int = H100_SMS, f32: bool = False) -> TpPlan:
     """The plan of one launch of ``csrc/attn_branch.cu`` for N samples of T
     tokens at width D in ``heads`` heads: ``kind`` "fwd" (row 3: pre, qkv,
     attention, out), "res_fwd" (row 5: row 3's list) or "bwd" (row 4: then
     dattn, attention_bwd, dh), on ``ctas`` resident CTAs, pre items of the
-    most of BRANCH_PRE_ROWS token rows whose rows of x fill one ring stage.
+    most of BRANCH_PRE_ROWS token rows whose rows of x fill one ring stage
+    (the bf16 instances; the f32 ones read x through L2 and take the same
+    rows). ``f32``: the f32 instances' scratch, h, attn, dout and dqkv in
+    f32.
     A ``dit_block_tp.TpPlan`` (the TP kernels' list
     machinery: stages, waits, counter targets, words, scratch layout), its
     products unsplit; the backward's dgain ticket is the sync word after
@@ -853,26 +914,28 @@ def branch_plan(kind: str, n: int, t: int, d: int, heads: int, ctas: int = H100_
     if kind == "bwd":
         tickets["dgain"] = words
         words += 1
-    sizes = {"qkv": m * 3 * d * 4} if kind == "res_fwd" else {"h": m * d * 2, "qkv": m * 3 * d * 4, "attn": m * d * 2}
+    e = 4 if f32 else 2  # bytes of an element of h, attn, dout and dqkv
+    sizes = {"qkv": m * 3 * d * 4} if kind == "res_fwd" else {"h": m * d * e, "qkv": m * 3 * d * 4, "attn": m * d * e}
     if kind == "bwd":
-        sizes.update(dout=m * d * 2, dattn=m * d * 4, dqkv=m * 3 * d * 2, dgain_partial=prods["dh"].tiles * 4)
+        sizes.update(dout=m * d * e, dattn=m * d * 4, dqkv=m * 3 * d * e, dgain_partial=prods["dh"].tiles * 4)
     layout, offset = {}, 0
     for name, size in sizes.items():
         layout[name] = offset
         offset += _cdiv(size, 256) * 256
     return TpPlan(
-        kernel=f"branch_{kind}", ctas=ctas, samples=n, tokens=t, heads=heads, pre_rows=pre_rows, modulation=None,
+        kernel=f"branch_{kind}{'_f32' if f32 else ''}", ctas=ctas, samples=n, tokens=t, heads=heads,
+        pre_rows=pre_rows, modulation=None,
         stages=tuple(stages), tickets=tickets, sync_words=words, layout=layout, workspace_bytes=offset,
     )
 
 
 @functools.lru_cache(maxsize=None)
-def _branch_ctas(device_index: int, hd: int) -> int:
+def _branch_ctas(device_index: int, hd: int, f32: bool = False) -> int:
     from mapdit_tpu_torch.ops.cuda import build
 
-    lib = build.library("attn_branch")
+    lib = build.library("attn_branch_f32" if f32 else "attn_branch")
     with torch.cuda.device(device_index):
-        ctas = lib.attn_branch_resident_ctas(hd)
+        ctas = (lib.attn_branch_f32_resident_ctas if f32 else lib.attn_branch_resident_ctas)(hd)
     if ctas < 1:
         _raise_on(-ctas, lib, "attn_branch")
     return ctas
@@ -899,8 +962,8 @@ def _branch_call(kind, x, shift, scale, gate, gain, w_qkv, w_out, heads, trace):
     n, t, d = x.shape
     _require_cuda(x, gain, w_qkv, w_out)
     check_branch_shape(t, d, heads)
-    if x.dtype != torch.bfloat16 or w_qkv.dtype != torch.bfloat16 or w_out.dtype != torch.bfloat16:
-        raise ValueError("attn_branch on CUDA takes bf16 x and weights")
+    if x.dtype not in _DTYPE_CODE or not x.dtype == w_qkv.dtype == w_out.dtype:
+        raise ValueError("attn_branch on CUDA takes x and weights all bf16 or all f32")
     x, w_qkv, w_out = x.contiguous(), w_qkv.contiguous(), w_out.contiguous()
     if any(z.data_ptr() % 16 for z in (x, w_qkv, w_out)):
         raise ValueError("attn_branch reads its operands with TMA and 16-byte loads: they must be 16-byte aligned")
@@ -909,7 +972,8 @@ def _branch_call(kind, x, shift, scale, gate, gain, w_qkv, w_out, heads, trace):
         g = g.float()
     shift, scale, gate, rows_bf16 = _row_operands(x, shift, scale, gate)
     dev = x.get_device()
-    plan = branch_plan(kind, n, t, d, heads, _branch_ctas(dev, d // heads))
+    f32 = x.dtype == torch.float32
+    plan = branch_plan(kind, n, t, d, heads, _branch_ctas(dev, d // heads, f32), f32)
     words, buffer = _branch_state(plan, dev)
     work = torch.empty(plan.workspace_bytes, dtype=torch.uint8, device=x.device)
     if trace is not None and (trace.dtype != torch.int64 or trace.numel() < plan.ctas * BRANCH_TRACE_WORDS
@@ -928,8 +992,9 @@ def _view(work, plan, name, shape, dtype):
 
 def attn_branch_fwd(x, shift, scale, gate, gain, w_qkv, w_out, heads: int, *, trace: Optional[torch.Tensor] = None):
     """Row 3 as one launch of ``attn_branch_fwd`` (``csrc/attn_branch.cu``)
-    on CUDA tensors in its domain (:func:`check_branch_shape`, bf16 x and
-    weights, 16-byte aligned): y (N, T, D) bf16. shift, scale and gate (N,
+    on CUDA tensors in its domain (:func:`check_branch_shape`, x and weights
+    all bf16, or all f32 for the f32 instance ``attn_branch_fwd_f32``,
+    16-byte aligned): y (N, T, D) in x's type. shift, scale and gate (N,
     D), f32 or bf16 of one type, are read in place; the gain is one f32
     value. On CPU tensors: :func:`attn_fwd_plain`. ``trace``: int64 of BRANCH_TRACE_WORDS a CTA (each CTA's ns by
     stage). Calls of one plan run on one stream, and the first call at a
@@ -942,9 +1007,9 @@ def attn_branch_fwd(x, shift, scale, gate, gain, w_qkv, w_out, heads: int, *, tr
     n, t, d = x.shape
     plan, words, buffer, work, (x, w_qkv, w_out), rows, trace_ptr = _branch_call(
         "fwd", x, shift, scale, gate, gain, w_qkv, w_out, heads, trace)
-    lib = build.library("attn_branch")
+    lib = build.library("attn_branch_f32" if x.dtype == torch.float32 else "attn_branch")
     y = torch.empty_like(x)
-    code = lib.attn_branch_fwd(
+    code = (lib.attn_branch_fwd_f32 if x.dtype == torch.float32 else lib.attn_branch_fwd)(
         x.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(), *rows, y.data_ptr(),
         *(work.data_ptr() + plan.layout[name] for name in ("h", "qkv", "attn")),
         buffer.data_ptr(), words, n, t, d, heads, plan.ctas, 1.0 / math.sqrt(d),
@@ -959,8 +1024,9 @@ def attn_branch_res_fwd(x, shift, scale, gate, gain, w_qkv, w_out, heads: int, *
                         trace: Optional[torch.Tensor] = None):
     """Row 5 as one launch of ``attn_branch_res_fwd`` (``csrc/attn_branch.cu``):
     row 3's list with its attention normalising p first and storing it in
-    f32. Inputs as for :func:`attn_branch_fwd`. Returns y (N, T, D) bf16, p
-    (N, heads, T, T) f32 and attn (N, T, D) bf16, each a tensor of its own
+    f32. Inputs as for :func:`attn_branch_fwd` (f32: ``attn_branch_res_fwd_f32``).
+    Returns y (N, T, D) and attn (N, T, D) in x's type and p (N, heads, T,
+    T) f32, each a tensor of its own
     (p and attn are the backward's residuals: no view of the launch's
     scratch, which is freed when the call returns; h, the modulated x, lives
     in attn's memory until the attention overwrites it). On CPU tensors:
@@ -972,11 +1038,11 @@ def attn_branch_res_fwd(x, shift, scale, gate, gain, w_qkv, w_out, heads: int, *
     n, t, d = x.shape
     plan, words, buffer, work, (x, w_qkv, w_out), rows, trace_ptr = _branch_call(
         "res_fwd", x, shift, scale, gate, gain, w_qkv, w_out, heads, trace)
-    lib = build.library("attn_branch")
+    lib = build.library("attn_branch_f32" if x.dtype == torch.float32 else "attn_branch")
     y = torch.empty_like(x)
     attn = torch.empty_like(x)
     p = torch.empty(n, heads, t, t, dtype=torch.float32, device=x.device)
-    code = lib.attn_branch_res_fwd(
+    code = (lib.attn_branch_res_fwd_f32 if x.dtype == torch.float32 else lib.attn_branch_res_fwd)(
         x.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(), *rows, y.data_ptr(), attn.data_ptr(),
         work.data_ptr() + plan.layout["qkv"], attn.data_ptr(), p.data_ptr(),
         buffer.data_ptr(), words, n, t, d, heads, plan.ctas, 1.0 / math.sqrt(d),
@@ -990,10 +1056,11 @@ def attn_branch_res_fwd(x, shift, scale, gate, gain, w_qkv, w_out, heads: int, *
 def attn_branch_bwd(dy, x, shift, scale, gate, gain, w_qkv, w_out, heads: int, *,
                     trace: Optional[torch.Tensor] = None):
     """Row 4 without its dW products as one launch of ``attn_branch_bwd``
-    (``csrc/attn_branch.cu``), inputs as for :func:`attn_branch_fwd` and dy
-    (N, T, D) bf16 or f32. Returns dx (N, T, D, x's type), dshift, dscale,
-    dgate (N, D) f32, dgain (1,) f32 and the dW products' operands (h, attn,
-    dout, dqkv: (N*T, D) or (N*T, 3D) bf16 views of the call's workspace).
+    (``csrc/attn_branch.cu``; f32: ``attn_branch_bwd_f32``), inputs as for
+    :func:`attn_branch_fwd` and dy (N, T, D) bf16 or f32. Returns dx (N, T,
+    D, x's type), dshift, dscale, dgate (N, D) f32, dgain (1,) f32 and the dW
+    products' operands (h, attn, dout, dqkv: (N*T, D) or (N*T, 3D) views of
+    the call's workspace in x's type).
     On CPU tensors: :func:`attn_branch_bwd_plain`. The same rules as :func:`attn_branch_fwd`'s."""
     if x.device.type == "cpu":
         return attn_branch_bwd_plain(dy, x, shift, scale, gate, gain, w_qkv, w_out, heads)
@@ -1009,11 +1076,11 @@ def attn_branch_bwd(dy, x, shift, scale, gate, gain, w_qkv, w_out, heads: int, *
     dy = dy.contiguous()
     if dy.data_ptr() % 16:
         raise ValueError("attn_branch_bwd reads dy 16 bytes a thread: it must be 16-byte aligned")
-    lib = build.library("attn_branch")
+    lib = build.library("attn_branch_f32" if x.dtype == f32 else "attn_branch")
     dx = torch.empty_like(x)
     dshift, dscale, dgate = (torch.empty(n, d, dtype=f32, device=x.device) for _ in range(3))
     dgain = torch.empty(1, dtype=f32, device=x.device)
-    code = lib.attn_branch_bwd(
+    code = (lib.attn_branch_bwd_f32 if x.dtype == f32 else lib.attn_branch_bwd)(
         dy.data_ptr(), int(dy.dtype == bf), x.data_ptr(), w_qkv.data_ptr(), w_out.data_ptr(), *rows,
         dx.data_ptr(), dshift.data_ptr(), dscale.data_ptr(), dgate.data_ptr(), dgain.data_ptr(),
         *(work.data_ptr() + plan.layout[name] for name in ("h", "qkv", "attn", "dout", "dattn", "dqkv",
@@ -1023,8 +1090,8 @@ def attn_branch_bwd(dy, x, shift, scale, gate, gain, w_qkv, w_out, heads: int, *
     )
     _raise_on(code, lib, "attn_branch_bwd", "attn_branch")
     LAUNCHES["attn_branch/bwd"] += 1
-    operands = tuple(_view(work, plan, name, (m, w), bf) for name, w in (("h", d), ("attn", d), ("dout", d),
-                                                                         ("dqkv", 3 * d)))
+    operands = tuple(_view(work, plan, name, (m, w), x.dtype) for name, w in (("h", d), ("attn", d), ("dout", d),
+                                                                              ("dqkv", 3 * d)))
     return dx, dshift, dscale, dgate, dgain, operands
 
 

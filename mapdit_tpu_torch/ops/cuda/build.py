@@ -23,7 +23,10 @@ PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "mapdit_tpu_torch"
 SOURCES = ("mp_gemm", "cosine_attention", "attn_branch_bwd", "fused_attention", "dw_gemm", "dit_stack", "dit_block_tp",
-           "attn_branch")
+           "attn_branch", "attn_branch_f32")
+# sources a source includes besides the headers (attn_branch_f32.cu is
+# attn_branch.cu's f32 instances)
+INCLUDES = {"attn_branch_f32": ("attn_branch",)}
 # measurement-only sources, built when a tool asks for their library
 PROBES = ("kstep_probe",)
 NVCC_FLAGS = (
@@ -44,11 +47,13 @@ _SIGNATURES = {
             ctypes.c_int,
         ),
         "mp_gemm_splits": ([_I, _I, _I], ctypes.c_int),
-        "mp_gemm_f32": ([_P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P],
+        "mp_gemm_f32": ([_P, _P, _P, _I, _I, _I, _I, _F, _I, _P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P],
                         ctypes.c_int),
         "mp_gemm_f32_splits": ([_I, _I, _I], ctypes.c_int),
         "mp_gemm_gate_residual_bwd": ([_P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _I, _P, _I, _I, _P, _P, _P],
                                       ctypes.c_int),
+        "mp_gemm_f32_gate_residual_bwd": ([_P, _P, _P, _P, _I, _I, _I, _F, _P, _I, _I, _P, _I, _I, _P, _P, _P],
+                                          ctypes.c_int),
         "mp_gemm_gate_partial_floats": ([_I, _I, _I], ctypes.c_int64),
         "mp_gemm_error_string": ([_I], ctypes.c_char_p),
     },
@@ -85,6 +90,16 @@ _SIGNATURES = {
         "attn_branch_plan_words": ([], ctypes.c_int),
         "attn_branch_error_string": ([_I], ctypes.c_char_p),
     },
+    "attn_branch_f32": {
+        "attn_branch_fwd_f32": ([_P] * 4 + [_I, _P, _I, _P, _I, _I] + [_P] * 7 + [_I] * 5 + [_F, _P, _P], ctypes.c_int),
+        "attn_branch_res_fwd_f32": ([_P] * 4 + [_I, _P, _I, _P, _I, _I] + [_P] * 8 + [_I] * 5 + [_F, _P, _P],
+                                    ctypes.c_int),
+        "attn_branch_bwd_f32": ([_P, _I] + [_P] * 4 + [_I, _P, _I, _P, _I, _I] + [_P] * 15 + [_I] * 5 + [_F] * 3
+                                + [_P, _P], ctypes.c_int),
+        "attn_branch_f32_resident_ctas": ([_I], ctypes.c_int),
+        "attn_branch_plan_words": ([], ctypes.c_int),
+        "attn_branch_error_string": ([_I], ctypes.c_char_p),
+    },
     "kstep_probe": {
         "kstep_probe": ([_I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P], ctypes.c_int),
         "kstep_probe_error_string": ([_I], ctypes.c_char_p),
@@ -96,8 +111,10 @@ _SIGNATURES = {
     },
     "attn_branch_bwd": {
         "attention_bwd": ([_P, _P, _P, _I, _I, _I, _I, _P], ctypes.c_int),
+        "attention_bwd_f32": ([_P, _P, _P, _I, _I, _I, _I, _P], ctypes.c_int),
         "attention_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
         "modulate_fwd": ([_P, _I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P], ctypes.c_int),
+        "modulate_fwd_f32": ([_P, _I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P], ctypes.c_int),
         "modulate_bwd_partials": ([_I, _I], ctypes.c_int),
         "modulate_bwd": (
             [_P, _P, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -123,7 +140,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> pathlib.Path:
     # the headers are hashed with every source, so none is built stale
-    parts = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    parts = [CSRC / f"{name}.cu", *(CSRC / f"{inc}.cu" for inc in INCLUDES.get(name, ())),
+             *sorted(CSRC.glob("*.cuh"))]
     digest = hashlib.sha256(b"".join(p.read_bytes() for p in parts)).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -184,8 +184,8 @@ def mp_gemm(
     """``C = epilogue(prologue(a) @ w.T * alpha)``: a (M, K) f32 or bf16,
     w (N, K) bf16, C (M, N) ``out_dtype``; with ``w_kn`` w is read as (K, N)
     and C = epilogue(prologue(a) @ w * alpha). An f32 w (the f32 form: a
-    f32 too, w (N, K)) rounds nothing. See :func:`mp_gemm_plain` for the
-    optional prologue/epilogue. ``site`` keys the launch count."""
+    f32 too) rounds nothing. See :func:`mp_gemm_plain` for the optional
+    prologue/epilogue. ``site`` keys the launch count."""
     if a.device.type == "cpu":
         return mp_gemm_plain(
             a, w, alpha=alpha, out_dtype=out_dtype, modulate=modulate, silu=silu,
@@ -196,10 +196,8 @@ def mp_gemm(
     m, k = a.shape
     n = w.shape[1] if w_kn else w.shape[0]
     f32 = w.dtype == torch.float32
-    if f32 and (w_kn or a.dtype != torch.float32):
-        raise ValueError(
-            f"mp_gemm's f32 form takes an f32 a and an f32 (N, K) weight, got a {a.dtype}"
-            + (" and a (K, N) weight" if w_kn else ""))
+    if f32 and a.dtype != torch.float32:
+        raise ValueError(f"mp_gemm's f32 form takes an f32 a and an f32 weight, got a {a.dtype}")
     if w.dtype not in _DTYPE_CODE or w.shape != ((k, n) if w_kn else (n, k)):
         layout = f"({k}, N)" if w_kn else f"(N, {k})"
         raise ValueError(f"mp_gemm takes a bf16 or f32 {layout} weight, got {w.dtype} {tuple(w.shape)}")
@@ -260,7 +258,7 @@ def mp_gemm(
                  partial.data_ptr() if partial is not None else None, stream)
     if f32:
         code = lib.mp_gemm_f32(a.data_ptr(), w.data_ptr(), out.data_ptr(), _DTYPE_CODE[out_dtype], m, n, k,
-                               float(alpha), *epilogue_args, *work_args)
+                               float(alpha), *epilogue_args, 1 if w_kn else 0, *work_args)
     else:
         code = lib.mp_gemm(
             a.data_ptr(), _DTYPE_CODE[a.dtype], w.data_ptr(), out.data_ptr(), _DTYPE_CODE[out_dtype],

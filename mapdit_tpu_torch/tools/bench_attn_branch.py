@@ -7,11 +7,13 @@ checks them on.
     python -m mapdit_tpu_torch.tools.bench_attn_branch [--check-only] [--ptxas] [--trace] \\
         [--out results/bench_attn_branch.json]
 
-``--check-only`` builds and runs the three kernels against their plain
-versions at every case of CASES (rel L2 1e-2, row 5's y, p and attn each;
-dgain within 2^-8 of its terms' root-sum-square, the same bits twice;
+``--check-only`` builds and runs the three kernels and their launch
+sequences against their plain versions at every case of CASES (the
+``BF16`` rule: rel L2 1e-2, row 5's y, p and attn each, row 4's dW operands
+too; dgain within 2^-8 of its terms' root-sum-square; the same bits twice;
 whether the bits equal the launch sequence's is printed) and times nothing:
-the first call after a change.
+the first call after a change. ``chip_smoke.py`` holds the f32 instances
+to the same checks under the ``F32`` rule.
 Otherwise the report rows (S/2 and XL/2 training shapes) are timed beside
 the launch sequences they replaced: device ms of CUDA-graph replays, host
 ms a call and eager ms (a host-launched loop, as training runs them), the
@@ -36,6 +38,7 @@ import math
 import os
 import subprocess
 import sys
+from typing import NamedTuple
 
 import torch
 
@@ -55,9 +58,11 @@ CASES = {
     "t2": (5, 2, 384, 6),
 }
 GRAD_NAMES = ("dx", "dshift", "dscale", "dgate", "dgain", "dw_qkv", "dw_out")
+OPERAND_NAMES = ("h", "attn", "dout", "dqkv")  # attn_branch_bwd's operands of the dW pair
 RES_NAMES = ("y", "p", "attn")
 KINDS = ("fwd", "bwd", "res_fwd")
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
+H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate, H100 SXM data sheet
 
 
@@ -79,13 +84,14 @@ def branch_inputs(gen, dev, n, t, d, heads):
 
 
 def plain_dh(args, dy):
-    """dh of the plain backward (the stages of ab.attn_bwd_plain) with the
-    flat x and rows: what dgain's terms are formed from."""
+    """dh of the plain backward (the stages of ab.attn_bwd_plain, rounding
+    to the weights' type) with the flat x and rows: what dgain's terms are
+    formed from."""
     from mapdit_tpu_torch.ops.cuda import dit_block as k
 
     x, shift, scale, gate, gain, wq, wo, heads = args
     n, t, d = x.shape
-    bf, f32, inv_d = torch.bfloat16, torch.float32, 1 / math.sqrt(d)
+    bf, f32, inv_d = wq.dtype, torch.float32, 1 / math.sqrt(d)
     rows, g1 = ab._pack(shift, scale, gate, gain)
     xf = x.reshape(n * t, d)
     h = ab.modulate_fwd_plain(xf, rows, g1, t, bf)
@@ -110,102 +116,158 @@ def rel_l2(got, want) -> float:
     return float((got.float() - want.float()).norm() / want.float().norm())
 
 
-def check_res(name, args) -> dict:
-    """Row 5's kernel at one case against its plain version (rel L2 1e-2 for
-    y, p and attn each), the same bits on two runs, and whether each output
-    equals the launch sequence's bits. Raises on a disagreement."""
+class Rule(NamedTuple):
+    """How a kernel's output is held to its plain version: with ``f32``
+    elementwise, |got - want| <= tol + tol |want| (the f32 instances, at the
+    JAX package's f32 kernel tolerance), else relative L2 at most ``tol``
+    (bf16); dgain, a sum whose terms cancel, within ``sum_tol`` of its
+    terms' root-sum-square."""
+
+    f32: bool
+    tol: float
+    sum_tol: float
+
+
+BF16 = Rule(False, 1e-2, 2.0**-8)
+F32 = Rule(True, 2e-4, 2e-4)
+
+
+def held(rule: Rule, what: str, got, want) -> tuple:
+    """One output against its plain version under ``rule`` (one check line
+    printed): (err, max abs err, ok); err is the max abs err at f32, the
+    relative L2 error in bf16."""
+    g, w = got.float().reshape(want.shape), want.float()
+    diff = (g - w).abs()
+    max_abs = float(diff.max()) if diff.numel() else 0.0
+    ok = got.dtype == want.dtype and bool(torch.isfinite(g).all())
+    if rule.f32:
+        err, within = max_abs, bool((diff <= rule.tol + rule.tol * w.abs()).all())
+        limit = f"tol=atol{rule.tol:g}+rtol{rule.tol:g}"
+    else:
+        err = rel_l2(got, want)
+        within, limit = err <= rule.tol, f"rel_l2_err={err:.3e}"
+    ok = ok and within
+    print(f"[check] what={what} {limit} max_abs_err={max_abs:.3e} ok={ok}", flush=True)
+    return err, max_abs, ok
+
+
+def held_sum(rule: Rule, what: str, got, want, terms) -> tuple:
+    """dgain against its plain version under ``rule``: (abs err, ok)."""
+    g, w = float(got.reshape(())), float(want.reshape(()))
+    err, limit = abs(g - w), rule.sum_tol * float(terms.double().square().sum().sqrt())
+    ok = math.isfinite(g) and err <= limit
+    print(f"[check] what={what} got={g:.6e} want={w:.6e} abs_err={err:.3e} "
+          f"tol={limit:.3e}={rule.sum_tol:g}*rss(terms) ok={ok}", flush=True)
+    return err, ok
+
+
+def held_all(rule: Rule, what: str, names, got, want, terms=None) -> tuple:
+    """Each named output against its plain version (dgain by
+    :func:`held_sum`): ({name: err}, max abs err, ok)."""
+    errs, max_abs, all_ok = {}, 0.0, True
+    for nm, g_, w_ in zip(names, got, want):
+        if nm == "dgain":
+            e, ok = held_sum(rule, f"{what}:dgain", g_, w_, terms)
+            m = e
+        else:
+            e, m, ok = held(rule, f"{what}:{nm}", g_, w_)
+        errs[nm], max_abs, all_ok = e, max(max_abs, m), all_ok and ok
+    return errs, max_abs, all_ok
+
+
+def _tag(rule: Rule) -> str:
+    return ":f32" if rule.f32 else ""
+
+
+def check_res(name, args, rule: Rule = BF16) -> dict:
+    """Row 5's kernel at one case against its plain version (y, p and attn
+    each, under ``rule``), its launch sequence against the same, the same
+    bits on two runs, and whether each output equals the launch sequence's
+    bits. Raises on a disagreement."""
+    what = f"attn_branch/res_fwd{_tag(rule)}:{name}"
     got, again = ab.attn_branch_res_fwd(*args), ab.attn_branch_res_fwd(*args)
     want, seq = ab.attn_res_fwd_plain(*args), ab.res_fwd_launch_sequence(*args)
-    errs, max_abs, all_ok = {}, 0.0, True
-    for nm, g_, w_ in zip(RES_NAMES, got, want):
-        e, m = rel_l2(g_, w_), float((g_.float() - w_.float()).abs().max())
-        ok = g_.shape == w_.shape and g_.dtype == w_.dtype and bool(torch.isfinite(g_.float()).all()) and e <= 1e-2
-        errs[nm], max_abs, all_ok = e, max(max_abs, m), all_ok and ok
-        print(f"[check] what=attn_branch/res_fwd:{name}:{nm} rel_l2_err={e:.3e} max_abs_err={m:.3e} ok={ok}",
-              flush=True)
+    errs, max_abs, ok = held_all(rule, what, RES_NAMES, got, want)
+    ok = held_all(rule, f"{what}:launch-sequence", RES_NAMES, seq, want)[2] and ok
     same = all(torch.equal(a, b) for a, b in zip(got, again))
     seq_bits = {nm: torch.equal(a, b) for nm, a, b in zip(RES_NAMES, got, seq)}
-    print(f"[check] what=attn_branch/res_fwd:{name}:same-bits-twice ok={same} same_bits_as_sequence="
-          f"{json.dumps(seq_bits)}", flush=True)
-    if not (all_ok and same):
-        raise AssertionError(f"attn_branch/res_fwd:{name}: the kernel disagrees with its plain version or itself")
+    print(f"[check] what={what}:same-bits-twice ok={same} same_bits_as_sequence={json.dumps(seq_bits)}", flush=True)
+    if not (ok and same):
+        raise AssertionError(f"{what}: the kernel disagrees with its plain version or itself")
     return dict(errs=errs, max_abs_err=max_abs, same_bits_twice=same, same_bits_as_sequence=seq_bits)
 
 
-def check(name, args, dy, kinds=KINDS) -> dict:
+def check(name, args, dy, kinds=KINDS, rule: Rule = BF16) -> dict:
     """The kernels of ``kinds`` at one case against their plain versions
-    (rel L2 1e-2; dgain within 2^-8 of its terms' root-sum-square), the same
-    bits on two runs, and whether the bits equal the launch sequences'.
-    Raises on a disagreement."""
-    checks = {"fwd": lambda: check_fwd(name, args), "bwd": lambda: check_bwd(name, args, dy),
-              "res_fwd": lambda: check_res(name, args)}
+    under ``rule``, their launch sequences against the same, the same bits
+    on two runs, and whether the bits equal the launch sequences'. Raises
+    on a disagreement."""
+    checks = {"fwd": lambda: check_fwd(name, args, rule), "bwd": lambda: check_bwd(name, args, dy, rule),
+              "res_fwd": lambda: check_res(name, args, rule)}
     return {kind: checks[kind]() for kind in kinds}
 
 
-def check_fwd(name, args) -> dict:
+def check_fwd(name, args, rule: Rule = BF16) -> dict:
     """Row 3's kernel at one case (check)."""
+    what = f"attn_branch/fwd{_tag(rule)}:{name}"
     fwd = ab.attn_branch_fwd(*args)
-    want = ab.attn_fwd_plain(*args)
-    err, max_abs = rel_l2(fwd, want), float((fwd.float() - want.float()).abs().max())
+    want, seq = ab.attn_fwd_plain(*args), ab.fwd_launch_sequence(*args)
+    err, max_abs, ok = held(rule, what, fwd, want)
+    ok = held(rule, f"{what}:launch-sequence", seq, want)[2] and ok
     same = torch.equal(fwd, ab.attn_branch_fwd(*args))
-    seq_bits = torch.equal(fwd, ab.fwd_launch_sequence(*args))
-    ok = bool(torch.isfinite(fwd.float()).all()) and err <= 1e-2 and same
-    print(f"[check] what=attn_branch/fwd:{name} rel_l2_err={err:.3e} max_abs_err={max_abs:.3e} same_bits_twice={same} "
-          f"same_bits_as_sequence={seq_bits} ok={ok}", flush=True)
-    if not ok:
-        raise AssertionError(f"attn_branch/fwd:{name}: the kernel disagrees with its plain version")
-    return dict(rel_l2_err=err, max_abs_err=max_abs, same_bits_twice=same, same_bits_as_sequence=seq_bits)
+    seq_bits = torch.equal(fwd, seq)
+    print(f"[check] what={what}:same-bits-twice ok={same} same_bits_as_sequence={seq_bits}", flush=True)
+    if not (ok and same):
+        raise AssertionError(f"{what}: the kernel disagrees with its plain version or itself")
+    return dict(err=err, max_abs_err=max_abs, same_bits_twice=same, same_bits_as_sequence=seq_bits)
 
 
-def check_bwd(name, args, dy) -> dict:
-    """Row 4's kernel and the dW pair at one case (check)."""
+def check_bwd(name, args, dy, rule: Rule = BF16) -> dict:
+    """Row 4's kernel and the dW pair at one case (check); where
+    :func:`ab.branch_route` takes the call, also the dW pair's operands
+    (h, attn, dout, dqkv) of ``attn_branch_bwd``."""
+    what = f"attn_branch/bwd{_tag(rule)}:{name}"
     got, again = ab.attn_bwd(dy, *args), ab.attn_bwd(dy, *args)
     want, seq = ab.attn_bwd_plain(dy, *args), ab.bwd_launch_sequence(dy, *args)
     terms = dgain_terms(args, dy)
-    errs, max_abs, all_ok = {}, 0.0, True
-    for nm, g_, w_ in zip(GRAD_NAMES, got, want):
-        max_abs = max(max_abs, float((g_.float() - w_.float()).abs().max()))
-        if nm == "dgain":
-            e, limit = abs(float(g_) - float(w_)), 2.0**-8 * float(terms.double().square().sum().sqrt())
-            ok = math.isfinite(float(g_)) and e <= limit
-            errs[nm] = e
-            print(f"[check] what=attn_branch/bwd:{name}:dgain got={float(g_):.6e} want={float(w_):.6e} "
-                  f"abs_err={e:.3e} tol={limit:.3e}=2^-8*rss(terms) ok={ok}", flush=True)
-        else:
-            e = rel_l2(g_, w_)
-            ok = bool(torch.isfinite(g_.float()).all()) and e <= 1e-2
-            errs[nm] = e
-            print(f"[check] what=attn_branch/bwd:{name}:{nm} rel_l2_err={e:.3e} max_abs_err="
-                  f"{float((g_.float() - w_.float()).abs().max()):.3e} ok={ok}", flush=True)
-        all_ok = all_ok and ok
+    errs, max_abs, ok = held_all(rule, what, GRAD_NAMES, got, want, terms)
+    ok = held_all(rule, f"{what}:launch-sequence", GRAD_NAMES, seq, want, terms)[2] and ok
+    x, *_, wq, wo, heads = args
+    if ab.branch_route(x, wq, wo, heads, dy) == "kernel":
+        ops = ab.attn_branch_bwd(dy, *args)[5]
+        ops_errs, ops_max, ops_ok = held_all(rule, what, OPERAND_NAMES, ops, ab.attn_branch_bwd_plain(dy, *args)[5])
+        errs.update(ops_errs)
+        max_abs, ok = max(max_abs, ops_max), ok and ops_ok
     same = all(torch.equal(a, b) for a, b in zip(got, again))
     seq_bits = {nm: torch.equal(a, b) for nm, a, b in zip(GRAD_NAMES, got, seq)}
-    print(f"[check] what=attn_branch/bwd:{name}:same-bits-twice ok={same} same_bits_as_sequence="
-          f"{json.dumps(seq_bits)}", flush=True)
-    if not (all_ok and same):
-        raise AssertionError(f"attn_branch/bwd:{name}: the kernel disagrees with its plain version or itself")
+    print(f"[check] what={what}:same-bits-twice ok={same} same_bits_as_sequence={json.dumps(seq_bits)}", flush=True)
+    if not (ok and same):
+        raise AssertionError(f"{what}: the kernel disagrees with its plain version or itself")
     return dict(errs=errs, max_abs_err=max_abs, same_bits_twice=same, same_bits_as_sequence=seq_bits)
 
 
-def bounds(n, t, d, heads) -> dict:
+def bounds(n, t, d, heads, f32: bool = False) -> dict:
     """Each kernel's least time on the card (ms): the larger of its bytes
     (inputs read once, outputs written once) over the memory rate and its
-    products' FLOPs over the bf16 tensor-core peak. Row 4's counts its own
-    work, the dW pair apart; row 5's is row 3's work with p (f32) and attn
-    (bf16) written besides y."""
-    m, hd = n * t, d // heads
+    products' FLOPs over the bf16 tensor-core peak (``f32``: the f32
+    instances, every tensor f32 and the products on the f32 pipes). Row 4's
+    counts its own work, the dW pair apart; row 5's is row 3's work with p
+    (f32) and attn written besides y."""
+    m, hd, e = n * t, d // heads, 4 if f32 else 2
     attn = 4 * n * heads * t * t * hd  # QK^T and P.V
     gemm = 2 * m * d * 4 * d  # qkv and out
-    inputs = m * d * 2 + 3 * n * d * 2 + 4 * d * d * 2 + 4
-    fwd = (gemm + attn, inputs + m * d * 2)
-    # the recompute, then dattn, dh (4D x D) and the attention backward's
-    # five T x T x hd products
-    bwd = (2 * gemm + 10 * n * heads * t * t * hd + attn,
-           inputs + m * d * 2 + m * d * 2 + 3 * n * d * 4 + 4)
-    res_fwd = (fwd[0], fwd[1] + m * d * 2 + n * heads * t * t * 4)
+    inputs = m * d * e + 3 * n * d * e + 4 * d * d * e + 4
+    fwd = (gemm + attn, inputs + m * d * e)
+    # the recompute (qkv, S, P.V, out), then dattn, dh (4D x D) and the
+    # attention backward's four T x T x hd products (dP, dV, dQ, dK; S is
+    # the recompute's)
+    bwd = (2 * gemm + 8 * n * heads * t * t * hd + attn,
+           inputs + m * d * e + m * d * e + 3 * n * d * 4 + 4)
+    res_fwd = (fwd[0], fwd[1] + m * d * e + n * heads * t * t * 4)
+    peak = H100_F32_FLOPS if f32 else H100_BF16_FLOPS
     out = {}
     for kind, (flops, nbytes) in (("fwd", fwd), ("bwd", bwd), ("res_fwd", res_fwd)):
-        t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+        t_ops, t_bytes = flops / peak, nbytes / H100_BYTES_PER_S
         out[kind] = (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
     return out
 
@@ -293,13 +355,13 @@ def smi_line() -> str:
 def ptxas() -> None:
     from mapdit_tpu_torch.ops.cuda import build
 
-    src = build.CSRC / "attn_branch.cu"
-    cmd = [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", os.devnull, str(src)]
-    out = subprocess.run(cmd, capture_output=True, text=True, check=True)
-    for line in (out.stdout + out.stderr).splitlines():
-        if "registers" in line or "spill" in line or "Function properties" in line or "C7511" in line:
-            # attn_branch_kernel<HD, RES>: the mangled name ends in its template arguments
-            print("[ptxas]", line.strip(), flush=True)
+    for name in ("attn_branch", "attn_branch_f32"):
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", os.devnull, str(build.CSRC / f"{name}.cu")]
+        out = subprocess.run(cmd, capture_output=True, text=True, check=True)
+        for line in (out.stdout + out.stderr).splitlines():
+            if "registers" in line or "spill" in line or "Function properties" in line or "C7511" in line:
+                # attn_branch_kernel<HD, RES, F32, FWD>: the mangled name ends in its template arguments
+                print(f"[ptxas] source={name}", line.strip(), flush=True)
 
 
 def main(argv=None) -> int:

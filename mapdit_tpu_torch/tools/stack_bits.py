@@ -9,14 +9,16 @@ one card:
 
 The cases: ``dit_stack`` (rows 1 and 2: ``fused_dit_block`` and
 ``fused_dit_stack``) at chip_smoke.py's phase 3 stack shapes of T <= 64;
-row 4's one-launch kernel (``attn_branch.attn_bwd``, csrc/attn_branch.cu)
-at the S/2 training shape and chip_smoke.py's BRANCH_BWD_SHAPES;
-``attention_bwd`` at T = 64 and 4 and ``out_gate_residual_bwd`` at T
-= 64, 16, 4 and 128 (split K among them); the bf16 ``mp_gemm`` instances
-at the five S/2 products with their epilogues, a split-K product, the
-MN-major W and a ragged shape, and the bf16 ``cosine_attention`` in both
-modes at S/2 and at T = 256 (the kernels whose sources gained f32 forms
-beside them). Each draws from a seed of its own.
+rows 3, 5 and 4's one-launch kernels (``attn_branch.attn_fwd``,
+``attn_res_fwd``, ``attn_bwd``, csrc/attn_branch.cu) at the S/2 training
+shape and chip_smoke.py's BRANCH_BWD_SHAPES; ``attention_bwd`` at T = 64
+and 4, ``out_gate_residual_bwd`` at T = 64, 16, 4 and 128 (split K among
+them) and ``modulate_fwd`` and ``modulate_bwd`` at the S/2 training shape;
+the bf16 ``mp_gemm`` instances at the five S/2 products with their
+epilogues, a split-K product, the MN-major W of the dattn and dh products
+and a ragged shape, and the bf16 ``cosine_attention`` in both modes at S/2
+and at T = 256 (the kernels whose sources gained f32 forms beside them).
+Each draws from a seed of its own.
 ``--compare`` prints one line an output and exits 1 unless every output has
 the saved bits (``torch.equal``).
 """
@@ -46,6 +48,7 @@ GEMM = {"modulation": (64, 2304, 384, "bf16", False, None, False, 1),
         "fc2": (4096, 384, 1536, "bf16", False, "residual-f32", False, 64),
         "xl-split": (8, 6912, 1152, "bf16", False, None, False, 1),
         "dattn-w_kn": (16384, 384, 384, "bf16", False, None, True, 64),
+        "dh-w_kn": (16384, 384, 1152, "bf16", False, None, True, 64),
         "ragged": (200, 328, 392, "f32", True, "residual-f32", False, 8)}
 # cosine_attention: name -> (N, T, heads, hd, residual mode)
 COSINE = {"s2": (64, 64, 6, 64, False), "s2-residual": (64, 64, 6, 64, True), "t256": (16, 256, 6, 64, False),
@@ -53,6 +56,8 @@ COSINE = {"s2": (64, 64, 6, 64, False), "s2-residual": (64, 64, 6, 64, True), "t
 # name -> (N, T, D)
 OUT_GATE = {"t64": (256, 64, 384), "t16": (256, 16, 768), "t4": (8, 4, 1152), "t128": (64, 128, 384),
             "t64-n3": (3, 64, 384), "t64-n257": (257, 64, 384)}
+# the modulate passes: (N, T, D), the S/2 training shape
+MODULATE = (256, 64, 384)
 
 
 def _normal(gen, dev, *shape):
@@ -92,8 +97,12 @@ def branch_outputs(dev, out: dict) -> None:
         dy = _normal(gen, dev, n, t, d).to(bf)
         if ab.branch_route(x, wq, wo, heads, dy) != "kernel":
             raise AssertionError(f"attn_bwd:{name}: not the one-launch kernel's route")
-        for j, z in enumerate(ab.attn_bwd(dy, x, shift, scale, gate, gain, wq, wo, heads)):
+        args = (x, shift, scale, gate, gain, wq, wo, heads)
+        for j, z in enumerate(ab.attn_bwd(dy, *args)):
             out[f"attn_branch/bwd:{name}:{j}"] = z.cpu()
+        out[f"attn_branch/fwd:{name}"] = ab.attn_fwd(*args).cpu()
+        for j, z in enumerate(ab.attn_res_fwd(*args)):
+            out[f"attn_branch/res_fwd:{name}:{j}"] = z.cpu()
 
 
 def pass_outputs(dev, out: dict) -> None:
@@ -113,6 +122,14 @@ def pass_outputs(dev, out: dict) -> None:
         rows = _normal(gen, dev, n, 3 * d)
         for j, z in enumerate(ab.out_gate_residual_bwd(attn, w, dy, rows, 2 * d, t)):
             out[f"out_gate_residual_bwd:{name}:{j}"] = z.cpu()
+    gen = torch.Generator(device=dev).manual_seed(450)
+    n, t, d = MODULATE
+    x, dy = (_normal(gen, dev, n * t, d).to(bf) for _ in range(2))
+    rows, dh = _normal(gen, dev, n, 3 * d), _normal(gen, dev, n * t, d)
+    gain = torch.tensor([0.37], device=dev)
+    out["modulate_fwd"] = ab.modulate_fwd(x, rows, gain, t, bf).cpu()
+    for j, z in enumerate(ab.modulate_bwd(dh, x, rows, gain, dy, t)):
+        out[f"modulate_bwd:{j}"] = z.cpu()
 
 
 def forward_outputs(dev, out: dict) -> None:

@@ -182,13 +182,15 @@ def test_plan_words_sync_words_and_scratch_are_what_the_launch_reads(kind, name)
 ], ids=["s2", "b2-t16", "xl-t4", "t2", "t48", "t96", "t256", "hd80", "d-not-8", "d-past-a-stage"])
 def test_route_is_the_shape_rule(t, d, heads, route):
     """The one-launch kernel takes an even T <= 64 dividing 128, head
-    widths 64 and 72, D a multiple of 8; elsewhere the launch sequence
-    (which raises where it raises: at head width 80 cosine_attention does);
-    the shape rule and the plan raise outside the domain."""
+    widths 64 and 72, D a multiple of 8, x and weights all bf16 or all f32
+    (its f32 instances); elsewhere the launch sequence (which raises where
+    it raises: at head width 80 cosine_attention does, on a mixed set
+    _check); the shape rule and the plan raise outside the domain."""
     x = torch.zeros(2, t, d, dtype=torch.bfloat16)
     w_qkv, w_out = torch.zeros(3 * d, d, dtype=torch.bfloat16), torch.zeros(d, d, dtype=torch.bfloat16)
     assert ab.branch_route(x, w_qkv, w_out, heads) == route
-    assert ab.branch_route(x.float(), w_qkv.float(), w_out.float(), heads) == "sequence"
+    assert ab.branch_route(x.float(), w_qkv.float(), w_out.float(), heads) == route
+    assert ab.branch_route(x.float(), w_qkv, w_out, heads) == "sequence"
     if route == "kernel":
         ab.check_branch_shape(t, d, heads)
         assert ab.branch_plan("bwd", 2, t, d, heads).tokens == t

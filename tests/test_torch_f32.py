@@ -359,7 +359,9 @@ def test_mp_gemm_and_cosine_attention_take_f32_to_the_cuda_check():
         tdb.mp_gemm(_meta(m, k), _meta(n, k), alpha=1.0, out_dtype=F32, silu=True)
     with pytest.raises(ValueError, match="f32 form takes an f32 a"):
         tdb.mp_gemm(_meta(m, k, dtype=torch.bfloat16), _meta(n, k), alpha=1.0, out_dtype=F32)
-    with pytest.raises(ValueError, match="f32 form"):
+    # the attention backward's products read an f32 W as (K, N) since its
+    # float32 slice
+    with pytest.raises(ValueError, match="CUDA"):
         tdb.mp_gemm(_meta(m, k), _meta(k, n), alpha=1.0, out_dtype=F32, w_kn=True)
     qkv = _meta(8 * 16, 3 * 128)
     probs = _meta(8, 2, 16, 16)
@@ -369,18 +371,24 @@ def test_mp_gemm_and_cosine_attention_take_f32_to_the_cuda_check():
 
 
 def test_half_block_and_tp_kernels_still_refuse_f32():
-    """Rows 3-5 (the attention half-block), row 9 and rows 6-8 (the TP
-    partials) take f32 in a later slice: off the CPU they still raise on an
-    f32 model, naming that slice and the whole-block kernels it can run."""
+    """Rows 3-5 (the attention half-block) and their launch sequences' parts
+    take f32 since their float32 slice: off the CPU an f32 model reaches the
+    CUDA check, and a mixed set raises. Row 9 and rows 6-8 (the TP partials)
+    still take f32 in a later slice: they raise on an f32 model, naming that
+    slice and the whole-block kernels it can run."""
     n, t, d = 2, 16, 128
     x, r, g = _meta(n, t, d), _meta(n, d), _meta(1)
     wq, wo = _meta(3 * d, d), _meta(d, d)
     for fn in (ab.fused_attn_branch, ab.attn_fwd, ab.attn_res_fwd):
-        with pytest.raises(ValueError, match="rows 3-5 .* later slice .*'mega_stack'"):
+        with pytest.raises(ValueError, match="CUDA"):
             fn(x, r, r, r, g, wq, wo, 2)
+        with pytest.raises(ValueError, match="all bf16 .* or all f32"):
+            fn(x, r, r, r, g, wq.to(torch.bfloat16), wo, 2)
     with pytest.raises(ValueError, match=r"row 9\) runs bf16 only.*later slice.*'mega'"):
         mb._check(x, r, r, r, g, _meta(4 * d, d), _meta(d, 4 * d))
     with pytest.raises(ValueError, match=r"rows 6-8\) run bf16 only.*later slice"):
         tp._check(x, wq, _meta(d, d), 3, "attn_tp_partial")
-    with pytest.raises(ValueError, match="row 4's float32 slice"):
+    with pytest.raises(ValueError, match="CUDA"):
         ab.out_gate_residual_bwd(_meta(n * t, d), wo, _meta(n * t, d), _meta(n, 3 * d), 2 * d, t)
+    with pytest.raises(ValueError, match="both bf16 or both f32"):
+        ab.out_gate_residual_bwd(_meta(n * t, d), wo.to(torch.bfloat16), _meta(n * t, d), _meta(n, 3 * d), 2 * d, t)

@@ -207,24 +207,31 @@ def test_policy_takes_the_kernels_for_their_family_only():
     ],
 )
 def test_auto_takes_the_fastest_measured_path(model, input_size, want):
-    """What ``auto`` resolves to for folded bf16 programs on CUDA (a
-    torch.device("cuda") needs no card): the whole-block kernels at every
-    registry size at T = 64, promoted to ``mega_stack`` with a batch hint,
-    and the ``mega_tp`` island on a model axis of 2 -- the fastest paths
-    measured on the H100 at S/2, B/2 and XL/2 (PERF.md); never the attention
-    half-block. Float32 and the CPU stay on the plain path."""
+    """What ``auto`` resolves to for folded bf16 and float32 programs on
+    CUDA (a torch.device("cuda") needs no card): in bf16 the whole-block
+    kernels at every registry size at T = 64, promoted to ``mega_stack``
+    with a batch hint, and the ``mega_tp`` island on a model axis of 2 --
+    the fastest paths measured on the H100 at S/2, B/2 and XL/2 (PERF.md);
+    in float32 the same at S/2 only, the plain path from B/2 up, where
+    ``off`` led the f32 kernels (F32_WEIGHT_BUDGET); never the attention
+    half-block. A float32 model keeps the plain path on a model axis (the
+    islands take bf16 only); the CPU stays on the plain path."""
     cfg = build_config(model, in_channels=4, input_size=input_size, num_classes=1000, compute_dtype="bfloat16",
                        fold_weights=True, block_kernel="auto")
     cuda, t = torch.device("cuda"), cfg.num_patches
-    assert kernel_policy(cfg, t, cuda) == want
-    assert use_megakernel(cfg, t, cuda) == (want == "mega")
-    assert not use_attn_halfkernel(cfg)
-    assert stack_auto_ok(cfg, 32, cuda) == (want == "mega") and not stack_auto_ok(cfg, None, cuda)
+    for dtype, w in (("bfloat16", want), ("float32", want if model == "DiT-S/2" else "off")):
+        c = cfg.replace(compute_dtype=dtype)
+        assert kernel_policy(c, t, cuda) == w
+        assert use_megakernel(c, t, cuda) == (w == "mega")
+        assert not use_attn_halfkernel(c)
+        assert stack_auto_ok(c, 32, cuda) == (w == "mega") and not stack_auto_ok(c, None, cuda)
     assert resolve_block_kernel_tp(cfg, True, 2, cuda) == {"mega": "mega_tp", "off": "off"}[want]
-    for other, device in ((cfg.replace(compute_dtype="float32"), cuda), (cfg, torch.device("cpu"))):
-        assert kernel_policy(other, t, device) == "off"
-        assert not stack_auto_ok(other, 32, device)
-        assert resolve_block_kernel_tp(other, True, 2, device) == "off"
+    assert resolve_block_kernel_tp(cfg.replace(compute_dtype="float32"), True, 2, cuda) == "off"
+    cpu = torch.device("cpu")
+    for other in (cfg, cfg.replace(compute_dtype="float32")):
+        assert kernel_policy(other, t, cpu) == "off"
+        assert not stack_auto_ok(other, 32, cpu)
+        assert resolve_block_kernel_tp(other, True, 2, cpu) == "off"
 
 
 # ---------------------------------------------------------------------------
