@@ -90,6 +90,10 @@ Phases, one line each; any failure exits non-zero before the final line:
      checked step on f32 mega_attn with attn_bwd pallas and residual, each
      also as its launch sequences, against bf16 mega_attn (F32_CLOSER), the
      train CLI on mega_attn, sample on mega_attn, a checked step at 32 x 32;
+ 6f. float32 on row 9 (f32_pallas_phase): a checked step on f32 pallas with
+     attention_impl pallas (mlp_branch_f32 and fused_attention's f32 form)
+     against bf16 pallas (F32_CLOSER), the train CLI at its default float32
+     on pallas, sample on pallas;
   7. families: DiT-B/2 (depth 12, width 768, 12 heads, nothing cut) on the
      generic block path, twice: P1, MaP adaln with block_kernel="pallas" and
      attention_impl="pallas" (fused_mlp_branch and fused_attention in every
@@ -178,7 +182,10 @@ Phases, one line each; any failure exits non-zero before the final line:
      (ranks sharing a card cannot use NCCL) and run the same clipped chain
      through build_sample_fn(mesh=) with block_kernel="mega_tp" and then
      "mega_attn_tp", each against the float32 plain chain, with exact launch
-     counts per rank, each chain then run again warm and timed; then one
+     counts per rank, each chain then run again warm and timed, and again
+     for a float32 model on each island (the f32 instances of
+     csrc/dit_block_tp.cu), each at least F32_CLOSER times closer to the
+     float32 plain chain than the bf16 island's; then one
      gloo all-reduce of a (8, 64, 1152) f32 partial. The all-reduces pass
      through host memory: these are not NCCL tensor-parallel latencies.
      Then the same ranks as a (2, 1) mesh at DiT-S/2: the dp-sharded
@@ -278,15 +285,20 @@ width 72, T=256, without the cosine normalisation at logits past 88 in f32
 and bf16, the ragged T=16 and T=4) and fused_mlp_branch (row 9: one launch
 of mlp_branch, csrc/dit_block_tp.cu; N=64 and 256 timed beside its former
 two-launch route mlp_launch_sequence and the library pair, graph, host and
-eager ms, one device operation a call by the profiler; T=4, 16, 256, the
-S/2 and XL/2 widths and an odd count of row tiles checked, the same bits
-twice) and their gradients against
+eager ms, one device operation a call (the nodes of a captured CUDA graph);
+T=4, 16, 256, the S/2 and XL/2 widths and an odd count of row tiles
+checked, the same bits twice) and their gradients against
 their plain versions, and the three tensor-parallel partial kernels
 (attn_tp_partial, block_tp_attn, mlp_tp_partial) at the DiT-XL/2 shard
 shapes of tp=2 and tp=4 (8 rows x 64 tokens); last, cosine_attention at
 COSINE_SHAPES (DiT-XL/2 heads of 72, its tensor-parallel shards, an odd N,
 T=256 in both modes, the ragged T=16 and T=4). The attention rows are device times of CUDA-graph
-replays.
+replays. Then the f32 forms, each held to its f32 plain version at F32_TOL
+with TF32 off: mp_gemm_f32, cosine_attention_f32 and dit_stack's f32
+instances; rows 3, 5 and 4's f32 instances and their sequences' kernels;
+and the f32 instances of csrc/dit_block_tp.cu (f32_tp_rows: rows 6-8 at
+the XL/2 shards, row 9 at B/2, each one launch and one device operation a
+call, timed beside its f32 launch sequence).
 Weights are random, drawn from a seed. Needs no network and one card.
 """
 
@@ -2968,6 +2980,105 @@ def f32_attn_phase(torch, dev, cfg) -> dict:
     return out
 
 
+# phase 6f: float32 on row 9 (fused_mlp_branch's f32 form, mlp_branch_f32)
+# with fused_attention's f32 form beside it (block_kernel="pallas",
+# attention_impl="pallas"), at phase 6d's batch, CLI steps and ddim chain
+F32_PALLAS = dict(block_kernel="pallas", attention_impl="pallas")
+
+
+def pallas_expect(depth: int, model_calls: int) -> dict:
+    """The launches of ``model_calls`` model calls on pallas + pallas: each
+    block's MLP half one launch of row 9, its attention one of
+    fused_attention (a train step's backward recomputes through the plain
+    references and launches nothing)."""
+    n = depth * model_calls
+    return {"fused_attention": n, "mlp_branch/fwd": n, "mlp_branch/kernel": n}
+
+
+def f32_pallas_phase(torch, dev, cfg) -> dict:
+    """Phase 6f, float32 at full DiT-S/2 on row 9's f32 form
+    (mlp_branch_f32, the TP kernels' f32 instance) and fused_attention's f32
+    form: (1) one checked train step at F32_TRAIN_BATCH on the f32 plain
+    path, on f32 pallas + pallas and on bf16 pallas + pallas: the f32 step's
+    loss and every gradient at least F32_CLOSER times closer to the f32
+    plain step than the bf16 step's; (2) the train CLI in process at its
+    default --compute-dtype float32 with --block-kernel pallas
+    --attention-impl pallas (F32_CLI_STEPS steps, a checkpoint), its first
+    logged loss held to a one-step run of the CLI on --block-kernel off at
+    F32_TOL; (3) mapdit_tpu_torch.sample on that experiment with
+    --block-kernel pallas, ddim F32_CHAIN_STEPS (one row 9 launch a block and
+    model call). Every run has exact launch counts. Returns {path: launch
+    counts}."""
+    from mapdit_tpu_torch import sample
+    from mapdit_tpu_torch.models import init_model
+    from mapdit_tpu_torch.utils.experiment import load_config
+
+    t_phase = time.perf_counter()
+    depth = cfg.depth
+    c32 = cfg.replace(compute_dtype="float32")
+    none = contextlib.nullcontext
+    out = {}
+
+    # 1. the checked step
+    init = init_model(cfg, seed=SEED, device="cpu")
+    draw_gains(torch, init, SEED)
+    sd0 = init.state_dict()
+    del init
+    ds, batch, draws = train_inputs(torch, dev, cfg, F32_TRAIN_BATCH)
+    paths = {
+        "f32": (c32, {}, none),
+        "f32+pallas": (c32.replace(**F32_PALLAS), pallas_expect(depth, 1), none),
+        "bf16+pallas": (cfg.replace(**F32_PALLAS), pallas_expect(depth, 1), none),
+    }
+    losses, grads, counts = f32_checked_steps(torch, dev, "f32-pallas/step", paths, sd0, batch, draws, ds.stats)
+    f32_step_closer(torch, "f32-pallas/step", losses, grads, ("f32+pallas",), "bf16+pallas")
+    out["f32/pallas"] = counts["f32+pallas"]
+    del grads
+
+    with tempfile.TemporaryDirectory(prefix="mapdit_f32_pallas_") as tmp:
+        # 2. the train CLI
+        common = ["--model", MODEL, "--data-path", "synthetic:1024", "--batch-size", str(F32_TRAIN_BATCH),
+                  "--num-classes", "1000", "--log-every", "1", "--metrics-jsonl", "auto", "--num-lin-warmup", "2",
+                  "--start-decay", "10"]
+        steps = F32_CLI_STEPS
+        exp, rows, counts, seconds = f32_train_cli(torch, tmp, common, "pallas", steps, "--attention-impl", "pallas",
+                                                   "--ckpt-every", str(steps), "--ema-snapshot-every", str(steps))
+        check_counts("f32-pallas/train-cli", counts, pallas_expect(depth, steps))
+        out["f32/pallas-train-cli"] = counts
+        _, rows_off, _, _ = f32_train_cli(torch, tmp, common, "off", 1, "--ckpt-every", "1000",
+                                          "--ema-snapshot-every", "0")
+        rel = abs(rows[0]["loss"] - rows_off[0]["loss"]) / abs(rows_off[0]["loss"])
+        dtype = load_config(exp)["compute_dtype"]
+        phase("f32-pallas", cli="train", block_kernel="pallas", attention_impl="pallas", compute_dtype=dtype,
+              batch=F32_TRAIN_BATCH, steps=steps, seconds_with_setup=f"{seconds:.3f}",
+              losses=json.dumps([r["loss"] for r in rows]), first_loss_off=f"{rows_off[0]['loss']:.6f}",
+              first_loss_rel_diff=f"{rel:.3e}", tol=f"{F32_TOL:g}",
+              launches=json.dumps({key: v for key, v in counts.items() if v}))
+        if rel > F32_TOL or dtype != "float32":
+            raise AssertionError(f"f32 train CLI on pallas: first loss {rows[0]['loss']} against "
+                                 f"{rows_off[0]['loss']} off ({dtype})")
+
+        # 3. the sample CLI on that experiment
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        png = sample.main(sample.build_parser().parse_args(
+            ["--result-dir", exp, "--use-vae", "false", "--block-kernel", "pallas", "--sampler", "ddim",
+             "--num-sampling-steps", str(F32_CHAIN_STEPS), "--clip-denoised", "true", "--class-label", "3",
+             "--output-file", os.path.join(tmp, "f32_pallas.png")]))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        check_counts("f32-pallas/sample-cli", counts, pallas_expect(depth, F32_CHAIN_STEPS))
+        out["f32/pallas-sample-cli"] = counts
+        phase("f32-pallas", cli="sample", block_kernel="pallas", sampler="ddim", steps=F32_CHAIN_STEPS,
+              png=json.dumps(png_check(png)), seconds=f"{seconds:.3f}",
+              launches=json.dumps({key: v for key, v in counts.items() if v}))
+    torch.cuda.empty_cache()
+    phase("f32-pallas", seconds=f"{time.perf_counter() - t_phase:.2f}")
+    return out
+
+
 def checked_step(torch, dev, cfg, sd0, batch, draws, stats, ema_stds=None):
     """A train state of ``cfg`` on the weights ``sd0``, its step, and the
     first step's loss and gradients (by parameter name, on the card) on the
@@ -3228,10 +3339,7 @@ def standalone_kernel_rows(torch, F, gen, dev) -> dict:
         err = compare_rel(torch, got, mb.fused_mlp_branch_plain(*args), 1e-2, what)
         compare(torch, mb.fused_mlp_branch(*args), got, 0.0, 0.0, what + ":same-bits-twice")
         if timed:
-            ops = tpbench.device_ops(lambda: mb.fused_mlp_branch(*args))
-            phase("check", what=f"{what}:device-operations-a-call", ops=ops, ok=ops == 1)
-            if ops != 1:
-                raise AssertionError(f"{what}: {ops} device operations a call, not 1")
+            one_device_operation(what, lambda: mb.fused_mlp_branch(*args))
             compare_rel(torch, mb.mlp_launch_sequence(*args), got, 1e-2, what + ":route-vs-kernel")
         return err
 
@@ -3520,7 +3628,7 @@ def tp_kernel_rows(torch, gen, dev) -> dict:
     10; the report rows) and tp=4 (checked and timed), the same bits twice,
     rows 6 and 8 also on f32 shift and scale views of a mods-shaped buffer
     (the kernels round them to bf16 as they read them); one launch and one
-    device operation a call (torch.profiler). Times: device ms from
+    device operation a call (a captured CUDA graph's nodes). Times: device ms from
     CUDA-graph replays, host ms and eager ms (a host-launched loop, as the
     program runs them), each beside the launch sequence the kernel replaced
     (same call), the plain version and the library call; then one XL/2
@@ -3549,10 +3657,7 @@ def tp_kernel_rows(torch, gen, dev) -> dict:
             if (tpk.LAUNCHES[key] != before[key] + 1 or tpk.LAUNCHES[name + "/sequence"] != before[name + "/sequence"]
                     or k.LAUNCHES != before_k):
                 raise AssertionError(f"{what}: not one launch of {key} and no other kernel's")
-            ops = bench.device_ops(lambda fn=fn, args=args: fn(*args))
-            phase("check", what=f"{what}:device-operations-a-call", ops=ops, ok=ops == 1)
-            if ops != 1:
-                raise AssertionError(f"{what}: {ops} device operations a call, not 1")
+            one_device_operation(what, lambda fn=fn, args=args: fn(*args))
             err = tp_check(torch, what, got, fn(*args), plain(*args))
             compare_rel(torch, seq(*args)[0] if name == "block_tp_attn" else seq(*args),
                         got[0] if name == "block_tp_attn" else got, 1e-2, what + ":sequence-vs-kernel")
@@ -3585,8 +3690,8 @@ def tp_kernel_rows(torch, gen, dev) -> dict:
         phase("check", what=f"fused_dit_block_tp:tp{tp}:same-bits-twice", ok=same)
         if not same:
             raise AssertionError(f"fused_dit_block_tp:tp{tp}: two runs differ")
-        row = dict(bench.times(kernel, seq), device_ops=bench.device_ops(kernel),
-                   sequence_device_ops=bench.device_ops(seq))
+        row = dict(bench.times(kernel, seq), device_ops=bench.device_ops(kernel)[0],
+                   sequence_device_ops=bench.device_ops(seq)[0])
         phase("time", kernel=f"fused_dit_block_tp-without-all-reduce:tp{tp}",
               **{key: f"{v:.4f}" for key, v in row.items()}, card=card)
     # T > 64: rows 6 and 7 take the launch sequence, counted under its own key
@@ -3600,6 +3705,161 @@ def tp_kernel_rows(torch, gen, dev) -> dict:
             raise AssertionError(f"{name} at T={TP_LONG_T}: not the launch sequence's route")
         tp_check(torch, f"{name}:tp{bench.TP_WAYS[0]}:t{TP_LONG_T}:sequence-route", got, fn(*args), plain(*args))
     return out_rows
+
+
+# the f32 forms of csrc/dit_block_tp.cu (a float32 model on mega_tp,
+# mega_attn_tp or pallas), drawn in f32 from generator SEED + 62 in this
+# order: the TP partials at the XL/2 shards, (tp, T, N): tp=2 at T = 64 (the
+# report rows, timed), then checked at tp=4, T = 16 and at T = 4 with an odd
+# N; row 9 at the B/2 shapes, N = 64 and 256 (timed), then checked at
+# bench_mlp_branch's DEEP case (fc1 pre-activations below -88) and its
+# RAGGED cases. DEEP's outputs reach |y| ~ 440 from sums of terms in the
+# thousands, where f32 sums in k order (the f32 products' FFMA order) and
+# the plain version's blocked sums lie up to ~1.5e-3 apart: DEEP holds the
+# kernel, its sequence and the plain version element by element to the
+# float64 witness, each output within F32_TOL of the sum of its terms'
+# absolute values (bench_mlp_branch.f64_witness) plus F32_TOL
+F32_TP_SHAPES = ((2, 64, 8), (4, 16, 8), (2, 4, 3))
+F32_MLP_SAMPLES = (64, 256)
+
+
+def one_device_operation(what: str, fn) -> None:
+    """Fails unless one call of ``fn`` is one device operation, a kernel:
+    the nodes of a CUDA graph captured around a call
+    (bench_tp_kernels.device_ops; a capture drops nothing). Beside it, for
+    the record, what a torch.profiler trace of five calls sees
+    (bench_tp_kernels.profiler_ops: device events a call, and the ms from
+    each kernel's launch call to its start), which late in a long process
+    has missed kernel events."""
+    from mapdit_tpu_torch.tools import bench_tp_kernels as bench
+
+    ops, names = bench.device_ops(fn)
+    seen = bench.profiler_ops(fn)
+    ok = bench.is_one_kernel(names)
+    phase("check", what=f"{what}:device-operations-a-call", ops=ops, names=json.dumps(names),
+          profiler_ops=seen["ops"], launch_to_kernel_ms=json.dumps(seen["launch_to_kernel_ms"]), ok=ok)
+    if not ok:
+        raise AssertionError(f"{what}: {ops} device operations a call ({names}), not one kernel")
+
+
+def f32_tp_rows(torch, dev, check_only: bool = False) -> dict:
+    """Rows 6, 7 and 8 in f32 (tp_attn_f32 and tp_mlp_f32, the f32
+    instances of csrc/dit_block_tp.cu) at F32_TP_SHAPES
+    (bench_tp_kernels.tp_cases in f32) and row 9 in f32 (mlp_branch_f32, on
+    the TP kernels' f32 instance) at F32_MLP_SAMPLES, DEEP and RAGGED
+    (bench_mlp_branch.mlp_case in f32): each call one launch of its f32
+    instance (no launch sequence, no mp_gemm or cosine_attention launch) and
+    one device operation, held to its f32 plain version at F32_TOL with
+    TF32 off (row 7's mods too), the same bits twice, and its f32 launch
+    sequence (rows 6 and 7's route at T > 64, every row's yardstick) held to
+    the same plain version. Then (unless ``check_only``) the report shapes
+    timed beside their f32 sequences: graph, host and eager ms, the plain
+    version's and the f32 library calls' graph ms (torch.matmul with TF32
+    off, f32 SDPA), the bound on the f32 pipes. Returns the kernels line's
+    four rows (their launches from phase 10's f32 island chains and phase
+    6f's f32 pallas paths)."""
+    from mapdit_tpu_torch.ops.cuda import dit_block as k
+    from mapdit_tpu_torch.ops.cuda import mlp_block as mb
+    from mapdit_tpu_torch.tools import bench_mlp_branch as mbench
+    from mapdit_tpu_torch.tools import bench_tp_kernels as bench
+
+    f32 = torch.float32
+    gen = torch.Generator(device=dev).manual_seed(SEED + 62)
+    card = json.dumps(smi_line())
+    rows = {}
+
+    def checked(what, key, fn, seq, plain, args, witness=None):
+        """One call (one launch of ``key``, one device operation) against
+        the plain version and the same bits twice; the sequence against the
+        plain version. ``witness``: (the float64 reference, each output's
+        scale), to which the call, the sequence and the plain version are
+        held instead, element by element: within F32_TOL x (scale + 1).
+        Returns the main output's max abs error."""
+        before, before_k = launch_counts(), dict(k.LAUNCHES)
+        got = fn(*args)
+        after = launch_counts()
+        moved = {name: after[name] - before[name] for name in after if after[name] != before[name]}
+        if moved.get(key) != 1 or any(name.endswith("/sequence") for name in moved) or k.LAUNCHES != before_k:
+            raise AssertionError(f"{what}: not one launch of {key} and no other kernel's ({moved})")
+        one_device_operation(what, lambda: fn(*args))
+        want, again, from_seq = plain(*args), fn(*args), seq(*args)
+        outs = (got, again, want, from_seq) if isinstance(got, tuple) else ((got,), (again,), (want,), (from_seq,))
+        if witness is not None:
+            ref, scale = witness()
+            tol = F32_TOL * (scale + 1)
+            worst = {name: float(((v.double() - ref).abs() / tol).max())
+                     for name, v in (("kernel", got), ("sequence", from_seq), ("plain", want))}
+            err = float((got - want).abs().max())
+            ok = all(bool(torch.isfinite(v).all()) for v in (got, from_seq, want)) and max(worst.values()) <= 1
+            phase("check", what=f"{what}:f64-witness", **{f"{name}_err_over_tol": f"{v:.4e}" for name, v in worst.items()},
+                  kernel_max_abs_err_f64=f"{float((got.double() - ref).abs().max()):.3e}",
+                  max_abs_err_vs_plain=f"{err:.3e}", max_abs_f64=f"{float(ref.abs().max()):.4e}",
+                  tol=f"F32_TOL x (scale + 1), scale to {float(scale.max()):.4e}", ok=ok)
+            if not ok:
+                raise AssertionError(f"{what}: past F32_TOL x (scale + 1) of the float64 witness: {worst}")
+            errs = [err]
+        else:
+            errs = [compare(torch, g, w, F32_TOL, F32_TOL, f"{what}{':mods' if i else ''}")
+                    for i, (g, w) in enumerate(zip(outs[0], outs[2]))]
+            for i, (q, w) in enumerate(zip(outs[3], outs[2])):
+                compare(torch, q, w, F32_TOL, F32_TOL, f"{what}{':mods' if i else ''}:sequence")
+        same = all(torch.equal(g, h) for g, h in zip(outs[0], outs[1]))
+        phase("check", what=f"{what}:same-bits-twice", ok=same)
+        if not same:
+            raise AssertionError(f"{what}: two runs of the kernel differ")
+        return errs[0]
+
+    def timed(name, what, fn, seq, plain, library, err, flops, nbytes, replaces, **counted_on):
+        b, by = bound_ms(flops, nbytes, H100_F32_FLOPS)
+        row = dict(source=TP_SRC, replaces=replaces, max_abs_err=err, **bench.times(fn, seq),
+                   plain_ms=graph_ms(torch, plain), bound_ms=b, bound_by=by, library_ms=graph_ms(torch, library),
+                   **counted_on)
+        phase("time", kernel=what, **{key: f"{v:.4f}" for key, v in row.items() if isinstance(v, float)},
+              bound_by=by, card=card)
+        rows[name] = row
+
+    names = {"attn_tp_partial": ("dit_block_tp/attn:f32", "dit_block_tp/attn", "tp/mega_attn_tp:f32"),
+             "block_tp_attn": ("dit_block_tp/block:f32", "dit_block_tp/attn", "tp/mega_tp:f32"),
+             "mlp_tp_partial": ("dit_block_tp/mlp:f32", "dit_block_tp/mlp", "tp/mega_tp:f32")}
+    for tp, t, n in F32_TP_SHAPES:
+        for name, (fn, seq, plain, args, line, flops, nbytes, library) in bench.tp_cases(gen, dev, tp, t, n,
+                                                                                        f32).items():
+            row, key, path = names[name]
+            what = f"{row}:tp{tp}:t{t}:n{n}"
+            err = checked(what, key, fn, seq, plain, args)
+            if not check_only and (tp, t, n) == F32_TP_SHAPES[0]:
+                timed(row, what, lambda fn=fn, args=args: fn(*args), lambda seq=seq, args=args: seq(*args),
+                      lambda plain=plain, args=args: plain(*args), library, err, flops, nbytes, f"{PALLAS}:{line}",
+                      count_from=(path, name))
+            del args
+        torch.cuda.empty_cache()
+
+    mlp_line = "mapdit_tpu/ops/pallas/mlp_block.py:89"
+    deep_tag, *deep_shape, deep = mbench.DEEP
+    cases = [(f"n{n}", (n,), 0.0) for n in F32_MLP_SAMPLES] + [(deep_tag, tuple(deep_shape), deep)]
+    cases += [(tag, tuple(shape), 0.0) for tag, *shape in mbench.RAGGED]
+    for tag, shape, scale in cases:
+        case = mbench.mlp_case(gen, dev, *shape, deep=scale, dtype=f32)
+        args = case["args"]
+        what = f"mlp_branch:f32:{tag}"
+        if scale:
+            below = mbench.fc1_below(args)
+            phase("check", what=f"{what}:inputs", fc1_below=below, ok=below > 0)
+            if not below:
+                raise AssertionError(f"{what}: no fc1 pre-activation below -88")
+        witness = (lambda args=args: mbench.f64_witness(args)) if scale else None
+        err = checked(what, "mlp_branch/kernel", mb.fused_mlp_branch, mb.mlp_launch_sequence,
+                      mb.fused_mlp_branch_plain, args, witness)
+        if not check_only and tag in ("n64", "n256"):
+            timed("mlp_branch:f32" if tag == "n64" else "mlp_branch:f32:n256", what,
+                  lambda args=args: mb.fused_mlp_branch(*args), lambda args=args: mb.mlp_launch_sequence(*args),
+                  lambda args=args: mb.fused_mlp_branch_plain(*args), case["library"], err, case["flops"],
+                  case["bytes"], mlp_line, path="f32/pallas", count_key="mlp_branch/kernel")
+        del args, case
+        torch.cuda.empty_cache()
+    # N = 256 is printed beside N = 64; the kernels line holds N = 64
+    rows.pop("mlp_branch:f32:n256", None)
+    return rows
 
 
 def xl_config():
@@ -3690,22 +3950,18 @@ def xl_phase(torch, dev) -> dict:
     return {name: v.cpu() for name, v in (("z", z), ("y", y), *chains.items())}
 
 
-def tp_rank(rank, dev, refs, out_dir):
-    """One rank of phase 10 (started by mapdit_tpu_torch.parallel.spawn):
-    the (1, 2) mesh, DiT-XL/2 from the seed, the clipped chain through each
-    island held to the float32 plain chain of phase 9 by check_paths' rule
-    with exact launch counts of this rank, the same chain again warm and
-    timed, then one all-reduce of a partial. Writes its report to
-    ``out_dir``; any failure raises, and then
-    mapdit_tpu_torch.parallel.spawn raises in the parent."""
-    import torch
-    import torch.distributed as dist
-
+def tp_islands(torch, rank, dev, mesh, refs) -> dict:
+    """Phase 10's islands on this rank of the (1, 2) mesh: DiT-XL/2 from the
+    seed, the clipped chain through each island held to the float32 plain
+    chain of phase 9 by check_paths' rule with exact launch counts of this
+    rank, the same chain again warm and timed; then the same for a float32
+    model on each island (the f32 instances of csrc/dit_block_tp.cu), each
+    at least F32_CLOSER times closer to the float32 plain chain than the
+    bf16 island's chain of this spawn. Returns the report (raises on a
+    failure)."""
     from mapdit_tpu_torch.diffusion import create_diffusion
-    from mapdit_tpu_torch.parallel import make_mesh
     from mapdit_tpu_torch.runtime import build_sample_fn
 
-    mesh = make_mesh(1, 2, device=dev)
     cfg = xl_config()
     sd = xl_state_dict(torch, cfg, dev)
     z, y = refs["z"].to(dev), refs["y"].to(dev)
@@ -3720,31 +3976,59 @@ def tp_rank(rank, dev, refs, out_dir):
     report = {"counts": {}, "rel_l2_err_vs_f32": {}, "rel_l2_err_vs_auto": {}, "first_ms_per_model_call": {},
               "ms_per_model_call": {}, "limit": limit}
     short = create_diffusion(str(XL_CHECK_STEPS), device=dev)
+    chains = {}
     for kernel in ("mega_tp", "mega_attn_tp"):
-        fn = build_sample_fn(cfg.replace(block_kernel=kernel), sd, short, cfg_scale=CFG_SCALE, clip_denoised=True,
-                             mesh=mesh)
-        seconds = []
-        for run in range(2):  # the first run is checked and counted, the second (warm) timed
-            torch.cuda.synchronize()
-            reset_launch_counts()
-            t0 = time.perf_counter()
-            out = fn(z, y, torch.Generator(device=dev).manual_seed(SEED + 12))
-            torch.cuda.synchronize()
-            seconds.append(time.perf_counter() - t0)
-            if run == 0:
-                counts = launch_counts()
-                check_counts(f"tp/{kernel}/rank{rank}", counts, expect[kernel])
-                err = rel_l2(out.cpu(), refs["f32"])
-                if not bool(torch.isfinite(out).all()) or err > limit:
-                    raise AssertionError(f"tp/{kernel}/rank{rank}: off the f32 plain chain (rel L2 {err} > {limit})")
-                report["counts"][kernel] = counts
-                report["rel_l2_err_vs_f32"][kernel] = err
-                report["rel_l2_err_vs_auto"][kernel] = rel_l2(out.cpu(), refs["auto"])
-        report["first_ms_per_model_call"][kernel] = 1e3 * seconds[0] / XL_CHECK_STEPS
-        report["ms_per_model_call"][kernel] = 1e3 * seconds[1] / XL_CHECK_STEPS
-        del fn, out
-        torch.cuda.empty_cache()
+        for dtype in ("bfloat16", "float32"):
+            key = kernel if dtype == "bfloat16" else f"{kernel}:f32"
+            fn = build_sample_fn(cfg.replace(block_kernel=kernel, compute_dtype=dtype), sd, short, cfg_scale=CFG_SCALE,
+                                 clip_denoised=True, mesh=mesh)
+            seconds = []
+            for run in range(2):  # the first run is checked and counted, the second (warm) timed
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                out = fn(z, y, torch.Generator(device=dev).manual_seed(SEED + 12))
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                if run == 0:
+                    counts = launch_counts()
+                    check_counts(f"tp/{key}/rank{rank}", counts, expect[kernel])
+                    chains[key] = out.cpu()
+                    err = rel_l2(chains[key], refs["f32"])
+                    if not bool(torch.isfinite(out).all()) or err > limit:
+                        raise AssertionError(f"tp/{key}/rank{rank}: off the f32 plain chain (rel L2 {err} > {limit})")
+                    report["counts"][key] = counts
+                    report["rel_l2_err_vs_f32"][key] = err
+                    report["rel_l2_err_vs_auto"][key] = rel_l2(chains[key], refs["auto"])
+            report["first_ms_per_model_call"][key] = 1e3 * seconds[0] / XL_CHECK_STEPS
+            report["ms_per_model_call"][key] = 1e3 * seconds[1] / XL_CHECK_STEPS
+            del fn, out
+            torch.cuda.empty_cache()
+        # the f32 island against the bf16 one of this spawn (f32_distances)
+        e32, e16, ok = f32_distances(refs["f32"], chains[f"{kernel}:f32"], chains[kernel])
+        report.setdefault("f32_closer", {})[kernel] = {"f32_rel_l2": e32, "bf16_rel_l2": e16, "ok": ok}
+        if not ok:
+            raise AssertionError(f"tp/{kernel}:f32/rank{rank}: {e32} from the f32 plain chain, the bf16 island {e16}")
 
+    del sd
+    torch.cuda.empty_cache()
+    return report
+
+
+def tp_rank(rank, dev, refs, out_dir):
+    """One rank of phase 10 (started by mapdit_tpu_torch.parallel.spawn):
+    the (1, 2) mesh and its islands (tp_islands), then one all-reduce of a
+    partial, then the (2, 1) mesh's data-parallel checks (dp_checks). Writes
+    its report to ``out_dir``; any failure raises, and then
+    mapdit_tpu_torch.parallel.spawn raises in the parent."""
+    import torch
+    import torch.distributed as dist
+
+    from mapdit_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(1, 2, device=dev)
+    report = tp_islands(torch, rank, dev, mesh, refs)
+    cfg = xl_config()
     partial = torch.randn(2 * XL_BATCH, 64, cfg.hidden_size, device=dev)
     for _ in range(3):
         dist.all_reduce(partial, group=mesh.model_group)
@@ -3755,7 +4039,7 @@ def tp_rank(rank, dev, refs, out_dir):
     torch.cuda.synchronize()
     report["all_reduce_ms"] = 1e3 * (time.perf_counter() - t0) / 20
     report["backend"] = dist.get_backend(mesh.model_group)
-    del sd, partial
+    del partial
     torch.cuda.empty_cache()
     report["dp"] = dp_checks(torch, rank, dev, refs)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -3869,21 +4153,27 @@ def tp_phase(torch, refs) -> dict:
         for r in range(2):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
                 reports.append(json.load(f))
+    keys = ("mega_tp", "mega_attn_tp", "mega_tp:f32", "mega_attn_tp:f32")
     for r, rep in enumerate(reports):
-        for kernel in ("mega_tp", "mega_attn_tp"):
+        for kernel in keys:
             phase("tp", rank=r, mesh="(1,2)", backend=rep["backend"], kernel=kernel, steps=XL_CHECK_STEPS,
                   rel_l2_err_vs_f32=f"{rep['rel_l2_err_vs_f32'][kernel]:.3e}", tol=f"{rep['limit']:.3e}",
                   rel_l2_err_vs_single_card_kernels=f"{rep['rel_l2_err_vs_auto'][kernel]:.3e}",
                   first_ms_per_model_call=f"{rep['first_ms_per_model_call'][kernel]:.4f}",
                   ms_per_model_call=f"{rep['ms_per_model_call'][kernel]:.4f}",
                   launches=json.dumps({key: v for key, v in rep["counts"][kernel].items() if v}))
+        for kernel, row in rep["f32_closer"].items():
+            e32, e16 = row["f32_rel_l2"], row["bf16_rel_l2"]
+            phase("check", what=f"tp/{kernel}:f32/rank{r}:closer-than-bf16", f32_kernel_rel_l2=f"{e32:.4e}",
+                  bf16_kernel_rel_l2=f"{e16:.4e}", ratio=f"{e16 / e32 if e32 > 0 else math.inf:.1f}",
+                  tol=f"ratio>={F32_CLOSER:g}", ok=row["ok"])
         phase("tp", rank=r, all_reduce_ms=f"{rep['all_reduce_ms']:.4f}", all_reduce_shape=f"({2 * XL_BATCH},64,1152)f32",
               note="two ranks share one card; gloo all-reduces pass through host memory")
         for what, row in rep["dp"].items():
             phase("dp", rank=r, mesh="(2,1)", what=what, **{key: json.dumps(v) if isinstance(v, (dict, list)) else v
                                                              for key, v in row.items()})
     phase("tp", seconds_with_spawn=f"{seconds:.2f}", card=json.dumps(smi_line()))
-    return {f"tp/{kernel}": reports[0]["counts"][kernel] for kernel in ("mega_tp", "mega_attn_tp")}
+    return {f"tp/{kernel}": reports[0]["counts"][kernel] for kernel in keys}
 
 
 def dp_train_rank(rank, dev, out_dir):
@@ -6123,6 +6413,9 @@ def main() -> int:
     # kernels (from phase 6e's f32 sequence path)
     rows.update(f32_branch_rows(torch, dev))
     rows.update(f32_part_rows(torch, F, dev))
+    # the f32 forms of csrc/dit_block_tp.cu: rows 6-8 (their launches from
+    # phase 10's f32 island chains) and row 9 (from phase 6f's f32 pallas step)
+    rows.update(f32_tp_rows(torch, dev))
     elapsed("3.f32")
     for name, row in rows.items():
         phase("time", kernel=name, ms=f"{row['ms']:.4f}", plain_ms=f"{row['plain_ms']:.4f}",
@@ -6241,6 +6534,12 @@ def main() -> int:
     train_launches.update(f32_attn_phase(torch, dev, cfg))
     torch.cuda.empty_cache()
     elapsed("6e")
+
+    # 6f. float32 on row 9 (pallas): the checked step, the train CLI and the
+    # sample CLI on pallas
+    train_launches.update(f32_pallas_phase(torch, dev, cfg))
+    torch.cuda.empty_cache()
+    elapsed("6f")
 
     # 7. the flag families at DiT-B/2
     family_launches = {T256_BENCH: bench_counts["ddpm-50-input-32-mega-stack"]}

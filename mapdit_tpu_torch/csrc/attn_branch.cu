@@ -211,9 +211,9 @@ static_assert(2 * attn_bwd_tiles::BwdLayout<72, 1>::BYTES <= STAGES * STAGE_BYTE
               "two attention backward units must fit in the ring");
 static_assert(TILE_BYTES % 16 == 0 && 2 * AttnSmem<72>::BYTES <= TILE_BYTES + SUMS_FLOATS * 4,
               "two attention units' tiles must fit in the f32 tile's and the sums' memory");
-// the f32 instances: both forward units' f32 rows in the ring; a backward
-// unit in the ring and one in the f32 tile's and the sums' memory
-static_assert(2 * cosine_tiles::DimsF32<72>::BYTES <= STAGES * STAGE_BYTES, "two f32 units must fit in the ring");
+// the f32 instances: both forward units' f32 rows in the ring
+// (work_list.cuh checks that they fit); a backward unit in the ring and one
+// in the f32 tile's and the sums' memory
 constexpr int F32_BWD_BYTES = attn_bwd_f32::Layout<72, attn_tiles::TILE>::BYTES;
 static_assert(F32_BWD_BYTES <= STAGES * STAGE_BYTES && F32_BWD_BYTES <= TILE_BYTES + SUMS_FLOATS * 4,
               "an f32 attention backward unit must fit in the ring and in the tile's memory");
@@ -816,91 +816,9 @@ __device__ __forceinline__ void attention_item(const Args& A, const Maps& maps, 
 }
 
 // ---------------------------------------------------------------------------
-// the f32 instances' pre and attention items (a float32 model: the Pallas
-// kernels at dtype = float32, nothing rounded)
-
-// Pre item j in f32: h = modulate(x; shift, scale, gain) on its token rows,
-// x read through the read-only path (not through the ring: an f32 row of
-// XL/2's width outgrows a stage's box rows), eight columns a thread and
-// step, PRE_UNROLL steps' loads in flight; then the row tile's counter.
-__device__ __forceinline__ void pre_item_f32(const Args& A, int s, int j, unsigned long long* body_ns) {
-  const unsigned long long t0 = global_ns();
-  const int tid = threadIdx.x, chunks = A.d / 8;
-  const int r0 = j * A.pre_rows, total = min(A.pre_rows, A.m - r0) * chunks;
-  const float g = __ldg(A.gain);
-  const float den = modulate::denominator(g), rcp = modulate::reciprocal(den);
-  for (int q0 = tid; q0 < total; q0 += PRE_UNROLL * CONSUMER_THREADS) {
-    float v[PRE_UNROLL][8], shift[PRE_UNROLL][8], scale[PRE_UNROLL][8];
-#pragma unroll
-    for (int u = 0; u < PRE_UNROLL; ++u) {
-      const int q = q0 + u * CONSUMER_THREADS;
-      if (q < total) {
-        const int64_t row = r0 + q / chunks;
-        const int col = 8 * (q % chunks);
-        modulate::load8(A.x32 + row * A.d + col, v[u]);
-        load_row8(A, A.shift, A.shift_ld, row / A.t, col, shift[u]);
-        load_row8(A, A.scale, A.scale_ld, row / A.t, col, scale[u]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < PRE_UNROLL; ++u) {
-      const int q = q0 + u * CONSUMER_THREADS;
-      if (q < total) {
-        modulate::modulate8_branchless(v[u], shift[u], scale[u], g, den, rcp);
-        modulate::store8(A.amod32 + static_cast<int64_t>(r0 + q / chunks) * A.d + 8 * (q % chunks), v[u]);
-      }
-    }
-  }
-  if (threadIdx.x == 0) *body_ns += global_ns() - t0;
-  // the qkv product's TMA loads (other CTAs) read these rows
-  asm volatile("fence.proxy.async;\n" ::: "memory");
-  consumer_sync();
-  if (tid == 0) {
-    __threadfence();
-    atomicAdd(counter(A, s, r0 / BM), 1u);
-  }
-}
-
-// The f32 cosine attention of one unit (T <= 64: one key tile) once its f32
-// rows are staged: cosine_attention_f32's single-tile sweep. NORM_FIRST: p
-// = ex * (1/sum) (stored in f32 to probs where given), then p.v; else
-// (ex.v) * (1/sum).
-template <int HD, bool NORM_FIRST>
-__device__ __forceinline__ void attention_core_f32(const float* sq, const float* sk, const float* sv, const float* qsc,
-                                                   const float* ksc, float* out, int64_t ld, int t, int warp,
-                                                   int lane, float* probs) {
-  using namespace cosine_tiles;
-  if (warp * 16 >= t) return;
-  float s[4][8], sum[4] = {0.f, 0.f, 0.f, 0.f}, f[4];
-  exp_tile_f32<HD>(s, sq, sk, qsc, ksc, t, warp, lane);
-  add_row_sums_f32(sum, s);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) sum[i] = oct_sum(sum[i]);
-  const int r = warp * 16 + (lane >> 3), kc = lane & 7;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (NORM_FIRST) {
-      const float inv = 1.f / sum[i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] *= inv;
-      f[i] = 1.f;
-      if (probs != nullptr && r + 4 * i < t) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          if (kc + 8 * j < t) probs[(r + 4 * i) * t + kc + 8 * j] = s[i][j];
-      }
-    } else {
-      f[i] = 1.f / sum[i];
-    }
-  }
-  float o[4][DimsF32<HD>::NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jj = 0; jj < DimsF32<HD>::NJ; ++jj) o[i][jj] = 0.f;
-  pv_tile_f32<HD>(o, s, sv, lane);
-  store_rows_f32<HD>(o, f, out, ld, t, warp, lane);
-}
+// the f32 instances' attention items (a float32 model: the Pallas kernels
+// at dtype = float32, nothing rounded); their pre items and attention core
+// are work_list.cuh's pre_item_f32 and attention_core_f32
 
 // One forward attention item in f32 on the group of four consumer warps
 // this thread is in: unit 2j + group, its rows read through L2 once they

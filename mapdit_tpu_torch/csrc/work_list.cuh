@@ -15,7 +15,8 @@
 // Tickets count the finished parts of a sum whose last part is added by
 // whoever takes the last ticket (take_ticket): no float atomics, the same
 // bits on every run. Also here: the pre items (the modulate into a bf16
-// amod), the cosine attention's (sample, head) units on four consumer warps,
+// amod, or an f32 one for the f32 instances), the cosine attention's
+// (sample, head) units on four consumer warps (bf16 or f32),
 // a product item's producer side on gemm_pipeline.cuh's ring, and the host's
 // plan reading and tensor-map cache. dit_block_tp.cu's notes hold the
 // measurements behind the design.
@@ -297,6 +298,51 @@ __device__ __forceinline__ void pre_item(const Args& A, int s, int j, unsigned l
   }
 }
 
+// Pre item j in f32 (the f32 instances of csrc/attn_branch.cu and
+// csrc/dit_block_tp.cu: a float32 model, nothing rounded): amod32 =
+// modulate(x32; shift, scale, gain) on its token rows, x read through the
+// read-only path (not through the ring: an f32 row of XL/2's width outgrows
+// a stage's box rows), eight columns a thread and step, PRE_UNROLL steps'
+// loads in flight; then the row tile's counter.
+template <class Args>
+__device__ __forceinline__ void pre_item_f32(const Args& A, int s, int j, unsigned long long* body_ns) {
+  const unsigned long long t0 = global_ns();
+  const int tid = threadIdx.x, chunks = A.d / 8;
+  const int r0 = j * A.pre_rows, total = min(A.pre_rows, A.m - r0) * chunks;
+  const float g = __ldg(A.gain);
+  const float den = modulate::denominator(g), rcp = modulate::reciprocal(den);
+  for (int q0 = tid; q0 < total; q0 += PRE_UNROLL * CONSUMER_THREADS) {
+    float v[PRE_UNROLL][8], shift[PRE_UNROLL][8], scale[PRE_UNROLL][8];
+#pragma unroll
+    for (int u = 0; u < PRE_UNROLL; ++u) {
+      const int q = q0 + u * CONSUMER_THREADS;
+      if (q < total) {
+        const int64_t row = r0 + q / chunks;
+        const int col = 8 * (q % chunks);
+        modulate::load8(A.x32 + row * A.d + col, v[u]);
+        load_row8(A, A.shift, A.shift_ld, row / A.t, col, shift[u]);
+        load_row8(A, A.scale, A.scale_ld, row / A.t, col, scale[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < PRE_UNROLL; ++u) {
+      const int q = q0 + u * CONSUMER_THREADS;
+      if (q < total) {
+        modulate::modulate8_branchless(v[u], shift[u], scale[u], g, den, rcp);
+        modulate::store8(A.amod32 + static_cast<int64_t>(r0 + q / chunks) * A.d + 8 * (q % chunks), v[u]);
+      }
+    }
+  }
+  if (threadIdx.x == 0) *body_ns += global_ns() - t0;
+  // the first product's TMA loads (other CTAs) read these rows
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+  consumer_sync();
+  if (tid == 0) {
+    __threadfence();
+    atomicAdd(counter(A, s, r0 / BM), 1u);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Pre items through the ring (row 9's and the attention half-block's): the
 // TMA thread loads a pre item's rows of x into one ring stage, the
@@ -480,6 +526,94 @@ __device__ __forceinline__ void attention_unit(const Args& A, int s, int unit, u
   asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "n"(attn_tiles::THREADS) : "memory");
   attention_core<HD, false>(sq, sk, sv, qsc, ksc, A.attn + static_cast<int64_t>(sample) * t * d_l + head * HD,
                                  d_l, t, warp, lane);
+  // the out product's TMA loads read these rows
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "n"(attn_tiles::THREADS) : "memory");
+  if (tid == 0) {
+    __threadfence();
+    for (int r = r0; r <= r1; ++r) atomicAdd(counter(A, s, r), 1u);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The f32 attention (a float32 model: cosine_tiles.cuh's f32 core, nothing
+// rounded). A unit's f32 q, k and v rows and two scale vectors take
+// DimsF32<HD>::BYTES (59 KB at hd 72): two groups' units fit the ring.
+static_assert(2 * cosine_tiles::DimsF32<72>::BYTES <= STAGES * STAGE_BYTES, "two f32 units must fit in the ring");
+
+// The f32 cosine attention of one unit (T <= 64: one key tile) once its f32
+// rows are staged: cosine_attention_f32's single-tile sweep. NORM_FIRST: p
+// = ex * (1/sum) (stored in f32 to probs where given), then p.v; else
+// (ex.v) * (1/sum).
+template <int HD, bool NORM_FIRST>
+__device__ __forceinline__ void attention_core_f32(const float* sq, const float* sk, const float* sv, const float* qsc,
+                                                   const float* ksc, float* out, int64_t ld, int t, int warp,
+                                                   int lane, float* probs) {
+  using namespace cosine_tiles;
+  if (warp * 16 >= t) return;
+  float s[4][8], sum[4] = {0.f, 0.f, 0.f, 0.f}, f[4];
+  exp_tile_f32<HD>(s, sq, sk, qsc, ksc, t, warp, lane);
+  add_row_sums_f32(sum, s);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) sum[i] = oct_sum(sum[i]);
+  const int r = warp * 16 + (lane >> 3), kc = lane & 7;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (NORM_FIRST) {
+      const float inv = 1.f / sum[i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] *= inv;
+      f[i] = 1.f;
+      if (probs != nullptr && r + 4 * i < t) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (kc + 8 * j < t) probs[(r + 4 * i) * t + kc + 8 * j] = s[i][j];
+      }
+    } else {
+      f[i] = 1.f / sum[i];
+    }
+  }
+  float o[4][DimsF32<HD>::NJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < DimsF32<HD>::NJ; ++jj) o[i][jj] = 0.f;
+  pv_tile_f32<HD>(o, s, sv, lane);
+  store_rows_f32<HD>(o, f, out, ld, t, warp, lane);
+}
+
+// attention_unit in f32: the unit's f32 q, k and v rows (read through L2)
+// staged at buf + group * DimsF32<HD>::BYTES, attention_core_f32 into the
+// f32 attn32 rows, then the unit counted done.
+template <int HD, class Args>
+__device__ __forceinline__ void attention_unit_f32(const Args& A, int s, int unit, uint8_t* buf, int group) {
+  using namespace cosine_tiles;
+  using D = DimsF32<HD>;
+  const int tid = threadIdx.x % attn_tiles::THREADS, warp = tid >> 5, lane = tid & 31;
+  const int sample = unit / A.heads, head = unit % A.heads, t = A.t, d_l = A.d_l;
+  const int r0 = sample * t / BM, r1 = (sample * t + t - 1) / BM;
+  if (tid == 0) {
+    for (int r = r0; r <= r1; ++r) spin_until(counter(A, s - 1, r), per_row(A, s - 1, r));
+    __threadfence();
+  }
+  float* sq = reinterpret_cast<float*>(buf + group * D::BYTES);
+  float* sk = sq + TILE * D::LD;
+  float* sv = sk + TILE * D::LD;
+  float* qsc = sv + TILE * D::LD;
+  float* ksc = qsc + TILE;
+  const int64_t ld = 3ll * d_l;
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "n"(attn_tiles::THREADS) : "memory");
+  const float* base = A.qkv + static_cast<int64_t>(sample) * t * ld + head * HD;
+  Rows<HD> fq, fk, fv;
+  fetch<HD, true>(fq, base, ld, t, tid);
+  fetch<HD, true>(fk, base + d_l, ld, t, tid);
+  fetch<HD, true>(fv, base + 2 * d_l, ld, t, tid);
+  commit_f32<HD>(fq, sq, qsc, tid);
+  commit_f32<HD>(fk, sk, ksc, tid);
+  commit_f32<HD>(fv, sv, nullptr, tid);
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "n"(attn_tiles::THREADS) : "memory");
+  attention_core_f32<HD, false>(sq, sk, sv, qsc, ksc, A.attn32 + static_cast<int64_t>(sample) * t * d_l + head * HD,
+                                d_l, t, warp, lane, nullptr);
   // the out product's TMA loads read these rows
   asm volatile("fence.proxy.async;\n" ::: "memory");
   asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "n"(attn_tiles::THREADS) : "memory");

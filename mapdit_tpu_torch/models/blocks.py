@@ -129,12 +129,15 @@ def resolve_block_kernel_tp(cfg: DiTConfig, folded: bool, tp: int, device) -> st
     evenly, or a single-device policy of ``off``; the whole-block island
     ``mega_tp`` when the MLP hidden width splits evenly too, the attention
     island ``mega_attn_tp`` otherwise. Off CUDA ``off``, as the JAX package
-    resolves off-TPU, and for a float32 model, whose islands' kernels take
-    bf16 only until their own slice (ROADMAP B.0.3). Explicit values pass
+    resolves off-TPU. A float32 model follows :func:`kernel_policy` with no
+    dtype condition, as JAX's resolver does: its islands run the f32
+    instances of ``csrc/dit_block_tp.cu``. Timed turns of f32 DiT-S/2 on a
+    (1, 2) mesh (two ranks sharing one card over gloo, which sets the pace)
+    could not tell ``mega_tp`` from ``off`` (PERF.md). Explicit values pass
     through."""
     if cfg.block_kernel != "auto":
         return cfg.block_kernel
-    if torch.device(device).type != "cuda" or tp < 2 or cfg.num_heads % tp or cfg.dtype != torch.bfloat16:
+    if torch.device(device).type != "cuda" or tp < 2 or cfg.num_heads % tp:
         return "off"
     if kernel_policy(cfg.replace(fold_weights=folded), cfg.num_patches, device) == "off":
         return "off"

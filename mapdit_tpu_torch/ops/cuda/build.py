@@ -23,10 +23,10 @@ PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "mapdit_tpu_torch"
 SOURCES = ("mp_gemm", "cosine_attention", "attn_branch_bwd", "fused_attention", "dw_gemm", "dit_stack", "dit_block_tp",
-           "attn_branch", "attn_branch_f32")
-# sources a source includes besides the headers (attn_branch_f32.cu is
-# attn_branch.cu's f32 instances)
-INCLUDES = {"attn_branch_f32": ("attn_branch",)}
+           "dit_block_tp_f32", "attn_branch", "attn_branch_f32")
+# sources a source includes besides the headers (attn_branch_f32.cu and
+# dit_block_tp_f32.cu are the f32 instances of the sources they include)
+INCLUDES = {"attn_branch_f32": ("attn_branch",), "dit_block_tp_f32": ("dit_block_tp",)}
 # measurement-only sources, built when a tool asks for their library
 PROBES = ("kstep_probe",)
 NVCC_FLAGS = (
@@ -78,6 +78,15 @@ _SIGNATURES = {
         "mlp_branch": ([_P] * 3 + [_P, _I, _P, _I, _P, _I, _I] + [_P] * 8 + [_I] * 5 + [_F, _F, _P, _P], ctypes.c_int),
         "mlp_branch_resident_ctas": ([], ctypes.c_int),
         "dit_block_tp_resident_ctas": ([_I], ctypes.c_int),
+        "dit_block_tp_error_string": ([_I], ctypes.c_char_p),
+    },
+    "dit_block_tp_f32": {
+        "tp_attn_f32": ([_P] * 5 + [_P, _I, _P, _I, _I] + [_P] * 11 + [_I] * 6 + [_F, _P, _P], ctypes.c_int),
+        "tp_mlp_f32": ([_P] * 3 + [_P, _I, _P, _I, _I] + [_P] * 8 + [_I] * 5 + [_F, _F, _P, _P], ctypes.c_int),
+        "mlp_branch_f32": ([_P] * 3 + [_P, _I, _P, _I, _P, _I, _I] + [_P] * 8 + [_I] * 5 + [_F, _F, _P, _P],
+                           ctypes.c_int),
+        "dit_block_tp_resident_ctas_f32": ([_I], ctypes.c_int),
+        "dit_block_tp_plan_words": ([], ctypes.c_int),
         "dit_block_tp_error_string": ([_I], ctypes.c_char_p),
     },
     "attn_branch": {

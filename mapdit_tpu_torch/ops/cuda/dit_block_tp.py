@@ -24,7 +24,11 @@ and no other device operation: rows 6 and 7 run its ``tp_attn`` kernel
 (row 7 with the modulation stage switched on), row 8 its ``tp_mlp``
 kernel; :func:`tp_plan` lays out their work list, counters and scratch,
 the launch reads the plan's words and its table of counter targets, and
-the CPU tests walk the same plan. The attention
+the CPU tests walk the same plan. Each takes x and the weights all bf16 or
+all f32 (a float32 model, as the Pallas kernels at ``dtype = float32``:
+the f32 instances ``tp_attn_f32`` and ``tp_mlp_f32`` of
+``csrc/dit_block_tp_f32.cu``, products on the f32 pipes, amod, attn and h
+in f32, nothing rounded); a mixed set raises. The attention
 kernel takes one tile of 64 queries and keys: at T > 64 rows 6 and 7 take
 :func:`attn_tp_launch_sequence` / :func:`block_tp_launch_sequence` (the
 route before the kernel, separate launches of ``mp_gemm`` and
@@ -37,8 +41,9 @@ The Pallas roundings are kept: the modulate's math in f32, products on
 operands of the weights' type with f32 sums, f32 partials (bf16 partials
 would put ~1e-3 relative error on the branch). shift and scale given as
 rows (rows 6 and 8) are rounded to the weights' type, as the Pallas
-kernels' one-hot row select does (the kernels round them as they read
-them in place); row 7 reads its f32 modulation rows as they are.
+kernels' one-hot row select does (the bf16 kernels round them as they read
+them in place; in f32 nothing is rounded); row 7 reads its f32 modulation
+rows as they are.
 
 Each wrapper takes its kernel for a CUDA tensor (and raises on what it does
 not take) and its plain version for a CPU tensor. ``LAUNCHES`` counts, on
@@ -107,15 +112,21 @@ def _rows(shift, scale, dtype) -> torch.Tensor:
     return torch.cat([shift, scale], dim=1).to(dtype).float().contiguous()
 
 
-def _check(x, w_in, w_out, n_rows, what):
+def check_types(what: str, *tensors) -> None:
+    """Off the CPU: the tensors (x and the weights) all bf16 (the bf16
+    forms) or all f32 (the f32 forms), the rule of the Pallas kernels,
+    which take the weights' type; a mixed set raises."""
+    types = {z.dtype for z in tensors}
+    if tensors[0].device.type != "cpu" and types not in ({torch.bfloat16}, {torch.float32}):
+        raise ValueError(f"the CUDA {what} kernels and their launch sequences take x and the weights all bf16 "
+                         f"(the bf16 forms) or all f32 (the f32 forms), got {sorted(str(z) for z in types)}")
+
+
+def _check(x, w_in, w_out, n_rows, what, *more):
     n, t, d = x.shape
     if w_in.shape[1] != d or w_out.shape[0] != d or w_out.shape[1] * n_rows != w_in.shape[0]:
         raise ValueError(f"{what}: weights {tuple(w_in.shape)}, {tuple(w_out.shape)} do not fit D={d}")
-    if x.device.type != "cpu" and (
-        x.dtype != torch.bfloat16 or w_in.dtype != torch.bfloat16 or w_out.dtype != torch.bfloat16
-    ):
-        raise ValueError(f"the CUDA {what} kernels (rows 6-8) run bf16 only: x and the weights must be bf16; their "
-                         "float32 forms come in a later slice of the port")
+    check_types(f"{what} (rows 6-8)", x, w_in, w_out, *more)
 
 
 def _check_heads(d_l, heads_local):
@@ -175,7 +186,7 @@ def attn_tp_launch_sequence(x, shift, scale, gain, w_qkv_l, w_out_l, heads_local
 
 
 def _block_tp_attn(x, a, gains, w_mod, w_qkv_l, w_out_l, heads_local, gemm, attention):
-    _check(x, w_qkv_l, w_out_l, 3, "block_tp_attn")
+    _check(x, w_qkv_l, w_out_l, 3, "block_tp_attn", a, w_mod)
     _check_block(x, a, gains, w_mod)
     n, t, d = x.shape
     mods = gemm(a.contiguous(), w_mod.contiguous(), alpha=1.0 / math.sqrt(d), out_dtype=torch.float32,
@@ -245,6 +256,13 @@ TP_MAX_SPLITS = 8
 # the modulation product runs before the grid barrier, where 9 did
 TP_MIN_SPLIT_K = 18
 TP_MIN_SPLIT_K_MODULATION = 9
+# The f32 instances count k steps of 32 (a stage's 128-byte rows of f32),
+# each ~6-8 us of an SM on the f32 pipes, longer than a split's round trip:
+# their products split K as far as ends their items soonest, past one wave
+# where that pays (_f32_splits), a round trip costing TP_F32_SPLIT_COST k
+# steps, each split keeping at least TP_F32_MIN_SPLIT_K
+TP_F32_SPLIT_COST = 1
+TP_F32_MIN_SPLIT_K = 3
 # the sync words: [0] the grid barrier (row 7), [TP_SYNC_EXIT] the CTAs that
 # have left (the last zeroes the sync words), then from word TP_SYNC_DONE one
 # counter a stage and row tile (8 words apart), then the tile tickets of
@@ -266,7 +284,9 @@ TP_TRACE_WORDS = 16  # a CTA's ns by stage and part of its items, its start and 
 TP_KERNELS = ("attn", "mlp", "mlp_branch")
 # row 9's tiles: 256 columns, on ring stages of a 128 x 64 A tile and a
 # 256 x 64 W tile of bf16; a pre item takes the most of MLP_PRE_ROWS token
-# rows whose rows of x (ceil(D / 64) boxes of 64 columns) fill one stage
+# rows whose rows of x (ceil(D / 64) boxes of 64 columns) fill one stage.
+# Its f32 form runs on the TP kernels' f32 instance: 128-column tiles, pre
+# items of the same token rows (read through the read-only path)
 MLP_WIDE = 256
 MLP_STAGE_BYTES = (STACK_TILE + MLP_WIDE) * STACK_K * 2
 MLP_PRE_ROWS = (32, 16, 8)
@@ -464,8 +484,8 @@ class TpPlan:
     def words(self) -> tuple:
         """The words the launch reads (TP_PLAN_WORDS, or more for a longer
         list): stages, sync words, buffer words, CTAs, the modulation
-        product's splits and ticket word (0, 0 without it; row 9's kernel has
-        the token rows of a pre item in the first; the attention half-block's
+        product's splits and ticket word (0, 0 without it; row 9's kernels
+        have the token rows of a pre item in the first; the attention half-block's
         kernels their dgain ticket word (0 forward) and the token rows of a
         pre item), then for each stage its kind, items,
         K splits, counter word of row tile 0, ticket word (0 unsplit) and
@@ -474,7 +494,7 @@ class TpPlan:
         if self.kernel.startswith("branch_"):
             first, second = self.tickets.get("dgain", 0), self.pre_rows
         else:
-            first = self.pre_rows if self.kernel == "mlp_branch" else mods.splits if mods else 0
+            first = self.pre_rows if self.kernel.startswith("mlp_branch") else mods.splits if mods else 0
             second = self.tickets.get("modulation", 0) if mods else 0
         out = [len(self.stages), self.sync_words, self.buffer_words, self.ctas, first, second, 0, 0]
         for i, stage in enumerate(self.stages):
@@ -484,9 +504,22 @@ class TpPlan:
         return tuple(out + [0] * (TP_PLAN_WORDS - len(out)))
 
 
+def _f32_splits(tiles: int, kt: int, ctas: int) -> int:
+    """K splits of an f32 product of ``tiles`` output tiles of ``kt`` k
+    steps on ``ctas`` CTAs: the count whose items end soonest, in k steps
+    (waves of tiles x splits items, each its k steps plus, split, a round
+    trip of TP_F32_SPLIT_COST), at most TP_MAX_SPLITS, at least
+    TP_F32_MIN_SPLIT_K k steps a split; the fewest splits of equal cost."""
+    def cost(s):
+        return _cdiv(tiles * s, ctas) * (_cdiv(kt, s) + (TP_F32_SPLIT_COST if s > 1 else 0))
+
+    fits = [s for s in range(1, TP_MAX_SPLITS + 1) if s == 1 or _cdiv(kt, s) >= TP_F32_MIN_SPLIT_K]
+    return min(fits, key=lambda s: (cost(s), s))
+
+
 @functools.lru_cache(maxsize=None)
 def tp_plan(kernel: str, n: int, t: int, d: int, width: int, heads: int = 0, modulation: bool = False,
-            ctas: int = H100_SMS) -> TpPlan:
+            ctas: int = H100_SMS, f32: bool = False) -> TpPlan:
     """The plan of one launch for N samples of T tokens at width D: the
     attention kernel (``"attn"``: ``width`` = D_l in ``heads`` local heads;
     ``modulation`` switches on row 7's stage), the MLP kernel (``"mlp"``:
@@ -495,14 +528,18 @@ def tp_plan(kernel: str, n: int, t: int, d: int, width: int, heads: int = 0, mod
     MLP_PRE_ROWS token rows whose rows of x fill one ring stage), on
     ``ctas`` resident CTAs. A product splits K only as far as one wave
     takes, into at most TP_MAX_SPLITS splits of at least TP_MIN_SPLIT_K k
-    steps (TP_MIN_SPLIT_K_MODULATION for row 7's modulation product)."""
+    steps (TP_MIN_SPLIT_K_MODULATION for row 7's modulation product).
+    ``f32``: the f32 instances' plan (``csrc/dit_block_tp_f32.cu``): k steps
+    of 32, splits by :func:`_f32_splits`, amod, attn and h in f32 scratch,
+    and row 9 on 128-column tiles with the bf16 form's pre rows."""
     if kernel not in TP_KERNELS or (modulation and kernel != "attn"):
         raise ValueError(f"no plan for kernel {kernel!r} with modulation={modulation}")
     m = n * t
-    wide = kernel == "mlp_branch"
-    tile_cols = MLP_WIDE if wide else STACK_TILE
+    e = 4 if f32 else 2  # bytes of an element of x, amod, attn and h
+    k_step = 128 // e  # a stage's rows of 128 bytes
+    tile_cols = MLP_WIDE if kernel == "mlp_branch" and not f32 else STACK_TILE
     pre_rows = TP_PRE_ROWS
-    if wide:
+    if kernel == "mlp_branch":
         pre_rows = next((r for r in MLP_PRE_ROWS if _cdiv(d, 64) * r * 128 <= MLP_STAGE_BYTES), 0)
         if not pre_rows:
             raise ValueError(f"no plan at D={d}: not eight rows of x fit a ring stage")
@@ -510,9 +547,11 @@ def tp_plan(kernel: str, n: int, t: int, d: int, width: int, heads: int = 0, mod
     def product(name, rows, cols, k):
         width = STACK_TILE if name == "modulation" else tile_cols
         tiles = _cdiv(rows, STACK_TILE) * _cdiv(cols, width)
+        if f32:
+            return StackProduct(name, rows, cols, k, _f32_splits(tiles, _cdiv(k, k_step), ctas), width, k_step)
         min_k = TP_MIN_SPLIT_K_MODULATION if name == "modulation" else TP_MIN_SPLIT_K
-        fit = 1 if tiles >= ctas else min(ctas // tiles, _cdiv(k, STACK_K) // min_k)
-        return StackProduct(name, rows, cols, k, max(1, min(fit, TP_MAX_SPLITS)), width)
+        fit = 1 if tiles >= ctas else min(ctas // tiles, _cdiv(k, k_step) // min_k)
+        return StackProduct(name, rows, cols, k, max(1, min(fit, TP_MAX_SPLITS)), width, k_step)
 
     pre = TpStage("pre", _cdiv(m, pre_rows))
     mods = product("modulation", n, 6 * d, d) if modulation else None
@@ -520,11 +559,11 @@ def tp_plan(kernel: str, n: int, t: int, d: int, width: int, heads: int = 0, mod
         first, second = product("qkv", m, 3 * width, d), product("out", m, d, width)
         stages = (pre, TpStage("qkv", first.items, first), TpStage("attention", _cdiv(n * heads, 2)),
                   TpStage("out", second.items, second))
-        mid = {"qkv": m * 3 * width * 4, "attn": m * width * 2}
+        mid = {"qkv": m * 3 * width * 4, "attn": m * width * e}
     else:
         first, second = product("fc1", m, width, d), product("fc2", m, d, width)
         stages = (pre, TpStage("fc1", first.items, first), TpStage("fc2", second.items, second))
-        mid = {"h": m * width * 2}
+        mid = {"h": m * width * e}
         heads = 0
     split = [p for p in (mods, first, second) if p is not None and p.splits > 1]
     words = TP_SYNC_DONE + 8 * len(stages) * _cdiv(m, STACK_TILE)
@@ -532,26 +571,35 @@ def tp_plan(kernel: str, n: int, t: int, d: int, width: int, heads: int = 0, mod
     for p in split:
         tickets[p.name] = words
         words += p.tiles
-    sizes = {"amod": m * d * 2, **mid}
+    sizes = {"amod": m * d * e, **mid}
     sizes.update({f"partial_{p.name}": p.splits * p.m * p.n * 4 for p in split})
     layout, offset = {}, 0
     for name, size in sizes.items():
         layout[name] = offset
         offset += _cdiv(size, 256) * 256
     return TpPlan(
-        kernel=kernel, ctas=ctas, samples=n, tokens=t, heads=heads, pre_rows=pre_rows, modulation=mods, stages=stages,
-        tickets=tickets, sync_words=words, layout=layout, workspace_bytes=offset,
+        kernel=f"{kernel}{'_f32' if f32 else ''}", ctas=ctas, samples=n, tokens=t, heads=heads, pre_rows=pre_rows,
+        modulation=mods, stages=stages, tickets=tickets, sync_words=words, layout=layout, workspace_bytes=offset,
     )
 
 
-@functools.lru_cache(maxsize=None)
-def _resident_ctas(device_index: int, hd: int) -> int:
+def _library(f32: bool):
+    """The bf16 kernels' library, or (``f32``) the f32 instances'."""
     from mapdit_tpu_torch.ops.cuda import build
 
+    return build.library("dit_block_tp_f32" if f32 else "dit_block_tp")
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_ctas(device_index: int, hd: int, f32: bool = False) -> int:
+    """CTAs of the TP kernel of head width ``hd`` (0: tp_mlp, and row 9's
+    f32 form) resident at once on the device, in bf16 or (``f32``) of the
+    f32 instance."""
+    lib = _library(f32)
     with torch.cuda.device(device_index):
-        ctas = build.library("dit_block_tp").dit_block_tp_resident_ctas(hd)
+        ctas = (lib.dit_block_tp_resident_ctas_f32 if f32 else lib.dit_block_tp_resident_ctas)(hd)
     if ctas < 1:
-        _raise_on(-ctas, build.library("dit_block_tp"), "dit_block_tp")
+        _raise_on(-ctas, lib, "dit_block_tp")
     return ctas
 
 
@@ -611,20 +659,22 @@ def _row_operands(x, *rows) -> tuple:
 def tp_attn(x, shift, scale, gain, w_qkv_l, w_out_l, heads_local: int, *, a=None, w_mod=None,
             trace: Optional[torch.Tensor] = None):
     """One launch of ``tp_attn`` (``csrc/dit_block_tp.cu``) on CUDA tensors:
-    x (N, T, D) bf16; shift, scale (N, D) f32 (rounded to bf16 as they are
-    read) or bf16, or both None with ``a`` (N, D) bf16 and ``w_mod`` (6D, D)
-    bf16 given (row 7: the kernel writes mods (N, 6D) f32 first and reads
-    shift and scale from it); gain a one-element f32 tensor. Returns the f32
-    partial (N, T, D), and with ``a`` also the mods. ``trace``: int64 of the
-    plan's ``trace_words`` (each CTA's ns by stage)."""
-    from mapdit_tpu_torch.ops.cuda import build
-
+    x (N, T, D), w_qkv_l and w_out_l all bf16, or all f32 (the f32 instance
+    ``tp_attn_f32``); shift, scale (N, D) f32 (the bf16 kernel rounds them
+    to bf16 as it reads them) or bf16, or both None with ``a`` (N, D) and
+    ``w_mod`` (6D, D) of x's type given (row 7: the kernel writes mods (N,
+    6D) f32 first and reads shift and scale from it); gain a one-element f32
+    tensor. Returns the f32 partial (N, T, D), and with ``a`` also the mods.
+    ``trace``: int64 of the plan's ``trace_words`` (each CTA's ns by
+    stage)."""
     n, t, d = x.shape
     d_l = w_out_l.shape[1]
     modulated = a is not None
     operands = [x, gain, w_qkv_l, w_out_l] + ([a, w_mod] if modulated else [])
+    check_types("tp_attn", x, w_qkv_l, w_out_l, *([a, w_mod] if modulated else []))
     _require_cuda(*operands)
     check_tp_shape("attn", t, d, d_l, heads_local)
+    f32 = x.dtype == torch.float32
     if gain.dtype != torch.float32 or gain.numel() != 1:
         raise ValueError("the modulate gain must be one f32 value")
     if modulated:
@@ -633,13 +683,14 @@ def tp_attn(x, shift, scale, gain, w_qkv_l, w_out_l, heads_local: int, *, a=None
         shift, scale, rows_bf16 = _row_operands(x, shift, scale)
         rows = (shift.data_ptr(), shift.stride(0), scale.data_ptr(), scale.stride(0))
     _aligned(*(z for z in operands if z is not gain))  # the gain is read as one float
-    plan = tp_plan("attn", n, t, d, d_l, heads_local, modulated, _resident_ctas(x.get_device(), d_l // heads_local))
+    plan = tp_plan("attn", n, t, d, d_l, heads_local, modulated,
+                   _resident_ctas(x.get_device(), d_l // heads_local, f32), f32)
     words, buffer = _launch_state(plan, x.get_device())
-    lib = build.library("dit_block_tp")
+    lib = _library(f32)
     work = torch.empty(plan.workspace_bytes, dtype=torch.uint8, device=x.device)
     out = torch.empty(n, t, d, dtype=torch.float32, device=x.device)
     mods = torch.empty(n, 6 * d, dtype=torch.float32, device=x.device) if modulated else None
-    code = lib.tp_attn(
+    code = (lib.tp_attn_f32 if f32 else lib.tp_attn)(
         x.data_ptr(), a.data_ptr() if modulated else None, w_mod.data_ptr() if modulated else None,
         w_qkv_l.data_ptr(), w_out_l.data_ptr(),
         *rows, rows_bf16,
@@ -656,26 +707,27 @@ def tp_attn(x, shift, scale, gain, w_qkv_l, w_out_l, heads_local: int, *, a=None
 
 def tp_mlp(x, shift, scale, gain, w1_l, w2_l, inv_h: float, *, trace: Optional[torch.Tensor] = None):
     """One launch of ``tp_mlp`` (``csrc/dit_block_tp.cu``) on CUDA tensors:
-    x (N, T, D) bf16, shift and scale as for :func:`tp_attn`'s row 6, gain
-    a one-element f32 tensor, w1_l (H_l, D), w2_l (D, H_l) bf16; returns the
-    f32 partial (N, T, D). ``trace`` as for :func:`tp_attn`."""
-    from mapdit_tpu_torch.ops.cuda import build
-
+    x (N, T, D), w1_l (H_l, D) and w2_l (D, H_l) all bf16, or all f32 (the
+    f32 instance ``tp_mlp_f32``); shift and scale as for :func:`tp_attn`'s
+    row 6, gain a one-element f32 tensor; returns the f32 partial (N, T, D).
+    ``trace`` as for :func:`tp_attn`."""
     n, t, d = x.shape
     h_l = w1_l.shape[0]
     operands = [x, gain, w1_l, w2_l]
+    check_types("tp_mlp", x, w1_l, w2_l)
     _require_cuda(*operands)
     check_tp_shape("mlp", t, d, h_l)
+    f32 = x.dtype == torch.float32
     if gain.dtype != torch.float32 or gain.numel() != 1:
         raise ValueError("the modulate gain must be one f32 value")
     shift, scale, rows_bf16 = _row_operands(x, shift, scale)
     _aligned(*(z for z in operands if z is not gain))
-    plan = tp_plan("mlp", n, t, d, h_l, ctas=_resident_ctas(x.get_device(), 0))
+    plan = tp_plan("mlp", n, t, d, h_l, ctas=_resident_ctas(x.get_device(), 0, f32), f32=f32)
     words, buffer = _launch_state(plan, x.get_device())
-    lib = build.library("dit_block_tp")
+    lib = _library(f32)
     work = torch.empty(plan.workspace_bytes, dtype=torch.uint8, device=x.device)
     out = torch.empty(n, t, d, dtype=torch.float32, device=x.device)
-    code = lib.tp_mlp(
+    code = (lib.tp_mlp_f32 if f32 else lib.tp_mlp)(
         x.data_ptr(), w1_l.data_ptr(), w2_l.data_ptr(), shift.data_ptr(), shift.stride(0), scale.data_ptr(),
         scale.stride(0), rows_bf16, gain.data_ptr(), out.data_ptr(),
         *(_scratch(plan, work, name) for name in ("amod", "h", "partial_fc1", "partial_fc2")),
@@ -711,8 +763,8 @@ def attn_tp_partial(x, shift, scale, gain, w_qkv_l, w_out_l, heads_local: int):
     without gate or residual."""
     if x.device.type == "cpu":
         return attn_tp_partial_plain(x, shift, scale, gain, w_qkv_l, w_out_l, heads_local)
-    _require_card(x, shift, scale, w_qkv_l, w_out_l)
     _check(x, w_qkv_l, w_out_l, 3, "attn_tp_partial")
+    _require_card(x, shift, scale, w_qkv_l, w_out_l)
     _check_heads(w_out_l.shape[1], heads_local)
     if tp_attn_route(x.shape[1]) == "sequence":
         out = attn_tp_launch_sequence(x, shift, scale, gain, w_qkv_l, w_out_l, heads_local)
@@ -729,8 +781,8 @@ def block_tp_attn(x, a, gains, w_mod, w_qkv_l, w_out_l, heads_local: int):
     (partial f32 (N, T, D), mods f32 (N, 6, D))."""
     if x.device.type == "cpu":
         return block_tp_attn_plain(x, a, gains, w_mod, w_qkv_l, w_out_l, heads_local)
+    _check(x, w_qkv_l, w_out_l, 3, "block_tp_attn", a, w_mod)
     _require_card(x, a, gains, w_mod, w_qkv_l, w_out_l)
-    _check(x, w_qkv_l, w_out_l, 3, "block_tp_attn")
     _check_block(x, a, gains, w_mod)
     _check_heads(w_out_l.shape[1], heads_local)
     if tp_attn_route(x.shape[1]) == "sequence":
@@ -752,8 +804,8 @@ def mlp_tp_partial(x, shift, scale, gains, w1_l, w2_l, inv_h: float):
     hidden width. Returns f32 (N, T, D)."""
     if x.device.type == "cpu":
         return mlp_tp_partial_plain(x, shift, scale, gains, w1_l, w2_l, inv_h)
-    _require_card(x, shift, scale, w1_l, w2_l)
     _check(x, w1_l, w2_l, 1, "mlp_tp_partial")
+    _require_card(x, shift, scale, w1_l, w2_l)
     out = tp_mlp(x.contiguous(), shift, scale, _device_gains(gains, x.device)[1:2], w1_l.contiguous(),
                  w2_l.contiguous(), inv_h)
     LAUNCHES["mlp_tp_partial"] += 1

@@ -7,23 +7,28 @@ Port of ``mapdit_tpu/ops/pallas/mlp_block.py``: ``fused_mlp_branch`` over
 
 On the card a call is ONE persistent launch of ``mlp_branch``
 (``csrc/dit_block_tp.cu``, on the work-list machinery of the TP partials
-and ``csrc/wide_tile.cuh``'s 128 x 256 tiles) and no other device
-operation: its list runs the modulate (pre items, into a bf16 scratch),
-fc1 with the MP-SiLU (the hidden h in bf16 scratch) and fc2 with the gated
-residual, laid out by :func:`mlp_plan`, whose words
-the launch reads and the CPU tests walk. The Pallas kernel keeps both
+and ``csrc/wide_tile.cuh``'s 128 x 256 tiles; in f32 ``mlp_branch_f32``)
+and no other device operation: its list runs the modulate (pre items, into
+a scratch of the weights' type), fc1 with the MP-SiLU (the hidden h in the
+same type) and fc2 with the gated residual, laid out by :func:`mlp_plan`,
+whose words the launch reads and the CPU tests walk. The Pallas kernel keeps both
 weight matrices and the hidden activations in VMEM; here h passes through
 L2 and device memory. shift, scale and gate are read in place, in x's type
 (or f32), as they are; the gain is read from device memory. The rounding
 points are those of the route before the kernel (:func:`mlp_launch_sequence`,
-two ``mp_gemm`` launches, kept as the yardstick and never dispatched): the
-modulate in f32 rounded once to bf16, fc1 summed in f32 and scaled by
-1/sqrt(D), MP-SiLU, h rounded to bf16; fc2 summed in f32 and scaled by
-1/sqrt(H), then the gated residual in f32, y in x's type.
+two ``mp_gemm`` launches, kept as the yardstick of both forms and never
+dispatched): the modulate in f32 rounded once to the weights' type, fc1
+summed in f32 and scaled by 1/sqrt(D), MP-SiLU, h in the weights' type; fc2
+summed in f32 and scaled by 1/sqrt(H), then the gated residual in f32, y in
+x's type (in f32 nothing is rounded).
 
 Bound on the H100: operations (4*N*T*D*H flops on bf16 operands against
-x in, y out, the weights and the rows). On the card the kernel takes bf16
-x and weights; a float32 model runs ``block_kernel="off"``.
+x in, y out, the weights and the rows). On the card the kernel takes x and
+the weights all bf16, or all f32: a float32 model (the Pallas kernel at
+``dtype = w1.dtype = float32``, nothing rounded) runs ``mlp_branch_f32``,
+the TP kernels' f32 instance (``csrc/dit_block_tp_f32.cu``) on the same
+list with 128 x 128 tiles on the f32 pipes, h and y in f32 (bound: the f32
+pipes' 67 TFLOP/s). A mixed set raises.
 
 For a CUDA tensor the wrapper launches the kernel or raises; for a CPU
 tensor it runs :func:`fused_mlp_branch_plain`. ``LAUNCHES`` counts, on the
@@ -58,10 +63,13 @@ from mapdit_tpu_torch.ops.cuda.dit_block import (
 from mapdit_tpu_torch.ops.cuda.dit_block_tp import (
     _aligned,
     _launch_state,
+    _library,
+    _resident_ctas,
     _row_operands,
     _scratch,
     _trace_ptr,
     check_tp_shape,
+    check_types,
     tp_plan,
 )
 from mapdit_tpu_torch.ops.mp import mp_silu, mp_sum
@@ -81,14 +89,7 @@ def _check(x, shift, scale, gate, gain, w1, w2):
         raise ValueError(f"w1 must be (H, D) and w2 (D, H), got {tuple(w1.shape)}, {tuple(w2.shape)}")
     if any(r.shape != (n, d) for r in (shift, scale, gate)) or gain.numel() != 1:
         raise ValueError("shift, scale and gate must be (N, D) and the gain one value")
-    if x.device.type != "cpu" and (
-        x.dtype != torch.bfloat16 or w1.dtype != torch.bfloat16 or w2.dtype != torch.bfloat16
-    ):
-        raise ValueError(
-            "the CUDA MLP half-block kernel (row 9) runs bf16 only: x and the weights must be bf16; its float32 "
-            "form comes in a later slice of the port (a float32 model runs block_kernel='mega' or 'mega_stack' on "
-            "the whole-block kernel's f32 instances, or 'off')"
-        )
+    check_types("MLP half-block (row 9)", x, w1, w2)
 
 
 def _fwd(x, shift, scale, gate, gain, w1, w2, gemm):
@@ -111,8 +112,9 @@ def _fwd(x, shift, scale, gate, gain, w1, w2, gemm):
 def mlp_launch_sequence(x, shift, scale, gate, gain, w1, w2):
     """Row 9 as the route before the kernel: the rows packed into one f32
     buffer, then two launches of ``mp_gemm`` (fc1 with its modulate
-    prologue pass and the MP-SiLU, fc2 with the gated residual). Kept as
-    the kernel's yardstick; never dispatched."""
+    prologue pass and the MP-SiLU, fc2 with the gated residual; in f32
+    ``mp_gemm``'s f32 form). Kept as the yardstick of both kernels; never
+    dispatched."""
     y = _fwd(x, shift, scale, gate, gain, w1, w2, mp_gemm)
     if x.device.type == "cuda":
         LAUNCHES["mlp_branch/sequence"] += 1
@@ -124,20 +126,23 @@ def fused_mlp_branch_plain(x, shift, scale, gate, gain, w1, w2):
     return _fwd(x, shift, scale, gate, gain, w1, w2, mp_gemm_plain)
 
 
-def mlp_plan(n: int, t: int, d: int, hidden: int, ctas: int = H100_SMS):
+def mlp_plan(n: int, t: int, d: int, hidden: int, ctas: int = H100_SMS, f32: bool = False):
     """The plan of one launch of ``mlp_branch`` for N samples of T tokens at
     width D and hidden width H on ``ctas`` resident CTAs: the TP kernels'
     plan (``dit_block_tp.tp_plan``) of the list [pre, fc1, fc2] at full
-    width, on 128 x 256 tiles."""
-    return tp_plan("mlp_branch", n, t, d, hidden, ctas=ctas)
+    width, on 128 x 256 tiles; ``f32``: ``mlp_branch_f32``'s, on 128 x 128
+    tiles at k steps of 32."""
+    return tp_plan("mlp_branch", n, t, d, hidden, ctas=ctas, f32=f32)
 
 
 @functools.lru_cache(maxsize=None)
-def resident_ctas(device_index: int) -> int:
-    """CTAs of row 9's kernel resident at once on the device (one an SM)."""
-    from mapdit_tpu_torch.ops.cuda import build
-
-    lib = build.library("dit_block_tp")
+def resident_ctas(device_index: int, f32: bool = False) -> int:
+    """CTAs of row 9's kernel resident at once on the device (one an SM);
+    ``f32``: of its f32 form, the TP kernels' f32 instance without an
+    attention stage."""
+    if f32:
+        return _resident_ctas(device_index, 0, True)
+    lib = _library(False)
     with torch.cuda.device(device_index):
         ctas = lib.mlp_branch_resident_ctas()
     if ctas < 1:
@@ -147,28 +152,27 @@ def resident_ctas(device_index: int) -> int:
 
 def mlp_branch(x, shift, scale, gate, gain, w1, w2, *, trace: Optional[torch.Tensor] = None):
     """One launch of ``mlp_branch`` (``csrc/dit_block_tp.cu``) on CUDA
-    tensors: x (N, T, D) bf16; shift, scale, gate (N, D) f32 or bf16 of one
-    type; gain a one-element f32 tensor; w1 (H, D), w2 (D, H) bf16. Returns
-    y (N, T, D) bf16. ``trace``: int64 of :func:`mlp_plan`'s
-    ``trace_words`` on the resident CTAs (each CTA's ns by stage), as for
-    the TP kernels."""
-    from mapdit_tpu_torch.ops.cuda import build
-
+    tensors: x (N, T, D), w1 (H, D) and w2 (D, H) all bf16, or all f32 (the
+    f32 form ``mlp_branch_f32``); shift, scale, gate (N, D) f32 or bf16 of
+    one type; gain a one-element f32 tensor. Returns y (N, T, D) in x's
+    type. ``trace``: int64 of :func:`mlp_plan`'s ``trace_words`` on the
+    resident CTAs (each CTA's ns by stage), as for the TP kernels."""
     n, t, d = x.shape
     hidden = w1.shape[0]
-    _require_cuda(x, gain, w1, w2)
     _check(x, shift, scale, gate, gain, w1, w2)
+    _require_cuda(x, gain, w1, w2)
     check_tp_shape("mlp_branch", t, d, hidden)
     if gain.dtype != torch.float32 or gain.numel() != 1:
         raise ValueError("the modulate gain must be one f32 value")
     shift, scale, gate, rows_bf16 = _row_operands(x, shift, scale, gate)
     _aligned(x, w1, w2)
-    plan = mlp_plan(n, t, d, hidden, ctas=resident_ctas(x.get_device()))
+    f32 = x.dtype == torch.float32
+    plan = mlp_plan(n, t, d, hidden, ctas=resident_ctas(x.get_device(), f32), f32=f32)
     words, buffer = _launch_state(plan, x.get_device())
-    lib = build.library("dit_block_tp")
+    lib = _library(f32)
     work = torch.empty(plan.workspace_bytes, dtype=torch.uint8, device=x.device)
-    y = torch.empty(n, t, d, dtype=torch.bfloat16, device=x.device)
-    code = lib.mlp_branch(
+    y = torch.empty(n, t, d, dtype=x.dtype, device=x.device)
+    code = (lib.mlp_branch_f32 if f32 else lib.mlp_branch)(
         x.data_ptr(), w1.data_ptr(), w2.data_ptr(), shift.data_ptr(), shift.stride(0), scale.data_ptr(),
         scale.stride(0), gate.data_ptr(), gate.stride(0), rows_bf16, gain.data_ptr(), y.data_ptr(),
         *(_scratch(plan, work, name) for name in ("amod", "h", "partial_fc1", "partial_fc2")),

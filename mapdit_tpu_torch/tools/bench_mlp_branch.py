@@ -16,7 +16,7 @@ first call after a change. Otherwise each B/2 shape is timed three ways: the ker
 its former route (``mlp_launch_sequence``, two ``mp_gemm`` launches) and the
 library pair (two bf16 ``torch.matmul``), each as device ms of CUDA-graph
 replays, host ms a call and eager ms (a host-launched loop), with the
-kernel's device operations a call from ``torch.profiler``. ``--ptxas`` first
+kernel's device operations a call (a captured CUDA graph's nodes). ``--ptxas`` first
 prints the registers, shared memory, spills and wgmma serialization nvcc
 reports for the kernel's source and the probe's; ``--sass FILE`` writes
 the SASS of row 9's kernel there and counts each tile kernel's spills and
@@ -61,14 +61,17 @@ KSTEP_FORMS = ((128, 1), (256, 1), (256, 2))  # (tile columns, CTAs a cluster)
 KSTEP_MODES = ("loads+wgmma", "loads", "wgmma")
 
 
-def mlp_case(gen, dev, n: int, t: int = TOKENS, d: int = B2_D, hid: int = B2_HIDDEN, deep: float = 0.0) -> dict:
+def mlp_case(gen, dev, n: int, t: int = TOKENS, d: int = B2_D, hid: int = B2_HIDDEN, deep: float = 0.0,
+             dtype=torch.bfloat16) -> dict:
     """Row 9's inputs as the model hands them in (x (N, T, D), shift, scale
-    and gate (N, D) in x's type, one f32 gain, bf16 weights): the
-    arguments, FLOPs, bytes and the library pair. ``deep``: scale every
-    16th row of w1 by it (:data:`DEEP`)."""
+    and gate (N, D) in x's type, one f32 gain, weights of x's type: bf16,
+    or f32 for the f32 form): the arguments, FLOPs, bytes and the library
+    pair in that type. ``deep``: scale every 16th row of w1 by it
+    (:data:`DEEP`)."""
     from mapdit_tpu_torch.ops.mp import normalize
 
-    bf = torch.bfloat16
+    bf = dtype
+    e = torch.empty((), dtype=dtype).element_size()
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
@@ -82,7 +85,7 @@ def mlp_case(gen, dev, n: int, t: int = TOKENS, d: int = B2_D, hid: int = B2_HID
     gain = torch.tensor(0.37, device=dev)
     xf = x.reshape(n * t, d)
     return dict(args=(x, shift, scale, gate, gain, w1, w2), flops=4 * n * t * d * hid,
-                bytes=2 * n * t * d * 2 + 3 * n * d * 2 + 4 + 2 * d * hid * 2,
+                bytes=2 * n * t * d * e + 3 * n * d * e + 4 + 2 * d * hid * e,
                 library=lambda: torch.matmul(torch.matmul(xf, w1.t()), w2.t()))
 
 
@@ -94,6 +97,31 @@ def fc1_below(args, level: float = -88.0) -> int:
     x, shift, scale, _, gain, w1, _ = args
     mod = modulate_reference(x.float(), shift.float(), scale.float(), gain.reshape(()).float())
     return int(((mod @ w1.float().t()) / math.sqrt(x.shape[-1]) < level).sum())
+
+
+def f64_witness(args) -> tuple:
+    """Row 9 on ``args`` in float64 (the plain reference math), and each
+    output's scale: the sum of the absolute values of the terms that reach
+    it, through fc1, the MP-SiLU's slope at the pre-activation, fc2, the
+    gate and the residual. An f32 sum of terms lies within a few units of
+    f32 rounding of that scale from the float64 value, in any order; where
+    a pre-activation lies far below -88, the slope is ~0, and so is what
+    that unit's f32 rounding may add. Returns (y, scale), both float64."""
+    from mapdit_tpu_torch.ops.cuda.dit_block import RES_T, modulate_reference
+
+    x, shift, scale, gate, gain, w1, w2 = (z.double() for z in args)
+    d, hidden = x.shape[-1], w1.shape[0]
+    mod = modulate_reference(x, shift, scale, gain.reshape(()))
+    c = mod @ w1.t() / math.sqrt(d)
+    c_abs = mod.abs() @ w1.abs().t() / math.sqrt(d)
+    sig = torch.sigmoid(c)
+    h = c * sig / 0.596  # mp_silu
+    slope = (sig * (1 + c * (1 - sig))).abs() / 0.596
+    f = h @ w2.t() / math.sqrt(hidden)
+    f_abs = (slope * c_abs + h.abs()) @ w2.abs().t() / math.sqrt(hidden)
+    norm = math.hypot(1 - RES_T, RES_T)
+    g = gate[:, None, :]
+    return ((1 - RES_T) * x + RES_T * g * f) / norm, ((1 - RES_T) * x.abs() + RES_T * g.abs() * f_abs) / norm
 
 
 def ptxas() -> None:
@@ -291,7 +319,7 @@ def main(argv=None) -> int:
                              ("route", lambda: mb.mlp_launch_sequence(*fargs)), ("library", case["library"]),
                              ("kernel_again", lambda: mb.fused_mlp_branch(*fargs))):
                 row.update({f"{name}_{k}": v for k, v in times(fn).items()})
-            row["kernel_device_ops"] = device_ops(lambda: mb.fused_mlp_branch(*fargs))
+            row["kernel_device_ops"] = device_ops(lambda: mb.fused_mlp_branch(*fargs))[0]
             row["bound_ms"] = 1e3 * max(case["flops"] / 989e12, case["bytes"] / 3.35e12)
             report["times"][f"n{n}"] = row
             print(f"[time] kernel=fused_mlp_branch:n{n} " + " ".join(f"{k}={v:.4f}" for k, v in row.items()),

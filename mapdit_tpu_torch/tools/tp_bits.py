@@ -1,13 +1,14 @@
-"""Save the outputs of the tensor-parallel partial kernels (rows 6-8: one
-launch of ``csrc/dit_block_tp.cu`` each) at fixed seeds, or hold them bit
-for bit to a file saved that way, so that two checkouts can be compared on
-one card:
+"""Save the bf16 outputs of ``csrc/dit_block_tp.cu``'s kernels (the
+tensor-parallel partials, rows 6-8, and row 9's ``mlp_branch``: one launch
+each) at fixed seeds, or hold them bit for bit to a file saved that way, so
+that two checkouts can be compared on one card:
 
     PYTHONPATH=<other checkout> python mapdit_tpu_torch/tools/tp_bits.py --save other.pt
     python -m mapdit_tpu_torch.tools.tp_bits --compare other.pt
 
 The cases are ``bench_tp_kernels.tp_cases`` (8 samples at the DiT-XL/2
-shards) at tp = 2 and 4 and T = 64 and 16, each drawn from a seed of its
+shards) at tp = 2 and 4 and T = 64 and 16, and ``bench_mlp_branch``'s row-9
+cases (B/2 at N = 64 and 256, DEEP, RAGGED), each drawn from a seed of its
 own; the outputs are those of the kernel wrappers (row 7: the partial and
 the mods). ``--compare`` prints one line an output and exits 1 unless every
 output has the saved bits (``torch.equal``).
@@ -25,6 +26,8 @@ TP_WAYS, TOKENS = (2, 4), (64, 16)
 
 
 def outputs(dev) -> dict:
+    from mapdit_tpu_torch.ops.cuda import mlp_block
+    from mapdit_tpu_torch.tools import bench_mlp_branch as mlp
     from mapdit_tpu_torch.tools.bench_tp_kernels import tp_cases
 
     out = {}
@@ -35,6 +38,11 @@ def outputs(dev) -> dict:
                 got = case[0](*case[3])
                 for i, z in enumerate(got if isinstance(got, tuple) else (got,)):
                     out[f"{name}:tp{tp}:t{t}:{i}"] = z.detach().cpu()
+    deep_tag, *deep_shape, deep = mlp.DEEP
+    cases = [(f"n{n}", (n,), 0.0) for n in mlp.SAMPLES] + [(deep_tag, tuple(deep_shape), deep)]
+    for i, (tag, shape, scale) in enumerate(cases + [(tag, tuple(shape), 0.0) for tag, *shape in mlp.RAGGED]):
+        gen = torch.Generator(device=dev).manual_seed(9000 + i)
+        out[f"mlp_branch:{tag}"] = mlp_block.mlp_fwd(*mlp.mlp_case(gen, dev, *shape, deep=scale)["args"]).cpu()
     return out
 
 

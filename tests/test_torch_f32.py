@@ -372,10 +372,9 @@ def test_mp_gemm_and_cosine_attention_take_f32_to_the_cuda_check():
 
 def test_half_block_and_tp_kernels_still_refuse_f32():
     """Rows 3-5 (the attention half-block) and their launch sequences' parts
-    take f32 since their float32 slice: off the CPU an f32 model reaches the
-    CUDA check, and a mixed set raises. Row 9 and rows 6-8 (the TP partials)
-    still take f32 in a later slice: they raise on an f32 model, naming that
-    slice and the whole-block kernels it can run."""
+    take f32 since their float32 slice, and row 9 and rows 6-8 (the TP
+    partials) since theirs: off the CPU an f32 model reaches the CUDA check,
+    and a mixed set raises."""
     n, t, d = 2, 16, 128
     x, r, g = _meta(n, t, d), _meta(n, d), _meta(1)
     wq, wo = _meta(3 * d, d), _meta(d, d)
@@ -384,10 +383,16 @@ def test_half_block_and_tp_kernels_still_refuse_f32():
             fn(x, r, r, r, g, wq, wo, 2)
         with pytest.raises(ValueError, match="all bf16 .* or all f32"):
             fn(x, r, r, r, g, wq.to(torch.bfloat16), wo, 2)
-    with pytest.raises(ValueError, match=r"row 9\) runs bf16 only.*later slice.*'mega'"):
-        mb._check(x, r, r, r, g, _meta(4 * d, d), _meta(d, 4 * d))
-    with pytest.raises(ValueError, match=r"rows 6-8\) run bf16 only.*later slice"):
-        tp._check(x, wq, _meta(d, d), 3, "attn_tp_partial")
+    mb._check(x, r, r, r, g, _meta(4 * d, d), _meta(d, 4 * d))
+    tp._check(x, wq, _meta(d, d), 3, "attn_tp_partial")
+    with pytest.raises(ValueError, match="CUDA"):
+        mb.fused_mlp_branch(x, r, r, r, g, _meta(4 * d, d), _meta(d, 4 * d))
+    with pytest.raises(ValueError, match="CUDA"):
+        tp.attn_tp_partial(x, r, r, g, wq, _meta(d, d), 2)
+    with pytest.raises(ValueError, match=r"row 9\).*all bf16 .* or all f32"):
+        mb._check(x, r, r, r, g, _meta(4 * d, d, dtype=torch.bfloat16), _meta(d, 4 * d))
+    with pytest.raises(ValueError, match=r"rows 6-8\).*all bf16 .* or all f32"):
+        tp._check(x, wq.to(torch.bfloat16), _meta(d, d), 3, "attn_tp_partial")
     with pytest.raises(ValueError, match="CUDA"):
         ab.out_gate_residual_bwd(_meta(n * t, d), wo, _meta(n * t, d), _meta(n, 3 * d), 2 * d, t)
     with pytest.raises(ValueError, match="both bf16 or both f32"):

@@ -383,13 +383,16 @@ def test_a_mixed_set_raises(mixed):
 def test_f32_dw_gemm_and_later_rows_raise_naming_their_slice():
     """dw_gemm (row 4', the in-kernel-dW variant, off by default) on f32
     operands raises naming its later slice rather than giving way to the
-    library pair; rows 6-9 keep their refusals."""
+    library pair; rows 6-9 take f32 since their own slice: an all-f32 set
+    reaches the CUDA check."""
     n, t, d = 2, 16, 128
     with pytest.raises(ValueError, match="row 4'.*later slice"):
         ab.dw_gemm(_meta(n * t, 3 * d), _meta(n * t, d), 0.25)
     x, r, g = _meta(n, t, d), _meta(n, d), _meta(1)
-    with pytest.raises(ValueError, match=r"row 9\) runs bf16 only.*later slice"):
-        mb._check(x, r, r, r, g, _meta(4 * d, d), _meta(d, 4 * d))
-    with pytest.raises(ValueError, match=r"rows 6-8\) run bf16 only.*later slice"):
-        tp._check(x, _meta(3 * d, d), _meta(d, d), 3, "attn_tp_partial")
+    with pytest.raises(ValueError, match="CUDA"):
+        mb.mlp_branch(x, r, r, r, g, _meta(4 * d, d), _meta(d, 4 * d))
+    with pytest.raises(ValueError, match="CUDA"):
+        tp.tp_attn(x, r, r, g, _meta(3 * d, d), _meta(d, d), 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        tp.tp_mlp(x, r, r, g, _meta(4 * d, d), _meta(d, 4 * d), 0.1)
 

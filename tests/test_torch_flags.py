@@ -214,8 +214,10 @@ def test_auto_takes_the_fastest_measured_path(model, input_size, want):
     the fastest paths measured on the H100 at S/2, B/2 and XL/2 (PERF.md);
     in float32 the same at S/2 only, the plain path from B/2 up, where
     ``off`` led the f32 kernels (F32_WEIGHT_BUDGET); never the attention
-    half-block. A float32 model keeps the plain path on a model axis (the
-    islands take bf16 only); the CPU stays on the plain path."""
+    half-block. A float32 model on a model axis follows the same policy, as
+    JAX's resolver does: ``mega_tp`` at S/2 (its islands run the f32
+    instances), the plain path from B/2 up; the CPU stays on the plain
+    path."""
     cfg = build_config(model, in_channels=4, input_size=input_size, num_classes=1000, compute_dtype="bfloat16",
                        fold_weights=True, block_kernel="auto")
     cuda, t = torch.device("cuda"), cfg.num_patches
@@ -226,7 +228,9 @@ def test_auto_takes_the_fastest_measured_path(model, input_size, want):
         assert not use_attn_halfkernel(c)
         assert stack_auto_ok(c, 32, cuda) == (w == "mega") and not stack_auto_ok(c, None, cuda)
     assert resolve_block_kernel_tp(cfg, True, 2, cuda) == {"mega": "mega_tp", "off": "off"}[want]
-    assert resolve_block_kernel_tp(cfg.replace(compute_dtype="float32"), True, 2, cuda) == "off"
+    f32_want = want if model == "DiT-S/2" else "off"
+    assert resolve_block_kernel_tp(cfg.replace(compute_dtype="float32"), True, 2, cuda) == {
+        "mega": "mega_tp", "off": "off"}[f32_want]
     cpu = torch.device("cpu")
     for other in (cfg, cfg.replace(compute_dtype="float32")):
         assert kernel_policy(other, t, cpu) == "off"

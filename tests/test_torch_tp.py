@@ -253,7 +253,11 @@ def test_islands_and_mesh_chains_on_spawned_ranks(monkeypatch):
     chain on the injected noise (2e-3; ROADMAP C says why eager); then ddim
     at eta 1 (the step noise drawn at the global shape, each rank keeping
     its rows) and dpm++ with limited-interval guidance on the mesh, each
-    against the unsharded chain."""
+    against the unsharded chain; then a float32 model named as such
+    (compute_dtype="float32", the type whose island kernels are the f32
+    instances of csrc/dit_block_tp.cu on the card) on each island at a
+    pre-CFG batch of 2 on the (1, 4) layout, its run config and weights f32,
+    against the unsharded chain and JAX's eager chain at float32."""
     v = _block_inputs()
     heads = 4
     islands = dict(
@@ -275,22 +279,24 @@ def test_islands_and_mesh_chains_on_spawned_ranks(monkeypatch):
                                     cfg_scale=torch_tp_ranks.CFG_SCALE, clip_denoised=True)
     # the unsharded chain of each island is the single-device kernel path
     # with the same arithmetic: the whole block (mega) or its attention half
-    def port_chain(kernel, **sampler):
+    def port_chain(kernel, dtype=None, **sampler):
         # the unsharded chain of each island is the single-device kernel
         # path with the same arithmetic: the whole block (mega) or its
         # attention half
         single = {"mega_tp": "mega", "mega_attn_tp": "mega_attn"}[kernel]
-        return build_sample_fn(cfg.replace(block_kernel=single), {k: torch.from_numpy(a) for k, a in sd.items()},
+        c = cfg.replace(block_kernel=single, **({"compute_dtype": dtype} if dtype else {}))
+        return build_sample_fn(c, {k: torch.from_numpy(a) for k, a in sd.items()},
                                create_diffusion(torch_tp_ranks.CHAIN_STEPS, device="cpu"),
                                cfg_scale=torch_tp_ranks.CFG_SCALE, clip_denoised=True, device="cpu", **sampler)
 
     rng = np.random.default_rng(5)
     chains = []
-    for i, (layout, kernel, n, sampler) in enumerate(
-        [((2, 2), "mega_attn_tp", 4, {}), ((2, 2), "mega_tp", 4, {}), ((1, 4), "mega_attn_tp", 4, {}),
-         ((1, 4), "mega_tp", 4, {}), ((2, 2), "mega_attn_tp", 1, {}),
-         ((2, 2), "mega_tp", 4, dict(sampler="ddim", eta=1.0)),
-         ((2, 2), "mega_attn_tp", 4, dict(sampler="dpm++", cfg_interval=(0.5, 10.0)))]
+    for i, (layout, kernel, n, sampler, dtype) in enumerate(
+        [((2, 2), "mega_attn_tp", 4, {}, None), ((2, 2), "mega_tp", 4, {}, None), ((1, 4), "mega_attn_tp", 4, {}, None),
+         ((1, 4), "mega_tp", 4, {}, None), ((2, 2), "mega_attn_tp", 1, {}, None),
+         ((2, 2), "mega_tp", 4, dict(sampler="ddim", eta=1.0), None),
+         ((2, 2), "mega_attn_tp", 4, dict(sampler="dpm++", cfg_interval=(0.5, 10.0)), None),
+         ((1, 4), "mega_tp", 2, {}, "float32"), ((1, 4), "mega_attn_tp", 2, {}, "float32")]
     ):
         z, y = _chain_inputs(rng, n)
         seed = 10 + i
@@ -299,9 +305,10 @@ def test_islands_and_mesh_chains_on_spawned_ranks(monkeypatch):
             with jax.disable_jit():
                 jax_ref = np.asarray(jax_chain(jnp.asarray(z), jnp.asarray(y.astype(np.int32)),
                                                jax.random.PRNGKey(0)))
-        port_ref = port_chain(kernel, **sampler)(*_t(z, y), torch.Generator().manual_seed(seed)).numpy()
-        chains.append(dict(name=f"{layout} {kernel} batch {n}x2 {sampler}", layout=layout, kernel=kernel, z=z, y=y,
-                           seed=seed, sampler=sampler, port_ref=port_ref, jax_ref=jax_ref))
+        port_ref = port_chain(kernel, dtype, **sampler)(*_t(z, y), torch.Generator().manual_seed(seed)).numpy()
+        chains.append(dict(name=f"{layout} {kernel} batch {n}x2 {sampler} {dtype or ''}", layout=layout,
+                           kernel=kernel, z=z, y=y, seed=seed, sampler=sampler, port_ref=port_ref, jax_ref=jax_ref,
+                           compute_dtype=dtype))
     spawn(torch_tp_ranks.run_cases, 4, args=(islands, chains, sd), device="cpu")
 
 

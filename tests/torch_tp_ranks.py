@@ -58,12 +58,19 @@ def _chain(mesh, case, sd):
     """build_sample_fn(mesh=) against the port's unsharded chain under the
     same generator (1e-4) and, on the injected noise, against JAX's eager
     chain (2e-3, the runtime chain bound of tests/test_torch_sample.py)
-    where the case has one (the ddpm chains)."""
-    cfg = build_config("DiT-XS/8", block_kernel=case["kernel"], **XS8)
+    where the case has one (the ddpm chains). A case's ``compute_dtype``
+    is given to the config, and its run config and folded weights must
+    have that type."""
+    dtype = case.get("compute_dtype")
+    cfg = build_config("DiT-XS/8", block_kernel=case["kernel"], **XS8, **({"compute_dtype": dtype} if dtype else {}))
     z, y = torch.from_numpy(case["z"]), torch.from_numpy(case["y"])
     kwargs = dict(cfg_scale=CFG_SCALE, clip_denoised=True, mesh=mesh, **case["sampler"])
     fn = build_sample_fn(cfg, sd, create_diffusion(CHAIN_STEPS, device="cpu"), **kwargs)
     assert fn.run_cfg.block_kernel == case["kernel"], fn.run_cfg.block_kernel
+    if dtype:
+        want = getattr(torch, dtype)
+        assert fn.run_cfg.dtype == want and all(
+            p.dtype == want for p in fn.prepared["model"].blocks[0].parameters()), case["name"]
     got = fn(z, y, torch.Generator().manual_seed(case["seed"])).numpy()
     np.testing.assert_allclose(got, case["port_ref"], rtol=1e-4, atol=1e-4, err_msg=case["name"])
     if case["jax_ref"] is None:
